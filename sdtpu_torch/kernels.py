@@ -1,0 +1,186 @@
+"""Build and bind the hand-written Hopper kernels in `csrc/`.
+
+The sources compile with nvcc into one shared library with a plain C
+interface (no PyTorch headers, so the build takes seconds), loaded through
+ctypes. The library is built at first use from the sources in the package
+and nothing else, into `build/kernels/` at the root of the checkout, under a
+name keyed by a hash of the sources and flags: an edited source builds
+anew, an unchanged one loads the library already there.
+
+Every C entry launches on the stream it is given, allocates nothing, and
+returns cudaGetLastError(); `check` raises on a nonzero code. Pointers and
+the stream are passed as ctypes.c_void_p.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# prologue codes of sdk_gemm (csrc/gemm.cu)
+PRO_NONE, PRO_LAYERNORM, PRO_AFFINE, PRO_AFFINE_SILU = 0, 1, 2, 3
+
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_SIGNATURES = {
+    "sdk_gemm": [_I, _P, _LL, _LL, _P, _LL, _P, _P, _LL, _LL, _P, _LL, _LL,
+                 _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    "sdk_gemm_row_tiles": [_I],
+    "sdk_conv": [_I, _P, _I, _LL, _P, _P, _P, _LL, _P, _P, _P, _P,
+                 _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "sdk_group_norm_silu": [_I, _P, _P, _P, _P, _I, _LL, _I, _I, _P],
+    "sdk_attention": [_I, _P, _P, _I, _I, _I, _I, _F, _P],
+    "sdk_channel_partials": [_I, _P, _P, _I, _I, _I, _I, _P],
+    "sdk_error_string": [_I],
+}
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    if path.exists():
+        return str(path)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the kernels build only where the "
+                           "CUDA toolkit is installed")
+    return found
+
+
+def library_path() -> Path:
+    cu, cuh = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in cu + cuh:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"libsdtpu_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> tuple[Path, str]:
+    """Compile the kernels unless the library for these sources exists.
+    Returns (path, compiler output); the output is empty when nothing was
+    built. The output (with ptxas's registers, shared memory and spills per
+    kernel) is also kept in a .log beside the library."""
+    out = library_path()
+    if out.exists():
+        return out, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu, _ = _sources()
+    tmp = out.parent / f"{out.name}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    log = proc.stdout + proc.stderr
+    out.with_name(out.name + ".log").write_text(log)
+    return out, log
+
+
+@functools.cache
+def lib() -> ctypes.CDLL:
+    path, _ = build()
+    so = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(so, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_char_p if name == "sdk_error_string" else ctypes.c_int
+    return so
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        msg = lib().sdk_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def dtype_code(t: torch.Tensor) -> int:
+    try:
+        return _DTYPE_CODES[t.dtype]
+    except KeyError:
+        raise TypeError(f"kernels take float32 or bfloat16, got {t.dtype}") from None
+
+
+def stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def on_cpu(*tensors: torch.Tensor) -> bool:
+    """True when the plain version applies: every tensor lies on the CPU.
+    A CUDA tensor means the kernel; any other device, or a CPU/CUDA mix,
+    raises."""
+    kinds = {t.device.type for t in tensors if t is not None}
+    if kinds == {"cpu"}:
+        return True
+    if kinds == {"cuda"}:
+        return False
+    raise ValueError(f"kernels take CPU or CUDA tensors on one device, got {kinds}")
+
+
+def ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def gemm(a, w, out, *, M: int, N: int, K: int, batch: int = 1,
+         lda: int, a_bs: int = 0, ldw: int, ldo: int, o_bs: int = 0,
+         bias=None, res=None, ldr: int = 0, r_bs: int = 0,
+         pa=None, pb=None, prologue: int = PRO_NONE, geglu_off: int = 0,
+         eps: float = 0.0, stats=None) -> None:
+    """Launch the shared GEMM (csrc/gemm.cu) on the current stream.
+    a, w, out, res share one dtype; bias, pa, pb, stats are float32.
+    The kernel moves 16 bytes at a time: K, N, the leading dimensions and
+    geglu_off must be multiples of 8, and the tensors 16-byte aligned."""
+    dims = {"K": K, "N": N, "lda": lda, "ldw": ldw, "ldo": ldo, "ldr": ldr,
+            "geglu_off": geglu_off}
+    bad = [f"{k}={v}" for k, v in dims.items() if v % 8]
+    bad += [f"{n} is not 16-byte aligned" for n, t in
+            (("a", a), ("w", w), ("out", out), ("res", res))
+            if t is not None and t.data_ptr() % 16]
+    if bad:
+        raise ValueError("sdk_gemm: " + ", ".join(bad))
+    rc = lib().sdk_gemm(dtype_code(a), ptr(a), lda, a_bs, ptr(w), ldw, ptr(bias),
+                        ptr(out), ldo, o_bs, ptr(res), ldr, r_bs, ptr(pa), ptr(pb),
+                        ptr(stats), M, N, K, batch, prologue, geglu_off, eps,
+                        stream(a))
+    check(rc, "sdk_gemm")
+
+
+def gemm_row_tiles(m: int) -> int:
+    return lib().sdk_gemm_row_tiles(m)
+
+
+def conv(x, w, out, *, C: int, H: int, W: int, N: int, batch: int, kw: int,
+         nphase: int, up: int, bias=None, res=None, pa=None, pb=None,
+         prologue: int = PRO_NONE, stats=None) -> None:
+    """Launch the shared GEMM as an implicit-GEMM convolution (sdk_conv in
+    csrc/gemm.cu): x [batch, H, W, C] NHWC; w [nphase, kw*kw*C, N]; out and
+    res [batch, H*up, W*up, N]. x, w, out, res share one dtype; bias, pa,
+    pb, stats are float32. C and N must be multiples of 8."""
+    bad = [f"{k}={v}" for k, v in (("C", C), ("N", N)) if v % 8]
+    bad += [f"{n} is not 16-byte aligned" for n, t in
+            (("x", x), ("w", w), ("out", out), ("res", res))
+            if t is not None and t.data_ptr() % 16]
+    if bad:
+        raise ValueError("sdk_conv: " + ", ".join(bad))
+    rc = lib().sdk_conv(dtype_code(x), ptr(x), C, H * W * C, ptr(w), ptr(bias),
+                        ptr(out), H * W * up * up * N, ptr(res), ptr(pa), ptr(pb),
+                        ptr(stats), H, W, N, batch, kw, nphase, up, prologue,
+                        stream(x))
+    check(rc, "sdk_conv")

@@ -1,0 +1,236 @@
+"""Convolutions with a GroupNorm-affine prologue and fused epilogues (port
+of sdtpu/ops/fused_conv.py): K4 conv1x1_fused, K6 conv3x3_fused, K7
+upsample2x_conv_fused, and their glue gn_scale_bias / stats_scale_bias.
+
+All three run on the shared GEMM of csrc/gemm.cu, K6 and K7 as an implicit
+GEMM over the NHWC map. The design applies the GroupNorm affine (+SiLU) to
+the A tile while it is staged in shared memory, and the bias, residual and
+optional per-channel output statistics to the f32 accumulator, so neither
+the normalised map nor the pre-residual output reaches HBM, and the next
+GroupNorm's statistics cost no read of the map.
+
+- K4 replaces the Pallas `_mm_kernel` (sdtpu/ops/fused_conv.py:406, called
+  at :473). At the UNet's proj_in/proj_out (4096 rows x 320 x 320 per
+  image) the product is small: one read and one write of the map.
+- K6 replaces `_kernel` / `_conv_part` (sdtpu/ops/fused_conv.py:96/44,
+  called at :232): the VAE decoder's ResnetBlock convs, 64x64x512 up to
+  512x512x128, 2·9·C·Co flops per pixel — compute-bound. No halo tensor:
+  each A vector computes its own shifted source pixel, zero outside.
+- K7 replaces `_up_kernel` (sdtpu/ops/fused_conv.py:276, called at :372):
+  conv3x3(nearest2x(x)) as four output phases of 2x2 taps at the input's
+  resolution (2.25x fewer flops than the 3x3 over the upsampled map), each
+  phase writing its interleaved pixels straight into the output.
+
+sdtpu's options that are TPU layout choices (block_h, block_r, kpack) have
+no counterpart; its implicit channel concat (x2, the UNet's fused up-path
+ResBlock at >= 128x128 latents) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sdtpu_torch import kernels
+from sdtpu_torch.ops.conv import UPSAMPLE_PHASE_PADS, conv2d, upsample_phase_weights
+from sdtpu_torch.ops.fused_groupnorm import channel_partials
+
+
+def _prologue(scale, bias, silu: bool, b: int, c: int):
+    """(prologue code, f32 scale [B, C], f32 bias [B, C]) for the GEMM."""
+    if scale is None:
+        return kernels.PRO_NONE, None, None
+    code = kernels.PRO_AFFINE_SILU if silu else kernels.PRO_AFFINE
+    return (code, scale.float().reshape(b, c).contiguous(),
+            bias.float().reshape(b, c).contiguous())
+
+
+def conv1x1_fused_plain(x, w, conv_bias, prologue_scale=None, prologue_bias=None,
+                        residual=None, silu: bool = False, emit_stats: bool = False):
+    """The plain version of conv1x1_fused: the same math in PyTorch ops."""
+    shape = x.shape
+    b, c = shape[0], shape[-1]
+    co = w.shape[-1]
+    xr = x.reshape(b, -1, c)
+    if prologue_scale is not None:
+        xf = (xr.float() * prologue_scale.float()[:, None, :]
+              + prologue_bias.float()[:, None, :])
+        if silu:
+            xf = xf * torch.sigmoid(xf)
+        xr = xf.to(x.dtype)
+    acc = torch.matmul(xr, w.to(x.dtype)).float() + conv_bias.float()
+    if residual is not None:
+        acc = acc + residual.reshape(b, -1, co).float()
+    y = acc.to(x.dtype).reshape(shape[:-1] + (co,))
+    if emit_stats:
+        return y, torch.stack([acc.sum(dim=1), (acc * acc).sum(dim=1)], dim=1)
+    return y
+
+
+def conv1x1_fused(x, w, conv_bias, prologue_scale=None, prologue_bias=None,
+                  residual=None, silu: bool = False, emit_stats: bool = False):
+    """Pointwise conv (= channel matmul) y = act(x·scale + bias)·W + b
+    [+ residual], optionally with the per-channel (sum, sum^2) of the f32 y.
+
+    x: [B, ..., C]; w: [C, Co]; conv_bias: [Co]; prologue scale/bias:
+    [B, C] (GroupNorm folded to an affine, see gn_scale_bias); residual:
+    x's leading shape with Co channels. Returns y, or (y, stats [B, 2, Co]).
+    CPU tensors take the plain version; CUDA tensors the kernel.
+    """
+    if kernels.on_cpu(x, w, conv_bias, prologue_scale, prologue_bias, residual):
+        return conv1x1_fused_plain(x, w, conv_bias, prologue_scale,
+                                   prologue_bias, residual, silu, emit_stats)
+    shape = x.shape
+    b, c = shape[0], shape[-1]
+    co = w.shape[-1]
+    rows = x.numel() // (b * c)
+    dt = x.dtype
+    x = x.contiguous()
+    w = w.to(dt).contiguous()
+    cb = conv_bias.float().contiguous()
+    prologue, ps, pb = _prologue(prologue_scale, prologue_bias, silu, b, c)
+    res = None if residual is None else residual.to(dt).reshape(b, rows, co).contiguous()
+    out = torch.empty((b, rows, co), dtype=dt, device=x.device)
+    stats = None
+    with torch.cuda.device(x.device):
+        if emit_stats:
+            stats = torch.empty((b, kernels.gemm_row_tiles(rows), 2, co),
+                                dtype=torch.float32, device=x.device)
+        kernels.gemm(x, w, out, M=rows, N=co, K=c, batch=b, lda=c, a_bs=rows * c,
+                     ldw=co, ldo=co, o_bs=rows * co, bias=cb, res=res, ldr=co,
+                     r_bs=rows * co, pa=ps, pb=pb, prologue=prologue, stats=stats)
+    conv1x1_fused.launches += 1
+    y = out.reshape(shape[:-1] + (co,))
+    if emit_stats:
+        return y, stats.sum(dim=1)
+    return y
+
+
+conv1x1_fused.launches = 0
+
+
+def _stats(acc):
+    """Per-channel (sum, sum^2) [B, 2, C] of an f32 map [B, ..., C]."""
+    a = acc.reshape(acc.shape[0], -1, acc.shape[-1])
+    return torch.stack([a.sum(dim=1), (a * a).sum(dim=1)], dim=1)
+
+
+def conv3x3_fused_plain(x, w, conv_bias, prologue_scale=None, prologue_bias=None,
+                        residual=None, silu: bool = True, emit_stats: bool = False):
+    """The plain version of conv3x3_fused: the same math in PyTorch ops."""
+    xin = x
+    if prologue_scale is not None:
+        xf = (x.float() * prologue_scale.float()[:, None, None, :]
+              + prologue_bias.float()[:, None, None, :])
+        if silu:
+            xf = xf * torch.sigmoid(xf)
+        xin = xf.to(x.dtype)
+    acc = conv2d({"w": w}, xin, padding=1).float() + conv_bias.float()
+    if residual is not None:
+        acc = acc + residual.float()
+    y = acc.to(x.dtype)
+    return (y, _stats(acc)) if emit_stats else y
+
+
+def conv3x3_fused(x, w, conv_bias, prologue_scale=None, prologue_bias=None,
+                  residual=None, silu: bool = True, emit_stats: bool = False):
+    """y = conv3x3(act(x·scale + bias)) + conv_bias [+ residual], zero
+    padding 1 applied after the prologue; act is SiLU when silu, and the
+    prologue (GroupNorm folded to an affine, see gn_scale_bias) is optional.
+
+    x: [B, H, W, C] NHWC; w: [3, 3, C, Co] HWIO; conv_bias: [Co]; prologue
+    scale/bias: [B, C]; residual: [B, H, W, Co]. Returns y, or (y, stats
+    [B, 2, Co] = per-channel (sum, sum^2) of the f32 y). CPU tensors take the
+    plain version; CUDA tensors the kernel."""
+    if kernels.on_cpu(x, w, conv_bias, prologue_scale, prologue_bias, residual):
+        return conv3x3_fused_plain(x, w, conv_bias, prologue_scale, prologue_bias,
+                                   residual, silu, emit_stats)
+    b, h, wd, c = x.shape
+    co = w.shape[-1]
+    if tuple(w.shape[:3]) != (3, 3, c):
+        raise ValueError(f"weight {tuple(w.shape)} does not fit {c} input channels")
+    dt = x.dtype
+    x = x.contiguous()
+    prologue, ps, pb = _prologue(prologue_scale, prologue_bias, silu, b, c)
+    res = None if residual is None else residual.to(dt).contiguous()
+    out = torch.empty((b, h, wd, co), dtype=dt, device=x.device)
+    stats = None
+    with torch.cuda.device(x.device):
+        if emit_stats:
+            stats = torch.empty((b, kernels.gemm_row_tiles(h * wd), 2, co),
+                                dtype=torch.float32, device=x.device)
+        kernels.conv(x, w.to(dt).contiguous(), out, C=c, H=h, W=wd, N=co, batch=b,
+                     kw=3, nphase=1, up=1, bias=conv_bias.float().contiguous(),
+                     res=res, pa=ps, pb=pb, prologue=prologue, stats=stats)
+    conv3x3_fused.launches += 1
+    return (out, stats.sum(dim=1)) if emit_stats else out
+
+
+conv3x3_fused.launches = 0
+
+def upsample2x_conv_fused_plain(x, w, conv_bias, emit_stats: bool = False):
+    """The plain version of upsample2x_conv_fused: four phase convolutions
+    with the same folded weights, interleaved."""
+    b, h, wd, _ = x.shape
+    co = w.shape[-1]
+    wph = upsample_phase_weights(w).to(x.dtype)
+    ph = [conv2d({"w": wph[2 * py + px]}, x, padding=UPSAMPLE_PHASE_PADS[(py, px)]).float()
+          for py in (0, 1) for px in (0, 1)]
+    acc = torch.stack(ph).reshape(2, 2, b, h, wd, co).permute(2, 3, 0, 4, 1, 5)
+    acc = acc.reshape(b, 2 * h, 2 * wd, co) + conv_bias.float()
+    y = acc.to(x.dtype)
+    return (y, _stats(acc)) if emit_stats else y
+
+
+def upsample2x_conv_fused(x, w, conv_bias, emit_stats: bool = False):
+    """conv3x3(nearest_upsample_2x(x)) + conv_bias without the upsampled
+    map: x [B, H, W, C]; w [3, 3, C, Co]; returns [B, 2H, 2W, Co], or (y,
+    stats [B, 2, Co]). CPU tensors take the plain version; CUDA tensors the
+    kernel."""
+    if kernels.on_cpu(x, w, conv_bias):
+        return upsample2x_conv_fused_plain(x, w, conv_bias, emit_stats)
+    b, h, wd, c = x.shape
+    co = w.shape[-1]
+    if tuple(w.shape[:3]) != (3, 3, c):
+        raise ValueError(f"weight {tuple(w.shape)} does not fit {c} input channels")
+    dt = x.dtype
+    x = x.contiguous()
+    wph = upsample_phase_weights(w).to(dt).reshape(4, 4 * c, co).contiguous()
+    out = torch.empty((b, 2 * h, 2 * wd, co), dtype=dt, device=x.device)
+    stats = None
+    with torch.cuda.device(x.device):
+        if emit_stats:
+            stats = torch.empty((b, 4 * kernels.gemm_row_tiles(h * wd), 2, co),
+                                dtype=torch.float32, device=x.device)
+        kernels.conv(x, wph, out, C=c, H=h, W=wd, N=co, batch=b, kw=2, nphase=4,
+                     up=2, bias=conv_bias.float().contiguous(), stats=stats)
+    upsample2x_conv_fused.launches += 1
+    return (out, stats.sum(dim=1)) if emit_stats else out
+
+
+upsample2x_conv_fused.launches = 0
+
+
+def gn_scale_bias(x, gamma, beta, n_group: int, eps: float):
+    """Per-(batch, channel) GroupNorm affine from one statistics pass over
+    x (K3): returns (scale, bias), each [B, C] f32, with
+    group_norm(x) == x * scale + bias."""
+    b, c = x.shape[0], x.shape[-1]
+    rows = x.numel() // (b * c)
+    return stats_scale_bias(channel_partials(x), rows, gamma, beta, n_group, eps)
+
+
+def stats_scale_bias(sums, rows: int, gamma, beta, n_group: int, eps: float):
+    """Fold per-channel (sum, sum^2) [B, 2, C] into the GroupNorm scale and
+    bias: one-pass variance E[x^2] - E[x]^2, eps inside the rsqrt."""
+    b, _, c = sums.shape
+    cpg = c // n_group
+    g = sums.reshape(b, 2, n_group, cpg).sum(dim=-1)  # [B, 2, G]
+    n = rows * cpg
+    mean = g[:, 0] / n
+    var = g[:, 1] / n - mean * mean
+    inv = torch.rsqrt(var + eps)
+    inv_c = inv.repeat_interleave(cpg, dim=1)
+    mean_c = mean.repeat_interleave(cpg, dim=1)
+    scale = inv_c * gamma.float()[None]
+    bias = beta.float()[None] - mean_c * scale
+    return scale, bias

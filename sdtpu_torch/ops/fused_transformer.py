@@ -1,0 +1,78 @@
+"""K2: the fused self-attention sublayer x + Wo·attn(LN(x)Wq, LN(x)Wk,
+LN(x)Wv) + bo (port of sdtpu/ops/fused_transformer.py:fused_self_attention).
+
+It replaces the Pallas `_kernel` (sdtpu/ops/fused_transformer.py:42, called
+at :145) with three launches of hand-written kernels:
+
+1. the shared GEMM (csrc/gemm.cu) with a LayerNorm prologue computes
+   LN(x)·[Wq | Wk | Wv] into one [B, S, 3C] buffer — LN(x) itself exists
+   only in shared memory; the concatenated weight is built once per model
+   (sdtpu_torch.models.unet.fuse_qkv), not on each call;
+2. csrc/attention.cu reads q, k, v per head straight from that buffer and
+   writes the heads merged as [B, S, C] — no split/merge transposes, no
+   [S, S] score matrix in HBM;
+3. the shared GEMM computes o·Wo + bo + x, bias and residual in the f32
+   epilogue.
+
+What bounds it on the H100: the attention core, 4·S²·C flops per image,
+compute-bound at every UNet level; see csrc/attention.cu.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sdtpu_torch import kernels
+from sdtpu_torch.ops.attention import qkv_attention
+from sdtpu_torch.ops.conv import linear
+from sdtpu_torch.ops.groupnorm import layer_norm
+
+MAX_HEAD_DIM = 160  # shared-memory bound of csrc/attention.cu
+
+
+def fused_self_attention_plain(x, ln_g, ln_b, wqkv, wo, bo,
+                               n_head: int, eps: float = 1e-5):
+    """The unfused composition sdtpu's oracle tests hold the kernel to."""
+    xn = layer_norm(x, ln_g, ln_b, eps)
+    q, k, v = linear({"w": wqkv}, xn).chunk(3, dim=-1)
+    o = qkv_attention(q, k, v, None, n_head)
+    return x + linear({"w": wo, "b": bo}, o)
+
+
+def fused_self_attention(x, ln_g, ln_b, wqkv, wo, bo,
+                         n_head: int, eps: float = 1e-5):
+    """x: [B, S, C] -> x + out_proj(attn(LN(x))). wqkv: [C, 3C], sdtpu's
+    wq | wk | wv side by side (no q/k/v bias; see
+    sdtpu_torch.models.unet.fuse_qkv); wo: [C, C]; bo: [C]. Scores use
+    d_head^-1/2, the same as the reference's dual d_head^-1/4. CPU tensors
+    take the plain version; CUDA tensors the kernels."""
+    if kernels.on_cpu(x, ln_g, ln_b, wqkv, wo, bo):
+        return fused_self_attention_plain(x, ln_g, ln_b, wqkv, wo, bo, n_head, eps)
+    b, s, c = x.shape
+    d_head = c // n_head
+    if d_head * n_head != c or d_head > MAX_HEAD_DIM or d_head % 8:
+        raise ValueError(f"C={c} with {n_head} heads: the kernel takes "
+                         f"d_head = C / n_head <= {MAX_HEAD_DIM}, a multiple of 8")
+    dt = x.dtype
+    x = x.contiguous()
+    m = b * s
+    wqkv = wqkv.to(dt).contiguous()
+    qkv = torch.empty((b, s, 3 * c), dtype=dt, device=x.device)
+    attn = torch.empty((b, s, c), dtype=dt, device=x.device)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        kernels.gemm(x, wqkv, qkv, M=m, N=3 * c, K=c, lda=c, ldw=3 * c,
+                     ldo=3 * c, pa=ln_g.float().contiguous(),
+                     pb=ln_b.float().contiguous(),
+                     prologue=kernels.PRO_LAYERNORM, eps=eps)
+        rc = kernels.lib().sdk_attention(
+            kernels.dtype_code(x), qkv.data_ptr(), attn.data_ptr(), b, s, c,
+            n_head, float(d_head) ** -0.5, kernels.stream(x))
+        kernels.check(rc, "sdk_attention")
+        kernels.gemm(attn, wo.to(dt).contiguous(), out, M=m, N=c, K=c, lda=c,
+                     ldw=c, ldo=c, bias=bo.float().contiguous(), res=x, ldr=c)
+    fused_self_attention.launches += 1
+    return out
+
+
+fused_self_attention.launches = 0

@@ -1,0 +1,158 @@
+"""Where the time of a 512x512 image goes on one NVIDIA GPU.
+
+    python -m sdtpu_torch.profile_pipeline [--out FILE] [--repeats N]
+
+Builds SD v1.4 at full width with random weights (seeded), bf16, and
+measures, after warm-up:
+
+1. `generate` (20 DDIM steps, CFG 7.5 batched, batch 1) N times: the wall
+   seconds of encode_prompt / denoise / decode of each run;
+2. one UNet call (batch 2, the batched CFG pair) and one VAE decode, the
+   latter also with the fused ResnetBlock and upsampler gates closed
+   (sdtpu's unfused branch: cuDNN convolutions between GroupNorm+SiLU
+   passes): the mean wall time of N calls (host clock, synchronised), and
+   the device kernel time of one call under torch.profiler, with its
+   largest items;
+3. the same UNet call replayed from a CUDA graph, and its largest
+   difference from the eager output.
+
+The report starts with the card's name and power limit, and goes to
+stdout and, with --out, to FILE as well.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+import time
+
+import torch
+
+from sdtpu_torch.config import SD_V1_4
+from sdtpu_torch.models import vae as vae_model
+from sdtpu_torch.models.unet import unet_apply
+from sdtpu_torch.ops import conv
+from sdtpu_torch.pipeline import StableDiffusion
+from sdtpu_torch.tokenizer import SimpleTokenizer
+from sdtpu_torch.weights import init_params
+
+PROMPT = "An ancient mossy stone."
+
+
+def _wall_ms(fn, repeats: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(repeats):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / repeats
+
+
+def _device_profile(fn, top: int):
+    """(device ms of one call of fn, [(name, ms, launches)] largest first):
+    the profiler's rows with device time and no CPU time of their own are
+    the kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.self_device_time_total > 0 and e.self_cpu_time_total == 0]
+    rows.sort(key=lambda r: -r[1])
+    return sum(r[1] for r in rows), rows[:top]
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", help="also write the report to this file")
+    ap.add_argument("--repeats", type=int, default=5)
+    ap.add_argument("--top", type=int, default=12)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        sys.exit("no CUDA device: this script measures the port on a GPU")
+    lines = []
+
+    def say(msg=""):
+        print(msg, flush=True)
+        lines.append(msg)
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+    say(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
+    dev = torch.device("cuda", 0)
+    sd = StableDiffusion(init_params(SD_V1_4, torch.Generator(device=dev).manual_seed(0),
+                                     device=dev), SD_V1_4, compute_dtype=torch.bfloat16)
+    tok = SimpleTokenizer()
+
+    say(f"1. generate 512x512 bf16, 20 DDIM steps, CFG 7.5, batch 1 ({args.repeats + 1} "
+        f"runs, the first includes first-call costs)")
+    for i in range(args.repeats + 1):
+        t0 = time.perf_counter()
+        sd.generate(tok, PROMPT, 7.5, 20, generator=torch.Generator(device=dev).manual_seed(i))
+        tm = sd.timings
+        say(f"   run {i}: wall {time.perf_counter() - t0:.4f} s = encode_prompt "
+            f"{tm['encode_prompt']:.4f} + denoise {tm['denoise']:.4f} + decode "
+            f"{tm['decode']:.4f}")
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn((2, 64, 64, 4), generator=g, device=dev).to(torch.bfloat16)
+    ctx, valid = sd.context(tok, PROMPT)
+    unctx, unvalid = sd.context(tok, "")
+    ctx2, valid2 = torch.cat([unctx, ctx]), torch.cat([unvalid, valid])
+    t = torch.tensor([481.0], device=dev)  # on the device, so a graph can hold it
+    unet, cfg = sd.params["unet"], SD_V1_4.unet
+    z = torch.randn((1, 64, 64, 4), generator=g, device=dev).to(torch.bfloat16)
+    vae = sd.params["autoencoder"]
+
+    def unet_call():
+        return unet_apply(unet, x, t, ctx2, cfg, ctx_valid=valid2)
+
+    def decode_call():
+        return vae_model.decode_latent(vae, z, SD_V1_4.vae)
+
+    def decode_unfused_call():
+        gates = vae_model.FUSED_CONV_MIN_ROWS, conv.FUSED_UP_MIN_ROWS
+        vae_model.FUSED_CONV_MIN_ROWS = conv.FUSED_UP_MIN_ROWS = 1 << 30
+        try:
+            return decode_call()
+        finally:
+            vae_model.FUSED_CONV_MIN_ROWS, conv.FUSED_UP_MIN_ROWS = gates
+
+    for name, fn in (("UNet call (batch 2)", unet_call),
+                     ("VAE decode (64x64 latent)", decode_call),
+                     ("VAE decode, fused gates closed", decode_unfused_call)):
+        wall = _wall_ms(fn, args.repeats)
+        dev_ms, top = _device_profile(fn, args.top)
+        say(f"2. {name}: wall {wall:.3f} ms (mean of {args.repeats}); device kernels "
+            f"{dev_ms:.3f} ms in one profiled call, busy share {dev_ms / wall:.3f}")
+        for key, ms, n in top:
+            say(f"   {ms:9.3f} ms {n:5d} launches  {key[:90]}")
+
+    eager = unet_call()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        unet_call()  # warm the allocator on the capture stream
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = unet_call()
+    replay_ms = _wall_ms(graph.replay, args.repeats)
+    diff = float((out.float() - eager.float()).abs().max())
+    say(f"3. UNet call replayed from a CUDA graph: wall {replay_ms:.3f} ms (mean of "
+        f"{args.repeats}); max |graph - eager| {diff:.3e}")
+
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write("\n".join(lines) + "\n")
+
+
+if __name__ == "__main__":
+    main()

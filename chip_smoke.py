@@ -7,21 +7,35 @@ Phases, each printing its lines:
 1. device and build: the card's name and power limit (nvidia-smi), then
    the kernels built from sdtpu_torch/csrc with nvcc;
 2. each kernel against its plain PyTorch version on the card, at the
-   shapes SD v1.4's 512px UNet and VAE decoder give it, in float32 and
-   bfloat16: max error against the stated tolerance, and both times (CUDA
-   events);
+   shapes SD v1.4's UNet and VAE decoder give it at 512px and at 1024px, in
+   float32 and bfloat16: max error against the stated tolerance, the times
+   of the kernel, of its plain version and, where one PyTorch call computes
+   the same function, of that call (CUDA events), and the least time the
+   card could take for the same work (its bound);
 3. one SpatialTransformer at the 64x64 latent level (C=320), random
-   weights, run on the card (kernels) and on the CPU (plain versions); then
-   the VAE decoder at SD v1.4 width on a 16x16 latent with every fused gate
-   opened, card against CPU;
+   weights, run on the card (kernels) and on the CPU (plain versions); the
+   VAE decoder at SD v1.4 width on a 16x16 latent with every fused gate
+   opened, card against CPU; one fused up-path ResBlock of the 1024px UNet
+   (128x128, 640 + 320 skip channels -> 320), card against CPU;
 4. StableDiffusion.generate at SD v1.4 width with random weights: bf16,
-   512x512, 20 DDIM steps, CFG 7.5, batch 1. The output must be a
-   [1, 512, 512, 3] uint8 image from finite latents, and the kernels'
-   launch counters must read exactly what the dispatch implies.
+   20 DDIM steps, CFG 7.5, batch 1, first at 512x512, then at 1024x1024
+   (the same config with image_size=1024). Each must give a
+   [1, size, size, 3] uint8 image from finite latents, and the kernels'
+   launch counters, set to 0 just before each run and read just after,
+   must read exactly what the dispatch implies.
 
 It prints a JSON line of per-kernel results, then the card's name and
 power limit, then, last, {"ok": true, "device": {...}}. Any failure
-exits nonzero before that line; there is no CPU fallback.
+exits nonzero before that line; there is no CPU fallback. In the JSON
+line `launches` is the sum of both generate runs, and `ms`, `plain_ms`,
+`bound_ms` and `library_ms` are for those launches: each main-path shape's
+bfloat16 time (or bound) times its launches in the two runs, summed.
+
+Bounds: max(operations / peak rate, bytes / 3.35 TB/s), the inputs read
+once and the outputs written once; products at the tensor cores' dense
+bf16 peak (989 TFLOP/s), the normalisation passes at the f32 peak outside
+them (67 TFLOP/s): the NVIDIA H100 SXM data sheet's rates, which assume a
+700 W power limit.
 
 Precision: float32 matmuls and convolutions in the plain versions run in
 full float32 (torch.backends.cuda.matmul.allow_tf32 and
@@ -32,13 +46,18 @@ so the float32 tolerances below are TF32 tolerances.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
 import time
+from typing import Callable, NamedTuple, Optional
 
 SEED = 0
 WARMUP, ITERS = 3, 20
+PEAK_TENSOR = 989e12  # dense bf16 FLOP/s
+PEAK_F32 = 67e12      # f32 FLOP/s outside the tensor cores
+HBM = 3.35e12         # bytes/s
 
 
 def fail(msg: str) -> None:
@@ -85,84 +104,171 @@ def within(got, want, atol, rtol) -> tuple[float, bool]:
     return float(err.max()), ok
 
 
-def kernel_cases(dtype, dev):
-    """Main-path inputs for each kernel: (name, shape label, launches per
-    image, fn, plain fn, args, kwargs). Shapes are SD v1.4's at 512px: the
-    UNet's with batched CFG (B=2, 20 steps), the VAE decoder's (B=1, once)."""
-    import torch
+class Case(NamedTuple):
+    """One main-path shape of a kernel. calls: its launches in the two
+    generate runs (512px and 1024px); ops and peak: the operations the
+    function needs and the card's rate for them; library: one PyTorch call
+    that computes the same function on the same inputs, or None."""
+    name: str
+    shape: str
+    calls: int
+    fn: Callable
+    plain: Callable
+    args: tuple
+    kw: dict
+    ops: float
+    peak: float = PEAK_TENSOR
+    library: Optional[Callable] = None
 
-    from sdtpu_torch.ops import fused_conv, fused_groupnorm, fused_mlp, fused_transformer
+
+def kernel_cases(dtype, dev):
+    """Main-path inputs for each kernel. Shapes are SD v1.4's at 512px and
+    1024px: the UNet's with batched CFG (B=2, 20 steps), the VAE decoder's
+    (B=1, once)."""
+    import torch
+    import torch.nn.functional as F
+
+    from sdtpu_torch.ops import (flash_attention, fused_conv, fused_groupnorm, fused_mlp,
+                                 fused_transformer)
 
     g = torch.Generator(device=dev).manual_seed(SEED)
 
     def rnd(*shape, scale=1.0):
         return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
 
+    def gn_fold(x, eps, x2=None):
+        c = x.shape[-1] + (0 if x2 is None else x2.shape[-1])
+        gamma, beta = rnd(c, scale=0.1) + 1.0, rnd(c, scale=0.1)
+        sums = fused_groupnorm.channel_partials_plain(x)
+        if x2 is not None:
+            sums = torch.cat([sums, fused_groupnorm.channel_partials_plain(x2)], dim=-1)
+        return fused_conv.stats_scale_bias(sums, x.shape[1] * x.shape[2], gamma, beta, 32, eps)
+
     cases = []
-    x64 = rnd(2, 64, 64, 320)
-    cases.append(("channel_partials", "64x64x320", 100, fused_groupnorm.channel_partials,
-                  fused_groupnorm.channel_partials_plain, (x64,), {}))
-    cases.append(("channel_partials", "vae 64x64x512", 2, fused_groupnorm.channel_partials,
-                  fused_groupnorm.channel_partials_plain, (rnd(1, 64, 64, 512),), {}))
-    cases.append(("channel_partials", "vae 128x128x512", 1,
-                  fused_groupnorm.channel_partials, fused_groupnorm.channel_partials_plain,
-                  (rnd(1, 128, 128, 512),), {}))
+    # K3: the UNet's ResBlock inputs and skips (1024px) and its transformers'
+    # entry GroupNorm at 64x64 (512px: C=320, 1024px: C=640); the decoder's
+    for label, shape, calls in (("64x64x320 B=2", (2, 64, 64, 320), 100),
+                                ("64x64x640 B=2", (2, 64, 64, 640), 100),
+                                ("128x128x320 B=2", (2, 128, 128, 320), 140),
+                                ("128x128x640 B=2", (2, 128, 128, 640), 20),
+                                ("vae 64x64x512", (1, 64, 64, 512), 2),
+                                ("vae 128x128x512", (1, 128, 128, 512), 3)):
+        x = rnd(*shape)
+        cases.append(Case("channel_partials", label, calls, fused_groupnorm.channel_partials,
+                          fused_groupnorm.channel_partials_plain, (x,), {}, 3 * x.numel(),
+                          PEAK_F32))
 
-    c = 320
-    xr = x64.reshape(2, 4096, c)
-    gamma, beta = rnd(c, scale=0.1) + 1.0, rnd(c, scale=0.1)
-    scale, bias = fused_conv.stats_scale_bias(
-        fused_groupnorm.channel_partials_plain(xr), 4096, gamma, beta, 32, 1e-5)
-    w, cb = rnd(c, c, scale=c ** -0.5), rnd(c, scale=0.1)
-    cases.append(("conv1x1_fused", "proj_in 4096x320", 100, fused_conv.conv1x1_fused,
-                  fused_conv.conv1x1_fused_plain, (xr, w, cb, scale, bias), {}))
-    cases.append(("conv1x1_fused", "proj_out 4096x320", 100, fused_conv.conv1x1_fused,
-                  fused_conv.conv1x1_fused_plain, (xr, w, cb),
-                  {"residual": rnd(2, 4096, c)}))
+    # K4: proj_in (GroupNorm prologue) and proj_out (residual) at 64x64x320
+    # (512px), 128x128x320 and 64x64x640 (1024px)
+    for rows, c, calls in ((4096, 320, 100), (16384, 320, 100), (4096, 640, 100)):
+        xr = rnd(2, rows, c)
+        scale, bias = fused_conv.stats_scale_bias(
+            fused_groupnorm.channel_partials_plain(xr), rows, rnd(c, scale=0.1) + 1.0,
+            rnd(c, scale=0.1), 32, 1e-5)
+        w, cb = rnd(c, c, scale=c ** -0.5), rnd(c, scale=0.1)
+        ops = 2 * 2 * rows * c * c
+        cases.append(Case("conv1x1_fused", f"proj_in {rows}x{c}", calls, fused_conv.conv1x1_fused,
+                          fused_conv.conv1x1_fused_plain, (xr, w, cb, scale, bias), {}, ops))
+        cases.append(Case("conv1x1_fused", f"proj_out {rows}x{c}", calls,
+                          fused_conv.conv1x1_fused, fused_conv.conv1x1_fused_plain,
+                          (xr, w, cb), {"residual": rnd(2, rows, c)}, ops))
 
-    for s, c in ((4096, 320), (1024, 640), (256, 1280)):
+    # K2 at every UNet level of both sizes (the 16x16 middle block at 1024px)
+    for s, c, calls in ((4096, 320, 100), (1024, 640, 100), (256, 1280, 120),
+                        (16384, 320, 100), (4096, 640, 100), (1024, 1280, 100)):
         x = rnd(2, s, c)
         args = (x, rnd(c, scale=0.1) + 1.0, rnd(c, scale=0.1),
                 rnd(c, 3 * c, scale=c ** -0.5), rnd(c, c, scale=c ** -0.5),
                 rnd(c, scale=0.1), 8)
-        cases.append(("fused_self_attention", f"S={s} C={c} dh={c // 8}", 100,
-                      fused_transformer.fused_self_attention,
-                      fused_transformer.fused_self_attention_plain, args, {}))
-    for s, c in ((1024, 640), (256, 1280)):
+        cases.append(Case("fused_self_attention", f"S={s} C={c} dh={c // 8}", calls,
+                          fused_transformer.fused_self_attention,
+                          fused_transformer.fused_self_attention_plain, args, {},
+                          2 * (8 * s * c * c + 4 * s * s * c)))
+    for s, c, calls in ((1024, 640, 100), (256, 1280, 120), (1024, 1280, 100)):
         x = rnd(2, s, c)
         args = (x, rnd(c, scale=0.1) + 1.0, rnd(c, scale=0.1),
                 rnd(c, 8 * c, scale=c ** -0.5), rnd(8 * c, scale=0.1),
                 rnd(4 * c, c, scale=(4 * c) ** -0.5), rnd(c, scale=0.1))
-        cases.append(("fused_geglu_mlp", f"S={s} C={c}", 100, fused_mlp.fused_geglu_mlp,
-                      fused_mlp.fused_geglu_mlp_plain, args, {}))
+        cases.append(Case("fused_geglu_mlp", f"S={s} C={c}", calls, fused_mlp.fused_geglu_mlp,
+                          fused_mlp.fused_geglu_mlp_plain, args, {}, 2 * 24 * s * c * c))
 
-    # the VAE decoder's fused ResnetBlock convs (GN+SiLU prologue, residual,
-    # output stats), its two large upsamplers and its output GroupNorm+SiLU
-    for hw, ci, co, n in ((64, 512, 512, 10), (128, 512, 512, 6), (256, 512, 256, 1),
-                          (256, 256, 256, 5), (512, 256, 128, 1), (512, 128, 128, 5)):
-        x = rnd(1, hw, hw, ci)
-        gamma, beta = rnd(ci, scale=0.1) + 1.0, rnd(ci, scale=0.1)
-        scale, bias = fused_conv.stats_scale_bias(
-            fused_groupnorm.channel_partials_plain(x), hw * hw, gamma, beta, 32, 1e-6)
-        args = (x, rnd(3, 3, ci, co, scale=(9 * ci) ** -0.5), rnd(co, scale=0.1), scale, bias)
-        cases.append(("conv3x3_fused", f"{hw}x{hw} {ci}->{co}", n, fused_conv.conv3x3_fused,
-                      fused_conv.conv3x3_fused_plain, args,
-                      {"residual": rnd(1, hw, hw, co), "emit_stats": True}))
-    for hw, c in ((128, 512), (256, 256)):
-        args = (rnd(1, hw, hw, c), rnd(3, 3, c, c, scale=(9 * c) ** -0.5), rnd(c, scale=0.1))
-        cases.append(("upsample2x_conv_fused", f"{hw}x{hw}x{c} -> {2 * hw}x{2 * hw}", 1,
-                      fused_conv.upsample2x_conv_fused, fused_conv.upsample2x_conv_fused_plain,
-                      args, {"emit_stats": True}))
-    x = rnd(1, 512, 512, 128)
-    args = (x, rnd(128, scale=0.1) + 1.0, rnd(128, scale=0.1), 32, 1e-6)
-    cases.append(("group_norm_silu", "512x512x128", 1, fused_groupnorm.group_norm_silu,
-                  fused_groupnorm.group_norm_silu_plain, args,
-                  {"sums": fused_groupnorm.channel_partials_plain(x)}))
+    # K1: the VAE's mid-block attention at 1024px (one head, d=512), and
+    # training's narrow heads with and without a key-padding bias (no
+    # launch on the main path)
+    for bh, n_head, s, d, bias, calls in ((1, 1, 16384, 512, False, 1),
+                                          (16, 8, 4096, 40, False, 0),
+                                          (16, 8, 4096, 80, True, 0)):
+        q, k, v = rnd(bh, s, d), rnd(bh, s, d), rnd(bh, s, d)
+        kb = None
+        if bias:
+            kb = torch.where(torch.arange(s, device=dev)[None] < torch.tensor(
+                [[s // 3], [s - 77]], device=dev), 0.0, -1e30).to(torch.float32)
+
+        def sdpa(q, k, v, key_bias=None, n_head=1):
+            q4, k4, v4 = (t.view(t.shape[0] // n_head, n_head, *t.shape[1:])
+                          for t in (q, k, v))
+            mask = None if key_bias is None else key_bias[:, None, None, :].to(q.dtype)
+            return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
+
+        cases.append(Case("flash_attention_heads",
+                          f"BH={bh} S={s} d={d}{' bias' if bias else ''}", calls,
+                          flash_attention.flash_attention_heads,
+                          flash_attention.flash_attention_heads_plain,
+                          (q, k, v, kb, n_head), {}, 4 * bh * s * s * d, library=sdpa))
+
+    # K6: the UNet's fused ResBlocks at 128x128 (1024px, B=2): conv_in over
+    # the implicit skip concat (x2), and the 320->320 convs; the VAE
+    # decoder's ResnetBlock convs at both sizes (GN+SiLU prologue, residual,
+    # output stats)
+    def conv_case(label, calls, b, hw, ci, co, c2, eps):
+        x = rnd(b, hw, hw, ci)
+        x2 = rnd(b, hw, hw, c2) if c2 else None
+        scale, bias = gn_fold(x, eps, x2)
+        w, cb = rnd(3, 3, ci + c2, co, scale=(9 * (ci + c2)) ** -0.5), rnd(co, scale=0.1)
+        kw = {"residual": rnd(b, hw, hw, co), "emit_stats": True}
+        args = (x, w, cb, scale[:, :ci], bias[:, :ci])
+        if c2:
+            kw.update(x2=x2, prologue_scale2=scale[:, ci:], prologue_bias2=bias[:, ci:])
+        w_oihw = w.permute(3, 2, 0, 1).contiguous()
+
+        def conv(*a, **k):  # the convolution alone, without prologue or epilogue
+            xin = x if x2 is None else torch.cat([x, x2], dim=-1)
+            return F.conv2d(xin.permute(0, 3, 1, 2), w_oihw, cb.to(dtype), padding=1)
+
+        cases.append(Case("conv3x3_fused", label, calls, fused_conv.conv3x3_fused,
+                          fused_conv.conv3x3_fused_plain, args, kw,
+                          2 * 9 * b * hw * hw * (ci + c2) * co, library=conv))
+
+    conv_case("unet 128x128 640+320->320 B=2", 20, 2, 128, 640, 320, 320, 1e-5)
+    conv_case("unet 128x128 320+320->320 B=2", 40, 2, 128, 320, 320, 320, 1e-5)
+    conv_case("unet 128x128 320->320 B=2", 140, 2, 128, 320, 320, 0, 1e-5)
+    for hw, ci, co, n in ((64, 512, 512, 10), (128, 512, 512, 16), (256, 512, 256, 1),
+                          (256, 256, 256, 5), (512, 256, 128, 1), (512, 128, 128, 5),
+                          (256, 512, 512, 6), (512, 512, 256, 1), (512, 256, 256, 5),
+                          (1024, 256, 128, 1), (1024, 128, 128, 5)):
+        conv_case(f"vae {hw}x{hw} {ci}->{co}", n, 1, hw, ci, co, 0, 1e-6)
+
+    for hw, c, co, n in ((128, 512, 512, 2), (256, 256, 256, 1), (256, 512, 512, 1),
+                         (512, 256, 256, 1)):
+        args = (rnd(1, hw, hw, c), rnd(3, 3, c, co, scale=(9 * c) ** -0.5), rnd(co, scale=0.1))
+        cases.append(Case("upsample2x_conv_fused", f"{hw}x{hw}x{c} -> {2 * hw}x{2 * hw}", n,
+                          fused_conv.upsample2x_conv_fused,
+                          fused_conv.upsample2x_conv_fused_plain, args, {"emit_stats": True},
+                          2 * 16 * hw * hw * c * co))
+    for hw in (512, 1024):
+        x = rnd(1, hw, hw, 128)
+        args = (x, rnd(128, scale=0.1) + 1.0, rnd(128, scale=0.1), 32, 1e-6)
+        cases.append(Case("group_norm_silu", f"{hw}x{hw}x128", 1, fused_groupnorm.group_norm_silu,
+                          fused_groupnorm.group_norm_silu_plain, args,
+                          {"sums": fused_groupnorm.channel_partials_plain(x)}, 8 * x.numel(),
+                          PEAK_F32))
     return cases
 
 
 # name -> (route, source, the sdtpu function that reaches its pl.pallas_call)
 KERNEL_INFO = {
+    "flash_attention_heads": ("cuda", "sdtpu_torch/csrc/flash_attention.cu",
+                              "sdtpu/ops/flash_attention.py:220"),
     "channel_partials": ("cuda", "sdtpu_torch/csrc/channel_stats.cu",
                          "sdtpu/ops/fused_groupnorm.py:47"),
     "conv1x1_fused": ("cuda", "sdtpu_torch/csrc/gemm.cu", "sdtpu/ops/fused_conv.py:428"),
@@ -179,19 +285,35 @@ KERNEL_INFO = {
 
 def wrappers() -> dict:
     """name -> the kernel's wrapper, which carries its launch count."""
-    from sdtpu_torch.ops import fused_conv, fused_groupnorm, fused_mlp, fused_transformer
+    from sdtpu_torch.ops import (flash_attention, fused_conv, fused_groupnorm, fused_mlp,
+                                 fused_transformer)
 
-    fns = (fused_groupnorm.channel_partials, fused_conv.conv1x1_fused,
-           fused_transformer.fused_self_attention, fused_mlp.fused_geglu_mlp,
-           fused_conv.conv3x3_fused, fused_conv.upsample2x_conv_fused,
-           fused_groupnorm.group_norm_silu)
+    fns = (flash_attention.flash_attention_heads, fused_groupnorm.channel_partials,
+           fused_conv.conv1x1_fused, fused_transformer.fused_self_attention,
+           fused_mlp.fused_geglu_mlp, fused_conv.conv3x3_fused,
+           fused_conv.upsample2x_conv_fused, fused_groupnorm.group_norm_silu)
     return {f.__name__: f for f in fns}
 
 
+def _nbytes(*trees) -> int:
+    """Bytes of every tensor in the given (nested tuples/dicts of) values."""
+    import torch
+
+    n = 0
+    for t in trees:
+        if torch.is_tensor(t):
+            n += t.numel() * t.element_size()
+        elif isinstance(t, (tuple, list)):
+            n += _nbytes(*t)
+        elif isinstance(t, dict):
+            n += _nbytes(*t.values())
+    return n
+
+
 def phase_kernels(dev) -> dict:
-    """Phase 2. Returns per-kernel {max_abs_err, ms, plain_ms} where ms are
-    per image (each shape's time times its launches per image), from the
-    bfloat16 run, the main path's dtype."""
+    """Phase 2. Returns per-kernel {max_abs_err, ms, plain_ms, bound_ms,
+    library_ms} from the bfloat16 run, the main path's dtype; the times are
+    each shape's time times its launches in the two generate runs, summed."""
     import torch
 
     from sdtpu_torch.ops.fused_groupnorm import channel_partials_plain
@@ -201,11 +323,14 @@ def phase_kernels(dev) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         atol, rtol = TOL[dname]
-        for name, shape, calls, fn, plain, args, kw in kernel_cases(dtype, dev):
-            got, want = fn(*args, **kw), plain(*args, **kw)
+        for c in kernel_cases(dtype, dev):
+            got, want = c.fn(*c.args, **c.kw), c.plain(*c.args, **c.kw)
             torch.cuda.synchronize()
-            a, r = (STATS_TOL if name == "channel_partials" else (atol, rtol))
-            if kw.get("emit_stats"):
+            a, r = (STATS_TOL if c.name == "channel_partials" else (atol, rtol))
+            ops_ms, bytes_ms = 1e3 * c.ops / c.peak, 1e3 * _nbytes(c.args, c.kw, got) / HBM
+            bound_ms = max(ops_ms, bytes_ms)
+            bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+            if c.kw.get("emit_stats"):
                 (got, got_st), (want, _) = got, want
                 # the emitted statistics are sums over the f32 accumulator:
                 # held to the sums of the kernel's own output, within that
@@ -216,23 +341,35 @@ def phase_kernels(dev) -> dict:
                 y_sums = channel_partials_plain(got)
                 tol_st = (2.0 ** -8 if dtype == torch.bfloat16 else 1e-5) * _stats_scale(got)
                 st_err = float(((got_st - y_sums).abs() / tol_st).max())
-                print(f"kernel {name:21s} {dname:8s} {shape:20s} emitted stats: max "
+                print(f"kernel {c.name:21s} {dname:8s} {c.shape:30s} emitted stats: max "
                       f"|err| / tol {st_err:.3f}", flush=True)
                 if st_err > 1.0:
-                    failed.append(f"{name} {dname} {shape} stats")
+                    failed.append(f"{c.name} {dname} {c.shape} stats")
             err, ok = within(got, want, a, r)
-            ms = cuda_ms(lambda: fn(*args, **kw))
-            plain_ms = cuda_ms(lambda: plain(*args, **kw))
-            print(f"kernel {name:21s} {dname:8s} {shape:20s} max_abs_err {err:.3e} "
+            del got, want
+            ms = cuda_ms(lambda: c.fn(*c.args, **c.kw))
+            plain_ms = cuda_ms(lambda: c.plain(*c.args, **c.kw))
+            lib_ms = None if c.library is None else cuda_ms(lambda: c.library(*c.args, **c.kw))
+            lib = "" if lib_ms is None else f"  library {lib_ms:.4f} ms"
+            print(f"kernel {c.name:21s} {dname:8s} {c.shape:30s} max_abs_err {err:.3e} "
                   f"(tol {a:g} + {r:g}|ref|) {'ok' if ok else 'FAILED'}  "
-                  f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms", flush=True)
+                  f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms{lib}  bound {bound_ms:.4f} ms "
+                  f"({bound_by})  launches {c.calls}", flush=True)
             if not ok:
-                failed.append(f"{name} {dname} {shape}")
+                failed.append(f"{c.name} {dname} {c.shape}")
             if dtype == torch.bfloat16:
-                e = results.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0})
+                e = results.setdefault(c.name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                                                "bound_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0,
+                                                "library_ms": 0.0 if lib_ms is not None
+                                                else None})
                 e["max_abs_err"] = max(e["max_abs_err"], err)
-                e["ms"] += calls * ms
-                e["plain_ms"] += calls * plain_ms
+                e["ms"] += c.calls * ms
+                e["plain_ms"] += c.calls * plain_ms
+                e["bound_ms"] += c.calls * bound_ms
+                e["ops_ms"] += c.calls * ops_ms
+                e["bytes_ms"] += c.calls * bytes_ms
+                if e["library_ms"] is not None:
+                    e["library_ms"] += c.calls * lib_ms
     if failed:
         fail("kernel disagrees with its plain version: " + "; ".join(failed))
     return results
@@ -342,38 +479,106 @@ def phase_decode(dev) -> None:
         fail(f"the VAE decoder launched {fired}, expected {expect}")
 
 
-# launches per image the dispatch implies for SD v1.4 at 512px with batched
-# CFG and 20 steps. Per UNet call K2 fires in the 15 transformers at
-# 64^2/32^2/16^2 (not the 8^2 middle), K5 in the 10 below 2048 tokens, K4
-# twice and K3 once in the 5 at 64^2. The VAE decoder runs its 14
-# ResnetBlocks (all at >= 64^2) as 28 K6 launches, the upsamplers at 128^2
-# and 256^2 as K7 (the one at 64^2 stays plain), the output norm as K8, and
-# K3 where no kernel handed statistics on: the two mid blocks and the block
-# after the plain upsampler.
-EXPECTED_LAUNCHES = {"channel_partials": 103, "conv1x1_fused": 200,
-                     "fused_self_attention": 300, "fused_geglu_mlp": 200,
-                     "conv3x3_fused": 28, "upsample2x_conv_fused": 2,
-                     "group_norm_silu": 1}
+# one fused ResBlock through two K6 convolutions and a 1x1 skip connection
+# of 960 channels: TF32 products, GroupNorm statistics folded in between
+RESBLOCK_TOL = (1e-2, 1e-2)
 
 
-def phase_generate(dev) -> dict:
-    """Phase 4: StableDiffusion.generate at SD v1.4 width, random weights,
-    bf16, 512x512, 20 DDIM steps, CFG 7.5, batch 1. Returns launch counts."""
+def phase_resblock(dev) -> None:
+    """Phase 3c: the first up-path ResBlock of SD v1.4's UNet at 1024px
+    (128x128 latent, 640 channels + the 320-channel skip -> 320), float32,
+    random weights, on the card (K3 on both parts, K6 with the skip as its
+    second input, then K6 with the residual) and on the CPU (plain)."""
     import torch
 
     from sdtpu_torch.config import SD_V1_4
+    from sdtpu_torch.models import unet
+    from sdtpu_torch.ops import fused_conv
+    from sdtpu_torch.weights import Init
+
+    cfg = SD_V1_4.unet
+    g = torch.Generator().manual_seed(SEED)
+    p_cpu = unet._init_res_block(Init(g, "cpu"), 960, cfg.time_embed_dim, 320)
+    x = torch.randn((1, 128, 128, 640), generator=g)
+    skip = torch.randn((1, 128, 128, 320), generator=g)
+    emb = torch.randn((1, cfg.time_embed_dim), generator=g)
+    if not unet._use_fused_resblock(x, 320):
+        fail("the 1024px up-path ResBlock does not pass the fused gate")
+    fns = wrappers()
+    before = {k: f.launches for k, f in fns.items()}
+    before_x2 = fused_conv.conv3x3_fused.launches_x2
+    got, st = unet._res_block_apply(to(p_cpu, dev), x.to(dev), emb.to(dev), cfg,
+                                    emit_stats=True, skip=skip.to(dev))
+    torch.cuda.synchronize()
+    fired = {k: f.launches - before[k] for k, f in fns.items() if f.launches > before[k]}
+    fired_x2 = fused_conv.conv3x3_fused.launches_x2 - before_x2
+    want = unet._res_block_apply(p_cpu, x, emb, cfg, skip=skip)
+    atol, rtol = RESBLOCK_TOL
+    err, ok = within(got.cpu(), want, atol, rtol)
+    # the emitted statistics against the sums of the card's own output (see
+    # phase 2), f32 sums in another order
+    from sdtpu_torch.ops.fused_groupnorm import channel_partials_plain
+
+    st_err = float(((st - channel_partials_plain(got)).abs() / (1e-5 * _stats_scale(got))).max())
+    print(f"resblock 128x128 640+320->320 card (kernels) vs cpu (plain) float32 max_abs_err "
+          f"{err:.3e} (tol {atol:g} + {rtol:g}|ref|), stats max |err| / tol {st_err:.3f}, "
+          f"launches {fired}, with x2 {fired_x2} {'ok' if ok and st_err <= 1 else 'FAILED'}",
+          flush=True)
+    if not ok or st_err > 1:
+        fail("the fused ResBlock on the card disagrees with the CPU")
+    if fired != {"channel_partials": 2, "conv3x3_fused": 2} or fired_x2 != 1:
+        fail(f"the fused ResBlock launched {fired} ({fired_x2} with x2), expected K3 2, "
+             f"K6 2 (1 with x2)")
+
+
+# launches per image the dispatch implies for SD v1.4 with batched CFG and
+# 20 steps (per UNet call, times 20).
+# 512px: K2 in the 15 transformers at 64^2/32^2/16^2 (not the 8^2 middle),
+# K5 in the 10 below 2048 tokens, K4 twice and K3 once in the 5 at 64^2.
+# The VAE decoder runs its 14 ResnetBlocks (all at >= 64^2) as 28 K6
+# launches, the upsamplers at 128^2 and 256^2 as K7 (the one at 64^2 stays
+# plain), the output norm as K8, and K3 where no kernel handed statistics
+# on: the two mid blocks and the block after the plain upsampler.
+# 1024px: K2 in all 16 transformers (the 16^2 middle now passes its gate),
+# K5 in the 6 below 2048 tokens (32^2 and the middle), K4 twice in the 10 at
+# 128^2 and 64^2. The 5 ResBlocks at 128^2 take the fused branch: 10 K6, the
+# 3 up-path conv_in with the skip as x2; K3 on their inputs (1 each, 2 on
+# the up path: x and skip) and in the 5 transformers at 64^2 (those at 128^2
+# take the ResBlock's statistics): 8 + 5. The decoder: 28 K6, all three
+# upsamplers (128^2, 256^2, 512^2) as K7, K8 at the output, K3 in its two
+# mid blocks, and K1 for its mid-block attention (16384 tokens, d=512).
+EXPECTED_LAUNCHES = {
+    512: {"flash_attention_heads": 0, "channel_partials": 103, "conv1x1_fused": 200,
+          "fused_self_attention": 300, "fused_geglu_mlp": 200, "conv3x3_fused": 28,
+          "upsample2x_conv_fused": 2, "group_norm_silu": 1},
+    1024: {"flash_attention_heads": 1, "channel_partials": 262, "conv1x1_fused": 400,
+           "fused_self_attention": 320, "fused_geglu_mlp": 120, "conv3x3_fused": 228,
+           "upsample2x_conv_fused": 3, "group_norm_silu": 1},
+}
+EXPECTED_X2 = {512: 0, 1024: 60}  # K6 launches with the skip as second input
+
+
+def phase_generate(dev, size: int) -> dict:
+    """Phase 4: StableDiffusion.generate at SD v1.4 width, random weights,
+    bf16, size x size, 20 DDIM steps, CFG 7.5, batch 1. Returns launch
+    counts."""
+    import torch
+
+    from sdtpu_torch.config import SD_V1_4
+    from sdtpu_torch.ops import fused_conv
     from sdtpu_torch.pipeline import StableDiffusion
     from sdtpu_torch.tokenizer import SimpleTokenizer
     from sdtpu_torch.weights import init_params
 
+    cfg = dataclasses.replace(SD_V1_4, image_size=size)
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    params = init_params(SD_V1_4, gen, device=dev)
-    sd = StableDiffusion(params, SD_V1_4, compute_dtype=torch.bfloat16)
+    params = init_params(cfg, gen, device=dev)
+    sd = StableDiffusion(params, cfg, compute_dtype=torch.bfloat16)
     del params
     tok = SimpleTokenizer()
     torch.cuda.synchronize()
-    print(f"generate: SD v1.4 random weights on the card in "
+    print(f"generate {size}: SD v1.4 random weights on the card in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     latents = []
@@ -387,28 +592,32 @@ def phase_generate(dev) -> dict:
     fns = wrappers()
     for f in fns.values():
         f.launches = 0
+    fused_conv.conv3x3_fused.launches_x2 = 0
     t0 = time.perf_counter()
     images = sd.generate(tok, "An ancient mossy stone.", guidance_scale=7.5, n_steps=20,
                          generator=torch.Generator(device=dev).manual_seed(SEED + 1))
     wall = time.perf_counter() - t0
     launches = {name: f.launches for name, f in fns.items()}
+    x2 = fused_conv.conv3x3_fused.launches_x2
 
     lat = latents[0]
     finite = bool(torch.isfinite(lat).all())
-    print(f"generate 512x512 bf16 20 DDIM steps CFG 7.5: image {tuple(images.shape)} "
+    print(f"generate {size}x{size} bf16 20 DDIM steps CFG 7.5: image {tuple(images.shape)} "
           f"{images.dtype}, latent {tuple(lat.shape)} finite={finite} "
           f"mean {float(lat.mean()):.4f} std {float(lat.std()):.4f}, pixels mean "
           f"{float(images.mean()):.2f} std {float(images.std()):.2f}", flush=True)
-    print(f"generate wall {wall:.3f} s: encode_prompt {sd.timings['encode_prompt']:.3f} s, "
-          f"denoise {sd.timings['denoise']:.3f} s, decode {sd.timings['decode']:.3f} s",
-          flush=True)
-    print(f"generate launches {launches} expected {EXPECTED_LAUNCHES}", flush=True)
-    if images.shape != (1, 512, 512, 3) or str(images.dtype) != "uint8":
-        fail(f"image {images.shape} {images.dtype}, expected (1, 512, 512, 3) uint8")
+    print(f"generate {size} wall {wall:.3f} s: encode_prompt "
+          f"{sd.timings['encode_prompt']:.3f} s, denoise {sd.timings['denoise']:.3f} s, "
+          f"decode {sd.timings['decode']:.3f} s", flush=True)
+    print(f"generate {size} launches {launches} (K6 with x2: {x2}) expected "
+          f"{EXPECTED_LAUNCHES[size]} (K6 with x2: {EXPECTED_X2[size]})", flush=True)
+    if images.shape != (1, size, size, 3) or str(images.dtype) != "uint8":
+        fail(f"image {images.shape} {images.dtype}, expected (1, {size}, {size}, 3) uint8")
     if not finite:
         fail("the final latent has non-finite values")
-    if launches != EXPECTED_LAUNCHES:
-        fail(f"launch counts {launches} differ from {EXPECTED_LAUNCHES}")
+    if launches != EXPECTED_LAUNCHES[size] or x2 != EXPECTED_X2[size]:
+        fail(f"launch counts {launches} (x2 {x2}) differ from {EXPECTED_LAUNCHES[size]} "
+             f"(x2 {EXPECTED_X2[size]})")
     return launches
 
 
@@ -425,6 +634,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     card = card_line()
+    t_start = time.perf_counter()
 
     # phase 1: device and build
     print(f"device {torch.cuda.get_device_name(0)} | nvidia-smi: {card} | "
@@ -438,19 +648,28 @@ def main() -> None:
 
     # phase 2: each kernel against its plain version
     results = phase_kernels(dev)
-    # phase 3: one SpatialTransformer, then the VAE decoder, card against CPU
+    # phase 3: one SpatialTransformer, the VAE decoder and one 1024px fused
+    # ResBlock, card against CPU
     phase_transformer(dev)
     phase_decode(dev)
-    # phase 4: the main path
-    launches = phase_generate(dev)
+    phase_resblock(dev)
+    # phase 4: the main path at 512px and at 1024px
+    launches = {name: 0 for name in KERNEL_INFO}
+    for size in (512, 1024):
+        for name, n in phase_generate(dev, size).items():
+            launches[name] += n
+        torch.cuda.empty_cache()
 
     kernels_json = []
     for name, (route, source, replaces) in KERNEL_INFO.items():
         r = results[name]
-        kernels_json.append({"name": name, "route": route, "source": source,
-                             "replaces": replaces, "launches": launches.get(name, 0),
-                             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                             "plain_ms": r["plain_ms"]})
+        kernels_json.append({
+            "name": name, "route": route, "source": source, "replaces": replaces,
+            "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": "operations" if r["ops_ms"] >= r["bytes_ms"] else "bytes",
+            "library_ms": r["library_ms"]})
+    print(f"chip_smoke phases took {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels_json}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -6,10 +6,11 @@ module's JAX counterpart is easy to find. `sdtpu/` stays the reference:
 the tests hold every module of this package against it on the same
 inputs and weights.
 
-This package imports torch and never jax. From sdtpu it imports only
-the pure-Python `sdtpu.config` and `sdtpu.tokenizer`, which pull in no jax
-and which it re-exports as `sdtpu_torch.config` and
-`sdtpu_torch.tokenizer`, so that callers of the port import nothing else.
+This package imports torch and never jax, and nothing of `sdtpu`, not
+even its pure-Python modules: it keeps its own copies of what it needs
+(`sdtpu_torch.config`, `sdtpu_torch.tokenizer` with its vocabulary in
+`data/`, the UNet's spec tables). Its entry points run on the card unless
+the caller asks for the CPU (`weights.init_params(..., device="cpu")`).
 
 Layouts follow sdtpu at every public function: NHWC activations, HWIO
 conv weights, `[in, out]` linears, and the reference dump-tree parameter

@@ -30,7 +30,12 @@
 // zero outside the map. The zero padding is applied AFTER the GroupNorm+SiLU
 // prologue (an out-of-map element skips it), so silu(bias) never leaks into
 // the border, as in the TPU kernel. The weight is the HWIO tensor read as a
-// [taps * C, Co] matrix. K6 is 3x3 taps at offset -1. K7 (conv3x3 of the
+// [taps * C, Co] matrix. A second input x2 (K6's implicit channel concat, the
+// UNet up path's skip) is a second source pointer: of the C = C1 + C2
+// channels of each tap, c < C1 reads x and c >= C1 reads channel c - C1 of
+// x2, so the concat never exists and the HWIO weight of the concat is used
+// as it is (no split). The prologue's scale/bias are per channel of the
+// concat, and the border rule holds for both parts. K6 is 3x3 taps at offset -1. K7 (conv3x3 of the
 // nearest-2x upsample) is four output phases (py, px) of 2x2 taps at offset
 // (py - 1, px - 1) with phase weights folded from the 3x3 kernel; grid z runs
 // over batch x phase and each phase writes its pixels (2i + py, 2j + px) of
@@ -68,8 +73,11 @@ struct GemmParams {
   int M, N, K, prologue, geglu_off;       // geglu_off > 0: gate columns at +geglu_off
   float eps;
   // CONV only: input map H x W with C = lda channels, taps kw x kw,
-  // nphase output phases (1, or 4 for the 2x upsample), output scale up
+  // nphase output phases (1, or 4 for the 2x upsample), output scale up;
+  // channels [c1, C) come from a2 ([batch][H][W][C - c1], batch stride
+  // a2_bs), channels [0, c1) from a (c1 = C without a second input)
   int H, W, kw, nphase, up;
+  const void* a2; long long a2_bs; int c1;
 };
 
 template <typename T>
@@ -106,6 +114,7 @@ __global__ void __launch_bounds__(NT) gemm_kernel(GemmParams p) {
   const int C = CONV ? (int)p.lda : K;           // what the prologue's scale/bias index
 
   const T* A = static_cast<const T*>(p.a) + b * p.a_bs;
+  const T* A2 = CONV && p.a2 ? static_cast<const T*>(p.a2) + b * p.a2_bs : A;
   const T* W = static_cast<const T*>(p.w) + (long long)ph * K * p.ldw;
   const float* pa = p.pa;
   const float* pb = p.pb;
@@ -172,8 +181,10 @@ __global__ void __launch_bounds__(NT) gemm_kernel(GemmParams p) {
       if constexpr (CONV) {
         const int yy = cv_y0[v] + cv_ty[v], xx = cv_x0[v] + cv_tx[v];
         if (m < M && k < K && yy >= 0 && yy < p.H && xx >= 0 && xx < p.W) {
-          src = A + ((long long)yy * p.W + xx) * C + cv_c[v];
-          a_ch[v] = cv_c[v];
+          const long long pix = (long long)yy * p.W + xx;
+          const int c = cv_c[v];  // a vector never straddles c1 (c1 % 8 == 0)
+          src = c < p.c1 ? A + pix * p.c1 + c : A2 + pix * (C - p.c1) + (c - p.c1);
+          a_ch[v] = c;
         }
         for (cv_c[v] += BK; cv_c[v] >= C; cv_c[v] -= C) {  // the next tile's column
           if (++cv_tx[v] == p.kw) {
@@ -384,20 +395,24 @@ extern "C" int sdk_gemm(int dtype, const void* a, long long lda, long long a_bs,
 // Convolution of an NHWC map x [batch][H][W][C] with kw x kw taps per output
 // phase (kw = 3, nphase = 1, up = 1: conv3x3 with zero padding 1; kw = 2,
 // nphase = 4, up = 2: conv3x3 of the nearest-2x upsample, phase weights
-// [4][4C][N]). out and res are [batch][H*up][W*up][N]; pa/pb are the
-// prologue's [batch][C] scale and bias; stats is
-// [batch][nphase * sdk_gemm_row_tiles(H*W)][2][N].
+// [4][4C][N]). x2 (conv3x3 only; null when C2 = 0) is a second input
+// [batch][H][W][C2]: the conv then runs over the implicit channel concat
+// [x, x2] with a [3][3][C + C2][N] weight. out and res are
+// [batch][H*up][W*up][N]; pa/pb are the prologue's [batch][C + C2] scale and
+// bias; stats is [batch][nphase * sdk_gemm_row_tiles(H*W)][2][N].
 extern "C" int sdk_conv(int dtype, const void* x, int C, long long x_bs,
-                        const void* w, const float* bias, void* out, long long o_bs,
-                        const void* res, const float* pa, const float* pb, float* stats,
-                        int H, int W, int N, int batch, int kw, int nphase, int up,
-                        int prologue, void* stream) {
-  sdk::GemmParams p{x, C, x_bs, w, N, bias, out, N, o_bs, res, N, o_bs,
-                    pa, pb, stats, H * W, N, kw * kw * C, prologue, 0, 0.f,
-                    H, W, kw, nphase, up};
+                        const void* x2, int C2, const void* w, const float* bias,
+                        void* out, long long o_bs, const void* res, const float* pa,
+                        const float* pb, float* stats, int H, int W, int N, int batch,
+                        int kw, int nphase, int up, int prologue, void* stream) {
+  const int Ct = C + C2;
+  sdk::GemmParams p{x, Ct, x_bs, w, N, bias, out, N, o_bs, res, N, o_bs,
+                    pa, pb, stats, H * W, N, kw * kw * Ct, prologue, 0, 0.f,
+                    H, W, kw, nphase, up, x2, (long long)H * W * C2, C};
   const bool conv3x3 = kw == 3 && nphase == 1 && up == 1;
   const bool up2x = kw == 2 && nphase == 4 && up == 2;
-  if (!(conv3x3 || up2x) || prologue == sdk::kLayerNorm || C % 8 || N % 8)
+  if (!(conv3x3 || up2x) || prologue == sdk::kLayerNorm || C % 8 || C2 % 8 || N % 8 ||
+      (C2 > 0) != (x2 != nullptr) || (C2 > 0 && !conv3x3))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == sdk::kBF16) return (int)sdk::launch<__nv_bfloat16, true>(p, batch, s);

@@ -39,10 +39,11 @@ _SIGNATURES = {
     "sdk_gemm": [_I, _P, _LL, _LL, _P, _LL, _P, _P, _LL, _LL, _P, _LL, _LL,
                  _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     "sdk_gemm_row_tiles": [_I],
-    "sdk_conv": [_I, _P, _I, _LL, _P, _P, _P, _LL, _P, _P, _P, _P,
+    "sdk_conv": [_I, _P, _I, _LL, _P, _I, _P, _P, _P, _LL, _P, _P, _P, _P,
                  _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "sdk_group_norm_silu": [_I, _P, _P, _P, _P, _I, _LL, _I, _I, _P],
     "sdk_attention": [_I, _P, _P, _I, _I, _I, _I, _F, _P],
+    "sdk_flash_attention": [_I, _P, _P, _P, _P, *[_LL] * 12, _P, _I, _I, _I, _I, _I, _F, _P],
     "sdk_channel_partials": [_I, _P, _P, _I, _I, _I, _I, _P],
     "sdk_error_string": [_I],
 }
@@ -168,18 +169,20 @@ def gemm_row_tiles(m: int) -> int:
 
 def conv(x, w, out, *, C: int, H: int, W: int, N: int, batch: int, kw: int,
          nphase: int, up: int, bias=None, res=None, pa=None, pb=None,
-         prologue: int = PRO_NONE, stats=None) -> None:
+         prologue: int = PRO_NONE, stats=None, x2=None, C2: int = 0) -> None:
     """Launch the shared GEMM as an implicit-GEMM convolution (sdk_conv in
-    csrc/gemm.cu): x [batch, H, W, C] NHWC; w [nphase, kw*kw*C, N]; out and
-    res [batch, H*up, W*up, N]. x, w, out, res share one dtype; bias, pa,
-    pb, stats are float32. C and N must be multiples of 8."""
-    bad = [f"{k}={v}" for k, v in (("C", C), ("N", N)) if v % 8]
+    csrc/gemm.cu): x [batch, H, W, C] NHWC; optional x2 [batch, H, W, C2],
+    the second part of an implicit channel concat (conv3x3 only); w
+    [nphase, kw*kw*(C + C2), N]; out and res [batch, H*up, W*up, N]; pa, pb
+    [batch, C + C2]. x, x2, w, out, res share one dtype; bias, pa, pb, stats
+    are float32. C, C2 and N must be multiples of 8."""
+    bad = [f"{k}={v}" for k, v in (("C", C), ("C2", C2), ("N", N)) if v % 8]
     bad += [f"{n} is not 16-byte aligned" for n, t in
-            (("x", x), ("w", w), ("out", out), ("res", res))
+            (("x", x), ("x2", x2), ("w", w), ("out", out), ("res", res))
             if t is not None and t.data_ptr() % 16]
     if bad:
         raise ValueError("sdk_conv: " + ", ".join(bad))
-    rc = lib().sdk_conv(dtype_code(x), ptr(x), C, H * W * C, ptr(w), ptr(bias),
+    rc = lib().sdk_conv(dtype_code(x), ptr(x), C, H * W * C, ptr(x2), C2, ptr(w), ptr(bias),
                         ptr(out), H * W * up * up * N, ptr(res), ptr(pa), ptr(pb),
                         ptr(stats), H, W, N, batch, kw, nphase, up, prologue,
                         stream(x))

@@ -8,9 +8,13 @@ Kernel dispatch keeps sdtpu's sites and gate conditions: the port calls a
 kernel wrapper exactly where sdtpu calls a Pallas kernel. The wrapper then
 runs the kernel on a CUDA tensor and its plain version on a CPU tensor.
 The gates' bounds come from sdtpu's TPU measurements and have not been
-measured again on the H100. Paths not ported yet, which take sdtpu's
-unfused branch: the fused ResBlock (K6, at >=128x128 latents) and the fused
-cross-attention (K10, off by default in sdtpu).
+measured again on the H100. At 128x128 latents (1024px) the ResBlocks take
+sdtpu's fused branch: two K6 convolutions, the up path's skip concat folded
+into the first (K6's second input), the timestep-embedding add folded into
+the statistics and the second prologue, and the output statistics handed to
+the SpatialTransformer's entry GroupNorm. The fused cross-attention (K10,
+off by default in sdtpu) is not ported yet; its site takes sdtpu's unfused
+branch.
 """
 
 from __future__ import annotations
@@ -32,7 +36,9 @@ from sdtpu_torch.ops import (
     timestep_embedding,
 )
 from sdtpu_torch.ops.conv import upsample2x_conv
-from sdtpu_torch.ops.fused_conv import conv1x1_fused, gn_scale_bias
+from sdtpu_torch.ops.fused_conv import (conv1x1_fused, conv3x3_fused, gn_scale_bias,
+                                        stats_scale_bias)
+from sdtpu_torch.ops.fused_groupnorm import channel_partials
 from sdtpu_torch.ops.fused_mlp import fused_geglu_mlp
 from sdtpu_torch.ops.fused_transformer import fused_self_attention
 from sdtpu_torch.ops.groupnorm import group_norm_silu_op
@@ -191,10 +197,64 @@ def init_unet(init, cfg: UNetConfig):
 
 # ------------------------------------------------------------ apply
 
-def _res_block_apply(p, x, emb, cfg: UNetConfig, skip=None):
-    """ResBlock, sdtpu's unfused branch (sdtpu/models/unet.py:307-317).
-    skip: the up path's skip tensor, concatenated on the channel axis."""
+# sdtpu's gate for the fused ResBlock: maps of at least this many rows
+# (128x128 latents, 1024px images)
+FUSED_RES_MIN_ROWS = 1 << 14
+
+
+def _use_fused_resblock(x, c_extra: int = 0) -> bool:
+    """sdtpu's gate for the fused ResBlock (sdtpu/models/unet.py:212-229);
+    c_extra: the channels of the up path's skip."""
+    _, h, w, c = x.shape
+    return ((c + c_extra) % 8 == 0 and c % 8 == 0 and h % 8 == 0
+            and h * w >= FUSED_RES_MIN_ROWS)
+
+
+def _res_block_fused(p, x, e, cfg: UNetConfig, emit_stats, skip):
+    """sdtpu's fused ResBlock branch (sdtpu/models/unet.py:263-306). The
+    skip concat is never built: K6 reads it as its second input, the
+    GroupNorm statistics come from both parts' channel partials, and the
+    1x1 skip_connection is two channel products. The embedding add between
+    the convs is never built either: its statistics are a per-channel shift
+    of the first conv's (sum' = sum + N·e, sumsq' = sumsq + 2e·sum + N·e²)
+    and the second prologue absorbs it (scale·(x + e) + bias)."""
+    g, eps = cfg.groupnorm_groups, cfg.groupnorm_eps
+    rows = x.shape[1] * x.shape[2]
+    c1 = x.shape[-1]
+    if skip is None:
+        s1, o1 = gn_scale_bias(x, p["norm_in"]["g"], p["norm_in"]["b"], g, eps)
+        h1, st = conv3x3_fused(x, p["conv_in"]["w"], p["conv_in"]["b"], s1, o1,
+                               emit_stats=True)
+    else:
+        sums = torch.cat([channel_partials(x), channel_partials(skip)], dim=-1)
+        s1, o1 = stats_scale_bias(sums, rows, p["norm_in"]["g"], p["norm_in"]["b"], g, eps)
+        h1, st = conv3x3_fused(x, p["conv_in"]["w"], p["conv_in"]["b"], s1[:, :c1],
+                               o1[:, :c1], emit_stats=True, x2=skip,
+                               prologue_scale2=s1[:, c1:], prologue_bias2=o1[:, c1:])
+    ef = e.float()  # [B, c_out]
+    st = torch.stack([st[:, 0] + rows * ef,
+                      st[:, 1] + 2.0 * ef * st[:, 0] + rows * ef * ef], dim=1)
+    s2, o2 = stats_scale_bias(st, rows, p["norm_out"]["g"], p["norm_out"]["b"], g, eps)
+    o2 = o2 + s2 * ef
+    if skip is None:
+        res = conv2d(p["skip_connection"], x, padding=0) if "skip_connection" in p else x
+    else:
+        wsk = p["skip_connection"]["w"][0, 0]  # [c1 + c2, co]
+        res = (torch.matmul(x, wsk[:c1].to(x.dtype))
+               + torch.matmul(skip, wsk[c1:].to(x.dtype)))
+        res = res + p["skip_connection"]["b"].to(res.dtype)
+    return conv3x3_fused(h1, p["conv_out"]["w"], p["conv_out"]["b"], s2, o2,
+                         residual=res, emit_stats=emit_stats)
+
+
+def _res_block_apply(p, x, emb, cfg: UNetConfig, emit_stats=False, skip=None):
+    """ResBlock (sdtpu/models/unet.py:232-317). skip: the up path's skip
+    tensor, logically concatenated on the channel axis. emit_stats: also
+    return the per-channel (sum, sum^2) [B, 2, C] of the output (None on
+    the unfused branch) for the next GroupNorm."""
     e = linear(p["lin_embed"], silu(emb))
+    if _use_fused_resblock(x, 0 if skip is None else skip.shape[-1]):
+        return _res_block_fused(p, x, e, cfg, emit_stats, skip)
     if skip is not None:
         x = torch.cat([x, skip], dim=-1)
     h = group_norm_silu_op(x, p["norm_in"]["g"], p["norm_in"]["b"],
@@ -206,7 +266,8 @@ def _res_block_apply(p, x, emb, cfg: UNetConfig, skip=None):
     h = conv2d(p["conv_out"], h, padding=1)
     if "skip_connection" in p:
         x = conv2d(p["skip_connection"], x, padding=0)
-    return x + h
+    y = x + h
+    return (y, None) if emit_stats else y
 
 
 def _mha_apply(p, x, context, n_head, key_valid=None):
@@ -249,15 +310,22 @@ def fuse_qkv(params):
     return params
 
 
-def _transformer_apply(p, x, context, cfg: UNetConfig, n_head, ctx_valid=None):
+def _transformer_apply(p, x, context, cfg: UNetConfig, n_head, ctx_valid=None,
+                       in_stats=None):
     """SpatialTransformer and its TransformerBlock
-    (sdtpu/models/unet.py:384-463)."""
+    (sdtpu/models/unet.py:384-463). in_stats: optional [B, 2, C] (sum,
+    sum^2) of x from the fused ResBlock before it, which the entry
+    GroupNorm takes instead of reading the map again."""
     b, h, w, c = x.shape
     x_in = x
     fused_proj = _use_fused_proj(h * w, c)
     if fused_proj:
-        s, o = gn_scale_bias(x, p["norm"]["g"], p["norm"]["b"],
-                             cfg.groupnorm_groups, cfg.groupnorm_eps)
+        if in_stats is not None:
+            s, o = stats_scale_bias(in_stats, h * w, p["norm"]["g"], p["norm"]["b"],
+                                    cfg.groupnorm_groups, cfg.groupnorm_eps)
+        else:
+            s, o = gn_scale_bias(x, p["norm"]["g"], p["norm"]["b"],
+                                 cfg.groupnorm_groups, cfg.groupnorm_eps)
         x = conv1x1_fused(x.reshape(b, h * w, c), p["proj_in"]["w"][0, 0],
                           p["proj_in"]["b"], s, o)
     else:
@@ -302,9 +370,14 @@ def _block_apply(p, spec: BlockSpec, x, emb, context, cfg, ctx_valid, skip=None)
     if spec.kind == "down":
         return conv2d(p, x, stride=2, padding=1)
     res_p = p["res"] if (spec.transformer or spec.upsample) else p
-    x = _res_block_apply(res_p, x, emb, cfg, skip=skip)
     if spec.transformer:
-        x = _transformer_apply(p["transformer"], x, context, cfg, spec.n_head, ctx_valid)
+        # the ResBlock's output statistics feed the transformer's entry
+        # GroupNorm (fused branch only; st is None otherwise)
+        x, st = _res_block_apply(res_p, x, emb, cfg, emit_stats=True, skip=skip)
+        x = _transformer_apply(p["transformer"], x, context, cfg, spec.n_head, ctx_valid,
+                               in_stats=st)
+    else:
+        x = _res_block_apply(res_p, x, emb, cfg, skip=skip)
     if spec.upsample:
         x = upsample2x_conv(p["upsample"]["conv"], x)
     return x

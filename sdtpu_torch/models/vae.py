@@ -4,8 +4,10 @@ The decoder keeps sdtpu's dispatch: ResnetBlocks on large aligned maps run
 as two fused GroupNorm+SiLU+conv3x3 kernels (K6), the large upsamplers as
 the fused subpixel conv (K7), and each fused kernel emits the per-channel
 statistics of its output, which the next GroupNorm (a K6 prologue, or the
-final K8) consumes instead of reading the map again. The gates' bounds are
-sdtpu's TPU measurements. The encoder is not ported yet; init_autoencoder
+final K8) consumes instead of reading the map again. The mid block's
+attention goes through qkv_attention's dispatch: at 1024px (128x128 maps,
+16384 tokens of d=512) to the flash kernel (K1), at 512px to the plain
+branch. The gates' bounds are sdtpu's TPU measurements. The encoder is not ported yet; init_autoencoder
 builds its parameters all the same, so a tree has sdtpu's full shape.
 """
 
@@ -129,7 +131,8 @@ def _resnet_apply(p, x, cfg, in_stats=None, emit_stats=False):
 
 
 def _attn_apply(p, x, cfg):
-    """Single-head self-attention over h*w tokens with 1x1-conv q/k/v."""
+    """Single-head self-attention over h*w tokens with 1x1-conv q/k/v
+    (K1 from 16384 tokens on, through qkv_attention's dispatch)."""
     b, h, w, c = x.shape
     hn = group_norm(x, p["norm"]["g"], p["norm"]["b"], cfg.groupnorm_groups,
                     cfg.groupnorm_eps)

@@ -1,10 +1,12 @@
 """Multi-head attention with the reference's exact scaling (port of
-sdtpu/ops/attention.py, plain branch).
+sdtpu/ops/attention.py).
 
 Both q and k are scaled by d_head^-0.25 before q @ k^T; an optional
 additive mask and a boolean key_valid row are applied; the softmax
-statistics are f32. sdtpu's flash branch (kernel K1) is off the ported
-path and not ported yet.
+statistics are f32. qkv_attention keeps sdtpu's dispatch: mask-free
+attention over long sequences goes to the flash kernel (K1,
+sdtpu_torch/ops/flash_attention.py), the rest to qkv_attention_plain, which
+never dispatches and is what the kernels' plain versions call.
 """
 
 from __future__ import annotations
@@ -13,7 +15,13 @@ from typing import Optional
 
 import torch
 
+from sdtpu_torch.ops.flash_attention import MAX_HEAD_DIM, flash_qkv_attention
+
 NEG_INF = float("-inf")
+# f32 score elements qkv_attention_plain holds at a time (2 GB)
+_SCORE_BUDGET = 1 << 29
+# sdtpu's shortest query and key sequences for the flash kernel
+FLASH_MIN_SEQ = 2048
 
 
 def causal_mask(seq_len: int, dtype=torch.float32, device=None):
@@ -23,14 +31,30 @@ def causal_mask(seq_len: int, dtype=torch.float32, device=None):
         diagonal=1)
 
 
-def qkv_attention(q, k, v, mask=None, n_head: int = 1,
-                  key_valid: Optional[torch.Tensor] = None):
-    """q: [B, Sq, D], k/v: [B, Sk, D]; mask: additive [Sq, Sk] or None;
-    key_valid: optional bool [B, Sk] marking real keys. Returns [B, Sq, D].
+def use_flash(sq: int, sk: int, d_head: int, masked: bool, key_valid: bool) -> bool:
+    """sdtpu's dispatch to the flash kernel (sdtpu/ops/attention.py:67-89):
+    mask-free, sq and sk >= 2048, d_head <= 160 unless sq >= 8192, and its
+    block divisibility; plus what csrc/flash_attention.cu takes (d_head <=
+    512, a multiple of 8), so no other shape reaches the kernel. The bounds
+    are sdtpu's TPU measurements, not yet measured again on the H100."""
+    return (not masked and sq >= FLASH_MIN_SEQ and sk >= FLASH_MIN_SEQ
+            and (d_head <= 160 or sq >= 8192)
+            and sq % min(512, sq) == 0
+            and (key_valid or sk % min(1024, sk) == 0)
+            and d_head <= MAX_HEAD_DIM and d_head % 8 == 0)
+
+
+def qkv_attention_plain(q, k, v, mask=None, n_head: int = 1,
+                        key_valid: Optional[torch.Tensor] = None):
+    """sdtpu's plain branch: q: [B, Sq, D], k/v: [B, Sk, D]; mask: additive
+    [Sq, Sk] or None; key_valid: optional bool [B, Sk] marking real keys.
+    Returns [B, Sq, D].
 
     The scores are computed and kept in f32, as sdtpu's einsum with
     preferred_element_type=f32 keeps them; the weights are cast to v's
-    dtype for the value product.
+    dtype for the value product. Queries go in chunks so that the f32
+    scores stay within _SCORE_BUDGET; every row is independent, so the
+    numbers do not change.
     """
     b, sq, d = q.shape
     sk = k.shape[1]
@@ -38,15 +62,27 @@ def qkv_attention(q, k, v, mask=None, n_head: int = 1,
     scale = (d / n_head) ** -0.25
 
     q = (q * scale).reshape(b, sq, n_head, d_head).transpose(1, 2)
-    k = (k * scale).reshape(b, sk, n_head, d_head).transpose(1, 2)
+    kt = (k * scale).reshape(b, sk, n_head, d_head).transpose(1, 2).float().transpose(-1, -2)
     v = v.reshape(b, sk, n_head, d_head).transpose(1, 2)
+    out = torch.empty((b, n_head, sq, d_head), dtype=v.dtype, device=v.device)
+    step = max(1, _SCORE_BUDGET // max(1, b * n_head * sk))
+    for i in range(0, sq, step):
+        qk = torch.matmul(q[:, :, i:i + step].float(), kt)  # [B, h, chunk, Sk]
+        if mask is not None:
+            qk = qk + mask[i:min(i + step, sq), :sk]
+        if key_valid is not None:
+            qk = qk.masked_fill(~key_valid[:, None, None, :], NEG_INF)
+        w = torch.exp(qk - qk.amax(dim=-1, keepdim=True))
+        w = (w / w.sum(dim=-1, keepdim=True)).to(v.dtype)
+        out[:, :, i:i + step] = torch.matmul(w, v)
+    return out.transpose(1, 2).reshape(b, sq, d)
 
-    qk = torch.matmul(q.float(), k.float().transpose(-1, -2))  # [B, h, Sq, Sk]
-    if mask is not None:
-        qk = qk + mask[:sq, :sk]
-    if key_valid is not None:
-        qk = qk.masked_fill(~key_valid[:, None, None, :], NEG_INF)
-    w = torch.exp(qk - qk.amax(dim=-1, keepdim=True))
-    w = (w / w.sum(dim=-1, keepdim=True)).to(v.dtype)
-    o = torch.matmul(w, v)
-    return o.transpose(1, 2).reshape(b, sq, d)
+
+def qkv_attention(q, k, v, mask=None, n_head: int = 1,
+                  key_valid: Optional[torch.Tensor] = None):
+    """Attention over flattened-head inputs, as qkv_attention_plain, with
+    sdtpu's dispatch to the flash kernel (use_flash)."""
+    if use_flash(q.shape[1], k.shape[1], q.shape[2] // n_head, mask is not None,
+                 key_valid is not None):
+        return flash_qkv_attention(q, k, v, n_head, key_valid=key_valid)
+    return qkv_attention_plain(q, k, v, mask, n_head, key_valid)

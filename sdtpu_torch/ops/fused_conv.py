@@ -14,16 +14,19 @@ GroupNorm's statistics cost no read of the map.
   image) the product is small: one read and one write of the map.
 - K6 replaces `_kernel` / `_conv_part` (sdtpu/ops/fused_conv.py:96/44,
   called at :232): the VAE decoder's ResnetBlock convs, 64x64x512 up to
-  512x512x128, 2·9·C·Co flops per pixel — compute-bound. No halo tensor:
-  each A vector computes its own shifted source pixel, zero outside.
+  1024x1024x128, and the UNet's fused ResBlock at 128x128 latents, 2·9·C·Co
+  flops per pixel — compute-bound. No halo tensor: each A vector computes
+  its own shifted source pixel, zero outside. Its second input x2 (the UNet
+  up path's skip) is a second source pointer for the channels past x's, so
+  the channel concat never reaches HBM and the concat's weight is used as
+  it is.
 - K7 replaces `_up_kernel` (sdtpu/ops/fused_conv.py:276, called at :372):
   conv3x3(nearest2x(x)) as four output phases of 2x2 taps at the input's
   resolution (2.25x fewer flops than the 3x3 over the upsampled map), each
   phase writing its interleaved pixels straight into the output.
 
 sdtpu's options that are TPU layout choices (block_h, block_r, kpack) have
-no counterpart; its implicit channel concat (x2, the UNet's fused up-path
-ResBlock at >= 128x128 latents) is not ported yet.
+no counterpart.
 """
 
 from __future__ import annotations
@@ -114,16 +117,24 @@ def _stats(acc):
     return torch.stack([a.sum(dim=1), (a * a).sum(dim=1)], dim=1)
 
 
+def _prologue_plain(x, scale, bias, silu: bool):
+    if scale is None:
+        return x
+    xf = x.float() * scale.float()[:, None, None, :] + bias.float()[:, None, None, :]
+    if silu:
+        xf = xf * torch.sigmoid(xf)
+    return xf.to(x.dtype)
+
+
 def conv3x3_fused_plain(x, w, conv_bias, prologue_scale=None, prologue_bias=None,
-                        residual=None, silu: bool = True, emit_stats: bool = False):
-    """The plain version of conv3x3_fused: the same math in PyTorch ops."""
-    xin = x
-    if prologue_scale is not None:
-        xf = (x.float() * prologue_scale.float()[:, None, None, :]
-              + prologue_bias.float()[:, None, None, :])
-        if silu:
-            xf = xf * torch.sigmoid(xf)
-        xin = xf.to(x.dtype)
+                        residual=None, silu: bool = True, emit_stats: bool = False,
+                        x2=None, prologue_scale2=None, prologue_bias2=None):
+    """The plain version of conv3x3_fused: the same math in PyTorch ops,
+    over the materialised concat when x2 is given."""
+    xin = _prologue_plain(x, prologue_scale, prologue_bias, silu)
+    if x2 is not None:
+        xin = torch.cat([xin, _prologue_plain(x2, prologue_scale2, prologue_bias2, silu)],
+                        dim=-1)
     acc = conv2d({"w": w}, xin, padding=1).float() + conv_bias.float()
     if residual is not None:
         acc = acc + residual.float()
@@ -132,25 +143,41 @@ def conv3x3_fused_plain(x, w, conv_bias, prologue_scale=None, prologue_bias=None
 
 
 def conv3x3_fused(x, w, conv_bias, prologue_scale=None, prologue_bias=None,
-                  residual=None, silu: bool = True, emit_stats: bool = False):
+                  residual=None, silu: bool = True, emit_stats: bool = False,
+                  x2=None, prologue_scale2=None, prologue_bias2=None):
     """y = conv3x3(act(x·scale + bias)) + conv_bias [+ residual], zero
     padding 1 applied after the prologue; act is SiLU when silu, and the
     prologue (GroupNorm folded to an affine, see gn_scale_bias) is optional.
 
     x: [B, H, W, C] NHWC; w: [3, 3, C, Co] HWIO; conv_bias: [Co]; prologue
-    scale/bias: [B, C]; residual: [B, H, W, Co]. Returns y, or (y, stats
-    [B, 2, Co] = per-channel (sum, sum^2) of the f32 y). CPU tensors take the
-    plain version; CUDA tensors the kernel."""
-    if kernels.on_cpu(x, w, conv_bias, prologue_scale, prologue_bias, residual):
+    scale/bias: [B, C]; residual: [B, H, W, Co]. x2: optional second input
+    [B, H, W, C2]; the conv then runs over the implicit channel concat
+    [x, x2] with w [3, 3, C + C2, Co], and prologue_scale2/bias2 [B, C2] are
+    the x2 slice of the folded GroupNorm. Returns y, or (y, stats [B, 2, Co]
+    = per-channel (sum, sum^2) of the f32 y). CPU tensors take the plain
+    version; CUDA tensors the kernel."""
+    if x2 is not None and (prologue_scale is None) != (prologue_scale2 is None):
+        raise ValueError("with x2, a prologue applies to both inputs or to neither")
+    if kernels.on_cpu(x, w, conv_bias, prologue_scale, prologue_bias, residual, x2,
+                      prologue_scale2, prologue_bias2):
         return conv3x3_fused_plain(x, w, conv_bias, prologue_scale, prologue_bias,
-                                   residual, silu, emit_stats)
+                                   residual, silu, emit_stats, x2, prologue_scale2,
+                                   prologue_bias2)
     b, h, wd, c = x.shape
+    c2 = 0 if x2 is None else x2.shape[-1]
     co = w.shape[-1]
-    if tuple(w.shape[:3]) != (3, 3, c):
-        raise ValueError(f"weight {tuple(w.shape)} does not fit {c} input channels")
+    if tuple(w.shape[:3]) != (3, 3, c + c2):
+        raise ValueError(f"weight {tuple(w.shape)} does not fit {c} + {c2} input channels")
+    if x2 is not None and tuple(x2.shape[:3]) != (b, h, wd):
+        raise ValueError(f"x2 {tuple(x2.shape)} does not fit x {tuple(x.shape)}")
     dt = x.dtype
     x = x.contiguous()
-    prologue, ps, pb = _prologue(prologue_scale, prologue_bias, silu, b, c)
+    if x2 is not None:
+        x2 = x2.to(dt).contiguous()
+        if prologue_scale is not None:
+            prologue_scale = torch.cat([prologue_scale.float(), prologue_scale2.float()], dim=-1)
+            prologue_bias = torch.cat([prologue_bias.float(), prologue_bias2.float()], dim=-1)
+    prologue, ps, pb = _prologue(prologue_scale, prologue_bias, silu, b, c + c2)
     res = None if residual is None else residual.to(dt).contiguous()
     out = torch.empty((b, h, wd, co), dtype=dt, device=x.device)
     stats = None
@@ -160,12 +187,14 @@ def conv3x3_fused(x, w, conv_bias, prologue_scale=None, prologue_bias=None,
                                 dtype=torch.float32, device=x.device)
         kernels.conv(x, w.to(dt).contiguous(), out, C=c, H=h, W=wd, N=co, batch=b,
                      kw=3, nphase=1, up=1, bias=conv_bias.float().contiguous(),
-                     res=res, pa=ps, pb=pb, prologue=prologue, stats=stats)
+                     res=res, pa=ps, pb=pb, prologue=prologue, stats=stats, x2=x2, C2=c2)
     conv3x3_fused.launches += 1
+    conv3x3_fused.launches_x2 += x2 is not None
     return (out, stats.sum(dim=1)) if emit_stats else out
 
 
 conv3x3_fused.launches = 0
+conv3x3_fused.launches_x2 = 0  # the launches among them with a second input
 
 def upsample2x_conv_fused_plain(x, w, conv_bias, emit_stats: bool = False):
     """The plain version of upsample2x_conv_fused: four phase convolutions

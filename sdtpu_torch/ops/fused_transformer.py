@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from sdtpu_torch import kernels
-from sdtpu_torch.ops.attention import qkv_attention
+from sdtpu_torch.ops.attention import qkv_attention_plain
 from sdtpu_torch.ops.conv import linear
 from sdtpu_torch.ops.groupnorm import layer_norm
 
@@ -35,7 +35,7 @@ def fused_self_attention_plain(x, ln_g, ln_b, wqkv, wo, bo,
     """The unfused composition sdtpu's oracle tests hold the kernel to."""
     xn = layer_norm(x, ln_g, ln_b, eps)
     q, k, v = linear({"w": wqkv}, xn).chunk(3, dim=-1)
-    o = qkv_attention(q, k, v, None, n_head)
+    o = qkv_attention_plain(q, k, v, None, n_head)
     return x + linear({"w": wo, "b": bo}, o)
 
 

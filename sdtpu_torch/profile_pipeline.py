@@ -1,18 +1,19 @@
-"""Where the time of a 512x512 image goes on one NVIDIA GPU.
+"""Where the time of a 512x512 or 1024x1024 image goes on one NVIDIA GPU.
 
-    python -m sdtpu_torch.profile_pipeline [--out FILE] [--repeats N]
+    python -m sdtpu_torch.profile_pipeline [--size 512|1024] [--out FILE] [--repeats N]
 
-Builds SD v1.4 at full width with random weights (seeded), bf16, and
-measures, after warm-up:
+Builds SD v1.4 at full width with random weights (seeded), bf16, at the
+given image size (the same config with image_size set), and measures,
+after warm-up:
 
 1. `generate` (20 DDIM steps, CFG 7.5 batched, batch 1) N times: the wall
    seconds of encode_prompt / denoise / decode of each run;
-2. one UNet call (batch 2, the batched CFG pair) and one VAE decode, the
-   latter also with the fused ResnetBlock and upsampler gates closed
-   (sdtpu's unfused branch: cuDNN convolutions between GroupNorm+SiLU
-   passes): the mean wall time of N calls (host clock, synchronised), and
-   the device kernel time of one call under torch.profiler, with its
-   largest items;
+2. one UNet call (batch 2, the batched CFG pair) and one VAE decode, each
+   also with its fused ResBlock gates closed (sdtpu's unfused branch:
+   cuDNN convolutions between GroupNorm+SiLU passes; the UNet's gate only
+   matters from 128x128 latents, 1024px, on): the mean wall time of N
+   calls (host clock, synchronised), and the device kernel time of one
+   call under torch.profiler, with its largest items;
 3. the same UNet call replayed from a CUDA graph, and its largest
    difference from the eager output.
 
@@ -23,6 +24,7 @@ stdout and, with --out, to FILE as well.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import subprocess
 import sys
 import time
@@ -30,6 +32,7 @@ import time
 import torch
 
 from sdtpu_torch.config import SD_V1_4
+from sdtpu_torch.models import unet as unet_model
 from sdtpu_torch.models import vae as vae_model
 from sdtpu_torch.models.unet import unet_apply
 from sdtpu_torch.ops import conv
@@ -70,6 +73,8 @@ def _device_profile(fn, top: int):
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--size", type=int, choices=(512, 1024), default=512,
+                    help="image size (default 512)")
     ap.add_argument("--out", help="also write the report to this file")
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--top", type=int, default=12)
@@ -87,12 +92,14 @@ def main(argv=None) -> None:
                           check=True).stdout.strip().splitlines()[0]
     say(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
     dev = torch.device("cuda", 0)
-    sd = StableDiffusion(init_params(SD_V1_4, torch.Generator(device=dev).manual_seed(0),
-                                     device=dev), SD_V1_4, compute_dtype=torch.bfloat16)
+    cfg_sd = dataclasses.replace(SD_V1_4, image_size=args.size)
+    sd = StableDiffusion(init_params(cfg_sd, torch.Generator(device=dev).manual_seed(0),
+                                     device=dev), cfg_sd, compute_dtype=torch.bfloat16)
     tok = SimpleTokenizer()
+    hw = cfg_sd.latent_size
 
-    say(f"1. generate 512x512 bf16, 20 DDIM steps, CFG 7.5, batch 1 ({args.repeats + 1} "
-        f"runs, the first includes first-call costs)")
+    say(f"1. generate {args.size}x{args.size} bf16, 20 DDIM steps, CFG 7.5, batch 1 "
+        f"({args.repeats + 1} runs, the first includes first-call costs)")
     for i in range(args.repeats + 1):
         t0 = time.perf_counter()
         sd.generate(tok, PROMPT, 7.5, 20, generator=torch.Generator(device=dev).manual_seed(i))
@@ -102,17 +109,25 @@ def main(argv=None) -> None:
             f"{tm['decode']:.4f}")
 
     g = torch.Generator(device=dev).manual_seed(1)
-    x = torch.randn((2, 64, 64, 4), generator=g, device=dev).to(torch.bfloat16)
+    x = torch.randn((2, hw, hw, 4), generator=g, device=dev).to(torch.bfloat16)
     ctx, valid = sd.context(tok, PROMPT)
     unctx, unvalid = sd.context(tok, "")
     ctx2, valid2 = torch.cat([unctx, ctx]), torch.cat([unvalid, valid])
     t = torch.tensor([481.0], device=dev)  # on the device, so a graph can hold it
     unet, cfg = sd.params["unet"], SD_V1_4.unet
-    z = torch.randn((1, 64, 64, 4), generator=g, device=dev).to(torch.bfloat16)
+    z = torch.randn((1, hw, hw, 4), generator=g, device=dev).to(torch.bfloat16)
     vae = sd.params["autoencoder"]
 
     def unet_call():
         return unet_apply(unet, x, t, ctx2, cfg, ctx_valid=valid2)
+
+    def unet_unfused_call():
+        gate = unet_model.FUSED_RES_MIN_ROWS
+        unet_model.FUSED_RES_MIN_ROWS = 1 << 30
+        try:
+            return unet_call()
+        finally:
+            unet_model.FUSED_RES_MIN_ROWS = gate
 
     def decode_call():
         return vae_model.decode_latent(vae, z, SD_V1_4.vae)
@@ -125,9 +140,12 @@ def main(argv=None) -> None:
         finally:
             vae_model.FUSED_CONV_MIN_ROWS, conv.FUSED_UP_MIN_ROWS = gates
 
-    for name, fn in (("UNet call (batch 2)", unet_call),
-                     ("VAE decode (64x64 latent)", decode_call),
-                     ("VAE decode, fused gates closed", decode_unfused_call)):
+    calls = [("UNet call (batch 2)", unet_call)]
+    if hw * hw >= unet_model.FUSED_RES_MIN_ROWS:
+        calls.append(("UNet call, fused ResBlock gate closed", unet_unfused_call))
+    calls += [(f"VAE decode ({hw}x{hw} latent)", decode_call),
+              ("VAE decode, fused gates closed", decode_unfused_call)]
+    for name, fn in calls:
         wall = _wall_ms(fn, args.repeats)
         dev_ms, top = _device_profile(fn, args.top)
         say(f"2. {name}: wall {wall:.3f} ms (mean of {args.repeats}); device kernels "

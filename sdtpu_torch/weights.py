@@ -3,7 +3,9 @@ initialisation (port of sdtpu/models/initializers.py).
 
 The tree is sdtpu's: nested dicts (and, for the CLIP blocks, a list) with
 the reference dump-tree names, linear weights [in, out], conv weights HWIO.
-Leaves here are torch tensors on one device.
+Leaves here are torch tensors on one device: the card unless the caller
+passes another (`device="cpu"`); with no card the default raises, as torch
+does.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import torch
 from sdtpu_torch.config import StableDiffusionConfig
 
 
-def from_numpy_tree(tree, device="cpu", dtype=torch.float32):
+def from_numpy_tree(tree, device="cuda", dtype=torch.float32):
     """sdtpu's parameter tree of numpy arrays -> the same tree of tensors.
     Floating leaves become `dtype`; integer leaves keep their type;
     Python scalars (e.g. "n_steps") pass through."""
@@ -76,7 +78,7 @@ class Init:
 
 
 def init_params(cfg: StableDiffusionConfig, generator: torch.Generator,
-                device="cpu", dtype=torch.float32):
+                device="cuda", dtype=torch.float32):
     """Random weights for the whole pipeline, with sdtpu's shapes and
     scales (the draws differ from sdtpu's: another generator).
     Returns {clip, unet, autoencoder, alphas_cumprod, n_steps}."""

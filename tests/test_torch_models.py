@@ -68,7 +68,7 @@ def test_init_params_tree_matches_sdtpu():
     norms; the alphas_cumprod table identical."""
     from sdtpu.diffusion import scaled_linear_alphas_cumprod
 
-    got = init_params(SD_TINY, torch.Generator().manual_seed(0))
+    got = init_params(SD_TINY, torch.Generator().manual_seed(0), device="cpu")
     want = {
         "clip": jclip.init_clip(rng.HostKey(0), SD_TINY.clip),
         "unet": junet.init_unet(rng.HostKey(1), SD_TINY.unet),
@@ -90,7 +90,7 @@ def test_clip_matches_sdtpu(quick_gelu, skip):
     params = _host(jclip.init_clip(rng.HostKey(3), cfg))
     tokens = np.array([[49 % 100, 5, 17, 99, 0, 0], [1, 2, 3, 4, 5, 6]])
     want = jax.jit(jclip.clip_apply, static_argnums=(2,))(params, tokens, cfg)
-    got = tclip.clip_apply(from_numpy_tree(params), torch.from_numpy(tokens), cfg)
+    got = tclip.clip_apply(from_numpy_tree(params, device="cpu"), torch.from_numpy(tokens), cfg)
     np.testing.assert_allclose(_np(got), _np(want), **TOL)
 
 
@@ -115,10 +115,10 @@ def test_spatial_transformer_matches_sdtpu(hw, gated):
     want = jax.jit(junet._transformer_apply, static_argnums=(3, 4))(params, x, ctx, cfg, 2,
                                                                      valid)
     args = (torch.from_numpy(x), torch.from_numpy(ctx), cfg, 2, torch.from_numpy(valid))
-    got = tunet._transformer_apply(from_numpy_tree(params), *args)
+    got = tunet._transformer_apply(from_numpy_tree(params, device="cpu"), *args)
     np.testing.assert_allclose(_np(got), _np(want), **TOL)
     # with q/k/v concatenated once, as StableDiffusion holds the tree
-    fused = tunet.fuse_qkv(from_numpy_tree(params))
+    fused = tunet.fuse_qkv(from_numpy_tree(params, device="cpu"))
     assert fused["transformer"]["attn1"]["qkv"]["w"].shape == (c, 3 * c)
     np.testing.assert_allclose(_np(tunet._transformer_apply(fused, *args)), _np(got),
                                rtol=1e-6, atol=1e-6)
@@ -136,7 +136,7 @@ def test_unet_matches_sdtpu():
     valid = np.arange(77)[None] < np.array([[5], [12]])
     want = jax.jit(junet.unet_apply, static_argnums=(4,))(params, x, 481, ctx, TINY_UNET,
                                                           ctx_valid=valid)
-    got = tunet.unet_apply(from_numpy_tree(params), torch.from_numpy(x), 481,
+    got = tunet.unet_apply(from_numpy_tree(params, device="cpu"), torch.from_numpy(x), 481,
                            torch.from_numpy(ctx), TINY_UNET, torch.from_numpy(valid))
     np.testing.assert_allclose(_np(got), _np(want), **TOL)
 
@@ -149,7 +149,7 @@ def test_vae_decode_matches_sdtpu():
     params = _host(jvae.init_autoencoder(rng.HostKey(8), TINY_VAE))
     z = np.random.default_rng(9).standard_normal((1, 6, 5, 4)).astype(np.float32)
     want = jax.jit(jvae.decode_latent, static_argnums=(2,))(params, z, TINY_VAE)
-    got = tvae.decode_latent(from_numpy_tree(params), torch.from_numpy(z), TINY_VAE)
+    got = tvae.decode_latent(from_numpy_tree(params, device="cpu"), torch.from_numpy(z), TINY_VAE)
     assert got.shape == (1, 12, 10, 3)
     np.testing.assert_allclose(_np(got), _np(want), **TOL)
 
@@ -188,7 +188,7 @@ def test_vae_decode_fused_path_matches_sdtpu(monkeypatch):
     for name in ("conv3x3_fused", "upsample2x_conv_fused"):
         spy(tvae, name)
     spy(tfg, "group_norm_silu")
-    got = tvae.decode_latent(from_numpy_tree(params), torch.from_numpy(z), WIDE_VAE)
+    got = tvae.decode_latent(from_numpy_tree(params, device="cpu"), torch.from_numpy(z), WIDE_VAE)
     # 2 mid + 6 level ResnetBlocks, two convs each; one upsampler; norm_out
     assert calls == {"conv3x3_fused": 16, "upsample2x_conv_fused": 1, "group_norm_silu": 1}
     assert got.shape == (1, 16, 16, 3)

@@ -22,6 +22,7 @@ from sdtpu.ops import groupnorm as jgn
 from sdtpu_torch import kernels
 from sdtpu_torch import ops as T
 from sdtpu_torch.ops import conv as tconv
+from sdtpu_torch.ops import flash_attention as tfa
 from sdtpu_torch.ops import fused_conv as tfc
 from sdtpu_torch.ops import fused_groupnorm as tfg
 from sdtpu_torch.ops import fused_mlp as tfm
@@ -379,6 +380,8 @@ WRAPPERS = [
     (tfc.upsample2x_conv_fused, lambda: (torch.zeros(1, 4, 4, 8), torch.zeros(3, 3, 8, 8),
                                          torch.zeros(8))),
     (tfg.group_norm_silu, lambda: (torch.zeros(1, 4, 4, 8), torch.ones(8), torch.zeros(8), 4)),
+    (tfa.flash_attention_heads, lambda: (torch.zeros(2, 16, 8), torch.zeros(2, 24, 8),
+                                         torch.zeros(2, 24, 8), torch.zeros(1, 24), 2)),
 ]
 
 
@@ -400,7 +403,7 @@ def test_kernel_library_name_tracks_sources():
     path = kernels.library_path()
     assert path.parent == kernels.BUILD_DIR and path.suffix == ".so"
     assert sorted(p.name for p in kernels.CSRC.glob("*.cu")) == [
-        "attention.cu", "channel_stats.cu", "gemm.cu", "groupnorm.cu"]
+        "attention.cu", "channel_stats.cu", "flash_attention.cu", "gemm.cu", "groupnorm.cu"]
 
 
 # ------------------------------------------------------------ on the card

@@ -4,8 +4,8 @@
   the committed tiny checkpoint and injected latent, must reproduce the
   committed PNG within 1 gray level in f32 (the pin's own tolerance).
 - The DDIM pieces against sdtpu's.
-- The package imports no jax, and chip_smoke.py refuses to run without a
-  CUDA device.
+- The package and chip_smoke.py import no jax and nothing of sdtpu, and
+  chip_smoke.py refuses to run without a CUDA device.
 """
 
 import os
@@ -37,7 +37,7 @@ def _golden(name):
 
 def _sd(**kw):
     params, lat = load_fixture()
-    params = from_numpy_tree(params)
+    params = from_numpy_tree(params, device="cpu")
     params["n_steps"] = 1000
     return StableDiffusion(params, GOLDEN_CONFIG, **kw), torch.from_numpy(lat)
 
@@ -88,7 +88,7 @@ def test_v_prediction_is_refused():
     params, _ = load_fixture()
     cfg = dataclasses.replace(GOLDEN_CONFIG, prediction_type="v")
     with pytest.raises(NotImplementedError):
-        StableDiffusion(from_numpy_tree(params), cfg)
+        StableDiffusion(from_numpy_tree(params, device="cpu"), cfg)
 
 
 @pytest.mark.parametrize("n_steps", [4, 20, 50])
@@ -116,17 +116,29 @@ def test_ddim_step():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
 
 
-def test_chip_smoke_imports_only_the_port():
-    """chip_smoke.py reaches sdtpu's configuration and tokenizer only through
-    the port's re-exports (sdtpu_torch.config, sdtpu_torch.tokenizer)."""
+PORT_FILES = sorted(
+    os.path.relpath(os.path.join(d, f), REPO)
+    for d, _, files in os.walk(os.path.join(REPO, "sdtpu_torch"))
+    for f in files if f.endswith(".py")) + ["chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", PORT_FILES)
+def test_imports_nothing_of_sdtpu(path):
+    """No module of the port, and not chip_smoke.py, imports the JAX package
+    (`import sdtpu`, `from sdtpu[...] import`), not even a module of it that
+    imports no jax."""
     import ast
 
-    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+    with open(os.path.join(REPO, path)) as f:
         tree = ast.parse(f.read())
     names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
-    names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
-    ours = {n.split(".")[0] for n in names} - set(sys.stdlib_module_names)
-    assert ours == {"torch", "sdtpu_torch"}, ours
+    names += [n.module or "" for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.level == 0]
+    bad = [n for n in names if n == "sdtpu" or n.startswith("sdtpu.")]
+    assert not bad, bad
+    if path == "chip_smoke.py":
+        ours = {n.split(".")[0] for n in names} - set(sys.stdlib_module_names)
+        assert ours == {"torch", "sdtpu_torch"}, ours
 
 
 def test_port_imports_no_jax():
@@ -136,6 +148,8 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(sdtpu_torch.__path__, 'sdtpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
+        "assert not bad, bad\n"
+        "bad = sorted(m for m in sys.modules if m == 'sdtpu' or m.startswith('sdtpu.'))\n"
         "assert not bad, bad\n"
         "assert 'sdtpu_torch.pipeline' in sys.modules\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)

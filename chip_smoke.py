@@ -28,8 +28,10 @@ It prints a JSON line of per-kernel results, then the card's name and
 power limit, then, last, {"ok": true, "device": {...}}. Any failure
 exits nonzero before that line; there is no CPU fallback. In the JSON
 line `launches` is the sum of both generate runs, and `ms`, `plain_ms`,
-`bound_ms` and `library_ms` are for those launches: each main-path shape's
-bfloat16 time (or bound) times its launches in the two runs, summed.
+`bound_ms` and `library_ms` are for those launches: each wrapper counts
+its launches per shape as well, and each shape's bfloat16 time (or bound)
+from phase 2 is taken as many times as the two runs launched it. A shape
+launched there with no case in phase 2 is a failure.
 
 Bounds: max(operations / peak rate, bytes / 3.35 TB/s), the inputs read
 once and the outputs written once; products at the tensor cores' dense
@@ -94,6 +96,12 @@ def cuda_ms(fn, iters=ITERS) -> float:
 # round to bf16 at different points (2^-8 relative per rounding).
 TOL = {"float32": (5e-3, 5e-3), "bfloat16": (6e-2, 3e-2)}
 STATS_TOL = (1e-2, 1e-4)  # f32 sums over 4096 rows in another order
+# K1's outputs are averages over thousands of keys, about (e/S)^1/2 in size
+# (0.013 at S=16384), far below TOL's atol: its atol is this fraction of
+# the largest |reference| instead, with this rtol (f32: TF32 products;
+# bf16: a few ulps). phase_kernels checks that an all-zero output and one
+# over every other key fail it.
+FLASH_TOL = {"float32": (2.0 ** -8, 2.0 ** -10), "bfloat16": (2.0 ** -6, 2.0 ** -7)}
 
 
 def within(got, want, atol, rtol) -> tuple[float, bool]:
@@ -105,13 +113,11 @@ def within(got, want, atol, rtol) -> tuple[float, bool]:
 
 
 class Case(NamedTuple):
-    """One main-path shape of a kernel. calls: its launches in the two
-    generate runs (512px and 1024px); ops and peak: the operations the
+    """One main-path shape of a kernel. ops and peak: the operations the
     function needs and the card's rate for them; library: one PyTorch call
     that computes the same function on the same inputs, or None."""
     name: str
     shape: str
-    calls: int
     fn: Callable
     plain: Callable
     args: tuple
@@ -119,6 +125,25 @@ class Case(NamedTuple):
     ops: float
     peak: float = PEAK_TENSOR
     library: Optional[Callable] = None
+
+
+def decoder_convs(lat: int) -> list:
+    """(hw, c_in, c_out, residual, stats) of each K6 launch of SD v1.4's VAE
+    decoder on a lat x lat latent: the two mid ResnetBlocks, then three a
+    level (the first changes the width), each as conv1 (no residual) and
+    conv2 (with it); every conv emits statistics but the first mid block's
+    conv2."""
+    from sdtpu_torch.config import SD_V1_4
+
+    chans = SD_V1_4.vae.decoder_channels
+    mid = chans[0][0]
+    blocks = [(lat, mid, mid)] * 2
+    for level, (ci, co) in enumerate(chans):
+        blocks += [(lat << level, ci, co)] + [(lat << level, co, co)] * 2
+    convs = []
+    for i, (hw, ci, co) in enumerate(blocks):
+        convs += [(hw, ci, co, False, True), (hw, co, co, True, i != 0)]
+    return convs
 
 
 def kernel_cases(dtype, dev):
@@ -147,57 +172,56 @@ def kernel_cases(dtype, dev):
     cases = []
     # K3: the UNet's ResBlock inputs and skips (1024px) and its transformers'
     # entry GroupNorm at 64x64 (512px: C=320, 1024px: C=640); the decoder's
-    for label, shape, calls in (("64x64x320 B=2", (2, 64, 64, 320), 100),
-                                ("64x64x640 B=2", (2, 64, 64, 640), 100),
-                                ("128x128x320 B=2", (2, 128, 128, 320), 140),
-                                ("128x128x640 B=2", (2, 128, 128, 640), 20),
-                                ("vae 64x64x512", (1, 64, 64, 512), 2),
-                                ("vae 128x128x512", (1, 128, 128, 512), 3)):
+    for label, shape in (("64x64x320 B=2", (2, 64, 64, 320)),
+                         ("64x64x640 B=2", (2, 64, 64, 640)),
+                         ("128x128x320 B=2", (2, 128, 128, 320)),
+                         ("128x128x640 B=2", (2, 128, 128, 640)),
+                         ("vae 64x64x512", (1, 64, 64, 512)),
+                         ("vae 128x128x512", (1, 128, 128, 512))):
         x = rnd(*shape)
-        cases.append(Case("channel_partials", label, calls, fused_groupnorm.channel_partials,
+        cases.append(Case("channel_partials", label, fused_groupnorm.channel_partials,
                           fused_groupnorm.channel_partials_plain, (x,), {}, 3 * x.numel(),
                           PEAK_F32))
 
     # K4: proj_in (GroupNorm prologue) and proj_out (residual) at 64x64x320
     # (512px), 128x128x320 and 64x64x640 (1024px)
-    for rows, c, calls in ((4096, 320, 100), (16384, 320, 100), (4096, 640, 100)):
+    for rows, c in ((4096, 320), (16384, 320), (4096, 640)):
         xr = rnd(2, rows, c)
         scale, bias = fused_conv.stats_scale_bias(
             fused_groupnorm.channel_partials_plain(xr), rows, rnd(c, scale=0.1) + 1.0,
             rnd(c, scale=0.1), 32, 1e-5)
         w, cb = rnd(c, c, scale=c ** -0.5), rnd(c, scale=0.1)
         ops = 2 * 2 * rows * c * c
-        cases.append(Case("conv1x1_fused", f"proj_in {rows}x{c}", calls, fused_conv.conv1x1_fused,
+        cases.append(Case("conv1x1_fused", f"proj_in {rows}x{c}", fused_conv.conv1x1_fused,
                           fused_conv.conv1x1_fused_plain, (xr, w, cb, scale, bias), {}, ops))
-        cases.append(Case("conv1x1_fused", f"proj_out {rows}x{c}", calls,
+        cases.append(Case("conv1x1_fused", f"proj_out {rows}x{c}",
                           fused_conv.conv1x1_fused, fused_conv.conv1x1_fused_plain,
                           (xr, w, cb), {"residual": rnd(2, rows, c)}, ops))
 
     # K2 at every UNet level of both sizes (the 16x16 middle block at 1024px)
-    for s, c, calls in ((4096, 320, 100), (1024, 640, 100), (256, 1280, 120),
-                        (16384, 320, 100), (4096, 640, 100), (1024, 1280, 100)):
+    for s, c in ((4096, 320), (1024, 640), (256, 1280), (16384, 320), (4096, 640),
+                 (1024, 1280)):
         x = rnd(2, s, c)
         args = (x, rnd(c, scale=0.1) + 1.0, rnd(c, scale=0.1),
                 rnd(c, 3 * c, scale=c ** -0.5), rnd(c, c, scale=c ** -0.5),
                 rnd(c, scale=0.1), 8)
-        cases.append(Case("fused_self_attention", f"S={s} C={c} dh={c // 8}", calls,
+        cases.append(Case("fused_self_attention", f"S={s} C={c} dh={c // 8}",
                           fused_transformer.fused_self_attention,
                           fused_transformer.fused_self_attention_plain, args, {},
                           2 * (8 * s * c * c + 4 * s * s * c)))
-    for s, c, calls in ((1024, 640, 100), (256, 1280, 120), (1024, 1280, 100)):
+    for s, c in ((1024, 640), (256, 1280), (1024, 1280)):
         x = rnd(2, s, c)
         args = (x, rnd(c, scale=0.1) + 1.0, rnd(c, scale=0.1),
                 rnd(c, 8 * c, scale=c ** -0.5), rnd(8 * c, scale=0.1),
                 rnd(4 * c, c, scale=(4 * c) ** -0.5), rnd(c, scale=0.1))
-        cases.append(Case("fused_geglu_mlp", f"S={s} C={c}", calls, fused_mlp.fused_geglu_mlp,
+        cases.append(Case("fused_geglu_mlp", f"S={s} C={c}", fused_mlp.fused_geglu_mlp,
                           fused_mlp.fused_geglu_mlp_plain, args, {}, 2 * 24 * s * c * c))
 
     # K1: the VAE's mid-block attention at 1024px (one head, d=512), and
     # training's narrow heads with and without a key-padding bias (no
     # launch on the main path)
-    for bh, n_head, s, d, bias, calls in ((1, 1, 16384, 512, False, 1),
-                                          (16, 8, 4096, 40, False, 0),
-                                          (16, 8, 4096, 80, True, 0)):
+    for bh, n_head, s, d, bias in ((1, 1, 16384, 512, False), (16, 8, 4096, 40, False),
+                                   (16, 8, 4096, 80, True)):
         q, k, v = rnd(bh, s, d), rnd(bh, s, d), rnd(bh, s, d)
         kb = None
         if bias:
@@ -211,21 +235,21 @@ def kernel_cases(dtype, dev):
             return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
 
         cases.append(Case("flash_attention_heads",
-                          f"BH={bh} S={s} d={d}{' bias' if bias else ''}", calls,
+                          f"BH={bh} S={s} d={d}{' bias' if bias else ''}",
                           flash_attention.flash_attention_heads,
                           flash_attention.flash_attention_heads_plain,
                           (q, k, v, kb, n_head), {}, 4 * bh * s * s * d, library=sdpa))
 
-    # K6: the UNet's fused ResBlocks at 128x128 (1024px, B=2): conv_in over
-    # the implicit skip concat (x2), and the 320->320 convs; the VAE
-    # decoder's ResnetBlock convs at both sizes (GN+SiLU prologue, residual,
-    # output stats)
-    def conv_case(label, calls, b, hw, ci, co, c2, eps):
+    # K6 (GN+SiLU prologue, output statistics): the UNet's fused ResBlocks
+    # at 128x128 (1024px, B=2): conv_in over x or over the implicit skip
+    # concat (x2), conv_out with the residual; the VAE decoder's ResnetBlock
+    # convs at both sizes
+    def conv_case(label, b, hw, ci, co, c2, eps, residual=True, stats=True):
         x = rnd(b, hw, hw, ci)
         x2 = rnd(b, hw, hw, c2) if c2 else None
         scale, bias = gn_fold(x, eps, x2)
         w, cb = rnd(3, 3, ci + c2, co, scale=(9 * (ci + c2)) ** -0.5), rnd(co, scale=0.1)
-        kw = {"residual": rnd(b, hw, hw, co), "emit_stats": True}
+        kw = {"residual": rnd(b, hw, hw, co) if residual else None, "emit_stats": stats}
         args = (x, w, cb, scale[:, :ci], bias[:, :ci])
         if c2:
             kw.update(x2=x2, prologue_scale2=scale[:, ci:], prologue_bias2=bias[:, ci:])
@@ -235,30 +259,33 @@ def kernel_cases(dtype, dev):
             xin = x if x2 is None else torch.cat([x, x2], dim=-1)
             return F.conv2d(xin.permute(0, 3, 1, 2), w_oihw, cb.to(dtype), padding=1)
 
-        cases.append(Case("conv3x3_fused", label, calls, fused_conv.conv3x3_fused,
+        cases.append(Case("conv3x3_fused", label, fused_conv.conv3x3_fused,
                           fused_conv.conv3x3_fused_plain, args, kw,
                           2 * 9 * b * hw * hw * (ci + c2) * co, library=conv))
 
-    conv_case("unet 128x128 640+320->320 B=2", 20, 2, 128, 640, 320, 320, 1e-5)
-    conv_case("unet 128x128 320+320->320 B=2", 40, 2, 128, 320, 320, 320, 1e-5)
-    conv_case("unet 128x128 320->320 B=2", 140, 2, 128, 320, 320, 0, 1e-5)
-    for hw, ci, co, n in ((64, 512, 512, 10), (128, 512, 512, 16), (256, 512, 256, 1),
-                          (256, 256, 256, 5), (512, 256, 128, 1), (512, 128, 128, 5),
-                          (256, 512, 512, 6), (512, 512, 256, 1), (512, 256, 256, 5),
-                          (1024, 256, 128, 1), (1024, 128, 128, 5)):
-        conv_case(f"vae {hw}x{hw} {ci}->{co}", n, 1, hw, ci, co, 0, 1e-6)
+    conv_case("unet 128x128 640+320->320 B=2", 2, 128, 640, 320, 320, 1e-5, residual=False)
+    conv_case("unet 128x128 320+320->320 B=2", 2, 128, 320, 320, 320, 1e-5, residual=False)
+    conv_case("unet 128x128 320->320 B=2", 2, 128, 320, 320, 0, 1e-5, residual=False)
+    conv_case("unet 128x128 320->320 B=2 res", 2, 128, 320, 320, 0, 1e-5)
+    seen = set()
+    for lat in (64, 128):
+        for conv_shape in decoder_convs(lat):
+            if conv_shape not in seen:
+                seen.add(conv_shape)
+                hw, ci, co, res, st = conv_shape
+                conv_case(f"vae {hw}x{hw} {ci}->{co}{' res' if res else ''}"
+                          f"{'' if st else ' no stats'}", 1, hw, ci, co, 0, 1e-6, res, st)
 
-    for hw, c, co, n in ((128, 512, 512, 2), (256, 256, 256, 1), (256, 512, 512, 1),
-                         (512, 256, 256, 1)):
+    for hw, c, co in ((128, 512, 512), (256, 256, 256), (256, 512, 512), (512, 256, 256)):
         args = (rnd(1, hw, hw, c), rnd(3, 3, c, co, scale=(9 * c) ** -0.5), rnd(co, scale=0.1))
-        cases.append(Case("upsample2x_conv_fused", f"{hw}x{hw}x{c} -> {2 * hw}x{2 * hw}", n,
+        cases.append(Case("upsample2x_conv_fused", f"{hw}x{hw}x{c} -> {2 * hw}x{2 * hw}",
                           fused_conv.upsample2x_conv_fused,
                           fused_conv.upsample2x_conv_fused_plain, args, {"emit_stats": True},
                           2 * 16 * hw * hw * c * co))
     for hw in (512, 1024):
         x = rnd(1, hw, hw, 128)
         args = (x, rnd(128, scale=0.1) + 1.0, rnd(128, scale=0.1), 32, 1e-6)
-        cases.append(Case("group_norm_silu", f"{hw}x{hw}x128", 1, fused_groupnorm.group_norm_silu,
+        cases.append(Case("group_norm_silu", f"{hw}x{hw}x128", fused_groupnorm.group_norm_silu,
                           fused_groupnorm.group_norm_silu_plain, args,
                           {"sums": fused_groupnorm.channel_partials_plain(x)}, 8 * x.numel(),
                           PEAK_F32))
@@ -310,23 +337,48 @@ def _nbytes(*trees) -> int:
     return n
 
 
-def phase_kernels(dev) -> dict:
-    """Phase 2. Returns per-kernel {max_abs_err, ms, plain_ms, bound_ms,
-    library_ms} from the bfloat16 run, the main path's dtype; the times are
-    each shape's time times its launches in the two generate runs, summed."""
+def launched_key(c: "Case"):
+    """(result of one call of c's kernel, the key of the shape it launched,
+    under which its wrapper counts it)."""
+    before = dict(c.fn.shapes)
+    got = c.fn(*c.args, **c.kw)
+    keys = [k for k, n in c.fn.shapes.items() if n != before.get(k, 0)]
+    if len(keys) != 1:
+        fail(f"{c.name} {c.shape}: one call counted shapes {keys}")
+    return got, keys[0]
+
+
+def phase_kernels(dev) -> tuple[dict, dict]:
+    """Phase 2. Returns ({kernel: max abs error}, {(kernel, shape key):
+    {label, ms, plain_ms, library_ms, bound_ms, ops_ms, bytes_ms}}), both
+    from the bfloat16 run, the main path's dtype."""
     import torch
 
     from sdtpu_torch.ops.fused_groupnorm import channel_partials_plain
 
-    results = {}
+    max_err, measured = {}, {}
     failed = []
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         atol, rtol = TOL[dname]
         for c in kernel_cases(dtype, dev):
-            got, want = c.fn(*c.args, **c.kw), c.plain(*c.args, **c.kw)
+            (got, key), want = launched_key(c), c.plain(*c.args, **c.kw)
             torch.cuda.synchronize()
             a, r = (STATS_TOL if c.name == "channel_partials" else (atol, rtol))
+            if c.name == "flash_attention_heads":
+                frac, r = FLASH_TOL[dname]
+                a = frac * float(want.float().abs().max())
+                q, k, v, kb, n_head = c.args
+                every_other = c.plain(q, k[:, ::2], v[:, ::2],
+                                      None if kb is None else kb[:, ::2], n_head)
+                passes = [within(wrong, want, a, r)[1]
+                          for wrong in (torch.zeros_like(want), every_other)]
+                print(f"kernel {c.name:21s} {dname:8s} {c.shape:30s} max |ref| "
+                      f"{a / frac:.4f}; the tolerance passes an all-zero output: {passes[0]}, "
+                      f"one over every other key: {passes[1]}", flush=True)
+                if any(passes):
+                    failed.append(f"{c.name} {dname} {c.shape} tolerance too loose")
+                del every_other
             ops_ms, bytes_ms = 1e3 * c.ops / c.peak, 1e3 * _nbytes(c.args, c.kw, got) / HBM
             bound_ms = max(ops_ms, bytes_ms)
             bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
@@ -352,27 +404,51 @@ def phase_kernels(dev) -> dict:
             lib_ms = None if c.library is None else cuda_ms(lambda: c.library(*c.args, **c.kw))
             lib = "" if lib_ms is None else f"  library {lib_ms:.4f} ms"
             print(f"kernel {c.name:21s} {dname:8s} {c.shape:30s} max_abs_err {err:.3e} "
-                  f"(tol {a:g} + {r:g}|ref|) {'ok' if ok else 'FAILED'}  "
+                  f"(tol {a:.3g} + {r:.3g}|ref|) {'ok' if ok else 'FAILED'}  "
                   f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms{lib}  bound {bound_ms:.4f} ms "
-                  f"({bound_by})  launches {c.calls}", flush=True)
+                  f"({bound_by})  [{key}]", flush=True)
             if not ok:
                 failed.append(f"{c.name} {dname} {c.shape}")
             if dtype == torch.bfloat16:
-                e = results.setdefault(c.name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                                                "bound_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0,
-                                                "library_ms": 0.0 if lib_ms is not None
-                                                else None})
-                e["max_abs_err"] = max(e["max_abs_err"], err)
-                e["ms"] += c.calls * ms
-                e["plain_ms"] += c.calls * plain_ms
-                e["bound_ms"] += c.calls * bound_ms
-                e["ops_ms"] += c.calls * ops_ms
-                e["bytes_ms"] += c.calls * bytes_ms
-                if e["library_ms"] is not None:
-                    e["library_ms"] += c.calls * lib_ms
+                max_err[c.name] = max(max_err.get(c.name, 0.0), err)
+                measured[(c.name, key)] = {
+                    "label": c.shape, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                    "bound_ms": bound_ms, "ops_ms": ops_ms, "bytes_ms": bytes_ms}
     if failed:
         fail("kernel disagrees with its plain version: " + "; ".join(failed))
-    return results
+    return max_err, measured
+
+
+def main_path_times(measured: dict, shapes: dict) -> dict:
+    """Per kernel, {ms, plain_ms, library_ms, bound_ms, bound_by} of its
+    launches in the generate runs: each launched shape's phase-2 time (or
+    bound) times its launches there, as the wrapper counted them per shape,
+    summed. library_ms is None where a launched shape has no library call.
+    Fails if a launched shape has no case in phase 2."""
+    totals, missing = {}, []
+    for name in KERNEL_INFO:
+        t = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "ops_ms": 0.0,
+             "bytes_ms": 0.0}
+        for key, n in sorted(shapes[name].items()):
+            m = measured.get((name, key))
+            if m is None:
+                missing.append(f"{name} [{key}] x{n}")
+                continue
+            lib = "" if m["library_ms"] is None else f"  library {n * m['library_ms']:.3f} ms"
+            print(f"main path {name:21s} {m['label']:32s} launches {n:4d}: kernel "
+                  f"{n * m['ms']:.3f} ms  plain {n * m['plain_ms']:.3f} ms{lib}  bound "
+                  f"{n * m['bound_ms']:.3f} ms", flush=True)
+            for f in ("ms", "plain_ms", "bound_ms", "ops_ms", "bytes_ms"):
+                t[f] += n * m[f]
+            if m["library_ms"] is None or t["library_ms"] is None:
+                t["library_ms"] = None
+            else:
+                t["library_ms"] += n * m["library_ms"]
+        t["bound_by"] = "operations" if t.pop("ops_ms") >= t.pop("bytes_ms") else "bytes"
+        totals[name] = t
+    if missing:
+        fail("shapes launched on the main path with no case in phase 2: " + "; ".join(missing))
+    return totals
 
 
 def to(tree, device):
@@ -558,10 +634,10 @@ EXPECTED_LAUNCHES = {
 EXPECTED_X2 = {512: 0, 1024: 60}  # K6 launches with the skip as second input
 
 
-def phase_generate(dev, size: int) -> dict:
+def phase_generate(dev, size: int) -> tuple[dict, dict]:
     """Phase 4: StableDiffusion.generate at SD v1.4 width, random weights,
-    bf16, size x size, 20 DDIM steps, CFG 7.5, batch 1. Returns launch
-    counts."""
+    bf16, size x size, 20 DDIM steps, CFG 7.5, batch 1. Returns the launch
+    counts, per kernel and per kernel and shape."""
     import torch
 
     from sdtpu_torch.config import SD_V1_4
@@ -591,13 +667,14 @@ def phase_generate(dev, size: int) -> dict:
     sd.latent_to_image = keep_latent
     fns = wrappers()
     for f in fns.values():
-        f.launches = 0
+        f.launches, f.shapes = 0, {}
     fused_conv.conv3x3_fused.launches_x2 = 0
     t0 = time.perf_counter()
     images = sd.generate(tok, "An ancient mossy stone.", guidance_scale=7.5, n_steps=20,
                          generator=torch.Generator(device=dev).manual_seed(SEED + 1))
     wall = time.perf_counter() - t0
     launches = {name: f.launches for name, f in fns.items()}
+    shapes = {name: dict(f.shapes) for name, f in fns.items()}
     x2 = fused_conv.conv3x3_fused.launches_x2
 
     lat = latents[0]
@@ -618,7 +695,7 @@ def phase_generate(dev, size: int) -> dict:
     if launches != EXPECTED_LAUNCHES[size] or x2 != EXPECTED_X2[size]:
         fail(f"launch counts {launches} (x2 {x2}) differ from {EXPECTED_LAUNCHES[size]} "
              f"(x2 {EXPECTED_X2[size]})")
-    return launches
+    return launches, shapes
 
 
 def main() -> None:
@@ -647,7 +724,7 @@ def main() -> None:
     print(f"build {path.name} in {time.perf_counter() - t0:.1f} s", flush=True)
 
     # phase 2: each kernel against its plain version
-    results = phase_kernels(dev)
+    max_err, measured = phase_kernels(dev)
     # phase 3: one SpatialTransformer, the VAE decoder and one 1024px fused
     # ResBlock, card against CPU
     phase_transformer(dev)
@@ -655,20 +732,24 @@ def main() -> None:
     phase_resblock(dev)
     # phase 4: the main path at 512px and at 1024px
     launches = {name: 0 for name in KERNEL_INFO}
+    shapes = {name: {} for name in KERNEL_INFO}
     for size in (512, 1024):
-        for name, n in phase_generate(dev, size).items():
-            launches[name] += n
+        run_launches, run_shapes = phase_generate(dev, size)
+        for name in KERNEL_INFO:
+            launches[name] += run_launches[name]
+            for key, n in run_shapes[name].items():
+                shapes[name][key] = shapes[name].get(key, 0) + n
         torch.cuda.empty_cache()
+    times = main_path_times(measured, shapes)
 
     kernels_json = []
     for name, (route, source, replaces) in KERNEL_INFO.items():
-        r = results[name]
+        t = times[name]
         kernels_json.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": "operations" if r["ops_ms"] >= r["bytes_ms"] else "bytes",
-            "library_ms": r["library_ms"]})
+            "launches": launches[name], "max_abs_err": max_err[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
     print(f"chip_smoke phases took {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels_json}), flush=True)
     print(card, flush=True)

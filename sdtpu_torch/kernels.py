@@ -139,6 +139,16 @@ def ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 
 
+def count(wrapper, **dims) -> None:
+    """Record one launch of wrapper's kernel: wrapper.launches += 1, and one
+    more in wrapper.shapes under the dimensions that set the launch's work
+    ("b=2 s=4096 c=320 ..."), so that a run can be told which shapes it
+    launched and how often."""
+    wrapper.launches += 1
+    key = " ".join(f"{k}={v}" for k, v in dims.items())
+    wrapper.shapes[key] = wrapper.shapes.get(key, 0) + 1
+
+
 def gemm(a, w, out, *, M: int, N: int, K: int, batch: int = 1,
          lda: int, a_bs: int = 0, ldw: int, ldo: int, o_bs: int = 0,
          bias=None, res=None, ldr: int = 0, r_bs: int = 0,

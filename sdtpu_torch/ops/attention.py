@@ -15,11 +15,9 @@ from typing import Optional
 
 import torch
 
-from sdtpu_torch.ops.flash_attention import MAX_HEAD_DIM, flash_qkv_attention
+from sdtpu_torch.ops.flash_attention import MAX_HEAD_DIM, flash_qkv_attention, query_chunks
 
 NEG_INF = float("-inf")
-# f32 score elements qkv_attention_plain holds at a time (2 GB)
-_SCORE_BUDGET = 1 << 29
 # sdtpu's shortest query and key sequences for the flash kernel
 FLASH_MIN_SEQ = 2048
 
@@ -52,9 +50,8 @@ def qkv_attention_plain(q, k, v, mask=None, n_head: int = 1,
 
     The scores are computed and kept in f32, as sdtpu's einsum with
     preferred_element_type=f32 keeps them; the weights are cast to v's
-    dtype for the value product. Queries go in chunks so that the f32
-    scores stay within _SCORE_BUDGET; every row is independent, so the
-    numbers do not change.
+    dtype for the value product. Long query sequences go in query_chunks
+    (ops/flash_attention.py), which bound the f32 scores.
     """
     b, sq, d = q.shape
     sk = k.shape[1]
@@ -64,17 +61,23 @@ def qkv_attention_plain(q, k, v, mask=None, n_head: int = 1,
     q = (q * scale).reshape(b, sq, n_head, d_head).transpose(1, 2)
     kt = (k * scale).reshape(b, sk, n_head, d_head).transpose(1, 2).float().transpose(-1, -2)
     v = v.reshape(b, sk, n_head, d_head).transpose(1, 2)
-    out = torch.empty((b, n_head, sq, d_head), dtype=v.dtype, device=v.device)
-    step = max(1, _SCORE_BUDGET // max(1, b * n_head * sk))
-    for i in range(0, sq, step):
-        qk = torch.matmul(q[:, :, i:i + step].float(), kt)  # [B, h, chunk, Sk]
+
+    def attend(i, j):
+        qk = torch.matmul(q[:, :, i:j].float(), kt)  # [B, h, j - i, Sk]
         if mask is not None:
-            qk = qk + mask[i:min(i + step, sq), :sk]
+            qk = qk + mask[i:j, :sk]
         if key_valid is not None:
             qk = qk.masked_fill(~key_valid[:, None, None, :], NEG_INF)
         w = torch.exp(qk - qk.amax(dim=-1, keepdim=True))
-        w = (w / w.sum(dim=-1, keepdim=True)).to(v.dtype)
-        out[:, :, i:i + step] = torch.matmul(w, v)
+        return torch.matmul((w / w.sum(dim=-1, keepdim=True)).to(v.dtype), v)
+
+    chunks = query_chunks(b, n_head, sq, sk)
+    if len(chunks) == 1:
+        out = attend(0, sq)
+    else:
+        out = torch.empty((b, n_head, sq, d_head), dtype=v.dtype, device=v.device)
+        for i, j in chunks:
+            out[:, :, i:j] = attend(i, j)
     return out.transpose(1, 2).reshape(b, sq, d)
 
 

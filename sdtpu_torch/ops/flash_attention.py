@@ -25,30 +25,36 @@ from sdtpu_torch import kernels
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 512  # what csrc/flash_attention.cu takes
-# f32 score elements the plain version holds at a time (2 GB)
-_SCORE_BUDGET = 1 << 29
+# f32 score elements a plain attention (here and ops/attention.py) holds at
+# a time (2 GB)
+SCORE_BUDGET = 1 << 29
+
+
+def query_chunks(b: int, h: int, sq: int, sk: int):
+    """Query ranges [i, j) over which a plain attention's f32 scores
+    [B, H, j - i, Sk] stay within SCORE_BUDGET elements. Each query row is
+    independent, so the chunks change no number."""
+    step = max(1, SCORE_BUDGET // max(1, b * h * sk))
+    return [(i, min(i + step, sq)) for i in range(0, sq, step)]
 
 
 def _attend_plain(q, k, v, key_bias, out):
     """Plain attention over [B, H, S, d] views (any strides), written into
-    out: queries in chunks, so the f32 scores stay within _SCORE_BUDGET.
-    The weights are rounded to v's dtype before the value product and the
-    sum divides afterwards, as the Pallas kernel does."""
+    out, in query_chunks. The weights are rounded to v's dtype before the
+    value product and the sum divides afterwards, as the Pallas kernel
+    does."""
     b, h, sq, d = q.shape
-    sk = k.shape[2]
     scale = float(d) ** -0.5
     kt = k.float().transpose(-1, -2)
     vf = v.float()
     bias = None if key_bias is None else key_bias.float()[:, None, None, :]
-    step = max(1, _SCORE_BUDGET // max(1, b * h * sk))
-    for i in range(0, sq, step):
-        s = torch.matmul(q[:, :, i:i + step].float(), kt) * scale
+    for i, j in query_chunks(b, h, sq, k.shape[2]):
+        s = torch.matmul(q[:, :, i:j].float(), kt) * scale
         if bias is not None:
             s = s + bias
         p = torch.exp(s - s.amax(dim=-1, keepdim=True))
         l = p.sum(dim=-1, keepdim=True)
-        o = torch.matmul(p.to(v.dtype).float(), vf) / l
-        out[:, :, i:i + step] = o.to(out.dtype)
+        out[:, :, i:j] = (torch.matmul(p.to(v.dtype).float(), vf) / l).to(out.dtype)
     return out
 
 
@@ -94,7 +100,8 @@ def _attend(q, k, v, key_bias, out):
             kernels.ptr(key_bias), b * h, h, sq, sk, d, float(d) ** -0.5,
             kernels.stream(q))
     kernels.check(rc, "sdk_flash_attention")
-    flash_attention_heads.launches += 1
+    kernels.count(flash_attention_heads, b=b, h=h, sq=sq, sk=sk, d=d,
+                  bias=key_bias is not None)
     return out
 
 
@@ -110,6 +117,7 @@ def flash_attention_heads(q, k, v, key_bias=None, n_head: int = 1):
 
 
 flash_attention_heads.launches = 0
+flash_attention_heads.shapes = {}
 
 
 def flash_qkv_attention(q, k, v, n_head: int, key_valid=None):

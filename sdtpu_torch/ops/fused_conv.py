@@ -101,7 +101,8 @@ def conv1x1_fused(x, w, conv_bias, prologue_scale=None, prologue_bias=None,
         kernels.gemm(x, w, out, M=rows, N=co, K=c, batch=b, lda=c, a_bs=rows * c,
                      ldw=co, ldo=co, o_bs=rows * co, bias=cb, res=res, ldr=co,
                      r_bs=rows * co, pa=ps, pb=pb, prologue=prologue, stats=stats)
-    conv1x1_fused.launches += 1
+    kernels.count(conv1x1_fused, b=b, rows=rows, c=c, co=co, prologue=prologue,
+                  residual=res is not None, stats=emit_stats)
     y = out.reshape(shape[:-1] + (co,))
     if emit_stats:
         return y, stats.sum(dim=1)
@@ -109,6 +110,7 @@ def conv1x1_fused(x, w, conv_bias, prologue_scale=None, prologue_bias=None,
 
 
 conv1x1_fused.launches = 0
+conv1x1_fused.shapes = {}
 
 
 def _stats(acc):
@@ -188,13 +190,16 @@ def conv3x3_fused(x, w, conv_bias, prologue_scale=None, prologue_bias=None,
         kernels.conv(x, w.to(dt).contiguous(), out, C=c, H=h, W=wd, N=co, batch=b,
                      kw=3, nphase=1, up=1, bias=conv_bias.float().contiguous(),
                      res=res, pa=ps, pb=pb, prologue=prologue, stats=stats, x2=x2, C2=c2)
-    conv3x3_fused.launches += 1
+    kernels.count(conv3x3_fused, b=b, h=h, w=wd, c=c, c2=c2, co=co, prologue=prologue,
+                  residual=res is not None, stats=emit_stats)
     conv3x3_fused.launches_x2 += x2 is not None
     return (out, stats.sum(dim=1)) if emit_stats else out
 
 
 conv3x3_fused.launches = 0
+conv3x3_fused.shapes = {}
 conv3x3_fused.launches_x2 = 0  # the launches among them with a second input
+
 
 def upsample2x_conv_fused_plain(x, w, conv_bias, emit_stats: bool = False):
     """The plain version of upsample2x_conv_fused: four phase convolutions
@@ -232,11 +237,12 @@ def upsample2x_conv_fused(x, w, conv_bias, emit_stats: bool = False):
                                 dtype=torch.float32, device=x.device)
         kernels.conv(x, wph, out, C=c, H=h, W=wd, N=co, batch=b, kw=2, nphase=4,
                      up=2, bias=conv_bias.float().contiguous(), stats=stats)
-    upsample2x_conv_fused.launches += 1
+    kernels.count(upsample2x_conv_fused, b=b, h=h, w=wd, c=c, co=co, stats=emit_stats)
     return (out, stats.sum(dim=1)) if emit_stats else out
 
 
 upsample2x_conv_fused.launches = 0
+upsample2x_conv_fused.shapes = {}
 
 
 def gn_scale_bias(x, gamma, beta, n_group: int, eps: float):

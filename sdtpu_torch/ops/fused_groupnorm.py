@@ -47,11 +47,12 @@ def channel_partials(x):
             kernels.dtype_code(x), x.data_ptr(), part.data_ptr(), b, rows, c,
             nsplit, kernels.stream(x))
     kernels.check(rc, "sdk_channel_partials")
-    channel_partials.launches += 1
+    kernels.count(channel_partials, b=b, rows=rows, c=c)
     return part.sum(dim=1)
 
 
 channel_partials.launches = 0
+channel_partials.shapes = {}
 
 
 def group_norm_silu_plain(x, gamma, beta, n_group: int = 32, eps: float = 1e-5,
@@ -95,8 +96,9 @@ def group_norm_silu(x, gamma, beta, n_group: int = 32, eps: float = 1e-5,
             kernels.dtype_code(x), x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
             out.data_ptr(), b, rows, c, int(silu), kernels.stream(x))
     kernels.check(rc, "sdk_group_norm_silu")
-    group_norm_silu.launches += 1
+    kernels.count(group_norm_silu, b=b, rows=rows, c=c, silu=bool(silu))
     return out
 
 
 group_norm_silu.launches = 0
+group_norm_silu.shapes = {}

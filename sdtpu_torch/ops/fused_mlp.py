@@ -58,8 +58,9 @@ def fused_geglu_mlp(x, ln_g, ln_b, w_proj, b_proj, w_lin, b_lin,
                      prologue=kernels.PRO_LAYERNORM, geglu_off=c4, eps=eps)
         kernels.gemm(h, w_lin.to(dt).contiguous(), out, M=m, N=c, K=c4, lda=c4,
                      ldw=c, ldo=c, bias=b_lin.float().contiguous(), res=x, ldr=c)
-    fused_geglu_mlp.launches += 1
+    kernels.count(fused_geglu_mlp, b=b, s=s, c=c)
     return out
 
 
 fused_geglu_mlp.launches = 0
+fused_geglu_mlp.shapes = {}

@@ -71,8 +71,9 @@ def fused_self_attention(x, ln_g, ln_b, wqkv, wo, bo,
         kernels.check(rc, "sdk_attention")
         kernels.gemm(attn, wo.to(dt).contiguous(), out, M=m, N=c, K=c, lda=c,
                      ldw=c, ldo=c, bias=bo.float().contiguous(), res=x, ldr=c)
-    fused_self_attention.launches += 1
+    kernels.count(fused_self_attention, b=b, s=s, c=c, heads=n_head)
     return out
 
 
 fused_self_attention.launches = 0
+fused_self_attention.shapes = {}

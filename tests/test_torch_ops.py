@@ -387,9 +387,20 @@ WRAPPERS = [
 
 @pytest.mark.parametrize("fn,make", WRAPPERS, ids=lambda v: getattr(v, "__name__", ""))
 def test_wrapper_routes_cpu_tensors_to_plain_and_counts_nothing(fn, make):
-    before = fn.launches
+    before = fn.launches, dict(fn.shapes)
     fn(*make())
-    assert fn.launches == before
+    assert (fn.launches, fn.shapes) == before
+
+
+def test_count_records_each_launch_under_its_shape():
+    def wrapper():
+        pass
+
+    wrapper.launches, wrapper.shapes = 0, {}
+    for s in (4096, 1024, 4096):
+        kernels.count(wrapper, b=2, s=s, stats=False)
+    assert wrapper.launches == 3
+    assert wrapper.shapes == {"b=2 s=4096 stats=False": 2, "b=2 s=1024 stats=False": 1}
 
 
 @pytest.mark.parametrize("fn,make", WRAPPERS, ids=lambda v: getattr(v, "__name__", ""))
@@ -451,9 +462,10 @@ def test_kernel_matches_plain_on_card(name, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     fn, plain, args, kw = _card_cases(torch.device("cuda"), getattr(torch, dtype))[name]
-    before = fn.launches
+    before, shapes = fn.launches, dict(fn.shapes)
     got, want = fn(*args, **kw), plain(*args, **kw)
     assert fn.launches == before + 1
+    assert sum(fn.shapes.values()) == sum(shapes.values()) + 1
     if kw.get("emit_stats"):
         (got, stats), (want, _) = got, want
         # the stats are sums over the f32 accumulator, before the output's

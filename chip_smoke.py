@@ -5,32 +5,43 @@
 Phases, each printing its lines:
 
 1. device and build: the card's name and power limit (nvidia-smi), then
-   the kernels built from sdtpu_torch/csrc with nvcc;
+   the kernels built from sdtpu_torch/csrc with nvcc (one process per
+   source, all at once);
 2. each kernel against its plain PyTorch version on the card, at the
-   shapes SD v1.4's UNet and VAE decoder give it at 512px and at 1024px, in
-   float32 and bfloat16: max error against the stated tolerance, the times
-   of the kernel, of its plain version and, where one PyTorch call computes
-   the same function, of that call (CUDA events), and the least time the
-   card could take for the same work (its bound);
+   shapes SD v1.4's UNet, VAE decoder and VAE encoder give it at 512px and
+   at 1024px, and training's (K1 with its row statistics, K9), in float32
+   and bfloat16: max error against the stated tolerance, the times of the
+   kernel, of its plain version and, where one PyTorch call computes the
+   same function, of that call (CUDA events), and the least time the card
+   could take for the same work (its bound);
 3. one SpatialTransformer at the 64x64 latent level (C=320), random
    weights, run on the card (kernels) and on the CPU (plain versions); the
    VAE decoder at SD v1.4 width on a 16x16 latent with every fused gate
    opened, card against CPU; one fused up-path ResBlock of the 1024px UNet
-   (128x128, 640 + 320 skip channels -> 320), card against CPU;
+   (128x128, 640 + 320 skip channels -> 320), card against CPU; the
+   gradients of one 64x64 SpatialTransformer in training (K1 + K9), card
+   against CPU;
 4. StableDiffusion.generate at SD v1.4 width with random weights: bf16,
    20 DDIM steps, CFG 7.5, batch 1, first at 512x512, then at 1024x1024
    (the same config with image_size=1024). Each must give a
    [1, size, size, 3] uint8 image from finite latents, and the kernels'
    launch counters, set to 0 just before each run and read just after,
-   must read exactly what the dispatch implies.
+   must read exactly what the dispatch implies;
+5. sdtpu_torch.finetune.run_finetune at SD v1.4 width and depth, 512x512,
+   from a folder of synthetic PNGs: the latent cache through the port's
+   VAE encoder and CLIP, then 3 AdamW steps at batch 4 in bf16, the tuned
+   model written and read back; the launch counts of the cache build and
+   of the training (K1 and K9 only), finite losses, every UNet leaf
+   changed; then one more step each with remat "full" and "dots".
 
 It prints a JSON line of per-kernel results, then the card's name and
 power limit, then, last, {"ok": true, "device": {...}}. Any failure
 exits nonzero before that line; there is no CPU fallback. In the JSON
-line `launches` is the sum of both generate runs, and `ms`, `plain_ms`,
+line `launches` is the sum of the main paths' runs (both generate runs and
+the fine-tuning run, its cache build included), and `ms`, `plain_ms`,
 `bound_ms` and `library_ms` are for those launches: each wrapper counts
 its launches per shape as well, and each shape's bfloat16 time (or bound)
-from phase 2 is taken as many times as the two runs launched it. A shape
+from phase 2 is taken as many times as the runs launched it. A shape
 launched there with no case in phase 2 is a failure.
 
 Bounds: max(operations / peak rate, bytes / 3.35 TB/s), the inputs read
@@ -50,6 +61,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -100,8 +112,17 @@ STATS_TOL = (1e-2, 1e-4)  # f32 sums over 4096 rows in another order
 # (0.013 at S=16384), far below TOL's atol: its atol is this fraction of
 # the largest |reference| instead, with this rtol (f32: TF32 products;
 # bf16: a few ulps). phase_kernels checks that an all-zero output and one
+# over every other key fail it. K9's gradients, sums over thousands of keys
+# or queries, are held to the same: f32, TF32 products and Δ = rowsum(dO ∘
+# o) from the TF32 forward's o; bf16, Δ from the bf16 o (rounded to 2^-8,
+# where the plain version takes rowsum(dP ∘ P) in f32) and P, dS rounded to
+# bf16 at other points; phase_kernels checks that a zeroed dk and the dq
 # over every other key fail it.
 FLASH_TOL = {"float32": (2.0 ** -8, 2.0 ** -10), "bfloat16": (2.0 ** -6, 2.0 ** -7)}
+# K1's row statistics (log2 domain, values about 12 at S=4096): the scores
+# differ by the summation order (bf16 inputs: 2e-6 measured) or TF32's
+# rounding of q and k (f32: 5e-4); a wrong max or sum is off by far more
+LSE_TOL = 2.0 ** -9
 
 
 def within(got, want, atol, rtol) -> tuple[float, bool]:
@@ -115,7 +136,9 @@ def within(got, want, atol, rtol) -> tuple[float, bool]:
 class Case(NamedTuple):
     """One main-path shape of a kernel. ops and peak: the operations the
     function needs and the card's rate for them; library: one PyTorch call
-    that computes the same function on the same inputs, or None."""
+    that computes the same function on the same inputs, or None; its time
+    is taken less that of library_minus when given (K9: SDPA's forward and
+    backward less its forward)."""
     name: str
     shape: str
     fn: Callable
@@ -125,6 +148,7 @@ class Case(NamedTuple):
     ops: float
     peak: float = PEAK_TENSOR
     library: Optional[Callable] = None
+    library_minus: Optional[Callable] = None
 
 
 def decoder_convs(lat: int) -> list:
@@ -144,6 +168,13 @@ def decoder_convs(lat: int) -> list:
     for i, (hw, ci, co) in enumerate(blocks):
         convs += [(hw, ci, co, False, True), (hw, co, co, True, i != 0)]
     return convs
+
+
+# (map size, input channels, output channels) of the distinct ResnetBlocks
+# of SD v1.4's VAE encoder on a 512x512 image; the first of each level's two
+# blocks changes the width, the mid block's two run at 64x64x512
+ENCODER_RESNETS = ((512, 128, 128), (256, 128, 256), (256, 256, 256), (128, 256, 512),
+                   (128, 512, 512), (64, 512, 512))
 
 
 def kernel_cases(dtype, dev):
@@ -192,11 +223,16 @@ def kernel_cases(dtype, dev):
             rnd(c, scale=0.1), 32, 1e-5)
         w, cb = rnd(c, c, scale=c ** -0.5), rnd(c, scale=0.1)
         ops = 2 * 2 * rows * c * c
+
+        def product(*a, xr=xr, w=w, **k):  # the 1x1 product alone
+            return torch.matmul(xr, w)
+
         cases.append(Case("conv1x1_fused", f"proj_in {rows}x{c}", fused_conv.conv1x1_fused,
-                          fused_conv.conv1x1_fused_plain, (xr, w, cb, scale, bias), {}, ops))
+                          fused_conv.conv1x1_fused_plain, (xr, w, cb, scale, bias), {}, ops,
+                          library=product))
         cases.append(Case("conv1x1_fused", f"proj_out {rows}x{c}",
                           fused_conv.conv1x1_fused, fused_conv.conv1x1_fused_plain,
-                          (xr, w, cb), {"residual": rnd(2, rows, c)}, ops))
+                          (xr, w, cb), {"residual": rnd(2, rows, c)}, ops, library=product))
 
     # K2 at every UNet level of both sizes (the 16x16 middle block at 1024px)
     for s, c in ((4096, 320), (1024, 640), (256, 1280), (16384, 320), (4096, 640),
@@ -205,40 +241,78 @@ def kernel_cases(dtype, dev):
         args = (x, rnd(c, scale=0.1) + 1.0, rnd(c, scale=0.1),
                 rnd(c, 3 * c, scale=c ** -0.5), rnd(c, c, scale=c ** -0.5),
                 rnd(c, scale=0.1), 8)
+        # the attention core alone, on the heads of the fused QKV product
+        qkv4 = torch.matmul(x, args[3]).view(2, s, 3, 8, c // 8).permute(2, 0, 3, 1, 4)
+
+        def core(*a, qkv4=qkv4, **k):
+            return F.scaled_dot_product_attention(qkv4[0], qkv4[1], qkv4[2])
+
         cases.append(Case("fused_self_attention", f"S={s} C={c} dh={c // 8}",
                           fused_transformer.fused_self_attention,
                           fused_transformer.fused_self_attention_plain, args, {},
-                          2 * (8 * s * c * c + 4 * s * s * c)))
+                          2 * (8 * s * c * c + 4 * s * s * c), library=core))
     for s, c in ((1024, 640), (256, 1280), (1024, 1280)):
         x = rnd(2, s, c)
         args = (x, rnd(c, scale=0.1) + 1.0, rnd(c, scale=0.1),
                 rnd(c, 8 * c, scale=c ** -0.5), rnd(8 * c, scale=0.1),
                 rnd(4 * c, c, scale=(4 * c) ** -0.5), rnd(c, scale=0.1))
-        cases.append(Case("fused_geglu_mlp", f"S={s} C={c}", fused_mlp.fused_geglu_mlp,
-                          fused_mlp.fused_geglu_mlp_plain, args, {}, 2 * 24 * s * c * c))
 
-    # K1: the VAE's mid-block attention at 1024px (one head, d=512), and
-    # training's narrow heads with and without a key-padding bias (no
-    # launch on the main path)
-    for bh, n_head, s, d, bias in ((1, 1, 16384, 512, False), (16, 8, 4096, 40, False),
-                                   (16, 8, 4096, 80, True)):
+        def first_product(*a, x=x, w=args[3], **k):  # LN(x)·W_proj's product alone
+            return torch.matmul(x, w)
+
+        cases.append(Case("fused_geglu_mlp", f"S={s} C={c}", fused_mlp.fused_geglu_mlp,
+                          fused_mlp.fused_geglu_mlp_plain, args, {}, 2 * 24 * s * c * c,
+                          library=first_product))
+
+    def heads4(n_head, *ts):
+        return [t.view(t.shape[0] // n_head, n_head, *t.shape[1:]) for t in ts]
+
+    # K1: the VAE's mid-block attention at 1024px (one head, d=512), a
+    # key-padding bias case (no launch on the main path), and training's
+    # forward at the 64² level of the 512px UNet (batch 4, 8 heads of 40)
+    # with the row statistics K9 takes
+    for bh, n_head, s, d, bias, lse in ((1, 1, 16384, 512, False, False),
+                                        (16, 8, 4096, 80, True, False),
+                                        (32, 8, 4096, 40, False, True)):
         q, k, v = rnd(bh, s, d), rnd(bh, s, d), rnd(bh, s, d)
         kb = None
         if bias:
             kb = torch.where(torch.arange(s, device=dev)[None] < torch.tensor(
                 [[s // 3], [s - 77]], device=dev), 0.0, -1e30).to(torch.float32)
 
-        def sdpa(q, k, v, key_bias=None, n_head=1):
-            q4, k4, v4 = (t.view(t.shape[0] // n_head, n_head, *t.shape[1:])
-                          for t in (q, k, v))
+        def sdpa(q, k, v, key_bias=None, n_head=1, return_lse=False):
             mask = None if key_bias is None else key_bias[:, None, None, :].to(q.dtype)
-            return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
+            return F.scaled_dot_product_attention(*heads4(n_head, q, k, v), attn_mask=mask)
 
         cases.append(Case("flash_attention_heads",
-                          f"BH={bh} S={s} d={d}{' bias' if bias else ''}",
+                          f"BH={bh} S={s} d={d}{' bias' if bias else ''}{' lse' if lse else ''}",
                           flash_attention.flash_attention_heads,
                           flash_attention.flash_attention_heads_plain,
-                          (q, k, v, kb, n_head), {}, 4 * bh * s * s * d, library=sdpa))
+                          (q, k, v, kb, n_head), {"return_lse": lse}, 4 * bh * s * s * d,
+                          library=sdpa))
+
+    # K9: training's backward at the 64² level of the 512px UNet, and the
+    # 1024px UNet's 128² and 64² levels (batch 4, 8 heads), from K1's output
+    # and row statistics as training hands them over
+    for bh, s, d in ((32, 4096, 40), (32, 16384, 40), (32, 4096, 80)):
+        q, k, v, do = rnd(bh, s, d), rnd(bh, s, d), rnd(bh, s, d), rnd(bh, s, d)
+        o, lse = flash_attention.flash_attention_heads(q, k, v, n_head=8, return_lse=True)
+
+        def bwd_plain(q, k, v, do, o, lse, n_head):
+            return flash_attention.flash_attention_bwd_heads_plain(q, k, v, do)
+
+        def sdpa_fwd(q, k, v, do, o, lse, n_head):
+            q4, k4, v4 = (t.detach().requires_grad_() for t in heads4(n_head, q, k, v))
+            return F.scaled_dot_product_attention(q4, k4, v4), (q4, k4, v4)
+
+        def sdpa_fwd_bwd(q, k, v, do, o, lse, n_head):
+            out, ins = sdpa_fwd(q, k, v, do, o, lse, n_head)
+            return torch.autograd.grad(out, ins, do.view_as(out))
+
+        cases.append(Case("flash_attention_bwd_heads", f"BH={bh} S={s} d={d}",
+                          flash_attention.flash_attention_bwd_heads, bwd_plain,
+                          (q, k, v, do, o, lse), {"n_head": 8}, 5 * 2 * bh * s * s * d,
+                          library=sdpa_fwd_bwd, library_minus=sdpa_fwd))
 
     # K6 (GN+SiLU prologue, output statistics): the UNet's fused ResBlocks
     # at 128x128 (1024px, B=2): conv_in over x or over the implicit skip
@@ -276,6 +350,20 @@ def kernel_cases(dtype, dev):
                 conv_case(f"vae {hw}x{hw} {ci}->{co}{' res' if res else ''}"
                           f"{'' if st else ' no stats'}", 1, hw, ci, co, 0, 1e-6, res, st)
 
+    # the VAE encoder's ResnetBlocks while the latent cache is built (512px,
+    # chunks of 4 images): K3 on each block's input, conv1 with the
+    # statistics, conv2 with the residual and without them
+    for hw, ci, co in ENCODER_RESNETS:
+        x = rnd(4, hw, hw, ci)
+        cases.append(Case("channel_partials", f"encoder {hw}x{hw}x{ci} B=4",
+                          fused_groupnorm.channel_partials,
+                          fused_groupnorm.channel_partials_plain, (x,), {}, 3 * x.numel(),
+                          PEAK_F32))
+        conv_case(f"encoder {hw}x{hw} {ci}->{co} B=4", 4, hw, ci, co, 0, 1e-6,
+                  residual=False)
+    for hw, co in sorted({(hw, co) for hw, _, co in ENCODER_RESNETS}, reverse=True):
+        conv_case(f"encoder {hw}x{hw} {co}->{co} B=4 res", 4, hw, co, co, 0, 1e-6, stats=False)
+
     for hw, c, co in ((128, 512, 512), (256, 256, 256), (256, 512, 512), (512, 256, 256)):
         args = (rnd(1, hw, hw, c), rnd(3, 3, c, co, scale=(9 * c) ** -0.5), rnd(co, scale=0.1))
         cases.append(Case("upsample2x_conv_fused", f"{hw}x{hw}x{c} -> {2 * hw}x{2 * hw}",
@@ -307,6 +395,8 @@ KERNEL_INFO = {
                               "sdtpu/ops/fused_conv.py:316"),
     "group_norm_silu": ("cuda", "sdtpu_torch/csrc/groupnorm.cu",
                         "sdtpu/ops/fused_groupnorm.py:82"),
+    "flash_attention_bwd_heads": ("cuda", "sdtpu_torch/csrc/flash_attention_bwd.cu",
+                                  "sdtpu/ops/flash_attention.py:580"),
 }
 
 
@@ -318,7 +408,8 @@ def wrappers() -> dict:
     fns = (flash_attention.flash_attention_heads, fused_groupnorm.channel_partials,
            fused_conv.conv1x1_fused, fused_transformer.fused_self_attention,
            fused_mlp.fused_geglu_mlp, fused_conv.conv3x3_fused,
-           fused_conv.upsample2x_conv_fused, fused_groupnorm.group_norm_silu)
+           fused_conv.upsample2x_conv_fused, fused_groupnorm.group_norm_silu,
+           flash_attention.flash_attention_bwd_heads)
     return {f.__name__: f for f in fns}
 
 
@@ -348,6 +439,61 @@ def launched_key(c: "Case"):
     return got, keys[0]
 
 
+def _check_flash(c, got, want, dname, failed):
+    """K1's check: the output within FLASH_TOL, scaled to the largest
+    |reference|, and that tolerance fails an all-zero output and one over
+    every other key; with return_lse, the row statistics within LSE_TOL.
+    Returns (max abs error of the output, ok, atol, rtol)."""
+    import torch
+
+    from sdtpu_torch.ops.flash_attention import flash_attention_heads_plain
+
+    if c.kw.get("return_lse"):
+        (got, got_lse), (want, want_lse) = got, want
+        lse_err, lse_ok = within(got_lse, want_lse, LSE_TOL, 0.0)
+        print(f"kernel {c.name:21s} {dname:8s} {c.shape:30s} row log2-sum-exp max_abs_err "
+              f"{lse_err:.3e} (tol {LSE_TOL:g}) {'ok' if lse_ok else 'FAILED'}", flush=True)
+        if not lse_ok:
+            failed.append(f"{c.name} {dname} {c.shape} lse")
+    frac, r = FLASH_TOL[dname]
+    a = frac * float(want.float().abs().max())
+    q, k, v, kb, n_head = c.args
+    every_other = flash_attention_heads_plain(q, k[:, ::2], v[:, ::2],
+                                              None if kb is None else kb[:, ::2], n_head)
+    passes = [within(wrong, want, a, r)[1] for wrong in (torch.zeros_like(want), every_other)]
+    print(f"kernel {c.name:21s} {dname:8s} {c.shape:30s} max |ref| {a / frac:.4f}; the "
+          f"tolerance passes an all-zero output: {passes[0]}, one over every other key: "
+          f"{passes[1]}", flush=True)
+    if any(passes):
+        failed.append(f"{c.name} {dname} {c.shape} tolerance too loose")
+    return (*within(got, want, a, r), a, r)
+
+
+def _check_k9(c, got, want, dname, failed):
+    """K9's check: dq, dk and dv each within FLASH_TOL, scaled to its largest
+    |reference|, and that tolerance fails a zeroed dk and the dq of the
+    gradients over every other key. Returns (max abs error, ok, atol of dq,
+    rtol)."""
+    import torch
+
+    from sdtpu_torch.ops.flash_attention import flash_attention_bwd_heads_plain
+
+    frac, r = FLASH_TOL[dname]
+    atols = [frac * float(w.float().abs().max()) for w in want]
+    results = [within(g, w, a, r) for g, w, a in zip(got, want, atols)]
+    q, k, v, do = c.args[:4]
+    half_dq = flash_attention_bwd_heads_plain(q, k[:, ::2], v[:, ::2], do)[0]
+    passes = [within(torch.zeros_like(want[1]), want[1], atols[1], r)[1],
+              within(half_dq, want[0], atols[0], r)[1]]
+    print(f"kernel {c.name:21s} {dname:8s} {c.shape:30s} dq/dk/dv max_abs_err "
+          f"{' / '.join(f'{e:.3e}' for e, _ in results)} (tol {frac:g}·max|ref| = "
+          f"{' / '.join(f'{a:.3g}' for a in atols)}, + {r:g}|ref|); the tolerance passes "
+          f"a zeroed dk: {passes[0]}, the dq over every other key: {passes[1]}", flush=True)
+    if any(passes):
+        failed.append(f"{c.name} {dname} {c.shape} tolerance too loose")
+    return max(e for e, _ in results), all(ok for _, ok in results), atols[0], r
+
+
 def phase_kernels(dev) -> tuple[dict, dict]:
     """Phase 2. Returns ({kernel: max abs error}, {(kernel, shape key):
     {label, ms, plain_ms, library_ms, bound_ms, ops_ms, bytes_ms}}), both
@@ -364,44 +510,38 @@ def phase_kernels(dev) -> tuple[dict, dict]:
         for c in kernel_cases(dtype, dev):
             (got, key), want = launched_key(c), c.plain(*c.args, **c.kw)
             torch.cuda.synchronize()
-            a, r = (STATS_TOL if c.name == "channel_partials" else (atol, rtol))
-            if c.name == "flash_attention_heads":
-                frac, r = FLASH_TOL[dname]
-                a = frac * float(want.float().abs().max())
-                q, k, v, kb, n_head = c.args
-                every_other = c.plain(q, k[:, ::2], v[:, ::2],
-                                      None if kb is None else kb[:, ::2], n_head)
-                passes = [within(wrong, want, a, r)[1]
-                          for wrong in (torch.zeros_like(want), every_other)]
-                print(f"kernel {c.name:21s} {dname:8s} {c.shape:30s} max |ref| "
-                      f"{a / frac:.4f}; the tolerance passes an all-zero output: {passes[0]}, "
-                      f"one over every other key: {passes[1]}", flush=True)
-                if any(passes):
-                    failed.append(f"{c.name} {dname} {c.shape} tolerance too loose")
-                del every_other
             ops_ms, bytes_ms = 1e3 * c.ops / c.peak, 1e3 * _nbytes(c.args, c.kw, got) / HBM
             bound_ms = max(ops_ms, bytes_ms)
             bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
-            if c.kw.get("emit_stats"):
-                (got, got_st), (want, _) = got, want
-                # the emitted statistics are sums over the f32 accumulator:
-                # held to the sums of the kernel's own output, within that
-                # output's rounding (bf16: 2^-8 of the sum of magnitudes;
-                # f32: the summation order). Against the plain version they
-                # would differ by TF32's rounding of the weights, which a
-                # sum over a million rows does not average out.
-                y_sums = channel_partials_plain(got)
-                tol_st = (2.0 ** -8 if dtype == torch.bfloat16 else 1e-5) * _stats_scale(got)
-                st_err = float(((got_st - y_sums).abs() / tol_st).max())
-                print(f"kernel {c.name:21s} {dname:8s} {c.shape:30s} emitted stats: max "
-                      f"|err| / tol {st_err:.3f}", flush=True)
-                if st_err > 1.0:
-                    failed.append(f"{c.name} {dname} {c.shape} stats")
-            err, ok = within(got, want, a, r)
+            a, r = (STATS_TOL if c.name == "channel_partials" else (atol, rtol))
+            if c.name == "flash_attention_heads":
+                err, ok, a, r = _check_flash(c, got, want, dname, failed)
+            elif c.name == "flash_attention_bwd_heads":
+                err, ok, a, r = _check_k9(c, got, want, dname, failed)
+            else:
+                if c.kw.get("emit_stats"):
+                    (got, got_st), (want, _) = got, want
+                    # the emitted statistics are sums over the f32
+                    # accumulator: held to the sums of the kernel's own
+                    # output, within that output's rounding (bf16: 2^-8 of
+                    # the sum of magnitudes; f32: the summation order).
+                    # Against the plain version they would differ by TF32's
+                    # rounding of the weights, which a sum over a million
+                    # rows does not average out.
+                    y_sums = channel_partials_plain(got)
+                    tol_st = (2.0 ** -8 if dtype == torch.bfloat16 else 1e-5) * _stats_scale(got)
+                    st_err = float(((got_st - y_sums).abs() / tol_st).max())
+                    print(f"kernel {c.name:21s} {dname:8s} {c.shape:30s} emitted stats: max "
+                          f"|err| / tol {st_err:.3f}", flush=True)
+                    if st_err > 1.0:
+                        failed.append(f"{c.name} {dname} {c.shape} stats")
+                err, ok = within(got, want, a, r)
             del got, want
             ms = cuda_ms(lambda: c.fn(*c.args, **c.kw))
             plain_ms = cuda_ms(lambda: c.plain(*c.args, **c.kw))
             lib_ms = None if c.library is None else cuda_ms(lambda: c.library(*c.args, **c.kw))
+            if c.library_minus is not None:
+                lib_ms -= cuda_ms(lambda: c.library_minus(*c.args, **c.kw))
             lib = "" if lib_ms is None else f"  library {lib_ms:.4f} ms"
             print(f"kernel {c.name:21s} {dname:8s} {c.shape:30s} max_abs_err {err:.3e} "
                   f"(tol {a:.3g} + {r:.3g}|ref|) {'ok' if ok else 'FAILED'}  "
@@ -414,6 +554,7 @@ def phase_kernels(dev) -> tuple[dict, dict]:
                 measured[(c.name, key)] = {
                     "label": c.shape, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                     "bound_ms": bound_ms, "ops_ms": ops_ms, "bytes_ms": bytes_ms}
+        torch.cuda.empty_cache()
     if failed:
         fail("kernel disagrees with its plain version: " + "; ".join(failed))
     return max_err, measured
@@ -626,10 +767,10 @@ def phase_resblock(dev) -> None:
 EXPECTED_LAUNCHES = {
     512: {"flash_attention_heads": 0, "channel_partials": 103, "conv1x1_fused": 200,
           "fused_self_attention": 300, "fused_geglu_mlp": 200, "conv3x3_fused": 28,
-          "upsample2x_conv_fused": 2, "group_norm_silu": 1},
+          "upsample2x_conv_fused": 2, "group_norm_silu": 1, "flash_attention_bwd_heads": 0},
     1024: {"flash_attention_heads": 1, "channel_partials": 262, "conv1x1_fused": 400,
            "fused_self_attention": 320, "fused_geglu_mlp": 120, "conv3x3_fused": 228,
-           "upsample2x_conv_fused": 3, "group_norm_silu": 1},
+           "upsample2x_conv_fused": 3, "group_norm_silu": 1, "flash_attention_bwd_heads": 0},
 }
 EXPECTED_X2 = {512: 0, 1024: 60}  # K6 launches with the skip as second input
 
@@ -698,6 +839,232 @@ def phase_generate(dev, size: int) -> tuple[dict, dict]:
     return launches, shapes
 
 
+# one SpatialTransformer's gradients, card (K1, K9, TF32 products) against
+# CPU (full f32): this fraction of each gradient's largest |reference| plus
+# this rtol (measured: 3.3e-4 of the largest |reference| at worst)
+GRAD_TOL = (2.0 ** -9, 2.0 ** -9)
+
+
+def phase_grad(dev) -> None:
+    """Phase 3d: one SpatialTransformer at the 64x64 level of SD v1.4 (C=320,
+    8 heads of 40, S=4096, batch 1, random weights, f32) inside
+    dispatch.training(): sum(out · g) backpropagated on the card (the self-
+    attention through K1 and K9, everything else plain) and on the CPU
+    (plain versions). Every parameter's gradient and the input's must agree
+    within GRAD_TOL, and every one on the card must be present and nonzero."""
+    import torch
+
+    from sdtpu_torch.config import SD_V1_4
+    from sdtpu_torch.io.native import flatten_tree
+    from sdtpu_torch.models import unet
+    from sdtpu_torch.ops import dispatch
+    from sdtpu_torch.training import master_params, tree_leaves
+    from sdtpu_torch.weights import Init
+
+    cfg, c = SD_V1_4.unet, 320
+    g = torch.Generator().manual_seed(SEED)
+    p_cpu = unet._init_transformer(Init(g, "cpu"), c, cfg.context_dim)
+    x = torch.randn((1, 64, 64, c), generator=g)
+    ctx = torch.randn((1, 77, cfg.context_dim), generator=g)
+    valid = torch.arange(77)[None, :] < 9
+    gout = torch.randn((1, 64, 64, c), generator=g)
+
+    def grads(device):
+        params = master_params(to(p_cpu, device))
+        xs = x.to(device).requires_grad_()
+        with dispatch.training():
+            out = unet._transformer_apply(params, xs, ctx.to(device), cfg, 8, valid.to(device))
+        leaves = tree_leaves(params) + [xs]
+        got = torch.autograd.grad((out * gout.to(device)).sum(), leaves, allow_unused=True)
+        return dict(zip(list(flatten_tree(params)) + ["input"], got))
+
+    fns = wrappers()
+    for f in fns.values():
+        f.launches, f.shapes = 0, {}
+    card = grads(dev)
+    torch.cuda.synchronize()
+    fired = {k: f.launches for k, f in fns.items() if f.launches}
+    cpu = grads("cpu")
+    frac, rtol = GRAD_TOL
+    worst, bad = (0.0, ""), []
+    for name, want in cpu.items():
+        got = card[name]
+        if got is None or not bool((got != 0).any()):
+            bad.append(f"{name} has no gradient on the card")
+            continue
+        err, ok = within(got.cpu(), want, frac * float(want.abs().max()), rtol)
+        rel = err / float(want.abs().max())
+        worst = max(worst, (rel, name))
+        if not ok:
+            bad.append(f"{name} max_abs_err {err:.3e}")
+    print(f"gradients of a 64x64x320 SpatialTransformer in training, card (K1 + K9) vs cpu "
+          f"(plain) float32: {len(cpu)} gradients, all present and nonzero: "
+          f"{not any('no gradient' in b for b in bad)}, worst max_abs_err / max|ref| "
+          f"{worst[0]:.3e} ({worst[1]}; tol {frac:g} + {rtol:g}|ref|), launches {fired} "
+          f"{'ok' if not bad else 'FAILED'}", flush=True)
+    if bad:
+        fail("training gradients on the card disagree with the CPU: " + "; ".join(bad))
+    if fired != {"flash_attention_heads": 1, "flash_attention_bwd_heads": 1}:
+        fail(f"the transformer's training step launched {fired}, expected K1 1, K9 1")
+
+
+# run_finetune at SD v1.4 512px: 8 synthetic images, batch 4, bf16, AdamW
+TRAIN_IMAGES, TRAIN_BATCH, TRAIN_STEPS = 8, 4, 3
+# its launches: the latent cache (2 chunks of 4 images through the VAE
+# encoder: 10 ResnetBlocks on the fused gate, K3 once and K6 twice each; the
+# mid attention at 64² and norm_out stay plain), then per step K1 in the
+# forward and K9 in the backward of the 5 transformers at the 64² level and
+# no other kernel (dispatch.training() closes their gates)
+EXPECTED_CACHE = {"channel_partials": 20, "conv3x3_fused": 40}
+EXPECTED_TRAIN = {"flash_attention_heads": 5 * TRAIN_STEPS,
+                  "flash_attention_bwd_heads": 5 * TRAIN_STEPS}
+# one more step with remat: "full" recomputes the blocks, K1 included; "dots"
+# saves the attention outputs
+EXPECTED_REMAT = {"full": {"flash_attention_heads": 10, "flash_attention_bwd_heads": 5},
+                  "dots": {"flash_attention_heads": 5, "flash_attention_bwd_heads": 5}}
+
+
+def phase_train(dev) -> tuple[dict, dict]:
+    """Phase 5: sdtpu_torch.finetune.run_finetune at SD v1.4 width and depth,
+    512x512, random weights (init_params, seed 0), bf16 compute, batch 4,
+    lr 1e-5, AdamW, 3 steps, remat off, on TRAIN_IMAGES synthetic PNGs with
+    captions: it builds the latent cache with the port's encoder and CLIP,
+    then trains. The counters are read and set to 0 when it reports the
+    dataset (after the cache build) and read again at its end. Checks the
+    losses, the saved model (sdtpu's keys, every UNet leaf finite and
+    changed), then one more step each with remat "full" and "dots". Prints
+    the warm step's wall ms and the peak memory of each. Returns the launch
+    counts of the whole run (cache build and training), per kernel and per
+    kernel and shape."""
+    import os
+    import tempfile
+
+    import torch
+
+    from sdtpu_torch.config import SD_V1_4
+    from sdtpu_torch.dataset import LatentBatches, load_latent_cache
+    from sdtpu_torch.finetune import resolve_cache, run_finetune
+    from sdtpu_torch.io.native import flatten_tree, load_native
+    from sdtpu_torch.models.unet import unfuse_qkv
+    from sdtpu_torch.pipeline import StableDiffusion
+    from sdtpu_torch.tokenizer import SimpleTokenizer
+    from sdtpu_torch.training import make_optimizer, make_train_step, master_params
+    from sdtpu_torch.utils.image import save_png
+    from sdtpu_torch.weights import init_params
+
+    fns = wrappers()
+
+    def read_and_zero():
+        counts = ({n: f.launches for n, f in fns.items()},
+                  {n: dict(f.shapes) for n, f in fns.items()})
+        for f in fns.values():
+            f.launches, f.shapes = 0, {}
+        return counts
+
+    def fired(counts):
+        return {n: k for n, k in counts.items() if k}
+
+    gib = 1024 ** 3
+    tok = SimpleTokenizer()
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        os.mkdir(data)
+        g = torch.Generator().manual_seed(SEED)
+        for i in range(TRAIN_IMAGES):
+            img = torch.randint(0, 256, (512, 512, 3), generator=g, dtype=torch.uint8)
+            save_png(img.numpy(), os.path.join(data, f"img{i}.png"))
+            with open(os.path.join(data, f"img{i}.txt"), "w") as f:
+                f.write(f"a synthetic picture, number {i}")
+        sd = StableDiffusion(init_params(SD_V1_4, torch.Generator(device=dev).manual_seed(0),
+                                         device=dev), SD_V1_4, compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+
+        marks = {"steps": []}
+
+        def log(line):
+            print(f"finetune: {line}", flush=True)
+            if line.startswith("dataset:"):
+                torch.cuda.synchronize()
+                marks["cache"] = read_and_zero()
+                torch.cuda.reset_peak_memory_stats(dev)
+                marks["t0"] = time.perf_counter()
+            elif line.startswith("step "):
+                marks["steps"].append(time.perf_counter())
+
+        read_and_zero()
+        t0 = time.perf_counter()
+        result = run_finetune(sd, tok, data, os.path.join(tmp, "tuned"), steps=TRAIN_STEPS,
+                              batch_size=TRAIN_BATCH, lr=1e-5, compute_dtype=torch.bfloat16,
+                              remat=False, seed=SEED, log_every=1, log=log)
+        wall = time.perf_counter() - t0
+        train = read_and_zero()
+        peak = torch.cuda.max_memory_allocated(dev) / gib
+        cache = marks["cache"]
+        times = [marks["t0"]] + marks["steps"]
+        step_ms = [1e3 * (b - a) for a, b in zip(times, times[1:])]
+        losses = [v for _, v in result["losses"]]
+        print(f"train cache build ({TRAIN_IMAGES} images, SD v1.4 encoder + CLIP, bf16): "
+              f"launches {fired(cache[0])} expected {EXPECTED_CACHE}", flush=True)
+        print(f"train run_finetune SD v1.4 512px bf16 batch {TRAIN_BATCH} AdamW "
+              f"{TRAIN_STEPS} steps remat=False: losses {losses}, step wall ms "
+              f"{[round(t, 1) for t in step_ms]} (warm step {step_ms[-1]:.1f} ms), peak "
+              f"memory {peak:.2f} GiB, whole call {wall:.1f} s; launches {fired(train[0])} "
+              f"expected {EXPECTED_TRAIN}", flush=True)
+        if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+            fail(f"run_finetune losses {losses}")
+        if fired(cache[0]) != EXPECTED_CACHE or fired(train[0]) != EXPECTED_TRAIN:
+            fail(f"run_finetune launched {fired(cache[0])} building the cache and "
+                 f"{fired(train[0])} training")
+
+        tuned, cfg = load_native(result["out_path"], device=dev)
+        base = flatten_tree(unfuse_qkv(sd.params["unet"]))
+        leaves = flatten_tree(tuned["unet"])
+        stale = [k for k, v in leaves.items()
+                 if v.dtype != torch.float32 or not bool(v.isfinite().all())
+                 or torch.equal(v, base[k].float())]
+        print(f"train saved model {os.path.getsize(result['out_path']) / gib:.2f} GiB: config "
+              f"{cfg.name}, {len(leaves)} UNet leaves (sdtpu's keys: {set(leaves) == set(base)}, "
+              f"a fused qkv leaf: {any('qkv' in k for k in leaves)}), f32, finite and changed: "
+              f"{len(leaves) - len(stale)}", flush=True)
+        if cfg != SD_V1_4 or set(leaves) != set(base) or stale:
+            fail(f"the saved model: config {cfg.name}, keys equal {set(leaves) == set(base)}, "
+                 f"leaves not f32, finite and changed: {stale[:5]}")
+
+        # one more step with each remat policy, from the tuned weights
+        params = master_params(tuned["unet"])
+        del tuned, leaves
+        latents, contexts, n_valid = load_latent_cache(resolve_cache(sd, tok, data))
+        batches = LatentBatches(latents, contexts, n_valid, batch_size=TRAIN_BATCH, seed=SEED,
+                                device=dev)
+        try:
+            batch = next(batches)
+        finally:
+            batches.close()
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        for remat, expected in EXPECTED_REMAT.items():
+            opt = make_optimizer(lr=1e-5, warmup_steps=0, total_steps=2)
+            state = opt.init(params)
+            step = make_train_step(SD_V1_4, opt, compute_dtype=torch.bfloat16, remat=remat)
+            step(params, state, batch, gen)  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            read_and_zero()
+            t0 = time.perf_counter()
+            loss = float(step(params, state, batch, gen)[2])
+            step_ms = 1e3 * (time.perf_counter() - t0)
+            counts = fired(read_and_zero()[0])
+            print(f"train step remat={remat!r} bf16 batch {TRAIN_BATCH}: loss {loss:.5f}, warm "
+                  f"step {step_ms:.1f} ms, peak memory "
+                  f"{torch.cuda.max_memory_allocated(dev) / gib:.2f} GiB; launches {counts} "
+                  f"expected {expected}", flush=True)
+            if not math.isfinite(loss) or counts != expected:
+                fail(f"remat={remat!r}: loss {loss}, launches {counts}")
+            del state, opt
+    return ({n: cache[0][n] + train[0][n] for n in fns},
+            {n: {k: cache[1][n].get(k, 0) + train[1][n].get(k, 0)
+                 for k in set(cache[1][n]) | set(train[1][n])} for n in fns})
+
+
 def main() -> None:
     import torch
 
@@ -726,15 +1093,18 @@ def main() -> None:
     # phase 2: each kernel against its plain version
     max_err, measured = phase_kernels(dev)
     # phase 3: one SpatialTransformer, the VAE decoder and one 1024px fused
-    # ResBlock, card against CPU
+    # ResBlock, card against CPU; one SpatialTransformer's training gradients
     phase_transformer(dev)
     phase_decode(dev)
     phase_resblock(dev)
-    # phase 4: the main path at 512px and at 1024px
+    phase_grad(dev)
+    # phases 4 and 5: the main paths, generate at 512px and at 1024px, then
+    # fine-tuning at 512px
     launches = {name: 0 for name in KERNEL_INFO}
     shapes = {name: {} for name in KERNEL_INFO}
-    for size in (512, 1024):
-        run_launches, run_shapes = phase_generate(dev, size)
+    for run in (lambda: phase_generate(dev, 512), lambda: phase_generate(dev, 1024),
+                lambda: phase_train(dev)):
+        run_launches, run_shapes = run()
         for name in KERNEL_INFO:
             launches[name] += run_launches[name]
             for key, n in run_shapes[name].items():

@@ -153,3 +153,27 @@ PRESETS = {
     "sd-v2-1": SD_V2_1,
     "sd-tiny": SD_TINY,
 }
+
+
+def config_to_dict(cfg: StableDiffusionConfig) -> dict:
+    """JSON-serialisable dict (io/native.py embeds it in a model's metadata,
+    so a configuration that is no preset round-trips)."""
+    return dataclasses.asdict(cfg)
+
+
+def config_from_dict(d: dict) -> StableDiffusionConfig:
+    """Inverse of config_to_dict. Unknown fields raise: a model written by a
+    newer version must not load silently mis-configured."""
+    u = dict(d["unet"])
+    u["channel_mult"] = tuple(u["channel_mult"])
+    u["attention_levels"] = tuple(u["attention_levels"])
+    v = dict(d["vae"])
+    v["encoder_channels"] = tuple(tuple(p) for p in v["encoder_channels"])
+    v["decoder_channels"] = tuple(tuple(p) for p in v["decoder_channels"])
+    rest = {k: val for k, val in d.items() if k not in ("clip", "unet", "vae")}
+    return StableDiffusionConfig(
+        clip=CLIPConfig(**d["clip"]),
+        unet=UNetConfig(**u),
+        vae=AutoencoderConfig(**v),
+        **rest,
+    )

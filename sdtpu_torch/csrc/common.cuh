@@ -7,6 +7,7 @@
 #pragma once
 
 #include <math.h>
+#include <stddef.h>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -38,6 +39,7 @@ template <typename T> struct Mma;
 template <> struct Mma<__nv_bfloat16> {
   static constexpr int K = 16;
   using ARow = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
+  using ACol = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major>;
   using BRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
   using BCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major>;
   using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
@@ -47,6 +49,7 @@ template <> struct Mma<__nv_bfloat16> {
 template <> struct Mma<float> {
   static constexpr int K = 8;
   using ARow = wmma::fragment<wmma::matrix_a, 16, 16, 8, wmma::precision::tf32, wmma::row_major>;
+  using ACol = wmma::fragment<wmma::matrix_a, 16, 16, 8, wmma::precision::tf32, wmma::col_major>;
   using BRow = wmma::fragment<wmma::matrix_b, 16, 16, 8, wmma::precision::tf32, wmma::row_major>;
   using BCol = wmma::fragment<wmma::matrix_b, 16, 16, 8, wmma::precision::tf32, wmma::col_major>;
   using Acc = wmma::fragment<wmma::accumulator, 16, 16, 8, float>;
@@ -55,6 +58,20 @@ template <> struct Mma<float> {
     for (int i = 0; i < f.num_elements; ++i) f.x[i] = wmma::__float_to_tf32(f.x[i]);
   }
 };
+
+inline size_t align128(size_t x) { return (x + 127) / 128 * 128; }
+
+// 16-byte asynchronous copy global -> shared; zero-filled when !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll

@@ -35,6 +35,12 @@
 // buffers. Products go through WMMA (mma.sync), not wgmma. Head dims are
 // zero-padded to a multiple of 16 in shared memory; tiles move as 16-byte
 // vectors (d % 8 == 0).
+//
+// For training it also writes, when asked, each row's log-sum-exp of the
+// scaled scores in the log2 domain, lse2 = m + log2(l) with m the row max of
+// s · d^-1/2 · log2(e): the backward (K9, csrc/flash_attention_bwd.cu)
+// rebuilds P = exp2(s · d^-1/2 · log2(e) - lse2) from it without a second
+// pass over the keys.
 #include "common.cuh"
 
 namespace sdk {
@@ -52,6 +58,7 @@ struct FlashArgs {
   long long v_sb, v_sh, v_ss;
   long long o_sb, o_sh, o_ss;
   const float* bias;           // [batch][sk] additive, or null
+  float* lse;                  // [BH][sq] log2-domain row log-sum-exp out, or null
   int n_head, sq, sk, d;
   float scale_log2;            // d^-1/2 · log2(e)
 };
@@ -60,20 +67,6 @@ struct FlashLayout {
   int wr, wc, bq, bk, dp, ldq, lds, ldp;
   size_t q, k, v, s, p, st, total;
 };
-
-size_t align128(size_t x) { return (x + 127) / 128 * 128; }
-
-// 16-byte asynchronous copy global -> shared; zero-filled when !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 template <typename T>
 FlashLayout flash_layout(int d, int wr, int bk) {
@@ -271,6 +264,10 @@ __global__ void __launch_bounds__(FA_NT) flash_kernel(FlashArgs a, FlashLayout L
       }
     }
   }
+  if (a.lse) {
+    for (int r = tid; r < L.bq; r += FA_NT)
+      if (q0 + r < a.sq) a.lse[(long long)bh * a.sq + q0 + r] = m_s[r] + log2f(l_s[r]);
+  }
 }
 
 template <typename T, int MAXT>
@@ -309,15 +306,16 @@ cudaError_t launch_for_d(const FlashArgs& a, int BH, cudaStream_t stream) {
 // q, k, v, o: element (b, h, row, col) at ptr + b*sb + h*sh + row*ss + col for
 // batch element b = bh / n_head and head h = bh % n_head, bh < BH; rows of q
 // and o < sq, of k and v < sk; col < d. bias: [BH / n_head][sk] f32 or null.
+// lse: [BH][sq] f32 written with each row's log2-domain log-sum-exp, or null.
 extern "C" int sdk_flash_attention(int dtype, const void* q, const void* k, const void* v,
                                    void* o, long long q_sb, long long q_sh, long long q_ss,
                                    long long k_sb, long long k_sh, long long k_ss,
                                    long long v_sb, long long v_sh, long long v_ss,
                                    long long o_sb, long long o_sh, long long o_ss,
-                                   const float* bias, int BH, int n_head, int sq, int sk,
-                                   int d, float scale, void* stream) {
+                                   const float* bias, float* lse, int BH, int n_head, int sq,
+                                   int sk, int d, float scale, void* stream) {
   sdk::FlashArgs a{q, k, v, o, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
-                   o_sb, o_sh, o_ss, bias, n_head, sq, sk, d, scale * sdk::LOG2E};
+                   o_sb, o_sh, o_ss, bias, lse, n_head, sq, sk, d, scale * sdk::LOG2E};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == sdk::kBF16) return (int)sdk::launch_for_d<__nv_bfloat16>(a, BH, s);
   if (dtype == sdk::kF32) return (int)sdk::launch_for_d<float>(a, BH, s);

@@ -2,8 +2,9 @@
 
 The sources compile with nvcc into one shared library with a plain C
 interface (no PyTorch headers, so the build takes seconds), loaded through
-ctypes. The library is built at first use from the sources in the package
-and nothing else, into `build/kernels/` at the root of the checkout, under a
+ctypes: one nvcc process per source, all started together, then one link.
+The library is built at first use from the sources in the package and
+nothing else, into `build/kernels/` at the root of the checkout, under a
 name keyed by a hash of the sources and flags: an edited source builds
 anew, an unchanged one loads the library already there.
 
@@ -26,8 +27,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
+              "-Xptxas", "-v")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -43,7 +45,9 @@ _SIGNATURES = {
                  _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "sdk_group_norm_silu": [_I, _P, _P, _P, _P, _I, _LL, _I, _I, _P],
     "sdk_attention": [_I, _P, _P, _I, _I, _I, _I, _F, _P],
-    "sdk_flash_attention": [_I, _P, _P, _P, _P, *[_LL] * 12, _P, _I, _I, _I, _I, _I, _F, _P],
+    "sdk_flash_attention": [_I, _P, _P, _P, _P, *[_LL] * 12, _P, _P, _I, _I, _I, _I, _I, _F,
+                            _P],
+    "sdk_flash_attention_bwd": [_I, *[_P] * 10, *[_LL] * 6, _I, _I, _I, _I, _I, _F, _P],
     "sdk_channel_partials": [_I, _P, _P, _I, _I, _I, _I, _P],
     "sdk_error_string": [_I],
 }
@@ -84,13 +88,31 @@ def build() -> tuple[Path, str]:
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
-    tmp = out.parent / f"{out.name}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    log = proc.stdout + proc.stderr
+    nvcc = _nvcc()
+    tag = out.parent / f"{out.name}.{os.getpid()}"
+    objs = [Path(f"{tag}.{f.stem}.o") for f in cu]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(f)], text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for f, o in zip(cu, objs)]
+    logs, failed = [], []
+    for f, proc in zip(cu, procs):
+        logs.append(f"== {f.name}\n{proc.communicate()[0]}")
+        if proc.returncode != 0:
+            failed.append(f"{f.name} ({proc.returncode})")
+    try:
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n" + "\n".join(logs))
+        tmp = Path(f"{tag}.tmp")
+        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}{link.stderr}")
+        os.replace(tmp, out)
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+    log = "\n".join(logs)
     out.with_name(out.name + ".log").write_text(log)
     return out, log
 
@@ -133,6 +155,19 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
     if kinds == {"cuda"}:
         return False
     raise ValueError(f"kernels take CPU or CUDA tensors on one device, got {kinds}")
+
+
+def refuse_autograd(name: str, *tensors) -> None:
+    """Raise when autograd would record a forward-only kernel: its output is
+    written through ctypes and has no grad_fn, so a backward would leave
+    every parameter upstream without a gradient, silently. Only an input
+    that requires grad while grad mode is on counts, so inference without
+    torch.no_grad() (StableDiffusion.generate) keeps launching."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the kernel is forward-only and an input requires grad; run it under "
+            "torch.no_grad(), or inside sdtpu_torch.ops.dispatch.training(), whose gates "
+            "keep training off forward-only kernels")
 
 
 def ptr(t) -> int | None:

@@ -14,11 +14,16 @@ into the first (K6's second input), the timestep-embedding add folded into
 the statistics and the second prologue, and the output statistics handed to
 the SpatialTransformer's entry GroupNorm. The fused cross-attention (K10,
 off by default in sdtpu) is not ported yet; its site takes sdtpu's unfused
-branch.
+branch. Inside ops/dispatch.py:training() every fused gate is closed (the
+kernels are forward-only) and the UNet trains through plain PyTorch and the
+differentiable flash attention; unet_apply's `remat` is sdtpu's block-level
+rematerialisation (torch.utils.checkpoint, with selective policies).
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from dataclasses import dataclass
 from typing import List, Tuple
 
@@ -27,6 +32,7 @@ import torch
 from sdtpu_torch.config import UNetConfig
 from sdtpu_torch.ops import (
     conv2d,
+    dispatch,
     geglu,
     group_norm,
     layer_norm,
@@ -35,6 +41,7 @@ from sdtpu_torch.ops import (
     silu,
     timestep_embedding,
 )
+from sdtpu_torch.ops import attention, flash_attention
 from sdtpu_torch.ops.conv import upsample2x_conv
 from sdtpu_torch.ops.fused_conv import (conv1x1_fused, conv3x3_fused, gn_scale_bias,
                                         stats_scale_bias)
@@ -204,10 +211,11 @@ FUSED_RES_MIN_ROWS = 1 << 14
 
 def _use_fused_resblock(x, c_extra: int = 0) -> bool:
     """sdtpu's gate for the fused ResBlock (sdtpu/models/unet.py:212-229);
-    c_extra: the channels of the up path's skip."""
+    c_extra: the channels of the up path's skip. Closed inside
+    dispatch.training(): K3 and K6 are forward-only."""
     _, h, w, c = x.shape
-    return ((c + c_extra) % 8 == 0 and c % 8 == 0 and h % 8 == 0
-            and h * w >= FUSED_RES_MIN_ROWS)
+    return (not dispatch.in_training() and (c + c_extra) % 8 == 0 and c % 8 == 0
+            and h % 8 == 0 and h * w >= FUSED_RES_MIN_ROWS)
 
 
 def _res_block_fused(p, x, e, cfg: UNetConfig, emit_stats, skip):
@@ -284,15 +292,16 @@ def _use_fused_attn(s: int, c: int, n_head: int) -> bool:
     """sdtpu's gate for the fused self-attention (K2) and, below 2048
     tokens, the fused MLP (K5): sdtpu/models/unet.py:331-350. The kernel
     keeps no whole row on chip here, but the bounds stay sdtpu's until the
-    H100 measures its own."""
-    return (256 <= s <= 16384 and s % 128 == 0 and s * c <= 16384 * 320
-            and (c // n_head) % 8 == 0)
+    H100 measures its own. Closed inside dispatch.training()."""
+    return (not dispatch.in_training() and 256 <= s <= 16384 and s % 128 == 0
+            and s * c <= 16384 * 320 and (c // n_head) % 8 == 0)
 
 
 def _use_fused_proj(rows: int, c: int) -> bool:
     """sdtpu's gate for the GN+proj_in / proj_out+residual 1x1 fusion (K4,
-    fed by K3): sdtpu/models/unet.py:371-381."""
-    return c % 8 == 0 and rows % 8 == 0 and rows >= 4096
+    fed by K3): sdtpu/models/unet.py:371-381. Closed inside
+    dispatch.training()."""
+    return not dispatch.in_training() and c % 8 == 0 and rows % 8 == 0 and rows >= 4096
 
 
 def fuse_qkv(params):
@@ -307,6 +316,17 @@ def fuse_qkv(params):
             ws = [a1[k]["w"] for k in ("query", "key", "value")]
             out["attn1"] = {**a1, "qkv": {"w": torch.cat(ws, dim=1)}}
         return out
+    return params
+
+
+def unfuse_qkv(params):
+    """The UNet tree without the attn1["qkv"] leaves fuse_qkv adds: sdtpu's
+    tree, the one training differentiates and saves (no training forward
+    reads the fused leaf). Returns a new tree whose leaves are the given
+    ones."""
+    if isinstance(params, dict):
+        return {k: unfuse_qkv(v) for k, v in params.items()
+                if not (k == "qkv" and "query" in params)}
     return params
 
 
@@ -383,10 +403,75 @@ def _block_apply(p, spec: BlockSpec, x, emb, context, cfg, ctx_valid, skip=None)
     return x
 
 
-def unet_apply(params, x, t, context, cfg: UNetConfig, ctx_valid=None):
-    """x: [B, h, w, in_ch] NHWC latent; t: int timestep; context:
-    [B, S, context_dim]; ctx_valid: optional [B, S] bool of real context
-    tokens. Returns the epsilon prediction [B, h, w, out_ch]."""
+def _mid_apply(m, h, emb, context, cfg, ctx_valid):
+    h = _res_block_apply(m["res1"], h, emb, cfg)
+    h = _transformer_apply(m["transformer"], h, context, cfg,
+                           cfg.heads_for(h.shape[-1]), ctx_valid)
+    return _res_block_apply(m["res2"], h, emb, cfg)
+
+
+REMAT_POLICIES = ("full", "dots", "heavy")
+
+
+def _remat_policy(remat):
+    """Map the `remat` argument to (checkpoint the blocks?, the ops whose
+    outputs a selective checkpoint saves; None: recompute everything), as
+    sdtpu's _remat_policy (sdtpu/models/unet.py:491-518):
+
+    - False/None: no rematerialisation;
+    - True or "full": each block recomputed in the backward pass;
+    - "dots": save the products over weights (aten.mm/addmm: every linear;
+      sdtpu's checkpoint_dots_with_no_batch_dims, so not the batched
+      attention products) and the attention outputs (the differentiable
+      flash op and the plain branch's attn_out tag: sdtpu's "attn_out"
+      name); recompute convolutions and the elementwise chains;
+    - "heavy": also save the convolutions' outputs (sdtpu's "conv_out")."""
+    if not remat:
+        return False, None
+    if remat is True or remat == "full":
+        return True, None
+    dots = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+            flash_attention.FLASH_DIFF_OP, attention.ATTN_OUT_OP]
+    if remat == "dots":
+        return True, dots
+    if remat == "heavy":
+        return True, dots + [torch.ops.aten.convolution.default]
+    raise ValueError(f"remat must be bool or one of {REMAT_POLICIES}, got {remat!r}")
+
+
+def _checkpointed(fn, save):
+    """fn under torch.utils.checkpoint (non-reentrant), with a selective
+    policy that saves the outputs of the ops in `save` when given. The
+    recompute runs in the backward pass, outside the caller's
+    dispatch.training(), so it enters it again when the forward ran inside
+    it: the recomputed block must take the same kernels."""
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    training = dispatch.in_training()
+
+    def run(*args):
+        with dispatch.training() if training else contextlib.nullcontext():
+            return fn(*args)
+
+    kw = {}
+    if save is not None:
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, save)
+    # the UNet draws no random numbers: no RNG state to stash and restore
+    return lambda *args: checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False,
+                                    **kw)
+
+
+def unet_apply(params, x, t, context, cfg: UNetConfig, ctx_valid=None, remat=False):
+    """x: [B, h, w, in_ch] NHWC latent; t: int timestep, or [B] timesteps;
+    context: [B, S, context_dim]; ctx_valid: optional [B, S] bool of real
+    context tokens. Returns the epsilon prediction [B, h, w, out_ch].
+
+    remat: rematerialise each block in the backward pass, at sdtpu's block
+    granularity (each input and output block, the middle block as one);
+    see _remat_policy. Inference never sets it."""
+    use_ckpt, save = _remat_policy(remat)
+    block, mid = ((_checkpointed(_block_apply, save), _checkpointed(_mid_apply, save))
+                  if use_ckpt else (_block_apply, _mid_apply))
     t_emb = timestep_embedding(t, cfg.model_channels, cfg.max_period,
                                dtype=x.dtype, device=x.device)
     emb = linear(params["lin2_time_embed"],
@@ -395,20 +480,15 @@ def unet_apply(params, x, t, context, cfg: UNetConfig, ctx_valid=None):
     skips = []
     h = x
     for spec in build_input_specs(cfg):
-        h = _block_apply(params["input_blocks"][spec.name], spec, h, emb, context,
-                         cfg, ctx_valid)
+        h = block(params["input_blocks"][spec.name], spec, h, emb, context, cfg, ctx_valid)
         skips.append(h)
 
-    m = params["middle_block"]
-    h = _res_block_apply(m["res1"], h, emb, cfg)
-    h = _transformer_apply(m["transformer"], h, context, cfg,
-                           cfg.heads_for(h.shape[-1]), ctx_valid)
-    h = _res_block_apply(m["res2"], h, emb, cfg)
+    h = mid(params["middle_block"], h, emb, context, cfg, ctx_valid)
 
     out_specs, _ = build_output_specs(cfg)
     for spec in out_specs:
-        h = _block_apply(params["output_blocks"][spec.name], spec, h, emb, context,
-                         cfg, ctx_valid, skips.pop())
+        h = block(params["output_blocks"][spec.name], spec, h, emb, context, cfg, ctx_valid,
+                  skips.pop())
 
     h = group_norm(h, params["norm_out"]["g"], params["norm_out"]["b"],
                    cfg.groupnorm_groups, cfg.groupnorm_eps)

@@ -1,4 +1,4 @@
-"""KL autoencoder f=8, decoder side (port of sdtpu/models/vae.py).
+"""KL autoencoder f=8 (port of sdtpu/models/vae.py).
 
 The decoder keeps sdtpu's dispatch: ResnetBlocks on large aligned maps run
 as two fused GroupNorm+SiLU+conv3x3 kernels (K6), the large upsamplers as
@@ -7,14 +7,15 @@ statistics of its output, which the next GroupNorm (a K6 prologue, or the
 final K8) consumes instead of reading the map again. The mid block's
 attention goes through qkv_attention's dispatch: at 1024px (128x128 maps,
 16384 tokens of d=512) to the flash kernel (K1), at 512px to the plain
-branch. The gates' bounds are sdtpu's TPU measurements. The encoder is not ported yet; init_autoencoder
-builds its parameters all the same, so a tree has sdtpu's full shape.
+branch. The gates' bounds are sdtpu's TPU measurements. The encoder
+(encode_image, for the fine-tuning latent cache) takes the same fused
+ResnetBlock gate.
 """
 
 from __future__ import annotations
 
 from sdtpu_torch.config import AutoencoderConfig
-from sdtpu_torch.ops import conv2d, group_norm, qkv_attention
+from sdtpu_torch.ops import conv2d, dispatch, group_norm, qkv_attention
 from sdtpu_torch.ops.conv import upsample2x_conv, use_fused_upsample
 from sdtpu_torch.ops.fused_conv import (conv3x3_fused, gn_scale_bias, stats_scale_bias,
                                         upsample2x_conv_fused)
@@ -95,9 +96,10 @@ def init_autoencoder(init, cfg: AutoencoderConfig):
 # ---------------------------------------------------------------- apply
 
 def _use_fused_resnet(x, cout: int) -> bool:
-    """sdtpu's gate for the fused ResnetBlock (sdtpu/models/vae.py:122-138)."""
+    """sdtpu's gate for the fused ResnetBlock (sdtpu/models/vae.py:122-138),
+    closed inside dispatch.training() (K3 and K6 are forward-only)."""
     _, h, w, c = x.shape
-    return (c % 128 == 0 and cout % 128 == 0 and h % 8 == 0
+    return (not dispatch.in_training() and c % 128 == 0 and cout % 128 == 0 and h % 8 == 0
             and h * w >= FUSED_CONV_MIN_ROWS)
 
 
@@ -147,6 +149,34 @@ def _mid_apply(p, x, cfg, emit_stats=False):
     x = _resnet_apply(p["block_1"], x, cfg)
     x = _attn_apply(p["attn"], x, cfg)
     return _resnet_apply(p["block_2"], x, cfg, emit_stats=emit_stats)
+
+
+def encoder_apply(params, x, cfg: AutoencoderConfig):
+    """x: [B, H, W, 3] -> latent moments [B, H/8, W/8, 2·latent]
+    (sdtpu/models/vae.py:196-209). The ResnetBlocks take the fused gate
+    (K3, then K6 twice, at 64² maps and up), each computing its own
+    GroupNorm statistics as sdtpu's encoder does; the mid attention at 64²
+    stays plain, by use_flash."""
+    p = params["encoder"]
+    x = conv2d(p["conv_in"], x, padding=1)
+    for blk in p["blocks"]:
+        x = _resnet_apply(blk["res1"], x, cfg)
+        x = _resnet_apply(blk["res2"], x, cfg)
+        if "downsampler" in blk:
+            # the asymmetric (0, 1, 0, 1) pad, stride 2
+            x = conv2d(blk["downsampler"]["conv"], x, stride=2, padding=((0, 1), (0, 1)))
+    x = _mid_apply(p["mid"], x, cfg)
+    x = group_norm_silu_op(x, p["norm_out"]["g"], p["norm_out"]["b"], cfg.groupnorm_groups,
+                           cfg.groupnorm_eps)
+    return conv2d(p["conv_out"], x, padding=1)
+
+
+def encode_image(params, x, cfg: AutoencoderConfig):
+    """The encode path: encoder -> quant_conv -> the first `latent_channels`
+    channels (the means; no sampling), sdtpu/models/vae.py:212-217."""
+    moments = encoder_apply(params, x, cfg)
+    latent = conv2d(params["quant_conv"], moments, padding=0)
+    return latent[..., : cfg.latent_channels]
 
 
 def decode_latent(params, z, cfg: AutoencoderConfig):

@@ -14,6 +14,8 @@ from typing import Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from sdtpu_torch.ops import dispatch
+
 PadT = Union[int, Tuple[Tuple[int, int], Tuple[int, int]]]
 
 
@@ -62,9 +64,10 @@ FUSED_UP_MIN_ROWS = 1 << 14
 
 
 def use_fused_upsample(h: int, w: int, cin: int, cout: int) -> bool:
-    """sdtpu's dispatch for K7 (sdtpu/ops/conv.py:90-101); its bound is a
-    TPU measurement, not yet measured again on the H100."""
-    return (cin % 128 == 0 and cout % 128 == 0 and h % 8 == 0
+    """sdtpu's dispatch for K7 (sdtpu/ops/conv.py:90-101), closed inside
+    dispatch.training() (K7 is forward-only); its bound is a TPU
+    measurement, not yet measured again on the H100."""
+    return (not dispatch.in_training() and cin % 128 == 0 and cout % 128 == 0 and h % 8 == 0
             and h * w >= FUSED_UP_MIN_ROWS)
 
 

@@ -1,23 +1,38 @@
-"""K1: blockwise (flash) attention, forward (port of
-sdtpu/ops/flash_attention.py:flash_attention_heads and flash_qkv_attention).
+"""K1 and K9: blockwise (flash) attention, forward and backward (port of
+sdtpu/ops/flash_attention.py: flash_attention_heads, flash_qkv_attention,
+flash_attention_bwd_heads and the flash_qkv_attention_diff VJP).
 
-softmax(q kᵀ · d^-1/2 + key_bias) v per (batch·head), f32 statistics, the
-output in the input dtype; the same as the reference's dual d^-1/4 scaling
-of q and k. It replaces the Pallas `_fullk_kernel`, `_fullk_bias_kernel`,
-`_flash_kernel` and `_flash_ot_kernel` (sdtpu/ops/flash_attention.py:320,
-:332, :390, :408) with one hand-written CUDA kernel,
-csrc/flash_attention.cu: an online softmax over key tiles that never holds
-the [Sq, Sk] score matrix in HBM. On the 1024px main path it runs the VAE
-decoder's mid-block attention (one head, S = 16384, d = 512), which is
-compute-bound (4·S²·d flops); see the kernel's source for how d = 512 fits.
+K1, softmax(q kᵀ · d^-1/2 + key_bias) v per (batch·head), f32 statistics,
+the output in the input dtype; the same as the reference's dual d^-1/4
+scaling of q and k. It replaces the Pallas `_fullk_kernel`,
+`_fullk_bias_kernel`, `_flash_kernel` and `_flash_ot_kernel`
+(sdtpu/ops/flash_attention.py:320, :332, :390, :408) with one hand-written
+CUDA kernel, csrc/flash_attention.cu: an online softmax over key tiles that
+never holds the [Sq, Sk] score matrix in HBM. On the 1024px main path it
+runs the VAE decoder's mid-block attention (one head, S = 16384, d = 512),
+which is compute-bound (4·S²·d flops); see the kernel's source for how
+d = 512 fits. For training it also writes each row's log-sum-exp.
 
-The kernel reads q, k, v and writes o through (batch, head, row) strides, so
-flash_qkv_attention hands it the heads inside [B, S, C] rows with no split
-or merge transpose. The backward (K9) and a torch.autograd.Function come
-with training; sdtpu's VMEM block pickers have no counterpart.
+K9, the gradients (dq, dk, dv) of mask-free attention, replaces the Pallas
+`_fullk_bwd_kernel` (sdtpu/ops/flash_attention.py:531, called at :613) with
+csrc/flash_attention_bwd.cu: a Δ pre-pass, a dK/dV kernel over key tiles
+and a dQ kernel over query tiles, the probabilities rebuilt from K1's row
+statistics and never held in HBM. It is compute-bound (5 products of
+2·Sq·Sk·d flops). In training it runs the five SpatialTransformers at the
+64² latent level of SD v1.4 at 512px (S = 4096, d = 40).
+
+flash_qkv_attention_diff is the differentiable attention training runs: a
+custom op (sdtpu_torch::flash_attention_diff) whose forward is K1 and whose
+backward is K9 on CUDA tensors, and the plain versions of both on CPU
+tensors. Unlike sdtpu's VJP it has no fallback: a shape K9 does not take
+raises. The kernels read and write their tensors through (batch, head, row)
+strides, so the heads of [B, S, C] rows need no split or merge transpose.
+sdtpu's VMEM block pickers have no counterpart.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -25,6 +40,8 @@ from sdtpu_torch import kernels
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 512  # what csrc/flash_attention.cu takes
+MAX_BWD_HEAD_DIM = 160  # what csrc/flash_attention_bwd.cu takes
+LOG2E = 1.0 / math.log(2.0)
 # f32 score elements a plain attention (here and ops/attention.py) holds at
 # a time (2 GB)
 SCORE_BUDGET = 1 << 29
@@ -38,23 +55,33 @@ def query_chunks(b: int, h: int, sq: int, sk: int):
     return [(i, min(i + step, sq)) for i in range(0, sq, step)]
 
 
-def _attend_plain(q, k, v, key_bias, out):
+def _acc(t):
+    """The plain versions' accumulation type: f32, or f64 for f64 inputs."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def _attend_plain(q, k, v, key_bias, out, lse=None):
     """Plain attention over [B, H, S, d] views (any strides), written into
     out, in query_chunks. The weights are rounded to v's dtype before the
     value product and the sum divides afterwards, as the Pallas kernel
-    does."""
+    does. lse: an optional [B, H, Sq] view that takes each row's
+    log-sum-exp in the log2 domain, as K1 writes it."""
     b, h, sq, d = q.shape
+    acc = _acc(q)
     scale = float(d) ** -0.5
-    kt = k.float().transpose(-1, -2)
-    vf = v.float()
-    bias = None if key_bias is None else key_bias.float()[:, None, None, :]
+    kt = k.to(acc).transpose(-1, -2)
+    vf = v.to(acc)
+    bias = None if key_bias is None else key_bias.to(acc)[:, None, None, :]
     for i, j in query_chunks(b, h, sq, k.shape[2]):
-        s = torch.matmul(q[:, :, i:j].float(), kt) * scale
+        s = torch.matmul(q[:, :, i:j].to(acc), kt).mul_(scale)
         if bias is not None:
-            s = s + bias
-        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+            s.add_(bias)
+        m = s.amax(dim=-1, keepdim=True)
+        p = s.sub_(m).exp_()  # in place: the scores are not needed again
         l = p.sum(dim=-1, keepdim=True)
-        out[:, :, i:j] = (torch.matmul(p.to(v.dtype).float(), vf) / l).to(out.dtype)
+        out[:, :, i:j] = (torch.matmul(p.to(v.dtype).to(acc), vf) / l).to(out.dtype)
+        if lse is not None:
+            lse[:, :, i:j] = ((m + torch.log(l)) * LOG2E)[..., 0]
     return out
 
 
@@ -64,31 +91,54 @@ def _heads4(x, n_head):
     return x.reshape(bh // n_head, n_head, s, d)
 
 
-def flash_attention_heads_plain(q, k, v, key_bias=None, n_head: int = 1):
+def _split_heads(x, n_head):
+    """[B, S, C] -> the [B, n_head, S, C / n_head] view of its heads."""
+    b, s, c = x.shape
+    return x.view(b, s, n_head, c // n_head).transpose(1, 2)
+
+
+def _check_layout(d, max_d, group, bad):
+    """Shared checks of the kernels' 16-byte tile loads; appends to bad."""
+    if d % 8 or d > max_d:
+        bad.append(f"d={d} (the kernel takes d <= {max_d}, a multiple of 8)")
+    dtype = group[0][1].dtype
+    for tname, t in group:
+        if t.dtype != dtype:
+            bad.append(f"{tname} is {t.dtype}, {group[0][0]} is {dtype}")
+        if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]):
+            bad.append(f"{tname} strides {t.stride()}")
+        if t.data_ptr() % 16:
+            bad.append(f"{tname} is not 16-byte aligned")
+
+
+def flash_attention_heads_plain(q, k, v, key_bias=None, n_head: int = 1,
+                                return_lse: bool = False):
     """The plain version of flash_attention_heads, in PyTorch ops."""
     out = torch.empty_like(q)
-    _attend_plain(_heads4(q, n_head), _heads4(k, n_head), _heads4(v, n_head),
-                  key_bias, _heads4(out, n_head))
-    return out
+    lse = None
+    if return_lse:
+        lse = torch.empty((q.shape[0], q.shape[1]), dtype=torch.float32, device=q.device)
+    bh, sq, _ = q.shape
+    _attend_plain(_heads4(q, n_head), _heads4(k, n_head), _heads4(v, n_head), key_bias,
+                  _heads4(out, n_head), None if lse is None else lse.view(bh // n_head, n_head, sq))
+    return (out, lse) if return_lse else out
 
 
-def _attend(q, k, v, key_bias, out):
+def _attend(q, k, v, key_bias, out, lse=None):
     """Attention over [B, H, S, d] views into out; the plain version for
-    CPU tensors, K1 for CUDA tensors."""
-    if kernels.on_cpu(q, k, v, key_bias, out):
-        return _attend_plain(q, k, v, key_bias, out)
+    CPU tensors, K1 for CUDA tensors. lse: optional [B·H, Sq] f32 that takes
+    the rows' log2-domain log-sum-exp."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
+    if kernels.on_cpu(q, k, v, key_bias, out, lse):
+        return _attend_plain(q, k, v, key_bias, out,
+                             None if lse is None else lse.view(b, h, sq))
     bad = []
-    if d % 8 or d > MAX_HEAD_DIM:
-        bad.append(f"d={d} (the kernel takes d <= {MAX_HEAD_DIM}, a multiple of 8)")
-    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
-        if t.dtype != q.dtype:
-            bad.append(f"{name} is {t.dtype}, q is {q.dtype}")
-        if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]):
-            bad.append(f"{name} strides {t.stride()}")
-        if t.data_ptr() % 16:
-            bad.append(f"{name} is not 16-byte aligned")
+    _check_layout(d, MAX_HEAD_DIM,
+                  [("q", q), ("k", k), ("v", v), ("out", out)], bad)
+    if lse is not None and (lse.dtype != torch.float32 or not lse.is_contiguous()
+                            or lse.shape != (b * h, sq)):
+        bad.append(f"lse {lse.dtype} {tuple(lse.shape)}, not contiguous f32 [{b * h}, {sq}]")
     if bad:
         raise ValueError("flash attention: " + ", ".join(bad))
     if key_bias is not None:
@@ -97,23 +147,31 @@ def _attend(q, k, v, key_bias, out):
         rc = kernels.lib().sdk_flash_attention(
             kernels.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-            kernels.ptr(key_bias), b * h, h, sq, sk, d, float(d) ** -0.5,
-            kernels.stream(q))
+            kernels.ptr(key_bias), kernels.ptr(lse), b * h, h, sq, sk, d,
+            float(d) ** -0.5, kernels.stream(q))
     kernels.check(rc, "sdk_flash_attention")
     kernels.count(flash_attention_heads, b=b, h=h, sq=sq, sk=sk, d=d,
-                  bias=key_bias is not None)
+                  bias=key_bias is not None, lse=lse is not None)
     return out
 
 
-def flash_attention_heads(q, k, v, key_bias=None, n_head: int = 1):
+def flash_attention_heads(q, k, v, key_bias=None, n_head: int = 1, return_lse: bool = False):
     """q: [BH, Sq, D], k/v: [BH, Sk, D], heads flattened into the batch.
     key_bias: optional additive f32 [BH // n_head, Sk] row (0 / -1e30)
     applied to every head of its batch element. Returns [BH, Sq, D] in q's
-    dtype. CPU tensors take the plain version; CUDA tensors the kernel."""
+    dtype, and with return_lse also the rows' log2-domain log-sum-exp
+    [BH, Sq] f32 (what K9 takes). CPU tensors take the plain version; CUDA
+    tensors the kernel, which is forward-only: it raises on an input that
+    requires grad (flash_qkv_attention_diff is the differentiable form)."""
+    if not kernels.on_cpu(q, k, v, key_bias):
+        kernels.refuse_autograd("flash_attention_heads (K1)", q, k, v, key_bias)
     out = torch.empty_like(q)
+    lse = None
+    if return_lse:
+        lse = torch.empty((q.shape[0], q.shape[1]), dtype=torch.float32, device=q.device)
     _attend(_heads4(q, n_head), _heads4(k, n_head), _heads4(v, n_head), key_bias,
-            _heads4(out, n_head))
-    return out
+            _heads4(out, n_head), lse)
+    return (out, lse) if return_lse else out
 
 
 flash_attention_heads.launches = 0
@@ -123,18 +181,170 @@ flash_attention_heads.shapes = {}
 def flash_qkv_attention(q, k, v, n_head: int, key_valid=None):
     """Drop-in for qkv_attention without a mask: q [B, Sq, C], k/v
     [B, Sk, C] with the heads side by side in C -> [B, Sq, C]. key_valid:
-    optional bool [B, Sk] marking real keys."""
-    b, sq, c = q.shape
-    sk = k.shape[1]
-    dh = c // n_head
-
-    def heads(x, s):
-        return x.view(b, s, n_head, dh).transpose(1, 2)
-
+    optional bool [B, Sk] marking real keys. Forward-only on CUDA tensors,
+    as flash_attention_heads."""
+    if not kernels.on_cpu(q, k, v, key_valid):
+        kernels.refuse_autograd("flash_qkv_attention (K1)", q, k, v)
     key_bias = None
     if key_valid is not None:
         key_bias = torch.where(key_valid, 0.0, NEG_INF).to(torch.float32)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
-    _attend(heads(q.contiguous(), sq), heads(k.contiguous(), sk), heads(v.contiguous(), sk),
-            key_bias, heads(out, sq))
+    _attend(_split_heads(q, n_head), _split_heads(k, n_head), _split_heads(v, n_head),
+            key_bias, _split_heads(out, n_head))
     return out
+
+
+# ------------------------------------------------------------ backward (K9)
+
+def _attend_bwd_plain(q, k, v, do, dq, dk, dv):
+    """(dq, dk, dv) of mask-free attention over [B, H, S, d] views (any
+    strides), written into dq, dk, dv, in query_chunks. The softmax is
+    recomputed from the scores and rowsum(dP ∘ P) taken in the accumulation
+    type, as sdtpu's _fullk_bwd_kernel does; P and dS are rounded to the
+    input dtype before their products."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    acc, dt = _acc(q), q.dtype
+    scale = float(d) ** -0.5
+    kf, vf = k.to(acc), v.to(acc)
+    dkf = torch.zeros((b, h, sk, d), dtype=acc, device=q.device)
+    dvf = torch.zeros_like(dkf)
+    for i, j in query_chunks(b, h, sq, sk):
+        qf, dof = q[:, :, i:j].to(acc), do[:, :, i:j].to(acc)
+        # in place where a temporary is not needed again: the CPU tests run
+        # this at S = 4096
+        pn = torch.matmul(qf, kf.transpose(-1, -2)).mul_(scale)
+        pn = pn.sub_(pn.amax(dim=-1, keepdim=True)).exp_()
+        pn = pn.div_(pn.sum(dim=-1, keepdim=True))
+        dvf += torch.matmul(pn.to(dt).to(acc).transpose(-1, -2), dof)
+        dp = torch.matmul(dof, vf.transpose(-1, -2))
+        rowd = torch.matmul(dp.unsqueeze(-2), pn.unsqueeze(-1)).squeeze(-1)  # rowsum(dP ∘ P)
+        ds = dp.sub_(rowd).mul_(pn).mul_(scale).to(dt).to(acc)
+        dkf += torch.matmul(ds.transpose(-1, -2), qf)
+        dq[:, :, i:j] = torch.matmul(ds, kf).to(dq.dtype)
+    dk.copy_(dkf)
+    dv.copy_(dvf)
+
+
+def flash_attention_bwd_heads_plain(q, k, v, do):
+    """The plain version of flash_attention_bwd_heads: (dq, dk, dv) of
+    mask-free softmax(q kᵀ · d^-1/2) v over [BH, S, d], in f32 (f64 for f64
+    inputs), returned in the input dtype."""
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    _attend_bwd_plain(*(_heads4(t, 1) for t in (q, k, v, do, dq, dk, dv)))
+    return dq, dk, dv
+
+
+def _attend_bwd(q, k, v, o, do, lse, dq, dk, dv):
+    """Gradients over [B, H, S, d] views into dq, dk, dv: the plain version
+    for CPU tensors, K9 for CUDA tensors (o: the forward's output, lse: its
+    [B·H, Sq] row statistics from K1). q, o, do and dq must share their
+    strides, and k, v, dk and dv theirs."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    if kernels.on_cpu(q, k, v, o, do, lse, dq, dk, dv):
+        return _attend_bwd_plain(q, k, v, do, dq, dk, dv)
+    bad = []
+    group = [("q", q), ("o", o), ("do", do), ("dq", dq), ("k", k), ("v", v), ("dk", dk),
+             ("dv", dv)]
+    _check_layout(d, MAX_BWD_HEAD_DIM, group, bad)
+    for side in (group[:4], group[4:]):
+        for tname, t in side[1:]:
+            if t.stride() != side[0][1].stride():
+                bad.append(f"{tname} strides {t.stride()} differ from {side[0][0]}'s "
+                           f"{side[0][1].stride()}")
+    if lse.dtype != torch.float32 or not lse.is_contiguous() or lse.shape != (b * h, sq):
+        bad.append(f"lse {lse.dtype} {tuple(lse.shape)}, not contiguous f32 [{b * h}, {sq}]")
+    if bad:
+        raise ValueError("flash attention backward: " + ", ".join(bad))
+    delta = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        rc = kernels.lib().sdk_flash_attention_bwd(
+            kernels.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), *q.stride()[:3], *k.stride()[:3], b * h, h, sq, sk, d,
+            float(d) ** -0.5, kernels.stream(q))
+    kernels.check(rc, "sdk_flash_attention_bwd")
+    kernels.count(flash_attention_bwd_heads, b=b, h=h, sq=sq, sk=sk, d=d)
+
+
+def flash_attention_bwd_heads(q, k, v, do, o=None, lse=None, n_head: int = 1):
+    """Gradients (dq, dk, dv) of mask-free attention with the reference
+    d^-1/2 scaling; q/k/v/do: [BH, S, d], heads flattened into the batch
+    (n_head of them per batch element: it changes no number, only the
+    (batch, heads) under which the launch is counted). Returns them in the
+    input dtype. CPU tensors take the plain version, which recomputes the
+    softmax. CUDA tensors take the kernel, which needs the forward's output
+    o and row statistics lse (flash_attention_heads(..., return_lse=True))
+    and raises on a shape it does not take."""
+    q, k, v, do = (t.contiguous() for t in (q, k, v, do))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if kernels.on_cpu(q, k, v, do, o, lse):
+        _attend_bwd_plain(*(_heads4(t, 1) for t in (q, k, v, do, dq, dk, dv)))
+        return dq, dk, dv
+    kernels.refuse_autograd("flash_attention_bwd_heads (K9)", q, k, v, do, o)
+    if o is None or lse is None:
+        raise ValueError("flash attention backward: the kernel takes the forward's o and lse")
+    _attend_bwd(*(_heads4(t, n_head) for t in (q, k, v, o.contiguous(), do)), lse,
+                *(_heads4(t, n_head) for t in (dq, dk, dv)))
+    return dq, dk, dv
+
+
+flash_attention_bwd_heads.launches = 0
+flash_attention_bwd_heads.shapes = {}
+
+
+# ------------------------------------------------ the differentiable attention
+
+@torch.library.custom_op("sdtpu_torch::flash_attention_diff", mutates_args=(),
+                         schema="(Tensor q, Tensor k, Tensor v, int n_head) -> (Tensor, Tensor)")
+def _flash_diff(q, k, v, n_head):
+    """(o, lse) of mask-free attention over [B, S, C] rows: K1 on CUDA
+    tensors, the plain version on CPU tensors."""
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    lse = torch.empty((q.shape[0] * n_head, q.shape[1]), dtype=torch.float32, device=q.device)
+    _attend(_split_heads(q, n_head), _split_heads(k, n_head), _split_heads(v, n_head), None,
+            _split_heads(out, n_head), lse)
+    return out, lse
+
+
+@_flash_diff.register_fake
+def _(q, k, v, n_head):
+    return (torch.empty_like(q),
+            q.new_empty((q.shape[0] * n_head, q.shape[1]), dtype=torch.float32))
+
+
+def _flash_diff_setup(ctx, inputs, output):
+    q, k, v, n_head = inputs
+    o, lse = output
+    ctx.n_head = n_head
+    ctx.mark_non_differentiable(lse)
+    ctx.save_for_backward(q, k, v, o, lse)
+
+
+def _flash_diff_backward(ctx, do, _):
+    q, k, v, o, lse = ctx.saved_tensors
+    n = ctx.n_head
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    do = do.contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    _attend_bwd(*(_split_heads(t, n) for t in (q, k, v, o, do)), lse,
+                *(_split_heads(t, n) for t in (dq, dk, dv)))
+    return dq, dk, dv, None
+
+
+_flash_diff.register_autograd(_flash_diff_backward, setup_context=_flash_diff_setup)
+
+# the op a selective checkpoint sees (models/unet.py's remat policies)
+FLASH_DIFF_OP = torch.ops.sdtpu_torch.flash_attention_diff.default
+
+
+def flash_qkv_attention_diff(q, k, v, n_head: int):
+    """Differentiable mask-free attention over [B, S, C] rows with the heads
+    side by side in C -> [B, Sq, C]. The gradient is taken with respect to
+    the unscaled q and k: the reference's dual d^-1/4 scaling folds into
+    d^-1/2 inside both kernels. K1 forward and K9 backward on CUDA tensors,
+    the plain versions on CPU tensors."""
+    return _flash_diff(q, k, v, n_head)[0]

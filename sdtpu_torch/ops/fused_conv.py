@@ -82,6 +82,8 @@ def conv1x1_fused(x, w, conv_bias, prologue_scale=None, prologue_bias=None,
     if kernels.on_cpu(x, w, conv_bias, prologue_scale, prologue_bias, residual):
         return conv1x1_fused_plain(x, w, conv_bias, prologue_scale,
                                    prologue_bias, residual, silu, emit_stats)
+    kernels.refuse_autograd("conv1x1_fused (K4)", x, w, conv_bias, prologue_scale,
+                            prologue_bias, residual)
     shape = x.shape
     b, c = shape[0], shape[-1]
     co = w.shape[-1]
@@ -165,6 +167,8 @@ def conv3x3_fused(x, w, conv_bias, prologue_scale=None, prologue_bias=None,
         return conv3x3_fused_plain(x, w, conv_bias, prologue_scale, prologue_bias,
                                    residual, silu, emit_stats, x2, prologue_scale2,
                                    prologue_bias2)
+    kernels.refuse_autograd("conv3x3_fused (K6)", x, w, conv_bias, prologue_scale,
+                            prologue_bias, residual, x2, prologue_scale2, prologue_bias2)
     b, h, wd, c = x.shape
     c2 = 0 if x2 is None else x2.shape[-1]
     co = w.shape[-1]
@@ -222,6 +226,7 @@ def upsample2x_conv_fused(x, w, conv_bias, emit_stats: bool = False):
     kernel."""
     if kernels.on_cpu(x, w, conv_bias):
         return upsample2x_conv_fused_plain(x, w, conv_bias, emit_stats)
+    kernels.refuse_autograd("upsample2x_conv_fused (K7)", x, w, conv_bias)
     b, h, wd, c = x.shape
     co = w.shape[-1]
     if tuple(w.shape[:3]) != (3, 3, c):

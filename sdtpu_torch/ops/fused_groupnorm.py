@@ -36,6 +36,7 @@ def channel_partials(x):
     CPU tensors take the plain version; CUDA tensors the kernel."""
     if kernels.on_cpu(x):
         return channel_partials_plain(x)
+    kernels.refuse_autograd("channel_partials (K3)", x)
     x = x.contiguous()
     b, c = x.shape[0], x.shape[-1]
     rows = x.numel() // (b * c)
@@ -81,6 +82,7 @@ def group_norm_silu(x, gamma, beta, n_group: int = 32, eps: float = 1e-5,
     CUDA tensors the kernels."""
     if kernels.on_cpu(x, gamma, beta, sums):
         return group_norm_silu_plain(x, gamma, beta, n_group, eps, silu, sums)
+    kernels.refuse_autograd("group_norm_silu (K8)", x, gamma, beta, sums)
     from sdtpu_torch.ops.fused_conv import stats_scale_bias
 
     x = x.contiguous()

@@ -41,6 +41,8 @@ def fused_geglu_mlp(x, ln_g, ln_b, w_proj, b_proj, w_lin, b_lin,
     if kernels.on_cpu(x, ln_g, ln_b, w_proj, b_proj, w_lin, b_lin):
         return fused_geglu_mlp_plain(x, ln_g, ln_b, w_proj, b_proj, w_lin,
                                      b_lin, eps)
+    kernels.refuse_autograd("fused_geglu_mlp (K5)", x, ln_g, ln_b, w_proj, b_proj, w_lin,
+                            b_lin)
     b, s, c = x.shape
     c8 = w_proj.shape[1]
     if c8 != 8 * c or tuple(w_lin.shape) != (4 * c, c):

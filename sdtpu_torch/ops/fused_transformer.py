@@ -48,6 +48,7 @@ def fused_self_attention(x, ln_g, ln_b, wqkv, wo, bo,
     take the plain version; CUDA tensors the kernels."""
     if kernels.on_cpu(x, ln_g, ln_b, wqkv, wo, bo):
         return fused_self_attention_plain(x, ln_g, ln_b, wqkv, wo, bo, n_head, eps)
+    kernels.refuse_autograd("fused_self_attention (K2)", x, ln_g, ln_b, wqkv, wo, bo)
     b, s, c = x.shape
     d_head = c // n_head
     if d_head * n_head != c or d_head > MAX_HEAD_DIM or d_head % 8:

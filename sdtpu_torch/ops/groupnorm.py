@@ -9,6 +9,8 @@ activation dtype, as in sdtpu, so a bf16 path stays bf16.
 
 import torch
 
+from sdtpu_torch.ops import dispatch
+
 
 def group_norm(x, gamma, beta, n_group: int, eps: float = 1e-5):
     """GroupNorm over a channels-last tensor x: [B, ..., C]; gamma/beta: [C]."""
@@ -29,17 +31,25 @@ def group_norm(x, gamma, beta, n_group: int, eps: float = 1e-5):
 FUSED_GN_MIN_ROWS = 1 << 14
 
 
+def use_fused_gn_silu(rows: int, c: int, has_stats: bool) -> bool:
+    """sdtpu's gate for K8 (sdtpu/ops/groupnorm.py:41-71): maps of
+    FUSED_GN_MIN_ROWS rows or more, or whose statistics an upstream kernel
+    emitted, with C % 128 == 0; closed inside dispatch.training(), K8 being
+    forward-only. The bound is sdtpu's TPU measurement."""
+    return (not dispatch.in_training() and (rows >= FUSED_GN_MIN_ROWS or has_stats)
+            and c % 128 == 0 and rows % 8 == 0)
+
+
 def group_norm_silu_op(x, gamma, beta, n_group: int, eps: float = 1e-5,
                        in_stats=None):
     """GroupNorm followed by SiLU (sdtpu/ops/groupnorm.py:41-71).
 
-    Large maps (FUSED_GN_MIN_ROWS rows, C % 128 == 0) and maps that come
-    with in_stats, the [B, 2, C] per-channel (sum, sum^2) an upstream fused
-    kernel emitted, go to the fused GroupNorm+SiLU (K8); the rest to the
-    two-pass composition. The bound is sdtpu's TPU measurement."""
+    Large maps and maps that come with in_stats, the [B, 2, C] per-channel
+    (sum, sum^2) an upstream fused kernel emitted, go to the fused
+    GroupNorm+SiLU (K8) by use_fused_gn_silu; the rest to the two-pass
+    composition."""
     rows = x.numel() // (x.shape[0] * x.shape[-1])
-    big = rows >= FUSED_GN_MIN_ROWS or in_stats is not None
-    if big and x.shape[-1] % 128 == 0 and rows % 8 == 0:
+    if use_fused_gn_silu(rows, x.shape[-1], in_stats is not None):
         from sdtpu_torch.ops.fused_groupnorm import group_norm_silu
 
         return group_norm_silu(x, gamma, beta, n_group, eps, sums=in_stats)

@@ -6,6 +6,7 @@ cross-attention by ctx_valid (sdtpu's pad_context=True). sdtpu's two-call
 parity mode on unpadded contexts (pad_context=False) is not ported. sdtpu's
 jitted lax.scan over the steps is a Python loop here. The sampler is DDIM;
 img2img, inpainting and the other samplers are not ported yet.
+encode_image (the VAE encoder) serves the fine-tuning latent cache.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from sdtpu_torch.config import SD_V1_4, StableDiffusionConfig
 from sdtpu_torch.diffusion.ddim import ddim_alphas, ddim_schedule, ddim_step
 from sdtpu_torch.models.clip import clip_apply
 from sdtpu_torch.models.unet import fuse_qkv, unet_apply
-from sdtpu_torch.models.vae import decode_latent
+from sdtpu_torch.models.vae import decode_latent, encode_image
 
 # leaves that keep their own type under compute_dtype (sdtpu's _cast_param_tree)
 _UNCAST = ("alphas_cumprod", "n_steps")
@@ -134,6 +135,14 @@ class StableDiffusion:
     def latent_to_image(self, latent) -> np.ndarray:
         """Returns [B, H, W, 3] uint8 on the host."""
         return self._decode_u8(latent).cpu().numpy()
+
+    def encode_image(self, image):
+        """image: [B, H, W, 3] in [-1, 1] (numpy or a tensor) -> latent
+        [B, H/8, W/8, 4] in the compute dtype, on the device; not scaled by
+        latent_scale (sdtpu/pipeline.py:431-439)."""
+        x = torch.as_tensor(image, dtype=self.compute_dtype, device=self.device)
+        with torch.no_grad():
+            return encode_image(self.params["autoencoder"], x, self.config.vae)
 
     # ---------------------------------------------------------- top level
 

@@ -1,6 +1,8 @@
-"""Where the time of a 512x512 or 1024x1024 image goes on one NVIDIA GPU.
+"""Where the time of a 512x512 or 1024x1024 image, or of a fine-tuning
+step, goes on one NVIDIA GPU.
 
     python -m sdtpu_torch.profile_pipeline [--size 512|1024] [--out FILE] [--repeats N]
+    python -m sdtpu_torch.profile_pipeline --train [--out FILE] [--repeats N]
 
 Builds SD v1.4 at full width with random weights (seeded), bf16, at the
 given image size (the same config with image_size set), and measures,
@@ -16,6 +18,13 @@ after warm-up:
    call under torch.profiler, with its largest items;
 3. the same UNet call replayed from a CUDA graph, and its largest
    difference from the eager output.
+
+With --train it measures instead a training step of the whole UNet at
+512x512 (training.make_train_step: batch 4 of random 64x64 latents and
+contexts with a key mask, bf16 compute, f32 masters, AdamW) for remat off,
+"full" and "dots": the mean wall ms of N warm steps (host clock,
+synchronised), the peak memory of a step, and the device kernel time of
+one profiled step with its largest items.
 
 The report starts with the card's name and power limit, and goes to
 stdout and, with --out, to FILE as well.
@@ -71,10 +80,44 @@ def _device_profile(fn, top: int):
     return sum(r[1] for r in rows), rows[:top]
 
 
+def _train(sd, dev, args, say) -> None:
+    """The --train report (see the module docstring)."""
+    from sdtpu_torch.models.unet import unfuse_qkv
+    from sdtpu_torch.training import make_optimizer, make_train_step, master_params
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    b, hw, cfg = 4, SD_V1_4.latent_size, SD_V1_4
+    batch = (torch.randn((b, hw, hw, 4), generator=g, device=dev),
+             torch.randn((b, cfg.clip.n_ctx, cfg.clip.n_state), generator=g, device=dev),
+             torch.arange(cfg.clip.n_ctx, device=dev)[None, :] < torch.tensor(
+                 [[2], [9], [20], [77]], device=dev))
+    params = master_params(unfuse_qkv(sd.params["unet"]))
+    for remat in (False, "full", "dots"):
+        opt = make_optimizer(lr=1e-5, warmup_steps=0, total_steps=10 * (args.repeats + 2))
+        state = opt.init(params)
+        step = make_train_step(cfg, opt, compute_dtype=torch.bfloat16, remat=remat)
+
+        def one():
+            step(params, state, batch, g)
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        wall = _wall_ms(one, args.repeats)
+        peak = torch.cuda.max_memory_allocated(dev) / 1024 ** 3
+        dev_ms, top = _device_profile(one, args.top)
+        say(f"4. train step remat={remat!r} (SD v1.4 UNet, 512px, batch {b}, bf16, AdamW): "
+            f"wall {wall:.3f} ms (mean of {args.repeats}); peak memory {peak:.2f} GiB; device "
+            f"kernels {dev_ms:.3f} ms in one profiled step, busy share {dev_ms / wall:.3f}")
+        for key, ms, n in top:
+            say(f"   {ms:9.3f} ms {n:5d} launches  {key[:90]}")
+        del state, opt
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--size", type=int, choices=(512, 1024), default=512,
                     help="image size (default 512)")
+    ap.add_argument("--train", action="store_true",
+                    help="profile a 512px fine-tuning step instead of generate")
     ap.add_argument("--out", help="also write the report to this file")
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--top", type=int, default=12)
@@ -97,6 +140,10 @@ def main(argv=None) -> None:
                                      device=dev), cfg_sd, compute_dtype=torch.bfloat16)
     tok = SimpleTokenizer()
     hw = cfg_sd.latent_size
+    if args.train:
+        _train(sd, dev, args, say)
+        _write(args.out, lines)
+        return
 
     say(f"1. generate {args.size}x{args.size} bf16, 20 DDIM steps, CFG 7.5, batch 1 "
         f"({args.repeats + 1} runs, the first includes first-call costs)")
@@ -167,8 +214,12 @@ def main(argv=None) -> None:
     say(f"3. UNet call replayed from a CUDA graph: wall {replay_ms:.3f} ms (mean of "
         f"{args.repeats}); max |graph - eager| {diff:.3e}")
 
-    if args.out:
-        with open(args.out, "w") as f:
+    _write(args.out, lines)
+
+
+def _write(path, lines) -> None:
+    if path:
+        with open(path, "w") as f:
             f.write("\n".join(lines) + "\n")
 
 

@@ -29,6 +29,19 @@ def test_dataclass_fields_and_defaults_equal_sdtpu(cls):
     assert dataclasses.asdict(got()) == dataclasses.asdict(want())
 
 
+@pytest.mark.parametrize("name", sorted(jconfig.PRESETS))
+def test_config_dicts_equal_sdtpu(name):
+    """config_to_dict / config_from_dict (the model file's embedded
+    configuration) give sdtpu's dict and round-trip, and each side reads
+    the other's."""
+    d = tconfig.config_to_dict(tconfig.PRESETS[name])
+    assert d == jconfig.config_to_dict(jconfig.PRESETS[name])
+    assert tconfig.config_from_dict(d) == tconfig.PRESETS[name]
+    assert jconfig.config_from_dict(d) == jconfig.PRESETS[name]
+    with pytest.raises(TypeError):
+        tconfig.config_from_dict({**d, "unknown": 1})
+
+
 def test_1024px_is_the_same_object_with_another_size():
     cfg = dataclasses.replace(tconfig.SD_V1_4, image_size=1024)
     assert cfg.latent_size == 128 and cfg.unet == tconfig.SD_V1_4.unet

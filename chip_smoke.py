@@ -32,13 +32,20 @@ Phases, each printing its lines:
    VAE encoder and CLIP, then 3 AdamW steps at batch 4 in bf16, the tuned
    model written and read back; the launch counts of the cache build and
    of the training (K1 and K9 only), finite losses, every UNet leaf
-   changed; then one more step each with remat "full" and "dots".
+   changed; then one more step each with remat "full" and "dots";
+6. sdtpu_torch.serve at SD v1.4 width, 512x512, bf16, with K10's gate open
+   (SDTPU_FUSED_XATTN=1) and one random LoRA adapter, driven through its
+   socket: concurrent requests batched to 4, the other samplers, img2img,
+   inpainting, the adapter, a bad request; a lone seeded request must
+   equal generate() byte for byte and K10 must launch 15 times a UNet
+   call; then an A/B of K10's gate (UNet call and request latency, three
+   rounds of open, closed, closed, open).
 
 It prints a JSON line of per-kernel results, then the card's name and
 power limit, then, last, {"ok": true, "device": {...}}. Any failure
 exits nonzero before that line; there is no CPU fallback. In the JSON
-line `launches` is the sum of the main paths' runs (both generate runs and
-the fine-tuning run, its cache build included), and `ms`, `plain_ms`,
+line `launches` is the sum of the main paths' runs (both generate runs,
+the fine-tuning run with its cache build, and the serve phase), and `ms`, `plain_ms`,
 `bound_ms` and `library_ms` are for those launches: each wrapper counts
 its launches per shape as well, and each shape's bfloat16 time (or bound)
 from phase 2 is taken as many times as the runs launched it. A shape
@@ -62,6 +69,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -184,8 +192,8 @@ def kernel_cases(dtype, dev):
     import torch
     import torch.nn.functional as F
 
-    from sdtpu_torch.ops import (flash_attention, fused_conv, fused_groupnorm, fused_mlp,
-                                 fused_transformer)
+    from sdtpu_torch.ops import (flash_attention, fused_conv, fused_cross_attention,
+                                 fused_groupnorm, fused_mlp, fused_transformer)
 
     g = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -202,8 +210,12 @@ def kernel_cases(dtype, dev):
 
     cases = []
     # K3: the UNet's ResBlock inputs and skips (1024px) and its transformers'
-    # entry GroupNorm at 64x64 (512px: C=320, 1024px: C=640); the decoder's
+    # entry GroupNorm at 64x64 (512px: C=320, 1024px: C=640; the serve
+    # phase's batch of 4 at B=8); the decoder's (the serve phase's at B=4)
     for label, shape in (("64x64x320 B=2", (2, 64, 64, 320)),
+                         ("64x64x320 B=8", (8, 64, 64, 320)),
+                         ("vae 64x64x512 B=4", (4, 64, 64, 512)),
+                         ("vae 128x128x512 B=4", (4, 128, 128, 512)),
                          ("64x64x640 B=2", (2, 64, 64, 640)),
                          ("128x128x320 B=2", (2, 128, 128, 320)),
                          ("128x128x640 B=2", (2, 128, 128, 640)),
@@ -215,9 +227,10 @@ def kernel_cases(dtype, dev):
                           PEAK_F32))
 
     # K4: proj_in (GroupNorm prologue) and proj_out (residual) at 64x64x320
-    # (512px), 128x128x320 and 64x64x640 (1024px)
-    for rows, c in ((4096, 320), (16384, 320), (4096, 640)):
-        xr = rnd(2, rows, c)
+    # (512px; B=8 in the serve phase's batch), 128x128x320 and 64x64x640
+    # (1024px)
+    for b, rows, c in ((2, 4096, 320), (2, 16384, 320), (2, 4096, 640), (8, 4096, 320)):
+        xr = rnd(b, rows, c)
         scale, bias = fused_conv.stats_scale_bias(
             fused_groupnorm.channel_partials_plain(xr), rows, rnd(c, scale=0.1) + 1.0,
             rnd(c, scale=0.1), 32, 1e-5)
@@ -227,32 +240,36 @@ def kernel_cases(dtype, dev):
         def product(*a, xr=xr, w=w, **k):  # the 1x1 product alone
             return torch.matmul(xr, w)
 
-        cases.append(Case("conv1x1_fused", f"proj_in {rows}x{c}", fused_conv.conv1x1_fused,
-                          fused_conv.conv1x1_fused_plain, (xr, w, cb, scale, bias), {}, ops,
-                          library=product))
-        cases.append(Case("conv1x1_fused", f"proj_out {rows}x{c}",
+        cases.append(Case("conv1x1_fused", f"proj_in {rows}x{c} B={b}",
                           fused_conv.conv1x1_fused, fused_conv.conv1x1_fused_plain,
-                          (xr, w, cb), {"residual": rnd(2, rows, c)}, ops, library=product))
+                          (xr, w, cb, scale, bias), {}, ops * b // 2, library=product))
+        cases.append(Case("conv1x1_fused", f"proj_out {rows}x{c} B={b}",
+                          fused_conv.conv1x1_fused, fused_conv.conv1x1_fused_plain,
+                          (xr, w, cb), {"residual": rnd(b, rows, c)}, ops * b // 2,
+                          library=product))
 
-    # K2 at every UNet level of both sizes (the 16x16 middle block at 1024px)
-    for s, c in ((4096, 320), (1024, 640), (256, 1280), (16384, 320), (4096, 640),
-                 (1024, 1280)):
-        x = rnd(2, s, c)
+    # K2 at every UNet level of both sizes (the 16x16 middle block at 1024px),
+    # and of the serve phase's batch of 4 (B=8)
+    for b, s, c in ((2, 4096, 320), (2, 1024, 640), (2, 256, 1280), (2, 16384, 320),
+                    (2, 4096, 640), (2, 1024, 1280), (8, 4096, 320), (8, 1024, 640),
+                    (8, 256, 1280)):
+        x = rnd(b, s, c)
         args = (x, rnd(c, scale=0.1) + 1.0, rnd(c, scale=0.1),
                 rnd(c, 3 * c, scale=c ** -0.5), rnd(c, c, scale=c ** -0.5),
                 rnd(c, scale=0.1), 8)
         # the attention core alone, on the heads of the fused QKV product
-        qkv4 = torch.matmul(x, args[3]).view(2, s, 3, 8, c // 8).permute(2, 0, 3, 1, 4)
+        qkv4 = torch.matmul(x, args[3]).view(b, s, 3, 8, c // 8).permute(2, 0, 3, 1, 4)
 
         def core(*a, qkv4=qkv4, **k):
             return F.scaled_dot_product_attention(qkv4[0], qkv4[1], qkv4[2])
 
-        cases.append(Case("fused_self_attention", f"S={s} C={c} dh={c // 8}",
+        cases.append(Case("fused_self_attention", f"S={s} C={c} dh={c // 8} B={b}",
                           fused_transformer.fused_self_attention,
                           fused_transformer.fused_self_attention_plain, args, {},
-                          2 * (8 * s * c * c + 4 * s * s * c), library=core))
-    for s, c in ((1024, 640), (256, 1280), (1024, 1280)):
-        x = rnd(2, s, c)
+                          b * (8 * s * c * c + 4 * s * s * c), library=core))
+    for b, s, c in ((2, 1024, 640), (2, 256, 1280), (2, 1024, 1280), (8, 1024, 640),
+                    (8, 256, 1280)):
+        x = rnd(b, s, c)
         args = (x, rnd(c, scale=0.1) + 1.0, rnd(c, scale=0.1),
                 rnd(c, 8 * c, scale=c ** -0.5), rnd(8 * c, scale=0.1),
                 rnd(4 * c, c, scale=(4 * c) ** -0.5), rnd(c, scale=0.1))
@@ -260,9 +277,44 @@ def kernel_cases(dtype, dev):
         def first_product(*a, x=x, w=args[3], **k):  # LN(x)·W_proj's product alone
             return torch.matmul(x, w)
 
-        cases.append(Case("fused_geglu_mlp", f"S={s} C={c}", fused_mlp.fused_geglu_mlp,
-                          fused_mlp.fused_geglu_mlp_plain, args, {}, 2 * 24 * s * c * c,
+        cases.append(Case("fused_geglu_mlp", f"S={s} C={c} B={b}", fused_mlp.fused_geglu_mlp,
+                          fused_mlp.fused_geglu_mlp_plain, args, {}, b * 24 * s * c * c,
                           library=first_product))
+
+    # K10: the UNet's cross-attention sublayers at 512px with SDTPU_FUSED_XATTN=1
+    # (S 4096/1024/256, C 320/640/1280, 8 heads, 77 keys), at the serve phase's
+    # UNet batches: 2 (a lone request), 4, 8 (its batch of 4); kt/vt the
+    # transposed views the UNet hands over, key_valid the padded prompts'
+    for b in (2, 4, 8):
+        for s, c in ((4096, 320), (1024, 640), (256, 1280)):
+            x, ctx = rnd(b, s, c), rnd(b, 77, 768)
+            wk, wv = rnd(768, c, scale=768 ** -0.5), rnd(768, c, scale=768 ** -0.5)
+            kt, vt = (torch.matmul(ctx, w).transpose(1, 2) for w in (wk, wv))
+            valid = torch.arange(77, device=dev)[None] < torch.tensor(
+                [2, 9] * (b // 2), device=dev)[:, None]
+            args = (x, kt, vt, rnd(c, scale=0.1) + 1.0, rnd(c, scale=0.1),
+                    rnd(c, c, scale=c ** -0.5), rnd(c, c, scale=c ** -0.5), rnd(c, scale=0.1))
+            # the attention core alone, on the heads of the Q product and of
+            # K and V, with a boolean key mask
+            q4, k4, v4 = (t.reshape(b, -1, 8, c // 8).transpose(1, 2) for t in (
+                torch.matmul(x, args[5]), kt.transpose(1, 2), vt.transpose(1, 2)))
+
+            def xcore(*a, q4=q4, k4=k4, v4=v4, key_valid=None, **k):
+                return F.scaled_dot_product_attention(q4, k4, v4,
+                                                      attn_mask=key_valid[:, None, None, :])
+
+            cases.append(Case("fused_cross_attention_kv", f"S={s} C={c} B={b} Sk=77",
+                              fused_cross_attention.fused_cross_attention_kv,
+                              fused_cross_attention.fused_cross_attention_kv_plain, args,
+                              {"key_valid": valid, "n_head": 8},
+                              2 * b * s * c * (2 * c + 2 * 77), library=xcore))
+            if b == 2:  # the entry that projects the context itself (no path runs it)
+                cases.append(Case("fused_cross_attention", f"S={s} C={c} B={b} Sk=77",
+                                  fused_cross_attention.fused_cross_attention,
+                                  fused_cross_attention.fused_cross_attention_plain,
+                                  (x, ctx, *args[3:6], wk, wv, *args[6:]),
+                                  {"key_valid": valid, "n_head": 8},
+                                  2 * b * s * c * (2 * c + 2 * 77) + 2 * b * 77 * 768 * 2 * c))
 
     def heads4(n_head, *ts):
         return [t.view(t.shape[0] // n_head, n_head, *t.shape[1:]) for t in ts]
@@ -341,39 +393,46 @@ def kernel_cases(dtype, dev):
     conv_case("unet 128x128 320+320->320 B=2", 2, 128, 320, 320, 320, 1e-5, residual=False)
     conv_case("unet 128x128 320->320 B=2", 2, 128, 320, 320, 0, 1e-5, residual=False)
     conv_case("unet 128x128 320->320 B=2 res", 2, 128, 320, 320, 0, 1e-5)
+    # the decoder at 512px and 1024px (B=1) and the serve phase's batch of 4
     seen = set()
-    for lat in (64, 128):
+    for b, lat in ((1, 64), (1, 128), (4, 64)):
         for conv_shape in decoder_convs(lat):
-            if conv_shape not in seen:
-                seen.add(conv_shape)
-                hw, ci, co, res, st = conv_shape
-                conv_case(f"vae {hw}x{hw} {ci}->{co}{' res' if res else ''}"
-                          f"{'' if st else ' no stats'}", 1, hw, ci, co, 0, 1e-6, res, st)
+            if (b, conv_shape) in seen:
+                continue
+            seen.add((b, conv_shape))
+            hw, ci, co, res, st = conv_shape
+            conv_case(f"vae {hw}x{hw} {ci}->{co}{' res' if res else ''}"
+                      f"{'' if st else ' no stats'} B={b}", b, hw, ci, co, 0, 1e-6, res, st)
 
     # the VAE encoder's ResnetBlocks while the latent cache is built (512px,
-    # chunks of 4 images): K3 on each block's input, conv1 with the
-    # statistics, conv2 with the residual and without them
-    for hw, ci, co in ENCODER_RESNETS:
-        x = rnd(4, hw, hw, ci)
-        cases.append(Case("channel_partials", f"encoder {hw}x{hw}x{ci} B=4",
-                          fused_groupnorm.channel_partials,
-                          fused_groupnorm.channel_partials_plain, (x,), {}, 3 * x.numel(),
-                          PEAK_F32))
-        conv_case(f"encoder {hw}x{hw} {ci}->{co} B=4", 4, hw, ci, co, 0, 1e-6,
-                  residual=False)
-    for hw, co in sorted({(hw, co) for hw, _, co in ENCODER_RESNETS}, reverse=True):
-        conv_case(f"encoder {hw}x{hw} {co}->{co} B=4 res", 4, hw, co, co, 0, 1e-6, stats=False)
+    # chunks of 4 images) and in img2img/inpainting (one image): K3 on each
+    # block's input, conv1 with the statistics, conv2 with the residual and
+    # without them
+    for b in (4, 1):
+        for hw, ci, co in ENCODER_RESNETS:
+            x = rnd(b, hw, hw, ci)
+            cases.append(Case("channel_partials", f"encoder {hw}x{hw}x{ci} B={b}",
+                              fused_groupnorm.channel_partials,
+                              fused_groupnorm.channel_partials_plain, (x,), {}, 3 * x.numel(),
+                              PEAK_F32))
+            conv_case(f"encoder {hw}x{hw} {ci}->{co} B={b}", b, hw, ci, co, 0, 1e-6,
+                      residual=False)
+        for hw, co in sorted({(hw, co) for hw, _, co in ENCODER_RESNETS}, reverse=True):
+            conv_case(f"encoder {hw}x{hw} {co}->{co} B={b} res", b, hw, co, co, 0, 1e-6,
+                      stats=False)
 
-    for hw, c, co in ((128, 512, 512), (256, 256, 256), (256, 512, 512), (512, 256, 256)):
-        args = (rnd(1, hw, hw, c), rnd(3, 3, c, co, scale=(9 * c) ** -0.5), rnd(co, scale=0.1))
-        cases.append(Case("upsample2x_conv_fused", f"{hw}x{hw}x{c} -> {2 * hw}x{2 * hw}",
+    for b, hw, c, co in ((1, 128, 512, 512), (1, 256, 256, 256), (1, 256, 512, 512),
+                         (1, 512, 256, 256), (4, 128, 512, 512), (4, 256, 256, 256)):
+        args = (rnd(b, hw, hw, c), rnd(3, 3, c, co, scale=(9 * c) ** -0.5), rnd(co, scale=0.1))
+        cases.append(Case("upsample2x_conv_fused", f"{hw}x{hw}x{c} -> {2 * hw}x{2 * hw} B={b}",
                           fused_conv.upsample2x_conv_fused,
                           fused_conv.upsample2x_conv_fused_plain, args, {"emit_stats": True},
-                          2 * 16 * hw * hw * c * co))
-    for hw in (512, 1024):
-        x = rnd(1, hw, hw, 128)
+                          2 * 16 * b * hw * hw * c * co))
+    for b, hw in ((1, 512), (1, 1024), (4, 512)):
+        x = rnd(b, hw, hw, 128)
         args = (x, rnd(128, scale=0.1) + 1.0, rnd(128, scale=0.1), 32, 1e-6)
-        cases.append(Case("group_norm_silu", f"{hw}x{hw}x128", fused_groupnorm.group_norm_silu,
+        cases.append(Case("group_norm_silu", f"{hw}x{hw}x128 B={b}",
+                          fused_groupnorm.group_norm_silu,
                           fused_groupnorm.group_norm_silu_plain, args,
                           {"sums": fused_groupnorm.channel_partials_plain(x)}, 8 * x.numel(),
                           PEAK_F32))
@@ -397,19 +456,22 @@ KERNEL_INFO = {
                         "sdtpu/ops/fused_groupnorm.py:82"),
     "flash_attention_bwd_heads": ("cuda", "sdtpu_torch/csrc/flash_attention_bwd.cu",
                                   "sdtpu/ops/flash_attention.py:580"),
+    "fused_cross_attention_kv": ("cuda", "sdtpu_torch/csrc/cross_attention.cu",
+                                 "sdtpu/ops/fused_cross_attention.py:119"),
 }
 
 
 def wrappers() -> dict:
     """name -> the kernel's wrapper, which carries its launch count."""
-    from sdtpu_torch.ops import (flash_attention, fused_conv, fused_groupnorm, fused_mlp,
-                                 fused_transformer)
+    from sdtpu_torch.ops import (flash_attention, fused_conv, fused_cross_attention,
+                                 fused_groupnorm, fused_mlp, fused_transformer)
 
     fns = (flash_attention.flash_attention_heads, fused_groupnorm.channel_partials,
            fused_conv.conv1x1_fused, fused_transformer.fused_self_attention,
            fused_mlp.fused_geglu_mlp, fused_conv.conv3x3_fused,
            fused_conv.upsample2x_conv_fused, fused_groupnorm.group_norm_silu,
-           flash_attention.flash_attention_bwd_heads)
+           flash_attention.flash_attention_bwd_heads,
+           fused_cross_attention.fused_cross_attention_kv)
     return {f.__name__: f for f in fns}
 
 
@@ -494,6 +556,36 @@ def _check_k9(c, got, want, dname, failed):
     return max(e for e, _ in results), all(ok for _, ok in results), atols[0], r
 
 
+K10_SCALE_ERR = 0.97  # a core whose output is 3 % small must fail K10's check
+
+
+def _check_k10(c, got, want, dname, failed):
+    """K10's check: the whole sublayer x + Wo·attn + bo within TOL, and the
+    attention term alone (out - x against plain - x, the same difference)
+    within FLASH_TOL's fraction of its largest |reference| plus FLASH_TOL's
+    rtol of |out| (the output's own rounding). That tolerance fails a term
+    K10_SCALE_ERR of the reference's, and the plain result without the key
+    mask falls outside it around the kernel's masked result. Returns (max
+    abs error, ok, atol of the term, rtol)."""
+    atol, rtol = TOL[dname]
+    err, ok = within(got, want, atol, rtol)
+    frac, r = FLASH_TOL[dname]
+    x = c.args[0].float()
+    term = want.float() - x
+    a = frac * float(term.abs().max())
+    ok = ok and within(got, want, a, r)[1]
+    scaled = x + K10_SCALE_ERR * term
+    unmasked = c.plain(*c.args, **{**c.kw, "key_valid": None})
+    passes = [within(scaled, want, a, r)[1], within(unmasked, got, a, r)[1]]
+    print(f"kernel {c.name:21s} {dname:8s} {c.shape:30s} max |ref term| {a / frac:.4f}; the "
+          f"term's tolerance passes a term x{K10_SCALE_ERR}: {passes[0]}, the unmasked plain "
+          f"result: {passes[1]}", flush=True)
+    if any(passes):
+        failed.append(f"{c.name} {dname} {c.shape} tolerance too loose or the key mask is "
+                      f"not applied")
+    return err, ok, a, r
+
+
 def phase_kernels(dev) -> tuple[dict, dict]:
     """Phase 2. Returns ({kernel: max abs error}, {(kernel, shape key):
     {label, ms, plain_ms, library_ms, bound_ms, ops_ms, bytes_ms}}), both
@@ -518,6 +610,8 @@ def phase_kernels(dev) -> tuple[dict, dict]:
                 err, ok, a, r = _check_flash(c, got, want, dname, failed)
             elif c.name == "flash_attention_bwd_heads":
                 err, ok, a, r = _check_k9(c, got, want, dname, failed)
+            elif c.name.startswith("fused_cross_attention"):
+                err, ok, a, r = _check_k10(c, got, want, dname, failed)
             else:
                 if c.kw.get("emit_stats"):
                     (got, got_st), (want, _) = got, want
@@ -767,10 +861,12 @@ def phase_resblock(dev) -> None:
 EXPECTED_LAUNCHES = {
     512: {"flash_attention_heads": 0, "channel_partials": 103, "conv1x1_fused": 200,
           "fused_self_attention": 300, "fused_geglu_mlp": 200, "conv3x3_fused": 28,
-          "upsample2x_conv_fused": 2, "group_norm_silu": 1, "flash_attention_bwd_heads": 0},
+          "upsample2x_conv_fused": 2, "group_norm_silu": 1, "flash_attention_bwd_heads": 0,
+          "fused_cross_attention_kv": 0},
     1024: {"flash_attention_heads": 1, "channel_partials": 262, "conv1x1_fused": 400,
            "fused_self_attention": 320, "fused_geglu_mlp": 120, "conv3x3_fused": 228,
-           "upsample2x_conv_fused": 3, "group_norm_silu": 1, "flash_attention_bwd_heads": 0},
+           "upsample2x_conv_fused": 3, "group_norm_silu": 1, "flash_attention_bwd_heads": 0,
+           "fused_cross_attention_kv": 0},
 }
 EXPECTED_X2 = {512: 0, 1024: 60}  # K6 launches with the skip as second input
 
@@ -906,6 +1002,240 @@ def phase_grad(dev) -> None:
         fail("training gradients on the card disagree with the CPU: " + "; ".join(bad))
     if fired != {"flash_attention_heads": 1, "flash_attention_bwd_heads": 1}:
         fail(f"the transformer's training step launched {fired}, expected K1 1, K9 1")
+
+
+# the serve phase: SD v1.4 at 512px in bf16 behind sdtpu_torch.serve, K10's
+# gate open (SDTPU_FUSED_XATTN=1): 15 K10 launches a UNet call, the
+# cross-attention sublayers at 64², 32² and 16² (the 8² middle one is below
+# the gate)
+SERVE_STEPS, K10_PER_UNET_CALL = 20, 15
+AB_ROUNDS = 3  # rounds of open, closed, closed, open in the gate's A/B
+SERVE_PROMPT = "An ancient mossy stone."
+
+
+def random_lora(unet, rank: int, gen):
+    """A rank-`rank` adapter of sdtpu's layout on every attention linear of
+    the UNet tree (sdtpu_torch.lora.DEFAULT_TARGETS), a and b both random,
+    so that the merge changes every adapted weight."""
+    import torch
+
+    from sdtpu_torch.lora import DEFAULT_TARGETS
+
+    def rec(node, name):
+        if not isinstance(node, dict):
+            return None
+        w = node.get("w")
+        if name in DEFAULT_TARGETS and torch.is_tensor(w) and w.ndim == 2:
+            return {"a": torch.randn((w.shape[0], rank), generator=gen, device=gen.device)
+                    / rank ** 0.5,
+                    "b": 0.02 * torch.randn((rank, w.shape[1]), generator=gen,
+                                            device=gen.device)}
+        sub = {k: rec(v, k) for k, v in node.items()}
+        return {k: v for k, v in sub.items() if v is not None} or None
+
+    return rec(unet, "")
+
+
+def phase_serve(dev) -> tuple[dict, dict]:
+    """Phase 6: sdtpu_torch.serve at SD v1.4 width and depth, random weights
+    (init_params, seed 0), bf16, 512x512, SDTPU_FUSED_XATTN=1 in this
+    process for the phase, one random rank-4 LoRA adapter. make_server warms
+    up (one 20-step request); then, through the socket: three concurrent
+    /generate requests of one key (one batch, padded to 4), a lone
+    dpmpp+karras request, a lone euler_a request with a negative prompt, a
+    lone seeded DDIM request, /img2img and /inpaint on a generated PNG, a
+    request naming the adapter, and a bad request (400). Every other reply
+    must be 200 with 512x512x3 images; the lone seeded request must return
+    the PNG bytes of StableDiffusion.generate with the same seed; K10 must
+    have launched 15 times a UNet call. The counters are set to 0 just
+    before make_server and read after the generate() check. Then an A/B of
+    K10's gate, AB_ROUNDS rounds of open, closed, closed, open: one UNet
+    call at batch 2 between CUDA events and a lone 20-step request's
+    latency, with the medians of each side. Returns the launch
+    counts, per kernel and per kernel and shape."""
+    import base64
+    import os
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import torch
+
+    from sdtpu_torch import serve
+    from sdtpu_torch.config import SD_V1_4
+    from sdtpu_torch.models.unet import unet_apply, unfuse_qkv
+    from sdtpu_torch.pipeline import StableDiffusion
+    from sdtpu_torch.tokenizer import SimpleTokenizer
+    from sdtpu_torch.utils.image import decode_png_rgb8, encode_png_rgb8
+    from sdtpu_torch.weights import init_params
+
+    cfg = SD_V1_4
+    sd = StableDiffusion(init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                                     device=dev), cfg, compute_dtype=torch.bfloat16)
+    tok = SimpleTokenizer()
+    lora = random_lora(unfuse_qkv(sd.params["unet"]), 4,
+                       torch.Generator(device=dev).manual_seed(SEED + 2))
+    torch.cuda.synchronize()
+    fns = wrappers()
+    env_before = os.environ.get("SDTPU_FUSED_XATTN")
+    os.environ["SDTPU_FUSED_XATTN"] = "1"
+    server = thread = None
+    bad = []
+    try:
+        for f in fns.values():
+            f.launches, f.shapes = 0, {}
+        t0 = time.perf_counter()
+        server = serve.make_server(sd, tok, port=0, warmup=True, default_steps=SERVE_STEPS,
+                                   batch_window_ms=100.0, loras={"style": (lora, 1.0)})
+        print(f"serve: make_server with warm-up ({SERVE_STEPS} steps) in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        unet_calls = SERVE_STEPS  # the warm-up
+
+        def post(name, payload, path="/generate", want=200):
+            t = time.perf_counter()
+            req = urllib.request.Request(url + path, data=json.dumps(payload).encode(),
+                                         headers={"Content-Type": "application/json"})
+            try:
+                with urllib.request.urlopen(req, timeout=600) as r:
+                    code, resp = r.status, json.loads(r.read())
+            except urllib.error.HTTPError as e:
+                code, resp = e.code, json.loads(e.read())
+            wall = time.perf_counter() - t
+            shapes = [decode_png_rgb8(base64.b64decode(im)).shape
+                      for im in resp.get("images", [])]
+            ok = code == want and (want != 200 or (shapes and all(
+                sh == (512, 512, 3) for sh in shapes)))
+            print(f"serve {name}: {code}, images {shapes}, latency_s "
+                  f"{resp.get('latency_s')}, client wall {wall:.3f} s "
+                  f"{'ok' if ok else 'FAILED ' + str(resp)[:200]}", flush=True)
+            if not ok:
+                bad.append(name)
+            return resp
+
+        # three concurrent requests of one key: one batch, padded to 4
+        results, barrier = [None] * 3, threading.Barrier(3)
+
+        def call(i):
+            barrier.wait()
+            results[i] = post(f"concurrent {i}", {"prompt": f"{SERVE_PROMPT} {i}", "seed": 10 + i,
+                                                  "guidance_scale": 6.0 + i})
+
+        calls = [threading.Thread(target=call, args=(i,)) for i in range(3)]
+        t0 = time.perf_counter()
+        for t in calls:
+            t.start()
+        for t in calls:
+            t.join(timeout=600)
+        batch_wall = time.perf_counter() - t0
+        unet_calls += SERVE_STEPS
+        sizes = dict(server.state.batcher.batch_sizes)
+        print(f"serve batch of 3 concurrent /generate ({SERVE_STEPS} DDIM steps, padded to 4, "
+              f"UNet batch 8): wall {batch_wall:.3f} s, {3 / batch_wall:.3f} images/s; "
+              f"batches run so far by padded size {sizes}", flush=True)
+        if sizes != {1: 1, 4: 1}:
+            bad.append(f"batches {sizes}, expected the warm-up (1) and one of 4")
+
+        post("dpmpp karras", {"prompt": SERVE_PROMPT, "seed": 2, "sampler": "dpmpp",
+                              "karras": True})
+        post("euler_a negative", {"prompt": SERVE_PROMPT, "seed": 3, "sampler": "euler_a",
+                                  "negative_prompt": "blurry, low quality"})
+        lone = post("lone seeded ddim", {"prompt": SERVE_PROMPT, "seed": 4})
+        unet_calls += 3 * SERVE_STEPS
+        init = lone["images"][0]
+        post("img2img strength 0.6", {"prompt": "a mossy stone in the rain", "seed": 5,
+                                      "init_image": init, "strength": 0.6}, path="/img2img")
+        unet_calls += SERVE_STEPS - round(0.4 * SERVE_STEPS)
+        mask = torch.zeros((512, 512, 3), dtype=torch.uint8)
+        mask[128:384, 128:384] = 255
+        post("inpaint", {"prompt": "a red flower", "seed": 6, "init_image": init,
+                         "mask": base64.b64encode(encode_png_rgb8(mask.numpy())).decode()},
+             path="/inpaint")
+        adapted = post("lora", {"prompt": SERVE_PROMPT, "seed": 4, "lora": "style"})
+        unet_calls += 2 * SERVE_STEPS
+        post("bad request", {"prompt": SERVE_PROMPT, "sampler": "plms"}, want=400)
+        if adapted.get("images") == lone.get("images"):
+            bad.append("the adapter changed nothing")
+
+        # the lone seeded request against generate() with the same seed
+        images = sd.generate(tok, SERVE_PROMPT, 7.5, SERVE_STEPS,
+                             generator=torch.Generator(device=dev).manual_seed(4))
+        unet_calls += SERVE_STEPS
+        same = encode_png_rgb8(images[0]) == base64.b64decode(lone["images"][0])
+        print(f"serve lone seeded /generate vs StableDiffusion.generate (seed 4): the same PNG "
+              f"bytes: {same}", flush=True)
+        if not same:
+            bad.append("the lone seeded request differs from generate()")
+
+        launches = {name: f.launches for name, f in fns.items()}
+        shapes = {name: dict(f.shapes) for name, f in fns.items()}
+        k10 = launches["fused_cross_attention_kv"]
+        print(f"serve launches {launches}; K10 {k10} for {unet_calls} UNet calls (expected "
+              f"{K10_PER_UNET_CALL * unet_calls}), by shape {shapes['fused_cross_attention_kv']}",
+              flush=True)
+        if k10 != K10_PER_UNET_CALL * unet_calls:
+            bad.append(f"K10 launched {k10} times, expected {K10_PER_UNET_CALL * unet_calls}")
+
+        # the merged pipeline's fused attn1 q/k/v (K2's operand) are its
+        # merged q, k and v
+        merged = server.state.batcher.sd_for("style").params["unet"]
+        stale = [path for path, a1 in _attn1_blocks(merged) if not torch.equal(
+            a1["qkv"]["w"], torch.cat([a1[k]["w"] for k in ("query", "key", "value")], dim=1))]
+        if stale:
+            bad.append(f"the merged pipeline keeps stale fused q/k/v in {stale[:3]}")
+
+        # the A/B of K10's gate: AB_ROUNDS rounds of open, closed, closed, open
+        ctx, valid = sd.context(tok, SERVE_PROMPT)
+        unctx, unvalid = sd.context(tok, "")
+        ctx2, valid2 = torch.cat([unctx, ctx]), torch.cat([unvalid, valid])
+        x2 = torch.randn((2, 64, 64, 4), generator=torch.Generator(device=dev).manual_seed(SEED),
+                         device=dev).to(torch.bfloat16)
+        ab = {"1": [], "0": []}
+        for gate in ("1", "0", "0", "1") * AB_ROUNDS:
+            os.environ["SDTPU_FUSED_XATTN"] = gate
+            unet_ms = cuda_ms(lambda: unet_apply(sd.params["unet"], x2, 500, ctx2, cfg.unet,
+                                                 ctx_valid=valid2), iters=10)
+            resp = post(f"A/B gate {gate} lone", {"prompt": SERVE_PROMPT, "seed": 7})
+            ab[gate].append((unet_ms, resp.get("latency_s")))
+            print(f"serve A/B SDTPU_FUSED_XATTN={gate}: UNet call 512px batch 2 bf16 "
+                  f"{unet_ms:.3f} ms (CUDA events, 10 calls), lone {SERVE_STEPS}-step request "
+                  f"latency_s {resp.get('latency_s')}", flush=True)
+        for gate, runs in ab.items():
+            unet_ms, lat = (sorted(v) for v in zip(*runs))
+            print(f"serve A/B SDTPU_FUSED_XATTN={gate}, {len(runs)} runs: UNet call ms median "
+                  f"{statistics.median(unet_ms):.3f} (min {unet_ms[0]:.3f}, max "
+                  f"{unet_ms[-1]:.3f}), request latency_s median {statistics.median(lat):.3f} "
+                  f"(min {lat[0]:.3f}, max {lat[-1]:.3f})", flush=True)
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        if thread is not None:
+            thread.join(timeout=60)
+        if env_before is None:
+            os.environ.pop("SDTPU_FUSED_XATTN", None)
+        else:
+            os.environ["SDTPU_FUSED_XATTN"] = env_before
+    if bad:
+        fail("the serve phase: " + "; ".join(bad))
+    return launches, shapes
+
+
+def _attn1_blocks(unet):
+    """(path, attn1 dict) of every SpatialTransformer in a UNet tree."""
+    out = []
+
+    def rec(node, path):
+        if isinstance(node, dict):
+            if "attn1" in node:
+                out.append((path, node["attn1"]))
+            for k, v in node.items():
+                rec(v, f"{path}/{k}")
+
+    rec(unet, "")
+    return out
 
 
 # run_finetune at SD v1.4 512px: 8 synthetic images, batch 4, bf16, AdamW
@@ -1098,12 +1428,12 @@ def main() -> None:
     phase_decode(dev)
     phase_resblock(dev)
     phase_grad(dev)
-    # phases 4 and 5: the main paths, generate at 512px and at 1024px, then
-    # fine-tuning at 512px
+    # phases 4 to 6: the main paths, generate at 512px and at 1024px, the
+    # server at 512px, then fine-tuning at 512px
     launches = {name: 0 for name in KERNEL_INFO}
     shapes = {name: {} for name in KERNEL_INFO}
     for run in (lambda: phase_generate(dev, 512), lambda: phase_generate(dev, 1024),
-                lambda: phase_train(dev)):
+                lambda: phase_serve(dev), lambda: phase_train(dev)):
         run_launches, run_shapes = run()
         for name in KERNEL_INFO:
             launches[name] += run_launches[name]

@@ -6,7 +6,8 @@ machine does not promise the `safetensors` package: an 8-byte little-endian
 header length, a JSON header mapping each key to its `dtype`, `shape` and
 `data_offsets` (plus `__metadata__`, string values only), padded with
 spaces to a multiple of 8 bytes, then the raw little-endian bytes of every
-tensor back to back. The metadata keys are sdtpu's (`format`, `config`,
+tensor back to back (save_safetensors / load_safetensors, which the LoRA
+files of sdtpu_torch.lora use too). The metadata keys are sdtpu's (`format`, `config`,
 `config_json`, `scalars`), so each package reads the other's files; the
 version field names the port. 0-d leaves (`n_steps`) are kept in the
 metadata as scalars, as sdtpu keeps them. bf16 leaves are written as BF16,
@@ -75,18 +76,13 @@ def _as_tensor(leaf) -> torch.Tensor:
     return torch.from_numpy(np.asarray(leaf))
 
 
-def save_native(params, path: str, config: StableDiffusionConfig = SD_V1_4) -> None:
-    """Write a parameter tree (torch tensors, numpy arrays or Python numbers
-    as leaves) and its configuration to `path`."""
-    tensors, scalars = {}, {}
-    for k, leaf in flatten_tree(params).items():
-        t = _as_tensor(leaf)
-        if t.ndim == 0:  # safetensors stores tensors; scalars go in the metadata
-            scalars[k] = float(t)
-        elif t.dtype not in _CODES:
-            raise TypeError(f"{k}: {t.dtype} has no safetensors code")
-        else:
-            tensors[k] = t
+def save_safetensors(tensors: Dict[str, torch.Tensor], path: str,
+                     metadata: Dict[str, str]) -> None:
+    """Write {key: tensor} and the string-valued `metadata` (the header's
+    __metadata__) as one safetensors file."""
+    bad = [f"{k}: {t.dtype}" for k, t in tensors.items() if t.dtype not in _CODES]
+    if bad:
+        raise TypeError(f"no safetensors code for {', '.join(bad)}")
     # widest elements first, so every tensor starts aligned to its element size
     names = sorted(tensors, key=lambda k: (-tensors[k].element_size(), k))
     header, offset = {}, 0
@@ -96,26 +92,20 @@ def save_native(params, path: str, config: StableDiffusionConfig = SD_V1_4) -> N
         header[k] = {"dtype": _CODES[t.dtype], "shape": list(t.shape),
                      "data_offsets": [offset, offset + n]}
         offset += n
-    header["__metadata__"] = {
-        "format": "sdtpu-native-v1",
-        "sdtpu_torch_version": sdtpu_torch.__version__,
-        "config": config.name,
-        "config_json": json.dumps(config_to_dict(config)),
-        "scalars": json.dumps(scalars),
-    }
+    header["__metadata__"] = {k: str(v) for k, v in metadata.items()}
     blob = json.dumps(header, separators=(",", ":")).encode()
     blob += b" " * (-len(blob) % 8)
     with open(path, "wb") as f:
         f.write(struct.pack("<Q", len(blob)))
         f.write(blob)
         for k in names:
-            t = tensors[k].contiguous().cpu()
+            t = tensors[k].detach().contiguous().cpu()
             f.write(t.reshape(-1).view(torch.uint8).numpy())
 
 
-def load_native(path: str, device="cuda"):
-    """Returns (params, config): the tree of tensors on `device` (the card
-    unless the caller asks for another), `n_steps` an int."""
+def load_safetensors(path: str, device="cpu"):
+    """Read a safetensors file -> ({key: tensor on `device`}, the header's
+    __metadata__ as a dict of strings, empty when absent)."""
     raw = np.fromfile(path, dtype=np.uint8)
     (n,) = struct.unpack("<Q", raw[:8].tobytes())
     header = json.loads(raw[8:8 + n].tobytes())
@@ -127,6 +117,32 @@ def load_native(path: str, device="cuda"):
         t = torch.empty(info["shape"], dtype=_DTYPES[info["dtype"]])
         t.reshape(-1).view(torch.uint8).numpy()[:] = data[start:end]
         flat[k] = t.to(device)
+    return flat, meta
+
+
+def save_native(params, path: str, config: StableDiffusionConfig = SD_V1_4) -> None:
+    """Write a parameter tree (torch tensors, numpy arrays or Python numbers
+    as leaves) and its configuration to `path`."""
+    tensors, scalars = {}, {}
+    for k, leaf in flatten_tree(params).items():
+        t = _as_tensor(leaf)
+        if t.ndim == 0:  # safetensors stores tensors; scalars go in the metadata
+            scalars[k] = float(t)
+        else:
+            tensors[k] = t
+    save_safetensors(tensors, path, {
+        "format": "sdtpu-native-v1",
+        "sdtpu_torch_version": sdtpu_torch.__version__,
+        "config": config.name,
+        "config_json": json.dumps(config_to_dict(config)),
+        "scalars": json.dumps(scalars),
+    })
+
+
+def load_native(path: str, device="cuda"):
+    """Returns (params, config): the tree of tensors on `device` (the card
+    unless the caller asks for another), `n_steps` an int."""
+    flat, meta = load_safetensors(path, device)
     params = unflatten_tree(flat)
     for k, v in json.loads(meta.get("scalars", "{}")).items():
         parts = k.split("/")

@@ -45,6 +45,7 @@ _SIGNATURES = {
                  _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "sdk_group_norm_silu": [_I, _P, _P, _P, _P, _I, _LL, _I, _I, _P],
     "sdk_attention": [_I, _P, _P, _I, _I, _I, _I, _F, _P],
+    "sdk_cross_attention": [_I, _P, _P, _P, *[_LL] * 6, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "sdk_flash_attention": [_I, _P, _P, _P, _P, *[_LL] * 12, _P, _P, _I, _I, _I, _I, _I, _F,
                             _P],
     "sdk_flash_attention_bwd": [_I, *[_P] * 10, *[_LL] * 6, _I, _I, _I, _I, _I, _F, _P],

@@ -12,9 +12,9 @@ measured again on the H100. At 128x128 latents (1024px) the ResBlocks take
 sdtpu's fused branch: two K6 convolutions, the up path's skip concat folded
 into the first (K6's second input), the timestep-embedding add folded into
 the statistics and the second prologue, and the output statistics handed to
-the SpatialTransformer's entry GroupNorm. The fused cross-attention (K10,
-off by default in sdtpu) is not ported yet; its site takes sdtpu's unfused
-branch. Inside ops/dispatch.py:training() every fused gate is closed (the
+the SpatialTransformer's entry GroupNorm. The fused cross-attention (K10)
+keeps sdtpu's switch: off unless SDTPU_FUSED_XATTN is set to another value
+than "0", "false" or "". Inside ops/dispatch.py:training() every fused gate is closed (the
 kernels are forward-only) and the UNet trains through plain PyTorch and the
 differentiable flash attention; unet_apply's `remat` is sdtpu's block-level
 rematerialisation (torch.utils.checkpoint, with selective policies).
@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import os
 from dataclasses import dataclass
 from typing import List, Tuple
 
@@ -43,6 +44,7 @@ from sdtpu_torch.ops import (
 )
 from sdtpu_torch.ops import attention, flash_attention
 from sdtpu_torch.ops.conv import upsample2x_conv
+from sdtpu_torch.ops.fused_cross_attention import fused_cross_attention_kv
 from sdtpu_torch.ops.fused_conv import (conv1x1_fused, conv3x3_fused, gn_scale_bias,
                                         stats_scale_bias)
 from sdtpu_torch.ops.fused_groupnorm import channel_partials
@@ -297,6 +299,19 @@ def _use_fused_attn(s: int, c: int, n_head: int) -> bool:
             and s * c <= 16384 * 320 and (c // n_head) % 8 == 0)
 
 
+def _use_fused_xattn(s: int, c: int, n_head: int) -> bool:
+    """sdtpu's gate for the fused cross-attention (K10,
+    sdtpu/models/unet.py:353-368): off unless SDTPU_FUSED_XATTN is set to
+    another value than "0", "false" or "" (sdtpu measured the TPU kernel
+    slower than XLA's composite on v5e and keeps it off; the H100 default
+    stays the same), then 256 <= S <= 4096, S % 128 == 0 and d_head % 8 == 0.
+    Closed inside dispatch.training()."""
+    if os.environ.get("SDTPU_FUSED_XATTN", "0") in ("0", "false", ""):
+        return False
+    return (not dispatch.in_training() and 256 <= s <= 4096 and s % 128 == 0
+            and (c // n_head) % 8 == 0)
+
+
 def _use_fused_proj(rows: int, c: int) -> bool:
     """sdtpu's gate for the GN+proj_in / proj_out+residual 1x1 fusion (K4,
     fed by K3): sdtpu/models/unet.py:371-381. Closed inside
@@ -364,9 +379,21 @@ def _transformer_apply(p, x, context, cfg: UNetConfig, n_head, ctx_valid=None,
     else:
         x = x + _mha_apply(t["attn1"], layer_norm(x, t["norm1"]["g"], t["norm1"]["b"],
                                                   cfg.ln_eps), None, n_head)
-    x = x + _mha_apply(t["attn2"], layer_norm(x, t["norm2"]["g"], t["norm2"]["b"],
-                                              cfg.ln_eps), context, n_head,
-                       key_valid=ctx_valid)
+    if _use_fused_xattn(h * w, c, n_head):
+        # sdtpu/models/unet.py:424-435: K and V projected once per
+        # transformer outside the kernel, handed over transposed [B, C, Sk]
+        # (views: the kernel reads them through their strides)
+        a2 = t["attn2"]
+        ctx = context.to(x.dtype)
+        kt = torch.matmul(ctx, a2["key"]["w"].to(x.dtype)).transpose(1, 2)
+        vt = torch.matmul(ctx, a2["value"]["w"].to(x.dtype)).transpose(1, 2)
+        x = fused_cross_attention_kv(x, kt, vt, t["norm2"]["g"], t["norm2"]["b"],
+                                     a2["query"]["w"], a2["out"]["w"], a2["out"]["b"],
+                                     key_valid=ctx_valid, n_head=n_head, eps=cfg.ln_eps)
+    else:
+        x = x + _mha_apply(t["attn2"], layer_norm(x, t["norm2"]["g"], t["norm2"]["b"],
+                                                  cfg.ln_eps), context, n_head,
+                           key_valid=ctx_valid)
     if fused_attn and h * w < 2048:
         mlp = t["mlp"]
         x = fused_geglu_mlp(x, t["norm3"]["g"], t["norm3"]["b"],

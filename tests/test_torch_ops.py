@@ -414,8 +414,8 @@ def test_kernel_library_name_tracks_sources():
     path = kernels.library_path()
     assert path.parent == kernels.BUILD_DIR and path.suffix == ".so"
     assert sorted(p.name for p in kernels.CSRC.glob("*.cu")) == [
-        "attention.cu", "channel_stats.cu", "flash_attention.cu", "flash_attention_bwd.cu",
-        "gemm.cu", "groupnorm.cu"]
+        "attention.cu", "channel_stats.cu", "cross_attention.cu", "flash_attention.cu",
+        "flash_attention_bwd.cu", "gemm.cu", "groupnorm.cu"]
 
 
 # ------------------------------------------------------------ on the card

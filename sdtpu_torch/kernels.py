@@ -33,6 +33,10 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinf
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
+# dynamic shared memory a block can take on the H100 (the Hopper kernels'
+# tile plans stay within it)
+SMEM_LIMIT = 232448
+
 # prologue codes of sdk_gemm (csrc/gemm.cu)
 PRO_NONE, PRO_LAYERNORM, PRO_AFFINE, PRO_AFFINE_SILU = 0, 1, 2, 3
 
@@ -41,6 +45,8 @@ _SIGNATURES = {
     "sdk_gemm": [_I, _P, _LL, _LL, _P, _LL, _P, _P, _LL, _LL, _P, _LL, _LL,
                  _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     "sdk_gemm_row_tiles": [_I],
+    "sdk_row_stats": [_P, _LL, _P, _I, _I, _F, _P],
+    "sdk_gemm_sm90": [_P, _LL, _P, _LL, _P, _P, _P, _P, _P, _LL, _P, _LL, *[_I] * 7, _P],
     "sdk_conv": [_I, _P, _I, _LL, _P, _I, _P, _P, _P, _LL, _P, _P, _P, _P,
                  _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "sdk_group_norm_silu": [_I, _P, _P, _P, _P, _I, _LL, _I, _I, _P],
@@ -49,6 +55,7 @@ _SIGNATURES = {
     "sdk_flash_attention": [_I, _P, _P, _P, _P, *[_LL] * 12, _P, _P, _I, _I, _I, _I, _I, _F,
                             _P],
     "sdk_flash_attention_bwd": [_I, *[_P] * 10, *[_LL] * 6, _I, _I, _I, _I, _I, _F, _P],
+    "sdk_flash_attention_bwd_sm90": [*[_P] * 10, *[_LL] * 6, *[_I] * 5, _F, *[_I] * 5, _P],
     "sdk_channel_partials": [_I, _P, _P, _I, _I, _I, _I, _P],
     "sdk_error_string": [_I],
 }

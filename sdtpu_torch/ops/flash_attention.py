@@ -15,11 +15,16 @@ d = 512 fits. For training it also writes each row's log-sum-exp.
 
 K9, the gradients (dq, dk, dv) of mask-free attention, replaces the Pallas
 `_fullk_bwd_kernel` (sdtpu/ops/flash_attention.py:531, called at :613) with
-csrc/flash_attention_bwd.cu: a Δ pre-pass, a dK/dV kernel over key tiles
-and a dQ kernel over query tiles, the probabilities rebuilt from K1's row
-statistics and never held in HBM. It is compute-bound (5 products of
-2·Sq·Sk·d flops). In training it runs the five SpatialTransformers at the
-64² latent level of SD v1.4 at 512px (S = 4096, d = 40).
+a Δ pre-pass, a dK/dV kernel over key tiles and a dQ kernel over query
+tiles, the probabilities rebuilt from K1's row statistics and never held in
+HBM. It is compute-bound (5 products of 2·Sq·Sk·d flops). In training it
+runs the five SpatialTransformers at the 64² latent level of SD v1.4 at
+512px (S = 4096, d = 40). Two routes, chosen by the plan: bf16 at the head
+widths csrc/flash_attention_bwd_sm90.cu has an instance for (padded to 48,
+64, 80 or 160: wgmma products, the softmax gradient in registers, a
+cp.async ring; its tile plan is bwd_sm90_plan) takes that kernel; f32 and
+the other widths take csrc/flash_attention_bwd.cu (WMMA), because TF32
+wgmma cannot read the N-major operands the register-sourced products need.
 
 flash_qkv_attention_diff is the differentiable attention training runs: a
 custom op (sdtpu_torch::flash_attention_diff) whose forward is K1 and whose
@@ -33,6 +38,7 @@ sdtpu's VMEM block pickers have no counterpart.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -236,11 +242,52 @@ def flash_attention_bwd_heads_plain(q, k, v, do):
     return dq, dk, dv
 
 
-def _attend_bwd(q, k, v, o, do, lse, dq, dk, dv):
+# csrc/flash_attention_bwd_sm90.cu: 128 resident rows a CTA (two consumer
+# warpgroups of 64), head widths padded to these (instances), the walked
+# tiles 64 rows (32 at 160, for the registers of dK and dV)
+SM90_BWD_ROWS = 128
+SM90_BWD_DPADS = (48, 64, 80, 160)
+SM90_BWD_STAGES = 3
+
+
+class BwdPlan(NamedTuple):
+    """One launch of csrc/flash_attention_bwd_sm90.cu: the padded head
+    width, the walked tiles' rows, the ring's stages and the dynamic shared
+    memory of the dK/dV and dQ kernels."""
+    dpad: int
+    tile: int
+    stages: int
+    smem_dkdv: int
+    smem_dq: int
+
+
+def bwd_sm90_plan(d: int) -> BwdPlan | None:
+    """The Hopper kernel's plan for head width d, or None where it has no
+    instance (that width takes the WMMA kernel). Raises on a d no K9 kernel
+    takes."""
+    if d <= 0 or d % 8 or d > MAX_BWD_HEAD_DIM:
+        raise ValueError(f"d={d} (K9 takes d <= {MAX_BWD_HEAD_DIM}, a multiple of 8)")
+    dpad = -(-d // 16) * 16
+    if dpad not in SM90_BWD_DPADS:
+        return None
+    tile = 32 if dpad > 128 else 64
+    resident = 2 * SM90_BWD_ROWS * dpad * 2
+    # dK/dV stage: Q and dO tiles plus the tile's lse2 and Δ (f32); dQ
+    # stage: K and V tiles
+    dkdv_stage, dq_stage = 2 * tile * dpad * 2 + 2 * tile * 4, 2 * tile * dpad * 2
+    stages = SM90_BWD_STAGES
+    while resident + stages * dkdv_stage > kernels.SMEM_LIMIT:
+        stages -= 1
+    return BwdPlan(dpad, tile, stages, resident + stages * dkdv_stage,
+                   resident + stages * dq_stage)
+
+
+def _attend_bwd(q, k, v, o, do, lse, dq, dk, dv, route: str = "auto"):
     """Gradients over [B, H, S, d] views into dq, dk, dv: the plain version
     for CPU tensors, K9 for CUDA tensors (o: the forward's output, lse: its
     [B·H, Sq] row statistics from K1). q, o, do and dq must share their
-    strides, and k, v, dk and dv theirs."""
+    strides, and k, v, dk and dv theirs. route "wmma" takes the WMMA kernel
+    whatever the dtype (for timing the two kernels against each other)."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     if kernels.on_cpu(q, k, v, o, do, lse, dq, dk, dv):
@@ -259,13 +306,17 @@ def _attend_bwd(q, k, v, o, do, lse, dq, dk, dv):
     if bad:
         raise ValueError("flash attention backward: " + ", ".join(bad))
     delta = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
+    plan = bwd_sm90_plan(d) if q.dtype == torch.bfloat16 and route == "auto" else None
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *q.stride()[:3], *k.stride()[:3], b * h, h, sq, sk, d, float(d) ** -0.5)
     with torch.cuda.device(q.device):
-        rc = kernels.lib().sdk_flash_attention_bwd(
-            kernels.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), *q.stride()[:3], *k.stride()[:3], b * h, h, sq, sk, d,
-            float(d) ** -0.5, kernels.stream(q))
-    kernels.check(rc, "sdk_flash_attention_bwd")
+        if plan is None:
+            rc = kernels.lib().sdk_flash_attention_bwd(kernels.dtype_code(q), *ptrs,
+                                                       kernels.stream(q))
+        else:
+            rc = kernels.lib().sdk_flash_attention_bwd_sm90(*ptrs, *plan, kernels.stream(q))
+    kernels.check(rc, "sdk_flash_attention_bwd" + ("" if plan is None else "_sm90"))
     kernels.count(flash_attention_bwd_heads, b=b, h=h, sq=sq, sk=sk, d=d)
 
 
@@ -278,6 +329,11 @@ def flash_attention_bwd_heads(q, k, v, do, o=None, lse=None, n_head: int = 1):
     softmax. CUDA tensors take the kernel, which needs the forward's output
     o and row statistics lse (flash_attention_heads(..., return_lse=True))
     and raises on a shape it does not take."""
+    return _bwd_heads(q, k, v, do, o, lse, n_head, "auto")
+
+
+def _bwd_heads(q, k, v, do, o, lse, n_head, route):
+    """flash_attention_bwd_heads on the given route (see _attend_bwd)."""
     q, k, v, do = (t.contiguous() for t in (q, k, v, do))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if kernels.on_cpu(q, k, v, do, o, lse):
@@ -287,7 +343,7 @@ def flash_attention_bwd_heads(q, k, v, do, o=None, lse=None, n_head: int = 1):
     if o is None or lse is None:
         raise ValueError("flash attention backward: the kernel takes the forward's o and lse")
     _attend_bwd(*(_heads4(t, n_head) for t in (q, k, v, o.contiguous(), do)), lse,
-                *(_heads4(t, n_head) for t in (dq, dk, dv)))
+                *(_heads4(t, n_head) for t in (dq, dk, dv)), route=route)
     return dq, dk, dv
 
 

@@ -2,14 +2,21 @@
 with [val | gate] = LN(x)·W_proj + b_proj (port of
 sdtpu/ops/fused_mlp.py:fused_geglu_mlp).
 
-It replaces the Pallas `_kernel` (sdtpu/ops/fused_mlp.py:47, called at :87)
-with two launches of the shared GEMM (csrc/gemm.cu):
+It replaces the Pallas `_kernel` (sdtpu/ops/fused_mlp.py:43, called at :87)
+with two GEMM launches, the [B, S, 8C] projection never in HBM, only its
+[B, S, 4C] product:
 
-1. LayerNorm prologue, LN(x)·W_proj with each output tile accumulating its
-   val columns and its gate columns (4C apart) side by side, and the GEGLU
-   epilogue val·gelu_erf(gate) on the f32 accumulators: the [B, S, 8C]
-   projection never reaches HBM, only its [B, S, 4C] product;
+1. LN(x)·W_proj with each output tile accumulating its val columns and its
+   gate columns (4C apart) side by side, and the GEGLU epilogue
+   val·gelu_erf(gate) on the f32 accumulators;
 2. a·W_lin + b_lin + x, bias and residual in the f32 epilogue.
+
+The route is chosen by dtype. bf16 takes the Hopper GEMM
+(csrc/gemm_sm90.cu: wgmma fed by a TMA ring, the LayerNorm prologue and the
+epilogues in registers) after a row-statistics pre-pass; its tile plan
+(sm90_plan) is made here and checked by the kernel. f32 takes the WMMA GEMM
+(csrc/gemm.cu), because TF32 wgmma needs a K-major B and the [K, N] weights
+are N-major: an explicit dtype route, not a fallback.
 
 What bounds it on the H100: 2·S·C·(8C + 4C) flops against a few S·C
 bytes — compute-bound; the design removes the 8C-wide intermediate.
@@ -17,12 +24,55 @@ bytes — compute-bound; the design removes the 8C-wide intermediate.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from sdtpu_torch import kernels
 from sdtpu_torch.ops.activations import geglu
 from sdtpu_torch.ops.conv import linear
 from sdtpu_torch.ops.groupnorm import layer_norm
+
+# csrc/gemm_sm90.cu: 128-row tiles (two consumer warpgroups of 64 rows), 64
+# deep in K (four wgmma K steps of 16), W in TMA boxes of 64 columns
+SM90_BM, SM90_BK, SM90_BOX, SM90_WGMMA_K = 128, 64, 64, 16
+SM_COUNT = 132
+MAX_STAGES = 4
+SM90_LN_MAX_K = 2048  # the LayerNorm's γ and β staged in shared memory
+
+
+class Sm90Plan(NamedTuple):
+    """One launch of csrc/gemm_sm90.cu: bn output columns a tile (64 or
+    128), the W boxes a tile loads (bn / 64, twice that with GEGLU), the
+    ring's stages and the dynamic shared memory it takes."""
+    bn: int
+    w_boxes: int
+    stages: int
+    smem: int
+    grid: tuple
+
+
+def sm90_plan(m: int, n: int, k: int, geglu: bool) -> Sm90Plan:
+    """The tile plan of one bf16 product [m, k]·[k, n(·2 with GEGLU)];
+    the GEGLU product carries the LayerNorm prologue. GEGLU tiles are 128
+    columns wide; other products take 64 where 128-column tiles would not
+    give half the card's SMs a tile (measured on the H100: at M=2048 N=640
+    K=2560, 128 columns take 0.026 ms and 64 0.042; at M=512 N=1280,
+    0.043 and 0.038). Raises on a shape the kernel does not take."""
+    if m <= 0 or n <= 0 or k <= 0 or n % 8 or k % 8:
+        raise ValueError(f"sdk_gemm_sm90 takes positive n and k that are multiples of 8, "
+                         f"got m={m} n={n} k={k}")
+    if geglu and k > SM90_LN_MAX_K:
+        raise ValueError(f"sdk_gemm_sm90's LayerNorm prologue takes k <= {SM90_LN_MAX_K}, "
+                         f"got k={k}")
+    tiles_m = -(-m // SM90_BM)
+    bn = 128 if geglu or tiles_m * -(-n // 128) >= SM_COUNT // 2 else 64
+    w_boxes = bn // SM90_BOX * (2 if geglu else 1)
+    stage = SM90_BM * SM90_BK * 2 + w_boxes * SM90_BK * SM90_BOX * 2
+    # 1024 bytes to align the ring to the 128-byte swizzle's repeat; a full
+    # and an empty mbarrier (8 bytes each) a stage
+    stages = min(MAX_STAGES, (kernels.SMEM_LIMIT - 1024) // (stage + 16))
+    return Sm90Plan(bn, w_boxes, stages, 1024 + stages * (stage + 16), (-(-n // bn), tiles_m))
 
 
 def fused_geglu_mlp_plain(x, ln_g, ln_b, w_proj, b_proj, w_lin, b_lin,
@@ -33,21 +83,48 @@ def fused_geglu_mlp_plain(x, ln_g, ln_b, w_proj, b_proj, w_lin, b_lin,
     return x + linear({"w": w_lin, "b": b_lin}, geglu(val, gate))
 
 
-def fused_geglu_mlp(x, ln_g, ln_b, w_proj, b_proj, w_lin, b_lin,
-                    eps: float = 1e-5):
-    """x: [B, S, C]; w_proj: [C, 8C] (val | gate), b_proj: [8C];
-    w_lin: [4C, C], b_lin: [C]. CPU tensors take the plain version; CUDA
-    tensors the kernels."""
-    if kernels.on_cpu(x, ln_g, ln_b, w_proj, b_proj, w_lin, b_lin):
-        return fused_geglu_mlp_plain(x, ln_g, ln_b, w_proj, b_proj, w_lin,
-                                     b_lin, eps)
-    kernels.refuse_autograd("fused_geglu_mlp (K5)", x, ln_g, ln_b, w_proj, b_proj, w_lin,
-                            b_lin)
-    b, s, c = x.shape
-    c8 = w_proj.shape[1]
-    if c8 != 8 * c or tuple(w_lin.shape) != (4 * c, c):
+def _check_shapes(x, w_proj, w_lin):
+    c = x.shape[-1]
+    if w_proj.shape[1] != 8 * c or tuple(w_lin.shape) != (4 * c, c):
         raise ValueError(f"w_proj {tuple(w_proj.shape)} / w_lin "
                          f"{tuple(w_lin.shape)} do not fit C={c}")
+
+
+def _mlp_sm90(x, ln_g, ln_b, w_proj, b_proj, w_lin, b_lin, eps=1e-5):
+    """The bf16 route: csrc/gemm_sm90.cu. The parameters are read in x's
+    dtype; .to and .contiguous return the tensors themselves when they
+    already are (no launch)."""
+    b, s, c = x.shape
+    dt = x.dtype
+    m, c4 = b * s, 4 * c
+    x = x.contiguous()
+    ln_g, ln_b, w_proj, b_proj, w_lin, b_lin = (
+        t.to(dt).contiguous() for t in (ln_g, ln_b, w_proj, b_proj, w_lin, b_lin))
+    p1, p2 = sm90_plan(m, c4, c, True), sm90_plan(m, c, c4, False)
+    stats = torch.empty((m, 2), dtype=torch.float32, device=x.device)
+    h = torch.empty((b, s, c4), dtype=dt, device=x.device)
+    out = torch.empty_like(x)
+    lib = kernels.lib()
+    with torch.cuda.device(x.device):
+        st = kernels.stream(x)
+        kernels.check(lib.sdk_row_stats(x.data_ptr(), c, stats.data_ptr(), m, c, eps, st),
+                      "sdk_row_stats")
+        kernels.check(lib.sdk_gemm_sm90(
+            x.data_ptr(), c, w_proj.data_ptr(), 8 * c, b_proj.data_ptr(), ln_g.data_ptr(),
+            ln_b.data_ptr(), stats.data_ptr(), None, 0, h.data_ptr(), c4, m, c4, c, c4,
+            p1.bn, p1.stages, p1.smem, st), "sdk_gemm_sm90 (GEGLU)")
+        kernels.check(lib.sdk_gemm_sm90(
+            h.data_ptr(), c4, w_lin.data_ptr(), c, b_lin.data_ptr(), None, None, None,
+            x.data_ptr(), c, out.data_ptr(), c, m, c, c4, 0, p2.bn, p2.stages, p2.smem, st),
+            "sdk_gemm_sm90")
+    return out
+
+
+def _mlp_wmma(x, ln_g, ln_b, w_proj, b_proj, w_lin, b_lin, eps=1e-5):
+    """The f32 route: two launches of the WMMA GEMM (csrc/gemm.cu), which
+    takes f32 biases and LayerNorm parameters (no copies for an f32 model).
+    It takes bf16 as well, for timing against the bf16 route."""
+    b, s, c = x.shape
     dt = x.dtype
     x = x.contiguous()
     m, c4 = b * s, 4 * c
@@ -55,11 +132,28 @@ def fused_geglu_mlp(x, ln_g, ln_b, w_proj, b_proj, w_lin, b_lin,
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         kernels.gemm(x, w_proj.to(dt).contiguous(), h, M=m, N=c4, K=c, lda=c,
-                     ldw=c8, ldo=c4, bias=b_proj.float().contiguous(),
+                     ldw=8 * c, ldo=c4, bias=b_proj.float().contiguous(),
                      pa=ln_g.float().contiguous(), pb=ln_b.float().contiguous(),
                      prologue=kernels.PRO_LAYERNORM, geglu_off=c4, eps=eps)
         kernels.gemm(h, w_lin.to(dt).contiguous(), out, M=m, N=c, K=c4, lda=c4,
                      ldw=c, ldo=c, bias=b_lin.float().contiguous(), res=x, ldr=c)
+    return out
+
+
+def fused_geglu_mlp(x, ln_g, ln_b, w_proj, b_proj, w_lin, b_lin,
+                    eps: float = 1e-5):
+    """x: [B, S, C]; w_proj: [C, 8C] (val | gate), b_proj: [8C];
+    w_lin: [4C, C], b_lin: [C]. CPU tensors take the plain version; CUDA
+    tensors the kernels (bf16: csrc/gemm_sm90.cu, f32: csrc/gemm.cu)."""
+    if kernels.on_cpu(x, ln_g, ln_b, w_proj, b_proj, w_lin, b_lin):
+        return fused_geglu_mlp_plain(x, ln_g, ln_b, w_proj, b_proj, w_lin,
+                                     b_lin, eps)
+    kernels.refuse_autograd("fused_geglu_mlp (K5)", x, ln_g, ln_b, w_proj, b_proj, w_lin,
+                            b_lin)
+    _check_shapes(x, w_proj, w_lin)
+    route = _mlp_sm90 if x.dtype == torch.bfloat16 else _mlp_wmma
+    out = route(x, ln_g, ln_b, w_proj, b_proj, w_lin, b_lin, eps)
+    b, s, c = x.shape
     kernels.count(fused_geglu_mlp, b=b, s=s, c=c)
     return out
 

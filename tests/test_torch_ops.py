@@ -415,7 +415,8 @@ def test_kernel_library_name_tracks_sources():
     assert path.parent == kernels.BUILD_DIR and path.suffix == ".so"
     assert sorted(p.name for p in kernels.CSRC.glob("*.cu")) == [
         "attention.cu", "channel_stats.cu", "cross_attention.cu", "flash_attention.cu",
-        "flash_attention_bwd.cu", "gemm.cu", "groupnorm.cu"]
+        "flash_attention_bwd.cu", "flash_attention_bwd_sm90.cu", "gemm.cu", "gemm_sm90.cu",
+        "groupnorm.cu"]
 
 
 # ------------------------------------------------------------ on the card
@@ -477,3 +478,23 @@ def test_kernel_matches_plain_on_card(name, dtype):
             assert ((stats[:, i] - v.sum(1)).abs() <= 2 ** -7 * v.abs().sum(1) + 1e-3).all()
     tol = 1e-3 if name == "channel_partials" else (5e-3 if dtype == "float32" else 6e-2)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,c", [
+    (1, 333, 64),    # M = 333: the last 128-row tile ragged; one K step
+    (3, 77, 320),    # M = 231; K = 320 and 1280, 5 and 20 K steps
+    (1, 1000, 640),  # M = 1000 at a UNet width; the residual product on 64-column tiles
+])
+def test_k5_ragged_rows_match_plain_on_card(b, s, c):
+    """K5's bf16 route (csrc/gemm_sm90.cu) at row counts that are not a
+    multiple of its 128-row tile, against the plain version: within a few
+    bf16 ulps (6e-2), and the same bits on a second call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    args = [torch.from_numpy(np.asarray(a, np.float32)).to(dev, torch.bfloat16)
+            for a in _mlp_args(b, s, c, 24)]
+    got, want = tfm.fused_geglu_mlp(*args), tfm.fused_geglu_mlp_plain(*args)
+    torch.testing.assert_close(got.float(), want.float(), rtol=6e-2, atol=6e-2)
+    assert torch.equal(tfm.fused_geglu_mlp(*args), got)

@@ -204,6 +204,22 @@ def test_k9_matches_plain_on_card(dtype, bh, sq, sk, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [40, 80, 160])
+def test_k9_bf16_repeats_bit_equal_on_card(d):
+    """K9's bf16 route (csrc/flash_attention_bwd_sm90.cu, no atomics) gives
+    the same bits on two runs, at ragged lengths (S not a multiple of 64)."""
+    dev = _card()
+    assert tfa.bwd_sm90_plan(d) is not None
+    r = np.random.default_rng(12)
+    q, k, v, do = (torch.from_numpy(r.standard_normal((8, 333, d)).astype(np.float32))
+                   .to(dev, torch.bfloat16) for _ in range(4))
+    o, lse = tfa.flash_attention_heads(q, k, v, return_lse=True)
+    first = tfa.flash_attention_bwd_heads(q, k, v, do, o, lse)
+    second = tfa.flash_attention_bwd_heads(q, k, v, do, o, lse)
+    assert all(torch.equal(a, b_) for a, b_ in zip(first, second))
+
+
+@pytest.mark.cuda
 def test_diff_attention_grads_card_vs_cpu():
     """The differentiable op on the card (K1, K9) against the CPU (plain),
     f32, [B, S, C] rows with 8 heads of 40."""

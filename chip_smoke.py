@@ -13,11 +13,15 @@ Phases, each printing its lines:
    and bfloat16: max error against the stated tolerance, the times of the
    kernel, of its plain version and, where one PyTorch call computes the
    same function, of that call (CUDA events), and the least time the card
-   could take for the same work (its bound). K5 and K9 are also timed by
-   the card's own clock (sdtpu_torch.profile_kernels.device_ms: 20 wrapper
-   calls captured in a CUDA graph, the replay timed), and in bfloat16
-   their Hopper kernels against the WMMA kernels they replaced, in turns
-   (old, new, new, old);
+   could take for the same work (its bound). K5, K9, K2 and K6 are also
+   timed by the card's own clock (sdtpu_torch.profile_kernels.device_ms:
+   20 wrapper calls captured in a CUDA graph, the replay timed), and in
+   bfloat16 their Hopper kernels against the WMMA kernels they replaced, in
+   turns (old, new, new, old). Planted faults must fail each kernel's
+   tolerance at every case: for K6 the convolution without the border mask
+   (the prologue applied to the zero-padded map) and, with a second input,
+   the convolution without it; for K2 the attention over every other key;
+   (K1, K9 and K10 have their own, below);
 3. one SpatialTransformer at the 64x64 latent level (C=320), random
    weights, run on the card (kernels) and on the CPU (plain versions); the
    VAE decoder at SD v1.4 width on a 16x16 latent with every fused gate
@@ -30,7 +34,9 @@ Phases, each printing its lines:
    (the same config with image_size=1024). Each must give a
    [1, size, size, 3] uint8 image from finite latents, and the kernels'
    launch counters, set to 0 just before each run and read just after,
-   must read exactly what the dispatch implies;
+   must read exactly what the dispatch implies; K2's and K6's launches,
+   counted per route, must all take their Hopper kernels (here, in the
+   serve phase and in the fine-tuning cache build);
 5. sdtpu_torch.finetune.run_finetune at SD v1.4 width and depth, 512x512,
    from a folder of synthetic PNGs: the latent cache through the port's
    VAE encoder and CLIP, then 3 AdamW steps at batch 4 in bf16, the tuned
@@ -53,10 +59,12 @@ the fine-tuning run with its cache build, and the serve phase), and `ms`, `plain
 `bound_ms` and `library_ms` are for those launches: each wrapper counts
 its launches per shape as well, and each shape's bfloat16 time (or bound)
 from phase 2 is taken as many times as the runs launched it. A shape
-launched there with no case in phase 2 is a failure. K5 and K9 also carry
-`device_ms` (the same launches by device time) and `replaced_device_ms`
-(those of the WMMA kernels their bf16 route replaced). K5's `library_ms`
-is both of its products as two torch.matmul calls.
+launched there with no case in phase 2 is a failure. K5, K9, K2 and K6
+also carry `device_ms` (the same launches by device time) and
+`replaced_device_ms` (those of the WMMA kernels their bf16 route
+replaced). K5's `library_ms`
+is both of its products as two torch.matmul calls; K2's is SDPA on the
+core alone, K6's cuDNN's convolution alone (F.conv2d).
 
 Bounds: max(operations / peak rate, bytes / 3.35 TB/s), the inputs read
 once and the outputs written once; products at the tensor cores' dense
@@ -165,7 +173,7 @@ class Case(NamedTuple):
     peak: float = PEAK_TENSOR
     library: Optional[Callable] = None
     library_minus: Optional[Callable] = None
-    # the WMMA route the kernel's bf16 Hopper kernel replaced (K5, K9),
+    # the WMMA route the kernel's bf16 Hopper kernel replaced (K5, K9, K2, K6),
     # timed against it in turns; and yardsticks printed beside library
     old: Optional[Callable] = None
     yardsticks: tuple = ()
@@ -275,10 +283,13 @@ def kernel_cases(dtype, dev):
         def core(*a, qkv4=qkv4, **k):
             return F.scaled_dot_product_attention(qkv4[0], qkv4[1], qkv4[2])
 
+        def k2_wmma(*a):  # the WMMA route the bf16 Hopper kernels replaced
+            return fused_transformer._self_attention(*a, 1e-5, "wmma")
+
         cases.append(Case("fused_self_attention", f"S={s} C={c} dh={c // 8} B={b}",
                           fused_transformer.fused_self_attention,
                           fused_transformer.fused_self_attention_plain, args, {},
-                          b * (8 * s * c * c + 4 * s * s * c), library=core))
+                          b * (8 * s * c * c + 4 * s * s * c), library=core, old=k2_wmma))
     # K5 at the UNet's levels below 2048 tokens (both sizes, batch 2 and the
     # serve phase's 8), and two row counts that are not a multiple of the
     # Hopper kernel's 128-row tile (no main path launches them)
@@ -334,7 +345,8 @@ def kernel_cases(dtype, dev):
                                   fused_cross_attention.fused_cross_attention_plain,
                                   (x, ctx, *args[3:6], wk, wv, *args[6:]),
                                   {"key_valid": valid, "n_head": 8},
-                                  2 * b * s * c * (2 * c + 2 * 77) + 2 * b * 77 * 768 * 2 * c))
+                                  2 * b * s * c * (2 * c + 2 * 77) + 2 * b * 77 * 768 * 2 * c,
+                                  library=xcore))
 
     def heads4(n_head, *ts):
         return [t.view(t.shape[0] // n_head, n_head, *t.shape[1:]) for t in ts]
@@ -394,6 +406,12 @@ def kernel_cases(dtype, dev):
     # at 128x128 (1024px, B=2): conv_in over x or over the implicit skip
     # concat (x2), conv_out with the residual; the VAE decoder's ResnetBlock
     # convs at both sizes
+    def k6_wmma(x, w, cb, ps=None, pb=None, residual=None, silu=True, emit_stats=False,
+                x2=None, prologue_scale2=None, prologue_bias2=None):
+        """K6 on the WMMA kernel its bf16 Hopper kernel replaced."""
+        return fused_conv._conv3x3(x, w, cb, ps, pb, residual, silu, emit_stats, x2,
+                                   prologue_scale2, prologue_bias2, "wmma")
+
     def conv_case(label, b, hw, ci, co, c2, eps, residual=True, stats=True):
         x = rnd(b, hw, hw, ci)
         x2 = rnd(b, hw, hw, c2) if c2 else None
@@ -411,7 +429,7 @@ def kernel_cases(dtype, dev):
 
         cases.append(Case("conv3x3_fused", label, fused_conv.conv3x3_fused,
                           fused_conv.conv3x3_fused_plain, args, kw,
-                          2 * 9 * b * hw * hw * (ci + c2) * co, library=conv))
+                          2 * 9 * b * hw * hw * (ci + c2) * co, library=conv, old=k6_wmma))
 
     conv_case("unet 128x128 640+320->320 B=2", 2, 128, 640, 320, 320, 1e-5, residual=False)
     conv_case("unet 128x128 320+320->320 B=2", 2, 128, 320, 320, 320, 1e-5, residual=False)
@@ -470,10 +488,10 @@ KERNEL_INFO = {
     "channel_partials": ("cuda", "sdtpu_torch/csrc/channel_stats.cu",
                          "sdtpu/ops/fused_groupnorm.py:47"),
     "conv1x1_fused": ("cuda", "sdtpu_torch/csrc/gemm.cu", "sdtpu/ops/fused_conv.py:428"),
-    "fused_self_attention": ("cuda", "sdtpu_torch/csrc/attention.cu",
+    "fused_self_attention": ("cuda", "sdtpu_torch/csrc/attention_sm90.cu",
                              "sdtpu/ops/fused_transformer.py:108"),
     "fused_geglu_mlp": ("cuda", "sdtpu_torch/csrc/gemm_sm90.cu", "sdtpu/ops/fused_mlp.py:68"),
-    "conv3x3_fused": ("cuda", "sdtpu_torch/csrc/gemm.cu", "sdtpu/ops/fused_conv.py:152"),
+    "conv3x3_fused": ("cuda", "sdtpu_torch/csrc/conv_sm90.cu", "sdtpu/ops/fused_conv.py:152"),
     "upsample2x_conv_fused": ("cuda", "sdtpu_torch/csrc/gemm.cu",
                               "sdtpu/ops/fused_conv.py:316"),
     "group_norm_silu": ("cuda", "sdtpu_torch/csrc/groupnorm.cu",
@@ -612,11 +630,71 @@ def _check_k10(c, got, want, dname, failed):
     return err, ok, a, r
 
 
+def _k6_faults(c):
+    """The planted faults K6's tolerance must fail: the convolution without
+    the border mask (TMA's zero fill taken through the prologue: the
+    prologue applied to the zero-padded map), and with a second input the
+    convolution without it (a dropped x2 half). Both in PyTorch ops."""
+    import torch
+    import torch.nn.functional as F
+
+    from sdtpu_torch.ops.conv import conv2d
+    from sdtpu_torch.ops.fused_conv import _prologue_plain, conv3x3_fused_plain
+
+    x, w, cb, ps, pb = c.args
+    kw = c.kw
+    x2 = kw.get("x2")
+
+    def pad_then_prologue(t, s, b):
+        return _prologue_plain(F.pad(t, (0, 0, 1, 1, 1, 1)), s, b, True)
+
+    xin = pad_then_prologue(x, ps, pb)
+    if x2 is not None:
+        xin = torch.cat([xin, pad_then_prologue(x2, kw["prologue_scale2"],
+                                                kw["prologue_bias2"])], dim=-1)
+    acc = conv2d({"w": w}, xin, padding=0).float() + cb.float()
+    if kw.get("residual") is not None:
+        acc = acc + kw["residual"].float()
+    faults = {"without the border mask": acc.to(x.dtype)}
+    if x2 is not None:
+        c1 = x.shape[-1]
+        faults["without x2"] = conv3x3_fused_plain(x, w[:, :, :c1], cb, ps, pb,
+                                                   kw.get("residual"))
+    return faults
+
+
+def _check_k2(c, got, want, dname, failed):
+    """K2's check: the whole sublayer x + Wo·attn + bo within TOL, and the
+    attention term alone (out - x against plain - x) within FLASH_TOL's
+    fraction of its largest |reference| plus FLASH_TOL's rtol of |out| (the
+    output's own rounding), as K10's. That tolerance fails the sublayer over
+    every other key. Returns (max abs error, ok, atol of the term, rtol)."""
+    from sdtpu_torch.ops.attention import qkv_attention_plain
+    from sdtpu_torch.ops.conv import linear
+    from sdtpu_torch.ops.groupnorm import layer_norm
+
+    atol, rtol = TOL[dname]
+    err, ok = within(got, want, atol, rtol)
+    frac, r = FLASH_TOL[dname]
+    x, ln_g, ln_b, wqkv, wo, bo, n_head = c.args
+    a = frac * float((want.float() - x.float()).abs().max())
+    ok = ok and within(got, want, a, r)[1]
+    q, k, v = linear({"w": wqkv}, layer_norm(x, ln_g, ln_b)).chunk(3, dim=-1)
+    half = x + linear({"w": wo, "b": bo},
+                      qkv_attention_plain(q, k[:, ::2], v[:, ::2], None, n_head))
+    passes = within(half, want, a, r)[1]
+    print(f"kernel {c.name:21s} {dname:8s} {c.shape:30s} max |ref term| {a / frac:.4f}; the "
+          f"term's tolerance passes the sublayer over every other key: {passes}", flush=True)
+    if passes:
+        failed.append(f"{c.name} {dname} {c.shape} tolerance too loose")
+    return err, ok, a, r
+
+
 def phase_kernels(dev) -> tuple[dict, dict]:
     """Phase 2. Returns ({kernel: max abs error}, {(kernel, shape key):
     {label, ms, plain_ms, library_ms, bound_ms, ops_ms, bytes_ms, device_ms,
     old_ms, f32_ms}}), both from the bfloat16 run, the main path's dtype
-    (device_ms and old_ms, the replaced kernel's device time, for K5 and K9
+    (device_ms and old_ms, the replaced kernel's device time, for K5, K9, K2, K6
     only; f32_ms the float32 run's time, by device time where measured)."""
     import torch
 
@@ -641,6 +719,8 @@ def phase_kernels(dev) -> tuple[dict, dict]:
                 err, ok, a, r = _check_k9(c, got, want, dname, failed)
             elif c.name.startswith("fused_cross_attention"):
                 err, ok, a, r = _check_k10(c, got, want, dname, failed)
+            elif c.name == "fused_self_attention":
+                err, ok, a, r = _check_k2(c, got, want, dname, failed)
             else:
                 if c.kw.get("emit_stats"):
                     (got, got_st), (want, _) = got, want
@@ -659,6 +739,13 @@ def phase_kernels(dev) -> tuple[dict, dict]:
                     if st_err > 1.0:
                         failed.append(f"{c.name} {dname} {c.shape} stats")
                 err, ok = within(got, want, a, r)
+                if c.name == "conv3x3_fused":
+                    passes = {k: within(f, want, a, r)[1] for k, f in _k6_faults(c).items()}
+                    print(f"kernel {c.name:21s} {dname:8s} {c.shape:30s} the tolerance passes "
+                          + ", ".join(f"the convolution {k}: {v}" for k, v in passes.items()),
+                          flush=True)
+                    if any(passes.values()):
+                        failed.append(f"{c.name} {dname} {c.shape} tolerance too loose")
             del got, want
             ms = cuda_ms(lambda: c.fn(*c.args, **c.kw))
             plain_ms = cuda_ms(lambda: c.plain(*c.args, **c.kw))
@@ -709,7 +796,7 @@ def main_path_times(measured: dict, shapes: dict) -> dict:
     launches in the generate runs: each launched shape's phase-2 time (or
     bound) times its launches there, as the wrapper counted them per shape,
     summed. library_ms is None where a launched shape has no library call;
-    device_ms and old_ms (K5, K9) are the device times of the kernel and of
+    device_ms and old_ms (K5, K9, K2, K6) are the device times of the kernel and of
     the one it replaced, None for the others. Fails if a launched shape has
     no case in phase 2."""
     totals, missing = {}, []
@@ -927,6 +1014,23 @@ EXPECTED_LAUNCHES = {
 EXPECTED_X2 = {512: 0, 1024: 60}  # K6 launches with the skip as second input
 
 
+def check_routes(label: str, shapes: dict) -> None:
+    """K2's and K6's launches of a bf16 main path by route (their wrappers
+    count each shape under its route): every main-path shape has a Hopper
+    plan, so none may take the WMMA kernels."""
+    by = {}
+    for name in ("fused_self_attention", "conv3x3_fused"):
+        by[name] = {}
+        for key, n in shapes[name].items():
+            route = key.rsplit("route=", 1)[-1]
+            by[name][route] = by[name].get(route, 0) + n
+    print(f"{label} launches by route: K2 {by['fused_self_attention']}, K6 "
+          f"{by['conv3x3_fused']}", flush=True)
+    wmma = {name: r["wmma"] for name, r in by.items() if r.get("wmma")}
+    if wmma:
+        fail(f"{label}: bf16 launches on the WMMA route {wmma}")
+
+
 def phase_generate(dev, size: int) -> tuple[dict, dict]:
     """Phase 4: StableDiffusion.generate at SD v1.4 width, random weights,
     bf16, size x size, 20 DDIM steps, CFG 7.5, batch 1. Returns the launch
@@ -988,6 +1092,7 @@ def phase_generate(dev, size: int) -> tuple[dict, dict]:
     if launches != EXPECTED_LAUNCHES[size] or x2 != EXPECTED_X2[size]:
         fail(f"launch counts {launches} (x2 {x2}) differ from {EXPECTED_LAUNCHES[size]} "
              f"(x2 {EXPECTED_X2[size]})")
+    check_routes(f"generate {size}", shapes)
     return launches, shapes
 
 
@@ -1233,6 +1338,7 @@ def phase_serve(dev) -> tuple[dict, dict]:
               flush=True)
         if k10 != K10_PER_UNET_CALL * unet_calls:
             bad.append(f"K10 launched {k10} times, expected {K10_PER_UNET_CALL * unet_calls}")
+        check_routes("serve", shapes)
 
         # the merged pipeline's fused attn1 q/k/v (K2's operand) are its
         # merged q, k and v
@@ -1391,6 +1497,7 @@ def phase_train(dev) -> tuple[dict, dict]:
         losses = [v for _, v in result["losses"]]
         print(f"train cache build ({TRAIN_IMAGES} images, SD v1.4 encoder + CLIP, bf16): "
               f"launches {fired(cache[0])} expected {EXPECTED_CACHE}", flush=True)
+        check_routes("train cache build", cache[1])
         print(f"train run_finetune SD v1.4 512px bf16 batch {TRAIN_BATCH} AdamW "
               f"{TRAIN_STEPS} steps remat=False: losses {losses}, step wall ms "
               f"{[round(t, 1) for t in step_ms]} (warm step {step_ms[-1]:.1f} ms), peak "

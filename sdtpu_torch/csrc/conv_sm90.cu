@@ -1,0 +1,445 @@
+// K6 in bf16: the fused 3x3 convolution, sdtpu/ops/fused_conv.py:
+// conv3x3_fused (its Pallas body `_kernel` / `_conv_part` :96/:44, called at
+// :232), on Hopper's TMA and warpgroup tensor-core instructions:
+//
+//   y = conv3x3(act(x·scale + shift)) + b [+ residual], act = SiLU or none,
+//   with the zero padding applied after the prologue, over the implicit
+//   channel concat [x, x2], and per-channel (Σy, Σy²) of the f32 y.
+//
+// What bounds it on the H100: 2·9·(C1 + C2)·Co operations per pixel against
+// (C1 + C2 + Co) bf16 values of it: compute-bound at every main-path shape
+// (0.078 ms at the bf16 peak against 0.040 ms of bytes for the VAE
+// decoder's 512² x 128 convs, 0.183 against 0.039 for the UNet's 128²
+// 640 + 320 -> 320). The design is an implicit GEMM that keeps the tensor
+// cores fed and never builds the shifted or normalised map:
+//
+// - A CTA computes 128 consecutive pixels of one image (a box of bw =
+//   min(W, 128) pixels by bh = 128 / bw rows) times bn output channels (128,
+//   256, or 320 for the UNet's 320-channel convs): two
+//   consumer warpgroups of 64 pixels each and a producer warpgroup that hands
+//   its registers to them (setmaxnreg 40 / 232) and of which one thread keeps
+//   a ring of `stages` shared-memory stages full with TMA loads.
+// - The K dimension is the HWIO weight read as the [9·(C1 + C2), Co] matrix
+//   it is: K block kb (64 deep) is tap kb / ((C1 + C2) / 64) and 64 channels
+//   of x or of x2 (C1 and C2 are multiples of 64, so a block never straddles
+//   a tap or the x/x2 boundary). Its A operand is one TMA box of a 4-D
+//   tensor map over the NHWC map of x (or of x2, through its own map): the
+//   box (64 channels, bw, bh, 1) at (c0, j0 + dx − 1, i0 + dy − 1, b). TMA
+//   fills every element outside the map with zeros, the negative
+//   coordinates of the top and left border included, and writes the box
+//   with the 128-byte swizzle; no thread computes an address.
+// - The weight's boxes (64 K rows x 64 columns, N-major) are read by wgmma
+//   through the descriptor's transpose bit, as in csrc/gemm_sm90.cu.
+// - The prologue runs in registers: each consumer loads its A fragments with
+//   ldmatrix from the swizzled stage, applies x·scale + shift per (batch,
+//   channel) (staged in shared memory as f32 pairs) and SiLU (one MUFU
+//   tanh an element: silu(v) = h + h·tanh(h), h = v / 2), rounds to bf16
+//   and then zeroes every element whose source pixel lies outside the map:
+//   TMA's zeros came before the prologue and would otherwise carry
+//   silu(shift) into the border. Without a prologue TMA's zeros suffice.
+//   The packed fragments are wgmma's register A operand. Two fragment sets:
+//   block kb + 1 is loaded and normalised while block kb's products run.
+// - The products are wgmma.mma_async m64n128k16 or m64n256k16 (plus an
+//   m64n64k16 for the last 64 of 320 channels), one instruction spanning the
+//   tile's weight boxes, bf16 in, f32 accumulators in registers. No branch
+//   sits between a product's issue and its wait: ptxas otherwise waits for
+//   every K block's products before the next block's prologue.
+// - The epilogue runs on the accumulators: conv bias and residual in f32,
+//   one bf16 store, and each tile's per-channel (Σ, Σ²) of the f32 result
+//   summed over its rows with warp shuffles, then over the eight warps in
+//   shared memory, into [B][row tiles][2][Co]: no atomics, every run the
+//   same bits.
+//
+// Reading each tap's box from L2 costs less than it seems: one halo box a
+// tile, read by all nine taps through shifted ldmatrix rows, was slower
+// on the H100 (PERF.md, PR 6). The tile plan (bn, the box, the stages, the
+// shared-memory bytes) comes from Python (sdtpu_torch/ops/fused_conv.py:
+// sm90_plan) and is checked here. Other shapes, an affine prologue without
+// SiLU, and f32 take the WMMA implicit GEMM (csrc/gemm.cu).
+#include <type_traits>
+
+#include "sm90.cuh"
+
+namespace sdk {
+namespace {
+
+using bf16 = __nv_bfloat16;
+using namespace sm90;
+
+constexpr int V_BM = 128, V_BK = 64, V_BOX = 64;
+// two consumer warpgroups and a producer warpgroup, of which one thread
+// issues the loads
+constexpr int V_CONSUMERS = 256, V_NT = V_CONSUMERS + 128;
+constexpr uint32_t V_A_BYTES = V_BM * V_BK * 2, V_W_BYTES = V_BK * V_BOX * 2;
+constexpr int V_MAX_SMEM = 232448;
+
+struct ConvSm90 {
+  const bf16* bias;     // [Co], or null
+  const float* scale;   // prologue [B][ld_s] of x (C1 used), or null
+  const float* shift;
+  const float* scale2;  // and [B][ld_s2] of x2 (C2 used)
+  const float* shift2;
+  long long ld_s, ld_s2;
+  const bf16* res;      // [B][H][W][Co], or null
+  bf16* out;            // [B][H][W][Co]
+  float* stats;         // [B][row tiles][2][Co], or null
+  int H, W, C1, C2, Co, bw, stages;
+};
+
+// BN output channels a tile, in BN / 64 weight boxes
+template <int BN>
+__host__ __device__ constexpr uint32_t stage_bytes() {
+  return V_A_BYTES + BN / V_BOX * V_W_BYTES;
+}
+// shared memory: 1024 bytes of slack to align the ring to the swizzle
+// pattern's 1024-byte repeat, the stages, a full and an empty barrier each,
+// and with a prologue one (scale, shift) f32 pair per input channel
+template <int BN>
+__host__ __device__ constexpr int smem_needed(int stages, int ct, bool prologue) {
+  return 1024 + stages * ((int)stage_bytes<BN>() + 16) + (prologue ? 8 * ct : 0);
+}
+
+__device__ __forceinline__ float tanh_approx(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// acc [BN / 2] += A (registers) · the stage's BN / 64 weight boxes, K step
+// ks: one instruction over the boxes (n128, n256), and n64 for a fifth
+template <int BN>
+__device__ __forceinline__ void conv_mma(float* acc, const uint32_t* af, uint32_t w_base, int ks) {
+  const uint32_t b = w_base + ks * 2048;
+  if constexpr (BN == 128) {
+    wgmma_rs_n128(acc, af, desc_n_major_sw128_atoms(b, V_W_BYTES));
+  } else {
+    wgmma_rs_n256(acc, af, desc_n_major_sw128_atoms(b, V_W_BYTES));
+    if constexpr (BN == 320) wgmma_rs_n64(acc + 128, af, desc_n_major_sw128(b + 4 * V_W_BYTES));
+  }
+}
+
+// PRO: the GroupNorm affine and SiLU prologue (else none)
+template <int BN, bool PRO>
+__global__ void __launch_bounds__(V_NT, 1)
+    conv_sm90_kernel(const __grid_constant__ CUtensorMap map_x,
+                     const __grid_constant__ CUtensorMap map_x2,
+                     const __grid_constant__ CUtensorMap map_w, const ConvSm90 p) {
+  constexpr uint32_t STAGE = stage_bytes<BN>();
+  constexpr int NB = BN / V_BOX;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int stages = p.stages;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + stages * STAGE);
+  uint64_t* empty = full + stages;
+  float2* s_aff = reinterpret_cast<float2*>(empty + stages);  // (scale, shift) per channel
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int ct = p.C1 + p.C2, kpt = ct / V_BK;  // K blocks a tap
+  const int nk = 9 * kpt;
+  const int bw = p.bw, bh = V_BM / bw, tiles_w = p.W / bw;
+  const int b = blockIdx.z, tile = blockIdx.y;
+  const int i0 = tile / tiles_w * bh, j0 = tile % tiles_w * bw;
+  const int n0 = blockIdx.x * NB * V_BOX;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], V_CONSUMERS);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= V_CONSUMERS / 32) {
+    // ---- the producer warpgroup gives its registers to the consumers; one
+    // thread issues every TMA load
+    setmaxnreg_dec<40>();
+    if (warp == V_CONSUMERS / 32 && lane == 0) {
+      for (int kb = 0; kb < nk; ++kb) {
+        const int s = kb % stages;
+        if (kb >= stages) mbar_wait(&empty[s], ((kb / stages) - 1) & 1);
+        mbar_expect_tx(&full[s], STAGE);
+        unsigned char* st = smem + s * STAGE;
+        const int tap = kb / kpt, c0 = (kb - tap * kpt) * V_BK;
+        const int dy = tap / 3, dx = tap % 3;
+        if (c0 < p.C1)
+          tma_load_4d(st, &map_x, &full[s], c0, j0 + dx - 1, i0 + dy - 1, b);
+        else
+          tma_load_4d(st, &map_x2, &full[s], c0 - p.C1, j0 + dx - 1, i0 + dy - 1, b);
+#pragma unroll
+        for (int bb = 0; bb < NB; ++bb)
+          tma_load_2d(st + V_A_BYTES + bb * V_W_BYTES, &map_w, &full[s], n0 + bb * V_BOX,
+                      kb * V_BK);
+      }
+    }
+    return;
+  }
+
+  // ---- the consumers: warpgroup wg takes pixels wg*64 .. +63 of the tile,
+  // warp wl of it pixels wl*16 .. +15 (wgmma's A fragment layout)
+  setmaxnreg_inc<232>();
+  const int wg = warp / 4, wl = warp % 4;
+  const int g = lane / 4, t = lane % 4;
+  const int row_w = wg * 64 + wl * 16;  // this warp's first pixel in the tile
+  if constexpr (PRO) {
+    for (int c = tid; c < ct; c += V_CONSUMERS)
+      s_aff[c] = c < p.C1 ? make_float2(p.scale[b * p.ld_s + c], p.shift[b * p.ld_s + c])
+                          : make_float2(p.scale2[b * p.ld_s2 + c - p.C1],
+                                        p.shift2[b * p.ld_s2 + c - p.C1]);
+    // the consumers only (the producer warpgroup never reaches it)
+    asm volatile("bar.sync 1, %0;\n" ::"n"(V_CONSUMERS) : "memory");
+  }
+  // the pixels (i, j) of this thread's rows g and g + 8
+  int pi[2], pj[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row_w + g + 8 * h;
+    pi[h] = i0 + r / bw;
+    pj[h] = j0 + r % bw;
+  }
+  // ldmatrix: lane l gives the address of row (l & 7) + 8·((l >> 3) & 1) of
+  // this warp's 16, 16-byte chunk (l >> 4) of the K step, swizzled as TMA
+  // wrote it (chunk ^ row % 8 within each 128-byte row)
+  const int lrow = row_w + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int lchunk = lane >> 4;
+
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+
+  // K block kb: wait for its stage, load this warp's A fragments with
+  // ldmatrix, apply the prologue and then the border mask in registers
+  auto prepare = [&](uint32_t(&af)[4][4], int kb) {
+    const int s = kb % stages;
+    mbar_wait(&full[s], (kb / stages) & 1);
+    const uint32_t a_base = smem_u32(smem + s * STAGE) + lrow * 128;
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      ldmatrix_x4(af[ks], a_base + (((ks * 2 + lchunk) ^ (lrow & 7)) << 4));
+    if constexpr (!PRO) return;
+    const int tap = kb / kpt, c0 = (kb - tap * kpt) * V_BK;
+    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+    bool inside[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      inside[h] = (unsigned)(pi[h] + dy) < (unsigned)p.H && (unsigned)(pj[h] + dx) < (unsigned)p.W;
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      // register j holds (row g + 8·(j & 1), channels c, c + 1) with
+      // c = c0 + 16·ks + 2t + 8·(j >> 1)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const float4 a = *reinterpret_cast<const float4*>(s_aff + c0 + ks * 16 + 2 * t + 8 * half);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int j = half * 2 + h;
+          const float2 x = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&af[ks][j]));
+          const float h0 = 0.5f * fmaf(x.x, a.x, a.y), h1 = 0.5f * fmaf(x.y, a.z, a.w);
+          af[ks][j] = inside[h] ? pack_bf16(fmaf(h0, tanh_approx(h0), h0),
+                                            fmaf(h1, tanh_approx(h1), h1))
+                                : 0u;
+        }
+      }
+    }
+  };
+  // issue K block kb's products (one commit group)
+  auto issue = [&](uint32_t(&af)[4][4], int kb) {
+    const uint32_t w_base = smem_u32(smem + (kb % stages) * STAGE + V_A_BYTES);
+    fence_regs<BN / 2>(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) conv_mma<BN>(acc, af[ks], w_base, ks);
+    wgmma_commit();
+    fence_regs<BN / 2>(acc);
+  };
+  // K block kb's products have completed: its fragments stay allocated
+  // until here (wgmma reads them asynchronously), and its stage is released
+  auto retire = [&](uint32_t(&af)[4][4], int kb) {
+    fence_regs<16>(&af[0][0]);
+    mbar_arrive(&empty[kb % stages]);
+  };
+
+  // two fragment sets: block kb + 1 is loaded, normalised and issued while
+  // block kb's products are on the tensor cores, then block kb is waited
+  // for (wait_group 1). The steady state takes two blocks a trip with no
+  // branch between an issue and its wait, so that the compiler keeps the
+  // products in flight across the next block's prologue.
+  uint32_t fa[4][4], fb[4][4];
+  fence_regs<BN / 2>(acc);
+  prepare(fa, 0);
+  issue(fa, 0);
+  int kb = 1;
+  for (; kb + 1 < nk; kb += 2) {
+    prepare(fb, kb);
+    issue(fb, kb);
+    wgmma_wait<1>();
+    retire(fa, kb - 1);
+    prepare(fa, kb + 1);
+    issue(fa, kb + 1);
+    wgmma_wait<1>();
+    retire(fb, kb);
+  }
+  if (kb < nk) {
+    prepare(fb, kb);
+    issue(fb, kb);
+    wgmma_wait<1>();
+    retire(fa, kb - 1);
+    wgmma_wait<0>();
+    retire(fb, kb);
+  } else {
+    wgmma_wait<0>();
+    retire(fa, kb - 1);
+  }
+  fence_regs<BN / 2>(acc);
+
+  // ---- epilogue on the accumulators: thread holds, for j < BN / 8,
+  // columns 8j + 2t, +1 of rows g (registers 4j, 4j+1) and g + 8 (4j+2,
+  // 4j+3). Rows past the map's last row (a box taller than what is left of
+  // it) are neither stored nor counted.
+  const long long hw = (long long)p.H * p.W;
+  bool row_ok[2];
+  long long pix[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    row_ok[h] = pi[h] < p.H;
+    pix[h] = (long long)b * hw + (long long)pi[h] * p.W + pj[h];
+  }
+  // the ring is free once every consumer is past its last product; the
+  // statistics' per-warp partials [8 warps][BN][2] reuse it
+  float2* part = reinterpret_cast<float2*>(smem);
+  if (p.stats) asm volatile("bar.sync 1, %0;\n" ::"n"(V_CONSUMERS) : "memory");
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = 8 * j + 2 * t, n = n0 + col;
+    const bool n_ok = n < p.Co;
+    float2 bv = make_float2(0.f, 0.f);
+    if (n_ok && p.bias)
+      bv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p.bias + n));
+    float s1x = 0.f, s1y = 0.f, s2x = 0.f, s2y = 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (!n_ok || !row_ok[h]) continue;
+      float v0 = acc[4 * j + 2 * h] + bv.x, v1 = acc[4 * j + 2 * h + 1] + bv.y;
+      if (p.res) {
+        const float2 r = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(p.res + pix[h] * p.Co + n));
+        v0 += r.x;
+        v1 += r.y;
+      }
+      *reinterpret_cast<uint32_t*>(p.out + pix[h] * p.Co + n) = pack_bf16(v0, v1);
+      s1x += v0;
+      s1y += v1;
+      s2x += v0 * v0;
+      s2y += v1 * v1;
+    }
+    if (p.stats) {
+      // sum over the warp's 16 rows: the lanes of one t differ in g
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+        s1x += __shfl_xor_sync(0xffffffffu, s1x, o);
+        s1y += __shfl_xor_sync(0xffffffffu, s1y, o);
+        s2x += __shfl_xor_sync(0xffffffffu, s2x, o);
+        s2y += __shfl_xor_sync(0xffffffffu, s2y, o);
+      }
+      if (g == 0) {
+        part[warp * BN + col] = make_float2(s1x, s2x);
+        part[warp * BN + col + 1] = make_float2(s1y, s2y);
+      }
+    }
+  }
+  if (p.stats) {
+    asm volatile("bar.sync 1, %0;\n" ::"n"(V_CONSUMERS) : "memory");
+    float* st = p.stats + ((long long)b * gridDim.y + tile) * 2 * p.Co;
+    for (int col = tid; col < BN; col += V_CONSUMERS) {
+      const int n = n0 + col;
+      if (n >= p.Co) continue;
+      float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+      for (int w = 0; w < V_CONSUMERS / 32; ++w) {
+        const float2 v = part[w * BN + col];
+        s1 += v.x;
+        s2 += v.y;
+      }
+      st[n] = s1;
+      st[p.Co + n] = s2;
+    }
+  }
+}
+
+// ---- host side
+
+// the NHWC map [B][H][W][C] as a 4-D tensor map read in boxes of 64
+// channels x bw pixels x bh rows x 1 image
+cudaError_t make_map_nhwc(CUtensorMap* map, const void* ptr, int B, int H, int W, int C, int bw) {
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
+                                 (cuuint64_t)H * W * C * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)V_BK, (cuuint32_t)bw, (cuuint32_t)(V_BM / bw), 1};
+  return make_map(map, ptr, 4, dims, strides, box);
+}
+
+template <int BN, bool PRO>
+cudaError_t launch_conv_sm90(const CUtensorMap& mx, const CUtensorMap& mx2, const CUtensorMap& mw,
+                             const ConvSm90& p, int B, int tiles, int smem, cudaStream_t stream) {
+  if (smem != smem_needed<BN>(p.stages, p.C1 + p.C2, PRO) || smem > V_MAX_SMEM)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(conv_sm90_kernel<BN, PRO>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((p.Co + BN - 1) / BN, tiles, B);
+  conv_sm90_kernel<BN, PRO><<<grid, V_NT, smem, stream>>>(mx, mx2, mw, p);
+  return cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace sdk
+
+// y [B][H][W][Co] = conv3x3(silu(prologue([x, x2]))) + bias [+ res], bf16,
+// zero padding 1 after the prologue. x [B][H][W][C1]; x2 [B][H][W][C2] or
+// null (C2 = 0); w [3][3][C1 + C2][Co] (HWIO); bias [Co] bf16 or null;
+// scale/shift [B][ld_s] (C1 used) and scale2/shift2 [B][ld_s2] (C2 used)
+// f32, or all null (no prologue, and no SiLU); silu must be 1 with a
+// prologue (the affine alone takes the WMMA kernel); res like y, or null;
+// stats [B][row tiles][2][Co] f32 or null, row tiles = ceil(H / bh)·(W /
+// bw). The plan from Python: bn output channels a tile (128, 256 or 320),
+// bw pixels of a row a box (min(W, 128), bh = 128 / bw rows), `stages`,
+// smem_bytes.
+extern "C" int sdk_conv3x3_sm90(const void* x, const void* x2, const void* w, const void* bias,
+                                const float* scale, const float* shift, long long ld_s,
+                                const float* scale2, const float* shift2, long long ld_s2,
+                                int silu, const void* res, void* out,
+                                float* stats, int B, int H, int W, int C1, int C2, int Co, int bn,
+                                int bw, int stages, int smem_bytes, void* stream) {
+  using namespace sdk;
+  const void* ptrs[] = {x, x2, w, res, out};
+  for (const void* q : ptrs)
+    if (q && !sm90::aligned16(q)) return (int)cudaErrorInvalidValue;
+  const bool pro = scale != nullptr;
+  if (B <= 0 || H <= 0 || W <= 0 || C1 <= 0 || C1 % V_BK || C2 < 0 || C2 % V_BK || Co <= 0 ||
+      Co % 8 || reinterpret_cast<uintptr_t>(bias) % 4 || stages < 2 ||
+      bw != (W < V_BM ? W : V_BM) || V_BM % bw || W % bw || (x2 != nullptr) != (C2 > 0) ||
+      (shift != nullptr) != pro || (pro && (ld_s < C1 || !silu)) ||
+      (C2 > 0 && ((scale2 != nullptr) != pro || (shift2 != nullptr) != pro || (pro && ld_s2 < C2))))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap mx, mx2, mw;
+  cudaError_t err = make_map_nhwc(&mx, x, B, H, W, C1, bw);
+  if (err == cudaSuccess && x2) err = make_map_nhwc(&mx2, x2, B, H, W, C2, bw);
+  if (err == cudaSuccess)
+    err = sm90::make_map_2d(&mw, w, Co, 9LL * (C1 + C2), Co, V_BOX, V_BK);
+  if (err != cudaSuccess) return (int)err;
+  if (!x2) mx2 = mx;  // never read
+  ConvSm90 p{static_cast<const bf16*>(bias), scale, shift, scale2, shift2, ld_s, ld_s2,
+             static_cast<const bf16*>(res), static_cast<bf16*>(out), stats,
+             H, W, C1, C2, Co, bw, stages};
+  const int tiles = (H + V_BM / bw - 1) / (V_BM / bw) * (W / bw);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto launch = [&](auto with_prologue) {
+    constexpr bool PRO = decltype(with_prologue)::value;
+    if (bn == 128) return launch_conv_sm90<128, PRO>(mx, mx2, mw, p, B, tiles, smem_bytes, s);
+    if (bn == 256) return launch_conv_sm90<256, PRO>(mx, mx2, mw, p, B, tiles, smem_bytes, s);
+    if (bn == 320) return launch_conv_sm90<320, PRO>(mx, mx2, mw, p, B, tiles, smem_bytes, s);
+    return cudaErrorInvalidValue;
+  };
+  return (int)(pro ? launch(std::true_type{}) : launch(std::false_type{}));
+}

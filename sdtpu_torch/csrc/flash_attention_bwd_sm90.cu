@@ -84,37 +84,9 @@ __host__ __device__ constexpr int dq_smem(int stages) {
   return 2 * tile_bytes<DP>(F_ROWS) + stages * 2 * tile_bytes<DP>(BT);
 }
 
-__device__ __forceinline__ void cp_async16_s(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-// cp.async.wait_group for a count known at run time (a larger count than
-// 3 waits for more groups than it must, never for fewer)
-__device__ __forceinline__ void cp_async_wait_dyn(int n) {
-  if (n <= 0) cp_async_wait<0>();
-  else if (n == 1) cp_async_wait<1>();
-  else if (n == 2) cp_async_wait<2>();
-  else cp_async_wait<3>();
-}
 __device__ __forceinline__ void cp_async4_s(uint32_t dst, const void* src, bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
                "r"(valid ? 4 : 0));
-}
-
-// rows [r0, r0 + n) of a [rows][d] slice (row stride ss) into a tile of
-// unswizzled core matrices: element (r, c) at (r / 8)·DP·16 + (c / 8)·128 +
-// (r % 8)·16 + (c % 8)·2 bytes. Columns d..DP and rows at or past `limit`
-// are zero-filled by the copy itself.
-template <int DP>
-__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, long long ss, int r0,
-                                          int n, int limit, int d) {
-  constexpr int CH = DP / 8;
-  for (int i = threadIdx.x; i < n * CH; i += F_NT) {
-    const int r = i / CH, c = i % CH, row = r0 + r;
-    const bool ok = row < limit && c * 8 < d;
-    cp_async16_s(dst + (r >> 3) * (DP * 16) + c * 128 + (r & 7) * 16,
-                 ok ? src + (long long)row * ss + c * 8 : src, ok);
-  }
 }
 
 // n floats from src[r0..] (zeros at or past limit)
@@ -218,14 +190,14 @@ __global__ void __launch_bounds__(F_NT, 1) sm90_dkdv_kernel(Sm90BwdArgs a) {
   auto load_stage = [&](int j) {
     const uint32_t st = s_ring + (j % stages) * STAGE;
     const int q0 = j * BT;
-    load_tile<DP>(st, Q, a.r_ss, q0, BT, a.sq, a.d);
-    load_tile<DP>(st + tile_bytes<DP>(BT), dO, a.r_ss, q0, BT, a.sq, a.d);
+    load_tile<DP, F_NT>(st, Q, a.r_ss, q0, BT, a.sq, a.d);
+    load_tile<DP, F_NT>(st + tile_bytes<DP>(BT), dO, a.r_ss, q0, BT, a.sq, a.d);
     load_rows_f32(st + 2 * tile_bytes<DP>(BT), lse, q0, BT, a.sq);
     load_rows_f32(st + 2 * tile_bytes<DP>(BT) + BT * 4, delta, q0, BT, a.sq);
   };
 
-  load_tile<DP>(s_k, a.k + coff, a.c_ss, k0, F_ROWS, a.sk, a.d);
-  load_tile<DP>(s_v, a.v + coff, a.c_ss, k0, F_ROWS, a.sk, a.d);
+  load_tile<DP, F_NT>(s_k, a.k + coff, a.c_ss, k0, F_ROWS, a.sk, a.d);
+  load_tile<DP, F_NT>(s_v, a.v + coff, a.c_ss, k0, F_ROWS, a.sk, a.d);
   for (int j = 0; j < stages - 1; ++j) {
     if (j < nq) load_stage(j);
     cp_async_commit();  // one group a stage, empty past the last tile
@@ -319,12 +291,12 @@ __global__ void __launch_bounds__(F_NT, 1) sm90_dq_kernel(Sm90BwdArgs a) {
 
   auto load_stage = [&](int j) {
     const uint32_t st = s_ring + (j % stages) * STAGE;
-    load_tile<DP>(st, K, a.c_ss, j * BT, BT, a.sk, a.d);
-    load_tile<DP>(st + tile_bytes<DP>(BT), V, a.c_ss, j * BT, BT, a.sk, a.d);
+    load_tile<DP, F_NT>(st, K, a.c_ss, j * BT, BT, a.sk, a.d);
+    load_tile<DP, F_NT>(st + tile_bytes<DP>(BT), V, a.c_ss, j * BT, BT, a.sk, a.d);
   };
 
-  load_tile<DP>(s_q, a.q + roff, a.r_ss, q0, F_ROWS, a.sq, a.d);
-  load_tile<DP>(s_do, a.dout + roff, a.r_ss, q0, F_ROWS, a.sq, a.d);
+  load_tile<DP, F_NT>(s_q, a.q + roff, a.r_ss, q0, F_ROWS, a.sq, a.d);
+  load_tile<DP, F_NT>(s_do, a.dout + roff, a.r_ss, q0, F_ROWS, a.sq, a.d);
   for (int j = 0; j < stages - 1; ++j) {
     if (j < nk) load_stage(j);
     cp_async_commit();

@@ -47,7 +47,7 @@
 // Python (sdtpu_torch/ops/fused_mlp.py:sm90_plan) and checked here against
 // the kernel's own layout. f32 inputs take the WMMA GEMM (csrc/gemm.cu): TF32
 // wgmma needs a K-major B, which [K, N] weights are not.
-#include <cuda.h>  // CUtensorMap and the types of cuTensorMapEncodeTiled (no -lcuda)
+#include <type_traits>
 
 #include "sm90.cuh"
 
@@ -128,8 +128,9 @@ __global__ void __launch_bounds__(256) row_stats_kernel(const bf16* x, long long
   if (lane == 0) stats[row] = make_float2(mean, rstd);
 }
 
-// NB: 64-column boxes of output per tile; GEGLU: as many gate boxes again
-template <int NB, bool GEGLU>
+// NB: 64-column boxes of output per tile; GEGLU: as many gate boxes again;
+// LN: the LayerNorm prologue
+template <int NB, bool GEGLU, bool LN>
 __global__ void __launch_bounds__(G_NT, 1)
     gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
                      const __grid_constant__ CUtensorMap map_w, const Sm90Gemm p) {
@@ -187,12 +188,11 @@ __global__ void __launch_bounds__(G_NT, 1)
   const int wg = warp / 4, wl = warp % 4;
   const int g = lane / 4, t = lane % 4;
   const int row_w = wg * 64 + wl * 16;  // this warp's first row in the tile
-  const bool ln = p.gamma != nullptr;
   // x̂ = x·rs − mu·rs for rows g and g + 8
   float rs[2] = {1.f, 1.f}, nmr[2] = {0.f, 0.f};
   // (γ_k, γ_k+1) and (β_k, β_k+1) for even k
   __shared__ __nv_bfloat162 s_g[G_LN_MAX_K / 2], s_b[G_LN_MAX_K / 2];
-  if (ln) {
+  if constexpr (LN) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int m = m0 + row_w + g + 8 * h;
@@ -233,7 +233,7 @@ __global__ void __launch_bounds__(G_NT, 1)
     for (int ks = 0; ks < 4; ++ks) {
       const int chunk = ks * 2 + lchunk;
       ldmatrix_x4(af[ks], a_base + ((chunk ^ (lrow & 7)) << 4));
-      if (ln) {
+      if constexpr (LN) {
         // register j holds (row g + 8·(j & 1), columns c, c + 1) with
         // c = 16·ks + 2t + 8·(j >> 1)
         const int kp = (kb * G_BK + ks * 16 + 2 * t) / 2;
@@ -255,6 +255,7 @@ __global__ void __launch_bounds__(G_NT, 1)
   // issue K block kb's products (one commit group)
   auto issue = [&](uint32_t(&af)[4][4], int kb) {
     const unsigned char* st = smem + (kb % stages) * STAGE;
+    fence_regs<WB * 32>(&acc[0][0]);
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks)
@@ -263,6 +264,7 @@ __global__ void __launch_bounds__(G_NT, 1)
         wgmma_rs_n64(acc[b], af[ks],
                      desc_n_major_sw128(smem_u32(st + G_A_BYTES + b * G_W_BYTES) + ks * 2048));
     wgmma_commit();
+    fence_regs<WB * 32>(&acc[0][0]);
   };
   // K block kb's products have completed: its fragments stay allocated
   // until here (wgmma reads them asynchronously), and its stage is released
@@ -273,30 +275,34 @@ __global__ void __launch_bounds__(G_NT, 1)
 
   // two fragment sets: block kb + 1 is loaded, normalised and issued while
   // block kb's products are on the tensor cores, then block kb is waited for
-  // (wait_group 1)
+  // (wait_group 1). The steady state takes two blocks a trip with no branch
+  // between an issue and its wait, so that ptxas keeps the products in
+  // flight across the next block's prologue.
   uint32_t fa[4][4], fb[4][4];
   fence_regs<WB * 32>(&acc[0][0]);
   prepare(fa, 0);
   issue(fa, 0);
-  for (int kb = 0; kb < nk; kb += 2) {
-    if (kb + 1 < nk) {
-      prepare(fb, kb + 1);
-      issue(fb, kb + 1);
-      wgmma_wait<1>();
-    } else {
-      wgmma_wait<0>();
-    }
-    retire(fa, kb);
-    if (kb + 1 < nk) {
-      if (kb + 2 < nk) {
-        prepare(fa, kb + 2);
-        issue(fa, kb + 2);
-        wgmma_wait<1>();
-      } else {
-        wgmma_wait<0>();
-      }
-      retire(fb, kb + 1);
-    }
+  int kb = 1;
+  for (; kb + 1 < nk; kb += 2) {
+    prepare(fb, kb);
+    issue(fb, kb);
+    wgmma_wait<1>();
+    retire(fa, kb - 1);
+    prepare(fa, kb + 1);
+    issue(fa, kb + 1);
+    wgmma_wait<1>();
+    retire(fb, kb);
+  }
+  if (kb < nk) {
+    prepare(fb, kb);
+    issue(fb, kb);
+    wgmma_wait<1>();
+    retire(fa, kb - 1);
+    wgmma_wait<0>();
+    retire(fb, kb);
+  } else {
+    wgmma_wait<0>();
+    retire(fa, kb - 1);
   }
   fence_regs<WB * 32>(&acc[0][0]);
 
@@ -336,60 +342,18 @@ __global__ void __launch_bounds__(G_NT, 1)
 
 // ---- host side
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so that
-// the library links no -lcuda
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                       cudaEnableDefault, &q);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
-                                              &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiled)ptr;
-  }
-  return fn;
-}
-
-// a [outer][pitch] bf16 matrix, `inner` columns used, read in boxes of
-// box_inner x box_outer with the 128-byte swizzle
-cudaError_t make_map(CUtensorMap* map, const void* ptr, long long inner, long long outer,
-                     long long pitch, int box_inner, int box_outer) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  const cuuint64_t strides[1] = {(cuuint64_t)pitch * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
-  const cuuint32_t elem[2] = {1, 1};
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
-                  strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-template <int NB, bool GEGLU>
+template <int NB, bool GEGLU, bool LN>
 cudaError_t launch_sm90(const CUtensorMap& ma, const CUtensorMap& mw, const Sm90Gemm& p,
                         int smem, cudaStream_t stream) {
   if (smem != smem_needed<NB * (GEGLU ? 2 : 1)>(p.stages) || smem > G_MAX_SMEM)
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(gemm_sm90_kernel<NB, GEGLU>,
+  cudaError_t err = cudaFuncSetAttribute(gemm_sm90_kernel<NB, GEGLU, LN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((p.N + NB * G_BOX - 1) / (NB * G_BOX), (p.M + G_BM - 1) / G_BM);
-  gemm_sm90_kernel<NB, GEGLU><<<grid, G_NT, smem, stream>>>(ma, mw, p);
+  gemm_sm90_kernel<NB, GEGLU, LN><<<grid, G_NT, smem, stream>>>(ma, mw, p);
   return cudaGetLastError();
 }
-
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
 }  // namespace sdk
@@ -398,7 +362,7 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 // columns, into stats [M][2] f32
 extern "C" int sdk_row_stats(const void* x, long long ldx, float* stats, int M, int K,
                              float eps, void* stream) {
-  if (K <= 0 || K % 8 || ldx % 8 || !sdk::aligned16(x)) return (int)cudaErrorInvalidValue;
+  if (K <= 0 || K % 8 || ldx % 8 || !sdk::sm90::aligned16(x)) return (int)cudaErrorInvalidValue;
   sdk::row_stats_kernel<<<(M + 7) / 8, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x), ldx, reinterpret_cast<float2*>(stats), M, K, eps);
   return (int)cudaGetLastError();
@@ -422,7 +386,7 @@ extern "C" int sdk_gemm_sm90(const void* a, long long lda, const void* w, long l
     if (v % 8) return (int)cudaErrorInvalidValue;
   const void* ptrs[] = {a, w, out, res};
   for (const void* q : ptrs)
-    if (q && !aligned16(q)) return (int)cudaErrorInvalidValue;
+    if (q && !sm90::aligned16(q)) return (int)cudaErrorInvalidValue;
   const void* pairs[] = {bias, gamma, beta};  // read as bf16 pairs
   for (const void* q : pairs)
     if (reinterpret_cast<uintptr_t>(q) % 4) return (int)cudaErrorInvalidValue;
@@ -431,16 +395,20 @@ extern "C" int sdk_gemm_sm90(const void* a, long long lda, const void* w, long l
       (gamma != nullptr && K > G_LN_MAX_K))
     return (int)cudaErrorInvalidValue;
   CUtensorMap ma, mw;
-  cudaError_t err = make_map(&ma, a, K, M, lda, G_BK, G_BM);
-  if (err == cudaSuccess) err = make_map(&mw, w, ldw, K, ldw, G_BOX, G_BK);
+  cudaError_t err = sm90::make_map_2d(&ma, a, K, M, lda, G_BK, G_BM);
+  if (err == cudaSuccess) err = sm90::make_map_2d(&mw, w, ldw, K, ldw, G_BOX, G_BK);
   if (err != cudaSuccess) return (int)err;
   Sm90Gemm p{static_cast<const bf16*>(bias), static_cast<const bf16*>(gamma),
              static_cast<const bf16*>(beta), reinterpret_cast<const float2*>(stats),
              static_cast<const bf16*>(res), ldr, static_cast<bf16*>(out), ldo,
              M, N, K, geglu_off, stages};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (geglu_off > 0 && bn == 128) return (int)launch_sm90<2, true>(ma, mw, p, smem_bytes, s);
-  if (geglu_off == 0 && bn == 128) return (int)launch_sm90<2, false>(ma, mw, p, smem_bytes, s);
-  if (geglu_off == 0 && bn == 64) return (int)launch_sm90<1, false>(ma, mw, p, smem_bytes, s);
-  return (int)cudaErrorInvalidValue;
+  auto launch = [&](auto with_ln) {
+    constexpr bool LN = decltype(with_ln)::value;
+    if (geglu_off > 0 && bn == 128) return launch_sm90<2, true, LN>(ma, mw, p, smem_bytes, s);
+    if (geglu_off == 0 && bn == 128) return launch_sm90<2, false, LN>(ma, mw, p, smem_bytes, s);
+    if (geglu_off == 0 && bn == 64) return launch_sm90<1, false, LN>(ma, mw, p, smem_bytes, s);
+    return cudaErrorInvalidValue;
+  };
+  return (int)(gamma ? launch(std::true_type{}) : launch(std::false_type{}));
 }

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels
-// (gemm_sm90.cu, flash_attention_bwd_sm90.cu): mbarriers, the TMA tile
-// load, ldmatrix, shared-memory matrix descriptors and the warpgroup
-// matrix-multiply instructions (wgmma.mma_async) in the shapes those
-// kernels issue. wgmma exists only for sm_90a.
+// (gemm_sm90.cu, conv_sm90.cu, attention_sm90.cu,
+// flash_attention_bwd_sm90.cu): mbarriers, the TMA tile loads and the host
+// side of their tensor maps, ldmatrix, shared-memory matrix descriptors and
+// the warpgroup matrix-multiply instructions (wgmma.mma_async) in the shapes
+// those kernels issue. wgmma exists only for sm_90a.
 //
 // Descriptors follow the PTX ISA's canonical layouts (in elements; T = 8
 // bf16 values = 16 bytes; LBO and SBO in bytes):
@@ -12,6 +13,7 @@
 // An unswizzled "core matrix" is 8 rows of 16 contiguous bytes (128 bytes).
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and the types of cuTensorMapEncodeTiled (no -lcuda)
 #include <stdint.h>
 
 #include "common.cuh"
@@ -70,6 +72,48 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const void* map, uint64_t
       : "memory");
 }
 
+// one 4-D box (c0 innermost, then c1, c2, c3); coordinates may be negative
+// or past the map's end, and TMA fills those elements with zeros
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* map, uint64_t* bar, int c0,
+                                            int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// ---- cp.async of 16 bytes into shared memory, zero-filled when !valid
+__device__ __forceinline__ void cp_async16_s(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+// cp.async.wait_group for a count known at run time (a larger count than
+// 3 waits for more groups than it must, never for fewer)
+__device__ __forceinline__ void cp_async_wait_dyn(int n) {
+  if (n <= 0) cp_async_wait<0>();
+  else if (n == 1) cp_async_wait<1>();
+  else if (n == 2) cp_async_wait<2>();
+  else cp_async_wait<3>();
+}
+// rows [r0, r0 + n) of a [rows][d] bf16 slice (row stride ss) into a tile
+// of unswizzled core matrices, by the NT threads of the block: element
+// (r, c) at (r / 8)·DP·16 + (c / 8)·128 + (r % 8)·16 + (c % 8)·2 bytes.
+// Columns d..DP and rows at or past `limit` are zero-filled by the copy
+// itself, which never reads past column d (the next head's columns).
+template <int DP, int NT>
+__device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src, long long ss,
+                                          int r0, int n, int limit, int d) {
+  constexpr int CH = DP / 8;
+  for (int i = threadIdx.x; i < n * CH; i += NT) {
+    const int r = i / CH, c = i % CH, row = r0 + r;
+    const bool ok = row < limit && c * 8 < d;
+    cp_async16_s(dst + (r >> 3) * (DP * 16) + c * 128 + (r & 7) * 16,
+                 ok ? src + (long long)row * ss + c * 8 : src, ok);
+  }
+}
+
 // ---- four 8x8 b16 matrices from shared memory (lane l gives the row
 // address of matrix l / 8, row l % 8)
 __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t addr) {
@@ -111,6 +155,11 @@ __device__ __forceinline__ uint64_t desc_n_major(uint32_t addr, uint32_t k_strid
 // one atom, so the atom stride (LBO) is never read.
 __device__ __forceinline__ uint64_t desc_n_major_sw128(uint32_t addr) {
   return make_desc(addr, 1024, 1024, kSwizzle128B);
+}
+// the same over several 64-column atoms (TMA boxes) atom_stride bytes
+// apart, for instructions wider than 64 columns
+__device__ __forceinline__ uint64_t desc_n_major_sw128_atoms(uint32_t addr, uint32_t atom_stride) {
+  return make_desc(addr, atom_stride, 1024, kSwizzle128B);
 }
 
 // ---- register reallocation between warpgroups (all 128 threads of the
@@ -210,6 +259,52 @@ __device__ __forceinline__ void wgmma_rs_n160(float* d, const uint32_t* a, uint6
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d[0..64) += A (4 registers of bf16 pairs) · B (descriptor, N-major), m64n128k16
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[0..128) += A (4 registers of bf16 pairs) · B (descriptor, N-major), m64n256k16
+__device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 // d[0..16) += A (descriptor) · B (descriptor), both K-major, m64n32k16
 __device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t a, uint64_t b) {
   asm volatile(
@@ -235,6 +330,59 @@ __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t a, uint64_t b) {
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(1));
 }
+
+// ---- host side: bf16 tensor maps read with the 128-byte swizzle
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so that
+// the library links no -lcuda
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                       cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
+                                              &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiled)ptr;
+  }
+  return fn;
+}
+
+// a bf16 tensor of `rank` dimensions (dims[0] innermost and contiguous,
+// strides[i] the byte stride of dimension i + 1), read in boxes of box[]
+// with the 128-byte swizzle (box[0] = 64 elements = 128 bytes) and zeros
+// for elements outside it
+inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
+                            const cuuint64_t* strides, const cuuint32_t* box) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims,
+                  strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// a [outer][pitch] bf16 matrix, `inner` columns used, in boxes of
+// box_inner x box_outer
+inline cudaError_t make_map_2d(CUtensorMap* map, const void* ptr, long long inner,
+                               long long outer, long long pitch, int box_inner, int box_outer) {
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)pitch * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
+  return make_map(map, ptr, 2, dims, strides, box);
+}
+
+inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace sm90
 }  // namespace sdk

@@ -33,9 +33,10 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinf
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# dynamic shared memory a block can take on the H100 (the Hopper kernels'
-# tile plans stay within it)
+# dynamic shared memory a block can take on the H100, and its SMs (the
+# Hopper kernels' tile plans stay within the one and fill the other)
 SMEM_LIMIT = 232448
+SM_COUNT = 132
 
 # prologue codes of sdk_gemm (csrc/gemm.cu)
 PRO_NONE, PRO_LAYERNORM, PRO_AFFINE, PRO_AFFINE_SILU = 0, 1, 2, 3
@@ -56,6 +57,8 @@ _SIGNATURES = {
                             _P],
     "sdk_flash_attention_bwd": [_I, *[_P] * 10, *[_LL] * 6, _I, _I, _I, _I, _I, _F, _P],
     "sdk_flash_attention_bwd_sm90": [*[_P] * 10, *[_LL] * 6, *[_I] * 5, _F, *[_I] * 5, _P],
+    "sdk_conv3x3_sm90": [*[_P] * 6, _LL, _P, _P, _LL, _I, _P, _P, _P, *[_I] * 10, _P],
+    "sdk_attention_sm90": [*[_P] * 4, *[_LL] * 9, *[_I] * 5, _F, *[_I] * 4, _P],
     "sdk_channel_partials": [_I, _P, _P, _I, _I, _I, _I, _P],
     "sdk_error_string": [_I],
 }

@@ -2,12 +2,16 @@
 of sdtpu/ops/fused_conv.py): K4 conv1x1_fused, K6 conv3x3_fused, K7
 upsample2x_conv_fused, and their glue gn_scale_bias / stats_scale_bias.
 
-All three run on the shared GEMM of csrc/gemm.cu, K6 and K7 as an implicit
-GEMM over the NHWC map. The design applies the GroupNorm affine (+SiLU) to
-the A tile while it is staged in shared memory, and the bias, residual and
-optional per-channel output statistics to the f32 accumulator, so neither
-the normalised map nor the pre-residual output reaches HBM, and the next
-GroupNorm's statistics cost no read of the map.
+K4 and K7, and K6 in f32, run on the shared WMMA GEMM of csrc/gemm.cu, K6
+and K7 as an implicit GEMM over the NHWC map. K6 in bf16 runs its own
+Hopper kernel, csrc/conv_sm90.cu: an implicit GEMM whose A boxes are TMA
+loads of a 4-D tensor map over the map (zeros outside it), multiplied by
+wgmma; its tile plan is sm90_plan. The design applies the GroupNorm affine
+(+SiLU) to the A tile on its way to the tensor cores (in shared memory on
+the WMMA kernel, in registers on the Hopper one), and the bias, residual
+and optional per-channel output statistics to the f32 accumulator, so
+neither the normalised map nor the pre-residual output reaches HBM, and
+the next GroupNorm's statistics cost no read of the map.
 
 - K4 replaces the Pallas `_mm_kernel` (sdtpu/ops/fused_conv.py:406, called
   at :473). At the UNet's proj_in/proj_out (4096 rows x 320 x 320 per
@@ -15,11 +19,16 @@ GroupNorm's statistics cost no read of the map.
 - K6 replaces `_kernel` / `_conv_part` (sdtpu/ops/fused_conv.py:96/44,
   called at :232): the VAE decoder's ResnetBlock convs, 64x64x512 up to
   1024x1024x128, and the UNet's fused ResBlock at 128x128 latents, 2·9·C·Co
-  flops per pixel — compute-bound. No halo tensor: each A vector computes
-  its own shifted source pixel, zero outside. Its second input x2 (the UNet
-  up path's skip) is a second source pointer for the channels past x's, so
-  the channel concat never reaches HBM and the concat's weight is used as
-  it is.
+  flops per pixel — compute-bound. No halo tensor: the WMMA kernel's A
+  vectors compute their own shifted source pixel, the Hopper kernel's TMA
+  boxes are read at the shifted coordinates, zero outside. Its second input
+  x2 (the UNet up path's skip) is a second source (pointer, or tensor map)
+  for the channels past x's, so the channel concat never reaches HBM and
+  the concat's weight is used as it is. Routes: bf16 takes csrc/conv_sm90.cu
+  where sm90_plan has a tile for the shape (C and C2 multiples of 64, W a
+  multiple or a divisor of 128: every main-path shape) and the prologue, if
+  any, ends in SiLU (as every main-path one does); f32 and the other shapes
+  the WMMA kernel; each launch is counted under its route.
 - K7 replaces `_up_kernel` (sdtpu/ops/fused_conv.py:276, called at :372):
   conv3x3(nearest2x(x)) as four output phases of 2x2 taps at the input's
   resolution (2.25x fewer flops than the 3x3 over the upsampled map), each
@@ -30,6 +39,8 @@ no counterpart.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -146,6 +157,63 @@ def conv3x3_fused_plain(x, w, conv_bias, prologue_scale=None, prologue_bias=None
     return (y, _stats(acc)) if emit_stats else y
 
 
+# csrc/conv_sm90.cu: 128-pixel tiles (two consumer warpgroups of 64), 64
+# deep in K (one tap, 64 channels of x or of x2), the weight in TMA boxes of
+# 64 output channels
+SM90_CONV_BM, SM90_CONV_BK, SM90_CONV_BOX = 128, 64, 64
+SM90_CONV_MAX_STAGES = 4
+SM90_CONV_WIDE = (320, 256)  # the tiles wider than 128 channels, widest first
+
+
+class ConvPlan(NamedTuple):
+    """One launch of csrc/conv_sm90.cu: bn output channels a tile (128, 256
+    or 320), the A box of bw pixels of a row by bh rows (bw·bh = 128), the
+    ring's stages, the dynamic shared memory, and the grid (channel tiles,
+    pixel tiles an image, images)."""
+    bn: int
+    bw: int
+    bh: int
+    stages: int
+    smem: int
+    grid: tuple
+
+
+def sm90_plan(b: int, h: int, w: int, c1: int, c2: int, co: int, prologue: bool,
+              bn: int | None = None, stages: int | None = None) -> ConvPlan | None:
+    """The Hopper kernel's plan for a 3x3 conv of [b, h, w, c1 (+ c2)] to co
+    channels, or None where it has no tile for the shape (the WMMA kernel
+    takes it): c1 and c2 must be multiples of 64, so that a 64-deep K block
+    never straddles a tap or the x/x2 boundary, co a multiple of 8, and w a
+    multiple or a divisor of 128, so that a box of bw = min(w, 128) pixels by
+    128 / bw rows covers the 128-pixel tile exactly. Tiles are the widest of
+    320 and 256 channels that co divides into while the grid still has a CTA
+    for every SM, else 128; bn and stages, when given, override the choice
+    (for timing one plan against another)."""
+    if (b <= 0 or h <= 0 or w <= 0 or c1 <= 0 or c1 % SM90_CONV_BK or c2 < 0
+            or c2 % SM90_CONV_BK or co <= 0 or co % 8 or (w % SM90_CONV_BM
+                                                         and SM90_CONV_BM % w)):
+        return None
+    bw = min(w, SM90_CONV_BM)
+    bh = SM90_CONV_BM // bw
+    tiles = -(-h // bh) * (w // bw)
+    if bn is None:
+        bn = next((n for n in SM90_CONV_WIDE
+                   if co % n == 0 and b * tiles * (co // n) >= kernels.SM_COUNT), 128)
+    if bn not in (128, *SM90_CONV_WIDE):
+        raise ValueError(f"csrc/conv_sm90.cu has tiles of 128, 256 or 320 channels, not {bn}")
+    stage = (SM90_CONV_BM + bn) * SM90_CONV_BK * 2  # the A box and bn / 64 weight boxes
+    # 1024 bytes to align the ring to the 128-byte swizzle's repeat; a full
+    # and an empty mbarrier (8 bytes each) a stage; an f32 (scale, shift)
+    # pair per input channel with a prologue
+    table = 8 * (c1 + c2) if prologue else 0
+    most = min(SM90_CONV_MAX_STAGES, (kernels.SMEM_LIMIT - 1024 - table) // (stage + 16))
+    stages = most if stages is None else stages
+    if not 2 <= stages <= most:
+        return None
+    return ConvPlan(bn, bw, bh, stages, 1024 + stages * (stage + 16) + table,
+                    (-(-co // bn), tiles, b))
+
+
 def conv3x3_fused(x, w, conv_bias, prologue_scale=None, prologue_bias=None,
                   residual=None, silu: bool = True, emit_stats: bool = False,
                   x2=None, prologue_scale2=None, prologue_bias2=None):
@@ -159,7 +227,27 @@ def conv3x3_fused(x, w, conv_bias, prologue_scale=None, prologue_bias=None,
     [x, x2] with w [3, 3, C + C2, Co], and prologue_scale2/bias2 [B, C2] are
     the x2 slice of the folded GroupNorm. Returns y, or (y, stats [B, 2, Co]
     = per-channel (sum, sum^2) of the f32 y). CPU tensors take the plain
-    version; CUDA tensors the kernel."""
+    version; CUDA tensors the kernel (bf16: csrc/conv_sm90.cu where its plan
+    has a tile for the shape; f32 and other shapes: csrc/gemm.cu)."""
+    return _conv3x3(x, w, conv_bias, prologue_scale, prologue_bias, residual, silu,
+                    emit_stats, x2, prologue_scale2, prologue_bias2, "auto")
+
+
+def _tables(scale, shift):
+    """(scale, shift, row pitch) of a pair of [B, C] f32 prologue tables:
+    views with a unit column stride and one row pitch (the UNet's
+    s1[:, :c1], o1[:, :c1]) are read as they are."""
+    scale, shift = scale.float(), shift.float()
+    if scale.stride() != shift.stride() or scale.stride(-1) != 1:
+        scale, shift = scale.contiguous(), shift.contiguous()
+    return scale, shift, scale.stride(0)
+
+
+def _conv3x3(x, w, conv_bias, prologue_scale, prologue_bias, residual, silu, emit_stats,
+             x2, prologue_scale2, prologue_bias2, route: str):
+    """conv3x3_fused on the given route: "auto" (by dtype and plan), "wmma"
+    (csrc/gemm.cu whatever the dtype), or a ConvPlan for csrc/conv_sm90.cu
+    (bf16): the last two for timing kernels and plans against each other."""
     if x2 is not None and (prologue_scale is None) != (prologue_scale2 is None):
         raise ValueError("with x2, a prologue applies to both inputs or to neither")
     if kernels.on_cpu(x, w, conv_bias, prologue_scale, prologue_bias, residual, x2,
@@ -177,25 +265,52 @@ def conv3x3_fused(x, w, conv_bias, prologue_scale=None, prologue_bias=None,
     if x2 is not None and tuple(x2.shape[:3]) != (b, h, wd):
         raise ValueError(f"x2 {tuple(x2.shape)} does not fit x {tuple(x.shape)}")
     dt = x.dtype
+    plan = route if isinstance(route, ConvPlan) else None
+    if dt == torch.bfloat16 and route == "auto" and (prologue_scale is None or silu):
+        plan = sm90_plan(b, h, wd, c, c2, co, prologue_scale is not None)
     x = x.contiguous()
-    if x2 is not None:
-        x2 = x2.to(dt).contiguous()
-        if prologue_scale is not None:
-            prologue_scale = torch.cat([prologue_scale.float(), prologue_scale2.float()], dim=-1)
-            prologue_bias = torch.cat([prologue_bias.float(), prologue_bias2.float()], dim=-1)
-    prologue, ps, pb = _prologue(prologue_scale, prologue_bias, silu, b, c + c2)
+    x2 = None if x2 is None else x2.to(dt).contiguous()
     res = None if residual is None else residual.to(dt).contiguous()
     out = torch.empty((b, h, wd, co), dtype=dt, device=x.device)
     stats = None
     with torch.cuda.device(x.device):
-        if emit_stats:
-            stats = torch.empty((b, kernels.gemm_row_tiles(h * wd), 2, co),
-                                dtype=torch.float32, device=x.device)
-        kernels.conv(x, w.to(dt).contiguous(), out, C=c, H=h, W=wd, N=co, batch=b,
-                     kw=3, nphase=1, up=1, bias=conv_bias.float().contiguous(),
-                     res=res, pa=ps, pb=pb, prologue=prologue, stats=stats, x2=x2, C2=c2)
+        if plan is not None:
+            # weights, bias and the prologue's tables are read as they are
+            # (.to and .contiguous return the tensors themselves when they
+            # already are): no copy a call
+            tabs, lds = [None] * 4, [0, 0]
+            if prologue_scale is not None:
+                tabs[0], tabs[1], lds[0] = _tables(prologue_scale, prologue_bias)
+                if x2 is not None:
+                    tabs[2], tabs[3], lds[1] = _tables(prologue_scale2, prologue_bias2)
+            if emit_stats:
+                stats = torch.empty((b, plan.grid[1], 2, co), dtype=torch.float32,
+                                    device=x.device)
+            rc = kernels.lib().sdk_conv3x3_sm90(
+                x.data_ptr(), kernels.ptr(x2), w.to(dt).contiguous().data_ptr(),
+                conv_bias.to(dt).contiguous().data_ptr(), kernels.ptr(tabs[0]),
+                kernels.ptr(tabs[1]), lds[0], kernels.ptr(tabs[2]), kernels.ptr(tabs[3]),
+                lds[1], int(silu), kernels.ptr(res), out.data_ptr(), kernels.ptr(stats),
+                b, h, wd, c, c2, co, plan.bn, plan.bw, plan.stages, plan.smem,
+                kernels.stream(x))
+            kernels.check(rc, "sdk_conv3x3_sm90")
+            prologue = kernels.PRO_NONE if prologue_scale is None else (
+                kernels.PRO_AFFINE_SILU if silu else kernels.PRO_AFFINE)
+        else:
+            pscale, pbias = prologue_scale, prologue_bias
+            if x2 is not None and pscale is not None:
+                pscale = torch.cat([pscale.float(), prologue_scale2.float()], dim=-1)
+                pbias = torch.cat([pbias.float(), prologue_bias2.float()], dim=-1)
+            prologue, ps, pb = _prologue(pscale, pbias, silu, b, c + c2)
+            if emit_stats:
+                stats = torch.empty((b, kernels.gemm_row_tiles(h * wd), 2, co),
+                                    dtype=torch.float32, device=x.device)
+            kernels.conv(x, w.to(dt).contiguous(), out, C=c, H=h, W=wd, N=co, batch=b,
+                         kw=3, nphase=1, up=1, bias=conv_bias.float().contiguous(),
+                         res=res, pa=ps, pb=pb, prologue=prologue, stats=stats, x2=x2, C2=c2)
     kernels.count(conv3x3_fused, b=b, h=h, w=wd, c=c, c2=c2, co=co, prologue=prologue,
-                  residual=res is not None, stats=emit_stats)
+                  residual=res is not None, stats=emit_stats,
+                  route="wmma" if plan is None else "sm90")
     conv3x3_fused.launches_x2 += x2 is not None
     return (out, stats.sum(dim=1)) if emit_stats else out
 

@@ -36,7 +36,6 @@ from sdtpu_torch.ops.groupnorm import layer_norm
 # csrc/gemm_sm90.cu: 128-row tiles (two consumer warpgroups of 64 rows), 64
 # deep in K (four wgmma K steps of 16), W in TMA boxes of 64 columns
 SM90_BM, SM90_BK, SM90_BOX, SM90_WGMMA_K = 128, 64, 64, 16
-SM_COUNT = 132
 MAX_STAGES = 4
 SM90_LN_MAX_K = 2048  # the LayerNorm's γ and β staged in shared memory
 
@@ -52,21 +51,23 @@ class Sm90Plan(NamedTuple):
     grid: tuple
 
 
-def sm90_plan(m: int, n: int, k: int, geglu: bool) -> Sm90Plan:
-    """The tile plan of one bf16 product [m, k]·[k, n(·2 with GEGLU)];
-    the GEGLU product carries the LayerNorm prologue. GEGLU tiles are 128
-    columns wide; other products take 64 where 128-column tiles would not
-    give half the card's SMs a tile (measured on the H100: at M=2048 N=640
-    K=2560, 128 columns take 0.026 ms and 64 0.042; at M=512 N=1280,
-    0.043 and 0.038). Raises on a shape the kernel does not take."""
+def sm90_plan(m: int, n: int, k: int, geglu: bool, ln: bool | None = None) -> Sm90Plan:
+    """The tile plan of one bf16 product [m, k]·[k, n(·2 with GEGLU)] with
+    the LayerNorm prologue when ln (by default: the GEGLU product carries
+    it). GEGLU tiles are 128 columns wide; other products take 64 where
+    128-column tiles would not give half the card's SMs a tile (measured on
+    the H100: at M=2048 N=640 K=2560, 128 columns take 0.026 ms and 64
+    0.042; at M=512 N=1280, 0.043 and 0.038). Raises on a shape the kernel
+    does not take."""
+    ln = geglu if ln is None else ln
     if m <= 0 or n <= 0 or k <= 0 or n % 8 or k % 8:
         raise ValueError(f"sdk_gemm_sm90 takes positive n and k that are multiples of 8, "
                          f"got m={m} n={n} k={k}")
-    if geglu and k > SM90_LN_MAX_K:
+    if ln and k > SM90_LN_MAX_K:
         raise ValueError(f"sdk_gemm_sm90's LayerNorm prologue takes k <= {SM90_LN_MAX_K}, "
                          f"got k={k}")
     tiles_m = -(-m // SM90_BM)
-    bn = 128 if geglu or tiles_m * -(-n // 128) >= SM_COUNT // 2 else 64
+    bn = 128 if geglu or tiles_m * -(-n // 128) >= kernels.SM_COUNT // 2 else 64
     w_boxes = bn // SM90_BOX * (2 if geglu else 1)
     stage = SM90_BM * SM90_BK * 2 + w_boxes * SM90_BK * SM90_BOX * 2
     # 1024 bytes to align the ring to the 128-byte swizzle's repeat; a full

@@ -2,32 +2,96 @@
 LN(x)Wv) + bo (port of sdtpu/ops/fused_transformer.py:fused_self_attention).
 
 It replaces the Pallas `_kernel` (sdtpu/ops/fused_transformer.py:42, called
-at :145) with three launches of hand-written kernels:
+at :145) with three launches of hand-written kernels (four on the bf16
+route, whose LayerNorm takes its row statistics from a pre-pass):
 
-1. the shared GEMM (csrc/gemm.cu) with a LayerNorm prologue computes
-   LN(x)·[Wq | Wk | Wv] into one [B, S, 3C] buffer — LN(x) itself exists
-   only in shared memory; the concatenated weight is built once per model
-   (sdtpu_torch.models.unet.fuse_qkv), not on each call;
-2. csrc/attention.cu reads q, k, v per head straight from that buffer and
+1. a GEMM with a LayerNorm prologue computes LN(x)·[Wq | Wk | Wv] into one
+   [B, S, 3C] buffer — LN(x) itself never reaches HBM; the concatenated
+   weight is built once per model (sdtpu_torch.models.unet.fuse_qkv), not
+   on each call;
+2. the attention core reads q, k, v per head straight from that buffer and
    writes the heads merged as [B, S, C] — no split/merge transposes, no
    [S, S] score matrix in HBM;
-3. the shared GEMM computes o·Wo + bo + x, bias and residual in the f32
-   epilogue.
+3. a GEMM computes o·Wo + bo + x, bias and residual in the f32 epilogue.
+
+Routes, chosen by dtype and plan (sm90_plan): bf16 at the head widths the
+Hopper core has an instance for (padded to 48, 64, 80 or 160) takes
+csrc/gemm_sm90.cu for both products (K5's TMA-ring wgmma GEMM, its
+LayerNorm prologue and its bias and residual epilogue) and
+csrc/attention_sm90.cu for the core (wgmma, the online softmax in
+registers); f32 and other widths take the WMMA kernels, csrc/gemm.cu and
+csrc/attention.cu. Each launch is counted under its route.
 
 What bounds it on the H100: the attention core, 4·S²·C flops per image,
-compute-bound at every UNet level; see csrc/attention.cu.
+compute-bound at every UNet level; the projections, 8·S·C² flops.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from sdtpu_torch import kernels
+from sdtpu_torch.ops import fused_mlp
 from sdtpu_torch.ops.attention import qkv_attention_plain
 from sdtpu_torch.ops.conv import linear
 from sdtpu_torch.ops.groupnorm import layer_norm
 
 MAX_HEAD_DIM = 160  # shared-memory bound of csrc/attention.cu
+
+# csrc/attention_sm90.cu: 128 query rows a CTA (two consumer warpgroups of
+# 64), head widths padded to these (instances), key tiles of 64 rows; its
+# ring runs stages − 2 tiles ahead (tile j's V is read in step j + 1), so it
+# takes at least 3
+SM90_ATTN_ROWS = 128
+SM90_ATTN_DPADS = (48, 64, 80, 160)
+SM90_ATTN_TILE = 64
+SM90_ATTN_STAGES = 4
+
+
+class CorePlan(NamedTuple):
+    """One launch of csrc/attention_sm90.cu: the padded head width, the key
+    tiles' rows, the ring's stages and the dynamic shared memory."""
+    dpad: int
+    tile: int
+    stages: int
+    smem: int
+
+
+class Sm90Plan(NamedTuple):
+    """K2's bf16 route: the QKV product (LayerNorm prologue, N = 3C, no
+    bias), the core, and the Wo product (bias and residual)."""
+    qkv: fused_mlp.Sm90Plan
+    core: CorePlan
+    out: fused_mlp.Sm90Plan
+
+
+def core_sm90_plan(d: int) -> CorePlan | None:
+    """The Hopper core's plan for head width d, or None where it has no
+    instance: Q (128 rows) resident, and `stages` K and V tiles in the ring."""
+    if d <= 0 or d % 8:
+        return None
+    dpad = -(-d // 16) * 16
+    if dpad not in SM90_ATTN_DPADS:
+        return None
+    resident, stage = SM90_ATTN_ROWS * dpad * 2, 2 * SM90_ATTN_TILE * dpad * 2
+    stages = min(SM90_ATTN_STAGES, (kernels.SMEM_LIMIT - resident) // stage)
+    return CorePlan(dpad, SM90_ATTN_TILE, stages, resident + stages * stage)
+
+
+def sm90_plan(b: int, s: int, c: int, n_head: int) -> Sm90Plan | None:
+    """The bf16 route's plans for x [b, s, c] with n_head heads, or None
+    where the Hopper kernels have no tile for it (the WMMA route takes it):
+    a head width without a core instance, or a LayerNorm wider than the
+    GEMM's prologue takes."""
+    d = c // n_head
+    core = core_sm90_plan(d) if d * n_head == c else None
+    if core is None or c % 8 or c > fused_mlp.SM90_LN_MAX_K:
+        return None
+    m = b * s
+    return Sm90Plan(fused_mlp.sm90_plan(m, 3 * c, c, False, ln=True), core,
+                    fused_mlp.sm90_plan(m, c, c, False))
 
 
 def fused_self_attention_plain(x, ln_g, ln_b, wqkv, wo, bo,
@@ -39,13 +103,80 @@ def fused_self_attention_plain(x, ln_g, ln_b, wqkv, wo, bo,
     return x + linear({"w": wo, "b": bo}, o)
 
 
+def attention_core_sm90(qkv, out, n_head: int, plan: CorePlan) -> None:
+    """softmax(q kᵀ · d^-1/2) v of every head of the [B, S, 3C] buffer
+    (q | k | v) into out [B, S, C] (heads merged), on csrc/attention_sm90.cu.
+    The core reads each head through (batch, head, row) strides."""
+    b, s, c3 = qkv.shape
+    c = c3 // 3
+    d = c // n_head
+    rc = kernels.lib().sdk_attention_sm90(
+        qkv.data_ptr(), qkv[..., c:].data_ptr(), qkv[..., 2 * c:].data_ptr(), out.data_ptr(),
+        s * c3, d, c3, s * c3, d, c3, s * c, d, c, b * n_head, n_head, s, s, d,
+        float(d) ** -0.5, *plan, kernels.stream(qkv))
+    kernels.check(rc, "sdk_attention_sm90")
+
+
+def _attend_sm90(x, ln_g, ln_b, wqkv, wo, bo, n_head, eps, plan: Sm90Plan, out):
+    """The bf16 route. γ, β, the weights and bo are read in x's dtype
+    (.to and .contiguous return the tensors themselves when they already
+    are: no copy a call)."""
+    b, s, c = x.shape
+    dt = x.dtype
+    m = b * s
+    ln_g, ln_b, wqkv, wo, bo = (t.to(dt).contiguous() for t in (ln_g, ln_b, wqkv, wo, bo))
+    stats = torch.empty((m, 2), dtype=torch.float32, device=x.device)
+    qkv = torch.empty((b, s, 3 * c), dtype=dt, device=x.device)
+    attn = torch.empty((b, s, c), dtype=dt, device=x.device)
+    lib, st = kernels.lib(), kernels.stream(x)
+    p1, p2 = plan.qkv, plan.out
+    kernels.check(lib.sdk_row_stats(x.data_ptr(), c, stats.data_ptr(), m, c, eps, st),
+                  "sdk_row_stats")
+    kernels.check(lib.sdk_gemm_sm90(
+        x.data_ptr(), c, wqkv.data_ptr(), 3 * c, None, ln_g.data_ptr(), ln_b.data_ptr(),
+        stats.data_ptr(), None, 0, qkv.data_ptr(), 3 * c, m, 3 * c, c, 0,
+        p1.bn, p1.stages, p1.smem, st), "sdk_gemm_sm90 (LayerNorm, QKV)")
+    attention_core_sm90(qkv, attn, n_head, plan.core)
+    kernels.check(lib.sdk_gemm_sm90(
+        attn.data_ptr(), c, wo.data_ptr(), c, bo.data_ptr(), None, None, None, x.data_ptr(), c,
+        out.data_ptr(), c, m, c, c, 0, p2.bn, p2.stages, p2.smem, st), "sdk_gemm_sm90 (Wo)")
+
+
+def _attend_wmma(x, ln_g, ln_b, wqkv, wo, bo, n_head, eps, out):
+    """The f32 route (and the bf16 widths without a Hopper instance): the
+    WMMA GEMM (csrc/gemm.cu), which takes f32 LayerNorm parameters and
+    biases, and csrc/attention.cu."""
+    b, s, c = x.shape
+    dt = x.dtype
+    m = b * s
+    qkv = torch.empty((b, s, 3 * c), dtype=dt, device=x.device)
+    attn = torch.empty((b, s, c), dtype=dt, device=x.device)
+    kernels.gemm(x, wqkv.to(dt).contiguous(), qkv, M=m, N=3 * c, K=c, lda=c, ldw=3 * c,
+                 ldo=3 * c, pa=ln_g.float().contiguous(), pb=ln_b.float().contiguous(),
+                 prologue=kernels.PRO_LAYERNORM, eps=eps)
+    rc = kernels.lib().sdk_attention(
+        kernels.dtype_code(x), qkv.data_ptr(), attn.data_ptr(), b, s, c,
+        n_head, float(c // n_head) ** -0.5, kernels.stream(x))
+    kernels.check(rc, "sdk_attention")
+    kernels.gemm(attn, wo.to(dt).contiguous(), out, M=m, N=c, K=c, lda=c,
+                 ldw=c, ldo=c, bias=bo.float().contiguous(), res=x, ldr=c)
+
+
 def fused_self_attention(x, ln_g, ln_b, wqkv, wo, bo,
                          n_head: int, eps: float = 1e-5):
     """x: [B, S, C] -> x + out_proj(attn(LN(x))). wqkv: [C, 3C], sdtpu's
     wq | wk | wv side by side (no q/k/v bias; see
     sdtpu_torch.models.unet.fuse_qkv); wo: [C, C]; bo: [C]. Scores use
     d_head^-1/2, the same as the reference's dual d_head^-1/4. CPU tensors
-    take the plain version; CUDA tensors the kernels."""
+    take the plain version; CUDA tensors the kernels (see the module's
+    routes)."""
+    return _self_attention(x, ln_g, ln_b, wqkv, wo, bo, n_head, eps, "auto")
+
+
+def _self_attention(x, ln_g, ln_b, wqkv, wo, bo, n_head, eps, route: str):
+    """fused_self_attention on the given route: "auto" (by dtype and plan),
+    or "wmma" (csrc/gemm.cu and csrc/attention.cu whatever the dtype, for
+    timing the two routes against each other)."""
     if kernels.on_cpu(x, ln_g, ln_b, wqkv, wo, bo):
         return fused_self_attention_plain(x, ln_g, ln_b, wqkv, wo, bo, n_head, eps)
     kernels.refuse_autograd("fused_self_attention (K2)", x, ln_g, ln_b, wqkv, wo, bo)
@@ -54,25 +185,18 @@ def fused_self_attention(x, ln_g, ln_b, wqkv, wo, bo,
     if d_head * n_head != c or d_head > MAX_HEAD_DIM or d_head % 8:
         raise ValueError(f"C={c} with {n_head} heads: the kernel takes "
                          f"d_head = C / n_head <= {MAX_HEAD_DIM}, a multiple of 8")
-    dt = x.dtype
+    plan = None
+    if x.dtype == torch.bfloat16 and route == "auto":
+        plan = sm90_plan(b, s, c, n_head)
     x = x.contiguous()
-    m = b * s
-    wqkv = wqkv.to(dt).contiguous()
-    qkv = torch.empty((b, s, 3 * c), dtype=dt, device=x.device)
-    attn = torch.empty((b, s, c), dtype=dt, device=x.device)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        kernels.gemm(x, wqkv, qkv, M=m, N=3 * c, K=c, lda=c, ldw=3 * c,
-                     ldo=3 * c, pa=ln_g.float().contiguous(),
-                     pb=ln_b.float().contiguous(),
-                     prologue=kernels.PRO_LAYERNORM, eps=eps)
-        rc = kernels.lib().sdk_attention(
-            kernels.dtype_code(x), qkv.data_ptr(), attn.data_ptr(), b, s, c,
-            n_head, float(d_head) ** -0.5, kernels.stream(x))
-        kernels.check(rc, "sdk_attention")
-        kernels.gemm(attn, wo.to(dt).contiguous(), out, M=m, N=c, K=c, lda=c,
-                     ldw=c, ldo=c, bias=bo.float().contiguous(), res=x, ldr=c)
-    kernels.count(fused_self_attention, b=b, s=s, c=c, heads=n_head)
+        if plan is None:
+            _attend_wmma(x, ln_g, ln_b, wqkv, wo, bo, n_head, eps, out)
+        else:
+            _attend_sm90(x, ln_g, ln_b, wqkv, wo, bo, n_head, eps, plan, out)
+    kernels.count(fused_self_attention, b=b, s=s, c=c, heads=n_head,
+                  route="wmma" if plan is None else "sm90")
     return out
 
 

@@ -1,19 +1,28 @@
-"""Where the time of K5's and K9's Hopper kernels goes on one NVIDIA GPU.
+"""Where the time of the port's Hopper kernels goes on one NVIDIA GPU.
 
     python -m sdtpu_torch.profile_kernels [--out FILE]
 
-At the 512px main-path shapes, bf16, random inputs (seeded): K5 at S=1024
-C=640 B=2 and S=256 C=1280 B=2 (csrc/gemm_sm90.cu), K9 at BH=32 S=4096
-d=40 (csrc/flash_attention_bwd_sm90.cu). Device times are CUDA-graph
-replays (`device_ms`, also what chip_smoke.py times K5 and K9 by) or
-torch.profiler kernel sums:
+At main-path shapes, bf16, random inputs (seeded): K5 at S=1024 C=640 B=2
+and S=256 C=1280 B=2 (csrc/gemm_sm90.cu), K9 at BH=32 S=4096 d=40
+(csrc/flash_attention_bwd_sm90.cu), K6 at the UNet's 128² fused ResBlock
+(640 + 320 -> 320, B=2) and the VAE decoder's 512² and 64² convs
+(csrc/conv_sm90.cu), K2 at S=4096 C=320 B=2 and S=16384 C=320 B=2
+(csrc/gemm_sm90.cu and csrc/attention_sm90.cu). Device times are CUDA-graph
+replays (`device_ms`, also what chip_smoke.py times the Hopper kernels by)
+or torch.profiler kernel sums:
 
 1. each launch of the bf16 routes (torch.profiler): K5's row statistics
-   and its two GEMM launches, K9's Δ pre-pass, dK/dV and dQ kernels;
+   and its two GEMM launches, K9's Δ pre-pass, dK/dV and dQ kernels, K6's
+   conv (and the statistics' sum), K2's row statistics, QKV product, core
+   and Wo product;
 2. K5's first product with and without its LayerNorm prologue (the
    prologue's cost), its second product on 64- and 128-column tiles, and
-   cuBLAS's two matmuls of the same shapes;
-3. the depth of K5's ring: 2, 3 or 4 stages (the plan's choice is 4).
+   cuBLAS's two matmuls of the same shapes; K6 with and without its
+   prologue, on each tile width it has, the WMMA kernel it replaced, and
+   cuDNN's convolution of the same shape; K2's QKV product, core and Wo
+   product against cuBLAS's matmuls and SDPA of the same shapes;
+3. the depth of the rings: K5's 2, 3 or 4 stages (the plan's choice is 4),
+   K6's 2 to 4 and K2's core's 3 to 5 where they fit.
 
 The report starts with the card's name and power limit, and goes to
 stdout and, with --out, to FILE as well.
@@ -26,10 +35,13 @@ import math
 import subprocess
 
 import torch
+import torch.nn.functional as F
 
 from sdtpu_torch import kernels
 from sdtpu_torch.ops import flash_attention as fa
+from sdtpu_torch.ops import fused_conv as fc
 from sdtpu_torch.ops import fused_mlp as fm
+from sdtpu_torch.ops import fused_transformer as ft
 
 WARMUP, ITERS = 3, 20
 
@@ -87,7 +99,7 @@ def _gemm(a, w, out, m, n, k, plan, *, bias, gamma=None, beta=None, stats=None, 
           geglu_off=0):
     """One launch of sdk_gemm_sm90 with the given plan (a Sm90Plan)."""
     rc = kernels.lib().sdk_gemm_sm90(
-        a.data_ptr(), k, w.data_ptr(), w.shape[1], bias.data_ptr(), kernels.ptr(gamma),
+        a.data_ptr(), k, w.data_ptr(), w.shape[1], kernels.ptr(bias), kernels.ptr(gamma),
         kernels.ptr(beta), kernels.ptr(stats), kernels.ptr(res), n if res is not None else 0,
         out.data_ptr(), out.shape[1], m, n, k, geglu_off, plan.bn, plan.stages, plan.smem,
         kernels.stream(a))
@@ -151,6 +163,101 @@ def profile_k9(bh, s, d, n_head, log, gen):
         log(f"{label}: {name[:72]}: {ms:.4f} ms a call")
 
 
+def profile_k6(b, hw, c1, c2, co, log, gen):
+    dev, dt = torch.device("cuda"), torch.bfloat16
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dt)
+
+    ct = c1 + c2
+    x, x2 = rnd(b, hw, hw, c1), (rnd(b, hw, hw, c2) if c2 else None)
+    w, cb = rnd(3, 3, ct, co, scale=(9 * ct) ** -0.5), rnd(co, scale=0.1)
+    s = 1.0 + 0.1 * torch.randn(b, ct, generator=gen, device=dev)
+    o = 0.1 * torch.randn(b, ct, generator=gen, device=dev)
+    label = f"K6 {hw}x{hw} {c1}{f'+{c2}' if c2 else ''}->{co} B={b}"
+
+    def conv(route, prologue=True):
+        pro = (s[:, :c1], o[:, :c1]) if prologue else (None, None)
+        pro2 = (s[:, c1:], o[:, c1:]) if prologue and c2 else (None, None)
+        return lambda: fc._conv3x3(x, w, cb, *pro, None, True, True, x2, *pro2, route)
+
+    for name, ms in kernel_ms(conv("auto")).items():
+        log(f"{label}: {name[:72]}: {ms:.4f} ms a call")
+    plan = fc.sm90_plan(b, hw, hw, c1, c2, co, True)
+    xin = x if x2 is None else torch.cat([x, x2], dim=-1)
+    w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    cudnn = device_ms(lambda: F.conv2d(xin.permute(0, 3, 1, 2), w_oihw, padding=1))
+    widths = []
+    for bn in (128, *fc.SM90_CONV_WIDE):
+        if bn == 128 or co % bn == 0:
+            p = fc.sm90_plan(b, hw, hw, c1, c2, co, True, bn=bn)
+            p0 = fc.sm90_plan(b, hw, hw, c1, c2, co, False, bn=bn)
+            widths.append(f"{bn} channels {device_ms(conv(p)):.4f} ms with the prologue, "
+                          f"{device_ms(conv(p0, prologue=False)):.4f} without")
+    flops = 2 * 9 * b * hw * hw * ct * co
+    log(f"{label}: " + "; ".join(widths) + f" (the plan takes {plan.bn}); the WMMA kernel "
+        f"{device_ms(conv('wmma')):.4f} ms; cuDNN's conv of the concat {cudnn:.4f} ms; bound "
+        f"{1e3 * flops / 989e12:.4f} ms")
+    rings = []
+    for st in range(2, fc.SM90_CONV_MAX_STAGES + 1):
+        try:
+            p = fc.sm90_plan(b, hw, hw, c1, c2, co, True, bn=plan.bn, stages=st)
+        except ValueError:
+            continue
+        if p is not None:
+            rings.append(f"{st} stages {device_ms(conv(p)):.4f}")
+    log(f"{label}: by ring depth: " + ", ".join(rings) + f" (the plan takes {plan.stages})")
+
+
+def profile_k2(b, s, c, n_head, log, gen):
+    dev, dt = torch.device("cuda"), torch.bfloat16
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dt)
+
+    m, d = b * s, c // n_head
+    x = rnd(b, s, c)
+    g, beta = rnd(c, scale=0.1) + 1.0, rnd(c, scale=0.1)
+    wqkv, wo, bo = rnd(c, 3 * c, scale=c ** -0.5), rnd(c, c, scale=c ** -0.5), rnd(c, scale=0.1)
+    label = f"K2 S={s} C={c} B={b}"
+    args = (x, g, beta, wqkv, wo, bo, n_head)
+    for name, ms in kernel_ms(lambda: ft.fused_self_attention(*args)).items():
+        log(f"{label}: {name[:72]}: {ms:.4f} ms a call")
+    plan = ft.sm90_plan(b, s, c, n_head)
+    stats = torch.empty(m, 2, device=dev)
+    kernels.check(kernels.lib().sdk_row_stats(x.data_ptr(), c, stats.data_ptr(), m, c, 1e-5,
+                                              kernels.stream(x)), "sdk_row_stats")
+    qkv, attn = torch.empty(b, s, 3 * c, device=dev, dtype=dt), rnd(b, s, c)
+    out = torch.empty_like(x)
+    xm = x.view(m, c)
+    _gemm(xm, wqkv, qkv.view(m, 3 * c), m, 3 * c, c, plan.qkv, bias=None, gamma=g, beta=beta,
+          stats=stats)
+    q4 = qkv.view(b, s, 3, n_head, d).permute(2, 0, 3, 1, 4)
+    am = attn.view(m, c)
+    t = {name: device_ms(fn) for name, fn in (
+        ("qkv", lambda: _gemm(xm, wqkv, qkv.view(m, 3 * c), m, 3 * c, c, plan.qkv, bias=None,
+                              gamma=g, beta=beta, stats=stats)),
+        ("qkv cuBLAS", lambda: torch.matmul(xm, wqkv)),
+        ("core", lambda: ft.attention_core_sm90(qkv, attn, n_head, plan.core)),
+        ("core SDPA", lambda: F.scaled_dot_product_attention(q4[0], q4[1], q4[2])),
+        ("wo", lambda: _gemm(am, wo, out.view(m, c), m, c, c, plan.out, bias=bo, res=xm)),
+        ("wo cuBLAS", lambda: torch.matmul(am, wo)),
+        ("wmma", lambda: ft._self_attention(*args, 1e-5, "wmma")))}
+    log(f"{label}: QKV product (LayerNorm prologue) {t['qkv']:.4f} ms, cuBLAS x·Wqkv "
+        f"{t['qkv cuBLAS']:.4f}; core {t['core']:.4f} ms, SDPA {t['core SDPA']:.4f}; Wo product "
+        f"(bias, residual) {t['wo']:.4f} ms, cuBLAS o·Wo {t['wo cuBLAS']:.4f}; the WMMA route "
+        f"(three launches) {t['wmma']:.4f}")
+    rings = []
+    for st in (3, 4, 5):
+        core = plan.core._replace(stages=st, smem=plan.core.smem + (st - plan.core.stages)
+                                  * 2 * plan.core.tile * plan.core.dpad * 2)
+        if core.smem <= kernels.SMEM_LIMIT:
+            ms = device_ms(lambda: ft.attention_core_sm90(qkv, attn, n_head, core))
+            rings.append(f"{st} stages {ms:.4f}")
+    log(f"{label}: core by ring depth: " + ", ".join(rings) +
+        f" (the plan takes {plan.core.stages})")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None)
@@ -171,6 +278,11 @@ def main(argv=None) -> None:
     for b, s, c in ((2, 1024, 640), (2, 256, 1280)):
         profile_k5(b, s, c, log, gen)
     profile_k9(32, 4096, 40, 8, log, gen)
+    for b, hw, c1, c2, co in ((2, 128, 640, 320, 320), (1, 512, 128, 0, 128),
+                              (1, 64, 512, 0, 512)):
+        profile_k6(b, hw, c1, c2, co, log, gen)
+    for b, s, c in ((2, 4096, 320), (2, 16384, 320)):
+        profile_k2(b, s, c, 8, log, gen)
     if args.out:
         with open(args.out, "w") as f:
             f.write("\n".join(lines) + "\n")

@@ -1,20 +1,30 @@
 """The tile plans of the port's Hopper kernels, checked on the CPU.
 
-The bf16 routes of K5 (csrc/gemm_sm90.cu) and K9
-(csrc/flash_attention_bwd_sm90.cu) take their tile shape, ring stages and
-shared-memory bytes from Python (fused_mlp.sm90_plan,
-flash_attention.bwd_sm90_plan); the kernels check them and run only on the
+The bf16 routes of K5 (csrc/gemm_sm90.cu), K9
+(csrc/flash_attention_bwd_sm90.cu), K6 (csrc/conv_sm90.cu) and K2
+(csrc/gemm_sm90.cu and csrc/attention_sm90.cu) take their tile shape, ring
+stages and shared-memory bytes from Python (fused_mlp.sm90_plan,
+flash_attention.bwd_sm90_plan, fused_conv.sm90_plan,
+fused_transformer.sm90_plan); the kernels check them and run only on the
 card. Here, at every main-path shape: the bytes fit the H100's 227 KB a
 block, wgmma's constraints hold (64-row groups, N a multiple of 8, K steps
 of 16), the GEGLU tiles pair each val column with its gate column 4C to
 the right and cover every output column once, and the padded head width is
-a multiple of 16 with zeros beyond d.
+a multiple of 16 with zeros beyond d. For K6 also TMA's: boxes of at most
+256 a dimension, 128 inner bytes for the 128-byte swizzle, boxes that
+cover each 128-pixel tile exactly and tiles that cover the map once, and K
+blocks that never straddle a tap or the x/x2 boundary.
 """
 
 import pytest
 
+import numpy as np
+
+from sdtpu_torch.config import SD_V1_4
 from sdtpu_torch.ops import flash_attention as tfa
+from sdtpu_torch.ops import fused_conv as tfc
 from sdtpu_torch.ops import fused_mlp as tfm
+from sdtpu_torch.ops import fused_transformer as tft
 
 SMEM_LIMIT = 232448  # bytes of dynamic shared memory a block can take (H100)
 WGMMA_M, WGMMA_K = 64, 16
@@ -105,3 +115,136 @@ def test_k9_plan_picks_an_instance_or_the_wmma_kernel(d, want):
 def test_k9_plan_raises_on_widths_no_kernel_takes(d):
     with pytest.raises(ValueError):
         tfa.bwd_sm90_plan(d)
+
+
+# ------------------------------------------------------------ K6
+
+
+def _decoder_convs(lat):
+    """(hw, c_in, c_out) of each K6 launch of SD v1.4's VAE decoder on a
+    lat x lat latent: two mid ResnetBlocks, then three a level (the first
+    changes the width), each as conv1 and conv2."""
+    chans = SD_V1_4.vae.decoder_channels
+    mid = chans[0][0]
+    blocks = [(lat, mid, mid)] * 2
+    for level, (ci, co) in enumerate(chans):
+        blocks += [(lat << level, ci, co)] + [(lat << level, co, co)] * 2
+    return [conv for hw, ci, co in blocks for conv in ((hw, ci, co), (hw, co, co))]
+
+
+# (map size, input channels, output channels) of SD v1.4's VAE encoder's
+# ResnetBlocks on a 512x512 image
+ENCODER_RESNETS = ((512, 128, 128), (256, 128, 256), (256, 256, 256), (128, 256, 512),
+                   (128, 512, 512), (64, 512, 512))
+# (B, H, W, C1, C2, Co) of K6's launches on the main paths (chip_smoke.py's
+# phase-2 cases): the UNet's fused ResBlocks at 128² (1024px, with the
+# skip as x2), the decoder at 512px and 1024px and the serve phase's batch
+# of 4, the encoder at B=4 (the fine-tuning cache) and B=1 (img2img)
+K6_SHAPES = sorted(
+    {(2, 128, 128, 640, 320, 320), (2, 128, 128, 320, 320, 320), (2, 128, 128, 320, 0, 320)}
+    | {(b, hw, hw, ci, 0, co) for b, lat in ((1, 64), (1, 128), (4, 64))
+       for hw, ci, co in _decoder_convs(lat)}
+    | {(b, hw, hw, c, 0, co) for b in (4, 1) for hw, ci, co in ENCODER_RESNETS
+       for c in (ci, co)})
+TMA_BOX_MAX = 256
+
+
+@pytest.mark.parametrize("b,h,w,c1,c2,co", K6_SHAPES)
+def test_k6_plan(b, h, w, c1, c2, co):
+    plan = tfc.sm90_plan(b, h, w, c1, c2, co, True)
+    assert plan is not None  # every main-path shape takes the Hopper kernel
+    ct = c1 + c2
+    assert 2 <= plan.stages <= tfc.SM90_CONV_MAX_STAGES
+    stage = tfc.SM90_CONV_BM * tfc.SM90_CONV_BK * 2 + (
+        plan.bn // tfc.SM90_CONV_BOX * tfc.SM90_CONV_BK * tfc.SM90_CONV_BOX * 2)
+    assert plan.smem == 1024 + plan.stages * (stage + 16) + 8 * ct <= SMEM_LIMIT
+    # wgmma: two consumer warpgroups of 64 pixels, n64 boxes, K steps of 16
+    assert tfc.SM90_CONV_BM // WGMMA_M == 2 and tfc.SM90_CONV_BM % WGMMA_M == 0
+    assert plan.bn in (128, 256, 320) and plan.bn % tfc.SM90_CONV_BOX == 0
+    assert tfc.SM90_CONV_BOX % 8 == 0
+    assert tfc.SM90_CONV_BK % WGMMA_K == 0
+    # TMA: the A box (64 channels, bw, bh, 1) and the W box (64, 64); 64
+    # bf16 channels are the 128 bytes the swizzle takes
+    assert all(0 < d <= TMA_BOX_MAX for d in (tfc.SM90_CONV_BK, plan.bw, plan.bh,
+                                               tfc.SM90_CONV_BOX))
+    assert tfc.SM90_CONV_BK * 2 == 128
+    assert plan.bw * plan.bh == tfc.SM90_CONV_BM and w % plan.bw == 0
+    # the boxes cover each 128-pixel tile exactly, and the tiles the map once
+    tiles_w = w // plan.bw
+    assert plan.grid == (-(-co // plan.bn), -(-h // plan.bh) * tiles_w, b)
+    r = np.arange(tfc.SM90_CONV_BM)
+    tile = np.arange(plan.grid[1])[:, None]
+    pi, pj = tile // tiles_w * plan.bh + r // plan.bw, tile % tiles_w * plan.bw + r % plan.bw
+    if h % plan.bh == 0:  # a tile is 128 consecutive pixels of the map
+        assert (pi * w + pj == tile * tfc.SM90_CONV_BM + r).all()
+    inside = pi < h
+    counts = np.bincount((pi * w + pj)[inside], minlength=h * w)
+    assert (counts == 1).all() and counts.size == h * w
+    # the statistics' row tiles are the WMMA kernel's: ceil(H·W / 128)
+    assert plan.grid[1] == -(-h * w // tfc.SM90_CONV_BM)
+    # a 64-deep K block lies in one tap, and in x or in x2
+    for kb in range(9 * ct // tfc.SM90_CONV_BK):
+        c0 = kb * tfc.SM90_CONV_BK % ct
+        assert c0 + tfc.SM90_CONV_BK <= ct
+        assert c0 + tfc.SM90_CONV_BK <= c1 or c0 >= c1
+
+
+@pytest.mark.parametrize("b,h,w,c1,c2,co", [
+    (1, 8, 8, 40, 0, 64),     # C not a multiple of 64
+    (1, 8, 8, 64, 8, 64),     # C2 not a multiple of 64
+    (1, 8, 96, 64, 0, 64),    # W neither a multiple nor a divisor of 128
+    (1, 8, 8, 64, 0, 12),     # Co not a multiple of 8
+])
+def test_k6_plan_leaves_other_shapes_to_the_wmma_kernel(b, h, w, c1, c2, co):
+    assert tfc.sm90_plan(b, h, w, c1, c2, co, True) is None
+
+
+def test_k6_plan_overrides():
+    plan = tfc.sm90_plan(1, 64, 64, 512, 0, 512, True, bn=256, stages=2)
+    assert (plan.bn, plan.stages) == (256, 2)
+    with pytest.raises(ValueError):
+        tfc.sm90_plan(1, 64, 64, 512, 0, 512, True, bn=192)
+    # the UNet's 320-channel convs take one tile of 320 (three stages fit)
+    plan = tfc.sm90_plan(2, 128, 128, 640, 320, 320, True)
+    assert (plan.bn, plan.stages, plan.grid) == (320, 3, (1, 128, 2))
+
+
+# ------------------------------------------------------------ K2
+
+# (B, S, C) of K2's launches on the main paths: every UNet level at 512px
+# and 1024px at batch 2, the serve phase's batch of 4 (B=8); 8 heads
+K2_SHAPES = [(2, 4096, 320), (2, 1024, 640), (2, 256, 1280), (2, 16384, 320), (2, 4096, 640),
+             (2, 1024, 1280), (8, 4096, 320), (8, 1024, 640), (8, 256, 1280)]
+
+
+@pytest.mark.parametrize("b,s,c", K2_SHAPES)
+def test_k2_plan(b, s, c):
+    plan = tft.sm90_plan(b, s, c, 8)
+    assert plan is not None
+    d, core = c // 8, plan.core
+    # the core: d padded to a multiple of 16 (wgmma's K steps of Q·Kᵀ), the
+    # zero-filled columns past d within one 16-byte chunk of the next head's
+    # start never read (d is a multiple of 8)
+    assert d % 8 == 0 and core.dpad % WGMMA_K == 0 and d <= core.dpad < d + 16
+    assert core.dpad in tft.SM90_ATTN_DPADS and core.dpad <= 256  # N of O += P·V
+    assert tft.SM90_ATTN_ROWS // WGMMA_M == 2
+    assert core.tile % WGMMA_K == 0 and core.tile % 8 == 0 and core.tile <= 256
+    assert core.smem == (tft.SM90_ATTN_ROWS * core.dpad * 2
+                         + core.stages * 2 * core.tile * core.dpad * 2) <= SMEM_LIMIT
+    assert 3 <= core.stages <= tft.SM90_ATTN_STAGES  # the ring runs stages − 2 tiles ahead
+    # the projections on csrc/gemm_sm90.cu: LN(x)·Wqkv [C, 3C] and o·Wo
+    m = b * s
+    for p, n in ((plan.qkv, 3 * c), (plan.out, c)):
+        assert p.smem <= SMEM_LIMIT and p.stages >= 2
+        assert p.w_boxes == p.bn // tfm.SM90_BOX
+        assert p.grid == (-(-n // p.bn), -(-m // tfm.SM90_BM))
+    assert c <= tfm.SM90_LN_MAX_K
+
+
+@pytest.mark.parametrize("b,s,c,heads", [
+    (2, 256, 768, 8),    # d = 96: no core instance
+    (2, 256, 2560, 16),  # d = 160, but C past the LayerNorm prologue's 2048
+    (2, 256, 320, 7),    # the heads do not divide C
+])
+def test_k2_plan_leaves_other_shapes_to_the_wmma_kernels(b, s, c, heads):
+    assert tft.sm90_plan(b, s, c, heads) is None

@@ -1,0 +1,225 @@
+"""The tile walks of K6's and K2's Hopper kernels, emulated in torch on the
+CPU and held against sdtpu's Pallas kernels in interpret mode.
+
+The kernels (csrc/conv_sm90.cu, csrc/attention_sm90.cu) run only on the
+card. What they compute apart from the products' rounding is how they walk
+their tiles, and that walk is written out here, step for step, in f32:
+
+- K6: for each 128-pixel tile (a box of bw = min(W, 128) pixels by 128 / bw
+  rows, from fused_conv.sm90_plan) and each 64-deep K block (one tap, 64
+  channels of x or of x2), the A box read at (c0, j0 + dx − 1, i0 + dy − 1,
+  b) with zeros outside the map (TMA's fill), the prologue, then the border
+  mask, the product with the weight's [9·C, Co] rows, the epilogue, and the
+  per-tile statistics partials. Without the mask, the zeros of the fill go through
+  the prologue and silu(shift) leaks into the border: that walk must fail
+  the tolerance.
+- K2's core: the key tiles of 64 rows, d zero-padded to the core's dpad,
+  the online softmax (running maximum in the log2 domain, the scale folded
+  into exp2, O rescaled each tile, divided by l once), and P rounded to bf16
+  before P·V as the kernel rounds it.
+
+Tolerances: the walks in f32 against sdtpu's f32 kernels and the plain
+versions, 2e-4 (sums in another order, as tests/test_torch_resblock.py);
+K2's walk with P rounded to bf16, 2^-8 of the attention term's largest
+|value| (one bf16 rounding of each weight, 2^-9 relative, averaged over
+the keys), which a walk over every other key fails.
+"""
+
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+import sdtpu.ops.fused_conv as jfc
+import sdtpu.ops.fused_transformer as jft
+from sdtpu_torch.ops import fused_conv as tfc
+from sdtpu_torch.ops import fused_transformer as tft
+from sdtpu_torch.ops.groupnorm import layer_norm
+
+torch.set_num_threads(1)
+
+TOL = dict(rtol=2e-4, atol=2e-4)
+LOG2E = 1.0 / math.log(2.0)
+
+
+def _np(x):
+    if torch.is_tensor(x):
+        return x.detach().float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+# ------------------------------------------------------------ K6
+
+
+def k6_walk(x, w, cb, scale=None, shift=None, residual=None, silu=True, x2=None,
+            scale2=None, shift2=None, mask=True):
+    """csrc/conv_sm90.cu's walk in f32: returns (y, per-channel (Σ, Σ²) of
+    the f32 y summed from the per-tile partials)."""
+    b, h, wd, c1 = x.shape
+    c2 = 0 if x2 is None else x2.shape[-1]
+    ct, co = c1 + c2, w.shape[-1]
+    plan = tfc.sm90_plan(b, h, wd, c1, c2, co, scale is not None)
+    bm, bk = tfc.SM90_CONV_BM, tfc.SM90_CONV_BK
+    tiles_w = wd // plan.bw
+    wmat = w.reshape(9 * ct, co).float()
+    out = torch.zeros(b, h, wd, co)
+    parts = torch.zeros(b, plan.grid[1], 2, co)
+    r = torch.arange(bm)
+    for bi in range(b):
+        for tile in range(plan.grid[1]):
+            i0, j0 = tile // tiles_w * plan.bh, tile % tiles_w * plan.bw
+            pi, pj = i0 + r // plan.bw, j0 + r % plan.bw  # the tile's pixels
+            acc = torch.zeros(bm, co)
+            for kb in range(9 * ct // bk):
+                tap, c0 = divmod(kb * bk, ct)
+                dy, dx = divmod(tap, 3)
+                part2 = c0 >= c1
+                src, cc = (x2, c0 - c1) if part2 else (x, c0)
+                # the box at (cc, j0 + dx − 1, i0 + dy − 1, bi): row r of it is
+                # pixel (pi + dy − 1, pj + dx − 1), zero outside the map
+                si, sj = pi + dy - 1, pj + dx - 1
+                inside = (si >= 0) & (si < h) & (sj >= 0) & (sj < wd)
+                a = torch.zeros(bm, bk)
+                a[inside] = src[bi, si[inside], sj[inside], cc:cc + bk].float()
+                if scale is not None:
+                    sc, sh = (scale2, shift2) if part2 else (scale, shift)
+                    a = a * sc[bi, cc:cc + bk].float() + sh[bi, cc:cc + bk].float()
+                    if silu:
+                        a = a * torch.sigmoid(a)
+                    if mask:
+                        a[~inside] = 0.0
+                acc += a @ wmat[kb * bk:(kb + 1) * bk]
+            v = acc + cb.float()
+            keep = pi < h  # rows of a box taller than what is left of the map
+            if residual is not None:
+                v[keep] += residual[bi, pi[keep], pj[keep]].float()
+            out[bi, pi[keep], pj[keep]] = v[keep]
+            parts[bi, tile] = torch.stack([v[keep].sum(0), (v[keep] ** 2).sum(0)])
+    return out, parts.sum(dim=1)
+
+
+def _k6_case(w_map, c2, prologue, seed):
+    r = np.random.default_rng(seed)
+    b, h, c1, co = 2, 4, 64, 16
+    f = lambda *s, scale=1.0: (scale * r.standard_normal(s)).astype(np.float32)  # noqa: E731
+    x, x2 = f(b, h, w_map, c1), (f(b, h, w_map, c2) if c2 else None)
+    w, cb, res = f(3, 3, c1 + c2, co, scale=0.05), f(co, scale=0.1), f(b, h, w_map, co)
+    pro = None
+    if prologue:
+        # a GroupNorm folded to (scale, shift) as gn_scale_bias gives it; the
+        # shift far enough from 0 that silu(shift) would show at the border
+        pro = (1.0 + f(b, c1 + c2, scale=0.1), 0.5 + f(b, c1 + c2, scale=0.2))
+    return x, x2, w, cb, res, pro
+
+
+@pytest.mark.parametrize("prologue", [True, False], ids=["prologue", "no_prologue"])
+@pytest.mark.parametrize("c2", [0, 64], ids=["x", "x_x2"])
+@pytest.mark.parametrize("w_map", [16, 256])
+def test_k6_walk_matches_sdtpu_and_plain(w_map, c2, prologue):
+    """At H = 4: W = 16 takes one box of 16 pixels by 8 rows (its last 4 rows
+    past the map, dropped), W = 256 two boxes of 128 pixels a row."""
+    x, x2, w, cb, res, pro = _k6_case(w_map, c2, prologue, 50 + w_map + c2)
+    c1 = x.shape[-1]
+    t = torch.from_numpy
+    kw = dict(residual=t(res), emit_stats=True)
+    jkw = dict(residual=jnp.asarray(res), emit_stats=True, interpret=True)
+    args, jargs = [t(x), t(w), t(cb)], [jnp.asarray(x), jnp.asarray(w), jnp.asarray(cb)]
+    if pro:
+        s, o = pro
+        args += [t(s[:, :c1]), t(o[:, :c1])]
+        jargs += [jnp.asarray(s[:, :c1]), jnp.asarray(o[:, :c1])]
+        if c2:
+            kw.update(prologue_scale2=t(s[:, c1:]), prologue_bias2=t(o[:, c1:]))
+            jkw.update(prologue_scale2=jnp.asarray(s[:, c1:]),
+                       prologue_bias2=jnp.asarray(o[:, c1:]))
+    if c2:
+        kw["x2"], jkw["x2"] = t(x2), jnp.asarray(x2)
+    walk_kw = dict(residual=kw["residual"], x2=kw.get("x2"),
+                   scale2=kw.get("prologue_scale2"), shift2=kw.get("prologue_bias2"))
+    got, got_st = k6_walk(*args, **walk_kw)
+    want, want_st = jfc.conv3x3_fused(*jargs, **jkw)
+    plain, plain_st = tfc.conv3x3_fused_plain(*args, **kw)
+    for ref, ref_st in ((want, want_st), (plain, plain_st)):
+        np.testing.assert_allclose(_np(got), _np(ref), **TOL)
+        # f32 sums over up to 1024 rows of magnitude ~3, in another order
+        np.testing.assert_allclose(_np(got_st), _np(ref_st), rtol=1e-4, atol=1e-2)
+    if pro:
+        # the same walk without the border mask: silu(shift) of TMA's zeros
+        # reaches the border pixels
+        leak, _ = k6_walk(*args, **walk_kw, mask=False)
+        assert not np.allclose(_np(leak), _np(want), **TOL)
+        assert float((leak - plain).abs().max()) > 50 * TOL["atol"]
+
+
+# ------------------------------------------------------------ K2
+
+
+def k2_core_walk(q, k, v, round_p: bool):
+    """csrc/attention_sm90.cu's walk over q, k, v [B, H, S, d] in f32:
+    returns o [B, H, Sq, d]."""
+    b, nh, sq, d = q.shape
+    sk = k.shape[2]
+    plan = tft.core_sm90_plan(d)
+    dp, bt = plan.dpad, plan.tile
+    nk = -(-sk // bt)
+    rows = -(-sq // tft.SM90_ATTN_ROWS) * tft.SM90_ATTN_ROWS
+    # the copy's zero fill: columns d..dpad, rows past Sq or Sk
+    qp = F.pad(q, (0, dp - d, 0, rows - sq))
+    kp, vp = (F.pad(t, (0, dp - d, 0, nk * bt - sk)) for t in (k, v))
+    scale_log2 = d ** -0.5 * LOG2E
+    m = torch.full((b, nh, rows, 1), -math.inf)
+    l = torch.zeros(b, nh, rows, 1)
+    o = torch.zeros(b, nh, rows, dp)
+    for j in range(nk):
+        kt, vt = kp[:, :, j * bt:(j + 1) * bt], vp[:, :, j * bt:(j + 1) * bt]
+        s = qp @ kt.transpose(-1, -2)
+        s[..., sk - j * bt:] = -math.inf  # keys past Sk (the last tile only)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True) * scale_log2)
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s * scale_log2 - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        if round_p:
+            p = p.to(torch.bfloat16).float()
+        o = o * alpha + p @ vt
+        m = m_new
+    return (o / l)[:, :, :sq, :d]
+
+
+def k2_walk(x, ln_g, ln_b, wqkv, wo, bo, n_head, round_p=False, every_other_key=False):
+    """K2's sublayer around the core's walk: LN(x)·Wqkv, the walk per head,
+    o·Wo + bo + x, in f32."""
+    b, s, c = x.shape
+    q, k, v = (t.reshape(b, s, n_head, c // n_head).transpose(1, 2)
+               for t in (layer_norm(x, ln_g, ln_b) @ wqkv).chunk(3, dim=-1))
+    if every_other_key:
+        k, v = k[:, :, ::2], v[:, :, ::2]
+    o = k2_core_walk(q, k, v, round_p).transpose(1, 2).reshape(b, s, c)
+    return x + o @ wo + bo
+
+
+@pytest.mark.parametrize("c,n_head", [(80, 2), (160, 2)], ids=["d40", "d80"])
+def test_k2_walk_matches_sdtpu(c, n_head):
+    """S = 200: four key tiles, the last one 8 keys long, and two query
+    tiles of 128 rows, the second ragged."""
+    r = np.random.default_rng(60 + c)
+    b, s = 2, 200
+    x = r.standard_normal((b, s, c)).astype(np.float32)
+    g, bt = (1 + 0.1 * r.standard_normal(c)).astype(np.float32), (
+        0.1 * r.standard_normal(c)).astype(np.float32)
+    wq, wk, wv, wo = ((c ** -0.5 * r.standard_normal((c, c))).astype(np.float32)
+                      for _ in range(4))
+    bo = (0.1 * r.standard_normal(c)).astype(np.float32)
+    want = _np(jft.fused_self_attention(*map(jnp.asarray, (x, g, bt, wq, wk, wv, wo, bo)),
+                                        n_head, block_q=40, interpret=True))
+    targs = [torch.from_numpy(a) for a in (x, g, bt, np.concatenate([wq, wk, wv], 1), wo, bo)]
+    np.testing.assert_allclose(_np(k2_walk(*targs, n_head)), want, **TOL)
+    # P rounded to bf16 as the kernel rounds it: within 2^-8 of the
+    # attention term's largest |value|; every other key falls outside
+    atol = 2.0 ** -8 * float(np.abs(want - x).max())
+    rounded = _np(k2_walk(*targs, n_head, round_p=True))
+    np.testing.assert_allclose(rounded, want, rtol=0, atol=atol)
+    half = _np(k2_walk(*targs, n_head, round_p=True, every_other_key=True))
+    assert np.abs(half - want).max() > 4 * atol

@@ -414,9 +414,9 @@ def test_kernel_library_name_tracks_sources():
     path = kernels.library_path()
     assert path.parent == kernels.BUILD_DIR and path.suffix == ".so"
     assert sorted(p.name for p in kernels.CSRC.glob("*.cu")) == [
-        "attention.cu", "channel_stats.cu", "cross_attention.cu", "flash_attention.cu",
-        "flash_attention_bwd.cu", "flash_attention_bwd_sm90.cu", "gemm.cu", "gemm_sm90.cu",
-        "groupnorm.cu"]
+        "attention.cu", "attention_sm90.cu", "channel_stats.cu", "conv_sm90.cu",
+        "cross_attention.cu", "flash_attention.cu", "flash_attention_bwd.cu",
+        "flash_attention_bwd_sm90.cu", "gemm.cu", "gemm_sm90.cu", "groupnorm.cu"]
 
 
 # ------------------------------------------------------------ on the card
@@ -498,3 +498,101 @@ def test_k5_ragged_rows_match_plain_on_card(b, s, c):
     got, want = tfm.fused_geglu_mlp(*args), tfm.fused_geglu_mlp_plain(*args)
     torch.testing.assert_close(got.float(), want.float(), rtol=6e-2, atol=6e-2)
     assert torch.equal(tfm.fused_geglu_mlp(*args), got)
+
+
+def _routes(fn):
+    """{route: launches} of a wrapper, from its per-shape counts."""
+    out = {}
+    for key, n in fn.shapes.items():
+        route = key.rsplit("route=", 1)[-1]
+        out[route] = out.get(route, 0) + n
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,c2,cout,prologue,residual,bn", [
+    ((2, 9, 16, 64), 64, 72, True, True, 128),     # W = 16: boxes of 8 rows, the last ragged
+    ((1, 4, 256, 128), 0, 256, True, False, 256),  # W = 256: two tiles a row
+    ((2, 8, 64, 128), 64, 320, False, True, 256),  # no prologue: TMA's zeros pad; ragged Co
+    ((2, 8, 128, 64), 64, 320, True, True, 320),   # the UNet's 320-channel tile
+    ((1, 5, 128, 64), 128, 128, True, True, 128),  # H = 5 rows of one tile each
+])
+def test_k6_sm90_matches_plain_on_card(shape, c2, cout, prologue, residual, bn):
+    """K6's bf16 route (csrc/conv_sm90.cu), on tiles of bn channels, against
+    the plain version at maps whose tiles are ragged or span several rows,
+    with and without x2, the prologue and the residual: within a few bf16
+    ulps (6e-2); the emitted statistics against the sums of the returned
+    output, within its rounding (2^-7 of the sum of magnitudes); the same
+    bits on a second call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    r = _rng(40)
+    b, h, w, c1 = shape
+
+    def card(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dt)
+
+    x = card(r.standard_normal(shape))
+    x2 = card(r.standard_normal((b, h, w, c2))) if c2 else None
+    wt = card(r.standard_normal((3, 3, c1 + c2, cout)) * (9 * (c1 + c2)) ** -0.5)
+    cb = card(0.1 * r.standard_normal(cout))
+    kw = {"emit_stats": True}
+    if residual:
+        kw["residual"] = card(r.standard_normal((b, h, w, cout)))
+    args = (x, wt, cb)
+    if prologue:
+        s = torch.from_numpy(1.0 + 0.1 * r.standard_normal((b, c1 + c2))).float().to(dev)
+        o = torch.from_numpy(0.1 * r.standard_normal((b, c1 + c2))).float().to(dev)
+        args += (s[:, :c1], o[:, :c1])
+        if c2:
+            kw.update(prologue_scale2=s[:, c1:], prologue_bias2=o[:, c1:])
+    if c2:
+        kw["x2"] = x2
+    assert tfc.sm90_plan(b, h, w, c1, c2, cout, prologue) is not None
+    plan = tfc.sm90_plan(b, h, w, c1, c2, cout, prologue, bn=bn)
+    kw5 = (kw.get("residual"), True, True, kw.get("x2"), kw.get("prologue_scale2"),
+           kw.get("prologue_bias2"))
+    pro = args[3:] if prologue else (None, None)
+    before = _routes(tfc.conv3x3_fused).get("sm90", 0)
+    got, st = tfc._conv3x3(*args[:3], *pro, *kw5, plan)
+    want, _ = tfc.conv3x3_fused_plain(*args, **kw)
+    assert _routes(tfc.conv3x3_fused)["sm90"] == before + 1
+    torch.testing.assert_close(got.float(), want.float(), rtol=6e-2, atol=6e-2)
+    yf = got.float().reshape(b, -1, cout)
+    for i, v in enumerate((yf, yf * yf)):
+        assert ((st[:, i] - v.sum(1)).abs() <= 2 ** -7 * v.abs().sum(1) + 1e-3).all()
+    again, st2 = tfc._conv3x3(*args[:3], *pro, *kw5, plan)
+    assert torch.equal(again, got) and torch.equal(st2, st)
+    if tfc.sm90_plan(b, h, w, c1, c2, cout, prologue).bn == bn:
+        assert torch.equal(tfc.conv3x3_fused(*args, **kw)[0], got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,c", [
+    (2, 200, 320),   # d = 40, the last key tile and query tile ragged
+    (1, 333, 640),   # d = 80
+    (2, 77, 1280),   # d = 160, one key tile
+    (1, 256, 512),   # d = 64
+])
+def test_k2_sm90_matches_plain_on_card(b, s, c):
+    """K2's bf16 route (both products on csrc/gemm_sm90.cu, the core on
+    csrc/attention_sm90.cu), 8 heads, against the plain version: the
+    sublayer within a few bf16 ulps (6e-2), the attention term x + ... − x
+    within 2^-6 of its largest |reference| + 2^-7 of |out| (what
+    chip_smoke.py holds it to); the same bits on a second call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    args = [torch.from_numpy(np.asarray(a, np.float32)).to(dev, torch.bfloat16)
+            for a in _qkv(_attn_args(b, s, c, 41))]
+    assert tft.sm90_plan(b, s, c, 8) is not None
+    before = _routes(tft.fused_self_attention).get("sm90", 0)
+    got, want = tft.fused_self_attention(*args, 8), tft.fused_self_attention_plain(*args, 8)
+    assert _routes(tft.fused_self_attention)["sm90"] == before + 1
+    torch.testing.assert_close(got.float(), want.float(), rtol=6e-2, atol=6e-2)
+    x = args[0].float()
+    term = want.float() - x
+    err = (got.float() - want.float()).abs()
+    assert (err <= 2 ** -6 * term.abs().max() + 2 ** -7 * want.float().abs()).all()
+    assert torch.equal(tft.fused_self_attention(*args, 8), got)

@@ -13,15 +13,19 @@ Phases, each printing its lines:
    and bfloat16: max error against the stated tolerance, the times of the
    kernel, of its plain version and, where one PyTorch call computes the
    same function, of that call (CUDA events), and the least time the card
-   could take for the same work (its bound). K5, K9, K2 and K6 are also
-   timed by the card's own clock (sdtpu_torch.profile_kernels.device_ms:
+   could take for the same work (its bound). K5, K9, K2, K6, K1 and K4 are
+   also timed by the card's own clock (sdtpu_torch.profile_kernels.device_ms:
    20 wrapper calls captured in a CUDA graph, the replay timed), and in
    bfloat16 their Hopper kernels against the WMMA kernels they replaced, in
    turns (old, new, new, old). Planted faults must fail each kernel's
    tolerance at every case: for K6 the convolution without the border mask
    (the prologue applied to the zero-padded map) and, with a second input,
-   the convolution without it; for K2 the attention over every other key;
-   (K1, K9 and K10 have their own, below);
+   the convolution without it; for K4 the product without its prologue
+   (proj_in) or without its residual (proj_out); for K2 the attention over
+   every other key; for K1 an all-zero output, the attention over every
+   other key, with a key bias the attention that ignores it, and with the
+   row statistics those statistics in natural log; (K9 and K10 have their
+   own, below);
 3. one SpatialTransformer at the 64x64 latent level (C=320), random
    weights, run on the card (kernels) and on the CPU (plain versions); the
    VAE decoder at SD v1.4 width on a 16x16 latent with every fused gate
@@ -34,15 +38,17 @@ Phases, each printing its lines:
    (the same config with image_size=1024). Each must give a
    [1, size, size, 3] uint8 image from finite latents, and the kernels'
    launch counters, set to 0 just before each run and read just after,
-   must read exactly what the dispatch implies; K2's and K6's launches,
-   counted per route, must all take their Hopper kernels (here, in the
-   serve phase and in the fine-tuning cache build);
+   must read exactly what the dispatch implies; K2's, K6's and K4's
+   launches, counted per route, must all take their Hopper kernels (here,
+   in the serve phase and in the fine-tuning cache build), and K1's one
+   launch at 1024px (the decoder's d = 512) the WMMA kernel;
 5. sdtpu_torch.finetune.run_finetune at SD v1.4 width and depth, 512x512,
    from a folder of synthetic PNGs: the latent cache through the port's
    VAE encoder and CLIP, then 3 AdamW steps at batch 4 in bf16, the tuned
    model written and read back; the launch counts of the cache build and
-   of the training (K1 and K9 only), finite losses, every UNet leaf
-   changed; then one more step each with remat "full" and "dots";
+   of the training (K1 and K9 only, every K1 launch on the Hopper core),
+   finite losses, every UNet leaf changed; then one more step each with
+   remat "full" and "dots";
 6. sdtpu_torch.serve at SD v1.4 width, 512x512, bf16, with K10's gate open
    (SDTPU_FUSED_XATTN=1) and one random LoRA adapter, driven through its
    socket: concurrent requests batched to 4, the other samplers, img2img,
@@ -59,10 +65,11 @@ the fine-tuning run with its cache build, and the serve phase), and `ms`, `plain
 `bound_ms` and `library_ms` are for those launches: each wrapper counts
 its launches per shape as well, and each shape's bfloat16 time (or bound)
 from phase 2 is taken as many times as the runs launched it. A shape
-launched there with no case in phase 2 is a failure. K5, K9, K2 and K6
-also carry `device_ms` (the same launches by device time) and
+launched there with no case in phase 2 is a failure. K5, K9, K2, K6, K1
+and K4 also carry `device_ms` (the same launches by device time) and
 `replaced_device_ms` (those of the WMMA kernels their bf16 route
-replaced). K5's `library_ms`
+replaced; K1's d = 512 launch is the WMMA kernel on both sides), and K1
+`sources_by_route`. K5's `library_ms`
 is both of its products as two torch.matmul calls; K2's is SDPA on the
 core alone, K6's cuDNN's convolution alone (F.conv2d).
 
@@ -173,7 +180,7 @@ class Case(NamedTuple):
     peak: float = PEAK_TENSOR
     library: Optional[Callable] = None
     library_minus: Optional[Callable] = None
-    # the WMMA route the kernel's bf16 Hopper kernel replaced (K5, K9, K2, K6),
+    # the WMMA route the kernel's bf16 Hopper kernel replaced (K5, K9, K2, K6, K1, K4),
     # timed against it in turns; and yardsticks printed beside library
     old: Optional[Callable] = None
     yardsticks: tuple = ()
@@ -249,6 +256,10 @@ def kernel_cases(dtype, dev):
     # K4: proj_in (GroupNorm prologue) and proj_out (residual) at 64x64x320
     # (512px; B=8 in the serve phase's batch), 128x128x320 and 64x64x640
     # (1024px)
+    def k4_wmma(x, w, cb, ps=None, pb=None, residual=None, silu=False, emit_stats=False):
+        """K4 on the WMMA kernel its bf16 Hopper kernel replaced."""
+        return fused_conv._conv1x1(x, w, cb, ps, pb, residual, silu, emit_stats, "wmma")
+
     for b, rows, c in ((2, 4096, 320), (2, 16384, 320), (2, 4096, 640), (8, 4096, 320)):
         xr = rnd(b, rows, c)
         scale, bias = fused_conv.stats_scale_bias(
@@ -262,11 +273,12 @@ def kernel_cases(dtype, dev):
 
         cases.append(Case("conv1x1_fused", f"proj_in {rows}x{c} B={b}",
                           fused_conv.conv1x1_fused, fused_conv.conv1x1_fused_plain,
-                          (xr, w, cb, scale, bias), {}, ops * b // 2, library=product))
+                          (xr, w, cb, scale, bias), {}, ops * b // 2, library=product,
+                          old=k4_wmma))
         cases.append(Case("conv1x1_fused", f"proj_out {rows}x{c} B={b}",
                           fused_conv.conv1x1_fused, fused_conv.conv1x1_fused_plain,
                           (xr, w, cb), {"residual": rnd(b, rows, c)}, ops * b // 2,
-                          library=product))
+                          library=product, old=k4_wmma))
 
     # K2 at every UNet level of both sizes (the 16x16 middle block at 1024px),
     # and of the serve phase's batch of 4 (B=8)
@@ -368,12 +380,17 @@ def kernel_cases(dtype, dev):
             mask = None if key_bias is None else key_bias[:, None, None, :].to(q.dtype)
             return F.scaled_dot_product_attention(*heads4(n_head, q, k, v), attn_mask=mask)
 
+        def k1_wmma(q, k, v, key_bias=None, n_head=1, return_lse=False):
+            """K1 on the WMMA kernel (csrc/flash_attention.cu), which its
+            bf16 route replaced at d <= 160 (and still runs d = 512)."""
+            return flash_attention._heads(q, k, v, key_bias, n_head, return_lse, "wmma")
+
         cases.append(Case("flash_attention_heads",
                           f"BH={bh} S={s} d={d}{' bias' if bias else ''}{' lse' if lse else ''}",
                           flash_attention.flash_attention_heads,
                           flash_attention.flash_attention_heads_plain,
                           (q, k, v, kb, n_head), {"return_lse": lse}, 4 * bh * s * s * d,
-                          library=sdpa))
+                          library=sdpa, old=k1_wmma))
 
     # K9: training's backward at the 64² level of the 512px UNet, the
     # 1024px UNet's 128² and 64² levels and its 32² level's d=160 (batch 4,
@@ -483,11 +500,11 @@ def kernel_cases(dtype, dev):
 
 # name -> (route, source, the sdtpu function that reaches its pl.pallas_call)
 KERNEL_INFO = {
-    "flash_attention_heads": ("cuda", "sdtpu_torch/csrc/flash_attention.cu",
+    "flash_attention_heads": ("cuda", "sdtpu_torch/csrc/attention_sm90.cu",
                               "sdtpu/ops/flash_attention.py:220"),
     "channel_partials": ("cuda", "sdtpu_torch/csrc/channel_stats.cu",
                          "sdtpu/ops/fused_groupnorm.py:47"),
-    "conv1x1_fused": ("cuda", "sdtpu_torch/csrc/gemm.cu", "sdtpu/ops/fused_conv.py:428"),
+    "conv1x1_fused": ("cuda", "sdtpu_torch/csrc/conv_sm90.cu", "sdtpu/ops/fused_conv.py:428"),
     "fused_self_attention": ("cuda", "sdtpu_torch/csrc/attention_sm90.cu",
                              "sdtpu/ops/fused_transformer.py:108"),
     "fused_geglu_mlp": ("cuda", "sdtpu_torch/csrc/gemm_sm90.cu", "sdtpu/ops/fused_mlp.py:68"),
@@ -500,6 +517,13 @@ KERNEL_INFO = {
                                   "sdtpu/ops/flash_attention.py:580"),
     "fused_cross_attention_kv": ("cuda", "sdtpu_torch/csrc/cross_attention.cu",
                                  "sdtpu/ops/fused_cross_attention.py:119"),
+}
+# the kernels whose main-path launches take two routes: route -> source
+# (K1: bf16 at d <= 160 on the Hopper core, the 1024px decode's d = 512 on
+# the WMMA kernel)
+KERNEL_ROUTES = {
+    "flash_attention_heads": {"sm90": "sdtpu_torch/csrc/attention_sm90.cu",
+                              "wmma": "sdtpu_torch/csrc/flash_attention.cu"},
 }
 
 
@@ -545,9 +569,10 @@ def launched_key(c: "Case"):
 
 def _check_flash(c, got, want, dname, failed):
     """K1's check: the output within FLASH_TOL, scaled to the largest
-    |reference|, and that tolerance fails an all-zero output and one over
-    every other key; with return_lse, the row statistics within LSE_TOL.
-    Returns (max abs error of the output, ok, atol, rtol)."""
+    |reference|, and that tolerance fails an all-zero output, one over
+    every other key and, with a key bias, one that ignores it; with
+    return_lse, the row statistics within LSE_TOL, which fails them taken
+    in natural log. Returns (max abs error of the output, ok, atol, rtol)."""
     import torch
 
     from sdtpu_torch.ops.flash_attention import flash_attention_heads_plain
@@ -555,20 +580,27 @@ def _check_flash(c, got, want, dname, failed):
     if c.kw.get("return_lse"):
         (got, got_lse), (want, want_lse) = got, want
         lse_err, lse_ok = within(got_lse, want_lse, LSE_TOL, 0.0)
+        natural = within(got_lse * math.log(2.0), want_lse, LSE_TOL, 0.0)[1]
         print(f"kernel {c.name:21s} {dname:8s} {c.shape:30s} row log2-sum-exp max_abs_err "
-              f"{lse_err:.3e} (tol {LSE_TOL:g}) {'ok' if lse_ok else 'FAILED'}", flush=True)
+              f"{lse_err:.3e} (tol {LSE_TOL:g}) {'ok' if lse_ok else 'FAILED'}; the tolerance "
+              f"passes it in natural log: {natural}", flush=True)
         if not lse_ok:
             failed.append(f"{c.name} {dname} {c.shape} lse")
+        if natural:
+            failed.append(f"{c.name} {dname} {c.shape} lse tolerance too loose")
     frac, r = FLASH_TOL[dname]
     a = frac * float(want.float().abs().max())
     q, k, v, kb, n_head = c.args
-    every_other = flash_attention_heads_plain(q, k[:, ::2], v[:, ::2],
-                                              None if kb is None else kb[:, ::2], n_head)
-    passes = [within(wrong, want, a, r)[1] for wrong in (torch.zeros_like(want), every_other)]
+    wrong = {"an all-zero output": torch.zeros_like(want),
+             "one over every other key": flash_attention_heads_plain(
+                 q, k[:, ::2], v[:, ::2], None if kb is None else kb[:, ::2], n_head)}
+    if kb is not None:
+        wrong["one that ignores the key bias"] = flash_attention_heads_plain(q, k, v, None,
+                                                                             n_head)
+    passes = {label: within(w, want, a, r)[1] for label, w in wrong.items()}
     print(f"kernel {c.name:21s} {dname:8s} {c.shape:30s} max |ref| {a / frac:.4f}; the "
-          f"tolerance passes an all-zero output: {passes[0]}, one over every other key: "
-          f"{passes[1]}", flush=True)
-    if any(passes):
+          f"tolerance passes " + ", ".join(f"{k}: {v}" for k, v in passes.items()), flush=True)
+    if any(passes.values()):
         failed.append(f"{c.name} {dname} {c.shape} tolerance too loose")
     return (*within(got, want, a, r), a, r)
 
@@ -663,6 +695,22 @@ def _k6_faults(c):
     return faults
 
 
+def _k4_faults(c):
+    """The planted faults K4's tolerance must fail, in PyTorch ops: the
+    product without its prologue (proj_in) or without its residual
+    (proj_out)."""
+    from sdtpu_torch.ops.fused_conv import conv1x1_fused_plain
+
+    x, w, cb = c.args[:3]
+    faults = {}
+    if len(c.args) > 3:
+        faults["without its prologue"] = conv1x1_fused_plain(
+            x, w, cb, residual=c.kw.get("residual"))
+    if c.kw.get("residual") is not None:
+        faults["without its residual"] = conv1x1_fused_plain(*c.args)
+    return faults
+
+
 def _check_k2(c, got, want, dname, failed):
     """K2's check: the whole sublayer x + Wo·attn + bo within TOL, and the
     attention term alone (out - x against plain - x) within FLASH_TOL's
@@ -694,7 +742,7 @@ def phase_kernels(dev) -> tuple[dict, dict]:
     """Phase 2. Returns ({kernel: max abs error}, {(kernel, shape key):
     {label, ms, plain_ms, library_ms, bound_ms, ops_ms, bytes_ms, device_ms,
     old_ms, f32_ms}}), both from the bfloat16 run, the main path's dtype
-    (device_ms and old_ms, the replaced kernel's device time, for K5, K9, K2, K6
+    (device_ms and old_ms, the replaced kernel's device time, for K5, K9, K2, K6, K1, K4
     only; f32_ms the float32 run's time, by device time where measured)."""
     import torch
 
@@ -739,8 +787,9 @@ def phase_kernels(dev) -> tuple[dict, dict]:
                     if st_err > 1.0:
                         failed.append(f"{c.name} {dname} {c.shape} stats")
                 err, ok = within(got, want, a, r)
-                if c.name == "conv3x3_fused":
-                    passes = {k: within(f, want, a, r)[1] for k, f in _k6_faults(c).items()}
+                faults = {"conv3x3_fused": _k6_faults, "conv1x1_fused": _k4_faults}.get(c.name)
+                if faults is not None:
+                    passes = {k: within(f, want, a, r)[1] for k, f in faults(c).items()}
                     print(f"kernel {c.name:21s} {dname:8s} {c.shape:30s} the tolerance passes "
                           + ", ".join(f"the convolution {k}: {v}" for k, v in passes.items()),
                           flush=True)
@@ -796,7 +845,7 @@ def main_path_times(measured: dict, shapes: dict) -> dict:
     launches in the generate runs: each launched shape's phase-2 time (or
     bound) times its launches there, as the wrapper counted them per shape,
     summed. library_ms is None where a launched shape has no library call;
-    device_ms and old_ms (K5, K9, K2, K6) are the device times of the kernel and of
+    device_ms and old_ms (K5, K9, K2, K6, K1, K4) are the device times of the kernel and of
     the one it replaced, None for the others. Fails if a launched shape has
     no case in phase 2."""
     totals, missing = {}, []
@@ -1014,21 +1063,35 @@ EXPECTED_LAUNCHES = {
 EXPECTED_X2 = {512: 0, 1024: 60}  # K6 launches with the skip as second input
 
 
-def check_routes(label: str, shapes: dict) -> None:
-    """K2's and K6's launches of a bf16 main path by route (their wrappers
-    count each shape under its route): every main-path shape has a Hopper
-    plan, so none may take the WMMA kernels."""
+def by_route(kernel_shapes: dict) -> dict:
+    """{route: launches} of one wrapper's per-shape counts."""
     by = {}
-    for name in ("fused_self_attention", "conv3x3_fused"):
-        by[name] = {}
-        for key, n in shapes[name].items():
-            route = key.rsplit("route=", 1)[-1]
-            by[name][route] = by[name].get(route, 0) + n
-    print(f"{label} launches by route: K2 {by['fused_self_attention']}, K6 "
-          f"{by['conv3x3_fused']}", flush=True)
+    for key, n in kernel_shapes.items():
+        route = key.rsplit("route=", 1)[-1]
+        by[route] = by.get(route, 0) + n
+    return by
+
+
+# the kernels each of whose bf16 main-path shapes has a Hopper plan: K2, K6, K4
+HOPPER_ROUTED = {"fused_self_attention": "K2", "conv3x3_fused": "K6", "conv1x1_fused": "K4"}
+
+
+def check_routes(label: str, shapes: dict, k1: dict) -> None:
+    """The launches of a bf16 main path by route (the wrappers count each
+    shape under its route): K2's, K6's and K4's main-path shapes all have a
+    Hopper plan, so none may take the WMMA kernels; K1's must be k1
+    ({route: launches}: the core for training's d = 40, the WMMA kernel
+    for the 1024px decode's d = 512)."""
+    by = {name: by_route(shapes[name]) for name in HOPPER_ROUTED}
+    k1_got = by_route(shapes["flash_attention_heads"])
+    print(f"{label} launches by route: " + ", ".join(
+        f"{tag} {by[name]}" for name, tag in HOPPER_ROUTED.items()) + f", K1 {k1_got} "
+          f"(expected {k1})", flush=True)
     wmma = {name: r["wmma"] for name, r in by.items() if r.get("wmma")}
     if wmma:
         fail(f"{label}: bf16 launches on the WMMA route {wmma}")
+    if k1_got != k1:
+        fail(f"{label}: K1 launched {k1_got} by route, expected {k1}")
 
 
 def phase_generate(dev, size: int) -> tuple[dict, dict]:
@@ -1092,7 +1155,7 @@ def phase_generate(dev, size: int) -> tuple[dict, dict]:
     if launches != EXPECTED_LAUNCHES[size] or x2 != EXPECTED_X2[size]:
         fail(f"launch counts {launches} (x2 {x2}) differ from {EXPECTED_LAUNCHES[size]} "
              f"(x2 {EXPECTED_X2[size]})")
-    check_routes(f"generate {size}", shapes)
+    check_routes(f"generate {size}", shapes, {"wmma": 1} if size == 1024 else {})
     return launches, shapes
 
 
@@ -1141,6 +1204,7 @@ def phase_grad(dev) -> None:
     card = grads(dev)
     torch.cuda.synchronize()
     fired = {k: f.launches for k, f in fns.items() if f.launches}
+    k1_routes = by_route(fns["flash_attention_heads"].shapes)
     cpu = grads("cpu")
     frac, rtol = GRAD_TOL
     worst, bad = (0.0, ""), []
@@ -1157,12 +1221,15 @@ def phase_grad(dev) -> None:
     print(f"gradients of a 64x64x320 SpatialTransformer in training, card (K1 + K9) vs cpu "
           f"(plain) float32: {len(cpu)} gradients, all present and nonzero: "
           f"{not any('no gradient' in b for b in bad)}, worst max_abs_err / max|ref| "
-          f"{worst[0]:.3e} ({worst[1]}; tol {frac:g} + {rtol:g}|ref|), launches {fired} "
-          f"{'ok' if not bad else 'FAILED'}", flush=True)
+          f"{worst[0]:.3e} ({worst[1]}; tol {frac:g} + {rtol:g}|ref|), launches {fired}, K1 "
+          f"by route {k1_routes} (f32 keeps the WMMA kernel) {'ok' if not bad else 'FAILED'}",
+          flush=True)
     if bad:
         fail("training gradients on the card disagree with the CPU: " + "; ".join(bad))
     if fired != {"flash_attention_heads": 1, "flash_attention_bwd_heads": 1}:
         fail(f"the transformer's training step launched {fired}, expected K1 1, K9 1")
+    if k1_routes != {"wmma": 1}:
+        fail(f"the f32 training step's K1 took {k1_routes}, expected the WMMA kernel")
 
 
 # the serve phase: SD v1.4 at 512px in bf16 behind sdtpu_torch.serve, K10's
@@ -1338,7 +1405,7 @@ def phase_serve(dev) -> tuple[dict, dict]:
               flush=True)
         if k10 != K10_PER_UNET_CALL * unet_calls:
             bad.append(f"K10 launched {k10} times, expected {K10_PER_UNET_CALL * unet_calls}")
-        check_routes("serve", shapes)
+        check_routes("serve", shapes, {})
 
         # the merged pipeline's fused attn1 q/k/v (K2's operand) are its
         # merged q, k and v
@@ -1497,7 +1564,7 @@ def phase_train(dev) -> tuple[dict, dict]:
         losses = [v for _, v in result["losses"]]
         print(f"train cache build ({TRAIN_IMAGES} images, SD v1.4 encoder + CLIP, bf16): "
               f"launches {fired(cache[0])} expected {EXPECTED_CACHE}", flush=True)
-        check_routes("train cache build", cache[1])
+        check_routes("train cache build", cache[1], {})
         print(f"train run_finetune SD v1.4 512px bf16 batch {TRAIN_BATCH} AdamW "
               f"{TRAIN_STEPS} steps remat=False: losses {losses}, step wall ms "
               f"{[round(t, 1) for t in step_ms]} (warm step {step_ms[-1]:.1f} ms), peak "
@@ -1508,6 +1575,8 @@ def phase_train(dev) -> tuple[dict, dict]:
         if fired(cache[0]) != EXPECTED_CACHE or fired(train[0]) != EXPECTED_TRAIN:
             fail(f"run_finetune launched {fired(cache[0])} building the cache and "
                  f"{fired(train[0])} training")
+        # every training K1 launch (bf16, d = 40) on the Hopper core
+        check_routes("train", train[1], {"sm90": EXPECTED_TRAIN["flash_attention_heads"]})
 
         tuned, cfg = load_native(result["out_path"], device=dev)
         base = flatten_tree(unfuse_qkv(sd.params["unet"]))
@@ -1545,7 +1614,10 @@ def phase_train(dev) -> tuple[dict, dict]:
             t0 = time.perf_counter()
             loss = float(step(params, state, batch, gen)[2])
             step_ms = 1e3 * (time.perf_counter() - t0)
-            counts = fired(read_and_zero()[0])
+            counts, step_shapes = read_and_zero()
+            counts = fired(counts)
+            check_routes(f"train step remat={remat!r}", step_shapes,
+                         {"sm90": expected["flash_attention_heads"]})
             print(f"train step remat={remat!r} bf16 batch {TRAIN_BATCH}: loss {loss:.5f}, warm "
                   f"step {step_ms:.1f} ms, peak memory "
                   f"{torch.cuda.max_memory_allocated(dev) / gib:.2f} GiB; launches {counts} "
@@ -1610,6 +1682,7 @@ def main() -> None:
         t = times[name]
         kernels_json.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
+            **({"sources_by_route": KERNEL_ROUTES[name]} if name in KERNEL_ROUTES else {}),
             "launches": launches[name], "max_abs_err": max_err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],

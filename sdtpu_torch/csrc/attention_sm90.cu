@@ -1,8 +1,13 @@
-// K2's attention core in bf16 on Hopper's warpgroup tensor-core
-// instructions: softmax(q kᵀ · d^-1/2) v per (batch, head), the core of
-// sdtpu/ops/fused_transformer.py:fused_self_attention (its Pallas body
-// `_kernel` :42, called at :145), whose two projections run on
-// csrc/gemm_sm90.cu.
+// The attention core in bf16 on Hopper's warpgroup tensor-core
+// instructions: softmax(q kᵀ · d^-1/2 + key_bias) v per (batch, head). Two
+// kernels of sdtpu run on it:
+// - K2, the core of sdtpu/ops/fused_transformer.py:fused_self_attention
+//   (its Pallas body `_kernel` :42, called at :145), whose two projections
+//   run on csrc/gemm_sm90.cu;
+// - K1, sdtpu/ops/flash_attention.py:flash_attention_heads (:220; Pallas
+//   calls :320, :332, :390, :408) at the head widths this file has an
+//   instance for, with its optional key bias and the rows' log-sum-exp that
+//   the backward (K9) takes. d = 512 and f32 stay on csrc/flash_attention.cu.
 //
 // What bounds it on the H100: 4·Sq·Sk·d operations per head against a few
 // [S, d] tensors, compute-bound at every UNet level (0.139 ms at the bf16
@@ -33,12 +38,23 @@
 //   O += P_{j−1}·V_{j−1}, waits for S_j alone, runs tile j's softmax into the
 //   second set of P fragments while the P·V product runs, then waits for it
 //   and rescales O. Only a last tile with keys past Sk is masked.
+// - K1's key bias (an additive f32 row [B][Sk], 0 or −1e30, shared by the
+//   heads of a batch element) is a 64-float row a key tile, copied by
+//   cp.async into the ring beside the tile's K and V, and added in the log2
+//   domain before the row maximum: s' = fma(s, scale·log2(e), bias·log2(e)).
+//   Instances without it (BIAS false) compile as K2's core did.
+// - With an lse pointer each row's log-sum-exp in the log2 domain,
+//   m + log2(l), is written once after the final reduction of l, as
+//   csrc/flash_attention.cu writes it: K9 rebuilds P = exp2(s·scale·log2(e)
+//   − lse) from it.
 //
-// The core reads q, k and v, and writes o, through (batch, head, row)
-// strides: K2 hands it the [B, S, 3C] QKV buffer (k and v C and 2C columns
-// to the right of q) and takes o as [B, S, C] with the heads merged. The
-// (dpad, tile, stages, shared memory) plan comes from Python
-// (sdtpu_torch/ops/fused_transformer.py:sm90_plan) and is checked here.
+// The core reads q, k and v, and writes o, through their own (batch, head,
+// row) strides: K2 hands it the [B, S, 3C] QKV buffer (k and v C and 2C
+// columns to the right of q) and takes o as [B, S, C] with the heads merged;
+// K1 hands it [B, H, S, d] views of [BH, S, d] tensors or of heads inside
+// [B, S, C] rows. The (dpad, tile, stages, shared memory) plan comes from
+// Python (sdtpu_torch/ops/flash_attention.py:core_sm90_plan) and is
+// checked here.
 #include <type_traits>
 
 #include "sm90.cuh"
@@ -52,11 +68,17 @@ using namespace sm90;
 // 128 query rows a CTA (two consumer warpgroups), key tiles of BT rows
 constexpr int A_ROWS = 128, A_NT = 256, A_MAX_SMEM = 232448, BT = 64;
 
+constexpr float LOG2E = 1.4426950408889634f;
+
 struct Sm90AttnArgs {
   const bf16* q; const bf16* k; const bf16* v; bf16* o;
   long long q_sb, q_sh, q_ss;  // (batch, head, row) strides of q
-  long long k_sb, k_sh, k_ss;  // of k and v
+  long long k_sb, k_sh, k_ss;  // of k
+  long long v_sb, v_sh, v_ss;  // of v
   long long o_sb, o_sh, o_ss;  // of o
+  const float* bias;           // [batch][bias_sb] additive key bias (BIAS instances)
+  long long bias_sb;
+  float* lse;                  // [BH][sq] log2-domain log-sum-exp, or null
   int n_head, sq, sk, d, stages;
   float scale_log2;
 };
@@ -65,9 +87,11 @@ template <int DP>
 __host__ __device__ constexpr int tile_bytes(int rows) {
   return rows * DP * 2;
 }
+// Q resident; a stage holds a K and a V tile, and with the bias the tile's
+// 64 f32 bias values (after the K and V tiles of every stage)
 template <int DP>
-__host__ __device__ constexpr int attn_smem(int stages) {
-  return tile_bytes<DP>(A_ROWS) + stages * 2 * tile_bytes<DP>(BT);
+__host__ __device__ constexpr int attn_smem(int stages, bool bias) {
+  return tile_bytes<DP>(A_ROWS) + stages * (2 * tile_bytes<DP>(BT) + (bias ? BT * 4 : 0));
 }
 
 __device__ __forceinline__ float fast_exp2(float x) {
@@ -76,18 +100,20 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-template <int DP>
+template <int DP, bool BIAS>
 __global__ void __launch_bounds__(A_NT, DP > 64 ? 1 : 2) attention_sm90_kernel(Sm90AttnArgs a) {
   constexpr int STAGE = 2 * tile_bytes<DP>(BT);
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t s_q = smem_u32(smem), s_ring = s_q + tile_bytes<DP>(A_ROWS);
+  const uint32_t s_bias = s_ring + a.stages * STAGE;  // BIAS: a 64-float row a stage
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wg = warp / 4, wl = warp % 4, g = lane / 4, t = lane % 4;
   const int bh = blockIdx.y, bb = bh / a.n_head, hh = bh % a.n_head;
   const int q0 = blockIdx.x * A_ROWS;
   const bf16* K = a.k + bb * a.k_sb + hh * a.k_sh;
-  const bf16* V = a.v + bb * a.k_sb + hh * a.k_sh;
+  const bf16* V = a.v + bb * a.v_sb + hh * a.v_sh;
+  const float* KB = BIAS ? a.bias + bb * a.bias_sb : nullptr;
   const int nk = (a.sk + BT - 1) / BT, stages = a.stages;
   // tile j's V is read by the products issued in step j + 1, so the ring
   // runs stages − 2 tiles ahead
@@ -96,7 +122,13 @@ __global__ void __launch_bounds__(A_NT, DP > 64 ? 1 : 2) attention_sm90_kernel(S
   auto load_stage = [&](int j) {
     const uint32_t st = s_ring + (j % stages) * STAGE;
     load_tile<DP, A_NT>(st, K, a.k_ss, j * BT, BT, a.sk, a.d);
-    load_tile<DP, A_NT>(st + tile_bytes<DP>(BT), V, a.k_ss, j * BT, BT, a.sk, a.d);
+    load_tile<DP, A_NT>(st + tile_bytes<DP>(BT), V, a.v_ss, j * BT, BT, a.sk, a.d);
+    if constexpr (BIAS) {
+      const int key = j * BT + threadIdx.x;
+      if (threadIdx.x < BT)
+        cp_async4_s(s_bias + (j % stages) * BT * 4 + threadIdx.x * 4,
+                    key < a.sk ? KB + key : KB, key < a.sk);
+    }
   };
 
   load_tile<DP, A_NT>(s_q, a.q + bb * a.q_sb + hh * a.q_sh, a.q_ss, q0, A_ROWS, a.sq, a.d);
@@ -159,7 +191,9 @@ __global__ void __launch_bounds__(A_NT, DP > 64 ? 1 : 2) attention_sm90_kernel(S
   // P = exp2(s·scale·log2(e) − m) packed to bf16 in place as the A operand
   // of P·V (K step kk takes registers 8kk .. 8kk + 7), l rescaled and
   // summed; returns O's factor in alpha. MASK: keys past Sk take no weight
-  // (the last tile, when Sk is not a multiple of BT).
+  // (the last tile, when Sk is not a multiple of BT). BIAS: the scores are
+  // first taken to the log2 domain with the key bias added, so that the
+  // maximum is that of s·scale + bias.
   auto softmax = [&](auto mask, uint32_t(&pf)[BT / 16][4], int j, float(&alpha)[2]) {
     fence_regs<BT / 2>(s);
     if constexpr (decltype(mask)::value) {
@@ -168,6 +202,22 @@ __global__ void __launch_bounds__(A_NT, DP > 64 ? 1 : 2) attention_sm90_kernel(S
 #pragma unroll
         for (int e = 0; e < 2; ++e)
           if (j * BT + 8 * i + 2 * t + e >= a.sk) s[4 * i + e] = s[4 * i + 2 + e] = -INFINITY;
+    }
+    // the factor that takes a score to the log2 domain in the max and exp2
+    // below: 1 once BIAS has done so here
+    float sl2 = a.scale_log2;
+    if constexpr (BIAS) {
+      const float* kb = reinterpret_cast<const float*>(smem + (s_bias - s_q)) + (j % stages) * BT;
+#pragma unroll
+      for (int i = 0; i < BT / 8; ++i) {
+        const float2 bv = *reinterpret_cast<const float2*>(kb + 8 * i + 2 * t);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          s[4 * i + 2 * h] = fmaf(s[4 * i + 2 * h], sl2, bv.x * LOG2E);
+          s[4 * i + 2 * h + 1] = fmaf(s[4 * i + 2 * h + 1], sl2, bv.y * LOG2E);
+        }
+      }
+      sl2 = 1.f;
     }
     float mx[2] = {-INFINITY, -INFINITY}, mneg[2];
 #pragma unroll
@@ -179,7 +229,7 @@ __global__ void __launch_bounds__(A_NT, DP > 64 ? 1 : 2) attention_sm90_kernel(S
     for (int h = 0; h < 2; ++h) {
       mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
       mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      const float m_new = fmaxf(m[h], mx[h] * a.scale_log2);  // a tile holds a key: finite
+      const float m_new = fmaxf(m[h], mx[h] * sl2);  // a tile holds a key: finite
       alpha[h] = fast_exp2(m[h] - m_new);
       m[h] = m_new;
       mneg[h] = -m_new;
@@ -189,8 +239,8 @@ __global__ void __launch_bounds__(A_NT, DP > 64 ? 1 : 2) attention_sm90_kernel(S
     for (int i = 0; i < BT / 8; ++i) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const float p0 = fast_exp2(fmaf(s[4 * i + 2 * h], a.scale_log2, mneg[h]));
-        const float p1 = fast_exp2(fmaf(s[4 * i + 2 * h + 1], a.scale_log2, mneg[h]));
+        const float p0 = fast_exp2(fmaf(s[4 * i + 2 * h], sl2, mneg[h]));
+        const float p1 = fast_exp2(fmaf(s[4 * i + 2 * h + 1], sl2, mneg[h]));
         l[h] += p0 + p1;
         pf[i / 2][(i % 2) * 2 + h] = pack_bf16(p0, p1);
       }
@@ -260,13 +310,17 @@ __global__ void __launch_bounds__(A_NT, DP > 64 ? 1 : 2) attention_sm90_kernel(S
   }
   cp_async_wait<0>();
 
-  // O / l, rows past Sq and columns past d dropped
+  // O / l, rows past Sq and columns past d dropped; the rows' log2-domain
+  // log-sum-exp m + log2(l), once a row
   float inv[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
     inv[h] = 1.f / l[h];
+    const int row = q0 + wg * 64 + wl * 16 + g + 8 * h;
+    if (a.lse != nullptr && t == 0 && row < a.sq)
+      a.lse[(long long)bh * a.sq + row] = m[h] + log2f(l[h]);
   }
   bf16* O = a.o + bb * a.o_sb + hh * a.o_sh;
 #pragma unroll
@@ -283,34 +337,45 @@ __global__ void __launch_bounds__(A_NT, DP > 64 ? 1 : 2) attention_sm90_kernel(S
   }
 }
 
-template <int DP>
+template <int DP, bool BIAS>
 cudaError_t launch_attention_sm90(const Sm90AttnArgs& a, int BH, int smem, cudaStream_t stream) {
-  if (smem != attn_smem<DP>(a.stages) || smem > A_MAX_SMEM) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(attention_sm90_kernel<DP>,
+  if (smem != attn_smem<DP>(a.stages, BIAS) || smem > A_MAX_SMEM) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(attention_sm90_kernel<DP, BIAS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  attention_sm90_kernel<DP>
+  attention_sm90_kernel<DP, BIAS>
       <<<dim3((a.sq + A_ROWS - 1) / A_ROWS, BH), A_NT, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t launch_attention_sm90(const Sm90AttnArgs& a, int BH, int smem, cudaStream_t stream) {
+  return a.bias ? launch_attention_sm90<DP, true>(a, BH, smem, stream)
+                : launch_attention_sm90<DP, false>(a, BH, smem, stream);
 }
 
 }  // namespace
 }  // namespace sdk
 
-// o = softmax(q kᵀ · scale) v for each of the BH (batch, head) pairs, bf16,
-// f32 statistics. Element (row r, column c) of head h of batch b lies at
-// q + b·q_sb + h·q_sh + r·q_ss + c (k and v share their strides; o has its
-// own); every stride a multiple of 8 elements. d <= dpad: the plan from
-// Python, dpad = 16·ceil(d / 16) in {48, 64, 80, 160}, tile = the key
-// tiles' rows (64), `stages` of the ring, smem_bytes.
+// o = softmax(q kᵀ · scale + bias) v for each of the BH (batch, head)
+// pairs, bf16, f32 statistics. Element (row r, column c) of head h of batch
+// b lies at q + b·q_sb + h·q_sh + r·q_ss + c, and likewise in k, v and o
+// through their own strides; every stride a multiple of 8 elements. bias:
+// null, or the f32 row bias + b·bias_sb of Sk values added to every head of
+// batch b. lse: null, or [BH][sq] f32 that takes each row's log-sum-exp in
+// the log2 domain. d <= dpad: the plan from Python, dpad = 16·ceil(d / 16)
+// in {48, 64, 80, 160}, tile = the key tiles' rows (64), `stages` of the
+// ring, smem_bytes (with the bias, 256 more a stage).
 extern "C" int sdk_attention_sm90(const void* q, const void* k, const void* v, void* o,
                                   long long q_sb, long long q_sh, long long q_ss, long long k_sb,
-                                  long long k_sh, long long k_ss, long long o_sb, long long o_sh,
-                                  long long o_ss, int BH, int n_head, int sq, int sk, int d,
-                                  float scale, int dpad, int tile, int stages, int smem_bytes,
-                                  void* stream) {
+                                  long long k_sh, long long k_ss, long long v_sb, long long v_sh,
+                                  long long v_ss, long long o_sb, long long o_sh, long long o_ss,
+                                  const float* bias, long long bias_sb, float* lse, int BH,
+                                  int n_head, int sq, int sk, int d, float scale, int dpad,
+                                  int tile, int stages, int smem_bytes, void* stream) {
   using sdk::bf16;
-  const long long strides[] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, o_sb, o_sh, o_ss};
+  const long long strides[] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
+                               o_sb, o_sh, o_ss};
   for (long long s : strides)
     if (s % 8) return (int)cudaErrorInvalidValue;
   const void* ptrs[] = {q, k, v, o};
@@ -319,10 +384,11 @@ extern "C" int sdk_attention_sm90(const void* q, const void* k, const void* v, v
   if (d <= 0 || d % 8 || dpad != (d + 15) / 16 * 16 || sq <= 0 || sk <= 0 || n_head <= 0 ||
       BH <= 0 || BH % n_head || stages < 3)
     return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(lse) % 4 || bias_sb < 0) return (int)cudaErrorInvalidValue;
   sdk::Sm90AttnArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                       static_cast<const bf16*>(v), static_cast<bf16*>(o), q_sb, q_sh, q_ss,
-                      k_sb, k_sh, k_ss, o_sb, o_sh, o_ss, n_head, sq, sk, d, stages,
-                      scale * 1.4426950408889634f};
+                      k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, bias, bias_sb, lse,
+                      n_head, sq, sk, d, stages, scale * sdk::LOG2E};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tile != sdk::BT) return (int)cudaErrorInvalidValue;
   if (dpad == 48) return (int)sdk::launch_attention_sm90<48>(a, BH, smem_bytes, s);

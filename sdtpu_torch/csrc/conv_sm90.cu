@@ -1,10 +1,24 @@
-// K6 in bf16: the fused 3x3 convolution, sdtpu/ops/fused_conv.py:
-// conv3x3_fused (its Pallas body `_kernel` / `_conv_part` :96/:44, called at
-// :232), on Hopper's TMA and warpgroup tensor-core instructions:
+// K6 and K4 in bf16, on Hopper's TMA and warpgroup tensor-core
+// instructions:
+// - K6, the fused 3x3 convolution, sdtpu/ops/fused_conv.py:conv3x3_fused
+//   (its Pallas body `_kernel` / `_conv_part` :96/:44, called at :232):
 //
-//   y = conv3x3(act(x·scale + shift)) + b [+ residual], act = SiLU or none,
-//   with the zero padding applied after the prologue, over the implicit
-//   channel concat [x, x2], and per-channel (Σy, Σy²) of the f32 y.
+//     y = conv3x3(act(x·scale + shift)) + b [+ residual], act = SiLU or
+//     none, with the zero padding applied after the prologue, over the
+//     implicit channel concat [x, x2], and per-channel (Σy, Σy²) of the
+//     f32 y;
+//
+// - K4, the fused 1x1 convolution, sdtpu/ops/fused_conv.py:conv1x1_fused
+//   (its Pallas body `_mm_kernel` :406, called at :473): the same kernel at
+//   one tap (TAPS = 1), y = act(x·scale + shift)·W + b [+ residual], act =
+//   SiLU or none (the UNet's proj_in takes the GroupNorm affine alone),
+//   over x viewed as [B][rows][C]: its A box is a TMA box of a 3-D tensor
+//   map (64 channels, 128 rows, 1 image) at the tile's own rows, zeros past
+//   the last row, whose rows are neither stored nor counted; no border
+//   mask. What bounds K4 on the H100 is bytes (2·C operations per output
+//   value against 2–3 bf16 values of it at C = 320–640, below the card's
+//   295 operations a byte): one read of x and one write of y, the prologue
+//   applied once an A element where one tile spans Co (320 channels).
 //
 // What bounds it on the H100: 2·9·(C1 + C2)·Co operations per pixel against
 // (C1 + C2 + Co) bf16 values of it: compute-bound at every main-path shape
@@ -54,10 +68,9 @@
 // tile, read by all nine taps through shifted ldmatrix rows, was slower
 // on the H100 (PERF.md, PR 6). The tile plan (bn, the box, the stages, the
 // shared-memory bytes) comes from Python (sdtpu_torch/ops/fused_conv.py:
-// sm90_plan) and is checked here. Other shapes, an affine prologue without
-// SiLU, and f32 take the WMMA implicit GEMM (csrc/gemm.cu).
-#include <type_traits>
-
+// sm90_plan, and conv1x1_sm90_plan for K4) and is checked here. Other
+// shapes, K6 with an affine prologue without SiLU, and f32 take the WMMA
+// kernels (csrc/gemm.cu).
 #include "sm90.cuh"
 
 namespace sdk {
@@ -72,6 +85,8 @@ constexpr int V_BM = 128, V_BK = 64, V_BOX = 64;
 constexpr int V_CONSUMERS = 256, V_NT = V_CONSUMERS + 128;
 constexpr uint32_t V_A_BYTES = V_BM * V_BK * 2, V_W_BYTES = V_BK * V_BOX * 2;
 constexpr int V_MAX_SMEM = 232448;
+// prologues: none, the GroupNorm affine, the affine then SiLU
+constexpr int PRO_NONE = 0, PRO_AFFINE = 1, PRO_SILU = 2;
 
 struct ConvSm90 {
   const bf16* bias;     // [Co], or null
@@ -118,8 +133,9 @@ __device__ __forceinline__ void conv_mma(float* acc, const uint32_t* af, uint32_
   }
 }
 
-// PRO: the GroupNorm affine and SiLU prologue (else none)
-template <int BN, bool PRO>
+// PRO: the prologue (PRO_NONE, PRO_AFFINE, PRO_SILU); TAPS: 9 (K6, map_x
+// 4-D) or 1 (K4, map_x 3-D over [B][rows][C], read with H = rows, W = 1)
+template <int BN, int PRO, int TAPS>
 __global__ void __launch_bounds__(V_NT, 1)
     conv_sm90_kernel(const __grid_constant__ CUtensorMap map_x,
                      const __grid_constant__ CUtensorMap map_x2,
@@ -136,7 +152,7 @@ __global__ void __launch_bounds__(V_NT, 1)
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int ct = p.C1 + p.C2, kpt = ct / V_BK;  // K blocks a tap
-  const int nk = 9 * kpt;
+  const int nk = TAPS * kpt;
   const int bw = p.bw, bh = V_BM / bw, tiles_w = p.W / bw;
   const int b = blockIdx.z, tile = blockIdx.y;
   const int i0 = tile / tiles_w * bh, j0 = tile % tiles_w * bw;
@@ -163,7 +179,9 @@ __global__ void __launch_bounds__(V_NT, 1)
         unsigned char* st = smem + s * STAGE;
         const int tap = kb / kpt, c0 = (kb - tap * kpt) * V_BK;
         const int dy = tap / 3, dx = tap % 3;
-        if (c0 < p.C1)
+        if constexpr (TAPS == 1)
+          tma_load_3d(st, &map_x, &full[s], c0, i0, b);
+        else if (c0 < p.C1)
           tma_load_4d(st, &map_x, &full[s], c0, j0 + dx - 1, i0 + dy - 1, b);
         else
           tma_load_4d(st, &map_x2, &full[s], c0 - p.C1, j0 + dx - 1, i0 + dy - 1, b);
@@ -182,7 +200,7 @@ __global__ void __launch_bounds__(V_NT, 1)
   const int wg = warp / 4, wl = warp % 4;
   const int g = lane / 4, t = lane % 4;
   const int row_w = wg * 64 + wl * 16;  // this warp's first pixel in the tile
-  if constexpr (PRO) {
+  if constexpr (PRO != PRO_NONE) {
     for (int c = tid; c < ct; c += V_CONSUMERS)
       s_aff[c] = c < p.C1 ? make_float2(p.scale[b * p.ld_s + c], p.shift[b * p.ld_s + c])
                           : make_float2(p.scale2[b * p.ld_s2 + c - p.C1],
@@ -209,7 +227,7 @@ __global__ void __launch_bounds__(V_NT, 1)
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
 
   // K block kb: wait for its stage, load this warp's A fragments with
-  // ldmatrix, apply the prologue and then the border mask in registers
+  // ldmatrix, apply the prologue and then (3x3) the border mask in registers
   auto prepare = [&](uint32_t(&af)[4][4], int kb) {
     const int s = kb % stages;
     mbar_wait(&full[s], (kb / stages) & 1);
@@ -217,13 +235,16 @@ __global__ void __launch_bounds__(V_NT, 1)
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks)
       ldmatrix_x4(af[ks], a_base + (((ks * 2 + lchunk) ^ (lrow & 7)) << 4));
-    if constexpr (!PRO) return;
+    if constexpr (PRO == PRO_NONE) return;
     const int tap = kb / kpt, c0 = (kb - tap * kpt) * V_BK;
     const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-    bool inside[2];
+    bool inside[2] = {true, true};  // one tap: no border
+    if constexpr (TAPS != 1) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
-      inside[h] = (unsigned)(pi[h] + dy) < (unsigned)p.H && (unsigned)(pj[h] + dx) < (unsigned)p.W;
+      for (int h = 0; h < 2; ++h)
+        inside[h] =
+            (unsigned)(pi[h] + dy) < (unsigned)p.H && (unsigned)(pj[h] + dx) < (unsigned)p.W;
+    }
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks) {
       // register j holds (row g + 8·(j & 1), channels c, c + 1) with
@@ -235,10 +256,13 @@ __global__ void __launch_bounds__(V_NT, 1)
         for (int h = 0; h < 2; ++h) {
           const int j = half * 2 + h;
           const float2 x = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&af[ks][j]));
-          const float h0 = 0.5f * fmaf(x.x, a.x, a.y), h1 = 0.5f * fmaf(x.y, a.z, a.w);
-          af[ks][j] = inside[h] ? pack_bf16(fmaf(h0, tanh_approx(h0), h0),
-                                            fmaf(h1, tanh_approx(h1), h1))
-                                : 0u;
+          float v0 = fmaf(x.x, a.x, a.y), v1 = fmaf(x.y, a.z, a.w);
+          if constexpr (PRO == PRO_SILU) {
+            const float h0 = 0.5f * v0, h1 = 0.5f * v1;
+            v0 = fmaf(h0, tanh_approx(h0), h0);
+            v1 = fmaf(h1, tanh_approx(h1), h1);
+          }
+          af[ks][j] = inside[h] ? pack_bf16(v0, v1) : 0u;
         }
       }
     }
@@ -379,17 +403,28 @@ cudaError_t make_map_nhwc(CUtensorMap* map, const void* ptr, int B, int H, int W
   return make_map(map, ptr, 4, dims, strides, box);
 }
 
-template <int BN, bool PRO>
+template <int BN, int PRO, int TAPS>
 cudaError_t launch_conv_sm90(const CUtensorMap& mx, const CUtensorMap& mx2, const CUtensorMap& mw,
                              const ConvSm90& p, int B, int tiles, int smem, cudaStream_t stream) {
-  if (smem != smem_needed<BN>(p.stages, p.C1 + p.C2, PRO) || smem > V_MAX_SMEM)
+  if (smem != smem_needed<BN>(p.stages, p.C1 + p.C2, PRO != PRO_NONE) || smem > V_MAX_SMEM)
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(conv_sm90_kernel<BN, PRO>,
+  cudaError_t err = cudaFuncSetAttribute(conv_sm90_kernel<BN, PRO, TAPS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((p.Co + BN - 1) / BN, tiles, B);
-  conv_sm90_kernel<BN, PRO><<<grid, V_NT, smem, stream>>>(mx, mx2, mw, p);
+  conv_sm90_kernel<BN, PRO, TAPS><<<grid, V_NT, smem, stream>>>(mx, mx2, mw, p);
   return cudaGetLastError();
+}
+
+// the instance for a tile width known at run time
+template <int PRO, int TAPS>
+cudaError_t launch_conv_sm90(int bn, const CUtensorMap& mx, const CUtensorMap& mx2,
+                             const CUtensorMap& mw, const ConvSm90& p, int B, int tiles, int smem,
+                             cudaStream_t s) {
+  if (bn == 128) return launch_conv_sm90<128, PRO, TAPS>(mx, mx2, mw, p, B, tiles, smem, s);
+  if (bn == 256) return launch_conv_sm90<256, PRO, TAPS>(mx, mx2, mw, p, B, tiles, smem, s);
+  if (bn == 320) return launch_conv_sm90<320, PRO, TAPS>(mx, mx2, mw, p, B, tiles, smem, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -425,8 +460,7 @@ extern "C" int sdk_conv3x3_sm90(const void* x, const void* x2, const void* w, co
   CUtensorMap mx, mx2, mw;
   cudaError_t err = make_map_nhwc(&mx, x, B, H, W, C1, bw);
   if (err == cudaSuccess && x2) err = make_map_nhwc(&mx2, x2, B, H, W, C2, bw);
-  if (err == cudaSuccess)
-    err = sm90::make_map_2d(&mw, w, Co, 9LL * (C1 + C2), Co, V_BOX, V_BK);
+  if (err == cudaSuccess) err = sm90::make_map_2d(&mw, w, Co, 9LL * (C1 + C2), Co, V_BOX, V_BK);
   if (err != cudaSuccess) return (int)err;
   if (!x2) mx2 = mx;  // never read
   ConvSm90 p{static_cast<const bf16*>(bias), scale, shift, scale2, shift2, ld_s, ld_s2,
@@ -434,12 +468,45 @@ extern "C" int sdk_conv3x3_sm90(const void* x, const void* x2, const void* w, co
              H, W, C1, C2, Co, bw, stages};
   const int tiles = (H + V_BM / bw - 1) / (V_BM / bw) * (W / bw);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto launch = [&](auto with_prologue) {
-    constexpr bool PRO = decltype(with_prologue)::value;
-    if (bn == 128) return launch_conv_sm90<128, PRO>(mx, mx2, mw, p, B, tiles, smem_bytes, s);
-    if (bn == 256) return launch_conv_sm90<256, PRO>(mx, mx2, mw, p, B, tiles, smem_bytes, s);
-    if (bn == 320) return launch_conv_sm90<320, PRO>(mx, mx2, mw, p, B, tiles, smem_bytes, s);
-    return cudaErrorInvalidValue;
-  };
-  return (int)(pro ? launch(std::true_type{}) : launch(std::false_type{}));
+  return (int)(pro ? launch_conv_sm90<PRO_SILU, 9>(bn, mx, mx2, mw, p, B, tiles, smem_bytes, s)
+                   : launch_conv_sm90<PRO_NONE, 9>(bn, mx, mx2, mw, p, B, tiles, smem_bytes, s));
+}
+
+// K4: y [B][rows][Co] = act(x·scale + shift)·w + bias [+ res], bf16. x
+// [B][rows][C]; w [C][Co]; bias [Co] bf16 or null; scale/shift [B][ld_s]
+// f32 (C used), or both null (no prologue); act = SiLU when silu, else
+// none; res like y, or null; stats [B][row tiles][2][Co] f32 or null, row
+// tiles = ceil(rows / 128). C a multiple of 64, Co of 8. The plan from
+// Python: bn output channels a tile (128, 256 or 320), `stages`,
+// smem_bytes.
+extern "C" int sdk_conv1x1_sm90(const void* x, const void* w, const void* bias,
+                                const float* scale, const float* shift, long long ld_s, int silu,
+                                const void* res, void* out, float* stats, int B, int rows, int C,
+                                int Co, int bn, int stages, int smem_bytes, void* stream) {
+  using namespace sdk;
+  const void* ptrs[] = {x, w, res, out};
+  for (const void* q : ptrs)
+    if (q && !sm90::aligned16(q)) return (int)cudaErrorInvalidValue;
+  const bool pro = scale != nullptr;
+  if (B <= 0 || rows <= 0 || C <= 0 || C % V_BK || Co <= 0 || Co % 8 ||
+      reinterpret_cast<uintptr_t>(bias) % 4 || stages < 2 || (shift != nullptr) != pro ||
+      (pro && ld_s < C))
+    return (int)cudaErrorInvalidValue;
+  // x as [B][rows][C], in boxes of 64 channels x 128 rows x 1 image
+  CUtensorMap mx, mw;
+  const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)rows, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)C * 2, (cuuint64_t)rows * C * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)V_BK, (cuuint32_t)V_BM, 1};
+  cudaError_t err = sm90::make_map(&mx, x, 3, dims, strides, box);
+  if (err == cudaSuccess) err = sm90::make_map_2d(&mw, w, Co, C, Co, V_BOX, V_BK);
+  if (err != cudaSuccess) return (int)err;
+  // the map's rows as a 1-pixel-wide image: tile t is rows 128t .. 128t + 127
+  ConvSm90 p{static_cast<const bf16*>(bias), scale, shift, nullptr, nullptr, ld_s, 0,
+             static_cast<const bf16*>(res), static_cast<bf16*>(out), stats,
+             rows, 1, C, 0, Co, 1, stages};
+  const int tiles = (rows + V_BM - 1) / V_BM;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!pro) return (int)launch_conv_sm90<PRO_NONE, 1>(bn, mx, mx, mw, p, B, tiles, smem_bytes, s);
+  if (silu) return (int)launch_conv_sm90<PRO_SILU, 1>(bn, mx, mx, mw, p, B, tiles, smem_bytes, s);
+  return (int)launch_conv_sm90<PRO_AFFINE, 1>(bn, mx, mx, mw, p, B, tiles, smem_bytes, s);
 }

@@ -1,7 +1,10 @@
 // K1: flash attention forward, sdtpu/ops/flash_attention.py:flash_attention_heads
 // (its four Pallas bodies: _fullk_kernel, _fullk_bias_kernel, _flash_kernel
 // and _flash_ot_kernel; the full-K and transposed-output forms are TPU layout
-// choices, so one online-softmax kernel covers them all).
+// choices, so one online-softmax kernel covers them all). Its route in f32
+// and at head widths the Hopper core (csrc/attention_sm90.cu) has no
+// instance for, the VAE's d = 512 among them; bf16 at d <= 160 takes the
+// core.
 //
 // o = softmax(q k^T · d^-1/2 + key_bias) v per (batch, head), f32 statistics,
 // output in the input type. key_bias is an optional additive f32 row

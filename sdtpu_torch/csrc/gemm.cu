@@ -1,5 +1,8 @@
 // One tiled GEMM with a row prologue and an elementwise epilogue. It carries
-// the products inside six sdtpu Pallas kernels:
+// the products inside six sdtpu Pallas kernels: K7's in both dtypes, and
+// the f32 routes of the others (their bf16 routes run on Hopper's own
+// instructions: K2's projections and K5 on csrc/gemm_sm90.cu, K4 and K6 on
+// csrc/conv_sm90.cu):
 //
 //   K2 sdtpu/ops/fused_transformer.py:fused_self_attention — LN(x)·[Wq|Wk|Wv]
 //      (LayerNorm prologue) and o·Wo + bo + x (bias + residual epilogue);

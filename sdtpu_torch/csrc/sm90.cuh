@@ -72,6 +72,16 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const void* map, uint64_t
       : "memory");
 }
 
+// one 3-D box (c0 innermost, then c1, c2), zeros past the map's end
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* map, uint64_t* bar, int c0,
+                                            int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // one 4-D box (c0 innermost, then c1, c2, c3); coordinates may be negative
 // or past the map's end, and TMA fills those elements with zeros
 __device__ __forceinline__ void tma_load_4d(void* dst, const void* map, uint64_t* bar, int c0,
@@ -88,6 +98,12 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* map, uint64_t
 __device__ __forceinline__ void cp_async16_s(uint32_t dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
                "r"(valid ? 16 : 0));
+}
+// ---- cp.async of 4 bytes (an f32) into shared memory, zero-filled when
+// !valid
+__device__ __forceinline__ void cp_async4_s(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0));
 }
 // cp.async.wait_group for a count known at run time (a larger count than
 // 3 waits for more groups than it must, never for fewer)

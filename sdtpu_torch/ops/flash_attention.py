@@ -6,12 +6,16 @@ K1, softmax(q kᵀ · d^-1/2 + key_bias) v per (batch·head), f32 statistics,
 the output in the input dtype; the same as the reference's dual d^-1/4
 scaling of q and k. It replaces the Pallas `_fullk_kernel`,
 `_fullk_bias_kernel`, `_flash_kernel` and `_flash_ot_kernel`
-(sdtpu/ops/flash_attention.py:320, :332, :390, :408) with one hand-written
-CUDA kernel, csrc/flash_attention.cu: an online softmax over key tiles that
-never holds the [Sq, Sk] score matrix in HBM. On the 1024px main path it
-runs the VAE decoder's mid-block attention (one head, S = 16384, d = 512),
-which is compute-bound (4·S²·d flops); see the kernel's source for how
-d = 512 fits. For training it also writes each row's log-sum-exp.
+(sdtpu/ops/flash_attention.py:320, :332, :390, :408) with an online
+softmax over key tiles that never holds the [Sq, Sk] score matrix in HBM,
+compute-bound (4·Sq·Sk·d flops). For training it also writes each row's
+log-sum-exp. Two routes, chosen by fwd_route: bf16 at the head widths the
+Hopper core has an instance for (padded to 48, 64, 80 or 160: training's
+d = 40) takes csrc/attention_sm90.cu, K2's wgmma core with the key bias
+and the log-sum-exp; f32 and the other widths take csrc/flash_attention.cu
+(WMMA), which also runs the VAE decoder's mid-block attention on the
+1024px main path (one head, S = 16384, d = 512; see that source for how
+d = 512 fits).
 
 K9, the gradients (dq, dk, dv) of mask-free attention, replaces the Pallas
 `_fullk_bwd_kernel` (sdtpu/ops/flash_attention.py:531, called at :613) with
@@ -130,16 +134,64 @@ def flash_attention_heads_plain(q, k, v, key_bias=None, n_head: int = 1,
     return (out, lse) if return_lse else out
 
 
-def _attend(q, k, v, key_bias, out, lse=None):
+# csrc/attention_sm90.cu: 128 query rows a CTA (two consumer warpgroups of
+# 64), head widths padded to these (instances), key tiles of 64 rows; its
+# ring runs stages − 2 tiles ahead (tile j's V is read in step j + 1), so it
+# takes at least 3
+SM90_ATTN_ROWS = 128
+SM90_ATTN_DPADS = (48, 64, 80, 160)
+SM90_ATTN_TILE = 64
+SM90_ATTN_STAGES = 4
+
+
+class CorePlan(NamedTuple):
+    """One launch of csrc/attention_sm90.cu (K2's core, and K1's bf16
+    route): the padded head width, the key tiles' rows, the ring's stages
+    and the dynamic shared memory."""
+    dpad: int
+    tile: int
+    stages: int
+    smem: int
+
+
+def core_sm90_plan(d: int, bias: bool = False) -> CorePlan | None:
+    """The Hopper core's plan for head width d, or None where it has no
+    instance: Q (128 rows) resident, and `stages` K and V tiles in the ring,
+    with a key bias also the tile's 64 f32 bias values a stage."""
+    if d <= 0 or d % 8:
+        return None
+    dpad = -(-d // 16) * 16
+    if dpad not in SM90_ATTN_DPADS:
+        return None
+    resident = SM90_ATTN_ROWS * dpad * 2
+    stage = 2 * SM90_ATTN_TILE * dpad * 2 + (SM90_ATTN_TILE * 4 if bias else 0)
+    stages = min(SM90_ATTN_STAGES, (kernels.SMEM_LIMIT - resident) // stage)
+    return CorePlan(dpad, SM90_ATTN_TILE, stages, resident + stages * stage)
+
+
+def fwd_route(dtype, d: int, bias: bool) -> CorePlan | None:
+    """K1's route: the Hopper core's plan (csrc/attention_sm90.cu) for bf16
+    at the head widths it has an instance for (d = 40, 64, 80, 160 and the
+    others that pad to 48, 64, 80 or 160), else None: f32 and the other
+    widths (the VAE's d = 512) take csrc/flash_attention.cu."""
+    return core_sm90_plan(d, bias) if dtype == torch.bfloat16 else None
+
+
+def _attend(q, k, v, key_bias, out, lse=None, route: str = "auto"):
     """Attention over [B, H, S, d] views into out; the plain version for
     CPU tensors, K1 for CUDA tensors. lse: optional [B·H, Sq] f32 that takes
-    the rows' log2-domain log-sum-exp."""
+    the rows' log2-domain log-sum-exp. route "wmma" takes the WMMA kernel
+    (csrc/flash_attention.cu) whatever the dtype, for timing the two kernels
+    against each other; "auto" chooses by fwd_route."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     if kernels.on_cpu(q, k, v, key_bias, out, lse):
         return _attend_plain(q, k, v, key_bias, out,
                              None if lse is None else lse.view(b, h, sq))
     bad = []
+    if k.shape != v.shape or k.shape[:2] != q.shape[:2] or k.shape[3] != d or out.shape != q.shape:
+        bad.append(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, out "
+                   f"{tuple(out.shape)} do not fit")
     _check_layout(d, MAX_HEAD_DIM,
                   [("q", q), ("k", k), ("v", v), ("out", out)], bad)
     if lse is not None and (lse.dtype != torch.float32 or not lse.is_contiguous()
@@ -149,15 +201,24 @@ def _attend(q, k, v, key_bias, out, lse=None):
         raise ValueError("flash attention: " + ", ".join(bad))
     if key_bias is not None:
         key_bias = key_bias.float().reshape(b, sk).contiguous()
+    plan = fwd_route(q.dtype, d, key_bias is not None) if route == "auto" else None
     with torch.cuda.device(q.device):
-        rc = kernels.lib().sdk_flash_attention(
-            kernels.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-            kernels.ptr(key_bias), kernels.ptr(lse), b * h, h, sq, sk, d,
-            float(d) ** -0.5, kernels.stream(q))
-    kernels.check(rc, "sdk_flash_attention")
+        if plan is None:
+            rc = kernels.lib().sdk_flash_attention(
+                kernels.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                out.data_ptr(), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                *out.stride()[:3], kernels.ptr(key_bias), kernels.ptr(lse), b * h, h, sq, sk,
+                d, float(d) ** -0.5, kernels.stream(q))
+        else:
+            rc = kernels.lib().sdk_attention_sm90(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *q.stride()[:3],
+                *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], kernels.ptr(key_bias), sk,
+                kernels.ptr(lse), b * h, h, sq, sk, d, float(d) ** -0.5, *plan,
+                kernels.stream(q))
+    kernels.check(rc, "sdk_flash_attention" if plan is None else "sdk_attention_sm90")
     kernels.count(flash_attention_heads, b=b, h=h, sq=sq, sk=sk, d=d,
-                  bias=key_bias is not None, lse=lse is not None)
+                  bias=key_bias is not None, lse=lse is not None,
+                  route="wmma" if plan is None else "sm90")
     return out
 
 
@@ -167,8 +228,14 @@ def flash_attention_heads(q, k, v, key_bias=None, n_head: int = 1, return_lse: b
     applied to every head of its batch element. Returns [BH, Sq, D] in q's
     dtype, and with return_lse also the rows' log2-domain log-sum-exp
     [BH, Sq] f32 (what K9 takes). CPU tensors take the plain version; CUDA
-    tensors the kernel, which is forward-only: it raises on an input that
-    requires grad (flash_qkv_attention_diff is the differentiable form)."""
+    tensors the kernel (see fwd_route), which is forward-only: it raises on
+    an input that requires grad (flash_qkv_attention_diff is the
+    differentiable form)."""
+    return _heads(q, k, v, key_bias, n_head, return_lse, "auto")
+
+
+def _heads(q, k, v, key_bias, n_head, return_lse, route):
+    """flash_attention_heads on the given route (see _attend)."""
     if not kernels.on_cpu(q, k, v, key_bias):
         kernels.refuse_autograd("flash_attention_heads (K1)", q, k, v, key_bias)
     out = torch.empty_like(q)
@@ -176,7 +243,7 @@ def flash_attention_heads(q, k, v, key_bias=None, n_head: int = 1, return_lse: b
     if return_lse:
         lse = torch.empty((q.shape[0], q.shape[1]), dtype=torch.float32, device=q.device)
     _attend(_heads4(q, n_head), _heads4(k, n_head), _heads4(v, n_head), key_bias,
-            _heads4(out, n_head), lse)
+            _heads4(out, n_head), lse, route)
     return (out, lse) if return_lse else out
 
 

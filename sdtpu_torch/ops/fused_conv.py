@@ -2,11 +2,12 @@
 of sdtpu/ops/fused_conv.py): K4 conv1x1_fused, K6 conv3x3_fused, K7
 upsample2x_conv_fused, and their glue gn_scale_bias / stats_scale_bias.
 
-K4 and K7, and K6 in f32, run on the shared WMMA GEMM of csrc/gemm.cu, K6
-and K7 as an implicit GEMM over the NHWC map. K6 in bf16 runs its own
-Hopper kernel, csrc/conv_sm90.cu: an implicit GEMM whose A boxes are TMA
-loads of a 4-D tensor map over the map (zeros outside it), multiplied by
-wgmma; its tile plan is sm90_plan. The design applies the GroupNorm affine
+K7, and K4 and K6 in f32, run on the shared WMMA GEMM of csrc/gemm.cu, K6
+and K7 as an implicit GEMM over the NHWC map. K6 and K4 in bf16 run the
+Hopper kernel csrc/conv_sm90.cu: an implicit GEMM whose A boxes are TMA
+loads of a tensor map over the map (zeros outside it), multiplied by
+wgmma; their tile plans are sm90_plan and conv1x1_sm90_plan. The design
+applies the GroupNorm affine
 (+SiLU) to the A tile on its way to the tensor cores (in shared memory on
 the WMMA kernel, in registers on the Hopper one), and the bias, residual
 and optional per-channel output statistics to the f32 accumulator, so
@@ -15,7 +16,12 @@ the next GroupNorm's statistics cost no read of the map.
 
 - K4 replaces the Pallas `_mm_kernel` (sdtpu/ops/fused_conv.py:406, called
   at :473). At the UNet's proj_in/proj_out (4096 rows x 320 x 320 per
-  image) the product is small: one read and one write of the map.
+  image) the product is small: one read and one write of the map. Routes:
+  bf16 takes csrc/conv_sm90.cu at one tap where conv1x1_sm90_plan has a
+  tile (C a multiple of 64, Co of 8: every main-path shape, any row count,
+  the last tile's rows past the end neither stored nor counted), with any
+  prologue (proj_in's GroupNorm affine without SiLU too); f32 and the other
+  shapes the WMMA kernel; each launch is counted under its route.
 - K6 replaces `_kernel` / `_conv_part` (sdtpu/ops/fused_conv.py:96/44,
   called at :232): the VAE decoder's ResnetBlock convs, 64x64x512 up to
   1024x1024x128, and the UNet's fused ResBlock at 128x128 latents, 2·9·C·Co
@@ -88,8 +94,52 @@ def conv1x1_fused(x, w, conv_bias, prologue_scale=None, prologue_bias=None,
     x: [B, ..., C]; w: [C, Co]; conv_bias: [Co]; prologue scale/bias:
     [B, C] (GroupNorm folded to an affine, see gn_scale_bias); residual:
     x's leading shape with Co channels. Returns y, or (y, stats [B, 2, Co]).
-    CPU tensors take the plain version; CUDA tensors the kernel.
+    CPU tensors take the plain version; CUDA tensors the kernel (bf16:
+    csrc/conv_sm90.cu at one tap where conv1x1_sm90_plan has a tile for the
+    shape; f32 and other shapes: csrc/gemm.cu).
     """
+    return _conv1x1(x, w, conv_bias, prologue_scale, prologue_bias, residual, silu,
+                    emit_stats, "auto")
+
+
+# K4's ring: its K is 5 to 10 blocks deep, and a ring of 4 stages of the
+# 320-channel tile leaves the L1 too little room for the residual's reads
+# (measured on the H100: PERF.md)
+SM90_CONV1X1_MAX_STAGES = 3
+
+
+def conv1x1_sm90_plan(b: int, rows: int, c: int, co: int, prologue: bool,
+                      bn: int | None = None, stages: int | None = None) -> ConvPlan | None:
+    """The plan of K4's Hopper route, csrc/conv_sm90.cu at one tap, for x
+    [b, rows, c] to co channels, or None where it has no tile (the WMMA
+    kernel takes it): c must be a multiple of 64 (a K block never straddles
+    a 64-channel box) and co of 8. The rows are read as a map one pixel
+    wide (h = rows, w = 1: tiles of 128 rows, the last one ragged, TMA's
+    zeros past the end and no store there). Tiles are the widest of 320 and
+    256 channels that co divides into while the grid has a CTA for at least
+    half the SMs (a tile that spans Co runs the prologue once an A element;
+    the tiles are short, so a partial last wave costs less than running it
+    again for each column tile), else 128; at most
+    SM90_CONV1X1_MAX_STAGES stages. bn and stages, when given, override
+    the choice (for timing one plan against another)."""
+    if rows <= 0:
+        return None
+    tiles = -(-rows // SM90_CONV_BM)
+    if bn is None:
+        bn = next((n for n in SM90_CONV_WIDE
+                   if co % n == 0 and b * tiles * (co // n) >= kernels.SM_COUNT // 2), 128)
+    plan = sm90_plan(b, rows, 1, c, 0, co, prologue, bn, stages)
+    if plan is not None and stages is None and plan.stages > SM90_CONV1X1_MAX_STAGES:
+        plan = sm90_plan(b, rows, 1, c, 0, co, prologue, bn, SM90_CONV1X1_MAX_STAGES)
+    return plan
+
+
+def _conv1x1(x, w, conv_bias, prologue_scale, prologue_bias, residual, silu, emit_stats,
+             route):
+    """conv1x1_fused on the given route: "auto" (by dtype and plan), "wmma"
+    (csrc/gemm.cu whatever the dtype), or a ConvPlan for csrc/conv_sm90.cu
+    at one tap (bf16): the last two for timing kernels and plans against
+    each other."""
     if kernels.on_cpu(x, w, conv_bias, prologue_scale, prologue_bias, residual):
         return conv1x1_fused_plain(x, w, conv_bias, prologue_scale,
                                    prologue_bias, residual, silu, emit_stats)
@@ -99,23 +149,44 @@ def conv1x1_fused(x, w, conv_bias, prologue_scale=None, prologue_bias=None,
     b, c = shape[0], shape[-1]
     co = w.shape[-1]
     rows = x.numel() // (b * c)
+    if tuple(w.shape) != (c, co) or conv_bias.numel() != co:
+        raise ValueError(f"weight {tuple(w.shape)} and bias {tuple(conv_bias.shape)} do not "
+                         f"fit {c} input channels")
     dt = x.dtype
+    plan = route if isinstance(route, ConvPlan) else None
+    if dt == torch.bfloat16 and route == "auto":
+        plan = conv1x1_sm90_plan(b, rows, c, co, prologue_scale is not None)
     x = x.contiguous()
     w = w.to(dt).contiguous()
-    cb = conv_bias.float().contiguous()
-    prologue, ps, pb = _prologue(prologue_scale, prologue_bias, silu, b, c)
     res = None if residual is None else residual.to(dt).reshape(b, rows, co).contiguous()
+    # the tables as f32 [B, C] (the tensors themselves when they already are)
+    prologue, ps, pb = _prologue(prologue_scale, prologue_bias, silu, b, c)
     out = torch.empty((b, rows, co), dtype=dt, device=x.device)
     stats = None
     with torch.cuda.device(x.device):
-        if emit_stats:
-            stats = torch.empty((b, kernels.gemm_row_tiles(rows), 2, co),
-                                dtype=torch.float32, device=x.device)
-        kernels.gemm(x, w, out, M=rows, N=co, K=c, batch=b, lda=c, a_bs=rows * c,
-                     ldw=co, ldo=co, o_bs=rows * co, bias=cb, res=res, ldr=co,
-                     r_bs=rows * co, pa=ps, pb=pb, prologue=prologue, stats=stats)
+        if plan is not None:
+            # the weight and bias are read in x's dtype (.to and .contiguous
+            # return the tensors themselves when they already are)
+            cb = conv_bias.to(dt).contiguous()
+            if emit_stats:
+                stats = torch.empty((b, plan.grid[1], 2, co), dtype=torch.float32,
+                                    device=x.device)
+            rc = kernels.lib().sdk_conv1x1_sm90(
+                x.data_ptr(), w.data_ptr(), cb.data_ptr(), kernels.ptr(ps), kernels.ptr(pb), c,
+                int(silu), kernels.ptr(res), out.data_ptr(), kernels.ptr(stats), b, rows, c,
+                co, plan.bn, plan.stages, plan.smem, kernels.stream(x))
+            kernels.check(rc, "sdk_conv1x1_sm90")
+        else:
+            if emit_stats:
+                stats = torch.empty((b, kernels.gemm_row_tiles(rows), 2, co),
+                                    dtype=torch.float32, device=x.device)
+            kernels.gemm(x, w, out, M=rows, N=co, K=c, batch=b, lda=c, a_bs=rows * c,
+                         ldw=co, ldo=co, o_bs=rows * co, bias=conv_bias.float().contiguous(),
+                         res=res, ldr=co, r_bs=rows * co, pa=ps, pb=pb, prologue=prologue,
+                         stats=stats)
     kernels.count(conv1x1_fused, b=b, rows=rows, c=c, co=co, prologue=prologue,
-                  residual=res is not None, stats=emit_stats)
+                  residual=res is not None, stats=emit_stats,
+                  route="wmma" if plan is None else "sm90")
     y = out.reshape(shape[:-1] + (co,))
     if emit_stats:
         return y, stats.sum(dim=1)

@@ -36,28 +36,11 @@ from sdtpu_torch import kernels
 from sdtpu_torch.ops import fused_mlp
 from sdtpu_torch.ops.attention import qkv_attention_plain
 from sdtpu_torch.ops.conv import linear
+# the Hopper core's plan, shared with K1's bf16 route
+from sdtpu_torch.ops.flash_attention import CorePlan, core_sm90_plan
 from sdtpu_torch.ops.groupnorm import layer_norm
 
 MAX_HEAD_DIM = 160  # shared-memory bound of csrc/attention.cu
-
-# csrc/attention_sm90.cu: 128 query rows a CTA (two consumer warpgroups of
-# 64), head widths padded to these (instances), key tiles of 64 rows; its
-# ring runs stages − 2 tiles ahead (tile j's V is read in step j + 1), so it
-# takes at least 3
-SM90_ATTN_ROWS = 128
-SM90_ATTN_DPADS = (48, 64, 80, 160)
-SM90_ATTN_TILE = 64
-SM90_ATTN_STAGES = 4
-
-
-class CorePlan(NamedTuple):
-    """One launch of csrc/attention_sm90.cu: the padded head width, the key
-    tiles' rows, the ring's stages and the dynamic shared memory."""
-    dpad: int
-    tile: int
-    stages: int
-    smem: int
-
 
 class Sm90Plan(NamedTuple):
     """K2's bf16 route: the QKV product (LayerNorm prologue, N = 3C, no
@@ -65,19 +48,6 @@ class Sm90Plan(NamedTuple):
     qkv: fused_mlp.Sm90Plan
     core: CorePlan
     out: fused_mlp.Sm90Plan
-
-
-def core_sm90_plan(d: int) -> CorePlan | None:
-    """The Hopper core's plan for head width d, or None where it has no
-    instance: Q (128 rows) resident, and `stages` K and V tiles in the ring."""
-    if d <= 0 or d % 8:
-        return None
-    dpad = -(-d // 16) * 16
-    if dpad not in SM90_ATTN_DPADS:
-        return None
-    resident, stage = SM90_ATTN_ROWS * dpad * 2, 2 * SM90_ATTN_TILE * dpad * 2
-    stages = min(SM90_ATTN_STAGES, (kernels.SMEM_LIMIT - resident) // stage)
-    return CorePlan(dpad, SM90_ATTN_TILE, stages, resident + stages * stage)
 
 
 def sm90_plan(b: int, s: int, c: int, n_head: int) -> Sm90Plan | None:
@@ -112,8 +82,8 @@ def attention_core_sm90(qkv, out, n_head: int, plan: CorePlan) -> None:
     d = c // n_head
     rc = kernels.lib().sdk_attention_sm90(
         qkv.data_ptr(), qkv[..., c:].data_ptr(), qkv[..., 2 * c:].data_ptr(), out.data_ptr(),
-        s * c3, d, c3, s * c3, d, c3, s * c, d, c, b * n_head, n_head, s, s, d,
-        float(d) ** -0.5, *plan, kernels.stream(qkv))
+        s * c3, d, c3, s * c3, d, c3, s * c3, d, c3, s * c, d, c, None, 0, None,
+        b * n_head, n_head, s, s, d, float(d) ** -0.5, *plan, kernels.stream(qkv))
     kernels.check(rc, "sdk_attention_sm90")
 
 

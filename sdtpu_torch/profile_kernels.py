@@ -1,15 +1,21 @@
 """Where the time of the port's Hopper kernels goes on one NVIDIA GPU.
 
-    python -m sdtpu_torch.profile_kernels [--out FILE]
+    python -m sdtpu_torch.profile_kernels [--kernels K5,K9,K6,K2,K1,K4] [--out FILE]
 
 At main-path shapes, bf16, random inputs (seeded): K5 at S=1024 C=640 B=2
 and S=256 C=1280 B=2 (csrc/gemm_sm90.cu), K9 at BH=32 S=4096 d=40
 (csrc/flash_attention_bwd_sm90.cu), K6 at the UNet's 128² fused ResBlock
 (640 + 320 -> 320, B=2) and the VAE decoder's 512² and 64² convs
 (csrc/conv_sm90.cu), K2 at S=4096 C=320 B=2 and S=16384 C=320 B=2
-(csrc/gemm_sm90.cu and csrc/attention_sm90.cu). Device times are CUDA-graph
-replays (`device_ms`, also what chip_smoke.py times the Hopper kernels by)
-or torch.profiler kernel sums:
+(csrc/gemm_sm90.cu and csrc/attention_sm90.cu), K1 at training's BH=32
+S=4096 d=40 and a key-bias case at d=80 (csrc/attention_sm90.cu) and the
+VAE's BH=1 S=16384 d=512 (csrc/flash_attention.cu), K4 at its eight
+main-path launches (proj_in with the GroupNorm prologue and proj_out with
+the residual, at 4096 x 320 and 16384 x 320 B=2, 4096 x 640 B=2 and
+4096 x 320 B=8; csrc/conv_sm90.cu at one tap). --kernels picks some of
+them (all by default). Device times are CUDA-graph replays (`device_ms`,
+also what chip_smoke.py times the Hopper kernels by) or torch.profiler
+kernel sums:
 
 1. each launch of the bf16 routes (torch.profiler): K5's row statistics
    and its two GEMM launches, K9's Δ pre-pass, dK/dV and dQ kernels, K6's
@@ -20,9 +26,13 @@ or torch.profiler kernel sums:
    cuBLAS's two matmuls of the same shapes; K6 with and without its
    prologue, on each tile width it has, the WMMA kernel it replaced, and
    cuDNN's convolution of the same shape; K2's QKV product, core and Wo
-   product against cuBLAS's matmuls and SDPA of the same shapes;
+   product against cuBLAS's matmuls and SDPA of the same shapes; K1's core
+   with and without the key bias and the log-sum-exp write, the WMMA
+   kernel (csrc/flash_attention.cu) and SDPA; K4 with and without its
+   prologue, on each tile width it has, the WMMA kernel it replaced, and
+   cuBLAS's x·W;
 3. the depth of the rings: K5's 2, 3 or 4 stages (the plan's choice is 4),
-   K6's 2 to 4 and K2's core's 3 to 5 where they fit.
+   K6's and K4's 2 to 4 and K2's core's 3 to 5 where they fit.
 
 The report starts with the card's name and power limit, and goes to
 stdout and, with --out, to FILE as well.
@@ -258,10 +268,87 @@ def profile_k2(b, s, c, n_head, log, gen):
         f" (the plan takes {plan.core.stages})")
 
 
+def profile_k1(bh, n_head, s, d, bias, log, gen):
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    q, k, v = (torch.randn(bh, s, d, generator=gen, device=dev).to(dt) for _ in range(3))
+    kb = None
+    if bias:  # a key-padding row a batch element: a third of the keys masked
+        kb = torch.where(torch.arange(s, device=dev)[None] < 2 * s // 3, 0.0, -1e30)
+        kb = kb.expand(bh // n_head, s).contiguous()
+    label = f"K1 BH={bh} S={s} d={d}{' bias' if bias else ''}"
+    q4, k4, v4 = (t.view(bh // n_head, n_head, s, d) for t in (q, k, v))
+    mask = None if kb is None else kb[:, None, None, :].to(dt)
+    sdpa = device_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask))
+    old = device_ms(lambda: fa._heads(q, k, v, kb, n_head, False, "wmma"))
+    flops = 4 * bh * s * s * d
+    parts = []
+    if fa.fwd_route(dt, d, bias) is not None:
+        for name, ms in kernel_ms(lambda: fa.flash_attention_heads(q, k, v, kb, n_head,
+                                                                   True)).items():
+            log(f"{label}: {name[:72]}: {ms:.4f} ms a call")
+        variants = [("core", kb, False), ("core with the log-sum-exp", kb, True)]
+        if bias:
+            variants.append(("core without the bias", None, False))
+        for name, b_, lse in variants:
+            ms = device_ms(lambda: fa.flash_attention_heads(q, k, v, b_, n_head, lse))
+            parts.append(f"{name} {ms:.4f} ms")
+    log(f"{label}: " + "; ".join(parts + [f"the WMMA kernel {old:.4f} ms", f"SDPA {sdpa:.4f} ms",
+                                          f"bound {1e3 * flops / 989e12:.4f} ms"]))
+
+
+def profile_k4(b, rows, c, kind, log, gen):
+    dev, dt = torch.device("cuda"), torch.bfloat16
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dt)
+
+    x, w, cb = rnd(b, rows, c), rnd(c, c, scale=c ** -0.5), rnd(c, scale=0.1)
+    s = 1.0 + 0.1 * torch.randn(b, c, generator=gen, device=dev)
+    o = 0.1 * torch.randn(b, c, generator=gen, device=dev)
+    res = rnd(b, rows, c) if kind == "proj_out" else None
+    label = f"K4 {kind} {rows}x{c} B={b}"
+
+    def conv(route, prologue=True):
+        pro = (s, o) if prologue and kind == "proj_in" else (None, None)
+        return lambda: fc._conv1x1(x, w, cb, *pro, res, False, False, route)
+
+    for name, ms in kernel_ms(conv("auto")).items():
+        log(f"{label}: {name[:72]}: {ms:.4f} ms a call")
+    plan = fc.conv1x1_sm90_plan(b, rows, c, c, kind == "proj_in")
+    widths = []
+    for bn in (128, *fc.SM90_CONV_WIDE):
+        if bn == 128 or c % bn == 0:
+            p = fc.conv1x1_sm90_plan(b, rows, c, c, kind == "proj_in", bn=bn)
+            t = f"{bn} channels {device_ms(conv(p)):.4f} ms"
+            if kind == "proj_in":
+                p0 = fc.conv1x1_sm90_plan(b, rows, c, c, False, bn=bn)
+                t += f" with the prologue, {device_ms(conv(p0, prologue=False)):.4f} without"
+            widths.append(t)
+    nbytes = 2 * (2 if res is None else 3) * b * rows * c
+    log(f"{label}: " + "; ".join(widths) + f" (the plan takes {plan.bn}); the WMMA kernel "
+        f"{device_ms(conv('wmma')):.4f} ms; cuBLAS x·W "
+        f"{device_ms(lambda: torch.matmul(x, w)):.4f} ms; bound (bytes) "
+        f"{1e3 * nbytes / 3.35e12:.4f} ms")
+    rings = []
+    for st in range(2, fc.SM90_CONV_MAX_STAGES + 1):
+        p = fc.conv1x1_sm90_plan(b, rows, c, c, kind == "proj_in", bn=plan.bn, stages=st)
+        if p is not None:
+            rings.append(f"{st} stages {device_ms(conv(p)):.4f}")
+    log(f"{label}: by ring depth: " + ", ".join(rings) + f" (the plan takes {plan.stages})")
+
+
+PROFILES = ("K5", "K9", "K6", "K2", "K1", "K4")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernels", default=",".join(PROFILES),
+                    help="the kernels to break down, comma-separated (default: all)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
+    picked = set(args.kernels.split(","))
+    if picked - set(PROFILES):
+        raise SystemExit(f"--kernels takes some of {', '.join(PROFILES)}")
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: this script measures the kernels on a GPU only")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -275,14 +362,26 @@ def main(argv=None) -> None:
 
     log(f"card: {card}")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for b, s, c in ((2, 1024, 640), (2, 256, 1280)):
-        profile_k5(b, s, c, log, gen)
-    profile_k9(32, 4096, 40, 8, log, gen)
-    for b, hw, c1, c2, co in ((2, 128, 640, 320, 320), (1, 512, 128, 0, 128),
-                              (1, 64, 512, 0, 512)):
-        profile_k6(b, hw, c1, c2, co, log, gen)
-    for b, s, c in ((2, 4096, 320), (2, 16384, 320)):
-        profile_k2(b, s, c, 8, log, gen)
+    if "K5" in picked:
+        for b, s, c in ((2, 1024, 640), (2, 256, 1280)):
+            profile_k5(b, s, c, log, gen)
+    if "K9" in picked:
+        profile_k9(32, 4096, 40, 8, log, gen)
+    if "K6" in picked:
+        for b, hw, c1, c2, co in ((2, 128, 640, 320, 320), (1, 512, 128, 0, 128),
+                                  (1, 64, 512, 0, 512)):
+            profile_k6(b, hw, c1, c2, co, log, gen)
+    if "K2" in picked:
+        for b, s, c in ((2, 4096, 320), (2, 16384, 320)):
+            profile_k2(b, s, c, 8, log, gen)
+    if "K1" in picked:
+        for bh, n_head, s, d, bias in ((32, 8, 4096, 40, False), (16, 8, 4096, 80, True),
+                                       (1, 1, 16384, 512, False)):
+            profile_k1(bh, n_head, s, d, bias, log, gen)
+    if "K4" in picked:
+        for b, rows, c in ((2, 4096, 320), (2, 16384, 320), (2, 4096, 640), (8, 4096, 320)):
+            for kind in ("proj_in", "proj_out"):
+                profile_k4(b, rows, c, kind, log, gen)
     if args.out:
         with open(args.out, "w") as f:
             f.write("\n".join(lines) + "\n")

@@ -217,3 +217,49 @@ def test_flash_attention_matches_plain_on_card(dtype, bh, n_head, sq, sk, d, bia
                                            None if kb is None else kb[:, ::2], n_head)
     for wrong in (torch.zeros_like(want), half):
         assert not torch.allclose(wrong.float(), want.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,n_head,sq,sk,d,bias", [
+    (32, 8, 300, 333, 40, False),   # training's heads; ragged query and key tiles
+    (16, 8, 256, 2100, 40, True),   # a key-valid K1 past 2048 keys, Sk not a multiple of 64
+    (4, 2, 200, 130, 80, True),
+    (8, 8, 192, 256, 64, False),
+    (2, 2, 129, 257, 160, True),
+    (2, 2, 128, 64, 160, False),    # one key tile
+])
+def test_k1_sm90_matches_plain_on_card(bh, n_head, sq, sk, d, bias):
+    """K1's bf16 route (the Hopper core, csrc/attention_sm90.cu) against the
+    plain version, with the rows' log-sum-exp: the output within 2^-6 of
+    its largest |reference| + 2^-7 relative (a few bf16 ulps of an average
+    over the keys), the log2-domain log-sum-exp within 2^-9 (sums in
+    another order), as chip_smoke.py holds them; the same bits on a second
+    call. The tolerances reject an all-zero output, one over every other
+    key, one that ignores the bias, and a log-sum-exp in natural log."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    r = np.random.default_rng(16 + d)
+    q, k, v = (torch.from_numpy(r.standard_normal((bh, s, d)).astype(np.float32)).to(dev, dt)
+               for s in (sq, sk, sk))
+    kb = torch.from_numpy(_key_bias(bh // n_head, sk, 8)).to(dev) if bias else None
+    assert tfa.fwd_route(dt, d, bias) is not None
+    before = dict(tfa.flash_attention_heads.shapes)
+    got, lse = tfa.flash_attention_heads(q, k, v, kb, n_head, return_lse=True)
+    want, want_lse = tfa.flash_attention_heads_plain(q, k, v, kb, n_head, return_lse=True)
+    new = {key: n - before.get(key, 0) for key, n in tfa.flash_attention_heads.shapes.items()
+           if n != before.get(key, 0)}
+    assert list(new.values()) == [1] and next(iter(new)).endswith("route=sm90")
+    frac, rtol = 2 ** -6, 2 ** -7
+    atol = frac * float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=2 ** -9)
+    wrong = [torch.zeros_like(want), tfa.flash_attention_heads_plain(
+        q, k[:, ::2], v[:, ::2], None if kb is None else kb[:, ::2], n_head)]
+    if bias:
+        wrong.append(tfa.flash_attention_heads_plain(q, k, v, None, n_head))
+    for w in wrong:
+        assert not torch.allclose(w.float(), want.float(), rtol=rtol, atol=atol)
+    assert not torch.allclose(lse * np.log(2.0), want_lse, rtol=0, atol=2 ** -9)
+    again, lse2 = tfa.flash_attention_heads(q, k, v, kb, n_head, return_lse=True)
+    assert torch.equal(again, got) and torch.equal(lse2, lse)

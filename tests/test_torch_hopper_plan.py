@@ -1,11 +1,13 @@
 """The tile plans of the port's Hopper kernels, checked on the CPU.
 
 The bf16 routes of K5 (csrc/gemm_sm90.cu), K9
-(csrc/flash_attention_bwd_sm90.cu), K6 (csrc/conv_sm90.cu) and K2
-(csrc/gemm_sm90.cu and csrc/attention_sm90.cu) take their tile shape, ring
-stages and shared-memory bytes from Python (fused_mlp.sm90_plan,
-flash_attention.bwd_sm90_plan, fused_conv.sm90_plan,
-fused_transformer.sm90_plan); the kernels check them and run only on the
+(csrc/flash_attention_bwd_sm90.cu), K6 and K4 (csrc/conv_sm90.cu), K2
+(csrc/gemm_sm90.cu and csrc/attention_sm90.cu) and K1
+(csrc/attention_sm90.cu) take their tile shape, ring stages and
+shared-memory bytes from Python (fused_mlp.sm90_plan,
+flash_attention.bwd_sm90_plan, fused_conv.sm90_plan and
+conv1x1_sm90_plan, fused_transformer.sm90_plan,
+flash_attention.fwd_route); the kernels check them and run only on the
 card. Here, at every main-path shape: the bytes fit the H100's 227 KB a
 block, wgmma's constraints hold (64-row groups, N a multiple of 8, K steps
 of 16), the GEGLU tiles pair each val column with its gate column 4C to
@@ -13,12 +15,15 @@ the right and cover every output column once, and the padded head width is
 a multiple of 16 with zeros beyond d. For K6 also TMA's: boxes of at most
 256 a dimension, 128 inner bytes for the 128-byte swizzle, boxes that
 cover each 128-pixel tile exactly and tiles that cover the map once, and K
-blocks that never straddle a tap or the x/x2 boundary.
+blocks that never straddle a tap or the x/x2 boundary; for K4 the same
+with tiles of 128 rows inside one image. K1's route by dtype and head
+width.
 """
 
 import pytest
 
 import numpy as np
+import torch
 
 from sdtpu_torch.config import SD_V1_4
 from sdtpu_torch.ops import flash_attention as tfa
@@ -226,12 +231,12 @@ def test_k2_plan(b, s, c):
     # zero-filled columns past d within one 16-byte chunk of the next head's
     # start never read (d is a multiple of 8)
     assert d % 8 == 0 and core.dpad % WGMMA_K == 0 and d <= core.dpad < d + 16
-    assert core.dpad in tft.SM90_ATTN_DPADS and core.dpad <= 256  # N of O += P·V
-    assert tft.SM90_ATTN_ROWS // WGMMA_M == 2
+    assert core.dpad in tfa.SM90_ATTN_DPADS and core.dpad <= 256  # N of O += P·V
+    assert tfa.SM90_ATTN_ROWS // WGMMA_M == 2
     assert core.tile % WGMMA_K == 0 and core.tile % 8 == 0 and core.tile <= 256
-    assert core.smem == (tft.SM90_ATTN_ROWS * core.dpad * 2
+    assert core.smem == (tfa.SM90_ATTN_ROWS * core.dpad * 2
                          + core.stages * 2 * core.tile * core.dpad * 2) <= SMEM_LIMIT
-    assert 3 <= core.stages <= tft.SM90_ATTN_STAGES  # the ring runs stages − 2 tiles ahead
+    assert 3 <= core.stages <= tfa.SM90_ATTN_STAGES  # the ring runs stages − 2 tiles ahead
     # the projections on csrc/gemm_sm90.cu: LN(x)·Wqkv [C, 3C] and o·Wo
     m = b * s
     for p, n in ((plan.qkv, 3 * c), (plan.out, c)):
@@ -248,3 +253,93 @@ def test_k2_plan(b, s, c):
 ])
 def test_k2_plan_leaves_other_shapes_to_the_wmma_kernels(b, s, c, heads):
     assert tft.sm90_plan(b, s, c, heads) is None
+
+
+# ------------------------------------------------------------ K1
+
+# (d, the padded width the core runs it at, or None: the WMMA kernel) for
+# the head widths K1 runs at: training's 40 (and 80, 160 at other levels and
+# 1024px), SD v2's 64, the VAE's mid-block 512
+K1_WIDTHS = [(40, 48), (64, 64), (80, 80), (160, 160), (512, None)]
+
+
+@pytest.mark.parametrize("bias", [False, True], ids=["no_bias", "bias"])
+@pytest.mark.parametrize("d,dpad", K1_WIDTHS)
+def test_k1_route(d, dpad, bias):
+    """bf16 takes the Hopper core at its instances; d = 512 and f32 keep
+    csrc/flash_attention.cu. The core's plan fits the shared memory with
+    the bias's 64 floats a stage, and keeps the ring stages − 2 tiles
+    ahead."""
+    assert tfa.fwd_route(torch.float32, d, bias) is None
+    plan = tfa.fwd_route(torch.bfloat16, d, bias)
+    if dpad is None:
+        assert plan is None
+        return
+    assert plan.dpad == dpad and plan.dpad % WGMMA_K == 0 and d <= plan.dpad < d + 16
+    assert plan.tile == tfa.SM90_ATTN_TILE and plan.tile % WGMMA_K == 0
+    stage = 2 * plan.tile * plan.dpad * 2 + (plan.tile * 4 if bias else 0)
+    assert plan.smem == tfa.SM90_ATTN_ROWS * plan.dpad * 2 + plan.stages * stage <= SMEM_LIMIT
+    assert 3 <= plan.stages <= tfa.SM90_ATTN_STAGES
+    # the bias stage offsets stay 16-byte aligned (float2 reads)
+    ring = plan.stages * 2 * plan.tile * plan.dpad * 2
+    assert (tfa.SM90_ATTN_ROWS * plan.dpad * 2 + ring) % 16 == 0
+
+
+# ------------------------------------------------------------ K4
+
+# (B, rows, C = Co) of K4's launches on the main paths: proj_in and proj_out
+# at 64² (512px, batch 2; the serve phase's batch 8) and at 128² and 64²
+# (1024px)
+K4_SHAPES = [(2, 4096, 320), (2, 16384, 320), (2, 4096, 640), (8, 4096, 320)]
+
+
+@pytest.mark.parametrize("prologue", [True, False], ids=["proj_in", "proj_out"])
+@pytest.mark.parametrize("b,rows,c", K4_SHAPES)
+def test_k4_plan(b, rows, c, prologue):
+    plan = tfc.conv1x1_sm90_plan(b, rows, c, c, prologue)
+    assert plan is not None  # every main-path shape takes the Hopper kernel
+    assert 2 <= plan.stages <= tfc.SM90_CONV1X1_MAX_STAGES
+    stage = tfc.SM90_CONV_BM * tfc.SM90_CONV_BK * 2 + (
+        plan.bn // tfc.SM90_CONV_BOX * tfc.SM90_CONV_BK * tfc.SM90_CONV_BOX * 2)
+    assert plan.smem == 1024 + plan.stages * (stage + 16) + (8 * c if prologue else 0)
+    assert plan.smem <= SMEM_LIMIT
+    # wgmma: two consumer warpgroups of 64 rows, n64 boxes, K steps of 16
+    assert plan.bn in (128, 256, 320) and plan.bn % tfc.SM90_CONV_BOX == 0
+    assert tfc.SM90_CONV_BK % WGMMA_K == 0 and tfc.SM90_CONV_BM // WGMMA_M == 2
+    # TMA: the A box (64 channels, 128 rows, 1 image) of a 3-D map, the W box
+    # (64, 64); 64 bf16 channels are the 128 bytes the swizzle takes
+    assert (plan.bw, plan.bh) == (1, tfc.SM90_CONV_BM) and plan.bh <= TMA_BOX_MAX
+    assert tfc.SM90_CONV_BK * 2 == 128 and (c * 2) % 16 == 0
+    # the tiles: 128 rows of one image each, covering every row once; the
+    # column tiles cover Co
+    assert plan.grid == (-(-c // plan.bn), -(-rows // tfc.SM90_CONV_BM), b)
+    r = np.arange(plan.grid[1])[:, None] * tfc.SM90_CONV_BM + np.arange(tfc.SM90_CONV_BM)
+    counts = np.bincount(r[r < rows], minlength=rows)
+    assert (counts == 1).all() and counts.size == rows
+    assert plan.grid[0] * plan.bn >= c > (plan.grid[0] - 1) * plan.bn
+    # a 64-deep K block lies in one 64-channel box of x
+    assert c % tfc.SM90_CONV_BK == 0
+    for kb in range(c // tfc.SM90_CONV_BK):
+        assert (kb + 1) * tfc.SM90_CONV_BK <= c
+    # the wide tile where the grid still has a CTA for half the SMs
+    wide = c % 320 == 0 and b * plan.grid[1] * (c // 320) >= 132 // 2
+    assert plan.bn == (320 if wide else 128)
+
+
+def test_k4_ragged_rows_take_the_hopper_route():
+    """A row count that is not a multiple of 128: the last tile's rows past
+    the end are zero-filled by TMA and neither stored nor counted, so the
+    Hopper kernel takes it (one more tile); a C that is not a multiple of 64
+    takes the WMMA kernel."""
+    plan = tfc.conv1x1_sm90_plan(1, 333, 64, 72, True)
+    assert plan is not None and plan.grid == (1, 3, 1) and plan.bn == 128
+    assert tfc.conv1x1_sm90_plan(2, 4096 + 8, 320, 320, False).grid[1] == 33
+    assert tfc.conv1x1_sm90_plan(2, 81, 96, 72, True) is None
+    assert tfc.conv1x1_sm90_plan(2, 81, 64, 12, True) is None  # Co not a multiple of 8
+    assert tfc.conv1x1_sm90_plan(2, 0, 64, 64, True) is None
+
+
+def test_k4_plan_overrides():
+    plan = tfc.conv1x1_sm90_plan(2, 4096, 320, 320, True, bn=320, stages=2)
+    assert (plan.bn, plan.stages, plan.grid) == (320, 2, (1, 32, 2))
+    assert tfc.conv1x1_sm90_plan(2, 4096, 320, 320, False, bn=128, stages=4).stages == 4

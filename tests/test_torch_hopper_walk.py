@@ -1,5 +1,5 @@
-"""The tile walks of K6's and K2's Hopper kernels, emulated in torch on the
-CPU and held against sdtpu's Pallas kernels in interpret mode.
+"""The tile walks of K6's, K2's, K1's and K4's Hopper kernels, emulated in
+torch on the CPU and held against sdtpu's Pallas kernels in interpret mode.
 
 The kernels (csrc/conv_sm90.cu, csrc/attention_sm90.cu) run only on the
 card. What they compute apart from the products' rounding is how they walk
@@ -17,6 +17,16 @@ their tiles, and that walk is written out here, step for step, in f32:
   the online softmax (running maximum in the log2 domain, the scale folded
   into exp2, O rescaled each tile, divided by l once), and P rounded to bf16
   before P·V as the kernel rounds it.
+- K1 on the same core: the key bias added in the log2 domain before the
+  row maximum (fma(s, scale·log2(e), bias·log2(e))), Sk not a multiple of
+  64, and each row's log-sum-exp m + log2(l). Walks that add the bias after
+  the maximum, or drop it, must fail: the padding keys carry large scores,
+  so a maximum taken over them underflows every real key's weight.
+- K4 (csrc/conv_sm90.cu at one tap): 128-row tiles inside one image (the
+  rows past the last one zero-filled and neither stored nor counted),
+  64-deep K blocks, the prologue with or without SiLU rounded to x's dtype
+  before the product, bias and residual in f32, and the per-tile statistics
+  partials summed. A walk without the prologue must fail.
 
 Tolerances: the walks in f32 against sdtpu's f32 kernels and the plain
 versions, 2e-4 (sums in another order, as tests/test_torch_resblock.py);
@@ -33,10 +43,11 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+import sdtpu.ops.flash_attention as jfa
 import sdtpu.ops.fused_conv as jfc
 import sdtpu.ops.fused_transformer as jft
+from sdtpu_torch.ops import flash_attention as tfa
 from sdtpu_torch.ops import fused_conv as tfc
-from sdtpu_torch.ops import fused_transformer as tft
 from sdtpu_torch.ops.groupnorm import layer_norm
 
 torch.set_num_threads(1)
@@ -157,18 +168,22 @@ def test_k6_walk_matches_sdtpu_and_plain(w_map, c2, prologue):
 # ------------------------------------------------------------ K2
 
 
-def k2_core_walk(q, k, v, round_p: bool):
-    """csrc/attention_sm90.cu's walk over q, k, v [B, H, S, d] in f32:
-    returns o [B, H, Sq, d]."""
+def k2_core_walk(q, k, v, round_p: bool, key_bias=None, bias: str = "before max"):
+    """csrc/attention_sm90.cu's walk over q, k, v [B, H, S, d] in f32, with
+    K1's optional key bias [B, Sk] added "before max" (as the kernel does),
+    "after max" or "dropped" (planted faults): returns (o [B, H, Sq, d],
+    the rows' log2-domain log-sum-exp [B, H, Sq])."""
     b, nh, sq, d = q.shape
     sk = k.shape[2]
-    plan = tft.core_sm90_plan(d)
+    plan = tfa.core_sm90_plan(d, key_bias is not None)
     dp, bt = plan.dpad, plan.tile
     nk = -(-sk // bt)
-    rows = -(-sq // tft.SM90_ATTN_ROWS) * tft.SM90_ATTN_ROWS
-    # the copy's zero fill: columns d..dpad, rows past Sq or Sk
+    rows = -(-sq // tfa.SM90_ATTN_ROWS) * tfa.SM90_ATTN_ROWS
+    # the copy's zero fill: columns d..dpad, rows past Sq or Sk (and the
+    # bias past Sk)
     qp = F.pad(q, (0, dp - d, 0, rows - sq))
     kp, vp = (F.pad(t, (0, dp - d, 0, nk * bt - sk)) for t in (k, v))
+    kbp = None if key_bias is None else F.pad(key_bias, (0, nk * bt - sk))[:, None, None, :]
     scale_log2 = d ** -0.5 * LOG2E
     m = torch.full((b, nh, rows, 1), -math.inf)
     l = torch.zeros(b, nh, rows, 1)
@@ -177,15 +192,23 @@ def k2_core_walk(q, k, v, round_p: bool):
         kt, vt = kp[:, :, j * bt:(j + 1) * bt], vp[:, :, j * bt:(j + 1) * bt]
         s = qp @ kt.transpose(-1, -2)
         s[..., sk - j * bt:] = -math.inf  # keys past Sk (the last tile only)
-        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True) * scale_log2)
+        s2 = s * scale_log2  # the log2 domain (one fma with the bias in the kernel)
+        if kbp is not None and bias != "dropped":
+            kb2 = kbp[..., j * bt:(j + 1) * bt] * LOG2E
+            if bias == "before max":
+                s2 = s2 + kb2
+        m_new = torch.maximum(m, s2.amax(dim=-1, keepdim=True))
+        if kbp is not None and bias == "after max":
+            s2 = s2 + kb2
         alpha = torch.exp2(m - m_new)
-        p = torch.exp2(s * scale_log2 - m_new)
+        p = torch.exp2(s2 - m_new)
         l = l * alpha + p.sum(dim=-1, keepdim=True)
         if round_p:
             p = p.to(torch.bfloat16).float()
         o = o * alpha + p @ vt
         m = m_new
-    return (o / l)[:, :, :sq, :d]
+    lse = (m + torch.log2(l))[..., 0]
+    return (o / l)[:, :, :sq, :d], lse[:, :, :sq]
 
 
 def k2_walk(x, ln_g, ln_b, wqkv, wo, bo, n_head, round_p=False, every_other_key=False):
@@ -196,7 +219,7 @@ def k2_walk(x, ln_g, ln_b, wqkv, wo, bo, n_head, round_p=False, every_other_key=
                for t in (layer_norm(x, ln_g, ln_b) @ wqkv).chunk(3, dim=-1))
     if every_other_key:
         k, v = k[:, :, ::2], v[:, :, ::2]
-    o = k2_core_walk(q, k, v, round_p).transpose(1, 2).reshape(b, s, c)
+    o = k2_core_walk(q, k, v, round_p)[0].transpose(1, 2).reshape(b, s, c)
     return x + o @ wo + bo
 
 
@@ -223,3 +246,134 @@ def test_k2_walk_matches_sdtpu(c, n_head):
     np.testing.assert_allclose(rounded, want, rtol=0, atol=atol)
     half = _np(k2_walk(*targs, n_head, round_p=True, every_other_key=True))
     assert np.abs(half - want).max() > 4 * atol
+
+
+# ------------------------------------------------------------ K1
+
+
+@pytest.mark.parametrize("d", [40, 80])
+@pytest.mark.parametrize("bias", [False, True], ids=["no_bias", "bias"])
+def test_k1_walk_matches_sdtpu_and_plain(d, bias):
+    """Two batch elements of two heads, Sq = 200 (a ragged query tile), Sk
+    = 200 with the bias (four key tiles, the last one 8 keys long; sdtpu
+    pads its keys to 256) and 256 without it. The padding keys past each
+    row's count carry scores 30 times larger than the real ones."""
+    r = np.random.default_rng(80 + d + bias)
+    bh, n_head, sq = 4, 2, 200
+    sk = 200 if bias else 256
+    q, k, v = (r.standard_normal((bh, n, d)).astype(np.float32) for n in (sq, sk, sk))
+    kb = None
+    if bias:
+        n_valid = np.array([70, 150])
+        kb = np.where(np.arange(sk)[None] < n_valid[:, None], 0.0, -1e30).astype(np.float32)
+        pad = np.repeat(kb < 0, n_head, axis=0)
+        k[pad] *= 30.0
+    want = _np(jfa.flash_attention_heads(*map(jnp.asarray, (q, k, v)),
+                                         key_bias=None if kb is None else jnp.asarray(kb),
+                                         n_head=n_head, interpret=True))
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    tkb = None if kb is None else torch.from_numpy(kb)
+    plain, plain_lse = tfa.flash_attention_heads_plain(*t, tkb, n_head, return_lse=True)
+    q4, k4, v4 = (x.view(bh // n_head, n_head, *x.shape[1:]) for x in t)
+
+    def walk(**kw):
+        o, lse = k2_core_walk(q4, k4, v4, False, tkb, **kw)
+        return o.reshape(bh, sq, d), lse.reshape(bh, sq)
+
+    got, lse = walk()
+    for ref in (want, _np(plain)):
+        np.testing.assert_allclose(_np(got), ref, **TOL)
+    np.testing.assert_allclose(_np(lse), _np(plain_lse), **TOL)
+    if bias:
+        for fault in ("after max", "dropped"):
+            bad, _ = walk(bias=fault)
+            assert not np.allclose(_np(bad), want, **TOL, equal_nan=False), fault
+
+
+# ------------------------------------------------------------ K4
+
+
+def k4_walk(x, w, cb, scale=None, shift=None, residual=None, silu=False, prologue=True):
+    """csrc/conv_sm90.cu's walk at one tap, in f32 from x's values: returns
+    (y, per-channel (Σ, Σ²) of the f32 y summed from the per-tile
+    partials). prologue=False skips the prologue (a planted fault)."""
+    b, rows, c = x.shape
+    co = w.shape[-1]
+    plan = tfc.conv1x1_sm90_plan(b, rows, c, co, scale is not None)
+    bm, bk = tfc.SM90_CONV_BM, tfc.SM90_CONV_BK
+    assert (plan.bw, plan.bh) == (1, bm) and plan.grid[1] == -(-rows // bm)
+    out = torch.zeros(b, rows, co)
+    parts = torch.zeros(b, plan.grid[1], 2, co)
+    for bi in range(b):
+        for tile in range(plan.grid[1]):
+            r = tile * bm + torch.arange(bm)  # the tile's rows, inside image bi
+            keep = r < rows
+            for n0 in range(0, co, plan.bn):
+                cols = slice(n0, min(n0 + plan.bn, co))  # a ragged last tile of columns
+                acc = torch.zeros(bm, cols.stop - n0)
+                for kb in range(c // bk):
+                    ch = slice(kb * bk, (kb + 1) * bk)
+                    a = torch.zeros(bm, bk)  # the TMA box: zeros past the last row
+                    a[keep] = x[bi, r[keep], ch].float()
+                    if scale is not None and prologue:
+                        a = a * scale[bi, ch].float() + shift[bi, ch].float()
+                        if silu:
+                            a = a * torch.sigmoid(a)
+                        a = a.to(x.dtype).float()  # rounded before the product
+                    acc += a @ w[ch, cols].float()
+                v = acc + cb[cols].float()
+                if residual is not None:
+                    v[keep] += residual[bi, r[keep], cols].float()
+                out[bi, r[keep], cols] = v[keep]
+                parts[bi, tile, :, cols] = torch.stack([v[keep].sum(0), (v[keep] ** 2).sum(0)])
+    return out, parts.sum(dim=1)
+
+
+@pytest.mark.parametrize("residual", [False, True], ids=["no_res", "res"])
+@pytest.mark.parametrize("prologue", ["none", "affine", "silu"])
+def test_k4_walk_matches_sdtpu_and_plain(prologue, residual):
+    """B = 2, 300 rows (three tiles, the last 44 rows long), C = 128 (two K
+    blocks), Co = 72 (one tile, its columns past 72 dropped)."""
+    r = np.random.default_rng(90 + len(prologue) + residual)
+    b, rows, c, co = 2, 300, 128, 72
+    def f(*shape, scale=1.0, loc=0.0):
+        return (loc + scale * r.standard_normal(shape)).astype(np.float32)
+
+    x, w, cb = f(b, rows, c), f(c, co, scale=c ** -0.5), f(co, scale=0.1)
+    res = f(b, rows, co) if residual else None
+    pro = (f(b, c, scale=0.2, loc=1.0), f(b, c, scale=0.2, loc=0.5)) if prologue != "none" else ()
+    silu = prologue == "silu"
+    t = torch.from_numpy
+    kw = dict(residual=None if res is None else t(res), silu=silu, emit_stats=True)
+    walk_kw = dict(residual=kw["residual"], silu=silu)
+    got, got_st = k4_walk(t(x), t(w), t(cb), *map(t, pro), **walk_kw)
+    want, want_st = jfc.conv1x1_fused(*map(jnp.asarray, (x, w, cb, *pro)),
+                                      residual=None if res is None else jnp.asarray(res),
+                                      silu=silu, emit_stats=True, interpret=True)
+    plain, plain_st = tfc.conv1x1_fused_plain(t(x), t(w), t(cb), *map(t, pro), **kw)
+    for ref, ref_st in ((want, want_st), (plain, plain_st)):
+        np.testing.assert_allclose(_np(got), _np(ref), **TOL)
+        # f32 sums over 300 rows of magnitude ~2, in another order
+        np.testing.assert_allclose(_np(got_st), _np(ref_st), rtol=1e-4, atol=1e-2)
+    if pro:
+        skipped, _ = k4_walk(t(x), t(w), t(cb), *map(t, pro), **walk_kw, prologue=False)
+        assert not np.allclose(_np(skipped), _np(want), **TOL)
+        assert float((skipped - plain).abs().max()) > 50 * TOL["atol"]
+
+
+def test_k4_walk_rounds_its_prologue_to_bf16():
+    """In bf16 the walk's prologue output is rounded to bf16 before the
+    product, as the kernel and the plain version round it: against the
+    plain version within a few bf16 ulps (6e-2, the card's tolerance)."""
+    r = np.random.default_rng(95)
+    b, rows, c = 1, 200, 64
+    def bf(*shape, scale=1.0):
+        return torch.from_numpy(scale * r.standard_normal(shape)).to(torch.bfloat16)
+
+    x, w, cb = bf(b, rows, c), bf(c, c, scale=c ** -0.5), bf(c, scale=0.1)
+    s, o = (torch.from_numpy(1.0 + 0.2 * r.standard_normal((b, c))).float(),
+            torch.from_numpy(0.5 + 0.2 * r.standard_normal((b, c))).float())
+    got, _ = k4_walk(x, w, cb, s, o, silu=True)
+    want = tfc.conv1x1_fused_plain(x, w, cb, s, o, silu=True)
+    torch.testing.assert_close(got.to(torch.bfloat16).float(), want.float(), rtol=3e-2,
+                               atol=6e-2)

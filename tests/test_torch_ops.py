@@ -596,3 +596,64 @@ def test_k2_sm90_matches_plain_on_card(b, s, c):
     err = (got.float() - want.float()).abs()
     assert (err <= 2 ** -6 * term.abs().max() + 2 ** -7 * want.float().abs()).all()
     assert torch.equal(tft.fused_self_attention(*args, 8), got)
+
+
+K4_SHAPES = [
+    (2, 4096, 320, 320),   # proj_in / proj_out at 64² (512px)
+    (2, 16384, 320, 320),  # at 128² (1024px)
+    (2, 4096, 640, 640),   # at 64² (1024px)
+    (8, 4096, 320, 320),   # the serve phase's batch of 4
+    (1, 333, 64, 72),      # a ragged row count and a ragged last tile of columns
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prologue", ["none", "affine", "silu"])
+@pytest.mark.parametrize("residual", [False, True], ids=["no_res", "res"])
+@pytest.mark.parametrize("emit_stats", [False, True], ids=["no_stats", "stats"])
+@pytest.mark.parametrize("b,rows,c,co", K4_SHAPES)
+def test_k4_sm90_matches_plain_on_card(b, rows, c, co, prologue, residual, emit_stats):
+    """K4's bf16 route (csrc/conv_sm90.cu at one tap) against the plain
+    version at the main paths' shapes and a ragged one, with every
+    prologue, residual and statistics combination: within a few bf16 ulps
+    (6e-2); the emitted statistics against the sums of the returned output,
+    within its rounding (2^-7 of the sum of magnitudes); the same bits on a
+    second call. The tolerance rejects the product without its prologue
+    and without its residual."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    r = _rng(70 + c)
+
+    def card(a, dtype=dt):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dtype)
+
+    x = card(r.standard_normal((b, rows, c)))
+    w, cb = card(r.standard_normal((c, co)) * c ** -0.5), card(0.1 * r.standard_normal(co))
+    args = [x, w, cb]
+    if prologue != "none":
+        args += [card(1.0 + 0.2 * r.standard_normal((b, c)), torch.float32),
+                 card(0.5 + 0.2 * r.standard_normal((b, c)), torch.float32)]
+    kw = dict(silu=prologue == "silu", emit_stats=emit_stats)
+    if residual:
+        kw["residual"] = card(r.standard_normal((b, rows, co)))
+    assert tfc.conv1x1_sm90_plan(b, rows, c, co, prologue != "none") is not None
+    before = _routes(tfc.conv1x1_fused).get("sm90", 0)
+    got, want = tfc.conv1x1_fused(*args, **kw), tfc.conv1x1_fused_plain(*args, **kw)
+    assert _routes(tfc.conv1x1_fused)["sm90"] == before + 1
+    again = tfc.conv1x1_fused(*args, **kw)
+    if emit_stats:
+        (got, st), (want, _), (again, st2) = got, want, again
+        assert torch.equal(st2, st)
+        yf = got.float()
+        for i, v in enumerate((yf, yf * yf)):
+            assert ((st[:, i] - v.sum(1)).abs() <= 2 ** -7 * v.abs().sum(1) + 1e-3).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=6e-2, atol=6e-2)
+    assert torch.equal(again, got)
+    faults = []
+    if prologue != "none":
+        faults.append(tfc.conv1x1_fused_plain(x, w, cb, residual=kw.get("residual")))
+    if residual:
+        faults.append(tfc.conv1x1_fused_plain(*args, silu=kw["silu"]))
+    for f in faults:
+        assert not torch.allclose(f.float(), want.float(), rtol=6e-2, atol=6e-2)

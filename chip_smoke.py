@@ -13,19 +13,20 @@ Phases, each printing its lines:
    and bfloat16: max error against the stated tolerance, the times of the
    kernel, of its plain version and, where one PyTorch call computes the
    same function, of that call (CUDA events), and the least time the card
-   could take for the same work (its bound). K5, K9, K2, K6, K1 and K4 are
-   also timed by the card's own clock (sdtpu_torch.profile_kernels.device_ms:
-   20 wrapper calls captured in a CUDA graph, the replay timed), and in
-   bfloat16 their Hopper kernels against the WMMA kernels they replaced, in
-   turns (old, new, new, old). Planted faults must fail each kernel's
-   tolerance at every case: for K6 the convolution without the border mask
-   (the prologue applied to the zero-padded map) and, with a second input,
-   the convolution without it; for K4 the product without its prologue
-   (proj_in) or without its residual (proj_out); for K2 the attention over
-   every other key; for K1 an all-zero output, the attention over every
-   other key, with a key bias the attention that ignores it, and with the
-   row statistics those statistics in natural log; (K9 and K10 have their
-   own, below);
+   could take for the same work (its bound). Every kernel is also timed in
+   bfloat16 by the card's own clock (sdtpu_torch.profile_kernels.device_ms:
+   20 wrapper calls captured in a CUDA graph, the replay timed), and K5, K9,
+   K2, K6, K1, K4, K10 and K7 their Hopper kernels against the WMMA kernels
+   they replaced, in turns (old, new, new, old). Planted faults must fail
+   each kernel's tolerance at every case: for K6 the convolution without
+   the border mask (the prologue applied to the zero-padded map) and, with a
+   second input, the convolution without it; for K4 the product without its
+   prologue (proj_in) or without its residual (proj_out); for K7 the phases
+   interleaved with py and px swapped and the taps read one pixel off (the
+   map shifted by one); for K2 the attention over every other key; for K1
+   an all-zero output, the attention over every other key, with a key bias
+   the attention that ignores it, and with the row statistics those
+   statistics in natural log; (K9 and K10 have their own, below);
 3. one SpatialTransformer at the 64x64 latent level (C=320), random
    weights, run on the card (kernels) and on the CPU (plain versions); the
    VAE decoder at SD v1.4 width on a 16x16 latent with every fused gate
@@ -38,10 +39,11 @@ Phases, each printing its lines:
    (the same config with image_size=1024). Each must give a
    [1, size, size, 3] uint8 image from finite latents, and the kernels'
    launch counters, set to 0 just before each run and read just after,
-   must read exactly what the dispatch implies; K2's, K6's and K4's
-   launches, counted per route, must all take their Hopper kernels (here,
-   in the serve phase and in the fine-tuning cache build), and K1's one
-   launch at 1024px (the decoder's d = 512) the WMMA kernel;
+   must read exactly what the dispatch implies; K2's, K6's, K4's and K7's
+   launches (and K10's in the serve phase), counted per route, must all
+   take their Hopper kernels (here, in the serve phase and in the
+   fine-tuning cache build), and K1's one launch at 1024px (the decoder's
+   d = 512) the WMMA kernel;
 5. sdtpu_torch.finetune.run_finetune at SD v1.4 width and depth, 512x512,
    from a folder of synthetic PNGs: the latent cache through the port's
    VAE encoder and CLIP, then 3 AdamW steps at batch 4 in bf16, the tuned
@@ -54,8 +56,10 @@ Phases, each printing its lines:
    socket: concurrent requests batched to 4, the other samplers, img2img,
    inpainting, the adapter, a bad request; a lone seeded request must
    equal generate() byte for byte and K10 must launch 15 times a UNet
-   call; then an A/B of K10's gate (UNet call and request latency, three
-   rounds of open, closed, closed, open).
+   call, every launch on its Hopper route; then an A/B of K10's gate: the
+   UNet call's device time in ten pairs of open and closed (in turns), and
+   a lone request's latency in three rounds of open, closed, closed,
+   open.
 
 It prints a JSON line of per-kernel results, then the card's name and
 power limit, then, last, {"ok": true, "device": {...}}. Any failure
@@ -65,13 +69,14 @@ the fine-tuning run with its cache build, and the serve phase), and `ms`, `plain
 `bound_ms` and `library_ms` are for those launches: each wrapper counts
 its launches per shape as well, and each shape's bfloat16 time (or bound)
 from phase 2 is taken as many times as the runs launched it. A shape
-launched there with no case in phase 2 is a failure. K5, K9, K2, K6, K1
-and K4 also carry `device_ms` (the same launches by device time) and
-`replaced_device_ms` (those of the WMMA kernels their bf16 route
-replaced; K1's d = 512 launch is the WMMA kernel on both sides), and K1
-`sources_by_route`. K5's `library_ms`
-is both of its products as two torch.matmul calls; K2's is SDPA on the
-core alone, K6's cuDNN's convolution alone (F.conv2d).
+launched there with no case in phase 2 is a failure. Every launched
+kernel also carries `device_ms` (the same launches by device time), and K5,
+K9, K2, K6, K1, K4, K10 and K7 `replaced_device_ms` (those of the WMMA
+kernels their bf16 route replaced; K1's d = 512 launch is the WMMA kernel
+on both sides) and `sources_by_route`. K5's `library_ms` is both of its
+products as two torch.matmul calls; K2's and K10's are SDPA on the core
+alone, K6's cuDNN's convolution alone (F.conv2d), K7's cuDNN's convolution
+over the already upsampled map.
 
 Bounds: max(operations / peak rate, bytes / 3.35 TB/s), the inputs read
 once and the outputs written once; products at the tensor cores' dense
@@ -180,8 +185,8 @@ class Case(NamedTuple):
     peak: float = PEAK_TENSOR
     library: Optional[Callable] = None
     library_minus: Optional[Callable] = None
-    # the WMMA route the kernel's bf16 Hopper kernel replaced (K5, K9, K2, K6, K1, K4),
-    # timed against it in turns; and yardsticks printed beside library
+    # the WMMA route the kernel's bf16 Hopper kernel replaced (K5, K9, K2, K6, K1, K4,
+    # K10, K7), timed against it in turns; and yardsticks printed beside library
     old: Optional[Callable] = None
     yardsticks: tuple = ()
 
@@ -219,7 +224,7 @@ def kernel_cases(dtype, dev):
     import torch
     import torch.nn.functional as F
 
-    from sdtpu_torch.ops import (flash_attention, fused_conv, fused_cross_attention,
+    from sdtpu_torch.ops import (conv, flash_attention, fused_conv, fused_cross_attention,
                                  fused_groupnorm, fused_mlp, fused_transformer)
 
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -346,11 +351,30 @@ def kernel_cases(dtype, dev):
                 return F.scaled_dot_product_attention(q4, k4, v4,
                                                       attn_mask=key_valid[:, None, None, :])
 
+            def xsublayer(x, kt, vt, g, beta, wq, wo, bo, k4=k4, v4=v4, key_valid=None, **k):
+                """The whole sublayer by library calls: F.layer_norm, two
+                torch.matmul and SDPA."""
+                q = torch.matmul(F.layer_norm(x, x.shape[-1:], g, beta), wq)
+                o = F.scaled_dot_product_attention(
+                    q.view(*q.shape[:2], 8, -1).transpose(1, 2), k4, v4,
+                    attn_mask=key_valid[:, None, None, :])
+                return x + torch.matmul(o.transpose(1, 2).reshape(x.shape), wo) + bo
+
+            def k10_wmma(*a, key_valid=None, n_head=8):
+                """K10 on the WMMA kernels its bf16 Hopper route replaced."""
+                return fused_cross_attention._cross_attention_kv(*a, key_valid, n_head, 1e-5,
+                                                                 "wmma")
+
+            def k10_ctx_wmma(*a, key_valid=None, n_head=8):
+                return fused_cross_attention._cross_attention(*a, key_valid, n_head, 1e-5,
+                                                              "wmma")
+
             cases.append(Case("fused_cross_attention_kv", f"S={s} C={c} B={b} Sk=77",
                               fused_cross_attention.fused_cross_attention_kv,
                               fused_cross_attention.fused_cross_attention_kv_plain, args,
                               {"key_valid": valid, "n_head": 8},
-                              2 * b * s * c * (2 * c + 2 * 77), library=xcore))
+                              2 * b * s * c * (2 * c + 2 * 77), library=xcore, old=k10_wmma,
+                              yardsticks=(("sublayer by library calls", xsublayer),)))
             if b == 2:  # the entry that projects the context itself (no path runs it)
                 cases.append(Case("fused_cross_attention", f"S={s} C={c} B={b} Sk=77",
                                   fused_cross_attention.fused_cross_attention,
@@ -358,7 +382,7 @@ def kernel_cases(dtype, dev):
                                   (x, ctx, *args[3:6], wk, wv, *args[6:]),
                                   {"key_valid": valid, "n_head": 8},
                                   2 * b * s * c * (2 * c + 2 * 77) + 2 * b * 77 * 768 * 2 * c,
-                                  library=xcore))
+                                  library=xcore, old=k10_ctx_wmma))
 
     def heads4(n_head, *ts):
         return [t.view(t.shape[0] // n_head, n_head, *t.shape[1:]) for t in ts]
@@ -480,13 +504,39 @@ def kernel_cases(dtype, dev):
             conv_case(f"encoder {hw}x{hw} {co}->{co} B={b} res", b, hw, co, co, 0, 1e-6,
                       stats=False)
 
+    # K7: the decoder's upsamplers at 128² and 256² (512px), 256² x 512 and
+    # 512² (1024px), and the serve phase's batch of 4, reading the phase
+    # weights folded once, as the pipeline hands them over
+    def k7_wmma(x, w, cb, emit_stats=False, phases=None):
+        """K7 on the WMMA kernel its bf16 Hopper kernel replaced."""
+        return fused_conv._upsample2x(x, w, cb, emit_stats, "wmma", phases)
+
     for b, hw, c, co in ((1, 128, 512, 512), (1, 256, 256, 256), (1, 256, 512, 512),
                          (1, 512, 256, 256), (4, 128, 512, 512), (4, 256, 256, 256)):
         args = (rnd(b, hw, hw, c), rnd(3, 3, c, co, scale=(9 * c) ** -0.5), rnd(co, scale=0.1))
+        # cuDNN's convolution alone over the already upsampled map, and the
+        # path with the fused gate closed (ops/conv.py: four phase convs)
+        xu = conv.nearest_upsample_2x(args[0]).permute(0, 3, 1, 2)
+        w_oihw = args[1].permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+
+        def up_conv(*a, xu=xu, w_oihw=w_oihw, cb=args[2], **k):
+            return F.conv2d(xu, w_oihw, cb, padding=1)
+
+        def gate_closed(x, w, cb, **k):
+            gate = conv.FUSED_UP_MIN_ROWS
+            conv.FUSED_UP_MIN_ROWS = 1 << 30
+            try:
+                return conv.upsample2x_conv({"w": w, "b": cb}, x)
+            finally:
+                conv.FUSED_UP_MIN_ROWS = gate
+
         cases.append(Case("upsample2x_conv_fused", f"{hw}x{hw}x{c} -> {2 * hw}x{2 * hw} B={b}",
                           fused_conv.upsample2x_conv_fused,
-                          fused_conv.upsample2x_conv_fused_plain, args, {"emit_stats": True},
-                          2 * 16 * b * hw * hw * c * co))
+                          fused_conv.upsample2x_conv_fused_plain, args,
+                          {"emit_stats": True,
+                           "phases": fused_conv.phase_weight_stack(args[1], dtype)},
+                          2 * 16 * b * hw * hw * c * co, library=up_conv, old=k7_wmma,
+                          yardsticks=(("gate closed", gate_closed),)))
     for b, hw in ((1, 512), (1, 1024), (4, 512)):
         x = rnd(b, hw, hw, 128)
         args = (x, rnd(128, scale=0.1) + 1.0, rnd(128, scale=0.1), 32, 1e-6)
@@ -509,21 +559,27 @@ KERNEL_INFO = {
                              "sdtpu/ops/fused_transformer.py:108"),
     "fused_geglu_mlp": ("cuda", "sdtpu_torch/csrc/gemm_sm90.cu", "sdtpu/ops/fused_mlp.py:68"),
     "conv3x3_fused": ("cuda", "sdtpu_torch/csrc/conv_sm90.cu", "sdtpu/ops/fused_conv.py:152"),
-    "upsample2x_conv_fused": ("cuda", "sdtpu_torch/csrc/gemm.cu",
+    "upsample2x_conv_fused": ("cuda", "sdtpu_torch/csrc/conv_sm90.cu",
                               "sdtpu/ops/fused_conv.py:316"),
     "group_norm_silu": ("cuda", "sdtpu_torch/csrc/groupnorm.cu",
                         "sdtpu/ops/fused_groupnorm.py:82"),
     "flash_attention_bwd_heads": ("cuda", "sdtpu_torch/csrc/flash_attention_bwd_sm90.cu",
                                   "sdtpu/ops/flash_attention.py:580"),
-    "fused_cross_attention_kv": ("cuda", "sdtpu_torch/csrc/cross_attention.cu",
+    "fused_cross_attention_kv": ("cuda", "sdtpu_torch/csrc/attention_sm90.cu",
                                  "sdtpu/ops/fused_cross_attention.py:119"),
 }
-# the kernels whose main-path launches take two routes: route -> source
-# (K1: bf16 at d <= 160 on the Hopper core, the 1024px decode's d = 512 on
-# the WMMA kernel)
+# the kernels with two routes: route -> sources (K1's main-path launches
+# take both: bf16 at d <= 160 on the Hopper core, the 1024px decode's d = 512
+# on the WMMA kernel; K7's and K10's bf16 launches take the Hopper route,
+# the WMMA route they replaced stays the f32 one)
 KERNEL_ROUTES = {
     "flash_attention_heads": {"sm90": "sdtpu_torch/csrc/attention_sm90.cu",
                               "wmma": "sdtpu_torch/csrc/flash_attention.cu"},
+    "upsample2x_conv_fused": {"sm90": "sdtpu_torch/csrc/conv_sm90.cu",
+                              "wmma": "sdtpu_torch/csrc/gemm.cu"},
+    "fused_cross_attention_kv": {
+        "sm90": "sdtpu_torch/csrc/gemm_sm90.cu + sdtpu_torch/csrc/attention_sm90.cu",
+        "wmma": "sdtpu_torch/csrc/gemm.cu + sdtpu_torch/csrc/cross_attention.cu"},
 }
 
 
@@ -711,6 +767,25 @@ def _k4_faults(c):
     return faults
 
 
+def _k7_faults(c):
+    """The planted faults K7's tolerance must fail, in PyTorch ops: the
+    phases interleaved with py and px swapped (phase (py, px) stored at
+    (2i + px, 2j + py)), and every tap read one pixel off (the map shifted
+    by one, as the walk without the -1 in the tap offset reads it)."""
+    import torch.nn.functional as F
+
+    from sdtpu_torch.ops.fused_conv import upsample2x_conv_fused_plain
+
+    x, w, cb = c.args
+    b, h, wd, _ = x.shape
+    co = w.shape[-1]
+    want = upsample2x_conv_fused_plain(x, w, cb)
+    swapped = want.reshape(b, h, 2, wd, 2, co).transpose(2, 4).reshape(want.shape)
+    shifted = F.pad(x[:, 1:, 1:], (0, 0, 0, 1, 0, 1))
+    return {"with py and px swapped": swapped,
+            "with the taps one pixel off": upsample2x_conv_fused_plain(shifted, w, cb)}
+
+
 def _check_k2(c, got, want, dname, failed):
     """K2's check: the whole sublayer x + Wo·attn + bo within TOL, and the
     attention term alone (out - x against plain - x) within FLASH_TOL's
@@ -742,8 +817,9 @@ def phase_kernels(dev) -> tuple[dict, dict]:
     """Phase 2. Returns ({kernel: max abs error}, {(kernel, shape key):
     {label, ms, plain_ms, library_ms, bound_ms, ops_ms, bytes_ms, device_ms,
     old_ms, f32_ms}}), both from the bfloat16 run, the main path's dtype
-    (device_ms and old_ms, the replaced kernel's device time, for K5, K9, K2, K6, K1, K4
-    only; f32_ms the float32 run's time, by device time where measured)."""
+    (old_ms, the replaced kernel's device time, for K5, K9, K2, K6, K1, K4,
+    K10, K7 only; f32_ms the float32 run's time, by device time where
+    measured)."""
     import torch
 
     from sdtpu_torch.ops.fused_groupnorm import channel_partials_plain
@@ -787,11 +863,12 @@ def phase_kernels(dev) -> tuple[dict, dict]:
                     if st_err > 1.0:
                         failed.append(f"{c.name} {dname} {c.shape} stats")
                 err, ok = within(got, want, a, r)
-                faults = {"conv3x3_fused": _k6_faults, "conv1x1_fused": _k4_faults}.get(c.name)
+                faults = {"conv3x3_fused": _k6_faults, "conv1x1_fused": _k4_faults,
+                          "upsample2x_conv_fused": _k7_faults}.get(c.name)
                 if faults is not None:
                     passes = {k: within(f, want, a, r)[1] for k, f in faults(c).items()}
                     print(f"kernel {c.name:21s} {dname:8s} {c.shape:30s} the tolerance passes "
-                          + ", ".join(f"the convolution {k}: {v}" for k, v in passes.items()),
+                          + ", ".join(f"the output {k}: {v}" for k, v in passes.items()),
                           flush=True)
                     if any(passes.values()):
                         failed.append(f"{c.name} {dname} {c.shape} tolerance too loose")
@@ -803,9 +880,10 @@ def phase_kernels(dev) -> tuple[dict, dict]:
                 lib_ms -= cuda_ms(lambda: c.library_minus(*c.args, **c.kw))
             lib = "" if lib_ms is None else f"  library {lib_ms:.4f} ms"
             for label, fn in c.yardsticks:
-                lib += f"  {label} {cuda_ms(lambda: fn(*c.args, **c.kw)):.4f} ms"
+                lib += (f"  {label} {cuda_ms(lambda: fn(*c.args, **c.kw)):.4f} ms (device "
+                        f"{device_ms(lambda: fn(*c.args, **c.kw)):.4f})")
             dev_ms = old_ms = None
-            if c.old is not None:
+            if c.old is not None or dtype == torch.bfloat16:
                 dev_ms = device_ms(lambda: c.fn(*c.args, **c.kw))
                 lib += f"  device {dev_ms:.4f} ms"
             print(f"kernel {c.name:21s} {dname:8s} {c.shape:30s} max_abs_err {err:.3e} "
@@ -845,9 +923,9 @@ def main_path_times(measured: dict, shapes: dict) -> dict:
     launches in the generate runs: each launched shape's phase-2 time (or
     bound) times its launches there, as the wrapper counted them per shape,
     summed. library_ms is None where a launched shape has no library call;
-    device_ms and old_ms (K5, K9, K2, K6, K1, K4) are the device times of the kernel and of
-    the one it replaced, None for the others. Fails if a launched shape has
-    no case in phase 2."""
+    device_ms is the device time of the kernel, and old_ms (K5, K9, K2, K6,
+    K1, K4, K10, K7) of the one it replaced, None for the others. Fails if a
+    launched shape has no case in phase 2."""
     totals, missing = {}, []
     for name in KERNEL_INFO:
         t = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "ops_ms": 0.0,
@@ -859,8 +937,9 @@ def main_path_times(measured: dict, shapes: dict) -> dict:
                 continue
             lib = "" if m["library_ms"] is None else f"  library {n * m['library_ms']:.3f} ms"
             if m["device_ms"] is not None:
-                lib += (f"  device {n * m['device_ms']:.3f} ms, the replaced kernel's "
-                        f"{n * m['old_ms']:.3f} ms")
+                lib += f"  device {n * m['device_ms']:.3f} ms"
+            if m["old_ms"] is not None:
+                lib += f", the replaced kernel's {n * m['old_ms']:.3f} ms"
             print(f"main path {name:21s} {m['label']:32s} launches {n:4d}: kernel "
                   f"{n * m['ms']:.3f} ms  plain {n * m['plain_ms']:.3f} ms{lib}  bound "
                   f"{n * m['bound_ms']:.3f} ms", flush=True)
@@ -1072,14 +1151,16 @@ def by_route(kernel_shapes: dict) -> dict:
     return by
 
 
-# the kernels each of whose bf16 main-path shapes has a Hopper plan: K2, K6, K4
-HOPPER_ROUTED = {"fused_self_attention": "K2", "conv3x3_fused": "K6", "conv1x1_fused": "K4"}
+# the kernels each of whose bf16 main-path shapes has a Hopper plan
+HOPPER_ROUTED = {"fused_self_attention": "K2", "conv3x3_fused": "K6", "conv1x1_fused": "K4",
+                 "upsample2x_conv_fused": "K7", "fused_cross_attention_kv": "K10"}
 
 
 def check_routes(label: str, shapes: dict, k1: dict) -> None:
     """The launches of a bf16 main path by route (the wrappers count each
-    shape under its route): K2's, K6's and K4's main-path shapes all have a
-    Hopper plan, so none may take the WMMA kernels; K1's must be k1
+    shape under its route): K2's, K6's, K4's, K7's and K10's main-path
+    shapes all have a Hopper plan, so none may take the WMMA kernels; K1's
+    must be k1
     ({route: launches}: the core for training's d = 40, the WMMA kernel
     for the 1024px decode's d = 512)."""
     by = {name: by_route(shapes[name]) for name in HOPPER_ROUTED}
@@ -1237,7 +1318,8 @@ def phase_grad(dev) -> None:
 # cross-attention sublayers at 64², 32² and 16² (the 8² middle one is below
 # the gate)
 SERVE_STEPS, K10_PER_UNET_CALL = 20, 15
-AB_ROUNDS = 3  # rounds of open, closed, closed, open in the gate's A/B
+AB_PAIRS = 10  # pairs of the UNet call's device time, gate open and closed, in turns
+AB_ROUNDS = 3  # rounds of open, closed, closed, open of a lone request's latency
 SERVE_PROMPT = "An ancient mossy stone."
 
 
@@ -1275,12 +1357,14 @@ def phase_serve(dev) -> tuple[dict, dict]:
     request naming the adapter, and a bad request (400). Every other reply
     must be 200 with 512x512x3 images; the lone seeded request must return
     the PNG bytes of StableDiffusion.generate with the same seed; K10 must
-    have launched 15 times a UNet call. The counters are set to 0 just
-    before make_server and read after the generate() check. Then an A/B of
-    K10's gate, AB_ROUNDS rounds of open, closed, closed, open: one UNet
-    call at batch 2 between CUDA events and a lone 20-step request's
-    latency, with the medians of each side. Returns the launch
-    counts, per kernel and per kernel and shape."""
+    have launched 15 times a UNet call, each on its Hopper route. The
+    counters are set to 0 just before make_server and read after the
+    generate() check. Then an A/B of K10's gate: the device time of one UNet
+    call at batch 2 (profile_kernels.device_ms) in AB_PAIRS pairs of open
+    and closed, the order alternating, and a lone 20-step request's latency
+    in AB_ROUNDS rounds of open, closed, closed, open, with the medians of
+    each side. Returns the launch counts, per kernel and per kernel and
+    shape."""
     import base64
     import os
     import threading
@@ -1293,6 +1377,7 @@ def phase_serve(dev) -> tuple[dict, dict]:
     from sdtpu_torch.config import SD_V1_4
     from sdtpu_torch.models.unet import unet_apply, unfuse_qkv
     from sdtpu_torch.pipeline import StableDiffusion
+    from sdtpu_torch.profile_kernels import device_ms
     from sdtpu_torch.tokenizer import SimpleTokenizer
     from sdtpu_torch.utils.image import decode_png_rgb8, encode_png_rgb8
     from sdtpu_torch.weights import init_params
@@ -1415,28 +1500,42 @@ def phase_serve(dev) -> tuple[dict, dict]:
         if stale:
             bad.append(f"the merged pipeline keeps stale fused q/k/v in {stale[:3]}")
 
-        # the A/B of K10's gate: AB_ROUNDS rounds of open, closed, closed, open
+        # the A/B of K10's gate: the UNet call's device time in AB_PAIRS
+        # pairs (open, closed, then closed, open, ...), the time step on the
+        # device so that the call can be captured in a graph
         ctx, valid = sd.context(tok, SERVE_PROMPT)
         unctx, unvalid = sd.context(tok, "")
         ctx2, valid2 = torch.cat([unctx, ctx]), torch.cat([unvalid, valid])
         x2 = torch.randn((2, 64, 64, 4), generator=torch.Generator(device=dev).manual_seed(SEED),
                          device=dev).to(torch.bfloat16)
-        ab = {"1": [], "0": []}
+        t500 = torch.tensor([500.0], device=dev)
+        unet_ab = {"1": [], "0": []}
+        for i in range(AB_PAIRS):
+            for gate in ("1", "0") if i % 2 == 0 else ("0", "1"):
+                os.environ["SDTPU_FUSED_XATTN"] = gate
+                unet_ab[gate].append(device_ms(lambda: unet_apply(
+                    sd.params["unet"], x2, t500, ctx2, cfg.unet, ctx_valid=valid2), iters=5))
+            print(f"serve A/B pair {i}: UNet call 512px batch 2 bf16 device ms, gate open "
+                  f"{unet_ab['1'][-1]:.4f}, closed {unet_ab['0'][-1]:.4f}", flush=True)
+        gaps = sorted(c - o for o, c in zip(unet_ab["1"], unet_ab["0"]))
+        print(f"serve A/B of K10's gate, {AB_PAIRS} pairs by device time: UNet call median "
+              f"open {statistics.median(unet_ab['1']):.4f} ms (min {min(unet_ab['1']):.4f}, "
+              f"max {max(unet_ab['1']):.4f}), closed {statistics.median(unet_ab['0']):.4f} "
+              f"(min {min(unet_ab['0']):.4f}, max {max(unet_ab['0']):.4f}); closed - open per "
+              f"pair median {statistics.median(gaps):.4f} ms (min {gaps[0]:.4f}, max "
+              f"{gaps[-1]:.4f})", flush=True)
+        # and a lone request's latency, AB_ROUNDS rounds of open, closed,
+        # closed, open
+        lat_ab = {"1": [], "0": []}
         for gate in ("1", "0", "0", "1") * AB_ROUNDS:
             os.environ["SDTPU_FUSED_XATTN"] = gate
-            unet_ms = cuda_ms(lambda: unet_apply(sd.params["unet"], x2, 500, ctx2, cfg.unet,
-                                                 ctx_valid=valid2), iters=10)
             resp = post(f"A/B gate {gate} lone", {"prompt": SERVE_PROMPT, "seed": 7})
-            ab[gate].append((unet_ms, resp.get("latency_s")))
-            print(f"serve A/B SDTPU_FUSED_XATTN={gate}: UNet call 512px batch 2 bf16 "
-                  f"{unet_ms:.3f} ms (CUDA events, 10 calls), lone {SERVE_STEPS}-step request "
-                  f"latency_s {resp.get('latency_s')}", flush=True)
-        for gate, runs in ab.items():
-            unet_ms, lat = (sorted(v) for v in zip(*runs))
-            print(f"serve A/B SDTPU_FUSED_XATTN={gate}, {len(runs)} runs: UNet call ms median "
-                  f"{statistics.median(unet_ms):.3f} (min {unet_ms[0]:.3f}, max "
-                  f"{unet_ms[-1]:.3f}), request latency_s median {statistics.median(lat):.3f} "
-                  f"(min {lat[0]:.3f}, max {lat[-1]:.3f})", flush=True)
+            lat_ab[gate].append(resp.get("latency_s"))
+        for gate, lat in lat_ab.items():
+            lat = sorted(lat)
+            print(f"serve A/B SDTPU_FUSED_XATTN={gate}, {len(lat)} lone {SERVE_STEPS}-step "
+                  f"requests: latency_s median {statistics.median(lat):.3f} (min {lat[0]:.3f}, "
+                  f"max {lat[-1]:.3f})", flush=True)
     finally:
         if server is not None:
             server.shutdown()
@@ -1687,7 +1786,9 @@ def main() -> None:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
             **({} if t["device_ms"] is None or not launches[name] else
-               {"device_ms": t["device_ms"], "replaced_device_ms": t["old_ms"]})})
+               {"device_ms": t["device_ms"]}),
+            **({} if t["old_ms"] is None or not launches[name] else
+               {"replaced_device_ms": t["old_ms"]})})
     print(f"chip_smoke phases took {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels_json}), flush=True)
     print(card, flush=True)

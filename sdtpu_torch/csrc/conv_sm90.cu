@@ -1,4 +1,4 @@
-// K6 and K4 in bf16, on Hopper's TMA and warpgroup tensor-core
+// K6, K4 and K7 in bf16, on Hopper's TMA and warpgroup tensor-core
 // instructions:
 // - K6, the fused 3x3 convolution, sdtpu/ops/fused_conv.py:conv3x3_fused
 //   (its Pallas body `_kernel` / `_conv_part` :96/:44, called at :232):
@@ -18,7 +18,22 @@
 //   mask. What bounds K4 on the H100 is bytes (2·C operations per output
 //   value against 2–3 bf16 values of it at C = 320–640, below the card's
 //   295 operations a byte): one read of x and one write of y, the prologue
-//   applied once an A element where one tile spans Co (320 channels).
+//   applied once an A element where one tile spans Co (320 channels);
+// - K7, the fused 2x upsample convolution, sdtpu/ops/fused_conv.py:
+//   upsample2x_conv_fused (its Pallas body `_up_kernel` :276, called at
+//   :372): y = conv3x3(nearest2x(x)) + b as four output phases (py, px),
+//   each a 2x2-tap convolution at x's resolution with the folded weights of
+//   ops/conv.py:upsample_phase_weights (2.25x fewer operations than the 3x3
+//   over the upsampled map), with per-channel (Σy, Σy²). It is this kernel
+//   at four taps (TAPS = 4) with the phase in the grid: a CTA computes one
+//   phase of one 128-pixel tile of x, its tap (dy, dx) box read at (c0, j0 +
+//   px + dx − 1, i0 + py + dy − 1, b) (the offsets of UPSAMPLE_PHASE_PADS:
+//   top padding 1 − py, left 1 − px), its weight rows phase p's [4·C, Co]
+//   of the [4][4·C][Co] stack, and its stores at output pixels (2i + py,
+//   2j + px). K7 has no prologue, so TMA's zeros are its zero padding and
+//   no border mask is compiled in. Compute-bound: 2·16·C·Co operations an
+//   input pixel against (C + 4·Co) bf16 values (0.139 ms at the bf16 peak
+//   against 0.027 ms of bytes at 128² x 512 -> 256² x 512).
 //
 // What bounds it on the H100: 2·9·(C1 + C2)·Co operations per pixel against
 // (C1 + C2 + Co) bf16 values of it: compute-bound at every main-path shape
@@ -68,9 +83,9 @@
 // tile, read by all nine taps through shifted ldmatrix rows, was slower
 // on the H100 (PERF.md, PR 6). The tile plan (bn, the box, the stages, the
 // shared-memory bytes) comes from Python (sdtpu_torch/ops/fused_conv.py:
-// sm90_plan, and conv1x1_sm90_plan for K4) and is checked here. Other
-// shapes, K6 with an affine prologue without SiLU, and f32 take the WMMA
-// kernels (csrc/gemm.cu).
+// sm90_plan, conv1x1_sm90_plan for K4, upsample_sm90_plan for K7) and is
+// checked here. Other shapes, K6 with an affine prologue without SiLU, and
+// f32 take the WMMA kernels (csrc/gemm.cu).
 #include "sm90.cuh"
 
 namespace sdk {
@@ -134,14 +149,20 @@ __device__ __forceinline__ void conv_mma(float* acc, const uint32_t* af, uint32_
 }
 
 // PRO: the prologue (PRO_NONE, PRO_AFFINE, PRO_SILU); TAPS: 9 (K6, map_x
-// 4-D) or 1 (K4, map_x 3-D over [B][rows][C], read with H = rows, W = 1)
+// 4-D), 4 (K7: one output phase's 2x2 taps, map_x 4-D, the phase in
+// blockIdx.z = 4·b + 2·py + px) or 1 (K4, map_x 3-D over [B][rows][C], read
+// with H = rows, W = 1)
 template <int BN, int PRO, int TAPS>
 __global__ void __launch_bounds__(V_NT, 1)
     conv_sm90_kernel(const __grid_constant__ CUtensorMap map_x,
                      const __grid_constant__ CUtensorMap map_x2,
                      const __grid_constant__ CUtensorMap map_w, const ConvSm90 p) {
+  static_assert(TAPS == 9 || TAPS == 4 || TAPS == 1, "3x3, K7's 2x2 phases, or 1x1");
+  static_assert(TAPS != 4 || PRO == PRO_NONE, "K7 has no prologue: TMA's zeros pad it");
   constexpr uint32_t STAGE = stage_bytes<BN>();
   constexpr int NB = BN / V_BOX;
+  constexpr int KW = TAPS == 9 ? 3 : TAPS == 4 ? 2 : 1;  // taps a row
+  constexpr int PH = TAPS == 4 ? 4 : 1;                  // output phases in the grid
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -154,9 +175,14 @@ __global__ void __launch_bounds__(V_NT, 1)
   const int ct = p.C1 + p.C2, kpt = ct / V_BK;  // K blocks a tap
   const int nk = TAPS * kpt;
   const int bw = p.bw, bh = V_BM / bw, tiles_w = p.W / bw;
-  const int b = blockIdx.z, tile = blockIdx.y;
+  const int b = blockIdx.z / PH, tile = blockIdx.y;
   const int i0 = tile / tiles_w * bh, j0 = tile % tiles_w * bw;
   const int n0 = blockIdx.x * NB * V_BOX;
+  // K7's phase (py, px); the source pixel of tap (0, 0) is (i + oy, j + ox):
+  // the 3x3's padding of 1, or the phase's top and left padding 1 − py, 1 − px
+  const int phase = blockIdx.z % PH, py = phase >> 1, px = phase & 1;
+  const int oy = TAPS == 4 ? py - 1 : -1, ox = TAPS == 4 ? px - 1 : -1;
+  const int w_row0 = phase * TAPS * ct;  // K7: phase p's [4·C, Co] rows of the stack
 
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) {
@@ -178,17 +204,17 @@ __global__ void __launch_bounds__(V_NT, 1)
         mbar_expect_tx(&full[s], STAGE);
         unsigned char* st = smem + s * STAGE;
         const int tap = kb / kpt, c0 = (kb - tap * kpt) * V_BK;
-        const int dy = tap / 3, dx = tap % 3;
+        const int sy = i0 + tap / KW + oy, sx = j0 + tap % KW + ox;
         if constexpr (TAPS == 1)
           tma_load_3d(st, &map_x, &full[s], c0, i0, b);
         else if (c0 < p.C1)
-          tma_load_4d(st, &map_x, &full[s], c0, j0 + dx - 1, i0 + dy - 1, b);
+          tma_load_4d(st, &map_x, &full[s], c0, sx, sy, b);
         else
-          tma_load_4d(st, &map_x2, &full[s], c0 - p.C1, j0 + dx - 1, i0 + dy - 1, b);
+          tma_load_4d(st, &map_x2, &full[s], c0 - p.C1, sx, sy, b);
 #pragma unroll
         for (int bb = 0; bb < NB; ++bb)
           tma_load_2d(st + V_A_BYTES + bb * V_W_BYTES, &map_w, &full[s], n0 + bb * V_BOX,
-                      kb * V_BK);
+                      w_row0 + kb * V_BK);
       }
     }
     return;
@@ -237,7 +263,7 @@ __global__ void __launch_bounds__(V_NT, 1)
       ldmatrix_x4(af[ks], a_base + (((ks * 2 + lchunk) ^ (lrow & 7)) << 4));
     if constexpr (PRO == PRO_NONE) return;
     const int tap = kb / kpt, c0 = (kb - tap * kpt) * V_BK;
-    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+    const int dy = tap / KW + oy, dx = tap % KW + ox;
     bool inside[2] = {true, true};  // one tap: no border
     if constexpr (TAPS != 1) {
 #pragma unroll
@@ -320,14 +346,16 @@ __global__ void __launch_bounds__(V_NT, 1)
   // ---- epilogue on the accumulators: thread holds, for j < BN / 8,
   // columns 8j + 2t, +1 of rows g (registers 4j, 4j+1) and g + 8 (4j+2,
   // 4j+3). Rows past the map's last row (a box taller than what is left of
-  // it) are neither stored nor counted.
+  // it) are neither stored nor counted. The output pixel of (i, j) is (i, j)
+  // itself, or K7's (2i + py, 2j + px) of the [B][2H][2W] map.
   const long long hw = (long long)p.H * p.W;
   bool row_ok[2];
   long long pix[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     row_ok[h] = pi[h] < p.H;
-    pix[h] = (long long)b * hw + (long long)pi[h] * p.W + pj[h];
+    pix[h] = TAPS == 4 ? ((long long)b * 2 * p.H + 2 * pi[h] + py) * 2 * p.W + 2 * pj[h] + px
+                       : (long long)b * hw + (long long)pi[h] * p.W + pj[h];
   }
   // the ring is free once every consumer is past its last product; the
   // statistics' per-warp partials [8 warps][BN][2] reuse it
@@ -374,7 +402,8 @@ __global__ void __launch_bounds__(V_NT, 1)
   }
   if (p.stats) {
     asm volatile("bar.sync 1, %0;\n" ::"n"(V_CONSUMERS) : "memory");
-    float* st = p.stats + ((long long)b * gridDim.y + tile) * 2 * p.Co;
+    // [B][PH·row tiles][2][Co]: K7's phase p at row tiles p·gridDim.y ..
+    float* st = p.stats + ((long long)blockIdx.z * gridDim.y + tile) * 2 * p.Co;
     for (int col = tid; col < BN; col += V_CONSUMERS) {
       const int n = n0 + col;
       if (n >= p.Co) continue;
@@ -509,4 +538,35 @@ extern "C" int sdk_conv1x1_sm90(const void* x, const void* w, const void* bias,
   if (!pro) return (int)launch_conv_sm90<PRO_NONE, 1>(bn, mx, mx, mw, p, B, tiles, smem_bytes, s);
   if (silu) return (int)launch_conv_sm90<PRO_SILU, 1>(bn, mx, mx, mw, p, B, tiles, smem_bytes, s);
   return (int)launch_conv_sm90<PRO_AFFINE, 1>(bn, mx, mx, mw, p, B, tiles, smem_bytes, s);
+}
+
+// K7: y [B][2H][2W][Co] = conv3x3(nearest2x(x)) + bias, bf16, as four output
+// phases p = 2·py + px of 2x2 taps at x's resolution. x [B][H][W][C]; w
+// [4][4·C][Co], phase p's taps (dy, dx) in rows (2·dy + dx)·C .. + C
+// (sdtpu_torch/ops/conv.py:upsample_phase_weights, reshaped); bias [Co] bf16
+// or null; stats [B][4·row tiles][2][Co] f32 or null, phase p's partials at
+// row tiles p·(row tiles) .., row tiles = ceil(H / bh)·(W / bw). C a multiple
+// of 64, Co of 8. The plan from Python (fused_conv.upsample_sm90_plan): bn
+// output channels a tile (128, 256 or 320), bw pixels of a row a box
+// (min(W, 128), bh = 128 / bw rows), `stages`, smem_bytes.
+extern "C" int sdk_upsample_conv_sm90(const void* x, const void* w, const void* bias, void* out,
+                                      float* stats, int B, int H, int W, int C, int Co, int bn,
+                                      int bw, int stages, int smem_bytes, void* stream) {
+  using namespace sdk;
+  const void* ptrs[] = {x, w, out};
+  for (const void* q : ptrs)
+    if (!sm90::aligned16(q)) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || C % V_BK || Co <= 0 || Co % 8 ||
+      reinterpret_cast<uintptr_t>(bias) % 4 || stages < 2 || bw != (W < V_BM ? W : V_BM) ||
+      V_BM % bw || W % bw)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap mx, mw;
+  cudaError_t err = make_map_nhwc(&mx, x, B, H, W, C, bw);
+  if (err == cudaSuccess) err = sm90::make_map_2d(&mw, w, Co, 16LL * C, Co, V_BOX, V_BK);
+  if (err != cudaSuccess) return (int)err;
+  ConvSm90 p{static_cast<const bf16*>(bias), nullptr, nullptr, nullptr, nullptr, 0, 0,
+             nullptr, static_cast<bf16*>(out), stats, H, W, C, 0, Co, bw, stages};
+  const int tiles = (H + V_BM / bw - 1) / (V_BM / bw) * (W / bw);
+  return (int)launch_conv_sm90<PRO_NONE, 4>(bn, mx, mx, mw, p, 4 * B, tiles, smem_bytes,
+                                            static_cast<cudaStream_t>(stream));
 }

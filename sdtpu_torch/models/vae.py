@@ -14,11 +14,13 @@ ResnetBlock gate.
 
 from __future__ import annotations
 
+import torch
+
 from sdtpu_torch.config import AutoencoderConfig
 from sdtpu_torch.ops import conv2d, dispatch, group_norm, qkv_attention
 from sdtpu_torch.ops.conv import upsample2x_conv, use_fused_upsample
-from sdtpu_torch.ops.fused_conv import (conv3x3_fused, gn_scale_bias, stats_scale_bias,
-                                        upsample2x_conv_fused)
+from sdtpu_torch.ops.fused_conv import (conv3x3_fused, gn_scale_bias, phase_weight_stack,
+                                        stats_scale_bias, upsample2x_conv_fused)
 from sdtpu_torch.ops.groupnorm import group_norm_silu_op
 
 # sdtpu's gate for the fused ResnetBlock: maps of at least this many rows
@@ -179,24 +181,37 @@ def encode_image(params, x, cfg: AutoencoderConfig):
     return latent[..., : cfg.latent_channels]
 
 
-def decode_latent(params, z, cfg: AutoencoderConfig):
+def upsample_phase_stacks(params):
+    """Per decoder block, the [4, 4C, Co] phase-weight stack of its
+    upsampler in the weight's dtype (fused_conv.phase_weight_stack), or None
+    where the block has none: the operand of K7's Hopper route, folded once
+    where the pipeline prepares its parameters instead of once a call."""
+    with torch.no_grad():
+        return [phase_weight_stack(blk["upsampler"]["w"], blk["upsampler"]["w"].dtype)
+                if "upsampler" in blk else None for blk in params["decoder"]["blocks"]]
+
+
+def decode_latent(params, z, cfg: AutoencoderConfig, phases=None):
     """z: [B, h, w, latent] -> image [B, 8h, 8w, 3] in about [-1, 1].
 
     On the fused path every block emits the per-channel (sum, sum^2) of its
     f32 output and the next block's GroupNorm consumes them
-    (sdtpu/models/vae.py:220-252)."""
+    (sdtpu/models/vae.py:220-252). phases: optional upsample_phase_stacks
+    of params, which the fused upsamplers (K7) then read instead of folding
+    their weights a call."""
     z = conv2d(params["post_quant_conv"], z, padding=0)
     p = params["decoder"]
     x = conv2d(p["conv_in"], z, padding=1)
     x, st = _mid_apply(p["mid"], x, cfg, emit_stats=True)
-    for blk in p["blocks"]:
+    for i, blk in enumerate(p["blocks"]):
         for name in ("res1", "res2", "res3"):
             x, st = _resnet_apply(blk[name], x, cfg, in_stats=st, emit_stats=True)
         if "upsampler" in blk:
             up = blk["upsampler"]
             _, hh, ww, cc = x.shape
             if use_fused_upsample(hh, ww, cc, up["w"].shape[-1]):
-                x, st = upsample2x_conv_fused(x, up["w"], up["b"], emit_stats=True)
+                x, st = upsample2x_conv_fused(x, up["w"], up["b"], emit_stats=True,
+                                              phases=None if phases is None else phases[i])
             else:
                 x, st = upsample2x_conv(up, x), None
     x = group_norm_silu_op(x, p["norm_out"]["g"], p["norm_out"]["b"],

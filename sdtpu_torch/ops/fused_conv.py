@@ -2,11 +2,11 @@
 of sdtpu/ops/fused_conv.py): K4 conv1x1_fused, K6 conv3x3_fused, K7
 upsample2x_conv_fused, and their glue gn_scale_bias / stats_scale_bias.
 
-K7, and K4 and K6 in f32, run on the shared WMMA GEMM of csrc/gemm.cu, K6
-and K7 as an implicit GEMM over the NHWC map. K6 and K4 in bf16 run the
-Hopper kernel csrc/conv_sm90.cu: an implicit GEMM whose A boxes are TMA
-loads of a tensor map over the map (zeros outside it), multiplied by
-wgmma; their tile plans are sm90_plan and conv1x1_sm90_plan. The design
+K4, K6 and K7 in f32 run on the shared WMMA GEMM of csrc/gemm.cu, K6 and
+K7 as an implicit GEMM over the NHWC map. In bf16 all three run the Hopper
+kernel csrc/conv_sm90.cu: an implicit GEMM whose A boxes are TMA loads of a
+tensor map over the map (zeros outside it), multiplied by wgmma; their tile
+plans are sm90_plan, conv1x1_sm90_plan and upsample_sm90_plan. The design
 applies the GroupNorm affine
 (+SiLU) to the A tile on its way to the tensor cores (in shared memory on
 the WMMA kernel, in registers on the Hopper one), and the bias, residual
@@ -38,7 +38,14 @@ the next GroupNorm's statistics cost no read of the map.
 - K7 replaces `_up_kernel` (sdtpu/ops/fused_conv.py:276, called at :372):
   conv3x3(nearest2x(x)) as four output phases of 2x2 taps at the input's
   resolution (2.25x fewer flops than the 3x3 over the upsampled map), each
-  phase writing its interleaved pixels straight into the output.
+  phase writing its interleaved pixels straight into the output, 2·16·C·Co
+  flops per input pixel (compute-bound). Routes: bf16 takes
+  csrc/conv_sm90.cu at four taps with the phase in the grid where
+  upsample_sm90_plan has a tile (C a multiple of 64, W a multiple or a
+  divisor of 128: every main-path shape); f32 and the other shapes the
+  WMMA kernel; each launch is counted under its route. Both read the
+  [4, 4C, Co] stack of the phases' folded taps (phase_weight_stack), which
+  the pipeline folds once (models/vae.py:upsample_phase_stacks).
 
 sdtpu's options that are TPU layout choices (block_h, block_r, kpack) have
 no counterpart.
@@ -391,9 +398,10 @@ conv3x3_fused.shapes = {}
 conv3x3_fused.launches_x2 = 0  # the launches among them with a second input
 
 
-def upsample2x_conv_fused_plain(x, w, conv_bias, emit_stats: bool = False):
+def upsample2x_conv_fused_plain(x, w, conv_bias, emit_stats: bool = False, phases=None):
     """The plain version of upsample2x_conv_fused: four phase convolutions
-    with the same folded weights, interleaved."""
+    with the same folded weights, interleaved. phases is taken for the
+    kernel's signature and not read: the folded weights come from w."""
     b, h, wd, _ = x.shape
     co = w.shape[-1]
     wph = upsample_phase_weights(w).to(x.dtype)
@@ -405,12 +413,45 @@ def upsample2x_conv_fused_plain(x, w, conv_bias, emit_stats: bool = False):
     return (y, _stats(acc)) if emit_stats else y
 
 
-def upsample2x_conv_fused(x, w, conv_bias, emit_stats: bool = False):
+def upsample_sm90_plan(b: int, h: int, w: int, c: int, co: int, bn: int | None = None,
+                       stages: int | None = None) -> ConvPlan | None:
+    """The plan of K7's Hopper route, csrc/conv_sm90.cu at four taps, for x
+    [b, h, w, c] to co channels, or None where it has no tile (the WMMA
+    kernel takes it): sm90_plan's tile of a map with four output phases an
+    image, no prologue. Each CTA computes one phase of one 128-pixel tile
+    of x, so the grid is (co / bn, tiles, 4·b), and the tile's width
+    follows sm90_plan's rule over that grid; c must be a multiple of 64 and
+    w a multiple or a divisor of 128. bn and stages, when given, override
+    the choice (for timing one plan against another)."""
+    return sm90_plan(4 * b, h, w, c, 0, co, False, bn, stages)
+
+
+def phase_weight_stack(w, dtype):
+    """HWIO [3, 3, C, Co] -> the [4, 4·C, Co] stack in dtype that K7's
+    kernels read: phase p = 2·py + px's taps (dy, dx) in rows (2·dy + dx)·C
+    .., upsample_phase_weights' f32 sums rounded to dtype once."""
+    c, co = w.shape[2], w.shape[3]
+    return upsample_phase_weights(w).to(dtype).reshape(4, 4 * c, co)
+
+
+def upsample2x_conv_fused(x, w, conv_bias, emit_stats: bool = False, phases=None):
     """conv3x3(nearest_upsample_2x(x)) + conv_bias without the upsampled
     map: x [B, H, W, C]; w [3, 3, C, Co]; returns [B, 2H, 2W, Co], or (y,
-    stats [B, 2, Co]). CPU tensors take the plain version; CUDA tensors the
-    kernel."""
-    if kernels.on_cpu(x, w, conv_bias):
+    stats [B, 2, Co]). phases: optional phase_weight_stack(w, x.dtype),
+    made once by the caller (the pipeline's VAE), which the kernel then
+    reads instead of folding w a call. CPU tensors take the plain
+    version; CUDA tensors the kernel (bf16: csrc/conv_sm90.cu at four taps
+    where upsample_sm90_plan has a tile for the shape; f32 and other
+    shapes: csrc/gemm.cu)."""
+    return _upsample2x(x, w, conv_bias, emit_stats, "auto", phases)
+
+
+def _upsample2x(x, w, conv_bias, emit_stats, route, phases=None):
+    """upsample2x_conv_fused on the given route: "auto" (by dtype and plan),
+    "wmma" (csrc/gemm.cu whatever the dtype), or a ConvPlan for
+    csrc/conv_sm90.cu at four taps (bf16): the last two for timing kernels
+    and plans against each other."""
+    if kernels.on_cpu(x, w, conv_bias, phases):
         return upsample2x_conv_fused_plain(x, w, conv_bias, emit_stats)
     kernels.refuse_autograd("upsample2x_conv_fused (K7)", x, w, conv_bias)
     b, h, wd, c = x.shape
@@ -418,17 +459,39 @@ def upsample2x_conv_fused(x, w, conv_bias, emit_stats: bool = False):
     if tuple(w.shape[:3]) != (3, 3, c):
         raise ValueError(f"weight {tuple(w.shape)} does not fit {c} input channels")
     dt = x.dtype
+    if phases is None:
+        phases = phase_weight_stack(w, dt)
+    elif phases.shape != (4, 4 * c, co) or phases.dtype != dt:
+        raise ValueError(f"phases {phases.dtype} {tuple(phases.shape)}: expected {dt} "
+                         f"[4, {4 * c}, {co}] (phase_weight_stack)")
+    wph = phases.contiguous()
+    plan = route if isinstance(route, ConvPlan) else None
+    if dt == torch.bfloat16 and route == "auto":
+        plan = upsample_sm90_plan(b, h, wd, c, co)
     x = x.contiguous()
-    wph = upsample_phase_weights(w).to(dt).reshape(4, 4 * c, co).contiguous()
     out = torch.empty((b, 2 * h, 2 * wd, co), dtype=dt, device=x.device)
     stats = None
     with torch.cuda.device(x.device):
-        if emit_stats:
-            stats = torch.empty((b, 4 * kernels.gemm_row_tiles(h * wd), 2, co),
-                                dtype=torch.float32, device=x.device)
-        kernels.conv(x, wph, out, C=c, H=h, W=wd, N=co, batch=b, kw=2, nphase=4,
-                     up=2, bias=conv_bias.float().contiguous(), stats=stats)
-    kernels.count(upsample2x_conv_fused, b=b, h=h, w=wd, c=c, co=co, stats=emit_stats)
+        if plan is not None:
+            # the bias is read in x's dtype (.to and .contiguous return the
+            # tensor itself when it already is)
+            cb = conv_bias.to(dt).contiguous()
+            if emit_stats:
+                stats = torch.empty((b, 4 * plan.grid[1], 2, co), dtype=torch.float32,
+                                    device=x.device)
+            rc = kernels.lib().sdk_upsample_conv_sm90(
+                x.data_ptr(), wph.data_ptr(), cb.data_ptr(), out.data_ptr(),
+                kernels.ptr(stats), b, h, wd, c, co, plan.bn, plan.bw, plan.stages, plan.smem,
+                kernels.stream(x))
+            kernels.check(rc, "sdk_upsample_conv_sm90")
+        else:
+            if emit_stats:
+                stats = torch.empty((b, 4 * kernels.gemm_row_tiles(h * wd), 2, co),
+                                    dtype=torch.float32, device=x.device)
+            kernels.conv(x, wph, out, C=c, H=h, W=wd, N=co, batch=b, kw=2, nphase=4,
+                         up=2, bias=conv_bias.float().contiguous(), stats=stats)
+    kernels.count(upsample2x_conv_fused, b=b, h=h, w=wd, c=c, co=co, stats=emit_stats,
+                  route="wmma" if plan is None else "sm90")
     return (out, stats.sum(dim=1)) if emit_stats else out
 
 

@@ -4,24 +4,31 @@ sdtpu/ops/fused_cross_attention.py: fused_cross_attention_kv and
 fused_cross_attention).
 
 It replaces the Pallas kernels `_kernel_kv` (called at :154) and `_kernel`
-(:223) with three launches of hand-written kernels:
+(:223). Two routes, chosen by dtype and plan (sm90_plan):
 
-1. the shared GEMM (csrc/gemm.cu) with a LayerNorm prologue computes
-   LN(x)·Wq into a [B, S, C] buffer; Wq is used as it is, [C, C];
-2. csrc/cross_attention.cu: one block per (query tile, head, batch) stages
-   that head's K and V, at most 128 keys, in shared memory once and serves
-   every query row of its tile; one max, exp and sum over all the keys (no
-   online rescale: there is one key tile), the key-padding bias applied
-   from the bool key mask itself;
-   the output is written with its heads merged, [B, S, C];
-3. the shared GEMM computes o·Wo + bo + x, bias and residual in the f32
-   epilogue.
+- bf16 at the head widths the Hopper core has an instance for (padded to
+  48, 64, 80 or 160) takes K2's bf16 route without K and V in the first
+  product, four launches: the row-statistics pre-pass, LN(x)·Wq on
+  csrc/gemm_sm90.cu (the LayerNorm prologue in registers, N = C) into a
+  [B, S, C] buffer, the core on csrc/attention_sm90.cu (K1's instances with
+  the key bias: key_valid as an f32 row of 0 / -1e30 a batch element, added
+  in the log2 domain before the row maximum; Sk = 77 is two 64-key tiles,
+  the second masked past Sk), which reads q through the buffer's (batch,
+  head, row) strides and K and V through those of kt/vt's untransposed
+  [B, Sk, C] projections (no copy), and o·Wo + bo + x on csrc/gemm_sm90.cu.
+  γ, β, the weights and bo are read in x's dtype: no cast a call.
+- f32 (and the shapes without a plan) takes the WMMA kernels: the shared
+  WMMA GEMM (csrc/gemm.cu) with a LayerNorm prologue for LN(x)·Wq,
+  csrc/cross_attention.cu (one block per (query tile, head, batch) stages
+  that head's K and V, at most 128 keys, in shared memory once; one max,
+  exp and sum over all the keys, the key-padding bias from the bool mask
+  itself; the heads merged), and the shared GEMM for o·Wo + bo + x.
 
-fused_cross_attention_kv takes K and V already projected and transposed,
-kt/vt [B, C, Sk] (sdtpu's layout: the UNet projects them once per
-transformer, outside the kernel); the kernel reads them through their
-strides, so a transposed view costs no copy. fused_cross_attention projects
-the context itself, as the TPU body does, with the shared GEMM.
+Each launch is counted under its route. fused_cross_attention_kv takes K
+and V already projected and transposed, kt/vt [B, C, Sk] (sdtpu's layout:
+the UNet projects them once per transformer, outside the kernel);
+fused_cross_attention projects the context itself, as the TPU body does,
+on csrc/gemm_sm90.cu in bf16 (the shared GEMM in f32).
 
 What bounds it on the H100 at SD's shapes: the two C x C projections, 4·S·C²
 flops against 4·S·C bytes of x and out (bf16), compute-bound at the tensor
@@ -30,15 +37,50 @@ cores' rate; the attention core adds 4·S·Sk·C flops, Sk = 77.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from sdtpu_torch import kernels
+from sdtpu_torch.ops import fused_mlp
 from sdtpu_torch.ops.attention import qkv_attention_plain
 from sdtpu_torch.ops.conv import linear
+from sdtpu_torch.ops.flash_attention import NEG_INF, CorePlan, core_sm90_plan
 from sdtpu_torch.ops.groupnorm import layer_norm
 
 MAX_HEAD_DIM = 160  # shared-memory bound of csrc/cross_attention.cu
 MAX_KEYS = 128      # one key tile; the text context has 77
+
+
+class Sm90Plan(NamedTuple):
+    """K10's bf16 route: the Q product (LayerNorm prologue, N = C, no bias),
+    the core (with the key bias when the keys are masked), and the Wo
+    product (bias and residual)."""
+    q: fused_mlp.Sm90Plan
+    core: CorePlan
+    out: fused_mlp.Sm90Plan
+
+
+def sm90_plan(b: int, s: int, c: int, n_head: int, sk: int, bias: bool) -> Sm90Plan | None:
+    """The bf16 route's plans for x [b, s, c] with n_head heads over sk keys,
+    bias: whether the keys are masked (key_valid given), or None where the
+    Hopper kernels have no tile for it (the WMMA route takes it): a head
+    width without a core instance, a LayerNorm wider than the GEMM's
+    prologue takes, or more keys than the kernel's MAX_KEYS."""
+    d = c // n_head
+    core = core_sm90_plan(d, bias) if d * n_head == c else None
+    if core is None or c % 8 or c > fused_mlp.SM90_LN_MAX_K or not 0 < sk <= MAX_KEYS:
+        return None
+    m = b * s
+    return Sm90Plan(fused_mlp.sm90_plan(m, c, c, False, ln=True), core,
+                    fused_mlp.sm90_plan(m, c, c, False))
+
+
+def route_plan(dtype, b: int, s: int, c: int, n_head: int, sk: int,
+               bias: bool) -> Sm90Plan | None:
+    """K10's route: the Hopper kernels' plans (sm90_plan) for bf16, else
+    None: f32 (and the bf16 shapes without a plan) take the WMMA kernels."""
+    return sm90_plan(b, s, c, n_head, sk, bias) if dtype == torch.bfloat16 else None
 
 
 def fused_cross_attention_kv_plain(x, kt, vt, ln_g, ln_b, wq, wo, bo, key_valid=None,
@@ -72,9 +114,10 @@ def _check_shapes(name, x, kshape, n_head):
                          f"(the kernel takes [B, C, Sk], Sk <= {MAX_KEYS})")
 
 
-def _launch(x, kt, vt, ln_g, ln_b, wq, wo, bo, key_valid, n_head, eps):
-    """The three launches on x's device; kt/vt [B, C, Sk] in x's dtype, any
-    strides."""
+def _launch_wmma(x, kt, vt, ln_g, ln_b, wq, wo, bo, key_valid, n_head, eps):
+    """The WMMA route's three launches on x's device (csrc/gemm.cu,
+    csrc/cross_attention.cu, csrc/gemm.cu); kt/vt [B, C, Sk] in x's dtype,
+    any strides. The shared GEMM takes f32 LayerNorm parameters and biases."""
     b, s, c = x.shape
     sk = kt.shape[2]
     dt = x.dtype
@@ -83,24 +126,88 @@ def _launch(x, kt, vt, ln_g, ln_b, wq, wo, bo, key_valid, n_head, eps):
     attn = torch.empty((b, s, c), dtype=dt, device=x.device)
     out = torch.empty_like(x)
     if key_valid is not None:
-        if tuple(key_valid.shape) != (b, sk):
-            raise ValueError(f"key_valid {tuple(key_valid.shape)} does not fit [{b}, {sk}]")
         # read by the kernel as bytes, the bias applied there: no launch
         # for a bool mask that is already contiguous (the UNet's ctx_valid)
         key_valid = key_valid.to(torch.bool).contiguous()
-    with torch.cuda.device(x.device):
-        kernels.gemm(x, wq.to(dt).contiguous(), q, M=m, N=c, K=c, lda=c, ldw=c, ldo=c,
-                     pa=ln_g.float().contiguous(), pb=ln_b.float().contiguous(),
-                     prologue=kernels.PRO_LAYERNORM, eps=eps)
-        rc = kernels.lib().sdk_cross_attention(
-            kernels.dtype_code(x), q.data_ptr(), kt.data_ptr(), vt.data_ptr(),
-            kt.stride(0), kt.stride(1), kt.stride(2), vt.stride(0), vt.stride(1), vt.stride(2),
-            kernels.ptr(key_valid), attn.data_ptr(), b, s, c, sk, n_head,
-            float(c // n_head) ** -0.5, kernels.stream(x))
-        kernels.check(rc, "sdk_cross_attention")
-        kernels.gemm(attn, wo.to(dt).contiguous(), out, M=m, N=c, K=c, lda=c, ldw=c, ldo=c,
-                     bias=bo.float().contiguous(), res=x, ldr=c)
+    kernels.gemm(x, wq.to(dt).contiguous(), q, M=m, N=c, K=c, lda=c, ldw=c, ldo=c,
+                 pa=ln_g.float().contiguous(), pb=ln_b.float().contiguous(),
+                 prologue=kernels.PRO_LAYERNORM, eps=eps)
+    rc = kernels.lib().sdk_cross_attention(
+        kernels.dtype_code(x), q.data_ptr(), kt.data_ptr(), vt.data_ptr(),
+        kt.stride(0), kt.stride(1), kt.stride(2), vt.stride(0), vt.stride(1), vt.stride(2),
+        kernels.ptr(key_valid), attn.data_ptr(), b, s, c, sk, n_head,
+        float(c // n_head) ** -0.5, kernels.stream(x))
+    kernels.check(rc, "sdk_cross_attention")
+    kernels.gemm(attn, wo.to(dt).contiguous(), out, M=m, N=c, K=c, lda=c, ldw=c, ldo=c,
+                 bias=bo.float().contiguous(), res=x, ldr=c)
     return out
+
+
+def _rows(t):
+    """t [B, Sk, C] as the core reads it (unit column stride, the batch and
+    row strides multiples of 8 elements, 16-byte aligned): t itself where
+    it already is (the UNet's kt.transpose(1, 2)), else a copy."""
+    if t.stride(2) != 1 or t.stride(0) % 8 or t.stride(1) % 8 or t.data_ptr() % 16:
+        return t.contiguous()
+    return t
+
+
+def _launch_sm90(x, kt, vt, ln_g, ln_b, wq, wo, bo, key_valid, n_head, eps, plan: Sm90Plan):
+    """The bf16 route's four launches on x's device: row statistics, LN(x)·Wq
+    (csrc/gemm_sm90.cu), the core with the key bias (csrc/attention_sm90.cu),
+    o·Wo + bo + x (csrc/gemm_sm90.cu). γ, β, the weights and bo are read in
+    x's dtype (.to and .contiguous return the tensors themselves when they
+    already are: no copy a call)."""
+    b, s, c = x.shape
+    sk = kt.shape[2]
+    d = c // n_head
+    dt = x.dtype
+    m = b * s
+    ln_g, ln_b, wq, wo, bo = (t.to(dt).contiguous() for t in (ln_g, ln_b, wq, wo, bo))
+    k, v = _rows(kt.transpose(1, 2)), _rows(vt.transpose(1, 2))
+    bias = None
+    if key_valid is not None:
+        bias = torch.where(key_valid.to(torch.bool), 0.0, NEG_INF).to(torch.float32)
+    stats = torch.empty((m, 2), dtype=torch.float32, device=x.device)
+    q = torch.empty((b, s, c), dtype=dt, device=x.device)
+    attn = torch.empty((b, s, c), dtype=dt, device=x.device)
+    out = torch.empty_like(x)
+    lib, st = kernels.lib(), kernels.stream(x)
+    p1, p2 = plan.q, plan.out
+    kernels.check(lib.sdk_row_stats(x.data_ptr(), c, stats.data_ptr(), m, c, eps, st),
+                  "sdk_row_stats")
+    kernels.check(lib.sdk_gemm_sm90(
+        x.data_ptr(), c, wq.data_ptr(), c, None, ln_g.data_ptr(), ln_b.data_ptr(),
+        stats.data_ptr(), None, 0, q.data_ptr(), c, m, c, c, 0, p1.bn, p1.stages, p1.smem, st),
+        "sdk_gemm_sm90 (LayerNorm, Q)")
+    kernels.check(lib.sdk_attention_sm90(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), attn.data_ptr(), s * c, d, c,
+        k.stride(0), d, k.stride(1), v.stride(0), d, v.stride(1), s * c, d, c,
+        kernels.ptr(bias), sk, None, b * n_head, n_head, s, sk, d, float(d) ** -0.5,
+        *plan.core, st), "sdk_attention_sm90")
+    kernels.check(lib.sdk_gemm_sm90(
+        attn.data_ptr(), c, wo.data_ptr(), c, bo.data_ptr(), None, None, None, x.data_ptr(), c,
+        out.data_ptr(), c, m, c, c, 0, p2.bn, p2.stages, p2.smem, st), "sdk_gemm_sm90 (Wo)")
+    return out
+
+
+def _launch(x, kt, vt, ln_g, ln_b, wq, wo, bo, key_valid, n_head, eps, route):
+    """The sublayer on x's device by route ("auto": by dtype and plan;
+    "wmma": the WMMA kernels whatever the dtype). Returns (out, route
+    taken)."""
+    b, s, c = x.shape
+    sk = kt.shape[2]
+    if key_valid is not None and tuple(key_valid.shape) != (b, sk):
+        raise ValueError(f"key_valid {tuple(key_valid.shape)} does not fit [{b}, {sk}]")
+    plan = None
+    if route == "auto":
+        plan = route_plan(x.dtype, b, s, c, n_head, sk, key_valid is not None)
+    with torch.cuda.device(x.device):
+        if plan is None:
+            return _launch_wmma(x, kt, vt, ln_g, ln_b, wq, wo, bo, key_valid, n_head,
+                                eps), "wmma"
+        return _launch_sm90(x, kt, vt, ln_g, ln_b, wq, wo, bo, key_valid, n_head, eps,
+                            plan), "sm90"
 
 
 def fused_cross_attention_kv(x, kt, vt, ln_g, ln_b, wq, wo, bo, key_valid=None,
@@ -110,7 +217,15 @@ def fused_cross_attention_kv(x, kt, vt, ln_g, ln_b, wq, wo, bo, key_valid=None,
     layout; a transposed view is read as it is); key_valid: optional bool
     [B, Sk] of real keys (padded keys get a -1e30 score bias); wq, wo:
     [C, C]; bo: [C]. Scores use d_head^-1/2. CPU tensors take the plain
-    version; CUDA tensors the kernels."""
+    version; CUDA tensors the kernels (see the module's routes)."""
+    return _cross_attention_kv(x, kt, vt, ln_g, ln_b, wq, wo, bo, key_valid, n_head, eps,
+                               "auto")
+
+
+def _cross_attention_kv(x, kt, vt, ln_g, ln_b, wq, wo, bo, key_valid, n_head, eps, route):
+    """fused_cross_attention_kv on the given route: "auto" (by dtype and
+    plan) or "wmma" (the WMMA kernels whatever the dtype, for timing the two
+    routes against each other)."""
     if kernels.on_cpu(x, kt, vt, ln_g, ln_b, wq, wo, bo, key_valid):
         return fused_cross_attention_kv_plain(x, kt, vt, ln_g, ln_b, wq, wo, bo, key_valid,
                                               n_head, eps)
@@ -120,18 +235,27 @@ def fused_cross_attention_kv(x, kt, vt, ln_g, ln_b, wq, wo, bo, key_valid=None,
     if vt.shape != kt.shape:
         raise ValueError(f"kt {tuple(kt.shape)} and vt {tuple(vt.shape)} differ")
     x = x.contiguous()
-    out = _launch(x, kt.to(x.dtype), vt.to(x.dtype), ln_g, ln_b, wq, wo, bo, key_valid,
-                  n_head, eps)
+    out, taken = _launch(x, kt.to(x.dtype), vt.to(x.dtype), ln_g, ln_b, wq, wo, bo, key_valid,
+                         n_head, eps, route)
     b, s, c = x.shape
-    kernels.count(fused_cross_attention_kv, b=b, s=s, c=c, sk=kt.shape[2], heads=n_head)
+    kernels.count(fused_cross_attention_kv, b=b, s=s, c=c, sk=kt.shape[2], heads=n_head,
+                  route=taken)
     return out
 
 
 def fused_cross_attention(x, context, ln_g, ln_b, wq, wk, wv, wo, bo, key_valid=None,
                           n_head: int = 8, eps: float = 1e-5):
     """x: [B, S, C]; context: [B, Sk, Dc] -> x + out_proj(attn), K and V
-    projected from the context here (wk, wv: [Dc, C]) with the shared GEMM.
-    Otherwise as fused_cross_attention_kv."""
+    projected from the context here (wk, wv: [Dc, C]; bf16 on
+    csrc/gemm_sm90.cu, f32 on the shared GEMM). Otherwise as
+    fused_cross_attention_kv."""
+    return _cross_attention(x, context, ln_g, ln_b, wq, wk, wv, wo, bo, key_valid, n_head,
+                            eps, "auto")
+
+
+def _cross_attention(x, context, ln_g, ln_b, wq, wk, wv, wo, bo, key_valid, n_head, eps,
+                     route):
+    """fused_cross_attention on the given route (see _cross_attention_kv)."""
     if kernels.on_cpu(x, context, ln_g, ln_b, wq, wk, wv, wo, bo, key_valid):
         return fused_cross_attention_plain(x, context, ln_g, ln_b, wq, wk, wv, wo, bo,
                                            key_valid, n_head, eps)
@@ -145,13 +269,24 @@ def fused_cross_attention(x, context, ln_g, ln_b, wq, wk, wv, wo, bo, key_valid=
     ctx = context.to(dt).contiguous()
     # [B, Sk, 2C]: the keys and the values of every head side by side
     kv = torch.empty((b, sk, 2 * c), dtype=dt, device=x.device)
+    # the K/V product on csrc/gemm_sm90.cu in bf16
+    p = None
+    if dt == torch.bfloat16 and route == "auto":
+        p = fused_mlp.sm90_plan(b * sk, c, dc, False)
     with torch.cuda.device(x.device):
         for i, w in enumerate((wk, wv)):
-            kernels.gemm(ctx, w.to(dt).contiguous(), kv[..., i * c:], M=b * sk, N=c, K=dc,
-                         lda=dc, ldw=c, ldo=2 * c)
+            w = w.to(dt).contiguous()
+            if p is not None:
+                kernels.check(kernels.lib().sdk_gemm_sm90(
+                    ctx.data_ptr(), dc, w.data_ptr(), c, None, None, None, None, None, 0,
+                    kv[..., i * c:].data_ptr(), 2 * c, b * sk, c, dc, 0, p.bn, p.stages,
+                    p.smem, kernels.stream(x)), "sdk_gemm_sm90 (K/V)")
+            else:
+                kernels.gemm(ctx, w, kv[..., i * c:], M=b * sk, N=c, K=dc, lda=dc, ldw=c,
+                             ldo=2 * c)
     kt, vt = kv[..., :c].transpose(1, 2), kv[..., c:].transpose(1, 2)
-    out = _launch(x, kt, vt, ln_g, ln_b, wq, wo, bo, key_valid, n_head, eps)
-    kernels.count(fused_cross_attention, b=b, s=s, c=c, sk=sk, heads=n_head)
+    out, taken = _launch(x, kt, vt, ln_g, ln_b, wq, wo, bo, key_valid, n_head, eps, route)
+    kernels.count(fused_cross_attention, b=b, s=s, c=c, sk=sk, heads=n_head, route=taken)
     return out
 
 

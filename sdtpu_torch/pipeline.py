@@ -32,7 +32,7 @@ from sdtpu_torch.diffusion.karras import (euler_ancestral_step, euler_step, heun
                                          vp_alpha)
 from sdtpu_torch.models.clip import clip_apply
 from sdtpu_torch.models.unet import fuse_qkv, unet_apply
-from sdtpu_torch.models.vae import decode_latent, encode_image
+from sdtpu_torch.models.vae import decode_latent, encode_image, upsample_phase_stacks
 
 SAMPLERS = ("ddim", "dpmpp", "euler", "euler_a", "heun")
 
@@ -73,6 +73,8 @@ class StableDiffusion:
         if compute_dtype != torch.float32:
             params = _cast_param_tree(params, compute_dtype)
         self.params = {**params, "unet": fuse_qkv(params["unet"])}
+        # the decoder's upsampler weights folded into K7's phase stacks once
+        self.vae_phases = upsample_phase_stacks(params["autoencoder"])
         self.config = config
         self.compute_dtype = compute_dtype
         self.n_train_steps = int(params.get("n_steps", config.n_train_steps))
@@ -234,7 +236,7 @@ class StableDiffusion:
         """decode(latent / latent_scale) -> (x+1)/2*255 -> round, clamp ->
         uint8, on the device."""
         z = (latent * (1.0 / self.config.latent_scale)).to(self.compute_dtype)
-        img = decode_latent(self.params["autoencoder"], z, self.config.vae)
+        img = decode_latent(self.params["autoencoder"], z, self.config.vae, self.vae_phases)
         img = (img.float() + 1.0) / 2.0 * 255.0
         return torch.clamp(torch.round(img), 0.0, 255.0).to(torch.uint8)
 

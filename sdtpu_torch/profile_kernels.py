@@ -1,6 +1,6 @@
 """Where the time of the port's Hopper kernels goes on one NVIDIA GPU.
 
-    python -m sdtpu_torch.profile_kernels [--kernels K5,K9,K6,K2,K1,K4] [--out FILE]
+    python -m sdtpu_torch.profile_kernels [--kernels K5,K9,K6,K2,K1,K4,K10,K7] [--out FILE]
 
 At main-path shapes, bf16, random inputs (seeded): K5 at S=1024 C=640 B=2
 and S=256 C=1280 B=2 (csrc/gemm_sm90.cu), K9 at BH=32 S=4096 d=40
@@ -12,8 +12,11 @@ S=4096 d=40 and a key-bias case at d=80 (csrc/attention_sm90.cu) and the
 VAE's BH=1 S=16384 d=512 (csrc/flash_attention.cu), K4 at its eight
 main-path launches (proj_in with the GroupNorm prologue and proj_out with
 the residual, at 4096 x 320 and 16384 x 320 B=2, 4096 x 640 B=2 and
-4096 x 320 B=8; csrc/conv_sm90.cu at one tap). --kernels picks some of
-them (all by default). Device times are CUDA-graph replays (`device_ms`,
+4096 x 320 B=8; csrc/conv_sm90.cu at one tap), K10 at the serve phase's
+S=4096 C=320 B=2, S=1024 C=640 B=4 and S=256 C=1280 B=8 with 77 masked keys
+(csrc/gemm_sm90.cu and csrc/attention_sm90.cu), K7 at the decoder's 128² x
+512, 256² x 256 and 512² x 256 (csrc/conv_sm90.cu at four taps). --kernels
+picks some of them (all by default). Device times are CUDA-graph replays (`device_ms`,
 also what chip_smoke.py times the Hopper kernels by) or torch.profiler
 kernel sums:
 
@@ -30,9 +33,17 @@ kernel sums:
    with and without the key bias and the log-sum-exp write, the WMMA
    kernel (csrc/flash_attention.cu) and SDPA; K4 with and without its
    prologue, on each tile width it has, the WMMA kernel it replaced, and
-   cuBLAS's x·W;
+   cuBLAS's x·W; K10's Q product, core and Wo product against cuBLAS's
+   matmuls and SDPA, the whole route against the WMMA route and against
+   the sublayer by library calls (F.layer_norm, two torch.matmul, SDPA);
+   K7 on each tile width it has, the WMMA kernel it replaced, cuDNN's
+   convolution over the upsampled map, the gate-closed path
+   (ops/conv.upsample2x_conv's four phase convolutions), and the folding
+   of its phase weights (host time a call and device time) against a
+   launch's CUDA-event time;
 3. the depth of the rings: K5's 2, 3 or 4 stages (the plan's choice is 4),
-   K6's and K4's 2 to 4 and K2's core's 3 to 5 where they fit.
+   K6's, K4's and K7's 2 to 4 and K2's and K10's core's 3 to 5 where they
+   fit.
 
 The report starts with the card's name and power limit, and goes to
 stdout and, with --out, to FILE as well.
@@ -43,13 +54,16 @@ from __future__ import annotations
 import argparse
 import math
 import subprocess
+import time
 
 import torch
 import torch.nn.functional as F
 
 from sdtpu_torch import kernels
 from sdtpu_torch.ops import flash_attention as fa
+from sdtpu_torch.ops import conv as cv
 from sdtpu_torch.ops import fused_conv as fc
+from sdtpu_torch.ops import fused_cross_attention as fx
 from sdtpu_torch.ops import fused_mlp as fm
 from sdtpu_torch.ops import fused_transformer as ft
 
@@ -337,7 +351,150 @@ def profile_k4(b, rows, c, kind, log, gen):
     log(f"{label}: by ring depth: " + ", ".join(rings) + f" (the plan takes {plan.stages})")
 
 
-PROFILES = ("K5", "K9", "K6", "K2", "K1", "K4")
+def events_ms(fn, iters: int = ITERS) -> float:
+    """Time of one eager fn() call between CUDA events (host gaps count)."""
+    for _ in range(WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def profile_k10(b, s, c, n_head, log, gen):
+    dev, dt = torch.device("cuda"), torch.bfloat16
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dt)
+
+    sk, d, m = 77, c // n_head, b * s
+    x, ctx = rnd(b, s, c), rnd(b, sk, 768)
+    g, beta = rnd(c, scale=0.1) + 1.0, rnd(c, scale=0.1)
+    wq, wo, bo = rnd(c, c, scale=c ** -0.5), rnd(c, c, scale=c ** -0.5), rnd(c, scale=0.1)
+    kt, vt = (torch.matmul(ctx, rnd(768, c, scale=768 ** -0.5)).transpose(1, 2)
+              for _ in range(2))
+    valid = torch.arange(sk, device=dev)[None] < torch.tensor([2, 9] * (b // 2),
+                                                              device=dev)[:, None]
+    label = f"K10 S={s} C={c} B={b} Sk={sk}"
+    args = (x, kt, vt, g, beta, wq, wo, bo)
+    for name, ms in kernel_ms(lambda: fx.fused_cross_attention_kv(
+            *args, key_valid=valid, n_head=n_head)).items():
+        log(f"{label}: {name[:72]}: {ms:.4f} ms a call")
+    plan = fx.route_plan(dt, b, s, c, n_head, sk, True)
+    bias = torch.where(valid, 0.0, fa.NEG_INF).float()
+    stats = torch.empty(m, 2, device=dev)
+    kernels.check(kernels.lib().sdk_row_stats(x.data_ptr(), c, stats.data_ptr(), m, c, 1e-5,
+                                              kernels.stream(x)), "sdk_row_stats")
+    q, attn, out = rnd(b, s, c), rnd(b, s, c), torch.empty_like(x)
+    xm, qm, am = x.view(m, c), q.view(m, c), attn.view(m, c)
+    k, v = kt.transpose(1, 2), vt.transpose(1, 2)
+    q4, k4, v4 = (t.reshape(b, -1, n_head, d).transpose(1, 2) for t in (q, k, v))
+    mask = valid[:, None, None, :]
+
+    def core(p):
+        def run():
+            kernels.check(kernels.lib().sdk_attention_sm90(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), attn.data_ptr(), s * c, d, c,
+                k.stride(0), d, k.stride(1), v.stride(0), d, v.stride(1), s * c, d, c,
+                bias.data_ptr(), sk, None, b * n_head, n_head, s, sk, d, float(d) ** -0.5, *p,
+                kernels.stream(x)), "sdk_attention_sm90")
+        return run
+
+    def library():  # the sublayer by library calls
+        h = F.layer_norm(x, (c,), g, beta)
+        o = F.scaled_dot_product_attention(torch.matmul(h, wq).view(b, s, n_head, d)
+                                           .transpose(1, 2), k4, v4, attn_mask=mask)
+        return x + torch.matmul(o.transpose(1, 2).reshape(b, s, c), wo) + bo
+
+    t = {name: device_ms(fn) for name, fn in (
+        ("q", lambda: _gemm(xm, wq, qm, m, c, c, plan.q, bias=None, gamma=g, beta=beta,
+                            stats=stats)),
+        ("q cuBLAS", lambda: torch.matmul(xm, wq)),
+        ("core", core(plan.core)),
+        ("core SDPA", lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)),
+        ("wo", lambda: _gemm(am, wo, out.view(m, c), m, c, c, plan.out, bias=bo, res=xm)),
+        ("wo cuBLAS", lambda: torch.matmul(am, wo)),
+        ("sm90", lambda: fx.fused_cross_attention_kv(*args, key_valid=valid, n_head=n_head)),
+        ("wmma", lambda: fx._cross_attention_kv(*args, valid, n_head, 1e-5, "wmma")),
+        ("library", library))}
+    ev = events_ms(lambda: fx.fused_cross_attention_kv(*args, key_valid=valid, n_head=n_head))
+    log(f"{label}: Q product (LayerNorm prologue) {t['q']:.4f} ms, cuBLAS x·Wq "
+        f"{t['q cuBLAS']:.4f}; core (key bias) {t['core']:.4f} ms, SDPA {t['core SDPA']:.4f}; "
+        f"Wo product (bias, residual) {t['wo']:.4f} ms, cuBLAS o·Wo {t['wo cuBLAS']:.4f}; the "
+        f"route {t['sm90']:.4f} ms (events {ev:.4f}), the WMMA route {t['wmma']:.4f}, the "
+        f"sublayer by library calls {t['library']:.4f}; bound "
+        f"{1e3 * 2 * b * s * c * (2 * c + 2 * sk) / 989e12:.4f} ms")
+    rings = []
+    for st in (3, 4, 5):
+        p = plan.core._replace(stages=st, smem=plan.core.smem + (st - plan.core.stages)
+                               * (2 * plan.core.tile * plan.core.dpad * 2 + plan.core.tile * 4))
+        if p.smem <= kernels.SMEM_LIMIT:
+            rings.append(f"{st} stages {device_ms(core(p)):.4f}")
+    log(f"{label}: core by ring depth: " + ", ".join(rings) +
+        f" (the plan takes {plan.core.stages})")
+
+
+def profile_k7(b, hw, c, co, log, gen):
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    x = torch.randn(b, hw, hw, c, generator=gen, device=dev).to(dt)
+    w = (torch.randn(3, 3, c, co, generator=gen, device=dev) * (9 * c) ** -0.5).to(dt)
+    cb = (0.1 * torch.randn(co, generator=gen, device=dev)).to(dt)
+    label = f"K7 {hw}x{hw}x{c} -> {2 * hw}x{2 * hw}x{co} B={b}"
+    phases = fc.phase_weight_stack(w, dt)  # folded once, as the pipeline does
+
+    def up(route):
+        return lambda: fc._upsample2x(x, w, cb, True, route, phases)
+
+    for name, ms in kernel_ms(up("auto")).items():
+        log(f"{label}: {name[:72]}: {ms:.4f} ms a call")
+    plan = fc.upsample_sm90_plan(b, hw, hw, c, co)
+    widths = []
+    for bn in (128, *fc.SM90_CONV_WIDE):
+        if bn == 128 or co % bn == 0:
+            p = fc.upsample_sm90_plan(b, hw, hw, c, co, bn=bn)
+            widths.append(f"{bn} channels {device_ms(up(p)):.4f} ms")
+    xu = cv.nearest_upsample_2x(x).permute(0, 3, 1, 2)
+    w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    cudnn = device_ms(lambda: F.conv2d(xu, w_oihw, padding=1))
+    gate = cv.FUSED_UP_MIN_ROWS
+
+    def closed():
+        cv.FUSED_UP_MIN_ROWS = 1 << 30
+        try:
+            return cv.upsample2x_conv({"w": w, "b": cb}, x)
+        finally:
+            cv.FUSED_UP_MIN_ROWS = gate
+
+    # the phase weights' folding, were it done a call: host time (enqueue
+    # only) and device time
+    n = 50
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fc.phase_weight_stack(w, dt)
+    host = (time.perf_counter() - t0) * 1e3 / n
+    torch.cuda.synchronize()
+    fold = device_ms(lambda: fc.phase_weight_stack(w, dt))
+    ev = events_ms(up("auto"))
+    flops = 2 * 16 * b * hw * hw * c * co
+    log(f"{label}: " + "; ".join(widths) + f" (the plan takes {plan.bn}); the WMMA kernel "
+        f"{device_ms(up('wmma')):.4f} ms; cuDNN's conv over the upsampled map {cudnn:.4f} ms; "
+        f"the gate-closed path {device_ms(closed):.4f} ms; bound {1e3 * flops / 989e12:.4f} ms")
+    log(f"{label}: the phase weights' folding {host:.4f} ms of host a call, {fold:.4f} ms of "
+        f"device; a launch {ev:.4f} ms by events ({100 * (host + fold) / ev:.1f} %)")
+    rings = []
+    for st in range(2, fc.SM90_CONV_MAX_STAGES + 1):
+        p = fc.upsample_sm90_plan(b, hw, hw, c, co, bn=plan.bn, stages=st)
+        if p is not None:
+            rings.append(f"{st} stages {device_ms(up(p)):.4f}")
+    log(f"{label}: by ring depth: " + ", ".join(rings) + f" (the plan takes {plan.stages})")
+
+
+PROFILES = ("K5", "K9", "K6", "K2", "K1", "K4", "K10", "K7")
 
 
 def main(argv=None) -> None:
@@ -382,6 +539,12 @@ def main(argv=None) -> None:
         for b, rows, c in ((2, 4096, 320), (2, 16384, 320), (2, 4096, 640), (8, 4096, 320)):
             for kind in ("proj_in", "proj_out"):
                 profile_k4(b, rows, c, kind, log, gen)
+    if "K10" in picked:
+        for b, s, c in ((2, 4096, 320), (4, 1024, 640), (8, 256, 1280)):
+            profile_k10(b, s, c, 8, log, gen)
+    if "K7" in picked:
+        for b, hw, c, co in ((1, 128, 512, 512), (1, 256, 256, 256), (1, 512, 256, 256)):
+            profile_k7(b, hw, c, co, log, gen)
     if args.out:
         with open(args.out, "w") as f:
             f.write("\n".join(lines) + "\n")

@@ -177,7 +177,7 @@ def main(argv=None) -> None:
             unet_model.FUSED_RES_MIN_ROWS = gate
 
     def decode_call():
-        return vae_model.decode_latent(vae, z, SD_V1_4.vae)
+        return vae_model.decode_latent(vae, z, SD_V1_4.vae, sd.vae_phases)
 
     def decode_unfused_call():
         gates = vae_model.FUSED_CONV_MIN_ROWS, conv.FUSED_UP_MIN_ROWS

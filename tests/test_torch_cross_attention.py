@@ -9,7 +9,10 @@
 - On the card (marker `cuda`): the kernel against its plain version at SD
   v1.4's shapes, f32 and bf16, with and without key_valid; the plain
   version without the mask falls outside the tolerance of the masked
-  kernel's result, so the bias is applied.
+  kernel's result, so the bias is applied. The bf16 Hopper route
+  (csrc/gemm_sm90.cu and csrc/attention_sm90.cu) and the WMMA route in
+  bf16, each counted under its route, at the serve shapes and at ragged
+  ones, and a repeat of the Hopper route that is bit-equal.
 
 Inputs come from numpy seeds.
 """
@@ -215,3 +218,62 @@ def test_kernel_matches_plain_on_card(s, c, dtype, masked):
     got2 = tfx.fused_cross_attention(x, ctx, g, bb, wq, wk, wv, wo, bo, key_valid=valid,
                                      n_head=8)
     torch.testing.assert_close(got2.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _routes(fn):
+    """{route: launches} of a wrapper, from its per-shape counts."""
+    out = {}
+    for key, n in fn.shapes.items():
+        route = key.rsplit("route=", 1)[-1]
+        out[route] = out.get(route, 0) + n
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("b,s,c,sk,view", [
+    (2, 4096, 320, 77, True),   # the serve shapes: d = 40, 80, 160
+    (4, 1024, 640, 77, True),
+    (8, 256, 1280, 77, True),
+    (1, 200, 320, 128, False),  # a ragged query tile, one full key tile; kt contiguous
+    (3, 333, 640, 5, True),     # a single ragged key tile
+])
+def test_k10_sm90_matches_plain_on_card(b, s, c, sk, view, masked):
+    """K10's bf16 route against the plain version: the sublayer within a few
+    bf16 ulps (6e-2), the attention term within 2^-6 of its largest
+    |reference| + 2^-7 of |out| (what chip_smoke.py holds it to), which a
+    term 3 % small and, masked, the unmasked result fail; the same bits on
+    a second call; the WMMA route in bf16 within the same tolerances."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    a = _inputs(b, s, c, sk, 768, seed=7 * b + c + sk)
+    x, ctx, g, bb, wq, wk, wv, wo, bo = (torch.from_numpy(a[k]).to(dev, dt) for k in (
+        "x", "ctx", "g", "bb", "wq", "wk", "wv", "wo", "bo"))
+    kt, vt = (torch.matmul(ctx, w).transpose(1, 2) for w in (wk, wv))
+    if not view:
+        kt, vt = kt.contiguous(), vt.contiguous()
+    valid = None
+    if masked:
+        n = torch.tensor([2, 9, 40, sk][:b] + [sk] * max(0, b - 4), device=dev)
+        valid = torch.arange(sk, device=dev)[None] < n[:, None].clamp(max=sk)
+    args = (x, kt, vt, g, bb, wq, wo, bo)
+    assert tfx.route_plan(dt, b, s, c, 8, sk, masked) is not None
+    fn = tfx.fused_cross_attention_kv
+    before = _routes(fn)
+    got = fn(*args, key_valid=valid, n_head=8)
+    want = tfx.fused_cross_attention_kv_plain(*args, valid, 8)
+    old = tfx._cross_attention_kv(*args, valid, 8, 1e-5, "wmma")
+    after = _routes(fn)
+    assert after.get("sm90", 0) == before.get("sm90", 0) + 1
+    assert after.get("wmma", 0) == before.get("wmma", 0) + 1
+    frac, rtol = TERM_TOL["bfloat16"]
+    for out in (got, old):
+        torch.testing.assert_close(out.float(), want.float(), rtol=6e-2, atol=6e-2)
+        assert _term_within(out, want, x, frac, rtol)
+    assert not _term_within(x.float() + 0.97 * (want.float() - x.float()), want, x, frac, rtol)
+    if masked:
+        unmasked = tfx.fused_cross_attention_kv_plain(*args, None, 8)
+        assert not _term_within(unmasked, got, x, frac, rtol)
+    assert torch.equal(fn(*args, key_valid=valid, n_head=8), got)
+

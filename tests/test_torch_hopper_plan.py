@@ -1,13 +1,14 @@
 """The tile plans of the port's Hopper kernels, checked on the CPU.
 
 The bf16 routes of K5 (csrc/gemm_sm90.cu), K9
-(csrc/flash_attention_bwd_sm90.cu), K6 and K4 (csrc/conv_sm90.cu), K2
-(csrc/gemm_sm90.cu and csrc/attention_sm90.cu) and K1
+(csrc/flash_attention_bwd_sm90.cu), K6, K4 and K7 (csrc/conv_sm90.cu), K2
+and K10 (csrc/gemm_sm90.cu and csrc/attention_sm90.cu) and K1
 (csrc/attention_sm90.cu) take their tile shape, ring stages and
 shared-memory bytes from Python (fused_mlp.sm90_plan,
-flash_attention.bwd_sm90_plan, fused_conv.sm90_plan and
-conv1x1_sm90_plan, fused_transformer.sm90_plan,
-flash_attention.fwd_route); the kernels check them and run only on the
+flash_attention.bwd_sm90_plan, fused_conv.sm90_plan, conv1x1_sm90_plan
+and upsample_sm90_plan, fused_transformer.sm90_plan,
+fused_cross_attention.route_plan, flash_attention.fwd_route); the kernels
+check them and run only on the
 card. Here, at every main-path shape: the bytes fit the H100's 227 KB a
 block, wgmma's constraints hold (64-row groups, N a multiple of 8, K steps
 of 16), the GEGLU tiles pair each val column with its gate column 4C to
@@ -16,8 +17,8 @@ a multiple of 16 with zeros beyond d. For K6 also TMA's: boxes of at most
 256 a dimension, 128 inner bytes for the 128-byte swizzle, boxes that
 cover each 128-pixel tile exactly and tiles that cover the map once, and K
 blocks that never straddle a tap or the x/x2 boundary; for K4 the same
-with tiles of 128 rows inside one image. K1's route by dtype and head
-width.
+with tiles of 128 rows inside one image, and for K7 with the four output
+phases in the grid. K1's and K10's routes by dtype and shape.
 """
 
 import pytest
@@ -28,6 +29,7 @@ import torch
 from sdtpu_torch.config import SD_V1_4
 from sdtpu_torch.ops import flash_attention as tfa
 from sdtpu_torch.ops import fused_conv as tfc
+from sdtpu_torch.ops import fused_cross_attention as tfx
 from sdtpu_torch.ops import fused_mlp as tfm
 from sdtpu_torch.ops import fused_transformer as tft
 
@@ -343,3 +345,116 @@ def test_k4_plan_overrides():
     plan = tfc.conv1x1_sm90_plan(2, 4096, 320, 320, True, bn=320, stages=2)
     assert (plan.bn, plan.stages, plan.grid) == (320, 2, (1, 32, 2))
     assert tfc.conv1x1_sm90_plan(2, 4096, 320, 320, False, bn=128, stages=4).stages == 4
+
+
+# ------------------------------------------------------------ K7
+
+# (B, H = W, C, Co) of K7's launches on the main paths (chip_smoke.py's
+# phase-2 cases): the decoder's upsamplers at 512px (128², 256²) and 1024px
+# (also 256² x 512 and 512²), and the serve phase's batch of 4
+K7_SHAPES = [(1, 128, 512, 512), (1, 256, 256, 256), (1, 256, 512, 512), (1, 512, 256, 256),
+             (4, 128, 512, 512), (4, 256, 256, 256)]
+
+
+@pytest.mark.parametrize("b,hw,c,co", K7_SHAPES)
+def test_k7_plan(b, hw, c, co):
+    plan = tfc.upsample_sm90_plan(b, hw, hw, c, co)
+    assert plan is not None  # every main-path shape takes the Hopper kernel
+    # no prologue: no (scale, shift) table
+    stage = tfc.SM90_CONV_BM * tfc.SM90_CONV_BK * 2 + (
+        plan.bn // tfc.SM90_CONV_BOX * tfc.SM90_CONV_BK * tfc.SM90_CONV_BOX * 2)
+    assert plan.smem == 1024 + plan.stages * (stage + 16) <= SMEM_LIMIT
+    assert 2 <= plan.stages <= tfc.SM90_CONV_MAX_STAGES
+    assert plan.bn in (128, 256) and co % plan.bn == 0
+    # the box (64 channels, bw, bh, 1) covers the 128-pixel tile exactly
+    assert plan.bw * plan.bh == tfc.SM90_CONV_BM and hw % plan.bw == 0
+    assert all(0 < d <= TMA_BOX_MAX for d in (plan.bw, plan.bh))
+    tiles = -(-hw // plan.bh) * (hw // plan.bw)
+    # a CTA per (channel tile, pixel tile, image and phase)
+    assert plan.grid == (co // plan.bn, tiles, 4 * b)
+    # the wide tile where the grid still has a CTA for every SM
+    assert plan.bn == (256 if co % 256 == 0 and 4 * b * tiles * (co // 256) >= 132 else 128)
+    # K: 4 taps of C / 64 blocks, a block inside one tap
+    assert c % tfc.SM90_CONV_BK == 0 and 4 * c // tfc.SM90_CONV_BK >= 16
+
+
+@pytest.mark.parametrize("b,h,w,c,co", [
+    (1, 8, 8, 40, 64),    # C not a multiple of 64
+    (1, 8, 96, 64, 64),   # W neither a multiple nor a divisor of 128
+    (1, 8, 8, 64, 12),    # Co not a multiple of 8
+])
+def test_k7_plan_leaves_other_shapes_to_the_wmma_kernel(b, h, w, c, co):
+    assert tfc.upsample_sm90_plan(b, h, w, c, co) is None
+
+
+def test_k7_phase_stacks_are_folded_once_for_the_decoder(monkeypatch):
+    """upsample_phase_stacks gives each decoder block with an upsampler its
+    [4, 4C, Co] stack in the weight's dtype (None elsewhere), and
+    decode_latent hands block i's stack to its fused upsampler."""
+    from sdtpu_torch.config import AutoencoderConfig
+    from sdtpu_torch.models import vae
+    from sdtpu_torch.ops import conv as tconv
+    from sdtpu_torch.weights import Init
+
+    cfg = AutoencoderConfig(encoder_channels=((128, 128), (128, 128)),
+                            decoder_channels=((128, 128), (128, 128)), groupnorm_groups=32)
+    params = vae.init_autoencoder(Init(torch.Generator().manual_seed(0), "cpu",
+                                       torch.bfloat16), cfg)
+    stacks = vae.upsample_phase_stacks(params)
+    blocks = params["decoder"]["blocks"]
+    assert [s is None for s in stacks] == ["upsampler" not in b for b in blocks]
+    for blk, st in zip(blocks, stacks):
+        if st is not None:
+            assert st.dtype == torch.bfloat16 and st.shape == (4, 4 * 128, 128)
+            assert torch.equal(st, tfc.phase_weight_stack(blk["upsampler"]["w"], torch.bfloat16))
+    seen = []
+
+    def spy(x, w, b, emit_stats=False, phases=None):
+        seen.append(phases)
+        return tfc.upsample2x_conv_fused_plain(x, w, b, emit_stats)
+
+    monkeypatch.setattr(tconv, "FUSED_UP_MIN_ROWS", 1)
+    monkeypatch.setattr(vae, "upsample2x_conv_fused", spy)
+    vae.decode_latent(params, torch.zeros(1, 8, 8, 4, dtype=torch.bfloat16), cfg, stacks)
+    assert seen == [s for s in stacks if s is not None]
+
+
+# ------------------------------------------------------------ K10
+
+# (B, S, C) of K10's launches in the serve phase (UNet batch 2: a lone
+# request; 4; 8: its batch of 4), 8 heads, the 77 context tokens
+K10_SHAPES = [(b, s, c) for b in (2, 4, 8) for s, c in ((4096, 320), (1024, 640), (256, 1280))]
+
+
+@pytest.mark.parametrize("b,s,c", K10_SHAPES)
+def test_k10_plan(b, s, c):
+    """The Q product (LayerNorm prologue, N = C), the core with the key bias
+    at d padded to 48, 80 or 160 (77 keys: two 64-key tiles), the Wo
+    product; f32 keeps the WMMA kernels."""
+    plan = tfx.route_plan(torch.bfloat16, b, s, c, 8, 77, True)
+    assert plan is not None
+    d, core = c // 8, plan.core
+    assert core.dpad == {40: 48, 80: 80, 160: 160}[d]
+    assert core.tile == tfa.SM90_ATTN_TILE and -(-77 // core.tile) == 2
+    stage = 2 * core.tile * core.dpad * 2 + core.tile * 4  # K, V and the bias row
+    assert core.smem == tfa.SM90_ATTN_ROWS * core.dpad * 2 + core.stages * stage <= SMEM_LIMIT
+    assert 3 <= core.stages <= tfa.SM90_ATTN_STAGES
+    m = b * s
+    for p in (plan.q, plan.out):  # both products are [m, C]·[C, C]
+        assert p == tfm.sm90_plan(m, c, c, False)
+        assert p.smem <= SMEM_LIMIT and p.grid == (-(-c // p.bn), -(-m // tfm.SM90_BM))
+    assert c <= tfm.SM90_LN_MAX_K
+    assert tfx.route_plan(torch.float32, b, s, c, 8, 77, True) is None
+    # without a key mask the core's instance without the bias
+    assert tfx.route_plan(torch.bfloat16, b, s, c, 8, 77, False).core == tfa.core_sm90_plan(d)
+
+
+@pytest.mark.parametrize("b,s,c,heads,sk", [
+    (2, 256, 768, 8, 77),    # d = 96: no core instance
+    (2, 256, 2560, 16, 77),  # d = 160, but C past the LayerNorm prologue's 2048
+    (2, 256, 320, 8, 129),   # more keys than the kernel takes
+    (2, 256, 320, 7, 77),    # the heads do not divide C
+])
+def test_k10_plan_leaves_other_shapes_to_the_wmma_route(b, s, c, heads, sk):
+    assert tfx.route_plan(torch.bfloat16, b, s, c, heads, sk, True) is None
+

@@ -1,5 +1,6 @@
-"""The tile walks of K6's, K2's, K1's and K4's Hopper kernels, emulated in
-torch on the CPU and held against sdtpu's Pallas kernels in interpret mode.
+"""The tile walks of K6's, K2's, K1's, K4's, K7's and K10's Hopper
+kernels, emulated in torch on the CPU and held against sdtpu's Pallas
+kernels in interpret mode.
 
 The kernels (csrc/conv_sm90.cu, csrc/attention_sm90.cu) run only on the
 card. What they compute apart from the products' rounding is how they walk
@@ -27,6 +28,18 @@ their tiles, and that walk is written out here, step for step, in f32:
   64-deep K blocks, the prologue with or without SiLU rounded to x's dtype
   before the product, bias and residual in f32, and the per-tile statistics
   partials summed. A walk without the prologue must fail.
+- K7 (csrc/conv_sm90.cu at four taps): each CTA one output phase (py, px)
+  of one 128-pixel tile of x, tap (dy, dx)'s box read at (c0, j0 + px + dx
+  − 1, i0 + py + dy − 1, b) with zeros outside the map (TMA's fill is the
+  zero padding: no prologue, no mask), the product with phase p's rows of
+  the [4, 4C, Co] stack, the bias, the stores at (2i + py, 2j + px), and
+  the per-tile statistics of every phase summed. Walks that interleave the
+  phases with py and px swapped, or read the taps without the −1, must
+  fail.
+- K10 on K2's bf16 route without K and V in the first product: LN(x)·Wq,
+  the core's walk over 77 keys (two key tiles, the second masked past Sk)
+  with the key bias of the masked prompts, then o·Wo + bo + x. A walk that
+  drops the key bias must fail the masked case.
 
 Tolerances: the walks in f32 against sdtpu's f32 kernels and the plain
 versions, 2e-4 (sums in another order, as tests/test_torch_resblock.py);
@@ -45,9 +58,11 @@ import torch.nn.functional as F
 
 import sdtpu.ops.flash_attention as jfa
 import sdtpu.ops.fused_conv as jfc
+import sdtpu.ops.fused_cross_attention as jfx
 import sdtpu.ops.fused_transformer as jft
 from sdtpu_torch.ops import flash_attention as tfa
 from sdtpu_torch.ops import fused_conv as tfc
+from sdtpu_torch.ops import fused_cross_attention as tfx
 from sdtpu_torch.ops.groupnorm import layer_norm
 
 torch.set_num_threads(1)
@@ -377,3 +392,138 @@ def test_k4_walk_rounds_its_prologue_to_bf16():
     want = tfc.conv1x1_fused_plain(x, w, cb, s, o, silu=True)
     torch.testing.assert_close(got.to(torch.bfloat16).float(), want.float(), rtol=3e-2,
                                atol=6e-2)
+
+
+# ------------------------------------------------------------ K7
+
+
+def k7_walk(x, w, cb, swap=False, origin=-1):
+    """csrc/conv_sm90.cu's walk at four taps, in f32: returns (y, per-channel
+    (Σ, Σ²) of the f32 y summed from the per-tile partials of every phase).
+    Planted faults: swap stores phase (py, px) at (2i + px, 2j + py);
+    origin=0 reads tap (dy, dx) at (i + py + dy, j + px + dx)."""
+    b, h, wd, c = x.shape
+    co = w.shape[-1]
+    plan = tfc.upsample_sm90_plan(b, h, wd, c, co)
+    bm, bk = tfc.SM90_CONV_BM, tfc.SM90_CONV_BK
+    tiles_w = wd // plan.bw
+    assert plan.grid == (-(-co // plan.bn), -(-h // plan.bh) * tiles_w, 4 * b)
+    wstack = tfc.phase_weight_stack(w, torch.float32)  # [4, 4C, Co]
+    out = torch.zeros(b, 2 * h, 2 * wd, co)
+    parts = torch.zeros(b, 4 * plan.grid[1], 2, co)
+    r = torch.arange(bm)
+    for z in range(plan.grid[2]):  # blockIdx.z = 4·b + 2·py + px
+        bi, phase = divmod(z, 4)
+        py, px = divmod(phase, 2)
+        for tile in range(plan.grid[1]):
+            i0, j0 = tile // tiles_w * plan.bh, tile % tiles_w * plan.bw
+            pi, pj = i0 + r // plan.bw, j0 + r % plan.bw
+            acc = torch.zeros(bm, co)
+            for kb in range(4 * c // bk):
+                tap, c0 = divmod(kb * bk, c)
+                dy, dx = divmod(tap, 2)
+                si, sj = pi + py + dy + origin, pj + px + dx + origin
+                inside = (si >= 0) & (si < h) & (sj >= 0) & (sj < wd)
+                a = torch.zeros(bm, bk)  # TMA's zeros outside the map
+                a[inside] = x[bi, si[inside], sj[inside], c0:c0 + bk].float()
+                acc += a @ wstack[phase, kb * bk:(kb + 1) * bk]
+            v = acc + cb.float()
+            keep = pi < h
+            oy, ox = (px, py) if swap else (py, px)
+            out[bi, 2 * pi[keep] + oy, 2 * pj[keep] + ox] = v[keep]
+            parts[bi, phase * plan.grid[1] + tile] = torch.stack([v[keep].sum(0),
+                                                                  (v[keep] ** 2).sum(0)])
+    return out, parts.sum(dim=1)
+
+
+@pytest.mark.parametrize("hw,c,co,stats", [
+    ((8, 8), 64, 64, True),      # one box of 8 pixels by 16 rows, its last 8 past the map
+    ((16, 16), 128, 128, False),  # boxes of 16 pixels by 8 rows
+    ((16, 16), 64, 128, True),
+    ((2, 256), 64, 64, True),     # two boxes of 128 pixels a row
+], ids=["8x8", "16x16", "16x16_co128", "2x256"])
+def test_k7_walk_matches_sdtpu_and_plain(hw, c, co, stats):
+    r = np.random.default_rng(100 + c + co + hw[1])
+    h, wd = hw
+    x = r.standard_normal((2, h, wd, c)).astype(np.float32)
+    w = (r.standard_normal((3, 3, c, co)) * (9 * c) ** -0.5).astype(np.float32)
+    cb = (0.1 * r.standard_normal(co)).astype(np.float32)
+    t = [torch.from_numpy(a) for a in (x, w, cb)]
+    got, got_st = k7_walk(*t)
+    want = jfc.upsample2x_conv_fused(*map(jnp.asarray, (x, w, cb)), emit_stats=stats,
+                                     interpret=True)
+    plain = tfc.upsample2x_conv_fused_plain(*t, emit_stats=stats)
+    for ref in (want, plain):
+        if stats:
+            ref, ref_st = ref
+            # f32 sums over up to 1024 outputs of magnitude ~1, in another order
+            np.testing.assert_allclose(_np(got_st), _np(ref_st), rtol=1e-4, atol=1e-2)
+        np.testing.assert_allclose(_np(got), _np(ref), **TOL)
+    want = _np(want[0] if stats else want)
+    for fault in (dict(swap=True), dict(origin=0)):
+        bad, _ = k7_walk(*t, **fault)
+        assert not np.allclose(_np(bad), want, **TOL), fault
+        assert float(np.abs(_np(bad) - want).max()) > 50 * TOL["atol"], fault
+
+
+def test_k7_plan_offsets_are_the_phase_paddings():
+    """The kernel's tap origin (py − 1, px − 1) is minus the top and left
+    zero padding of the phase's 2x2 convolution (ops/conv.py), and its
+    bottom and right padding is py, px: the taps reach one pixel past x at
+    most."""
+    for (py, px), ((top, bottom), (left, right)) in tfc.UPSAMPLE_PHASE_PADS.items():
+        assert (py - 1, px - 1) == (-top, -left) and (py, px) == (bottom, right)
+
+
+# ------------------------------------------------------------ K10
+
+
+def k10_walk(x, kt, vt, ln_g, ln_b, wq, wo, bo, key_valid, n_head, bias="before max"):
+    """K10's bf16 route in f32: LN(x)·Wq, the core's walk per head over kt/vt's
+    keys with the key bias of key_valid (0 / -1e30), o·Wo + bo + x."""
+    b, s, c = x.shape
+    d = c // n_head
+
+    def heads(t):
+        return t.reshape(b, -1, n_head, d).transpose(1, 2)
+
+    kb = None if key_valid is None else torch.where(key_valid, 0.0, tfa.NEG_INF).float()
+    o, _ = k2_core_walk(heads(layer_norm(x, ln_g, ln_b) @ wq), heads(kt.transpose(1, 2)),
+                        heads(vt.transpose(1, 2)), False, kb, bias=bias)
+    return x + o.transpose(1, 2).reshape(b, s, c) @ wo + bo
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+@pytest.mark.parametrize("c,n_head", [(80, 2), (160, 2)], ids=["d40", "d80"])
+def test_k10_walk_matches_sdtpu(c, n_head, masked):
+    """B = 2, S = 256 (two query tiles), 77 keys (two key tiles, the second
+    13 keys long); masked: the prompts' 2 and 9 real keys, the padding keys'
+    scores 30 times larger than the real ones."""
+    r = np.random.default_rng(110 + c + masked)
+    b, s, sk = 2, 256, 77
+    x = r.standard_normal((b, s, c)).astype(np.float32)
+    kt, vt = (r.standard_normal((b, c, sk)).astype(np.float32) for _ in range(2))
+    g = (1 + 0.1 * r.standard_normal(c)).astype(np.float32)
+    beta = (0.1 * r.standard_normal(c)).astype(np.float32)
+    wq, wo = ((c ** -0.5 * r.standard_normal((c, c))).astype(np.float32) for _ in range(2))
+    bo = (0.1 * r.standard_normal(c)).astype(np.float32)
+    valid = None
+    if masked:
+        valid = np.arange(sk)[None] < np.array([[2], [9]])
+        kt = np.where(valid[:, None, :], kt, 30.0 * kt).astype(np.float32)
+    args = (x, kt, vt, g, beta, wq, wo, bo)
+    want = _np(jfx.fused_cross_attention_kv(
+        *map(jnp.asarray, args), key_valid=None if valid is None else jnp.asarray(valid),
+        n_head=n_head, interpret=True))
+    targs = [torch.from_numpy(a) for a in args]
+    tvalid = None if valid is None else torch.from_numpy(valid)
+    assert tfx.sm90_plan(b, s, c, n_head, sk, masked) is not None
+    got = _np(k10_walk(*targs, tvalid, n_head))
+    np.testing.assert_allclose(got, want, **TOL)
+    plain = _np(tfx.fused_cross_attention_kv_plain(*targs, tvalid, n_head))
+    np.testing.assert_allclose(got, plain, **TOL)
+    if masked:
+        dropped = _np(k10_walk(*targs, tvalid, n_head, bias="dropped"))
+        assert not np.allclose(dropped, want, **TOL)
+        assert float(np.abs(dropped - want).max()) > 50 * TOL["atol"]
+

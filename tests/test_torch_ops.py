@@ -657,3 +657,53 @@ def test_k4_sm90_matches_plain_on_card(b, rows, c, co, prologue, residual, emit_
         faults.append(tfc.conv1x1_fused_plain(*args, silu=kw["silu"]))
     for f in faults:
         assert not torch.allclose(f.float(), want.float(), rtol=6e-2, atol=6e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,cout,bn,stats", [
+    ((2, 9, 16, 64), 72, 128, True),    # W = 16: boxes of 8 rows, the last ragged; ragged Co
+    ((1, 4, 256, 128), 256, 256, True),  # W = 256: two tiles a row
+    ((2, 8, 128, 64), 320, 320, False),  # the 320-channel tile
+    ((1, 16, 16, 256), 256, 256, True),  # the upsamplers' widths on a small map
+    ((1, 128, 128, 512), 512, None, True),  # the 512px decode's first upsampler, its plan
+])
+def test_k7_sm90_matches_plain_on_card(shape, cout, bn, stats):
+    """K7's bf16 route (csrc/conv_sm90.cu at four taps), on tiles of bn
+    channels (None: the plan's), against the plain version: within a few
+    bf16 ulps (6e-2); the emitted statistics against the sums of the
+    returned output, within its rounding (2^-7 of the sum of magnitudes);
+    the same bits on a second call; the tolerance rejects the phases
+    interleaved with py and px swapped."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    r = _rng(50 + cout)
+    b, h, w, c = shape
+
+    def card(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dt)
+
+    x = card(r.standard_normal(shape))
+    wt = card(r.standard_normal((3, 3, c, cout)) * (9 * c) ** -0.5)
+    cb = card(0.1 * r.standard_normal(cout))
+    plan = tfc.upsample_sm90_plan(b, h, w, c, cout, bn=bn)
+    assert plan is not None
+    before = _routes(tfc.upsample2x_conv_fused).get("sm90", 0)
+    got = tfc._upsample2x(x, wt, cb, stats, plan)
+    want = tfc.upsample2x_conv_fused_plain(x, wt, cb, emit_stats=stats)
+    assert _routes(tfc.upsample2x_conv_fused)["sm90"] == before + 1
+    again = tfc._upsample2x(x, wt, cb, stats, plan)
+    if stats:
+        (got, st), (want, _), (again, st2) = got, want, again
+        assert torch.equal(st2, st)
+        yf = got.float().reshape(b, -1, cout)
+        for i, v in enumerate((yf, yf * yf)):
+            assert ((st[:, i] - v.sum(1)).abs() <= 2 ** -7 * v.abs().sum(1) + 1e-3).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=6e-2, atol=6e-2)
+    assert torch.equal(again, got)
+    swapped = want.reshape(b, h, 2, w, 2, cout).transpose(2, 4).reshape(want.shape)
+    assert not torch.allclose(swapped.float(), want.float(), rtol=6e-2, atol=6e-2)
+    if bn is None:
+        auto = tfc.upsample2x_conv_fused(x, wt, cb, emit_stats=stats)
+        assert torch.equal(auto[0] if stats else auto, got)
+

@@ -16,7 +16,7 @@ Phases, each printing its lines:
    could take for the same work (its bound). Every kernel is also timed in
    bfloat16 by the card's own clock (sdtpu_torch.profile_kernels.device_ms:
    20 wrapper calls captured in a CUDA graph, the replay timed), and K5, K9,
-   K2, K6, K1, K4, K10 and K7 their Hopper kernels against the WMMA kernels
+   K2, K6, K1, K4, K10, K7 and K3 their Hopper kernels against the kernels
    they replaced, in turns (old, new, new, old). Planted faults must fail
    each kernel's tolerance at every case: for K6 the convolution without
    the border mask (the prologue applied to the zero-padded map) and, with a
@@ -25,8 +25,12 @@ Phases, each printing its lines:
    interleaved with py and px swapped and the taps read one pixel off (the
    map shifted by one); for K2 the attention over every other key; for K1
    an all-zero output, the attention over every other key, with a key bias
-   the attention that ignores it, and with the row statistics those
-   statistics in natural log; (K9 and K10 have their own, below);
+   the attention that ignores it, with the row statistics those
+   statistics in natural log, and at d = 512 the wide kernel's walk with
+   each warpgroup's softmax on its own key slice's row maximum (no
+   exchange) and with the two warpgroups' P slices swapped; for K3 the sums
+   with one cluster rank's rows dropped and with batch b + 1's rows read for
+   b; (K9 and K10 have their own, below);
 3. one SpatialTransformer at the 64x64 latent level (C=320), random
    weights, run on the card (kernels) and on the CPU (plain versions); the
    VAE decoder at SD v1.4 width on a 16x16 latent with every fused gate
@@ -42,8 +46,9 @@ Phases, each printing its lines:
    must read exactly what the dispatch implies; K2's, K6's, K4's and K7's
    launches (and K10's in the serve phase), counted per route, must all
    take their Hopper kernels (here, in the serve phase and in the
-   fine-tuning cache build), and K1's one launch at 1024px (the decoder's
-   d = 512) the WMMA kernel;
+   fine-tuning cache build), K3's its cluster kernel wherever its plan has
+   one (every main-path C), and K1's one launch at 1024px (the decoder's
+   d = 512) the wide kernel;
 5. sdtpu_torch.finetune.run_finetune at SD v1.4 width and depth, 512x512,
    from a folder of synthetic PNGs: the latent cache through the port's
    VAE encoder and CLIP, then 3 AdamW steps at batch 4 in bf16, the tuned
@@ -71,9 +76,9 @@ its launches per shape as well, and each shape's bfloat16 time (or bound)
 from phase 2 is taken as many times as the runs launched it. A shape
 launched there with no case in phase 2 is a failure. Every launched
 kernel also carries `device_ms` (the same launches by device time), and K5,
-K9, K2, K6, K1, K4, K10 and K7 `replaced_device_ms` (those of the WMMA
-kernels their bf16 route replaced; K1's d = 512 launch is the WMMA kernel
-on both sides) and `sources_by_route`. K5's `library_ms` is both of its
+K9, K2, K6, K1, K4, K10, K7 and K3 `replaced_device_ms` (those of the
+kernels their bf16 route replaced: the WMMA kernels, K3's partials kernel with
+its sum) and `sources_by_route`. K5's `library_ms` is both of its
 products as two torch.matmul calls; K2's and K10's are SDPA on the core
 alone, K6's cuDNN's convolution alone (F.conv2d), K7's cuDNN's convolution
 over the already upsampled map.
@@ -185,8 +190,9 @@ class Case(NamedTuple):
     peak: float = PEAK_TENSOR
     library: Optional[Callable] = None
     library_minus: Optional[Callable] = None
-    # the WMMA route the kernel's bf16 Hopper kernel replaced (K5, K9, K2, K6, K1, K4,
-    # K10, K7), timed against it in turns; and yardsticks printed beside library
+    # the route the kernel's bf16 Hopper kernel replaced (the WMMA kernels of K5, K9,
+    # K2, K6, K1, K4, K10, K7; K3's partials kernel), timed against it in turns; and
+    # yardsticks printed beside library
     old: Optional[Callable] = None
     yardsticks: tuple = ()
 
@@ -240,6 +246,11 @@ def kernel_cases(dtype, dev):
             sums = torch.cat([sums, fused_groupnorm.channel_partials_plain(x2)], dim=-1)
         return fused_conv.stats_scale_bias(sums, x.shape[1] * x.shape[2], gamma, beta, 32, eps)
 
+    def k3_partials(x):
+        """K3 on the partials kernel and its sum (two launches),
+        which the cluster kernel replaced."""
+        return fused_groupnorm._channel_partials(x, "partials")
+
     cases = []
     # K3: the UNet's ResBlock inputs and skips (1024px) and its transformers'
     # entry GroupNorm at 64x64 (512px: C=320, 1024px: C=640; the serve
@@ -256,7 +267,7 @@ def kernel_cases(dtype, dev):
         x = rnd(*shape)
         cases.append(Case("channel_partials", label, fused_groupnorm.channel_partials,
                           fused_groupnorm.channel_partials_plain, (x,), {}, 3 * x.numel(),
-                          PEAK_F32))
+                          PEAK_F32, old=k3_partials))
 
     # K4: proj_in (GroupNorm prologue) and proj_out (residual) at 64x64x320
     # (512px; B=8 in the serve phase's batch), 128x128x320 and 64x64x640
@@ -406,7 +417,8 @@ def kernel_cases(dtype, dev):
 
         def k1_wmma(q, k, v, key_bias=None, n_head=1, return_lse=False):
             """K1 on the WMMA kernel (csrc/flash_attention.cu), which its
-            bf16 route replaced at d <= 160 (and still runs d = 512)."""
+            bf16 routes replaced (the core at d <= 160, the wide kernel at
+            d = 512)."""
             return flash_attention._heads(q, k, v, key_bias, n_head, return_lse, "wmma")
 
         cases.append(Case("flash_attention_heads",
@@ -497,7 +509,7 @@ def kernel_cases(dtype, dev):
             cases.append(Case("channel_partials", f"encoder {hw}x{hw}x{ci} B={b}",
                               fused_groupnorm.channel_partials,
                               fused_groupnorm.channel_partials_plain, (x,), {}, 3 * x.numel(),
-                              PEAK_F32))
+                              PEAK_F32, old=k3_partials))
             conv_case(f"encoder {hw}x{hw} {ci}->{co} B={b}", b, hw, ci, co, 0, 1e-6,
                       residual=False)
         for hw, co in sorted({(hw, co) for hw, _, co in ENCODER_RESNETS}, reverse=True):
@@ -552,7 +564,7 @@ def kernel_cases(dtype, dev):
 KERNEL_INFO = {
     "flash_attention_heads": ("cuda", "sdtpu_torch/csrc/attention_sm90.cu",
                               "sdtpu/ops/flash_attention.py:220"),
-    "channel_partials": ("cuda", "sdtpu_torch/csrc/channel_stats.cu",
+    "channel_partials": ("cuda", "sdtpu_torch/csrc/channel_stats_sm90.cu",
                          "sdtpu/ops/fused_groupnorm.py:47"),
     "conv1x1_fused": ("cuda", "sdtpu_torch/csrc/conv_sm90.cu", "sdtpu/ops/fused_conv.py:428"),
     "fused_self_attention": ("cuda", "sdtpu_torch/csrc/attention_sm90.cu",
@@ -568,13 +580,18 @@ KERNEL_INFO = {
     "fused_cross_attention_kv": ("cuda", "sdtpu_torch/csrc/attention_sm90.cu",
                                  "sdtpu/ops/fused_cross_attention.py:119"),
 }
-# the kernels with two routes: route -> sources (K1's main-path launches
-# take both: bf16 at d <= 160 on the Hopper core, the 1024px decode's d = 512
-# on the WMMA kernel; K7's and K10's bf16 launches take the Hopper route,
-# the WMMA route they replaced stays the f32 one)
+# the kernels with two or more routes: route -> sources (K1's main-path
+# launches take two: bf16 at d <= 160 on the Hopper core, the 1024px
+# decode's d = 512 on the wide kernel, and the WMMA kernel stays the f32
+# one; K7's and K10's bf16 launches take the Hopper route, the WMMA route
+# they replaced stays the f32 one; K3's launches take the cluster kernel,
+# the partials kernel stays for C not a multiple of 8)
 KERNEL_ROUTES = {
     "flash_attention_heads": {"sm90": "sdtpu_torch/csrc/attention_sm90.cu",
+                              "wide": "sdtpu_torch/csrc/attention_wide_sm90.cu",
                               "wmma": "sdtpu_torch/csrc/flash_attention.cu"},
+    "channel_partials": {"sm90": "sdtpu_torch/csrc/channel_stats_sm90.cu",
+                         "partials": "sdtpu_torch/csrc/channel_stats.cu"},
     "upsample2x_conv_fused": {"sm90": "sdtpu_torch/csrc/conv_sm90.cu",
                               "wmma": "sdtpu_torch/csrc/gemm.cu"},
     "fused_cross_attention_kv": {
@@ -653,12 +670,66 @@ def _check_flash(c, got, want, dname, failed):
     if kb is not None:
         wrong["one that ignores the key bias"] = flash_attention_heads_plain(q, k, v, None,
                                                                              n_head)
+    if q.shape[-1] == 512 and kb is None and n_head == 1:
+        wrong["the wide kernel's walk without the max exchange"] = _k1_wide_walk(
+            q, k, v, exchange=False)
+        wrong["the wide kernel's walk with the P slices swapped"] = _k1_wide_walk(
+            q, k, v, swap=True)
     passes = {label: within(w, want, a, r)[1] for label, w in wrong.items()}
     print(f"kernel {c.name:21s} {dname:8s} {c.shape:30s} max |ref| {a / frac:.4f}; the "
           f"tolerance passes " + ", ".join(f"{k}: {v}" for k, v in passes.items()), flush=True)
     if any(passes.values()):
         failed.append(f"{c.name} {dname} {c.shape} tolerance too loose")
     return (*within(got, want, a, r), a, r)
+
+
+def _k1_wide_walk(q, k, v, exchange=True, swap=False):
+    """csrc/attention_wide_sm90.cu's walk over q, k, v [BH, S, d] (one head
+    a batch element, no bias) in f32 on the card, P rounded to bf16: key
+    tiles of 64, each warpgroup's 32-key slice of S, the slices' row maxima
+    exchanged, each warpgroup's 256-column slice of O rescaled and
+    accumulated, its own row sums added at the end. The planted faults K1's
+    tolerance must fail: exchange=False, each warpgroup's softmax on its own
+    slice's running maximum; swap=True, the two warpgroups' P slices written
+    into each other's columns."""
+    import torch
+    import torch.nn.functional as F
+
+    from sdtpu_torch.ops import flash_attention as fa
+
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    bt, nw = fa.WIDE_TILE, fa.WIDE_WARPGROUPS
+    keys, cols = bt // nw, d // nw
+    nk = -(-sk // bt)
+    qf = q.float()
+    kf, vf = (F.pad(t.float(), (0, 0, 0, nk * bt - sk)) for t in (k, v))
+    scale_log2 = d ** -0.5 / math.log(2.0)
+    m = [torch.full((bh, sq, 1), -math.inf, device=q.device) for _ in range(nw)]
+    l = [torch.zeros((bh, sq, 1), device=q.device) for _ in range(nw)]
+    o = [torch.zeros((bh, sq, cols), device=q.device) for _ in range(nw)]
+    for j in range(nk):
+        s = []
+        for w in range(nw):
+            k0 = j * bt + w * keys
+            sw = torch.matmul(qf, kf[:, k0:k0 + keys].transpose(-1, -2)).mul_(scale_log2)
+            if k0 + keys > sk:
+                sw[..., max(0, sk - k0):] = -math.inf
+            s.append(sw)
+        part = [sw.amax(dim=-1, keepdim=True) for sw in s]
+        p, alpha = [], []
+        for w in range(nw):
+            m_new = torch.maximum(m[w], torch.maximum(*part) if exchange else part[w])
+            alpha.append(torch.exp2(m[w] - m_new))
+            m[w] = m_new
+            pw = torch.exp2(s[w] - m_new)
+            l[w] = l[w] * alpha[w] + pw.sum(dim=-1, keepdim=True)
+            p.append(pw.to(torch.bfloat16).float())
+        pt = torch.cat(p[::-1] if swap else p, dim=-1)
+        for w in range(nw):
+            o[w] = o[w] * alpha[w] + torch.matmul(pt, vf[:, j * bt:(j + 1) * bt,
+                                                         w * cols:(w + 1) * cols])
+    return (torch.cat(o, dim=-1) / (l[0] + l[1])).to(q.dtype)
 
 
 K10_SCALE_ERR = 0.97  # a K10 core or a K9 dq 3 % small must fail its check
@@ -786,6 +857,26 @@ def _k7_faults(c):
             "with the taps one pixel off": upsample2x_conv_fused_plain(shifted, w, cb)}
 
 
+def _k3_faults(c):
+    """The planted faults K3's tolerance must fail, in PyTorch ops: the sums
+    with the rows of the plan's last cluster rank that holds rows dropped
+    (its partial left out), and the sums of batch b + 1's rows for b (zeros
+    past the last)."""
+    import torch
+
+    from sdtpu_torch.ops.fused_groupnorm import channel_partials_plain, stats_plan
+
+    (x,) = c.args
+    xr = x.reshape(x.shape[0], -1, x.shape[-1])
+    b, rows, ch = xr.shape
+    chunk = -(-rows // stats_plan(b, rows, ch, x.element_size()).cluster)
+    last = (rows - 1) // chunk
+    kept = torch.cat([xr[:, :last * chunk], xr[:, (last + 1) * chunk:]], dim=1)
+    shifted = torch.cat([xr[1:], torch.zeros_like(xr[:1])])
+    return {"with one cluster rank's rows dropped": channel_partials_plain(kept),
+            "of batch b + 1 for b": channel_partials_plain(shifted)}
+
+
 def _check_k2(c, got, want, dname, failed):
     """K2's check: the whole sublayer x + Wo·attn + bo within TOL, and the
     attention term alone (out - x against plain - x) within FLASH_TOL's
@@ -818,7 +909,7 @@ def phase_kernels(dev) -> tuple[dict, dict]:
     {label, ms, plain_ms, library_ms, bound_ms, ops_ms, bytes_ms, device_ms,
     old_ms, f32_ms}}), both from the bfloat16 run, the main path's dtype
     (old_ms, the replaced kernel's device time, for K5, K9, K2, K6, K1, K4,
-    K10, K7 only; f32_ms the float32 run's time, by device time where
+    K10, K7, K3 only; f32_ms the float32 run's time, by device time where
     measured)."""
     import torch
 
@@ -864,7 +955,8 @@ def phase_kernels(dev) -> tuple[dict, dict]:
                         failed.append(f"{c.name} {dname} {c.shape} stats")
                 err, ok = within(got, want, a, r)
                 faults = {"conv3x3_fused": _k6_faults, "conv1x1_fused": _k4_faults,
-                          "upsample2x_conv_fused": _k7_faults}.get(c.name)
+                          "upsample2x_conv_fused": _k7_faults,
+                          "channel_partials": _k3_faults}.get(c.name)
                 if faults is not None:
                     passes = {k: within(f, want, a, r)[1] for k, f in faults(c).items()}
                     print(f"kernel {c.name:21s} {dname:8s} {c.shape:30s} the tolerance passes "
@@ -891,7 +983,7 @@ def phase_kernels(dev) -> tuple[dict, dict]:
                   f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms{lib}  bound {bound_ms:.4f} ms "
                   f"({bound_by})  [{key}]", flush=True)
             if c.old is not None and dtype == torch.bfloat16:
-                # the Hopper kernel against the WMMA kernel it replaced, by
+                # the Hopper kernel against the kernel it replaced, by
                 # device time, in turns
                 new = lambda: c.fn(*c.args, **c.kw)  # noqa: E731
                 old = lambda: c.old(*c.args, **c.kw)  # noqa: E731
@@ -924,7 +1016,7 @@ def main_path_times(measured: dict, shapes: dict) -> dict:
     bound) times its launches there, as the wrapper counted them per shape,
     summed. library_ms is None where a launched shape has no library call;
     device_ms is the device time of the kernel, and old_ms (K5, K9, K2, K6,
-    K1, K4, K10, K7) of the one it replaced, None for the others. Fails if a
+    K1, K4, K10, K7, K3) of the one it replaced, None for the others. Fails if a
     launched shape has no case in phase 2."""
     totals, missing = {}, []
     for name in KERNEL_INFO:
@@ -1159,18 +1251,29 @@ HOPPER_ROUTED = {"fused_self_attention": "K2", "conv3x3_fused": "K6", "conv1x1_f
 def check_routes(label: str, shapes: dict, k1: dict) -> None:
     """The launches of a bf16 main path by route (the wrappers count each
     shape under its route): K2's, K6's, K4's, K7's and K10's main-path
-    shapes all have a Hopper plan, so none may take the WMMA kernels; K1's
-    must be k1
-    ({route: launches}: the core for training's d = 40, the WMMA kernel
-    for the 1024px decode's d = 512)."""
+    shapes all have a Hopper plan, so none may take the WMMA kernels; K3's
+    must take the cluster kernel where its plan has one and the partials kernel
+    only where it has none; K1's must be k1 ({route: launches}: the core for
+    training's d = 40, the wide kernel for the 1024px decode's d = 512)."""
+    from sdtpu_torch.ops.fused_groupnorm import stats_plan
+
     by = {name: by_route(shapes[name]) for name in HOPPER_ROUTED}
     k1_got = by_route(shapes["flash_attention_heads"])
+    k3_got = by_route(shapes["channel_partials"])
+    k3_off = []
+    for key in shapes["channel_partials"]:
+        dims = dict(kv.split("=") for kv in key.split())
+        want = "sm90" if stats_plan(int(dims["b"]), int(dims["rows"]), int(dims["c"])) else "partials"
+        if dims["route"] != want:
+            k3_off.append(f"[{key}] (its plan's route: {want})")
     print(f"{label} launches by route: " + ", ".join(
-        f"{tag} {by[name]}" for name, tag in HOPPER_ROUTED.items()) + f", K1 {k1_got} "
-          f"(expected {k1})", flush=True)
+        f"{tag} {by[name]}" for name, tag in HOPPER_ROUTED.items()) + f", K3 {k3_got}, K1 "
+          f"{k1_got} (expected {k1})", flush=True)
     wmma = {name: r["wmma"] for name, r in by.items() if r.get("wmma")}
     if wmma:
         fail(f"{label}: bf16 launches on the WMMA route {wmma}")
+    if k3_off:
+        fail(f"{label}: K3 launches off their plan's route: " + "; ".join(k3_off))
     if k1_got != k1:
         fail(f"{label}: K1 launched {k1_got} by route, expected {k1}")
 
@@ -1236,7 +1339,7 @@ def phase_generate(dev, size: int) -> tuple[dict, dict]:
     if launches != EXPECTED_LAUNCHES[size] or x2 != EXPECTED_X2[size]:
         fail(f"launch counts {launches} (x2 {x2}) differ from {EXPECTED_LAUNCHES[size]} "
              f"(x2 {EXPECTED_X2[size]})")
-    check_routes(f"generate {size}", shapes, {"wmma": 1} if size == 1024 else {})
+    check_routes(f"generate {size}", shapes, {"wide": 1} if size == 1024 else {})
     return launches, shapes
 
 

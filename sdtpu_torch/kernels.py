@@ -61,7 +61,10 @@ _SIGNATURES = {
     "sdk_conv1x1_sm90": [*[_P] * 5, _LL, _I, _P, _P, _P, *[_I] * 7, _P],
     "sdk_upsample_conv_sm90": [*[_P] * 5, *[_I] * 9, _P],
     "sdk_attention_sm90": [*[_P] * 4, *[_LL] * 12, _P, _LL, _P, *[_I] * 5, _F, *[_I] * 4, _P],
+    "sdk_attention_wide_sm90": [*[_P] * 4, *[_LL] * 12, _P, _LL, _P, *[_I] * 5, _F,
+                                *[_I] * 4, _P],
     "sdk_channel_partials": [_I, _P, _P, _I, _I, _I, _I, _P],
+    "sdk_channel_stats_sm90": [_I, _P, _P, *[_I] * 5, _P],
     "sdk_error_string": [_I],
 }
 

@@ -9,13 +9,14 @@ scaling of q and k. It replaces the Pallas `_fullk_kernel`,
 (sdtpu/ops/flash_attention.py:320, :332, :390, :408) with an online
 softmax over key tiles that never holds the [Sq, Sk] score matrix in HBM,
 compute-bound (4·Sq·Sk·d flops). For training it also writes each row's
-log-sum-exp. Two routes, chosen by fwd_route: bf16 at the head widths the
-Hopper core has an instance for (padded to 48, 64, 80 or 160: training's
-d = 40) takes csrc/attention_sm90.cu, K2's wgmma core with the key bias
-and the log-sum-exp; f32 and the other widths take csrc/flash_attention.cu
-(WMMA), which also runs the VAE decoder's mid-block attention on the
-1024px main path (one head, S = 16384, d = 512; see that source for how
-d = 512 fits).
+log-sum-exp. Three routes, chosen by fwd_route: bf16 at the head widths
+the Hopper core has an instance for (padded to 48, 64, 80 or 160:
+training's d = 40) takes csrc/attention_sm90.cu, K2's wgmma core with the
+key bias and the log-sum-exp; bf16 at d = 512 (the VAE decoder's
+mid-block attention on the 1024px main path: one head, S = 16384) takes
+csrc/attention_wide_sm90.cu, whose two warpgroups split O by columns and S
+by keys (see that source); f32 and the other widths take
+csrc/flash_attention.cu (WMMA).
 
 K9, the gradients (dq, dk, dv) of mask-free attention, replaces the Pallas
 `_fullk_bwd_kernel` (sdtpu/ops/flash_attention.py:531, called at :613) with
@@ -169,19 +170,56 @@ def core_sm90_plan(d: int, bias: bool = False) -> CorePlan | None:
     return CorePlan(dpad, SM90_ATTN_TILE, stages, resident + stages * stage)
 
 
-def fwd_route(dtype, d: int, bias: bool) -> CorePlan | None:
-    """K1's route: the Hopper core's plan (csrc/attention_sm90.cu) for bf16
+# csrc/attention_wide_sm90.cu: 64 query rows a CTA (two consumer
+# warpgroups, each 256 columns of O and 32 keys of S), head widths padded to
+# 512, key tiles of 64 rows, one K and one V buffer, TMA boxes of 64 columns
+WIDE_DPAD = 512
+WIDE_ROWS = 64
+WIDE_TILE = 64
+WIDE_WARPGROUPS = 2
+
+
+class WidePlan(NamedTuple):
+    """One launch of csrc/attention_wide_sm90.cu (K1's bf16 route at d =
+    512): the padded head width, the key tiles' rows and the dynamic shared
+    memory."""
+    dpad: int
+    tile: int
+    smem: int
+
+
+def wide_sm90_plan(d: int) -> WidePlan | None:
+    """The wide kernel's plan for head width d (those that pad to 512), or
+    None: Q, one K and one V tile of 64 rows at 512 columns, P (64 x 64
+    bf16), the tile's 64 f32 key-bias values, a 64-row f32 statistic a
+    warpgroup, three mbarriers and 1024 bytes to align the swizzled boxes."""
+    if d <= 0 or d % 8 or -(-d // 16) * 16 != WIDE_DPAD:
+        return None
+    smem = (1024 + 3 * WIDE_ROWS * WIDE_DPAD * 2 + WIDE_ROWS * WIDE_TILE * 2 + WIDE_TILE * 4
+            + WIDE_WARPGROUPS * WIDE_ROWS * 4 + 3 * 8)
+    return WidePlan(WIDE_DPAD, WIDE_TILE, smem)
+
+
+def fwd_route(dtype, d: int, bias: bool) -> CorePlan | WidePlan | None:
+    """K1's route for bf16: the Hopper core's plan (csrc/attention_sm90.cu)
     at the head widths it has an instance for (d = 40, 64, 80, 160 and the
-    others that pad to 48, 64, 80 or 160), else None: f32 and the other
-    widths (the VAE's d = 512) take csrc/flash_attention.cu."""
-    return core_sm90_plan(d, bias) if dtype == torch.bfloat16 else None
+    others that pad to 48, 64, 80 or 160), the wide kernel's
+    (csrc/attention_wide_sm90.cu) at d = 512 (and the widths that pad to
+    it); else None: f32 and the other widths take csrc/flash_attention.cu."""
+    if dtype != torch.bfloat16:
+        return None
+    return core_sm90_plan(d, bias) or wide_sm90_plan(d)
+
+
+# the route a plan's launches are counted under
+ROUTE_NAMES = {CorePlan: "sm90", WidePlan: "wide", type(None): "wmma"}
 
 
 def _attend(q, k, v, key_bias, out, lse=None, route: str = "auto"):
     """Attention over [B, H, S, d] views into out; the plain version for
     CPU tensors, K1 for CUDA tensors. lse: optional [B·H, Sq] f32 that takes
     the rows' log2-domain log-sum-exp. route "wmma" takes the WMMA kernel
-    (csrc/flash_attention.cu) whatever the dtype, for timing the two kernels
+    (csrc/flash_attention.cu) whatever the dtype, for timing the kernels
     against each other; "auto" chooses by fwd_route."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
@@ -202,23 +240,28 @@ def _attend(q, k, v, key_bias, out, lse=None, route: str = "auto"):
     if key_bias is not None:
         key_bias = key_bias.float().reshape(b, sk).contiguous()
     plan = fwd_route(q.dtype, d, key_bias is not None) if route == "auto" else None
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *q.stride()[:3],
+            *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
     with torch.cuda.device(q.device):
         if plan is None:
+            name = "sdk_flash_attention"
             rc = kernels.lib().sdk_flash_attention(
-                kernels.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                out.data_ptr(), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                *out.stride()[:3], kernels.ptr(key_bias), kernels.ptr(lse), b * h, h, sq, sk,
-                d, float(d) ** -0.5, kernels.stream(q))
+                kernels.dtype_code(q), *ptrs, kernels.ptr(key_bias), kernels.ptr(lse), b * h,
+                h, sq, sk, d, float(d) ** -0.5, kernels.stream(q))
+        elif isinstance(plan, WidePlan):
+            name = "sdk_attention_wide_sm90"
+            rc = kernels.lib().sdk_attention_wide_sm90(
+                *ptrs, kernels.ptr(key_bias), sk, kernels.ptr(lse), b * h, h, sq, sk, d,
+                float(d) ** -0.5, *plan, 0, kernels.stream(q))
         else:
+            name = "sdk_attention_sm90"
             rc = kernels.lib().sdk_attention_sm90(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *q.stride()[:3],
-                *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], kernels.ptr(key_bias), sk,
-                kernels.ptr(lse), b * h, h, sq, sk, d, float(d) ** -0.5, *plan,
-                kernels.stream(q))
-    kernels.check(rc, "sdk_flash_attention" if plan is None else "sdk_attention_sm90")
+                *ptrs, kernels.ptr(key_bias), sk, kernels.ptr(lse), b * h, h, sq, sk, d,
+                float(d) ** -0.5, *plan, kernels.stream(q))
+    kernels.check(rc, name)
     kernels.count(flash_attention_heads, b=b, h=h, sq=sq, sk=sk, d=d,
                   bias=key_bias is not None, lse=lse is not None,
-                  route="wmma" if plan is None else "sm90")
+                  route=ROUTE_NAMES[type(plan)])
     return out
 
 

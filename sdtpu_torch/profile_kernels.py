@@ -1,6 +1,6 @@
 """Where the time of the port's Hopper kernels goes on one NVIDIA GPU.
 
-    python -m sdtpu_torch.profile_kernels [--kernels K5,K9,K6,K2,K1,K4,K10,K7] [--out FILE]
+    python -m sdtpu_torch.profile_kernels [--kernels K5,K9,K6,K2,K1,K4,K10,K7,K3] [--out FILE]
 
 At main-path shapes, bf16, random inputs (seeded): K5 at S=1024 C=640 B=2
 and S=256 C=1280 B=2 (csrc/gemm_sm90.cu), K9 at BH=32 S=4096 d=40
@@ -9,13 +9,14 @@ and S=256 C=1280 B=2 (csrc/gemm_sm90.cu), K9 at BH=32 S=4096 d=40
 (csrc/conv_sm90.cu), K2 at S=4096 C=320 B=2 and S=16384 C=320 B=2
 (csrc/gemm_sm90.cu and csrc/attention_sm90.cu), K1 at training's BH=32
 S=4096 d=40 and a key-bias case at d=80 (csrc/attention_sm90.cu) and the
-VAE's BH=1 S=16384 d=512 (csrc/flash_attention.cu), K4 at its eight
+VAE's BH=1 S=16384 d=512 (csrc/attention_wide_sm90.cu), K4 at its eight
 main-path launches (proj_in with the GroupNorm prologue and proj_out with
 the residual, at 4096 x 320 and 16384 x 320 B=2, 4096 x 640 B=2 and
 4096 x 320 B=8; csrc/conv_sm90.cu at one tap), K10 at the serve phase's
 S=4096 C=320 B=2, S=1024 C=640 B=4 and S=256 C=1280 B=8 with 77 masked keys
 (csrc/gemm_sm90.cu and csrc/attention_sm90.cu), K7 at the decoder's 128² x
-512, 256² x 256 and 512² x 256 (csrc/conv_sm90.cu at four taps). --kernels
+512, 256² x 256 and 512² x 256 (csrc/conv_sm90.cu at four taps), K3 at
+its main-path shapes (csrc/channel_stats_sm90.cu). --kernels
 picks some of them (all by default). Device times are CUDA-graph replays (`device_ms`,
 also what chip_smoke.py times the Hopper kernels by) or torch.profiler
 kernel sums:
@@ -31,7 +32,9 @@ kernel sums:
    cuDNN's convolution of the same shape; K2's QKV product, core and Wo
    product against cuBLAS's matmuls and SDPA of the same shapes; K1's core
    with and without the key bias and the log-sum-exp write, the WMMA
-   kernel (csrc/flash_attention.cu) and SDPA; K4 with and without its
+   kernel (csrc/flash_attention.cu) and SDPA; at d = 512 the wide kernel
+   against the WMMA kernel in turns (old, new, new, old), and its products
+   alone and its copies alone (the kernel's `probe`); K4 with and without its
    prologue, on each tile width it has, the WMMA kernel it replaced, and
    cuBLAS's x·W; K10's Q product, core and Wo product against cuBLAS's
    matmuls and SDPA, the whole route against the WMMA route and against
@@ -40,7 +43,13 @@ kernel sums:
    convolution over the upsampled map, the gate-closed path
    (ops/conv.upsample2x_conv's four phase convolutions), and the folding
    of its phase weights (host time a call and device time) against a
-   launch's CUDA-event time;
+   launch's CUDA-event time; K3 against the partials kernel and its sum in
+   turns (old, new, new, old), by device time and by CUDA
+   events, beside torch.var_mean over the same rows (another function: a
+   reference line, not the library column) and the bound; at three shapes
+   every (channel block, cluster) the kernel takes, and the kernel over a
+   16-row map, which reads almost nothing (the cost of the launch and the
+   cluster barrier);
 3. the depth of the rings: K5's 2, 3 or 4 stages (the plan's choice is 4),
    K6's, K4's and K7's 2 to 4 and K2's and K10's core's 3 to 5 where they
    fit.
@@ -306,8 +315,69 @@ def profile_k1(bh, n_head, s, d, bias, log, gen):
         for name, b_, lse in variants:
             ms = device_ms(lambda: fa.flash_attention_heads(q, k, v, b_, n_head, lse))
             parts.append(f"{name} {ms:.4f} ms")
+    plan = fa.fwd_route(dt, d, bias)
+    if isinstance(plan, fa.WidePlan):
+        new = lambda: fa.flash_attention_heads(q, k, v, kb, n_head)  # noqa: E731
+        old_ = lambda: fa._heads(q, k, v, kb, n_head, False, "wmma")  # noqa: E731
+        turns = [device_ms(f) for f in (old_, new, new, old_)]
+        parts.append("in turns old/new/new/old " + " / ".join(f"{t:.4f}" for t in turns))
+        out = torch.empty_like(q)
+        for probe, name in ((1, "products alone"), (2, "copies alone")):
+            def run(probe=probe):
+                rc = kernels.lib().sdk_attention_wide_sm90(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    *(x for t in (q, k, v, out) for x in (t.stride(0), 0, t.stride(1))), None,
+                    s, None, bh, 1, s, s, d, float(d) ** -0.5, *plan, probe, kernels.stream(q))
+                kernels.check(rc, "sdk_attention_wide_sm90")
+            parts.append(f"{name} {device_ms(run):.4f} ms")
     log(f"{label}: " + "; ".join(parts + [f"the WMMA kernel {old:.4f} ms", f"SDPA {sdpa:.4f} ms",
                                           f"bound {1e3 * flops / 989e12:.4f} ms"]))
+
+
+# (B, rows, C) of K3's launches on the main paths: the UNet's at 512px and
+# 1024px (B=2; the serve phase's B=8), the VAE decoder's (B=1; the serve
+# phase's B=4), the VAE encoder's in the latent cache (B=4) and in img2img
+# (B=1)
+K3_SHAPES = ((2, 4096, 320), (8, 4096, 320), (2, 4096, 640), (2, 16384, 320),
+             (2, 16384, 640), (1, 4096, 512), (1, 16384, 512), (4, 4096, 512),
+             (4, 16384, 512), (4, 262144, 128), (4, 65536, 128), (4, 65536, 256),
+             (4, 16384, 256), (1, 262144, 128), (1, 65536, 128), (1, 65536, 256),
+             (1, 16384, 256))
+
+
+def profile_k3(b, rows, c, log, gen):
+    from sdtpu_torch.ops import fused_groupnorm as fg
+
+    x = torch.randn(b, rows, c, generator=gen, device="cuda").to(torch.bfloat16)
+    new = lambda: fg.channel_partials(x)  # noqa: E731
+    old = lambda: fg._channel_partials(x, "partials")  # noqa: E731
+    turns = [device_ms(f) for f in (old, new, new, old)]
+    ev_old, ev_new = events_ms(old), events_ms(new)
+    ref = device_ms(lambda: torch.var_mean(x, dim=1))
+    bound = 1e3 * (x.numel() * 2 + b * 2 * c * 4) / 3.35e12
+    log(f"K3 {rows}x{c} B={b} {fg.stats_plan(b, rows, c)}: device ms old/new/new/old "
+        + " / ".join(f"{1e3 * t:.2f} us" for t in turns)
+        + f"; events old {1e3 * ev_old:.2f} us, new {1e3 * ev_new:.2f} us; torch.var_mean "
+          f"(a reference line) {1e3 * ref:.2f} us; bound {1e3 * bound:.2f} us")
+
+
+def sweep_k3(b, rows, c, log, gen):
+    """K3's device time at every (channel block, cluster) the kernel takes."""
+    x = torch.randn(b, rows, c, generator=gen, device="cuda").to(torch.bfloat16)
+    out = torch.empty(b, 2, c, device="cuda")
+    res = []
+    for cb in (64, 32, 16):
+        for cluster in (1, 2, 4, 8, 16):
+            if cluster > rows:
+                continue
+
+            def run(cb=cb, cluster=cluster):
+                kernels.check(kernels.lib().sdk_channel_stats_sm90(
+                    kernels.dtype_code(x), x.data_ptr(), out.data_ptr(), b, rows, c, cb, cluster,
+                    kernels.stream(x)), "sdk_channel_stats_sm90")
+            res.append(f"{cb}/{cluster} ({b * -(-c // cb) * cluster} CTAs) "
+                       f"{1e3 * device_ms(run):.2f}")
+    log(f"K3 {rows}x{c} B={b} by channel block/cluster, device us: " + "; ".join(res))
 
 
 def profile_k4(b, rows, c, kind, log, gen):
@@ -494,7 +564,7 @@ def profile_k7(b, hw, c, co, log, gen):
     log(f"{label}: by ring depth: " + ", ".join(rings) + f" (the plan takes {plan.stages})")
 
 
-PROFILES = ("K5", "K9", "K6", "K2", "K1", "K4", "K10", "K7")
+PROFILES = ("K5", "K9", "K6", "K2", "K1", "K4", "K10", "K7", "K3")
 
 
 def main(argv=None) -> None:
@@ -545,6 +615,11 @@ def main(argv=None) -> None:
     if "K7" in picked:
         for b, hw, c, co in ((1, 128, 512, 512), (1, 256, 256, 256), (1, 512, 256, 256)):
             profile_k7(b, hw, c, co, log, gen)
+    if "K3" in picked:
+        for b, rows, c in K3_SHAPES:
+            profile_k3(b, rows, c, log, gen)
+        for b, rows, c in ((2, 4096, 320), (2, 16384, 640), (1, 262144, 128), (2, 16, 320)):
+            sweep_k3(b, rows, c, log, gen)
     if args.out:
         with open(args.out, "w") as f:
             f.write("\n".join(lines) + "\n")

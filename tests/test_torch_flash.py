@@ -263,3 +263,62 @@ def test_k1_sm90_matches_plain_on_card(bh, n_head, sq, sk, d, bias):
     assert not torch.allclose(lse * np.log(2.0), want_lse, rtol=0, atol=2 ** -9)
     again, lse2 = tfa.flash_attention_heads(q, k, v, kb, n_head, return_lse=True)
     assert torch.equal(again, got) and torch.equal(lse2, lse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,n_head,sq,sk,d,bias", [
+    (2, 1, 200, 200, 512, False),   # four query tiles, the last ragged; a key tile of 8
+    (2, 2, 129, 300, 512, True),    # a ragged query tile; the bias
+    (1, 1, 64, 64, 512, False),     # one tile each
+    (2, 1, 100, 130, 504, False),   # a width that pads to 512
+])
+def test_k1_wide_matches_plain_on_card(bh, n_head, sq, sk, d, bias):
+    """K1's bf16 route at d = 512 (csrc/attention_wide_sm90.cu) against the
+    plain version, with the rows' log-sum-exp: the output within 2^-6 of
+    its largest |reference| + 2^-7 relative, the log-sum-exp within 2^-9,
+    as chip_smoke.py holds them; the same bits on a second call. The
+    tolerances reject an all-zero output, one over every other key and,
+    with the bias, one that ignores it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    r = np.random.default_rng(50 + d + sk)
+    q, k, v = (torch.from_numpy(r.standard_normal((bh, s, d)).astype(np.float32)).to(dev, dt)
+               for s in (sq, sk, sk))
+    kb = torch.from_numpy(_key_bias(bh // n_head, sk, 9)).to(dev) if bias else None
+    assert isinstance(tfa.fwd_route(dt, d, bias), tfa.WidePlan)
+    before = dict(tfa.flash_attention_heads.shapes)
+    got, lse = tfa.flash_attention_heads(q, k, v, kb, n_head, return_lse=True)
+    new = {key: n - before.get(key, 0) for key, n in tfa.flash_attention_heads.shapes.items()
+           if n != before.get(key, 0)}
+    assert list(new.values()) == [1] and next(iter(new)).endswith("route=wide")
+    want, want_lse = tfa.flash_attention_heads_plain(q, k, v, kb, n_head, return_lse=True)
+    frac, rtol = 2 ** -6, 2 ** -7
+    atol = frac * float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=2 ** -9)
+    wrong = [torch.zeros_like(want), tfa.flash_attention_heads_plain(
+        q, k[:, ::2], v[:, ::2], None if kb is None else kb[:, ::2], n_head)]
+    if bias:
+        wrong.append(tfa.flash_attention_heads_plain(q, k, v, None, n_head))
+    for w in wrong:
+        assert not torch.allclose(w.float(), want.float(), rtol=rtol, atol=atol)
+    again, lse2 = tfa.flash_attention_heads(q, k, v, kb, n_head, return_lse=True)
+    assert torch.equal(again, got) and torch.equal(lse2, lse)
+
+
+@pytest.mark.cuda
+def test_k1_wide_heads_inside_rows_on_card():
+    """Two heads of 512 side by side in [B, S, 1024] rows
+    (flash_qkv_attention): the tensor maps take a head stride below the row
+    stride."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    r = np.random.default_rng(61)
+    q, k, v = (torch.from_numpy(r.standard_normal((2, 150, 1024)).astype(np.float32)).to(dev, dt)
+               for _ in range(3))
+    got = tfa.flash_qkv_attention(q, k, v, 2)
+    want = tattn.qkv_attention_plain(q, k, v, None, 2)
+    atol = 2 ** -6 * float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7, atol=atol)

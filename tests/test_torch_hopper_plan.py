@@ -7,7 +7,9 @@ and K10 (csrc/gemm_sm90.cu and csrc/attention_sm90.cu) and K1
 shared-memory bytes from Python (fused_mlp.sm90_plan,
 flash_attention.bwd_sm90_plan, fused_conv.sm90_plan, conv1x1_sm90_plan
 and upsample_sm90_plan, fused_transformer.sm90_plan,
-fused_cross_attention.route_plan, flash_attention.fwd_route); the kernels
+fused_cross_attention.route_plan, flash_attention.fwd_route and
+wide_sm90_plan); K3's csrc/channel_stats_sm90.cu takes its channel block and
+cluster from fused_groupnorm.stats_plan; the kernels
 check them and run only on the
 card. Here, at every main-path shape: the bytes fit the H100's 227 KB a
 block, wgmma's constraints hold (64-row groups, N a multiple of 8, K steps
@@ -18,8 +20,12 @@ a multiple of 16 with zeros beyond d. For K6 also TMA's: boxes of at most
 cover each 128-pixel tile exactly and tiles that cover the map once, and K
 blocks that never straddle a tap or the x/x2 boundary; for K4 the same
 with tiles of 128 rows inside one image, and for K7 with the four output
-phases in the grid. K1's and K10's routes by dtype and shape.
+phases in the grid. K1's and K10's routes by dtype and shape; K1's wide
+kernel's shared memory against its source, and K3's clusters.
 """
+
+import re
+from pathlib import Path
 
 import pytest
 
@@ -30,6 +36,7 @@ from sdtpu_torch.config import SD_V1_4
 from sdtpu_torch.ops import flash_attention as tfa
 from sdtpu_torch.ops import fused_conv as tfc
 from sdtpu_torch.ops import fused_cross_attention as tfx
+from sdtpu_torch.ops import fused_groupnorm as tfg
 from sdtpu_torch.ops import fused_mlp as tfm
 from sdtpu_torch.ops import fused_transformer as tft
 
@@ -259,23 +266,25 @@ def test_k2_plan_leaves_other_shapes_to_the_wmma_kernels(b, s, c, heads):
 
 # ------------------------------------------------------------ K1
 
-# (d, the padded width the core runs it at, or None: the WMMA kernel) for
-# the head widths K1 runs at: training's 40 (and 80, 160 at other levels and
-# 1024px), SD v2's 64, the VAE's mid-block 512
-K1_WIDTHS = [(40, 48), (64, 64), (80, 80), (160, 160), (512, None)]
+# (d, the padded width the core runs it at, or None: the wide kernel,
+# csrc/attention_wide_sm90.cu) for the head widths K1 runs at: training's 40
+# (and 80, 160 at other levels and 1024px), SD v2's 64, the VAE's mid-block
+# 512, and 504, which pads to it
+K1_WIDTHS = [(40, 48), (64, 64), (80, 80), (160, 160), (512, None), (504, None)]
+CSRC = Path(tfa.__file__).resolve().parent.parent / "csrc"
 
 
 @pytest.mark.parametrize("bias", [False, True], ids=["no_bias", "bias"])
 @pytest.mark.parametrize("d,dpad", K1_WIDTHS)
 def test_k1_route(d, dpad, bias):
-    """bf16 takes the Hopper core at its instances; d = 512 and f32 keep
-    csrc/flash_attention.cu. The core's plan fits the shared memory with
-    the bias's 64 floats a stage, and keeps the ring stages − 2 tiles
-    ahead."""
+    """bf16 takes the Hopper core at its instances and the wide kernel at
+    the widths that pad to 512; f32 keeps csrc/flash_attention.cu. The
+    core's plan fits the shared memory with the bias's 64 floats a stage,
+    and keeps the ring stages − 2 tiles ahead."""
     assert tfa.fwd_route(torch.float32, d, bias) is None
     plan = tfa.fwd_route(torch.bfloat16, d, bias)
     if dpad is None:
-        assert plan is None
+        assert isinstance(plan, tfa.WidePlan) and plan == tfa.wide_sm90_plan(d)
         return
     assert plan.dpad == dpad and plan.dpad % WGMMA_K == 0 and d <= plan.dpad < d + 16
     assert plan.tile == tfa.SM90_ATTN_TILE and plan.tile % WGMMA_K == 0
@@ -285,6 +294,98 @@ def test_k1_route(d, dpad, bias):
     # the bias stage offsets stay 16-byte aligned (float2 reads)
     ring = plan.stages * 2 * plan.tile * plan.dpad * 2
     assert (tfa.SM90_ATTN_ROWS * plan.dpad * 2 + ring) % 16 == 0
+
+
+def test_k1_wide_plan():
+    """The wide kernel at d = 512: its shared memory is what the source
+    reserves (the static_assert beside W_SMEM) and fits the 227 KB; the
+    TMA boxes (64 columns = 128 bytes, the 128-byte swizzle's row) start on
+    1024-byte boundaries, the pattern's repeat; two warpgroups of 256
+    columns cover O (m64n256, 128 registers a thread) and 32 keys each
+    cover S (m64n32), both multiples of 8 and at most 256; the key tile is
+    whole K steps of 16."""
+    plan = tfa.wide_sm90_plan(512)
+    src = (CSRC / "attention_wide_sm90.cu").read_text()
+    assert plan.smem == int(re.search(r"static_assert\(W_SMEM == (\d+)", src).group(1))
+    assert plan.smem <= SMEM_LIMIT
+    rows, dpad, tile = tfa.WIDE_ROWS, plan.dpad, plan.tile
+    assert rows == WGMMA_M and tile % WGMMA_K == 0 and dpad % 64 == 0
+    box = rows * 64 * 2  # one 64-column box of a 64-row tile
+    offsets = [0, rows * dpad * 2, 2 * rows * dpad * 2, 3 * rows * dpad * 2]  # Q, K, V, P
+    assert all(o % 1024 == 0 for o in offsets) and box % 1024 == 0
+    bias, stat = offsets[3] + rows * tile * 2, offsets[3] + rows * tile * 2 + tile * 4
+    assert bias % 16 == 0 and stat % 16 == 0 and (stat + tfa.WIDE_WARPGROUPS * rows * 4) % 8 == 0
+    cols, keys = dpad // tfa.WIDE_WARPGROUPS, tile // tfa.WIDE_WARPGROUPS
+    assert cols % 8 == 0 and cols <= 256 and cols // 2 == 128
+    assert keys % 8 == 0 and keys <= 256 and (keys * 128) % 1024 == 0  # a slice's first row
+
+
+@pytest.mark.parametrize("d", [160, 256, 496, 520, 12])
+def test_k1_wide_plan_takes_only_widths_that_pad_to_512(d):
+    assert tfa.wide_sm90_plan(d) is None
+
+
+# ------------------------------------------------------------ K3
+
+# (B, rows, C) of K3's launches on the main paths (chip_smoke.py's cases):
+# the UNet's ResBlock inputs and transformers' entry norms at 512px and
+# 1024px (B=2; the serve phase's B=8), the VAE decoder's mid blocks (B=1;
+# the serve phase's B=4), the VAE encoder's blocks in the latent cache (B=4)
+# and in img2img (B=1)
+K3_SHAPES = [(2, 4096, 320), (8, 4096, 320), (2, 4096, 640), (2, 16384, 320),
+             (2, 16384, 640), (1, 4096, 512), (1, 16384, 512), (4, 4096, 512),
+             (4, 16384, 512), (4, 262144, 128), (4, 65536, 128), (4, 65536, 256),
+             (4, 16384, 256), (1, 262144, 128), (1, 65536, 128), (1, 65536, 256),
+             (1, 16384, 256)]
+K3_THREADS = 256
+
+
+@pytest.mark.parametrize("b,rows,c", K3_SHAPES)
+def test_k3_plan(b, rows, c):
+    """Every main-path shape takes the cluster kernel: channel blocks of 64
+    channels (128-byte row pieces), or 32 where clusters of 16 would not
+    cover the 132 SMs; clusters of a power of two CTAs, at most 16 (above
+    8 the non-portable size, which the launch allows), no more than rows,
+    and just large enough that each CTA reads one batch of 16-byte loads
+    (64 KB in bf16) unless 16 is reached. A warp's row pieces are whole
+    32-byte sectors."""
+    plan = tfg.stats_plan(b, rows, c)
+    assert plan is not None and plan.cb in tfg.STATS_CBS and c % 8 == 0
+    wide = [cb for cb in tfg.STATS_CBS if b * -(-c // cb) * tfg.STATS_MAX_CLUSTER >= 132]
+    assert plan.cb == (wide[0] if wide else min(tfg.STATS_CBS))
+    cl = plan.cluster
+    assert 1 <= cl <= min(tfg.STATS_MAX_CLUSTER, rows) and cl & (cl - 1) == 0
+    per_cta = rows * plan.cb * 2 / cl  # bytes a CTA reads (bf16)
+    assert per_cta <= tfg.STATS_CTA_BYTES or cl == tfg.STATS_MAX_CLUSTER
+    assert cl == 1 or per_cta * 2 > tfg.STATS_CTA_BYTES  # half the cluster would not do
+    assert tfg.STATS_CTA_BYTES == K3_THREADS * 16 * 16
+    assert K3_THREADS % (plan.cb // 8) == 0 and 32 % (plan.cb // 8) == 0
+    assert (plan.cb // 8) * 16 % 32 == 0  # a row piece is whole 32-byte sectors
+    assert b * -(-c // plan.cb) * cl >= 64 and plan.cb >= 32  # whole 64-byte row pieces
+
+
+def test_k3_plan_f32_reads_twice_the_bytes():
+    """f32 maps read 32 bytes a vector of 8 channels: the same map takes
+    clusters twice as large (up to 16)."""
+    assert tfg.stats_plan(2, 4096, 320, 4).cluster == 2 * tfg.stats_plan(2, 4096, 320, 2).cluster
+
+
+@pytest.mark.parametrize("c", [20, 36, 100, 1284])
+def test_k3_plan_leaves_other_widths_to_the_partials_kernel(c):
+    """C not a multiple of 8 takes the partials kernel (csrc/channel_stats.cu)
+    by the plan: the cluster kernel reads 8 channels a vector."""
+    assert tfg.stats_plan(2, 4096, c) is None
+    assert tfg.stats_plan(2, 4096, c + 8 - c % 8) is not None
+
+
+@pytest.mark.parametrize("b,rows,c", [(1, 1, 8), (1, 3, 8), (2, 7, 40), (2, 90, 96)])
+def test_k3_plan_small_maps(b, rows, c):
+    """A map with few rows still gets a plan the kernel takes: a cluster no
+    larger than its rows (the entry refuses more), a channel block that
+    covers C in whole blocks, the last one ragged."""
+    plan = tfg.stats_plan(b, rows, c)
+    assert plan.cluster <= rows and plan.cb in tfg.STATS_CBS
+    assert -(-c // plan.cb) * plan.cb >= c
 
 
 # ------------------------------------------------------------ K4

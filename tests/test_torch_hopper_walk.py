@@ -1,8 +1,9 @@
-"""The tile walks of K6's, K2's, K1's, K4's, K7's and K10's Hopper
+"""The tile walks of K6's, K2's, K1's, K4's, K7's, K10's and K3's Hopper
 kernels, emulated in torch on the CPU and held against sdtpu's Pallas
 kernels in interpret mode.
 
-The kernels (csrc/conv_sm90.cu, csrc/attention_sm90.cu) run only on the
+The kernels (csrc/conv_sm90.cu, csrc/attention_sm90.cu,
+csrc/attention_wide_sm90.cu, csrc/channel_stats_sm90.cu) run only on the
 card. What they compute apart from the products' rounding is how they walk
 their tiles, and that walk is written out here, step for step, in f32:
 
@@ -23,6 +24,13 @@ their tiles, and that walk is written out here, step for step, in f32:
   64, and each row's log-sum-exp m + log2(l). Walks that add the bias after
   the maximum, or drop it, must fail: the padding keys carry large scores,
   so a maximum taken over them underflows every real key's weight.
+- K1 at d = 512 (csrc/attention_wide_sm90.cu): key tiles of 64, each
+  warpgroup's 32-key slice of S over the full depth, the two slices' row
+  maxima exchanged so that both warpgroups rescale by the same factor, P
+  rounded to bf16 and written into its slice's columns, each warpgroup's
+  256-column slice of O += P·V, its own row sums, added once at the end
+  and divided once. Walks without the exchange (each slice's own running
+  maximum), or with the two P slices swapped, must fail.
 - K4 (csrc/conv_sm90.cu at one tap): 128-row tiles inside one image (the
   rows past the last one zero-filled and neither stored nor counted),
   64-deep K blocks, the prologue with or without SiLU rounded to x's dtype
@@ -40,6 +48,12 @@ their tiles, and that walk is written out here, step for step, in f32:
   the core's walk over 77 keys (two key tiles, the second masked past Sk)
   with the key bias of the masked prompts, then o·Wo + bo + x. A walk that
   drops the key bias must fail the masked case.
+
+- K3 (csrc/channel_stats_sm90.cu): 8-channel vectors, each CTA of a
+  cluster a chunk of rows, its row lanes' sums, summed over the lanes of a
+  warp, over the warps, then over the cluster's ranks in rank order, at
+  ragged row counts and a ragged last channel block. Walks that drop one
+  rank's partial, or read batch b + 1's rows for b, must fail.
 
 Tolerances: the walks in f32 against sdtpu's f32 kernels and the plain
 versions, 2e-4 (sums in another order, as tests/test_torch_resblock.py);
@@ -59,10 +73,12 @@ import torch.nn.functional as F
 import sdtpu.ops.flash_attention as jfa
 import sdtpu.ops.fused_conv as jfc
 import sdtpu.ops.fused_cross_attention as jfx
+import sdtpu.ops.fused_groupnorm as jfg
 import sdtpu.ops.fused_transformer as jft
 from sdtpu_torch.ops import flash_attention as tfa
 from sdtpu_torch.ops import fused_conv as tfc
 from sdtpu_torch.ops import fused_cross_attention as tfx
+from sdtpu_torch.ops import fused_groupnorm as tfg
 from sdtpu_torch.ops.groupnorm import layer_norm
 
 torch.set_num_threads(1)
@@ -303,6 +319,155 @@ def test_k1_walk_matches_sdtpu_and_plain(d, bias):
         for fault in ("after max", "dropped"):
             bad, _ = walk(bias=fault)
             assert not np.allclose(_np(bad), want, **TOL, equal_nan=False), fault
+
+
+def k1_wide_walk(q, k, v, key_bias=None, round_p=False, exchange=True, swap=False):
+    """csrc/attention_wide_sm90.cu's walk over q, k, v [BH, S, d] (one head
+    a batch element) in f32, with the optional key bias [BH, Sk] added in
+    the log2 domain before the maximum. exchange=False (a planted fault):
+    each warpgroup's running maximum over its own key slices alone;
+    swap=True: the two P slices written into each other's columns. Returns
+    (o [BH, Sq, d], the rows' log2-domain log-sum-exp [BH, Sq])."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    plan = tfa.wide_sm90_plan(d)
+    dp, bt, nw = plan.dpad, plan.tile, tfa.WIDE_WARPGROUPS
+    keys, cols = bt // nw, dp // nw
+    nk = -(-sk // bt)
+    rows = -(-sq // tfa.WIDE_ROWS) * tfa.WIDE_ROWS
+    # TMA's zeros: columns d..dpad, rows past Sq or Sk
+    qp = F.pad(q, (0, dp - d, 0, rows - sq))
+    kp, vp = (F.pad(t, (0, dp - d, 0, nk * bt - sk)) for t in (k, v))
+    kbp = None if key_bias is None else F.pad(key_bias, (0, nk * bt - sk))[:, None, :]
+    scale_log2 = d ** -0.5 * LOG2E
+    # each warpgroup's running maximum, its row sums over its keys, and its
+    # column slice of O
+    m = [torch.full((bh, rows, 1), -math.inf) for _ in range(nw)]
+    l = [torch.zeros(bh, rows, 1) for _ in range(nw)]
+    o = [torch.zeros(bh, rows, cols) for _ in range(nw)]
+    for j in range(nk):
+        s = []
+        for w in range(nw):
+            k0 = j * bt + w * keys
+            sw = qp @ kp[:, k0:k0 + keys].transpose(-1, -2) * scale_log2
+            if kbp is not None:
+                sw = sw + kbp[..., k0:k0 + keys] * LOG2E
+            sw[..., max(0, sk - k0):] = -math.inf  # keys past Sk
+            s.append(sw)
+        part = [sw.amax(dim=-1, keepdim=True) for sw in s]  # each slice's row maxima
+        p, alpha = [], []
+        for w in range(nw):
+            tile = torch.maximum(part[0], part[1]) if exchange else part[w]
+            m_new = torch.maximum(m[w], tile)
+            alpha.append(torch.exp2(m[w] - m_new))
+            m[w] = m_new
+            pw = torch.exp2(s[w] - m_new)
+            l[w] = l[w] * alpha[w] + pw.sum(dim=-1, keepdim=True)
+            p.append(pw.to(torch.bfloat16).float() if round_p else pw)
+        pt = torch.cat(p[::-1] if swap else p, dim=-1)  # P's 64 columns
+        for w in range(nw):
+            o[w] = o[w] * alpha[w] + pt @ vp[:, j * bt:(j + 1) * bt, w * cols:(w + 1) * cols]
+    lt = l[0] + l[1]
+    out = torch.cat(o, dim=-1) / lt
+    return out[:, :sq, :d], (m[0] + torch.log2(lt))[:, :sq, 0]
+
+
+@pytest.mark.parametrize("bias", [False, True], ids=["no_bias", "bias"])
+def test_k1_wide_walk_matches_sdtpu_and_plain(bias):
+    """d = 512, BH = 2, S = 200: three full key tiles and one of 8 keys
+    (the second warpgroup's slice of it all past Sk), four query tiles, the
+    last ragged. With the bias the padding keys past each row's count carry
+    scores 30 times larger than the real ones. The walk in f32 within 2e-4
+    of sdtpu and of the plain version; with P rounded to bf16 within 2^-8
+    of the largest |value| (the kernel's rounding), which the walks without
+    the max exchange or with the P slices swapped fall far outside."""
+    r = np.random.default_rng(90 + bias)
+    bh, s, d = 2, 200, 512
+    q, k, v = (r.standard_normal((bh, s, d)).astype(np.float32) for _ in range(3))
+    kb = None
+    if bias:
+        kb = np.where(np.arange(s)[None] < np.array([[70], [150]]), 0.0, -1e30).astype(
+            np.float32)
+        k[kb < 0] *= 30.0
+    want = _np(jfa.flash_attention_heads(*map(jnp.asarray, (q, k, v)),
+                                         key_bias=None if kb is None else jnp.asarray(kb),
+                                         interpret=True))
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    tkb = None if kb is None else torch.from_numpy(kb)
+    plain, plain_lse = tfa.flash_attention_heads_plain(*t, tkb, return_lse=True)
+    got, lse = k1_wide_walk(*t, tkb)
+    for ref in (want, _np(plain)):
+        np.testing.assert_allclose(_np(got), ref, **TOL)
+    np.testing.assert_allclose(_np(lse), _np(plain_lse), **TOL)
+    atol = 2.0 ** -8 * float(np.abs(want).max())
+    rounded = _np(k1_wide_walk(*t, tkb, round_p=True)[0])
+    np.testing.assert_allclose(rounded, want, rtol=0, atol=atol)
+    for fault in ({"exchange": False}, {"swap": True}):
+        bad = _np(k1_wide_walk(*t, tkb, round_p=True, **fault)[0])
+        assert np.abs(bad - want).max() > 4 * atol, fault
+
+
+# ------------------------------------------------------------ K3
+
+
+def k3_walk(x, plan, drop_rank=None, next_batch=False):
+    """csrc/channel_stats_sm90.cu's decomposition of x [B, rows, C] in f32:
+    for each (batch, channel block of plan.cb channels) the cluster's ranks
+    take chunks of ceil(rows / cluster) rows; in a rank, row lane r of the
+    CTA's 256 / (cb / 8) sums rows r, r + lanes, ...; the lanes of a warp
+    (32 / (cb / 8) of them) are summed, then the warps, then the ranks in
+    rank order. Planted faults: drop_rank, that rank's partial left out;
+    next_batch, batch b + 1's rows read for b (zeros past the last).
+    Returns [B, 2, C]."""
+    b, rows, c = x.shape
+    cb, cluster = plan
+    lanes = 256 // (cb // 8)
+    per_warp = 32 // (cb // 8)
+    chunk = -(-rows // cluster)
+    cpad = -(-c // cb) * cb  # the last block's channels past C read nothing
+    xp = F.pad(x, (0, cpad - c))
+    if next_batch:
+        xp = torch.cat([xp[1:], torch.zeros_like(xp[:1])])
+    out = torch.zeros(b, 2, cpad)
+    for bb in range(b):
+        for c0 in range(0, cpad, cb):
+            total = torch.zeros(2, cb)
+            for rank in range(cluster):
+                rr = xp[bb, rank * chunk:min(rows, (rank + 1) * chunk), c0:c0 + cb]
+                lane = torch.zeros(lanes, 2, cb)
+                for i in range(rr.shape[0]):
+                    lane[i % lanes] += torch.stack([rr[i], rr[i] * rr[i]])
+                warps = lane.reshape(lanes // per_warp, per_warp, 2, cb).sum(dim=1)
+                part = warps.sum(dim=0)
+                if rank != drop_rank:
+                    total = total + part
+            out[bb, :, c0:c0 + cb] = total
+    return out[..., :c]
+
+
+@pytest.mark.parametrize("shape,plan", [
+    ((2, 63, 96), None),                        # the plan's own: 16 channels, 16 ranks
+    ((2, 1000, 320), tfg.StatsPlan(32, 8)),     # the 64² x 320 level's plan, fewer rows
+    ((1, 130, 40), tfg.StatsPlan(64, 16)),      # a ragged channel block, 16 ranks
+    ((3, 77, 128), tfg.StatsPlan(16, 4)),
+])
+def test_k3_walk_matches_sdtpu_and_plain(shape, plan):
+    """The walk at ragged row counts within 1e-4 of sdtpu's channel_partials
+    (interpret mode) and of the plain version; the walks that drop the last
+    rank that holds rows, or read the next batch element's rows, fail it."""
+    r = np.random.default_rng(100 + shape[-1])
+    x = r.standard_normal(shape).astype(np.float32)
+    plan = plan or tfg.stats_plan(*shape)
+    want = _np(jfg.channel_partials(jnp.asarray(x), interpret=True))
+    xt = torch.from_numpy(x)
+    got = _np(k3_walk(xt, plan))
+    tol = dict(rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got, want, **tol)
+    np.testing.assert_allclose(got, _np(tfg.channel_partials_plain(xt)), **tol)
+    last = (shape[1] - 1) // -(-shape[1] // plan.cluster)
+    for fault in ({"drop_rank": last}, {"next_batch": True}):
+        bad = _np(k3_walk(xt, plan, **fault))
+        assert not np.allclose(bad, want, **tol), fault
 
 
 # ------------------------------------------------------------ K4

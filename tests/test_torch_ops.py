@@ -414,9 +414,10 @@ def test_kernel_library_name_tracks_sources():
     path = kernels.library_path()
     assert path.parent == kernels.BUILD_DIR and path.suffix == ".so"
     assert sorted(p.name for p in kernels.CSRC.glob("*.cu")) == [
-        "attention.cu", "attention_sm90.cu", "channel_stats.cu", "conv_sm90.cu",
-        "cross_attention.cu", "flash_attention.cu", "flash_attention_bwd.cu",
-        "flash_attention_bwd_sm90.cu", "gemm.cu", "gemm_sm90.cu", "groupnorm.cu"]
+        "attention.cu", "attention_sm90.cu", "attention_wide_sm90.cu", "channel_stats.cu",
+        "channel_stats_sm90.cu", "conv_sm90.cu", "cross_attention.cu", "flash_attention.cu",
+        "flash_attention_bwd.cu", "flash_attention_bwd_sm90.cu", "gemm.cu", "gemm_sm90.cu",
+        "groupnorm.cu"]
 
 
 # ------------------------------------------------------------ on the card
@@ -707,3 +708,54 @@ def test_k7_sm90_matches_plain_on_card(shape, cout, bn, stats):
         auto = tfc.upsample2x_conv_fused(x, wt, cb, emit_stats=stats)
         assert torch.equal(auto[0] if stats else auto, got)
 
+
+
+# (rows, C) of K3's main-path channel widths, at a ragged row count; the
+# two large ones split their rows over a cluster of 8 (bf16) or 16 (f32)
+K3_CARD = [(90, 128), (77, 256), (130, 320), (63, 512), (150, 640), (99, 1280),
+           (4099, 320), (16389, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,c", K3_CARD)
+def test_k3_matches_plain_on_card(rows, c, dtype):
+    """K3 (csrc/channel_stats_sm90.cu) against its plain version at each
+    main-path C and a ragged row count, at B = 2: one launch on the cluster
+    route, sums within 1e-3 (f32 sums in another order), the same bits on a
+    second call, and the partials route's result within the same tolerance.
+    The sums without the last rank's rows, or of the other batch element,
+    fall outside it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    dev, dt = torch.device("cuda"), getattr(torch, dtype)
+    x = torch.from_numpy(_rng(30 + c).standard_normal((2, rows, c)).astype(np.float32)).to(dev, dt)
+    before = dict(tfg.channel_partials.shapes)
+    got = tfg.channel_partials(x)
+    new = {k: n - before.get(k, 0) for k, n in tfg.channel_partials.shapes.items()
+           if n != before.get(k, 0)}
+    assert new == {f"b=2 rows={rows} c={c} route=sm90": 1}
+    want = tfg.channel_partials_plain(x)
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+    assert torch.equal(tfg.channel_partials(x), got)
+    torch.testing.assert_close(tfg._channel_partials(x, "partials"), want, rtol=1e-3, atol=1e-3)
+    plan = tfg.stats_plan(2, rows, c, x.element_size())
+    chunk = -(-rows // plan.cluster)
+    last = (rows - 1) // chunk
+    wrong = [tfg.channel_partials_plain(x[:, :last * chunk]), want.flip(0)]
+    for w in wrong:
+        assert not torch.allclose(w, want, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_k3_takes_the_partials_kernel_where_c_is_not_a_multiple_of_8():
+    """C = 20 has no plan: the partials kernel and its sum, counted under its
+    route, within 1e-3 of the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    x = torch.from_numpy(_rng(31).standard_normal((2, 90, 20)).astype(np.float32)).cuda()
+    before = dict(tfg.channel_partials.shapes)
+    got = tfg.channel_partials(x)
+    assert tfg.channel_partials.shapes["b=2 rows=90 c=20 route=partials"] == before.get(
+        "b=2 rows=90 c=20 route=partials", 0) + 1
+    torch.testing.assert_close(got, tfg.channel_partials_plain(x), rtol=1e-3, atol=1e-3)

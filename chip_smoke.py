@@ -9,7 +9,8 @@ Phases, each printing its lines:
    source, all at once);
 2. each kernel against its plain PyTorch version on the card, at the
    shapes SD v1.4's UNet, VAE decoder and VAE encoder give it at 512px and
-   at 1024px, and training's (K1 with its row statistics, K9), in float32
+   at 1024px (the UNet's also at batch 1, the two-pass mode's), and
+   training's (K1 with its row statistics, K9), in float32
    and bfloat16: max error against the stated tolerance, the times of the
    kernel, of its plain version and, where one PyTorch call computes the
    same function, of that call (CUDA events), and the least time the card
@@ -64,13 +65,29 @@ Phases, each printing its lines:
    call, every launch on its Hopper route; then an A/B of K10's gate: the
    UNet call's device time in ten pairs of open and closed (in turns), and
    a lone request's latency in three rounds of open, closed, closed,
-   open.
+   open;
+7. (run after phase 4) the command lines at SD v1.4 width and depth
+   (phase 4's weights: init_params, seed 0, f32) in a temporary directory:
+   the weights written once as native, `python -m sdtpu_torch.convert
+   --to-dump` and back and `--to-mpk` and `--mpk` back, every leaf
+   bit-equal, each file's size and each write's and read's seconds printed;
+   `python -m sdtpu_torch.sample dump|native ... --seed 0 --bf16` on the
+   card (the device argument omitted), each PNG byte-equal to an
+   in-process generate in bf16 with the same generator, each run's load
+   and sampling seconds and launches read from its SDTPU_PROFILE=1 report;
+   then the two-pass generate (pad_context=False), its launches those of
+   two UNet calls a step at batch 1 (on their Hopper routes), its image
+   within TWOPASS_MEAN_TOL gray levels (mean) of the batched mode's, a
+   bound that the guidance with uncond and cond swapped and the uncond
+   context used for both calls exceed; and one denoising step's UNet work
+   by device time in both modes, in turns.
 
 It prints a JSON line of per-kernel results, then the card's name and
 power limit, then, last, {"ok": true, "device": {...}}. Any failure
 exits nonzero before that line; there is no CPU fallback. In the JSON
 line `launches` is the sum of the main paths' runs (both generate runs,
-the fine-tuning run with its cache build, and the serve phase), and `ms`, `plain_ms`,
+the CLI phase's two sample processes and two in-process generates, the
+fine-tuning run with its cache build, and the serve phase), and `ms`, `plain_ms`,
 `bound_ms` and `library_ms` are for those launches: each wrapper counts
 its launches per shape as well, and each shape's bfloat16 time (or bound)
 from phase 2 is taken as many times as the runs launched it. A shape
@@ -253,9 +270,11 @@ def kernel_cases(dtype, dev):
 
     cases = []
     # K3: the UNet's ResBlock inputs and skips (1024px) and its transformers'
-    # entry GroupNorm at 64x64 (512px: C=320, 1024px: C=640; the serve
-    # phase's batch of 4 at B=8); the decoder's (the serve phase's at B=4)
+    # entry GroupNorm at 64x64 (512px: C=320, 1024px: C=640; the two-pass
+    # mode's UNet at B=1, the serve phase's batch of 4 at B=8); the
+    # decoder's (the serve phase's at B=4)
     for label, shape in (("64x64x320 B=2", (2, 64, 64, 320)),
+                         ("64x64x320 B=1", (1, 64, 64, 320)),
                          ("64x64x320 B=8", (8, 64, 64, 320)),
                          ("vae 64x64x512 B=4", (4, 64, 64, 512)),
                          ("vae 128x128x512 B=4", (4, 128, 128, 512)),
@@ -270,13 +289,14 @@ def kernel_cases(dtype, dev):
                           PEAK_F32, old=k3_partials))
 
     # K4: proj_in (GroupNorm prologue) and proj_out (residual) at 64x64x320
-    # (512px; B=8 in the serve phase's batch), 128x128x320 and 64x64x640
-    # (1024px)
+    # (512px; B=1 in the two-pass mode, B=8 in the serve phase's batch),
+    # 128x128x320 and 64x64x640 (1024px)
     def k4_wmma(x, w, cb, ps=None, pb=None, residual=None, silu=False, emit_stats=False):
         """K4 on the WMMA kernel its bf16 Hopper kernel replaced."""
         return fused_conv._conv1x1(x, w, cb, ps, pb, residual, silu, emit_stats, "wmma")
 
-    for b, rows, c in ((2, 4096, 320), (2, 16384, 320), (2, 4096, 640), (8, 4096, 320)):
+    for b, rows, c in ((2, 4096, 320), (2, 16384, 320), (2, 4096, 640), (8, 4096, 320),
+                       (1, 4096, 320)):
         xr = rnd(b, rows, c)
         scale, bias = fused_conv.stats_scale_bias(
             fused_groupnorm.channel_partials_plain(xr), rows, rnd(c, scale=0.1) + 1.0,
@@ -297,10 +317,10 @@ def kernel_cases(dtype, dev):
                           library=product, old=k4_wmma))
 
     # K2 at every UNet level of both sizes (the 16x16 middle block at 1024px),
-    # and of the serve phase's batch of 4 (B=8)
+    # of the two-pass mode's batch 1 and of the serve phase's batch of 4 (B=8)
     for b, s, c in ((2, 4096, 320), (2, 1024, 640), (2, 256, 1280), (2, 16384, 320),
-                    (2, 4096, 640), (2, 1024, 1280), (8, 4096, 320), (8, 1024, 640),
-                    (8, 256, 1280)):
+                    (2, 4096, 640), (2, 1024, 1280), (1, 4096, 320), (1, 1024, 640),
+                    (1, 256, 1280), (8, 4096, 320), (8, 1024, 640), (8, 256, 1280)):
         x = rnd(b, s, c)
         args = (x, rnd(c, scale=0.1) + 1.0, rnd(c, scale=0.1),
                 rnd(c, 3 * c, scale=c ** -0.5), rnd(c, c, scale=c ** -0.5),
@@ -318,11 +338,13 @@ def kernel_cases(dtype, dev):
                           fused_transformer.fused_self_attention,
                           fused_transformer.fused_self_attention_plain, args, {},
                           b * (8 * s * c * c + 4 * s * s * c), library=core, old=k2_wmma))
-    # K5 at the UNet's levels below 2048 tokens (both sizes, batch 2 and the
-    # serve phase's 8), and two row counts that are not a multiple of the
-    # Hopper kernel's 128-row tile (no main path launches them)
-    for b, s, c in ((2, 1024, 640), (2, 256, 1280), (2, 1024, 1280), (8, 1024, 640),
-                    (8, 256, 1280), (1, 1000, 640), (3, 333, 1280)):
+    # K5 at the UNet's levels below 2048 tokens (both sizes, batch 2, the
+    # two-pass mode's 1 and the serve phase's 8), and two row counts that are
+    # not a multiple of the Hopper kernel's 128-row tile (no main path
+    # launches them)
+    for b, s, c in ((2, 1024, 640), (2, 256, 1280), (2, 1024, 1280), (1, 1024, 640),
+                    (1, 256, 1280), (8, 1024, 640), (8, 256, 1280), (1, 1000, 640),
+                    (3, 333, 1280)):
         x = rnd(b, s, c)
         args = (x, rnd(c, scale=0.1) + 1.0, rnd(c, scale=0.1),
                 rnd(c, 8 * c, scale=c ** -0.5), rnd(8 * c, scale=0.1),
@@ -1231,6 +1253,12 @@ EXPECTED_LAUNCHES = {
            "upsample2x_conv_fused": 3, "group_norm_silu": 1, "flash_attention_bwd_heads": 0,
            "fused_cross_attention_kv": 0},
 }
+# the two-pass mode at 512px (pad_context=False): two UNet calls a step at
+# batch 1, uncond then cond, so twice 512px's UNet launches (K2 15, K5 10,
+# K4 10 and K3 5 a call) at half the batch; the decode's are the same
+EXPECTED_LAUNCHES["twopass"] = {
+    **EXPECTED_LAUNCHES[512], "channel_partials": 2 * 100 + 3, "conv1x1_fused": 400,
+    "fused_self_attention": 600, "fused_geglu_mlp": 400}
 EXPECTED_X2 = {512: 0, 1024: 60}  # K6 launches with the skip as second input
 
 
@@ -1288,12 +1316,10 @@ def phase_generate(dev, size: int) -> tuple[dict, dict]:
     from sdtpu_torch.ops import fused_conv
     from sdtpu_torch.pipeline import StableDiffusion
     from sdtpu_torch.tokenizer import SimpleTokenizer
-    from sdtpu_torch.weights import init_params
 
     cfg = dataclasses.replace(SD_V1_4, image_size=size)
     t0 = time.perf_counter()
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    params = init_params(cfg, gen, device=dev)
+    params = init_params_on(cfg, dev)
     sd = StableDiffusion(params, cfg, compute_dtype=torch.bfloat16)
     del params
     tok = SimpleTokenizer()
@@ -1483,11 +1509,9 @@ def phase_serve(dev) -> tuple[dict, dict]:
     from sdtpu_torch.profile_kernels import device_ms
     from sdtpu_torch.tokenizer import SimpleTokenizer
     from sdtpu_torch.utils.image import decode_png_rgb8, encode_png_rgb8
-    from sdtpu_torch.weights import init_params
 
     cfg = SD_V1_4
-    sd = StableDiffusion(init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
-                                     device=dev), cfg, compute_dtype=torch.bfloat16)
+    sd = StableDiffusion(init_params_on(cfg, dev), cfg, compute_dtype=torch.bfloat16)
     tok = SimpleTokenizer()
     lora = random_lora(unfuse_qkv(sd.params["unet"]), 4,
                        torch.Generator(device=dev).manual_seed(SEED + 2))
@@ -1711,7 +1735,6 @@ def phase_train(dev) -> tuple[dict, dict]:
     from sdtpu_torch.tokenizer import SimpleTokenizer
     from sdtpu_torch.training import make_optimizer, make_train_step, master_params
     from sdtpu_torch.utils.image import save_png
-    from sdtpu_torch.weights import init_params
 
     fns = wrappers()
 
@@ -1736,8 +1759,7 @@ def phase_train(dev) -> tuple[dict, dict]:
             save_png(img.numpy(), os.path.join(data, f"img{i}.png"))
             with open(os.path.join(data, f"img{i}.txt"), "w") as f:
                 f.write(f"a synthetic picture, number {i}")
-        sd = StableDiffusion(init_params(SD_V1_4, torch.Generator(device=dev).manual_seed(0),
-                                         device=dev), SD_V1_4, compute_dtype=torch.bfloat16)
+        sd = StableDiffusion(init_params_on(SD_V1_4, dev), SD_V1_4, compute_dtype=torch.bfloat16)
         torch.cuda.synchronize()
 
         marks = {"steps": []}
@@ -1831,6 +1853,336 @@ def phase_train(dev) -> tuple[dict, dict]:
             {n: {k: cache[1][n].get(k, 0) + train[1][n].get(k, 0)
                  for k in set(cache[1][n]) | set(train[1][n])} for n in fns})
 
+# the CLI phase: SD v1.4 at 512px from model files, bf16, 20 DDIM steps, CFG
+# 7.5, seed 0, through `python -m sdtpu_torch.sample` and `.convert`
+CLI_PROMPT, CLI_STEPS, CLI_SCALE = "An ancient mossy stone.", 20, 7.5
+CLI_MIN_FREE = 10 * 1024 ** 3  # two 4.3 GB copies of the weights at once, and room
+# the two-pass image against the batched mode's: the mean |difference| over
+# its pixels, in gray levels (bf16 rounding at other places, batch 1 against
+# 2 and 2 or N keys against 77 masked, through 20 steps of CFG 7.5; measured
+# on an H100: 0.574, max 5). The planted faults (the guidance with uncond
+# and cond swapped, the uncond context for both calls) must exceed it
+# (measured: 25.1 and 14.1)
+TWOPASS_MEAN_TOL = 2.0
+
+
+def run_module(label: str, args: list, env: dict) -> tuple[str, float, float]:
+    """`python -m <args>` from the repository's root, to its end: (its
+    output, wall seconds, its peak resident memory in GiB, or None where
+    /proc shows none). The peak is the largest of the process's VmHWM and
+    resident size (/proc/<pid>/status, /proc/<pid>/statm), read every 0.1 s
+    while it runs: wait4's ru_maxrss would count this process's memory,
+    which the child holds between fork and exec. Fails if it exits
+    nonzero."""
+    import os
+    import tempfile
+
+    import sdtpu_torch
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(sdtpu_torch.__file__)))
+    page_kb = os.sysconf("SC_PAGE_SIZE") // 1024
+    peak_kb = 0
+    with tempfile.TemporaryFile() as out:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", *args], cwd=root, env=env, stdout=out,
+                                stderr=subprocess.STDOUT)
+        while proc.poll() is None:
+            try:
+                with open(f"/proc/{proc.pid}/statm") as f:
+                    peak_kb = max(peak_kb, int(f.read().split()[1]) * page_kb)
+                with open(f"/proc/{proc.pid}/status") as f:
+                    peak_kb = max([peak_kb] + [int(ln.split()[1]) for ln in f
+                                               if ln.startswith("VmHWM:")])
+            except (OSError, ValueError, IndexError):
+                pass
+            time.sleep(0.1)
+        wall = time.perf_counter() - t0
+        out.seek(0)
+        text = out.read().decode(errors="replace")
+    if proc.returncode:
+        fail(f"{label}: `python -m {' '.join(args)}` exited {proc.returncode}:\n{text[-3000:]}")
+    return text, wall, (peak_kb / 1024 ** 2 if peak_kb else None)
+
+
+def _gib(gib) -> str:
+    return "not measured" if gib is None else f"{gib:.2f} GiB"
+
+
+def _tree_bytes(path: str) -> int:
+    import os
+
+    if os.path.isfile(path):
+        return os.path.getsize(path)
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def phase_cli(dev, tf32_defaults) -> tuple[dict, dict]:
+    """Phase 7: the command lines at SD v1.4 width and depth, random weights
+    (init_params, seed 0, f32, the weights of phase 4), in a temporary
+    directory deleted at the end. The weights are written once as native;
+    `python -m sdtpu_torch.convert --to-dump` and back, then `--to-mpk` and
+    `--mpk` back, must give every leaf bit-equal (the dump's and the mpk's
+    reads also timed in this process; each conversion back replaces the
+    native file, so two copies of the weights at most are on disk); `python -m sdtpu_torch.sample dump|native ... --seed 0
+    --bf16` (the device argument omitted: the card) must write the PNG bytes
+    of an in-process generate in bf16 with the same generator, each run's
+    load and sampling seconds and launches read from its SDTPU_PROFILE=1
+    report (launches as generate 512's, on their Hopper routes). Then the
+    two-pass generate (pad_context=False): its launches those of two UNet
+    calls a step at batch 1, and its image within TWOPASS_MEAN_TOL of the
+    batched mode's, which the planted faults exceed. tf32_defaults: the
+    (matmul, cuDNN) TF32 switches a fresh process has, which the CLI's
+    processes run with and the in-process generates are given. Returns the
+    launch counts of the CLI runs and the in-process generates, per kernel
+    and per kernel and shape."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from sdtpu_torch.config import SD_V1_4
+    from sdtpu_torch.io.mpk import load_mpk
+    from sdtpu_torch.io.native import flatten_tree, load_native, save_native
+    from sdtpu_torch.io.npy_tree import load_stable_diffusion_dump
+    from sdtpu_torch.models.unet import unet_apply
+    from sdtpu_torch.pipeline import StableDiffusion
+    from sdtpu_torch.profile_kernels import device_ms
+    from sdtpu_torch.tokenizer import SimpleTokenizer
+    from sdtpu_torch.utils.image import encode_png_rgb8
+
+    t_phase = time.perf_counter()
+    cfg, gb, gib = SD_V1_4, 1e9, 1024 ** 3
+    params = init_params_on(cfg, dev)
+    fns = wrappers()
+    launches = {name: 0 for name in KERNEL_INFO}
+    shapes = {name: {} for name in KERNEL_INFO}
+
+    def add(run_launches, run_shapes):
+        for name in KERNEL_INFO:
+            launches[name] += run_launches.get(name, 0)
+            for key, n in run_shapes.get(name, {}).items():
+                shapes[name][key] = shapes[name].get(key, 0) + n
+
+    flat = flatten_tree(params)
+
+    def leaves_differ(tree) -> list:
+        """The keys whose leaves are not bit-equal to the weights'."""
+        got = flatten_tree(tree)
+        bad = sorted(set(got) ^ set(flat))
+        for k, want in flat.items():
+            if k not in got:
+                continue
+            g = got[k]
+            if torch.is_tensor(want):
+                g = torch.as_tensor(g).to(want.device)
+                if g.dtype != want.dtype or not torch.equal(g, want):
+                    bad.append(k)
+            elif g != want:
+                bad.append(k)
+        return bad
+
+    def fired(counts):
+        return {n: k for n, k in counts.items() if k}
+
+    env = {**os.environ, "SDTPU_PROFILE": "1"}
+    bad = []
+    pngs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        free = shutil.disk_usage(tmp).free
+        print(f"cli: temporary directory {tmp}, {free / gb:.1f} GB free", flush=True)
+        if free < CLI_MIN_FREE:
+            fail(f"the CLI phase needs {CLI_MIN_FREE / gb:.0f} GB free in {tmp}, "
+                 f"{free / gb:.1f} GB there")
+        native = os.path.join(tmp, "sd.safetensors")
+        t0 = time.perf_counter()
+        save_native(params, native, cfg)
+        print(f"cli write native (save_native, in process): {time.perf_counter() - t0:.2f} s, "
+              f"{_tree_bytes(native) / gb:.3f} GB | {card_line()}", flush=True)
+        t0 = time.perf_counter()
+        back, _ = load_native(native, device="cpu")
+        print(f"cli read native (load_native to the host, in process): "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        del back
+
+        def convert(label, *args):
+            out, wall, rss = run_module(label, ["sdtpu_torch.convert", *args], env)
+            print(f"cli {label}: {wall:.2f} s of wall, peak resident {_gib(rss)} "
+                  f"| {card_line()}", flush=True)
+
+        def round_trip(label, back_args):
+            """Convert back to the native file (removed while the other
+            format holds the weights, so at most two copies are on disk)
+            and check every leaf against the weights."""
+            os.remove(native)
+            convert(label, *back_args, native[:-len(".safetensors")])
+            got, got_cfg = load_native(native, device=dev)
+            diff = leaves_differ(got)
+            print(f"cli {label}: {len(flat)} leaves, config {got_cfg.name}, bit-equal to the "
+                  f"weights: {not diff and got_cfg == cfg}", flush=True)
+            if diff or got_cfg != cfg:
+                bad.append(f"{label}: leaves differ {diff[:5]} (config {got_cfg.name})")
+            del got
+
+        def sample(fmt, model):
+            prefix = os.path.join(tmp, f"img_{fmt}")
+            out, wall, rss = run_module(
+                f"sample {fmt}", ["sdtpu_torch.sample", fmt, model, str(CLI_SCALE),
+                                  str(CLI_STEPS), CLI_PROMPT, prefix, "--seed", str(SEED),
+                                  "--bf16"], env)
+            report = json.loads([ln for ln in out.splitlines() if ln.startswith("{")][-1])
+            ph = report["phases"]
+            kern = report["kernels"]
+            run_launches = {n: kern.get(n, {}).get("launches", 0) for n in KERNEL_INFO}
+            run_shapes = {n: kern.get(n, {}).get("shapes", {}) for n in KERNEL_INFO}
+            print(f"cli sample {fmt} (device {report['device']}): load_model {ph['load_model']:.2f}"
+                  f" s, sampling {report['sampling_s']:.2f} s (encode_prompt "
+                  f"{ph['encode_prompt']:.3f}, denoise {ph['denoise']:.3f}, decode "
+                  f"{ph['decode']:.3f}), process wall {wall:.2f} s, peak resident {_gib(rss)}; "
+                  f"launches {fired(run_launches)} | {card_line()}", flush=True)
+            if report["device"] != "cuda:0":
+                bad.append(f"sample {fmt} ran on {report['device']}")
+            if run_launches != EXPECTED_LAUNCHES[512]:
+                bad.append(f"sample {fmt} launched {run_launches}")
+            check_routes(f"cli sample {fmt}", run_shapes, {})
+            add(run_launches, run_shapes)
+            with open(prefix + "0.png", "rb") as f:
+                pngs[fmt] = f.read()
+
+        # the npy dump tree; each in-process read is timed, and its leaves
+        # are checked by the round trip, whose conversion reads them alike
+        dump = os.path.join(tmp, "dump")
+        convert("convert --to-dump", "--to-dump", native, dump)
+        n_files = sum(len(fs) for _, _, fs in os.walk(dump))
+        t0 = time.perf_counter()
+        tree = load_stable_diffusion_dump(dump, cfg)
+        read_s = time.perf_counter() - t0
+        del tree
+        print(f"cli dump tree: {n_files} files, {_tree_bytes(dump) / gb:.3f} GB; read "
+              f"(load_stable_diffusion_dump, in process) {read_s:.2f} s", flush=True)
+        round_trip("convert dump -> native", [dump])
+        sample("dump", dump)
+        shutil.rmtree(dump)
+        sample("native", native)
+
+        # the Burn mpk
+        mpk = os.path.join(tmp, "sd.mpk")
+        convert("convert --to-mpk", "--to-mpk", native, mpk)
+        t0 = time.perf_counter()
+        tree = load_mpk(mpk)
+        read_s = time.perf_counter() - t0
+        del tree
+        print(f"cli mpk: {_tree_bytes(mpk) / gb:.3f} GB; read (load_mpk, in process) "
+              f"{read_s:.2f} s", flush=True)
+        round_trip("convert --mpk -> native", ["--mpk", mpk])
+        os.remove(mpk)
+        print(f"cli files done in {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # in process, with the TF32 switches the CLI's processes had
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32_defaults
+    try:
+        tok = SimpleTokenizer()
+        sd = StableDiffusion(params, cfg, compute_dtype=torch.bfloat16)
+        del params, flat
+        torch.cuda.synchronize()
+
+        def generate(pipe, label, expected):
+            for f in fns.values():
+                f.launches, f.shapes = 0, {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            images = pipe.generate(tok, CLI_PROMPT, CLI_SCALE, CLI_STEPS,
+                                   generator=torch.Generator(device=dev).manual_seed(SEED))
+            wall = time.perf_counter() - t0
+            run_launches = {n: f.launches for n, f in fns.items()}
+            run_shapes = {n: dict(f.shapes) for n, f in fns.items()}
+            print(f"cli {label}: wall {wall:.3f} s (encode_prompt "
+                  f"{pipe.timings['encode_prompt']:.3f}, denoise {pipe.timings['denoise']:.3f}, "
+                  f"decode {pipe.timings['decode']:.3f}); launches {fired(run_launches)} "
+                  f"expected {fired(expected)}", flush=True)
+            if run_launches != expected:
+                bad.append(f"{label} launched {run_launches}")
+            check_routes(f"cli {label}", run_shapes, {})
+            add(run_launches, run_shapes)
+            return images
+
+        padded = generate(sd, "generate (batched CFG, in process)", EXPECTED_LAUNCHES[512])
+        png = encode_png_rgb8(padded[0])
+        same = {fmt: data == png for fmt, data in pngs.items()}
+        print(f"cli sample dump / native PNGs byte-equal to the in-process generate: {same}",
+              flush=True)
+        if not all(same.values()):
+            bad.append(f"the CLI's PNGs differ from generate(): {same}")
+
+        twopass = StableDiffusion(sd.params, cfg, compute_dtype=torch.bfloat16,
+                                  pad_context=False)
+        two = generate(twopass, "generate two-pass (pad_context=False)",
+                       EXPECTED_LAUNCHES["twopass"])
+
+        def distance(img):
+            d = (torch.from_numpy(img).float() - torch.from_numpy(padded).float()).abs()
+            return float(d.mean()), int(d.max())
+
+        ctx, _ = twopass.context(tok, CLI_PROMPT)
+        unctx, _ = twopass.context(tok, "")
+        faults = {}
+        for label, (c, u) in {"uncond and cond swapped": (unctx, ctx),
+                              "the uncond context for both calls": (unctx, unctx)}.items():
+            faults[label] = distance(twopass.sample_image(
+                c, u, CLI_SCALE, CLI_STEPS,
+                generator=torch.Generator(device=dev).manual_seed(SEED)))
+        mean, peak = distance(two)
+        print(f"cli two-pass image against the batched mode's: mean |difference| {mean:.4f} "
+              f"gray levels (tol {TWOPASS_MEAN_TOL}), max {peak}; planted faults: "
+              + ", ".join(f"{k} mean {m:.4f} max {p}" for k, (m, p) in faults.items()),
+              flush=True)
+        if mean > TWOPASS_MEAN_TOL:
+            bad.append(f"the two-pass image is {mean:.4f} gray levels from the batched one")
+        loose = [k for k, (m, _) in faults.items() if m <= TWOPASS_MEAN_TOL]
+        if loose:
+            bad.append(f"the two-pass bound passes the planted faults {loose}")
+
+        # one denoising step's UNet work by device time (CUDA-graph replay),
+        # in turns: the batched call at batch 2 over 77 masked keys, and the
+        # two-pass mode's two calls at batch 1 over the contexts' own keys
+        pctx, pvalid = sd.context(tok, CLI_PROMPT)
+        punctx, punvalid = sd.context(tok, "")
+        ctx2, valid2 = torch.cat([punctx, pctx]), torch.cat([punvalid, pvalid])
+        hw = cfg.latent_size
+        x1 = torch.randn((1, hw, hw, 4), generator=torch.Generator(device=dev).manual_seed(SEED),
+                         device=dev).to(torch.bfloat16)
+        x2, t500, unet = torch.cat([x1, x1]), torch.tensor([500.0], device=dev), sd.params["unet"]
+        steps = {"batched": lambda: unet_apply(unet, x2, t500, ctx2, cfg.unet, ctx_valid=valid2),
+                 "two-pass": lambda: (unet_apply(unet, x1, t500, unctx, cfg.unet),
+                                      unet_apply(unet, x1, t500, ctx, cfg.unet))}
+        step_ms = {"batched": [], "two-pass": []}
+        for mode in ("batched", "two-pass", "two-pass", "batched"):
+            step_ms[mode].append(device_ms(steps[mode], iters=5))
+        b_ms, t_ms = (sum(step_ms[m]) / 2 for m in ("batched", "two-pass"))
+        print(f"cli a denoising step's UNet device ms, in turns batched / two-pass / two-pass / "
+              f"batched: {step_ms['batched'][0]:.4f} / {step_ms['two-pass'][0]:.4f} / "
+              f"{step_ms['two-pass'][1]:.4f} / {step_ms['batched'][1]:.4f}: two-pass "
+              f"{t_ms:.4f} against batched {b_ms:.4f} ({t_ms / b_ms:.2f}x), 20 steps "
+              f"{20 * t_ms:.1f} against {20 * b_ms:.1f} ms | {card_line()}", flush=True)
+        del sd, twopass
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    print(f"cli phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    if bad:
+        fail("the CLI phase: " + "; ".join(bad))
+    return launches, shapes
+
+
+def init_params_on(cfg, dev):
+    """SD v1.4's random weights of phases 4 and 7: init_params, seed SEED,
+    f32, on the card."""
+    import torch
+
+    from sdtpu_torch.weights import init_params
+
+    return init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+
 
 def main() -> None:
     import torch
@@ -1841,6 +2193,7 @@ def main() -> None:
         import sdtpu_torch  # noqa: F401
     except ImportError:
         fail("sdtpu_torch is not importable: run from the root of the repository")
+    tf32_defaults = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -1865,12 +2218,14 @@ def main() -> None:
     phase_decode(dev)
     phase_resblock(dev)
     phase_grad(dev)
-    # phases 4 to 6: the main paths, generate at 512px and at 1024px, the
-    # server at 512px, then fine-tuning at 512px
+    # phases 4 to 7: the main paths, generate at 512px and at 1024px, the
+    # command lines at 512px from each weight format and the two-pass
+    # generate, the server at 512px, then fine-tuning at 512px
     launches = {name: 0 for name in KERNEL_INFO}
     shapes = {name: {} for name in KERNEL_INFO}
     for run in (lambda: phase_generate(dev, 512), lambda: phase_generate(dev, 1024),
-                lambda: phase_serve(dev), lambda: phase_train(dev)):
+                lambda: phase_cli(dev, tf32_defaults), lambda: phase_serve(dev),
+                lambda: phase_train(dev)):
         run_launches, run_shapes = run()
         for name in KERNEL_INFO:
             launches[name] += run_launches[name]

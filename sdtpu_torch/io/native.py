@@ -7,7 +7,8 @@ header length, a JSON header mapping each key to its `dtype`, `shape` and
 `data_offsets` (plus `__metadata__`, string values only), padded with
 spaces to a multiple of 8 bytes, then the raw little-endian bytes of every
 tensor back to back (save_safetensors / load_safetensors, which the LoRA
-files of sdtpu_torch.lora use too). The metadata keys are sdtpu's (`format`, `config`,
+files of sdtpu_torch.lora and the concept files of
+sdtpu_torch.textual_inversion use too). The metadata keys are sdtpu's (`format`, `config`,
 `config_json`, `scalars`), so each package reads the other's files; the
 version field names the port. 0-d leaves (`n_steps`) are kept in the
 metadata as scalars, as sdtpu keeps them. bf16 leaves are written as BF16,

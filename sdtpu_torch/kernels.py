@@ -190,14 +190,19 @@ def ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 
 
+# the wrappers that have launched in this process, by name (see count)
+LAUNCHED: dict = {}
+
+
 def count(wrapper, **dims) -> None:
     """Record one launch of wrapper's kernel: wrapper.launches += 1, and one
     more in wrapper.shapes under the dimensions that set the launch's work
     ("b=2 s=4096 c=320 ..."), so that a run can be told which shapes it
-    launched and how often."""
+    launched and how often; the wrapper joins LAUNCHED."""
     wrapper.launches += 1
     key = " ".join(f"{k}={v}" for k, v in dims.items())
     wrapper.shapes[key] = wrapper.shapes.get(key, 0) + 1
+    LAUNCHED[wrapper.__name__] = wrapper
 
 
 def gemm(a, w, out, *, M: int, N: int, K: int, batch: int = 1,

@@ -2,8 +2,10 @@
 
 Classifier-free guidance runs the uncond/cond pair as one batched UNet call
 on contexts right-padded to n_ctx, the padded keys masked out of
-cross-attention by ctx_valid (sdtpu's pad_context=True). sdtpu's two-call
-parity mode on unpadded contexts (pad_context=False) is not ported. The
+cross-attention by ctx_valid (sdtpu's default, pad_context=True). With
+pad_context=False the contexts are not padded and each step runs two UNet
+calls, uncond then cond, on the unpadded contexts with no key mask: sdtpu's
+two-pass mode, the reference's own variable-length behaviour. The
 five samplers are sdtpu's: ddim, dpmpp (DPM-Solver++ 2M), euler, euler_a
 (ancestral) and heun, the last four also on the Karras sigma ladder
 (karras_sigmas), each with per-item guidance scales and negative prompts.
@@ -33,6 +35,7 @@ from sdtpu_torch.diffusion.karras import (euler_ancestral_step, euler_step, heun
 from sdtpu_torch.models.clip import clip_apply
 from sdtpu_torch.models.unet import fuse_qkv, unet_apply
 from sdtpu_torch.models.vae import decode_latent, encode_image, upsample_phase_stacks
+from sdtpu_torch.utils import profiling
 
 SAMPLERS = ("ddim", "dpmpp", "euler", "euler_a", "heun")
 
@@ -60,12 +63,16 @@ class StableDiffusion:
     n_steps} (tensors on one device, see sdtpu_torch.weights) and runs the
     pipeline on that device.
 
+    pad_context: True, the batched guidance on padded contexts; False,
+    sdtpu's two-pass mode (see the module docstring).
+
     After generate(), `timings` holds the wall seconds of its phases
-    (encode_prompt, denoise, decode), each ended by a device synchronise.
+    (encode_prompt, denoise, decode), each ended by a device synchronise;
+    they are added to utils.profiling.REGISTRY as well.
     """
 
     def __init__(self, params, config: StableDiffusionConfig = SD_V1_4,
-                 compute_dtype=torch.float32):
+                 compute_dtype=torch.float32, pad_context: bool = True):
         if config.prediction_type != "epsilon":
             raise NotImplementedError(
                 f"{config.name}: only epsilon-prediction models are ported "
@@ -77,6 +84,7 @@ class StableDiffusion:
         self.vae_phases = upsample_phase_stacks(params["autoencoder"])
         self.config = config
         self.compute_dtype = compute_dtype
+        self.pad_context = pad_context
         self.n_train_steps = int(params.get("n_steps", config.n_train_steps))
         self.device = params["alphas_cumprod"].device
         self.timings: dict = {}
@@ -84,17 +92,24 @@ class StableDiffusion:
     # ---------------------------------------------------------- context
 
     def context(self, tokenizer, text: str):
-        """Prompt -> (context [1, n_ctx, n_state], valid [1, n_ctx] bool):
-        SOT/EOT wrap, truncation keeping EOT last, and a right pad to n_ctx
-        whose keys `valid` marks invalid."""
-        ids = tokenizer.encode_prompt(text)
+        """Prompt -> (context [1, S, n_state], valid [1, S] bool) of its
+        SOT/EOT-wrapped ids (encode_ids)."""
+        return self.encode_ids(tokenizer.encode_prompt(text))
+
+    def encode_ids(self, ids, clip_params=None):
+        """SOT/EOT-wrapped token ids -> (context [1, S, n_state], valid
+        [1, S] bool) through CLIP (self's, or clip_params): truncation
+        keeping EOT last, and, with pad_context, a right pad to S = n_ctx
+        whose keys `valid` marks invalid (else S is the prompt's own
+        length)."""
         n_ctx = self.config.clip.n_ctx
         if len(ids) > n_ctx:
             ids = ids[: n_ctx - 1] + [ids[-1]]
         n_valid = len(ids)
-        ids = ids + [0] * (n_ctx - len(ids))
+        if self.pad_context:
+            ids = ids + [0] * (n_ctx - len(ids))
         tokens = torch.tensor([ids], dtype=torch.long, device=self.device)
-        ctx = clip_apply(self.params["clip"], tokens, self.config.clip)
+        ctx = clip_apply(clip_params or self.params["clip"], tokens, self.config.clip)
         valid = torch.arange(len(ids), device=self.device)[None, :] < n_valid
         return ctx.to(self.compute_dtype), valid
 
@@ -112,9 +127,12 @@ class StableDiffusion:
                       sampler: str = "ddim", skip_steps: int = 0,
                       karras_sigmas: bool = False, known_latent=None, known_mask=None,
                       draw_noise: Optional[Callable] = None):
-        """sdtpu's sampler (sdtpu/pipeline.py:68-280) with batched
-        classifier-free guidance. context: [B, S, D]; the unconditional
-        context is [1, S', D] (broadcast to B) or already [B, S', D].
+        """sdtpu's sampler (sdtpu/pipeline.py:68-280): classifier-free
+        guidance as one batched UNet call, or as two (uncond, then cond)
+        without pad_context. context: [B, S, D]; the unconditional context
+        is [1, S', D] (broadcast to B) or already [B, S', D]. ctx_valid and
+        uncond_valid: the key masks, or None (no mask); the two-pass mode
+        reads none (its contexts are unpadded, as sdtpu's).
         unconditional_guidance_scale: a float, or [B] per-item scales.
         initial_latent: [B, h, w, 4] NHWC, drawn N(0, 1) when None.
         sampler: ddim | dpmpp | euler | euler_a | heun; karras_sigmas puts
@@ -149,17 +167,22 @@ class StableDiffusion:
         if scale.ndim == 1:  # per-item guidance (serving batches)
             scale = scale[:, None, None, None]
         uncond_b = unconditional_context.expand((b,) + unconditional_context.shape[1:])
-        ctx2 = torch.cat([uncond_b, context], dim=0)
-        valid2 = None
-        if ctx_valid is not None:
-            valid2 = torch.cat([uncond_valid.expand((b,) + uncond_valid.shape[1:]), ctx_valid],
-                               dim=0)
+        if self.pad_context:
+            ctx2 = torch.cat([uncond_b, context], dim=0)
+            valid2 = (None if ctx_valid is None else torch.cat(
+                [uncond_valid.expand((b,) + uncond_valid.shape[1:]), ctx_valid], dim=0))
 
-        def denoise(x, t):
-            eps2 = unet_apply(unet, torch.cat([x, x], dim=0).to(dt), t, ctx2, cfg.unet,
-                              ctx_valid=valid2).float()
-            e_un, e_c = eps2[:b], eps2[b:]
-            return e_un + (e_c - e_un) * scale
+            def denoise(x, t):
+                eps2 = unet_apply(unet, torch.cat([x, x], dim=0).to(dt), t, ctx2, cfg.unet,
+                                  ctx_valid=valid2).float()
+                e_un, e_c = eps2[:b], eps2[b:]
+                return e_un + (e_c - e_un) * scale
+        else:
+            def denoise(x, t):  # sdtpu's parity_two_pass
+                x = x.to(dt)
+                e_un = unet_apply(unet, x, t, uncond_b, cfg.unet).float()
+                e_c = unet_apply(unet, x, t, context, cfg.unet).float()
+                return e_un + (e_c - e_un) * scale
 
         inpaint = known_latent is not None
         if inpaint:
@@ -285,6 +308,8 @@ class StableDiffusion:
         images = self.latent_to_image(latent)
         t3 = time.perf_counter()
         self.timings = {"encode_prompt": t1 - t0, "denoise": t2 - t1, "decode": t3 - t2}
+        for name, seconds in self.timings.items():
+            profiling.REGISTRY.add(name, seconds)
         return images
 
     def _prompt_pair(self, tokenizer, prompt: str, negative_prompt: str, b: int):

@@ -3,8 +3,8 @@ sdtpu/serve.py): a stdlib ThreadingHTTPServer over one StableDiffusion, a
 micro-batcher for /generate, warm-up before it reports ready, JSON in and
 base64 PNGs out.
 
-    python -m sdtpu_torch.serve native sd.safetensors --port 8000 --bf16 \\
-        [--steps N] [--lora name=adapter.safetensors,...]
+    python -m sdtpu_torch.serve <burn|dump|native|ckpt> <model> --port 8000 --bf16 \\
+        [--steps N] [--preset P] [--lora name=adapter.safetensors,...]
     curl -X POST localhost:8000/generate \\
          -d '{"prompt": "an ancient mossy stone", "steps": 20, "seed": 1}'
     # -> {"images": ["<base64 png>"], "latency_s": ..., "images_per_sec": ...}
@@ -26,8 +26,12 @@ on the same card. Without a seed the generator is seeded from the clock.
 
 The server's state (pipeline, tokenizer, batcher) belongs to the server
 object make_server returns; server_close() also stops the batcher's
-threads. main() serves a native checkpoint on the card; the other model
-formats of sdtpu's CLI are not ported (ROADMAP queue 1, item 12).
+threads. main() serves a model file of any of the CLI's types on the card
+(sdtpu_torch.cli.load_model; --preset names a dump's, ckpt's or mpk's
+configuration). A pipeline without pad_context batches only requests
+whose prompts, and whose negative prompts, have one token count, since
+their unpadded contexts stack only at one length (sdtpu's batcher keys on
+neither and fails such a batch).
 """
 
 from __future__ import annotations
@@ -133,7 +137,8 @@ class Batcher:
                 tree, scale = self.loras[lora]
                 eff = dict(self.sd.params)
                 eff["unet"] = apply_lora(unfuse_qkv(self.sd.params["unet"]), tree, scale)
-                sd = StableDiffusion(eff, self.sd.config, compute_dtype=self.sd.compute_dtype)
+                sd = StableDiffusion(eff, self.sd.config, compute_dtype=self.sd.compute_dtype,
+                                     pad_context=self.sd.pad_context)
                 self._lora_sd[lora] = sd
             return sd
 
@@ -167,10 +172,16 @@ class Batcher:
 
     # ------------------------------------------------------------ worker
 
-    @staticmethod
-    def _key(it):
-        # (n_steps, sampler, karras, lora): what one device batch shares
-        return (it[1], it[6], it[7], it[8])
+    def _key(self, it):
+        """What one device batch shares: (n_steps, sampler, karras, lora),
+        and without pad_context the token counts of the prompt and of the
+        negative prompt, since unpadded contexts stack only at one length."""
+        key = (it[1], it[6], it[7], it[8])
+        if self.sd.pad_context:
+            return key
+        n_ctx = self.sd.config.clip.n_ctx
+        return key + tuple(min(len(self.tokenizer.encode_prompt(p)), n_ctx)
+                           for p in (it[0], it[5]))
 
     def _collect(self):
         """The next batch's items ([] when every one was abandoned), or None
@@ -506,11 +517,11 @@ def make_server(sd, tokenizer, port: int = 8000, warmup: bool = True,
 
 def main(argv=None):
     argv = list(sys.argv if argv is None else argv)
-    port, steps, bf16, lora_spec = 8000, 20, False, None
+    port, steps, preset, bf16, lora_spec = 8000, 20, "sd-v1-4", False, None
 
     def usage():
-        print(f"Usage: {argv[0]} native <model.safetensors> [--port N] [--steps N] [--bf16]"
-              " [--lora name=A.safetensors,...]", file=sys.stderr)
+        print(f"Usage: {argv[0]} <model_type> <model> [--port N] [--steps N] [--preset P]"
+              " [--bf16] [--lora name=A.safetensors,...]", file=sys.stderr)
         sys.exit(1)
 
     def val(i):  # the value of a --flag; a bare trailing flag prints the usage
@@ -528,6 +539,9 @@ def main(argv=None):
         elif a == "--steps":
             steps = int(val(i))
             i += 2
+        elif a == "--preset":
+            preset = val(i)
+            i += 2
         elif a == "--lora":
             lora_spec = val(i)
             i += 2
@@ -539,17 +553,14 @@ def main(argv=None):
             i += 1
     if len(pos) != 3:
         usage()
-    if pos[1] != "native":
-        raise ValueError(f"model type {pos[1]!r}: the port serves sdtpu's native "
-                         f"checkpoints only (the other formats are ROADMAP queue 1, item 12)")
 
-    from sdtpu_torch.io.native import load_native
+    from sdtpu_torch.cli import _select_device, load_model
     from sdtpu_torch.tokenizer import SimpleTokenizer
 
     print("Loading model...", flush=True)
-    params, cfg = load_native(pos[2], device="cuda")
-    sd = StableDiffusion(params, cfg,
-                         compute_dtype=torch.bfloat16 if bf16 else torch.float32)
+    sd = load_model(pos[1], pos[2], preset,
+                    compute_dtype=torch.bfloat16 if bf16 else torch.float32,
+                    device=_select_device(None))
     loras = load_loras(lora_spec, sd.device) if lora_spec else None
     if loras:
         print(f"Loaded LoRA adapters: {sorted(loras)}", flush=True)

@@ -41,6 +41,17 @@ def save_png(img: np.ndarray, path: str) -> None:
         f.write(encode_png_rgb8(np.ascontiguousarray(img)))
 
 
+def save_images(images, basepath: str) -> list:
+    """Write {basepath}{i}.png for each image of the batch (the reference's
+    naming, as sdtpu's save_images). Returns the written paths."""
+    paths = []
+    for i, img in enumerate(images):
+        path = f"{basepath}{i}.png"
+        save_png(np.asarray(img), path)
+        paths.append(path)
+    return paths
+
+
 def decode_png_rgb8(data: bytes) -> np.ndarray:
     """Minimal PNG reader (8-bit RGB, non-interlaced, filters 0-4): the
     dataset's images and the golden artifacts."""

@@ -33,6 +33,15 @@ def from_numpy_tree(tree, device="cuda", dtype=torch.float32):
     return t.to(device)
 
 
+def to_numpy(leaf) -> np.ndarray:
+    """A tensor (on any device; bf16 widened to f32, which numpy lacks) or
+    an array-like -> a numpy array on the host."""
+    if torch.is_tensor(leaf):
+        t = leaf.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return np.asarray(leaf)
+
+
 class Init:
     """Draws parameters from one torch.Generator, on the generator's
     device, then moves them to `device` in `dtype`."""

@@ -237,13 +237,19 @@ def _routes(fn):
     (8, 256, 1280, 77, True),
     (1, 200, 320, 128, False),  # a ragged query tile, one full key tile; kt contiguous
     (3, 333, 640, 5, True),     # a single ragged key tile
+    # the two-pass mode's UNet calls (batch 1): the empty prompt's 2 keys and
+    # a prompt's own 9, unpadded
+    (1, 4096, 320, 2, True),
+    (1, 1024, 640, 9, True),
+    (1, 256, 1280, 2, True),
 ])
 def test_k10_sm90_matches_plain_on_card(b, s, c, sk, view, masked):
     """K10's bf16 route against the plain version: the sublayer within a few
     bf16 ulps (6e-2), the attention term within 2^-6 of its largest
     |reference| + 2^-7 of |out| (what chip_smoke.py holds it to), which a
-    term 3 % small and, masked, the unmasked result fail; the same bits on
-    a second call; the WMMA route in bf16 within the same tolerances."""
+    term 3 % small and, where the mask hides a key, the unmasked result
+    fail; the same bits on a second call; the WMMA route in bf16 within the
+    same tolerances."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     dev, dt = torch.device("cuda"), torch.bfloat16
@@ -272,7 +278,7 @@ def test_k10_sm90_matches_plain_on_card(b, s, c, sk, view, masked):
         torch.testing.assert_close(out.float(), want.float(), rtol=6e-2, atol=6e-2)
         assert _term_within(out, want, x, frac, rtol)
     assert not _term_within(x.float() + 0.97 * (want.float() - x.float()), want, x, frac, rtol)
-    if masked:
+    if masked and not bool(valid.all()):  # a mask over 2 keys at b = 1 hides none
         unmasked = tfx.fused_cross_attention_kv_plain(*args, None, 8)
         assert not _term_within(unmasked, got, x, frac, rtol)
     assert torch.equal(fn(*args, key_valid=valid, n_head=8), got)

@@ -3,8 +3,9 @@ tests/test_pipeline.py on the CPU, driven through its socket as
 tests/test_serve.py drives sdtpu's: healthz, a generate round trip, 400s,
 concurrent batching, mixed samplers, karras, the image endpoints, 503 and
 504, the context cache, LoRA adapters (a request, an unknown name, the
-merged-pipeline cache, the --lora spec), and a lone seeded request against
-StableDiffusion.generate with the same seed.
+merged-pipeline cache, the --lora spec), a lone seeded request against
+StableDiffusion.generate with the same seed, and the two-pass mode's
+batches (one token count each).
 """
 
 import base64
@@ -318,7 +319,8 @@ def test_load_loras_spec(tmp_path, lora_tree):
         serve.load_loras(f"x={p1},x={p2}")
 
 
-def test_main_wires_lora_and_refuses_other_formats(tmp_path, monkeypatch, sd, lora_tree):
+def test_main_wires_lora_and_refuses_other_formats(tmp_path, monkeypatch, sd, lora_tree,
+                                                   capsys):
     from sdtpu_torch.io import native
     from sdtpu_torch.lora import save_lora
 
@@ -346,13 +348,84 @@ def test_main_wires_lora_and_refuses_other_formats(tmp_path, monkeypatch, sd, lo
 
     monkeypatch.setattr(serve, "make_server", fake_make_server)
     monkeypatch.setattr(native, "load_native", fake_load_native)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)  # main serves on the card
     with pytest.raises(_Started):
-        serve.main(["serve", "native", "x.safetensors", "--lora", p1, "--port", "9",
-                    "--bf16", "--steps", "3"])
-    assert set(captured["loras"]) == {"styleA"} and captured["device"] == "cuda"
+        serve.main(["serve", "native", str(tmp_path / "styleA.lora.safetensors"), "--lora", p1,
+                    "--port", "9", "--bf16", "--steps", "3"])
+    assert set(captured["loras"]) == {"styleA"}
+    assert captured["device"] == torch.device("cuda", 0)
     assert (captured["port"], captured["steps"], captured["dtype"]) == (9, 3, torch.bfloat16)
     assert captured["closed"]
-    with pytest.raises(ValueError, match="item 12"):
-        serve.main(["serve", "ckpt", "x.ckpt"])
+    # every model type of the CLI loads through cli.load_model (each one is
+    # loaded in test_torch_cli.py), which refuses another type and a missing
+    # file with its errors
+    capsys.readouterr()
+    for model_type, path, message in (
+            ("onnx", p1, "Unknown model type: onnx (burn|dump|native|ckpt)"),
+            ("ckpt", str(tmp_path / "x.ckpt"), "file not found")):
+        with pytest.raises(SystemExit) as e:
+            serve.main(["serve", model_type, path])
+        assert e.value.code == 1 and message in capsys.readouterr().err
     with pytest.raises(SystemExit):  # a bare trailing flag prints the usage
         serve.main(["serve", "native", "x.safetensors", "--lora"])
+
+
+def test_twopass_pipeline_serves_as_generate(sd, lora_tree):
+    """A pipeline without pad_context (sdtpu's two-pass mode): a lone seeded
+    request, on the base weights and on an adapter's, returns what that
+    pipeline's generate returns; the merged pipeline keeps the mode."""
+    twopass = StableDiffusion(sd.params, CFG, pad_context=False)
+    srv = serve.make_server(twopass, SimpleTokenizer(), port=0, warmup=False, default_steps=2,
+                            loras={"style": (lora_tree, 4.0)})
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    try:
+        for lora in (None, "style"):
+            code, resp = _post(srv.server_address[1], {"prompt": "a stone", "seed": 3,
+                                                       "lora": lora})
+            assert code == 200, resp
+            pipe = srv.state.batcher.sd_for(lora)
+            assert pipe.pad_context is False
+            want = pipe.generate(SimpleTokenizer(), "a stone", 7.5, 2,
+                                 generator=torch.Generator().manual_seed(3))
+            np.testing.assert_array_equal(_img(resp), want[0])
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        t.join(timeout=30)
+
+
+def test_twopass_batches_split_by_prompt_length(sd):
+    """Without pad_context the contexts are unpadded: concurrent requests
+    whose prompts differ in token count go to separate batches (each
+    answered with its lone image), and those of one count share a batch."""
+    twopass = StableDiffusion(sd.params, CFG, pad_context=False)
+    tok = SimpleTokenizer()
+    short, long_, same = "a stone", "an ancient mossy stone by a river", "a rock"
+    assert len(tok.encode_prompt(short)) == len(tok.encode_prompt(same))
+    assert len(tok.encode_prompt(short)) != len(tok.encode_prompt(long_))
+
+    def run(prompts):
+        b = _batcher(twopass, window_ms=2000.0)
+        out = {}
+
+        def one(p):
+            out[p] = b.submit(p, 2, 7.5, 5, 1, "")
+
+        try:
+            threads = [threading.Thread(target=one, args=(p,)) for p in prompts]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+            return out, dict(b.batch_sizes)
+        finally:
+            b.close()
+
+    out, sizes = run([short, long_])
+    assert sizes == {1: 2}
+    for p in (short, long_):
+        want = twopass.generate(tok, p, 7.5, 2, generator=torch.Generator().manual_seed(5))
+        np.testing.assert_array_equal(out[p][0], want[0])
+    out, sizes = run([short, same])
+    assert sizes == {2: 1} and out[short].shape == out[same].shape == (1, 32, 32, 3)

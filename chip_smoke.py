@@ -10,13 +10,15 @@ Phases, each printing its lines:
 2. each kernel against its plain PyTorch version on the card, at the
    shapes SD v1.4's UNet, VAE decoder and VAE encoder give it at 512px and
    at 1024px (the UNet's also at batch 1, the two-pass mode's), and
-   training's (K1 with its row statistics, K9), in float32
+   training's (K1 with its row statistics, K9, at UNet batch 4, 8 and 2;
+   the encoder at batch 8, 4 and 1), in float32
    and bfloat16: max error against the stated tolerance, the times of the
    kernel, of its plain version and, where one PyTorch call computes the
    same function, of that call (CUDA events), and the least time the card
    could take for the same work (its bound). Every kernel is also timed in
    bfloat16 by the card's own clock (sdtpu_torch.profile_kernels.device_ms:
-   20 wrapper calls captured in a CUDA graph, the replay timed), and K5, K9,
+   20 wrapper calls captured in a CUDA graph, the replay timed; a timing of
+   a slow call takes fewer, about BUDGET_MS of calls and at least 3), and K5, K9,
    K2, K6, K1, K4, K10, K7 and K3 their Hopper kernels against the kernels
    they replaced, in turns (old, new, new, old). Planted faults must fail
    each kernel's tolerance at every case: for K6 the convolution without
@@ -63,9 +65,9 @@ Phases, each printing its lines:
    inpainting, the adapter, a bad request; a lone seeded request must
    equal generate() byte for byte and K10 must launch 15 times a UNet
    call, every launch on its Hopper route; then an A/B of K10's gate: the
-   UNet call's device time in ten pairs of open and closed (in turns), and
-   a lone request's latency in three rounds of open, closed, closed,
-   open;
+   UNet call's device time in AB_PAIRS pairs of open and closed (in
+   turns), and a lone request's latency in AB_ROUNDS rounds of open,
+   closed, closed, open;
 7. (run after phase 4) the command lines at SD v1.4 width and depth
    (phase 4's weights: init_params, seed 0, f32) in a temporary directory:
    the weights written once as native, `python -m sdtpu_torch.convert
@@ -80,14 +82,28 @@ Phases, each printing its lines:
    within TWOPASS_MEAN_TOL gray levels (mean) of the batched mode's, a
    bound that the guidance with uncond and cond swapped and the uncond
    context used for both calls exceed; and one denoising step's UNet work
-   by device time in both modes, in turns.
+   by device time in both modes, in turns; and, before them, one f32
+   generate with the TF32 switches a fresh process has against the same
+   generate with both off, its max and mean gray-level difference printed
+   (a record, not a check);
+8. (run after phase 5) `python -m sdtpu_torch.finetune` at SD v1.4 width
+   and depth, 512x512 (phase 4's weights written once as native), on
+   phase 5's PNGs with captions that hold a placeholder, in new processes
+   on the card under SDTPU_PROFILE=1: --fast (adafactor, batch 8) with EMA
+   and the train state saved, then resumed for one more step; LoRA with
+   two micro-batches summed in bf16; textual inversion. Checks the losses,
+   the state read back, the tuned model, the adapter's merge against the
+   base, the concept's rows, and the launches of each run (K1 and K9 in
+   training, on their Hopper routes, and the encoder's K3 and K6 where a
+   run encodes images).
 
 It prints a JSON line of per-kernel results, then the card's name and
 power limit, then, last, {"ok": true, "device": {...}}. Any failure
 exits nonzero before that line; there is no CPU fallback. In the JSON
 line `launches` is the sum of the main paths' runs (both generate runs,
 the CLI phase's two sample processes and two in-process generates, the
-fine-tuning run with its cache build, and the serve phase), and `ms`, `plain_ms`,
+fine-tuning run with its cache build, the serve phase, and phase 8's four
+`finetune` processes), and `ms`, `plain_ms`,
 `bound_ms` and `library_ms` are for those launches: each wrapper counts
 its launches per shape as well, and each shape's bfloat16 time (or bound)
 from phase 2 is taken as many times as the runs launched it. A shape
@@ -126,8 +142,14 @@ from typing import Callable, NamedTuple, Optional
 
 SEED = 0
 WARMUP, ITERS = 3, 20
+BUDGET_MS = 100  # the calls a phase-2 timing spends on a slow kernel
 PEAK_TENSOR = 989e12  # dense bf16 FLOP/s
 PEAK_F32 = 67e12      # f32 FLOP/s outside the tensor cores
+PEAK_TF32 = 495e12    # dense TF32 FLOP/s: the float32 routes' products
+# the prefix of a float32 launch's shape key in the main paths' totals: the
+# wrappers' keys name no dtype, and phase 8's processes run the VAE encoder
+# in float32 (the model loads in f32, as sdtpu's `finetune` loads it)
+F32_KEY = "dtype=float32 "
 HBM = 3.35e12         # bytes/s
 
 
@@ -143,10 +165,26 @@ def card_line() -> str:
     return out.splitlines()[0]
 
 
-def cuda_ms(fn, iters=ITERS) -> float:
-    """Mean time of fn() on the card, CUDA events around `iters` calls."""
+def budget(fn) -> int:
+    """How many calls a timing of fn() takes: ITERS, or fewer where a call
+    is slow, about BUDGET_MS of calls and at least 3 (one untimed call, then
+    one timed by the host's clock)."""
     import torch
 
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return max(3, min(ITERS, int(BUDGET_MS / max(1e3 * (time.perf_counter() - t0), 1e-6))))
+
+
+def cuda_ms(fn, iters=None) -> float:
+    """Mean time of fn() on the card, CUDA events around `iters` calls
+    (budget(fn) when None)."""
+    import torch
+
+    iters = budget(fn) if iters is None else iters
     for _ in range(WARMUP):
         fn()
     torch.cuda.synchronize()
@@ -422,11 +460,14 @@ def kernel_cases(dtype, dev):
 
     # K1: the VAE's mid-block attention at 1024px (one head, d=512), a
     # key-padding bias case (no launch on the main path), and training's
-    # forward at the 64² level of the 512px UNet (batch 4, 8 heads of 40)
-    # with the row statistics K9 takes
+    # forward at the 64² level of the 512px UNet (8 heads of 40) with the
+    # row statistics K9 takes: batch 4 (phase 5, textual inversion), 8
+    # (--fast) and 2 (LoRA's micro-batch)
     for bh, n_head, s, d, bias, lse in ((1, 1, 16384, 512, False, False),
                                         (16, 8, 4096, 80, True, False),
-                                        (32, 8, 4096, 40, False, True)):
+                                        (32, 8, 4096, 40, False, True),
+                                        (64, 8, 4096, 40, False, True),
+                                        (16, 8, 4096, 40, False, True)):
         q, k, v = rnd(bh, s, d), rnd(bh, s, d), rnd(bh, s, d)
         kb = None
         if bias:
@@ -450,11 +491,12 @@ def kernel_cases(dtype, dev):
                           (q, k, v, kb, n_head), {"return_lse": lse}, 4 * bh * s * s * d,
                           library=sdpa, old=k1_wmma))
 
-    # K9: training's backward at the 64² level of the 512px UNet, the
-    # 1024px UNet's 128² and 64² levels and its 32² level's d=160 (batch 4,
-    # 8 heads), from K1's output and row statistics as training hands them
-    # over
-    for bh, s, d in ((32, 4096, 40), (32, 16384, 40), (32, 4096, 80), (32, 1024, 160)):
+    # K9: training's backward at the 64² level of the 512px UNet (batch 4,
+    # 8 and 2, as K1's), the 1024px UNet's 128² and 64² levels and its 32²
+    # level's d=160 (batch 4, 8 heads), from K1's output and row statistics
+    # as training hands them over
+    for bh, s, d in ((32, 4096, 40), (64, 4096, 40), (16, 4096, 40), (32, 16384, 40),
+                     (32, 4096, 80), (32, 1024, 160)):
         q, k, v, do = rnd(bh, s, d), rnd(bh, s, d), rnd(bh, s, d), rnd(bh, s, d)
         o, lse = flash_attention.flash_attention_heads(q, k, v, n_head=8, return_lse=True)
 
@@ -522,10 +564,11 @@ def kernel_cases(dtype, dev):
                       f"{'' if st else ' no stats'} B={b}", b, hw, ci, co, 0, 1e-6, res, st)
 
     # the VAE encoder's ResnetBlocks while the latent cache is built (512px,
-    # chunks of 4 images) and in img2img/inpainting (one image): K3 on each
-    # block's input, conv1 with the statistics, conv2 with the residual and
-    # without them
-    for b in (4, 1):
+    # chunks of 4 images, of 8 under --fast, textual inversion's data in
+    # chunks of 4) and in img2img/inpainting (one image): K3 on each block's
+    # input, conv1 with the statistics, conv2 with the residual and without
+    # them
+    for b in (8, 4, 1):
         for hw, ci, co in ENCODER_RESNETS:
             x = rnd(b, hw, hw, ci)
             cases.append(Case("channel_partials", f"encoder {hw}x{hw}x{ci} B={b}",
@@ -927,16 +970,20 @@ def _check_k2(c, got, want, dname, failed):
 
 
 def phase_kernels(dev) -> tuple[dict, dict]:
-    """Phase 2. Returns ({kernel: max abs error}, {(kernel, shape key):
-    {label, ms, plain_ms, library_ms, bound_ms, ops_ms, bytes_ms, device_ms,
-    old_ms, f32_ms}}), both from the bfloat16 run, the main path's dtype
-    (old_ms, the replaced kernel's device time, for K5, K9, K2, K6, K1, K4,
-    K10, K7, K3 only; f32_ms the float32 run's time, by device time where
-    measured)."""
+    """Phase 2. Returns ({kernel: max abs error over both dtypes}, {(kernel,
+    shape key): {label, ms, plain_ms, library_ms, bound_ms, ops_ms, bytes_ms,
+    device_ms, old_ms, f32_ms}}), from the bfloat16 run, the main paths'
+    dtype (old_ms, the replaced kernel's device time, for K5, K9, K2, K6,
+    K1, K4, K10, K7, K3 only; f32_ms the float32 run's time, by device time
+    where measured), and under F32_KEY + shape key the float32 run's (its
+    products bound at the TF32 rate)."""
     import torch
 
     from sdtpu_torch.ops.fused_groupnorm import channel_partials_plain
     from sdtpu_torch.profile_kernels import device_ms
+
+    def dev_time(fn):
+        return device_ms(fn, iters=budget(fn))
 
     max_err, measured, f32_ms = {}, {}, {}
     failed = []
@@ -946,7 +993,8 @@ def phase_kernels(dev) -> tuple[dict, dict]:
         for c in kernel_cases(dtype, dev):
             (got, key), want = launched_key(c), c.plain(*c.args, **c.kw)
             torch.cuda.synchronize()
-            ops_ms, bytes_ms = 1e3 * c.ops / c.peak, 1e3 * _nbytes(c.args, c.kw, got) / HBM
+            peak = PEAK_TF32 if dtype == torch.float32 and c.peak == PEAK_TENSOR else c.peak
+            ops_ms, bytes_ms = 1e3 * c.ops / peak, 1e3 * _nbytes(c.args, c.kw, got) / HBM
             bound_ms = max(ops_ms, bytes_ms)
             bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
             a, r = (STATS_TOL if c.name == "channel_partials" else (atol, rtol))
@@ -995,10 +1043,10 @@ def phase_kernels(dev) -> tuple[dict, dict]:
             lib = "" if lib_ms is None else f"  library {lib_ms:.4f} ms"
             for label, fn in c.yardsticks:
                 lib += (f"  {label} {cuda_ms(lambda: fn(*c.args, **c.kw)):.4f} ms (device "
-                        f"{device_ms(lambda: fn(*c.args, **c.kw)):.4f})")
+                        f"{dev_time(lambda: fn(*c.args, **c.kw)):.4f})")
             dev_ms = old_ms = None
             if c.old is not None or dtype == torch.bfloat16:
-                dev_ms = device_ms(lambda: c.fn(*c.args, **c.kw))
+                dev_ms = dev_time(lambda: c.fn(*c.args, **c.kw))
                 lib += f"  device {dev_ms:.4f} ms"
             print(f"kernel {c.name:21s} {dname:8s} {c.shape:30s} max_abs_err {err:.3e} "
                   f"(tol {a:.3g} + {r:.3g}|ref|) {'ok' if ok else 'FAILED'}  "
@@ -1009,7 +1057,7 @@ def phase_kernels(dev) -> tuple[dict, dict]:
                 # device time, in turns
                 new = lambda: c.fn(*c.args, **c.kw)  # noqa: E731
                 old = lambda: c.old(*c.args, **c.kw)  # noqa: E731
-                turns = [device_ms(f) for f in (old, new, new, old)]
+                turns = [dev_time(f) for f in (old, new, new, old)]
                 old_ms = (turns[0] + turns[3]) / 2
                 print(f"kernel {c.name:21s} {dname:8s} {c.shape:30s} device ms old/new/new/old "
                       f"{' / '.join(f'{t:.4f}' for t in turns)}: new {dev_ms:.4f} against old "
@@ -1017,15 +1065,20 @@ def phase_kernels(dev) -> tuple[dict, dict]:
                       f"{bound_ms:.4f}", flush=True)
             if not ok:
                 failed.append(f"{c.name} {dname} {c.shape}")
+            max_err[c.name] = max(max_err.get(c.name, 0.0), err)
+            entry = {"label": c.shape, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "bound_ms": bound_ms, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+                     "device_ms": dev_ms, "old_ms": old_ms}
             if dtype == torch.float32:
                 f32_ms[(c.name, c.shape)] = dev_ms if dev_ms is not None else ms
+                # a float32 launch of the main paths: the route it takes is
+                # the kernel the bf16 route replaced, so that kernel is its
+                # own "replaced" time
+                measured[(c.name, F32_KEY + key)] = {
+                    **entry, "label": c.shape + " f32",
+                    "old_ms": dev_ms if c.old is not None else None}
             else:
-                max_err[c.name] = max(max_err.get(c.name, 0.0), err)
-                measured[(c.name, key)] = {
-                    "label": c.shape, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                    "bound_ms": bound_ms, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
-                    "device_ms": dev_ms, "old_ms": old_ms,
-                    "f32_ms": f32_ms.get((c.name, c.shape))}
+                measured[(c.name, key)] = {**entry, "f32_ms": f32_ms.get((c.name, c.shape))}
         torch.cuda.empty_cache()
     if failed:
         fail("kernel disagrees with its plain version: " + "; ".join(failed))
@@ -1447,8 +1500,8 @@ def phase_grad(dev) -> None:
 # cross-attention sublayers at 64², 32² and 16² (the 8² middle one is below
 # the gate)
 SERVE_STEPS, K10_PER_UNET_CALL = 20, 15
-AB_PAIRS = 10  # pairs of the UNet call's device time, gate open and closed, in turns
-AB_ROUNDS = 3  # rounds of open, closed, closed, open of a lone request's latency
+AB_PAIRS = 5  # pairs of the UNet call's device time, gate open and closed, in turns
+AB_ROUNDS = 1  # rounds of open, closed, closed, open of a lone request's latency
 SERVE_PROMPT = "An ancient mossy stone."
 
 
@@ -1709,6 +1762,26 @@ EXPECTED_REMAT = {"full": {"flash_attention_heads": 10, "flash_attention_bwd_hea
                   "dots": {"flash_attention_heads": 5, "flash_attention_bwd_heads": 5}}
 
 
+def write_train_images(folder: str, caption: str) -> str:
+    """The fine-tuning phases' dataset: TRAIN_IMAGES random 512x512 PNGs
+    (a torch.Generator seeded with SEED), each with the caption
+    caption.format(i=i); returns the folder."""
+    import os
+
+    import torch
+
+    from sdtpu_torch.utils.image import save_png
+
+    os.mkdir(folder)
+    g = torch.Generator().manual_seed(SEED)
+    for i in range(TRAIN_IMAGES):
+        img = torch.randint(0, 256, (512, 512, 3), generator=g, dtype=torch.uint8)
+        save_png(img.numpy(), os.path.join(folder, f"img{i}.png"))
+        with open(os.path.join(folder, f"img{i}.txt"), "w") as f:
+            f.write(caption.format(i=i))
+    return folder
+
+
 def phase_train(dev) -> tuple[dict, dict]:
     """Phase 5: sdtpu_torch.finetune.run_finetune at SD v1.4 width and depth,
     512x512, random weights (init_params, seed 0), bf16 compute, batch 4,
@@ -1734,7 +1807,6 @@ def phase_train(dev) -> tuple[dict, dict]:
     from sdtpu_torch.pipeline import StableDiffusion
     from sdtpu_torch.tokenizer import SimpleTokenizer
     from sdtpu_torch.training import make_optimizer, make_train_step, master_params
-    from sdtpu_torch.utils.image import save_png
 
     fns = wrappers()
 
@@ -1751,14 +1823,7 @@ def phase_train(dev) -> tuple[dict, dict]:
     gib = 1024 ** 3
     tok = SimpleTokenizer()
     with tempfile.TemporaryDirectory() as tmp:
-        data = os.path.join(tmp, "data")
-        os.mkdir(data)
-        g = torch.Generator().manual_seed(SEED)
-        for i in range(TRAIN_IMAGES):
-            img = torch.randint(0, 256, (512, 512, 3), generator=g, dtype=torch.uint8)
-            save_png(img.numpy(), os.path.join(data, f"img{i}.png"))
-            with open(os.path.join(data, f"img{i}.txt"), "w") as f:
-                f.write(f"a synthetic picture, number {i}")
+        data = write_train_images(os.path.join(tmp, "data"), "a synthetic picture, number {i}")
         sd = StableDiffusion(init_params_on(SD_V1_4, dev), SD_V1_4, compute_dtype=torch.bfloat16)
         torch.cuda.synchronize()
 
@@ -1853,6 +1918,236 @@ def phase_train(dev) -> tuple[dict, dict]:
             {n: {k: cache[1][n].get(k, 0) + train[1][n].get(k, 0)
                  for k in set(cache[1][n]) | set(train[1][n])} for n in fns})
 
+# phase 8: `python -m sdtpu_torch.finetune` at SD v1.4 512px on the 8 PNGs
+# of phase 5, four runs in new processes, each read from its SDTPU_PROFILE=1
+# report. Per step K1 forward and K9 backward at the 64² level's 5
+# transformers, per micro-batch; textual inversion's backward skips the
+# first transformer's self-attention (4 K9 a step), whose input no
+# gradient needs: only the context is differentiated, and it enters after.
+# The cache build at batch 8 (--fast) runs the encoder once (K3 10, K6 20),
+# textual inversion's data at batch 4 twice (K3 20, K6 40)
+FT_MIN_FREE = 17 * 1024 ** 3  # the model, the train state (UNet and EMA), a tuned model
+FT_PLACEHOLDER = "<sks>"
+FT_RUNS = {
+    "a": (["--fast", "--bf16", "--steps", "2", "--ema", "0.9999", "--save-every", "2"],
+          {"flash_attention_heads": 10, "flash_attention_bwd_heads": 10,
+           "channel_partials": 10, "conv3x3_fused": 20}),
+    "b": (["--fast", "--bf16", "--steps", "3", "--ema", "0.9999", "--save-every", "2",
+           "--resume"],
+          {"flash_attention_heads": 5, "flash_attention_bwd_heads": 5}),
+    "c": (["--bf16", "--lora-rank", "4", "--accum", "2", "--accum-bf16", "--batch", "4",
+           "--steps", "2"],
+          {"flash_attention_heads": 20, "flash_attention_bwd_heads": 20}),
+    "d": (["--bf16", "--ti", FT_PLACEHOLDER, "--ti-init", "person", "--ti-vectors", "2",
+           "--batch", "4", "--steps", "3"],
+          {"flash_attention_heads": 15, "flash_attention_bwd_heads": 12,
+           "channel_partials": 20, "conv3x3_fused": 40}),
+}
+
+
+def phase_finetune_cli(dev) -> tuple[dict, dict]:
+    """Phase 8: `python -m sdtpu_torch.finetune` (the device argument
+    omitted: the card) under SDTPU_PROFILE=1 at SD v1.4 width and depth,
+    512x512, from the weights of phase 4 (init_params, seed 0, f32) written
+    once as native, on TRAIN_IMAGES PNGs whose captions hold the
+    placeholder, in a temporary directory deleted at the end. Four runs
+    (FT_RUNS): (a) --fast (adafactor, batch 8) with EMA and the train state
+    saved at step 2: finite losses, the state read back by
+    restore_train_state (step 2, its EMA bit-equal to the tuned model, its
+    trained weights finite and every leaf changed), the tuned model with
+    sdtpu's keys and every UNet leaf f32 and finite; (b) the same to step 3 with --resume: it resumes at step 2 and
+    runs one step; (c) LoRA rank 4 with two micro-batches summed in bf16:
+    the adapter loads, each merged leaf is base + a·b·scale within f32
+    rounding and every other leaf is bit-equal to the base; (d) textual
+    inversion of two vectors from "person": the concept loads and its rows
+    have moved off that token's row. Each run's launches must be FT_RUNS'
+    (K1 on the Hopper core; the encoder's, in float32, K6 on its float32
+    kernel); prints each run's wall seconds, load, steps/sec, peak memory
+    and launches. Returns the launch counts of the four runs, per kernel and
+    per kernel and shape (the encoder's keys under F32_KEY)."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from sdtpu_torch.config import SD_V1_4
+    from sdtpu_torch.io.checkpoint import read_meta, restore_train_state
+    from sdtpu_torch.io.native import flatten_tree, load_native, save_native
+    from sdtpu_torch.lora import load_lora
+    from sdtpu_torch.models.unet import unfuse_qkv
+    from sdtpu_torch.textual_inversion import load_ti
+    from sdtpu_torch.tokenizer import SimpleTokenizer
+    from sdtpu_torch.training import Adafactor
+
+    t_phase = time.perf_counter()
+    gb = 1e9
+    launches = {name: 0 for name in KERNEL_INFO}
+    shapes = {name: {} for name in KERNEL_INFO}
+    env = {**os.environ, "SDTPU_PROFILE": "1"}
+    bad = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_finetune_") as tmp:
+        free = shutil.disk_usage(tmp).free
+        print(f"finetune cli: temporary directory {tmp}, {free / gb:.1f} GB free", flush=True)
+        if free < FT_MIN_FREE:
+            fail(f"the finetune phase needs {FT_MIN_FREE / gb:.0f} GB free in {tmp}, "
+                 f"{free / gb:.1f} GB there")
+        data = write_train_images(os.path.join(tmp, "data"),
+                                  "a synthetic picture of " + FT_PLACEHOLDER + ", number {i}")
+        native, state_dir = os.path.join(tmp, "sd.safetensors"), os.path.join(tmp, "state")
+        params = init_params_on(SD_V1_4, dev)
+        save_native(params, native, SD_V1_4)
+        base_unet = flatten_tree(unfuse_qkv(params["unet"]))
+        (person,) = SimpleTokenizer().encode("person")
+        person_row = params["clip"]["token_embedding"]["w"][person].clone()
+        del params
+
+        def run(label):
+            args, expected = FT_RUNS[label]
+            if label in "ab":
+                args = args + ["--state-dir", state_dir]
+            out = os.path.join(tmp, f"out_{label}")
+            stamps = []
+            text, wall, rss = run_module(f"finetune {label}", [
+                "sdtpu_torch.finetune", "native", native, data, out, *args], env, stamps)
+            # when each logged step's loss appeared (a wait for the step):
+            # the steps after the first, by the host's clock
+            at = [(int(ln.split()[1].split("/")[0]), t) for t, ln in stamps
+                  if ln.startswith("step ")]
+            later = ("not measured" if len(at) < 2 else
+                     f"{1e3 * (at[-1][1] - at[0][1]) / (at[-1][0] - at[0][0]):.1f} ms")
+            report = json.loads([ln for ln in text.splitlines() if ln.startswith("{")][-1])
+            kern = report["kernels"]
+            run_launches = {n: kern.get(n, {}).get("launches", 0) for n in KERNEL_INFO}
+            run_shapes = {n: kern.get(n, {}).get("shapes", {}) for n in KERNEL_INFO}
+            fired = {n: k for n, k in run_launches.items() if k}
+            # the encoder's launches (K3, K6) run in float32: K6's on its
+            # float32 kernel (the WMMA route), K3's on its plan's route
+            encoder = {n: run_shapes.pop(n) for n in ("channel_partials", "conv3x3_fused")}
+            run_shapes.update({n: {} for n in encoder})
+            odd = [f"{n} [{k}]" for n, shp in encoder.items() for k in shp
+                   if n == "conv3x3_fused" and not k.endswith("route=wmma")]
+            losses = [v for _, v in report["losses"]]
+            ph = report["phases"]
+            around = sum(v for k, v in ph.items() if k not in ("load_tokenizer", "load_model"))
+            print(f"finetune {label} `{' '.join(args)}` (device {report['device']}): process "
+                  f"wall {wall:.2f} s, load_model {ph['load_model']:.2f} s, the run "
+                  f"{report['train_s']:.2f} s ({', '.join(f'{k} {v:.2f}' for k, v in ph.items() if k not in ('load_tokenizer', 'load_model'))}; "
+                  f"the steps {report['train_s'] - around:.2f}; a step after the first "
+                  f"{later}), {report['steps_per_sec']:.4f} steps/s, "
+                  f"peak device memory {report['peak_memory_gib']:.2f} GiB, peak resident "
+                  f"{_gib(rss)}; losses {losses}; launches {fired} expected {expected} "
+                  f"| {card_line()}", flush=True)
+            if report["device"] != "cuda:0":
+                bad.append(f"finetune {label} ran on {report['device']}")
+            if not losses or not all(map(math.isfinite, losses)):
+                bad.append(f"finetune {label} losses {losses}")
+            if fired != expected:
+                bad.append(f"finetune {label} launched {fired}")
+            if odd:
+                bad.append(f"finetune {label}: float32 encoder launches off the WMMA route {odd}")
+            check_routes(f"finetune {label}", run_shapes,
+                         {"sm90": expected["flash_attention_heads"]})
+            if any(encoder.values()):
+                print(f"finetune {label} float32 encoder launches by route: K6 "
+                      f"{by_route(encoder['conv3x3_fused'])}, K3 "
+                      f"{by_route(encoder['channel_partials'])}", flush=True)
+            for n, shp in encoder.items():
+                run_shapes[n] = {F32_KEY + k: v for k, v in shp.items()}
+            for name in KERNEL_INFO:
+                launches[name] += run_launches[name]
+                for key, n in run_shapes[name].items():
+                    shapes[name][key] = shapes[name].get(key, 0) + n
+            return text, out, report
+
+        # (a) the full fine-tune, its state and its model
+        _, out, _ = run("a")
+        # the model holds the EMA; the state also holds the trained weights.
+        # At decay 0.9999 two steps move the EMA by 1e-4 of a step of about
+        # 1e-5 of a weight: below f32's resolution at the norm gains' 1.0, so
+        # "changed" is asked of the trained weights, and the EMA's leaves
+        # that changed are counted
+        tuned, cfg = load_native(out + ".safetensors", device=dev)
+        leaves = flatten_tree(tuned["unet"])
+        del tuned
+        meta = read_meta(state_dir)
+        trained = {k: torch.empty_like(v) for k, v in leaves.items()}
+        ema = {k: torch.empty_like(v) for k, v in leaves.items()}
+        opt_state = Adafactor(1e-5).init(trained)
+        step = restore_train_state(state_dir, trained, opt_state, ema=ema)
+        ema_equal = all(torch.equal(ema[k], v) for k, v in leaves.items())
+        odd = [k for k, v in leaves.items()
+               if v.dtype != torch.float32 or not bool(v.isfinite().all())]
+        stale = [k for k, v in trained.items()
+                 if not bool(v.isfinite().all()) or torch.equal(v, base_unet[k])]
+        ema_moved = sum(not torch.equal(v, base_unet[k]) for k, v in leaves.items())
+        print(f"finetune a: state {sorted(os.listdir(state_dir))} ({_tree_bytes(state_dir) / gb:.3f}"
+              f" GB, flags {meta['flags']}) read back at step {step}, optimizer count "
+              f"{opt_state.count}, its EMA bit-equal to the tuned model: {ema_equal}, its "
+              f"trained weights finite and changed: {len(trained) - len(stale)} of "
+              f"{len(trained)}; the model: config {cfg.name}, {len(leaves)} UNet leaves "
+              f"(sdtpu's keys: {set(leaves) == set(base_unet)}), f32 and finite: "
+              f"{len(leaves) - len(odd)}, changed by the EMA: {ema_moved}", flush=True)
+        if step != 2 or opt_state.count != 2 or not ema_equal or stale:
+            bad.append(f"finetune a: the state at step {step}, count {opt_state.count}, EMA "
+                       f"equal {ema_equal}, trained leaves unchanged {stale[:5]}")
+        if cfg != SD_V1_4 or set(leaves) != set(base_unet) or odd:
+            bad.append(f"finetune a: the model's config {cfg.name}, keys equal "
+                       f"{set(leaves) == set(base_unet)}, leaves not f32 and finite {odd[:5]}")
+        del trained, ema, opt_state, leaves
+        os.remove(out + ".safetensors")
+
+        # (b) the resume
+        text, out, report = run("b")
+        resumed = f"resumed step 2 from {state_dir}" in text
+        print(f"finetune b: logs the resume at step 2: {resumed}; steps logged "
+              f"{[i for i, _ in report['losses']]}", flush=True)
+        if not resumed or [i for i, _ in report["losses"]] != [2]:
+            bad.append(f"finetune b: resumed {resumed}, steps {report['losses']}")
+        os.remove(out + ".safetensors")
+        shutil.rmtree(state_dir)
+
+        # (c) LoRA: the adapter and the merge
+        _, out, _ = run("c")
+        lora, scale, lmeta = load_lora(out + ".lora.safetensors", dev)
+        merged, _ = load_native(out + ".safetensors", device=dev)
+        merged = flatten_tree(merged["unet"])
+        adapter = flatten_tree(lora)
+        targets = {k[:-len("/a")] + "/w" for k in adapter if k.endswith("/a")}
+        merge_err, off = 0.0, []
+        for k, v in merged.items():
+            if k in targets:
+                a, b = adapter[k[:-len("/w")] + "/a"], adapter[k[:-len("/w")] + "/b"]
+                want = base_unet[k] + (a @ b) * scale
+                err = float(((v - want).abs() / (1e-6 + 1e-6 * want.abs())).max())
+                merge_err = max(merge_err, err)
+            elif not torch.equal(v, base_unet[k]):
+                off.append(k)
+        moved = sum(bool(v.any()) for k, v in adapter.items() if k.endswith("/b"))
+        print(f"finetune c: adapter rank {lmeta['rank']} scale {scale:g}, {len(targets)} "
+              f"adapted leaves ({moved} b moved off 0), merged within 1e-6 + 1e-6|ref|: max "
+              f"|err| / tol {merge_err:.3f}; other leaves bit-equal to the base: "
+              f"{len(merged) - len(targets) - len(off)} of {len(merged) - len(targets)}",
+              flush=True)
+        if merge_err > 1.0 or off or set(merged) != set(base_unet) or not moved:
+            bad.append(f"finetune c: merge error {merge_err:.3f}, leaves off the base "
+                       f"{off[:5]}, b moved {moved}")
+        del merged, lora, adapter
+        os.remove(out + ".safetensors")
+
+        # (d) textual inversion
+        _, out, _ = run("d")
+        emb, placeholder, _ = load_ti(out + ".ti.safetensors", dev)
+        moved = [float((r - person_row.float()).abs().max()) for r in emb]
+        print(f"finetune d: concept {placeholder!r} {tuple(emb.shape)}, rows' max |change| "
+              f"from 'person': {moved}", flush=True)
+        if placeholder != FT_PLACEHOLDER or emb.shape != (2, 768) or not all(moved):
+            bad.append(f"finetune d: concept {placeholder!r} {tuple(emb.shape)}, moved {moved}")
+    print(f"finetune cli phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    if bad:
+        fail("the finetune phase: " + "; ".join(bad))
+    return launches, shapes
+
 # the CLI phase: SD v1.4 at 512px from model files, bf16, 20 DDIM steps, CFG
 # 7.5, seed 0, through `python -m sdtpu_torch.sample` and `.convert`
 CLI_PROMPT, CLI_STEPS, CLI_SCALE = "An ancient mossy stone.", 20, 7.5
@@ -1866,14 +2161,17 @@ CLI_MIN_FREE = 10 * 1024 ** 3  # two 4.3 GB copies of the weights at once, and r
 TWOPASS_MEAN_TOL = 2.0
 
 
-def run_module(label: str, args: list, env: dict) -> tuple[str, float, float]:
+def run_module(label: str, args: list, env: dict,
+               stamps: Optional[list] = None) -> tuple[str, float, float]:
     """`python -m <args>` from the repository's root, to its end: (its
     output, wall seconds, its peak resident memory in GiB, or None where
     /proc shows none). The peak is the largest of the process's VmHWM and
     resident size (/proc/<pid>/status, /proc/<pid>/statm), read every 0.1 s
     while it runs: wait4's ru_maxrss would count this process's memory,
-    which the child holds between fork and exec. Fails if it exits
-    nonzero."""
+    which the child holds between fork and exec. stamps: a list to which
+    each line of output is added as (seconds since the start, line) when
+    it appears (read every 0.02 s; the child runs unbuffered). Fails if it
+    exits nonzero."""
     import os
     import tempfile
 
@@ -1881,7 +2179,9 @@ def run_module(label: str, args: list, env: dict) -> tuple[str, float, float]:
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(sdtpu_torch.__file__)))
     page_kb = os.sysconf("SC_PAGE_SIZE") // 1024
-    peak_kb = 0
+    peak_kb, seen, partial = 0, 0, b""
+    if stamps is not None:
+        env = {**env, "PYTHONUNBUFFERED": "1"}
     with tempfile.TemporaryFile() as out:
         t0 = time.perf_counter()
         proc = subprocess.Popen([sys.executable, "-m", *args], cwd=root, env=env, stdout=out,
@@ -1895,7 +2195,13 @@ def run_module(label: str, args: list, env: dict) -> tuple[str, float, float]:
                                                if ln.startswith("VmHWM:")])
             except (OSError, ValueError, IndexError):
                 pass
-            time.sleep(0.1)
+            if stamps is not None:
+                new = os.pread(out.fileno(), 1 << 20, seen)
+                seen += len(new)
+                *lines, partial = (partial + new).split(b"\n")
+                now = time.perf_counter() - t0
+                stamps.extend((now, ln.decode(errors="replace")) for ln in lines)
+            time.sleep(0.1 if stamps is None else 0.02)
         wall = time.perf_counter() - t0
         out.seek(0)
         text = out.read().decode(errors="replace")
@@ -2083,6 +2389,23 @@ def phase_cli(dev, tf32_defaults) -> tuple[dict, dict]:
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32_defaults
     try:
         tok = SimpleTokenizer()
+        # the f32 pipeline under a fresh process's TF32 switches against the
+        # same generate with both off (a record, not a check: ROADMAP queue 3)
+        sd32 = StableDiffusion(params, cfg)
+        f32_images = {}
+        for label, switches in (("a fresh process's", tf32_defaults), ("off", (False, False))):
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = switches
+            f32_images[label] = torch.from_numpy(sd32.generate(
+                tok, CLI_PROMPT, CLI_SCALE, CLI_STEPS,
+                generator=torch.Generator(device=dev).manual_seed(SEED))).float()
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32_defaults
+        d = (f32_images["a fresh process's"] - f32_images["off"]).abs()
+        print(f"cli f32 generate with the TF32 switches (matmul, cuDNN) = {tf32_defaults}, a "
+              f"fresh process's, against both off: max |difference| {int(d.max())} gray "
+              f"levels, mean {float(d.mean()):.4f} | {card_line()}", flush=True)
+        del sd32, f32_images, d
+        for f in fns.values():  # the f32 routes' launches belong to no main path
+            f.launches, f.shapes = 0, {}
         sd = StableDiffusion(params, cfg, compute_dtype=torch.bfloat16)
         del params, flat
         torch.cuda.synchronize()
@@ -2210,23 +2533,35 @@ def main() -> None:
     kernels.lib()
     print(f"build {path.name} in {time.perf_counter() - t0:.1f} s", flush=True)
 
+    def took(label, t0):
+        print(f"{label} took {time.perf_counter() - t0:.1f} s", flush=True)
+        return time.perf_counter()
+
     # phase 2: each kernel against its plain version
+    t0 = time.perf_counter()
     max_err, measured = phase_kernels(dev)
+    t0 = took("phase 2 (kernels)", t0)
     # phase 3: one SpatialTransformer, the VAE decoder and one 1024px fused
     # ResBlock, card against CPU; one SpatialTransformer's training gradients
     phase_transformer(dev)
     phase_decode(dev)
     phase_resblock(dev)
     phase_grad(dev)
-    # phases 4 to 7: the main paths, generate at 512px and at 1024px, the
+    t0 = took("phase 3 (card against CPU)", t0)
+    # phases 4 to 8: the main paths, generate at 512px and at 1024px, the
     # command lines at 512px from each weight format and the two-pass
-    # generate, the server at 512px, then fine-tuning at 512px
+    # generate, the server at 512px, then fine-tuning at 512px in process
+    # and through `python -m sdtpu_torch.finetune`
     launches = {name: 0 for name in KERNEL_INFO}
     shapes = {name: {} for name in KERNEL_INFO}
-    for run in (lambda: phase_generate(dev, 512), lambda: phase_generate(dev, 1024),
-                lambda: phase_cli(dev, tf32_defaults), lambda: phase_serve(dev),
-                lambda: phase_train(dev)):
+    for label, run in (("phase 4 (generate 512)", lambda: phase_generate(dev, 512)),
+                       ("phase 4 (generate 1024)", lambda: phase_generate(dev, 1024)),
+                       ("phase 7 (command lines)", lambda: phase_cli(dev, tf32_defaults)),
+                       ("phase 6 (serve)", lambda: phase_serve(dev)),
+                       ("phase 5 (run_finetune)", lambda: phase_train(dev)),
+                       ("phase 8 (finetune command line)", lambda: phase_finetune_cli(dev))):
         run_launches, run_shapes = run()
+        t0 = took(label, t0)
         for name in KERNEL_INFO:
             launches[name] += run_launches[name]
             for key, n in run_shapes[name].items():

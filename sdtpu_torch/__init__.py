@@ -12,8 +12,8 @@ even its pure-Python modules: it keeps its own copies of what it needs
 `data/`, the UNet's spec tables). Its entry points run on the card unless
 the caller asks for the CPU (`weights.init_params(..., device="cpu")`, the
 `cpu` device argument of `python -m sdtpu_torch.sample`); the command lines
-`python -m sdtpu_torch.sample` and `python -m sdtpu_torch.convert` take
-sdtpu's argv (`cli.py`).
+`python -m sdtpu_torch.sample`, `python -m sdtpu_torch.convert` and
+`python -m sdtpu_torch.finetune` take sdtpu's argv (`cli.py`).
 
 Layouts follow sdtpu at every public function: NHWC activations, HWIO
 conv weights, `[in, out]` linears, and the reference dump-tree parameter

@@ -1,10 +1,14 @@
 """The command lines of the port, argv-compatible with sdtpu's (port of
-sdtpu/cli.py: load_model, sample_main and convert_main).
+sdtpu/cli.py: load_model, sample_main, finetune_main and convert_main).
 
 sample  (python -m sdtpu_torch.sample):
     sample <model_type(burn|dump|native|ckpt)> <model_name>
            <unconditional_guidance_scale> <n_diffusion_steps>
            <prompt> <output_image_name> [device(cuda|cpu)]
+
+finetune (python -m sdtpu_torch.finetune):
+    finetune <model_type> <model_name> <data_dir|cache.npz> <out_model>
+             [training flags: see finetune_main]
 
 convert (python -m sdtpu_torch.convert):
     convert <dump_path> <model_name>           # npy tree -> native
@@ -27,10 +31,11 @@ The device argument: none, or `cuda`, runs on the card (cuda:0) and exits
 `tpu` and `mps` name no device of the port and exit 1. A seeded sample
 draws its latent from torch.Generator(device).manual_seed(seed), so it
 gives the image StableDiffusion.generate(..., generator=...) gives with
-that generator on the same device. convert moves weights between files
+that generator on the same device. finetune takes sdtpu's --device
+cuda|cpu flag with the same rule. convert moves weights between files
 and computes nothing: it runs on the host, as sdtpu's does. With
-SDTPU_PROFILE=1 sample prints its phases' wall seconds (utils.profiling)
-and each kernel's launches as one JSON line.
+SDTPU_PROFILE=1 sample and finetune print their phases' wall seconds
+(utils.profiling) and each kernel's launches as one JSON line.
 """
 
 from __future__ import annotations
@@ -276,6 +281,132 @@ def sample_main(argv=None) -> None:
         print(profiling.REGISTRY.report({
             "n_steps": n_steps, "batch": batch, "guidance_scale": guidance_scale,
             "device": str(device), "sampling_s": round(dt, 4),
+            "kernels": _launch_counts(),
+        }))
+
+
+def finetune_main(argv=None) -> None:
+    """finetune <model_type> <model_name> <data_dir|cache.npz> <out_model>
+             [--steps N] [--batch B] [--accum K] [--accum-bf16] [--lr F]
+             [--ema DECAY] [--bf16] [--remat] [--remat-policy full|dots|heavy]
+             [--opt adamw|adafactor] [--fast] [--save-every N]
+             [--state-dir DIR] [--resume] [--preset P] [--seed N] [--tp N]
+             [--device cuda|cpu] [--lora-rank R] [--lora-alpha A] [--flip]
+             [--ti "<placeholder>" [--ti-vectors N] [--ti-init TOKEN] [--ti-lr F]]
+
+    sdtpu's flags with sdtpu's meanings (sdtpu/cli.py:finetune_main). --fast
+    is sdtpu's best-throughput full fine-tune (adafactor, batch 8, no
+    remat), applied as defaults before parsing, so explicit flags override
+    its pieces wherever they stand. --lora-rank trains an adapter and
+    writes it beside the merged model (`<out_model>.lora.safetensors`);
+    --ti learns a concept's embedding rows and writes
+    `<out_model>.ti.safetensors` for `sample --concept`. --device: cuda (the
+    default; exit 1 without a card) or cpu; sdtpu's tpu exits 1. The model
+    loads in f32 and --bf16 is the training's compute dtype only (the
+    master weights stay f32). With SDTPU_PROFILE=1 it prints its phases'
+    wall seconds (the load, and inside the run the latent cache or the
+    concept's data, the train state's save and restore and the model's
+    save), the run's whole seconds (train_s), each kernel's launches and the
+    peak device memory as one JSON line."""
+    argv = list(sys.argv if argv is None else argv)
+
+    opts = {"steps": 100, "batch": 4, "accum": 1, "accum_bf16": False, "lr": 1e-5, "ema": None,
+            "bf16": False, "remat": False, "opt": "adamw", "save_every": 0, "state_dir": None,
+            "resume": False, "preset": "sd-v1-4", "seed": 0, "tp": 1, "device": None,
+            "lora_rank": None, "lora_alpha": None, "flip": False, "ti": None, "ti_vectors": 1,
+            "ti_init": None, "ti_lr": None}
+    if "--fast" in argv:
+        argv = [a for a in argv if a != "--fast"]
+        opts.update({"opt": "adafactor", "batch": 8, "remat": False})
+    i, positional = 1, [argv[0]]
+
+    def flag_value(idx: int) -> str:
+        if idx + 1 >= len(argv):
+            _fail(f"Error: {argv[idx]} requires a value")
+        return argv[idx + 1]
+
+    # flag -> (option, parse); parse None: a switch
+    flags = {"--steps": ("steps", int), "--batch": ("batch", int), "--accum": ("accum", int),
+             "--lr": ("lr", float), "--ema": ("ema", float), "--bf16": ("bf16", None),
+             "--remat": ("remat", None), "--remat-policy": ("remat", str),
+             "--accum-bf16": ("accum_bf16", None), "--opt": ("opt", str),
+             "--save-every": ("save_every", int), "--state-dir": ("state_dir", str),
+             "--resume": ("resume", None), "--preset": ("preset", str),
+             "--seed": ("seed", int), "--tp": ("tp", int), "--device": ("device", str),
+             "--lora-rank": ("lora_rank", int), "--lora-alpha": ("lora_alpha", float),
+             "--flip": ("flip", None), "--ti": ("ti", str), "--ti-vectors": ("ti_vectors", int),
+             "--ti-init": ("ti_init", str), "--ti-lr": ("ti_lr", float)}
+    while i < len(argv):
+        a = argv[i]
+        if a not in flags:
+            positional.append(a); i += 1
+            continue
+        key, parse = flags[a]
+        if parse is None:
+            opts[key] = True; i += 1
+            continue
+        opts[key] = parse(flag_value(i)); i += 2
+        if a == "--remat-policy" and opts["remat"] not in ("full", "dots", "heavy"):
+            _fail("Error: --remat-policy must be full|dots|heavy")
+        if a == "--opt" and opts["opt"] not in ("adamw", "adafactor"):
+            _fail("Error: --opt must be adamw|adafactor")
+
+    if len(positional) != 5:
+        _fail(f"Usage: {positional[0]} <model_type(burn|dump|native|ckpt)> "
+              "<model_name> <data_dir|cache.npz> <out_model> [flags]")
+    model_type, model_name, data, out_model = positional[1:5]
+    device = _select_device(opts["device"])
+
+    from sdtpu_torch import finetune
+    from sdtpu_torch.tokenizer import SimpleTokenizer
+    from sdtpu_torch.utils import profiling
+
+    print("Loading tokenizer...")
+    with profiling.phase("load_tokenizer"):
+        tokenizer = SimpleTokenizer()
+    print("Loading model...")
+    with profiling.phase("load_model", device):
+        # f32, as sdtpu loads it: --bf16 is the compute dtype, not the weights'
+        sd = load_model(model_type, model_name, opts["preset"], device=device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    compute_dtype = torch.bfloat16 if opts["bf16"] else torch.float32
+
+    t0 = time.perf_counter()
+    if opts["ti"] is not None:
+        print(f"Learning concept {opts['ti']!r} for {opts['steps']} steps "
+              f"(batch {opts['batch']}, {opts['ti_vectors']} vectors)...")
+        result = finetune.run_textual_inversion(
+            sd, tokenizer, data, out_model, placeholder=opts["ti"], n_vectors=opts["ti_vectors"],
+            init_token=opts["ti_init"], steps=opts["steps"], batch_size=opts["batch"],
+            lr=opts["ti_lr"] if opts["ti_lr"] is not None else 5e-3,
+            compute_dtype=compute_dtype, remat=opts["remat"], seed=opts["seed"])
+        print(f"Done: final loss {result['final_loss']:.5f}, "
+              f"{result['steps_per_sec']:.2f} steps/sec, concept at {result['out_path']}")
+    else:
+        print(f"Fine-tuning for {opts['steps']} steps "
+              f"(batch {opts['batch']}, accum {opts['accum']}, lr {opts['lr']})...")
+        result = finetune.run_finetune(
+            sd, tokenizer, data, out_model,
+            steps=opts["steps"], batch_size=opts["batch"], accum=opts["accum"],
+            accum_bf16=opts["accum_bf16"], lr=opts["lr"], ema_decay=opts["ema"],
+            opt_kind=opts["opt"], compute_dtype=compute_dtype, remat=opts["remat"],
+            tp=opts["tp"], seed=opts["seed"], save_every=opts["save_every"],
+            state_dir=opts["state_dir"], resume=opts["resume"],
+            lora_rank=opts["lora_rank"], lora_alpha=opts["lora_alpha"], flip=opts["flip"])
+        print(f"Done: final loss {result['final_loss']:.5f}, "
+              f"{result['steps_per_sec']:.2f} steps/sec, model at {result['out_path']}")
+    train_s = time.perf_counter() - t0
+    if profiling.enabled():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        peak = (torch.cuda.max_memory_allocated(device) / 1024 ** 3
+                if device.type == "cuda" else None)
+        print(profiling.REGISTRY.report({
+            "steps": opts["steps"], "batch": opts["batch"], "device": str(device),
+            "train_s": round(train_s, 4),
+            "steps_per_sec": result["steps_per_sec"], "losses": result["losses"],
+            "peak_memory_gib": None if peak is None else round(peak, 4),
             "kernels": _launch_counts(),
         }))
 

@@ -1,20 +1,30 @@
-"""Fine-tuning the UNet end to end: image folder -> latent cache -> train ->
-model (port of sdtpu/finetune.py: resolve_cache and run_finetune, on one
-device).
+"""Fine-tuning end to end: image folder -> latent cache -> train -> model
+(port of sdtpu/finetune.py, on one device), and its command line:
+
+    python -m sdtpu_torch.finetune <burn|dump|native|ckpt> <model> \
+        <data_dir|cache.npz> <out_model> [--steps N --batch B --fast ...]
+
+(sdtpu's `finetune` flags; see sdtpu_torch.cli.finetune_main).
 
     dataset.build_latent_cache  (the port's VAE encoder and CLIP, once)
     dataset.LatentBatches       (shuffled batches, staged by a thread)
     training.make_train_step    (the loss inside dispatch.training(): K1
                                  forward and K9 backward in the attention at
-                                 the 64² level, plain PyTorch elsewhere)
+                                 the 64² level, plain PyTorch elsewhere;
+                                 AdamW or Adafactor; micro-batches summed in
+                                 f32 or bf16)
+    lora.make_lora_train_step   (an adapter over the frozen base instead)
+    io.checkpoint               (train-state save and resume)
     io.native.save_native       (the tuned model, sdtpu's format)
 
 Only the UNet trains (CLIP and the VAE stay frozen, the split the latent
 cache bakes in), from f32 master copies of sdtpu's UNet tree: the pipeline's
 tree without the fused attn1.qkv leaves (models/unet.py:unfuse_qkv), so the
-saved model holds sdtpu's keys and nothing else. sdtpu's options that the
-port does not carry yet raise NotImplementedError and name their ROADMAP
-item; none is ignored.
+saved model holds sdtpu's keys and nothing else. run_textual_inversion
+learns a concept's embedding rows instead. sdtpu's `tp` is not ported and
+raises NotImplementedError. The work around the steps (the latent cache or
+the concept's data, the train state's save and restore, the model's save)
+adds its wall seconds to utils.profiling's phases.
 """
 
 from __future__ import annotations
@@ -23,14 +33,21 @@ import os
 import time
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from sdtpu_torch.config import StableDiffusionConfig
 from sdtpu_torch.dataset import LatentBatches, build_latent_cache, load_latent_cache
+from sdtpu_torch.io.checkpoint import restore_train_state, save_train_state
 from sdtpu_torch.io.native import save_native
+from sdtpu_torch.lora import (apply_lora, init_lora, lora_param_count, make_lora_train_step,
+                              save_lora)
 from sdtpu_torch.models.unet import unfuse_qkv
-from sdtpu_torch.training import (ema_update, make_optimizer, make_train_step, master_params,
-                                  tree_map)
+from sdtpu_torch.textual_inversion import (init_ti_embeddings, make_ti_train_step,
+                                           prepare_ti_data, save_ti)
+from sdtpu_torch.training import (AdamW, ema_update, make_optimizer, make_train_step,
+                                  master_params, tree_map)
+from sdtpu_torch.utils import profiling
 
 
 def resolve_cache(sd, tokenizer, data: str, batch: int = 8, flip: bool = False) -> str:
@@ -52,22 +69,94 @@ def resolve_cache(sd, tokenizer, data: str, batch: int = 8, flip: bool = False) 
     return cache
 
 
-def _refuse_unported(lora_rank, opt_kind, accum_bf16, state_dir, resume, save_every, tp):
-    """sdtpu's options the port does not carry yet: raise, never ignore."""
-    unported = []
-    if lora_rank:
-        unported.append("lora_rank (LoRA: ROADMAP queue 1, item 14)")
-    if opt_kind == "adafactor":
-        unported.append("opt_kind='adafactor' (ROADMAP queue 1, item 14)")
-    if accum_bf16:
-        unported.append("accum_bf16 (training.multi_steps: ROADMAP queue 1, item 14)")
-    if state_dir or resume or save_every:
-        unported.append("state_dir/resume/save_every (train-state resume, io/checkpoint.py: "
-                        "ROADMAP queue 1, item 14)")
-    if tp != 1:
-        unported.append("tp (parallel/: ROADMAP queue 1, item 15)")
-    if unported:
-        raise NotImplementedError("not ported yet: " + "; ".join(unported))
+def run_textual_inversion(
+    sd,
+    tokenizer,
+    data_dir: str,
+    out_path: str,
+    *,
+    placeholder: str = "<sks>",
+    n_vectors: int = 1,
+    init_token: Optional[str] = None,
+    steps: int = 100,
+    batch_size: int = 4,
+    lr: float = 5e-3,
+    compute_dtype=torch.float32,
+    remat: bool | str = False,
+    seed: int = 0,
+    log_every: int = 10,
+    log: Callable[[str], None] = print,
+) -> dict:
+    """Learn `n_vectors` new CLIP token-embedding rows for `placeholder`
+    from the images in `data_dir` on sd's device; write an sdtpu-ti
+    safetensors concept (`sample --concept`). The model is untouched: the
+    rows are the only trained state, under plain Adam at `lr` (the
+    standard recipe). Each step's batch is sdtpu's:
+    np.random.default_rng(seed).choice(n, batch_size, replace=n <
+    batch_size); its t and noise come from a torch.Generator seeded with
+    `seed` on the device, and random initial rows (no init_token) from one
+    seeded with seed + 1 (not sdtpu's draws).
+
+    Returns {"steps", "final_loss", "losses", "out_path", "steps_per_sec"}.
+    """
+    if data_dir.endswith(".npz"):
+        raise ValueError(
+            "textual inversion needs the raw image directory (captions are "
+            "re-tokenized with the placeholder), not a latent cache")
+    cfg: StableDiffusionConfig = sd.config
+    dev = sd.device
+    with profiling.phase("ti_data", dev):
+        latents, tokens, valid = prepare_ti_data(sd, tokenizer, data_dir,
+                                                 placeholder=placeholder, n_vectors=n_vectors,
+                                                 batch=min(8, max(batch_size, 1)))
+    n = len(latents)
+    log(f"dataset: {n} examples, placeholder {placeholder!r} x{n_vectors} vectors")
+    init_id = None
+    if init_token is not None:
+        ids = tokenizer.encode(init_token)
+        if len(ids) != 1:
+            raise ValueError(f"init token {init_token!r} must be a single BPE token "
+                             f"(got {len(ids)})")
+        init_id = ids[0]
+    new_emb = init_ti_embeddings(torch.Generator(device=dev).manual_seed(seed + 1),
+                                 sd.params["clip"], n_vectors, init_id)
+    new_emb = master_params(new_emb)
+    opt = AdamW(lr)  # optax.adam(lr): no decay, no clip, no schedule
+    opt_state = opt.init(new_emb)
+    step_fn = make_ti_train_step(cfg, opt, compute_dtype=compute_dtype, remat=remat)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    losses = []
+    t_start = time.perf_counter()
+    for i in range(steps):
+        idx = rng.choice(n, size=batch_size, replace=n < batch_size)
+        batch = (torch.from_numpy(latents[idx]).to(dev),
+                 torch.from_numpy(tokens[idx]).long().to(dev),
+                 torch.from_numpy(valid[idx]).to(dev))
+        new_emb, opt_state, loss = step_fn(new_emb, opt_state, sd.params, batch, gen)
+        # the last step's loss is always kept, so final_loss means something
+        # for any log_every, 0 included
+        if (log_every and i % log_every == 0) or i + 1 == steps:
+            loss_f = float(loss)
+            losses.append((i, loss_f))
+            if log_every:
+                log(f"step {i + 1}/{steps} loss {loss_f:.5f}")
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t_start
+
+    if not out_path.endswith(".safetensors"):
+        out_path = f"{out_path}.ti.safetensors"
+    with profiling.phase("save_model"):
+        save_ti(new_emb, out_path, placeholder, config_name=cfg.name)
+    log(f"concept saved to {out_path}")
+    return {
+        "steps": steps,
+        "final_loss": losses[-1][1] if losses else float("nan"),
+        "losses": losses,
+        "out_path": out_path,
+        "steps_per_sec": steps / dt if dt > 0 else float("inf"),
+    }
 
 
 def run_finetune(
@@ -100,60 +189,143 @@ def run_finetune(
     log: Callable[[str], None] = print,
 ) -> dict:
     """Fine-tune `sd`'s UNet on `data` (an image folder or a cache npz) on
-    sd's device; write `<out_model>.safetensors`. accum > 1: each optimizer
-    step averages the gradients of `accum` equal micro-batches in f32. The
-    step's t and noise come from a torch.Generator seeded with `seed` on
-    the device (not sdtpu's draws); the batches from sdtpu's permutation of
-    the cache. lora_alpha matters only with LoRA.
+    sd's device; write `<out_model>.safetensors` (the EMA's weights when
+    ema_decay is set).
 
-    Returns {"steps", "final_loss", "losses", "out_path", "steps_per_sec"}.
+    - accum > 1: each optimizer step averages the gradients of `accum`
+      equal micro-batches, their running sum in f32, or in bf16 with
+      accum_bf16 (which needs accum > 1). The loss logged at a step is the
+      mean over its micro-batches.
+    - opt_kind: "adamw" or "adafactor" (training.make_optimizer).
+    - lora_rank: train a LoRA adapter over the attention linears of the f32
+      unfused base instead of the UNet (lora_alpha defaults to the rank);
+      writes `<out_model>.lora.safetensors` (the EMA's adapter with
+      ema_decay) and the model merged against that base.
+    - save_every with state_dir: the train state (io/checkpoint.py) saved
+      every `save_every` optimizer steps; resume: start at the step saved
+      in state_dir, under the flags it was saved with. The batches and the
+      draws start again from the seed, as sdtpu's do.
+
+    The step's t and noise come from a torch.Generator seeded with `seed`
+    on the device, an adapter's initial `a` from one seeded with seed + 1
+    (not sdtpu's draws); the batches from sdtpu's permutation of the cache.
+
+    Returns {"steps", "final_loss", "losses", "out_path", "lora_path",
+    "steps_per_sec"}; steps_per_sec counts the steps run since the resume.
     """
-    _refuse_unported(lora_rank, opt_kind, accum_bf16, state_dir, resume, save_every, tp)
+    if tp != 1:
+        raise NotImplementedError("tp is not ported yet (parallel/: ROADMAP queue 1, item 15)")
     cfg: StableDiffusionConfig = sd.config
     if batch_size % accum:
         raise ValueError(f"batch_size {batch_size} not divisible by accum {accum}")
-    cache = resolve_cache(sd, tokenizer, data, batch=min(8, batch_size), flip=flip)
+    if accum_bf16 and accum <= 1:
+        # there is no running gradient sum to keep in bf16
+        raise ValueError("--accum-bf16 has no effect without --accum k>1")
+    accum_dtype = torch.bfloat16 if accum_bf16 else None
+    with profiling.phase("latent_cache", sd.device):
+        cache = resolve_cache(sd, tokenizer, data, batch=min(8, batch_size), flip=flip)
     latents, contexts, n_valid = load_latent_cache(cache)
     log(f"dataset: {len(latents)} examples from {cache}")
 
-    params = master_params(unfuse_qkv(sd.params["unet"]))
+    # f32 master copies of sdtpu's UNet tree (the fused attn1.qkv leaves
+    # dropped); a LoRA run keeps it frozen, by reference where it is f32
+    base = unfuse_qkv(sd.params["unet"])
     opt = make_optimizer(lr=lr, warmup_steps=warmup_steps, total_steps=steps,
                          weight_decay=weight_decay, grad_clip=grad_clip, kind=opt_kind)
-    opt_state = opt.init(params)
-    # the EMA shadow, updated at each optimizer step (sdtpu applies it on the
-    # host at the step boundary); it is what the model saves when kept
-    ema = None if ema_decay is None else tree_map(lambda p: p.detach().clone(), params)
-    step_fn = make_train_step(cfg, opt, compute_dtype=compute_dtype, remat=remat, accum=accum)
-    gen = torch.Generator(device=sd.device).manual_seed(seed)
+    alpha = None
+    if lora_rank:
+        base = tree_map(lambda p: p.float() if torch.is_tensor(p) else p, base)
+        alpha = float(lora_alpha if lora_alpha is not None else lora_rank)
+        train_tree = master_params(init_lora(
+            torch.Generator(device=sd.device).manual_seed(seed + 1), base, rank=lora_rank))
+        log(f"LoRA rank {lora_rank} alpha {alpha:g}: "
+            f"{lora_param_count(train_tree) / 1e6:.2f}M adapter params")
+        lora_step = make_lora_train_step(cfg, opt, alpha / lora_rank,
+                                         compute_dtype=compute_dtype, remat=remat, accum=accum,
+                                         accum_dtype=accum_dtype)
 
+        def step_fn(tree, state, batch, gen):
+            return lora_step(tree, state, base, batch, gen)
+    else:
+        train_tree = master_params(base)
+        step_fn = make_train_step(cfg, opt, compute_dtype=compute_dtype, remat=remat,
+                                  accum=accum, accum_dtype=accum_dtype)
+    opt_state = opt.init(train_tree)
+    # the EMA shadow, updated at each optimizer step; what the run saves
+    ema = None if ema_decay is None else tree_map(lambda p: p.detach().clone(), train_tree)
+    flags = {"opt_kind": opt_kind, "accum": accum, "accum_bf16": accum_bf16,
+             "lora_rank": lora_rank or None, "lora_alpha": alpha, "ema": ema is not None}
+
+    step0 = 0
+    if resume:
+        if not (state_dir and os.path.isdir(state_dir)):
+            raise FileNotFoundError(f"--resume: no train state at {state_dir!r}")
+        try:
+            with profiling.phase("restore_train_state", sd.device):
+                step0 = restore_train_state(state_dir, train_tree, opt_state, ema=ema,
+                                            flags=flags)
+        except (ValueError, KeyError, TypeError) as e:
+            raise RuntimeError(
+                f"--resume: failed to restore train state at {state_dir!r} "
+                f"[{type(e).__name__}: {e}]. If these flags (accum={accum}, "
+                f"accum_bf16={accum_bf16}, opt={opt_kind}, lora_rank={lora_rank}, "
+                f"lora_alpha={alpha}, ema={ema is not None}) differ from the ones the state "
+                f"was saved under, resume with the original flags or restart from the model "
+                f"checkpoint; if they match, the saved state is likely incomplete or "
+                f"corrupt.") from e
+        log(f"resumed step {step0} from {state_dir}")
+
+    gen = torch.Generator(device=sd.device).manual_seed(seed)
     batches = LatentBatches(latents, contexts, n_valid, batch_size=batch_size, seed=seed,
                             device=sd.device)
     losses = []
     t_start = time.perf_counter()
     try:
-        for i in range(steps):
-            params, opt_state, loss = step_fn(params, opt_state, next(batches), gen)
+        for i in range(step0, steps):
+            train_tree, opt_state, loss = step_fn(train_tree, opt_state, next(batches), gen)
             if ema is not None:
-                ema_update(ema, params, ema_decay)
+                ema_update(ema, train_tree, ema_decay)
             if log_every and (i % log_every == 0 or i + 1 == steps):
                 loss_f = float(loss)  # waits for the step; cadence bounded by log_every
                 losses.append((i, loss_f))
                 log(f"step {i + 1}/{steps} loss {loss_f:.5f}")
+            if save_every and state_dir and (i + 1) % save_every == 0:
+                with profiling.phase("save_train_state", sd.device):
+                    save_train_state(state_dir, train_tree, opt_state, i + 1, ema=ema,
+                                     flags=flags)
+                log(f"train state saved at step {i + 1} -> {state_dir}")
         if sd.device.type == "cuda":
             torch.cuda.synchronize(sd.device)
     finally:
         batches.close()
     dt = time.perf_counter() - t_start
 
+    final_tree = ema if ema is not None else train_tree
     out_path = out_model if out_model.endswith(".safetensors") else f"{out_model}.safetensors"
+    lora_path = None
     full = dict(sd.params)
-    full["unet"] = ema if ema is not None else params
-    save_native(full, out_path, cfg)
+    with profiling.phase("save_model", sd.device):
+        if lora_rank:
+            lora_path = out_path.replace(".safetensors", ".lora.safetensors")
+            save_lora(final_tree, lora_path, rank=lora_rank, alpha=alpha, config_name=cfg.name)
+            log(f"adapter saved to {lora_path}")
+            with torch.no_grad():
+                full["unet"] = apply_lora(base, final_tree, alpha / lora_rank)
+        else:
+            full["unet"] = final_tree
+        save_native(full, out_path, cfg)
     log(f"model saved to {out_path}")
     return {
         "steps": steps,
         "final_loss": losses[-1][1] if losses else float("nan"),
         "losses": losses,
         "out_path": out_path,
-        "steps_per_sec": steps / dt if dt > 0 else float("inf"),
+        "lora_path": lora_path,
+        "steps_per_sec": max(steps - step0, 1) / dt if dt > 0 else float("inf"),
     }
+
+
+if __name__ == "__main__":
+    from sdtpu_torch.cli import finetune_main
+
+    finetune_main()

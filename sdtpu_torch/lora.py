@@ -1,9 +1,12 @@
-"""LoRA adapters at inference (port of the inference half of sdtpu/lora.py).
+"""LoRA adapters: training and inference (port of sdtpu/lora.py).
 
 An adapter is a second tree mirroring the UNet's attention linears: for
 each adapted linear {"a": [in, rank], "b": [rank, out]}. apply_lora
 merges it functionally, w_eff = w + (a @ b) * scale in f32, cast back to
-w's dtype; every other leaf is passed through by reference. List positions
+w's dtype; every other leaf is passed through by reference. The train step
+differentiates through that merge with respect to the adapter only: the
+base tree is frozen and shared, and the optimizer state covers the
+adapter (MBs where a full fine-tune's AdamW keeps 6.9 GB). List positions
 of the parameter tree are string indices in the adapter ("3"), so a sparse
 adapter survives the '/'-flattened file without io.native's
 digit-keys-to-list coercion.
@@ -11,21 +14,84 @@ digit-keys-to-list coercion.
 Files are sdtpu's: safetensors with format=sdtpu-lora, rank and alpha in
 the metadata (scale = alpha / rank), read and written by the port's own
 safetensors code (io/native.py), so each package reads the other's.
-Training an adapter is not ported.
 """
 
 from __future__ import annotations
 
 import json
+import math
 from typing import Any, Dict, Tuple
 
 import torch
 
 from sdtpu_torch.io.native import flatten_tree, load_safetensors, save_safetensors
+from sdtpu_torch.training import (diffusion_loss, draw_t_noise, micro_batch_grads, tree_leaves)
 
 # the standard recipe: the attention projections, self- and cross-attention
 # query/key/value/out (models/unet.py:_init_cross_attn)
 DEFAULT_TARGETS = ("query", "key", "value", "out")
+
+
+def init_lora(generator: torch.Generator, params, rank: int = 8, targets=DEFAULT_TARGETS):
+    """An adapter tree for every 2-D linear named in `targets`, in the
+    order sdtpu's init_lora walks the tree: a ~ N(0, 1) / sqrt(rank), drawn
+    from `generator` on its device, b = 0 (the adapter starts as an exact
+    no-op), f32 on the weight's device. sdtpu's tree, without the fused
+    attn1.qkv leaves (models/unet.py:unfuse_qkv), gives sdtpu's targets."""
+    def rec(node, name):
+        if isinstance(node, dict):
+            w = node.get("w")
+            if name in targets and torch.is_tensor(w) and w.ndim == 2:
+                n_in, n_out = w.shape
+                a = torch.randn((n_in, rank), generator=generator, device=generator.device)
+                return {"a": (a / math.sqrt(rank)).to(w.device),
+                        "b": torch.zeros((rank, n_out), device=w.device)}
+            sub = {k: rec(v, k) for k, v in node.items()}
+            return {k: v for k, v in sub.items() if v is not None} or None
+        if isinstance(node, (list, tuple)):
+            sub = {str(i): rec(v, name) for i, v in enumerate(node)}
+            return {k: v for k, v in sub.items() if v is not None} or None
+        return None
+
+    lora = rec(params, "")
+    if not lora:
+        raise ValueError(f"no {targets} linears found to adapt")
+    return lora
+
+
+def lora_param_count(lora) -> int:
+    return sum(leaf.numel() for leaf in tree_leaves(lora))
+
+
+def make_lora_train_step(cfg, optimizer, scale: float, compute_dtype=torch.float32,
+                         remat: bool | str = False, accum: int = 1, accum_dtype=None):
+    """train_step(lora, opt_state, base, batch, generator=None, *, t=None,
+    noise=None) -> (lora, opt_state, loss), sdtpu's make_lora_train_step.
+    lora: the adapter, f32 leaves that require grad (training.master_params),
+    updated in place; base: the frozen UNet tree (sdtpu's, unfused), which
+    no step copies or changes. Only the adapter gets gradients. Under a
+    bf16 compute dtype the merged weights are cast to bf16, as sdtpu's
+    eff_dtype does. batch, t, noise and accum as in
+    training.make_train_step."""
+    eff_dtype = None if compute_dtype == torch.float32 else compute_dtype
+
+    def train_step(lora, opt_state, base, batch, generator=None, *, t=None, noise=None):
+        latents, context = batch[0], batch[1]
+        ctx_valid = batch[2] if len(batch) > 2 else None
+        t, noise = draw_t_noise(cfg, latents, generator, t, noise)
+
+        def loss_of(sl):
+            p = apply_lora(base, lora, scale, dtype=eff_dtype)
+            return diffusion_loss(p, cfg, latents[sl], context[sl], t[sl], noise[sl],
+                                  None if ctx_valid is None else ctx_valid[sl],
+                                  compute_dtype=compute_dtype, remat=remat)
+
+        loss, grads = micro_batch_grads(loss_of, tree_leaves(lora), latents.shape[0], accum,
+                                        accum_dtype)
+        optimizer.update(lora, grads, opt_state)
+        return lora, opt_state, loss
+
+    return train_step
 
 
 def apply_lora(params, lora, scale: float, dtype=None):

@@ -1,10 +1,12 @@
-"""Textual inversion at inference (port of the inference half of
+"""Textual inversion: learning a concept and using it (port of
 sdtpu/textual_inversion.py).
 
 A textual-inversion concept is `n_vectors` new rows of the CLIP token
 embedding table, learned for a placeholder word (e.g. "<sks>"); the model's
 weights are untouched. The table is extended by concatenation when a
-context is encoded: no tokenizer or module is mutated. The placeholder
+context is encoded: no tokenizer or module is mutated. Training runs the
+whole CLIP text encoder inside the graph, and the gradients reach only the
+new rows. The placeholder
 cannot go through BPE (it would split): `splice_prompt_ids` splits the
 prompt on the placeholder string and inserts the new ids (n_vocab ..
 n_vocab + n_vectors - 1) between the BPE-encoded segments, inside the
@@ -13,9 +15,7 @@ usual SOT/EOT wrap.
 Files are sdtpu's: safetensors with one "embeddings" tensor [n_vectors,
 n_state] (f32) and format=sdtpu-ti, the placeholder and the config name in
 the metadata, read and written by the port's own safetensors code
-(io/native.py), so each package reads the other's. Learning the rows
-(sdtpu's init_ti_embeddings, make_ti_train_step and prepare_ti_data) is not
-ported.
+(io/native.py), so each package reads the other's.
 """
 
 from __future__ import annotations
@@ -26,7 +26,10 @@ import numpy as np
 import torch
 
 from sdtpu_torch.io.native import load_safetensors, save_safetensors
+from sdtpu_torch.models.clip import clip_apply
+from sdtpu_torch.ops import dispatch
 from sdtpu_torch.tokenizer import EOT_ID, SOT_ID
+from sdtpu_torch.training import diffusion_loss, draw_t_noise
 
 DEFAULT_PLACEHOLDER = "<sks>"
 
@@ -44,6 +47,20 @@ def splice_prompt_ids(tokenizer, prompt: str, placeholder: str,
             ids.extend(tokenizer.encode(part.strip()))
     ids.append(EOT_ID)
     return ids
+
+
+def init_ti_embeddings(generator: torch.Generator, clip_params, n_vectors: int,
+                       init_token_id: Optional[int] = None) -> torch.Tensor:
+    """New rows [n_vectors, n_state], f32 on the table's device: copies of
+    an existing token's row (init_token_id, the standard recipe: a word
+    close to the concept), else N(0, 1) from `generator` times the table's
+    population std."""
+    w = clip_params["token_embedding"]["w"]
+    if init_token_id is not None:
+        return w[init_token_id].float()[None].repeat(n_vectors, 1)
+    std = float(w.float().std(correction=0))
+    rows = torch.randn((n_vectors, w.shape[1]), generator=generator, device=generator.device)
+    return (rows * std).to(w.device)
 
 
 def extend_clip(clip_params, new_embeddings):
@@ -84,6 +101,66 @@ def generate_with_ti(sd, tokenizer, prompt: str, new_embeddings,
         ctx_valid=valid, uncond_valid=unvalid,
         karras_sigmas=karras_sigmas)
     return sd.latent_to_image(latent)
+
+
+def make_ti_train_step(cfg, optimizer, compute_dtype=torch.float32, remat: bool | str = False):
+    """train_step(new_emb, opt_state, params, batch, generator=None, *,
+    t=None, noise=None) -> (new_emb, opt_state, loss), sdtpu's
+    make_ti_train_step. new_emb: the rows, f32, requires grad, updated in
+    place; params: the frozen model tree ({"clip", "unet", ...}); batch =
+    (latents, tokens [B, n_ctx] int, ctx_valid [B, n_ctx] bool). The CLIP
+    forward runs here, recorded by autograd (dispatch.training(), as sdtpu's
+    force_xla), and the gradients reach only the new rows. t and noise as
+    in training.make_train_step."""
+    def train_step(new_emb, opt_state, params, batch, generator=None, *, t=None, noise=None):
+        latents, tokens, ctx_valid = batch
+        t, noise = draw_t_noise(cfg, latents, generator, t, noise)
+        with dispatch.training():
+            ctx = clip_apply(extend_clip(params["clip"], new_emb), tokens, cfg.clip)
+        loss = diffusion_loss(params["unet"], cfg, latents, ctx, t, noise, ctx_valid=ctx_valid,
+                              compute_dtype=compute_dtype, remat=remat)
+        (grad,) = torch.autograd.grad(loss, [new_emb])
+        optimizer.update(new_emb, [grad.float()], opt_state)
+        return new_emb, opt_state, loss.detach()
+
+    return train_step
+
+
+def prepare_ti_data(sd, tokenizer, data_dir: str, placeholder: str = DEFAULT_PLACEHOLDER,
+                    n_vectors: int = 1, batch: int = 4
+                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """-> (latents [N, h, w, 4] f32, tokens [N, n_ctx] int32, valid [N,
+    n_ctx] bool), numpy. The latents are sd.encode_image's in chunks of
+    `batch` images (the last padded with zeros), times latent_scale; the
+    captions come from the usual sidecar files and must contain the
+    placeholder (an image without one gets "a photo of <placeholder>")."""
+    from sdtpu_torch.dataset import center_crop_resize, list_examples, load_image_u8
+
+    cfg = sd.config
+    examples = list_examples(data_dir)
+    size, n_ctx = cfg.image_size, cfg.clip.n_ctx
+    lat_list, tok_list, nv_list = [], [], []
+    for start in range(0, len(examples), batch):
+        chunk = examples[start:start + batch]
+        imgs = np.stack([center_crop_resize(load_image_u8(p), size) for p, _ in chunk])
+        x = imgs.astype(np.float32) / 127.5 - 1.0
+        pad = batch - len(chunk)
+        if pad:
+            x = np.concatenate([x, np.zeros((pad,) + x.shape[1:], x.dtype)])
+        z = sd.encode_image(x)[: len(chunk)]
+        lat_list.append(z.float().cpu().numpy() * cfg.latent_scale)
+        for _, caption in chunk:
+            caption = caption or f"a photo of {placeholder}"
+            if placeholder not in caption:
+                raise ValueError(f"caption {caption!r} does not contain the placeholder "
+                                 f"{placeholder!r}")
+            ids = splice_prompt_ids(tokenizer, caption, placeholder, cfg.clip.n_vocab, n_vectors)
+            ids = ids[: n_ctx - 1] + [ids[-1]] if len(ids) > n_ctx else ids
+            nv_list.append(len(ids))
+            tok_list.append(ids + [0] * (n_ctx - len(ids)))
+    tokens = np.asarray(tok_list, np.int32)
+    valid = np.arange(n_ctx)[None, :] < np.asarray(nv_list)[:, None]
+    return np.concatenate(lat_list), tokens, valid
 
 
 def save_ti(new_embeddings, path: str, placeholder: str, config_name: str = "") -> None:

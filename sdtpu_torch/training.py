@@ -1,18 +1,19 @@
 """Diffusion training (port of sdtpu/training.py): the epsilon / v
-objective, AdamW with global-norm clipping under a warmup-cosine schedule,
-the EMA of the weights, and the training step with gradient accumulation.
+objective, AdamW and Adafactor with global-norm clipping under a
+warmup-cosine schedule, the EMA of the weights, and the training step with
+gradient accumulation (the running sum in f32, or in bf16: sdtpu's
+multi_steps(..., accum_dtype=bfloat16)).
 
 The loss runs the UNet inside dispatch.training(), so the forward-only
 kernels stay out of the graph and the one differentiable kernel pair runs
 (K1 forward, K9 backward: ops/flash_attention.py). jax.value_and_grad is
-torch.autograd.grad over the leaves of the parameter tree. The optimizer is
-written to optax's definitions, the counterpart of sdtpu's
-optax.chain(clip_by_global_norm, adamw(warmup_cosine_decay_schedule)); it
-updates the parameters and its own state in place where sdtpu returns new
-trees, which saves a copy of each (3.4 GB per f32 copy of SD v1's UNet).
-
-Not ported yet (ROADMAP queue 1, item 14): adafactor, training.multi_steps
-(the bf16 gradient accumulator), LoRA and textual inversion.
+torch.autograd.grad over the leaves of the trained tree. The optimizers are
+written to optax's definitions, the counterparts of sdtpu's
+optax.chain(clip_by_global_norm, adamw | adafactor(warmup_cosine_decay_schedule));
+they update the parameters and their own state in place where sdtpu
+returns new trees, which saves a copy of each (3.4 GB per f32 copy of SD
+v1's UNet). One departure: Adafactor's weight decay is scaled by the
+learning rate (see Adafactor).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from __future__ import annotations
 import functools
 import math
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -101,6 +102,45 @@ def diffusion_loss(unet_params, cfg: StableDiffusionConfig, latents, context, t,
     return torch.mean((pred - target) ** 2)
 
 
+class _Recipe:
+    """What both optimizers share: sdtpu's schedule, optax's
+    warmup_cosine_decay_schedule(0, lr, warmup_steps, max(total_steps,
+    warmup_steps + 1)), or a constant lr when total_steps is None
+    (optax.adam(lr)'s); and optax's clip_by_global_norm(grad_clip), or no
+    clip when grad_clip is None."""
+
+    def __init__(self, lr: float, warmup_steps: int = 0, total_steps: Optional[int] = None,
+                 weight_decay: float = 0.0, grad_clip: Optional[float] = None):
+        self.lr = lr
+        self.warmup_steps = warmup_steps
+        self.decay_steps = None if total_steps is None else max(total_steps, warmup_steps + 1)
+        self.weight_decay = weight_decay
+        self.grad_clip = grad_clip
+
+    def schedule(self, count: int) -> float:
+        """The learning rate of update `count` (from 0): a linear warmup
+        from 0, then a cosine decay to 0 (optax's join of linear_schedule
+        and cosine_decay_schedule at warmup_steps)."""
+        if self.decay_steps is None:
+            return self.lr
+        w = self.warmup_steps
+        if count < w:
+            return self.lr * min(max(count, 0), w) / w
+        decay = self.decay_steps - w
+        c = min(count - w, decay)
+        return self.lr * 0.5 * (1.0 + math.cos(math.pi * c / decay))
+
+    def clip(self, g: List[torch.Tensor]) -> None:
+        """g · max / ||g|| in place where the global norm ||g|| >= max (no
+        epsilon, unlike torch.nn.utils.clip_grad_norm_)."""
+        if self.grad_clip is None:
+            return
+        norm = float(torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g))))
+        if not norm < self.grad_clip:
+            torch._foreach_div_(g, norm)
+            torch._foreach_mul_(g, self.grad_clip)
+
+
 @dataclass
 class AdamWState:
     """count: completed updates; mu, nu: the f32 moments, one per leaf of
@@ -110,41 +150,20 @@ class AdamWState:
     nu: List[torch.Tensor]
 
 
-class AdamW:
+class AdamW(_Recipe):
     """optax.chain(clip_by_global_norm(grad_clip), adamw(schedule,
-    weight_decay)) with schedule = optax.warmup_cosine_decay_schedule(0, lr,
-    warmup_steps, max(total_steps, warmup_steps + 1)), as sdtpu's
-    make_optimizer builds it:
+    weight_decay)), as sdtpu's make_optimizer builds it (see _Recipe for the
+    schedule and the clip):
 
-    - clip: g · max / ||g|| where the global norm ||g|| >= max, else g
-      (no epsilon, unlike torch.nn.utils.clip_grad_norm_);
     - Adam: mu = b1 mu + (1 - b1) g, nu = b2 nu + (1 - b2) g², u =
       mu / (1 - b1^n) / (sqrt(nu / (1 - b2^n)) + eps), n counted from 1;
     - decoupled weight decay on every leaf (no mask): u + wd · p;
     - p -= schedule(n - 1) · u, the schedule counted from 0.
 
+    AdamW(lr) alone is optax.adam(lr): a constant lr, no decay, no clip.
     update() works in place on the parameters and the state."""
 
     b1, b2, eps = 0.9, 0.999, 1e-8
-
-    def __init__(self, lr: float, warmup_steps: int, total_steps: int,
-                 weight_decay: float, grad_clip: float):
-        self.lr = lr
-        self.warmup_steps = warmup_steps
-        self.decay_steps = max(total_steps, warmup_steps + 1)
-        self.weight_decay = weight_decay
-        self.grad_clip = grad_clip
-
-    def schedule(self, count: int) -> float:
-        """The learning rate of update `count` (from 0): a linear warmup
-        from 0, then a cosine decay to 0 (optax's join of linear_schedule
-        and cosine_decay_schedule at warmup_steps)."""
-        w = self.warmup_steps
-        if count < w:
-            return self.lr * min(max(count, 0), w) / w
-        decay = self.decay_steps - w
-        c = min(count - w, decay)
-        return self.lr * 0.5 * (1.0 + math.cos(math.pi * c / decay))
 
     def init(self, params) -> AdamWState:
         leaves = tree_leaves(params)
@@ -157,10 +176,7 @@ class AdamW:
         which it clips in place."""
         leaves = tree_leaves(params)
         g = list(grads)
-        norm = float(torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g))))
-        if not norm < self.grad_clip:
-            torch._foreach_div_(g, norm)
-            torch._foreach_mul_(g, self.grad_clip)
+        self.clip(g)
         b1, b2 = self.b1, self.b2
         torch._foreach_mul_(state.mu, b1)
         torch._foreach_add_(state.mu, g, alpha=1.0 - b1)
@@ -180,18 +196,111 @@ class AdamW:
         torch._foreach_add_(leaves, u, alpha=-lr)
 
 
+@dataclass
+class AdafactorState:
+    """count: completed updates; per leaf of the parameter tree
+    (tree_leaves order) either the factored second moments v_row and v_col
+    (v None) or the whole one v (v_row and v_col None), f32."""
+    count: int
+    v_row: List[Optional[torch.Tensor]]
+    v_col: List[Optional[torch.Tensor]]
+    v: List[Optional[torch.Tensor]]
+
+
+class Adafactor(_Recipe):
+    """optax.chain(clip_by_global_norm(grad_clip), adafactor(schedule)) with
+    optax 0.2.6's defaults, as sdtpu's make_optimizer(kind="adafactor")
+    builds it (see _Recipe for the schedule and the clip). Per leaf, update
+    n (from 0):
+
+    - decay = 1 - (n + 1)^-0.8; g2 = g² + 1e-30;
+    - a leaf whose second-largest dim (d1) has >= 128 elements keeps the
+      means of g2 over its largest dim (d0), v_row, and over d1, v_col,
+      each decayed as v = decay · v + (1 - decay) · mean; û = g ·
+      (v_row / mean(v_row over d1))^-½ · v_col^-½; any other leaf keeps v =
+      decay · v + (1 - decay) · g2 whole and û = g · v^-½;
+    - û / max(1, rms(û)) (the block-RMS clip at 1);
+    - p -= lr_n · (û · max(rms(p), 1e-3) + wd · p).
+
+    sdtpu passes weight_decay to optax as weight_decay_rate, which optax
+    adds after the learning rate: each step subtracts wd · p whatever the
+    schedule (1 % of every weight a step at run_finetune's wd 1e-2, at lr
+    0 too). Here the decay is scaled by the schedule, as AdamW's is and as
+    Hugging Face's Adafactor does; with wd = 0 the update is sdtpu's.
+    update() works in place on the parameters and the state."""
+
+    decay_exponent, eps, clip_threshold = 0.8, 1e-30, 1.0
+    min_dim_size_to_factor, min_scale = 128, 1e-3
+
+    @classmethod
+    def factored_dims(cls, shape) -> Optional[tuple]:
+        """(d1, d0): the second-largest and the largest dim, or None where
+        the second-largest is under min_dim_size_to_factor (optax's
+        _factored_dims)."""
+        if len(shape) < 2:
+            return None
+        order = np.argsort(shape)
+        if shape[order[-2]] < cls.min_dim_size_to_factor:
+            return None
+        return int(order[-2]), int(order[-1])
+
+    def init(self, params) -> AdafactorState:
+        state = AdafactorState(0, [], [], [])
+        for p in tree_leaves(params):
+            dims = self.factored_dims(tuple(p.shape))
+            zeros = functools.partial(torch.zeros, dtype=torch.float32, device=p.device)
+            if dims is None:
+                state.v_row.append(None), state.v_col.append(None)
+                state.v.append(zeros(p.shape))
+            else:
+                d1, d0 = dims
+                state.v_row.append(zeros([n for i, n in enumerate(p.shape) if i != d0]))
+                state.v_col.append(zeros([n for i, n in enumerate(p.shape) if i != d1]))
+                state.v.append(None)
+        return state
+
+    @torch.no_grad()
+    def update(self, params, grads, state: AdafactorState) -> None:
+        """One step on params (a tree) from grads (f32, tree_leaves order),
+        which it clips in place."""
+        g = list(grads)
+        self.clip(g)
+        # optax's scalars are f32: decay_rate_t and 1 - decay_rate_t
+        decay = np.float32(1) - np.float32(state.count + 1) ** np.float32(-self.decay_exponent)
+        keep, mix = float(decay), float(np.float32(1) - decay)
+        lr = self.schedule(state.count)
+        state.count += 1
+        for i, (p, gi) in enumerate(zip(tree_leaves(params), g)):
+            g2 = gi * gi + self.eps
+            if state.v[i] is None:
+                d1, d0 = self.factored_dims(tuple(p.shape))
+                v_row = state.v_row[i].mul_(keep).add_(g2.mean(d0), alpha=mix)
+                v_col = state.v_col[i].mul_(keep).add_(g2.mean(d1), alpha=mix)
+                row = (v_row / v_row.mean(d1 - 1 if d1 > d0 else d1, keepdim=True)).rsqrt_()
+                u = gi * row.unsqueeze(d0) * v_col.rsqrt().unsqueeze(d1)
+            else:
+                u = gi * state.v[i].mul_(keep).add_(g2, alpha=mix).rsqrt()
+            del g2
+            u.div_(torch.clamp_min(u.square().mean().sqrt() / self.clip_threshold, 1.0))
+            u.mul_(lr).mul_(p.square().mean().sqrt().clamp_min_(self.min_scale))
+            if self.weight_decay:
+                u.add_(p, alpha=lr * self.weight_decay)
+            p.sub_(u)
+
+
+OPTIMIZERS = {"adamw": AdamW, "adafactor": Adafactor}
+
+
 def make_optimizer(lr: float = 1e-4, warmup_steps: int = 1000, total_steps: int = 1_000_000,
                    weight_decay: float = 1e-2, grad_clip: float = 1.0,
-                   kind: str = "adamw") -> AdamW:
-    """sdtpu's diffusion-training recipe: global-norm clip + AdamW with a
-    linear warmup into a cosine decay (sdtpu/training.py:76-103).
-    kind="adafactor" is not ported yet."""
-    if kind == "adafactor":
-        raise NotImplementedError(
-            "adafactor is not ported yet (ROADMAP queue 1, item 14); use kind='adamw'")
-    if kind != "adamw":
+                   kind: str = "adamw") -> _Recipe:
+    """sdtpu's diffusion-training recipe: global-norm clip + AdamW (or
+    Adafactor, kind="adafactor": factored second moments, a few MB of state
+    where AdamW keeps two f32 copies of the weights) with a linear warmup
+    into a cosine decay (sdtpu/training.py:76-103)."""
+    if kind not in OPTIMIZERS:
         raise ValueError(f"kind must be adamw|adafactor, got {kind!r}")
-    return AdamW(lr, warmup_steps, total_steps, weight_decay, grad_clip)
+    return OPTIMIZERS[kind](lr, warmup_steps, total_steps, weight_decay, grad_clip)
 
 
 @torch.no_grad()
@@ -205,53 +314,97 @@ def ema_update(ema_params, params, decay: float = 0.9999):
     return ema_params
 
 
-def loss_and_grads(params, cfg: StableDiffusionConfig, latents, context, t, noise,
-                   ctx_valid=None, compute_dtype=torch.float32, remat=False, accum: int = 1):
-    """(loss, f32 gradients in tree_leaves order) of diffusion_loss. accum >
-    1: the batch splits into `accum` equal micro-batches, run one after the
-    other, whose losses and gradients are averaged in f32 (activation
-    memory of one micro-batch, the gradient of the whole batch)."""
-    leaves = tree_leaves(params)
-    b = latents.shape[0]
-    if b % accum:
-        raise ValueError(f"batch {b} not divisible by accum {accum}")
-    mb = b // accum
+def accumulate_grads(g_sum: Optional[List[torch.Tensor]], g: List[torch.Tensor],
+                     accum_dtype=None) -> List[torch.Tensor]:
+    """The running sum of micro-batch gradients, g_sum + g (g_sum None: the
+    first micro-batch's), in place. accum_dtype: the sum's dtype (None: g's,
+    f32); bf16 is sdtpu's multi_steps(..., accum_dtype=bfloat16): each
+    gradient is cast to bf16 and added in bf16, acc + bf16(g)."""
+    if accum_dtype is not None:
+        g = [x.to(accum_dtype) for x in g]
+    if g_sum is None:
+        return g
+    torch._foreach_add_(g_sum, g)
+    return g_sum
+
+
+def mean_grads(g_sum: List[torch.Tensor], accum: int, accum_dtype=None) -> List[torch.Tensor]:
+    """The f32 mean of `accum` summed gradients, which the f32 master
+    update takes: the f32 sum times 1/accum (sdtpu's make_train_step scan),
+    or the bf16 sum cast to f32, then divided by accum (sdtpu's
+    multi_steps)."""
+    if accum_dtype is None:
+        torch._foreach_mul_(g_sum, 1.0 / accum)
+        return g_sum
+    return [a.float().div_(accum) for a in g_sum]
+
+
+def micro_batch_grads(loss_of: Callable, leaves: List[torch.Tensor], batch: int, accum: int = 1,
+                      accum_dtype=None):
+    """(loss, f32 gradients of `leaves`) of loss_of(slice) over `accum`
+    equal micro-batches of `batch` rows, run one after the other, whose
+    losses and gradients are averaged (activation memory of one
+    micro-batch, the gradient of the whole batch). The loss is the micro
+    losses' f32 mean; the gradients' running sum is kept in accum_dtype
+    (accumulate_grads). A leaf the loss does not reach gets zeros."""
+    if batch % accum:
+        raise ValueError(f"batch {batch} not divisible by accum {accum}")
+    mb = batch // accum
     loss_sum, g_sum = None, None
     for i in range(accum):
-        sl = slice(i * mb, (i + 1) * mb)
-        loss = diffusion_loss(params, cfg, latents[sl], context[sl], t[sl], noise[sl],
-                              None if ctx_valid is None else ctx_valid[sl],
-                              compute_dtype=compute_dtype, remat=remat)
+        loss = loss_of(slice(i * mb, (i + 1) * mb))
         g = torch.autograd.grad(loss, leaves, allow_unused=True)
         g = [torch.zeros_like(p, dtype=torch.float32) if x is None else x.float()
              for p, x in zip(leaves, g)]
-        if g_sum is None:
-            loss_sum, g_sum = loss.detach(), g
-        else:
-            loss_sum = loss_sum + loss.detach()
-            torch._foreach_add_(g_sum, g)
+        loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
+        g_sum = accumulate_grads(g_sum, g, accum_dtype)
         del g
     if accum > 1:
-        loss_sum = loss_sum / accum
-        torch._foreach_mul_(g_sum, 1.0 / accum)
+        return loss_sum / accum, mean_grads(g_sum, accum, accum_dtype)
     return loss_sum, g_sum
 
 
-def make_train_step(cfg: StableDiffusionConfig, optimizer: AdamW,
+def loss_and_grads(params, cfg: StableDiffusionConfig, latents, context, t, noise,
+                   ctx_valid=None, compute_dtype=torch.float32, remat=False, accum: int = 1,
+                   accum_dtype=None):
+    """(loss, f32 gradients in tree_leaves order) of diffusion_loss, over
+    `accum` micro-batches (micro_batch_grads)."""
+    def loss_of(sl):
+        return diffusion_loss(params, cfg, latents[sl], context[sl], t[sl], noise[sl],
+                              None if ctx_valid is None else ctx_valid[sl],
+                              compute_dtype=compute_dtype, remat=remat)
+
+    return micro_batch_grads(loss_of, tree_leaves(params), latents.shape[0], accum, accum_dtype)
+
+
+def draw_t_noise(cfg: StableDiffusionConfig, latents, generator=None, t=None, noise=None):
+    """A step's timesteps ([B] int) and noise (latents' shape, f32) on the
+    latents' device: drawn from `generator` (the default generator of the
+    latents' device when None), t first, unless given (the tests inject
+    sdtpu's draws)."""
+    gdev = latents.device if generator is None else generator.device
+    if t is None:
+        t = torch.randint(0, cfg.n_train_steps, (latents.shape[0],), generator=generator,
+                          device=gdev)
+    if noise is None:
+        noise = torch.randn(latents.shape, generator=generator, device=gdev)
+    return t.to(latents.device), noise.to(latents.device, torch.float32)
+
+
+def make_train_step(cfg: StableDiffusionConfig, optimizer: _Recipe,
                     compute_dtype=torch.float32, remat: bool | str = False, accum: int = 1,
-                    ema_decay: Optional[float] = None):
+                    ema_decay: Optional[float] = None, accum_dtype=None):
     """Returns train_step(params, opt_state, batch, generator=None, *,
     t=None, noise=None) -> (params, opt_state, loss), sdtpu's step_core.
     batch = (latents, context) or (latents, context, ctx_valid). params: a
     tree of f32 leaves that require grad (master_params), updated in place.
-    t ([B] int) and noise (latents' shape) are drawn from `generator` (the
-    default generator of the latents' device when None), t first, unless
-    given: tests inject sdtpu's draws. loss is a 0-dim f32 tensor, left on
-    the device.
+    t and noise: draw_t_noise. loss is a 0-dim f32 tensor, left on the
+    device.
 
-    accum > 1: equal micro-batches, gradients averaged in f32, one update
-    (loss_and_grads); the draws are made for the whole batch first, so the
-    result equals accum=1's up to f32 summation order.
+    accum > 1: equal micro-batches, gradients averaged, one update
+    (micro_batch_grads; accum_dtype=torch.bfloat16 keeps their running sum
+    in bf16); the draws are made for the whole batch first, so with the
+    f32 sum the result equals accum=1's up to f32 summation order.
 
     ema_decay set: train_step(params, opt_state, ema_params, batch, ...) ->
     (params, opt_state, ema_params, loss), the EMA updated in place after
@@ -260,15 +413,9 @@ def make_train_step(cfg: StableDiffusionConfig, optimizer: AdamW,
     def step_core(params, opt_state, batch, generator=None, *, t=None, noise=None):
         latents, context = batch[0], batch[1]
         ctx_valid = batch[2] if len(batch) > 2 else None
-        gdev = latents.device if generator is None else generator.device
-        if t is None:
-            t = torch.randint(0, cfg.n_train_steps, (latents.shape[0],), generator=generator,
-                              device=gdev)
-        if noise is None:
-            noise = torch.randn(latents.shape, generator=generator, device=gdev)
-        t, noise = t.to(latents.device), noise.to(latents.device, torch.float32)
+        t, noise = draw_t_noise(cfg, latents, generator, t, noise)
         loss, grads = loss_and_grads(params, cfg, latents, context, t, noise, ctx_valid,
-                                     compute_dtype, remat, accum)
+                                     compute_dtype, remat, accum, accum_dtype)
         optimizer.update(params, grads, opt_state)
         return params, opt_state, loss
 

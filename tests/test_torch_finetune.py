@@ -1,8 +1,8 @@
 """The port's fine-tuning path around the training step, against sdtpu, on
 the CPU: the PNG codec, the VAE encoder, the latent cache, the batch order,
 the native model format in both directions, and run_finetune end to end
-at SD_TINY, writing a model sdtpu reads. sdtpu's options the port does not
-carry yet raise.
+at SD_TINY, writing a model sdtpu reads. sdtpu's tp, which the port does
+not carry yet, raises.
 """
 
 import os
@@ -193,7 +193,8 @@ def test_run_finetune_writes_a_model_sdtpu_reads(tmp_path, tiny_sd):
     logs = []
     r = run_finetune(tiny_sd, SimpleTokenizer(), data_dir, str(tmp_path / "tuned"), steps=2,
                      batch_size=2, lr=1e-3, log_every=1, log=logs.append)
-    assert set(r) == {"steps", "final_loss", "losses", "out_path", "steps_per_sec"}
+    assert set(r) == {"steps", "final_loss", "losses", "out_path", "lora_path", "steps_per_sec"}
+    assert r["lora_path"] is None
     assert [i for i, _ in r["losses"]] == [0, 1] and np.isfinite(r["final_loss"])
     assert r["out_path"] == str(tmp_path / "tuned.safetensors")
     assert any(line.startswith("dataset: 3 examples") for line in logs)
@@ -216,11 +217,23 @@ def test_run_finetune_writes_a_model_sdtpu_reads(tmp_path, tiny_sd):
     assert os.path.getmtime(cache) == mtime and np.isfinite(r2["final_loss"])
 
 
-@pytest.mark.parametrize("option", [
-    {"lora_rank": 4}, {"opt_kind": "adafactor"}, {"accum_bf16": True, "accum": 2},
-    {"state_dir": "state"}, {"resume": True}, {"save_every": 1}, {"tp": 2},
-])
+@pytest.mark.parametrize("option", [{"tp": 2}])
 def test_unported_options_raise(option, tmp_path, tiny_sd):
+    """tp (parallel/) is the one option of sdtpu's not ported."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_finetune(tiny_sd, SimpleTokenizer(), str(tmp_path), str(tmp_path / "m"),
                      steps=1, batch_size=2, log=lambda s: None, **option)
+
+
+@pytest.mark.parametrize("option,error", [
+    ({"accum_bf16": True}, "has no effect without --accum"),
+    ({"batch_size": 3, "accum": 2}, "not divisible"),
+])
+def test_bad_accumulation_raises_as_sdtpu(option, error, tmp_path, tiny_sd):
+    """sdtpu's ValueErrors (sdtpu/finetune.py:217-224), before any cache
+    is built."""
+    kw = {"batch_size": 2, **option}
+    with pytest.raises(ValueError, match=error):
+        run_finetune(tiny_sd, SimpleTokenizer(), str(tmp_path), str(tmp_path / "m"), steps=1,
+                     log=lambda s: None, **kw)
+    assert os.listdir(tmp_path) == []

@@ -238,7 +238,8 @@ def test_port_imports_no_jax():
         "assert not bad, bad\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'msgpack')\n"
         "assert not bad, bad\n"
-        "for m in ('pipeline', 'cli', 'sample', 'convert', 'io.mpk', 'textual_inversion'):\n"
+        "for m in ('pipeline', 'cli', 'sample', 'convert', 'finetune', 'io.mpk',\n"
+        "          'io.checkpoint', 'lora', 'textual_inversion', 'training'):\n"
         "    assert 'sdtpu_torch.' + m in sys.modules, m\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
 

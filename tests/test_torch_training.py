@@ -7,7 +7,8 @@
   a context-validity mask;
 - remat "full"/"dots"/"heavy" against remat=False, and which forward the
   backward recomputes;
-- AdamW with clipping and its schedule against optax over 5 steps;
+- AdamW with clipping and its schedule against optax over 5 steps (and
+  Adafactor in tests/test_torch_optim.py);
 - ema_update, accumulation, and three train steps with sdtpu's t/noise
   draws injected against sdtpu's step_core.
 """
@@ -197,9 +198,10 @@ def test_adamw_matches_optax(warmup):
 
 
 def test_make_optimizer_refuses_adafactor():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrain.make_optimizer(kind="adafactor")
-    with pytest.raises(ValueError):
+    """Adafactor is ported (tests/test_torch_optim.py holds it against
+    sdtpu's); an unknown kind is refused with sdtpu's ValueError."""
+    assert isinstance(ttrain.make_optimizer(kind="adafactor"), ttrain.Adafactor)
+    with pytest.raises(ValueError, match="kind must be adamw|adafactor"):
         ttrain.make_optimizer(kind="sgd")
 
 

@@ -11,7 +11,9 @@ Phases, each printing its lines:
    shapes SD v1.4's UNet, VAE decoder and VAE encoder give it at 512px and
    at 1024px (the UNet's also at batch 1, the two-pass mode's), and
    training's (K1 with its row statistics, K9, at UNet batch 4, 8 and 2;
-   the encoder at batch 8, 4 and 1), in float32
+   the encoder at batch 8, 4 and 1), and those SD v2.1 gives them at 768px
+   (head width 64: 5 heads at 96², 10 at 48²; the VAE on 96² latents and
+   768² images; training at batch 2; labels ending in "v2.1"), in float32
    and bfloat16: max error against the stated tolerance, the times of the
    kernel, of its plain version and, where one PyTorch call computes the
    same function, of that call (CUDA events), and the least time the card
@@ -95,15 +97,23 @@ Phases, each printing its lines:
    the state read back, the tuned model, the adapter's merge against the
    base, the concept's rows, and the launches of each run (K1 and K9 in
    training, on their Hopper routes, and the encoder's K3 and K6 where a
-   run encodes images).
+   run encodes images);
+9. (run after phase 4) SD v2.1 at 768x768, full width and depth (SD_V2_1,
+   random weights, seed 0, bf16): generate with DDIM and with DPM++ on the
+   Karras ladder, img2img and inpainting on the DDIM image, one UNet call
+   with K10's gate open (10 heads at 48²), `python -m sdtpu_torch.sample
+   native ... --preset sd-v2-1 --sampler dpmpp --karras --seed 0 --bf16`
+   byte-equal to an in-process generate, and run_finetune at 768px (the
+   v target); each run's launches exactly the dispatch's, on their Hopper
+   routes.
 
 It prints a JSON line of per-kernel results, then the card's name and
 power limit, then, last, {"ok": true, "device": {...}}. Any failure
 exits nonzero before that line; there is no CPU fallback. In the JSON
 line `launches` is the sum of the main paths' runs (both generate runs,
 the CLI phase's two sample processes and two in-process generates, the
-fine-tuning run with its cache build, the serve phase, and phase 8's four
-`finetune` processes), and `ms`, `plain_ms`,
+fine-tuning run with its cache build, the serve phase, phase 8's four
+`finetune` processes, and phase 9's runs), and `ms`, `plain_ms`,
 `bound_ms` and `library_ms` are for those launches: each wrapper counts
 its launches per shape as well, and each shape's bfloat16 time (or bound)
 from phase 2 is taken as many times as the runs launched it. A shape
@@ -142,7 +152,7 @@ from typing import Callable, NamedTuple, Optional
 
 SEED = 0
 WARMUP, ITERS = 3, 20
-BUDGET_MS = 100  # the calls a phase-2 timing spends on a slow kernel
+BUDGET_MS = 50  # the calls a phase-2 timing spends on a slow kernel
 PEAK_TENSOR = 989e12  # dense bf16 FLOP/s
 PEAK_F32 = 67e12      # f32 FLOP/s outside the tensor cores
 PEAK_TF32 = 495e12    # dense TF32 FLOP/s: the float32 routes' products
@@ -271,17 +281,21 @@ def decoder_convs(lat: int) -> list:
     return convs
 
 
-# (map size, input channels, output channels) of the distinct ResnetBlocks
-# of SD v1.4's VAE encoder on a 512x512 image; the first of each level's two
-# blocks changes the width, the mid block's two run at 64x64x512
-ENCODER_RESNETS = ((512, 128, 128), (256, 128, 256), (256, 256, 256), (128, 256, 512),
-                   (128, 512, 512), (64, 512, 512))
+def encoder_resnets(size: int) -> tuple:
+    """(map size, input channels, output channels) of the distinct
+    ResnetBlocks of SD's VAE encoder (v1.4's and v2.1's are one) on a
+    size x size image; the first of each level's two blocks changes the
+    width, the mid block's two run at size/8 with 512 channels."""
+    return ((size, 128, 128), (size // 2, 128, 256), (size // 2, 256, 256),
+            (size // 4, 256, 512), (size // 4, 512, 512), (size // 8, 512, 512))
 
 
 def kernel_cases(dtype, dev):
     """Main-path inputs for each kernel. Shapes are SD v1.4's at 512px and
     1024px: the UNet's with batched CFG (B=2, 20 steps), the VAE decoder's
-    (B=1, once)."""
+    (B=1, once); and SD v2.1's at 768px (labels ending in "v2.1"): head
+    width 64, so 5 heads at the UNet's 96² level and 10 at 48², context
+    1024, the VAE on 96² latents and 768² images."""
     import torch
     import torch.nn.functional as F
 
@@ -320,7 +334,13 @@ def kernel_cases(dtype, dev):
                          ("128x128x320 B=2", (2, 128, 128, 320)),
                          ("128x128x640 B=2", (2, 128, 128, 640)),
                          ("vae 64x64x512", (1, 64, 64, 512)),
-                         ("vae 128x128x512", (1, 128, 128, 512))):
+                         ("vae 128x128x512", (1, 128, 128, 512)),
+                         # SD v2.1 at 768px: the transformers at 96², the
+                         # decoder's mid blocks and its block after the
+                         # plain 96² upsampler
+                         ("96x96x320 B=2 v2.1", (2, 96, 96, 320)),
+                         ("vae 96x96x512 v2.1", (1, 96, 96, 512)),
+                         ("vae 192x192x512 v2.1", (1, 192, 192, 512))):
         x = rnd(*shape)
         cases.append(Case("channel_partials", label, fused_groupnorm.channel_partials,
                           fused_groupnorm.channel_partials_plain, (x,), {}, 3 * x.numel(),
@@ -334,7 +354,7 @@ def kernel_cases(dtype, dev):
         return fused_conv._conv1x1(x, w, cb, ps, pb, residual, silu, emit_stats, "wmma")
 
     for b, rows, c in ((2, 4096, 320), (2, 16384, 320), (2, 4096, 640), (8, 4096, 320),
-                       (1, 4096, 320)):
+                       (1, 4096, 320), (2, 9216, 320)):  # the last, SD v2.1's 96²
         xr = rnd(b, rows, c)
         scale, bias = fused_conv.stats_scale_bias(
             fused_groupnorm.channel_partials_plain(xr), rows, rnd(c, scale=0.1) + 1.0,
@@ -345,26 +365,30 @@ def kernel_cases(dtype, dev):
         def product(*a, xr=xr, w=w, **k):  # the 1x1 product alone
             return torch.matmul(xr, w)
 
-        cases.append(Case("conv1x1_fused", f"proj_in {rows}x{c} B={b}",
+        tag = " v2.1" if rows == 9216 else ""
+        cases.append(Case("conv1x1_fused", f"proj_in {rows}x{c} B={b}{tag}",
                           fused_conv.conv1x1_fused, fused_conv.conv1x1_fused_plain,
                           (xr, w, cb, scale, bias), {}, ops * b // 2, library=product,
                           old=k4_wmma))
-        cases.append(Case("conv1x1_fused", f"proj_out {rows}x{c} B={b}",
+        cases.append(Case("conv1x1_fused", f"proj_out {rows}x{c} B={b}{tag}",
                           fused_conv.conv1x1_fused, fused_conv.conv1x1_fused_plain,
                           (xr, w, cb), {"residual": rnd(b, rows, c)}, ops * b // 2,
                           library=product, old=k4_wmma))
 
     # K2 at every UNet level of both sizes (the 16x16 middle block at 1024px),
-    # of the two-pass mode's batch 1 and of the serve phase's batch of 4 (B=8)
-    for b, s, c in ((2, 4096, 320), (2, 1024, 640), (2, 256, 1280), (2, 16384, 320),
-                    (2, 4096, 640), (2, 1024, 1280), (1, 4096, 320), (1, 1024, 640),
-                    (1, 256, 1280), (8, 4096, 320), (8, 1024, 640), (8, 256, 1280)):
+    # of the two-pass mode's batch 1 and of the serve phase's batch of 4
+    # (B=8), 8 heads; and SD v2.1's at 768px, 5 heads at 96² and 10 at 48²,
+    # all of 64 (24² has 576 tokens, no multiple of 128: no K2)
+    for b, s, c, nh in ([(b, s, c, 8) for b, s, c in (
+            (2, 4096, 320), (2, 1024, 640), (2, 256, 1280), (2, 16384, 320), (2, 4096, 640),
+            (2, 1024, 1280), (1, 4096, 320), (1, 1024, 640), (1, 256, 1280), (8, 4096, 320),
+            (8, 1024, 640), (8, 256, 1280))] + [(2, 9216, 320, 5), (2, 2304, 640, 10)]):
         x = rnd(b, s, c)
         args = (x, rnd(c, scale=0.1) + 1.0, rnd(c, scale=0.1),
                 rnd(c, 3 * c, scale=c ** -0.5), rnd(c, c, scale=c ** -0.5),
-                rnd(c, scale=0.1), 8)
+                rnd(c, scale=0.1), nh)
         # the attention core alone, on the heads of the fused QKV product
-        qkv4 = torch.matmul(x, args[3]).view(b, s, 3, 8, c // 8).permute(2, 0, 3, 1, 4)
+        qkv4 = torch.matmul(x, args[3]).view(b, s, 3, nh, c // nh).permute(2, 0, 3, 1, 4)
 
         def core(*a, qkv4=qkv4, **k):
             return F.scaled_dot_product_attention(qkv4[0], qkv4[1], qkv4[2])
@@ -372,7 +396,8 @@ def kernel_cases(dtype, dev):
         def k2_wmma(*a):  # the WMMA route the bf16 Hopper kernels replaced
             return fused_transformer._self_attention(*a, 1e-5, "wmma")
 
-        cases.append(Case("fused_self_attention", f"S={s} C={c} dh={c // 8} B={b}",
+        cases.append(Case("fused_self_attention",
+                          f"S={s} C={c} dh={c // nh} B={b}{' v2.1' if nh != 8 else ''}",
                           fused_transformer.fused_self_attention,
                           fused_transformer.fused_self_attention_plain, args, {},
                           b * (8 * s * c * c + 4 * s * s * c), library=core, old=k2_wmma))
@@ -402,58 +427,61 @@ def kernel_cases(dtype, dev):
 
     # K10: the UNet's cross-attention sublayers at 512px with SDTPU_FUSED_XATTN=1
     # (S 4096/1024/256, C 320/640/1280, 8 heads, 77 keys), at the serve phase's
-    # UNet batches: 2 (a lone request), 4, 8 (its batch of 4); kt/vt the
+    # UNet batches: 2 (a lone request), 4, 8 (its batch of 4); and SD v2.1's
+    # at 768px, the 48² level's (10 heads, a context of width 1024; 96² has
+    # more than 4096 tokens, 24²'s 576 are no multiple of 128); kt/vt the
     # transposed views the UNet hands over, key_valid the padded prompts'
-    for b in (2, 4, 8):
-        for s, c in ((4096, 320), (1024, 640), (256, 1280)):
-            x, ctx = rnd(b, s, c), rnd(b, 77, 768)
-            wk, wv = rnd(768, c, scale=768 ** -0.5), rnd(768, c, scale=768 ** -0.5)
-            kt, vt = (torch.matmul(ctx, w).transpose(1, 2) for w in (wk, wv))
-            valid = torch.arange(77, device=dev)[None] < torch.tensor(
-                [2, 9] * (b // 2), device=dev)[:, None]
-            args = (x, kt, vt, rnd(c, scale=0.1) + 1.0, rnd(c, scale=0.1),
-                    rnd(c, c, scale=c ** -0.5), rnd(c, c, scale=c ** -0.5), rnd(c, scale=0.1))
-            # the attention core alone, on the heads of the Q product and of
-            # K and V, with a boolean key mask
-            q4, k4, v4 = (t.reshape(b, -1, 8, c // 8).transpose(1, 2) for t in (
-                torch.matmul(x, args[5]), kt.transpose(1, 2), vt.transpose(1, 2)))
+    for b, s, c, dctx, nh in ([(b, s, c, 768, 8) for b in (2, 4, 8) for s, c in (
+            (4096, 320), (1024, 640), (256, 1280))] + [(2, 2304, 640, 1024, 10)]):
+        x, ctx = rnd(b, s, c), rnd(b, 77, dctx)
+        wk, wv = rnd(dctx, c, scale=dctx ** -0.5), rnd(dctx, c, scale=dctx ** -0.5)
+        kt, vt = (torch.matmul(ctx, w).transpose(1, 2) for w in (wk, wv))
+        valid = torch.arange(77, device=dev)[None] < torch.tensor(
+            [2, 9] * (b // 2), device=dev)[:, None]
+        args = (x, kt, vt, rnd(c, scale=0.1) + 1.0, rnd(c, scale=0.1),
+                rnd(c, c, scale=c ** -0.5), rnd(c, c, scale=c ** -0.5), rnd(c, scale=0.1))
+        # the attention core alone, on the heads of the Q product and of K
+        # and V, with a boolean key mask
+        q4, k4, v4 = (t.reshape(b, -1, nh, c // nh).transpose(1, 2) for t in (
+            torch.matmul(x, args[5]), kt.transpose(1, 2), vt.transpose(1, 2)))
 
-            def xcore(*a, q4=q4, k4=k4, v4=v4, key_valid=None, **k):
-                return F.scaled_dot_product_attention(q4, k4, v4,
-                                                      attn_mask=key_valid[:, None, None, :])
+        def xcore(*a, q4=q4, k4=k4, v4=v4, key_valid=None, **k):
+            return F.scaled_dot_product_attention(q4, k4, v4,
+                                                  attn_mask=key_valid[:, None, None, :])
 
-            def xsublayer(x, kt, vt, g, beta, wq, wo, bo, k4=k4, v4=v4, key_valid=None, **k):
-                """The whole sublayer by library calls: F.layer_norm, two
-                torch.matmul and SDPA."""
-                q = torch.matmul(F.layer_norm(x, x.shape[-1:], g, beta), wq)
-                o = F.scaled_dot_product_attention(
-                    q.view(*q.shape[:2], 8, -1).transpose(1, 2), k4, v4,
-                    attn_mask=key_valid[:, None, None, :])
-                return x + torch.matmul(o.transpose(1, 2).reshape(x.shape), wo) + bo
+        def xsublayer(x, kt, vt, g, beta, wq, wo, bo, k4=k4, v4=v4, key_valid=None, n_head=8,
+                      **k):
+            """The whole sublayer by library calls: F.layer_norm, two
+            torch.matmul and SDPA."""
+            q = torch.matmul(F.layer_norm(x, x.shape[-1:], g, beta), wq)
+            o = F.scaled_dot_product_attention(
+                q.view(*q.shape[:2], n_head, -1).transpose(1, 2), k4, v4,
+                attn_mask=key_valid[:, None, None, :])
+            return x + torch.matmul(o.transpose(1, 2).reshape(x.shape), wo) + bo
 
-            def k10_wmma(*a, key_valid=None, n_head=8):
-                """K10 on the WMMA kernels its bf16 Hopper route replaced."""
-                return fused_cross_attention._cross_attention_kv(*a, key_valid, n_head, 1e-5,
-                                                                 "wmma")
+        def k10_wmma(*a, key_valid=None, n_head=8):
+            """K10 on the WMMA kernels its bf16 Hopper route replaced."""
+            return fused_cross_attention._cross_attention_kv(*a, key_valid, n_head, 1e-5,
+                                                             "wmma")
 
-            def k10_ctx_wmma(*a, key_valid=None, n_head=8):
-                return fused_cross_attention._cross_attention(*a, key_valid, n_head, 1e-5,
-                                                              "wmma")
+        def k10_ctx_wmma(*a, key_valid=None, n_head=8):
+            return fused_cross_attention._cross_attention(*a, key_valid, n_head, 1e-5, "wmma")
 
-            cases.append(Case("fused_cross_attention_kv", f"S={s} C={c} B={b} Sk=77",
-                              fused_cross_attention.fused_cross_attention_kv,
-                              fused_cross_attention.fused_cross_attention_kv_plain, args,
+        tag = "" if nh == 8 else f" heads={nh} ctx={dctx} v2.1"
+        cases.append(Case("fused_cross_attention_kv", f"S={s} C={c} B={b} Sk=77{tag}",
+                          fused_cross_attention.fused_cross_attention_kv,
+                          fused_cross_attention.fused_cross_attention_kv_plain, args,
+                          {"key_valid": valid, "n_head": nh},
+                          2 * b * s * c * (2 * c + 2 * 77), library=xcore, old=k10_wmma,
+                          yardsticks=(("sublayer by library calls", xsublayer),)))
+        if b == 2 and nh == 8:  # the entry that projects the context itself (no path runs it)
+            cases.append(Case("fused_cross_attention", f"S={s} C={c} B={b} Sk=77",
+                              fused_cross_attention.fused_cross_attention,
+                              fused_cross_attention.fused_cross_attention_plain,
+                              (x, ctx, *args[3:6], wk, wv, *args[6:]),
                               {"key_valid": valid, "n_head": 8},
-                              2 * b * s * c * (2 * c + 2 * 77), library=xcore, old=k10_wmma,
-                              yardsticks=(("sublayer by library calls", xsublayer),)))
-            if b == 2:  # the entry that projects the context itself (no path runs it)
-                cases.append(Case("fused_cross_attention", f"S={s} C={c} B={b} Sk=77",
-                                  fused_cross_attention.fused_cross_attention,
-                                  fused_cross_attention.fused_cross_attention_plain,
-                                  (x, ctx, *args[3:6], wk, wv, *args[6:]),
-                                  {"key_valid": valid, "n_head": 8},
-                                  2 * b * s * c * (2 * c + 2 * 77) + 2 * b * 77 * 768 * 2 * c,
-                                  library=xcore, old=k10_ctx_wmma))
+                              2 * b * s * c * (2 * c + 2 * 77) + 2 * b * 77 * 768 * 2 * c,
+                              library=xcore, old=k10_ctx_wmma))
 
     def heads4(n_head, *ts):
         return [t.view(t.shape[0] // n_head, n_head, *t.shape[1:]) for t in ts]
@@ -462,12 +490,18 @@ def kernel_cases(dtype, dev):
     # key-padding bias case (no launch on the main path), and training's
     # forward at the 64² level of the 512px UNet (8 heads of 40) with the
     # row statistics K9 takes: batch 4 (phase 5, textual inversion), 8
-    # (--fast) and 2 (LoRA's micro-batch)
+    # (--fast) and 2 (LoRA's micro-batch); SD v2.1 at 768px: the VAE's mid
+    # attention at 96² (S 9216, d 512; the encoder's at batch 2 in the
+    # fine-tuning cache build) and training's forward at the UNet's 96²
+    # level (batch 2, 5 heads of 64)
     for bh, n_head, s, d, bias, lse in ((1, 1, 16384, 512, False, False),
                                         (16, 8, 4096, 80, True, False),
                                         (32, 8, 4096, 40, False, True),
                                         (64, 8, 4096, 40, False, True),
-                                        (16, 8, 4096, 40, False, True)):
+                                        (16, 8, 4096, 40, False, True),
+                                        (1, 1, 9216, 512, False, False),
+                                        (2, 1, 9216, 512, False, False),
+                                        (10, 5, 9216, 64, False, True)):
         q, k, v = rnd(bh, s, d), rnd(bh, s, d), rnd(bh, s, d)
         kb = None
         if bias:
@@ -485,7 +519,8 @@ def kernel_cases(dtype, dev):
             return flash_attention._heads(q, k, v, key_bias, n_head, return_lse, "wmma")
 
         cases.append(Case("flash_attention_heads",
-                          f"BH={bh} S={s} d={d}{' bias' if bias else ''}{' lse' if lse else ''}",
+                          f"BH={bh} S={s} d={d}{' bias' if bias else ''}{' lse' if lse else ''}"
+                          f"{' v2.1' if s == 9216 else ''}",
                           flash_attention.flash_attention_heads,
                           flash_attention.flash_attention_heads_plain,
                           (q, k, v, kb, n_head), {"return_lse": lse}, 4 * bh * s * s * d,
@@ -493,12 +528,14 @@ def kernel_cases(dtype, dev):
 
     # K9: training's backward at the 64² level of the 512px UNet (batch 4,
     # 8 and 2, as K1's), the 1024px UNet's 128² and 64² levels and its 32²
-    # level's d=160 (batch 4, 8 heads), from K1's output and row statistics
-    # as training hands them over
-    for bh, s, d in ((32, 4096, 40), (64, 4096, 40), (16, 4096, 40), (32, 16384, 40),
-                     (32, 4096, 80), (32, 1024, 160)):
+    # level's d=160 (batch 4, 8 heads), and SD v2.1's 96² level at 768px
+    # (batch 2, 5 heads of 64), from K1's output and row statistics as
+    # training hands them over
+    for bh, n_head, s, d in ((32, 8, 4096, 40), (64, 8, 4096, 40), (16, 8, 4096, 40),
+                             (32, 8, 16384, 40), (32, 8, 4096, 80), (32, 8, 1024, 160),
+                             (10, 5, 9216, 64)):
         q, k, v, do = rnd(bh, s, d), rnd(bh, s, d), rnd(bh, s, d), rnd(bh, s, d)
-        o, lse = flash_attention.flash_attention_heads(q, k, v, n_head=8, return_lse=True)
+        o, lse = flash_attention.flash_attention_heads(q, k, v, n_head=n_head, return_lse=True)
 
         def bwd_plain(q, k, v, do, o, lse, n_head):
             return flash_attention.flash_attention_bwd_heads_plain(q, k, v, do)
@@ -514,9 +551,10 @@ def kernel_cases(dtype, dev):
         def bwd_wmma(q, k, v, do, o, lse, n_head):
             return flash_attention._bwd_heads(q, k, v, do, o, lse, n_head, "wmma")
 
-        cases.append(Case("flash_attention_bwd_heads", f"BH={bh} S={s} d={d}",
+        cases.append(Case("flash_attention_bwd_heads",
+                          f"BH={bh} S={s} d={d}{' v2.1' if s == 9216 else ''}",
                           flash_attention.flash_attention_bwd_heads, bwd_plain,
-                          (q, k, v, do, o, lse), {"n_head": 8}, 5 * 2 * bh * s * s * d,
+                          (q, k, v, do, o, lse), {"n_head": n_head}, 5 * 2 * bh * s * s * d,
                           library=sdpa_fwd_bwd, library_minus=sdpa_fwd, old=bwd_wmma))
 
     # K6 (GN+SiLU prologue, output statistics): the UNet's fused ResBlocks
@@ -552,44 +590,49 @@ def kernel_cases(dtype, dev):
     conv_case("unet 128x128 320+320->320 B=2", 2, 128, 320, 320, 320, 1e-5, residual=False)
     conv_case("unet 128x128 320->320 B=2", 2, 128, 320, 320, 0, 1e-5, residual=False)
     conv_case("unet 128x128 320->320 B=2 res", 2, 128, 320, 320, 0, 1e-5)
-    # the decoder at 512px and 1024px (B=1) and the serve phase's batch of 4
+    # the decoder at 512px and 1024px (B=1), the serve phase's batch of 4,
+    # and SD v2.1's at 768px (a 96² latent)
     seen = set()
-    for b, lat in ((1, 64), (1, 128), (4, 64)):
+    for b, lat in ((1, 64), (1, 128), (4, 64), (1, 96)):
         for conv_shape in decoder_convs(lat):
             if (b, conv_shape) in seen:
                 continue
             seen.add((b, conv_shape))
             hw, ci, co, res, st = conv_shape
             conv_case(f"vae {hw}x{hw} {ci}->{co}{' res' if res else ''}"
-                      f"{'' if st else ' no stats'} B={b}", b, hw, ci, co, 0, 1e-6, res, st)
+                      f"{'' if st else ' no stats'} B={b}{' v2.1' if lat == 96 else ''}",
+                      b, hw, ci, co, 0, 1e-6, res, st)
 
     # the VAE encoder's ResnetBlocks while the latent cache is built (512px,
     # chunks of 4 images, of 8 under --fast, textual inversion's data in
-    # chunks of 4) and in img2img/inpainting (one image): K3 on each block's
-    # input, conv1 with the statistics, conv2 with the residual and without
-    # them
-    for b in (8, 4, 1):
-        for hw, ci, co in ENCODER_RESNETS:
+    # chunks of 4; SD v2.1 at 768px, a chunk of 2) and in img2img/inpainting
+    # (one image, at 512px and 768px): K3 on each block's input, conv1 with
+    # the statistics, conv2 with the residual and without them
+    for b, size in ((8, 512), (4, 512), (1, 512), (2, 768), (1, 768)):
+        tag = " v2.1" if size == 768 else ""
+        for hw, ci, co in encoder_resnets(size):
             x = rnd(b, hw, hw, ci)
-            cases.append(Case("channel_partials", f"encoder {hw}x{hw}x{ci} B={b}",
+            cases.append(Case("channel_partials", f"encoder {hw}x{hw}x{ci} B={b}{tag}",
                               fused_groupnorm.channel_partials,
                               fused_groupnorm.channel_partials_plain, (x,), {}, 3 * x.numel(),
                               PEAK_F32, old=k3_partials))
-            conv_case(f"encoder {hw}x{hw} {ci}->{co} B={b}", b, hw, ci, co, 0, 1e-6,
+            conv_case(f"encoder {hw}x{hw} {ci}->{co} B={b}{tag}", b, hw, ci, co, 0, 1e-6,
                       residual=False)
-        for hw, co in sorted({(hw, co) for hw, _, co in ENCODER_RESNETS}, reverse=True):
-            conv_case(f"encoder {hw}x{hw} {co}->{co} B={b} res", b, hw, co, co, 0, 1e-6,
+        for hw, co in sorted({(hw, co) for hw, _, co in encoder_resnets(size)}, reverse=True):
+            conv_case(f"encoder {hw}x{hw} {co}->{co} B={b} res{tag}", b, hw, co, co, 0, 1e-6,
                       stats=False)
 
     # K7: the decoder's upsamplers at 128² and 256² (512px), 256² x 512 and
-    # 512² (1024px), and the serve phase's batch of 4, reading the phase
-    # weights folded once, as the pipeline hands them over
+    # 512² (1024px), the serve phase's batch of 4, and 192² and 384² (SD
+    # v2.1 at 768px; its 96² one stays plain), reading the phase weights
+    # folded once, as the pipeline hands them over
     def k7_wmma(x, w, cb, emit_stats=False, phases=None):
         """K7 on the WMMA kernel its bf16 Hopper kernel replaced."""
         return fused_conv._upsample2x(x, w, cb, emit_stats, "wmma", phases)
 
     for b, hw, c, co in ((1, 128, 512, 512), (1, 256, 256, 256), (1, 256, 512, 512),
-                         (1, 512, 256, 256), (4, 128, 512, 512), (4, 256, 256, 256)):
+                         (1, 512, 256, 256), (4, 128, 512, 512), (4, 256, 256, 256),
+                         (1, 192, 512, 512), (1, 384, 256, 256)):
         args = (rnd(b, hw, hw, c), rnd(3, 3, c, co, scale=(9 * c) ** -0.5), rnd(co, scale=0.1))
         # cuDNN's convolution alone over the already upsampled map, and the
         # path with the fused gate closed (ops/conv.py: four phase convs)
@@ -607,17 +650,20 @@ def kernel_cases(dtype, dev):
             finally:
                 conv.FUSED_UP_MIN_ROWS = gate
 
-        cases.append(Case("upsample2x_conv_fused", f"{hw}x{hw}x{c} -> {2 * hw}x{2 * hw} B={b}",
+        cases.append(Case("upsample2x_conv_fused",
+                          f"{hw}x{hw}x{c} -> {2 * hw}x{2 * hw} B={b}"
+                          f"{' v2.1' if hw in (192, 384) else ''}",
                           fused_conv.upsample2x_conv_fused,
                           fused_conv.upsample2x_conv_fused_plain, args,
                           {"emit_stats": True,
                            "phases": fused_conv.phase_weight_stack(args[1], dtype)},
                           2 * 16 * b * hw * hw * c * co, library=up_conv, old=k7_wmma,
                           yardsticks=(("gate closed", gate_closed),)))
-    for b, hw in ((1, 512), (1, 1024), (4, 512)):
+    for b, hw in ((1, 512), (1, 1024), (4, 512), (1, 768)):
         x = rnd(b, hw, hw, 128)
         args = (x, rnd(128, scale=0.1) + 1.0, rnd(128, scale=0.1), 32, 1e-6)
-        cases.append(Case("group_norm_silu", f"{hw}x{hw}x128 B={b}",
+        cases.append(Case("group_norm_silu",
+                          f"{hw}x{hw}x128 B={b}{' v2.1' if hw == 768 else ''}",
                           fused_groupnorm.group_norm_silu,
                           fused_groupnorm.group_norm_silu_plain, args,
                           {"sums": fused_groupnorm.channel_partials_plain(x)}, 8 * x.numel(),
@@ -677,6 +723,40 @@ def wrappers() -> dict:
            flash_attention.flash_attention_bwd_heads,
            fused_cross_attention.fused_cross_attention_kv)
     return {f.__name__: f for f in fns}
+
+
+def fired(counts: dict) -> dict:
+    """{kernel: launches} of the kernels that launched."""
+    return {n: k for n, k in counts.items() if k}
+
+
+def read_and_zero() -> tuple[dict, dict]:
+    """({kernel: launches}, {kernel: {shape: launches}}) of every wrapper
+    since it was last set to 0, read after a synchronise; then sets them
+    to 0."""
+    import torch
+
+    torch.cuda.synchronize()
+    fns = wrappers()
+    counts = ({n: f.launches for n, f in fns.items()},
+              {n: dict(f.shapes) for n, f in fns.items()})
+    for f in fns.values():
+        f.launches, f.shapes = 0, {}
+    return counts
+
+
+class Totals:
+    """Launch counts summed over runs, per kernel and per kernel and shape."""
+
+    def __init__(self):
+        self.launches = {name: 0 for name in KERNEL_INFO}
+        self.shapes = {name: {} for name in KERNEL_INFO}
+
+    def add(self, run_launches: dict, run_shapes: dict) -> None:
+        for name in KERNEL_INFO:
+            self.launches[name] += run_launches.get(name, 0)
+            for key, n in run_shapes.get(name, {}).items():
+                self.shapes[name][key] = self.shapes[name].get(key, 0) + n
 
 
 def _nbytes(*trees) -> int:
@@ -1422,6 +1502,302 @@ def phase_generate(dev, size: int) -> tuple[dict, dict]:
     return launches, shapes
 
 
+# phase 9: SD v2.1 (SD_V2_1: the OpenCLIP text tower, head width 64, a
+# context of width 1024, v-prediction) at 768x768, bf16, 20 steps, CFG 7.5
+V21_PROMPT, V21_STEPS, V21_SCALE = "An ancient mossy stone.", 20, 7.5
+# its fine-tuning: synthetic PNGs (resized to 768 by the cache build), AdamW
+V21_IMAGES, V21_BATCH, V21_TRAIN_STEPS = 2, 2, 2
+V21_MIN_FREE = 12 * 1024 ** 3  # the f32 weights (5.2 GB), then the tuned model, and room
+
+
+def v21_launches(unet_calls: int, encodes: int = 0) -> dict:
+    """The launches the dispatch implies for SD v2.1 at 768px: `unet_calls`
+    UNet calls at batch 2 (batched CFG), `encodes` runs of the VAE encoder
+    on one image, and one decode.
+
+    A UNet call on 96² latents: K2 in the 10 transformers at 96² (S 9216, 5
+    heads of 64) and 48² (S 2304, 10 heads), none at 24² (576 tokens, no
+    multiple of 128) or in the 12² middle (under 256); K5 in none (both
+    levels have 2048 tokens or more); K4 twice and K3 once in the 5 at 96²
+    (9216 rows, at least 4096); its ResBlocks stay unfused (under 16384
+    rows). The decoder on a 96² latent: its 14 ResnetBlocks as 28 K6 (every
+    map at least 4096 rows), the upsamplers at 192² and 384² as K7 (the one
+    at 96², 9216 rows, is under 16384 and stays plain, as sdtpu's gate
+    leaves it), K8 at the output, K3 in the two mid blocks and after the
+    plain upsampler, and K1 on the wide kernel for the mid attention (9216
+    tokens of 512). The encoder on a 768² image: its 10 ResnetBlocks, K3
+    once and K6 twice each, and K1 for its mid attention at 96²; its output
+    norm at 96² stays plain."""
+    return {"flash_attention_heads": 1 + encodes,
+            "channel_partials": 5 * unet_calls + 3 + 10 * encodes,
+            "conv1x1_fused": 10 * unet_calls, "fused_self_attention": 10 * unet_calls,
+            "fused_geglu_mlp": 0, "conv3x3_fused": 28 + 20 * encodes,
+            "upsample2x_conv_fused": 2, "group_norm_silu": 1, "flash_attention_bwd_heads": 0,
+            "fused_cross_attention_kv": 0}
+
+
+# one UNet call at 768px with K10's gate open: K10 in the 5 cross-attention
+# sublayers at 48² (S 2304, 10 heads; 96² has more than 4096 tokens), beside
+# the call's K2, K4 and K3
+V21_XATTN_CALL = {**{name: 0 for name in v21_launches(0)}, "fused_cross_attention_kv": 5,
+                  "fused_self_attention": 10, "conv1x1_fused": 10, "channel_partials": 5}
+# its fine-tuning: the cache build (the encoder at batch 2: K3 10, K6 20, K1
+# 1 on the wide kernel), then per step K1 forward and K9 backward in the 5
+# transformers at 96² (S 9216, 5 heads of 64; 48²'s 2304 tokens are no
+# multiple of 512, so its attention stays plain)
+V21_CACHE = {"flash_attention_heads": 1, "channel_partials": 10, "conv3x3_fused": 20}
+V21_TRAIN = {"flash_attention_heads": 5 * V21_TRAIN_STEPS,
+             "flash_attention_bwd_heads": 5 * V21_TRAIN_STEPS}
+
+
+def phase_v21(dev, tf32_defaults) -> tuple[dict, dict]:
+    """Phase 9: SD v2.1 (SD_V2_1) at 768x768, full width and depth, random
+    weights (init_params, seed 0), bf16, one model in this process:
+    generate with DDIM and with DPM++ on the Karras ladder (20 steps, CFG
+    7.5, batch 1), img2img at strength 0.6 and inpainting on the DDIM image
+    (the 768² encoder), each a [1, 768, 768, 3] uint8 image from finite
+    latents; one UNet call with K10's gate open (SDTPU_FUSED_XATTN=1);
+    `python -m sdtpu_torch.sample native ... --preset sd-v2-1 --sampler dpmpp
+    --karras --seed 0 --bf16` from the weights written once as native (f32)
+    in a temporary directory, its PNG byte-equal to an in-process generate
+    with the same generator under the TF32 switches of a fresh process
+    (tf32_defaults); then run_finetune on V21_IMAGES synthetic PNGs at 768px
+    (AdamW, batch 2, bf16, the v target): finite losses, every UNet leaf of
+    the tuned model changed. Every run's launches, set to 0 just before it
+    and read just after, must be the dispatch's (v21_launches), on their
+    Hopper routes (K1's decode and encode on the wide kernel, training's on
+    the core). Prints each part's wall seconds and peak device memory.
+    Returns the launch counts of its runs, per kernel and per kernel and
+    shape."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from sdtpu_torch.config import SD_V2_1
+    from sdtpu_torch.finetune import run_finetune
+    from sdtpu_torch.io.native import flatten_tree, load_native, save_native
+    from sdtpu_torch.models.unet import unet_apply, unfuse_qkv
+    from sdtpu_torch.pipeline import StableDiffusion
+    from sdtpu_torch.tokenizer import SimpleTokenizer
+    from sdtpu_torch.utils.image import encode_png_rgb8
+
+    t_phase = time.perf_counter()
+    cfg, size, gb, gib = SD_V2_1, SD_V2_1.image_size, 1e9, 1024 ** 3
+    totals = Totals()
+    bad = []
+
+    def check(label, counts, expected, k1):
+        """A run's launches against the dispatch's, by route; added to the
+        phase's."""
+        if counts[0] != expected:
+            bad.append(f"{label} launched {fired(counts[0])}, expected {fired(expected)}")
+        check_routes(f"v2.1 {label}", counts[1], k1)
+        totals.add(*counts)
+
+    def peak():
+        return f"peak device memory {torch.cuda.max_memory_allocated(dev) / gib:.2f} GiB"
+
+    t0 = time.perf_counter()
+    params = init_params_on(cfg, dev)
+    sd = StableDiffusion(params, cfg, compute_dtype=torch.bfloat16)
+    tok = SimpleTokenizer()
+    torch.cuda.synchronize()
+    print(f"v2.1: SD v2.1 random weights on the card in {time.perf_counter() - t0:.1f} s "
+          f"({sum(v.numel() for v in flatten_tree(params).values() if torch.is_tensor(v)) / 1e9:.3f}"
+          f"e9 values) | {card_line()}", flush=True)
+
+    latents = []
+    decode = sd.latent_to_image
+
+    def keep_latent(latent):
+        latents.append(latent)
+        return decode(latent)
+
+    sd.latent_to_image = keep_latent
+
+    def pipeline_run(label, fn, expected, k1):
+        """fn() (an image-making call of sd) counted and timed; its image
+        and final latent checked."""
+        latents.clear()
+        read_and_zero()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        images = fn()
+        wall = time.perf_counter() - t0
+        counts = read_and_zero()
+        lat = latents[-1]
+        finite = bool(torch.isfinite(lat).all())
+        phases = ", ".join(f"{k} {v:.3f}" for k, v in sd.timings.items()) if "generate" in label \
+            else "in one call"
+        print(f"v2.1 {label}: image {tuple(images.shape)} {images.dtype}, latent "
+              f"{tuple(lat.shape)} finite={finite} mean {float(lat.mean()):.4f} std "
+              f"{float(lat.std()):.4f}; wall {wall:.3f} s ({phases}), {peak()}; launches "
+              f"{fired(counts[0])} expected {fired(expected)}", flush=True)
+        if images.shape != (1, size, size, 3) or str(images.dtype) != "uint8" or not finite:
+            bad.append(f"{label}: image {images.shape} {images.dtype}, finite latent {finite}")
+        check(label, counts, expected, k1)
+        return images
+
+    gen = lambda seed: torch.Generator(device=dev).manual_seed(seed)  # noqa: E731
+    ddim = pipeline_run("generate ddim", lambda: sd.generate(
+        tok, V21_PROMPT, V21_SCALE, V21_STEPS, generator=gen(SEED + 1)),
+        v21_launches(V21_STEPS), {"wide": 1})
+    pipeline_run("generate dpmpp karras", lambda: sd.generate(
+        tok, V21_PROMPT, V21_SCALE, V21_STEPS, generator=gen(SEED + 1), sampler="dpmpp",
+        karras_sigmas=True), v21_launches(V21_STEPS), {"wide": 1})
+    init = torch.from_numpy(ddim).float() / 127.5 - 1.0
+    skip = round(0.4 * V21_STEPS)  # img2img's entry point at strength 0.6
+    pipeline_run("img2img strength 0.6 ddim", lambda: sd.img2img(
+        tok, "a mossy stone in the rain", init, 0.6, V21_SCALE, V21_STEPS, generator=gen(5)),
+        v21_launches(V21_STEPS - skip, encodes=1), {"wide": 2})
+    mask = torch.zeros((1, size, size))
+    mask[:, size // 4:3 * size // 4, size // 4:3 * size // 4] = 1.0
+    pipeline_run("inpaint ddim", lambda: sd.inpaint(
+        tok, "a red flower", init, mask, V21_SCALE, V21_STEPS, generator=gen(6)),
+        v21_launches(V21_STEPS, encodes=1), {"wide": 2})
+    sd.latent_to_image = decode
+
+    # K10 at 10 heads: one UNet call (batch 2) with its gate open
+    ctx, valid = sd.context(tok, V21_PROMPT)
+    unctx, unvalid = sd.context(tok, "")
+    hw = cfg.latent_size
+    x2 = torch.randn((2, hw, hw, 4), generator=gen(SEED), device=dev).to(torch.bfloat16)
+    env_before = os.environ.get("SDTPU_FUSED_XATTN")
+    os.environ["SDTPU_FUSED_XATTN"] = "1"
+    try:
+        read_and_zero()
+        out = unet_apply(sd.params["unet"], x2, torch.tensor([500.0], device=dev),
+                         torch.cat([unctx, ctx]), cfg.unet, ctx_valid=torch.cat([unvalid, valid]))
+        counts = read_and_zero()
+    finally:
+        if env_before is None:
+            os.environ.pop("SDTPU_FUSED_XATTN", None)
+        else:
+            os.environ["SDTPU_FUSED_XATTN"] = env_before
+    finite = bool(torch.isfinite(out).all())
+    print(f"v2.1 UNet call 768px batch 2 with SDTPU_FUSED_XATTN=1: output {tuple(out.shape)} "
+          f"finite={finite}; launches {fired(counts[0])} expected {fired(V21_XATTN_CALL)}, K10 "
+          f"by shape {counts[1]['fused_cross_attention_kv']}", flush=True)
+    if not finite:
+        bad.append("the UNet call with K10's gate open gave non-finite values")
+    check("UNet call, K10's gate open", counts, V21_XATTN_CALL, {})
+    del out, x2
+
+    env = {**os.environ, "SDTPU_PROFILE": "1"}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_v21_") as tmp:
+        free = shutil.disk_usage(tmp).free
+        print(f"v2.1: temporary directory {tmp}, {free / gb:.1f} GB free", flush=True)
+        if free < V21_MIN_FREE:
+            fail(f"phase 9 needs {V21_MIN_FREE / gb:.0f} GB free in {tmp}, {free / gb:.1f} GB "
+                 f"there")
+        # the command line from the weights written once as native (f32)
+        native = os.path.join(tmp, "sd21.safetensors")
+        t0 = time.perf_counter()
+        save_native(params, native, cfg)
+        print(f"v2.1 write native: {time.perf_counter() - t0:.2f} s, "
+              f"{_tree_bytes(native) / gb:.3f} GB", flush=True)
+        del params
+        prefix = os.path.join(tmp, "img")
+        text, wall, rss = run_module("v2.1 sample", [
+            "sdtpu_torch.sample", "native", native, str(V21_SCALE), str(V21_STEPS), V21_PROMPT,
+            prefix, "--preset", "sd-v2-1", "--sampler", "dpmpp", "--karras", "--seed",
+            str(SEED), "--bf16"], env)
+        report = json.loads([ln for ln in text.splitlines() if ln.startswith("{")][-1])
+        kern, ph = report["kernels"], report["phases"]
+        counts = ({n: kern.get(n, {}).get("launches", 0) for n in KERNEL_INFO},
+                  {n: kern.get(n, {}).get("shapes", {}) for n in KERNEL_INFO})
+        print(f"v2.1 sample native --preset sd-v2-1 --sampler dpmpp --karras --bf16 (device "
+              f"{report['device']}): process wall {wall:.2f} s, load_model "
+              f"{ph['load_model']:.2f} s, sampling {report['sampling_s']:.2f} s (denoise "
+              f"{ph['denoise']:.3f}, decode {ph['decode']:.3f}), peak resident {_gib(rss)}; "
+              f"launches {fired(counts[0])} | {card_line()}", flush=True)
+        if report["device"] != "cuda:0":
+            bad.append(f"v2.1 sample ran on {report['device']}")
+        check("sample process", counts, v21_launches(V21_STEPS), {"wide": 1})
+        with open(prefix + "0.png", "rb") as f:
+            png = f.read()
+        os.remove(native)
+
+        # the same generate in process, under a fresh process's TF32 switches
+        tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32_defaults
+        try:
+            sd.latent_to_image = keep_latent
+            same = pipeline_run("generate dpmpp karras seed 0 (as the sample process)",
+                                lambda: sd.generate(tok, V21_PROMPT, V21_SCALE, V21_STEPS,
+                                                    generator=gen(SEED), sampler="dpmpp",
+                                                    karras_sigmas=True),
+                                v21_launches(V21_STEPS), {"wide": 1})
+            sd.latent_to_image = decode
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        equal = encode_png_rgb8(same[0]) == png
+        print(f"v2.1 sample process PNG byte-equal to the in-process generate: {equal}",
+              flush=True)
+        if not equal:
+            bad.append("the v2.1 sample process's PNG differs from generate()")
+
+        # fine-tuning at 768px: the latent cache through the encoder, then
+        # AdamW steps with the v target
+        data = write_train_images(os.path.join(tmp, "data"), "a synthetic picture, number {i}",
+                                  V21_IMAGES)
+        marks = {"steps": []}
+
+        def log(line):
+            print(f"v2.1 finetune: {line}", flush=True)
+            if line.startswith("dataset:"):
+                marks["cache"] = read_and_zero()
+                marks["t0"] = time.perf_counter()
+            elif line.startswith("step "):
+                marks["steps"].append(time.perf_counter())
+
+        read_and_zero()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        result = run_finetune(sd, tok, data, os.path.join(tmp, "tuned"), steps=V21_TRAIN_STEPS,
+                              batch_size=V21_BATCH, lr=1e-5, compute_dtype=torch.bfloat16,
+                              remat=False, seed=SEED, log_every=1, log=log)
+        wall = time.perf_counter() - t0
+        train = read_and_zero()
+        losses = [v for _, v in result["losses"]]
+        times = [marks["t0"]] + marks["steps"]
+        step_ms = [round(1e3 * (b - a), 1) for a, b in zip(times, times[1:])]
+        print(f"v2.1 run_finetune 768px bf16 batch {V21_BATCH} AdamW {V21_TRAIN_STEPS} steps "
+              f"(v target): losses {losses}, step wall ms {step_ms}, whole call {wall:.1f} s "
+              f"(cache build {marks['t0'] - t0:.1f} s, steps and save "
+              f"{time.perf_counter() - marks['t0']:.1f} s), {peak()}; cache build launches "
+              f"{fired(marks['cache'][0])} expected "
+              f"{V21_CACHE}, training launches {fired(train[0])} expected {V21_TRAIN}",
+              flush=True)
+        if len(losses) != V21_TRAIN_STEPS or not all(map(math.isfinite, losses)):
+            bad.append(f"v2.1 run_finetune losses {losses}")
+        check("finetune cache build", marks["cache"],
+              {**{n: 0 for n in KERNEL_INFO}, **V21_CACHE}, {"wide": 1})
+        check("finetune training", train, {**{n: 0 for n in KERNEL_INFO}, **V21_TRAIN},
+              {"sm90": V21_TRAIN["flash_attention_heads"]})
+        tuned, tuned_cfg = load_native(result["out_path"], device=dev)
+        base = flatten_tree(unfuse_qkv(sd.params["unet"]))
+        leaves = flatten_tree(tuned["unet"])
+        stale = [k for k, v in leaves.items()
+                 if v.dtype != torch.float32 or not bool(v.isfinite().all())
+                 or torch.equal(v, base[k].float())]
+        print(f"v2.1 tuned model: config {tuned_cfg.name}, {len(leaves)} UNet leaves (sdtpu's "
+              f"keys: {set(leaves) == set(base)}), f32, finite and changed: "
+              f"{len(leaves) - len(stale)}", flush=True)
+        if tuned_cfg != cfg or set(leaves) != set(base) or stale:
+            bad.append(f"v2.1 tuned model: config {tuned_cfg.name}, keys equal "
+                       f"{set(leaves) == set(base)}, leaves not f32, finite and changed "
+                       f"{stale[:5]}")
+        del tuned, leaves, base
+    del sd
+    print(f"v2.1 phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    if bad:
+        fail("phase 9 (SD v2.1): " + "; ".join(bad))
+    return totals.launches, totals.shapes
+
+
 # one SpatialTransformer's gradients, card (K1, K9, TF32 products) against
 # CPU (full f32): this fraction of each gradient's largest |reference| plus
 # this rtol (measured: 3.3e-4 of the largest |reference| at worst)
@@ -1500,7 +1876,7 @@ def phase_grad(dev) -> None:
 # cross-attention sublayers at 64², 32² and 16² (the 8² middle one is below
 # the gate)
 SERVE_STEPS, K10_PER_UNET_CALL = 20, 15
-AB_PAIRS = 5  # pairs of the UNet call's device time, gate open and closed, in turns
+AB_PAIRS = 3  # pairs of the UNet call's device time, gate open and closed, in turns
 AB_ROUNDS = 1  # rounds of open, closed, closed, open of a lone request's latency
 SERVE_PROMPT = "An ancient mossy stone."
 
@@ -1762,9 +2138,9 @@ EXPECTED_REMAT = {"full": {"flash_attention_heads": 10, "flash_attention_bwd_hea
                   "dots": {"flash_attention_heads": 5, "flash_attention_bwd_heads": 5}}
 
 
-def write_train_images(folder: str, caption: str) -> str:
-    """The fine-tuning phases' dataset: TRAIN_IMAGES random 512x512 PNGs
-    (a torch.Generator seeded with SEED), each with the caption
+def write_train_images(folder: str, caption: str, n: int = TRAIN_IMAGES) -> str:
+    """The fine-tuning phases' dataset: n random 512x512 PNGs (a
+    torch.Generator seeded with SEED), each with the caption
     caption.format(i=i); returns the folder."""
     import os
 
@@ -1774,7 +2150,7 @@ def write_train_images(folder: str, caption: str) -> str:
 
     os.mkdir(folder)
     g = torch.Generator().manual_seed(SEED)
-    for i in range(TRAIN_IMAGES):
+    for i in range(n):
         img = torch.randint(0, 256, (512, 512, 3), generator=g, dtype=torch.uint8)
         save_png(img.numpy(), os.path.join(folder, f"img{i}.png"))
         with open(os.path.join(folder, f"img{i}.txt"), "w") as f:
@@ -1809,17 +2185,6 @@ def phase_train(dev) -> tuple[dict, dict]:
     from sdtpu_torch.training import make_optimizer, make_train_step, master_params
 
     fns = wrappers()
-
-    def read_and_zero():
-        counts = ({n: f.launches for n, f in fns.items()},
-                  {n: dict(f.shapes) for n, f in fns.items()})
-        for f in fns.values():
-            f.launches, f.shapes = 0, {}
-        return counts
-
-    def fired(counts):
-        return {n: k for n, k in counts.items() if k}
-
     gib = 1024 ** 3
     tok = SimpleTokenizer()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1955,8 +2320,9 @@ def phase_finetune_cli(dev) -> tuple[dict, dict]:
     saved at step 2: finite losses, the state read back by
     restore_train_state (step 2, its EMA bit-equal to the tuned model, its
     trained weights finite and every leaf changed), the tuned model with
-    sdtpu's keys and every UNet leaf f32 and finite; (b) the same to step 3 with --resume: it resumes at step 2 and
-    runs one step; (c) LoRA rank 4 with two micro-batches summed in bf16:
+    sdtpu's keys and every UNet leaf f32 and finite; (b) the same to step 3
+    with --resume: it resumes at step 2 and runs one step; (c) LoRA rank 4
+    with two micro-batches summed in bf16:
     the adapter loads, each merged leaf is base + a·b·scale within f32
     rounding and every other leaf is bit-equal to the base; (d) textual
     inversion of two vectors from "person": the concept loads and its rows
@@ -1982,8 +2348,7 @@ def phase_finetune_cli(dev) -> tuple[dict, dict]:
 
     t_phase = time.perf_counter()
     gb = 1e9
-    launches = {name: 0 for name in KERNEL_INFO}
-    shapes = {name: {} for name in KERNEL_INFO}
+    totals = Totals()
     env = {**os.environ, "SDTPU_PROFILE": "1"}
     bad = []
     with tempfile.TemporaryDirectory(prefix="chip_smoke_finetune_") as tmp:
@@ -2054,10 +2419,7 @@ def phase_finetune_cli(dev) -> tuple[dict, dict]:
                       f"{by_route(encoder['channel_partials'])}", flush=True)
             for n, shp in encoder.items():
                 run_shapes[n] = {F32_KEY + k: v for k, v in shp.items()}
-            for name in KERNEL_INFO:
-                launches[name] += run_launches[name]
-                for key, n in run_shapes[name].items():
-                    shapes[name][key] = shapes[name].get(key, 0) + n
+            totals.add(run_launches, run_shapes)
             return text, out, report
 
         # (a) the full fine-tune, its state and its model
@@ -2146,7 +2508,7 @@ def phase_finetune_cli(dev) -> tuple[dict, dict]:
     print(f"finetune cli phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
     if bad:
         fail("the finetune phase: " + "; ".join(bad))
-    return launches, shapes
+    return totals.launches, totals.shapes
 
 # the CLI phase: SD v1.4 at 512px from model files, bf16, 20 DDIM steps, CFG
 # 7.5, seed 0, through `python -m sdtpu_torch.sample` and `.convert`
@@ -2261,15 +2623,7 @@ def phase_cli(dev, tf32_defaults) -> tuple[dict, dict]:
     cfg, gb, gib = SD_V1_4, 1e9, 1024 ** 3
     params = init_params_on(cfg, dev)
     fns = wrappers()
-    launches = {name: 0 for name in KERNEL_INFO}
-    shapes = {name: {} for name in KERNEL_INFO}
-
-    def add(run_launches, run_shapes):
-        for name in KERNEL_INFO:
-            launches[name] += run_launches.get(name, 0)
-            for key, n in run_shapes.get(name, {}).items():
-                shapes[name][key] = shapes[name].get(key, 0) + n
-
+    totals = Totals()
     flat = flatten_tree(params)
 
     def leaves_differ(tree) -> list:
@@ -2287,9 +2641,6 @@ def phase_cli(dev, tf32_defaults) -> tuple[dict, dict]:
             elif g != want:
                 bad.append(k)
         return bad
-
-    def fired(counts):
-        return {n: k for n, k in counts.items() if k}
 
     env = {**os.environ, "SDTPU_PROFILE": "1"}
     bad = []
@@ -2351,7 +2702,7 @@ def phase_cli(dev, tf32_defaults) -> tuple[dict, dict]:
             if run_launches != EXPECTED_LAUNCHES[512]:
                 bad.append(f"sample {fmt} launched {run_launches}")
             check_routes(f"cli sample {fmt}", run_shapes, {})
-            add(run_launches, run_shapes)
+            totals.add(run_launches, run_shapes)
             with open(prefix + "0.png", "rb") as f:
                 pngs[fmt] = f.read()
 
@@ -2427,7 +2778,7 @@ def phase_cli(dev, tf32_defaults) -> tuple[dict, dict]:
             if run_launches != expected:
                 bad.append(f"{label} launched {run_launches}")
             check_routes(f"cli {label}", run_shapes, {})
-            add(run_launches, run_shapes)
+            totals.add(run_launches, run_shapes)
             return images
 
         padded = generate(sd, "generate (batched CFG, in process)", EXPECTED_LAUNCHES[512])
@@ -2494,7 +2845,7 @@ def phase_cli(dev, tf32_defaults) -> tuple[dict, dict]:
     print(f"cli phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
     if bad:
         fail("the CLI phase: " + "; ".join(bad))
-    return launches, shapes
+    return totals.launches, totals.shapes
 
 
 def init_params_on(cfg, dev):
@@ -2552,22 +2903,19 @@ def main() -> None:
     # command lines at 512px from each weight format and the two-pass
     # generate, the server at 512px, then fine-tuning at 512px in process
     # and through `python -m sdtpu_torch.finetune`
-    launches = {name: 0 for name in KERNEL_INFO}
-    shapes = {name: {} for name in KERNEL_INFO}
+    totals = Totals()
     for label, run in (("phase 4 (generate 512)", lambda: phase_generate(dev, 512)),
                        ("phase 4 (generate 1024)", lambda: phase_generate(dev, 1024)),
+                       ("phase 9 (SD v2.1 768)", lambda: phase_v21(dev, tf32_defaults)),
                        ("phase 7 (command lines)", lambda: phase_cli(dev, tf32_defaults)),
                        ("phase 6 (serve)", lambda: phase_serve(dev)),
                        ("phase 5 (run_finetune)", lambda: phase_train(dev)),
                        ("phase 8 (finetune command line)", lambda: phase_finetune_cli(dev))):
-        run_launches, run_shapes = run()
+        totals.add(*run())
         t0 = took(label, t0)
-        for name in KERNEL_INFO:
-            launches[name] += run_launches[name]
-            for key, n in run_shapes[name].items():
-                shapes[name][key] = shapes[name].get(key, 0) + n
         torch.cuda.empty_cache()
-    times = main_path_times(measured, shapes)
+    times = main_path_times(measured, totals.shapes)
+    launches = totals.launches
 
     kernels_json = []
     for name, (route, source, replaces) in KERNEL_INFO.items():

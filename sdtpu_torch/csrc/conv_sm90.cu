@@ -42,8 +42,9 @@
 // 640 + 320 -> 320). The design is an implicit GEMM that keeps the tensor
 // cores fed and never builds the shifted or normalised map:
 //
-// - A CTA computes 128 consecutive pixels of one image (a box of bw =
-//   min(W, 128) pixels by bh = 128 / bw rows) times bn output channels (128,
+// - A CTA computes 128 pixels of one image (a box of bw = gcd(W, 128)
+//   pixels by bh = 128 / bw rows: 128 consecutive pixels where W is a
+//   multiple or a divisor of 128, 32 x 4 at W = 96) times bn output channels (128,
 //   256, or 320 for the UNet's 320-channel convs): two
 //   consumer warpgroups of 64 pixels each and a producer warpgroup that hands
 //   its registers to them (setmaxnreg 40 / 232) and of which one thread keeps
@@ -467,7 +468,7 @@ cudaError_t launch_conv_sm90(int bn, const CUtensorMap& mx, const CUtensorMap& m
 // prologue (the affine alone takes the WMMA kernel); res like y, or null;
 // stats [B][row tiles][2][Co] f32 or null, row tiles = ceil(H / bh)·(W /
 // bw). The plan from Python: bn output channels a tile (128, 256 or 320),
-// bw pixels of a row a box (min(W, 128), bh = 128 / bw rows), `stages`,
+// bw pixels of a row a box (gcd(W, 128), bh = 128 / bw rows), `stages`,
 // smem_bytes.
 extern "C" int sdk_conv3x3_sm90(const void* x, const void* x2, const void* w, const void* bias,
                                 const float* scale, const float* shift, long long ld_s,
@@ -482,7 +483,7 @@ extern "C" int sdk_conv3x3_sm90(const void* x, const void* x2, const void* w, co
   const bool pro = scale != nullptr;
   if (B <= 0 || H <= 0 || W <= 0 || C1 <= 0 || C1 % V_BK || C2 < 0 || C2 % V_BK || Co <= 0 ||
       Co % 8 || reinterpret_cast<uintptr_t>(bias) % 4 || stages < 2 ||
-      bw != (W < V_BM ? W : V_BM) || V_BM % bw || W % bw || (x2 != nullptr) != (C2 > 0) ||
+      bw <= 0 || V_BM % bw || W % bw || (x2 != nullptr) != (C2 > 0) ||
       (shift != nullptr) != pro || (pro && (ld_s < C1 || !silu)) ||
       (C2 > 0 && ((scale2 != nullptr) != pro || (shift2 != nullptr) != pro || (pro && ld_s2 < C2))))
     return (int)cudaErrorInvalidValue;
@@ -548,7 +549,7 @@ extern "C" int sdk_conv1x1_sm90(const void* x, const void* w, const void* bias,
 // row tiles p·(row tiles) .., row tiles = ceil(H / bh)·(W / bw). C a multiple
 // of 64, Co of 8. The plan from Python (fused_conv.upsample_sm90_plan): bn
 // output channels a tile (128, 256 or 320), bw pixels of a row a box
-// (min(W, 128), bh = 128 / bw rows), `stages`, smem_bytes.
+// (gcd(W, 128), bh = 128 / bw rows), `stages`, smem_bytes.
 extern "C" int sdk_upsample_conv_sm90(const void* x, const void* w, const void* bias, void* out,
                                       float* stats, int B, int H, int W, int C, int Co, int bn,
                                       int bw, int stages, int smem_bytes, void* stream) {
@@ -557,7 +558,7 @@ extern "C" int sdk_upsample_conv_sm90(const void* x, const void* w, const void* 
   for (const void* q : ptrs)
     if (!sm90::aligned16(q)) return (int)cudaErrorInvalidValue;
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || C % V_BK || Co <= 0 || Co % 8 ||
-      reinterpret_cast<uintptr_t>(bias) % 4 || stages < 2 || bw != (W < V_BM ? W : V_BM) ||
+      reinterpret_cast<uintptr_t>(bias) % 4 || stages < 2 || bw <= 0 ||
       V_BM % bw || W % bw)
     return (int)cudaErrorInvalidValue;
   CUtensorMap mx, mw;

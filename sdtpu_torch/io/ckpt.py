@@ -37,7 +37,13 @@ def _lin(sd, key, bias=True):
 
 
 def _conv(sd, key):
-    p = {"w": np.transpose(_t(sd[f"{key}.weight"]), (2, 3, 1, 0))}
+    """A convolution's OIHW weight as HWIO. A 2-D [out, in] weight, the
+    linear proj_in/proj_out of SD v2.x (use_linear_in_transformer), is the
+    1x1 kernel [1, 1, in, out]: the same tree as the 4-D form."""
+    w = _t(sd[f"{key}.weight"])
+    if w.ndim == 2:
+        w = w[:, :, None, None]
+    p = {"w": np.transpose(w, (2, 3, 1, 0))}
     if f"{key}.bias" in sd:
         p["b"] = _t(sd[f"{key}.bias"])
     return p

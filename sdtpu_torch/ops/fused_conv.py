@@ -32,7 +32,9 @@ the next GroupNorm's statistics cost no read of the map.
   for the channels past x's, so the channel concat never reaches HBM and
   the concat's weight is used as it is. Routes: bf16 takes csrc/conv_sm90.cu
   where sm90_plan has a tile for the shape (C and C2 multiples of 64, W a
-  multiple or a divisor of 128: every main-path shape) and the prologue, if
+  multiple or a divisor of 128 or a multiple of 32: every main-path shape,
+  SD v2.1's 96- and 192-pixel-wide maps in boxes of 32 x 4 and 64 x 2
+  pixels) and the prologue, if
   any, ends in SiLU (as every main-path one does); f32 and the other shapes
   the WMMA kernel; each launch is counted under its route.
 - K7 replaces `_up_kernel` (sdtpu/ops/fused_conv.py:276, called at :372):
@@ -41,8 +43,8 @@ the next GroupNorm's statistics cost no read of the map.
   phase writing its interleaved pixels straight into the output, 2·16·C·Co
   flops per input pixel (compute-bound). Routes: bf16 takes
   csrc/conv_sm90.cu at four taps with the phase in the grid where
-  upsample_sm90_plan has a tile (C a multiple of 64, W a multiple or a
-  divisor of 128: every main-path shape); f32 and the other shapes the
+  upsample_sm90_plan has a tile (C a multiple of 64, W as K6's: every
+  main-path shape); f32 and the other shapes the
   WMMA kernel; each launch is counted under its route. Both read the
   [4, 4C, Co] stack of the phases' folded taps (phase_weight_stack), which
   the pipeline folds once (models/vae.py:upsample_phase_stacks).
@@ -53,6 +55,7 @@ no counterpart.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -241,6 +244,9 @@ def conv3x3_fused_plain(x, w, conv_bias, prologue_scale=None, prologue_bias=None
 SM90_CONV_BM, SM90_CONV_BK, SM90_CONV_BOX = 128, 64, 64
 SM90_CONV_MAX_STAGES = 4
 SM90_CONV_WIDE = (320, 256)  # the tiles wider than 128 channels, widest first
+# the narrowest box at a width that is no divisor of 128 (SD v2.1's 96² maps);
+# a narrower one (W = 24, an odd W) leaves the shape to the WMMA kernel
+SM90_CONV_MIN_BW = 32
 
 
 class ConvPlan(NamedTuple):
@@ -261,17 +267,21 @@ def sm90_plan(b: int, h: int, w: int, c1: int, c2: int, co: int, prologue: bool,
     """The Hopper kernel's plan for a 3x3 conv of [b, h, w, c1 (+ c2)] to co
     channels, or None where it has no tile for the shape (the WMMA kernel
     takes it): c1 and c2 must be multiples of 64, so that a 64-deep K block
-    never straddles a tap or the x/x2 boundary, co a multiple of 8, and w a
-    multiple or a divisor of 128, so that a box of bw = min(w, 128) pixels by
-    128 / bw rows covers the 128-pixel tile exactly. Tiles are the widest of
+    never straddles a tap or the x/x2 boundary, and co a multiple of 8. The
+    A box is bw = gcd(w, 128) pixels by 128 / bw rows, which covers the
+    128-pixel tile exactly and w / bw of which cover a row: min(w, 128)
+    where w is a multiple or a divisor of 128, 32 x 4 at SD v2.1's 96² and
+    64 x 2 at its 192² (768px); at another w a box narrower than
+    SM90_CONV_MIN_BW has no plan. Tiles are the widest of
     320 and 256 channels that co divides into while the grid still has a CTA
     for every SM, else 128; bn and stages, when given, override the choice
     (for timing one plan against another)."""
     if (b <= 0 or h <= 0 or w <= 0 or c1 <= 0 or c1 % SM90_CONV_BK or c2 < 0
-            or c2 % SM90_CONV_BK or co <= 0 or co % 8 or (w % SM90_CONV_BM
-                                                         and SM90_CONV_BM % w)):
+            or c2 % SM90_CONV_BK or co <= 0 or co % 8):
         return None
-    bw = min(w, SM90_CONV_BM)
+    bw = math.gcd(w, SM90_CONV_BM)
+    if bw < SM90_CONV_MIN_BW and SM90_CONV_BM % w:
+        return None
     bh = SM90_CONV_BM // bw
     tiles = -(-h // bh) * (w // bw)
     if bn is None:
@@ -420,8 +430,8 @@ def upsample_sm90_plan(b: int, h: int, w: int, c: int, co: int, bn: int | None =
     kernel takes it): sm90_plan's tile of a map with four output phases an
     image, no prologue. Each CTA computes one phase of one 128-pixel tile
     of x, so the grid is (co / bn, tiles, 4·b), and the tile's width
-    follows sm90_plan's rule over that grid; c must be a multiple of 64 and
-    w a multiple or a divisor of 128. bn and stages, when given, override
+    follows sm90_plan's rule over that grid; c must be a multiple of 64 (the
+    box is sm90_plan's, gcd(w, 128) pixels wide). bn and stages, when given, override
     the choice (for timing one plan against another)."""
     return sm90_plan(4 * b, h, w, c, 0, co, False, bn, stages)
 

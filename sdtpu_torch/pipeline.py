@@ -9,6 +9,9 @@ two-pass mode, the reference's own variable-length behaviour. The
 five samplers are sdtpu's: ddim, dpmpp (DPM-Solver++ 2M), euler, euler_a
 (ancestral) and heun, the last four also on the Karras sigma ladder
 (karras_sigmas), each with per-item guidance scales and negative prompts.
+A v-prediction model (SD v2.1-768, config.prediction_type "v") has its
+guided output turned into epsilon once a UNet evaluation (to_eps), so every
+sampler's update is the epsilon one.
 sdtpu's jitted lax.scan over the steps is a Python loop here. Where sdtpu
 splits a JAX key inside the loop (euler_a's noise, inpainting's
 re-imposition), the port draws from a torch.Generator, or from an injected
@@ -58,6 +61,16 @@ def _cast_param_tree(params, dtype):
     return {k: (v if k in _UNCAST else cast(v)) for k, v in params.items()}
 
 
+def to_eps(model_out, x, abar, prediction_type: str):
+    """The guided model output as epsilon (sdtpu/pipeline.py:141-147): a
+    v-prediction model emits v = sqrt(abar) eps - sqrt(1 - abar) x0, so
+    eps = sqrt(abar) v + sqrt(1 - abar) x, f32, with x the latent the UNet
+    was given and abar its noise level; an epsilon model's output as it is."""
+    if prediction_type == "v":
+        return torch.sqrt(abar) * model_out + torch.sqrt(1.0 - abar) * x
+    return model_out
+
+
 class StableDiffusion:
     """Owns the parameter tree {clip, unet, autoencoder, alphas_cumprod,
     n_steps} (tensors on one device, see sdtpu_torch.weights) and runs the
@@ -73,10 +86,6 @@ class StableDiffusion:
 
     def __init__(self, params, config: StableDiffusionConfig = SD_V1_4,
                  compute_dtype=torch.float32, pad_context: bool = True):
-        if config.prediction_type != "epsilon":
-            raise NotImplementedError(
-                f"{config.name}: only epsilon-prediction models are ported "
-                f"(v-prediction, SD v2.1-768, is not)")
         if compute_dtype != torch.float32:
             params = _cast_param_tree(params, compute_dtype)
         self.params = {**params, "unet": fuse_qkv(params["unet"])}
@@ -184,6 +193,7 @@ class StableDiffusion:
                 e_c = unet_apply(unet, x, t, context, cfg.unet).float()
                 return e_un + (e_c - e_un) * scale
 
+        kind = cfg.prediction_type
         inpaint = known_latent is not None
         if inpaint:
             z0 = torch.as_tensor(known_latent, dtype=torch.float32).to(dev)
@@ -208,7 +218,8 @@ class StableDiffusion:
             timesteps = timesteps[skip_steps:]
             a_t, a_prev = ddim_alphas(alphas, timesteps, step_size)
             for i, t in enumerate(timesteps):
-                lat = ddim_step(lat, denoise(lat, t), a_t[i], a_prev[i])
+                eps = to_eps(denoise(lat, t), lat, a_t[i], kind)
+                lat = ddim_step(lat, eps, a_t[i], a_prev[i])
                 # VP domain at the next level
                 lat = reimpose(lat, torch.sqrt(a_prev[i]), torch.sqrt(1.0 - a_prev[i]))
             return lat
@@ -220,7 +231,9 @@ class StableDiffusion:
             state = dpmpp_init(lat)
             for i, t in enumerate(arrs.timesteps[skip_steps:]):
                 step = [a[i] for a in steps]
-                state = dpmpp_2m_step(state, denoise(state.x, t), step)
+                # abar_t = alpha_t^2 (sdtpu/pipeline.py:198)
+                eps = to_eps(denoise(state.x, t), state.x, step[0] * step[0], kind)
+                state = dpmpp_2m_step(state, eps, step)
                 # VP domain at the step's target (alpha_n, sigma_n)
                 state = state._replace(x=reimpose(state.x, step[3], step[4]))
             return state.x
@@ -232,7 +245,9 @@ class StableDiffusion:
         x = lat * torch.sqrt(sig[0] ** 2 + 1.0)
 
         def eps_at(x, sigma, t):
-            return denoise(model_input(x, sigma), t)
+            # v converted on the scaled model input, at abar = vp_alpha(sigma)
+            inp = model_input(x, sigma)
+            return to_eps(denoise(inp, t), inp, vp_alpha(sigma), kind)
 
         # VE domain: the known latent is x0-scale, so the re-imposition at
         # the target level is z0 + sigma_next * noise

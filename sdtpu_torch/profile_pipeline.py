@@ -1,12 +1,14 @@
-"""Where the time of a 512x512 or 1024x1024 image, or of a fine-tuning
-step, goes on one NVIDIA GPU.
+"""Where the time of an image, or of a fine-tuning step, goes on one NVIDIA
+GPU.
 
-    python -m sdtpu_torch.profile_pipeline [--size 512|1024] [--out FILE] [--repeats N]
-    python -m sdtpu_torch.profile_pipeline --train [--out FILE] [--repeats N]
+    python -m sdtpu_torch.profile_pipeline [--preset P] [--size 512|768|1024] [--out FILE]
+        [--repeats N]
+    python -m sdtpu_torch.profile_pipeline --train [--preset P] [--out FILE] [--repeats N]
 
-Builds SD v1.4 at full width with random weights (seeded), bf16, at the
-given image size (the same config with image_size set), and measures,
-after warm-up:
+Builds the preset's model (sd-v1-4 by default; sd-v2-1 is SD v2.1-768) at
+full width with random weights (seeded), bf16, at the given image size (the
+same config with image_size set; the preset's own size by default: 512 for
+sd-v1-4, 768 for sd-v2-1), and measures, after warm-up:
 
 1. `generate` (20 DDIM steps, CFG 7.5 batched, batch 1) N times: the wall
    seconds of encode_prompt / denoise / decode of each run;
@@ -19,9 +21,10 @@ after warm-up:
 3. the same UNet call replayed from a CUDA graph, and its largest
    difference from the eager output.
 
-With --train it measures instead a training step of the whole UNet at
-512x512 (training.make_train_step: batch 4 of random 64x64 latents and
-contexts with a key mask, bf16 compute, f32 masters, AdamW) for remat off,
+With --train it measures instead a training step of the whole UNet at the
+image size (training.make_train_step: batch 4 of random latents and
+contexts with a key mask, bf16 compute, f32 masters, AdamW, the preset's
+prediction target) for remat off,
 "full" and "dots": the mean wall ms of N warm steps (host clock,
 synchronised), the peak memory of a step, and the device kernel time of
 one profiled step with its largest items.
@@ -40,7 +43,7 @@ import time
 
 import torch
 
-from sdtpu_torch.config import SD_V1_4
+from sdtpu_torch.config import PRESETS
 from sdtpu_torch.models import unet as unet_model
 from sdtpu_torch.models import vae as vae_model
 from sdtpu_torch.models.unet import unet_apply
@@ -86,7 +89,8 @@ def _train(sd, dev, args, say) -> None:
     from sdtpu_torch.training import make_optimizer, make_train_step, master_params
 
     g = torch.Generator(device=dev).manual_seed(2)
-    b, hw, cfg = 4, SD_V1_4.latent_size, SD_V1_4
+    cfg = sd.config
+    b, hw = 4, cfg.latent_size
     batch = (torch.randn((b, hw, hw, 4), generator=g, device=dev),
              torch.randn((b, cfg.clip.n_ctx, cfg.clip.n_state), generator=g, device=dev),
              torch.arange(cfg.clip.n_ctx, device=dev)[None, :] < torch.tensor(
@@ -104,7 +108,8 @@ def _train(sd, dev, args, say) -> None:
         wall = _wall_ms(one, args.repeats)
         peak = torch.cuda.max_memory_allocated(dev) / 1024 ** 3
         dev_ms, top = _device_profile(one, args.top)
-        say(f"4. train step remat={remat!r} (SD v1.4 UNet, 512px, batch {b}, bf16, AdamW): "
+        say(f"4. train step remat={remat!r} ({cfg.name} UNet, {cfg.image_size}px, batch {b}, "
+            f"bf16, AdamW): "
             f"wall {wall:.3f} ms (mean of {args.repeats}); peak memory {peak:.2f} GiB; device "
             f"kernels {dev_ms:.3f} ms in one profiled step, busy share {dev_ms / wall:.3f}")
         for key, ms, n in top:
@@ -114,10 +119,12 @@ def _train(sd, dev, args, say) -> None:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--size", type=int, choices=(512, 1024), default=512,
-                    help="image size (default 512)")
+    ap.add_argument("--preset", choices=sorted(PRESETS), default="sd-v1-4",
+                    help="the model (default sd-v1-4)")
+    ap.add_argument("--size", type=int, choices=(512, 768, 1024), default=None,
+                    help="image size (default: the preset's, 512 or 768)")
     ap.add_argument("--train", action="store_true",
-                    help="profile a 512px fine-tuning step instead of generate")
+                    help="profile a fine-tuning step instead of generate")
     ap.add_argument("--out", help="also write the report to this file")
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--top", type=int, default=12)
@@ -135,7 +142,9 @@ def main(argv=None) -> None:
                           check=True).stdout.strip().splitlines()[0]
     say(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
     dev = torch.device("cuda", 0)
-    cfg_sd = dataclasses.replace(SD_V1_4, image_size=args.size)
+    preset = PRESETS[args.preset]
+    size = args.size or preset.image_size
+    cfg_sd = dataclasses.replace(preset, image_size=size)
     sd = StableDiffusion(init_params(cfg_sd, torch.Generator(device=dev).manual_seed(0),
                                      device=dev), cfg_sd, compute_dtype=torch.bfloat16)
     tok = SimpleTokenizer()
@@ -145,7 +154,7 @@ def main(argv=None) -> None:
         _write(args.out, lines)
         return
 
-    say(f"1. generate {args.size}x{args.size} bf16, 20 DDIM steps, CFG 7.5, batch 1 "
+    say(f"1. generate {cfg_sd.name} {size}x{size} bf16, 20 DDIM steps, CFG 7.5, batch 1 "
         f"({args.repeats + 1} runs, the first includes first-call costs)")
     for i in range(args.repeats + 1):
         t0 = time.perf_counter()
@@ -161,7 +170,7 @@ def main(argv=None) -> None:
     unctx, unvalid = sd.context(tok, "")
     ctx2, valid2 = torch.cat([unctx, ctx]), torch.cat([unvalid, valid])
     t = torch.tensor([481.0], device=dev)  # on the device, so a graph can hold it
-    unet, cfg = sd.params["unet"], SD_V1_4.unet
+    unet, cfg = sd.params["unet"], cfg_sd.unet
     z = torch.randn((1, hw, hw, 4), generator=g, device=dev).to(torch.bfloat16)
     vae = sd.params["autoencoder"]
 
@@ -177,7 +186,7 @@ def main(argv=None) -> None:
             unet_model.FUSED_RES_MIN_ROWS = gate
 
     def decode_call():
-        return vae_model.decode_latent(vae, z, SD_V1_4.vae, sd.vae_phases)
+        return vae_model.decode_latent(vae, z, cfg_sd.vae, sd.vae_phases)
 
     def decode_unfused_call():
         gates = vae_model.FUSED_CONV_MIN_ROWS, conv.FUSED_UP_MIN_ROWS

@@ -3,6 +3,8 @@ CPU at sd-tiny, and its profiling phases against sdtpu's.
 
 - sample's usage errors are sdtpu's (tests/test_cli.py's cases), and so is
   convert's usage line.
+- `sample` of a v-prediction model's native file comes within 1 gray level
+  of sdtpu's sample on the same file.
 - `sample ... cpu --seed 0` from a native file, a dump tree, a Burn mpk and
   a CompVis ckpt of the same weights writes the same PNG bytes, those of
   the port's generate with torch.Generator("cpu").manual_seed(0).
@@ -195,6 +197,47 @@ def test_sample_lora_and_image_inputs_as_the_pipeline(model, mode, tmp_path, cap
     assert "Saved" in capsys.readouterr().out
     with open(out + "0.png", "rb") as f:
         assert f.read() == encode_png_rgb8(want[0])
+
+
+@pytest.mark.parametrize("sampler", [["--sampler", "dpmpp", "--karras"], []],
+                         ids=["dpmpp-karras", "ddim"])
+def test_sample_v_model_as_sdtpus_sample(sampler, tmp_path, capsys, monkeypatch):
+    """`sample native <file> 7.5 4 <prompt> <out> cpu --seed 0` of a
+    v-prediction model (SD_TINY with prediction_type "v", SD v2.1-768's
+    objective; the native file carries the configuration) within 1 gray
+    level of sdtpu's sample on the same file, the port given sdtpu's
+    PRNGKey(0) latent (its own seed draws from a torch.Generator)."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from sdtpu.utils.image import decode_png_rgb8
+
+    cfg = dataclasses.replace(SD_TINY, prediction_type="v", name="sd-tiny-v")
+    native = str(tmp_path / "v.safetensors")
+    save_native(init_params(cfg, torch.Generator().manual_seed(0), device="cpu"), native, cfg)
+    shape = (1, cfg.latent_size, cfg.latent_size, 4)
+    latent = np.asarray(jax.random.normal(jax.random.PRNGKey(0), shape, jnp.float32))
+
+    def draw_from(self, generator):
+        def draw(s):
+            assert tuple(s) == shape
+            return torch.from_numpy(latent)
+        return draw
+
+    monkeypatch.setattr(StableDiffusion, "_draw_from", draw_from)
+    images = {}
+    for label, main in (("port", cli.sample_main), ("sdtpu", j_sample_main)):
+        out = str(tmp_path / label)
+        main(["sample", "native", native, "7.5", "4", PROMPT, out, "cpu", "--seed", "0",
+              *sampler])
+        with open(out + "0.png", "rb") as f:
+            images[label] = decode_png_rgb8(f.read()).astype(int)
+    assert "Saved" in capsys.readouterr().out
+    assert images["port"].shape == (32, 32, 3)
+    assert np.abs(images["port"] - images["sdtpu"]).max() <= 1
 
 
 @pytest.mark.cuda

@@ -48,8 +48,8 @@ WGMMA_M, WGMMA_K = 64, 16
 # 1024px UNet's 32² level
 K5_SHAPES = [(2, 1024, 640), (2, 256, 1280), (2, 1024, 1280), (8, 1024, 640), (8, 256, 1280)]
 # head widths and sequence lengths K9 runs at in training (512px: S = 4096;
-# 1024px: S = 16384) and the 16² level's 160
-K9_SHAPES = [(d, s) for d in (40, 80, 160) for s in (4096, 16384)]
+# 1024px: S = 16384) and the 16² level's 160; SD v2.1's 64 at 768px (96²)
+K9_SHAPES = [(d, s) for d in (40, 80, 160) for s in (4096, 16384)] + [(64, 9216)]
 
 
 @pytest.mark.parametrize("product", ["geglu", "residual"])
@@ -146,20 +146,25 @@ def _decoder_convs(lat):
     return [conv for hw, ci, co in blocks for conv in ((hw, ci, co), (hw, co, co))]
 
 
-# (map size, input channels, output channels) of SD v1.4's VAE encoder's
-# ResnetBlocks on a 512x512 image
-ENCODER_RESNETS = ((512, 128, 128), (256, 128, 256), (256, 256, 256), (128, 256, 512),
-                   (128, 512, 512), (64, 512, 512))
+def _encoder_resnets(size):
+    """(map size, input channels, output channels) of SD's VAE encoder's
+    ResnetBlocks (v1.4's and v2.1's are one) on a size x size image."""
+    return ((size, 128, 128), (size // 2, 128, 256), (size // 2, 256, 256),
+            (size // 4, 256, 512), (size // 4, 512, 512), (size // 8, 512, 512))
+
+
 # (B, H, W, C1, C2, Co) of K6's launches on the main paths (chip_smoke.py's
 # phase-2 cases): the UNet's fused ResBlocks at 128² (1024px, with the
 # skip as x2), the decoder at 512px and 1024px and the serve phase's batch
-# of 4, the encoder at B=4 (the fine-tuning cache) and B=1 (img2img)
+# of 4, the encoder at B=4 (the fine-tuning cache) and B=1 (img2img); SD
+# v2.1 at 768px: the decoder on a 96² latent, the encoder at B=2 (its
+# fine-tuning cache) and B=1
 K6_SHAPES = sorted(
     {(2, 128, 128, 640, 320, 320), (2, 128, 128, 320, 320, 320), (2, 128, 128, 320, 0, 320)}
-    | {(b, hw, hw, ci, 0, co) for b, lat in ((1, 64), (1, 128), (4, 64))
+    | {(b, hw, hw, ci, 0, co) for b, lat in ((1, 64), (1, 128), (4, 64), (1, 96))
        for hw, ci, co in _decoder_convs(lat)}
-    | {(b, hw, hw, c, 0, co) for b in (4, 1) for hw, ci, co in ENCODER_RESNETS
-       for c in (ci, co)})
+    | {(b, hw, hw, c, 0, co) for b, size in ((4, 512), (1, 512), (2, 768), (1, 768))
+       for hw, ci, co in _encoder_resnets(size) for c in (ci, co)})
 TMA_BOX_MAX = 256
 
 
@@ -189,7 +194,8 @@ def test_k6_plan(b, h, w, c1, c2, co):
     r = np.arange(tfc.SM90_CONV_BM)
     tile = np.arange(plan.grid[1])[:, None]
     pi, pj = tile // tiles_w * plan.bh + r // plan.bw, tile % tiles_w * plan.bw + r % plan.bw
-    if h % plan.bh == 0:  # a tile is 128 consecutive pixels of the map
+    if h % plan.bh == 0 and plan.bw == min(w, tfc.SM90_CONV_BM):
+        # W a multiple or a divisor of 128: a tile is 128 consecutive pixels
         assert (pi * w + pj == tile * tfc.SM90_CONV_BM + r).all()
     inside = pi < h
     counts = np.bincount((pi * w + pj)[inside], minlength=h * w)
@@ -206,11 +212,23 @@ def test_k6_plan(b, h, w, c1, c2, co):
 @pytest.mark.parametrize("b,h,w,c1,c2,co", [
     (1, 8, 8, 40, 0, 64),     # C not a multiple of 64
     (1, 8, 8, 64, 8, 64),     # C2 not a multiple of 64
-    (1, 8, 96, 64, 0, 64),    # W neither a multiple nor a divisor of 128
     (1, 8, 8, 64, 0, 12),     # Co not a multiple of 8
+    (1, 8, 24, 64, 0, 64),    # W no divisor of 128 and its box 8 pixels wide
+    (1, 8, 33, 64, 0, 64),    # an odd W (a box of 1 pixel)
 ])
 def test_k6_plan_leaves_other_shapes_to_the_wmma_kernel(b, h, w, c1, c2, co):
     assert tfc.sm90_plan(b, h, w, c1, c2, co, True) is None
+
+
+@pytest.mark.parametrize("w,box", [(64, (64, 2)), (256, (128, 1)), (96, (32, 4)),
+                                   (192, (64, 2)), (768, (128, 1)), (16, (16, 8))])
+def test_k6_plan_box_is_gcd_of_w_and_128(w, box):
+    """The A box is gcd(W, 128) pixels by 128 / that rows: min(W, 128) where
+    W is a multiple or a divisor of 128, and for SD v2.1's 96² and 192² maps
+    (768px) 32 x 4 and 64 x 2; K7's the same."""
+    plan = tfc.sm90_plan(1, 8, w, 64, 0, 64, True)
+    assert (plan.bw, plan.bh) == box and plan.grid[1] == -(-8 // box[1]) * (w // box[0])
+    assert (tfc.upsample_sm90_plan(1, 8, w, 64, 64).bw,) == box[:1]
 
 
 def test_k6_plan_overrides():
@@ -233,9 +251,21 @@ K2_SHAPES = [(2, 4096, 320), (2, 1024, 640), (2, 256, 1280), (2, 16384, 320), (2
 
 @pytest.mark.parametrize("b,s,c", K2_SHAPES)
 def test_k2_plan(b, s, c):
-    plan = tft.sm90_plan(b, s, c, 8)
+    _check_k2_plan(b, s, c, 8)
+
+
+@pytest.mark.parametrize("b,s,c,heads", [(2, 9216, 320, 5), (2, 2304, 640, 10)])
+def test_k2_plan_sd_v2_1(b, s, c, heads):
+    """SD v2.1 at 768px: 5 heads of 64 at the 96² level, 10 at 48²; the
+    fused QKV product's N = 3C (960, 1920) is no multiple of 256."""
+    _check_k2_plan(b, s, c, heads)
+    assert tft.sm90_plan(b, s, c, heads).core.dpad == 64
+
+
+def _check_k2_plan(b, s, c, heads):
+    plan = tft.sm90_plan(b, s, c, heads)
     assert plan is not None
-    d, core = c // 8, plan.core
+    d, core = c // heads, plan.core
     # the core: d padded to a multiple of 16 (wgmma's K steps of Q·Kᵀ), the
     # zero-filled columns past d within one 16-byte chunk of the next head's
     # start never read (d is a multiple of 8)
@@ -336,7 +366,9 @@ K3_SHAPES = [(2, 4096, 320), (8, 4096, 320), (2, 4096, 640), (2, 16384, 320),
              (2, 16384, 640), (1, 4096, 512), (1, 16384, 512), (4, 4096, 512),
              (4, 16384, 512), (4, 262144, 128), (4, 65536, 128), (4, 65536, 256),
              (4, 16384, 256), (1, 262144, 128), (1, 65536, 128), (1, 65536, 256),
-             (1, 16384, 256)]
+             (1, 16384, 256)] + [  # SD v2.1 at 768px: the UNet's 96², the decoder,
+    (2, 9216, 320), (1, 9216, 512), (1, 36864, 512)] + [  # the encoder at B=2 and 1
+    (b, hw * hw, ci) for b in (2, 1) for hw, ci, _ in _encoder_resnets(768)]
 K3_THREADS = 256
 
 
@@ -393,7 +425,8 @@ def test_k3_plan_small_maps(b, rows, c):
 # (B, rows, C = Co) of K4's launches on the main paths: proj_in and proj_out
 # at 64² (512px, batch 2; the serve phase's batch 8) and at 128² and 64²
 # (1024px)
-K4_SHAPES = [(2, 4096, 320), (2, 16384, 320), (2, 4096, 640), (8, 4096, 320)]
+K4_SHAPES = [(2, 4096, 320), (2, 16384, 320), (2, 4096, 640), (8, 4096, 320),
+             (2, 9216, 320)]  # the last, SD v2.1's 96² at 768px
 
 
 @pytest.mark.parametrize("prologue", [True, False], ids=["proj_in", "proj_out"])
@@ -454,7 +487,8 @@ def test_k4_plan_overrides():
 # phase-2 cases): the decoder's upsamplers at 512px (128², 256²) and 1024px
 # (also 256² x 512 and 512²), and the serve phase's batch of 4
 K7_SHAPES = [(1, 128, 512, 512), (1, 256, 256, 256), (1, 256, 512, 512), (1, 512, 256, 256),
-             (4, 128, 512, 512), (4, 256, 256, 256)]
+             (4, 128, 512, 512), (4, 256, 256, 256),
+             (1, 192, 512, 512), (1, 384, 256, 256)]  # SD v2.1 at 768px
 
 
 @pytest.mark.parametrize("b,hw,c,co", K7_SHAPES)
@@ -481,8 +515,9 @@ def test_k7_plan(b, hw, c, co):
 
 @pytest.mark.parametrize("b,h,w,c,co", [
     (1, 8, 8, 40, 64),    # C not a multiple of 64
-    (1, 8, 96, 64, 64),   # W neither a multiple nor a divisor of 128
     (1, 8, 8, 64, 12),    # Co not a multiple of 8
+    (1, 8, 24, 64, 64),   # W no divisor of 128 and its box 8 pixels wide
+    (1, 8, 33, 64, 64),   # an odd W (a box of 1 pixel)
 ])
 def test_k7_plan_leaves_other_shapes_to_the_wmma_kernel(b, h, w, c, co):
     assert tfc.upsample_sm90_plan(b, h, w, c, co) is None
@@ -532,10 +567,19 @@ def test_k10_plan(b, s, c):
     """The Q product (LayerNorm prologue, N = C), the core with the key bias
     at d padded to 48, 80 or 160 (77 keys: two 64-key tiles), the Wo
     product; f32 keeps the WMMA kernels."""
-    plan = tfx.route_plan(torch.bfloat16, b, s, c, 8, 77, True)
+    _check_k10_plan(b, s, c, 8)
+
+
+def test_k10_plan_sd_v2_1():
+    """SD v2.1 at 768px with the gate open: the 48² level, 10 heads of 64."""
+    _check_k10_plan(2, 2304, 640, 10)
+
+
+def _check_k10_plan(b, s, c, heads):
+    plan = tfx.route_plan(torch.bfloat16, b, s, c, heads, 77, True)
     assert plan is not None
-    d, core = c // 8, plan.core
-    assert core.dpad == {40: 48, 80: 80, 160: 160}[d]
+    d, core = c // heads, plan.core
+    assert core.dpad == {40: 48, 64: 64, 80: 80, 160: 160}[d]
     assert core.tile == tfa.SM90_ATTN_TILE and -(-77 // core.tile) == 2
     stage = 2 * core.tile * core.dpad * 2 + core.tile * 4  # K, V and the bias row
     assert core.smem == tfa.SM90_ATTN_ROWS * core.dpad * 2 + core.stages * stage <= SMEM_LIMIT
@@ -545,9 +589,9 @@ def test_k10_plan(b, s, c):
         assert p == tfm.sm90_plan(m, c, c, False)
         assert p.smem <= SMEM_LIMIT and p.grid == (-(-c // p.bn), -(-m // tfm.SM90_BM))
     assert c <= tfm.SM90_LN_MAX_K
-    assert tfx.route_plan(torch.float32, b, s, c, 8, 77, True) is None
+    assert tfx.route_plan(torch.float32, b, s, c, heads, 77, True) is None
     # without a key mask the core's instance without the bias
-    assert tfx.route_plan(torch.bfloat16, b, s, c, 8, 77, False).core == tfa.core_sm90_plan(d)
+    assert tfx.route_plan(torch.bfloat16, b, s, c, heads, 77, False).core == tfa.core_sm90_plan(d)
 
 
 @pytest.mark.parametrize("b,s,c,heads,sk", [

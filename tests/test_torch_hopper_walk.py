@@ -7,7 +7,7 @@ csrc/attention_wide_sm90.cu, csrc/channel_stats_sm90.cu) run only on the
 card. What they compute apart from the products' rounding is how they walk
 their tiles, and that walk is written out here, step for step, in f32:
 
-- K6: for each 128-pixel tile (a box of bw = min(W, 128) pixels by 128 / bw
+- K6: for each 128-pixel tile (a box of bw = gcd(W, 128) pixels by 128 / bw
   rows, from fused_conv.sm90_plan) and each 64-deep K block (one tap, 64
   channels of x or of x2), the A box read at (c0, j0 + dx − 1, i0 + dy − 1,
   b) with zeros outside the map (TMA's fill), the prologue, then the border
@@ -159,10 +159,11 @@ def _k6_case(w_map, c2, prologue, seed):
 
 @pytest.mark.parametrize("prologue", [True, False], ids=["prologue", "no_prologue"])
 @pytest.mark.parametrize("c2", [0, 64], ids=["x", "x_x2"])
-@pytest.mark.parametrize("w_map", [16, 256])
+@pytest.mark.parametrize("w_map", [16, 256, 96])
 def test_k6_walk_matches_sdtpu_and_plain(w_map, c2, prologue):
     """At H = 4: W = 16 takes one box of 16 pixels by 8 rows (its last 4 rows
-    past the map, dropped), W = 256 two boxes of 128 pixels a row."""
+    past the map, dropped), W = 256 two boxes of 128 pixels a row, W = 96
+    (SD v2.1's 96² latent's width) three boxes of 32 pixels by 4 rows."""
     x, x2, w, cb, res, pro = _k6_case(w_map, c2, prologue, 50 + w_map + c2)
     c1 = x.shape[-1]
     t = torch.from_numpy
@@ -606,7 +607,8 @@ def k7_walk(x, w, cb, swap=False, origin=-1):
     ((16, 16), 128, 128, False),  # boxes of 16 pixels by 8 rows
     ((16, 16), 64, 128, True),
     ((2, 256), 64, 64, True),     # two boxes of 128 pixels a row
-], ids=["8x8", "16x16", "16x16_co128", "2x256"])
+    ((4, 192), 64, 64, True),     # three boxes of 64 pixels by 2 rows (SD v2.1's 192² width)
+], ids=["8x8", "16x16", "16x16_co128", "2x256", "4x192"])
 def test_k7_walk_matches_sdtpu_and_plain(hw, c, co, stats):
     r = np.random.default_rng(100 + c + co + hw[1])
     h, wd = hw

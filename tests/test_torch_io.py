@@ -157,11 +157,13 @@ def test_msgpack_codec_is_strict(data, match):
 
 # ------------------------------------------------------------------ ckpt
 
-def ldm_state_dict(params, cfg, openclip=False):
+def ldm_state_dict(params, cfg, openclip=False, linear_proj=False):
     """sdtpu's tree -> a CompVis/LDM state dict of torch tensors (linears
     [out, in], convs OIHW), the inverse of the ckpt mapping. openclip: SD
     v2's text tower, q/k/v fused into in_proj, with one extra resblock the
-    converter must skip."""
+    converter must skip. linear_proj: each SpatialTransformer's proj_in and
+    proj_out as linear [out, in] weights, as SD v2.x files store them
+    (use_linear_in_transformer)."""
     sd = {}
 
     def t(a):
@@ -228,8 +230,11 @@ def ldm_state_dict(params, cfg, openclip=False):
 
     def transformer(key, p):
         norm(f"{key}.norm", p["norm"])
-        conv(f"{key}.proj_in", p["proj_in"])
-        conv(f"{key}.proj_out", p["proj_out"])
+        for name in ("proj_in", "proj_out"):
+            if linear_proj:  # the 1x1 kernel [1, 1, in, out] as [out, in]
+                lin(f"{key}.{name}", {"w": p[name]["w"][0, 0], "b": p[name]["b"]})
+            else:
+                conv(f"{key}.{name}", p[name])
         tp, tb = p["transformer"], f"{key}.transformer_blocks.0"
         for n in ("attn1", "attn2"):
             for k, name in (("query", "to_q"), ("key", "to_k"), ("value", "to_v"),
@@ -310,6 +315,21 @@ def test_convert_state_dict_as_sdtpu(params, tower):
     assert_leaves_equal(got, jckpt.convert_state_dict(
         {k: v.numpy() for k, v in sd.items()}, J_SD_TINY))
     assert_leaves_equal(got, params)
+
+
+def test_convert_linear_proj_in_out(params):
+    """SD v2.x's linear proj_in/proj_out ([out, in]) convert to the tree of
+    their 4-D 1x1 form. sdtpu's converter transposes them as 4-D OIHW
+    weights and raises (a fault it keeps: ROADMAP queue 3)."""
+    sd4 = ldm_state_dict(params, SD_TINY, openclip=True)
+    sd2 = ldm_state_dict(params, SD_TINY, openclip=True, linear_proj=True)
+    key = "model.diffusion_model.input_blocks.1.1.proj_in.weight"
+    assert sd2[key].ndim == 2 and sd4[key].ndim == 4
+    got = tckpt.convert_state_dict(sd2, SD_TINY)
+    assert_leaves_equal(got, tckpt.convert_state_dict(sd4, SD_TINY))
+    assert_leaves_equal(got, params)
+    with pytest.raises(ValueError, match="axes don't match array"):
+        jckpt.convert_state_dict({k: v.numpy() for k, v in sd2.items()}, J_SD_TINY)
 
 
 def test_convert_state_dict_default_schedule(params):

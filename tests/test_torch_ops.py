@@ -517,6 +517,8 @@ def _routes(fn):
     ((2, 8, 64, 128), 64, 320, False, True, 256),  # no prologue: TMA's zeros pad; ragged Co
     ((2, 8, 128, 64), 64, 320, True, True, 320),   # the UNet's 320-channel tile
     ((1, 5, 128, 64), 128, 128, True, True, 128),  # H = 5 rows of one tile each
+    ((2, 6, 96, 64), 64, 72, True, True, 128),     # W = 96: boxes of 32 x 4, the last ragged
+    ((1, 4, 192, 128), 0, 256, True, False, 256),  # W = 192: three boxes of 64 x 2 a row
 ])
 def test_k6_sm90_matches_plain_on_card(shape, c2, cout, prologue, residual, bn):
     """K6's bf16 route (csrc/conv_sm90.cu), on tiles of bn channels, against
@@ -667,6 +669,8 @@ def test_k4_sm90_matches_plain_on_card(b, rows, c, co, prologue, residual, emit_
     ((2, 8, 128, 64), 320, 320, False),  # the 320-channel tile
     ((1, 16, 16, 256), 256, 256, True),  # the upsamplers' widths on a small map
     ((1, 128, 128, 512), 512, None, True),  # the 512px decode's first upsampler, its plan
+    ((1, 6, 96, 64), 72, 128, True),     # W = 96: boxes of 32 x 4, the last ragged
+    ((1, 192, 192, 512), 512, None, True),  # SD v2.1's 768px decode's first fused upsampler
 ])
 def test_k7_sm90_matches_plain_on_card(shape, cout, bn, stats):
     """K7's bf16 route (csrc/conv_sm90.cu at four taps), on tiles of bn

@@ -166,15 +166,6 @@ def test_generate_draws_latent_from_generator():
     assert np.abs(c[0].astype(int) - c[1].astype(int)).max() > 0
 
 
-def test_v_prediction_is_refused():
-    import dataclasses
-
-    params, _ = load_fixture()
-    cfg = dataclasses.replace(GOLDEN_CONFIG, prediction_type="v")
-    with pytest.raises(NotImplementedError):
-        StableDiffusion(from_numpy_tree(params, device="cpu"), cfg)
-
-
 @pytest.mark.parametrize("n_steps", [4, 20, 50])
 def test_ddim_schedule_and_alphas(n_steps):
     from sdtpu.diffusion import scaled_linear_alphas_cumprod

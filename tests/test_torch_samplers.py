@@ -10,10 +10,17 @@
   tiny checkpoint, with sdtpu's PRNGKey(7) draws computed with jax and
   injected (img2img's q-sample noise; inpainting's initial latent and
   per-step re-imposition noise).
-- euler_a, heun and uniform-grid dpmpp end to end equal sdtpu's
-  sample_latent with the same key's draws; so does inpainting under
-  euler_a, which draws twice a step.
+- Every sampler end to end (ddim, dpmpp on both ladders, euler, euler_a
+  on both, heun) equals sdtpu's sample_latent with the same key's draws;
+  so does inpainting under euler_a, which draws twice a step.
+- A v-prediction model (the golden weights, SD_TINY's shapes, under
+  prediction_type "v": SD v2.1-768's objective) equals sdtpu's through
+  every sampler in both guidance modes, and through img2img (on the
+  uniform grid and the Karras ladder) and inpainting; the same model with
+  its v -> epsilon conversion skipped does not.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +34,7 @@ from sdtpu.diffusion import scaled_linear_alphas_cumprod
 from sdtpu.pipeline import StableDiffusion as JStableDiffusion
 from sdtpu.tokenizer import SimpleTokenizer
 from sdtpu_torch.diffusion import dpm_solver as tdpm
+from sdtpu_torch import pipeline
 from sdtpu_torch.diffusion import karras as tkar
 from sdtpu_torch.pipeline import StableDiffusion
 from sdtpu_torch.weights import from_numpy_tree
@@ -104,12 +112,34 @@ def test_step_functions_equal_sdtpus():
 
 
 @pytest.fixture(scope="module")
-def fixture():
+def weights():
+    """The golden checkpoint for sdtpu (numpy) and for the port (torch),
+    and the golden latent."""
     params, lat = load_fixture()
     params["n_steps"] = 1000
-    tparams = from_numpy_tree(params, device="cpu")
+    return params, from_numpy_tree(params, device="cpu"), lat
+
+
+@pytest.fixture(scope="module")
+def fixture(weights):
+    params, tparams, lat = weights
     return (StableDiffusion(tparams, GOLDEN_CONFIG), JStableDiffusion(params, GOLDEN_CONFIG),
             lat, SimpleTokenizer())
+
+
+@pytest.fixture(scope="module")
+def pipelines(weights):
+    """(prediction type, pad_context) -> (the port's pipeline, sdtpu's) on
+    the golden weights, as the epsilon model of the goldens and as a
+    v-prediction model (GOLDEN_CONFIG with prediction_type "v")."""
+    params, tparams, _ = weights
+    out = {}
+    for kind in ("epsilon", "v"):
+        cfg = dataclasses.replace(GOLDEN_CONFIG, prediction_type=kind)
+        for pad in (True, False):
+            out[kind, pad] = (StableDiffusion(tparams, cfg, pad_context=pad),
+                              JStableDiffusion(params, cfg, pad_context=pad))
+    return out
 
 
 def _feed(draws):
@@ -191,26 +221,95 @@ def test_golden_inpaint_ddim(fixture):
     _assert_golden(got, "inpaint_ddim")
 
 
-@pytest.mark.parametrize("sampler,karras", [("euler_a", False), ("euler_a", True),
-                                            ("heun", False), ("dpmpp", False)])
-def test_sampler_equals_sdtpus(fixture, sampler, karras):
-    """The final latent of 3 steps (f32; the UNet's f32 sums in another order
-    between the two frameworks, hence 1e-4)."""
-    sd, jsd, lat, tok = fixture
+def _latents(pipes, sampler, karras, lat, tok, n_steps=3):
+    """(the port's final latent, sdtpu's) of n_steps from the latent lat,
+    CFG 7.5, sdtpu's PRNGKey(7) draws injected into the port (euler_a's
+    per-step noise)."""
+    sd, jsd = pipes
     jkw = _contexts(jsd, tok)
-    want = jsd.sample_latent(jkw["context"], jkw["unconditional_context"], 7.5, 3,
+    want = jsd.sample_latent(jkw["context"], jkw["unconditional_context"], 7.5, n_steps,
                              key=jax.random.PRNGKey(7), initial_latent=lat,
                              ctx_valid=jkw["ctx_valid"], uncond_valid=jkw["uncond_valid"],
                              sampler=sampler, karras_sigmas=karras)
     draws = []
     if sampler == "euler_a":
         _, noise_key = jax.random.split(jax.random.PRNGKey(7))
-        draws = _loop_draws(noise_key, [lat.shape] * 8)  # 4 steps at most
-    got = sd.sample_latent(unconditional_guidance_scale=7.5, n_steps=3,
+        draws = _loop_draws(noise_key, [lat.shape] * (n_steps + 1))
+    got = sd.sample_latent(unconditional_guidance_scale=7.5, n_steps=n_steps,
                            initial_latent=torch.from_numpy(lat), sampler=sampler,
                            karras_sigmas=karras, draw_noise=_feed(draws),
                            **_contexts(sd, tok))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+    return got.numpy(), np.asarray(want)
+
+
+SAMPLER_CASES = [("ddim", False), ("dpmpp", False), ("dpmpp", True), ("euler", False),
+                 ("euler_a", False), ("euler_a", True), ("heun", False)]
+# id suffix -> (prediction type, pad_context): the epsilon model with batched
+# guidance, the v model batched and in the two-pass mode
+MODES = {"": ("epsilon", True), "-v": ("v", True), "-v-twopass": ("v", False)}
+
+
+@pytest.mark.parametrize("sampler,karras,mode", [
+    pytest.param(sampler, karras, mode, id=f"{sampler}-{karras}{suffix}")
+    for suffix, mode in MODES.items() for sampler, karras in SAMPLER_CASES])
+def test_sampler_equals_sdtpus(pipelines, fixture, sampler, karras, mode):
+    """The final latent of 3 steps (f32; the UNet's f32 sums in another order
+    between the two frameworks, hence 1e-4)."""
+    _, _, lat, tok = fixture
+    got, want = _latents(pipelines[mode], sampler, karras, lat, tok)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("sampler,karras", [("ddim", False), ("dpmpp", True), ("euler", False)])
+def test_v_without_its_conversion_fails(pipelines, fixture, sampler, karras, monkeypatch):
+    """The planted fault: the v model's output taken as epsilon (to_eps
+    skipped) falls outside the 1e-4 that the sampler test holds."""
+    _, _, lat, tok = fixture
+    monkeypatch.setattr(pipeline, "to_eps", lambda model_out, x, abar, kind: model_out)
+    got, want = _latents(pipelines["v", True], sampler, karras, lat, tok)
+    assert not np.allclose(got, want, rtol=1e-4, atol=1e-4)
+    assert np.abs(got - want).max() > 1e-2
+
+
+@pytest.mark.parametrize("mode,sampler,karras,pad", [
+    ("img2img", "ddim", False, True), ("img2img", "dpmpp", True, True),
+    ("img2img", "heun", True, True), ("img2img", "ddim", False, False),
+    ("inpaint", "ddim", False, True), ("inpaint", "euler_a", True, True),
+    ("inpaint", "ddim", False, False)])
+def test_img2img_inpaint_v_equal_sdtpus(pipelines, fixture, mode, sampler, karras, pad):
+    """img2img (strength 0.6: from the uniform grid's or the Karras
+    ladder's skip position) and inpainting of the v model, 4 steps, f32, in
+    both guidance modes: the final latent within sdtpu's by 1e-4, with its
+    PRNGKey(7) draws injected (img2img's q-sample noise; inpainting's
+    initial latent, then each step's ancestral and re-imposition noise).
+    sdtpu's img2img hands its sampler no key, so its euler_a draws are
+    unseeded: img2img runs the noise-free samplers here."""
+    sd, jsd = pipelines["v", pad]
+    _, _, lat, tok = fixture
+    img, mask = _inpaint_inputs()
+    key = jax.random.PRNGKey(7)
+    # both pipelines hand back the final latent instead of decoding it
+    sd.latent_to_image = lambda latent: latent.numpy()
+    jsd.latent_to_image = np.asarray
+    try:
+        if mode == "img2img":
+            want = jsd.img2img(tok, PROMPT, img, 0.6, 7.5, 4, key=key, sampler=sampler,
+                               karras_sigmas=karras)
+            noise = np.asarray(jax.random.normal(key, lat.shape, jnp.float32))
+            got = sd.img2img(tok, PROMPT, img, 0.6, 7.5, 4, sampler=sampler,
+                             karras_sigmas=karras, draw_noise=_feed([noise]))
+        else:
+            want = jsd.inpaint(tok, PROMPT, img, mask, 7.5, 4, key=key, sampler=sampler,
+                               karras_sigmas=karras)
+            key, noise_key = jax.random.split(key)
+            lat0 = np.asarray(jax.random.normal(key, lat.shape, jnp.float32))
+            per_step = 2 if sampler == "euler_a" else 1
+            got = sd.inpaint(tok, PROMPT, img, mask, 7.5, 4, initial_latent=torch.tensor(lat0),
+                             sampler=sampler, karras_sigmas=karras,
+                             draw_noise=_feed(_loop_draws(noise_key, [lat.shape] * 4 * per_step)))
+    finally:
+        del sd.latent_to_image, jsd.latent_to_image
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
 def test_inpaint_euler_a_draw_order(fixture):

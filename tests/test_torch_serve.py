@@ -4,8 +4,8 @@ tests/test_serve.py drives sdtpu's: healthz, a generate round trip, 400s,
 concurrent batching, mixed samplers, karras, the image endpoints, 503 and
 504, the context cache, LoRA adapters (a request, an unknown name, the
 merged-pipeline cache, the --lora spec), a lone seeded request against
-StableDiffusion.generate with the same seed, and the two-pass mode's
-batches (one token count each).
+StableDiffusion.generate with the same seed (also of a v-prediction
+pipeline), and the two-pass mode's batches (one token count each).
 """
 
 import base64
@@ -389,6 +389,40 @@ def test_twopass_pipeline_serves_as_generate(sd, lora_tree):
             want = pipe.generate(SimpleTokenizer(), "a stone", 7.5, 2,
                                  generator=torch.Generator().manual_seed(3))
             np.testing.assert_array_equal(_img(resp), want[0])
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        t.join(timeout=30)
+
+
+def test_v_prediction_pipeline_serves_as_generate(sd, lora_tree):
+    """A v-prediction pipeline (the tiny config with prediction_type "v",
+    SD v2.1-768's objective): a lone seeded request, on the base weights and
+    on an adapter's, returns what that pipeline's generate returns; the
+    merged pipeline keeps the configuration."""
+    cfg = dataclasses.replace(CFG, prediction_type="v")
+    vsd = StableDiffusion(sd.params, cfg)
+    srv = serve.make_server(vsd, SimpleTokenizer(), port=0, warmup=False, default_steps=2,
+                            loras={"style": (lora_tree, 4.0)})
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    try:
+        images = {}
+        for lora in (None, "style"):
+            code, resp = _post(srv.server_address[1], {"prompt": "a stone", "seed": 3,
+                                                       "lora": lora, "sampler": "dpmpp",
+                                                       "karras": True})
+            assert code == 200, resp
+            pipe = srv.state.batcher.sd_for(lora)
+            assert pipe.config.prediction_type == "v"
+            want = pipe.generate(SimpleTokenizer(), "a stone", 7.5, 2, sampler="dpmpp",
+                                 karras_sigmas=True, generator=torch.Generator().manual_seed(3))
+            images[lora] = _img(resp)
+            np.testing.assert_array_equal(images[lora], want[0])
+        # the same weights as an epsilon model give another image
+        eps = sd.generate(SimpleTokenizer(), "a stone", 7.5, 2, sampler="dpmpp",
+                          karras_sigmas=True, generator=torch.Generator().manual_seed(3))
+        assert np.abs(eps[0].astype(int) - images[None].astype(int)).max() > 0
     finally:
         srv.shutdown()
         srv.server_close()

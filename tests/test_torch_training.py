@@ -264,7 +264,21 @@ def test_train_steps_match_sdtpu_step_core():
     """Three make_train_step steps at SD_TINY, AdamW with warmup and
     clipping, with sdtpu's t/noise draws injected, against sdtpu's jitted
     step: the losses and the parameters after each step."""
-    jc, tc = jcfg.SD_TINY, tcfg.SD_TINY
+    _steps_against_sdtpu(jcfg.SD_TINY, tcfg.SD_TINY, 3)
+
+
+def test_train_step_v_matches_sdtpu_step_core():
+    """The steps of a v-prediction model (SD_TINY with prediction_type "v",
+    SD v2.1-768's objective) against sdtpu's: their losses and updates (two
+    steps, the first at lr 0 by the warmup)."""
+    _steps_against_sdtpu(dataclasses.replace(jcfg.SD_TINY, prediction_type="v"),
+                         dataclasses.replace(tcfg.SD_TINY, prediction_type="v"), 2)
+
+
+def _steps_against_sdtpu(jc, tc, n_steps):
+    """n_steps make_train_step steps (AdamW, warmup 1 over 3 steps,
+    clipping) against sdtpu's jitted step with its t/noise draws injected:
+    the losses and the parameters after each step."""
     tree, params = _unet(tc, seed=1)
     latents, context, _, valid = _batch(2, jc.latent_size, jc.unet.context_dim, 5)
     jopt = jtrain.make_optimizer(lr=1e-3, warmup_steps=1, total_steps=3)
@@ -275,7 +289,7 @@ def test_train_steps_match_sdtpu_step_core():
     tstate = topt.init(params)
     jbatch = (jnp.asarray(latents), jnp.asarray(context), jnp.asarray(valid))
     tbatch = (torch.from_numpy(latents), torch.from_numpy(context), torch.from_numpy(valid))
-    for i in range(3):
+    for i in range(n_steps):
         key = jax.random.PRNGKey(20 + i)
         kt, kn = jax.random.split(key)  # step_core's own draws
         t = np.asarray(jax.random.randint(kt, (2,), 0, jc.n_train_steps))
@@ -285,7 +299,7 @@ def test_train_steps_match_sdtpu_step_core():
                                    noise=torch.from_numpy(noise))
         np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5, atol=1e-7)
         _compare_trees(params, jp, **STEP_TOL)
-    assert tstate.count == 3
+    assert tstate.count == n_steps
 
 
 def test_train_step_draws_from_the_generator():

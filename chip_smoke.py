@@ -13,8 +13,12 @@ Phases, each printing its lines:
    training's (K1 with its row statistics, K9, at UNet batch 4, 8 and 2;
    the encoder at batch 8, 4 and 1), and those SD v2.1 gives them at 768px
    (head width 64: 5 heads at 96², 10 at 48²; the VAE on 96² latents and
-   768² images; training at batch 2; labels ending in "v2.1"), in float32
-   and bfloat16: max error against the stated tolerance, the times of the
+   768² images; training at batch 2; labels ending in "v2.1"), and those a
+   tensor-parallel rank of phase 10 gives them at tp = 2 (K2 and K10 on 4
+   of the 8 heads and K5 on half the inner width, each with and without the
+   residual and bias; K4, K6 and K7 on half the output channels of each >=
+   256-channel conv; K1 and K9 in training on 4 heads at batch 4; labels
+   ending in "tp2"), in float32 and bfloat16: max error against the stated tolerance, the times of the
    kernel, of its plain version and, where one PyTorch call computes the
    same function, of that call (CUDA events), and the least time the card
    could take for the same work (its bound). Every kernel is also timed in
@@ -105,7 +109,26 @@ Phases, each printing its lines:
    native ... --preset sd-v2-1 --sampler dpmpp --karras --seed 0 --bf16`
    byte-equal to an in-process generate, and run_finetune at 768px (the
    v target); each run's launches exactly the dispatch's, on their Hopper
-   routes.
+   routes;
+10. (run after phase 4) dp and tp over torch.distributed: SD v1.4 at
+   512x512, bf16, random weights (seed 0), on two ranks that share cuda:0
+   under gloo, started by sdtpu_torch.parallel.launch.spawn; each rank
+   prints its device and the backend. At tp = 2: one UNet call at batch 2
+   with K10's gate open (against the single process's, PAR_UNET_MAX and
+   PAR_UNET_MEAN; the planted faults, x and bo added on both ranks and the
+   row-parallel all-reduce skipped, must fail them) and a 20-step DDIM
+   generate (PAR_TP_IMAGE_MEAN); at dp = 2 a batch-2 generate of two
+   prompts (each image against the single process's batch-1 run of its
+   slice, PAR_DP_IMAGE_MAX, and its batch-2 image, PAR_TP_IMAGE_MEAN); one
+   AdamW step at batch 4 (remat "full"), in f32 and in bf16 compute, at dp
+   = 2 and at tp = 2, its gradients against the single step's in the same
+   dtype leaf by leaf (PAR_GRAD_REL; the dp gradients summed, not
+   averaged, must fail it), the updated params printed as a record. Each
+   rank's launches per run must be exactly the dispatch's at the local
+   shapes (K1 and K9 on 4 local heads at tp = 2), on their Hopper routes
+   (the f32 steps' K1 and K9 on their float32 route), with the residual on
+   tp rank 0 alone; they join the totals, so each launched shape needs a
+   phase-2 case.
 
 It prints a JSON line of per-kernel results, then the card's name and
 power limit, then, last, {"ok": true, "device": {...}}. Any failure
@@ -113,7 +136,8 @@ exits nonzero before that line; there is no CPU fallback. In the JSON
 line `launches` is the sum of the main paths' runs (both generate runs,
 the CLI phase's two sample processes and two in-process generates, the
 fine-tuning run with its cache build, the serve phase, phase 8's four
-`finetune` processes, and phase 9's runs), and `ms`, `plain_ms`,
+`finetune` processes, phase 9's runs, and phase 10's on each rank), and
+`ms`, `plain_ms`,
 `bound_ms` and `library_ms` are for those launches: each wrapper counts
 its launches per shape as well, and each shape's bfloat16 time (or bound)
 from phase 2 is taken as many times as the runs launched it. A shape
@@ -659,6 +683,154 @@ def kernel_cases(dtype, dev):
                            "phases": fused_conv.phase_weight_stack(args[1], dtype)},
                           2 * 16 * b * hw * hw * c * co, library=up_conv, old=k7_wmma,
                           yardsticks=(("gate closed", gate_closed),)))
+    # the tensor-parallel ranks' local shapes (phase 10: SD v1.4 at 512px
+    # on two ranks, tp = 2; labels ending in "tp2"): K2, K10 and K5 on half
+    # the heads / inner width, with the residual and bias (tp rank 0) and
+    # without (rank 1); K4's proj_in / proj_out and the VAE decoder's K6 and
+    # K7 on half the output channels of each >= 256-channel conv; and in
+    # training K1 and K9 at batch 4 on 4 of the 8 heads
+    for b, s, c in ((2, 4096, 320), (2, 1024, 640), (2, 256, 1280)):
+        ci = c // 2
+        x = rnd(b, s, c)
+        args = (x, rnd(c, scale=0.1) + 1.0, rnd(c, scale=0.1),
+                rnd(c, 3 * ci, scale=c ** -0.5), rnd(ci, c, scale=ci ** -0.5),
+                rnd(c, scale=0.1), 4)
+        qkv4 = torch.matmul(x, args[3]).view(b, s, 3, 4, ci // 4).permute(2, 0, 3, 1, 4)
+
+        def core(*a, qkv4=qkv4, **k):
+            return F.scaled_dot_product_attention(qkv4[0], qkv4[1], qkv4[2])
+
+        def k2_wmma(*a, residual=True):
+            return fused_transformer._self_attention(*a, 1e-5, "wmma", residual)
+
+        for res in (True, False):
+            cases.append(Case("fused_self_attention",
+                              f"S={s} C={c} Ci={ci} B={b} {'res ' if res else ''}tp2",
+                              fused_transformer.fused_self_attention,
+                              fused_transformer.fused_self_attention_plain, args,
+                              {"residual": res}, b * (8 * s * c * ci + 4 * s * s * ci),
+                              library=core, old=k2_wmma))
+    for b, s, c in ((2, 1024, 640), (2, 256, 1280)):
+        h = 2 * c
+        x = rnd(b, s, c)
+        args = (x, rnd(c, scale=0.1) + 1.0, rnd(c, scale=0.1),
+                rnd(c, 2 * h, scale=c ** -0.5), rnd(2 * h, scale=0.1),
+                rnd(h, c, scale=h ** -0.5), rnd(c, scale=0.1))
+        hh = rnd(b, s, h)
+
+        def both_products(*a, x=x, hh=hh, w=args[3], w2=args[5], **k):
+            return torch.matmul(x, w), torch.matmul(hh, w2)
+
+        for res in (True, False):
+            cases.append(Case("fused_geglu_mlp", f"S={s} C={c} H={h} B={b} "
+                              f"{'res ' if res else ''}tp2", fused_mlp.fused_geglu_mlp,
+                              fused_mlp.fused_geglu_mlp_plain, args, {"residual": res},
+                              b * 6 * s * c * h, library=both_products,
+                              old=fused_mlp._mlp_wmma))
+    for b, s, c in ((2, 4096, 320), (2, 1024, 640), (2, 256, 1280)):
+        ci = c // 2
+        x, ctx = rnd(b, s, c), rnd(b, 77, 768)
+        kt, vt = (torch.matmul(ctx, rnd(768, ci, scale=768 ** -0.5)).transpose(1, 2)
+                  for _ in range(2))
+        valid = torch.arange(77, device=dev)[None] < torch.tensor([2, 9], device=dev)[:, None]
+        args = (x, kt, vt, rnd(c, scale=0.1) + 1.0, rnd(c, scale=0.1),
+                rnd(c, ci, scale=c ** -0.5), rnd(ci, c, scale=ci ** -0.5), rnd(c, scale=0.1))
+        q4, k4, v4 = (t.reshape(b, -1, 4, ci // 4).transpose(1, 2) for t in (
+            torch.matmul(x, args[5]), kt.transpose(1, 2), vt.transpose(1, 2)))
+
+        def xcore(*a, q4=q4, k4=k4, v4=v4, key_valid=None, **k):
+            return F.scaled_dot_product_attention(q4, k4, v4,
+                                                  attn_mask=key_valid[:, None, None, :])
+
+        def k10_wmma(*a, key_valid=None, n_head=4, residual=True):
+            return fused_cross_attention._cross_attention_kv(*a, key_valid, n_head, 1e-5,
+                                                             "wmma", residual)
+
+        for res in (True, False):
+            cases.append(Case("fused_cross_attention_kv",
+                              f"S={s} C={c} Ci={ci} B={b} Sk=77 {'res ' if res else ''}tp2",
+                              fused_cross_attention.fused_cross_attention_kv,
+                              fused_cross_attention.fused_cross_attention_kv_plain, args,
+                              {"key_valid": valid, "n_head": 4, "residual": res},
+                              2 * b * s * ci * (2 * c + 2 * 77), library=xcore, old=k10_wmma))
+    for b, rows, c in ((2, 4096, 320),):
+        co = c // 2
+        xr = rnd(b, rows, c)
+        scale, bias = fused_conv.stats_scale_bias(
+            fused_groupnorm.channel_partials_plain(xr), rows, rnd(c, scale=0.1) + 1.0,
+            rnd(c, scale=0.1), 32, 1e-5)
+        w, cb = rnd(c, co, scale=c ** -0.5), rnd(co, scale=0.1)
+
+        def product(*a, xr=xr, w=w, **k):
+            return torch.matmul(xr, w)
+
+        def k4_wmma(x, w, cb, ps=None, pb=None, residual=None, silu=False, emit_stats=False):
+            return fused_conv._conv1x1(x, w, cb, ps, pb, residual, silu, emit_stats, "wmma")
+
+        cases.append(Case("conv1x1_fused", f"proj_in {rows}x{c}->{co} B={b} tp2",
+                          fused_conv.conv1x1_fused, fused_conv.conv1x1_fused_plain,
+                          (xr, w, cb, scale, bias), {}, 2 * b * rows * c * co,
+                          library=product, old=k4_wmma))
+        cases.append(Case("conv1x1_fused", f"proj_out {rows}x{c}->{co} B={b} tp2",
+                          fused_conv.conv1x1_fused, fused_conv.conv1x1_fused_plain,
+                          (xr, w, cb), {"residual": rnd(b, rows, co)}, 2 * b * rows * c * co,
+                          library=product, old=k4_wmma))
+    for hw, ci, co, res, st in sorted(set(decoder_convs(64))):
+        if co >= 256:  # the sharded convs (sdtpu's rule: >= 256 output channels)
+            conv_case(f"vae {hw}x{hw} {ci}->{co // 2}{' res' if res else ''}"
+                      f"{'' if st else ' no stats'} B=1 tp2", 1, hw, ci, co // 2, 0, 1e-6,
+                      res, st)
+    for hw, c, co in ((128, 512, 256), (256, 256, 128)):
+        args = (rnd(1, hw, hw, c), rnd(3, 3, c, co, scale=(9 * c) ** -0.5), rnd(co, scale=0.1))
+        xu = conv.nearest_upsample_2x(args[0]).permute(0, 3, 1, 2)
+        w_oihw = args[1].permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+
+        def up_conv(*a, xu=xu, w_oihw=w_oihw, cb=args[2], **k):
+            return F.conv2d(xu, w_oihw, cb, padding=1)
+
+        cases.append(Case("upsample2x_conv_fused",
+                          f"{hw}x{hw}x{c} -> {2 * hw}x{2 * hw}x{co} B=1 tp2",
+                          fused_conv.upsample2x_conv_fused,
+                          fused_conv.upsample2x_conv_fused_plain, args,
+                          {"emit_stats": True,
+                           "phases": fused_conv.phase_weight_stack(args[1], dtype)},
+                          2 * 16 * hw * hw * c * co, library=up_conv, old=k7_wmma))
+    # training at tp = 2 (batch 4, 4 of the 64² level's 8 heads of 40): K1
+    # with the row statistics, and K9 from its output
+    q, k, v, do = (rnd(16, 4096, 40) for _ in range(4))
+
+    def sdpa4(q, k, v, key_bias=None, n_head=1, return_lse=False):
+        return F.scaled_dot_product_attention(*heads4(n_head, q, k, v))
+
+    def k1_wmma4(q, k, v, key_bias=None, n_head=1, return_lse=False):
+        return flash_attention._heads(q, k, v, key_bias, n_head, return_lse, "wmma")
+
+    cases.append(Case("flash_attention_heads", "BH=16 S=4096 d=40 heads=4 lse tp2",
+                      flash_attention.flash_attention_heads,
+                      flash_attention.flash_attention_heads_plain, (q, k, v, None, 4),
+                      {"return_lse": True}, 4 * 16 * 4096 * 4096 * 40, library=sdpa4,
+                      old=k1_wmma4))
+    o, lse = flash_attention.flash_attention_heads(q, k, v, n_head=4, return_lse=True)
+
+    def bwd_plain4(q, k, v, do, o, lse, n_head):
+        return flash_attention.flash_attention_bwd_heads_plain(q, k, v, do)
+
+    def sdpa_fwd4(q, k, v, do, o, lse, n_head):
+        q4, k4, v4 = (t.detach().requires_grad_() for t in heads4(n_head, q, k, v))
+        return F.scaled_dot_product_attention(q4, k4, v4), (q4, k4, v4)
+
+    def sdpa_fwd_bwd4(q, k, v, do, o, lse, n_head):
+        out, ins = sdpa_fwd4(q, k, v, do, o, lse, n_head)
+        return torch.autograd.grad(out, ins, do.view_as(out))
+
+    def bwd_wmma4(q, k, v, do, o, lse, n_head):
+        return flash_attention._bwd_heads(q, k, v, do, o, lse, n_head, "wmma")
+
+    cases.append(Case("flash_attention_bwd_heads", "BH=16 S=4096 d=40 heads=4 tp2",
+                      flash_attention.flash_attention_bwd_heads, bwd_plain4,
+                      (q, k, v, do, o, lse), {"n_head": 4}, 5 * 2 * 16 * 4096 * 4096 * 40,
+                      library=sdpa_fwd_bwd4, library_minus=sdpa_fwd4, old=bwd_wmma4))
+
     for b, hw in ((1, 512), (1, 1024), (4, 512), (1, 768)):
         x = rnd(b, hw, hw, 128)
         args = (x, rnd(128, scale=0.1) + 1.0, rnd(128, scale=0.1), 32, 1e-6)
@@ -918,7 +1090,8 @@ def _check_k10(c, got, want, dname, failed):
     atol, rtol = TOL[dname]
     err, ok = within(got, want, atol, rtol)
     frac, r = FLASH_TOL[dname]
-    x = c.args[0].float()
+    # without the residual (a tp rank's partial sum) the output is the term
+    x = c.args[0].float() if c.kw.get("residual", True) else 0.0
     term = want.float() - x
     a = frac * float(term.abs().max())
     ok = ok and within(got, want, a, r)[1]
@@ -1036,11 +1209,14 @@ def _check_k2(c, got, want, dname, failed):
     err, ok = within(got, want, atol, rtol)
     frac, r = FLASH_TOL[dname]
     x, ln_g, ln_b, wqkv, wo, bo, n_head = c.args
-    a = frac * float((want.float() - x.float()).abs().max())
+    residual = c.kw.get("residual", True)  # False: a tp rank's partial sum, o·Wo alone
+    a = frac * float((want.float() - (x.float() if residual else 0.0)).abs().max())
     ok = ok and within(got, want, a, r)[1]
     q, k, v = linear({"w": wqkv}, layer_norm(x, ln_g, ln_b)).chunk(3, dim=-1)
-    half = x + linear({"w": wo, "b": bo},
-                      qkv_attention_plain(q, k[:, ::2], v[:, ::2], None, n_head))
+    half = linear({"w": wo, "b": bo} if residual else {"w": wo},
+                  qkv_attention_plain(q, k[:, ::2], v[:, ::2], None, n_head))
+    if residual:
+        half = x + half
     passes = within(half, want, a, r)[1]
     print(f"kernel {c.name:21s} {dname:8s} {c.shape:30s} max |ref term| {a / frac:.4f}; the "
           f"term's tolerance passes the sublayer over every other key: {passes}", flush=True)
@@ -2848,6 +3024,411 @@ def phase_cli(dev, tf32_defaults) -> tuple[dict, dict]:
     return totals.launches, totals.shapes
 
 
+# phase 10: dp and tp over torch.distributed. SD v1.4 at 512px, bf16, on two
+# ranks that share cuda:0 under gloo (NCCL refuses two ranks on one device),
+# started through sdtpu_torch.parallel.launch.spawn; each run against the
+# single process's on the same weights. Bounds: the tp UNet call's output,
+# max and mean |difference| (bf16: each rank's partial sum rounded to bf16
+# before the all-reduce); the tp image's mean gray-level difference, which
+# each dp image must meet too against the single process's batch-2 image
+# of its prompt, and each dp image's largest gray-level difference from the
+# single process's batch-1 run of its slice (the same initial latent), which
+# is what the dp rank computes (the card measured 5 and 4 gray levels at
+# most, 0.57 and 0.56 in the mean, between a dp image and the single
+# process's batch-2 one: the single process's batch 1 and batch 2 differ
+# as much, cuDNN and cuBLAS picking other kernels at another batch). The
+# training steps' gradients (dp-averaged) against the single step's in the
+# same compute dtype, leaf by leaf: each leaf's max |difference| over its
+# own max |gradient|, the largest over the leaves (PAR_GRAD_REL; the card
+# measured 3.5e-5 (dp) and 3.7e-5 (tp) in f32, 0.056 and 0.071 in bf16,
+# where each rank's products round to bf16 at other batch and head counts);
+# a dp step that sums its ranks' gradients instead of averaging them (1.0
+# and 1.1 measured) must fail it.
+# The updated params, max |difference| over max |update|, are printed as a
+# record: AdamW's first update is g / (|g| + eps), which turns the
+# gradients' rounding into differences of up to 2 lr where |g| is near eps,
+# and, being ±lr nearly everywhere, it does not see a gradient scaled 2x
+# (nor does the global-norm clip)
+PAR_UNET_MAX, PAR_UNET_MEAN = 0.125, 0.004
+PAR_TP_IMAGE_MEAN, PAR_DP_IMAGE_MAX = 1.0, 1
+PAR_GRAD_REL = {"float32": 2e-4, "bfloat16": 0.2}
+PAR_TRAIN_REL = 1e-3  # the updated params' record: elements past it are counted
+PAR_TIMEOUT = 600  # seconds (phase 10 takes about 80 on an H100): a hung rank fails it
+PAR_PROMPTS = ("An ancient mossy stone.", "A lighthouse at dusk.")
+# per rank, one UNet call at batch 2 with K10's gate open: K2 and K10 in the
+# 15 transformers above 8², K5 in the 10 below 2048 tokens, K4 twice and K3
+# once in the 5 at 64², every kernel on the local heads / channels
+PAR_UNET_LAUNCHES = {"fused_self_attention": 15, "fused_cross_attention_kv": 15,
+                     "fused_geglu_mlp": 10, "conv1x1_fused": 10, "channel_partials": 5}
+# per rank, one training step with remat "full" (f32 or bf16 compute): the 5
+# transformers at 64² run K1 forward twice (the recompute) and K9 once
+PAR_TRAIN_LAUNCHES = {"flash_attention_heads": 10, "flash_attention_bwd_heads": 5}
+
+
+def _par_diff(a, b) -> tuple[float, float]:
+    d = (a.float() - b.float()).abs()
+    return float(d.max()), float(d.mean())
+
+
+def _parallel_rank() -> dict:
+    """One rank of phase 10 (sdtpu_torch.parallel.launch.spawn runs it in a
+    new process inside the world). Rank 0 also runs the single-process
+    references (rank 1 waits at a barrier). Returns this rank's launches per
+    run and, on rank 0, the comparisons."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from sdtpu_torch import kernels
+    from sdtpu_torch.config import SD_V1_4
+    from sdtpu_torch.models import unet as unet_mod
+    from sdtpu_torch.models.unet import unet_apply
+    from sdtpu_torch.parallel import local_device, make_mesh, shard_batch
+    from sdtpu_torch.parallel import tp as tpc
+    from sdtpu_torch.pipeline import StableDiffusion
+    from sdtpu_torch.tokenizer import SimpleTokenizer
+    from sdtpu_torch.training import make_optimizer, make_train_step, master_params, tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = local_device()
+    kernels.lib()
+    rank = dist.get_rank()
+    cfg = SD_V1_4
+    bf16 = torch.bfloat16
+    out = {"rank": rank, "device": str(dev), "runs": {}, "metrics": {}}
+    t_rank = time.perf_counter()
+
+    def say(msg):
+        print(f"phase 10 rank {rank} ({dev}): {msg}", flush=True)
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def record(label, counts=None):
+        launches, shapes = read_and_zero() if counts is None else counts
+        out["runs"][label] = (launches, shapes)
+        say(f"{label}: launches {fired(launches)}")
+        return launches, shapes
+
+    params = init_params_on(cfg, dev)
+    tok = SimpleTokenizer()
+    mesh_tp = make_mesh(dp=1, tp=2, device=dev)
+    mesh_dp = make_mesh(dp=2, tp=1, device=dev)
+    out["backend"] = mesh_tp.backend
+    say(f"backend {mesh_tp.backend}, meshes dp x tp = 1 x 2 (tp rank {mesh_tp.tp_rank}) and "
+        f"2 x 1 (dp rank {mesh_dp.dp_rank}); SD v1.4 random weights in "
+        f"{time.perf_counter() - t_rank:.1f} s")
+
+    # ---- tp = 2: one UNet call (K10's gate open), then a 20-step generate
+    sdt = StableDiffusion(params, cfg, compute_dtype=bf16, mesh=mesh_tp)
+    sd1 = StableDiffusion(params, cfg, compute_dtype=bf16) if rank == 0 else None
+    ctx, valid = sdt.context(tok, PAR_PROMPTS[0])
+    unctx, unvalid = sdt.context(tok, "")
+    ctx2, valid2 = torch.cat([unctx, ctx]), torch.cat([unvalid, valid])
+    hw = cfg.latent_size
+    x1 = torch.randn((1, hw, hw, 4), generator=gen(SEED), device=dev).to(bf16)
+    x2, t500 = torch.cat([x1, x1]), torch.tensor([500.0], device=dev)
+
+    def unet_call(sd):
+        with tpc.use(sd.tp), torch.no_grad():
+            return unet_apply(sd.params["unet"], x2, t500, ctx2, cfg.unet, ctx_valid=valid2)
+
+    xattn = os.environ.get("SDTPU_FUSED_XATTN")
+    os.environ["SDTPU_FUSED_XATTN"] = "1"
+    try:
+        read_and_zero()
+        t0 = time.perf_counter()
+        eps_tp = unet_call(sdt)
+        torch.cuda.synchronize()
+        say(f"tp UNet call {time.perf_counter() - t0:.2f} s")
+        record("tp unet")
+        faults = {}
+        # planted faults: x and bo added on both ranks, and the row-parallel
+        # all-reduce skipped (the fused sublayers' partial sums left apart)
+        fused = {n: getattr(unet_mod, n) for n in ("fused_self_attention",
+                                                   "fused_cross_attention_kv",
+                                                   "fused_geglu_mlp")}
+        for n, f in fused.items():
+            setattr(unet_mod, n, lambda *a, f=f, **k: f(*a, **{**k, "residual": True}))
+        try:
+            faults["x and bo on both ranks"] = unet_call(sdt)
+        finally:
+            for n, f in fused.items():
+                setattr(unet_mod, n, f)
+        reduce = tpc.reduce_from_tp
+        tpc.reduce_from_tp = lambda x, tp: x
+        try:
+            faults["the all-reduce skipped"] = unet_call(sdt)
+        finally:
+            tpc.reduce_from_tp = reduce
+        dist.barrier()
+        if rank == 0:
+            eps_1 = unet_call(sd1)
+            mx, mean = _par_diff(eps_tp, eps_1)
+            out["metrics"]["tp unet"] = (mx, mean)
+            out["metrics"]["tp unet faults"] = {k: _par_diff(v, eps_1) for k, v in faults.items()}
+            out["metrics"]["tp unet ref max"] = float(eps_1.float().abs().max())
+        read_and_zero()
+        dist.barrier()
+    finally:
+        if xattn is None:
+            os.environ.pop("SDTPU_FUSED_XATTN")
+        else:
+            os.environ["SDTPU_FUSED_XATTN"] = xattn
+    del faults, eps_tp
+
+    t0 = time.perf_counter()
+    img_tp = sdt.generate(tok, PAR_PROMPTS[0], 7.5, 20, generator=gen(SEED + 1))
+    say(f"tp generate {time.perf_counter() - t0:.2f} s (denoise {sdt.timings['denoise']:.2f}, "
+        f"decode {sdt.timings['decode']:.2f})")
+    record("tp generate")
+    dist.barrier()
+    if rank == 0:
+        img_1 = sd1.generate(tok, PAR_PROMPTS[0], 7.5, 20, generator=gen(SEED + 1))
+        out["metrics"]["tp image"] = _par_diff(torch.from_numpy(img_tp),
+                                               torch.from_numpy(img_1))
+        out["metrics"]["tp image shape"] = tuple(img_tp.shape)
+    read_and_zero()
+    dist.barrier()
+    del sdt
+
+    # ---- dp = 2: a batch-2 generate of two prompts
+    sdd = StableDiffusion(params, cfg, compute_dtype=bf16, mesh=mesh_dp)
+    pairs = [sdd.context(tok, p) for p in PAR_PROMPTS]
+    ctxb = torch.cat([c for c, _ in pairs])
+    validb = torch.cat([v for _, v in pairs])
+    unctx, unvalid = sdd.context(tok, "")
+
+    lat0 = torch.randn((2, hw, hw, 4), generator=gen(SEED + 2), device=dev)
+
+    def sample(sd, rows=slice(0, 2)):
+        return sd.sample_image(ctxb[rows], unctx, 7.5, 20, initial_latent=lat0[rows],
+                               ctx_valid=validb[rows], uncond_valid=unvalid)
+
+    read_and_zero()
+    t0 = time.perf_counter()
+    img_dp = sample(sdd)
+    say(f"dp generate (batch 2, a prompt a rank) {time.perf_counter() - t0:.2f} s")
+    record("dp generate")
+    dist.barrier()
+    if rank == 0:
+        img_1 = sample(sd1)
+        out["metrics"]["dp images"] = [
+            _par_diff(torch.from_numpy(img_dp[i]), torch.from_numpy(img_1[i])) for i in range(2)]
+        img_b1 = [sample(sd1, slice(i, i + 1))[0] for i in range(2)]
+        out["metrics"]["dp images batch 1"] = [
+            _par_diff(torch.from_numpy(img_dp[i]), torch.from_numpy(img_b1[i]))
+            for i in range(2)]
+        out["metrics"]["single batch 1 vs 2"] = [
+            _par_diff(torch.from_numpy(img_b1[i]), torch.from_numpy(img_1[i])) for i in range(2)]
+        out["metrics"]["dp image shape"] = tuple(img_dp.shape)
+    read_and_zero()
+    dist.barrier()
+    del sdd, sd1
+
+    # ---- training: one AdamW step at batch 4 (remat "full"), in f32 and in
+    # bf16 compute, at dp = 2 and at tp = 2, each against the single
+    # process's step in the same dtype
+    g = gen(SEED + 3)
+    latents = torch.randn((4, hw, hw, 4), generator=g, device=dev)
+    context = torch.randn((4, 77, cfg.unet.context_dim), generator=g, device=dev)
+    tvalid = torch.arange(77, device=dev)[None] < torch.tensor([5, 9, 77, 2], device=dev)[:, None]
+    base = params["unet"]
+
+    def train_step(mesh, dtype, on_grads=None):
+        """(updated params, loss) of one step; on_grads(g) sees the
+        gradients the optimizer is given (dp-averaged), before its clip
+        changes them in place."""
+        opt = make_optimizer(lr=1e-5, warmup_steps=0, total_steps=1)
+        if on_grads is not None:
+            update = opt.update
+
+            def keep(p, g, st):
+                on_grads(g)
+                return update(p, g, st)
+
+            opt.update = keep
+        masters = master_params(base)
+        state = opt.init(masters)
+        batch = tuple(shard_batch(a, mesh) for a in (latents, context, tvalid))
+        step = make_train_step(cfg, opt, compute_dtype=dtype, remat="full", mesh=mesh)
+        _, _, loss = step(masters, state, batch, gen(SEED + 4))
+        del state
+        return [p.detach() for p in tree_leaves(masters)], float(loss)
+
+    def rel(got, want, scale):
+        """max |got - want| over the leaves, over scale (leaf by leaf: no
+        copy of the tree)."""
+        return max(float((a - b).abs().max()) for a, b in zip(got, want)) / scale
+
+    def leaf_rel(got, want, k=1.0):
+        """The largest over the leaves of max |k·got - want| over the leaf's
+        max |want|: a leaf whose gradients are small beside another's is
+        held to its own scale."""
+        worst = 0.0
+        for a, b in zip(got, want):
+            d, s = float((k * a - b).abs().max()), float(b.abs().max())
+            worst = max(worst, d / s if s > 0 else (0.0 if d == 0 else math.inf))
+        return worst
+
+    # the references on rank 0, one tree of params and one of gradients at a
+    # time beside a step (each f32 tree is 3.4 GB; two ranks share the card)
+    before = tree_leaves(base)
+    for dtype in (torch.float32, bf16):
+        dname = str(dtype).split(".")[-1]
+        ref, ref_grads, ref_loss, up = None, [], None, None
+        if rank == 0:
+            ref, ref_loss = train_step(
+                None, dtype, on_grads=lambda g: ref_grads.extend(x.detach().clone() for x in g))
+            up = rel(ref, before, 1.0)
+        read_and_zero()
+        dist.barrier()
+        for mode, mesh in (("dp", mesh_dp), ("tp", mesh_tp)):
+            label = f"{mode} train {dname}"
+            t0 = time.perf_counter()
+            grad_errs = {}
+
+            def compare(g, mesh=mesh, errs=grad_errs):
+                if rank == 0:
+                    errs["rel"] = leaf_rel(g, ref_grads)
+                    # the planted fault: the dp ranks' gradients summed, not averaged
+                    errs["fault"] = leaf_rel(g, ref_grads, mesh.dp) if mesh.dp > 1 else None
+
+            got, loss = train_step(mesh, dtype, on_grads=compare)
+            torch.cuda.synchronize()
+            say(f"{label} step {time.perf_counter() - t0:.2f} s, loss {loss:.6f}")
+            launches, shapes = read_and_zero()
+            if dtype == torch.float32:
+                shapes = {n: {F32_KEY + k: v for k, v in s.items()} for n, s in shapes.items()}
+            record(label, (launches, shapes))
+            if rank == 0:
+                off = sum(int(((a - b).abs() > PAR_TRAIN_REL * up).sum())
+                          for a, b in zip(got, ref))
+                out["metrics"][label] = (grad_errs["rel"], grad_errs["fault"],
+                                         rel(got, ref, up), off, loss, ref_loss)
+            del got
+            torch.cuda.empty_cache()
+            dist.barrier()
+        del ref, ref_grads
+        torch.cuda.empty_cache()
+    say(f"done in {time.perf_counter() - t_rank:.1f} s")
+    return out
+
+
+def phase_parallel(dev) -> tuple[dict, dict]:
+    """Phase 10: two ranks on cuda:0 under gloo (_parallel_rank). Checks each
+    comparison against its bound, that both planted faults fail the tp
+    UNet bound, that every rank ran on cuda:0 under gloo, and each rank's
+    launches per run: the tp UNet call's PAR_UNET_LAUNCHES, each generate's
+    EXPECTED_LAUNCHES[512], each training step's PAR_TRAIN_LAUNCHES, on
+    their Hopper routes; that the tp runs launched the local shapes (the
+    inner width halved where the kernel takes one; K1 and K9 on 4 local
+    heads, and on a batch of 2 at dp) and that tp rank 0 alone adds the
+    residual. Returns every rank's launches summed, per kernel and
+    shape, for the totals."""
+    from sdtpu_torch.parallel import spawn
+
+    import torch
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    print(f"phase 10: this process holds {torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB of "
+          f"the card ({torch.cuda.mem_get_info()[0] / 2 ** 30:.2f} GiB free) before the ranks "
+          f"start", flush=True)
+    results = spawn(2, _parallel_rank, backend="gloo", timeout=PAR_TIMEOUT)
+    totals = Totals()
+    bad = []
+    train_labels = [f"{mode} train {d}" for d in ("float32", "bfloat16") for mode in ("dp", "tp")]
+    want = {"tp unet": PAR_UNET_LAUNCHES, "tp generate": EXPECTED_LAUNCHES[512],
+            "dp generate": EXPECTED_LAUNCHES[512],
+            **{label: PAR_TRAIN_LAUNCHES for label in train_labels}}
+    for res in results:
+        r = res["rank"]
+        print(f"phase 10 rank {r}: device {res['device']}, backend {res['backend']}", flush=True)
+        if res["device"] != "cuda:0" or res["backend"] != "gloo":
+            bad.append(f"rank {r} ran on {res['device']} under {res['backend']}")
+        for label, (launches, shapes) in res["runs"].items():
+            expected = {n: want[label].get(n, 0) for n in KERNEL_INFO}
+            if launches != expected:
+                bad.append(f"rank {r} {label} launched {fired(launches)}, expected "
+                           f"{fired(expected)}")
+            if label == "tp train bfloat16" or label == "dp train bfloat16":
+                check_routes(f"phase 10 rank {r} {label}", shapes,
+                             {"sm90": PAR_TRAIN_LAUNCHES["flash_attention_heads"]})
+            elif label not in train_labels:
+                check_routes(f"phase 10 rank {r} {label}", shapes, {})
+            if label in train_labels:
+                # K1 and K9 on this rank's rows: 4 local heads at tp = 2, a
+                # batch of 2 at dp = 2
+                local = " h=4 " if label.startswith("tp") else "b=2 "
+                for name in ("flash_attention_heads", "flash_attention_bwd_heads"):
+                    for key in shapes[name]:
+                        if local not in key:
+                            bad.append(f"rank {r} {label} {name} [{key}]: not a local shape")
+            elif label.startswith("tp"):
+                for name in ("fused_self_attention", "fused_cross_attention_kv",
+                             "fused_geglu_mlp"):
+                    for key in shapes[name]:
+                        local = "ci=" in key or "h=" in key
+                        partial = "residual=False" in key
+                        if not local or partial != (r == 1):
+                            bad.append(f"rank {r} {label} {name} [{key}]: not a local shape "
+                                       f"with the residual on rank 0 alone")
+            totals.add(launches, shapes)
+    m = results[0]["metrics"]
+    mx, mean = m["tp unet"]
+    print(f"phase 10 tp UNet call against the single process: max |difference| {mx:.5f} "
+          f"(bound {PAR_UNET_MAX}), mean {mean:.6f} (bound {PAR_UNET_MEAN}), largest "
+          f"|reference| {m['tp unet ref max']:.3f}; planted faults: " + ", ".join(
+              f"{k} max {a:.4f} mean {b:.5f}" for k, (a, b) in m["tp unet faults"].items())
+          + f" | {card_line()}", flush=True)
+    if mx > PAR_UNET_MAX or mean > PAR_UNET_MEAN:
+        bad.append(f"the tp UNet call is {mx:.5f} (max) / {mean:.6f} (mean) off")
+    for k, (a, b) in m["tp unet faults"].items():
+        if a <= PAR_UNET_MAX and b <= PAR_UNET_MEAN:
+            bad.append(f"the tp UNet bound passes the planted fault: {k}")
+    mx, mean = m["tp image"]
+    print(f"phase 10 tp generate {m['tp image shape']} against the single process: mean "
+          f"|difference| {mean:.4f} gray levels (bound {PAR_TP_IMAGE_MEAN}), max {mx:.0f}",
+          flush=True)
+    if mean > PAR_TP_IMAGE_MEAN or m["tp image shape"] != (1, 512, 512, 3):
+        bad.append(f"the tp image is {mean:.4f} gray levels off")
+    def diffs(pairs):
+        return ", ".join(f"max {a:.0f} mean {b:.4f}" for a, b in pairs)
+
+    print(f"phase 10 dp generate {m['dp image shape']} of two prompts (a prompt a rank), per "
+          f"image: against the single process's batch-1 run of its slice "
+          f"{diffs(m['dp images batch 1'])} (bound max {PAR_DP_IMAGE_MAX}); against its "
+          f"batch 2 {diffs(m['dp images'])} (bound mean {PAR_TP_IMAGE_MEAN}); the single "
+          f"process's batch 1 against its batch 2 {diffs(m['single batch 1 vs 2'])}",
+          flush=True)
+    if any(a > PAR_DP_IMAGE_MAX for a, _ in m["dp images batch 1"]):
+        bad.append(f"the dp images are {m['dp images batch 1']} off the batch-1 runs")
+    if any(b > PAR_TP_IMAGE_MEAN for _, b in m["dp images"]) or m["dp image shape"] != (
+            2, 512, 512, 3):
+        bad.append(f"the dp images are {m['dp images']} off the batch-2 run")
+    for label in train_labels:
+        grad_rel, fault, param_rel, off, loss, ref_loss = m[label]
+        bound = PAR_GRAD_REL[label.rsplit(" ", 1)[-1]]
+        print(f"phase 10 {label} (AdamW, batch 4) against the single step: gradients, the "
+              f"largest over the leaves of max |difference| / the leaf's max |gradient|, "
+              f"{grad_rel:.3e} (bound {bound})"
+              + ("" if fault is None else f", the planted fault (the dp gradients summed) "
+                 f"{fault:.3e}") + f"; updated params (a record) max |difference| / max "
+              f"|update| {param_rel:.3e}, elements past {PAR_TRAIN_REL} of it {off}; loss "
+              f"{loss:.6f} against {ref_loss:.6f}", flush=True)
+        if not grad_rel <= bound:
+            bad.append(f"{label}'s gradients are {grad_rel:.3e} off")
+        if fault is not None and fault <= bound:
+            bad.append(f"{label}: the gradient bound passes the planted fault")
+    print(f"phase 10 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    if bad:
+        fail("phase 10 (dp and tp): " + "; ".join(bad))
+    return totals.launches, totals.shapes
+
+
 def init_params_on(cfg, dev):
     """SD v1.4's random weights of phases 4 and 7: init_params, seed SEED,
     f32, on the card."""
@@ -2906,6 +3487,7 @@ def main() -> None:
     totals = Totals()
     for label, run in (("phase 4 (generate 512)", lambda: phase_generate(dev, 512)),
                        ("phase 4 (generate 1024)", lambda: phase_generate(dev, 1024)),
+                       ("phase 10 (dp and tp)", lambda: phase_parallel(dev)),
                        ("phase 9 (SD v2.1 768)", lambda: phase_v21(dev, tf32_defaults)),
                        ("phase 7 (command lines)", lambda: phase_cli(dev, tf32_defaults)),
                        ("phase 6 (serve)", lambda: phase_serve(dev)),

@@ -40,6 +40,7 @@ SDTPU_PROFILE=1 sample and finetune print their phases' wall seconds
 
 from __future__ import annotations
 
+import os
 import sys
 import time
 
@@ -291,7 +292,8 @@ def finetune_main(argv=None) -> None:
              [--ema DECAY] [--bf16] [--remat] [--remat-policy full|dots|heavy]
              [--opt adamw|adafactor] [--fast] [--save-every N]
              [--state-dir DIR] [--resume] [--preset P] [--seed N] [--tp N]
-             [--device cuda|cpu] [--lora-rank R] [--lora-alpha A] [--flip]
+             [--backend gloo|nccl] [--device cuda|cpu] [--lora-rank R]
+             [--lora-alpha A] [--flip]
              [--ti "<placeholder>" [--ti-vectors N] [--ti-init TOKEN] [--ti-lr F]]
 
     sdtpu's flags with sdtpu's meanings (sdtpu/cli.py:finetune_main). --fast
@@ -307,12 +309,20 @@ def finetune_main(argv=None) -> None:
     wall seconds (the load, and inside the run the latent cache or the
     concept's data, the train state's save and restore and the model's
     save), the run's whole seconds (train_s), each kernel's launches and the
-    peak device memory as one JSON line."""
+    peak device memory as one JSON line.
+
+    Under torchrun (WORLD_SIZE > 1) every rank joins the world on
+    --backend, which is then required (gloo where ranks share a card or
+    run on the host, nccl where each has its own card), takes the card
+    cuda:{LOCAL_RANK % cards} (or the host with --device cpu), and trains
+    on the whole world as a ("dp", "tp") mesh with tp = --tp; rank 0 writes
+    the files."""
     argv = list(sys.argv if argv is None else argv)
 
     opts = {"steps": 100, "batch": 4, "accum": 1, "accum_bf16": False, "lr": 1e-5, "ema": None,
             "bf16": False, "remat": False, "opt": "adamw", "save_every": 0, "state_dir": None,
-            "resume": False, "preset": "sd-v1-4", "seed": 0, "tp": 1, "device": None,
+            "resume": False, "preset": "sd-v1-4", "seed": 0, "tp": 1, "backend": None,
+            "device": None,
             "lora_rank": None, "lora_alpha": None, "flip": False, "ti": None, "ti_vectors": 1,
             "ti_init": None, "ti_lr": None}
     if "--fast" in argv:
@@ -332,7 +342,8 @@ def finetune_main(argv=None) -> None:
              "--accum-bf16": ("accum_bf16", None), "--opt": ("opt", str),
              "--save-every": ("save_every", int), "--state-dir": ("state_dir", str),
              "--resume": ("resume", None), "--preset": ("preset", str),
-             "--seed": ("seed", int), "--tp": ("tp", int), "--device": ("device", str),
+             "--seed": ("seed", int), "--tp": ("tp", int), "--backend": ("backend", str),
+             "--device": ("device", str),
              "--lora-rank": ("lora_rank", int), "--lora-alpha": ("lora_alpha", float),
              "--flip": ("flip", None), "--ti": ("ti", str), "--ti-vectors": ("ti_vectors", int),
              "--ti-init": ("ti_init", str), "--ti-lr": ("ti_lr", float)}
@@ -356,6 +367,17 @@ def finetune_main(argv=None) -> None:
               "<model_name> <data_dir|cache.npz> <out_model> [flags]")
     model_type, model_name, data, out_model = positional[1:5]
     device = _select_device(opts["device"])
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        from sdtpu_torch.parallel import init_from_env, local_device
+
+        if opts["backend"] not in ("gloo", "nccl"):
+            _fail("Error: under torchrun pass --backend gloo|nccl (gloo where ranks share a "
+                  "card or run on the host)")
+        if opts["ti"] is not None:
+            _fail("Error: --ti runs in one process, not under torchrun")
+        init_from_env(opts["backend"])
+        if device.type == "cuda":
+            device = local_device()
 
     from sdtpu_torch import finetune
     from sdtpu_torch.tokenizer import SimpleTokenizer
@@ -409,6 +431,10 @@ def finetune_main(argv=None) -> None:
             "peak_memory_gib": None if peak is None else round(peak, 4),
             "kernels": _launch_counts(),
         }))
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def convert_main(argv=None) -> None:

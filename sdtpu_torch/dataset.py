@@ -135,10 +135,17 @@ class LatentBatches:
     batches (latents, contexts[, n_valid]); otherwise a torch device (the
     card unless told otherwise) to which each batch (latents, contexts[,
     valid [B, S] bool]) is copied by the prefetch thread. close() stops the
-    thread."""
+    thread.
+
+    shard=(dp_rank, dp): each batch's rows dp_rank·B/dp .. (dp_rank+1)·B/dp
+    only, a dp rank's slice (sdtpu's sharding= staging); the order is the
+    whole batch's, the same permutation on every rank."""
 
     def __init__(self, latents, contexts, n_valid=None, batch_size: int = 4, seed: int = 0,
-                 prefetch: int = 2, device="cuda"):
+                 prefetch: int = 2, device="cuda", shard=None):
+        if shard is not None and batch_size % shard[1]:
+            raise ValueError(f"batch {batch_size} is not divisible by dp={shard[1]}")
+        self.shard = shard
         self.latents = np.ascontiguousarray(latents, np.float32)
         self.contexts = np.ascontiguousarray(contexts, np.float32)
         self.n_valid = None if n_valid is None else np.ascontiguousarray(n_valid, np.int32)
@@ -165,6 +172,10 @@ class LatentBatches:
         return np.asarray(take, np.int64)
 
     def _stage(self, idx: np.ndarray):
+        if self.shard is not None:
+            rank, dp = self.shard
+            n = len(idx) // dp
+            idx = idx[rank * n:(rank + 1) * n]
         lat, ctx = self.latents[idx], self.contexts[idx]
         nv = None if self.n_valid is None else self.n_valid[idx]
         if self.device is False:

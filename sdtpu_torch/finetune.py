@@ -21,8 +21,12 @@ Only the UNet trains (CLIP and the VAE stay frozen, the split the latent
 cache bakes in), from f32 master copies of sdtpu's UNet tree: the pipeline's
 tree without the fused attn1.qkv leaves (models/unet.py:unfuse_qkv), so the
 saved model holds sdtpu's keys and nothing else. run_textual_inversion
-learns a concept's embedding rows instead. sdtpu's `tp` is not ported and
-raises NotImplementedError. The work around the steps (the latent cache or
+learns a concept's embedding rows instead. Inside an initialised
+torch.distributed world (torchrun, parallel.launch.spawn) run_finetune
+trains on the whole world as a ("dp", "tp") mesh, as sdtpu's does on every
+visible device (training.py: whole masters on every rank, tp shards derived
+in the step, gradients averaged over dp); rank 0 builds the latent cache
+and writes the files. The work around the steps (the latent cache or
 the concept's data, the train state's save and restore, the model's save)
 adds its wall seconds to utils.profiling's phases.
 """
@@ -35,6 +39,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from sdtpu_torch.config import StableDiffusionConfig
 from sdtpu_torch.dataset import LatentBatches, build_latent_cache, load_latent_cache
@@ -43,11 +48,16 @@ from sdtpu_torch.io.native import save_native
 from sdtpu_torch.lora import (apply_lora, init_lora, lora_param_count, make_lora_train_step,
                               save_lora)
 from sdtpu_torch.models.unet import unfuse_qkv
+from sdtpu_torch.parallel.mesh import make_mesh
 from sdtpu_torch.textual_inversion import (init_ti_embeddings, make_ti_train_step,
                                            prepare_ti_data, save_ti)
 from sdtpu_torch.training import (AdamW, ema_update, make_optimizer, make_train_step,
                                   master_params, tree_map)
 from sdtpu_torch.utils import profiling
+
+
+def _quiet(msg: str) -> None:
+    """The log of every rank but 0."""
 
 
 def resolve_cache(sd, tokenizer, data: str, batch: int = 8, flip: bool = False) -> str:
@@ -210,12 +220,33 @@ def run_finetune(
     on the device, an adapter's initial `a` from one seeded with seed + 1
     (not sdtpu's draws); the batches from sdtpu's permutation of the cache.
 
+    - tp: inside an initialised torch.distributed world, the mesh is the
+      whole world, dp = world // tp (parallel.make_mesh, its errors), and
+      each dp rank takes its slice of every batch; `sd` is each rank's
+      pipeline on its own device, without a mesh (its whole tree). Every
+      rank returns the same result; rank 0 alone writes the cache, the
+      model, the adapter and the train state. Outside a world tp must be 1.
+
     Returns {"steps", "final_loss", "losses", "out_path", "lora_path",
     "steps_per_sec"}; steps_per_sec counts the steps run since the resume.
     """
-    if tp != 1:
-        raise NotImplementedError("tp is not ported yet (parallel/: ROADMAP queue 1, item 15)")
     cfg: StableDiffusionConfig = sd.config
+    mesh = None
+    if getattr(sd, "mesh", None) is not None:
+        raise ValueError("run_finetune takes a pipeline without a mesh (its whole tree)")
+    if dist.is_initialized():
+        mesh = make_mesh(tp=tp, device=sd.device)
+        if (batch_size // accum) % mesh.dp:
+            raise ValueError(
+                f"micro-batch {batch_size}//{accum} must be divisible by "
+                f"dp={mesh.dp} on a {mesh.world}-device backend")
+        if mesh.rank:
+            log = _quiet
+        log(f"mesh: dp={mesh.dp} tp={mesh.tp} ({mesh.backend})")
+    elif tp != 1:
+        raise ValueError(f"tp={tp} needs an initialised torch.distributed world "
+                         "(torchrun, or parallel.launch.spawn)")
+    writer = mesh is None or mesh.rank == 0
     if batch_size % accum:
         raise ValueError(f"batch_size {batch_size} not divisible by accum {accum}")
     if accum_bf16 and accum <= 1:
@@ -223,7 +254,12 @@ def run_finetune(
         raise ValueError("--accum-bf16 has no effect without --accum k>1")
     accum_dtype = torch.bfloat16 if accum_bf16 else None
     with profiling.phase("latent_cache", sd.device):
-        cache = resolve_cache(sd, tokenizer, data, batch=min(8, batch_size), flip=flip)
+        if writer:
+            cache = resolve_cache(sd, tokenizer, data, batch=min(8, batch_size), flip=flip)
+        if mesh is not None:
+            dist.barrier()
+        if not writer:  # the cache rank 0 has just made (or found)
+            cache = resolve_cache(sd, tokenizer, data, batch=min(8, batch_size), flip=flip)
     latents, contexts, n_valid = load_latent_cache(cache)
     log(f"dataset: {len(latents)} examples from {cache}")
 
@@ -242,14 +278,14 @@ def run_finetune(
             f"{lora_param_count(train_tree) / 1e6:.2f}M adapter params")
         lora_step = make_lora_train_step(cfg, opt, alpha / lora_rank,
                                          compute_dtype=compute_dtype, remat=remat, accum=accum,
-                                         accum_dtype=accum_dtype)
+                                         accum_dtype=accum_dtype, mesh=mesh)
 
         def step_fn(tree, state, batch, gen):
             return lora_step(tree, state, base, batch, gen)
     else:
         train_tree = master_params(base)
         step_fn = make_train_step(cfg, opt, compute_dtype=compute_dtype, remat=remat,
-                                  accum=accum, accum_dtype=accum_dtype)
+                                  accum=accum, accum_dtype=accum_dtype, mesh=mesh)
     opt_state = opt.init(train_tree)
     # the EMA shadow, updated at each optimizer step; what the run saves
     ema = None if ema_decay is None else tree_map(lambda p: p.detach().clone(), train_tree)
@@ -277,7 +313,8 @@ def run_finetune(
 
     gen = torch.Generator(device=sd.device).manual_seed(seed)
     batches = LatentBatches(latents, contexts, n_valid, batch_size=batch_size, seed=seed,
-                            device=sd.device)
+                            device=sd.device,
+                            shard=None if mesh is None else (mesh.dp_rank, mesh.dp))
     losses = []
     t_start = time.perf_counter()
     try:
@@ -289,7 +326,7 @@ def run_finetune(
                 loss_f = float(loss)  # waits for the step; cadence bounded by log_every
                 losses.append((i, loss_f))
                 log(f"step {i + 1}/{steps} loss {loss_f:.5f}")
-            if save_every and state_dir and (i + 1) % save_every == 0:
+            if writer and save_every and state_dir and (i + 1) % save_every == 0:
                 with profiling.phase("save_train_state", sd.device):
                     save_train_state(state_dir, train_tree, opt_state, i + 1, ema=ema,
                                      flags=flags)
@@ -304,16 +341,21 @@ def run_finetune(
     out_path = out_model if out_model.endswith(".safetensors") else f"{out_model}.safetensors"
     lora_path = None
     full = dict(sd.params)
+    if lora_rank:
+        lora_path = out_path.replace(".safetensors", ".lora.safetensors")
     with profiling.phase("save_model", sd.device):
-        if lora_rank:
-            lora_path = out_path.replace(".safetensors", ".lora.safetensors")
-            save_lora(final_tree, lora_path, rank=lora_rank, alpha=alpha, config_name=cfg.name)
-            log(f"adapter saved to {lora_path}")
-            with torch.no_grad():
-                full["unet"] = apply_lora(base, final_tree, alpha / lora_rank)
-        else:
-            full["unet"] = final_tree
-        save_native(full, out_path, cfg)
+        if writer:
+            if lora_rank:
+                save_lora(final_tree, lora_path, rank=lora_rank, alpha=alpha,
+                          config_name=cfg.name)
+                log(f"adapter saved to {lora_path}")
+                with torch.no_grad():
+                    full["unet"] = apply_lora(base, final_tree, alpha / lora_rank)
+            else:
+                full["unet"] = final_tree
+            save_native(full, out_path, cfg)
+        if mesh is not None:
+            dist.barrier()  # the files are there when any rank returns
     log(f"model saved to {out_path}")
     return {
         "steps": steps,

@@ -25,7 +25,10 @@ from typing import Any, Dict, Tuple
 import torch
 
 from sdtpu_torch.io.native import flatten_tree, load_safetensors, save_safetensors
-from sdtpu_torch.training import (diffusion_loss, draw_t_noise, micro_batch_grads, tree_leaves)
+from sdtpu_torch.parallel import tp as tpc
+from sdtpu_torch.parallel.sharding import shard_params
+from sdtpu_torch.training import (diffusion_loss, dp_mean, draw_t_noise, micro_batch_grads,
+                                  tree_leaves)
 
 # the standard recipe: the attention projections, self- and cross-attention
 # query/key/value/out (models/unet.py:_init_cross_attn)
@@ -64,30 +67,35 @@ def lora_param_count(lora) -> int:
 
 
 def make_lora_train_step(cfg, optimizer, scale: float, compute_dtype=torch.float32,
-                         remat: bool | str = False, accum: int = 1, accum_dtype=None):
+                         remat: bool | str = False, accum: int = 1, accum_dtype=None,
+                         mesh=None):
     """train_step(lora, opt_state, base, batch, generator=None, *, t=None,
     noise=None) -> (lora, opt_state, loss), sdtpu's make_lora_train_step.
     lora: the adapter, f32 leaves that require grad (training.master_params),
     updated in place; base: the frozen UNet tree (sdtpu's, unfused), which
     no step copies or changes. Only the adapter gets gradients. Under a
     bf16 compute dtype the merged weights are cast to bf16, as sdtpu's
-    eff_dtype does. batch, t, noise and accum as in
-    training.make_train_step."""
+    eff_dtype does. batch, t, noise, accum and mesh as in
+    training.make_train_step: on a mesh the adapter is replicated, the
+    merged weight whole, then this rank's tp shard is derived from it, so
+    the gradients of a and b come back whole."""
     eff_dtype = None if compute_dtype == torch.float32 else compute_dtype
+    tp = tpc.of_mesh(mesh)
 
     def train_step(lora, opt_state, base, batch, generator=None, *, t=None, noise=None):
         latents, context = batch[0], batch[1]
         ctx_valid = batch[2] if len(batch) > 2 else None
-        t, noise = draw_t_noise(cfg, latents, generator, t, noise)
+        t, noise = draw_t_noise(cfg, latents, generator, t, noise, mesh)
 
         def loss_of(sl):
-            p = apply_lora(base, lora, scale, dtype=eff_dtype)
-            return diffusion_loss(p, cfg, latents[sl], context[sl], t[sl], noise[sl],
-                                  None if ctx_valid is None else ctx_valid[sl],
-                                  compute_dtype=compute_dtype, remat=remat)
+            with tpc.use(tp):
+                p = shard_params(apply_lora(base, lora, scale, dtype=eff_dtype), mesh)
+                return diffusion_loss(p, cfg, latents[sl], context[sl], t[sl], noise[sl],
+                                      None if ctx_valid is None else ctx_valid[sl],
+                                      compute_dtype=compute_dtype, remat=remat)
 
-        loss, grads = micro_batch_grads(loss_of, tree_leaves(lora), latents.shape[0], accum,
-                                        accum_dtype)
+        loss, grads = dp_mean(*micro_batch_grads(loss_of, tree_leaves(lora), latents.shape[0],
+                                                 accum, accum_dtype), mesh)
         optimizer.update(lora, grads, opt_state)
         return lora, opt_state, loss
 

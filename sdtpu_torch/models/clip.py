@@ -4,12 +4,19 @@ Token + learned position embeddings, n_layer pre-LN residual blocks
 (causal self-attention, MLP with QuickGELU or exact GELU), final LayerNorm.
 Returns the hidden states [B, S, n_state]; skip_last_layers drops the last
 blocks (SD v2's penultimate layer).
+
+Inside a tensor-parallel group (parallel/tp.py) the tree holds this rank's
+shards: the attention runs on n_head / tp local heads (query, key, value
+column shards with their biases' slices, out a row shard, all-reduced, its
+bias added once) and the MLP on a column shard of fc1 and a row shard of
+fc2 (parallel/layers.py). CLIP runs no kernel.
 """
 
 from __future__ import annotations
 
 from sdtpu_torch.config import CLIPConfig
-from sdtpu_torch.ops import causal_mask, gelu, layer_norm, linear, qkv_attention, quick_gelu
+from sdtpu_torch.ops import causal_mask, gelu, layer_norm, qkv_attention, quick_gelu
+from sdtpu_torch.parallel import layers as tpl
 
 
 def init_clip(init, cfg: CLIPConfig):
@@ -35,11 +42,13 @@ def init_clip(init, cfg: CLIPConfig):
 def _block_apply(p, x, mask, cfg: CLIPConfig):
     act = quick_gelu if cfg.quick_gelu else gelu
     h = layer_norm(x, p["attn_ln"]["g"], p["attn_ln"]["b"], cfg.layer_norm_eps)
-    a = p["attn"]
-    q, k, v = linear(a["query"], h), linear(a["key"], h), linear(a["value"], h)
-    x = x + linear(a["out"], qkv_attention(q, k, v, mask, cfg.n_head))
+    a, heads, tp = tpl.attention_weights(p["attn"], x.shape[-1], cfg.n_head)
+    q, k, v = (tpl.column_linear(a[n], h, tp) for n in ("query", "key", "value"))
+    x = x + tpl.row_linear(a["out"], qkv_attention(q, k, v, mask, heads), tp)
     h = layer_norm(x, p["mlp_ln"]["g"], p["mlp_ln"]["b"], cfg.layer_norm_eps)
-    return x + linear(p["mlp"]["fc2"], act(linear(p["mlp"]["fc1"], h)))
+    mlp = p["mlp"]
+    tp = tpl.out_shard(mlp["fc1"])
+    return x + tpl.row_linear(mlp["fc2"], act(tpl.column_linear(mlp["fc1"], h, tp)), tp)
 
 
 def clip_apply(params, tokens, cfg: CLIPConfig):

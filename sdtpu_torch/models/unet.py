@@ -18,6 +18,18 @@ than "0", "false" or "". Inside ops/dispatch.py:training() every fused gate is c
 kernels are forward-only) and the UNet trains through plain PyTorch and the
 differentiable flash attention; unet_apply's `remat` is sdtpu's block-level
 rematerialisation (torch.utils.checkpoint, with selective policies).
+
+Inside a tensor-parallel group (parallel/tp.py) the tree holds this rank's
+shards (parallel/sharding.py) and each sublayer runs on them
+(parallel/layers.py): the attention on n_head / tp local heads (Wq, Wk, Wv
+column shards, Wo a row shard, then an all-reduce; the fused K2 and K10 add
+x and bo on tp rank 0 only), the GEGLU MLP on [value_r | gate_r] and a row
+shard of mlp.lin (K5 likewise), the >= 256-channel convolutions on an
+out-channel slice, then all-gathered (K4, K6, K7 too). Every dispatch gate
+is decided on the whole layer's shapes, so a tp run takes the single run's
+routes. Where a level's heads do not divide over the ranks (SD v2.1's five
+heads of 64 at tp = 2), its attention weights are gathered and the sublayer
+runs whole on every rank.
 """
 
 from __future__ import annotations
@@ -32,7 +44,6 @@ import torch
 
 from sdtpu_torch.config import UNetConfig
 from sdtpu_torch.ops import (
-    conv2d,
     dispatch,
     geglu,
     group_norm,
@@ -43,7 +54,6 @@ from sdtpu_torch.ops import (
     timestep_embedding,
 )
 from sdtpu_torch.ops import attention, flash_attention
-from sdtpu_torch.ops.conv import upsample2x_conv
 from sdtpu_torch.ops.fused_cross_attention import fused_cross_attention_kv
 from sdtpu_torch.ops.fused_conv import (conv1x1_fused, conv3x3_fused, gn_scale_bias,
                                         stats_scale_bias)
@@ -51,6 +61,8 @@ from sdtpu_torch.ops.fused_groupnorm import channel_partials
 from sdtpu_torch.ops.fused_mlp import fused_geglu_mlp
 from sdtpu_torch.ops.fused_transformer import fused_self_attention
 from sdtpu_torch.ops.groupnorm import group_norm_silu_op
+from sdtpu_torch.parallel import layers as tpl
+from sdtpu_torch.parallel import tp as tpc
 
 
 # ------------------------------------------------------------ structure
@@ -233,28 +245,32 @@ def _res_block_fused(p, x, e, cfg: UNetConfig, emit_stats, skip):
     c1 = x.shape[-1]
     if skip is None:
         s1, o1 = gn_scale_bias(x, p["norm_in"]["g"], p["norm_in"]["b"], g, eps)
-        h1, st = conv3x3_fused(x, p["conv_in"]["w"], p["conv_in"]["b"], s1, o1,
-                               emit_stats=True)
+        h1, st = tpl.conv3x3(conv3x3_fused, x, p["conv_in"], s1, o1, emit_stats=True)
     else:
         sums = torch.cat([channel_partials(x), channel_partials(skip)], dim=-1)
         s1, o1 = stats_scale_bias(sums, rows, p["norm_in"]["g"], p["norm_in"]["b"], g, eps)
-        h1, st = conv3x3_fused(x, p["conv_in"]["w"], p["conv_in"]["b"], s1[:, :c1],
-                               o1[:, :c1], emit_stats=True, x2=skip,
-                               prologue_scale2=s1[:, c1:], prologue_bias2=o1[:, c1:])
+        h1, st = tpl.conv3x3(conv3x3_fused, x, p["conv_in"], s1[:, :c1], o1[:, :c1],
+                             emit_stats=True, x2=skip, prologue_scale2=s1[:, c1:],
+                             prologue_bias2=o1[:, c1:])
     ef = e.float()  # [B, c_out]
     st = torch.stack([st[:, 0] + rows * ef,
                       st[:, 1] + 2.0 * ef * st[:, 0] + rows * ef * ef], dim=1)
     s2, o2 = stats_scale_bias(st, rows, p["norm_out"]["g"], p["norm_out"]["b"], g, eps)
     o2 = o2 + s2 * ef
-    if skip is None:
-        res = conv2d(p["skip_connection"], x, padding=0) if "skip_connection" in p else x
+    # the residual on conv_out's output channels as this rank holds them
+    # (skip_connection has the same C_out, so it is sharded alike)
+    if "skip_connection" not in p:
+        res = tpl.local_channels(p["conv_out"], x)
     else:
-        wsk = p["skip_connection"]["w"][0, 0]  # [c1 + c2, co]
-        res = (torch.matmul(x, wsk[:c1].to(x.dtype))
-               + torch.matmul(skip, wsk[c1:].to(x.dtype)))
-        res = res + p["skip_connection"]["b"].to(res.dtype)
-    return conv3x3_fused(h1, p["conv_out"]["w"], p["conv_out"]["b"], s2, o2,
-                         residual=res, emit_stats=emit_stats)
+        sk = tpl.local(p["skip_connection"])
+        if skip is None:
+            res = tpl.conv2d(sk, x, padding=0)
+        else:
+            wsk = sk["w"][0, 0]  # [c1 + c2, co]
+            res = (torch.matmul(x, wsk[:c1].to(x.dtype))
+                   + torch.matmul(skip, wsk[c1:].to(x.dtype)) + sk["b"].to(x.dtype))
+    return tpl.conv3x3(conv3x3_fused, h1, p["conv_out"], s2, o2, residual=res,
+                       emit_stats=emit_stats)
 
 
 def _res_block_apply(p, x, emb, cfg: UNetConfig, emit_stats=False, skip=None):
@@ -269,25 +285,29 @@ def _res_block_apply(p, x, emb, cfg: UNetConfig, emit_stats=False, skip=None):
         x = torch.cat([x, skip], dim=-1)
     h = group_norm_silu_op(x, p["norm_in"]["g"], p["norm_in"]["b"],
                            cfg.groupnorm_groups, cfg.groupnorm_eps)
-    h = conv2d(p["conv_in"], h, padding=1)
+    h = tpl.conv2d(p["conv_in"], h, padding=1)
     h = h + e[:, None, None, :]
     h = group_norm_silu_op(h, p["norm_out"]["g"], p["norm_out"]["b"],
                            cfg.groupnorm_groups, cfg.groupnorm_eps)
-    h = conv2d(p["conv_out"], h, padding=1)
+    h = tpl.conv2d(p["conv_out"], h, padding=1)
     if "skip_connection" in p:
-        x = conv2d(p["skip_connection"], x, padding=0)
+        x = tpl.conv2d(p["skip_connection"], x, padding=0)
     y = x + h
     return (y, None) if emit_stats else y
 
 
 def _mha_apply(p, x, context, n_head, key_valid=None):
     """q from x, k/v from context (or x), no mask; key_valid masks padded
-    context tokens."""
-    xa = x if context is None else context
+    context tokens. Inside a tp group, this rank's heads, then the
+    row-parallel out projection (parallel/layers.py)."""
+    p, heads, tp = tpl.attention_weights(p, x.shape[-1], n_head)
+    x = tpc.copy_to_tp(x, tp)
+    xa = x if context is None else tpc.copy_to_tp(context, tp)
     q = linear(p["query"], x)
     k = linear(p["key"], xa)
     v = linear(p["value"], xa)
-    return linear(p["out"], qkv_attention(q, k, v, None, n_head, key_valid=key_valid))
+    o = qkv_attention(q, k, v, None, heads, key_valid=key_valid)
+    return tpl.row_linear(p["out"], o, tp)
 
 
 def _use_fused_attn(s: int, c: int, n_head: int) -> bool:
@@ -361,61 +381,69 @@ def _transformer_apply(p, x, context, cfg: UNetConfig, n_head, ctx_valid=None,
         else:
             s, o = gn_scale_bias(x, p["norm"]["g"], p["norm"]["b"],
                                  cfg.groupnorm_groups, cfg.groupnorm_eps)
-        x = conv1x1_fused(x.reshape(b, h * w, c), p["proj_in"]["w"][0, 0],
-                          p["proj_in"]["b"], s, o)
+        x = tpl.conv1x1(conv1x1_fused, x.reshape(b, h * w, c), p["proj_in"], s, o)
     else:
         x = group_norm(x, p["norm"]["g"], p["norm"]["b"], cfg.groupnorm_groups,
                        cfg.groupnorm_eps)
-        x = conv2d(p["proj_in"], x, padding=0).reshape(b, h * w, c)
+        x = tpl.conv2d(p["proj_in"], x, padding=0).reshape(b, h * w, c)
 
     t = p["transformer"]
     fused_attn = _use_fused_attn(h * w, c, n_head)
     if fused_attn:
-        a1 = t["attn1"]
+        # this rank's heads inside a tp group (its [q_r | k_r | v_r]), the
+        # residual and the bias on tp rank 0 only, then the ranks' sum
+        a1, heads, tp = tpl.attention_weights(t["attn1"], c, n_head)
         wqkv = (a1["qkv"]["w"] if "qkv" in a1 else
                 torch.cat([a1[k]["w"] for k in ("query", "key", "value")], dim=1))
-        x = fused_self_attention(x, t["norm1"]["g"], t["norm1"]["b"], wqkv,
-                                 a1["out"]["w"], a1["out"]["b"], n_head, cfg.ln_eps)
+        x = tpc.reduce_from_tp(fused_self_attention(
+            x, t["norm1"]["g"], t["norm1"]["b"], wqkv, a1["out"]["w"], a1["out"]["b"], heads,
+            cfg.ln_eps, residual=tp is None or tp.rank == 0), tp)
     else:
         x = x + _mha_apply(t["attn1"], layer_norm(x, t["norm1"]["g"], t["norm1"]["b"],
                                                   cfg.ln_eps), None, n_head)
     if _use_fused_xattn(h * w, c, n_head):
         # sdtpu/models/unet.py:424-435: K and V projected once per
         # transformer outside the kernel, handed over transposed [B, C, Sk]
-        # (views: the kernel reads them through their strides)
-        a2 = t["attn2"]
+        # (views: the kernel reads them through their strides); inside a tp
+        # group this rank's heads, as K2's
+        a2, heads, tp = tpl.attention_weights(t["attn2"], c, n_head)
         ctx = context.to(x.dtype)
         kt = torch.matmul(ctx, a2["key"]["w"].to(x.dtype)).transpose(1, 2)
         vt = torch.matmul(ctx, a2["value"]["w"].to(x.dtype)).transpose(1, 2)
-        x = fused_cross_attention_kv(x, kt, vt, t["norm2"]["g"], t["norm2"]["b"],
-                                     a2["query"]["w"], a2["out"]["w"], a2["out"]["b"],
-                                     key_valid=ctx_valid, n_head=n_head, eps=cfg.ln_eps)
+        x = tpc.reduce_from_tp(fused_cross_attention_kv(
+            x, kt, vt, t["norm2"]["g"], t["norm2"]["b"], a2["query"]["w"], a2["out"]["w"],
+            a2["out"]["b"], key_valid=ctx_valid, n_head=heads, eps=cfg.ln_eps,
+            residual=tp is None or tp.rank == 0), tp)
     else:
         x = x + _mha_apply(t["attn2"], layer_norm(x, t["norm2"]["g"], t["norm2"]["b"],
                                                   cfg.ln_eps), context, n_head,
                            key_valid=ctx_valid)
+    # inside a tp group: [value_r | gate_r] and this rank's rows of mlp.lin
+    mlp = t["mlp"]
+    proj = mlp["geglu"]["proj"]
+    tp = tpl.out_shard(proj)
     if fused_attn and h * w < 2048:
-        mlp = t["mlp"]
-        x = fused_geglu_mlp(x, t["norm3"]["g"], t["norm3"]["b"],
-                            mlp["geglu"]["proj"]["w"], mlp["geglu"]["proj"]["b"],
-                            mlp["lin"]["w"], mlp["lin"]["b"], cfg.ln_eps)
+        x = tpc.reduce_from_tp(fused_geglu_mlp(
+            x, t["norm3"]["g"], t["norm3"]["b"], proj["w"],
+            tpl.local(proj, 2)["b"], mlp["lin"]["w"], mlp["lin"]["b"],
+            cfg.ln_eps, residual=tp is None or tp.rank == 0), tp)
     else:
         hn = layer_norm(x, t["norm3"]["g"], t["norm3"]["b"], cfg.ln_eps)
-        val, gate = linear(t["mlp"]["geglu"]["proj"], hn).chunk(2, dim=-1)
-        x = x + linear(t["mlp"]["lin"], geglu(val, gate))
+        val, gate = tpl.column_linear(proj, hn, tp, blocks=2).chunk(2, dim=-1)
+        x = x + tpl.row_linear(mlp["lin"], geglu(val, gate), tp)
 
     if fused_proj:
-        out = conv1x1_fused(x, p["proj_out"]["w"][0, 0], p["proj_out"]["b"],
-                            residual=x_in.reshape(b, h * w, c))
+        out = tpl.conv1x1(conv1x1_fused, x, p["proj_out"],
+                          residual=tpl.local_channels(p["proj_out"], x_in.reshape(b, h * w, c)))
         return out.reshape(b, h, w, c)
-    return x_in + conv2d(p["proj_out"], x.reshape(b, h, w, c), padding=0)
+    return x_in + tpl.conv2d(p["proj_out"], x.reshape(b, h, w, c), padding=0)
 
 
 def _block_apply(p, spec: BlockSpec, x, emb, context, cfg, ctx_valid, skip=None):
     if spec.kind == "conv":
-        return conv2d(p, x, padding=1)
+        return tpl.conv2d(p, x, padding=1)
     if spec.kind == "down":
-        return conv2d(p, x, stride=2, padding=1)
+        return tpl.conv2d(p, x, stride=2, padding=1)
     res_p = p["res"] if (spec.transformer or spec.upsample) else p
     if spec.transformer:
         # the ResBlock's output statistics feed the transformer's entry
@@ -426,7 +454,7 @@ def _block_apply(p, spec: BlockSpec, x, emb, context, cfg, ctx_valid, skip=None)
     else:
         x = _res_block_apply(res_p, x, emb, cfg, skip=skip)
     if spec.upsample:
-        x = upsample2x_conv(p["upsample"]["conv"], x)
+        x = tpl.upsample2x_conv(p["upsample"]["conv"], x)
     return x
 
 
@@ -475,9 +503,10 @@ def _checkpointed(fn, save):
     from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
     training = dispatch.in_training()
+    tp = tpc.current()  # the tp group, entered again alike
 
     def run(*args):
-        with dispatch.training() if training else contextlib.nullcontext():
+        with dispatch.training() if training else contextlib.nullcontext(), tpc.use(tp):
             return fn(*args)
 
     kw = {}
@@ -519,4 +548,4 @@ def unet_apply(params, x, t, context, cfg: UNetConfig, ctx_valid=None, remat=Fal
 
     h = group_norm(h, params["norm_out"]["g"], params["norm_out"]["b"],
                    cfg.groupnorm_groups, cfg.groupnorm_eps)
-    return conv2d(params["conv_out"], silu(h), padding=1)
+    return tpl.conv2d(params["conv_out"], silu(h), padding=1)

@@ -10,6 +10,14 @@ attention goes through qkv_attention's dispatch: at 1024px (128x128 maps,
 branch. The gates' bounds are sdtpu's TPU measurements. The encoder
 (encode_image, for the fine-tuning latent cache) takes the same fused
 ResnetBlock gate.
+
+Inside a tensor-parallel group (parallel/tp.py) the tree holds this rank's
+shards: the >= 256-channel convolutions run on an out-channel slice, then
+all-gathered (parallel/layers.py; K6's and K7's statistics gathered with
+the map, and a residual taken on the rank's channels), and every gate is decided on the whole
+layer's channels. The mid attention's one head of 512 cannot be split by
+heads: its four 1x1 weights are gathered and the sublayer runs whole on
+every rank, once per decode or encode.
 """
 
 from __future__ import annotations
@@ -17,11 +25,12 @@ from __future__ import annotations
 import torch
 
 from sdtpu_torch.config import AutoencoderConfig
-from sdtpu_torch.ops import conv2d, dispatch, group_norm, qkv_attention
-from sdtpu_torch.ops.conv import upsample2x_conv, use_fused_upsample
+from sdtpu_torch.ops import dispatch, group_norm, qkv_attention
+from sdtpu_torch.ops.conv import use_fused_upsample
 from sdtpu_torch.ops.fused_conv import (conv3x3_fused, gn_scale_bias, phase_weight_stack,
                                         stats_scale_bias, upsample2x_conv_fused)
 from sdtpu_torch.ops.groupnorm import group_norm_silu_op
+from sdtpu_torch.parallel import layers as tpl
 
 # sdtpu's gate for the fused ResnetBlock: maps of at least this many rows
 FUSED_CONV_MIN_ROWS = 1 << 12
@@ -111,25 +120,29 @@ def _resnet_apply(p, x, cfg, in_stats=None, emit_stats=False):
     which saves the GroupNorm's statistics pass. With emit_stats, returns
     (out, stats of out), stats None on the unfused branch."""
     g, eps = cfg.groupnorm_groups, cfg.groupnorm_eps
-    if _use_fused_resnet(x, p["conv1"]["w"].shape[-1]):
+    if _use_fused_resnet(x, p["conv1"]["b"].shape[-1]):  # the whole layer's channels
         rows = x.shape[1] * x.shape[2]
         if in_stats is not None:
             s1, o1 = stats_scale_bias(in_stats, rows, p["norm1"]["g"], p["norm1"]["b"],
                                       g, eps)
         else:
             s1, o1 = gn_scale_bias(x, p["norm1"]["g"], p["norm1"]["b"], g, eps)
-        h1, st = conv3x3_fused(x, p["conv1"]["w"], p["conv1"]["b"], s1, o1,
-                               emit_stats=True)
+        h1, st = tpl.conv3x3(conv3x3_fused, x, p["conv1"], s1, o1, emit_stats=True)
         s2, o2 = stats_scale_bias(st, rows, p["norm2"]["g"], p["norm2"]["b"], g, eps)
-        res = conv2d(p["nin_shortcut"], x, padding=0) if "nin_shortcut" in p else x
-        return conv3x3_fused(h1, p["conv2"]["w"], p["conv2"]["b"], s2, o2,
-                             residual=res, emit_stats=emit_stats)
+        # the residual on conv2's output channels as this rank holds them
+        # (nin_shortcut has the same C_out, so it is sharded alike)
+        if "nin_shortcut" in p:
+            res = tpl.conv2d(tpl.local(p["nin_shortcut"]), x, padding=0)
+        else:
+            res = tpl.local_channels(p["conv2"], x)
+        return tpl.conv3x3(conv3x3_fused, h1, p["conv2"], s2, o2, residual=res,
+                           emit_stats=emit_stats)
     h = group_norm_silu_op(x, p["norm1"]["g"], p["norm1"]["b"], g, eps)
-    h = conv2d(p["conv1"], h, padding=1)
+    h = tpl.conv2d(p["conv1"], h, padding=1)
     h = group_norm_silu_op(h, p["norm2"]["g"], p["norm2"]["b"], g, eps)
-    h = conv2d(p["conv2"], h, padding=1)
+    h = tpl.conv2d(p["conv2"], h, padding=1)
     if "nin_shortcut" in p:
-        x = conv2d(p["nin_shortcut"], x, padding=0)
+        x = tpl.conv2d(p["nin_shortcut"], x, padding=0)
     y = x + h
     return (y, None) if emit_stats else y
 
@@ -138,13 +151,16 @@ def _attn_apply(p, x, cfg):
     """Single-head self-attention over h*w tokens with 1x1-conv q/k/v
     (K1 from 16384 tokens on, through qkv_attention's dispatch)."""
     b, h, w, c = x.shape
+    tp = tpl.out_shard(p["q"])
+    if tp is not None:  # one head: the weights gathered, the sublayer whole
+        p = tpl.gather_attention(p, tp)
     hn = group_norm(x, p["norm"]["g"], p["norm"]["b"], cfg.groupnorm_groups,
                     cfg.groupnorm_eps)
-    q = conv2d(p["q"], hn, padding=0).reshape(b, h * w, c)
-    k = conv2d(p["k"], hn, padding=0).reshape(b, h * w, c)
-    v = conv2d(p["v"], hn, padding=0).reshape(b, h * w, c)
+    q = tpl.conv2d(p["q"], hn, padding=0).reshape(b, h * w, c)
+    k = tpl.conv2d(p["k"], hn, padding=0).reshape(b, h * w, c)
+    v = tpl.conv2d(p["v"], hn, padding=0).reshape(b, h * w, c)
     o = qkv_attention(q, k, v, None, n_head=1).reshape(b, h, w, c)
-    return x + conv2d(p["proj_out"], o, padding=0)
+    return x + tpl.conv2d(p["proj_out"], o, padding=0)
 
 
 def _mid_apply(p, x, cfg, emit_stats=False):
@@ -160,24 +176,24 @@ def encoder_apply(params, x, cfg: AutoencoderConfig):
     GroupNorm statistics as sdtpu's encoder does; the mid attention at 64²
     stays plain, by use_flash."""
     p = params["encoder"]
-    x = conv2d(p["conv_in"], x, padding=1)
+    x = tpl.conv2d(p["conv_in"], x, padding=1)
     for blk in p["blocks"]:
         x = _resnet_apply(blk["res1"], x, cfg)
         x = _resnet_apply(blk["res2"], x, cfg)
         if "downsampler" in blk:
             # the asymmetric (0, 1, 0, 1) pad, stride 2
-            x = conv2d(blk["downsampler"]["conv"], x, stride=2, padding=((0, 1), (0, 1)))
+            x = tpl.conv2d(blk["downsampler"]["conv"], x, stride=2, padding=((0, 1), (0, 1)))
     x = _mid_apply(p["mid"], x, cfg)
     x = group_norm_silu_op(x, p["norm_out"]["g"], p["norm_out"]["b"], cfg.groupnorm_groups,
                            cfg.groupnorm_eps)
-    return conv2d(p["conv_out"], x, padding=1)
+    return tpl.conv2d(p["conv_out"], x, padding=1)
 
 
 def encode_image(params, x, cfg: AutoencoderConfig):
     """The encode path: encoder -> quant_conv -> the first `latent_channels`
     channels (the means; no sampling), sdtpu/models/vae.py:212-217."""
     moments = encoder_apply(params, x, cfg)
-    latent = conv2d(params["quant_conv"], moments, padding=0)
+    latent = tpl.conv2d(params["quant_conv"], moments, padding=0)
     return latent[..., : cfg.latent_channels]
 
 
@@ -199,9 +215,9 @@ def decode_latent(params, z, cfg: AutoencoderConfig, phases=None):
     (sdtpu/models/vae.py:220-252). phases: optional upsample_phase_stacks
     of params, which the fused upsamplers (K7) then read instead of folding
     their weights a call."""
-    z = conv2d(params["post_quant_conv"], z, padding=0)
+    z = tpl.conv2d(params["post_quant_conv"], z, padding=0)
     p = params["decoder"]
-    x = conv2d(p["conv_in"], z, padding=1)
+    x = tpl.conv2d(p["conv_in"], z, padding=1)
     x, st = _mid_apply(p["mid"], x, cfg, emit_stats=True)
     for i, blk in enumerate(p["blocks"]):
         for name in ("res1", "res2", "res3"):
@@ -209,11 +225,11 @@ def decode_latent(params, z, cfg: AutoencoderConfig, phases=None):
         if "upsampler" in blk:
             up = blk["upsampler"]
             _, hh, ww, cc = x.shape
-            if use_fused_upsample(hh, ww, cc, up["w"].shape[-1]):
-                x, st = upsample2x_conv_fused(x, up["w"], up["b"], emit_stats=True,
-                                              phases=None if phases is None else phases[i])
+            if use_fused_upsample(hh, ww, cc, up["b"].shape[-1]):  # the whole layer's
+                x, st = tpl.upsample(upsample2x_conv_fused, x, up, emit_stats=True,
+                                     phases=None if phases is None else phases[i])
             else:
-                x, st = upsample2x_conv(up, x), None
+                x, st = tpl.upsample2x_conv(up, x), None
     x = group_norm_silu_op(x, p["norm_out"]["g"], p["norm_out"]["b"],
                            cfg.groupnorm_groups, cfg.groupnorm_eps, in_stats=st)
-    return conv2d(p["conv_out"], x, padding=1)
+    return tpl.conv2d(p["conv_out"], x, padding=1)

@@ -92,10 +92,11 @@ def upsample_phase_weights(w):
     return torch.stack([colmix(rows[py], px) for py in (0, 1) for px in (0, 1)])
 
 
-def upsample2x_conv(params, x):
+def upsample2x_conv(params, x, fused: bool | None = None):
     """conv3x3(nearest_upsample_2x(x)) without the 4x tensor, as four
     phase-specific 2x2 convolutions and an interleave (sdtpu's
     upsample2x_conv); large aligned maps go to the fused kernel (K7).
+    fused: take K7 or not; None decides by the shapes (use_fused_upsample).
 
     Each output phase (py, px) reads a 2x2 neighbourhood of x with
     weights that are partial sums of the 3x3 kernel.
@@ -103,7 +104,9 @@ def upsample2x_conv(params, x):
     w = params["w"]  # [3, 3, I, O]
     b, h, wd, cin = x.shape
     cout = w.shape[-1]
-    if use_fused_upsample(h, wd, cin, cout):
+    if fused is None:
+        fused = use_fused_upsample(h, wd, cin, cout)
+    if fused:
         from sdtpu_torch.ops.fused_conv import upsample2x_conv_fused
 
         bias = params.get("b")

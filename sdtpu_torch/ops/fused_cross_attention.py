@@ -46,6 +46,7 @@ from sdtpu_torch.ops import fused_mlp
 from sdtpu_torch.ops.attention import qkv_attention_plain
 from sdtpu_torch.ops.conv import linear
 from sdtpu_torch.ops.flash_attention import NEG_INF, CorePlan, core_sm90_plan
+from sdtpu_torch.ops.fused_transformer import local_dims
 from sdtpu_torch.ops.groupnorm import layer_norm
 
 MAX_HEAD_DIM = 160  # shared-memory bound of csrc/cross_attention.cu
@@ -61,35 +62,42 @@ class Sm90Plan(NamedTuple):
     out: fused_mlp.Sm90Plan
 
 
-def sm90_plan(b: int, s: int, c: int, n_head: int, sk: int, bias: bool) -> Sm90Plan | None:
-    """The bf16 route's plans for x [b, s, c] with n_head heads over sk keys,
+def sm90_plan(b: int, s: int, c: int, n_head: int, sk: int, bias: bool,
+              ci: int | None = None) -> Sm90Plan | None:
+    """The bf16 route's plans for x [b, s, c] with n_head heads over an
+    inner width ci (C, or a tensor-parallel rank's C / tp) and sk keys,
     bias: whether the keys are masked (key_valid given), or None where the
     Hopper kernels have no tile for it (the WMMA route takes it): a head
     width without a core instance, a LayerNorm wider than the GEMM's
     prologue takes, or more keys than the kernel's MAX_KEYS."""
-    d = c // n_head
-    core = core_sm90_plan(d, bias) if d * n_head == c else None
-    if core is None or c % 8 or c > fused_mlp.SM90_LN_MAX_K or not 0 < sk <= MAX_KEYS:
+    ci = c if ci is None else ci
+    d = ci // n_head
+    core = core_sm90_plan(d, bias) if d * n_head == ci else None
+    if (core is None or c % 8 or ci % 8 or c > fused_mlp.SM90_LN_MAX_K
+            or not 0 < sk <= MAX_KEYS):
         return None
     m = b * s
-    return Sm90Plan(fused_mlp.sm90_plan(m, c, c, False, ln=True), core,
-                    fused_mlp.sm90_plan(m, c, c, False))
+    return Sm90Plan(fused_mlp.sm90_plan(m, ci, c, False, ln=True), core,
+                    fused_mlp.sm90_plan(m, c, ci, False))
 
 
 def route_plan(dtype, b: int, s: int, c: int, n_head: int, sk: int,
-               bias: bool) -> Sm90Plan | None:
+               bias: bool, ci: int | None = None) -> Sm90Plan | None:
     """K10's route: the Hopper kernels' plans (sm90_plan) for bf16, else
     None: f32 (and the bf16 shapes without a plan) take the WMMA kernels."""
-    return sm90_plan(b, s, c, n_head, sk, bias) if dtype == torch.bfloat16 else None
+    return sm90_plan(b, s, c, n_head, sk, bias, ci) if dtype == torch.bfloat16 else None
 
 
 def fused_cross_attention_kv_plain(x, kt, vt, ln_g, ln_b, wq, wo, bo, key_valid=None,
-                                   n_head: int = 8, eps: float = 1e-5):
+                                   n_head: int = 8, eps: float = 1e-5, residual: bool = True):
     """The unfused composition: LN, Wq, attention over the keys marked
-    valid, Wo + bo, plus x. kt/vt: [B, C, Sk]."""
+    valid, Wo + bo, plus x (without residual: the product with Wo alone, a
+    tensor-parallel rank's partial sum). kt/vt: [B, Ci, Sk]."""
     q = linear({"w": wq}, layer_norm(x, ln_g, ln_b, eps))
     k, v = kt.transpose(1, 2).to(x.dtype), vt.transpose(1, 2).to(x.dtype)
     o = qkv_attention_plain(q, k, v, None, n_head, key_valid=key_valid)
+    if not residual:
+        return linear({"w": wo}, o)
     return x + linear({"w": wo, "b": bo}, o)
 
 
@@ -102,44 +110,48 @@ def fused_cross_attention_plain(x, context, ln_g, ln_b, wq, wk, wv, wo, bo, key_
         ln_g, ln_b, wq, wo, bo, key_valid, n_head, eps)
 
 
-def _check_shapes(name, x, kshape, n_head):
-    """kshape: the [B, C, Sk] shape of the transposed keys."""
+def _check_shapes(name, x, kshape, n_head, ci=None):
+    """kshape: the [B, Ci, Sk] shape of the transposed keys; ci: the
+    inner width (C, or a tensor-parallel rank's C / tp)."""
     b, s, c = x.shape
-    d_head = c // n_head
-    if d_head * n_head != c or d_head > MAX_HEAD_DIM or d_head % 8:
-        raise ValueError(f"{name}: C={c} with {n_head} heads: the kernel takes "
-                         f"d_head = C / n_head <= {MAX_HEAD_DIM}, a multiple of 8")
-    if kshape[0] != b or kshape[1] != c or not 0 < kshape[2] <= MAX_KEYS:
+    ci = c if ci is None else ci
+    d_head = ci // n_head
+    if d_head * n_head != ci or d_head > MAX_HEAD_DIM or d_head % 8:
+        raise ValueError(f"{name}: Ci={ci} with {n_head} heads: the kernel takes "
+                         f"d_head = Ci / n_head <= {MAX_HEAD_DIM}, a multiple of 8")
+    if kshape[0] != b or kshape[1] != ci or not 0 < kshape[2] <= MAX_KEYS:
         raise ValueError(f"{name}: keys {tuple(kshape)} do not fit x {tuple(x.shape)} "
                          f"(the kernel takes [B, C, Sk], Sk <= {MAX_KEYS})")
 
 
-def _launch_wmma(x, kt, vt, ln_g, ln_b, wq, wo, bo, key_valid, n_head, eps):
+def _launch_wmma(x, kt, vt, ln_g, ln_b, wq, wo, bo, key_valid, n_head, eps, residual):
     """The WMMA route's three launches on x's device (csrc/gemm.cu,
-    csrc/cross_attention.cu, csrc/gemm.cu); kt/vt [B, C, Sk] in x's dtype,
+    csrc/cross_attention.cu, csrc/gemm.cu); kt/vt [B, Ci, Sk] in x's dtype,
     any strides. The shared GEMM takes f32 LayerNorm parameters and biases."""
     b, s, c = x.shape
+    ci = wq.shape[1]
     sk = kt.shape[2]
     dt = x.dtype
     m = b * s
-    q = torch.empty((b, s, c), dtype=dt, device=x.device)
-    attn = torch.empty((b, s, c), dtype=dt, device=x.device)
+    q = torch.empty((b, s, ci), dtype=dt, device=x.device)
+    attn = torch.empty((b, s, ci), dtype=dt, device=x.device)
     out = torch.empty_like(x)
     if key_valid is not None:
         # read by the kernel as bytes, the bias applied there: no launch
         # for a bool mask that is already contiguous (the UNet's ctx_valid)
         key_valid = key_valid.to(torch.bool).contiguous()
-    kernels.gemm(x, wq.to(dt).contiguous(), q, M=m, N=c, K=c, lda=c, ldw=c, ldo=c,
+    kernels.gemm(x, wq.to(dt).contiguous(), q, M=m, N=ci, K=c, lda=c, ldw=ci, ldo=ci,
                  pa=ln_g.float().contiguous(), pb=ln_b.float().contiguous(),
                  prologue=kernels.PRO_LAYERNORM, eps=eps)
     rc = kernels.lib().sdk_cross_attention(
         kernels.dtype_code(x), q.data_ptr(), kt.data_ptr(), vt.data_ptr(),
         kt.stride(0), kt.stride(1), kt.stride(2), vt.stride(0), vt.stride(1), vt.stride(2),
-        kernels.ptr(key_valid), attn.data_ptr(), b, s, c, sk, n_head,
-        float(c // n_head) ** -0.5, kernels.stream(x))
+        kernels.ptr(key_valid), attn.data_ptr(), b, s, ci, sk, n_head,
+        float(ci // n_head) ** -0.5, kernels.stream(x))
     kernels.check(rc, "sdk_cross_attention")
-    kernels.gemm(attn, wo.to(dt).contiguous(), out, M=m, N=c, K=c, lda=c, ldw=c, ldo=c,
-                 bias=bo.float().contiguous(), res=x, ldr=c)
+    bias, res = (bo.float().contiguous(), x) if residual else (None, None)
+    kernels.gemm(attn, wo.to(dt).contiguous(), out, M=m, N=c, K=ci, lda=ci, ldw=c, ldo=c,
+                 bias=bias, res=res, ldr=c if residual else 0)
     return out
 
 
@@ -152,15 +164,17 @@ def _rows(t):
     return t
 
 
-def _launch_sm90(x, kt, vt, ln_g, ln_b, wq, wo, bo, key_valid, n_head, eps, plan: Sm90Plan):
+def _launch_sm90(x, kt, vt, ln_g, ln_b, wq, wo, bo, key_valid, n_head, eps, plan: Sm90Plan,
+                 residual):
     """The bf16 route's four launches on x's device: row statistics, LN(x)·Wq
     (csrc/gemm_sm90.cu), the core with the key bias (csrc/attention_sm90.cu),
     o·Wo + bo + x (csrc/gemm_sm90.cu). γ, β, the weights and bo are read in
     x's dtype (.to and .contiguous return the tensors themselves when they
     already are: no copy a call)."""
     b, s, c = x.shape
+    ci = wq.shape[1]
     sk = kt.shape[2]
-    d = c // n_head
+    d = ci // n_head
     dt = x.dtype
     m = b * s
     ln_g, ln_b, wq, wo, bo = (t.to(dt).contiguous() for t in (ln_g, ln_b, wq, wo, bo))
@@ -169,29 +183,30 @@ def _launch_sm90(x, kt, vt, ln_g, ln_b, wq, wo, bo, key_valid, n_head, eps, plan
     if key_valid is not None:
         bias = torch.where(key_valid.to(torch.bool), 0.0, NEG_INF).to(torch.float32)
     stats = torch.empty((m, 2), dtype=torch.float32, device=x.device)
-    q = torch.empty((b, s, c), dtype=dt, device=x.device)
-    attn = torch.empty((b, s, c), dtype=dt, device=x.device)
+    q = torch.empty((b, s, ci), dtype=dt, device=x.device)
+    attn = torch.empty((b, s, ci), dtype=dt, device=x.device)
     out = torch.empty_like(x)
     lib, st = kernels.lib(), kernels.stream(x)
     p1, p2 = plan.q, plan.out
     kernels.check(lib.sdk_row_stats(x.data_ptr(), c, stats.data_ptr(), m, c, eps, st),
                   "sdk_row_stats")
     kernels.check(lib.sdk_gemm_sm90(
-        x.data_ptr(), c, wq.data_ptr(), c, None, ln_g.data_ptr(), ln_b.data_ptr(),
-        stats.data_ptr(), None, 0, q.data_ptr(), c, m, c, c, 0, p1.bn, p1.stages, p1.smem, st),
-        "sdk_gemm_sm90 (LayerNorm, Q)")
+        x.data_ptr(), c, wq.data_ptr(), ci, None, ln_g.data_ptr(), ln_b.data_ptr(),
+        stats.data_ptr(), None, 0, q.data_ptr(), ci, m, ci, c, 0, p1.bn, p1.stages, p1.smem,
+        st), "sdk_gemm_sm90 (LayerNorm, Q)")
     kernels.check(lib.sdk_attention_sm90(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), attn.data_ptr(), s * c, d, c,
-        k.stride(0), d, k.stride(1), v.stride(0), d, v.stride(1), s * c, d, c,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), attn.data_ptr(), s * ci, d, ci,
+        k.stride(0), d, k.stride(1), v.stride(0), d, v.stride(1), s * ci, d, ci,
         kernels.ptr(bias), sk, None, b * n_head, n_head, s, sk, d, float(d) ** -0.5,
         *plan.core, st), "sdk_attention_sm90")
+    bo_p, res = (bo.data_ptr(), x.data_ptr()) if residual else (None, None)
     kernels.check(lib.sdk_gemm_sm90(
-        attn.data_ptr(), c, wo.data_ptr(), c, bo.data_ptr(), None, None, None, x.data_ptr(), c,
-        out.data_ptr(), c, m, c, c, 0, p2.bn, p2.stages, p2.smem, st), "sdk_gemm_sm90 (Wo)")
+        attn.data_ptr(), ci, wo.data_ptr(), c, bo_p, None, None, None, res, c,
+        out.data_ptr(), c, m, c, ci, 0, p2.bn, p2.stages, p2.smem, st), "sdk_gemm_sm90 (Wo)")
     return out
 
 
-def _launch(x, kt, vt, ln_g, ln_b, wq, wo, bo, key_valid, n_head, eps, route):
+def _launch(x, kt, vt, ln_g, ln_b, wq, wo, bo, key_valid, n_head, eps, route, residual=True):
     """The sublayer on x's device by route ("auto": by dtype and plan;
     "wmma": the WMMA kernels whatever the dtype). Returns (out, route
     taken)."""
@@ -199,47 +214,55 @@ def _launch(x, kt, vt, ln_g, ln_b, wq, wo, bo, key_valid, n_head, eps, route):
     sk = kt.shape[2]
     if key_valid is not None and tuple(key_valid.shape) != (b, sk):
         raise ValueError(f"key_valid {tuple(key_valid.shape)} does not fit [{b}, {sk}]")
+    if tuple(wq.shape) != (c, kt.shape[1]) or tuple(wo.shape) != (kt.shape[1], c):
+        raise ValueError(f"wq {tuple(wq.shape)} / wo {tuple(wo.shape)} do not fit C={c} and "
+                         f"keys {tuple(kt.shape)}")
     plan = None
     if route == "auto":
-        plan = route_plan(x.dtype, b, s, c, n_head, sk, key_valid is not None)
+        plan = route_plan(x.dtype, b, s, c, n_head, sk, key_valid is not None, wq.shape[1])
     with torch.cuda.device(x.device):
         if plan is None:
             return _launch_wmma(x, kt, vt, ln_g, ln_b, wq, wo, bo, key_valid, n_head,
-                                eps), "wmma"
+                                eps, residual), "wmma"
         return _launch_sm90(x, kt, vt, ln_g, ln_b, wq, wo, bo, key_valid, n_head, eps,
-                            plan), "sm90"
+                            plan, residual), "sm90"
 
 
 def fused_cross_attention_kv(x, kt, vt, ln_g, ln_b, wq, wo, bo, key_valid=None,
-                             n_head: int = 8, eps: float = 1e-5):
-    """x: [B, S, C] -> x + out_proj(attn(LN(x) Wq, K, V)). kt/vt: [B, C, Sk],
+                             n_head: int = 8, eps: float = 1e-5, residual: bool = True):
+    """x: [B, S, C] -> x + out_proj(attn(LN(x) Wq, K, V)). kt/vt: [B, Ci, Sk],
     the context's keys and values projected and transposed (sdtpu's
     layout; a transposed view is read as it is); key_valid: optional bool
-    [B, Sk] of real keys (padded keys get a -1e30 score bias); wq, wo:
-    [C, C]; bo: [C]. Scores use d_head^-1/2. CPU tensors take the plain
-    version; CUDA tensors the kernels (see the module's routes)."""
+    [B, Sk] of real keys (padded keys get a -1e30 score bias); wq: [C, Ci],
+    wo: [Ci, C]; bo: [C]. Ci is C, or a tensor-parallel rank's C / tp (its
+    n_head local heads); residual=False leaves x and bo out of the epilogue
+    (every tp rank but one: the ranks' outputs are then summed). Scores use
+    d_head^-1/2. CPU tensors take the plain version; CUDA tensors the
+    kernels (see the module's routes)."""
     return _cross_attention_kv(x, kt, vt, ln_g, ln_b, wq, wo, bo, key_valid, n_head, eps,
-                               "auto")
+                               "auto", residual)
 
 
-def _cross_attention_kv(x, kt, vt, ln_g, ln_b, wq, wo, bo, key_valid, n_head, eps, route):
+def _cross_attention_kv(x, kt, vt, ln_g, ln_b, wq, wo, bo, key_valid, n_head, eps, route,
+                        residual: bool = True):
     """fused_cross_attention_kv on the given route: "auto" (by dtype and
     plan) or "wmma" (the WMMA kernels whatever the dtype, for timing the two
     routes against each other)."""
     if kernels.on_cpu(x, kt, vt, ln_g, ln_b, wq, wo, bo, key_valid):
         return fused_cross_attention_kv_plain(x, kt, vt, ln_g, ln_b, wq, wo, bo, key_valid,
-                                              n_head, eps)
+                                              n_head, eps, residual)
     kernels.refuse_autograd("fused_cross_attention_kv (K10)", x, kt, vt, ln_g, ln_b, wq, wo,
                             bo)
-    _check_shapes("fused_cross_attention_kv", x, kt.shape, n_head)
+    ci = wq.shape[1]
+    _check_shapes("fused_cross_attention_kv", x, kt.shape, n_head, ci)
     if vt.shape != kt.shape:
         raise ValueError(f"kt {tuple(kt.shape)} and vt {tuple(vt.shape)} differ")
     x = x.contiguous()
     out, taken = _launch(x, kt.to(x.dtype), vt.to(x.dtype), ln_g, ln_b, wq, wo, bo, key_valid,
-                         n_head, eps, route)
+                         n_head, eps, route, residual)
     b, s, c = x.shape
-    kernels.count(fused_cross_attention_kv, b=b, s=s, c=c, sk=kt.shape[2], heads=n_head,
-                  route=taken)
+    kernels.count(fused_cross_attention_kv, b=b, s=s, c=c, **local_dims(ci, c, residual),
+                  sk=kt.shape[2], heads=n_head, route=taken)
     return out
 
 

@@ -77,27 +77,32 @@ def sm90_plan(m: int, n: int, k: int, geglu: bool, ln: bool | None = None) -> Sm
 
 
 def fused_geglu_mlp_plain(x, ln_g, ln_b, w_proj, b_proj, w_lin, b_lin,
-                          eps: float = 1e-5):
-    """The unfused composition sdtpu's oracle tests hold the kernel to."""
+                          eps: float = 1e-5, residual: bool = True):
+    """The unfused composition sdtpu's oracle tests hold the kernel to
+    (without residual: the product with W_lin alone, a tensor-parallel
+    rank's partial sum)."""
     hn = layer_norm(x, ln_g, ln_b, eps)
     val, gate = linear({"w": w_proj, "b": b_proj}, hn).chunk(2, dim=-1)
+    if not residual:
+        return linear({"w": w_lin}, geglu(val, gate))
     return x + linear({"w": w_lin, "b": b_lin}, geglu(val, gate))
 
 
 def _check_shapes(x, w_proj, w_lin):
     c = x.shape[-1]
-    if w_proj.shape[1] != 8 * c or tuple(w_lin.shape) != (4 * c, c):
+    h = w_lin.shape[0]
+    if w_proj.shape[1] != 2 * h or tuple(w_lin.shape) != (h, c) or w_proj.shape[0] != c:
         raise ValueError(f"w_proj {tuple(w_proj.shape)} / w_lin "
                          f"{tuple(w_lin.shape)} do not fit C={c}")
 
 
-def _mlp_sm90(x, ln_g, ln_b, w_proj, b_proj, w_lin, b_lin, eps=1e-5):
+def _mlp_sm90(x, ln_g, ln_b, w_proj, b_proj, w_lin, b_lin, eps=1e-5, residual=True):
     """The bf16 route: csrc/gemm_sm90.cu. The parameters are read in x's
     dtype; .to and .contiguous return the tensors themselves when they
     already are (no launch)."""
     b, s, c = x.shape
     dt = x.dtype
-    m, c4 = b * s, 4 * c
+    m, c4 = b * s, w_lin.shape[0]  # 4C, or a tensor-parallel rank's 4C / tp
     x = x.contiguous()
     ln_g, ln_b, w_proj, b_proj, w_lin, b_lin = (
         t.to(dt).contiguous() for t in (ln_g, ln_b, w_proj, b_proj, w_lin, b_lin))
@@ -111,51 +116,58 @@ def _mlp_sm90(x, ln_g, ln_b, w_proj, b_proj, w_lin, b_lin, eps=1e-5):
         kernels.check(lib.sdk_row_stats(x.data_ptr(), c, stats.data_ptr(), m, c, eps, st),
                       "sdk_row_stats")
         kernels.check(lib.sdk_gemm_sm90(
-            x.data_ptr(), c, w_proj.data_ptr(), 8 * c, b_proj.data_ptr(), ln_g.data_ptr(),
+            x.data_ptr(), c, w_proj.data_ptr(), 2 * c4, b_proj.data_ptr(), ln_g.data_ptr(),
             ln_b.data_ptr(), stats.data_ptr(), None, 0, h.data_ptr(), c4, m, c4, c, c4,
             p1.bn, p1.stages, p1.smem, st), "sdk_gemm_sm90 (GEGLU)")
+        bias, res = (b_lin.data_ptr(), x.data_ptr()) if residual else (None, None)
         kernels.check(lib.sdk_gemm_sm90(
-            h.data_ptr(), c4, w_lin.data_ptr(), c, b_lin.data_ptr(), None, None, None,
-            x.data_ptr(), c, out.data_ptr(), c, m, c, c4, 0, p2.bn, p2.stages, p2.smem, st),
+            h.data_ptr(), c4, w_lin.data_ptr(), c, bias, None, None, None,
+            res, c, out.data_ptr(), c, m, c, c4, 0, p2.bn, p2.stages, p2.smem, st),
             "sdk_gemm_sm90")
     return out
 
 
-def _mlp_wmma(x, ln_g, ln_b, w_proj, b_proj, w_lin, b_lin, eps=1e-5):
+def _mlp_wmma(x, ln_g, ln_b, w_proj, b_proj, w_lin, b_lin, eps=1e-5, residual=True):
     """The f32 route: two launches of the WMMA GEMM (csrc/gemm.cu), which
     takes f32 biases and LayerNorm parameters (no copies for an f32 model).
     It takes bf16 as well, for timing against the bf16 route."""
     b, s, c = x.shape
     dt = x.dtype
     x = x.contiguous()
-    m, c4 = b * s, 4 * c
+    m, c4 = b * s, w_lin.shape[0]
     h = torch.empty((b, s, c4), dtype=dt, device=x.device)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         kernels.gemm(x, w_proj.to(dt).contiguous(), h, M=m, N=c4, K=c, lda=c,
-                     ldw=8 * c, ldo=c4, bias=b_proj.float().contiguous(),
+                     ldw=2 * c4, ldo=c4, bias=b_proj.float().contiguous(),
                      pa=ln_g.float().contiguous(), pb=ln_b.float().contiguous(),
                      prologue=kernels.PRO_LAYERNORM, geglu_off=c4, eps=eps)
+        bias, res = (b_lin.float().contiguous(), x) if residual else (None, None)
         kernels.gemm(h, w_lin.to(dt).contiguous(), out, M=m, N=c, K=c4, lda=c4,
-                     ldw=c, ldo=c, bias=b_lin.float().contiguous(), res=x, ldr=c)
+                     ldw=c, ldo=c, bias=bias, res=res, ldr=c if residual else 0)
     return out
 
 
 def fused_geglu_mlp(x, ln_g, ln_b, w_proj, b_proj, w_lin, b_lin,
-                    eps: float = 1e-5):
-    """x: [B, S, C]; w_proj: [C, 8C] (val | gate), b_proj: [8C];
-    w_lin: [4C, C], b_lin: [C]. CPU tensors take the plain version; CUDA
-    tensors the kernels (bf16: csrc/gemm_sm90.cu, f32: csrc/gemm.cu)."""
+                    eps: float = 1e-5, residual: bool = True):
+    """x: [B, S, C]; w_proj: [C, 2H] (val | gate), b_proj: [2H];
+    w_lin: [H, C], b_lin: [C]. H is 4C, or a tensor-parallel rank's 4C / tp
+    ([val_r | gate_r]); residual=False leaves x and b_lin out of the
+    epilogue (every tp rank but one: the ranks' outputs are then summed).
+    CPU tensors take the plain version; CUDA tensors the kernels (bf16:
+    csrc/gemm_sm90.cu, f32: csrc/gemm.cu)."""
     if kernels.on_cpu(x, ln_g, ln_b, w_proj, b_proj, w_lin, b_lin):
         return fused_geglu_mlp_plain(x, ln_g, ln_b, w_proj, b_proj, w_lin,
-                                     b_lin, eps)
+                                     b_lin, eps, residual)
     kernels.refuse_autograd("fused_geglu_mlp (K5)", x, ln_g, ln_b, w_proj, b_proj, w_lin,
                             b_lin)
     _check_shapes(x, w_proj, w_lin)
     route = _mlp_sm90 if x.dtype == torch.bfloat16 else _mlp_wmma
-    out = route(x, ln_g, ln_b, w_proj, b_proj, w_lin, b_lin, eps)
+    out = route(x, ln_g, ln_b, w_proj, b_proj, w_lin, b_lin, eps, residual)
     b, s, c = x.shape
-    kernels.count(fused_geglu_mlp, b=b, s=s, c=c)
+    h = w_lin.shape[0]
+    kernels.count(fused_geglu_mlp, b=b, s=s, c=c, **({"h": h} if h != 4 * c else {}),
+                  **({} if residual else {"residual": False}))
     return out
 
 

@@ -50,26 +50,31 @@ class Sm90Plan(NamedTuple):
     out: fused_mlp.Sm90Plan
 
 
-def sm90_plan(b: int, s: int, c: int, n_head: int) -> Sm90Plan | None:
-    """The bf16 route's plans for x [b, s, c] with n_head heads, or None
-    where the Hopper kernels have no tile for it (the WMMA route takes it):
-    a head width without a core instance, or a LayerNorm wider than the
+def sm90_plan(b: int, s: int, c: int, n_head: int, ci: int | None = None) -> Sm90Plan | None:
+    """The bf16 route's plans for x [b, s, c] with n_head heads over an
+    inner width ci (C, or a tensor-parallel rank's C / tp), or None where
+    the Hopper kernels have no tile for it (the WMMA route takes it): a
+    head width without a core instance, or a LayerNorm wider than the
     GEMM's prologue takes."""
-    d = c // n_head
-    core = core_sm90_plan(d) if d * n_head == c else None
-    if core is None or c % 8 or c > fused_mlp.SM90_LN_MAX_K:
+    ci = c if ci is None else ci
+    d = ci // n_head
+    core = core_sm90_plan(d) if d * n_head == ci else None
+    if core is None or c % 8 or ci % 8 or c > fused_mlp.SM90_LN_MAX_K:
         return None
     m = b * s
-    return Sm90Plan(fused_mlp.sm90_plan(m, 3 * c, c, False, ln=True), core,
-                    fused_mlp.sm90_plan(m, c, c, False))
+    return Sm90Plan(fused_mlp.sm90_plan(m, 3 * ci, c, False, ln=True), core,
+                    fused_mlp.sm90_plan(m, c, ci, False))
 
 
 def fused_self_attention_plain(x, ln_g, ln_b, wqkv, wo, bo,
-                               n_head: int, eps: float = 1e-5):
-    """The unfused composition sdtpu's oracle tests hold the kernel to."""
+                               n_head: int, eps: float = 1e-5, residual: bool = True):
+    """The unfused composition sdtpu's oracle tests hold the kernel to
+    (without residual: o·Wo alone, a tensor-parallel rank's partial sum)."""
     xn = layer_norm(x, ln_g, ln_b, eps)
     q, k, v = linear({"w": wqkv}, xn).chunk(3, dim=-1)
     o = qkv_attention_plain(q, k, v, None, n_head)
+    if not residual:
+        return linear({"w": wo}, o)
     return x + linear({"w": wo, "b": bo}, o)
 
 
@@ -78,7 +83,7 @@ def attention_core_sm90(qkv, out, n_head: int, plan: CorePlan) -> None:
     (q | k | v) into out [B, S, C] (heads merged), on csrc/attention_sm90.cu.
     The core reads each head through (batch, head, row) strides."""
     b, s, c3 = qkv.shape
-    c = c3 // 3
+    c = c3 // 3  # the inner width
     d = c // n_head
     rc = kernels.lib().sdk_attention_sm90(
         qkv.data_ptr(), qkv[..., c:].data_ptr(), qkv[..., 2 * c:].data_ptr(), out.data_ptr(),
@@ -87,87 +92,105 @@ def attention_core_sm90(qkv, out, n_head: int, plan: CorePlan) -> None:
     kernels.check(rc, "sdk_attention_sm90")
 
 
-def _attend_sm90(x, ln_g, ln_b, wqkv, wo, bo, n_head, eps, plan: Sm90Plan, out):
+def _attend_sm90(x, ln_g, ln_b, wqkv, wo, bo, n_head, eps, plan: Sm90Plan, out, residual):
     """The bf16 route. γ, β, the weights and bo are read in x's dtype
     (.to and .contiguous return the tensors themselves when they already
     are: no copy a call)."""
     b, s, c = x.shape
+    ci = wqkv.shape[1] // 3
     dt = x.dtype
     m = b * s
     ln_g, ln_b, wqkv, wo, bo = (t.to(dt).contiguous() for t in (ln_g, ln_b, wqkv, wo, bo))
     stats = torch.empty((m, 2), dtype=torch.float32, device=x.device)
-    qkv = torch.empty((b, s, 3 * c), dtype=dt, device=x.device)
-    attn = torch.empty((b, s, c), dtype=dt, device=x.device)
+    qkv = torch.empty((b, s, 3 * ci), dtype=dt, device=x.device)
+    attn = torch.empty((b, s, ci), dtype=dt, device=x.device)
     lib, st = kernels.lib(), kernels.stream(x)
     p1, p2 = plan.qkv, plan.out
     kernels.check(lib.sdk_row_stats(x.data_ptr(), c, stats.data_ptr(), m, c, eps, st),
                   "sdk_row_stats")
     kernels.check(lib.sdk_gemm_sm90(
-        x.data_ptr(), c, wqkv.data_ptr(), 3 * c, None, ln_g.data_ptr(), ln_b.data_ptr(),
-        stats.data_ptr(), None, 0, qkv.data_ptr(), 3 * c, m, 3 * c, c, 0,
+        x.data_ptr(), c, wqkv.data_ptr(), 3 * ci, None, ln_g.data_ptr(), ln_b.data_ptr(),
+        stats.data_ptr(), None, 0, qkv.data_ptr(), 3 * ci, m, 3 * ci, c, 0,
         p1.bn, p1.stages, p1.smem, st), "sdk_gemm_sm90 (LayerNorm, QKV)")
     attention_core_sm90(qkv, attn, n_head, plan.core)
+    bias, res = (bo.data_ptr(), x.data_ptr()) if residual else (None, None)
     kernels.check(lib.sdk_gemm_sm90(
-        attn.data_ptr(), c, wo.data_ptr(), c, bo.data_ptr(), None, None, None, x.data_ptr(), c,
-        out.data_ptr(), c, m, c, c, 0, p2.bn, p2.stages, p2.smem, st), "sdk_gemm_sm90 (Wo)")
+        attn.data_ptr(), ci, wo.data_ptr(), c, bias, None, None, None, res, c,
+        out.data_ptr(), c, m, c, ci, 0, p2.bn, p2.stages, p2.smem, st), "sdk_gemm_sm90 (Wo)")
 
 
-def _attend_wmma(x, ln_g, ln_b, wqkv, wo, bo, n_head, eps, out):
+def _attend_wmma(x, ln_g, ln_b, wqkv, wo, bo, n_head, eps, out, residual):
     """The f32 route (and the bf16 widths without a Hopper instance): the
     WMMA GEMM (csrc/gemm.cu), which takes f32 LayerNorm parameters and
     biases, and csrc/attention.cu."""
     b, s, c = x.shape
+    ci = wqkv.shape[1] // 3
     dt = x.dtype
     m = b * s
-    qkv = torch.empty((b, s, 3 * c), dtype=dt, device=x.device)
-    attn = torch.empty((b, s, c), dtype=dt, device=x.device)
-    kernels.gemm(x, wqkv.to(dt).contiguous(), qkv, M=m, N=3 * c, K=c, lda=c, ldw=3 * c,
-                 ldo=3 * c, pa=ln_g.float().contiguous(), pb=ln_b.float().contiguous(),
+    qkv = torch.empty((b, s, 3 * ci), dtype=dt, device=x.device)
+    attn = torch.empty((b, s, ci), dtype=dt, device=x.device)
+    kernels.gemm(x, wqkv.to(dt).contiguous(), qkv, M=m, N=3 * ci, K=c, lda=c, ldw=3 * ci,
+                 ldo=3 * ci, pa=ln_g.float().contiguous(), pb=ln_b.float().contiguous(),
                  prologue=kernels.PRO_LAYERNORM, eps=eps)
     rc = kernels.lib().sdk_attention(
-        kernels.dtype_code(x), qkv.data_ptr(), attn.data_ptr(), b, s, c,
-        n_head, float(c // n_head) ** -0.5, kernels.stream(x))
+        kernels.dtype_code(x), qkv.data_ptr(), attn.data_ptr(), b, s, ci,
+        n_head, float(ci // n_head) ** -0.5, kernels.stream(x))
     kernels.check(rc, "sdk_attention")
-    kernels.gemm(attn, wo.to(dt).contiguous(), out, M=m, N=c, K=c, lda=c,
-                 ldw=c, ldo=c, bias=bo.float().contiguous(), res=x, ldr=c)
+    bias, res = (bo.float().contiguous(), x) if residual else (None, None)
+    kernels.gemm(attn, wo.to(dt).contiguous(), out, M=m, N=c, K=ci, lda=ci,
+                 ldw=c, ldo=c, bias=bias, res=res, ldr=c if residual else 0)
 
 
 def fused_self_attention(x, ln_g, ln_b, wqkv, wo, bo,
-                         n_head: int, eps: float = 1e-5):
-    """x: [B, S, C] -> x + out_proj(attn(LN(x))). wqkv: [C, 3C], sdtpu's
+                         n_head: int, eps: float = 1e-5, residual: bool = True):
+    """x: [B, S, C] -> x + out_proj(attn(LN(x))). wqkv: [C, 3Ci], sdtpu's
     wq | wk | wv side by side (no q/k/v bias; see
-    sdtpu_torch.models.unet.fuse_qkv); wo: [C, C]; bo: [C]. Scores use
-    d_head^-1/2, the same as the reference's dual d_head^-1/4. CPU tensors
-    take the plain version; CUDA tensors the kernels (see the module's
-    routes)."""
-    return _self_attention(x, ln_g, ln_b, wqkv, wo, bo, n_head, eps, "auto")
+    sdtpu_torch.models.unet.fuse_qkv), over n_head heads of Ci / n_head; wo:
+    [Ci, C]; bo: [C]. Ci is C, or a tensor-parallel rank's C / tp (its
+    local heads, [q_r | k_r | v_r]); residual=False leaves x and bo out of
+    the epilogue (every tp rank but one: the ranks' outputs are then summed).
+    Scores use d_head^-1/2, the same as the reference's dual d_head^-1/4.
+    CPU tensors take the plain version; CUDA tensors the kernels (see the
+    module's routes)."""
+    return _self_attention(x, ln_g, ln_b, wqkv, wo, bo, n_head, eps, "auto", residual)
 
 
-def _self_attention(x, ln_g, ln_b, wqkv, wo, bo, n_head, eps, route: str):
+def _self_attention(x, ln_g, ln_b, wqkv, wo, bo, n_head, eps, route: str,
+                    residual: bool = True):
     """fused_self_attention on the given route: "auto" (by dtype and plan),
     or "wmma" (csrc/gemm.cu and csrc/attention.cu whatever the dtype, for
     timing the two routes against each other)."""
     if kernels.on_cpu(x, ln_g, ln_b, wqkv, wo, bo):
-        return fused_self_attention_plain(x, ln_g, ln_b, wqkv, wo, bo, n_head, eps)
+        return fused_self_attention_plain(x, ln_g, ln_b, wqkv, wo, bo, n_head, eps, residual)
     kernels.refuse_autograd("fused_self_attention (K2)", x, ln_g, ln_b, wqkv, wo, bo)
     b, s, c = x.shape
-    d_head = c // n_head
-    if d_head * n_head != c or d_head > MAX_HEAD_DIM or d_head % 8:
-        raise ValueError(f"C={c} with {n_head} heads: the kernel takes "
-                         f"d_head = C / n_head <= {MAX_HEAD_DIM}, a multiple of 8")
+    ci = wqkv.shape[1] // 3
+    d_head = ci // n_head
+    if d_head * n_head != ci or d_head > MAX_HEAD_DIM or d_head % 8:
+        raise ValueError(f"Ci={ci} with {n_head} heads: the kernel takes "
+                         f"d_head = Ci / n_head <= {MAX_HEAD_DIM}, a multiple of 8")
+    if tuple(wqkv.shape) != (c, 3 * ci) or tuple(wo.shape) != (ci, c):
+        raise ValueError(f"wqkv {tuple(wqkv.shape)} / wo {tuple(wo.shape)} do not fit C={c}")
     plan = None
     if x.dtype == torch.bfloat16 and route == "auto":
-        plan = sm90_plan(b, s, c, n_head)
+        plan = sm90_plan(b, s, c, n_head, ci)
     x = x.contiguous()
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         if plan is None:
-            _attend_wmma(x, ln_g, ln_b, wqkv, wo, bo, n_head, eps, out)
+            _attend_wmma(x, ln_g, ln_b, wqkv, wo, bo, n_head, eps, out, residual)
         else:
-            _attend_sm90(x, ln_g, ln_b, wqkv, wo, bo, n_head, eps, plan, out)
-    kernels.count(fused_self_attention, b=b, s=s, c=c, heads=n_head,
-                  route="wmma" if plan is None else "sm90")
+            _attend_sm90(x, ln_g, ln_b, wqkv, wo, bo, n_head, eps, plan, out, residual)
+    kernels.count(fused_self_attention, b=b, s=s, c=c, **local_dims(ci, c, residual),
+                  heads=n_head, route="wmma" if plan is None else "sm90")
     return out
+
+
+def local_dims(ci: int, c: int, residual: bool) -> dict:
+    """The shape-key entries of a tensor-parallel launch: the inner width
+    where it is not C, and residual=False where the epilogue adds none
+    (empty for a whole launch, whose keys stay as they were)."""
+    return {**({"ci": ci} if ci != c else {}), **({} if residual else {"residual": False})}
 
 
 fused_self_attention.launches = 0

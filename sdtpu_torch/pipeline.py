@@ -18,6 +18,16 @@ re-imposition), the port draws from a torch.Generator, or from an injected
 draw_noise(shape), which the tests feed with sdtpu's own draws.
 encode_image (the VAE encoder) serves img2img, inpainting and the
 fine-tuning latent cache.
+
+On a parallel.Mesh (one StableDiffusion a rank, every rank calling the same
+methods with the same arguments) the pipeline holds this rank's tp shards
+(parallel/sharding.py) and runs its models inside the mesh's tp group. The
+sampler runs this dp rank's slice of the batch: every random draw (the
+initial latent, euler_a's and the re-imposition's noise) is made for the
+whole batch, alike on every rank, then sliced, so a dp run equals the
+single run; the latent and the images are all-gathered over dp, so every
+rank returns the whole batch. The tp ranks of a dp row run the same slice
+in lockstep.
 """
 
 from __future__ import annotations
@@ -38,6 +48,8 @@ from sdtpu_torch.diffusion.karras import (euler_ancestral_step, euler_step, heun
 from sdtpu_torch.models.clip import clip_apply
 from sdtpu_torch.models.unet import fuse_qkv, unet_apply
 from sdtpu_torch.models.vae import decode_latent, encode_image, upsample_phase_stacks
+from sdtpu_torch.parallel import tp as tpc
+from sdtpu_torch.parallel.sharding import gather_batch, shard_batch, shard_params
 from sdtpu_torch.utils import profiling
 
 SAMPLERS = ("ddim", "dpmpp", "euler", "euler_a", "heun")
@@ -82,15 +94,23 @@ class StableDiffusion:
     After generate(), `timings` holds the wall seconds of its phases
     (encode_prompt, denoise, decode), each ended by a device synchronise;
     they are added to utils.profiling.REGISTRY as well.
+
+    mesh: a parallel.Mesh (see the module docstring); params are the whole
+    tree, of which the pipeline keeps this rank's shards.
     """
 
     def __init__(self, params, config: StableDiffusionConfig = SD_V1_4,
-                 compute_dtype=torch.float32, pad_context: bool = True):
+                 compute_dtype=torch.float32, pad_context: bool = True, mesh=None):
         if compute_dtype != torch.float32:
             params = _cast_param_tree(params, compute_dtype)
-        self.params = {**params, "unet": fuse_qkv(params["unet"])}
-        # the decoder's upsampler weights folded into K7's phase stacks once
-        self.vae_phases = upsample_phase_stacks(params["autoencoder"])
+        params = {**params, "unet": fuse_qkv(params["unet"])}
+        with torch.no_grad():
+            self.params = shard_params(params, mesh)
+        self.mesh = mesh
+        self.tp = tpc.of_mesh(mesh)
+        # the decoder's upsampler weights (this rank's) folded into K7's
+        # phase stacks once
+        self.vae_phases = upsample_phase_stacks(self.params["autoencoder"])
         self.config = config
         self.compute_dtype = compute_dtype
         self.pad_context = pad_context
@@ -118,7 +138,8 @@ class StableDiffusion:
         if self.pad_context:
             ids = ids + [0] * (n_ctx - len(ids))
         tokens = torch.tensor([ids], dtype=torch.long, device=self.device)
-        ctx = clip_apply(clip_params or self.params["clip"], tokens, self.config.clip)
+        with tpc.use(self.tp):
+            ctx = clip_apply(clip_params or self.params["clip"], tokens, self.config.clip)
         valid = torch.arange(len(ids), device=self.device)[None, :] < n_valid
         return ctx.to(self.compute_dtype), valid
 
@@ -154,27 +175,47 @@ class StableDiffusion:
         Every random draw (the initial latent, euler_a's per-step noise, the
         re-imposition's noise, in that order) comes from draw_noise(shape)
         when given, else from `generator` (torch's global generator when
-        None). Returns the final latent [B, h, w, 4] f32."""
+        None), for the whole batch. Returns the final latent [B, h, w, 4]
+        f32. On a mesh, B must divide by dp: the rank runs its slice and
+        returns the latent gathered over dp."""
+        with tpc.use(self.tp):
+            return gather_batch(self._sample_latent(
+                context, unconditional_context, unconditional_guidance_scale, n_steps,
+                generator, initial_latent, ctx_valid, uncond_valid, sampler, skip_steps,
+                karras_sigmas, known_latent, known_mask, draw_noise), self.mesh)
+
+    def _sample_latent(self, context, unconditional_context, unconditional_guidance_scale,
+                       n_steps, generator, initial_latent, ctx_valid, uncond_valid, sampler,
+                       skip_steps, karras_sigmas, known_latent, known_mask, draw_noise):
+        """sample_latent on this dp rank's slice of the batch."""
         if sampler not in SAMPLERS:
             raise ValueError(f"unknown sampler {sampler!r} ({'|'.join(SAMPLERS)})")
         if karras_sigmas and sampler == "ddim":
             raise ValueError("karras_sigmas is only defined for the sigma-ladder samplers "
                              "(dpmpp|euler|euler_a|heun), not 'ddim'")
-        cfg, dev = self.config, self.device
+        cfg, dev, mesh = self.config, self.device, self.mesh
         draw_noise = draw_noise or self._draw_from(generator)
-        b = context.shape[0]
+        b_all = context.shape[0]
         if initial_latent is None:
             hw = cfg.latent_size
-            initial_latent = draw_noise((b, hw, hw, cfg.unet.in_channels))
-        lat = torch.as_tensor(initial_latent, dtype=torch.float32).to(dev)
+            initial_latent = draw_noise((b_all, hw, hw, cfg.unet.in_channels))
+        lat = shard_batch(torch.as_tensor(initial_latent, dtype=torch.float32).to(dev), mesh)
+        context, ctx_valid = shard_batch(context, mesh), shard_batch(ctx_valid, mesh)
+        b = context.shape[0]
 
-        def noise_like(x):
-            return torch.as_tensor(draw_noise(tuple(x.shape)), dtype=torch.float32).to(dev)
+        def noise_like(x):  # drawn for the whole batch, then this rank's rows
+            shape = (b_all,) + tuple(x.shape[1:])
+            return shard_batch(torch.as_tensor(draw_noise(shape), dtype=torch.float32).to(dev),
+                               mesh)
+
+        def rows(a):  # this rank's rows of a per-item argument ([B, ...] or [1, ...])
+            return shard_batch(a, mesh) if a is not None and a.shape[0] == b_all > 1 else a
 
         unet, dt = self.params["unet"], self.compute_dtype
         scale = torch.as_tensor(unconditional_guidance_scale, dtype=torch.float32).to(dev)
         if scale.ndim == 1:  # per-item guidance (serving batches)
-            scale = scale[:, None, None, None]
+            scale = rows(scale)[:, None, None, None]
+        unconditional_context, uncond_valid = rows(unconditional_context), rows(uncond_valid)
         uncond_b = unconditional_context.expand((b,) + unconditional_context.shape[1:])
         if self.pad_context:
             ctx2 = torch.cat([uncond_b, context], dim=0)
@@ -196,8 +237,8 @@ class StableDiffusion:
         kind = cfg.prediction_type
         inpaint = known_latent is not None
         if inpaint:
-            z0 = torch.as_tensor(known_latent, dtype=torch.float32).to(dev)
-            mask = torch.as_tensor(known_mask, dtype=torch.float32).to(dev)
+            z0 = rows(torch.as_tensor(known_latent, dtype=torch.float32).to(dev))
+            mask = rows(torch.as_tensor(known_mask, dtype=torch.float32).to(dev))
 
         def reimpose(x, alpha, sigma):
             """The known region q-sampled to (alpha, sigma) of the sampler's
@@ -272,11 +313,15 @@ class StableDiffusion:
 
     def _decode_u8(self, latent):
         """decode(latent / latent_scale) -> (x+1)/2*255 -> round, clamp ->
-        uint8, on the device."""
-        z = (latent * (1.0 / self.config.latent_scale)).to(self.compute_dtype)
-        img = decode_latent(self.params["autoencoder"], z, self.config.vae, self.vae_phases)
+        uint8, on the device (on a mesh: this dp rank's rows, gathered)."""
+        z = (shard_batch(latent, self.mesh) * (1.0 / self.config.latent_scale)).to(
+            self.compute_dtype)
+        with tpc.use(self.tp):
+            img = decode_latent(self.params["autoencoder"], z, self.config.vae,
+                                self.vae_phases)
         img = (img.float() + 1.0) / 2.0 * 255.0
-        return torch.clamp(torch.round(img), 0.0, 255.0).to(torch.uint8)
+        return gather_batch(torch.clamp(torch.round(img), 0.0, 255.0).to(torch.uint8),
+                            self.mesh)
 
     def latent_to_image(self, latent) -> np.ndarray:
         """Returns [B, H, W, 3] uint8 on the host."""
@@ -286,9 +331,11 @@ class StableDiffusion:
         """image: [B, H, W, 3] in [-1, 1] (numpy or a tensor) -> latent
         [B, H/8, W/8, 4] in the compute dtype, on the device; not scaled by
         latent_scale (sdtpu/pipeline.py:431-439)."""
-        x = torch.as_tensor(image, dtype=self.compute_dtype, device=self.device)
-        with torch.no_grad():
-            return encode_image(self.params["autoencoder"], x, self.config.vae)
+        x = shard_batch(torch.as_tensor(image, dtype=self.compute_dtype, device=self.device),
+                        self.mesh)
+        with torch.no_grad(), tpc.use(self.tp):
+            return gather_batch(encode_image(self.params["autoencoder"], x, self.config.vae),
+                                self.mesh)
 
     # ---------------------------------------------------------- top level
 

@@ -14,6 +14,17 @@ they update the parameters and their own state in place where sdtpu
 returns new trees, which saves a copy of each (3.4 GB per f32 copy of SD
 v1's UNet). One departure: Adafactor's weight decay is scaled by the
 learning rate (see Adafactor).
+
+On a parallel.Mesh (make_train_step(..., mesh=)) every rank keeps the whole
+f32 masters and the whole optimizer state; the loss derives this rank's tp
+shards from the masters (parallel/sharding.py:shard_params, through
+scatter_to_tp), so each tp rank gets whole gradients, which are averaged
+over dp by an all-reduce; then every rank runs the same update. The global
+norm, Adafactor's factored statistics and rms(w), the EMA and the saved
+model all see the whole leaves, as in sdtpu. (sdtpu shards the optimizer
+state with the params; the port does not.) The batch a rank is given is
+its dp slice; t and noise are drawn for the whole batch, alike on every
+rank, and sliced.
 """
 
 from __future__ import annotations
@@ -29,6 +40,8 @@ import torch
 from sdtpu_torch.config import StableDiffusionConfig
 from sdtpu_torch.models.unet import unet_apply
 from sdtpu_torch.ops import dispatch
+from sdtpu_torch.parallel import tp as tpc
+from sdtpu_torch.parallel.sharding import shard_batch, shard_params
 
 
 def tree_leaves(tree) -> List[torch.Tensor]:
@@ -366,34 +379,59 @@ def micro_batch_grads(loss_of: Callable, leaves: List[torch.Tensor], batch: int,
 
 def loss_and_grads(params, cfg: StableDiffusionConfig, latents, context, t, noise,
                    ctx_valid=None, compute_dtype=torch.float32, remat=False, accum: int = 1,
-                   accum_dtype=None):
+                   accum_dtype=None, mesh=None):
     """(loss, f32 gradients in tree_leaves order) of diffusion_loss, over
-    `accum` micro-batches (micro_batch_grads)."""
+    `accum` micro-batches (micro_batch_grads). On a mesh: on this rank's tp
+    shards of params, the loss and the gradients averaged over dp
+    (dp_mean)."""
+    tp = tpc.of_mesh(mesh)
+
     def loss_of(sl):
-        return diffusion_loss(params, cfg, latents[sl], context[sl], t[sl], noise[sl],
-                              None if ctx_valid is None else ctx_valid[sl],
-                              compute_dtype=compute_dtype, remat=remat)
+        with tpc.use(tp):
+            return diffusion_loss(shard_params(params, mesh), cfg, latents[sl], context[sl],
+                                  t[sl], noise[sl], None if ctx_valid is None else ctx_valid[sl],
+                                  compute_dtype=compute_dtype, remat=remat)
 
-    return micro_batch_grads(loss_of, tree_leaves(params), latents.shape[0], accum, accum_dtype)
+    return dp_mean(*micro_batch_grads(loss_of, tree_leaves(params), latents.shape[0], accum,
+                                      accum_dtype), mesh)
 
 
-def draw_t_noise(cfg: StableDiffusionConfig, latents, generator=None, t=None, noise=None):
+def dp_mean(loss, grads: List[torch.Tensor], mesh=None):
+    """The loss and the gradients averaged over the mesh's dp ranks, in
+    place (an all-reduce each over the dp group); as they are without a
+    mesh or at dp = 1."""
+    if mesh is None or mesh.dp == 1:
+        return loss, grads
+    import torch.distributed as dist
+
+    for g in [loss, *grads]:
+        dist.all_reduce(g, group=mesh.dp_group)
+        g.div_(mesh.dp)
+    return loss, grads
+
+
+def draw_t_noise(cfg: StableDiffusionConfig, latents, generator=None, t=None, noise=None,
+                 mesh=None):
     """A step's timesteps ([B] int) and noise (latents' shape, f32) on the
     latents' device: drawn from `generator` (the default generator of the
     latents' device when None), t first, unless given (the tests inject
-    sdtpu's draws)."""
+    sdtpu's draws). On a mesh the latents are this dp rank's slice: t and
+    noise are drawn (or given) for the whole batch, dp times the rows, and
+    this rank's rows returned."""
     gdev = latents.device if generator is None else generator.device
+    rows = latents.shape[0] * (1 if mesh is None else mesh.dp)
     if t is None:
-        t = torch.randint(0, cfg.n_train_steps, (latents.shape[0],), generator=generator,
-                          device=gdev)
+        t = torch.randint(0, cfg.n_train_steps, (rows,), generator=generator, device=gdev)
     if noise is None:
-        noise = torch.randn(latents.shape, generator=generator, device=gdev)
-    return t.to(latents.device), noise.to(latents.device, torch.float32)
+        noise = torch.randn((rows,) + tuple(latents.shape[1:]), generator=generator,
+                            device=gdev)
+    return (shard_batch(t.to(latents.device), mesh),
+            shard_batch(noise.to(latents.device, torch.float32), mesh))
 
 
 def make_train_step(cfg: StableDiffusionConfig, optimizer: _Recipe,
                     compute_dtype=torch.float32, remat: bool | str = False, accum: int = 1,
-                    ema_decay: Optional[float] = None, accum_dtype=None):
+                    ema_decay: Optional[float] = None, accum_dtype=None, mesh=None):
     """Returns train_step(params, opt_state, batch, generator=None, *,
     t=None, noise=None) -> (params, opt_state, loss), sdtpu's step_core.
     batch = (latents, context) or (latents, context, ctx_valid). params: a
@@ -408,14 +446,17 @@ def make_train_step(cfg: StableDiffusionConfig, optimizer: _Recipe,
 
     ema_decay set: train_step(params, opt_state, ema_params, batch, ...) ->
     (params, opt_state, ema_params, loss), the EMA updated in place after
-    the optimizer step."""
+    the optimizer step.
+
+    mesh: a parallel.Mesh; the batch is this dp rank's slice, t and noise
+    (given or drawn) the whole batch's (see the module docstring)."""
 
     def step_core(params, opt_state, batch, generator=None, *, t=None, noise=None):
         latents, context = batch[0], batch[1]
         ctx_valid = batch[2] if len(batch) > 2 else None
-        t, noise = draw_t_noise(cfg, latents, generator, t, noise)
+        t, noise = draw_t_noise(cfg, latents, generator, t, noise, mesh)
         loss, grads = loss_and_grads(params, cfg, latents, context, t, noise, ctx_valid,
-                                     compute_dtype, remat, accum, accum_dtype)
+                                     compute_dtype, remat, accum, accum_dtype, mesh)
         optimizer.update(params, grads, opt_state)
         return params, opt_state, loss
 

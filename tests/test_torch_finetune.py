@@ -219,8 +219,10 @@ def test_run_finetune_writes_a_model_sdtpu_reads(tmp_path, tiny_sd):
 
 @pytest.mark.parametrize("option", [{"tp": 2}])
 def test_unported_options_raise(option, tmp_path, tiny_sd):
-    """tp (parallel/) is the one option of sdtpu's not ported."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """tp > 1 needs a torch.distributed world (parallel/; on one, see
+    tests/test_torch_parallel_train.py): outside one it raises, before any
+    cache is built."""
+    with pytest.raises(ValueError, match="initialised torch.distributed world"):
         run_finetune(tiny_sd, SimpleTokenizer(), str(tmp_path), str(tmp_path / "m"),
                      steps=1, batch_size=2, log=lambda s: None, **option)
 

@@ -230,7 +230,9 @@ def test_port_imports_no_jax():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'msgpack')\n"
         "assert not bad, bad\n"
         "for m in ('pipeline', 'cli', 'sample', 'convert', 'finetune', 'io.mpk',\n"
-        "          'io.checkpoint', 'lora', 'textual_inversion', 'training'):\n"
+        "          'io.checkpoint', 'lora', 'textual_inversion', 'training', 'parallel',\n"
+        "          'parallel.mesh', 'parallel.sharding', 'parallel.tp', 'parallel.launch',\n"
+        "          'parallel.layers', 'utils.debug'):\n"
         "    assert 'sdtpu_torch.' + m in sys.modules, m\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
 

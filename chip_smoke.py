@@ -6,7 +6,9 @@ Phases, each printing its lines:
 
 1. device and build: the card's name and power limit (nvidia-smi), then
    the kernels built from sdtpu_torch/csrc with nvcc (one process per
-   source, all at once);
+   source, all at once), and the native runtime (sdtpu_torch/runtime: the
+   BPE fast path, the PNG encoder, the bulk file reader) built with g++; it
+   fails where the runtime does not load;
 2. each kernel against its plain PyTorch version on the card, at the
    shapes SD v1.4's UNet, VAE decoder and VAE encoder give it at 512px and
    at 1024px (the UNet's also at batch 1, the two-pass mode's), and
@@ -18,7 +20,10 @@ Phases, each printing its lines:
    of the 8 heads and K5 on half the inner width, each with and without the
    residual and bias; K4, K6 and K7 on half the output channels of each >=
    256-channel conv; K1 and K9 in training on 4 heads at batch 4; labels
-   ending in "tp2"), in float32 and bfloat16: max error against the stated tolerance, the times of the
+   ending in "tp2"), and, in bfloat16 alone, those of the mesh Batcher of
+   phase 10 at dp = 2 (a batch of 3 padded to 4, two a rank: the UNet at
+   batch 4, the decoder at batch 2),
+   in float32 and bfloat16: max error against the stated tolerance, the times of the
    kernel, of its plain version and, where one PyTorch call computes the
    same function, of that call (CUDA events), and the least time the card
    could take for the same work (its bound). Every kernel is also timed in
@@ -26,7 +31,8 @@ Phases, each printing its lines:
    20 wrapper calls captured in a CUDA graph, the replay timed; a timing of
    a slow call takes fewer, about BUDGET_MS of calls and at least 3), and K5, K9,
    K2, K6, K1, K4, K10, K7 and K3 their Hopper kernels against the kernels
-   they replaced, in turns (old, new, new, old). Planted faults must fail
+   they replaced, in turns (old, new, new, old; the kernel's device time
+   the mean of its two turns). Planted faults must fail
    each kernel's tolerance at every case: for K6 the convolution without
    the border mask (the prologue applied to the zero-padded map) and, with a
    second input, the convolution without it; for K4 the product without its
@@ -78,11 +84,16 @@ Phases, each printing its lines:
    (phase 4's weights: init_params, seed 0, f32) in a temporary directory:
    the weights written once as native, `python -m sdtpu_torch.convert
    --to-dump` and back and `--to-mpk` and `--mpk` back, every leaf
-   bit-equal, each file's size and each write's and read's seconds printed;
+   bit-equal, each file's size and each write's and read's seconds printed
+   (the dump tree read in process file by file, through the native bulk
+   reader twice, and file by file again);
    `python -m sdtpu_torch.sample dump|native ... --seed 0 --bf16` on the
    card (the device argument omitted), each PNG byte-equal to an
    in-process generate in bf16 with the same generator, each run's load
-   and sampling seconds and launches read from its SDTPU_PROFILE=1 report;
+   and sampling seconds and launches read from its SDTPU_PROFILE=1 report
+   (the dump's load through the bulk reader, and nothing else), its peak
+   resident memory; the native tokenizer's ids equal to the Python path's,
+   the native PNG encoder's bytes to encode_png_rgb8's;
    then the two-pass generate (pad_context=False), its launches those of
    two UNet calls a step at batch 1 (on their Hopper routes), its image
    within TWOPASS_MEAN_TOL gray levels (mean) of the batched mode's, a
@@ -121,9 +132,19 @@ Phases, each printing its lines:
    prompts (each image against the single process's batch-1 run of its
    slice, PAR_DP_IMAGE_MAX, and its batch-2 image, PAR_TP_IMAGE_MEAN); one
    AdamW step at batch 4 (remat "full"), in f32 and in bf16 compute, at dp
-   = 2 and at tp = 2, its gradients against the single step's in the same
-   dtype leaf by leaf (PAR_GRAD_REL; the dp gradients summed, not
-   averaged, must fail it), the updated params printed as a record. Each
+   = 2 and at tp = 2 (at tp the masters and the optimizer state as tp
+   parts), its gradients against the single step's in the same dtype leaf
+   by leaf (PAR_GRAD_REL; the dp gradients summed, not averaged, must fail
+   it), its AdamW moments gathered likewise and over the whole tree
+   (PAR_MOMENT_REL, PAR_MOMENT_TREE; the clip's norm summed over tp for
+   every leaf, planted in the f32 and the bf16 tp step, must fail both),
+   each rank's peak memory over the step beside the single whole-state
+   step's, the updated params printed as a record. With K10's gate open, serve.Batcher on the
+   mesh: at dp = 2 three requests at once (padded to 4), a lone one
+   (padded to 2) and an adapter's, against the single-process Batcher's
+   images (PAR_TP_IMAGE_MEAN, PAR_DP_IMAGE_MAX); at tp = 2 two requests of
+   PAR_TP_SERVE_STEPS steps (PAR_TP_IMAGE_MEAN). Then dryrun_multichip(4)
+   on four gloo ranks of cuda:0 at SD_TINY, its summary line printed. Each
    rank's launches per run must be exactly the dispatch's at the local
    shapes (K1 and K9 on 4 local heads at tp = 2), on their Hopper routes
    (the f32 steps' K1 and K9 on their float32 route), with the residual on
@@ -136,7 +157,8 @@ exits nonzero before that line; there is no CPU fallback. In the JSON
 line `launches` is the sum of the main paths' runs (both generate runs,
 the CLI phase's two sample processes and two in-process generates, the
 fine-tuning run with its cache build, the serve phase, phase 8's four
-`finetune` processes, phase 9's runs, and phase 10's on each rank), and
+`finetune` processes, phase 9's runs, and phase 10's on each rank, the
+dry run's among them), and
 `ms`, `plain_ms`,
 `bound_ms` and `library_ms` are for those launches: each wrapper counts
 its launches per shape as well, and each shape's bfloat16 time (or bound)
@@ -176,7 +198,10 @@ from typing import Callable, NamedTuple, Optional
 
 SEED = 0
 WARMUP, ITERS = 3, 20
-BUDGET_MS = 50  # the calls a phase-2 timing spends on a slow kernel
+# the calls a phase-2 timing spends on a slow kernel: 100 ms at first,
+# then 50, 25 and 15, each cut when the whole script passed 950 s of phases
+# on a slow host (1004.0 s, then 951.8 s, on an H100 at 700 W)
+BUDGET_MS = 15
 PEAK_TENSOR = 989e12  # dense bf16 FLOP/s
 PEAK_F32 = 67e12      # f32 FLOP/s outside the tensor cores
 PEAK_TF32 = 495e12    # dense TF32 FLOP/s: the float32 routes' products
@@ -345,26 +370,33 @@ def kernel_cases(dtype, dev):
         return fused_groupnorm._channel_partials(x, "partials")
 
     cases = []
+    # the mesh Batcher's per-rank shapes in phase 10 (dp = 2, a batch of 3
+    # padded to 4: the UNet at batch 4, the decoder at 2), bf16 alone: the
+    # path runs them in bf16 only
+    mesh = dtype == torch.bfloat16
     # K3: the UNet's ResBlock inputs and skips (1024px) and its transformers'
     # entry GroupNorm at 64x64 (512px: C=320, 1024px: C=640; the two-pass
     # mode's UNet at B=1, the serve phase's batch of 4 at B=8); the
     # decoder's (the serve phase's at B=4)
-    for label, shape in (("64x64x320 B=2", (2, 64, 64, 320)),
-                         ("64x64x320 B=1", (1, 64, 64, 320)),
-                         ("64x64x320 B=8", (8, 64, 64, 320)),
-                         ("vae 64x64x512 B=4", (4, 64, 64, 512)),
-                         ("vae 128x128x512 B=4", (4, 128, 128, 512)),
-                         ("64x64x640 B=2", (2, 64, 64, 640)),
-                         ("128x128x320 B=2", (2, 128, 128, 320)),
-                         ("128x128x640 B=2", (2, 128, 128, 640)),
-                         ("vae 64x64x512", (1, 64, 64, 512)),
-                         ("vae 128x128x512", (1, 128, 128, 512)),
-                         # SD v2.1 at 768px: the transformers at 96², the
-                         # decoder's mid blocks and its block after the
-                         # plain 96² upsampler
-                         ("96x96x320 B=2 v2.1", (2, 96, 96, 320)),
-                         ("vae 96x96x512 v2.1", (1, 96, 96, 512)),
-                         ("vae 192x192x512 v2.1", (1, 192, 192, 512))):
+    for label, shape in ((("64x64x320 B=2", (2, 64, 64, 320)),
+                          ("64x64x320 B=1", (1, 64, 64, 320)),
+                          ("64x64x320 B=8", (8, 64, 64, 320)),
+                          ("vae 64x64x512 B=4", (4, 64, 64, 512)),
+                          ("vae 128x128x512 B=4", (4, 128, 128, 512)),
+                          ("64x64x640 B=2", (2, 64, 64, 640)),
+                          ("128x128x320 B=2", (2, 128, 128, 320)),
+                          ("128x128x640 B=2", (2, 128, 128, 640)),
+                          ("vae 64x64x512", (1, 64, 64, 512)),
+                          ("vae 128x128x512", (1, 128, 128, 512)),
+                          # SD v2.1 at 768px: the transformers at 96², the
+                          # decoder's mid blocks and its block after the
+                          # plain 96² upsampler
+                          ("96x96x320 B=2 v2.1", (2, 96, 96, 320)),
+                          ("vae 96x96x512 v2.1", (1, 96, 96, 512)),
+                          ("vae 192x192x512 v2.1", (1, 192, 192, 512)))
+                         + ((("64x64x320 B=4", (4, 64, 64, 320)),
+                             ("vae 64x64x512 B=2", (2, 64, 64, 512)),
+                             ("vae 128x128x512 B=2", (2, 128, 128, 512))) if mesh else ())):
         x = rnd(*shape)
         cases.append(Case("channel_partials", label, fused_groupnorm.channel_partials,
                           fused_groupnorm.channel_partials_plain, (x,), {}, 3 * x.numel(),
@@ -378,7 +410,8 @@ def kernel_cases(dtype, dev):
         return fused_conv._conv1x1(x, w, cb, ps, pb, residual, silu, emit_stats, "wmma")
 
     for b, rows, c in ((2, 4096, 320), (2, 16384, 320), (2, 4096, 640), (8, 4096, 320),
-                       (1, 4096, 320), (2, 9216, 320)):  # the last, SD v2.1's 96²
+                       (1, 4096, 320), (2, 9216, 320)  # the last, SD v2.1's 96²
+                       ) + (((4, 4096, 320),) if mesh else ()):
         xr = rnd(b, rows, c)
         scale, bias = fused_conv.stats_scale_bias(
             fused_groupnorm.channel_partials_plain(xr), rows, rnd(c, scale=0.1) + 1.0,
@@ -406,7 +439,8 @@ def kernel_cases(dtype, dev):
     for b, s, c, nh in ([(b, s, c, 8) for b, s, c in (
             (2, 4096, 320), (2, 1024, 640), (2, 256, 1280), (2, 16384, 320), (2, 4096, 640),
             (2, 1024, 1280), (1, 4096, 320), (1, 1024, 640), (1, 256, 1280), (8, 4096, 320),
-            (8, 1024, 640), (8, 256, 1280))] + [(2, 9216, 320, 5), (2, 2304, 640, 10)]):
+            (8, 1024, 640), (8, 256, 1280))] + [(2, 9216, 320, 5), (2, 2304, 640, 10)]
+            + ([(4, 4096, 320, 8), (4, 1024, 640, 8), (4, 256, 1280, 8)] if mesh else [])):
         x = rnd(b, s, c)
         args = (x, rnd(c, scale=0.1) + 1.0, rnd(c, scale=0.1),
                 rnd(c, 3 * c, scale=c ** -0.5), rnd(c, c, scale=c ** -0.5),
@@ -431,7 +465,7 @@ def kernel_cases(dtype, dev):
     # launches them)
     for b, s, c in ((2, 1024, 640), (2, 256, 1280), (2, 1024, 1280), (1, 1024, 640),
                     (1, 256, 1280), (8, 1024, 640), (8, 256, 1280), (1, 1000, 640),
-                    (3, 333, 1280)):
+                    (3, 333, 1280)) + (((4, 1024, 640), (4, 256, 1280)) if mesh else ()):
         x = rnd(b, s, c)
         args = (x, rnd(c, scale=0.1) + 1.0, rnd(c, scale=0.1),
                 rnd(c, 8 * c, scale=c ** -0.5), rnd(8 * c, scale=0.1),
@@ -617,7 +651,7 @@ def kernel_cases(dtype, dev):
     # the decoder at 512px and 1024px (B=1), the serve phase's batch of 4,
     # and SD v2.1's at 768px (a 96² latent)
     seen = set()
-    for b, lat in ((1, 64), (1, 128), (4, 64), (1, 96)):
+    for b, lat in ((1, 64), (1, 128), (4, 64), (1, 96)) + (((2, 64),) if mesh else ()):
         for conv_shape in decoder_convs(lat):
             if (b, conv_shape) in seen:
                 continue
@@ -654,9 +688,10 @@ def kernel_cases(dtype, dev):
         """K7 on the WMMA kernel its bf16 Hopper kernel replaced."""
         return fused_conv._upsample2x(x, w, cb, emit_stats, "wmma", phases)
 
-    for b, hw, c, co in ((1, 128, 512, 512), (1, 256, 256, 256), (1, 256, 512, 512),
-                         (1, 512, 256, 256), (4, 128, 512, 512), (4, 256, 256, 256),
-                         (1, 192, 512, 512), (1, 384, 256, 256)):
+    for b, hw, c, co in (((1, 128, 512, 512), (1, 256, 256, 256), (1, 256, 512, 512),
+                          (1, 512, 256, 256), (4, 128, 512, 512), (4, 256, 256, 256),
+                          (1, 192, 512, 512), (1, 384, 256, 256))
+                         + (((2, 128, 512, 512), (2, 256, 256, 256)) if mesh else ())):
         args = (rnd(b, hw, hw, c), rnd(3, 3, c, co, scale=(9 * c) ** -0.5), rnd(co, scale=0.1))
         # cuDNN's convolution alone over the already upsampled map, and the
         # path with the fused gate closed (ops/conv.py: four phase convs)
@@ -831,7 +866,7 @@ def kernel_cases(dtype, dev):
                       (q, k, v, do, o, lse), {"n_head": 4}, 5 * 2 * 16 * 4096 * 4096 * 40,
                       library=sdpa_fwd_bwd4, library_minus=sdpa_fwd4, old=bwd_wmma4))
 
-    for b, hw in ((1, 512), (1, 1024), (4, 512), (1, 768)):
+    for b, hw in ((1, 512), (1, 1024), (4, 512), (1, 768)) + (((2, 512),) if mesh else ()):
         x = rnd(b, hw, hw, 128)
         args = (x, rnd(128, scale=0.1) + 1.0, rnd(128, scale=0.1), 32, 1e-6)
         cases.append(Case("group_norm_silu",
@@ -1225,6 +1260,13 @@ def _check_k2(c, got, want, dname, failed):
     return err, ok, a, r
 
 
+def f32_launched(c: "Case") -> bool:
+    """The shapes the main paths launch in float32, which phase 2 times in
+    float32 as well: phase 8's VAE encoder (K3 and K6, the model loaded in
+    f32) and phase 10's f32 training steps (K1 and K9)."""
+    return c.name.startswith("flash_attention") or c.shape.startswith("encoder")
+
+
 def phase_kernels(dev) -> tuple[dict, dict]:
     """Phase 2. Returns ({kernel: max abs error over both dtypes}, {(kernel,
     shape key): {label, ms, plain_ms, library_ms, bound_ms, ops_ms, bytes_ms,
@@ -1291,6 +1333,16 @@ def phase_kernels(dev) -> tuple[dict, dict]:
                     if any(passes.values()):
                         failed.append(f"{c.name} {dname} {c.shape} tolerance too loose")
             del got, want
+            if not (dtype == torch.bfloat16 or f32_launched(c)):
+                # checked (with its planted faults) and not timed: no path
+                # launches this shape in float32
+                print(f"kernel {c.name:21s} {dname:8s} {c.shape:30s} max_abs_err {err:.3e} "
+                      f"(tol {a:.3g} + {r:.3g}|ref|) {'ok' if ok else 'FAILED'}  (not timed: "
+                      f"no main path launches it in float32)  [{key}]", flush=True)
+                if not ok:
+                    failed.append(f"{c.name} {dname} {c.shape}")
+                max_err[c.name] = max(max_err.get(c.name, 0.0), err)
+                continue
             ms = cuda_ms(lambda: c.fn(*c.args, **c.kw))
             plain_ms = cuda_ms(lambda: c.plain(*c.args, **c.kw))
             lib_ms = None if c.library is None else cuda_ms(lambda: c.library(*c.args, **c.kw))
@@ -1300,25 +1352,27 @@ def phase_kernels(dev) -> tuple[dict, dict]:
             for label, fn in c.yardsticks:
                 lib += (f"  {label} {cuda_ms(lambda: fn(*c.args, **c.kw)):.4f} ms (device "
                         f"{dev_time(lambda: fn(*c.args, **c.kw)):.4f})")
-            dev_ms = old_ms = None
-            if c.old is not None or dtype == torch.bfloat16:
+            dev_ms = old_ms = turns = None
+            if c.old is not None and dtype == torch.bfloat16:
+                # the Hopper kernel against the kernel it replaced, by
+                # device time, in turns; its own device time is the mean of
+                # its two turns
+                new = lambda: c.fn(*c.args, **c.kw)  # noqa: E731
+                old = lambda: c.old(*c.args, **c.kw)  # noqa: E731
+                turns = [dev_time(f) for f in (old, new, new, old)]
+                old_ms, dev_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+            elif c.old is not None or dtype == torch.bfloat16:
                 dev_ms = dev_time(lambda: c.fn(*c.args, **c.kw))
+            if dev_ms is not None:
                 lib += f"  device {dev_ms:.4f} ms"
             print(f"kernel {c.name:21s} {dname:8s} {c.shape:30s} max_abs_err {err:.3e} "
                   f"(tol {a:.3g} + {r:.3g}|ref|) {'ok' if ok else 'FAILED'}  "
                   f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms{lib}  bound {bound_ms:.4f} ms "
                   f"({bound_by})  [{key}]", flush=True)
-            if c.old is not None and dtype == torch.bfloat16:
-                # the Hopper kernel against the kernel it replaced, by
-                # device time, in turns
-                new = lambda: c.fn(*c.args, **c.kw)  # noqa: E731
-                old = lambda: c.old(*c.args, **c.kw)  # noqa: E731
-                turns = [dev_time(f) for f in (old, new, new, old)]
-                old_ms = (turns[0] + turns[3]) / 2
+            if turns is not None:
                 print(f"kernel {c.name:21s} {dname:8s} {c.shape:30s} device ms old/new/new/old "
                       f"{' / '.join(f'{t:.4f}' for t in turns)}: new {dev_ms:.4f} against old "
-                      f"{old_ms:.4f} ({old_ms / ((turns[1] + turns[2]) / 2):.2f}x), bound "
-                      f"{bound_ms:.4f}", flush=True)
+                      f"{old_ms:.4f} ({old_ms / dev_ms:.2f}x), bound {bound_ms:.4f}", flush=True)
             if not ok:
                 failed.append(f"{c.name} {dname} {c.shape}")
             max_err[c.name] = max(max_err.get(c.name, 0.0), err)
@@ -2792,7 +2846,9 @@ def phase_cli(dev, tf32_defaults) -> tuple[dict, dict]:
     from sdtpu_torch.models.unet import unet_apply
     from sdtpu_torch.pipeline import StableDiffusion
     from sdtpu_torch.profile_kernels import device_ms
+    from sdtpu_torch import runtime
     from sdtpu_torch.tokenizer import SimpleTokenizer
+    from sdtpu_torch.utils import profiling
     from sdtpu_torch.utils.image import encode_png_rgb8
 
     t_phase = time.perf_counter()
@@ -2868,13 +2924,17 @@ def phase_cli(dev, tf32_defaults) -> tuple[dict, dict]:
             kern = report["kernels"]
             run_launches = {n: kern.get(n, {}).get("launches", 0) for n in KERNEL_INFO}
             run_shapes = {n: kern.get(n, {}).get("shapes", {}) for n in KERNEL_INFO}
+            bulk = report["counts"].get("bulk_read", 0)
             print(f"cli sample {fmt} (device {report['device']}): load_model {ph['load_model']:.2f}"
-                  f" s, sampling {report['sampling_s']:.2f} s (encode_prompt "
+                  + (f" s (the bulk read {ph['bulk_read']:.2f} s of it)" if bulk else " s")
+                  + f", sampling {report['sampling_s']:.2f} s (encode_prompt "
                   f"{ph['encode_prompt']:.3f}, denoise {ph['denoise']:.3f}, decode "
                   f"{ph['decode']:.3f}), process wall {wall:.2f} s, peak resident {_gib(rss)}; "
                   f"launches {fired(run_launches)} | {card_line()}", flush=True)
             if report["device"] != "cuda:0":
                 bad.append(f"sample {fmt} ran on {report['device']}")
+            if bulk != (fmt == "dump"):
+                bad.append(f"sample {fmt} read {bulk} trees through the native bulk reader")
             if run_launches != EXPECTED_LAUNCHES[512]:
                 bad.append(f"sample {fmt} launched {run_launches}")
             check_routes(f"cli sample {fmt}", run_shapes, {})
@@ -2887,12 +2947,27 @@ def phase_cli(dev, tf32_defaults) -> tuple[dict, dict]:
         dump = os.path.join(tmp, "dump")
         convert("convert --to-dump", "--to-dump", native, dump)
         n_files = sum(len(fs) for _, _, fs in os.walk(dump))
-        t0 = time.perf_counter()
-        tree = load_stable_diffusion_dump(dump, cfg)
-        read_s = time.perf_counter() - t0
-        del tree
+
+        def read_dump(bulk):
+            """Seconds of one in-process read of the dump tree, through the
+            native bulk reader or file by file (np.load)."""
+            before = profiling.REGISTRY.counts.get("bulk_read", 0)
+            t0 = time.perf_counter()
+            tree = load_stable_diffusion_dump(dump, cfg, bulk=bulk)
+            seconds = time.perf_counter() - t0
+            del tree
+            if profiling.REGISTRY.counts.get("bulk_read", 0) - before != bulk:
+                bad.append(f"the in-process dump read (bulk={bulk}) took the other path")
+            return seconds
+
+        # file by file, bulk, bulk, file by file: each way once early, once late
+        order = (False, True, True, False)
+        turns = [(bulk, read_dump(bulk)) for bulk in order]
         print(f"cli dump tree: {n_files} files, {_tree_bytes(dump) / gb:.3f} GB; read "
-              f"(load_stable_diffusion_dump, in process) {read_s:.2f} s", flush=True)
+              f"(load_stable_diffusion_dump, in process) in the order file by file, bulk, "
+              f"bulk, file by file: "
+              + ", ".join(f"{'bulk' if b else 'file by file'} {t:.2f} s" for b, t in turns)
+              + f" | {card_line()}", flush=True)
         round_trip("convert dump -> native", [dump])
         sample("dump", dump)
         shutil.rmtree(dump)
@@ -2916,6 +2991,16 @@ def phase_cli(dev, tf32_defaults) -> tuple[dict, dict]:
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32_defaults
     try:
         tok = SimpleTokenizer()
+        # the native tokenizer's ids against the Python path's
+        prompts = (CLI_PROMPT, SERVE_PROMPT, *PAR_PROMPTS, "", "a photo of a cat, 4k!! <sks>")
+        py = SimpleTokenizer(use_native=False)
+        same_ids = tok._native is not None and all(
+            tok._native.encode(p) == py.encode(p) == tok.encode(p) for p in prompts)
+        print(f"cli native tokenizer: ids equal to the Python path's on {len(prompts)} prompts: "
+              f"{same_ids}", flush=True)
+        if not same_ids:
+            bad.append("the native tokenizer's ids differ from the Python path's (or it is "
+                       "not in use)")
         # the f32 pipeline under a fresh process's TF32 switches against the
         # same generate with both off (a record, not a check: ROADMAP queue 3)
         sd32 = StableDiffusion(params, cfg)
@@ -2959,6 +3044,11 @@ def phase_cli(dev, tf32_defaults) -> tuple[dict, dict]:
 
         padded = generate(sd, "generate (batched CFG, in process)", EXPECTED_LAUNCHES[512])
         png = encode_png_rgb8(padded[0])
+        native_png = runtime.png_encode_rgb8(padded[0])
+        print(f"cli native PNG encoder: byte-equal to encode_png_rgb8's: {native_png == png}",
+              flush=True)
+        if native_png != png:
+            bad.append("the native PNG encoder's bytes differ from encode_png_rgb8's")
         same = {fmt: data == png for fmt, data in pngs.items()}
         print(f"cli sample dump / native PNGs byte-equal to the in-process generate: {same}",
               flush=True)
@@ -3055,6 +3145,29 @@ PAR_GRAD_REL = {"float32": 2e-4, "bfloat16": 0.2}
 PAR_TRAIN_REL = 1e-3  # the updated params' record: elements past it are counted
 PAR_TIMEOUT = 600  # seconds (phase 10 takes about 80 on an H100): a hung rank fails it
 PAR_PROMPTS = ("An ancient mossy stone.", "A lighthouse at dusk.")
+# the mesh Batcher (K10's gate open, as the serve phase runs): at dp = 2
+# three requests at once (a batch of 3, padded to 4: 2 a rank), a lone one
+# (padded to 2), an adapter's; at tp = 2 two lone requests at fewer steps
+# (each tp step costs about 0.5 s under gloo). (prompt, steps, scale, seed,
+# n_images, negative, sampler, karras, lora)
+PAR_SERVE = (("An ancient mossy stone.", 20, 7.5, 11, 1, "", "ddim", False, None),
+             ("A lighthouse at dusk.", 20, 5.0, 12, 1, "blurry", "ddim", False, None),
+             ("A red fox in the snow.", 20, 7.5, 13, 1, "", "ddim", False, None))
+PAR_LONE = ("An old map of the coast.", 20, 7.5, 14, 1, "", "ddim", False, None)
+# the adapter's request is PAR_SERVE[0]'s with the adapter: its image
+# against that batch's first shows the adapter at work
+PAR_LORA = (*PAR_SERVE[0][:-1], "style")
+# 5 steps gave 0.96-0.98 gray levels in the mean, too near the bound, 12
+# gave 0.72-0.73 (NVIDIA H100 80GB HBM3, 700 W); 10 divides 1000, so DDIM
+# takes 10 UNet calls
+PAR_TP_SERVE_STEPS = 10
+PAR_TP_SERVE = tuple(("A lighthouse at dusk.", PAR_TP_SERVE_STEPS, 7.5, seed, 1, "", "ddim",
+                      False, None) for seed in (16, 17))
+PAR_WINDOW_MS = 500.0  # the three submits arrive well inside it
+# the clip of the training steps: far under a step's global norm (printed),
+# so that it acts, and a fault in the norm shows in the moments
+PAR_CLIP = 1e-3
+DRYRUN_RANKS = 4  # dryrun_multichip's world: dp = 2, tp = 2
 # per rank, one UNet call at batch 2 with K10's gate open: K2 and K10 in the
 # 15 transformers above 8², K5 in the 10 below 2048 tokens, K4 twice and K3
 # once in the 5 at 64², every kernel on the local heads / channels
@@ -3063,6 +3176,31 @@ PAR_UNET_LAUNCHES = {"fused_self_attention": 15, "fused_cross_attention_kv": 15,
 # per rank, one training step with remat "full" (f32 or bf16 compute): the 5
 # transformers at 64² run K1 forward twice (the recompute) and K9 once
 PAR_TRAIN_LAUNCHES = {"flash_attention_heads": 10, "flash_attention_bwd_heads": 5}
+# the AdamW moments of those steps, gathered, against the single step's,
+# leaf by leaf as the gradients: mu is the clipped gradient times 0.1 and nu
+# its square times 0.001, so nu is off by up to twice the gradients' share.
+# The clip's planted fault scales every leaf alike (mu 0.146, nu 0.271 at
+# the step's global norm), which the bf16 noise of the worst leaf hides in
+# part: on an H100 (700 W) bf16 read mu 0.071, nu 0.148 sound, 0.184 /
+# 0.333 with the fault, so its leaf bound sits between; over the whole tree
+# (2-norms) the sound steps read f32 1.8e-6, bf16 4.7e-3 at most, the fault
+# 0.146 / 0.271 in both
+PAR_MOMENT_REL = {"float32": 2e-4, "bfloat16": 0.25}
+PAR_MOMENT_TREE = {"float32": 1e-4, "bfloat16": 0.03}
+
+
+def par_serve_launches(steps: int, batches: int = 1) -> dict:
+    """A rank's launches over `batches` batches of the mesh Batcher at
+    `steps` DDIM steps with K10's gate open: PAR_UNET_LAUNCHES a UNet call
+    (one call a timestep of DDIM's schedule), and the decode's (K6 28, K7 2,
+    K8 1, K3 3), at any batch."""
+    from sdtpu_torch.diffusion.ddim import ddim_schedule
+
+    calls = len(ddim_schedule(1000, steps)[0])
+    decode = {"conv3x3_fused": 28, "upsample2x_conv_fused": 2, "group_norm_silu": 1,
+              "channel_partials": 3}
+    return {n: batches * (calls * PAR_UNET_LAUNCHES.get(n, 0) + decode.get(n, 0))
+            for n in KERNEL_INFO}
 
 
 def _par_diff(a, b) -> tuple[float, float]:
@@ -3075,7 +3213,9 @@ def _parallel_rank() -> dict:
     new process inside the world). Rank 0 also runs the single-process
     references (rank 1 waits at a barrier). Returns this rank's launches per
     run and, on rank 0, the comparisons."""
+    import contextlib
     import os
+    import threading
 
     import torch
     import torch.distributed as dist
@@ -3088,7 +3228,10 @@ def _parallel_rank() -> dict:
     from sdtpu_torch.parallel import tp as tpc
     from sdtpu_torch.pipeline import StableDiffusion
     from sdtpu_torch.tokenizer import SimpleTokenizer
-    from sdtpu_torch.training import make_optimizer, make_train_step, master_params, tree_leaves
+    from sdtpu_torch import serve, training
+    from sdtpu_torch.parallel.sharding import gather_part
+    from sdtpu_torch.training import (global_norm, make_optimizer, make_train_step,
+                                      master_params, tp_layout, tree_leaves, whole_tree)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3097,7 +3240,7 @@ def _parallel_rank() -> dict:
     rank = dist.get_rank()
     cfg = SD_V1_4
     bf16 = torch.bfloat16
-    out = {"rank": rank, "device": str(dev), "runs": {}, "metrics": {}}
+    out = {"rank": rank, "device": str(dev), "runs": {}, "metrics": {}, "batches": {}}
     t_rank = time.perf_counter()
 
     def say(msg):
@@ -3124,6 +3267,73 @@ def _parallel_rank() -> dict:
     # ---- tp = 2: one UNet call (K10's gate open), then a 20-step generate
     sdt = StableDiffusion(params, cfg, compute_dtype=bf16, mesh=mesh_tp)
     sd1 = StableDiffusion(params, cfg, compute_dtype=bf16) if rank == 0 else None
+    loras = {"style": (random_lora(params["unet"], 4, gen(SEED + 5)), 1.0)}
+
+    @contextlib.contextmanager
+    def xattn_open():
+        """K10's gate open (SDTPU_FUSED_XATTN=1), as the serve phase runs."""
+        before = os.environ.get("SDTPU_FUSED_XATTN")
+        os.environ["SDTPU_FUSED_XATTN"] = "1"
+        try:
+            yield
+        finally:
+            if before is None:
+                os.environ.pop("SDTPU_FUSED_XATTN")
+            else:
+                os.environ["SDTPU_FUSED_XATTN"] = before
+
+    def submit_all(batcher, requests, together):
+        """The images of `requests`, submitted at once (a thread each) or
+        one after another."""
+        if not together:
+            return [batcher.submit(*r) for r in requests]
+        got = [None] * len(requests)
+
+        def one(i):
+            got[i] = batcher.submit(*requests[i])
+
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(len(requests))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(PAR_TIMEOUT)
+        if any(x is None for x in got):
+            raise RuntimeError(f"a request of {requests} got no images")
+        return got
+
+    def serve_run(label, sd, requests, together=False):
+        """serve.Batcher over sd's mesh on every rank; rank 0 submits
+        `requests` and closes it, the other rank follows. Records this
+        rank's launches; returns rank 0's images (None elsewhere)."""
+        read_and_zero()
+        batcher = serve.Batcher(sd, tok, max_batch=4, window_ms=PAR_WINDOW_MS,
+                                timeout_s=PAR_TIMEOUT, loras=loras)
+        t0 = time.perf_counter()
+        imgs = None
+        try:
+            if rank == 0:
+                imgs = submit_all(batcher, requests, together)
+        finally:
+            batcher.close(timeout=PAR_TIMEOUT)
+        if batcher.thread.is_alive():
+            raise RuntimeError(f"{label}: the Batcher's thread did not stop")
+        say(f"{label}: {time.perf_counter() - t0:.2f} s, padded batches "
+            f"{dict(batcher.batch_sizes)}")
+        record(label)
+        out["batches"][label] = dict(batcher.batch_sizes)
+        return imgs
+
+    def serve_ref(requests, together=False):
+        """Rank 0: the single-process Batcher's images of the same requests."""
+        batcher = serve.Batcher(sd1, tok, max_batch=4, window_ms=PAR_WINDOW_MS,
+                                timeout_s=PAR_TIMEOUT, loras=loras)
+        try:
+            return submit_all(batcher, requests, together)
+        finally:
+            batcher.close()
+
+    def image_diffs(got, want):
+        return [_par_diff(torch.from_numpy(a), torch.from_numpy(b)) for a, b in zip(got, want)]
     ctx, valid = sdt.context(tok, PAR_PROMPTS[0])
     unctx, unvalid = sdt.context(tok, "")
     ctx2, valid2 = torch.cat([unctx, ctx]), torch.cat([unvalid, valid])
@@ -3192,6 +3402,17 @@ def _parallel_rank() -> dict:
         out["metrics"]["tp image shape"] = tuple(img_tp.shape)
     read_and_zero()
     dist.barrier()
+
+    # ---- the mesh Batcher at tp = 2: two lone requests, one after the other
+    with xattn_open():
+        t0 = time.perf_counter()
+        imgs = serve_run("tp serve", sdt, PAR_TP_SERVE)
+        dist.barrier()
+        if rank == 0:
+            out["metrics"]["tp serve"] = image_diffs(imgs, serve_ref(PAR_TP_SERVE))
+        read_and_zero()
+        dist.barrier()
+    say(f"tp serve with its reference {time.perf_counter() - t0:.2f} s")
     del sdt
 
     # ---- dp = 2: a batch-2 generate of two prompts
@@ -3226,37 +3447,79 @@ def _parallel_rank() -> dict:
         out["metrics"]["dp image shape"] = tuple(img_dp.shape)
     read_and_zero()
     dist.barrier()
+
+    # ---- the mesh Batcher at dp = 2: three requests at once (padded to 4),
+    # a lone one (padded to dp), an adapter's
+    with xattn_open():
+        t0 = time.perf_counter()
+        runs = {"batch": (PAR_SERVE, True), "lone": ((PAR_LONE,), False),
+                "lora": ((PAR_LORA,), False)}
+        imgs = {k: serve_run(f"dp serve {k}", sdd, reqs, together)
+                for k, (reqs, together) in runs.items()}
+        dist.barrier()
+        if rank == 0:
+            for k, (reqs, together) in runs.items():
+                out["metrics"][f"dp serve {k}"] = image_diffs(imgs[k], serve_ref(reqs, together))
+            # the adapter moved the image: the same prompt and seed without it
+            out["metrics"]["dp serve lora moved"] = image_diffs(imgs["lora"],
+                                                                imgs["batch"][:1])
+        read_and_zero()
+        dist.barrier()
+    say(f"dp serve with its references {time.perf_counter() - t0:.2f} s")
     del sdd, sd1
 
     # ---- training: one AdamW step at batch 4 (remat "full"), in f32 and in
-    # bf16 compute, at dp = 2 and at tp = 2, each against the single
-    # process's step in the same dtype
+    # bf16 compute, at dp = 2 and at tp = 2 (the masters and the state as
+    # tp parts), each against the single process's step in the same dtype
     g = gen(SEED + 3)
     latents = torch.randn((4, hw, hw, 4), generator=g, device=dev)
     context = torch.randn((4, 77, cfg.unet.context_dim), generator=g, device=dev)
     tvalid = torch.arange(77, device=dev)[None] < torch.tensor([5, 9, 77, 2], device=dev)[:, None]
     base = params["unet"]
 
-    def train_step(mesh, dtype, on_grads=None):
-        """(updated params, loss) of one step; on_grads(g) sees the
-        gradients the optimizer is given (dp-averaged), before its clip
-        changes them in place."""
-        opt = make_optimizer(lr=1e-5, warmup_steps=0, total_steps=1)
-        if on_grads is not None:
-            update = opt.update
+    def train_step(mesh, dtype, on_grads=None, keep_grads=False):
+        """One step on the masters as `mesh` lays them out (this rank's tp
+        parts at tp = 2, whole otherwise): (the updated params gathered
+        whole on rank 0, else None; the loss; the optimizer state; its
+        layout; with keep_grads, the gradients the optimizer was given,
+        this rank's parts (else []); {"before": the memory allocated before
+        the masters were made,
+        "step": the step's peak}). on_grads(g) sees the whole gradients
+        (gathered over tp) before the clip changes them; what it and the
+        copy of the gradients allocate is left out of the peak: the peak
+        through the backward, or the memory held when the update began
+        plus the update's own peak over it, whichever is larger."""
+        opt = make_optimizer(lr=1e-5, warmup_steps=0, total_steps=1, grad_clip=PAR_CLIP)
+        mem, given, update = {}, [], opt.update
 
-            def keep(p, g, st):
-                on_grads(g)
-                return update(p, g, st)
+        def keep(p, g, st):
+            torch.cuda.synchronize()
+            through_backward, at_update = (torch.cuda.max_memory_allocated(),
+                                           torch.cuda.memory_allocated())
+            if keep_grads:
+                given.extend(x.detach().clone() for x in g)
+            if on_grads is not None:
+                on_grads(whole_tree(list(g), layout))
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            update(p, g, st)
+            torch.cuda.synchronize()
+            mem["step"] = max(through_backward,
+                              at_update + torch.cuda.max_memory_allocated() - held)
 
-            opt.update = keep
-        masters = master_params(base)
-        state = opt.init(masters)
+        opt.update = keep
+        torch.cuda.synchronize()
+        mem["before"] = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        masters, layout = master_params(base, mesh), tp_layout(base, mesh)
+        state = opt.init(masters, layout)
         batch = tuple(shard_batch(a, mesh) for a in (latents, context, tvalid))
         step = make_train_step(cfg, opt, compute_dtype=dtype, remat="full", mesh=mesh)
         _, _, loss = step(masters, state, batch, gen(SEED + 4))
-        del state
-        return [p.detach() for p in tree_leaves(masters)], float(loss)
+        got = whole_tree(masters, layout, keep=rank == 0)
+        got = None if got is None else [p.detach() for p in tree_leaves(got)]
+        return got, float(loss), state, layout, given, mem
 
     def rel(got, want, scale):
         """max |got - want| over the leaves, over scale (leaf by leaf: no
@@ -3273,16 +3536,56 @@ def _parallel_rank() -> dict:
             worst = max(worst, d / s if s > 0 else (0.0 if d == 0 else math.inf))
         return worst
 
+    def moments_rel(state, layout, ref_moments):
+        """{mu, nu: leaf_rel of this step's AdamW moments, gathered leaf by
+        leaf (every rank takes part), against the single step's (kept on
+        the host, each leaf brought back to compare)} on rank 0, and, a
+        {mu, nu: the tree's |difference| over the tree's |moment| (2-norms
+        over every leaf)}."""
+        worst, tree = {}, {}
+        for name in ("mu", "nu"):
+            whole = (gather_part(x, None if layout is None else layout.splits[i],
+                                 None if layout is None else layout.tp)
+                     for i, x in enumerate(getattr(state, name)))
+            if rank == 0:  # leaf by leaf: one gathered leaf on the card at a time
+                worst[name], d2, w2 = 0.0, 0.0, 0.0
+                for a, x in zip(whole, ref_moments[name]):
+                    b = x.to(dev)
+                    worst[name] = max(worst[name], leaf_rel([a], [b]))
+                    d2 += float((a - b).double().square().sum())
+                    w2 += float(b.double().square().sum())
+                tree[name] = math.sqrt(d2 / w2)
+            else:
+                for _ in whole:
+                    pass
+        return worst, tree
+
+    def summed_over_tp(g, layout=None):
+        """The planted fault of the clip: every leaf's squared sum
+        all-reduced over tp, so that a replicated leaf counts tp times."""
+        sq = torch.stack(torch._foreach_norm(g)).square().sum()
+        dist.all_reduce(sq, group=layout.tp.group)
+        return float(sq.sqrt())
+
+    def gib(n):
+        return n / 2 ** 30
+
     # the references on rank 0, one tree of params and one of gradients at a
     # time beside a step (each f32 tree is 3.4 GB; two ranks share the card)
     before = tree_leaves(base)
     for dtype in (torch.float32, bf16):
         dname = str(dtype).split(".")[-1]
-        ref, ref_grads, ref_loss, up = None, [], None, None
+        ref, ref_grads, ref_loss, up, ref_moments = None, [], None, None, None
         if rank == 0:
-            ref, ref_loss = train_step(
+            ref, ref_loss, ref_state, _, _, ref_mem = train_step(
                 None, dtype, on_grads=lambda g: ref_grads.extend(x.detach().clone() for x in g))
+            # the moments on the host: two f32 trees beside the steps to come
+            ref_moments = {k: [x.cpu() for x in getattr(ref_state, k)] for k in ("mu", "nu")}
+            del ref_state
+            torch.cuda.empty_cache()
             up = rel(ref, before, 1.0)
+            out["metrics"][f"single train {dname}"] = (
+                global_norm(ref_grads), {k: gib(v) for k, v in ref_mem.items()})
         read_and_zero()
         dist.barrier()
         for mode, mesh in (("dp", mesh_dp), ("tp", mesh_tp)):
@@ -3296,22 +3599,46 @@ def _parallel_rank() -> dict:
                     # the planted fault: the dp ranks' gradients summed, not averaged
                     errs["fault"] = leaf_rel(g, ref_grads, mesh.dp) if mesh.dp > 1 else None
 
-            got, loss = train_step(mesh, dtype, on_grads=compare)
+            got, loss, state, layout, given, mem = train_step(
+                mesh, dtype, on_grads=compare, keep_grads=mode == "tp")
             torch.cuda.synchronize()
-            say(f"{label} step {time.perf_counter() - t0:.2f} s, loss {loss:.6f}")
+            say(f"{label} step {time.perf_counter() - t0:.2f} s, loss {loss:.6f}, peak "
+                f"{gib(mem['step']):.2f} GiB over the step ({gib(mem['before']):.2f} GiB "
+                f"allocated before the masters)")
             launches, shapes = read_and_zero()
             if dtype == torch.float32:
                 shapes = {n: {F32_KEY + k: v for k, v in s.items()} for n, s in shapes.items()}
             record(label, (launches, shapes))
+            moments = moments_rel(state, layout, ref_moments)
+            del state
+            fault = None
+            if mode == "tp":
+                # the planted fault of the clip, on the same gradients: a fresh
+                # state updated with the norm summed over tp for every leaf
+                norm = training.global_norm
+                training.global_norm = summed_over_tp
+                try:
+                    opt = make_optimizer(lr=1e-5, warmup_steps=0, total_steps=1,
+                                         grad_clip=PAR_CLIP)
+                    masters = master_params(base, mesh)
+                    faulty = opt.init(masters, layout)
+                    opt.update(masters, given, faulty)
+                finally:
+                    training.global_norm = norm
+                del masters
+                fault = moments_rel(faulty, layout, ref_moments)
+                del faulty
+            out["metrics"][f"{label} memory"] = {k: gib(v) for k, v in mem.items()}
             if rank == 0:
                 off = sum(int(((a - b).abs() > PAR_TRAIN_REL * up).sum())
                           for a, b in zip(got, ref))
                 out["metrics"][label] = (grad_errs["rel"], grad_errs["fault"],
-                                         rel(got, ref, up), off, loss, ref_loss)
-            del got
+                                         rel(got, ref, up), off, loss, ref_loss, moments,
+                                         fault)
+            del got, given
             torch.cuda.empty_cache()
             dist.barrier()
-        del ref, ref_grads
+        del ref, ref_grads, ref_moments
         torch.cuda.empty_cache()
     say(f"done in {time.perf_counter() - t_rank:.1f} s")
     return out
@@ -3343,12 +3670,20 @@ def phase_parallel(dev) -> tuple[dict, dict]:
     train_labels = [f"{mode} train {d}" for d in ("float32", "bfloat16") for mode in ("dp", "tp")]
     want = {"tp unet": PAR_UNET_LAUNCHES, "tp generate": EXPECTED_LAUNCHES[512],
             "dp generate": EXPECTED_LAUNCHES[512],
+            "tp serve": par_serve_launches(PAR_TP_SERVE_STEPS, len(PAR_TP_SERVE)),
+            **{f"dp serve {k}": par_serve_launches(20) for k in ("batch", "lone", "lora")},
             **{label: PAR_TRAIN_LAUNCHES for label in train_labels}}
+    # the padded batches each rank ran: a multiple of dp
+    want_batches = {"tp serve": {1: 2}, "dp serve batch": {4: 1}, "dp serve lone": {2: 1},
+                    "dp serve lora": {2: 1}}
     for res in results:
         r = res["rank"]
         print(f"phase 10 rank {r}: device {res['device']}, backend {res['backend']}", flush=True)
         if res["device"] != "cuda:0" or res["backend"] != "gloo":
             bad.append(f"rank {r} ran on {res['device']} under {res['backend']}")
+        if res["batches"] != want_batches:
+            bad.append(f"rank {r}'s mesh Batchers ran the padded batches {res['batches']}, "
+                       f"expected {want_batches}")
         for label, (launches, shapes) in res["runs"].items():
             expected = {n: want[label].get(n, 0) for n in KERNEL_INFO}
             if launches != expected:
@@ -3409,9 +3744,59 @@ def phase_parallel(dev) -> tuple[dict, dict]:
     if any(b > PAR_TP_IMAGE_MEAN for _, b in m["dp images"]) or m["dp image shape"] != (
             2, 512, 512, 3):
         bad.append(f"the dp images are {m['dp images']} off the batch-2 run")
+    for label, bound, diffs_of in (
+            ("tp serve", None, m["tp serve"]), ("dp serve batch", None, m["dp serve batch"]),
+            ("dp serve lone", PAR_DP_IMAGE_MAX, m["dp serve lone"]),
+            ("dp serve lora", PAR_DP_IMAGE_MAX, m["dp serve lora"])):
+        print(f"phase 10 {label} (the mesh Batcher) against the single-process Batcher's "
+              f"images of the same requests: {diffs(diffs_of)} (bound "
+              + (f"max {bound})" if bound is not None else f"mean {PAR_TP_IMAGE_MEAN})"),
+              flush=True)
+        if any((a > bound) if bound is not None else (b > PAR_TP_IMAGE_MEAN)
+               for a, b in diffs_of):
+            bad.append(f"{label}'s images are {diffs_of} off")
+    moved = m["dp serve lora moved"]
+    print(f"phase 10 dp serve lora against the same request without the adapter (in the "
+          f"batch of 3): {diffs(moved)} (must exceed mean {PAR_TP_IMAGE_MEAN}, the bound "
+          f"that batching's own differences meet)", flush=True)
+    if all(b <= PAR_TP_IMAGE_MEAN for _, b in moved):
+        bad.append("the adapter's request gave the base's image")
+    for res in results:
+        for label in train_labels:
+            mem = res["metrics"][f"{label} memory"]
+            print(f"phase 10 rank {res['rank']} {label}: peak device memory over the step "
+                  f"{mem['step']:.2f} GiB, {mem['before']:.2f} GiB allocated before its masters"
+                  f" | {card_line()}", flush=True)
+    for dname in ("float32", "bfloat16"):
+        norm, mem = m[f"single train {dname}"]
+        print(f"phase 10 single train {dname} (rank 0, the whole masters and state): peak "
+              f"{mem['step']:.2f} GiB over the step, {mem['before']:.2f} GiB before its masters;"
+              f" the gradients' global norm {norm:.4g} (clip {PAR_CLIP})", flush=True)
+        if not norm > PAR_CLIP:
+            bad.append(f"the clip did not act: global norm {norm:.4g} <= {PAR_CLIP}")
     for label in train_labels:
-        grad_rel, fault, param_rel, off, loss, ref_loss = m[label]
-        bound = PAR_GRAD_REL[label.rsplit(" ", 1)[-1]]
+        grad_rel, fault, param_rel, off, loss, ref_loss, (moments, tree), m_fault = m[label]
+        dname = label.rsplit(" ", 1)[-1]
+        bound = PAR_GRAD_REL[dname]
+        worst = max(moments.values())
+        print(f"phase 10 {label}: the AdamW moments, gathered, against the single step's "
+              f"(largest over the leaves of max |difference| / the leaf's max): mu "
+              f"{moments['mu']:.3e}, nu {moments['nu']:.3e} (bound {PAR_MOMENT_REL[dname]}); "
+              f"over the tree (|difference| / |moment|, 2-norms) mu {tree['mu']:.3e}, nu "
+              f"{tree['nu']:.3e} (bound {PAR_MOMENT_TREE[dname]})"
+              + ("" if m_fault is None else f"; the planted fault (the clip's norm summed "
+                 f"over tp for every leaf) mu {m_fault[0]['mu']:.3e}, nu "
+                 f"{m_fault[0]['nu']:.3e}, over the tree mu {m_fault[1]['mu']:.3e}, nu "
+                 f"{m_fault[1]['nu']:.3e}"),
+              flush=True)
+        if not worst <= PAR_MOMENT_REL[dname]:
+            bad.append(f"{label}'s moments are {moments} off")
+        if not max(tree.values()) <= PAR_MOMENT_TREE[dname]:
+            bad.append(f"{label}'s moments are {tree} off over the tree")
+        if m_fault is not None and max(m_fault[0].values()) <= PAR_MOMENT_REL[dname]:
+            bad.append(f"{label}: the moment bound passes the planted fault of the clip")
+        if m_fault is not None and max(m_fault[1].values()) <= PAR_MOMENT_TREE[dname]:
+            bad.append(f"{label}: the tree's moment bound passes the planted fault of the clip")
         print(f"phase 10 {label} (AdamW, batch 4) against the single step: gradients, the "
               f"largest over the leaves of max |difference| / the leaf's max |gradient|, "
               f"{grad_rel:.3e} (bound {bound})"
@@ -3426,6 +3811,44 @@ def phase_parallel(dev) -> tuple[dict, dict]:
     print(f"phase 10 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     if bad:
         fail("phase 10 (dp and tp): " + "; ".join(bad))
+    return totals.launches, totals.shapes
+
+
+def _dryrun_rank():
+    """One of dryrun_multichip(4)'s four ranks on cuda:0: (its summary line
+    on rank 0, else None; the launches it made)."""
+    import torch
+
+    from sdtpu_torch import kernels
+    from sdtpu_torch.parallel.dryrun import dryrun_multichip
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels.lib()
+    read_and_zero()
+    line = dryrun_multichip(DRYRUN_RANKS)
+    return line, read_and_zero()
+
+
+def phase_dryrun(dev) -> tuple[dict, dict]:
+    """dryrun_multichip(4) on four gloo ranks sharing cuda:0 (SD_TINY: the
+    sharded-state AdamW step, a LoRA step, dp sampling against one process
+    at the dry run's card tolerance, a batch through the mesh Batcher).
+    Prints its summary line; returns the ranks' launches for the totals."""
+    from sdtpu_torch.parallel import spawn
+
+    t_phase = time.perf_counter()
+    results = spawn(DRYRUN_RANKS, _dryrun_rank, backend="gloo", timeout=PAR_TIMEOUT)
+    totals = Totals()
+    for r, (line, counts) in enumerate(results):
+        print(f"dryrun rank {r}: launches {fired(counts[0])}", flush=True)
+        totals.add(*counts)
+    line = results[0][0]
+    print(f"{line} | {card_line()}", flush=True)
+    print(f"dryrun_multichip({DRYRUN_RANKS}) took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    if not (line or "").startswith("dryrun_multichip OK: mesh dp=2 tp=2, "):
+        fail(f"dryrun_multichip({DRYRUN_RANKS}): {line!r}")
     return totals.launches, totals.shapes
 
 
@@ -3464,6 +3887,14 @@ def main() -> None:
     path, _ = kernels.build()
     kernels.lib()
     print(f"build {path.name} in {time.perf_counter() - t0:.1f} s", flush=True)
+    from sdtpu_torch import runtime
+
+    t0 = time.perf_counter()
+    path = runtime.build()
+    if not runtime.available():
+        fail(f"the native runtime {path} was built and does not load")
+    print(f"build {path.name} (the native runtime, g++) in {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     def took(label, t0):
         print(f"{label} took {time.perf_counter() - t0:.1f} s", flush=True)
@@ -3488,6 +3919,7 @@ def main() -> None:
     for label, run in (("phase 4 (generate 512)", lambda: phase_generate(dev, 512)),
                        ("phase 4 (generate 1024)", lambda: phase_generate(dev, 1024)),
                        ("phase 10 (dp and tp)", lambda: phase_parallel(dev)),
+                       ("phase 10 (dryrun_multichip)", lambda: phase_dryrun(dev)),
                        ("phase 9 (SD v2.1 768)", lambda: phase_v21(dev, tf32_defaults)),
                        ("phase 7 (command lines)", lambda: phase_cli(dev, tf32_defaults)),
                        ("phase 6 (serve)", lambda: phase_serve(dev)),

@@ -24,9 +24,10 @@ saved model holds sdtpu's keys and nothing else. run_textual_inversion
 learns a concept's embedding rows instead. Inside an initialised
 torch.distributed world (torchrun, parallel.launch.spawn) run_finetune
 trains on the whole world as a ("dp", "tp") mesh, as sdtpu's does on every
-visible device (training.py: whole masters on every rank, tp shards derived
-in the step, gradients averaged over dp); rank 0 builds the latent cache
-and writes the files. The work around the steps (the latent cache or
+visible device (training.py: the masters, the optimizer state and the EMA
+held as tp parts by sdtpu's rule, gradients averaged over dp); rank 0
+builds the latent cache and writes the files, whose sharded leaves every
+rank of its tp group gathers with it. The work around the steps (the latent cache or
 the concept's data, the train state's save and restore, the model's save)
 adds its wall seconds to utils.profiling's phases.
 """
@@ -48,11 +49,13 @@ from sdtpu_torch.io.native import save_native
 from sdtpu_torch.lora import (apply_lora, init_lora, lora_param_count, make_lora_train_step,
                               save_lora)
 from sdtpu_torch.models.unet import unfuse_qkv
+from sdtpu_torch.parallel import tp as tpc
 from sdtpu_torch.parallel.mesh import make_mesh
+from sdtpu_torch.parallel.sharding import shard_params
 from sdtpu_torch.textual_inversion import (init_ti_embeddings, make_ti_train_step,
                                            prepare_ti_data, save_ti)
 from sdtpu_torch.training import (AdamW, ema_update, make_optimizer, make_train_step,
-                                  master_params, tree_map)
+                                  master_params, tp_layout, tree_map, whole_tree)
 from sdtpu_torch.utils import profiling
 
 
@@ -223,9 +226,13 @@ def run_finetune(
     - tp: inside an initialised torch.distributed world, the mesh is the
       whole world, dp = world // tp (parallel.make_mesh, its errors), and
       each dp rank takes its slice of every batch; `sd` is each rank's
-      pipeline on its own device, without a mesh (its whole tree). Every
-      rank returns the same result; rank 0 alone writes the cache, the
-      model, the adapter and the train state. Outside a world tp must be 1.
+      pipeline on its own device, without a mesh (its whole tree, which
+      every rank keeps). The masters, the optimizer state and the EMA are
+      this rank's tp parts (a LoRA run: the adapter and its state whole,
+      the frozen f32 base in parts, its whole copy dropped once they are
+      made, the merged model gathered from the parts). Every rank returns the same result; rank 0 alone writes the
+      cache, the model, the adapter and the train state, whose sharded
+      leaves every rank gathers with it. Outside a world tp must be 1.
 
     Returns {"steps", "final_loss", "losses", "out_path", "lora_path",
     "steps_per_sec"}; steps_per_sec counts the steps run since the resume.
@@ -268,7 +275,7 @@ def run_finetune(
     base = unfuse_qkv(sd.params["unet"])
     opt = make_optimizer(lr=lr, warmup_steps=warmup_steps, total_steps=steps,
                          weight_decay=weight_decay, grad_clip=grad_clip, kind=opt_kind)
-    alpha = None
+    alpha, layout, base_layout = None, None, None
     if lora_rank:
         base = tree_map(lambda p: p.float() if torch.is_tensor(p) else p, base)
         alpha = float(lora_alpha if lora_alpha is not None else lora_rank)
@@ -279,14 +286,18 @@ def run_finetune(
         lora_step = make_lora_train_step(cfg, opt, alpha / lora_rank,
                                          compute_dtype=compute_dtype, remat=remat, accum=accum,
                                          accum_dtype=accum_dtype, mesh=mesh)
+        # the frozen base as tp parts; its whole f32 copy goes (sd's own
+        # tree stays whole), and the final merge runs on the parts
+        base_parts, base_layout = shard_params(base, mesh), tp_layout(base, mesh)
+        del base
 
         def step_fn(tree, state, batch, gen):
-            return lora_step(tree, state, base, batch, gen)
+            return lora_step(tree, state, base_parts, batch, gen)
     else:
-        train_tree = master_params(base)
+        train_tree, layout = master_params(base, mesh), tp_layout(base, mesh)
         step_fn = make_train_step(cfg, opt, compute_dtype=compute_dtype, remat=remat,
                                   accum=accum, accum_dtype=accum_dtype, mesh=mesh)
-    opt_state = opt.init(train_tree)
+    opt_state = opt.init(train_tree, layout)
     # the EMA shadow, updated at each optimizer step; what the run saves
     ema = None if ema_decay is None else tree_map(lambda p: p.detach().clone(), train_tree)
     flags = {"opt_kind": opt_kind, "accum": accum, "accum_bf16": accum_bf16,
@@ -326,10 +337,10 @@ def run_finetune(
                 loss_f = float(loss)  # waits for the step; cadence bounded by log_every
                 losses.append((i, loss_f))
                 log(f"step {i + 1}/{steps} loss {loss_f:.5f}")
-            if writer and save_every and state_dir and (i + 1) % save_every == 0:
+            if save_every and state_dir and (i + 1) % save_every == 0:
                 with profiling.phase("save_train_state", sd.device):
                     save_train_state(state_dir, train_tree, opt_state, i + 1, ema=ema,
-                                     flags=flags)
+                                     flags=flags, write=writer)
                 log(f"train state saved at step {i + 1} -> {state_dir}")
         if sd.device.type == "cuda":
             torch.cuda.synchronize(sd.device)
@@ -337,20 +348,26 @@ def run_finetune(
         batches.close()
     dt = time.perf_counter() - t_start
 
-    final_tree = ema if ema is not None else train_tree
+    # the sharded leaves gathered whole (every rank of the tp group takes part)
+    final_tree = whole_tree(ema if ema is not None else train_tree, layout, keep=writer)
     out_path = out_model if out_model.endswith(".safetensors") else f"{out_model}.safetensors"
     lora_path = None
     full = dict(sd.params)
     if lora_rank:
         lora_path = out_path.replace(".safetensors", ".lora.safetensors")
+        # the merge on each rank's parts (the adapter is whole everywhere),
+        # then gathered
+        with torch.no_grad(), tpc.use(tpc.of_mesh(mesh)):
+            merged = apply_lora(base_parts, ema if ema is not None else train_tree,
+                                alpha / lora_rank)
+        full["unet"] = whole_tree(merged, base_layout, keep=writer)
+        del merged
     with profiling.phase("save_model", sd.device):
         if writer:
             if lora_rank:
                 save_lora(final_tree, lora_path, rank=lora_rank, alpha=alpha,
                           config_name=cfg.name)
                 log(f"adapter saved to {lora_path}")
-                with torch.no_grad():
-                    full["unet"] = apply_lora(base, final_tree, alpha / lora_rank)
             else:
                 full["unet"] = final_tree
             save_native(full, out_path, cfg)

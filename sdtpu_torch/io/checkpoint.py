@@ -18,6 +18,13 @@ files (and any temporary file of a save that broke off) removed; a save
 that breaks off leaves the previous state readable.
 A directory without train_state.json (an orbax state among them) is
 refused with an error that names what it holds.
+
+A state whose optimizer state has a tp layout (training.py: the trained
+tree, the state and the EMA held as tp parts) is saved whole: every rank
+of the tp group calls save_train_state, each sharded tensor is gathered
+leaf by leaf, and the rank told to write writes the file one process
+writes. A resume takes each rank's part of the whole tensors by the same
+rule, so a state saved at one tp resumes at any other.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from sdtpu_torch.io.native import flatten_tree, load_safetensors, save_safetensors
+from sdtpu_torch.parallel.sharding import gather_part, local_part
 
 FORMAT = "sdtpu_torch-train-state-v1"
 STATE_JSON = "train_state.json"
@@ -52,6 +60,18 @@ def _tensors(params, opt_state, ema) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _splits(params, opt_state, ema) -> Dict[str, Any]:
+    """{key: Split or None} of _tensors' keys under the state's layout."""
+    layout = opt_state.layout
+    tree = dict(zip(flatten_tree(params), layout.splits))
+    out = {f"params/{k}": s for k, s in tree.items()}
+    for name, parts in opt_state.splits().items():
+        out.update({f"opt_state/{name}/{i}": s for i, s in enumerate(parts)})
+    if ema is not None:
+        out.update({f"ema/{k}": s for k, s in tree.items()})
+    return out
+
+
 def _fsync_replace(tmp: str, final: str) -> None:
     with open(tmp, "rb+") as f:
         os.fsync(f.fileno())
@@ -59,15 +79,29 @@ def _fsync_replace(tmp: str, final: str) -> None:
 
 
 def save_train_state(path: str, params, opt_state, step: int, ema: Optional[Any] = None,
-                     flags: Optional[Dict[str, Any]] = None) -> None:
+                     flags: Optional[Dict[str, Any]] = None, write: bool = True) -> None:
     """Atomic save of the train state under the directory `path` (made if
     missing): params (a tree of tensors), opt_state (training.AdamWState
     or AdafactorState), the number of completed optimizer steps, the EMA
-    shadow (a tree like params) when kept, and the run's flags."""
+    shadow (a tree like params) when kept, and the run's flags. With a tp
+    layout every rank of the tp group calls it and the whole tensors are
+    gathered (the module docstring); write=False: this rank takes part in
+    the gathers and writes nothing."""
+    tensors = _tensors(params, opt_state, ema)
+    layout = opt_state.layout
+    if layout is not None:
+        parts = _splits(params, opt_state, ema)
+        if not write:
+            for k, t in tensors.items():
+                gather_part(t.detach(), parts[k], layout.tp)
+            return
+        tensors = {k: gather_part(t.detach(), parts[k], layout.tp) for k, t in tensors.items()}
+    if not write:
+        return
     os.makedirs(path, exist_ok=True)
     name = f"state-{int(step):08d}.safetensors"
     tmp = os.path.join(path, f".{name}.{os.getpid()}.tmp")
-    save_safetensors(_tensors(params, opt_state, ema), tmp, {"format": FORMAT})
+    save_safetensors(tensors, tmp, {"format": FORMAT})
     _fsync_replace(tmp, os.path.join(path, name))
     meta = {"format": FORMAT, "file": name, "step": int(step), "opt_count": opt_state.count,
             "opt_state": type(opt_state).__name__, "ema": ema is not None,
@@ -110,7 +144,8 @@ def restore_train_state(path: str, params, opt_state, ema: Optional[Any] = None,
                         flags: Optional[Dict[str, Any]] = None) -> int:
     """Restore the state saved under `path` into params, opt_state and ema
     (the templates a fresh run builds, in place: each tensor copied into
-    the template's, on its device) and return the saved step. flags given:
+    the template's, on its device; with a tp layout, this rank's part of
+    the saved whole tensor) and return the saved step. flags given:
     they must equal the saved ones. Raises ValueError on other flags, on
     another optimizer, on keys or shapes that differ from the templates'
     (see read_meta for a missing or foreign directory)."""
@@ -130,10 +165,17 @@ def restore_train_state(path: str, params, opt_state, ema: Optional[Any] = None,
         missing, extra = sorted(set(want) - set(saved)), sorted(set(saved) - set(want))
         raise ValueError(f"the state's tensors differ from the run's: missing {missing[:3]}, "
                          f"unexpected {extra[:3]} ({len(missing)} and {len(extra)})")
+    layout = opt_state.layout
+    parts = {} if layout is None else _splits(params, opt_state, ema)
     for k, t in want.items():
-        if saved[k].shape != t.shape or saved[k].dtype != t.dtype:
-            raise ValueError(f"{k}: saved {saved[k].dtype} {tuple(saved[k].shape)}, the run's "
-                             f"{t.dtype} {tuple(t.shape)}")
-        t.copy_(saved.pop(k))
+        got = saved.pop(k)
+        if parts.get(k) is not None and (tuple(got.shape)
+                                         == parts[k].whole_shape(t.shape, layout.tp.size)):
+            got = local_part(got, parts[k], layout.tp)
+        if got.shape != t.shape or got.dtype != t.dtype:
+            raise ValueError(f"{k}: saved {got.dtype} {tuple(got.shape)}, the run's "
+                             f"{t.dtype} {tuple(t.shape)}"
+                             + ("" if layout is None else f" (a part at tp={layout.tp.size})"))
+        t.copy_(got)
     opt_state.count = int(meta["opt_count"])
     return int(meta["step"])

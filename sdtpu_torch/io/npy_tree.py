@@ -17,15 +17,20 @@ as stored, conv transposed to HWIO at load), the spec tables the port's own
 (sdtpu_torch/models/unet.py).
 
 The reader returns a tree of numpy arrays on the host
-(`weights.from_numpy_tree` puts it on a device); each file is read once by
-np.load, with no copy through a buffer. sdtpu first reads the whole tree
-with its native bulk reader when that is built; the port reads file by
-file. The writer takes numpy or torch leaves (any device, any floating
-type) and writes float32, so each package reads the other's trees.
+(`weights.from_numpy_tree` puts it on a device). Where the native runtime
+is built (sdtpu_torch.runtime), as in sdtpu, the whole tree is first read
+by its threaded bulk reader into one arena, and each array is parsed out
+of its file's bytes with no copy (the arrays view the arena, which they
+keep alive); the read's wall seconds go to utils.profiling's `bulk_read`
+phase. Without the runtime each file is read once by np.load. The writer
+takes numpy or torch leaves (any device, any floating type) and writes
+float32, so each package reads the other's trees.
 """
 
 from __future__ import annotations
 
+import ast
+import contextvars
 import os
 from typing import Dict, Optional
 
@@ -33,13 +38,59 @@ import numpy as np
 
 from sdtpu_torch.config import SD_V1_4, StableDiffusionConfig
 from sdtpu_torch.models.unet import build_input_specs, build_output_specs
+from sdtpu_torch.utils import profiling
 from sdtpu_torch.weights import to_numpy
 
 
 # ----------------------------------------------------------- primitives
 
+# {path: the file's bytes} of the tree load_stable_diffusion_dump is
+# reading, where the bulk reader read it (None: read each file by np.load)
+_PRELOAD: contextvars.ContextVar = contextvars.ContextVar("sdtpu_torch_npy_preload",
+                                                          default=None)
+
+
+def _preload_tree(root: str, bulk: Optional[bool]) -> Optional[Dict[str, memoryview]]:
+    """Every .npy file under root read by the native bulk reader, or None
+    (bulk False, or None where the runtime is not built); bulk True where
+    it is not built raises."""
+    from sdtpu_torch import runtime
+
+    if bulk is False or (bulk is None and not runtime.available()):
+        return None
+    if not runtime.available():
+        raise RuntimeError("bulk=True: the native runtime is not built")
+    with profiling.phase("bulk_read"):
+        paths = [os.path.join(d, f) for d, _, files in os.walk(root)
+                 for f in files if f.endswith(".npy")]
+        bufs = runtime.read_files_bulk(paths)
+    return None if bufs is None else dict(zip(paths, bufs))
+
+
+def _npy_from_buffer(buf) -> np.ndarray:
+    """The array of a .npy file's bytes, parsed with no copy (np.load of a
+    BytesIO copies every byte twice): the header, then np.frombuffer."""
+    mv = memoryview(buf)
+    if bytes(mv[:6]) != b"\x93NUMPY":
+        raise ValueError("bad .npy magic in a bulk-read buffer")
+    if mv[6] == 1:
+        hlen, off = int.from_bytes(bytes(mv[8:10]), "little"), 10
+    else:
+        hlen, off = int.from_bytes(bytes(mv[8:12]), "little"), 12
+    hdr = ast.literal_eval(bytes(mv[off:off + hlen]).decode("latin1"))
+    count = int(np.prod(hdr["shape"], dtype=np.int64))
+    a = np.frombuffer(mv, np.dtype(hdr["descr"]), count=count, offset=off + hlen)
+    return a.reshape(hdr["shape"], order="F" if hdr["fortran_order"] else "C")
+
+
+def _load(path: str) -> np.ndarray:
+    pre = _PRELOAD.get()
+    buf = None if pre is None else pre.get(path)
+    return np.load(path) if buf is None else _npy_from_buffer(buf)
+
+
 def _read(path: str, rank: int) -> np.ndarray:
-    v = np.load(path)
+    v = _load(path)
     dims = v[:rank].astype(np.int64)
     return v[rank:].reshape(tuple(dims)).astype(np.float32, copy=False)
 
@@ -54,7 +105,7 @@ def try_load_tensor(dirpath: str, name: str, rank: int) -> Optional[np.ndarray]:
 
 
 def load_scalar(dirpath: str, name: str) -> float:
-    return float(np.load(os.path.join(dirpath, f"{name}.npy"))[1])
+    return float(_load(os.path.join(dirpath, f"{name}.npy"))[1])
 
 
 def load_linear(d: str) -> Dict[str, np.ndarray]:
@@ -283,16 +334,23 @@ def _load_autoencoder(path: str) -> dict:
 
 # ----------------------------------------------------------- top level
 
-def load_stable_diffusion_dump(path: str, cfg: StableDiffusionConfig = SD_V1_4) -> dict:
+def load_stable_diffusion_dump(path: str, cfg: StableDiffusionConfig = SD_V1_4,
+                               bulk: Optional[bool] = None) -> dict:
     """Load the full dump tree (reference: stablediffusion/load.rs:16-33)
-    as numpy arrays on the host."""
-    return {
-        "n_steps": int(load_scalar(path, "n_steps")),
-        "alphas_cumprod": load_tensor(path, "alphas_cumprod", 1),
-        "autoencoder": _load_autoencoder(os.path.join(path, "autoencoder")),
-        "unet": _load_unet(os.path.join(path, "unet"), cfg),
-        "clip": _load_clip(os.path.join(path, "clip")),
-    }
+    as numpy arrays on the host: every file read at once up front by the
+    native bulk reader (the module docstring), or file by file by np.load;
+    bulk None: the bulk reader where the runtime is built."""
+    token = _PRELOAD.set(_preload_tree(path, bulk))
+    try:
+        return {
+            "n_steps": int(load_scalar(path, "n_steps")),
+            "alphas_cumprod": load_tensor(path, "alphas_cumprod", 1),
+            "autoencoder": _load_autoencoder(os.path.join(path, "autoencoder")),
+            "unet": _load_unet(os.path.join(path, "unet"), cfg),
+            "clip": _load_clip(os.path.join(path, "clip")),
+        }
+    finally:
+        _PRELOAD.reset(token)
 
 
 # =============================================================== writer

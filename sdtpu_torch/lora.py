@@ -26,7 +26,7 @@ import torch
 
 from sdtpu_torch.io.native import flatten_tree, load_safetensors, save_safetensors
 from sdtpu_torch.parallel import tp as tpc
-from sdtpu_torch.parallel.sharding import shard_params
+from sdtpu_torch.parallel.sharding import split_of
 from sdtpu_torch.training import (diffusion_loss, dp_mean, draw_t_noise, micro_batch_grads,
                                   tree_leaves)
 
@@ -76,9 +76,11 @@ def make_lora_train_step(cfg, optimizer, scale: float, compute_dtype=torch.float
     no step copies or changes. Only the adapter gets gradients. Under a
     bf16 compute dtype the merged weights are cast to bf16, as sdtpu's
     eff_dtype does. batch, t, noise, accum and mesh as in
-    training.make_train_step: on a mesh the adapter is replicated, the
-    merged weight whole, then this rank's tp shard is derived from it, so
-    the gradients of a and b come back whole."""
+    training.make_train_step: on a mesh the adapter and its state are
+    whole on every rank (sdtpu does not shard them), the base is this
+    rank's tp parts (parallel.shard_params), and each adapted part gets its
+    part of a @ b (apply_lora), so the gradients of a and b come back
+    whole."""
     eff_dtype = None if compute_dtype == torch.float32 else compute_dtype
     tp = tpc.of_mesh(mesh)
 
@@ -89,7 +91,7 @@ def make_lora_train_step(cfg, optimizer, scale: float, compute_dtype=torch.float
 
         def loss_of(sl):
             with tpc.use(tp):
-                p = shard_params(apply_lora(base, lora, scale, dtype=eff_dtype), mesh)
+                p = apply_lora(base, lora, scale, dtype=eff_dtype)
                 return diffusion_loss(p, cfg, latents[sl], context[sl], t[sl], noise[sl],
                                       None if ctx_valid is None else ctx_valid[sl],
                                       compute_dtype=compute_dtype, remat=remat)
@@ -102,12 +104,31 @@ def make_lora_train_step(cfg, optimizer, scale: float, compute_dtype=torch.float
     return train_step
 
 
+def _part(delta, w, path: str):
+    """This tp rank's part of the whole product delta, where w is the
+    adapted linear at `path` as the rank holds it (parallel.tp.current()'s
+    group): the part the sharding rule gives that leaf (sharding.split_of,
+    GEGLU's [value | gate] block by block), through scatter_to_tp, whose
+    backward gathers the whole gradient. delta itself where the leaf is
+    whole."""
+    tp = tpc.current()
+    split = None if tp is None else split_of(path, tuple(delta.shape), tp.size)
+    if split is not None:
+        delta = tpc.scatter_to_tp(delta, tp, split.dim, split.blocks)
+    if delta.shape != w.shape:
+        raise ValueError(f"an adapter of {path} gives {tuple(delta.shape)}, the weight is "
+                         f"{tuple(w.shape)}" + ("" if tp is None else f" at tp={tp.size}"))
+    return delta
+
+
 def apply_lora(params, lora, scale: float, dtype=None):
     """Effective params: each adapted w -> w + (a @ b) * scale, computed in
     f32 on w's device and cast to `dtype` (default: w's dtype). Every other
-    leaf is the given one, by reference."""
+    leaf is the given one, by reference. Inside a tp group (parallel.tp.use)
+    params are this rank's tp parts of sdtpu's unfused tree: a part adds
+    the part of the product that the sharding rule gives its path (_part)."""
 
-    def rec(p, l):
+    def rec(p, l, path):
         if l is None:
             return p
         if isinstance(p, dict):
@@ -115,14 +136,17 @@ def apply_lora(params, lora, scale: float, dtype=None):
                 w = p["w"]
                 a, b = (torch.as_tensor(l[k]).to(w.device, torch.float32) for k in ("a", "b"))
                 new = dict(p)
-                new["w"] = (w.float() + (a @ b) * scale).to(dtype or w.dtype)
+                new["w"] = (w.float() + _part((a @ b) * scale, w, f"{path}/w")).to(
+                    dtype or w.dtype)
                 return new
-            return {k: rec(v, l.get(k)) for k, v in p.items()}
+            return {k: rec(v, l.get(k), f"{path}/{k}" if path else str(k))
+                    for k, v in p.items()}
         if isinstance(p, (list, tuple)):
-            return type(p)(rec(v, l.get(str(i))) for i, v in enumerate(p))
+            return type(p)(rec(v, l.get(str(i)), f"{path}/{i}" if path else str(i))
+                           for i, v in enumerate(p))
         return p
 
-    return rec(params, lora)
+    return rec(params, lora, "")
 
 
 def _unflatten(flat: Dict[str, torch.Tensor]) -> Any:

@@ -2,7 +2,7 @@
 the sharding rules, the tensor-parallel primitives and the launcher."""
 
 from sdtpu_torch.parallel.launch import init_from_env, local_device, spawn  # noqa: F401
-from sdtpu_torch.parallel.mesh import Mesh, make_mesh  # noqa: F401
+from sdtpu_torch.parallel.mesh import Mesh, broadcast_object, make_mesh  # noqa: F401
 from sdtpu_torch.parallel.sharding import (  # noqa: F401
     gather_batch,
     gather_params,

@@ -64,9 +64,11 @@ def _rank_main(rank, world, backend, rendezvous, out_dir, fn, args):
     try:
         result = fn(*args)
         torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
-        dist.barrier()
+        if dist.is_initialized():  # fn may have ended the world (serve.Batcher)
+            dist.barrier()
     finally:
-        dist.destroy_process_group()
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def spawn(world: int, fn, *args, backend: str, timeout: float | None = None):

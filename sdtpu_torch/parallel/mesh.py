@@ -96,3 +96,15 @@ def make_mesh(dp: Optional[int] = None, tp: int = 1, allow_idle: bool = False,
     d_r, t_r = (rank // tp, rank % tp) if active else (None, None)
     return Mesh(dp, tp, rank, n, str(dist.get_backend()), torch.device(device), d_r, t_r,
                 dp_groups[t_r] if active else None, tp_groups[d_r] if active else None)
+
+
+def broadcast_object(obj, mesh: Mesh):
+    """Rank 0's `obj` (anything picklable) on every rank of the world: a
+    collective, which every rank calls in the same order (the others pass
+    None). So one rank decides what a step runs, and every rank then runs
+    the same code on it (serve.Batcher on a mesh). On gloo through a host
+    tensor; on nccl through one on the mesh's device."""
+    box = [obj if mesh.rank == 0 else None]
+    dist.broadcast_object_list(box, src=0, device=torch.device("cpu") if mesh.backend == "gloo"
+                               else mesh.device)
+    return box[0]

@@ -29,12 +29,13 @@ rows dp_rank·B/dp .. of every batch.
 
 from __future__ import annotations
 
-from typing import Tuple
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
-from sdtpu_torch.parallel.tp import gather_from_tp, of_mesh, scatter_to_tp
+from sdtpu_torch.parallel.tp import _all_gather, _narrow, gather_from_tp, of_mesh
 
 _COLUMN_PARALLEL = ("query/w", "key/w", "value/w", "fc1/w", "geglu/proj/w")
 _ROW_PARALLEL = ("out/w", "fc2/w", "mlp/lin/w")
@@ -90,14 +91,55 @@ def _split_dim(spec: tuple):
     return spec.index("tp") if "tp" in spec else None
 
 
+@dataclass(frozen=True)
+class Split:
+    """Where a leaf is a tp shard: the dim split over the tp ranks and the
+    blocks it is taken in (rank r's part of each block, tp.py)."""
+    dim: int
+    blocks: int = 1
+
+    def whole_shape(self, shape, tp: int) -> tuple:
+        """The whole leaf's shape from a rank's part of it."""
+        return tuple(n * tp if i == self.dim else n for i, n in enumerate(shape))
+
+
+def split_of(path: str, shape: Tuple[int, ...], tp: int) -> Optional[Split]:
+    """The Split of the leaf at `path` with the whole `shape` under the rule
+    at `tp`; None where every rank holds it whole."""
+    d = _split_dim(leaf_spec(path, tuple(shape), tp))
+    return None if d is None else Split(d % len(shape), _blocks(path))
+
+
+def splits(params, tp: int):
+    """The tree of each leaf's Split (split_of) of a whole tree (leaves with
+    a .shape; others get None)."""
+    return _map_with_path(
+        lambda path, leaf: (split_of(path, tuple(leaf.shape), tp)
+                            if hasattr(leaf, "shape") and len(leaf.shape) else None), params)
+
+
+def local_part(x, split: Optional[Split], tp):
+    """This tp rank's part of the whole tensor x under `split` (a copy of
+    its own, with no gradient); x itself where split or tp is None."""
+    if split is None or tp is None:
+        return x
+    return _narrow(x, tp, split.dim, split.blocks).clone()
+
+
+def gather_part(x, split: Optional[Split], tp):
+    """The whole tensor from every tp rank's part x (an all-gather over the
+    tp group, which every rank of it calls; no gradient); x itself where
+    split or tp is None."""
+    if split is None or tp is None:
+        return x
+    return _all_gather(x, tp, split.dim, split.blocks)
+
+
 def shard_params(params, mesh):
     """This rank's local tree: each sharded leaf's slice along its spec's
-    "tp" dim (block by block for GEGLU's projection and the fused qkv),
-    other leaves as they are. Differentiable: under autograd a slice is
-    scatter_to_tp, whose backward gathers the whole gradient, so a step
-    that derives the shards from whole f32 masters gets whole gradients.
-    With grad mode off each slice is a copy of its own, so the whole tree
-    can be freed."""
+    "tp" dim (block by block for GEGLU's projection and the fused qkv), a
+    copy of its own with no gradient, so the whole tree can be freed; other
+    leaves as they are."""
     tp = of_mesh(mesh)
     if tp is None:
         return params
@@ -105,13 +147,10 @@ def shard_params(params, mesh):
     def local(path, leaf):
         if not torch.is_tensor(leaf):
             return leaf
-        d = _split_dim(leaf_spec(path, tuple(leaf.shape), tp.size))
-        if d is None:
-            return leaf
-        out = scatter_to_tp(leaf, tp, d, _blocks(path))
-        return out if torch.is_grad_enabled() else out.clone()
+        return local_part(leaf, split_of(path, tuple(leaf.shape), tp.size), tp)
 
-    return _map_with_path(local, params)
+    with torch.no_grad():
+        return _map_with_path(local, params)
 
 
 def gather_params(params, mesh, specs):

@@ -32,6 +32,7 @@ in lockstep.
 
 from __future__ import annotations
 
+import copy
 import time
 from typing import Callable, Optional
 
@@ -117,6 +118,16 @@ class StableDiffusion:
         self.n_train_steps = int(params.get("n_steps", config.n_train_steps))
         self.device = params["alphas_cumprod"].device
         self.timings: dict = {}
+
+    def with_unet(self, unet) -> "StableDiffusion":
+        """A pipeline that shares this one's weights, mesh and options but
+        the UNet's: `unet`, sdtpu's unfused tree in the compute dtype as
+        this rank holds it (its tp parts on a mesh), fused as the
+        constructor fuses it (a LoRA merge, serve.Batcher.sd_for)."""
+        sd = copy.copy(self)
+        sd.params = {**self.params, "unet": fuse_qkv(unet)}
+        sd.timings = {}
+        return sd
 
     # ---------------------------------------------------------- context
 

@@ -32,6 +32,24 @@ configuration). A pipeline without pad_context batches only requests
 whose prompts, and whose negative prompts, have one token count, since
 their unpadded contexts stack only at one length (sdtpu's batcher keys on
 neither and fails such a batch).
+
+On a mesh (a StableDiffusion built with mesh=, as sdtpu's batcher runs
+over a sharded pipeline) every rank constructs the Batcher with the same
+arguments. Rank 0 takes the requests: its worker collects each batch as
+it does alone, then broadcasts the batch's description (prompts, negative
+prompts, scales, seeds, image counts, steps, sampler, karras, adapter;
+parallel.broadcast_object) before it runs it, and close() broadcasts a
+stop. Every other rank runs a follower thread that takes each description
+and runs the same batch, so every rank makes the same collective calls in
+the same order (the CLIP encodings of its context cache among them), and
+whose submit() raises. Rank 0 alone answers callers; collectives run on
+the worker threads only. make_server serves a pipeline without a mesh.
+A batch that fails on any rank of a mesh ends the Batcher on every rank:
+the ranks' collectives may be out of step after it, so the failing rank
+destroys the torch.distributed world (on gloo that ends the other ranks'
+pending collectives at once, so their batch fails too), the followers
+stop, and rank 0 answers the batch's callers, then every request queued
+or to come, with the error.
 """
 
 from __future__ import annotations
@@ -44,12 +62,15 @@ import queue
 import sys
 import threading
 import time
+import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from sdtpu_torch.pipeline import SAMPLERS, StableDiffusion
+from sdtpu_torch.parallel.mesh import broadcast_object
+from sdtpu_torch.pipeline import SAMPLERS
 
 
 class Overloaded(RuntimeError):
@@ -60,12 +81,15 @@ class RequestTimeout(RuntimeError):
     """The request did not complete within its deadline: callers get a 504."""
 
 
+def _seed(seed) -> int:
+    """The request's seed, or one drawn from the clock."""
+    return time.monotonic_ns() % (2 ** 63) if seed is None else int(seed)
+
+
 def _generator(device, seed):
     """The request's generator on the pipeline's device (see the module
     docstring)."""
-    if seed is None:
-        seed = time.monotonic_ns() % (2 ** 63)
-    return torch.Generator(device=device).manual_seed(int(seed))
+    return torch.Generator(device=device).manual_seed(_seed(seed))
 
 
 class Batcher:
@@ -83,7 +107,9 @@ class Batcher:
     Two threads: the worker collects and runs batches; the completer copies
     each finished batch to the host (after an event recorded on the
     worker's stream), so the worker can launch the next batch meanwhile.
-    batch_sizes counts the padded batches run, by size."""
+    batch_sizes counts the padded batches run, by size. On a mesh (the
+    module docstring) a batch is padded to a multiple of dp as well, and
+    ranks but 0 run a follower thread instead."""
 
     def __init__(self, sd, tokenizer, max_batch: int = 8, window_ms: float = 15.0,
                  max_queue: int = 32, timeout_s: float = 120.0, ctx_cache_size: int = 256,
@@ -106,11 +132,19 @@ class Batcher:
         self._lora_lock = threading.Lock()
         # prompt -> (context, valid) LRU: the CLIP forward, once per distinct
         # prompt; the encoding is deterministic, so caching changes nothing.
-        # Worker thread only.
+        # Worker (or follower) thread only.
         self._ctx_cache: "collections.OrderedDict" = collections.OrderedDict()
         self._ctx_cache_size = ctx_cache_size
         self.batch_sizes: "collections.Counter" = collections.Counter()
         self._closing = False
+        # on a mesh, the error that ended it (the module docstring)
+        self.failed = None
+        self.mesh = sd.mesh
+        self.leader = self.mesh is None or self.mesh.rank == 0
+        if not self.leader:  # runs what rank 0 broadcasts until its stop
+            self.thread = threading.Thread(target=self._follow, daemon=True)
+            self.thread.start()
+            return
         # at most 2 batches in flight to the host
         self._readback_q: "queue.Queue" = queue.Queue(maxsize=2)
         self._completer = threading.Thread(target=self._complete, daemon=True)
@@ -121,9 +155,10 @@ class Batcher:
     def sd_for(self, lora):
         """The pipeline for an adapter name (None or "": the base one): one
         whose UNet weights are the merge w + (a @ b) * scale, built once
-        and cached. It is built from sdtpu's unfused tree, so its
-        constructor fuses attn1's q/k/v again from the merged weights; the
-        CLIP and VAE leaves are the base pipeline's, by reference."""
+        and cached (StableDiffusion.with_unet: from sdtpu's unfused tree,
+        attn1's q/k/v fused again from the merged weights; the CLIP and VAE
+        leaves and the mesh are the base pipeline's). On a mesh each rank
+        merges its tp parts (lora.apply_lora)."""
         if not lora:
             return self.sd
         if lora not in self.loras:
@@ -133,20 +168,26 @@ class Batcher:
             if sd is None:
                 from sdtpu_torch.lora import apply_lora
                 from sdtpu_torch.models.unet import unfuse_qkv
+                from sdtpu_torch.parallel import tp as tpc
 
                 tree, scale = self.loras[lora]
-                eff = dict(self.sd.params)
-                eff["unet"] = apply_lora(unfuse_qkv(self.sd.params["unet"]), tree, scale)
-                sd = StableDiffusion(eff, self.sd.config, compute_dtype=self.sd.compute_dtype,
-                                     pad_context=self.sd.pad_context)
+                with tpc.use(self.sd.tp), torch.no_grad():
+                    sd = self.sd.with_unet(
+                        apply_lora(unfuse_qkv(self.sd.params["unet"]), tree, scale))
                 self._lora_sd[lora] = sd
             return sd
 
     def submit(self, prompt, steps, scale, seed, n_images, negative, sampler: str = "ddim",
                karras: bool = False, lora=None):
-        """Queue one request and wait for its images ([n, H, W, 3] uint8)."""
+        """Queue one request and wait for its images ([n, H, W, 3] uint8).
+        On a mesh, rank 0's alone."""
+        if not self.leader:
+            raise RuntimeError(f"on a mesh rank 0 takes the requests; rank {self.mesh.rank} "
+                               f"runs what it broadcasts")
         if lora and lora not in self.loras:
             raise ValueError(f"unknown lora {lora!r} (loaded: {sorted(self.loras)})")
+        if self.failed:
+            raise RuntimeError(f"the mesh failed: {self.failed}")
         # capacity counts the requests really waiting: abandoned holds are
         # purged by the worker and must not refuse new arrivals
         with self._held_lock:
@@ -165,7 +206,12 @@ class Batcher:
         return slot["images"]
 
     def close(self, timeout: float = 30.0) -> None:
-        """Stop both threads once the batch in hand is done."""
+        """Stop both threads once the batch in hand is done (on a mesh,
+        rank 0's broadcasts the stop). On another rank of a mesh: wait up to
+        `timeout` s for that stop to end the follower."""
+        if not self.leader:
+            self.thread.join(timeout)
+            return
         self.queue.put(None)
         self.thread.join(timeout)
         self._completer.join(timeout)
@@ -242,10 +288,50 @@ class Batcher:
             try:
                 self._run_batch(items)
             except Exception as e:  # a failed batch answers its callers
-                for *_rest, ev, slot in items:
-                    slot["error"] = f"{type(e).__name__}: {e}"
-                    ev.set()
+                _answer(items, f"{type(e).__name__}: {e}")
+                if self.mesh is not None:
+                    self._end_mesh()
+                    break
+        if self.failed:
+            self._refuse_until_closed()
+        elif self.mesh is not None:
+            broadcast_object(None, self.mesh)  # the followers' stop
         self._readback_q.put(None)
+
+    def _end_mesh(self):
+        """A batch failed on this rank of a mesh: record it and destroy the
+        world (the module docstring)."""
+        self.failed = traceback.format_exc(limit=1).strip().splitlines()[-1]
+        traceback.print_exc()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+    def _refuse_until_closed(self):
+        """Rank 0 after the mesh failed: every request held, queued or yet
+        to come gets the error, until close()."""
+        msg = f"the mesh failed: {self.failed}"
+        with self._held_lock:
+            held, self._held = self._held, []
+        _answer(held, msg)
+        while not self._closing:
+            it = self.queue.get()
+            if it is None:
+                break
+            _answer([it], msg)
+
+    def _follow(self):
+        """A rank but 0 of a mesh: each batch rank 0 broadcasts, run as it
+        runs it, until its stop, or until a batch fails here or on another
+        rank (the module docstring)."""
+        while True:
+            try:
+                desc = broadcast_object(None, self.mesh)
+                if desc is None:
+                    break
+                self._run(desc)
+            except Exception:
+                self._end_mesh()
+                break
 
     def _context_cached(self, prompt: str):
         cache = self._ctx_cache
@@ -259,13 +345,34 @@ class Batcher:
         return out
 
     def _run_batch(self, items):
-        steps, sampler, karras = items[0][1], items[0][6], items[0][7]
+        """Run one batch of requests (rank 0's worker): its description,
+        broadcast on a mesh, then _run; the images go to the completer."""
+        desc = {"steps": items[0][1], "sampler": items[0][6], "karras": items[0][7],
+                "lora": items[0][8], "prompts": [it[0] for it in items],
+                "negatives": [it[5] for it in items], "scales": [it[2] for it in items],
+                # drawn here, so that every rank of a mesh draws the same noise
+                "seeds": [_seed(it[3]) for it in items], "counts": [it[4] for it in items]}
+        if self.mesh is not None:
+            broadcast_object(desc, self.mesh)
+        images = self._run(desc)
+        done = None
+        if images.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(images.device))
+        # the worker is free for the next batch while this one is copied
+        self._readback_q.put((images, done, items, desc["counts"]))
+
+    def _run(self, desc):
+        """The images of one batch description ([sum of counts, H, W, 3]
+        uint8 on the device; on a mesh gathered over dp on every rank)."""
         # adapters change only the UNet: the context cache serves them all
-        sd = self.sd_for(items[0][8])
+        sd = self.sd_for(desc["lora"])
         dev, hw = sd.device, sd.config.latent_size
-        ctxs, valids, unctxs, unvalids, scales, latents, counts = [], [], [], [], [], [], []
+        ctxs, valids, unctxs, unvalids, scales, latents = [], [], [], [], [], []
         gens = []
-        for prompt, _, scale, seed, n_images, negative, *_ in items:
+        for prompt, negative, scale, seed, n_images in zip(
+                desc["prompts"], desc["negatives"], desc["scales"], desc["seeds"],
+                desc["counts"]):
             ctx, valid = self._context_cached(prompt)
             unctx, unvalid = self._context_cached(negative)
             gen = _generator(dev, seed)
@@ -278,10 +385,11 @@ class Batcher:
                 unctxs.append(unctx[0])
                 unvalids.append(unvalid[0])
                 scales.append(scale)
-            counts.append(n_images)
 
         b = len(ctxs)
         b_pad = 1 << (b - 1).bit_length()
+        if self.mesh is not None:  # sample_latent splits the batch over dp
+            b_pad = -(-b_pad // self.mesh.dp) * self.mesh.dp
         pad = b_pad - b
         if pad:
             for lst in (ctxs, valids, unctxs, unvalids, scales):
@@ -293,16 +401,10 @@ class Batcher:
         # draws)
         latent = sd.sample_latent(
             torch.stack(ctxs), torch.stack(unctxs), torch.tensor(scales, dtype=torch.float32),
-            steps, generator=gens[0], initial_latent=torch.cat(latents, dim=0),
+            desc["steps"], generator=gens[0], initial_latent=torch.cat(latents, dim=0),
             ctx_valid=torch.stack(valids), uncond_valid=torch.stack(unvalids),
-            sampler=sampler, karras_sigmas=karras)
-        images = sd._decode_u8(latent)
-        done = None
-        if images.device.type == "cuda":
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(images.device))
-        # the worker is free for the next batch while this one is copied
-        self._readback_q.put((images, done, items, counts))
+            sampler=desc["sampler"], karras_sigmas=desc["karras"])
+        return sd._decode_u8(latent)[:b]
 
     def _complete(self):
         while True:
@@ -320,9 +422,14 @@ class Batcher:
                     i += n
                     ev.set()
             except Exception as e:  # the batch's callers get the error
-                for *_rest, ev, slot in items:
-                    slot["error"] = f"{type(e).__name__}: {e}"
-                    ev.set()
+                _answer(items, f"{type(e).__name__}: {e}")
+
+
+def _answer(items, error: str):
+    """Fail each queued item with `error`: its caller's submit raises it."""
+    for *_rest, ev, slot in items:
+        slot["error"] = error
+        ev.set()
 
 
 def _pngs(imgs, dt):
@@ -504,7 +611,11 @@ def make_server(sd, tokenizer, port: int = 8000, warmup: bool = True,
                 max_queue: int = 32, timeout_s: float = 120.0, loras=None) -> Server:
     """A server bound to `port` (0: any free one, see server_address) that
     has run one warm-up request and reports ready. Serve with
-    serve_forever(); stop with shutdown() and server_close()."""
+    serve_forever(); stop with shutdown() and server_close(). sd: a
+    pipeline without a mesh (on a mesh, build a Batcher on every rank)."""
+    if sd.mesh is not None:
+        raise ValueError("make_server serves a pipeline without a mesh: on a mesh every "
+                         "rank builds a Batcher, and rank 0 submits")
     batcher = Batcher(sd, tokenizer, max_batch=max_batch, window_ms=batch_window_ms,
                       max_queue=max_queue, timeout_s=timeout_s, loras=loras)
     state = ServerState(sd, tokenizer, batcher, default_steps)

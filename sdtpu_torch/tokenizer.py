@@ -1,5 +1,4 @@
-"""CLIP byte-level BPE tokenizer of the port (a copy of sdtpu/tokenizer.py's
-pure-Python encoder, without its native runtime branch).
+"""CLIP byte-level BPE tokenizer of the port (a copy of sdtpu/tokenizer.py).
 
 - byte <-> printable unicode table;
 - merges from `bpe_simple_vocab_16e6.txt` rows [1, 48895): a file of that
@@ -7,7 +6,10 @@ pure-Python encoder, without its native runtime branch).
   the gzipped copy in `sdtpu_torch/data/`;
 - vocab = 256 chars + 256 chars+"</w>" + 48894 merges + 2 specials = 49408;
 - lowercase and whitespace-clean on encode, greedy lowest-rank merges;
-- no padding or truncation to 77 tokens (the pipeline does that).
+- no padding or truncation to 77 tokens (the pipeline does that);
+- ASCII text through the native runtime's fast path (sdtpu_torch.runtime)
+  where it is built, as sdtpu's; other text, or a host without the
+  runtime, through the Python encoder, which is its oracle.
 
 tests/test_torch_config.py holds its ids equal to sdtpu's.
 """
@@ -75,14 +77,28 @@ def whitespace_clean(text: str) -> str:
     return " ".join(text.split())
 
 
-class SimpleTokenizer:
-    """CLIP BPE encoder/decoder."""
+def _read_merges_bytes(path: str) -> bytes:
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rb") as f:
+        return f.read()
 
-    def __init__(self, vocab_path: str | None = None):
+
+class SimpleTokenizer:
+    """CLIP BPE encoder/decoder. use_native: ASCII text through the native
+    runtime where it is built (module docstring)."""
+
+    def __init__(self, vocab_path: str | None = None, use_native: bool = True):
         self.byte_encoder = bytes_to_unicode()
         self.byte_decoder = {v: k for k, v in self.byte_encoder.items()}
+        path = vocab_path or _default_vocab_path()
+        self._native = None
+        if use_native:
+            from sdtpu_torch import runtime
 
-        lines = _read_merge_lines(vocab_path or _default_vocab_path())
+            if runtime.available():
+                self._native = runtime.NativeTokenizer(_read_merges_bytes(path))
+
+        lines = _read_merge_lines(path)
         # rows [1, 49152-256-2+1) = [1, 48895)
         merge_lines = lines[1 : 49152 - 256 - 2 + 1]
         merges: List[Tuple[str, str]] = []
@@ -145,6 +161,10 @@ class SimpleTokenizer:
         return out
 
     def encode(self, text: str) -> List[int]:
+        if self._native is not None:
+            ids = self._native.encode(text)
+            if ids is not None:
+                return ids
         text = whitespace_clean(text.strip()).lower()
         bpe_tokens: List[int] = []
         for token in _PAT.findall(text):

@@ -15,16 +15,23 @@ returns new trees, which saves a copy of each (3.4 GB per f32 copy of SD
 v1's UNet). One departure: Adafactor's weight decay is scaled by the
 learning rate (see Adafactor).
 
-On a parallel.Mesh (make_train_step(..., mesh=)) every rank keeps the whole
-f32 masters and the whole optimizer state; the loss derives this rank's tp
-shards from the masters (parallel/sharding.py:shard_params, through
-scatter_to_tp), so each tp rank gets whole gradients, which are averaged
-over dp by an all-reduce; then every rank runs the same update. The global
-norm, Adafactor's factored statistics and rms(w), the EMA and the saved
-model all see the whole leaves, as in sdtpu. (sdtpu shards the optimizer
-state with the params; the port does not.) The batch a rank is given is
-its dp slice; t and noise are drawn for the whole batch, alike on every
-rank, and sliced.
+On a parallel.Mesh (make_train_step(..., mesh=)) the trained tree, the
+optimizer state and the EMA are held as sdtpu holds them: each leaf as tp
+shards by parallel/sharding.py's rule (param_specs, equal to sdtpu's
+param_shardings), replicated over dp. A rank keeps the f32 masters' tp
+parts (master_params(tree, mesh)) and the state opt.init builds on them
+from their Layout (tp_layout). The loss runs on the local parts and gives
+the local gradients (a leaf a sublayer gathers whole, where a head would
+straddle two ranks, gets its part back through gather_from_tp's
+backward), which are averaged over dp by an all-reduce; then each tp rank
+updates its part. The global-norm clip all-reduces the squared sums of the
+sharded leaves over tp and counts a replicated leaf once; Adafactor
+factors a leaf by its whole shape, as optax does under GSPMD, and
+all-reduces over tp its row and column means over a sharded dim and
+rms(update) and rms(w) of a sharded leaf; the EMA is elementwise. Saving
+gathers whole leaves (whole_tree; io/checkpoint.py), so the files are
+those of one process. The batch a rank is given is its dp slice; t and
+noise are drawn for the whole batch, alike on every rank, and sliced.
 """
 
 from __future__ import annotations
@@ -36,12 +43,14 @@ from typing import Callable, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from sdtpu_torch.config import StableDiffusionConfig
 from sdtpu_torch.models.unet import unet_apply
 from sdtpu_torch.ops import dispatch
 from sdtpu_torch.parallel import tp as tpc
-from sdtpu_torch.parallel.sharding import shard_batch, shard_params
+from sdtpu_torch.parallel.sharding import (Split, gather_part, shard_batch, shard_params,
+                                           splits)
 
 
 def tree_leaves(tree) -> List[torch.Tensor]:
@@ -61,16 +70,96 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
-def master_params(tree):
+def master_params(tree, mesh=None):
     """f32 master copies of a parameter tree's floating leaves, each a new
     tensor that requires grad (sdtpu's `jnp.asarray(p, jnp.float32)` of the
-    trained tree): the weights train in f32 whatever the compute dtype."""
+    trained tree): the weights train in f32 whatever the compute dtype. On
+    a mesh, of this rank's tp parts of the whole `tree` (shard_params)."""
     def master(p):
         if torch.is_tensor(p) and p.is_floating_point():
             return p.detach().to(torch.float32, copy=True).requires_grad_(True)
         return p
 
-    return tree_map(master, tree)
+    return tree_map(master, shard_params(tree, mesh))
+
+
+@dataclass(frozen=True)
+class Layout:
+    """How a trained tree's leaves lie over a tp group (sdtpu's
+    param_shardings of it): per leaf, in tree_leaves order, its Split
+    (parallel/sharding.py), or None where every rank holds it whole."""
+    tp: tpc.TP
+    splits: tuple
+
+    def whole_shape(self, i: int, shape) -> tuple:
+        s = self.splits[i]
+        return tuple(shape) if s is None else s.whole_shape(shape, self.tp.size)
+
+    def group(self, i: int) -> Optional[tpc.TP]:
+        """The tp group over which leaf i is split, or None."""
+        return None if self.splits[i] is None else self.tp
+
+
+def tp_layout(tree, mesh) -> Optional[Layout]:
+    """The Layout of the whole `tree`'s parts on a mesh (None without one,
+    or at tp = 1)."""
+    tp = tpc.of_mesh(mesh)
+    if tp is None:
+        return None
+    return Layout(tp, tuple(tree_leaves(splits(tree, tp.size))))
+
+
+def whole_tree(tree, layout: Optional[Layout], keep: bool = True):
+    """The whole tree from every tp rank's parts: leaf by leaf all-gathers
+    over the tp group, which every rank of it calls; None on a rank that
+    does not keep it (each leaf dropped once gathered). The tree itself
+    without a layout."""
+    if layout is None:
+        return tree if keep else None
+    parts = iter(layout.splits)
+    if not keep:
+        for p, s in zip(tree_leaves(tree), parts):
+            gather_part(p.detach(), s, layout.tp)
+        return None
+    return tree_map(lambda p: gather_part(p.detach(), next(parts), layout.tp), tree)
+
+
+def _all_sum(x, tp: Optional[tpc.TP]):
+    """x (a tensor of partial sums) summed over the tp group, in place; x
+    where tp is None."""
+    if tp is not None:
+        dist.all_reduce(x, group=tp.group)
+    return x
+
+
+def _mean(x, dim: int, tp: Optional[tpc.TP], keepdim: bool = False):
+    """x's mean over `dim`, where tp is the group `dim` is split over: the
+    whole dim's (sum all-reduced, over the whole size); x.mean(dim) where
+    tp is None."""
+    if tp is None:
+        return x.mean(dim, keepdim=keepdim)
+    return _all_sum(x.sum(dim, keepdim=keepdim), tp).div_(x.shape[dim] * tp.size)
+
+
+def _rms(x, tp: Optional[tpc.TP]):
+    """The root mean square of the whole leaf of which x is this rank's
+    part over tp (x's own where tp is None)."""
+    if tp is None:
+        return x.square().mean().sqrt()
+    return (_all_sum(x.square().sum(), tp) / (x.numel() * tp.size)).sqrt()
+
+
+def global_norm(g: List[torch.Tensor], layout: Optional[Layout] = None) -> float:
+    """The global norm of the gradients g (tree_leaves order) of the whole
+    tree. On a Layout the squared sums of the sharded leaves are
+    all-reduced over tp, and a replicated leaf, which every rank holds
+    whole, is counted once."""
+    norms = torch.stack(torch._foreach_norm(g))
+    if layout is None:
+        return float(torch.linalg.vector_norm(norms))
+    sharded = torch.tensor([s is not None for s in layout.splits], device=norms.device)
+    sq = norms.square()
+    return float((_all_sum(sq[sharded].sum(), layout.tp) + sq[~sharded].sum()).sqrt())
 
 
 def q_sample(x0, noise, alphas_cumprod, t):
@@ -143,12 +232,13 @@ class _Recipe:
         c = min(count - w, decay)
         return self.lr * 0.5 * (1.0 + math.cos(math.pi * c / decay))
 
-    def clip(self, g: List[torch.Tensor]) -> None:
+    def clip(self, g: List[torch.Tensor], layout: Optional[Layout] = None) -> None:
         """g · max / ||g|| in place where the global norm ||g|| >= max (no
-        epsilon, unlike torch.nn.utils.clip_grad_norm_)."""
+        epsilon, unlike torch.nn.utils.clip_grad_norm_); ||g|| is the whole
+        tree's (global_norm) on a layout."""
         if self.grad_clip is None:
             return
-        norm = float(torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g))))
+        norm = global_norm(g, layout)
         if not norm < self.grad_clip:
             torch._foreach_div_(g, norm)
             torch._foreach_mul_(g, self.grad_clip)
@@ -157,10 +247,18 @@ class _Recipe:
 @dataclass
 class AdamWState:
     """count: completed updates; mu, nu: the f32 moments, one per leaf of
-    the parameter tree (tree_leaves order)."""
+    the parameter tree (tree_leaves order), each a part of the whole
+    moment as its leaf is on a layout."""
     count: int
     mu: List[torch.Tensor]
     nu: List[torch.Tensor]
+    layout: Optional[Layout] = None
+
+    def splits(self) -> dict:
+        """{field: [Split or None per entry]} of the state's tensors."""
+        if self.layout is None:
+            return {}
+        return {"mu": list(self.layout.splits), "nu": list(self.layout.splits)}
 
 
 class AdamW(_Recipe):
@@ -178,10 +276,12 @@ class AdamW(_Recipe):
 
     b1, b2, eps = 0.9, 0.999, 1e-8
 
-    def init(self, params) -> AdamWState:
+    def init(self, params, layout: Optional[Layout] = None) -> AdamWState:
+        """The zero state of params (a tree; on a mesh this rank's parts,
+        laid out as `layout` says)."""
         leaves = tree_leaves(params)
         return AdamWState(0, [torch.zeros_like(p, dtype=torch.float32) for p in leaves],
-                          [torch.zeros_like(p, dtype=torch.float32) for p in leaves])
+                          [torch.zeros_like(p, dtype=torch.float32) for p in leaves], layout)
 
     @torch.no_grad()
     def update(self, params, grads, state: AdamWState) -> None:
@@ -189,7 +289,7 @@ class AdamW(_Recipe):
         which it clips in place."""
         leaves = tree_leaves(params)
         g = list(grads)
-        self.clip(g)
+        self.clip(g, state.layout)
         b1, b2 = self.b1, self.b2
         torch._foreach_mul_(state.mu, b1)
         torch._foreach_add_(state.mu, g, alpha=1.0 - b1)
@@ -209,15 +309,40 @@ class AdamW(_Recipe):
         torch._foreach_add_(leaves, u, alpha=-lr)
 
 
+def _without(split: Optional[Split], dim: int) -> Optional[Split]:
+    """The Split of a mean over `dim` of a leaf split as `split`: none where
+    the mean is over the split dim, else the split dim's index without dim."""
+    if split is None or split.dim == dim:
+        return None
+    return Split(split.dim - (split.dim > dim), split.blocks)
+
+
 @dataclass
 class AdafactorState:
     """count: completed updates; per leaf of the parameter tree
     (tree_leaves order) either the factored second moments v_row and v_col
-    (v None) or the whole one v (v_row and v_col None), f32."""
+    (v None) or the whole one v (v_row and v_col None), f32, each a part as
+    its leaf is on a layout; dims: per leaf the (d1, d0) it is factored on
+    (from its whole shape), or None."""
     count: int
     v_row: List[Optional[torch.Tensor]]
     v_col: List[Optional[torch.Tensor]]
     v: List[Optional[torch.Tensor]]
+    layout: Optional[Layout] = None
+    dims: tuple = ()
+
+    def splits(self) -> dict:
+        """{field: [Split or None per entry]} of the state's tensors: v as
+        its leaf; v_row (the mean over d0) and v_col (over d1) split where
+        the leaf is, but on the dim they average."""
+        if self.layout is None:
+            return {}
+        out = {"v_row": [], "v_col": [], "v": []}
+        for s, dims in zip(self.layout.splits, self.dims):
+            out["v"].append(s if dims is None else None)
+            out["v_row"].append(None if dims is None else _without(s, dims[1]))
+            out["v_col"].append(None if dims is None else _without(s, dims[0]))
+        return out
 
 
 class Adafactor(_Recipe):
@@ -257,10 +382,14 @@ class Adafactor(_Recipe):
             return None
         return int(order[-2]), int(order[-1])
 
-    def init(self, params) -> AdafactorState:
-        state = AdafactorState(0, [], [], [])
-        for p in tree_leaves(params):
-            dims = self.factored_dims(tuple(p.shape))
+    def init(self, params, layout: Optional[Layout] = None) -> AdafactorState:
+        """The zero state of params (a tree; on a mesh this rank's parts,
+        laid out as `layout` says), each leaf factored by its whole shape."""
+        state = AdafactorState(0, [], [], [], layout)
+        for k, p in enumerate(tree_leaves(params)):
+            shape = tuple(p.shape) if layout is None else layout.whole_shape(k, p.shape)
+            dims = self.factored_dims(shape)
+            state.dims += (dims,)
             zeros = functools.partial(torch.zeros, dtype=torch.float32, device=p.device)
             if dims is None:
                 state.v_row.append(None), state.v_col.append(None)
@@ -277,25 +406,31 @@ class Adafactor(_Recipe):
         """One step on params (a tree) from grads (f32, tree_leaves order),
         which it clips in place."""
         g = list(grads)
-        self.clip(g)
+        layout = state.layout
+        self.clip(g, layout)
         # optax's scalars are f32: decay_rate_t and 1 - decay_rate_t
         decay = np.float32(1) - np.float32(state.count + 1) ** np.float32(-self.decay_exponent)
         keep, mix = float(decay), float(np.float32(1) - decay)
         lr = self.schedule(state.count)
         state.count += 1
         for i, (p, gi) in enumerate(zip(tree_leaves(params), g)):
+            tp = None if layout is None else layout.group(i)
             g2 = gi * gi + self.eps
             if state.v[i] is None:
-                d1, d0 = self.factored_dims(tuple(p.shape))
-                v_row = state.v_row[i].mul_(keep).add_(g2.mean(d0), alpha=mix)
-                v_col = state.v_col[i].mul_(keep).add_(g2.mean(d1), alpha=mix)
-                row = (v_row / v_row.mean(d1 - 1 if d1 > d0 else d1, keepdim=True)).rsqrt_()
+                d1, d0 = state.dims[i]
+                # the tp group of a mean over d0 or d1 where that dim is split
+                tp0, tp1 = (tp if tp is not None and layout.splits[i].dim == d else None
+                            for d in (d0, d1))
+                v_row = state.v_row[i].mul_(keep).add_(_mean(g2, d0, tp0), alpha=mix)
+                v_col = state.v_col[i].mul_(keep).add_(_mean(g2, d1, tp1), alpha=mix)
+                row = (v_row / _mean(v_row, d1 - 1 if d1 > d0 else d1, tp1,
+                                     keepdim=True)).rsqrt_()
                 u = gi * row.unsqueeze(d0) * v_col.rsqrt().unsqueeze(d1)
             else:
                 u = gi * state.v[i].mul_(keep).add_(g2, alpha=mix).rsqrt()
             del g2
-            u.div_(torch.clamp_min(u.square().mean().sqrt() / self.clip_threshold, 1.0))
-            u.mul_(lr).mul_(p.square().mean().sqrt().clamp_min_(self.min_scale))
+            u.div_(torch.clamp_min(_rms(u, tp) / self.clip_threshold, 1.0))
+            u.mul_(lr).mul_(_rms(p, tp).clamp_min_(self.min_scale))
             if self.weight_decay:
                 u.add_(p, alpha=lr * self.weight_decay)
             p.sub_(u)
@@ -381,14 +516,14 @@ def loss_and_grads(params, cfg: StableDiffusionConfig, latents, context, t, nois
                    ctx_valid=None, compute_dtype=torch.float32, remat=False, accum: int = 1,
                    accum_dtype=None, mesh=None):
     """(loss, f32 gradients in tree_leaves order) of diffusion_loss, over
-    `accum` micro-batches (micro_batch_grads). On a mesh: on this rank's tp
-    shards of params, the loss and the gradients averaged over dp
-    (dp_mean)."""
+    `accum` micro-batches (micro_batch_grads). On a mesh params are this
+    rank's tp parts (master_params(tree, mesh)), whose gradients come back,
+    and the loss and the gradients are averaged over dp (dp_mean)."""
     tp = tpc.of_mesh(mesh)
 
     def loss_of(sl):
         with tpc.use(tp):
-            return diffusion_loss(shard_params(params, mesh), cfg, latents[sl], context[sl],
+            return diffusion_loss(params, cfg, latents[sl], context[sl],
                                   t[sl], noise[sl], None if ctx_valid is None else ctx_valid[sl],
                                   compute_dtype=compute_dtype, remat=remat)
 
@@ -402,8 +537,6 @@ def dp_mean(loss, grads: List[torch.Tensor], mesh=None):
     mesh or at dp = 1."""
     if mesh is None or mesh.dp == 1:
         return loss, grads
-    import torch.distributed as dist
-
     for g in [loss, *grads]:
         dist.all_reduce(g, group=mesh.dp_group)
         g.div_(mesh.dp)
@@ -435,7 +568,9 @@ def make_train_step(cfg: StableDiffusionConfig, optimizer: _Recipe,
     """Returns train_step(params, opt_state, batch, generator=None, *,
     t=None, noise=None) -> (params, opt_state, loss), sdtpu's step_core.
     batch = (latents, context) or (latents, context, ctx_valid). params: a
-    tree of f32 leaves that require grad (master_params), updated in place.
+    tree of f32 leaves that require grad (master_params; on a mesh this
+    rank's tp parts, the optimizer state built on their tp_layout), updated
+    in place.
     t and noise: draw_t_noise. loss is a 0-dim f32 tensor, left on the
     device.
 
@@ -448,8 +583,9 @@ def make_train_step(cfg: StableDiffusionConfig, optimizer: _Recipe,
     (params, opt_state, ema_params, loss), the EMA updated in place after
     the optimizer step.
 
-    mesh: a parallel.Mesh; the batch is this dp rank's slice, t and noise
-    (given or drawn) the whole batch's (see the module docstring)."""
+    mesh: a parallel.Mesh; params, the state and the EMA are this rank's
+    tp parts, the batch is this dp rank's slice, t and noise (given or
+    drawn) the whole batch's (see the module docstring)."""
 
     def step_core(params, opt_state, batch, generator=None, *, t=None, noise=None):
         latents, context = batch[0], batch[1]

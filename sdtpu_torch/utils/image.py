@@ -1,7 +1,8 @@
 """PNG encode and decode with numpy and zlib, no PIL (the port's own copy
-of sdtpu/utils/image.py, without its native-encoder branch): the card's
-machine does not promise PIL. tests/test_torch_finetune.py holds both
-directions equal to sdtpu's.
+of sdtpu/utils/image.py): the card's machine does not promise PIL.
+save_png writes through the native runtime's encoder where it is built, as
+sdtpu's does, whose bytes are encode_png_rgb8's. tests/test_torch_finetune.py
+holds both directions equal to sdtpu's.
 """
 
 from __future__ import annotations
@@ -37,8 +38,12 @@ def encode_png_rgb8(img: np.ndarray) -> bytes:
 
 
 def save_png(img: np.ndarray, path: str) -> None:
+    from sdtpu_torch import runtime
+
+    img = np.ascontiguousarray(img)
+    data = runtime.png_encode_rgb8(img)  # None without the native runtime
     with open(path, "wb") as f:
-        f.write(encode_png_rgb8(np.ascontiguousarray(img)))
+        f.write(encode_png_rgb8(img) if data is None else data)
 
 
 def save_images(images, basepath: str) -> list:

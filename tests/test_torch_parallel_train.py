@@ -2,9 +2,13 @@
 CPU under gloo (two spawned ranks, one spawn for every check of the step).
 
 - one AdamW step (also with remat "full", whose recompute enters the tp
-  group again on autograd's thread), one Adafactor step and one LoRA step,
+  group again on autograd's thread), one Adafactor step and one LoRA step
+  (over the attention linears, and over GEGLU's projection, whose tp part
+  is [value_r | gate_r]),
   each at dp = 2 and at tp = 2, against the same step in one process (the
-  batch is the rank's dp slice, t and noise the whole batch's, injected):
+  batch is the rank's dp slice, t and noise the whole batch's, injected;
+  at tp = 2 the masters, the optimizer state and LoRA's frozen base are the
+  rank's tp parts, and the leaves and gradients are gathered to compare):
   the loss, the gradients the optimizer gets (dp-averaged) within 1e-5 of
   their largest, and the leaves after the step within 1e-5 but for at most
   OFF_SHARE of their elements, which stay within 2 lr: AdamW's first update
@@ -33,7 +37,9 @@ from test_torch_parallel import SPAWN_TIMEOUT, WIDE
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STEP_TOL = 1e-5
 OFF_SHARE = 1e-5
-KINDS = ("adamw", "adamw remat", "adafactor", "lora")
+KINDS = ("adamw", "adamw remat", "adafactor", "lora", "lora geglu")
+# the adapted linears of each LoRA kind
+LORA_TARGETS = {"lora": ("query", "key", "value", "out"), "lora geglu": ("proj", "fc1")}
 
 
 def _data(seed=5, b=4):
@@ -57,10 +63,12 @@ def _unet():
 def _step(kind, mesh=None):
     """(updated leaves, loss, the gradients the optimizer got at the last
     update) of one step of `kind` on the dp slice of _data() (the whole
-    batch without a mesh)."""
+    batch without a mesh). On a mesh the masters, the state and the LoRA
+    base are this rank's tp parts; the leaves and gradients come back
+    gathered whole."""
     from sdtpu_torch import lora as tlora
     from sdtpu_torch import training as ttrain
-    from sdtpu_torch.parallel import shard_batch
+    from sdtpu_torch.parallel import shard_batch, shard_params
 
     latents, context, valid, t, noise = (torch.from_numpy(a) for a in _data())
     batch = tuple(shard_batch(a, mesh) for a in (latents, context, valid))
@@ -74,19 +82,24 @@ def _step(kind, mesh=None):
         return update(params, g, state)
 
     opt.update = keep
-    if kind == "lora":
-        tree = ttrain.master_params(tlora.init_lora(torch.Generator().manual_seed(1), base, 2))
+    layout = None
+    if kind in LORA_TARGETS:
+        tree = ttrain.master_params(tlora.init_lora(torch.Generator().manual_seed(1), base, 2,
+                                                    targets=LORA_TARGETS[kind]))
         # b moves off 0 at the first step; a's gradient is 0 there: a second step trains it
         step = tlora.make_lora_train_step(WIDE, opt, 0.5, mesh=mesh)
         state = opt.init(tree)
         for _ in range(2):
-            tree, state, loss = step(tree, state, base, batch, t=t, noise=noise)
+            tree, state, loss = step(tree, state, shard_params(base, mesh), batch, t=t,
+                                     noise=noise)
     else:
-        tree = ttrain.master_params(base)
+        tree, layout = ttrain.master_params(base, mesh), ttrain.tp_layout(base, mesh)
         step = ttrain.make_train_step(WIDE, opt, mesh=mesh,
                                       remat="full" if kind == "adamw remat" else False)
-        tree, _, loss = step(tree, opt.init(tree), batch, t=t, noise=noise)
-    return [p.detach() for p in ttrain.tree_leaves(tree)], float(loss), grads
+        tree, _, loss = step(tree, opt.init(tree, layout), batch, t=t, noise=noise)
+    leaves = ttrain.tree_leaves(ttrain.whole_tree(tree, layout))
+    return ([p.detach() for p in leaves], float(loss),
+            ttrain.tree_leaves(ttrain.whole_tree(grads, layout)))
 
 
 def _close_but_flips(got, want, lr, steps):
@@ -124,7 +137,7 @@ def _write_model_and_cache(tmp):
     return model, cache
 
 
-def _finetune(model, cache, out, tp=1):
+def _finetune(model, cache, out, tp=1, **kw):
     from sdtpu_torch.finetune import run_finetune
     from sdtpu_torch.io.native import load_native
     from sdtpu_torch.pipeline import StableDiffusion
@@ -133,7 +146,7 @@ def _finetune(model, cache, out, tp=1):
     torch.set_num_threads(1)
     params, cfg = load_native(model, "cpu")
     return run_finetune(StableDiffusion(params, cfg), SimpleTokenizer(), cache, out, steps=2,
-                        batch_size=2, lr=1e-4, tp=tp, log_every=1, log=lambda m: None)
+                        batch_size=2, lr=1e-4, tp=tp, log_every=1, log=lambda m: None, **kw)
 
 
 def _leaves(path):
@@ -141,6 +154,13 @@ def _leaves(path):
 
     params, _ = load_native(path, "cpu")
     return {k: v for k, v in flatten_tree(params).items() if torch.is_tensor(v)}
+
+
+def _adapter_leaves(path):
+    from sdtpu_torch.io.native import flatten_tree
+    from sdtpu_torch.lora import load_lora
+
+    return flatten_tree(load_lora(path)[0])
 
 
 @functools.lru_cache(maxsize=None)
@@ -170,16 +190,16 @@ def test_step_on_the_mesh_equals_single(steps, kind, layout):
         assert abs(loss - want_loss) <= 1e-6 * max(1.0, abs(want_loss))
         for g, w in zip(got_g, want_g):
             torch.testing.assert_close(g, w, rtol=0, atol=STEP_TOL * g_max)
-        _close_but_flips(got, want, lr=1e-4, steps=1 if kind != "lora" else 2)
-    if kind != "lora":  # the step moved the weights (by lr 1e-4 a leaf)
+        _close_but_flips(got, want, lr=1e-4, steps=1 if kind not in LORA_TARGETS else 2)
+    if kind not in LORA_TARGETS:  # the step moved the weights (by lr 1e-4 a leaf)
         moved = max(float((w - b).abs().max()) for w, b in zip(want, before))
         assert moved > 10 * STEP_TOL
 
 
-def _finetune_rank(model, cache, out):
+def _finetune_rank(model, cache, out, lora_rank=None):
     import torch.distributed as dist
 
-    result = _finetune(model, cache, out, tp=2)
+    result = _finetune(model, cache, out, tp=2, lora_rank=lora_rank)
     return dist.get_rank(), result["losses"]
 
 
@@ -206,6 +226,25 @@ def test_run_finetune_tp2_writes_the_single_runs_model(single_run, tmp_path):
     _close_but_flips([got[k] for k in want], list(want.values()), lr=1e-4, steps=2)
     # one model written, by rank 0 (no file of another name)
     assert os.listdir(tmp_path) == ["tp.safetensors"]
+
+
+def test_run_finetune_lora_tp2_writes_the_single_runs_model(single_run, tmp_path):
+    """A LoRA run at tp = 2 (the frozen base in tp parts, the merged model
+    gathered from them) writes the single run's adapter and merged model."""
+    from sdtpu_torch.parallel import spawn
+
+    model, cache, _ = single_run
+    want = _finetune(model, cache, str(tmp_path / "single"), lora_rank=2)
+    res = spawn(2, _finetune_rank, model, cache, str(tmp_path / "tp"), 2, backend="gloo",
+                timeout=SPAWN_TIMEOUT)
+    assert res[0][1] == res[1][1]
+    np.testing.assert_allclose([l for _, l in res[0][1]], [l for _, l in want["losses"]],
+                               rtol=1e-5)
+    for got, ref in ((_leaves(str(tmp_path / "tp.safetensors")), _leaves(want["out_path"])),
+                     (_adapter_leaves(str(tmp_path / "tp.lora.safetensors")),
+                      _adapter_leaves(want["lora_path"]))):
+        assert sorted(got) == sorted(ref)
+        _close_but_flips([got[k] for k in ref], list(ref.values()), lr=1e-4, steps=2)
 
 
 def test_finetune_command_line_under_torchrun(single_run, tmp_path):

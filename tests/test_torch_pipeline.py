@@ -232,7 +232,7 @@ def test_port_imports_no_jax():
         "for m in ('pipeline', 'cli', 'sample', 'convert', 'finetune', 'io.mpk',\n"
         "          'io.checkpoint', 'lora', 'textual_inversion', 'training', 'parallel',\n"
         "          'parallel.mesh', 'parallel.sharding', 'parallel.tp', 'parallel.launch',\n"
-        "          'parallel.layers', 'utils.debug'):\n"
+        "          'parallel.layers', 'parallel.dryrun', 'runtime', 'utils.debug'):\n"
         "    assert 'sdtpu_torch.' + m in sys.modules, m\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
 

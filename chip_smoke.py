@@ -7,8 +7,10 @@ Phases, each printing its lines:
 1. device and build: the card's name and power limit (nvidia-smi), then
    the kernels built from sdtpu_torch/csrc with nvcc (one process per
    source, all at once), and the native runtime (sdtpu_torch/runtime: the
-   BPE fast path, the PNG encoder, the bulk file reader) built with g++; it
-   fails where the runtime does not load;
+   BPE fast path, the PNG encoder, the bulk file reader) built with g++, by
+   the run's first process, a cold `python -m sdtpu_torch.sample` at
+   sd-tiny whose warm.WarmStart builds them on a thread while the weights
+   load (cold_sample); it fails where the runtime does not load;
 2. each kernel against its plain PyTorch version on the card, at the
    shapes SD v1.4's UNet, VAE decoder and VAE encoder give it at 512px and
    at 1024px (the UNet's also at batch 1, the two-pass mode's), and
@@ -55,15 +57,31 @@ Phases, each printing its lines:
    against CPU;
 4. StableDiffusion.generate at SD v1.4 width with random weights: bf16,
    20 DDIM steps, CFG 7.5, batch 1, first at 512x512, then at 1024x1024
-   (the same config with image_size=1024). Each must give a
+   (the same config with image_size=1024), through CUDA graphs (the
+   default on the card: sdtpu_torch/graphs.py), captured first by
+   warm.capture as the command line's WarmStart captures them, then
+   replayed: one replay each of the sampler and the decode, two of CLIP,
+   no capture. Each must give a
    [1, size, size, 3] uint8 image from finite latents, and the kernels'
    launch counters, set to 0 just before each run and read just after,
-   must read exactly what the dispatch implies; K2's, K6's, K4's and K7's
+   must read exactly what the dispatch implies (a replay adds the launches
+   its capture recorded); K2's, K6's, K4's and K7's
    launches (and K10's in the serve phase), counted per route, must all
    take their Hopper kernels (here, in the serve phase and in the
    fine-tuning cache build), K3's its cluster kernel wherever its plan has
    one (every main-path C), and K1's one launch at 1024px (the decoder's
-   d = 512) the wide kernel;
+   d = 512) the wide kernel; the 1024px decode is also run eagerly on the
+   final latent, the replay within GRAPH_GRAY_TOL of it. Then the graph
+   phase on the 512px pipeline and its eager twin (the same weights,
+   graphs off), the same inputs through both in turns: 20 DDIM steps, the
+   denoise's and the decode's walls eager and replayed and the replayed
+   denoise's busy share by the profiler's device time; euler_a with inpainting (the
+   noise drawn before the loop; the encoder's graph); two seeds and two
+   prompts through one graph (stale buffers); two graphs in turns; each
+   replayed latent within GRAPH_LATENT_TOL (bf16 1e-3) of the eager one,
+   each image within 1 gray level; the launch counts per shape of two
+   replays twice those of one eager call; each graph's capture seconds
+   and the bytes it added to the shared pool;
 5. sdtpu_torch.finetune.run_finetune at SD v1.4 width and depth, 512x512,
    from a folder of synthetic PNGs: the latent cache through the port's
    VAE encoder and CLIP, then 3 AdamW steps at batch 4 in bf16, the tuned
@@ -76,7 +94,9 @@ Phases, each printing its lines:
    socket: concurrent requests batched to 4, the other samplers, img2img,
    inpainting, the adapter, a bad request; a lone seeded request must
    equal generate() byte for byte and K10 must launch 15 times a UNet
-   call, every launch on its Hopper route; then an A/B of K10's gate: the
+   call (the graphs' warm-ups apart), every launch on its Hopper route;
+   the sampler must have run from graphs 10 times on 8 keys (the batch of
+   three runs twice: captured, then replayed); then an A/B of K10's gate: the
    UNet call's device time in AB_PAIRS pairs of open and closed (in
    turns), and a lone request's latency in AB_ROUNDS rounds of open,
    closed, closed, open;
@@ -90,7 +110,9 @@ Phases, each printing its lines:
    `python -m sdtpu_torch.sample dump|native ... --seed 0 --bf16` on the
    card (the device argument omitted), each PNG byte-equal to an
    in-process generate in bf16 with the same generator, each run's load
-   and sampling seconds and launches read from its SDTPU_PROFILE=1 report
+   and sampling seconds, warm start (the kernels built while the weights
+   load, then the graphs captured), graph replays and launches (its
+   graphs' warm-ups apart) read from its SDTPU_PROFILE=1 report
    (the dump's load through the bulk reader, and nothing else), its peak
    resident memory; the native tokenizer's ids equal to the Python path's,
    the native PNG encoder's bytes to encode_png_rgb8's;
@@ -115,12 +137,13 @@ Phases, each printing its lines:
    run encodes images);
 9. (run after phase 4) SD v2.1 at 768x768, full width and depth (SD_V2_1,
    random weights, seed 0, bf16): generate with DDIM and with DPM++ on the
-   Karras ladder, img2img and inpainting on the DDIM image, one UNet call
-   with K10's gate open (10 heads at 48²), `python -m sdtpu_torch.sample
+   Karras ladder (also replayed against the eager loop on the same inputs,
+   within GRAPH_LATENT_TOL), img2img and inpainting on the DDIM image, one
+   UNet call with K10's gate open (10 heads at 48²), `python -m sdtpu_torch.sample
    native ... --preset sd-v2-1 --sampler dpmpp --karras --seed 0 --bf16`
    byte-equal to an in-process generate, and run_finetune at 768px (the
-   v target); each run's launches exactly the dispatch's, on their Hopper
-   routes;
+   v target); each run's launches exactly the dispatch's (the graphs'
+   warm-ups apart), on their Hopper routes;
 10. (run after phase 4) dp and tp over torch.distributed: SD v1.4 at
    512x512, bf16, random weights (seed 0), on two ranks that share cuda:0
    under gloo, started by sdtpu_torch.parallel.launch.spawn; each rank
@@ -167,7 +190,9 @@ launched there with no case in phase 2 is a failure. Every launched
 kernel also carries `device_ms` (the same launches by device time), and K5,
 K9, K2, K6, K1, K4, K10, K7 and K3 `replaced_device_ms` (those of the
 kernels their bf16 route replaced: the WMMA kernels, K3's partials kernel with
-its sum) and `sources_by_route`. K5's `library_ms` is both of its
+its sum) and `sources_by_route`. K3's `library_ms` is torch.var_mean over the rows,
+per channel; K8 has none (F.group_norm and F.silu are two calls). K5's
+`library_ms` is both of its
 products as two torch.matmul calls; K2's and K10's are SDPA on the core
 alone, K6's cuDNN's convolution alone (F.conv2d), K7's cuDNN's convolution
 over the already upsampled map.
@@ -187,9 +212,11 @@ so the float32 tolerances below are TF32 tolerances.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -199,9 +226,10 @@ from typing import Callable, NamedTuple, Optional
 SEED = 0
 WARMUP, ITERS = 3, 20
 # the calls a phase-2 timing spends on a slow kernel: 100 ms at first,
-# then 50, 25 and 15, each cut when the whole script passed 950 s of phases
-# on a slow host (1004.0 s, then 951.8 s, on an H100 at 700 W)
-BUDGET_MS = 15
+# then 50, 25, 15 and 10, each cut when the whole script passed 950 s of
+# phases on a slow host (1004.0 s, then 951.8 s, then 1079.8 s with the
+# graph phase, on an H100 at 700 W)
+BUDGET_MS = 10
 PEAK_TENSOR = 989e12  # dense bf16 FLOP/s
 PEAK_F32 = 67e12      # f32 FLOP/s outside the tensor cores
 PEAK_TF32 = 495e12    # dense TF32 FLOP/s: the float32 routes' products
@@ -398,9 +426,12 @@ def kernel_cases(dtype, dev):
                              ("vae 64x64x512 B=2", (2, 64, 64, 512)),
                              ("vae 128x128x512 B=2", (2, 128, 128, 512))) if mesh else ())):
         x = rnd(*shape)
+        # library: torch.var_mean over the rows, per channel (the same
+        # statistics as a mean and a variance)
         cases.append(Case("channel_partials", label, fused_groupnorm.channel_partials,
                           fused_groupnorm.channel_partials_plain, (x,), {}, 3 * x.numel(),
-                          PEAK_F32, old=k3_partials))
+                          PEAK_F32, library=lambda x: torch.var_mean(x, dim=(1, 2)),
+                          old=k3_partials))
 
     # K4: proj_in (GroupNorm prologue) and proj_out (residual) at 64x64x320
     # (512px; B=1 in the two-pass mode, B=8 in the serve phase's batch),
@@ -673,7 +704,8 @@ def kernel_cases(dtype, dev):
             cases.append(Case("channel_partials", f"encoder {hw}x{hw}x{ci} B={b}{tag}",
                               fused_groupnorm.channel_partials,
                               fused_groupnorm.channel_partials_plain, (x,), {}, 3 * x.numel(),
-                              PEAK_F32, old=k3_partials))
+                              PEAK_F32, library=lambda x: torch.var_mean(x, dim=(1, 2)),
+                              old=k3_partials))
             conv_case(f"encoder {hw}x{hw} {ci}->{co} B={b}{tag}", b, hw, ci, co, 0, 1e-6,
                       residual=False)
         for hw, co in sorted({(hw, co) for hw, _, co in encoder_resnets(size)}, reverse=True):
@@ -950,6 +982,47 @@ def read_and_zero() -> tuple[dict, dict]:
     for f in fns.values():
         f.launches, f.shapes = 0, {}
     return counts
+
+
+def warmups_of(per_shape: dict) -> tuple[dict, dict]:
+    """({kernel: launches}, {kernel: {shape: launches}}) of a graph cache's
+    warm-up record ({kernel: {shape: launches}}: GraphCache.warmups, or the
+    `warmup_launches` of a sample report's `graphs`)."""
+    shapes = {n: dict(per_shape.get(n, {})) for n in KERNEL_INFO}
+    return {n: sum(s.values()) for n, s in shapes.items()}, shapes
+
+
+def take_warmups(cache) -> tuple[dict, dict]:
+    """The warm-ups a graph cache ran before its captures since this was
+    last called (warmups_of); then clears them."""
+    out = warmups_of(cache.warmups)
+    cache.warmups.clear()
+    return out
+
+
+def minus(counts: tuple[dict, dict], warm: tuple[dict, dict]) -> tuple[dict, dict]:
+    """A run's launch counts without its warm-ups': what its calls
+    launched (graph replays and eager calls), per kernel and per shape."""
+    launches = {n: k - warm[0].get(n, 0) for n, k in counts[0].items()}
+    shapes = {n: {key: k - warm[1].get(n, {}).get(key, 0) for key, k in s.items()
+                  if k - warm[1].get(n, {}).get(key, 0)} for n, s in counts[1].items()}
+    return launches, shapes
+
+
+def graph_summary(stats: dict) -> str:
+    """One line of a graph cache's stats(): captures and replays by kind,
+    each graph's capture seconds and pool bytes, the shared pool's bytes."""
+    def shape(g):  # the input that sets the graph's size
+        return next((g["inputs"][k] for k in ("latent", "tokens", "image", "x")
+                     if k in g["inputs"]), "")
+
+    each = "; ".join(f"{g['kind']} {shape(g)}"
+                     f" captured in {g['capture_s']:.3f} s, +{g['pool_bytes']} pool bytes, "
+                     f"{g['exec_bytes']} bytes outside the pool, {g['replays']} replays"
+                     for g in stats["graphs"])
+    return (f"graph captures {stats['captures']}, replays {stats['replays']}, evictions "
+            f"{stats['evictions']}, {len(stats['graphs'])} graphs held, shared pool "
+            f"{stats['pool_bytes']} bytes: {each}")
 
 
 class Totals:
@@ -1671,14 +1744,21 @@ def check_routes(label: str, shapes: dict, k1: dict) -> None:
 
 def phase_generate(dev, size: int) -> tuple[dict, dict]:
     """Phase 4: StableDiffusion.generate at SD v1.4 width, random weights,
-    bf16, size x size, 20 DDIM steps, CFG 7.5, batch 1. Returns the launch
-    counts, per kernel and per kernel and shape."""
+    bf16, size x size, 20 DDIM steps, CFG 7.5, batch 1, through CUDA graphs
+    (the default on the card): generate's graphs are captured first
+    (warm.capture, as the sample command line's WarmStart captures them
+    after the load), then generate replays them, one replay each of the
+    sampler and the decode and two of CLIP. At 1024px the decode (K1 at d =
+    512) is also run eagerly on the final latent and held against the
+    replay; at 512px the graph phase follows (phase_graphs). Returns the
+    launch counts, per kernel and per kernel and shape."""
     import torch
 
     from sdtpu_torch.config import SD_V1_4
     from sdtpu_torch.ops import fused_conv
     from sdtpu_torch.pipeline import StableDiffusion
     from sdtpu_torch.tokenizer import SimpleTokenizer
+    from sdtpu_torch.warm import capture
 
     cfg = dataclasses.replace(SD_V1_4, image_size=size)
     t0 = time.perf_counter()
@@ -1689,6 +1769,12 @@ def phase_generate(dev, size: int) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     print(f"generate {size}: SD v1.4 random weights on the card in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    cache = sd.graph_cache
+    t0 = time.perf_counter()
+    capture(sd)
+    torch.cuda.synchronize()
+    print(f"generate {size}: generate's graphs captured in {time.perf_counter() - t0:.2f} s: "
+          f"{graph_summary(cache.stats())}", flush=True)
 
     latents = []
     decode = sd.latent_to_image
@@ -1702,6 +1788,7 @@ def phase_generate(dev, size: int) -> tuple[dict, dict]:
     for f in fns.values():
         f.launches, f.shapes = 0, {}
     fused_conv.conv3x3_fused.launches_x2 = 0
+    before = cache.stats()
     t0 = time.perf_counter()
     images = sd.generate(tok, "An ancient mossy stone.", guidance_scale=7.5, n_steps=20,
                          generator=torch.Generator(device=dev).manual_seed(SEED + 1))
@@ -1709,6 +1796,10 @@ def phase_generate(dev, size: int) -> tuple[dict, dict]:
     launches = {name: f.launches for name, f in fns.items()}
     shapes = {name: dict(f.shapes) for name, f in fns.items()}
     x2 = fused_conv.conv3x3_fused.launches_x2
+    sd.latent_to_image = decode
+    after = cache.stats()
+    replays = {k: after["replays"].get(k, 0) - before["replays"].get(k, 0)
+               for k in after["replays"]}
 
     lat = latents[0]
     finite = bool(torch.isfinite(lat).all())
@@ -1718,7 +1809,8 @@ def phase_generate(dev, size: int) -> tuple[dict, dict]:
           f"{float(images.mean()):.2f} std {float(images.std()):.2f}", flush=True)
     print(f"generate {size} wall {wall:.3f} s: encode_prompt "
           f"{sd.timings['encode_prompt']:.3f} s, denoise {sd.timings['denoise']:.3f} s, "
-          f"decode {sd.timings['decode']:.3f} s", flush=True)
+          f"decode {sd.timings['decode']:.3f} s; graph replays {replays}, new captures "
+          f"{after['captures'] != before['captures']}", flush=True)
     print(f"generate {size} launches {launches} (K6 with x2: {x2}) expected "
           f"{EXPECTED_LAUNCHES[size]} (K6 with x2: {EXPECTED_X2[size]})", flush=True)
     if images.shape != (1, size, size, 3) or str(images.dtype) != "uint8":
@@ -1728,8 +1820,246 @@ def phase_generate(dev, size: int) -> tuple[dict, dict]:
     if launches != EXPECTED_LAUNCHES[size] or x2 != EXPECTED_X2[size]:
         fail(f"launch counts {launches} (x2 {x2}) differ from {EXPECTED_LAUNCHES[size]} "
              f"(x2 {EXPECTED_X2[size]})")
+    if replays != {"clip": 2, "sample": 1, "decode": 1} or \
+            after["captures"] != before["captures"]:
+        fail(f"generate {size} replayed {replays} and captured "
+             f"{after['captures']} (before: {before['captures']}): expected one replay of "
+             f"the sampler and the decode, two of CLIP, no capture")
     check_routes(f"generate {size}", shapes, {"wide": 1} if size == 1024 else {})
+    if size == 1024:
+        # the 1024px decode (K1 at d = 512 on the wide kernel), replayed and eager
+        eager = sd.with_graphs(False)
+        walls = {"eager": [], "replayed": []}
+        imgs = {}
+        for label in ("eager", "replayed", "replayed", "eager"):
+            pipe = eager if label == "eager" else sd
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            imgs[label] = pipe._decode_u8(lat)
+            torch.cuda.synchronize()
+            walls[label].append(time.perf_counter() - t0)
+        d = int((imgs["replayed"].int() - imgs["eager"].int()).abs().max())
+        print(f"graphs: the 1024px decode (K1 at d = 512), replayed against eager: max "
+              f"|difference| {d} gray levels, bit-equal "
+              f"{bool(torch.equal(imgs['replayed'], imgs['eager']))}; wall s in turns eager "
+              f"{walls['eager']}, replayed {walls['replayed']} | {card_line()}", flush=True)
+        read_and_zero()  # the comparison's launches belong to no main path
+        if d > GRAPH_GRAY_TOL:
+            fail(f"the replayed 1024px decode is {d} gray levels from the eager one")
+    if size == 512:
+        g_launches, g_shapes = phase_graphs(dev, sd, tok)
+        for name in launches:
+            launches[name] += g_launches[name]
+            for key, n in g_shapes[name].items():
+                shapes[name][key] = shapes[name].get(key, 0) + n
     return launches, shapes
+
+
+# the graph phase: a replayed latent within this of the eager one's (max
+# |difference|; bf16 compute, f32 latents; the acceptance bound), a
+# replayed image within this many gray levels
+GRAPH_LATENT_TOL = {"bfloat16": 1e-3, "float32": 1e-5}
+GRAPH_GRAY_TOL = 1
+GRAPH_PROMPTS = ("An ancient mossy stone.", "A lighthouse at dusk.")
+
+
+# the hand-written __global__ functions one launch of a wrapper runs on its
+# bf16 route (the route in its shape key; K5 and K8 have one): the graph
+# phase holds the profiler's device launches against the graphs' records
+DEVICE_KERNELS = {
+    ("fused_self_attention", "sm90"): {"row_stats_kernel": 1, "gemm_sm90_kernel": 2,
+                                       "attention_sm90_kernel": 1},
+    ("fused_cross_attention_kv", "sm90"): {"row_stats_kernel": 1, "gemm_sm90_kernel": 2,
+                                           "attention_sm90_kernel": 1},
+    ("fused_geglu_mlp", None): {"row_stats_kernel": 1, "gemm_sm90_kernel": 2},
+    ("conv1x1_fused", "sm90"): {"conv_sm90_kernel": 1},
+    ("conv3x3_fused", "sm90"): {"conv_sm90_kernel": 1},
+    ("upsample2x_conv_fused", "sm90"): {"conv_sm90_kernel": 1},
+    ("channel_partials", "sm90"): {"channel_stats_cluster_kernel": 1},
+    ("channel_partials", "partials"): {"channel_partials_kernel": 1},
+    ("group_norm_silu", None): {"group_norm_silu_kernel": 1},
+}
+HAND_WRITTEN = re.compile(r"(?:void )?sdk::(?:\(anonymous namespace\)::)?(\w+)")
+
+
+def device_launches(rows) -> dict:
+    """{hand-written __global__ function: launches} of device_profile's
+    rows (the csrc kernels are named in namespace sdk; template instances
+    are summed)."""
+    got = collections.Counter()
+    for name, _ms, n in rows:
+        m = HAND_WRITTEN.match(name)
+        if m:
+            got[m.group(1)] += n
+    return dict(got)
+
+
+def recorded_device_launches(records) -> tuple[dict, list]:
+    """({__global__ function: launches} that the graph records say a replay
+    of each ran (DEVICE_KERNELS), [wrapper and shape with no entry there])
+    of [(record, replays)]."""
+    want, unmapped = collections.Counter(), []
+    for record, times in records:
+        for wrapper, shapes in record.items():
+            for (shape, _also), n in shapes.items():
+                route = dict(kv.split("=") for kv in shape.split()).get("route")
+                per = DEVICE_KERNELS.get((wrapper.__name__, route))
+                if per is None:
+                    unmapped.append(f"{wrapper.__name__} [{shape}]")
+                    continue
+                for fn, k in per.items():
+                    want[fn] += k * n * times
+    return dict(want), unmapped
+
+
+def phase_graphs(dev, sd, tok) -> tuple[dict, dict]:
+    """The graph phase, on phase 4's 512px pipeline (SD v1.4 full width and
+    depth, bf16) and its eager twin (sd.with_graphs(False): the same
+    weights): the same inputs through both, in turns: 20 DDIM steps (the
+    denoise's and the decode's walls, eager and replayed, and the replayed
+    denoise's busy share by the profiler's device time); euler_a with inpainting
+    (its pre-drawn noise; the encoder's graph); then the stale-buffer check
+    (two seeds and two prompts through one graph) and two graphs replayed in
+    turns; each replayed latent within GRAPH_LATENT_TOL of its eager one,
+    each image within GRAPH_GRAY_TOL. Then the launch counts per shape of
+    two replayed DDIM calls (sampler and decode) must be twice an eager
+    call's, and the device's own launches of the hand-written kernels in
+    one replayed call, by the profiler, must be what the graphs' records
+    say (DEVICE_KERNELS). Prints the graph cache's captures, replays, capture seconds and
+    pool bytes. Returns the launches of the counted calls (the eager call
+    and the two replays)."""
+    import torch
+
+    from sdtpu_torch.profile_pipeline import device_profile
+
+    eager = sd.with_graphs(False)
+    cache = sd.graph_cache
+    tol = GRAPH_LATENT_TOL[str(sd.compute_dtype).split(".")[-1]]
+    bad = []
+    t_phase = time.perf_counter()
+    ctxs = {p: sd.context(tok, p) for p in GRAPH_PROMPTS}
+    unctx, unvalid = sd.context(tok, "")
+    gen = lambda seed: torch.Generator(device=dev).manual_seed(seed)  # noqa: E731
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def ddim(pipe, seed, prompt=GRAPH_PROMPTS[0]):
+        ctx, valid = ctxs[prompt]
+        return pipe.sample_latent(ctx, unctx, 7.5, 20, generator=gen(seed), ctx_valid=valid,
+                                  uncond_valid=unvalid)
+
+    def compare(label, got, want, gray=False):
+        d = float((got.float() - want.float()).abs().max())
+        limit = GRAPH_GRAY_TOL if gray else tol
+        print(f"graphs {label}: max |replayed - eager| {d:.3e} (tol {limit}), bit-equal "
+              f"{bool(torch.equal(got, want))}", flush=True)
+        if not d <= limit:
+            bad.append(f"{label}: {d:.3e} > {limit}")
+
+    # 20 DDIM steps at 512px, eager and replayed in turns
+    walls = {"denoise eager": [], "denoise replayed": [], "decode eager": [],
+             "decode replayed": []}
+    lats, imgs = {}, {}
+    for mode in ("eager", "replayed", "replayed", "eager"):
+        pipe = eager if mode == "eager" else sd
+        lats[mode], w = timed(lambda: ddim(pipe, SEED + 1))
+        walls[f"denoise {mode}"].append(w)
+        imgs[mode], w = timed(lambda: pipe._decode_u8(lats[mode]))
+        walls[f"decode {mode}"].append(w)
+    # the replayed denoise's device kernel time by the profiler, over its
+    # wall (the eager loop's busy share: profile_pipeline, section 2)
+    dev_ms, _ = device_profile(lambda: ddim(sd, SEED + 1), 0)
+    busy = dev_ms / (statistics.mean(walls["denoise replayed"]) * 1e3)
+    print("graphs 512px DDIM 20 steps bf16, walls s in turns (eager, replayed, replayed, "
+          "eager): " + ", ".join(f"{k} {[round(x, 4) for x in v]}" for k, v in walls.items())
+          + f"; the replayed denoise's device kernel time by the profiler {dev_ms:.2f} ms, "
+          f"busy share {busy:.3f} | {card_line()}", flush=True)
+    compare("DDIM 512 latent", lats["replayed"], lats["eager"])
+    compare("DDIM 512 image", imgs["replayed"], imgs["eager"], gray=True)
+
+    # euler_a with inpainting at 512px: the pre-drawn noise, the encoder
+    init = torch.from_numpy(imgs["eager"].cpu().numpy()).float() / 127.5 - 1.0
+    mask = torch.zeros((1, 512, 512))
+    mask[:, 128:384, 128:384] = 1.0
+    inpaint = {}
+    for mode in ("eager", "replayed", "replayed"):
+        pipe = eager if mode == "eager" else sd
+        inpaint[mode], w = timed(lambda: pipe.inpaint(tok, "a red flower", init, mask, 7.5, 20,
+                                                      generator=gen(6), sampler="euler_a"))
+        print(f"graphs euler_a inpaint 512 {mode}: wall {w:.3f} s", flush=True)
+    compare("euler_a inpaint 512 image", torch.from_numpy(inpaint["replayed"]),
+            torch.from_numpy(inpaint["eager"]), gray=True)
+    z0 = {m: p._scaled_latent(init) for m, p in (("eager", eager), ("replayed", sd))}
+    compare("VAE encoder 512 latent", z0["replayed"], z0["eager"])
+    m_lat = mask.to(dev)[..., None].reshape(1, 64, 8, 64, 8, 1).amax(dim=(2, 4))
+    ctx, valid = ctxs[GRAPH_PROMPTS[0]]
+    ea = {m: p.sample_latent(ctx, unctx, 7.5, 20, generator=gen(7), ctx_valid=valid,
+                             uncond_valid=unvalid, sampler="euler_a", known_latent=z0["eager"],
+                             known_mask=m_lat) for m, p in (("eager", eager), ("replayed", sd))}
+    compare("euler_a inpaint 512 latent", ea["replayed"], ea["eager"])
+
+    # stale buffers: two seeds and two prompts through one graph, each
+    # against its own eager run; then the DDIM and the euler_a graphs in turns
+    for seed, prompt in ((SEED + 2, GRAPH_PROMPTS[0]), (SEED + 3, GRAPH_PROMPTS[0]),
+                         (SEED + 3, GRAPH_PROMPTS[1]), (SEED + 1, GRAPH_PROMPTS[0])):
+        compare(f"stale-buffer check seed {seed} {prompt!r}", ddim(sd, seed, prompt),
+                ddim(eager, seed, prompt))
+    for i in range(2):
+        compare(f"in turns {i}: DDIM", ddim(sd, SEED + 1), lats["eager"])
+        compare(f"in turns {i}: euler_a inpaint",
+                sd.sample_latent(ctx, unctx, 7.5, 20, generator=gen(7), ctx_valid=valid,
+                                 uncond_valid=unvalid, sampler="euler_a",
+                                 known_latent=z0["eager"], known_mask=m_lat), ea["eager"])
+
+    # launch counts per shape: two replays against one eager call
+    read_and_zero()
+    eager._decode_u8(ddim(eager, SEED + 1))
+    once = read_and_zero()
+    for _ in range(2):
+        sd._decode_u8(ddim(sd, SEED + 1))
+    twice = read_and_zero()
+    doubled = ({n: 2 * k for n, k in once[0].items()},
+               {n: {key: 2 * k for key, k in s.items()} for n, s in once[1].items()})
+    print(f"graphs launch counts: one eager DDIM call and decode {fired(once[0])}; two "
+          f"replays {fired(twice[0])}; per shape twice the eager call's: {twice == doubled}",
+          flush=True)
+    if twice != doubled:
+        bad.append("the replays' launch counts per shape are not twice the eager call's")
+    check_routes("graphs replayed", twice[1], {})
+
+    # the device's own count of the hand-written kernels in one replayed
+    # DDIM call and decode (the profiler's second call of two) must be what
+    # the graphs' records say their replays launched
+    t0 = time.perf_counter()
+    before = {k: g.replays for k, g in cache.graphs.items()}
+    _, rows = device_profile(lambda: sd._decode_u8(ddim(sd, SEED + 1)), None)
+    on_device = device_launches(rows)
+    read_and_zero()  # the profiled calls belong to no count
+    recorded, unmapped = recorded_device_launches(
+        [(g.record, (g.replays - before.get(k, 0)) // 2) for k, g in cache.graphs.items()
+         if g.replays > before.get(k, 0)])
+    print(f"graphs device launches of the hand-written kernels in one replayed DDIM call and "
+          f"decode, by the profiler {on_device}; by the graphs' records {recorded} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    if unmapped or not recorded or recorded != on_device:
+        bad.append(f"the graphs' records say {recorded} (no device map for {unmapped}), the "
+                   f"device ran {on_device}")
+    stats = cache.stats()
+    print(f"graphs: {graph_summary(stats)}; took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    if not stats["graphs"] or any(g["pool_bytes"] < 0 for g in stats["graphs"]) or \
+            stats["pool_bytes"] <= 0:
+        bad.append(f"the graph pool reads {stats['pool_bytes']} bytes")
+    if bad:
+        fail("the graph phase: " + "; ".join(bad))
+    return ({n: once[0][n] + twice[0][n] for n in once[0]},
+            {n: {key: once[1][n].get(key, 0) + twice[1][n].get(key, 0)
+                 for key in set(once[1][n]) | set(twice[1][n])} for n in once[1]})
 
 
 # phase 9: SD v2.1 (SD_V2_1: the OpenCLIP text tower, head width 64, a
@@ -1818,12 +2148,14 @@ def phase_v21(dev, tf32_defaults) -> tuple[dict, dict]:
     totals = Totals()
     bad = []
 
-    def check(label, counts, expected, k1):
-        """A run's launches against the dispatch's, by route; added to the
-        phase's."""
-        if counts[0] != expected:
-            bad.append(f"{label} launched {fired(counts[0])}, expected {fired(expected)}")
-        check_routes(f"v2.1 {label}", counts[1], k1)
+    def check(label, counts, expected, k1, warm=None):
+        """A run's launches against the dispatch's, by route, less the
+        warm-ups of the graphs it captured (warm); added to the phase's."""
+        run = counts if warm is None else minus(counts, warm)
+        if run[0] != expected:
+            bad.append(f"{label} launched {fired(run[0])} (warm-ups apart), expected "
+                       f"{fired(expected)}")
+        check_routes(f"v2.1 {label}", run[1], k1)
         totals.add(*counts)
 
     def peak():
@@ -1852,11 +2184,13 @@ def phase_v21(dev, tf32_defaults) -> tuple[dict, dict]:
         and final latent checked."""
         latents.clear()
         read_and_zero()
+        take_warmups(sd.graph_cache)
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         images = fn()
         wall = time.perf_counter() - t0
         counts = read_and_zero()
+        warm = take_warmups(sd.graph_cache)
         lat = latents[-1]
         finite = bool(torch.isfinite(lat).all())
         phases = ", ".join(f"{k} {v:.3f}" for k, v in sd.timings.items()) if "generate" in label \
@@ -1864,10 +2198,11 @@ def phase_v21(dev, tf32_defaults) -> tuple[dict, dict]:
         print(f"v2.1 {label}: image {tuple(images.shape)} {images.dtype}, latent "
               f"{tuple(lat.shape)} finite={finite} mean {float(lat.mean()):.4f} std "
               f"{float(lat.std()):.4f}; wall {wall:.3f} s ({phases}), {peak()}; launches "
-              f"{fired(counts[0])} expected {fired(expected)}", flush=True)
+              f"{fired(counts[0])}, of them the graphs' warm-ups {fired(warm[0])}, expected "
+              f"{fired(expected)} besides", flush=True)
         if images.shape != (1, size, size, 3) or str(images.dtype) != "uint8" or not finite:
             bad.append(f"{label}: image {images.shape} {images.dtype}, finite latent {finite}")
-        check(label, counts, expected, k1)
+        check(label, counts, expected, k1, warm)
         return images
 
     gen = lambda seed: torch.Generator(device=dev).manual_seed(seed)  # noqa: E731
@@ -1877,6 +2212,34 @@ def phase_v21(dev, tf32_defaults) -> tuple[dict, dict]:
     pipeline_run("generate dpmpp karras", lambda: sd.generate(
         tok, V21_PROMPT, V21_SCALE, V21_STEPS, generator=gen(SEED + 1), sampler="dpmpp",
         karras_sigmas=True), v21_launches(V21_STEPS), {"wide": 1})
+    # DPM++ on the Karras ladder replayed against the eager loop, same inputs
+    eager = sd.with_graphs(False)
+    ctx, valid = sd.context(tok, V21_PROMPT)
+    unctx, unvalid = sd.context(tok, "")
+    walls, lats = {"eager": [], "replayed": []}, {}
+    for mode in ("eager", "replayed", "replayed", "eager"):
+        pipe = eager if mode == "eager" else sd
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lats[mode] = pipe.sample_latent(ctx, unctx, V21_SCALE, V21_STEPS, generator=gen(SEED + 1),
+                                        ctx_valid=valid, uncond_valid=unvalid, sampler="dpmpp",
+                                        karras_sigmas=True)
+        torch.cuda.synchronize()
+        walls[mode].append(time.perf_counter() - t0)
+    d = float((lats["replayed"] - lats["eager"]).abs().max())
+    gray = int((sd._decode_u8(lats["replayed"]).int() - eager._decode_u8(lats["eager"]).int())
+               .abs().max())
+    print(f"graphs v2.1 768px DPM++ Karras 20 steps: max |replayed - eager| latent {d:.3e} "
+          f"(tol {GRAPH_LATENT_TOL['bfloat16']}), bit-equal "
+          f"{bool(torch.equal(lats['replayed'], lats['eager']))}, image {gray} gray levels; "
+          f"denoise walls s in turns eager {[round(w, 4) for w in walls['eager']]}, replayed "
+          f"{[round(w, 4) for w in walls['replayed']]} | {card_line()}", flush=True)
+    if not d <= GRAPH_LATENT_TOL["bfloat16"] or gray > GRAPH_GRAY_TOL:
+        bad.append(f"the replayed v2.1 DPM++ Karras latent is {d:.3e} from the eager one "
+                   f"({gray} gray levels)")
+    del eager, lats
+    read_and_zero()  # the comparison's launches belong to no main path
+
     init = torch.from_numpy(ddim).float() / 127.5 - 1.0
     skip = round(0.4 * V21_STEPS)  # img2img's entry point at strength 0.6
     pipeline_run("img2img strength 0.6 ddim", lambda: sd.img2img(
@@ -1938,14 +2301,19 @@ def phase_v21(dev, tf32_defaults) -> tuple[dict, dict]:
         kern, ph = report["kernels"], report["phases"]
         counts = ({n: kern.get(n, {}).get("launches", 0) for n in KERNEL_INFO},
                   {n: kern.get(n, {}).get("shapes", {}) for n in KERNEL_INFO})
+        warm = warmups_of(report["graphs"]["warmup_launches"])
         print(f"v2.1 sample native --preset sd-v2-1 --sampler dpmpp --karras --bf16 (device "
               f"{report['device']}): process wall {wall:.2f} s, load_model "
               f"{ph['load_model']:.2f} s, sampling {report['sampling_s']:.2f} s (denoise "
               f"{ph['denoise']:.3f}, decode {ph['decode']:.3f}), peak resident {_gib(rss)}; "
-              f"launches {fired(counts[0])} | {card_line()}", flush=True)
+              f"launches {fired(counts[0])}, of them the graphs' warm-ups {fired(warm[0])}; "
+              f"warm start {report['warm']}; {graph_summary(report['graphs'])} | "
+              f"{card_line()}", flush=True)
         if report["device"] != "cuda:0":
             bad.append(f"v2.1 sample ran on {report['device']}")
-        check("sample process", counts, v21_launches(V21_STEPS), {"wide": 1})
+        if report["graphs"]["replays"] != {"clip": 2, "sample": 1, "decode": 1}:
+            bad.append(f"v2.1 sample replayed {report['graphs']['replays']}")
+        check("sample process", counts, v21_launches(V21_STEPS), {"wide": 1}, warm)
         with open(prefix + "0.png", "rb") as f:
             png = f.read()
         os.remove(native)
@@ -2139,7 +2507,8 @@ def phase_serve(dev) -> tuple[dict, dict]:
     (init_params, seed 0), bf16, 512x512, SDTPU_FUSED_XATTN=1 in this
     process for the phase, one random rank-4 LoRA adapter. make_server warms
     up (one 20-step request); then, through the socket: three concurrent
-    /generate requests of one key (one batch, padded to 4), a lone
+    /generate requests of one key (one batch, padded to 4), twice (its
+    graphs captured, then replayed), a lone
     dpmpp+karras request, a lone euler_a request with a negative prompt, a
     lone seeded DDIM request, /img2img and /inpaint on a generated PNG, a
     request naming the adapter, and a bad request (400). Every other reply
@@ -2151,8 +2520,8 @@ def phase_serve(dev) -> tuple[dict, dict]:
     call at batch 2 (profile_kernels.device_ms) in AB_PAIRS pairs of open
     and closed, the order alternating, and a lone 20-step request's latency
     in AB_ROUNDS rounds of open, closed, closed, open, with the medians of
-    each side. Returns the launch counts, per kernel and per kernel and
-    shape."""
+    each side. The graph cache must have evicted nothing by then. Returns
+    the launch counts, per kernel and per kernel and shape."""
     import base64
     import os
     import threading
@@ -2161,7 +2530,7 @@ def phase_serve(dev) -> tuple[dict, dict]:
 
     import torch
 
-    from sdtpu_torch import serve
+    from sdtpu_torch import graphs, serve
     from sdtpu_torch.config import SD_V1_4
     from sdtpu_torch.models.unet import unet_apply, unfuse_qkv
     from sdtpu_torch.pipeline import StableDiffusion
@@ -2183,6 +2552,7 @@ def phase_serve(dev) -> tuple[dict, dict]:
     try:
         for f in fns.values():
             f.launches, f.shapes = 0, {}
+        take_warmups(sd.graph_cache)
         t0 = time.perf_counter()
         server = serve.make_server(sd, tok, port=0, warmup=True, default_steps=SERVE_STEPS,
                                    batch_window_ms=100.0, loras={"style": (lora, 1.0)})
@@ -2214,28 +2584,36 @@ def phase_serve(dev) -> tuple[dict, dict]:
                 bad.append(name)
             return resp
 
-        # three concurrent requests of one key: one batch, padded to 4
-        results, barrier = [None] * 3, threading.Barrier(3)
+        # three concurrent requests of one key: one batch, padded to 4; its
+        # graphs are captured in the first round and replayed in the second
+        def batch_of_3(round_):
+            barrier = threading.Barrier(3)
 
-        def call(i):
-            barrier.wait()
-            results[i] = post(f"concurrent {i}", {"prompt": f"{SERVE_PROMPT} {i}", "seed": 10 + i,
-                                                  "guidance_scale": 6.0 + i})
+            def call(i):
+                barrier.wait()
+                post(f"concurrent {i} round {round_}", {"prompt": f"{SERVE_PROMPT} {i}",
+                                                        "seed": 10 + i,
+                                                        "guidance_scale": 6.0 + i})
 
-        calls = [threading.Thread(target=call, args=(i,)) for i in range(3)]
-        t0 = time.perf_counter()
-        for t in calls:
-            t.start()
-        for t in calls:
-            t.join(timeout=600)
-        batch_wall = time.perf_counter() - t0
-        unet_calls += SERVE_STEPS
-        sizes = dict(server.state.batcher.batch_sizes)
-        print(f"serve batch of 3 concurrent /generate ({SERVE_STEPS} DDIM steps, padded to 4, "
-              f"UNet batch 8): wall {batch_wall:.3f} s, {3 / batch_wall:.3f} images/s; "
-              f"batches run so far by padded size {sizes}", flush=True)
-        if sizes != {1: 1, 4: 1}:
-            bad.append(f"batches {sizes}, expected the warm-up (1) and one of 4")
+            calls = [threading.Thread(target=call, args=(i,)) for i in range(3)]
+            t0 = time.perf_counter()
+            for t in calls:
+                t.start()
+            for t in calls:
+                t.join(timeout=600)
+            batch_wall = time.perf_counter() - t0
+            sizes = dict(server.state.batcher.batch_sizes)
+            print(f"serve batch of 3 concurrent /generate ({SERVE_STEPS} DDIM steps, padded to "
+                  f"4, UNet batch 8), round {round_} ({'captured' if round_ == 0 else 'replayed'}"
+                  f"): wall {batch_wall:.3f} s, {3 / batch_wall:.3f} images/s; batches run so "
+                  f"far by padded size {sizes}", flush=True)
+            return sizes
+
+        for round_ in range(2):
+            sizes = batch_of_3(round_)
+            unet_calls += SERVE_STEPS
+        if sizes != {1: 1, 4: 2}:
+            bad.append(f"batches {sizes}, expected the warm-up (1) and two of 4")
 
         post("dpmpp karras", {"prompt": SERVE_PROMPT, "seed": 2, "sampler": "dpmpp",
                               "karras": True})
@@ -2270,13 +2648,24 @@ def phase_serve(dev) -> tuple[dict, dict]:
 
         launches = {name: f.launches for name, f in fns.items()}
         shapes = {name: dict(f.shapes) for name, f in fns.items()}
-        k10 = launches["fused_cross_attention_kv"]
-        print(f"serve launches {launches}; K10 {k10} for {unet_calls} UNet calls (expected "
-              f"{K10_PER_UNET_CALL * unet_calls}), by shape {shapes['fused_cross_attention_kv']}",
-              flush=True)
+        warm = take_warmups(sd.graph_cache)
+        calls = minus((launches, shapes), warm)
+        k10 = calls[0]["fused_cross_attention_kv"]
+        stats = sd.graph_cache.stats()
+        print(f"serve launches {launches}, of them the graphs' warm-ups {fired(warm[0])}; K10 "
+              f"besides them {k10} for {unet_calls} UNet calls (expected "
+              f"{K10_PER_UNET_CALL * unet_calls}), by shape {shapes['fused_cross_attention_kv']}; "
+              f"{graph_summary(stats)}", flush=True)
         if k10 != K10_PER_UNET_CALL * unet_calls:
             bad.append(f"K10 launched {k10} times, expected {K10_PER_UNET_CALL * unet_calls}")
-        check_routes("serve", shapes, {})
+        # every batch and image request ran through graphs: 10 sampler runs
+        # (the warm-up, two batches of 3, 3 lone requests, img2img, inpaint,
+        # the adapter's, generate()) on 8 keys (the lone DDIM request's is
+        # the warm-up's; generate()'s scalar guidance is a key of its own)
+        if stats["replays"].get("sample") != 10 or stats["captures"].get("sample") != 8:
+            bad.append(f"the server's sampler graphs: captures {stats['captures']}, replays "
+                       f"{stats['replays']}")
+        check_routes("serve", calls[1], {})
 
         # the merged pipeline's fused attn1 q/k/v (K2's operand) are its
         # merged q, k and v
@@ -2313,6 +2702,8 @@ def phase_serve(dev) -> tuple[dict, dict]:
         # and a lone request's latency, AB_ROUNDS rounds of open, closed,
         # closed, open
         lat_ab = {"1": [], "0": []}
+        os.environ["SDTPU_FUSED_XATTN"] = "0"  # the closed gate's graphs, captured first
+        post("A/B gate 0 capture", {"prompt": SERVE_PROMPT, "seed": 7})
         for gate in ("1", "0", "0", "1") * AB_ROUNDS:
             os.environ["SDTPU_FUSED_XATTN"] = gate
             resp = post(f"A/B gate {gate} lone", {"prompt": SERVE_PROMPT, "seed": 7})
@@ -2322,6 +2713,12 @@ def phase_serve(dev) -> tuple[dict, dict]:
             print(f"serve A/B SDTPU_FUSED_XATTN={gate}, {len(lat)} lone {SERVE_STEPS}-step "
                   f"requests: latency_s median {statistics.median(lat):.3f} (min {lat[0]:.3f}, "
                   f"max {lat[-1]:.3f})", flush=True)
+        # the mixed load's key set: every graph it made is still held
+        stats = sd.graph_cache.stats()
+        print(f"serve graphs after the mixed load and the A/B (at most {graphs.MAX_GRAPHS} "
+              f"held): {graph_summary(stats)}", flush=True)
+        if stats["evictions"]:
+            bad.append(f"the server's graph cache evicted {stats['evictions']}")
     finally:
         if server is not None:
             server.shutdown()
@@ -2825,7 +3222,9 @@ def phase_cli(dev, tf32_defaults) -> tuple[dict, dict]:
     --bf16` (the device argument omitted: the card) must write the PNG bytes
     of an in-process generate in bf16 with the same generator, each run's
     load and sampling seconds and launches read from its SDTPU_PROFILE=1
-    report (launches as generate 512's, on their Hopper routes). Then the
+    report (launches as generate 512's besides its graphs' warm-ups, on
+    their Hopper routes, and one replay each of the sampler and the decode).
+    Then the
     two-pass generate (pad_context=False): its launches those of two UNet
     calls a step at batch 1, and its image within TWOPASS_MEAN_TOL of the
     batched mode's, which the planted faults exceed. tf32_defaults: the
@@ -2924,20 +3323,26 @@ def phase_cli(dev, tf32_defaults) -> tuple[dict, dict]:
             kern = report["kernels"]
             run_launches = {n: kern.get(n, {}).get("launches", 0) for n in KERNEL_INFO}
             run_shapes = {n: kern.get(n, {}).get("shapes", {}) for n in KERNEL_INFO}
+            warm = warmups_of(report["graphs"]["warmup_launches"])
+            calls = minus((run_launches, run_shapes), warm)
             bulk = report["counts"].get("bulk_read", 0)
             print(f"cli sample {fmt} (device {report['device']}): load_model {ph['load_model']:.2f}"
                   + (f" s (the bulk read {ph['bulk_read']:.2f} s of it)" if bulk else " s")
                   + f", sampling {report['sampling_s']:.2f} s (encode_prompt "
                   f"{ph['encode_prompt']:.3f}, denoise {ph['denoise']:.3f}, decode "
                   f"{ph['decode']:.3f}), process wall {wall:.2f} s, peak resident {_gib(rss)}; "
-                  f"launches {fired(run_launches)} | {card_line()}", flush=True)
+                  f"launches {fired(run_launches)}, of them the graphs' warm-ups "
+                  f"{fired(warm[0])}; warm start {report['warm']}; "
+                  f"{graph_summary(report['graphs'])} | {card_line()}", flush=True)
             if report["device"] != "cuda:0":
                 bad.append(f"sample {fmt} ran on {report['device']}")
             if bulk != (fmt == "dump"):
                 bad.append(f"sample {fmt} read {bulk} trees through the native bulk reader")
-            if run_launches != EXPECTED_LAUNCHES[512]:
-                bad.append(f"sample {fmt} launched {run_launches}")
-            check_routes(f"cli sample {fmt}", run_shapes, {})
+            if calls[0] != EXPECTED_LAUNCHES[512]:
+                bad.append(f"sample {fmt} launched {calls[0]} besides its warm-ups")
+            if report["graphs"]["replays"] != {"clip": 2, "sample": 1, "decode": 1}:
+                bad.append(f"sample {fmt} replayed {report['graphs']['replays']}")
+            check_routes(f"cli sample {fmt}", calls[1], {})
             totals.add(run_launches, run_shapes)
             with open(prefix + "0.png", "rb") as f:
                 pngs[fmt] = f.read()
@@ -3003,7 +3408,7 @@ def phase_cli(dev, tf32_defaults) -> tuple[dict, dict]:
                        "not in use)")
         # the f32 pipeline under a fresh process's TF32 switches against the
         # same generate with both off (a record, not a check: ROADMAP queue 3)
-        sd32 = StableDiffusion(params, cfg)
+        sd32 = StableDiffusion(params, cfg, graphs=False)  # a record of TF32, not of graphs
         f32_images = {}
         for label, switches in (("a fresh process's", tf32_defaults), ("off", (False, False))):
             torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = switches
@@ -3025,6 +3430,7 @@ def phase_cli(dev, tf32_defaults) -> tuple[dict, dict]:
         def generate(pipe, label, expected):
             for f in fns.values():
                 f.launches, f.shapes = 0, {}
+            take_warmups(pipe.graph_cache)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             images = pipe.generate(tok, CLI_PROMPT, CLI_SCALE, CLI_STEPS,
@@ -3032,13 +3438,16 @@ def phase_cli(dev, tf32_defaults) -> tuple[dict, dict]:
             wall = time.perf_counter() - t0
             run_launches = {n: f.launches for n, f in fns.items()}
             run_shapes = {n: dict(f.shapes) for n, f in fns.items()}
+            warm = take_warmups(pipe.graph_cache)
+            calls = minus((run_launches, run_shapes), warm)
             print(f"cli {label}: wall {wall:.3f} s (encode_prompt "
                   f"{pipe.timings['encode_prompt']:.3f}, denoise {pipe.timings['denoise']:.3f}, "
-                  f"decode {pipe.timings['decode']:.3f}); launches {fired(run_launches)} "
-                  f"expected {fired(expected)}", flush=True)
-            if run_launches != expected:
-                bad.append(f"{label} launched {run_launches}")
-            check_routes(f"cli {label}", run_shapes, {})
+                  f"decode {pipe.timings['decode']:.3f}, the graphs' captures among them); "
+                  f"launches {fired(run_launches)}, of them the graphs' warm-ups "
+                  f"{fired(warm[0])}, expected {fired(expected)} besides", flush=True)
+            if calls[0] != expected:
+                bad.append(f"{label} launched {calls[0]} besides its warm-ups")
+            check_routes(f"cli {label}", calls[1], {})
             totals.add(run_launches, run_shapes)
             return images
 
@@ -3852,6 +4261,52 @@ def phase_dryrun(dev) -> tuple[dict, dict]:
     return totals.launches, totals.shapes
 
 
+COLD_STEPS = 4
+
+
+def cold_sample() -> None:
+    """Phase 1's build: `python -m sdtpu_torch.sample native ... --preset
+    sd-tiny` (random sd-tiny weights written to a temporary directory, on the
+    card, COLD_STEPS DDIM steps) as the first process of the run. Its
+    warm.WarmStart runs nvcc on every source at once and g++ on a thread
+    while the process loads its tokenizer and weights, then captures the
+    first image's graphs; in a fresh checkout, where nothing is built yet,
+    that is the kernels' one build. Prints its warm start's
+    timeline against its load_model span; fails if the process fails, or
+    if the library was not there before and its report shows no build."""
+    import os
+    import tempfile
+
+    import torch
+
+    from sdtpu_torch import kernels
+    from sdtpu_torch.config import SD_TINY
+    from sdtpu_torch.io.native import save_native
+    from sdtpu_torch.weights import init_params
+
+    built_before = kernels.library_path().exists()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cold_") as tmp:
+        model = os.path.join(tmp, "tiny.safetensors")
+        save_native(init_params(SD_TINY, torch.Generator().manual_seed(SEED), device="cpu"),
+                    model, SD_TINY)
+        out, wall, _ = run_module("cold sample", [
+            "sdtpu_torch.sample", "native", model, "7.5", str(COLD_STEPS), "a mossy stone",
+            os.path.join(tmp, "img"), "--seed", str(SEED)], {**os.environ, "SDTPU_PROFILE": "1"})
+    report = json.loads([ln for ln in out.splitlines() if ln.startswith("{")][-1])
+    marks = dict(report["warm"])
+    print(f"build: a cold `python -m sdtpu_torch.sample` at sd-tiny ({report['device']}; the "
+          f"kernel library {'already built' if built_before else 'not built yet'}): its warm "
+          f"start's thread had the kernels at {marks.get('kernels_built')} s and the runtime "
+          f"at {marks.get('runtime_built')} s, while the process loaded its tokenizer and "
+          f"weights (load_model {report['phases']['load_model']:.3f} s); joined at "
+          f"{marks.get('joined')} s, the graphs captured by {marks.get('captured')} s "
+          f"({report['graphs']['captures']}); sampling {report['sampling_s']:.3f} s; process "
+          f"wall {wall:.1f} s", flush=True)
+    if report["device"] != "cuda:0" or "kernels_built" not in marks or \
+            "captured" not in marks or not kernels.library_path().exists():
+        fail(f"the cold sample process: device {report['device']}, warm start {marks}")
+
+
 def init_params_on(cfg, dev):
     """SD v1.4's random weights of phases 4 and 7: init_params, seed SEED,
     f32, on the card."""
@@ -3884,9 +4339,11 @@ def main() -> None:
     from sdtpu_torch import kernels
 
     t0 = time.perf_counter()
+    cold_sample()
     path, _ = kernels.build()
     kernels.lib()
-    print(f"build {path.name} in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"build {path.name} in {time.perf_counter() - t0:.1f} s (the cold sample process "
+          f"among them)", flush=True)
     from sdtpu_torch import runtime
 
     t0 = time.perf_counter()

@@ -35,7 +35,16 @@ that generator on the same device. finetune takes sdtpu's --device
 cuda|cpu flag with the same rule. convert moves weights between files
 and computes nothing: it runs on the host, as sdtpu's does. With
 SDTPU_PROFILE=1 sample and finetune print their phases' wall seconds
-(utils.profiling) and each kernel's launches as one JSON line.
+(utils.profiling) and each kernel's launches as one JSON line; sample's
+also holds its warm start's timeline (seconds from its start to the
+kernels' and the runtime's builds, to the join, to the captures) and its
+graph cache's counts
+(graphs.GraphCache.stats: captures, replays, each graph's capture seconds
+and pool bytes, the warm-ups' launches, which the kernels' counts include).
+
+On the card, sample runs through CUDA graphs (StableDiffusion's graphs,
+graphs.py): warm.WarmStart builds the kernels and the native runtime while
+the weights load, then captures the first image's graphs.
 """
 
 from __future__ import annotations
@@ -207,12 +216,20 @@ def sample_main(argv=None) -> None:
         # fail before the tokenizer and the model load
         _fail("Error: --concept is not supported with --init-image")
     device = _select_device(argv[7] if len(argv) == 8 else None)
-    # sdtpu starts sdtpu/warm.py's background compile here: TPU machinery,
-    # with no counterpart in the port
 
     from sdtpu_torch.tokenizer import SimpleTokenizer
     from sdtpu_torch.utils import profiling
     from sdtpu_torch.utils.image import save_images
+    from sdtpu_torch.warm import WarmStart
+
+    # where sdtpu starts its background compile (sdtpu/cli.py:198-223): the
+    # kernels (on the card) and the native runtime build on a thread while
+    # the tokenizer and the weights load; after the load, join captures the
+    # graphs of the first image (generate's; an image-to-image run captures
+    # the decode's, the rest at its first call). A build failure re-raises.
+    warm = WarmStart(device, batch=batch, n_steps=n_steps, sampler=sampler,
+                     karras_sigmas=karras, guidance_scale=guidance_scale,
+                     sample=init_image is None).start()
 
     print("Loading tokenizer...")
     with profiling.phase("load_tokenizer"):
@@ -233,6 +250,7 @@ def sample_main(argv=None) -> None:
         sd = StableDiffusion(params, sd.config, compute_dtype=compute_dtype,
                              pad_context=sd.pad_context)
         print(f"Applied LoRA adapter {lora_path} (scale {scale:g})")
+    warm.join(sd)
 
     print("Sampling image...")
     t0 = time.perf_counter()
@@ -282,7 +300,8 @@ def sample_main(argv=None) -> None:
         print(profiling.REGISTRY.report({
             "n_steps": n_steps, "batch": batch, "guidance_scale": guidance_scale,
             "device": str(device), "sampling_s": round(dt, 4),
-            "kernels": _launch_counts(),
+            "kernels": _launch_counts(), "warm": warm.timeline,
+            "graphs": None if sd.graph_cache is None else sd.graph_cache.stats(),
         }))
 
 

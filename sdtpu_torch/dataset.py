@@ -88,6 +88,7 @@ def build_latent_cache(sd, tokenizer, data_dir: str, out_path: str, batch: int =
     flip: also encode the horizontal mirror of every image, at the pixel
     level (the VAE's asymmetric padding makes a flipped latent differ from
     the latent of the flipped image)."""
+    sd = sd.with_graphs(False)  # fine-tuning runs eagerly, its data preparation too
     examples = list_examples(data_dir)
     size = sd.config.image_size
     lat_list, ctx_list, nv_list = [], [], []

@@ -10,7 +10,14 @@ anew, an unchanged one loads the library already there.
 
 Every C entry launches on the stream it is given, allocates nothing, and
 returns cudaGetLastError(); `check` raises on a nonzero code. Pointers and
-the stream are passed as ctypes.c_void_p.
+the stream are passed as ctypes.c_void_p. A wrapper passes the current
+stream (`stream`), so a launch made while a CUDA graph is captured on that
+stream joins the graph.
+
+Launch accounting (`count`): each wrapper counts its launches, per shape.
+While a thread captures a graph (`recording`), its wrappers launch nothing:
+their counts go into the capture's record instead, and each replay of the
+graph adds the record once (`add_record`), so the counters read what ran.
 """
 
 from __future__ import annotations
@@ -21,6 +28,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
+from contextlib import contextmanager
 from pathlib import Path
 
 import torch
@@ -94,11 +103,22 @@ def library_path() -> Path:
     return BUILD_DIR / f"libsdtpu_kernels_{h.hexdigest()[:16]}.so"
 
 
+# one build (and one load) at a time in this process: a background build
+# (warm.WarmStart) and a first launch never start two nvcc runs
+_BUILD_LOCK = threading.RLock()
+
+
 def build() -> tuple[Path, str]:
     """Compile the kernels unless the library for these sources exists.
     Returns (path, compiler output); the output is empty when nothing was
     built. The output (with ptxas's registers, shared memory and spills per
-    kernel) is also kept in a .log beside the library."""
+    kernel) is also kept in a .log beside the library. Thread-safe: a
+    second caller waits for the first's build and then finds the library."""
+    with _BUILD_LOCK:
+        return _build()
+
+
+def _build() -> tuple[Path, str]:
     out = library_path()
     if out.exists():
         return out, ""
@@ -135,6 +155,11 @@ def build() -> tuple[Path, str]:
 
 @functools.cache
 def lib() -> ctypes.CDLL:
+    with _BUILD_LOCK:
+        return _load()
+
+
+def _load() -> ctypes.CDLL:
     path, _ = build()
     so = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
@@ -193,16 +218,56 @@ def ptr(t) -> int | None:
 # the wrappers that have launched in this process, by name (see count)
 LAUNCHED: dict = {}
 
+# the record of the graph this thread is capturing, if any (see recording)
+_CAPTURE = threading.local()
 
-def count(wrapper, **dims) -> None:
+
+def count(wrapper, also: str | None = None, **dims) -> None:
     """Record one launch of wrapper's kernel: wrapper.launches += 1, and one
     more in wrapper.shapes under the dimensions that set the launch's work
     ("b=2 s=4096 c=320 ..."), so that a run can be told which shapes it
-    launched and how often; the wrapper joins LAUNCHED."""
-    wrapper.launches += 1
+    launched and how often; the wrapper joins LAUNCHED. also: the name of
+    one more counter of the wrapper that this launch adds one to. Inside
+    recording() on this thread the launch goes into the capture's record
+    instead (a captured launch runs only when the graph is replayed)."""
     key = " ".join(f"{k}={v}" for k, v in dims.items())
-    wrapper.shapes[key] = wrapper.shapes.get(key, 0) + 1
+    record = getattr(_CAPTURE, "record", None)
+    if record is not None:
+        shapes = record.setdefault(wrapper, {})
+        shapes[key, also] = shapes.get((key, also), 0) + 1
+        return
+    _add(wrapper, key, also, 1)
+
+
+def _add(wrapper, key: str, also: str | None, n: int) -> None:
+    wrapper.launches += n
+    wrapper.shapes[key] = wrapper.shapes.get(key, 0) + n
+    if also is not None:
+        setattr(wrapper, also, getattr(wrapper, also) + n)
     LAUNCHED[wrapper.__name__] = wrapper
+
+
+@contextmanager
+def recording():
+    """Within the block, this thread's count() calls fill the yielded record
+    ({wrapper: {(shape key, also): launches}}) and leave the counters alone:
+    a graph being captured launches nothing. The other threads count as
+    before."""
+    record: dict = {}
+    outer = getattr(_CAPTURE, "record", None)
+    _CAPTURE.record = record
+    try:
+        yield record
+    finally:
+        _CAPTURE.record = outer
+
+
+def add_record(record: dict, times: int = 1) -> None:
+    """Count `times` runs of a recorded capture: each wrapper's launches and
+    per-shape counts go up by the record's, times `times` (a graph replay)."""
+    for wrapper, shapes in record.items():
+        for (key, also), n in shapes.items():
+            _add(wrapper, key, also, n * times)
 
 
 def gemm(a, w, out, *, M: int, N: int, K: int, batch: int = 1,

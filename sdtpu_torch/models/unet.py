@@ -319,6 +319,12 @@ def _use_fused_attn(s: int, c: int, n_head: int) -> bool:
             and s * c <= 16384 * 320 and (c // n_head) % 8 == 0)
 
 
+def xattn_enabled() -> bool:
+    """SDTPU_FUSED_XATTN, read at each call: set to another value than "0",
+    "false" or "" (see _use_fused_xattn)."""
+    return os.environ.get("SDTPU_FUSED_XATTN", "0") not in ("0", "false", "")
+
+
 def _use_fused_xattn(s: int, c: int, n_head: int) -> bool:
     """sdtpu's gate for the fused cross-attention (K10,
     sdtpu/models/unet.py:353-368): off unless SDTPU_FUSED_XATTN is set to
@@ -326,7 +332,7 @@ def _use_fused_xattn(s: int, c: int, n_head: int) -> bool:
     slower than XLA's composite on v5e and keeps it off; the H100 default
     stays the same), then 256 <= S <= 4096, S % 128 == 0 and d_head % 8 == 0.
     Closed inside dispatch.training()."""
-    if os.environ.get("SDTPU_FUSED_XATTN", "0") in ("0", "false", ""):
+    if not xattn_enabled():
         return False
     return (not dispatch.in_training() and 256 <= s <= 4096 and s % 128 == 0
             and (c // n_head) % 8 == 0)

@@ -398,8 +398,8 @@ def _conv3x3(x, w, conv_bias, prologue_scale, prologue_bias, residual, silu, emi
                          res=res, pa=ps, pb=pb, prologue=prologue, stats=stats, x2=x2, C2=c2)
     kernels.count(conv3x3_fused, b=b, h=h, w=wd, c=c, c2=c2, co=co, prologue=prologue,
                   residual=res is not None, stats=emit_stats,
-                  route="wmma" if plan is None else "sm90")
-    conv3x3_fused.launches_x2 += x2 is not None
+                  route="wmma" if plan is None else "sm90",
+                  also=None if x2 is None else "launches_x2")
     return (out, stats.sum(dim=1)) if emit_stats else out
 
 

@@ -91,9 +91,18 @@ def device_ms(fn, iters: int = ITERS) -> float:
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
+    # captured as torch.cuda.graph captures, less the gc.collect() it runs
+    # first (about 50 ms a capture in a process as large as chip_smoke.py's,
+    # whose phase 2 captures about a thousand times); empty_cache() stays:
+    # it releases the private pools of the graphs captured before
+    torch.cuda.empty_cache()
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        try:
+            for _ in range(iters):
+                fn()
+        finally:
+            graph.capture_end()
     graph.replay()
     torch.cuda.synchronize()
     best = math.inf

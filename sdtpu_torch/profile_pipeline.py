@@ -10,16 +10,22 @@ full width with random weights (seeded), bf16, at the given image size (the
 same config with image_size set; the preset's own size by default: 512 for
 sd-v1-4, 768 for sd-v2-1), and measures, after warm-up:
 
-1. `generate` (20 DDIM steps, CFG 7.5 batched, batch 1) N times: the wall
-   seconds of encode_prompt / denoise / decode of each run;
+1. `generate` (20 DDIM steps, CFG 7.5 batched, batch 1) N + 1 times
+   eagerly (StableDiffusion(..., graphs=False)) and N + 1 times replayed
+   from CUDA graphs (graphs=True, the default on the card; its first run
+   captures), over the same weights: the wall seconds of encode_prompt /
+   denoise / decode of each run, and the means of the last N per image;
 2. one UNet call (batch 2, the batched CFG pair) and one VAE decode, each
    also with its fused ResBlock gates closed (sdtpu's unfused branch:
    cuDNN convolutions between GroupNorm+SiLU passes; the UNet's gate only
    matters from 128x128 latents, 1024px, on): the mean wall time of N
    calls (host clock, synchronised), and the device kernel time of one
    call under torch.profiler, with its largest items;
-3. the same UNet call replayed from a CUDA graph, and its largest
-   difference from the eager output.
+3. the same UNet call replayed from a CUDA graph (graphs.GraphCache), and
+   its largest difference from the eager output; the 20-step denoise and
+   the decode replayed, each the mean wall of N calls and the device kernel
+   time of one under torch.profiler (busy share: device over wall); each
+   graph's capture seconds and the bytes it added to the shared pool.
 
 With --train it measures instead a training step of the whole UNet at the
 image size (training.make_train_step: batch 4 of random latents and
@@ -40,9 +46,11 @@ import dataclasses
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import torch
 
+from sdtpu_torch import graphs
 from sdtpu_torch.config import PRESETS
 from sdtpu_torch.models import unet as unet_model
 from sdtpu_torch.models import vae as vae_model
@@ -65,10 +73,11 @@ def _wall_ms(fn, repeats: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / repeats
 
 
-def _device_profile(fn, top: int):
-    """(device ms of one call of fn, [(name, ms, launches)] largest first):
-    the profiler's rows with device time and no CPU time of their own are
-    the kernels."""
+def device_profile(fn, top: Optional[int]):
+    """(device ms of one call of fn, its first `top` [(name, ms, launches)],
+    largest first; all with None): fn is called twice, and the second call
+    profiled. The profiler's rows with device time and no CPU time of their
+    own are the kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -107,7 +116,7 @@ def _train(sd, dev, args, say) -> None:
         torch.cuda.reset_peak_memory_stats(dev)
         wall = _wall_ms(one, args.repeats)
         peak = torch.cuda.max_memory_allocated(dev) / 1024 ** 3
-        dev_ms, top = _device_profile(one, args.top)
+        dev_ms, top = device_profile(one, args.top)
         say(f"4. train step remat={remat!r} ({cfg.name} UNet, {cfg.image_size}px, batch {b}, "
             f"bf16, AdamW): "
             f"wall {wall:.3f} ms (mean of {args.repeats}); peak memory {peak:.2f} GiB; device "
@@ -145,24 +154,36 @@ def main(argv=None) -> None:
     preset = PRESETS[args.preset]
     size = args.size or preset.image_size
     cfg_sd = dataclasses.replace(preset, image_size=size)
-    sd = StableDiffusion(init_params(cfg_sd, torch.Generator(device=dev).manual_seed(0),
-                                     device=dev), cfg_sd, compute_dtype=torch.bfloat16)
+    params = init_params(cfg_sd, torch.Generator(device=dev).manual_seed(0), device=dev)
+    sd = StableDiffusion(params, cfg_sd, compute_dtype=torch.bfloat16)
     tok = SimpleTokenizer()
     hw = cfg_sd.latent_size
     if args.train:
+        del params
         _train(sd, dev, args, say)
         _write(args.out, lines)
         return
+    sd_eager = StableDiffusion(params, cfg_sd, compute_dtype=torch.bfloat16, graphs=False)
+    del params
 
-    say(f"1. generate {cfg_sd.name} {size}x{size} bf16, 20 DDIM steps, CFG 7.5, batch 1 "
-        f"({args.repeats + 1} runs, the first includes first-call costs)")
-    for i in range(args.repeats + 1):
-        t0 = time.perf_counter()
-        sd.generate(tok, PROMPT, 7.5, 20, generator=torch.Generator(device=dev).manual_seed(i))
-        tm = sd.timings
-        say(f"   run {i}: wall {time.perf_counter() - t0:.4f} s = encode_prompt "
-            f"{tm['encode_prompt']:.4f} + denoise {tm['denoise']:.4f} + decode "
-            f"{tm['decode']:.4f}")
+    for label, pipe in (("eager", sd_eager), ("replayed from CUDA graphs", sd)):
+        say(f"1. generate {cfg_sd.name} {size}x{size} bf16, 20 DDIM steps, CFG 7.5, batch 1, "
+            f"{label} ({args.repeats + 1} runs, the first includes first-call costs)")
+        warm = {"denoise": [], "decode": []}
+        for i in range(args.repeats + 1):
+            t0 = time.perf_counter()
+            pipe.generate(tok, PROMPT, 7.5, 20,
+                          generator=torch.Generator(device=dev).manual_seed(i))
+            tm = pipe.timings
+            say(f"   run {i}: wall {time.perf_counter() - t0:.4f} s = encode_prompt "
+                f"{tm['encode_prompt']:.4f} + denoise {tm['denoise']:.4f} + decode "
+                f"{tm['decode']:.4f}")
+            if i:
+                for name in warm:
+                    warm[name].append(tm[name])
+        say(f"   {label}: per image, mean of runs 1-{args.repeats}: denoise "
+            f"{sum(warm['denoise']) / args.repeats:.4f} s, decode "
+            f"{sum(warm['decode']) / args.repeats:.4f} s")
 
     g = torch.Generator(device=dev).manual_seed(1)
     x = torch.randn((2, hw, hw, 4), generator=g, device=dev).to(torch.bfloat16)
@@ -203,25 +224,47 @@ def main(argv=None) -> None:
               ("VAE decode, fused gates closed", decode_unfused_call)]
     for name, fn in calls:
         wall = _wall_ms(fn, args.repeats)
-        dev_ms, top = _device_profile(fn, args.top)
+        dev_ms, top = device_profile(fn, args.top)
         say(f"2. {name}: wall {wall:.3f} ms (mean of {args.repeats}); device kernels "
             f"{dev_ms:.3f} ms in one profiled call, busy share {dev_ms / wall:.3f}")
         for key, ms, n in top:
             say(f"   {ms:9.3f} ms {n:5d} launches  {key[:90]}")
 
     eager = unet_call()
-    stream = torch.cuda.Stream()
-    stream.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(stream):
-        unet_call()  # warm the allocator on the capture stream
-    torch.cuda.current_stream().wait_stream(stream)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = unet_call()
-    replay_ms = _wall_ms(graph.replay, args.repeats)
-    diff = float((out.float() - eager.float()).abs().max())
+    cache = sd.graph_cache
+    inputs = {"x": x, "t": t, "ctx": ctx2, "valid": valid2}
+
+    def unet_program(inp):
+        return unet_apply(unet, inp["x"], inp["t"], inp["ctx"], cfg, ctx_valid=inp["valid"])
+
+    ug = cache.ensure(graphs.Program("unet", {"config": cfg_sd}, inputs, unet_program, (unet,),
+                                     graphs.UNET_GATES))
+    replay_ms = _wall_ms(ug.graph.replay, args.repeats)
+    diff = float((ug.output.float() - eager.float()).abs().max())
     say(f"3. UNet call replayed from a CUDA graph: wall {replay_ms:.3f} ms (mean of "
         f"{args.repeats}); max |graph - eager| {diff:.3e}")
+    lat = torch.randn((1, hw, hw, 4), generator=g, device=dev)
+
+    def denoise():
+        return sd.sample_latent(ctx, unctx, 7.5, 20, initial_latent=lat, ctx_valid=valid,
+                                uncond_valid=unvalid)
+
+    def decode():
+        return sd._decode_u8(lat)
+
+    for name, fn in (("denoise, 20 DDIM steps", denoise), ("decode", decode)):
+        wall = _wall_ms(fn, args.repeats)
+        dev_ms, top = device_profile(fn, args.top)
+        busy = f"{dev_ms / wall:.3f}" if dev_ms else "not measured (no device rows)"
+        say(f"3. {name} replayed: wall {wall:.3f} ms (mean of {args.repeats}); device "
+            f"kernels {dev_ms:.3f} ms in one profiled call, busy share {busy}")
+        for key, ms, n in top[:4]:
+            say(f"   {ms:9.3f} ms {n:5d} launches  {key[:90]}")
+    for st in cache.stats()["graphs"]:
+        say(f"3. graph {st['kind']} {st['inputs']}: captured in {st['capture_s']:.3f} s, "
+            f"{st['pool_bytes']} bytes added to the pool, {st['replays']} replays, "
+            f"{st['launches']} kernel launches a replay")
+    say(f"3. the graphs' shared pool: {cache.pool_bytes()} bytes")
 
     _write(args.out, lines)
 

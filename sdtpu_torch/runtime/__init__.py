@@ -23,6 +23,7 @@ import hashlib
 import mmap
 import os
 import subprocess
+import threading
 from pathlib import Path
 from typing import List, Optional
 
@@ -49,10 +50,21 @@ def library_path() -> Path:
     return BUILD_DIR / f"libsdtpu_runtime_{h.hexdigest()[:16]}.so"
 
 
+# one build at a time in this process: a background build (warm.WarmStart)
+# and a first use never run two compilers on one temporary file
+_BUILD_LOCK = threading.Lock()
+
+
 def build() -> Path:
     """Compile the library unless the one for these sources exists;
     returns its path. Raises RuntimeError with the compiler's output where
-    it fails, OSError where there is no compiler."""
+    it fails, OSError where there is no compiler. Thread-safe: a second
+    caller waits for the first's build and then finds the library."""
+    with _BUILD_LOCK:
+        return _build()
+
+
+def _build() -> Path:
     out = library_path()
     if out.exists():
         return out

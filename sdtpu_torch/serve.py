@@ -24,6 +24,15 @@ it, so a lone seeded /generate returns the image StableDiffusion.generate
 gives with generator=torch.Generator(device=sd.device).manual_seed(seed)
 on the same card. Without a seed the generator is seeded from the clock.
 
+On the card a pipeline runs through CUDA graphs (graphs.py): each batch
+replays the graphs of its key (steps, sampler, karras, the adapter's UNet,
+the batch padded to a power of two, so the keys stay few, as sdtpu's jit
+cache's do), captured at the key's first batch; make_server's warm-up
+request captures the default key. An adapter's pipeline has its own UNet
+tree and so its own graphs, in the base pipeline's cache (one memory pool).
+Every output leaves the graph as a clone, so a batch's images stay intact
+while the next batch replays.
+
 The server's state (pipeline, tokenizer, batcher) belongs to the server
 object make_server returns; server_close() also stops the batcher's
 threads. main() serves a model file of any of the CLI's types on the card
@@ -610,7 +619,8 @@ def make_server(sd, tokenizer, port: int = 8000, warmup: bool = True,
                 default_steps: int = 20, max_batch: int = 8, batch_window_ms: float = 15.0,
                 max_queue: int = 32, timeout_s: float = 120.0, loras=None) -> Server:
     """A server bound to `port` (0: any free one, see server_address) that
-    has run one warm-up request and reports ready. Serve with
+    has run one warm-up request (on the card: the default key's graphs
+    captured) and reports ready. Serve with
     serve_forever(); stop with shutdown() and server_close(). sd: a
     pipeline without a mesh (on a mesh, build a Batcher on every rank)."""
     if sd.mesh is not None:

@@ -136,6 +136,7 @@ def prepare_ti_data(sd, tokenizer, data_dir: str, placeholder: str = DEFAULT_PLA
     placeholder (an image without one gets "a photo of <placeholder>")."""
     from sdtpu_torch.dataset import center_crop_resize, list_examples, load_image_u8
 
+    sd = sd.with_graphs(False)  # fine-tuning runs eagerly, its data preparation too
     cfg = sd.config
     examples = list_examples(data_dir)
     size, n_ctx = cfg.image_size, cfg.clip.n_ctx

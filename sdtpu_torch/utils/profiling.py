@@ -11,7 +11,11 @@
 - `enabled()`: SDTPU_PROFILE set to another value than "0", "" or
   "false"; the CLI then prints the registry's report.
 
-The registry's keys and JSON shape are sdtpu's.
+The registry's keys and JSON shape are sdtpu's. Under CUDA graphs
+(graphs.py) a span times the replay as it would the eager calls (the
+replay is device work, waited for at the span's end), and the first call
+with a key includes its capture; a trace shows a replay's kernels one by
+one, as the eager calls'.
 """
 
 from __future__ import annotations

@@ -84,11 +84,20 @@ Phases, each printing its lines:
    and the bytes it added to the shared pool;
 5. sdtpu_torch.finetune.run_finetune at SD v1.4 width and depth, 512x512,
    from a folder of synthetic PNGs: the latent cache through the port's
-   VAE encoder and CLIP, then 3 AdamW steps at batch 4 in bf16, the tuned
-   model written and read back; the launch counts of the cache build and
-   of the training (K1 and K9 only, every K1 launch on the Hopper core),
-   finite losses, every UNet leaf changed; then one more step each with
-   remat "full" and "dots";
+   VAE encoder and CLIP (their graphs replayed), then 3 AdamW steps at
+   batch 4 in bf16, the step one CUDA graph (the first step eager, then
+   the capture, then replays), the tuned model written and read back; the
+   launch counts of the cache build (the encoder graph's warm-up apart)
+   and of the training (K1 and K9 only, every K1 launch on the Hopper
+   core), the step's one capture and two replays, finite losses, every
+   UNet leaf changed; then the step A/Bs (TRAIN_AB: AdamW, accum 2 with the bf16 sum, Adafactor,
+   remat "dots" in bf16, and f32 compute under remat "full" with cuDNN's deterministic
+   algorithms, after two eager f32 runs under its defaults whose differences are
+   printed), each the same seeded run eagerly and replayed, every loss, the masters,
+   the optimizer state and the EMA bit-equal, K1 on its dtype's route, each run's
+   memory over its replays, and one
+   replayed step under the profiler, whose device launches of K1's and
+   K9's kernels must be the graph's record (DEVICE_KERNELS);
 6. sdtpu_torch.serve at SD v1.4 width, 512x512, bf16, with K10's gate open
    (SDTPU_FUSED_XATTN=1) and one random LoRA adapter, driven through its
    socket: concurrent requests batched to 4, the other samplers, img2img,
@@ -105,8 +114,8 @@ Phases, each printing its lines:
    the weights written once as native, `python -m sdtpu_torch.convert
    --to-dump` and back and `--to-mpk` and `--mpk` back, every leaf
    bit-equal, each file's size and each write's and read's seconds printed
-   (the dump tree read in process file by file, through the native bulk
-   reader twice, and file by file again);
+   (the dump tree read in process file by file, then through the native
+   bulk reader);
    `python -m sdtpu_torch.sample dump|native ... --seed 0 --bf16` on the
    card (the device argument omitted), each PNG byte-equal to an
    in-process generate in bf16 with the same generator, each run's load
@@ -129,12 +138,14 @@ Phases, each printing its lines:
    and depth, 512x512 (phase 4's weights written once as native), on
    phase 5's PNGs with captions that hold a placeholder, in new processes
    on the card under SDTPU_PROFILE=1: --fast (adafactor, batch 8) with EMA
-   and the train state saved, then resumed for one more step; LoRA with
-   two micro-batches summed in bf16; textual inversion. Checks the losses,
+   and the train state saved, then, as three processes at once, resumed
+   for one more step, LoRA with two micro-batches summed in bf16, and
+   textual inversion (while dryrun_multichip(4) runs beside them). Checks the losses,
    the state read back, the tuned model, the adapter's merge against the
-   base, the concept's rows, and the launches of each run (K1 and K9 in
+   base, the concept's rows, the launches of each run (K1 and K9 in
    training, on their Hopper routes, and the encoder's K3 and K6 where a
-   run encodes images);
+   run encodes images, its graph's warm-up apart), and each run's step
+   captured once and replayed at every later step (its report's graphs);
 9. (run after phase 4) SD v2.1 at 768x768, full width and depth (SD_V2_1,
    random weights, seed 0, bf16): generate with DDIM and with DPM++ on the
    Karras ladder (also replayed against the eager loop on the same inputs,
@@ -142,35 +153,37 @@ Phases, each printing its lines:
    UNet call with K10's gate open (10 heads at 48²), `python -m sdtpu_torch.sample
    native ... --preset sd-v2-1 --sampler dpmpp --karras --seed 0 --bf16`
    byte-equal to an in-process generate, and run_finetune at 768px (the
-   v target); each run's launches exactly the dispatch's (the graphs'
-   warm-ups apart), on their Hopper routes;
+   v target; its step replayed after the first); each run's launches
+   exactly the dispatch's (the graphs' warm-ups apart), on their Hopper
+   routes;
 10. (run after phase 4) dp and tp over torch.distributed: SD v1.4 at
    512x512, bf16, random weights (seed 0), on two ranks that share cuda:0
    under gloo, started by sdtpu_torch.parallel.launch.spawn; each rank
    prints its device and the backend. At tp = 2: one UNet call at batch 2
    with K10's gate open (against the single process's, PAR_UNET_MAX and
    PAR_UNET_MEAN; the planted faults, x and bo added on both ranks and the
-   row-parallel all-reduce skipped, must fail them) and a 20-step DDIM
-   generate (PAR_TP_IMAGE_MEAN); at dp = 2 a batch-2 generate of two
+   row-parallel all-reduce skipped, must fail them) and a DDIM generate of
+   PAR_TP_GEN_STEPS steps (PAR_TP_IMAGE_MEAN); at dp = 2 a batch-2 generate of two
    prompts (each image against the single process's batch-1 run of its
    slice, PAR_DP_IMAGE_MAX, and its batch-2 image, PAR_TP_IMAGE_MEAN); one
-   AdamW step at batch 4 (remat "full"), in f32 and in bf16 compute, at dp
-   = 2 and at tp = 2 (at tp the masters and the optimizer state as tp
+   AdamW step at batch 4 (remat "full") in bf16 compute (PAR_TRAIN_DTYPES),
+   at dp = 2 and at tp = 2 (at tp the masters and the optimizer state as tp
    parts), its gradients against the single step's in the same dtype leaf
    by leaf (PAR_GRAD_REL; the dp gradients summed, not averaged, must fail
    it), its AdamW moments gathered likewise and over the whole tree
    (PAR_MOMENT_REL, PAR_MOMENT_TREE; the clip's norm summed over tp for
-   every leaf, planted in the f32 and the bf16 tp step, must fail both),
+   every leaf, planted in the tp step, must fail it),
    each rank's peak memory over the step beside the single whole-state
    step's, the updated params printed as a record. With K10's gate open, serve.Batcher on the
    mesh: at dp = 2 three requests at once (padded to 4), a lone one
    (padded to 2) and an adapter's, against the single-process Batcher's
    images (PAR_TP_IMAGE_MEAN, PAR_DP_IMAGE_MAX); at tp = 2 two requests of
-   PAR_TP_SERVE_STEPS steps (PAR_TP_IMAGE_MEAN). Then dryrun_multichip(4)
-   on four gloo ranks of cuda:0 at SD_TINY, its summary line printed. Each
+   PAR_TP_SERVE_STEPS steps (PAR_TP_IMAGE_MEAN). dryrun_multichip(4) on
+   four gloo ranks of cuda:0 at SD_TINY runs beside phase 8, its summary
+   line printed. Each
    rank's launches per run must be exactly the dispatch's at the local
-   shapes (K1 and K9 on 4 local heads at tp = 2), on their Hopper routes
-   (the f32 steps' K1 and K9 on their float32 route), with the residual on
+   shapes (K1 and K9 on 4 local heads at tp = 2), on their Hopper routes,
+   with the residual on
    tp rank 0 alone; they join the totals, so each launched shape needs a
    phase-2 case.
 
@@ -213,18 +226,22 @@ so the float32 tolerances below are TF32 tolerances.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import dataclasses
+import gc
 import json
 import math
 import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from typing import Callable, NamedTuple, Optional
 
 SEED = 0
-WARMUP, ITERS = 3, 20
+# budget() calls fn twice before a timing: one more warm call then suffices
+WARMUP, ITERS = 1, 20
 # the calls a phase-2 timing spends on a slow kernel: 100 ms at first,
 # then 50, 25, 15 and 10, each cut when the whole script passed 950 s of
 # phases on a slow host (1004.0 s, then 951.8 s, then 1079.8 s with the
@@ -1013,7 +1030,7 @@ def graph_summary(stats: dict) -> str:
     """One line of a graph cache's stats(): captures and replays by kind,
     each graph's capture seconds and pool bytes, the shared pool's bytes."""
     def shape(g):  # the input that sets the graph's size
-        return next((g["inputs"][k] for k in ("latent", "tokens", "image", "x")
+        return next((g["inputs"][k] for k in ("latent", "latents", "tokens", "image", "x")
                      if k in g["inputs"]), "")
 
     each = "; ".join(f"{g['kind']} {shape(g)}"
@@ -1878,6 +1895,12 @@ DEVICE_KERNELS = {
     ("channel_partials", "sm90"): {"channel_stats_cluster_kernel": 1},
     ("channel_partials", "partials"): {"channel_partials_kernel": 1},
     ("group_norm_silu", None): {"group_norm_silu_kernel": 1},
+    # training: K1's Hopper core; K9's Hopper kernel (the bf16 route at d
+    # padded to 48/64/80/160, whose launches carry no route): the row
+    # terms, dK and dV, dQ
+    ("flash_attention_heads", "sm90"): {"attention_sm90_kernel": 1},
+    ("flash_attention_bwd_heads", None): {"sm90_delta_kernel": 1, "sm90_dkdv_kernel": 1,
+                                          "sm90_dq_kernel": 1},
 }
 HAND_WRITTEN = re.compile(r"(?:void )?sdk::(?:\(anonymous namespace\)::)?(\w+)")
 
@@ -2347,11 +2370,13 @@ def phase_v21(dev, tf32_defaults) -> tuple[dict, dict]:
             print(f"v2.1 finetune: {line}", flush=True)
             if line.startswith("dataset:"):
                 marks["cache"] = read_and_zero()
+                marks["warm"] = take_warmups(sd.graph_cache)
                 marks["t0"] = time.perf_counter()
             elif line.startswith("step "):
                 marks["steps"].append(time.perf_counter())
 
         read_and_zero()
+        take_warmups(sd.graph_cache)
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         result = run_finetune(sd, tok, data, os.path.join(tmp, "tuned"), steps=V21_TRAIN_STEPS,
@@ -2367,12 +2392,14 @@ def phase_v21(dev, tf32_defaults) -> tuple[dict, dict]:
               f"(cache build {marks['t0'] - t0:.1f} s, steps and save "
               f"{time.perf_counter() - marks['t0']:.1f} s), {peak()}; cache build launches "
               f"{fired(marks['cache'][0])} expected "
-              f"{V21_CACHE}, training launches {fired(train[0])} expected {V21_TRAIN}",
-              flush=True)
+              f"{V21_CACHE}, training launches {fired(train[0])} expected {V21_TRAIN}; "
+              f"{graph_summary(result['graphs'])}", flush=True)
         if len(losses) != V21_TRAIN_STEPS or not all(map(math.isfinite, losses)):
             bad.append(f"v2.1 run_finetune losses {losses}")
         check("finetune cache build", marks["cache"],
-              {**{n: 0 for n in KERNEL_INFO}, **V21_CACHE}, {"wide": 1})
+              {**{n: 0 for n in KERNEL_INFO}, **V21_CACHE}, {"wide": 1}, marks["warm"])
+        if result["graphs"]["replays"].get("train") != V21_TRAIN_STEPS - 1:
+            bad.append(f"v2.1 run_finetune's step replays {result['graphs']['replays']}")
         check("finetune training", train, {**{n: 0 for n in KERNEL_INFO}, **V21_TRAIN},
               {"sm90": V21_TRAIN["flash_attention_heads"]})
         tuned, tuned_cfg = load_native(result["out_path"], device=dev)
@@ -2753,16 +2780,30 @@ def _attn1_blocks(unet):
 TRAIN_IMAGES, TRAIN_BATCH, TRAIN_STEPS = 8, 4, 3
 # its launches: the latent cache (2 chunks of 4 images through the VAE
 # encoder: 10 ResnetBlocks on the fused gate, K3 once and K6 twice each; the
-# mid attention at 64² and norm_out stay plain), then per step K1 in the
-# forward and K9 in the backward of the 5 transformers at the 64² level and
-# no other kernel (dispatch.training() closes their gates)
+# mid attention at 64² and norm_out stay plain), the encoder graph's warm-up
+# apart, then per step K1 in the forward and K9 in the backward of the 5
+# transformers at the 64² level and no other kernel (dispatch.training()
+# closes their gates): the first step eagerly, the others replayed
 EXPECTED_CACHE = {"channel_partials": 20, "conv3x3_fused": 40}
 EXPECTED_TRAIN = {"flash_attention_heads": 5 * TRAIN_STEPS,
                   "flash_attention_bwd_heads": 5 * TRAIN_STEPS}
-# one more step with remat: "full" recomputes the blocks, K1 included; "dots"
-# saves the attention outputs
-EXPECTED_REMAT = {"full": {"flash_attention_heads": 10, "flash_attention_bwd_heads": 5},
-                  "dots": {"flash_attention_heads": 5, "flash_attention_bwd_heads": 5}}
+# the step A/Bs: the same seeded run eagerly and replayed from its CUDA graph
+# (sdtpu's step_jit), SD v1.4 width and depth, 512x512, batch 4, the EMA in
+# the step, bf16 compute but the last (f32 compute, the finetune command's
+# default, under remat "full" to keep its activations in room); every loss,
+# the masters, the optimizer state and the EMA after TRAIN_AB_STEPS steps
+# must be bit-equal. K1 and K9 per step: 5 each (accum 2: 10; remat "dots"
+# saves the attention outputs: 5; remat "full" runs K1 twice: 10), K1 on
+# the Hopper core in bf16 and on the WMMA kernel in f32 (K9 on its float32
+# kernel there). cuDNN's float32 backward may take non-deterministic
+# algorithms, under which two eager runs differ: the f32 entry first runs
+# eagerly twice under PyTorch's defaults and prints how many leaves
+# differ, then makes its A/B with torch.backends.cudnn.deterministic on
+TRAIN_AB_STEPS = 3
+TRAIN_AB = {"adamw": {}, "accum 2, bf16 sum": {"accum": 2, "accum_dtype": "bfloat16"},
+            "adafactor": {"kind": "adafactor"}, 'remat "dots"': {"remat": "dots"},
+            'float32, remat "full"': {"compute": "float32", "remat": "full",
+                                      "cudnn_deterministic": True}}
 
 
 def write_train_images(folder: str, caption: str, n: int = TRAIN_IMAGES) -> str:
@@ -2785,18 +2826,190 @@ def write_train_images(folder: str, caption: str, n: int = TRAIN_IMAGES) -> str:
     return folder
 
 
+def _train_ab_run(dev, sd, batches, cache, kind="adamw", accum=1, accum_dtype=None,
+                  remat=False, compute="bfloat16"):
+    """One run of a step A/B: TRAIN_AB's options, fresh f32 masters of sd's
+    UNet, the EMA in the step, the generator seeded with SEED, one step
+    a batch, each timed on the host's clock to its end (a synchronise).
+    cache: a graphs.GraphCache (replayed) or None (eager). Returns (masters,
+    state, EMA, losses, wall ms a step, memory, the step function); memory:
+    the peak allocated GiB over the first step (a replayed run's: its
+    eager step and the capture), and, over the later steps (replays
+    alone), the peak reserved GiB and the device's used GiB, each less
+    what they were before the run (the allocator's cache emptied): the
+    run's own footprint, its trees and the graph's pool and instantiated
+    graph included."""
+    import torch
+
+    from sdtpu_torch.models.unet import unfuse_qkv
+    from sdtpu_torch.training import make_optimizer, make_train_step, master_params, tree_map
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base_reserved, base_free = torch.cuda.memory_reserved(dev), torch.cuda.mem_get_info(dev)[0]
+    torch.cuda.reset_peak_memory_stats(dev)
+    opt = make_optimizer(lr=1e-5, warmup_steps=1, total_steps=10, kind=kind)
+    params = master_params(unfuse_qkv(sd.params["unet"]))
+    state = opt.init(params)
+    ema = tree_map(lambda p: p.detach().clone(), params)
+    step = make_train_step(sd.config, opt, compute_dtype=getattr(torch, compute), remat=remat,
+                           accum=accum,
+                           accum_dtype=None if accum_dtype is None else getattr(torch, accum_dtype),
+                           ema_decay=0.9999, graphs=cache)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.synchronize()
+    gib = 1024 ** 3
+    losses, walls, mem = [], [], {}
+    for i, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        losses.append(step(params, state, ema, batch, gen)[-1])
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+        if i == 0:
+            mem["first_peak"] = torch.cuda.max_memory_allocated(dev) / gib
+            torch.cuda.reset_peak_memory_stats(dev)
+    mem["reserved"] = (torch.cuda.max_memory_reserved(dev) - base_reserved) / gib
+    mem["used"] = (base_free - torch.cuda.mem_get_info(dev)[0]) / gib
+    return (params, state, ema, [float(x) for x in losses], walls, mem,
+            lambda b: step(params, state, ema, b, gen))
+
+
+def phase_train_graphs(dev, sd, batches) -> None:
+    """Phase 5's step A/Bs (TRAIN_AB): each run eagerly, then replayed
+    through a graph cache of its own (its first step eager, the capture,
+    then replays), in that order, from the same seed and batches; every
+    loss and the masters, the optimizer state (its moments) and the EMA
+    after TRAIN_AB_STEPS steps bit-equal, the two runs' K1 and K9
+    launches equal, and every K1 launch on its dtype's route (bf16 the
+    Hopper core, f32 the WMMA kernel). After the AdamW A/B, one more
+    replayed step under the profiler: its device launches of the
+    hand-written kernels must be the graph's record (DEVICE_KERNELS), its
+    device time against its wall gives the busy share, and the launches
+    of per-tensor addcmul kernels (AdamW's last op, if it leaves the
+    multi-tensor path) are printed. Prints each run's step walls, memory (_train_ab_run) and the
+    graph's capture seconds and pool bytes."""
+    import torch
+
+    from sdtpu_torch import graphs
+    from sdtpu_torch.finetune import STEP_KINDS
+    from sdtpu_torch.profile_pipeline import device_profile
+    from sdtpu_torch.training import tree_leaves
+
+    def differ(x, y) -> dict:
+        """{part: tensors that differ} of two runs (_train_ab_run's)."""
+        moments = [[t for f in ("mu", "nu", "v_row", "v_col", "v")
+                    for t in getattr(st, f, []) if t is not None] for st in (x[1], y[1])]
+        out = {name: sum(not torch.equal(a, b) for a, b in
+                         zip(tree_leaves(x[i]), tree_leaves(y[i])))
+               for name, i in (("masters", 0), ("EMA", 2))}
+        out["optimizer state"] = sum(not torch.equal(a, b) for a, b in zip(*moments)) + (
+            x[1].count != y[1].count) + (not moments[0])
+        return out
+
+    bad = []
+    print(f"train graph: {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated, "
+          f"{torch.cuda.mem_get_info()[0] / 2 ** 30:.2f} GiB free before the A/Bs", flush=True)
+    for label, opts in TRAIN_AB.items():
+        t0 = time.perf_counter()
+        opts = dict(opts)
+        deterministic = opts.pop("cudnn_deterministic", False)
+        compute = opts.get("compute", "bfloat16")
+        if deterministic:
+            first = _train_ab_run(dev, sd, batches, None, **opts)
+            second = _train_ab_run(dev, sd, batches, None, **opts)
+            print(f"train graph {label}: two eager runs under cuDNN's defaults, tensors that "
+                  f"differ {differ(first, second)} of {len(tree_leaves(first[0]))} leaves a "
+                  f"tree; losses equal {first[3] == second[3]}", flush=True)
+            del first, second
+        read_and_zero()
+        was = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = deterministic
+        try:
+            eager = _train_ab_run(dev, sd, batches, None, **opts)
+            eager_counts = fired(read_and_zero()[0])
+            cache = graphs.GraphCache(dev)
+            replayed = _train_ab_run(dev, sd, batches, cache, **opts)
+        finally:
+            torch.backends.cudnn.deterministic = was
+        replayed_read = read_and_zero()
+        replayed_counts = fired(replayed_read[0])
+        k1_routes = by_route(replayed_read[1]["flash_attention_heads"])
+        k1_route = "sm90" if compute == "bfloat16" else "wmma"
+        same = {"losses": eager[3] == replayed[3],
+                **{part: n == 0 for part, n in differ(eager, replayed).items()}}
+        stats = cache.stats()
+
+        def memory(m):
+            return (f"first step peak allocated {m['first_peak']:.2f} GiB; over the later "
+                    f"steps reserved {m['reserved']:.2f} GiB, device used {m['used']:.2f} GiB "
+                    f"more than before the run")
+
+        print(f"train graph {label}: {TRAIN_AB_STEPS} steps SD v1.4 512px {compute} batch "
+              f"{TRAIN_BATCH}, cudnn.deterministic {deterministic}; eager step wall ms "
+              f"{[round(t, 2) for t in eager[4]]} "
+              f"({memory(eager[5])}), replayed {[round(t, 2) for t in replayed[4]]} "
+              f"({memory(replayed[5])}); losses {replayed[3]}; bit-equal {same}; launches "
+              f"eager {eager_counts}, replayed {replayed_counts}, K1 by route {k1_routes}; "
+              f"{graph_summary(stats)} | {card_line()}", flush=True)
+        if not all(same.values()) or eager_counts != replayed_counts or not eager_counts:
+            bad.append(f"{label}: bit-equal {same}, launches {eager_counts} and "
+                       f"{replayed_counts}")
+        if k1_routes != {k1_route: replayed_counts.get("flash_attention_heads")}:
+            bad.append(f"{label}: K1 launched {k1_routes} by route, all expected on "
+                       f"{k1_route}")
+        if stats["captures"] != {"train": 1} or \
+                stats["replays"] != {"train": TRAIN_AB_STEPS - 1}:
+            bad.append(f"{label}: captures {stats['captures']}, replays {stats['replays']}")
+        del eager
+        if label == "adamw":
+            # one replayed step under the profiler (the second of two calls)
+            (g,) = cache.graphs.values()
+            step = replayed[6]
+            dev_ms, rows = device_profile(lambda: step(batches[0]), None)
+            read_and_zero()  # the profiled steps belong to no count
+            on_device = device_launches(rows)
+            last_op = [(n, k, ms) for n, ms, k in rows if "addcmul" in n.lower()]
+            recorded, unmapped = recorded_device_launches([(g.record, 1)])
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(3):
+                step(batches[0])
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t1) / 3
+            read_and_zero()
+            print(f"train graph adamw: one replayed step {dev_ms:.3f} ms of device time in "
+                  f"{wall:.3f} ms of wall (mean of 3), busy share {dev_ms / wall:.3f}; device "
+                  f"launches of the hand-written kernels by the profiler {on_device}, by the "
+                  f"graph's record {recorded}; {sum(k for _, _, k in rows)} device launches "
+                  f"in all; per-tensor addcmul kernels (AdamW's last op off the multi-tensor "
+                  f"path, whose kernels are named for their functor) "
+                  f"{[(n[:80], k, round(ms, 3)) for n, k, ms in last_op]}; largest "
+                  f"{[(n[:80], k, round(ms, 3)) for n, ms, k in rows[:6]]} | {card_line()}",
+                  flush=True)
+            if unmapped or not recorded or recorded != on_device:
+                bad.append(f"the step graph's record says {recorded} (no device map for "
+                           f"{unmapped}), the device ran {on_device}")
+        cache.drop(STEP_KINDS)
+        del replayed, cache
+        torch.cuda.empty_cache()
+        print(f"train graph {label} took {time.perf_counter() - t0:.1f} s", flush=True)
+    if bad:
+        fail("phase 5's step graphs: " + "; ".join(bad))
+
+
 def phase_train(dev) -> tuple[dict, dict]:
     """Phase 5: sdtpu_torch.finetune.run_finetune at SD v1.4 width and depth,
     512x512, random weights (init_params, seed 0), bf16 compute, batch 4,
     lr 1e-5, AdamW, 3 steps, remat off, on TRAIN_IMAGES synthetic PNGs with
-    captions: it builds the latent cache with the port's encoder and CLIP,
-    then trains. The counters are read and set to 0 when it reports the
+    captions: it builds the latent cache with the port's encoder and CLIP
+    (their graphs replayed), then trains, its step one CUDA graph replayed
+    after the first. The counters are read and set to 0 when it reports the
     dataset (after the cache build) and read again at its end. Checks the
-    losses, the saved model (sdtpu's keys, every UNet leaf finite and
-    changed), then one more step each with remat "full" and "dots". Prints
-    the warm step's wall ms and the peak memory of each. Returns the launch
-    counts of the whole run (cache build and training), per kernel and per
-    kernel and shape."""
+    losses, the launches (the encoder graph's warm-up apart), the step's
+    captures and replays, the saved model (sdtpu's keys, every UNet leaf
+    finite and changed), then the step A/Bs (phase_train_graphs). Prints
+    the step walls and the peak memory. Returns the launch counts of run_finetune (cache build and
+    training), per kernel and per kernel and shape."""
     import os
     import tempfile
 
@@ -2809,7 +3022,6 @@ def phase_train(dev) -> tuple[dict, dict]:
     from sdtpu_torch.models.unet import unfuse_qkv
     from sdtpu_torch.pipeline import StableDiffusion
     from sdtpu_torch.tokenizer import SimpleTokenizer
-    from sdtpu_torch.training import make_optimizer, make_train_step, master_params
 
     fns = wrappers()
     gib = 1024 ** 3
@@ -2826,6 +3038,7 @@ def phase_train(dev) -> tuple[dict, dict]:
             if line.startswith("dataset:"):
                 torch.cuda.synchronize()
                 marks["cache"] = read_and_zero()
+                marks["warm"] = take_warmups(sd.graph_cache)
                 torch.cuda.reset_peak_memory_stats(dev)
                 marks["t0"] = time.perf_counter()
             elif line.startswith("step "):
@@ -2840,22 +3053,31 @@ def phase_train(dev) -> tuple[dict, dict]:
         train = read_and_zero()
         peak = torch.cuda.max_memory_allocated(dev) / gib
         cache = marks["cache"]
+        cache_calls = minus(cache, marks["warm"])
         times = [marks["t0"]] + marks["steps"]
         step_ms = [1e3 * (b - a) for a, b in zip(times, times[1:])]
         losses = [v for _, v in result["losses"]]
-        print(f"train cache build ({TRAIN_IMAGES} images, SD v1.4 encoder + CLIP, bf16): "
-              f"launches {fired(cache[0])} expected {EXPECTED_CACHE}", flush=True)
+        stats = result["graphs"]
+        print(f"train cache build ({TRAIN_IMAGES} images, SD v1.4 encoder + CLIP, bf16, "
+              f"replayed): launches {fired(cache[0])}, without the encoder graph's warm-up "
+              f"{fired(cache_calls[0])}, expected {EXPECTED_CACHE}", flush=True)
         check_routes("train cache build", cache[1], {})
         print(f"train run_finetune SD v1.4 512px bf16 batch {TRAIN_BATCH} AdamW "
               f"{TRAIN_STEPS} steps remat=False: losses {losses}, step wall ms "
-              f"{[round(t, 1) for t in step_ms]} (warm step {step_ms[-1]:.1f} ms), peak "
-              f"memory {peak:.2f} GiB, whole call {wall:.1f} s; launches {fired(train[0])} "
-              f"expected {EXPECTED_TRAIN}", flush=True)
+              f"{[round(t, 1) for t in step_ms]} (the first eager, then its capture; warm "
+              f"step {step_ms[-1]:.1f} ms, replayed), peak memory {peak:.2f} GiB, whole call "
+              f"{wall:.1f} s; launches {fired(train[0])} expected {EXPECTED_TRAIN}; "
+              f"{graph_summary(stats)}", flush=True)
         if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
             fail(f"run_finetune losses {losses}")
-        if fired(cache[0]) != EXPECTED_CACHE or fired(train[0]) != EXPECTED_TRAIN:
-            fail(f"run_finetune launched {fired(cache[0])} building the cache and "
-                 f"{fired(train[0])} training")
+        if fired(cache_calls[0]) != EXPECTED_CACHE or fired(train[0]) != EXPECTED_TRAIN:
+            fail(f"run_finetune launched {fired(cache_calls[0])} building the cache (warm-ups "
+                 f"apart) and {fired(train[0])} training")
+        if stats["captures"].get("train") != 1 or \
+                stats["replays"].get("train") != TRAIN_STEPS - 1 or \
+                not stats["replays"].get("encode"):
+            fail(f"run_finetune's graphs: captures {stats['captures']}, replays "
+                 f"{stats['replays']}")
         # every training K1 launch (bf16, d = 40) on the Hopper core
         check_routes("train", train[1], {"sm90": EXPECTED_TRAIN["flash_attention_heads"]})
 
@@ -2872,40 +3094,21 @@ def phase_train(dev) -> tuple[dict, dict]:
         if cfg != SD_V1_4 or set(leaves) != set(base) or stale:
             fail(f"the saved model: config {cfg.name}, keys equal {set(leaves) == set(base)}, "
                  f"leaves not f32, finite and changed: {stale[:5]}")
+        del tuned, leaves, base
 
-        # one more step with each remat policy, from the tuned weights
-        params = master_params(tuned["unet"])
-        del tuned, leaves
         latents, contexts, n_valid = load_latent_cache(resolve_cache(sd, tok, data))
         batches = LatentBatches(latents, contexts, n_valid, batch_size=TRAIN_BATCH, seed=SEED,
                                 device=dev)
         try:
-            batch = next(batches)
+            ab_batches = [next(batches) for _ in range(TRAIN_AB_STEPS)]
         finally:
             batches.close()
-        gen = torch.Generator(device=dev).manual_seed(SEED)
-        for remat, expected in EXPECTED_REMAT.items():
-            opt = make_optimizer(lr=1e-5, warmup_steps=0, total_steps=2)
-            state = opt.init(params)
-            step = make_train_step(SD_V1_4, opt, compute_dtype=torch.bfloat16, remat=remat)
-            step(params, state, batch, gen)  # warm-up
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats(dev)
-            read_and_zero()
-            t0 = time.perf_counter()
-            loss = float(step(params, state, batch, gen)[2])
-            step_ms = 1e3 * (time.perf_counter() - t0)
-            counts, step_shapes = read_and_zero()
-            counts = fired(counts)
-            check_routes(f"train step remat={remat!r}", step_shapes,
-                         {"sm90": expected["flash_attention_heads"]})
-            print(f"train step remat={remat!r} bf16 batch {TRAIN_BATCH}: loss {loss:.5f}, warm "
-                  f"step {step_ms:.1f} ms, peak memory "
-                  f"{torch.cuda.max_memory_allocated(dev) / gib:.2f} GiB; launches {counts} "
-                  f"expected {expected}", flush=True)
-            if not math.isfinite(loss) or counts != expected:
-                fail(f"remat={remat!r}: loss {loss}, launches {counts}")
-            del state, opt
+
+        # the encoder's and CLIP's graphs and their pool go: the A/Bs need the room
+        sd.graph_cache.drop(("encode", "clip"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_train_graphs(dev, sd, ab_batches)
     return ({n: cache[0][n] + train[0][n] for n in fns},
             {n: {k: cache[1][n].get(k, 0) + train[1][n].get(k, 0)
                  for k in set(cache[1][n]) | set(train[1][n])} for n in fns})
@@ -2917,23 +3120,28 @@ def phase_train(dev) -> tuple[dict, dict]:
 # first transformer's self-attention (4 K9 a step), whose input no
 # gradient needs: only the context is differentiated, and it enters after.
 # The cache build at batch 8 (--fast) runs the encoder once (K3 10, K6 20),
-# textual inversion's data at batch 4 twice (K3 20, K6 40)
-FT_MIN_FREE = 17 * 1024 ** 3  # the model, the train state (UNet and EMA), a tuned model
+# textual inversion's data at batch 4 twice (K3 20, K6 40), each replayed
+# from the encoder's graph (its warm-up's launches apart). Each run's step is
+# one CUDA graph: its first step eager, then (kind, replays) (b resumes at
+# step 2 and runs one step: a capture and no replay)
+# the model, the train state (UNet and EMA), and tuned models: (a)'s, then
+# (b)'s and (c)'s at once
+FT_MIN_FREE = 26 * 1024 ** 3
 FT_PLACEHOLDER = "<sks>"
 FT_RUNS = {
     "a": (["--fast", "--bf16", "--steps", "2", "--ema", "0.9999", "--save-every", "2"],
           {"flash_attention_heads": 10, "flash_attention_bwd_heads": 10,
-           "channel_partials": 10, "conv3x3_fused": 20}),
+           "channel_partials": 10, "conv3x3_fused": 20}, ("train", 1)),
     "b": (["--fast", "--bf16", "--steps", "3", "--ema", "0.9999", "--save-every", "2",
            "--resume"],
-          {"flash_attention_heads": 5, "flash_attention_bwd_heads": 5}),
+          {"flash_attention_heads": 5, "flash_attention_bwd_heads": 5}, ("train", 0)),
     "c": (["--bf16", "--lora-rank", "4", "--accum", "2", "--accum-bf16", "--batch", "4",
            "--steps", "2"],
-          {"flash_attention_heads": 20, "flash_attention_bwd_heads": 20}),
+          {"flash_attention_heads": 20, "flash_attention_bwd_heads": 20}, ("lora", 1)),
     "d": (["--bf16", "--ti", FT_PLACEHOLDER, "--ti-init", "person", "--ti-vectors", "2",
            "--batch", "4", "--steps", "3"],
           {"flash_attention_heads": 15, "flash_attention_bwd_heads": 12,
-           "channel_partials": 20, "conv3x3_fused": 40}),
+           "channel_partials": 20, "conv3x3_fused": 40}, ("ti", 2)),
 }
 
 
@@ -2953,10 +3161,12 @@ def phase_finetune_cli(dev) -> tuple[dict, dict]:
     the adapter loads, each merged leaf is base + a·b·scale within f32
     rounding and every other leaf is bit-equal to the base; (d) textual
     inversion of two vectors from "person": the concept loads and its rows
-    have moved off that token's row. Each run's launches must be FT_RUNS'
-    (K1 on the Hopper core; the encoder's, in float32, K6 on its float32
-    kernel); prints each run's wall seconds, load, steps/sec, peak memory
-    and launches. Returns the launch counts of the four runs, per kernel and
+    have moved off that token's row; (b), (c) and (d) run as three
+    processes at once after (a), whose cache (c) reads. Each run's launches must be FT_RUNS' (K1
+    on the Hopper core; the encoder's, in float32, K6 on its float32
+    kernel, its graph's warm-up apart) and its step one captured graph,
+    replayed after its first step; prints each run's wall seconds, load,
+    steps/sec, peak memory, launches and graphs. Returns the launch counts of the four runs, per kernel and
     per kernel and shape (the encoder's keys under F32_KEY)."""
     import os
     import shutil
@@ -2975,7 +3185,7 @@ def phase_finetune_cli(dev) -> tuple[dict, dict]:
 
     t_phase = time.perf_counter()
     gb = 1e9
-    totals = Totals()
+    totals, totals_lock = Totals(), threading.Lock()
     env = {**os.environ, "SDTPU_PROFILE": "1"}
     bad = []
     with tempfile.TemporaryDirectory(prefix="chip_smoke_finetune_") as tmp:
@@ -2995,7 +3205,7 @@ def phase_finetune_cli(dev) -> tuple[dict, dict]:
         del params
 
         def run(label):
-            args, expected = FT_RUNS[label]
+            args, expected, (step_kind, replays) = FT_RUNS[label]
             if label in "ab":
                 args = args + ["--state-dir", state_dir]
             out = os.path.join(tmp, f"out_{label}")
@@ -3012,7 +3222,9 @@ def phase_finetune_cli(dev) -> tuple[dict, dict]:
             kern = report["kernels"]
             run_launches = {n: kern.get(n, {}).get("launches", 0) for n in KERNEL_INFO}
             run_shapes = {n: kern.get(n, {}).get("shapes", {}) for n in KERNEL_INFO}
-            fired = {n: k for n, k in run_launches.items() if k}
+            stats = report["graphs"]
+            calls = minus((run_launches, run_shapes), warmups_of(stats["warmup_launches"]))
+            fired = {n: k for n, k in calls[0].items() if k}
             # the encoder's launches (K3, K6) run in float32: K6's on its
             # float32 kernel (the WMMA route), K3's on its plan's route
             encoder = {n: run_shapes.pop(n) for n in ("channel_partials", "conv3x3_fused")}
@@ -3028,8 +3240,14 @@ def phase_finetune_cli(dev) -> tuple[dict, dict]:
                   f"the steps {report['train_s'] - around:.2f}; a step after the first "
                   f"{later}), {report['steps_per_sec']:.4f} steps/s, "
                   f"peak device memory {report['peak_memory_gib']:.2f} GiB, peak resident "
-                  f"{_gib(rss)}; losses {losses}; launches {fired} expected {expected} "
+                  f"{_gib(rss)}; losses {losses}; launches (the encoder graph's warm-up "
+                  f"apart) {fired} expected {expected}; {graph_summary(stats)} "
                   f"| {card_line()}", flush=True)
+            if stats["captures"].get(step_kind) != 1 or \
+                    stats["replays"].get(step_kind, 0) != replays:
+                bad.append(f"finetune {label}: the step's captures {stats['captures']}, replays "
+                           f"{stats['replays']}, expected one {step_kind} capture and "
+                           f"{replays} replays")
             if report["device"] != "cuda:0":
                 bad.append(f"finetune {label} ran on {report['device']}")
             if not losses or not all(map(math.isfinite, losses)):
@@ -3046,11 +3264,21 @@ def phase_finetune_cli(dev) -> tuple[dict, dict]:
                       f"{by_route(encoder['channel_partials'])}", flush=True)
             for n, shp in encoder.items():
                 run_shapes[n] = {F32_KEY + k: v for k, v in shp.items()}
-            totals.add(run_launches, run_shapes)
+            with totals_lock:
+                totals.add(run_launches, run_shapes)
             return text, out, report
 
+        # (a) first: it builds the latent cache beside the images, which (c)
+        # reads, and the state (b) resumes from; then (b), (c) and (d) at
+        # once (peaks of 27.5, 9.1 and 12.1 GiB of the card), each read back
+        # in turn; their walls and loads overlap
+        runs = {"a": run("a")}
+        with concurrent.futures.ThreadPoolExecutor(3) as pool:
+            later = {label: pool.submit(run, label) for label in "bcd"}
+        runs.update({label: f.result() for label, f in later.items()})
+
         # (a) the full fine-tune, its state and its model
-        _, out, _ = run("a")
+        _, out, _ = runs["a"]
         # the model holds the EMA; the state also holds the trained weights.
         # At decay 0.9999 two steps move the EMA by 1e-4 of a step of about
         # 1e-5 of a weight: below f32's resolution at the norm gains' 1.0, so
@@ -3087,7 +3315,7 @@ def phase_finetune_cli(dev) -> tuple[dict, dict]:
         os.remove(out + ".safetensors")
 
         # (b) the resume
-        text, out, report = run("b")
+        text, out, report = runs["b"]
         resumed = f"resumed step 2 from {state_dir}" in text
         print(f"finetune b: logs the resume at step 2: {resumed}; steps logged "
               f"{[i for i, _ in report['losses']]}", flush=True)
@@ -3097,7 +3325,7 @@ def phase_finetune_cli(dev) -> tuple[dict, dict]:
         shutil.rmtree(state_dir)
 
         # (c) LoRA: the adapter and the merge
-        _, out, _ = run("c")
+        _, out, _ = runs["c"]
         lora, scale, lmeta = load_lora(out + ".lora.safetensors", dev)
         merged, _ = load_native(out + ".safetensors", device=dev)
         merged = flatten_tree(merged["unet"])
@@ -3125,7 +3353,7 @@ def phase_finetune_cli(dev) -> tuple[dict, dict]:
         os.remove(out + ".safetensors")
 
         # (d) textual inversion
-        _, out, _ = run("d")
+        _, out, _ = runs["d"]
         emb, placeholder, _ = load_ti(out + ".ti.safetensors", dev)
         moved = [float((r - person_row.float()).abs().max()) for r in emb]
         print(f"finetune d: concept {placeholder!r} {tuple(emb.shape)}, rows' max |change| "
@@ -3365,12 +3593,12 @@ def phase_cli(dev, tf32_defaults) -> tuple[dict, dict]:
                 bad.append(f"the in-process dump read (bulk={bulk}) took the other path")
             return seconds
 
-        # file by file, bulk, bulk, file by file: each way once early, once late
-        order = (False, True, True, False)
+        # file by file, then bulk: each way once (the `sample dump` process
+        # below reads it in bulk once more)
+        order = (False, True)
         turns = [(bulk, read_dump(bulk)) for bulk in order]
         print(f"cli dump tree: {n_files} files, {_tree_bytes(dump) / gb:.3f} GB; read "
-              f"(load_stable_diffusion_dump, in process) in the order file by file, bulk, "
-              f"bulk, file by file: "
+              f"(load_stable_diffusion_dump, in process) in the order file by file, bulk: "
               + ", ".join(f"{'bulk' if b else 'file by file'} {t:.2f} s" for b, t in turns)
               + f" | {card_line()}", flush=True)
         round_trip("convert dump -> native", [dump])
@@ -3570,6 +3798,9 @@ PAR_LORA = (*PAR_SERVE[0][:-1], "style")
 # gave 0.72-0.73 (NVIDIA H100 80GB HBM3, 700 W); 10 divides 1000, so DDIM
 # takes 10 UNet calls
 PAR_TP_SERVE_STEPS = 10
+# the tp generate's DDIM steps (10 rather than the other generates' 20,
+# to pay for phase 5's step A/Bs: a tp step costs about 0.8 s under gloo)
+PAR_TP_GEN_STEPS = 10
 PAR_TP_SERVE = tuple(("A lighthouse at dusk.", PAR_TP_SERVE_STEPS, 7.5, seed, 1, "", "ddim",
                       False, None) for seed in (16, 17))
 PAR_WINDOW_MS = 500.0  # the three submits arrive well inside it
@@ -3596,6 +3827,20 @@ PAR_TRAIN_LAUNCHES = {"flash_attention_heads": 10, "flash_attention_bwd_heads": 
 # 0.146 / 0.271 in both
 PAR_MOMENT_REL = {"float32": 2e-4, "bfloat16": 0.25}
 PAR_MOMENT_TREE = {"float32": 1e-4, "bfloat16": 0.03}
+# the compute dtypes of those steps: bf16, the fine-tuning runs' (the f32
+# steps were cut to pay for phase 5's step A/Bs: their dp and tp steps took
+# 54 s of gloo copies on a slow host; the CPU tests hold the f32 tp and dp
+# steps against one process, tests/test_torch_parallel_train.py)
+PAR_TRAIN_DTYPES = ("bfloat16",)
+
+
+def generate_launches(steps: int) -> dict:
+    """EXPECTED_LAUNCHES[512] at `steps` DDIM steps: its UNet calls'
+    launches (K2 15, K5 10, K4 10, K3 5 a call) taken `steps` times, the
+    decode's as they are."""
+    per_call = {"fused_self_attention": 15, "fused_geglu_mlp": 10, "conv1x1_fused": 10,
+                "channel_partials": 5}
+    return {n: v + (steps - 20) * per_call.get(n, 0) for n, v in EXPECTED_LAUNCHES[512].items()}
 
 
 def par_serve_launches(steps: int, batches: int = 1) -> dict:
@@ -3799,13 +4044,13 @@ def _parallel_rank() -> dict:
     del faults, eps_tp
 
     t0 = time.perf_counter()
-    img_tp = sdt.generate(tok, PAR_PROMPTS[0], 7.5, 20, generator=gen(SEED + 1))
+    img_tp = sdt.generate(tok, PAR_PROMPTS[0], 7.5, PAR_TP_GEN_STEPS, generator=gen(SEED + 1))
     say(f"tp generate {time.perf_counter() - t0:.2f} s (denoise {sdt.timings['denoise']:.2f}, "
         f"decode {sdt.timings['decode']:.2f})")
     record("tp generate")
     dist.barrier()
     if rank == 0:
-        img_1 = sd1.generate(tok, PAR_PROMPTS[0], 7.5, 20, generator=gen(SEED + 1))
+        img_1 = sd1.generate(tok, PAR_PROMPTS[0], 7.5, PAR_TP_GEN_STEPS, generator=gen(SEED + 1))
         out["metrics"]["tp image"] = _par_diff(torch.from_numpy(img_tp),
                                                torch.from_numpy(img_1))
         out["metrics"]["tp image shape"] = tuple(img_tp.shape)
@@ -3877,8 +4122,8 @@ def _parallel_rank() -> dict:
     say(f"dp serve with its references {time.perf_counter() - t0:.2f} s")
     del sdd, sd1
 
-    # ---- training: one AdamW step at batch 4 (remat "full"), in f32 and in
-    # bf16 compute, at dp = 2 and at tp = 2 (the masters and the state as
+    # ---- training: one AdamW step at batch 4 (remat "full") in each of
+    # PAR_TRAIN_DTYPES, at dp = 2 and at tp = 2 (the masters and the state as
     # tp parts), each against the single process's step in the same dtype
     g = gen(SEED + 3)
     latents = torch.randn((4, hw, hw, 4), generator=g, device=dev)
@@ -3899,7 +4144,8 @@ def _parallel_rank() -> dict:
         through the backward, or the memory held when the update began
         plus the update's own peak over it, whichever is larger."""
         opt = make_optimizer(lr=1e-5, warmup_steps=0, total_steps=1, grad_clip=PAR_CLIP)
-        mem, given, update = {}, [], opt.update
+        # the step hands its gradients to the optimizer's apply()
+        mem, given, apply = {}, [], opt.apply
 
         def keep(p, g, st):
             torch.cuda.synchronize()
@@ -3912,12 +4158,12 @@ def _parallel_rank() -> dict:
             torch.cuda.synchronize()
             held = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
-            update(p, g, st)
+            apply(p, g, st)
             torch.cuda.synchronize()
             mem["step"] = max(through_backward,
                               at_update + torch.cuda.max_memory_allocated() - held)
 
-        opt.update = keep
+        opt.apply = keep
         torch.cuda.synchronize()
         mem["before"] = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -3974,7 +4220,7 @@ def _parallel_rank() -> dict:
         all-reduced over tp, so that a replicated leaf counts tp times."""
         sq = torch.stack(torch._foreach_norm(g)).square().sum()
         dist.all_reduce(sq, group=layout.tp.group)
-        return float(sq.sqrt())
+        return sq.sqrt()
 
     def gib(n):
         return n / 2 ** 30
@@ -3982,8 +4228,8 @@ def _parallel_rank() -> dict:
     # the references on rank 0, one tree of params and one of gradients at a
     # time beside a step (each f32 tree is 3.4 GB; two ranks share the card)
     before = tree_leaves(base)
-    for dtype in (torch.float32, bf16):
-        dname = str(dtype).split(".")[-1]
+    for dname in PAR_TRAIN_DTYPES:
+        dtype = getattr(torch, dname)
         ref, ref_grads, ref_loss, up, ref_moments = None, [], None, None, None
         if rank == 0:
             ref, ref_loss, ref_state, _, _, ref_mem = train_step(
@@ -3994,7 +4240,7 @@ def _parallel_rank() -> dict:
             torch.cuda.empty_cache()
             up = rel(ref, before, 1.0)
             out["metrics"][f"single train {dname}"] = (
-                global_norm(ref_grads), {k: gib(v) for k, v in ref_mem.items()})
+                float(global_norm(ref_grads)), {k: gib(v) for k, v in ref_mem.items()})
         read_and_zero()
         dist.barrier()
         for mode, mesh in (("dp", mesh_dp), ("tp", mesh_tp)):
@@ -4076,8 +4322,8 @@ def phase_parallel(dev) -> tuple[dict, dict]:
     results = spawn(2, _parallel_rank, backend="gloo", timeout=PAR_TIMEOUT)
     totals = Totals()
     bad = []
-    train_labels = [f"{mode} train {d}" for d in ("float32", "bfloat16") for mode in ("dp", "tp")]
-    want = {"tp unet": PAR_UNET_LAUNCHES, "tp generate": EXPECTED_LAUNCHES[512],
+    train_labels = [f"{mode} train {d}" for d in PAR_TRAIN_DTYPES for mode in ("dp", "tp")]
+    want = {"tp unet": PAR_UNET_LAUNCHES, "tp generate": generate_launches(PAR_TP_GEN_STEPS),
             "dp generate": EXPECTED_LAUNCHES[512],
             "tp serve": par_serve_launches(PAR_TP_SERVE_STEPS, len(PAR_TP_SERVE)),
             **{f"dp serve {k}": par_serve_launches(20) for k in ("batch", "lone", "lora")},
@@ -4176,7 +4422,7 @@ def phase_parallel(dev) -> tuple[dict, dict]:
             print(f"phase 10 rank {res['rank']} {label}: peak device memory over the step "
                   f"{mem['step']:.2f} GiB, {mem['before']:.2f} GiB allocated before its masters"
                   f" | {card_line()}", flush=True)
-    for dname in ("float32", "bfloat16"):
+    for dname in PAR_TRAIN_DTYPES:
         norm, mem = m[f"single train {dname}"]
         print(f"phase 10 single train {dname} (rank 0, the whole masters and state): peak "
               f"{mem['step']:.2f} GiB over the step, {mem['before']:.2f} GiB before its masters;"
@@ -4357,6 +4603,14 @@ def main() -> None:
         print(f"{label} took {time.perf_counter() - t0:.1f} s", flush=True)
         return time.perf_counter()
 
+    def release(label):
+        """What a phase left (a pipeline in a reference cycle holds its
+        graphs and their pool) collected, and the allocator's cache freed."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"after {label}: {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated, "
+              f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB reserved", flush=True)
+
     # phase 2: each kernel against its plain version
     t0 = time.perf_counter()
     max_err, measured = phase_kernels(dev)
@@ -4373,18 +4627,25 @@ def main() -> None:
     # generate, the server at 512px, then fine-tuning at 512px in process
     # and through `python -m sdtpu_torch.finetune`
     totals = Totals()
+    background = concurrent.futures.ThreadPoolExecutor(1)
+    dryrun = None
     for label, run in (("phase 4 (generate 512)", lambda: phase_generate(dev, 512)),
                        ("phase 4 (generate 1024)", lambda: phase_generate(dev, 1024)),
                        ("phase 10 (dp and tp)", lambda: phase_parallel(dev)),
-                       ("phase 10 (dryrun_multichip)", lambda: phase_dryrun(dev)),
                        ("phase 9 (SD v2.1 768)", lambda: phase_v21(dev, tf32_defaults)),
                        ("phase 7 (command lines)", lambda: phase_cli(dev, tf32_defaults)),
                        ("phase 6 (serve)", lambda: phase_serve(dev)),
                        ("phase 5 (run_finetune)", lambda: phase_train(dev)),
                        ("phase 8 (finetune command line)", lambda: phase_finetune_cli(dev))):
+        if label.startswith("phase 8"):
+            # dryrun_multichip(4): four gloo ranks at sd-tiny, bound by the
+            # host, beside phase 8's processes, which wait on the card
+            dryrun = background.submit(phase_dryrun, dev)
         totals.add(*run())
         t0 = took(label, t0)
-        torch.cuda.empty_cache()
+        release(label)
+    totals.add(*dryrun.result())
+    background.shutdown()
     times = main_path_times(measured, totals.shapes)
     launches = totals.launches
 

@@ -40,11 +40,15 @@ also holds its warm start's timeline (seconds from its start to the
 kernels' and the runtime's builds, to the join, to the captures) and its
 graph cache's counts
 (graphs.GraphCache.stats: captures, replays, each graph's capture seconds
-and pool bytes, the warm-ups' launches, which the kernels' counts include).
+and pool bytes, the warm-ups' launches, which the kernels' counts include);
+finetune's holds its run's graph stats (finetune.py: the data preparation's
+programs and the step's graph; None where the steps ran eagerly).
 
 On the card, sample runs through CUDA graphs (StableDiffusion's graphs,
 graphs.py): warm.WarmStart builds the kernels and the native runtime while
-the weights load, then captures the first image's graphs.
+the weights load, then captures the first image's graphs; finetune's data
+preparation replays the encoder's and CLIP's programs and its step is one
+captured graph, replayed from the second step.
 """
 
 from __future__ import annotations
@@ -448,6 +452,7 @@ def finetune_main(argv=None) -> None:
             "train_s": round(train_s, 4),
             "steps_per_sec": result["steps_per_sec"], "losses": result["losses"],
             "peak_memory_gib": None if peak is None else round(peak, 4),
+            "graphs": result.get("graphs"),
             "kernels": _launch_counts(),
         }))
     import torch.distributed as dist

@@ -9,7 +9,10 @@ sdtpu/dataset.py).
   permutations (the same index sequence as sdtpu's for the same seed), the
   wrap-around into the next epoch so every batch has one shape, and the
   [B, S] key-validity mask built from the cached lengths. A daemon thread
-  stages `prefetch` batches on the device ahead of the consumer.
+  stages `prefetch` batches on the device ahead of the consumer, on a
+  stream of its own; the consumer's stream waits for each batch's copies
+  before it reads them (a train step copies them into its graph's static
+  buffers on its own stream, and may be capturing meanwhile).
 
 Dataset layout: a directory of `<stem>.png` (8-bit RGB) or `<stem>.npy`
 ([H, W, 3] uint8) images, each with an optional `<stem>.txt` caption (no
@@ -84,22 +87,21 @@ def build_latent_cache(sd, tokenizer, data_dir: str, out_path: str, batch: int =
     (encode(x) · latent_scale), so the training loop consumes them as they
     are; the contexts are the full padded [n_ctx, D] CLIP sequences with
     each example's valid length. Chunks of `batch` images go through
-    sd.encode_image, the last one padded with zeros to the same shape.
+    sd.encode_image, the last one at its own size (sdtpu pads it with zeros
+    to keep one compiled shape; here it is one more graph key, captured on
+    its own images: a zero-padded chunk replayed from the full chunks'
+    graph differed from its eager run through cuDNN's convolutions).
     flip: also encode the horizontal mirror of every image, at the pixel
     level (the VAE's asymmetric padding makes a flipped latent differ from
-    the latent of the flipped image)."""
-    sd = sd.with_graphs(False)  # fine-tuning runs eagerly, its data preparation too
+    the latent of the flipped image). With sd's graphs on, every chunk
+    replays the encoder's program and every caption CLIP's (graphs.py)."""
     examples = list_examples(data_dir)
     size = sd.config.image_size
     lat_list, ctx_list, nv_list = [], [], []
 
     def encode_chunk(imgs):
         x = imgs.astype(np.float32) / 127.5 - 1.0  # u8 -> [-1, 1]
-        pad = batch - len(imgs)
-        if pad:
-            x = np.concatenate([x, np.zeros((pad,) + x.shape[1:], x.dtype)])
-        z = sd.encode_image(x)[: len(imgs)]
-        return z.float().cpu().numpy() * sd.config.latent_scale
+        return sd.encode_image(x).float().cpu().numpy() * sd.config.latent_scale
 
     for start in range(0, len(examples), batch):
         chunk = examples[start:start + batch]
@@ -135,7 +137,11 @@ class LatentBatches:
     partial batch wraps into the next epoch. device=False yields numpy
     batches (latents, contexts[, n_valid]); otherwise a torch device (the
     card unless told otherwise) to which each batch (latents, contexts[,
-    valid [B, S] bool]) is copied by the prefetch thread. close() stops the
+    valid [B, S] bool]) is copied by the prefetch thread. On the card the
+    thread copies from pinned memory on its own stream and records an event;
+    next() makes the caller's current stream wait for that event and marks
+    the batch's tensors as used there (so their memory is not handed back
+    to the thread's stream before the caller is done). close() stops the
     thread.
 
     shard=(dp_rank, dp): each batch's rows dp_rank·B/dp .. (dp_rank+1)·B/dp
@@ -152,6 +158,7 @@ class LatentBatches:
         self.n_valid = None if n_valid is None else np.ascontiguousarray(n_valid, np.int32)
         self.batch_size = int(batch_size)
         self.device = device
+        self._copy_stream = None
         self._rng = np.random.Generator(np.random.PCG64(seed))
         self._perm: np.ndarray = self._rng.permutation(len(self.latents))
         self._pos = 0
@@ -181,11 +188,19 @@ class LatentBatches:
         nv = None if self.n_valid is None else self.n_valid[idx]
         if self.device is False:
             return (lat, ctx) if nv is None else (lat, ctx, nv)
-        out = [torch.from_numpy(lat).to(self.device), torch.from_numpy(ctx).to(self.device)]
+        host = [torch.from_numpy(lat), torch.from_numpy(ctx)]
         if nv is not None:
-            valid = np.arange(ctx.shape[1])[None, :] < nv[:, None]
-            out.append(torch.from_numpy(valid).to(self.device))
-        return tuple(out)
+            host.append(torch.from_numpy(np.arange(ctx.shape[1])[None, :] < nv[:, None]))
+        dev = torch.device(self.device)
+        if dev.type != "cuda":
+            return tuple(x.to(dev) for x in host), None
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(dev)
+        with torch.cuda.stream(self._copy_stream):
+            out = tuple(x.pin_memory().to(dev, non_blocking=True) for x in host)
+            done = torch.cuda.Event()
+            done.record(self._copy_stream)
+        return out, done
 
     def _worker(self):
         while not self._stop.is_set():
@@ -211,6 +226,14 @@ class LatentBatches:
         batch = self._q.get()
         if isinstance(batch, Exception):
             raise RuntimeError("staging a batch failed") from batch
+        if self.device is False:
+            return batch
+        batch, done = batch
+        if done is not None:
+            stream = torch.cuda.current_stream(batch[0].device)
+            stream.wait_event(done)
+            for x in batch:
+                x.record_stream(stream)
         return batch
 
     def close(self) -> None:

@@ -12,7 +12,7 @@
                                  forward and K9 backward in the attention at
                                  the 64² level, plain PyTorch elsewhere;
                                  AdamW or Adafactor; micro-batches summed in
-                                 f32 or bf16)
+                                 f32 or bf16; the EMA as the step's last op)
     lora.make_lora_train_step   (an adapter over the frozen base instead)
     io.checkpoint               (train-state save and resume)
     io.native.save_native       (the tuned model, sdtpu's format)
@@ -30,6 +30,14 @@ builds the latent cache and writes the files, whose sharded leaves every
 rank of its tp group gathers with it. The work around the steps (the latent cache or
 the concept's data, the train state's save and restore, the model's save)
 adds its wall seconds to utils.profiling's phases.
+
+With the pipeline's graphs on (the default on the card, graphs.py), the
+data preparation replays the encoder's and CLIP's programs, and each step
+is one CUDA graph, sdtpu's step_jit: the first step runs eagerly and the
+capture follows it, every later step replays it (training.run_step). A run
+on a mesh runs its steps eagerly. The run's result holds the graph cache's
+stats (captures, replays, each graph's capture seconds and pool bytes),
+taken before the run drops its step graphs, which hold its trees.
 """
 
 from __future__ import annotations
@@ -54,13 +62,26 @@ from sdtpu_torch.parallel.mesh import make_mesh
 from sdtpu_torch.parallel.sharding import shard_params
 from sdtpu_torch.textual_inversion import (init_ti_embeddings, make_ti_train_step,
                                            prepare_ti_data, save_ti)
-from sdtpu_torch.training import (AdamW, ema_update, make_optimizer, make_train_step,
-                                  master_params, tp_layout, tree_map, whole_tree)
+from sdtpu_torch.training import (AdamW, make_optimizer, make_train_step, master_params,
+                                  tp_layout, tree_map, whole_tree)
 from sdtpu_torch.utils import profiling
 
 
 def _quiet(msg: str) -> None:
     """The log of every rank but 0."""
+
+
+STEP_KINDS = ("train", "lora", "ti")  # the step graphs' kinds (training.run_step)
+
+
+def _end_graphs(graphs) -> Optional[dict]:
+    """The graph cache's stats (None without graphs), then the step graphs
+    dropped: they read and write the run's trees by address."""
+    if graphs is None:
+        return None
+    stats = graphs.stats()
+    graphs.drop(STEP_KINDS)
+    return stats
 
 
 def resolve_cache(sd, tokenizer, data: str, batch: int = 8, flip: bool = False) -> str:
@@ -110,7 +131,9 @@ def run_textual_inversion(
     `seed` on the device, and random initial rows (no init_token) from one
     seeded with seed + 1 (not sdtpu's draws).
 
-    Returns {"steps", "final_loss", "losses", "out_path", "steps_per_sec"}.
+    Returns {"steps", "final_loss", "losses", "out_path", "steps_per_sec",
+    "graphs"} (graphs: the cache's stats, or None with the pipeline's
+    graphs off).
     """
     if data_dir.endswith(".npz"):
         raise ValueError(
@@ -136,26 +159,31 @@ def run_textual_inversion(
     new_emb = master_params(new_emb)
     opt = AdamW(lr)  # optax.adam(lr): no decay, no clip, no schedule
     opt_state = opt.init(new_emb)
-    step_fn = make_ti_train_step(cfg, opt, compute_dtype=compute_dtype, remat=remat)
+    graphs = sd.graph_cache if getattr(sd, "graphs", False) else None
+    step_fn = make_ti_train_step(cfg, opt, compute_dtype=compute_dtype, remat=remat,
+                                 graphs=graphs)
     gen = torch.Generator(device=dev).manual_seed(seed)
     rng = np.random.default_rng(seed)
     losses = []
     t_start = time.perf_counter()
-    for i in range(steps):
-        idx = rng.choice(n, size=batch_size, replace=n < batch_size)
-        batch = (torch.from_numpy(latents[idx]).to(dev),
-                 torch.from_numpy(tokens[idx]).long().to(dev),
-                 torch.from_numpy(valid[idx]).to(dev))
-        new_emb, opt_state, loss = step_fn(new_emb, opt_state, sd.params, batch, gen)
-        # the last step's loss is always kept, so final_loss means something
-        # for any log_every, 0 included
-        if (log_every and i % log_every == 0) or i + 1 == steps:
-            loss_f = float(loss)
-            losses.append((i, loss_f))
-            if log_every:
-                log(f"step {i + 1}/{steps} loss {loss_f:.5f}")
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    try:
+        for i in range(steps):
+            idx = rng.choice(n, size=batch_size, replace=n < batch_size)
+            batch = (torch.from_numpy(latents[idx]).to(dev),
+                     torch.from_numpy(tokens[idx]).long().to(dev),
+                     torch.from_numpy(valid[idx]).to(dev))
+            new_emb, opt_state, loss = step_fn(new_emb, opt_state, sd.params, batch, gen)
+            # the last step's loss is always kept, so final_loss means something
+            # for any log_every, 0 included
+            if (log_every and i % log_every == 0) or i + 1 == steps:
+                loss_f = float(loss)
+                losses.append((i, loss_f))
+                if log_every:
+                    log(f"step {i + 1}/{steps} loss {loss_f:.5f}")
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    finally:
+        graph_stats = _end_graphs(graphs)
     dt = time.perf_counter() - t_start
 
     if not out_path.endswith(".safetensors"):
@@ -169,6 +197,7 @@ def run_textual_inversion(
         "losses": losses,
         "out_path": out_path,
         "steps_per_sec": steps / dt if dt > 0 else float("inf"),
+        "graphs": graph_stats,
     }
 
 
@@ -235,7 +264,10 @@ def run_finetune(
       leaves every rank gathers with it. Outside a world tp must be 1.
 
     Returns {"steps", "final_loss", "losses", "out_path", "lora_path",
-    "steps_per_sec"}; steps_per_sec counts the steps run since the resume.
+    "steps_per_sec", "graphs"}; steps_per_sec counts the steps run since
+    the resume; graphs: the graph cache's stats (the module docstring), or
+    None where the steps ran eagerly (the pipeline's graphs off, or a
+    mesh).
     """
     cfg: StableDiffusionConfig = sd.config
     mesh = None
@@ -276,6 +308,7 @@ def run_finetune(
     opt = make_optimizer(lr=lr, warmup_steps=warmup_steps, total_steps=steps,
                          weight_decay=weight_decay, grad_clip=grad_clip, kind=opt_kind)
     alpha, layout, base_layout = None, None, None
+    graphs = sd.graph_cache if getattr(sd, "graphs", False) and mesh is None else None
     if lora_rank:
         base = tree_map(lambda p: p.float() if torch.is_tensor(p) else p, base)
         alpha = float(lora_alpha if lora_alpha is not None else lora_rank)
@@ -285,20 +318,30 @@ def run_finetune(
             f"{lora_param_count(train_tree) / 1e6:.2f}M adapter params")
         lora_step = make_lora_train_step(cfg, opt, alpha / lora_rank,
                                          compute_dtype=compute_dtype, remat=remat, accum=accum,
-                                         accum_dtype=accum_dtype, mesh=mesh)
+                                         accum_dtype=accum_dtype, mesh=mesh,
+                                         ema_decay=ema_decay, graphs=graphs)
         # the frozen base as tp parts; its whole f32 copy goes (sd's own
         # tree stays whole), and the final merge runs on the parts
         base_parts, base_layout = shard_params(base, mesh), tp_layout(base, mesh)
         del base
 
-        def step_fn(tree, state, batch, gen):
-            return lora_step(tree, state, base_parts, batch, gen)
+        def step_fn(tree, state, ema, batch, gen):
+            if ema is None:
+                return lora_step(tree, state, base_parts, batch, gen)[-1]
+            return lora_step(tree, state, ema, base_parts, batch, gen)[-1]
     else:
         train_tree, layout = master_params(base, mesh), tp_layout(base, mesh)
-        step_fn = make_train_step(cfg, opt, compute_dtype=compute_dtype, remat=remat,
-                                  accum=accum, accum_dtype=accum_dtype, mesh=mesh)
+        full_step = make_train_step(cfg, opt, compute_dtype=compute_dtype, remat=remat,
+                                    accum=accum, accum_dtype=accum_dtype, mesh=mesh,
+                                    ema_decay=ema_decay, graphs=graphs)
+
+        def step_fn(tree, state, ema, batch, gen):
+            if ema is None:
+                return full_step(tree, state, batch, gen)[-1]
+            return full_step(tree, state, ema, batch, gen)[-1]
     opt_state = opt.init(train_tree, layout)
-    # the EMA shadow, updated at each optimizer step; what the run saves
+    # the EMA shadow, updated at the end of each optimizer step; what the run
+    # saves
     ema = None if ema_decay is None else tree_map(lambda p: p.detach().clone(), train_tree)
     flags = {"opt_kind": opt_kind, "accum": accum, "accum_bf16": accum_bf16,
              "lora_rank": lora_rank or None, "lora_alpha": alpha, "ema": ema is not None}
@@ -330,9 +373,7 @@ def run_finetune(
     t_start = time.perf_counter()
     try:
         for i in range(step0, steps):
-            train_tree, opt_state, loss = step_fn(train_tree, opt_state, next(batches), gen)
-            if ema is not None:
-                ema_update(ema, train_tree, ema_decay)
+            loss = step_fn(train_tree, opt_state, ema, next(batches), gen)
             if log_every and (i % log_every == 0 or i + 1 == steps):
                 loss_f = float(loss)  # waits for the step; cadence bounded by log_every
                 losses.append((i, loss_f))
@@ -346,6 +387,7 @@ def run_finetune(
             torch.cuda.synchronize(sd.device)
     finally:
         batches.close()
+        graph_stats = _end_graphs(graphs)
     dt = time.perf_counter() - t_start
 
     # the sharded leaves gathered whole (every rank of the tp group takes part)
@@ -381,6 +423,7 @@ def run_finetune(
         "out_path": out_path,
         "lora_path": lora_path,
         "steps_per_sec": max(steps - step0, 1) / dt if dt > 0 else float("inf"),
+        "graphs": graph_stats,
     }
 
 

@@ -1,7 +1,9 @@
 """One captured CUDA graph per user action: the port's counterpart of sdtpu's
 jax.jit over _sample_latent_impl (the whole N-step sampling loop, the
 guidance and the scheduler maths included, one lax.scan), _decode_u8_impl,
-_clip_impl and _encode_impl (sdtpu/pipeline.py:35-68).
+_clip_impl and _encode_impl (sdtpu/pipeline.py:35-68), and over the
+fine-tuning step (sdtpu/finetune.py's step_jit and the textual-inversion
+step: training.run_step).
 
 A Program is one such action, split as a jit splits it: its static
 arguments, its inputs (device tensors), and `fn`, which reads only those
@@ -20,6 +22,17 @@ GraphCache.run(program):
 - copies the inputs into the static buffers, replays, adds the recorded
   launches to the kernels' counters (kernels.add_record), and returns a
   clone of the static output, which the next replay overwrites.
+
+A train step (Program(..., step=True)) differs in three ways. Its `fn`
+runs with autograd on (the loss's gradients, K9 in the backward, which
+runs on autograd's device thread on the capture stream: the launch record
+follows that stream, kernels.recording). It updates trees in place (the
+trained tree, the optimizer state, the EMA), which the graph reads and
+writes by address; its output is the loss. And a warm-up would be a step:
+so the first call with a key runs the step itself eagerly on the capture
+stream, with its real inputs, as the warm-up, and returns its loss; the
+capture follows, which launches nothing and moves no tree; the next call
+replays. Its key holds the identity of every tensor of its trees.
 
 A Program computes its key (key()): its static arguments (for the
 sampler, every static argument of sdtpu's jit), the shapes and dtypes of
@@ -125,11 +138,14 @@ class Program:
     trees: tuple                           # what fn reads besides its inputs
     gates: tuple                           # the gates its model reads (UNET_GATES, ...)
     warm: Optional[Callable[[dict], object]] = None  # the eager warm-up before a capture
+    step: bool = False                     # a train step (see the module docstring)
     key: tuple = dataclasses.field(init=False)
 
     def __post_init__(self):
         if self.warm is None:
             self.warm = self.fn
+        if self.step and self.warm is not self.fn:
+            raise ValueError("a train step's warm-up is its first step")
         self.key = key(self.kind, self.statics, self.inputs, self.trees, self.gates)
 
 
@@ -191,27 +207,45 @@ class GraphCache:
 
     def run(self, program: Program) -> torch.Tensor:
         """program's output: replayed from its graph, captured first if
-        the key is new; a clone, which no later replay touches."""
+        the key is new (a train step's first call: the step run eagerly,
+        then the capture); a clone, which no later replay touches."""
         with self.lock:
-            g = self._get(program)
             stream = torch.cuda.current_stream(self.device)
             if self._done is not None:
                 stream.wait_event(self._done)
-            for name, t in program.inputs.items():
-                g.static[name].copy_(t)
-            g.graph.replay()
-            kernels.add_record(g.record)
-            out = g.output.clone()
+            if program.step and program.key not in self.graphs:
+                out = self._first_step(program)
+            else:
+                g = self._get(program)
+                for name, t in program.inputs.items():
+                    g.static[name].copy_(t)
+                g.graph.replay()
+                kernels.add_record(g.record)
+                out = g.output.clone()
+                g.replays += 1
+                self.replays[g.kind] += 1
             self._done = torch.cuda.Event()
             self._done.record(stream)
-            g.replays += 1
-            self.replays[g.kind] += 1
             return out
 
     def ensure(self, program: Program) -> Graph:
-        """program's graph, captured now if its key is new (nothing replayed)."""
+        """program's graph, captured now if its key is new (nothing replayed;
+        not for a train step, whose capture follows its first step)."""
+        if program.step:
+            raise ValueError("a train step is captured by its first run (GraphCache.run)")
         with self.lock:
             return self._get(program)
+
+    def drop(self, kinds) -> int:
+        """Drop every graph of the given kinds (a fine-tuning run's step
+        graphs when it ends: they hold its trees); returns how many."""
+        with self.lock:
+            gone = [k for k, g in self.graphs.items() if g.kind in kinds]
+            if gone:
+                torch.cuda.synchronize(self.device)  # their last replays have ended
+            for k in gone:
+                self.graphs.pop(k).graph.reset()
+            return len(gone)
 
     def stats(self) -> dict:
         """captures, replays and evictions by kind, the pool's bytes, each
@@ -240,45 +274,77 @@ class GraphCache:
         if g is not None:
             self.graphs.move_to_end(program.key)
             return g
+        t0 = time.perf_counter()
+        current = self._prepare()
+        static = {name: t.clone() for name, t in program.inputs.items()}
+        self._warm(program, static, current)
+        return self._capture(program, static, t0)
+
+    def _first_step(self, program: Program) -> torch.Tensor:
+        """A train step's first call with its key: the step itself, run
+        eagerly on the capture stream as the warm-up, then its capture;
+        returns the step's output."""
+        current = self._prepare()
+        static = {name: t.clone() for name, t in program.inputs.items()}
+        out = self._warm(program, static, current).clone()
+        # the capture's seconds alone: the step is a step, not an overhead.
+        # torch.cuda.graph empties the allocator's cache as it opens: the
+        # step's freed blocks go back to the device before the pool grows
+        torch.cuda.synchronize(self.device)
+        self._capture(program, static, time.perf_counter())
+        return out
+
+    def _prepare(self):
+        """Room for one more graph (the least recently used dropped), the
+        pool and the capture stream made; the current stream."""
         if len(self.graphs) >= MAX_GRAPHS:
             torch.cuda.synchronize(self.device)  # its last replay has ended
             old = self.graphs.popitem(last=False)[1]
             old.graph.reset()
             self.evictions[old.kind] += 1
-        g = self._capture(program)
-        self.graphs[program.key] = g
-        self.captures[g.kind] += 1
-        return g
-
-    def _capture(self, program: Program) -> Graph:
-        t0 = time.perf_counter()
-        dev = self.device
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-            self._stream = torch.cuda.Stream(dev)
-        current = torch.cuda.current_stream(dev)
-        static = {name: t.clone() for name, t in program.inputs.items()}
-        # the warm-up's launches are real: counted, and tallied as warm-ups
+            self._stream = torch.cuda.Stream(self.device)
+        return torch.cuda.current_stream(self.device)
+
+    @staticmethod
+    def _grad(program: Program):
+        return torch.enable_grad() if program.step else torch.no_grad()
+
+    def _warm(self, program: Program, static: dict, current):
+        """program.warm(static), eagerly on the capture stream: its launches
+        are real, counted, and tallied as warm-ups (a train step's are its
+        first step's, not tallied); the current stream waits for it.
+        Returns its output."""
         self._stream.wait_stream(current)
-        with kernels.recording() as warm_record, torch.no_grad(), \
-                torch.cuda.stream(self._stream):
-            program.warm(static)
+        with kernels.recording(self._stream.cuda_stream) as warm_record, \
+                self._grad(program), torch.cuda.stream(self._stream):
+            out = program.warm(static)
         kernels.add_record(warm_record)
-        for wrapper, shapes in warm_record.items():
+        for wrapper, shapes in ({} if program.step else warm_record).items():
             tally = self.warmups.setdefault(wrapper.__name__, {})
             for (shape, _also), n in shapes.items():
                 tally[shape] = tally.get(shape, 0) + n
         current.wait_stream(self._stream)
+        return out
+
+    def _capture(self, program: Program, static: dict, t0: float) -> Graph:
+        """program.fn(static) captured (nothing runs) and kept under its
+        key."""
+        dev = self.device
         before = self.pool_bytes()
         free, reserved = torch.cuda.mem_get_info(dev)[0], torch.cuda.memory_reserved(dev)
         graph = torch.cuda.CUDAGraph()
-        with kernels.recording() as record, torch.no_grad(), torch.cuda.graph(
-                graph, pool=self._pool, stream=self._stream,
-                capture_error_mode=CAPTURE_ERROR_MODE):
+        with kernels.recording(self._stream.cuda_stream) as record, self._grad(program), \
+                torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
+                                 capture_error_mode=CAPTURE_ERROR_MODE):
             output = program.fn(static)
         # what the device lost beyond the allocator's growth: the graph's own,
         # less what the driver reused of graphs freed before
         taken = free - torch.cuda.mem_get_info(dev)[0]
         grown = torch.cuda.memory_reserved(dev) - reserved
-        return Graph(program, graph, static, output, record, time.perf_counter() - t0,
-                     self.pool_bytes() - before, taken - grown)
+        g = Graph(program, graph, static, output, record, time.perf_counter() - t0,
+                  self.pool_bytes() - before, taken - grown)
+        self.graphs[program.key] = g
+        self.captures[g.kind] += 1
+        return g

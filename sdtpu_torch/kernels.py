@@ -18,6 +18,9 @@ Launch accounting (`count`): each wrapper counts its launches, per shape.
 While a thread captures a graph (`recording`), its wrappers launch nothing:
 their counts go into the capture's record instead, and each replay of the
 graph adds the record once (`add_record`), so the counters read what ran.
+The record follows the capture's stream too: a train step's backward runs
+on autograd's device thread, on the stream of its forward, and its
+launches (K9's) join the record of the capture on that stream.
 """
 
 from __future__ import annotations
@@ -218,8 +221,23 @@ def ptr(t) -> int | None:
 # the wrappers that have launched in this process, by name (see count)
 LAUNCHED: dict = {}
 
-# the record of the graph this thread is capturing, if any (see recording)
-_CAPTURE = threading.local()
+# the records of the captures open now, by the handle of the stream each
+# captures on (see recording)
+_BY_STREAM: dict = {}
+
+
+def current_stream_handle():
+    """The handle of this thread's current CUDA stream, or None where CUDA
+    has not been initialised (no stream can be capturing)."""
+    if not torch.cuda.is_initialized():
+        return None
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _open_record():
+    """The record a launch made now joins: that of the capture open on this
+    thread's current stream, else None."""
+    return _BY_STREAM.get(current_stream_handle()) if _BY_STREAM else None
 
 
 def count(wrapper, also: str | None = None, **dims) -> None:
@@ -227,11 +245,12 @@ def count(wrapper, also: str | None = None, **dims) -> None:
     more in wrapper.shapes under the dimensions that set the launch's work
     ("b=2 s=4096 c=320 ..."), so that a run can be told which shapes it
     launched and how often; the wrapper joins LAUNCHED. also: the name of
-    one more counter of the wrapper that this launch adds one to. Inside
-    recording() on this thread the launch goes into the capture's record
-    instead (a captured launch runs only when the graph is replayed)."""
+    one more counter of the wrapper that this launch adds one to. On a
+    thread whose current stream is one that recording() was given, the
+    launch goes into that capture's record instead (a captured launch runs
+    only when the graph is replayed)."""
     key = " ".join(f"{k}={v}" for k, v in dims.items())
-    record = getattr(_CAPTURE, "record", None)
+    record = _open_record()
     if record is not None:
         shapes = record.setdefault(wrapper, {})
         shapes[key, also] = shapes.get((key, also), 0) + 1
@@ -248,18 +267,22 @@ def _add(wrapper, key: str, also: str | None, n: int) -> None:
 
 
 @contextmanager
-def recording():
-    """Within the block, this thread's count() calls fill the yielded record
-    ({wrapper: {(shape key, also): launches}}) and leave the counters alone:
-    a graph being captured launches nothing. The other threads count as
-    before."""
+def recording(stream: int):
+    """Within the block, the count() calls of every thread whose current
+    stream is `stream` (the handle of the stream a capture is on,
+    current_stream_handle()) fill the yielded record ({wrapper: {(shape
+    key, also): launches}}) and leave the counters alone: a graph being
+    captured launches nothing. The capturing thread runs on that stream,
+    and so does autograd's device thread in a backward of its forward.
+    Threads on other streams count as before."""
+    if stream in _BY_STREAM:
+        raise RuntimeError(f"a capture already records on stream {stream:#x}")
     record: dict = {}
-    outer = getattr(_CAPTURE, "record", None)
-    _CAPTURE.record = record
+    _BY_STREAM[stream] = record
     try:
         yield record
     finally:
-        _CAPTURE.record = outer
+        del _BY_STREAM[stream]
 
 
 def add_record(record: dict, times: int = 1) -> None:

@@ -18,6 +18,7 @@ safetensors code (io/native.py), so each package reads the other's.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 from typing import Any, Dict, Tuple
@@ -27,8 +28,8 @@ import torch
 from sdtpu_torch.io.native import flatten_tree, load_safetensors, save_safetensors
 from sdtpu_torch.parallel import tp as tpc
 from sdtpu_torch.parallel.sharding import split_of
-from sdtpu_torch.training import (diffusion_loss, dp_mean, draw_t_noise, micro_batch_grads,
-                                  tree_leaves)
+from sdtpu_torch.training import (diffusion_loss, dp_mean, ema_update, micro_batch_grads,
+                                  refuse_graphs_on_mesh, run_step, step_inputs, tree_leaves)
 
 # the standard recipe: the attention projections, self- and cross-attention
 # query/key/value/out (models/unet.py:_init_cross_attn)
@@ -68,7 +69,7 @@ def lora_param_count(lora) -> int:
 
 def make_lora_train_step(cfg, optimizer, scale: float, compute_dtype=torch.float32,
                          remat: bool | str = False, accum: int = 1, accum_dtype=None,
-                         mesh=None):
+                         mesh=None, ema_decay=None, graphs=None):
     """train_step(lora, opt_state, base, batch, generator=None, *, t=None,
     noise=None) -> (lora, opt_state, loss), sdtpu's make_lora_train_step.
     lora: the adapter, f32 leaves that require grad (training.master_params),
@@ -80,14 +81,22 @@ def make_lora_train_step(cfg, optimizer, scale: float, compute_dtype=torch.float
     whole on every rank (sdtpu does not shard them), the base is this
     rank's tp parts (parallel.shard_params), and each adapted part gets its
     part of a @ b (apply_lora), so the gradients of a and b come back
-    whole."""
+    whole.
+
+    ema_decay set: train_step(lora, opt_state, ema, base, batch, ...) ->
+    (lora, opt_state, ema, loss), the adapter's EMA updated in place as
+    the step's last op. graphs: as training.make_train_step's (the body,
+    the merge of a·b into the base included, one CUDA graph a key)."""
+    refuse_graphs_on_mesh(graphs, mesh)
     eff_dtype = None if compute_dtype == torch.float32 else compute_dtype
     tp = tpc.of_mesh(mesh)
+    statics = {"config": cfg, "optimizer": optimizer.flags(), "scale": scale, "accum": accum,
+               "accum_dtype": accum_dtype, "remat": remat, "compute_dtype": compute_dtype,
+               "ema_decay": ema_decay}
 
-    def train_step(lora, opt_state, base, batch, generator=None, *, t=None, noise=None):
-        latents, context = batch[0], batch[1]
-        ctx_valid = batch[2] if len(batch) > 2 else None
-        t, noise = draw_t_noise(cfg, latents, generator, t, noise, mesh)
+    def body(lora, opt_state, ema, base, inp):
+        latents, context, t, noise = (inp[k] for k in ("latents", "context", "t", "noise"))
+        ctx_valid = inp.get("ctx_valid")
 
         def loss_of(sl):
             with tpc.use(tp):
@@ -98,10 +107,33 @@ def make_lora_train_step(cfg, optimizer, scale: float, compute_dtype=torch.float
 
         loss, grads = dp_mean(*micro_batch_grads(loss_of, tree_leaves(lora), latents.shape[0],
                                                  accum, accum_dtype), mesh)
-        optimizer.update(lora, grads, opt_state)
-        return lora, opt_state, loss
+        optimizer.apply(lora, grads, opt_state)
+        del grads
+        if ema is not None:
+            ema_update(ema, lora, ema_decay)
+        return loss
 
-    return train_step
+    def step(lora, opt_state, ema, base, batch, generator, t, noise):
+        inputs = step_inputs(cfg, batch, ("latents", "context", "ctx_valid"), generator, t,
+                             noise, mesh)
+        optimizer.stage(opt_state)
+        trees = (lora, opt_state.tensors(), base) + (() if ema is None else (ema,))
+        return run_step(graphs, "lora", statics, inputs,
+                        functools.partial(body, lora, opt_state, ema, base), trees)
+
+    if ema_decay is None:
+        def train_step(lora, opt_state, base, batch, generator=None, *, t=None, noise=None):
+            return lora, opt_state, step(lora, opt_state, None, base, batch, generator, t,
+                                         noise)
+
+        return train_step
+
+    def train_step_ema(lora, opt_state, ema, base, batch, generator=None, *, t=None,
+                       noise=None):
+        return lora, opt_state, ema, step(lora, opt_state, ema, base, batch, generator, t,
+                                          noise)
+
+    return train_step_ema
 
 
 def _part(delta, w, path: str):

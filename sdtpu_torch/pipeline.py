@@ -156,8 +156,8 @@ class StableDiffusion:
 
     def with_graphs(self, on: bool) -> "StableDiffusion":
         """A pipeline that shares this one's weights, options and graph
-        cache, with its graphs on or off (fine-tuning's data preparation
-        runs eagerly: dataset.build_latent_cache)."""
+        cache, with its graphs on or off (the eager side of an A/B against
+        the replayed programs)."""
         sd = copy.copy(self)
         sd.timings = {}
         sd._set_graphs(on)

@@ -29,11 +29,18 @@ sd-v1-4, 768 for sd-v2-1), and measures, after warm-up:
 
 With --train it measures instead a training step of the whole UNet at the
 image size (training.make_train_step: batch 4 of random latents and
-contexts with a key mask, bf16 compute, f32 masters, AdamW, the preset's
-prediction target) for remat off,
-"full" and "dots": the mean wall ms of N warm steps (host clock,
-synchronised), the peak memory of a step, and the device kernel time of
-one profiled step with its largest items.
+contexts with a key mask, bf16 compute, f32 masters, AdamW, the EMA in the
+step, the preset's prediction target) for remat off, "full" and "dots",
+replayed from its CUDA graph (sdtpu's step_jit) and eager, on the same
+trees, in the turns replayed, eager, eager, replayed: the mean wall ms of
+N warm steps a turn (host clock, synchronised; each turn's first call is
+not timed: the replayed first turn's is the eager step and the capture),
+the peak reserved device memory over each mode's warm steps (the
+allocator's cache emptied before each turn; the replayed step's graph
+pool included, and taken out of the eager step's, which does not use it),
+the device kernel time of one profiled step with its largest items
+(busy share: device over wall), and the graph's capture seconds, the bytes
+it added to the pool and those it took outside it.
 
 The report starts with the card's name and power limit, and goes to
 stdout and, with --out, to FILE as well.
@@ -94,8 +101,9 @@ def device_profile(fn, top: Optional[int]):
 
 def _train(sd, dev, args, say) -> None:
     """The --train report (see the module docstring)."""
+    from sdtpu_torch.finetune import STEP_KINDS
     from sdtpu_torch.models.unet import unfuse_qkv
-    from sdtpu_torch.training import make_optimizer, make_train_step, master_params
+    from sdtpu_torch.training import make_optimizer, make_train_step, master_params, tree_map
 
     g = torch.Generator(device=dev).manual_seed(2)
     cfg = sd.config
@@ -104,26 +112,52 @@ def _train(sd, dev, args, say) -> None:
              torch.randn((b, cfg.clip.n_ctx, cfg.clip.n_state), generator=g, device=dev),
              torch.arange(cfg.clip.n_ctx, device=dev)[None, :] < torch.tensor(
                  [[2], [9], [20], [77]], device=dev))
-    params = master_params(unfuse_qkv(sd.params["unet"]))
     for remat in (False, "full", "dots"):
-        opt = make_optimizer(lr=1e-5, warmup_steps=0, total_steps=10 * (args.repeats + 2))
+        params = master_params(unfuse_qkv(sd.params["unet"]))
+        ema = tree_map(lambda p: p.detach().clone(), params)
+        opt = make_optimizer(lr=1e-5, warmup_steps=0, total_steps=100 * (args.repeats + 2))
         state = opt.init(params)
-        step = make_train_step(cfg, opt, compute_dtype=torch.bfloat16, remat=remat)
+        cache = graphs.GraphCache(dev)
+        # the same trees under both: the graph reads and writes them by address
+        steps = {mode: make_train_step(cfg, opt, compute_dtype=torch.bfloat16, remat=remat,
+                                       ema_decay=0.9999, graphs=c)
+                 for mode, c in (("replayed", cache), ("eager", None))}
+        walls, reserved = {m: [] for m in steps}, {m: 0.0 for m in steps}
+        for mode in ("replayed", "eager", "eager", "replayed"):
+            def one(step=steps[mode]):
+                step(params, state, ema, batch, g)
 
-        def one():
-            step(params, state, batch, g)
-
-        torch.cuda.reset_peak_memory_stats(dev)
-        wall = _wall_ms(one, args.repeats)
-        peak = torch.cuda.max_memory_allocated(dev) / 1024 ** 3
-        dev_ms, top = device_profile(one, args.top)
-        say(f"4. train step remat={remat!r} ({cfg.name} UNet, {cfg.image_size}px, batch {b}, "
-            f"bf16, AdamW): "
-            f"wall {wall:.3f} ms (mean of {args.repeats}); peak memory {peak:.2f} GiB; device "
-            f"kernels {dev_ms:.3f} ms in one profiled step, busy share {dev_ms / wall:.3f}")
-        for key, ms, n in top:
-            say(f"   {ms:9.3f} ms {n:5d} launches  {key[:90]}")
-        del state, opt
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()  # the other mode's cached blocks
+            one()  # the replayed first turn's: the eager step, then the capture
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            walls[mode].append(_wall_ms(one, args.repeats))
+            # the turn's warm steps: an eager step's blocks, or the trees and
+            # the graph's pool; the pool is not an eager step's own
+            own = torch.cuda.max_memory_reserved(dev) - (
+                cache.pool_bytes() if mode == "eager" else 0)
+            reserved[mode] = max(reserved[mode], own / 1024 ** 3)
+        (graph,) = cache.stats()["graphs"]
+        for mode, step in steps.items():
+            dev_ms, top = device_profile(lambda: step(params, state, ema, batch, g), args.top)
+            wall = sum(walls[mode]) / len(walls[mode])
+            captured = (f"; captured in {graph['capture_s']:.3f} s, {graph['pool_bytes']} "
+                        f"bytes added to the pool, {graph['exec_bytes']} bytes outside it, "
+                        f"{graph['launches']} kernel launches a replay"
+                        if mode == "replayed" else "")
+            say(f"4. train step remat={remat!r} {mode} ({cfg.name} UNet, {cfg.image_size}px, "
+                f"batch {b}, bf16, AdamW, EMA): wall {wall:.3f} ms (turns "
+                f"{', '.join(f'{w:.3f}' for w in walls[mode])}, each the mean of "
+                f"{args.repeats}); peak reserved over its warm steps {reserved[mode]:.2f} GiB "
+                f"(the replayed step's pool included, the eager step's without it); device "
+                f"kernels {dev_ms:.3f} ms in one profiled step, busy share {dev_ms / wall:.3f}"
+                f"{captured}")
+            for key, ms, n in top:
+                say(f"   {ms:9.3f} ms {n:5d} launches  {key[:90]}")
+        cache.drop(STEP_KINDS)
+        del state, opt, params, ema, steps, cache
+        torch.cuda.empty_cache()
 
 
 def main(argv=None) -> None:

@@ -20,6 +20,7 @@ the metadata, read and written by the port's own safetensors code
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -29,7 +30,7 @@ from sdtpu_torch.io.native import load_safetensors, save_safetensors
 from sdtpu_torch.models.clip import clip_apply
 from sdtpu_torch.ops import dispatch
 from sdtpu_torch.tokenizer import EOT_ID, SOT_ID
-from sdtpu_torch.training import diffusion_loss, draw_t_noise
+from sdtpu_torch.training import diffusion_loss, run_step, step_inputs
 
 DEFAULT_PLACEHOLDER = "<sks>"
 
@@ -103,25 +104,39 @@ def generate_with_ti(sd, tokenizer, prompt: str, new_embeddings,
     return sd.latent_to_image(latent)
 
 
-def make_ti_train_step(cfg, optimizer, compute_dtype=torch.float32, remat: bool | str = False):
+def make_ti_train_step(cfg, optimizer, compute_dtype=torch.float32, remat: bool | str = False,
+                       graphs=None):
     """train_step(new_emb, opt_state, params, batch, generator=None, *,
     t=None, noise=None) -> (new_emb, opt_state, loss), sdtpu's
     make_ti_train_step. new_emb: the rows, f32, requires grad, updated in
     place; params: the frozen model tree ({"clip", "unet", ...}); batch =
     (latents, tokens [B, n_ctx] int, ctx_valid [B, n_ctx] bool). The CLIP
     forward runs here, recorded by autograd (dispatch.training(), as sdtpu's
-    force_xla), and the gradients reach only the new rows. t and noise as
-    in training.make_train_step."""
-    def train_step(new_emb, opt_state, params, batch, generator=None, *, t=None, noise=None):
-        latents, tokens, ctx_valid = batch
-        t, noise = draw_t_noise(cfg, latents, generator, t, noise)
+    force_xla), on the table extend_clip rebuilds from new_emb each step,
+    and the gradients reach only the new rows. t and noise as in
+    training.make_train_step; graphs: as its (the body, CLIP included, one
+    CUDA graph a key)."""
+    statics = {"config": cfg, "optimizer": optimizer.flags(), "remat": remat,
+               "compute_dtype": compute_dtype}
+
+    def body(new_emb, opt_state, params, inp):
         with dispatch.training():
-            ctx = clip_apply(extend_clip(params["clip"], new_emb), tokens, cfg.clip)
-        loss = diffusion_loss(params["unet"], cfg, latents, ctx, t, noise, ctx_valid=ctx_valid,
-                              compute_dtype=compute_dtype, remat=remat)
+            ctx = clip_apply(extend_clip(params["clip"], new_emb), inp["tokens"], cfg.clip)
+        loss = diffusion_loss(params["unet"], cfg, inp["latents"], ctx, inp["t"], inp["noise"],
+                              ctx_valid=inp["ctx_valid"], compute_dtype=compute_dtype,
+                              remat=remat)
         (grad,) = torch.autograd.grad(loss, [new_emb])
-        optimizer.update(new_emb, [grad.float()], opt_state)
-        return new_emb, opt_state, loss.detach()
+        optimizer.apply(new_emb, [grad.float()], opt_state)
+        return loss.detach()
+
+    def train_step(new_emb, opt_state, params, batch, generator=None, *, t=None, noise=None):
+        inputs = step_inputs(cfg, batch, ("latents", "tokens", "ctx_valid"), generator, t,
+                             noise)
+        optimizer.stage(opt_state)
+        trees = (new_emb, opt_state.tensors(), params["clip"], params["unet"])
+        loss = run_step(graphs, "ti", statics, inputs,
+                        functools.partial(body, new_emb, opt_state, params), trees)
+        return new_emb, opt_state, loss
 
     return train_step
 
@@ -131,12 +146,12 @@ def prepare_ti_data(sd, tokenizer, data_dir: str, placeholder: str = DEFAULT_PLA
                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """-> (latents [N, h, w, 4] f32, tokens [N, n_ctx] int32, valid [N,
     n_ctx] bool), numpy. The latents are sd.encode_image's in chunks of
-    `batch` images (the last padded with zeros), times latent_scale; the
+    `batch` images (the last at its own size, as dataset.build_latent_cache
+    encodes it), times latent_scale; the
     captions come from the usual sidecar files and must contain the
     placeholder (an image without one gets "a photo of <placeholder>")."""
     from sdtpu_torch.dataset import center_crop_resize, list_examples, load_image_u8
 
-    sd = sd.with_graphs(False)  # fine-tuning runs eagerly, its data preparation too
     cfg = sd.config
     examples = list_examples(data_dir)
     size, n_ctx = cfg.image_size, cfg.clip.n_ctx
@@ -145,11 +160,7 @@ def prepare_ti_data(sd, tokenizer, data_dir: str, placeholder: str = DEFAULT_PLA
         chunk = examples[start:start + batch]
         imgs = np.stack([center_crop_resize(load_image_u8(p), size) for p, _ in chunk])
         x = imgs.astype(np.float32) / 127.5 - 1.0
-        pad = batch - len(chunk)
-        if pad:
-            x = np.concatenate([x, np.zeros((pad,) + x.shape[1:], x.dtype)])
-        z = sd.encode_image(x)[: len(chunk)]
-        lat_list.append(z.float().cpu().numpy() * cfg.latent_scale)
+        lat_list.append(sd.encode_image(x).float().cpu().numpy() * cfg.latent_scale)
         for _, caption in chunk:
             caption = caption or f"a photo of {placeholder}"
             if placeholder not in caption:

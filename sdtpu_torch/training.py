@@ -32,6 +32,15 @@ rms(update) and rms(w) of a sharded leaf; the EMA is elementwise. Saving
 gathers whole leaves (whole_tree; io/checkpoint.py), so the files are
 those of one process. The batch a rank is given is its dp slice; t and
 noise are drawn for the whole batch, alike on every rank, and sliced.
+
+A step is split as sdtpu jits it (step_jit, sdtpu/finetune.py): the host
+makes the draws and the optimizer's scalars (step_inputs, _Recipe.stage),
+then a body does the device work alone (the loss, the gradients, the clip
+on the device, the update, the EMA) and reads only device tensors: the
+batch, t, noise, the scalars and the trees (the alphas table is a device
+tensor made once). run_step runs the body eagerly, or, given a graph cache
+on the card (graphs.py), as one CUDA graph per key, captured after the
+key's first step and replayed from its next. A mesh step runs eagerly.
 """
 
 from __future__ import annotations
@@ -149,23 +158,31 @@ def _rms(x, tp: Optional[tpc.TP]):
     return (_all_sum(x.square().sum(), tp) / (x.numel() * tp.size)).sqrt()
 
 
-def global_norm(g: List[torch.Tensor], layout: Optional[Layout] = None) -> float:
+def global_norm(g: List[torch.Tensor], layout: Optional[Layout] = None) -> torch.Tensor:
     """The global norm of the gradients g (tree_leaves order) of the whole
-    tree. On a Layout the squared sums of the sharded leaves are
-    all-reduced over tp, and a replicated leaf, which every rank holds
-    whole, is counted once."""
+    tree, a 0-d f32 tensor on their device (the host does not wait for it).
+    On a Layout the squared sums of the sharded leaves are all-reduced over
+    tp, and a replicated leaf, which every rank holds whole, is counted
+    once."""
     norms = torch.stack(torch._foreach_norm(g))
     if layout is None:
-        return float(torch.linalg.vector_norm(norms))
+        return torch.linalg.vector_norm(norms)
     sharded = torch.tensor([s is not None for s in layout.splits], device=norms.device)
     sq = norms.square()
-    return float((_all_sum(sq[sharded].sum(), layout.tp) + sq[~sharded].sum()).sqrt())
+    return (_all_sum(sq[sharded].sum(), layout.tp) + sq[~sharded].sum()).sqrt()
 
 
 def q_sample(x0, noise, alphas_cumprod, t):
     """Forward diffusion: x_t = sqrt(a_t) x0 + sqrt(1 - a_t) eps."""
     a_t = alphas_cumprod[t].reshape(-1, 1, 1, 1)
     return torch.sqrt(a_t) * x0 + torch.sqrt(1.0 - a_t) * noise
+
+
+@functools.lru_cache(maxsize=8)
+def _alphas_on(n_train_steps: int, device: torch.device) -> torch.Tensor:
+    """cfg_alphas as a device tensor, made once per (schedule, device): a
+    train step reads it and copies nothing from the host."""
+    return torch.from_numpy(_alphas_for(n_train_steps).copy()).to(device)
 
 
 @functools.lru_cache(maxsize=8)
@@ -190,7 +207,7 @@ def diffusion_loss(unet_params, cfg: StableDiffusionConfig, latents, context, t,
     noise: latents' shape. x_t and the context are cast to compute_dtype;
     the UNet runs inside dispatch.training(). remat: see
     models/unet.py:_remat_policy."""
-    alphas = torch.from_numpy(cfg_alphas(cfg).copy()).to(latents.device)
+    alphas = _alphas_on(cfg.n_train_steps, latents.device)
     x_t = q_sample(latents, noise, alphas, t)
     with dispatch.training():
         pred = unet_apply(unet_params, x_t.to(compute_dtype), t, context.to(compute_dtype),
@@ -209,7 +226,15 @@ class _Recipe:
     warmup_cosine_decay_schedule(0, lr, warmup_steps, max(total_steps,
     warmup_steps + 1)), or a constant lr when total_steps is None
     (optax.adam(lr)'s); and optax's clip_by_global_norm(grad_clip), or no
-    clip when grad_clip is None."""
+    clip when grad_clip is None.
+
+    An update is split as a captured train step needs it: stage(state), on
+    the host, computes the step's scalars from state.count (the learning
+    rate, the bias corrections or the decay: numbers a capture would
+    freeze), writes them into state.scalars, a small device tensor, with
+    one copy on the current stream, and advances the count; apply(params,
+    grads, state), device work only, reads them from that tensor.
+    update() is the two."""
 
     def __init__(self, lr: float, warmup_steps: int = 0, total_steps: Optional[int] = None,
                  weight_decay: float = 0.0, grad_clip: Optional[float] = None):
@@ -232,27 +257,63 @@ class _Recipe:
         c = min(count - w, decay)
         return self.lr * 0.5 * (1.0 + math.cos(math.pi * c / decay))
 
+    def flags(self) -> tuple:
+        """What the optimizer's device work is built from (a train step's
+        graph key): its kind, the clip and the weight decay."""
+        return type(self).__name__, self.grad_clip, self.weight_decay
+
     def clip(self, g: List[torch.Tensor], layout: Optional[Layout] = None) -> None:
         """g · max / ||g|| in place where the global norm ||g|| >= max (no
         epsilon, unlike torch.nn.utils.clip_grad_norm_); ||g|| is the whole
-        tree's (global_norm) on a layout."""
+        tree's (global_norm) on a layout. On the device, as optax's
+        where(||g|| < max, g, g / ||g|| · max): g / 1 · 1 below the max."""
         if self.grad_clip is None:
             return
         norm = global_norm(g, layout)
-        if not norm < self.grad_clip:
-            torch._foreach_div_(g, norm)
-            torch._foreach_mul_(g, self.grad_clip)
+        below = norm < self.grad_clip
+        torch._foreach_div_(g, torch.where(below, 1.0, norm))
+        torch._foreach_mul_(g, torch.where(below, 1.0, float(self.grad_clip)))
+
+    def scalars(self, count: int) -> list:
+        """The host's numbers of update `count` (from 0), in the order
+        apply() reads them from state.scalars."""
+        raise NotImplementedError
+
+    def stage(self, state) -> None:
+        """The host's part of an update: scalars(state.count) written into
+        state.scalars (init() makes it on the state's device) with one copy
+        on the current stream, from pinned memory on the card, and the
+        count advanced."""
+        values = torch.tensor(self.scalars(state.count), dtype=torch.float32)
+        if state.scalars.is_cuda:
+            values = values.pin_memory()
+        state.scalars.copy_(values, non_blocking=True)
+        state.count += 1
+
+    def update(self, params, grads, state) -> None:
+        """One step on params (a tree) from grads (f32, tree_leaves order),
+        which it clips in place: stage(state), then apply(...)."""
+        self.stage(state)
+        self.apply(params, grads, state)
 
 
 @dataclass
 class AdamWState:
-    """count: completed updates; mu, nu: the f32 moments, one per leaf of
-    the parameter tree (tree_leaves order), each a part of the whole
-    moment as its leaf is on a layout."""
+    """count: completed updates (the host's); mu, nu: the f32 moments, one
+    per leaf of the parameter tree (tree_leaves order), each a part of the
+    whole moment as its leaf is on a layout; scalars: the device's copy of
+    the current update's numbers (_Recipe.stage), derived from count and
+    not saved."""
     count: int
     mu: List[torch.Tensor]
     nu: List[torch.Tensor]
     layout: Optional[Layout] = None
+    scalars: Optional[torch.Tensor] = None
+
+    def tensors(self) -> list:
+        """Every tensor of the state (a train step's graph reads each by
+        address)."""
+        return [*self.mu, *self.nu, self.scalars]
 
     def splits(self) -> dict:
         """{field: [Split or None per entry]} of the state's tensors."""
@@ -272,7 +333,8 @@ class AdamW(_Recipe):
     - p -= schedule(n - 1) · u, the schedule counted from 0.
 
     AdamW(lr) alone is optax.adam(lr): a constant lr, no decay, no clip.
-    update() works in place on the parameters and the state."""
+    update() works in place on the parameters and the state. The step's
+    scalars (stage): -schedule(n - 1), 1 - b1^n and 1 - b2^n, f32."""
 
     b1, b2, eps = 0.9, 0.999, 1e-8
 
@@ -280,33 +342,39 @@ class AdamW(_Recipe):
         """The zero state of params (a tree; on a mesh this rank's parts,
         laid out as `layout` says)."""
         leaves = tree_leaves(params)
+        dev = leaves[0].device
         return AdamWState(0, [torch.zeros_like(p, dtype=torch.float32) for p in leaves],
-                          [torch.zeros_like(p, dtype=torch.float32) for p in leaves], layout)
+                          [torch.zeros_like(p, dtype=torch.float32) for p in leaves], layout,
+                          torch.zeros(3, dtype=torch.float32, device=dev))
+
+    def scalars(self, count: int) -> list:
+        n = np.float32(count + 1)
+        return [-self.schedule(count), float(1 - np.float32(self.b1) ** n),
+                float(1 - np.float32(self.b2) ** n)]
 
     @torch.no_grad()
-    def update(self, params, grads, state: AdamWState) -> None:
-        """One step on params (a tree) from grads (f32, tree_leaves order),
-        which it clips in place."""
+    def apply(self, params, grads, state: AdamWState) -> None:
+        """The device's part of update() (the class docstring), from the
+        scalars stage() wrote."""
         leaves = tree_leaves(params)
         g = list(grads)
         self.clip(g, state.layout)
         b1, b2 = self.b1, self.b2
+        neg_lr, c1, c2 = state.scalars.unbind()
         torch._foreach_mul_(state.mu, b1)
         torch._foreach_add_(state.mu, g, alpha=1.0 - b1)
         torch._foreach_mul_(state.nu, b2)
         torch._foreach_addcmul_(state.nu, g, g, value=1.0 - b2)
-        lr = self.schedule(state.count)
-        state.count += 1
-        n = np.float32(state.count)
-        u = torch._foreach_div(state.mu, float(1 - np.float32(b1) ** n))
-        den = torch._foreach_div(state.nu, float(1 - np.float32(b2) ** n))
+        u = torch._foreach_div(state.mu, c1)
+        den = torch._foreach_div(state.nu, c2)
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, self.eps)
         torch._foreach_div_(u, den)
         del den
         if self.weight_decay:
             torch._foreach_add_(u, leaves, alpha=self.weight_decay)
-        torch._foreach_add_(leaves, u, alpha=-lr)
+        # p + (-lr) · u, rounded as add_(u, alpha=-lr) rounds it
+        torch._foreach_addcmul_(leaves, u, [neg_lr] * len(leaves))
 
 
 def _without(split: Optional[Split], dim: int) -> Optional[Split]:
@@ -323,13 +391,19 @@ class AdafactorState:
     (tree_leaves order) either the factored second moments v_row and v_col
     (v None) or the whole one v (v_row and v_col None), f32, each a part as
     its leaf is on a layout; dims: per leaf the (d1, d0) it is factored on
-    (from its whole shape), or None."""
+    (from its whole shape), or None; scalars: as AdamWState's."""
     count: int
     v_row: List[Optional[torch.Tensor]]
     v_col: List[Optional[torch.Tensor]]
     v: List[Optional[torch.Tensor]]
     layout: Optional[Layout] = None
     dims: tuple = ()
+    scalars: Optional[torch.Tensor] = None  # as AdamWState's
+
+    def tensors(self) -> list:
+        """Every tensor of the state (a train step's graph reads each by
+        address)."""
+        return [t for t in (*self.v_row, *self.v_col, *self.v, self.scalars) if t is not None]
 
     def splits(self) -> dict:
         """{field: [Split or None per entry]} of the state's tensors: v as
@@ -365,7 +439,9 @@ class Adafactor(_Recipe):
     schedule (1 % of every weight a step at run_finetune's wd 1e-2, at lr
     0 too). Here the decay is scaled by the schedule, as AdamW's is and as
     Hugging Face's Adafactor does; with wd = 0 the update is sdtpu's.
-    update() works in place on the parameters and the state."""
+    update() works in place on the parameters and the state. The step's
+    scalars (stage): decay, 1 - decay, lr_n and lr_n · wd, f32 (optax's
+    decay_rate_t and 1 - decay_rate_t are f32)."""
 
     decay_exponent, eps, clip_threshold = 0.8, 1e-30, 1.0
     min_dim_size_to_factor, min_scale = 128, 1e-3
@@ -385,8 +461,11 @@ class Adafactor(_Recipe):
     def init(self, params, layout: Optional[Layout] = None) -> AdafactorState:
         """The zero state of params (a tree; on a mesh this rank's parts,
         laid out as `layout` says), each leaf factored by its whole shape."""
-        state = AdafactorState(0, [], [], [], layout)
-        for k, p in enumerate(tree_leaves(params)):
+        leaves = tree_leaves(params)
+        state = AdafactorState(0, [], [], [], layout,
+                               scalars=torch.zeros(4, dtype=torch.float32,
+                                                   device=leaves[0].device))
+        for k, p in enumerate(leaves):
             shape = tuple(p.shape) if layout is None else layout.whole_shape(k, p.shape)
             dims = self.factored_dims(shape)
             state.dims += (dims,)
@@ -401,18 +480,19 @@ class Adafactor(_Recipe):
                 state.v.append(None)
         return state
 
+    def scalars(self, count: int) -> list:
+        decay = np.float32(1) - np.float32(count + 1) ** np.float32(-self.decay_exponent)
+        lr = self.schedule(count)
+        return [float(decay), float(np.float32(1) - decay), lr, lr * self.weight_decay]
+
     @torch.no_grad()
-    def update(self, params, grads, state: AdafactorState) -> None:
-        """One step on params (a tree) from grads (f32, tree_leaves order),
-        which it clips in place."""
+    def apply(self, params, grads, state: AdafactorState) -> None:
+        """The device's part of update() (the class docstring), from the
+        scalars stage() wrote."""
         g = list(grads)
         layout = state.layout
         self.clip(g, layout)
-        # optax's scalars are f32: decay_rate_t and 1 - decay_rate_t
-        decay = np.float32(1) - np.float32(state.count + 1) ** np.float32(-self.decay_exponent)
-        keep, mix = float(decay), float(np.float32(1) - decay)
-        lr = self.schedule(state.count)
-        state.count += 1
+        keep, mix, lr, lr_wd = state.scalars.unbind()
         for i, (p, gi) in enumerate(zip(tree_leaves(params), g)):
             tp = None if layout is None else layout.group(i)
             g2 = gi * gi + self.eps
@@ -421,18 +501,18 @@ class Adafactor(_Recipe):
                 # the tp group of a mean over d0 or d1 where that dim is split
                 tp0, tp1 = (tp if tp is not None and layout.splits[i].dim == d else None
                             for d in (d0, d1))
-                v_row = state.v_row[i].mul_(keep).add_(_mean(g2, d0, tp0), alpha=mix)
-                v_col = state.v_col[i].mul_(keep).add_(_mean(g2, d1, tp1), alpha=mix)
+                v_row = state.v_row[i].mul_(keep).addcmul_(_mean(g2, d0, tp0), mix)
+                v_col = state.v_col[i].mul_(keep).addcmul_(_mean(g2, d1, tp1), mix)
                 row = (v_row / _mean(v_row, d1 - 1 if d1 > d0 else d1, tp1,
                                      keepdim=True)).rsqrt_()
                 u = gi * row.unsqueeze(d0) * v_col.rsqrt().unsqueeze(d1)
             else:
-                u = gi * state.v[i].mul_(keep).add_(g2, alpha=mix).rsqrt()
+                u = gi * state.v[i].mul_(keep).addcmul_(g2, mix).rsqrt()
             del g2
             u.div_(torch.clamp_min(_rms(u, tp) / self.clip_threshold, 1.0))
             u.mul_(lr).mul_(_rms(p, tp).clamp_min_(self.min_scale))
             if self.weight_decay:
-                u.add_(p, alpha=lr * self.weight_decay)
+                u.addcmul_(p, lr_wd)
             p.sub_(u)
 
 
@@ -562,9 +642,48 @@ def draw_t_noise(cfg: StableDiffusionConfig, latents, generator=None, t=None, no
             shard_batch(noise.to(latents.device, torch.float32), mesh))
 
 
+def step_inputs(cfg: StableDiffusionConfig, batch, names, generator=None, t=None, noise=None,
+                mesh=None) -> dict:
+    """A train step's inputs, {name: device tensor}: the batch's tensors
+    under `names` (a missing last one, the context mask, left out), then
+    the draws, made here before the step's body from `generator`, t first
+    and then noise (draw_t_noise), unless given."""
+    inputs = {name: x for name, x in zip(names, batch)}
+    inputs["t"], inputs["noise"] = draw_t_noise(cfg, batch[0], generator, t, noise, mesh)
+    return inputs
+
+
+def run_step(graphs, kind: str, statics: dict, inputs: dict, body: Callable, trees) -> torch.Tensor:
+    """A train step's body on its inputs -> its loss. body(inputs) reads
+    only the inputs and the trees (each a tree of tensors, or a list of
+    them: the trained tree, every tensor of the optimizer state, the EMA,
+    the frozen model) and does only device work. graphs None: run eagerly.
+    graphs a graphs.GraphCache: as one CUDA graph per key (graphs.Program,
+    step=True: the statics, the inputs' shapes and dtypes, the identity of
+    every tensor of the trees, the gates with dispatch.training() open),
+    captured after the key's first step, which runs eagerly, and replayed
+    from its next."""
+    if graphs is None:
+        return body(inputs)
+    from sdtpu_torch import graphs as graphs_mod
+
+    leaves = tuple(x for tree in trees for x in tree_leaves(tree) if torch.is_tensor(x))
+    with dispatch.training():  # the gates as the body sees them
+        program = graphs_mod.Program(kind, statics, inputs, body, leaves,
+                                     graphs_mod.COMMON_GATES, step=True)
+    return graphs.run(program)
+
+
+def refuse_graphs_on_mesh(graphs, mesh) -> None:
+    if graphs is not None and mesh is not None:
+        raise ValueError("graphs on a mesh: the mesh paths run eagerly (gloo's collectives "
+                         "run on the host and cannot be captured)")
+
+
 def make_train_step(cfg: StableDiffusionConfig, optimizer: _Recipe,
                     compute_dtype=torch.float32, remat: bool | str = False, accum: int = 1,
-                    ema_decay: Optional[float] = None, accum_dtype=None, mesh=None):
+                    ema_decay: Optional[float] = None, accum_dtype=None, mesh=None,
+                    graphs=None):
     """Returns train_step(params, opt_state, batch, generator=None, *,
     t=None, noise=None) -> (params, opt_state, loss), sdtpu's step_core.
     batch = (latents, context) or (latents, context, ctx_valid). params: a
@@ -581,28 +700,50 @@ def make_train_step(cfg: StableDiffusionConfig, optimizer: _Recipe,
 
     ema_decay set: train_step(params, opt_state, ema_params, batch, ...) ->
     (params, opt_state, ema_params, loss), the EMA updated in place after
-    the optimizer step.
+    the optimizer step, as the step's last op.
 
     mesh: a parallel.Mesh; params, the state and the EMA are this rank's
     tp parts, the batch is this dp rank's slice, t and noise (given or
-    drawn) the whole batch's (see the module docstring)."""
+    drawn) the whole batch's (see the module docstring).
+
+    A step is split as sdtpu's jitted step_fn: the draws and the
+    optimizer's host scalars (step_inputs, _Recipe.stage), then a body of
+    device work (the loss, the gradients, the update, the EMA) on those
+    and the trees, run by run_step: eagerly, or with graphs (a
+    graphs.GraphCache on the card) as one CUDA graph replayed each step,
+    sdtpu's step_jit. graphs with a mesh raises."""
+    refuse_graphs_on_mesh(graphs, mesh)
+    statics = {"config": cfg, "optimizer": optimizer.flags(), "accum": accum,
+               "accum_dtype": accum_dtype, "remat": remat, "compute_dtype": compute_dtype,
+               "ema_decay": ema_decay}
+
+    def body(params, opt_state, ema_params, inp):
+        loss, grads = loss_and_grads(params, cfg, inp["latents"], inp["context"], inp["t"],
+                                     inp["noise"], inp.get("ctx_valid"), compute_dtype, remat,
+                                     accum, accum_dtype, mesh)
+        optimizer.apply(params, grads, opt_state)
+        del grads
+        if ema_params is not None:
+            ema_update(ema_params, params, ema_decay)
+        return loss
+
+    def step(params, opt_state, ema_params, batch, generator, t, noise):
+        inputs = step_inputs(cfg, batch, ("latents", "context", "ctx_valid"), generator, t,
+                             noise, mesh)
+        optimizer.stage(opt_state)
+        trees = (params, opt_state.tensors()) + (() if ema_params is None else (ema_params,))
+        return run_step(graphs, "train", statics, inputs,
+                        functools.partial(body, params, opt_state, ema_params), trees)
 
     def step_core(params, opt_state, batch, generator=None, *, t=None, noise=None):
-        latents, context = batch[0], batch[1]
-        ctx_valid = batch[2] if len(batch) > 2 else None
-        t, noise = draw_t_noise(cfg, latents, generator, t, noise, mesh)
-        loss, grads = loss_and_grads(params, cfg, latents, context, t, noise, ctx_valid,
-                                     compute_dtype, remat, accum, accum_dtype, mesh)
-        optimizer.update(params, grads, opt_state)
-        return params, opt_state, loss
+        return params, opt_state, step(params, opt_state, None, batch, generator, t, noise)
 
     if ema_decay is None:
         return step_core
 
     def train_step_ema(params, opt_state, ema_params, batch, generator=None, *, t=None,
                        noise=None):
-        params, opt_state, loss = step_core(params, opt_state, batch, generator, t=t,
-                                            noise=noise)
-        return params, opt_state, ema_update(ema_params, params, ema_decay), loss
+        loss = step(params, opt_state, ema_params, batch, generator, t, noise)
+        return params, opt_state, ema_params, loss
 
     return train_step_ema

@@ -193,8 +193,9 @@ def test_run_finetune_writes_a_model_sdtpu_reads(tmp_path, tiny_sd):
     logs = []
     r = run_finetune(tiny_sd, SimpleTokenizer(), data_dir, str(tmp_path / "tuned"), steps=2,
                      batch_size=2, lr=1e-3, log_every=1, log=logs.append)
-    assert set(r) == {"steps", "final_loss", "losses", "out_path", "lora_path", "steps_per_sec"}
-    assert r["lora_path"] is None
+    assert set(r) == {"steps", "final_loss", "losses", "out_path", "lora_path", "steps_per_sec",
+                      "graphs"}
+    assert r["lora_path"] is None and r["graphs"] is None  # the CPU runs its steps eagerly
     assert [i for i, _ in r["losses"]] == [0, 1] and np.isfinite(r["final_loss"])
     assert r["out_path"] == str(tmp_path / "tuned.safetensors")
     assert any(line.startswith("dataset: 3 examples") for line in logs)

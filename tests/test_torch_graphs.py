@@ -413,10 +413,21 @@ def launched(monkeypatch):
     return kernels.LAUNCHED
 
 
+def _streams(monkeypatch, main):
+    """Each thread's current stream handle: `main` on this thread, None
+    (no stream) on the others until they set one; returns the thread-local."""
+    streams = threading.local()
+    streams.handle = main
+    monkeypatch.setattr(kernels, "current_stream_handle",
+                        lambda: getattr(streams, "handle", None))
+    return streams
+
+
 @pytest.mark.parametrize("replays", [1, 2, 5])
-def test_replays_add_the_captured_counts(replays, launched):
+def test_replays_add_the_captured_counts(replays, launched, monkeypatch):
+    _streams(monkeypatch, 0xA0)
     w = _fake_wrapper()
-    with kernels.recording() as record:
+    with kernels.recording(0xA0) as record:
         kernels.count(w, b=2, s=64)
         kernels.count(w, b=2, s=64)
         kernels.count(w, b=1, s=16, also="launches_x2")
@@ -429,8 +440,10 @@ def test_replays_add_the_captured_counts(replays, launched):
     assert launched == {w.__name__: w}
 
 
-def test_recording_is_this_threads(launched):
-    """Another thread's launches during a capture are counted as launches."""
+def test_recording_is_this_threads(launched, monkeypatch):
+    """Another thread's launches during a capture, on another stream, are
+    counted as launches."""
+    _streams(monkeypatch, 0xA0)
     w = _fake_wrapper()
     inside, done = threading.Event(), threading.Event()
 
@@ -442,7 +455,7 @@ def test_recording_is_this_threads(launched):
 
     t = threading.Thread(target=other)
     t.start()
-    with kernels.recording() as record:
+    with kernels.recording(0xA0) as record:
         inside.set()
         assert done.wait(10)
         kernels.count(w, b=7)

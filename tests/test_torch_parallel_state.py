@@ -82,13 +82,13 @@ def _train(kind, mesh, state_dir, resume_dir=None):
     tree, layout = ttrain.master_params(base, mesh), ttrain.tp_layout(base, mesh)
     state = opt.init(tree, layout)
     ema = ttrain.tree_map(lambda p: p.detach().clone(), tree)
-    grads, update = [], opt.update
+    grads, apply = [], opt.apply  # the step hands its gradients to apply()
 
     def keep(params, g, st):
         grads.append(ttrain.whole_tree([x.detach().clone() for x in g], layout))
-        return update(params, g, st)
+        return apply(params, g, st)
 
-    opt.update = keep
+    opt.apply = keep
     step = ttrain.make_train_step(WIDE, opt, mesh=mesh, ema_decay=0.9)
     for i in range(STEPS):
         latents, context, valid, t, noise = _step_data(i)

@@ -75,13 +75,13 @@ def _step(kind, mesh=None):
     base = _unet()
     opt = ttrain.make_optimizer(lr=1e-4, warmup_steps=0, total_steps=10,
                                 kind="adafactor" if kind == "adafactor" else "adamw")
-    grads, update = [], opt.update
+    grads, apply = [], opt.apply  # the step hands its gradients to apply()
 
     def keep(params, g, state):
         grads[:] = [x.detach().clone() for x in g]
-        return update(params, g, state)
+        return apply(params, g, state)
 
-    opt.update = keep
+    opt.apply = keep
     layout = None
     if kind in LORA_TARGETS:
         tree = ttrain.master_params(tlora.init_lora(torch.Generator().manual_seed(1), base, 2,

@@ -123,7 +123,8 @@ def test_ti_train_steps_match_sdtpu(models):
 @pytest.mark.parametrize("batch", [2, 4])
 def test_prepare_ti_data_equals_sdtpu(models, tmp_path, batch):
     """Three images (the last without a caption: "a photo of <sks>") in
-    chunks of `batch`, the last chunk padded: the tokens and masks equal,
+    chunks of `batch`, the last chunk padded by sdtpu and not by the port
+    (its own graph key): the tokens and masks equal,
     the latents within the encoder's f32 tolerance (measured max |diff|
     1.5e-7 on latents up to 0.15)."""
     params, tparams = models

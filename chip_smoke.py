@@ -1,6 +1,14 @@
 """Drive the sdtpu_torch port once on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --f32-table
+
+With --f32-table it runs phase 2 in float32 alone, every case timed by
+device time with its library call under TF32 off and on (and that call's
+kernel named), then counts the launches of the float32 paths (an f32 512px
+and 1024px generate and an f32 fine-tuning step at batch 4, eagerly) and
+prints, per kernel and path, the device ms, bound and library ms of those
+launches as one JSON line (the float32 columns of PERF.md's kernel table).
 
 Phases, each printing its lines:
 
@@ -34,13 +42,18 @@ Phases, each printing its lines:
    a slow call takes fewer, about BUDGET_MS of calls and at least 3), and K5, K9,
    K2, K6, K1, K4, K10, K7 and K3 their Hopper kernels against the kernels
    they replaced, in turns (old, new, new, old; the kernel's device time
-   the mean of its two turns). Planted faults must fail
+   the mean of its two turns); in float32 K2 and K5 their TF32 routes
+   against the WMMA route they replaced, in turns, at batch 2 (512px,
+   1024px, SD v2.1), beside the library call with TF32 on. Planted faults must fail
    each kernel's tolerance at every case: for K6 the convolution without
    the border mask (the prologue applied to the zero-padded map) and, with a
    second input, the convolution without it; for K4 the product without its
    prologue (proj_in) or without its residual (proj_out); for K7 the phases
    interleaved with py and px swapped and the taps read one pixel off (the
-   map shifted by one); for K2 the attention over every other key; for K1
+   map shifted by one); for K2 the attention over every other key and, in
+   float32, the TF32 core reading V's keys in their natural order (the QKV
+   epilogue's permutation dropped); for K5 in float32 the GEGLU's val and
+   gate halves swapped and the LayerNorm's beta dropped; for K1
    an all-zero output, the attention over every other key, with a key bias
    the attention that ignores it, with the row statistics those
    statistics in natural log, and at d = 512 the wide kernel's walk with
@@ -81,7 +94,13 @@ Phases, each printing its lines:
    replayed latent within GRAPH_LATENT_TOL (bf16 1e-3) of the eager one,
    each image within 1 gray level; the launch counts per shape of two
    replays twice those of one eager call; each graph's capture seconds
-   and the bytes it added to the shared pool;
+   and the bytes it added to the shared pool; then a float32 512px DDIM
+   generate (the command line's default dtype) on a float32 pipeline of
+   the same seed's weights, replayed against its eager twin: the latent and
+   image bit-equal, the replay's launches per shape the eager call's, K2's
+   and K5's on their TF32 route, the device's launches of one replayed call
+   the graphs' records (the TF32 kernels and the WMMA kernel of K4, K6 and
+   K7 among them), and the K-major weight copies' bytes;
 5. sdtpu_torch.finetune.run_finetune at SD v1.4 width and depth, 512x512,
    from a folder of synthetic PNGs: the latent cache through the port's
    VAE encoder and CLIP (their graphs replayed), then 3 AdamW steps at
@@ -117,7 +136,9 @@ Phases, each printing its lines:
    (the dump tree read in process file by file, then through the native
    bulk reader);
    `python -m sdtpu_torch.sample dump|native ... --seed 0 --bf16` on the
-   card (the device argument omitted), each PNG byte-equal to an
+   card (the device argument omitted; `sample dump` beside the
+   dump's conversion back to native and `sample native` beside `convert
+   --to-mpk`), each PNG byte-equal to an
    in-process generate in bf16 with the same generator, each run's load
    and sampling seconds, warm start (the kernels built while the weights
    load, then the graphs captured), graph replays and launches (its
@@ -175,8 +196,9 @@ Phases, each printing its lines:
    every leaf, planted in the tp step, must fail it),
    each rank's peak memory over the step beside the single whole-state
    step's, the updated params printed as a record. With K10's gate open, serve.Batcher on the
-   mesh: at dp = 2 three requests at once (padded to 4), a lone one
-   (padded to 2) and an adapter's, against the single-process Batcher's
+   mesh: at dp = 2 (PAR_DP_SERVE_STEPS steps) three requests at once
+   (padded to 4), a lone one (padded to 2) and an adapter's, against the
+   single-process Batcher's
    images (PAR_TP_IMAGE_MEAN, PAR_DP_IMAGE_MAX); at tp = 2 two requests of
    PAR_TP_SERVE_STEPS steps (PAR_TP_IMAGE_MEAN). dryrun_multichip(4) on
    four gloo ranks of cuda:0 at SD_TINY runs beside phase 8, its summary
@@ -203,7 +225,11 @@ launched there with no case in phase 2 is a failure. Every launched
 kernel also carries `device_ms` (the same launches by device time), and K5,
 K9, K2, K6, K1, K4, K10, K7 and K3 `replaced_device_ms` (those of the
 kernels their bf16 route replaced: the WMMA kernels, K3's partials kernel with
-its sum) and `sources_by_route`. K3's `library_ms` is torch.var_mean over the rows,
+its sum; for K2's and K5's float32 launches the WMMA route their TF32
+route replaced) and `sources_by_route` with `launches_by_route` ("bfloat16
+sm90", "float32 tf32", ...). The graph phase's float32 generate adds K2's
+and K5's launches under "dtype=float32" shape keys, timed by phase 2's
+float32 A/B. K3's `library_ms` is torch.var_mean over the rows,
 per channel; K8 has none (F.group_norm and F.silu are two calls). K5's
 `library_ms` is both of its
 products as two torch.matmul calls; K2's and K10's are SDPA on the core
@@ -258,7 +284,10 @@ HBM = 3.35e12         # bytes/s
 
 
 def fail(msg: str) -> None:
+    """Prints the failure on both streams (a caller that keeps only the end
+    of the standard error sees why) and exits 1."""
     print(f"FAIL: {msg}", flush=True)
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -354,6 +383,9 @@ class Case(NamedTuple):
     # yardsticks printed beside library
     old: Optional[Callable] = None
     yardsticks: tuple = ()
+    # timed in float32 too: K2's and K5's float32 A/B shapes (batch 2), the
+    # shapes of the graph phase's float32 generate among them
+    f32: bool = False
 
 
 def decoder_convs(lat: int) -> list:
@@ -499,14 +531,16 @@ def kernel_cases(dtype, dev):
         def core(*a, qkv4=qkv4, **k):
             return F.scaled_dot_product_attention(qkv4[0], qkv4[1], qkv4[2])
 
-        def k2_wmma(*a):  # the WMMA route the bf16 Hopper kernels replaced
+        def k2_wmma(*a):  # the WMMA route the Hopper kernels replaced (both dtypes)
             return fused_transformer._self_attention(*a, 1e-5, "wmma")
 
+        ab = b == 2 and dtype == torch.float32  # the float32 A/B's shapes
         cases.append(Case("fused_self_attention",
                           f"S={s} C={c} dh={c // nh} B={b}{' v2.1' if nh != 8 else ''}",
                           fused_transformer.fused_self_attention,
                           fused_transformer.fused_self_attention_plain, args, {},
-                          b * (8 * s * c * c + 4 * s * s * c), library=core, old=k2_wmma))
+                          b * (8 * s * c * c + 4 * s * s * c), library=core, old=k2_wmma,
+                          f32=ab))
     # K5 at the UNet's levels below 2048 tokens (both sizes, batch 2, the
     # two-pass mode's 1 and the serve phase's 8), and two row counts that are
     # not a multiple of the Hopper kernel's 128-row tile (no main path
@@ -526,10 +560,11 @@ def kernel_cases(dtype, dev):
         def both_products(*a, x=x, h=h, w=args[3], w2=args[5], **k):  # the two products
             return torch.matmul(x, w), torch.matmul(h, w2)
 
+        ab = b == 2 and dtype == torch.float32  # the float32 A/B's shapes
         cases.append(Case("fused_geglu_mlp", f"S={s} C={c} B={b}", fused_mlp.fused_geglu_mlp,
                           fused_mlp.fused_geglu_mlp_plain, args, {}, b * 24 * s * c * c,
                           library=both_products, old=fused_mlp._mlp_wmma,
-                          yardsticks=(("first product", first_product),)))
+                          yardsticks=(("first product", first_product),), f32=ab))
 
     # K10: the UNet's cross-attention sublayers at 512px with SDTPU_FUSED_XATTN=1
     # (S 4096/1024/256, C 320/640/1280, 8 heads, 77 keys), at the serve phase's
@@ -964,6 +999,20 @@ KERNEL_ROUTES = {
     "fused_cross_attention_kv": {
         "sm90": "sdtpu_torch/csrc/gemm_sm90.cu + sdtpu_torch/csrc/attention_sm90.cu",
         "wmma": "sdtpu_torch/csrc/gemm.cu + sdtpu_torch/csrc/cross_attention.cu"},
+    # K2's and K5's float32 launches take the TF32 kernels (route "tf32");
+    # their bf16 launches (K5's carry no route in their keys) the Hopper
+    # kernels
+    "fused_self_attention": {
+        "sm90": "sdtpu_torch/csrc/gemm_sm90.cu + sdtpu_torch/csrc/attention_sm90.cu",
+        "tf32": "sdtpu_torch/csrc/gemm_tf32_sm90.cu + sdtpu_torch/csrc/attention_tf32_sm90.cu",
+        "wmma": "sdtpu_torch/csrc/gemm.cu + sdtpu_torch/csrc/attention.cu"},
+    "fused_geglu_mlp": {"sm90": "sdtpu_torch/csrc/gemm_sm90.cu",
+                        "tf32": "sdtpu_torch/csrc/gemm_tf32_sm90.cu",
+                        "wmma": "sdtpu_torch/csrc/gemm.cu"},
+    # K4's and K6's float32 launches (the graph phase's float32 generate,
+    # phase 8's encoder) take the WMMA kernel
+    "conv1x1_fused": {"sm90": "sdtpu_torch/csrc/conv_sm90.cu", "wmma": "sdtpu_torch/csrc/gemm.cu"},
+    "conv3x3_fused": {"sm90": "sdtpu_torch/csrc/conv_sm90.cu", "wmma": "sdtpu_torch/csrc/gemm.cu"},
 }
 
 
@@ -1320,12 +1369,40 @@ def _k3_faults(c):
             "of batch b + 1 for b": channel_partials_plain(shifted)}
 
 
+def _k5_faults(c):
+    """K5's float32 route with a fault planted (the plain version with it):
+    the val and gate halves of the first product swapped (gelu of the val
+    half), and the LayerNorm's β dropped."""
+    import torch
+
+    from sdtpu_torch.ops.fused_mlp import fused_geglu_mlp_plain
+
+    x, g, b, wp, bp, wl, bl = c.args
+    h = wl.shape[0]
+    res = c.kw.get("residual", True)
+    swap = lambda t: torch.cat([t[..., h:], t[..., :h]], dim=-1)  # noqa: E731
+    return {"with val and gate swapped": fused_geglu_mlp_plain(
+                x, g, b, swap(wp), swap(bp), wl, bl, residual=res),
+            "with the LayerNorm's beta dropped": fused_geglu_mlp_plain(
+                x, g, torch.zeros_like(b), wp, bp, wl, bl, residual=res)}
+
+
+# a key's place in its group of 8 in the float32 route's V (csrc/
+# gemm_tf32_sm90.cu's epilogue): what the core reads as key k, were V left
+# in its natural order
+KEY_POS = (0, 4, 1, 5, 2, 6, 3, 7)
+
+
 def _check_k2(c, got, want, dname, failed):
     """K2's check: the whole sublayer x + Wo·attn + bo within TOL, and the
     attention term alone (out - x against plain - x) within FLASH_TOL's
     fraction of its largest |reference| plus FLASH_TOL's rtol of |out| (the
     output's own rounding), as K10's. That tolerance fails the sublayer over
-    every other key. Returns (max abs error, ok, atol of the term, rtol)."""
+    every other key and, in float32, the sublayer whose core reads V's keys
+    in their natural order where the TF32 core's fragments expect its
+    epilogue's order. Returns (max abs error, ok, atol of the term, rtol)."""
+    import torch
+
     from sdtpu_torch.ops.attention import qkv_attention_plain
     from sdtpu_torch.ops.conv import linear
     from sdtpu_torch.ops.groupnorm import layer_norm
@@ -1338,14 +1415,25 @@ def _check_k2(c, got, want, dname, failed):
     a = frac * float((want.float() - (x.float() if residual else 0.0)).abs().max())
     ok = ok and within(got, want, a, r)[1]
     q, k, v = linear({"w": wqkv}, layer_norm(x, ln_g, ln_b)).chunk(3, dim=-1)
-    half = linear({"w": wo, "b": bo} if residual else {"w": wo},
-                  qkv_attention_plain(q, k[:, ::2], v[:, ::2], None, n_head))
-    if residual:
-        half = x + half
-    passes = within(half, want, a, r)[1]
+    wrong = {"over every other key": (k[:, ::2], v[:, ::2])}
+    if dname == "float32":
+        # the TF32 core's P·V against a V whose keys were not put in the
+        # fragments' order (the QKV epilogue's permutation dropped)
+        s = v.shape[1]
+        idx = (torch.arange(s, device=v.device).view(-1, 8) // 8 * 8
+               + torch.tensor(KEY_POS, device=v.device)).reshape(-1)
+        wrong["with V's keys in their natural order"] = (k, v[:, idx])
+    passes = {}
+    for label, (kk, vv) in wrong.items():
+        half = linear({"w": wo, "b": bo} if residual else {"w": wo},
+                      qkv_attention_plain(q, kk, vv, None, n_head))
+        if residual:
+            half = x + half
+        passes[label] = within(half, want, a, r)[1]
     print(f"kernel {c.name:21s} {dname:8s} {c.shape:30s} max |ref term| {a / frac:.4f}; the "
-          f"term's tolerance passes the sublayer over every other key: {passes}", flush=True)
-    if passes:
+          f"term's tolerance passes the sublayer " + ", ".join(
+              f"{k}: {v}" for k, v in passes.items()), flush=True)
+    if any(passes.values()):
         failed.append(f"{c.name} {dname} {c.shape} tolerance too loose")
     return err, ok, a, r
 
@@ -1353,18 +1441,46 @@ def _check_k2(c, got, want, dname, failed):
 def f32_launched(c: "Case") -> bool:
     """The shapes the main paths launch in float32, which phase 2 times in
     float32 as well: phase 8's VAE encoder (K3 and K6, the model loaded in
-    f32) and phase 10's f32 training steps (K1 and K9)."""
-    return c.name.startswith("flash_attention") or c.shape.startswith("encoder")
+    f32), fine-tuning's f32 steps (K1 and K9), and K2's and K5's float32
+    A/Bs (c.f32), whose shapes take in the graph phase's float32 generate's."""
+    return c.f32 or c.name.startswith("flash_attention") or c.shape.startswith("encoder")
 
 
-def phase_kernels(dev) -> tuple[dict, dict]:
+def tf32_library_ms(fn) -> float:
+    """fn's time (CUDA events) with PyTorch's TF32 switches on
+    (torch.backends.cuda.matmul.allow_tf32 and cudnn.allow_tf32), the
+    precision of the kernels' float32 products; the switches are set back
+    to off (this script's setting) after."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        return cuda_ms(fn)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+
+
+def library_kernel(fn) -> str:
+    """The name of the device kernel that takes most of one fn() call (the
+    library call's choice: SDPA's backend, cuBLAS's or cuDNN's kernel)."""
+    from sdtpu_torch.profile_pipeline import device_profile
+
+    _, rows = device_profile(fn, 1)
+    return rows[0][0][:80] if rows else "none"
+
+
+def phase_kernels(dev, dtypes=None, f32_all: bool = False) -> tuple[dict, dict]:
     """Phase 2. Returns ({kernel: max abs error over both dtypes}, {(kernel,
     shape key): {label, ms, plain_ms, library_ms, bound_ms, ops_ms, bytes_ms,
     device_ms, old_ms, f32_ms}}), from the bfloat16 run, the main paths'
     dtype (old_ms, the replaced kernel's device time, for K5, K9, K2, K6,
     K1, K4, K10, K7, K3 only; f32_ms the float32 run's time, by device time
     where measured), and under F32_KEY + shape key the float32 run's (its
-    products bound at the TF32 rate)."""
+    products bound at the TF32 rate; library_tf32_ms the library call with
+    PyTorch's TF32 switches on). dtypes: the dtypes run (both by default);
+    f32_all: every float32 case timed by device time, with the library
+    call's kernel named (the float32 table, --f32-table), not only the
+    shapes a main path launches in float32."""
     import torch
 
     from sdtpu_torch.ops.fused_groupnorm import channel_partials_plain
@@ -1375,7 +1491,7 @@ def phase_kernels(dev) -> tuple[dict, dict]:
 
     max_err, measured, f32_ms = {}, {}, {}
     failed = []
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes or (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         atol, rtol = TOL[dname]
         for c in kernel_cases(dtype, dev):
@@ -1415,6 +1531,8 @@ def phase_kernels(dev) -> tuple[dict, dict]:
                 faults = {"conv3x3_fused": _k6_faults, "conv1x1_fused": _k4_faults,
                           "upsample2x_conv_fused": _k7_faults,
                           "channel_partials": _k3_faults}.get(c.name)
+                if c.name == "fused_geglu_mlp" and dtype == torch.float32:
+                    faults = _k5_faults
                 if faults is not None:
                     passes = {k: within(f, want, a, r)[1] for k, f in faults(c).items()}
                     print(f"kernel {c.name:21s} {dname:8s} {c.shape:30s} the tolerance passes "
@@ -1423,7 +1541,7 @@ def phase_kernels(dev) -> tuple[dict, dict]:
                     if any(passes.values()):
                         failed.append(f"{c.name} {dname} {c.shape} tolerance too loose")
             del got, want
-            if not (dtype == torch.bfloat16 or f32_launched(c)):
+            if not (dtype == torch.bfloat16 or f32_all or f32_launched(c)):
                 # checked (with its planted faults) and not timed: no path
                 # launches this shape in float32
                 print(f"kernel {c.name:21s} {dname:8s} {c.shape:30s} max_abs_err {err:.3e} "
@@ -1438,12 +1556,26 @@ def phase_kernels(dev) -> tuple[dict, dict]:
             lib_ms = None if c.library is None else cuda_ms(lambda: c.library(*c.args, **c.kw))
             if c.library_minus is not None:
                 lib_ms -= cuda_ms(lambda: c.library_minus(*c.args, **c.kw))
+            lib_tf32_ms = lib_kernel = None
+            if c.library is not None and dtype == torch.float32 and (f32_all or c.f32):
+                # the float32 table, and K2's and K5's float32 A/Bs: the
+                # library call in the kernels' own precision too
+                lib_tf32_ms = tf32_library_ms(lambda: c.library(*c.args, **c.kw))
+                if c.library_minus is not None:
+                    lib_tf32_ms -= tf32_library_ms(lambda: c.library_minus(*c.args, **c.kw))
+                if f32_all:
+                    lib_kernel = library_kernel(lambda: c.library(*c.args, **c.kw))
             lib = "" if lib_ms is None else f"  library {lib_ms:.4f} ms"
-            for label, fn in c.yardsticks:
-                lib += (f"  {label} {cuda_ms(lambda: fn(*c.args, **c.kw)):.4f} ms (device "
-                        f"{dev_time(lambda: fn(*c.args, **c.kw)):.4f})")
+            if lib_tf32_ms is not None:
+                lib += f" (TF32 on: {lib_tf32_ms:.4f} ms)"
+            if lib_kernel is not None:
+                lib += f" [{lib_kernel}]"
+            for label, fn in c.yardsticks:  # by CUDA events alone
+                lib += f"  {label} {cuda_ms(lambda: fn(*c.args, **c.kw)):.4f} ms"
             dev_ms = old_ms = turns = None
-            if c.old is not None and dtype == torch.bfloat16:
+            # the Hopper kernel against the one it replaced: bf16, and
+            # K2's and K5's float32 routes (c.f32)
+            if c.old is not None and (dtype == torch.bfloat16 or c.f32):
                 # the Hopper kernel against the kernel it replaced, by
                 # device time, in turns; its own device time is the mean of
                 # its two turns
@@ -1451,7 +1583,7 @@ def phase_kernels(dev) -> tuple[dict, dict]:
                 old = lambda: c.old(*c.args, **c.kw)  # noqa: E731
                 turns = [dev_time(f) for f in (old, new, new, old)]
                 old_ms, dev_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
-            elif c.old is not None or dtype == torch.bfloat16:
+            else:
                 dev_ms = dev_time(lambda: c.fn(*c.args, **c.kw))
             if dev_ms is not None:
                 lib += f"  device {dev_ms:.4f} ms"
@@ -1462,21 +1594,24 @@ def phase_kernels(dev) -> tuple[dict, dict]:
             if turns is not None:
                 print(f"kernel {c.name:21s} {dname:8s} {c.shape:30s} device ms old/new/new/old "
                       f"{' / '.join(f'{t:.4f}' for t in turns)}: new {dev_ms:.4f} against old "
-                      f"{old_ms:.4f} ({old_ms / dev_ms:.2f}x), bound {bound_ms:.4f}", flush=True)
+                      f"{old_ms:.4f} ({old_ms / dev_ms:.2f}x), bound {bound_ms:.4f} | "
+                      f"{card_line() if dtype == torch.float32 else ''}", flush=True)
             if not ok:
                 failed.append(f"{c.name} {dname} {c.shape}")
             max_err[c.name] = max(max_err.get(c.name, 0.0), err)
             entry = {"label": c.shape, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                      "bound_ms": bound_ms, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
-                     "device_ms": dev_ms, "old_ms": old_ms}
+                     "device_ms": dev_ms, "old_ms": old_ms, "library_tf32_ms": lib_tf32_ms}
             if dtype == torch.float32:
                 f32_ms[(c.name, c.shape)] = dev_ms if dev_ms is not None else ms
                 # a float32 launch of the main paths: the route it takes is
                 # the kernel the bf16 route replaced, so that kernel is its
-                # own "replaced" time
+                # own "replaced" time, but for K2's and K5's TF32 routes,
+                # timed against it
                 measured[(c.name, F32_KEY + key)] = {
                     **entry, "label": c.shape + " f32",
-                    "old_ms": dev_ms if c.old is not None else None}
+                    "old_ms": old_ms if turns is not None else
+                    dev_ms if c.old is not None else None}
             else:
                 measured[(c.name, key)] = {**entry, "f32_ms": f32_ms.get((c.name, c.shape))}
         torch.cuda.empty_cache()
@@ -1485,7 +1620,80 @@ def phase_kernels(dev) -> tuple[dict, dict]:
     return max_err, measured
 
 
-def main_path_times(measured: dict, shapes: dict) -> dict:
+def f32_paths(dev) -> dict:
+    """The launches per kernel and shape (keys under F32_KEY) of the default
+    dtype's paths at SD v1.4 width and depth, random weights (seed SEED),
+    each run eagerly (a replay launches what its eager run does): one
+    float32 512px generate and one at 1024px (20 DDIM steps, CFG 7.5,
+    batch 1: what `python -m sdtpu_torch.sample` runs without --bf16), and
+    one float32 fine-tuning step at 512px, batch 4, remat "full"
+    (`finetune`'s default compute dtype). {path: (launches, shapes)}."""
+    import torch
+
+    from sdtpu_torch.config import SD_V1_4
+    from sdtpu_torch.models.unet import unfuse_qkv
+    from sdtpu_torch.pipeline import StableDiffusion
+    from sdtpu_torch.tokenizer import SimpleTokenizer
+    from sdtpu_torch.training import make_optimizer, make_train_step, master_params, tree_map
+
+    tok, out = SimpleTokenizer(), {}
+
+    def counted(label, fn):
+        read_and_zero()
+        t0 = time.perf_counter()
+        fn()
+        launches, shapes = read_and_zero()
+        out[label] = (launches, {n: {F32_KEY + k: v for k, v in s.items()}
+                                 for n, s in shapes.items()})
+        print(f"f32 path {label}: {time.perf_counter() - t0:.1f} s, launches "
+              f"{fired(launches)}", flush=True)
+
+    for size in (512, 1024):
+        cfg = dataclasses.replace(SD_V1_4, image_size=size)
+        sd = StableDiffusion(init_params_on(cfg, dev), cfg, compute_dtype=torch.float32,
+                             graphs=False)
+        counted(f"generate {size}", lambda: sd.generate(
+            tok, "An ancient mossy stone.", 7.5, 20,
+            generator=torch.Generator(device=dev).manual_seed(SEED + 1)))
+        if size == 512:
+            g = torch.Generator(device=dev).manual_seed(2)
+            hw, b = cfg.latent_size, 4
+            batch = (torch.randn((b, hw, hw, 4), generator=g, device=dev),
+                     torch.randn((b, cfg.clip.n_ctx, cfg.clip.n_state), generator=g,
+                                 device=dev),
+                     torch.arange(cfg.clip.n_ctx, device=dev)[None, :] < torch.tensor(
+                         [[2], [9], [20], [77]], device=dev))
+            params = master_params(unfuse_qkv(sd.params["unet"]))
+            ema = tree_map(lambda p: p.detach().clone(), params)
+            opt = make_optimizer(lr=1e-5, warmup_steps=0, total_steps=10)
+            state = opt.init(params)
+            step = make_train_step(cfg, opt, compute_dtype=torch.float32, remat="full",
+                                   ema_decay=0.9999)
+            counted("train step 512 B=4", lambda: step(params, state, ema, batch, g))
+            del params, ema, state, step
+        del sd
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def f32_table(dev) -> None:
+    """--f32-table: the float32 columns of every kernel. Phase 2 in float32
+    alone with every case timed (device time; the library call with TF32
+    off and on, and the kernel it ran), then the launches of the float32
+    paths (f32_paths) and, per kernel and path, the device ms, bound and
+    library ms of those launches, as one JSON line."""
+    max_err, measured = phase_kernels(dev, (__import__("torch").float32,), f32_all=True)
+    table = {}
+    for label, (launches, shapes) in f32_paths(dev).items():
+        times = main_path_times(measured, shapes, strict=False)
+        for name, t in times.items():
+            if launches.get(name):
+                table.setdefault(name, {})[label] = {"launches": launches[name], **t}
+    print(json.dumps({"f32_kernels": table, "max_abs_err": max_err}), flush=True)
+
+
+def main_path_times(measured: dict, shapes: dict, strict: bool = True) -> dict:
     """Per kernel, {ms, plain_ms, library_ms, bound_ms, bound_by} of its
     launches in the generate runs: each launched shape's phase-2 time (or
     bound) times its launches there, as the wrapper counted them per shape,
@@ -1496,7 +1704,7 @@ def main_path_times(measured: dict, shapes: dict) -> dict:
     totals, missing = {}, []
     for name in KERNEL_INFO:
         t = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "ops_ms": 0.0,
-             "bytes_ms": 0.0, "device_ms": 0.0, "old_ms": 0.0}
+             "bytes_ms": 0.0, "device_ms": 0.0, "old_ms": 0.0, "library_tf32_ms": 0.0}
         for key, n in sorted(shapes[name].items()):
             m = measured.get((name, key))
             if m is None:
@@ -1512,15 +1720,18 @@ def main_path_times(measured: dict, shapes: dict) -> dict:
                   f"{n * m['bound_ms']:.3f} ms", flush=True)
             for f in ("ms", "plain_ms", "bound_ms", "ops_ms", "bytes_ms"):
                 t[f] += n * m[f]
-            for f in ("library_ms", "device_ms", "old_ms"):
-                if m[f] is None or t[f] is None:
+            for f in ("library_ms", "device_ms", "old_ms", "library_tf32_ms"):
+                if m.get(f) is None or t[f] is None:
                     t[f] = None
                 else:
                     t[f] += n * m[f]
         t["bound_by"] = "operations" if t.pop("ops_ms") >= t.pop("bytes_ms") else "bytes"
         totals[name] = t
     if missing:
-        fail("shapes launched on the main path with no case in phase 2: " + "; ".join(missing))
+        if strict:
+            fail("shapes launched on the main path with no case in phase 2: "
+                 + "; ".join(missing))
+        print("shapes launched with no case in phase 2: " + "; ".join(missing), flush=True)
     return totals
 
 
@@ -1715,6 +1926,18 @@ EXPECTED_LAUNCHES["twopass"] = {
 EXPECTED_X2 = {512: 0, 1024: 60}  # K6 launches with the skip as second input
 
 
+def launches_by_route(kernel_shapes: dict) -> dict:
+    """{route: launches} of one wrapper's per-shape counts in the totals,
+    with the dtype: "bfloat16 sm90", "float32 tf32", ... (a key without a
+    route is a bf16 launch of the Hopper route: K5's)."""
+    by = {}
+    for key, n in kernel_shapes.items():
+        route = key.rsplit("route=", 1)[-1].split()[0] if "route=" in key else "sm90"
+        label = f"{'float32' if key.startswith(F32_KEY) else 'bfloat16'} {route}"
+        by[label] = by.get(label, 0) + n
+    return by
+
+
 def by_route(kernel_shapes: dict) -> dict:
     """{route: launches} of one wrapper's per-shape counts."""
     by = {}
@@ -1864,11 +2087,11 @@ def phase_generate(dev, size: int) -> tuple[dict, dict]:
         if d > GRAPH_GRAY_TOL:
             fail(f"the replayed 1024px decode is {d} gray levels from the eager one")
     if size == 512:
-        g_launches, g_shapes = phase_graphs(dev, sd, tok)
-        for name in launches:
-            launches[name] += g_launches[name]
-            for key, n in g_shapes[name].items():
-                shapes[name][key] = shapes[name].get(key, 0) + n
+        for g_launches, g_shapes in (phase_graphs(dev, sd, tok), phase_graphs_f32(dev, tok)):
+            for name in launches:
+                launches[name] += g_launches[name]
+                for key, n in g_shapes[name].items():
+                    shapes[name][key] = shapes[name].get(key, 0) + n
     return launches, shapes
 
 
@@ -1889,6 +2112,15 @@ DEVICE_KERNELS = {
     ("fused_cross_attention_kv", "sm90"): {"row_stats_kernel": 1, "gemm_sm90_kernel": 2,
                                            "attention_sm90_kernel": 1},
     ("fused_geglu_mlp", None): {"row_stats_kernel": 1, "gemm_sm90_kernel": 2},
+    # float32 (the graph phase's float32 generate): K2's and K5's TF32
+    # kernels, and the WMMA kernel (csrc/gemm.cu) of K4's, K6's and K7's
+    # float32 route
+    ("fused_self_attention", "tf32"): {"row_stats_f32_kernel": 1, "gemm_tf32_kernel": 2,
+                                       "attention_tf32_kernel": 1},
+    ("fused_geglu_mlp", "tf32"): {"row_stats_f32_kernel": 1, "gemm_tf32_kernel": 2},
+    ("conv1x1_fused", "wmma"): {"gemm_kernel": 1},
+    ("conv3x3_fused", "wmma"): {"gemm_kernel": 1},
+    ("upsample2x_conv_fused", "wmma"): {"gemm_kernel": 1},
     ("conv1x1_fused", "sm90"): {"conv_sm90_kernel": 1},
     ("conv3x3_fused", "sm90"): {"conv_sm90_kernel": 1},
     ("upsample2x_conv_fused", "sm90"): {"conv_sm90_kernel": 1},
@@ -1915,6 +2147,43 @@ def device_launches(rows) -> dict:
         if m:
             got[m.group(1)] += n
     return dict(got)
+
+
+# The profiler's trace has lost the records of a call's last kernels on an
+# H100 (a replayed decode's last 4 of its 2134 hand-written kernels absent),
+# so a trace whose device launches fall short of the graphs' records, and
+# exceed them in no kernel, is taken again: at most DEVICE_TRACES traces in
+# all, each printed. A trace that shows more launches than the records, or
+# a shortfall in every trace, fails the check as before.
+DEVICE_TRACES = 3
+
+
+def short_of(on_device: dict, recorded: dict) -> bool:
+    """Whether a trace's device launches fall short of the records in some
+    kernel and exceed them in none: what a trace that lost records shows."""
+    return on_device != recorded and all(n <= recorded.get(k, 0) for k, n in on_device.items())
+
+
+def traced_launches(label, trace, recorded_of):
+    """(device ms, rows, device launches, recorded, unmapped) of the trace
+    that stands: trace() is device_profile on one call, recorded_of(traces)
+    the graphs' records of one call after that many traces. A trace short of
+    the records (short_of), or one device_profile finds incomplete, is taken
+    again, up to DEVICE_TRACES in all."""
+    for i in range(1, DEVICE_TRACES + 1):
+        try:
+            dev_ms, rows = trace()
+        except RuntimeError as e:
+            if not str(e).startswith("trace incomplete") or i == DEVICE_TRACES:
+                raise
+            print(f"{label}: trace {i} of {DEVICE_TRACES}: {e}; traced again", flush=True)
+            continue
+        on_device = device_launches(rows)
+        recorded, unmapped = recorded_of(i)
+        if i == DEVICE_TRACES or not short_of(on_device, recorded):
+            return dev_ms, rows, on_device, recorded, unmapped
+        print(f"{label}: trace {i} of {DEVICE_TRACES} short of the records: the profiler "
+              f"{on_device}, the records {recorded}; traced again", flush=True)
 
 
 def recorded_device_launches(records) -> tuple[dict, list]:
@@ -2060,12 +2329,13 @@ def phase_graphs(dev, sd, tok) -> tuple[dict, dict]:
     # the graphs' records say their replays launched
     t0 = time.perf_counter()
     before = {k: g.replays for k, g in cache.graphs.items()}
-    _, rows = device_profile(lambda: sd._decode_u8(ddim(sd, SEED + 1)), None)
-    on_device = device_launches(rows)
+    _, rows, on_device, recorded, unmapped = traced_launches(
+        "graphs device launches",
+        lambda: device_profile(lambda: sd._decode_u8(ddim(sd, SEED + 1)), None),
+        lambda traces: recorded_device_launches(
+            [(g.record, (g.replays - before.get(k, 0)) // (2 * traces))
+             for k, g in cache.graphs.items() if g.replays > before.get(k, 0)]))
     read_and_zero()  # the profiled calls belong to no count
-    recorded, unmapped = recorded_device_launches(
-        [(g.record, (g.replays - before.get(k, 0)) // 2) for k, g in cache.graphs.items()
-         if g.replays > before.get(k, 0)])
     print(f"graphs device launches of the hand-written kernels in one replayed DDIM call and "
           f"decode, by the profiler {on_device}; by the graphs' records {recorded} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
@@ -2083,6 +2353,101 @@ def phase_graphs(dev, sd, tok) -> tuple[dict, dict]:
     return ({n: once[0][n] + twice[0][n] for n in once[0]},
             {n: {key: once[1][n].get(key, 0) + twice[1][n].get(key, 0)
                  for key in set(once[1][n]) | set(twice[1][n])} for n in once[1]})
+
+
+def phase_graphs_f32(dev, tok) -> tuple[dict, dict]:
+    """The graph phase's float32 generate: SD v1.4 at 512px, the same random
+    weights (init_params_on), compute dtype float32 (what `python -m
+    sdtpu_torch.sample` runs without --bf16), 20 DDIM steps CFG 7.5 and the
+    decode, replayed from CUDA graphs (the first call captures) and on the
+    eager twin, the same inputs: the latent and the image bit-equal, the
+    replay's launch counts per shape equal to the eager call's, K2's and
+    K5's launches on their TF32 route, and the device's launches of the
+    hand-written kernels in one replayed call, by the profiler, equal to the
+    graphs' records (DEVICE_KERNELS). Returns K2's and K5's launches of the
+    eager call and the replay (the TF32 routes; their shape keys under
+    F32_KEY), which join the main paths' totals; the other kernels' float32
+    launches are checked here and timed by --f32-table."""
+    import torch
+
+    from sdtpu_torch.config import SD_V1_4
+    from sdtpu_torch.ops import fused_mlp
+    from sdtpu_torch.pipeline import StableDiffusion
+    from sdtpu_torch.profile_pipeline import device_profile
+
+    t_phase = time.perf_counter()
+    sd = StableDiffusion(init_params_on(SD_V1_4, dev), SD_V1_4, compute_dtype=torch.float32)
+    eager = sd.with_graphs(False)
+    cache = sd.graph_cache
+    (ctx, valid), (unctx, unvalid) = sd.context(tok, GRAPH_PROMPTS[0]), sd.context(tok, "")
+
+    def ddim(pipe):
+        return pipe.sample_latent(ctx, unctx, 7.5, 20,
+                                  generator=torch.Generator(device=dev).manual_seed(SEED + 1),
+                                  ctx_valid=valid, uncond_valid=unvalid)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    _, capture_s = timed(lambda: sd._decode_u8(ddim(sd)))  # the captures (and warm-ups)
+    read_and_zero()
+    take_warmups(cache)
+    lat_e, wall_e = timed(lambda: ddim(eager))
+    img_e = eager._decode_u8(lat_e)
+    once = read_and_zero()
+    lat_r, wall_r = timed(lambda: ddim(sd))
+    img_r = sd._decode_u8(lat_r)
+    replayed = read_and_zero()
+    bad = []
+    for label, got, want in (("latent", lat_r, lat_e), ("image", img_r, img_e)):
+        equal = bool(torch.equal(got, want))
+        print(f"graphs f32 512px DDIM {label}: max |replayed - eager| "
+              f"{float((got.float() - want.float()).abs().max()):.3e}, bit-equal {equal}",
+              flush=True)
+        if not equal:
+            bad.append(f"the replayed {label} is not the eager one's bits")
+    if not bool(torch.isfinite(lat_r).all()):
+        bad.append("the float32 latent has non-finite values")
+    print(f"graphs f32 512px DDIM 20 steps: captures {capture_s:.2f} s, denoise eager "
+          f"{wall_e:.3f} s, replayed {wall_r:.3f} s; launches of the eager call "
+          f"{fired(once[0])}; the replay's per shape the eager call's: {replayed == once} | "
+          f"{card_line()}", flush=True)
+    if replayed != once:
+        bad.append("the replay's launch counts per shape are not the eager call's")
+    for name in ("fused_self_attention", "fused_geglu_mlp"):
+        routes = by_route(once[1][name])
+        print(f"graphs f32 {name} launches by route {routes}", flush=True)
+        if set(routes) != {"tf32"}:
+            bad.append(f"{name}'s float32 launches took {routes}, not tf32")
+    before = {k: g.replays for k, g in cache.graphs.items()}
+    dev_ms, rows, on_device, recorded, unmapped = traced_launches(
+        "graphs f32 device launches",
+        lambda: device_profile(lambda: sd._decode_u8(ddim(sd)), None),
+        lambda traces: recorded_device_launches(
+            [(g.record, (g.replays - before.get(k, 0)) // (2 * traces))
+             for k, g in cache.graphs.items() if g.replays > before.get(k, 0)]))
+    read_and_zero()
+    print(f"graphs f32 device launches of the hand-written kernels in one replayed DDIM call "
+          f"and decode, by the profiler {on_device}; by the graphs' records {recorded}; their "
+          f"device time {dev_ms:.2f} ms; the K-major weight copies "
+          f"{fused_mlp.kmajor_bytes()} bytes", flush=True)
+    if unmapped or not recorded or recorded != on_device:
+        bad.append(f"the graphs' records say {recorded} (no device map for {unmapped}), the "
+                   f"device ran {on_device}")
+    print(f"graphs f32: {graph_summary(cache.stats())}; took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    if bad:
+        fail("the graph phase's float32 generate: " + "; ".join(bad))
+    del sd, eager
+    tf32 = ("fused_self_attention", "fused_geglu_mlp")
+    return ({n: once[0][n] + replayed[0][n] if n in tf32 else 0 for n in once[0]},
+            {n: {F32_KEY + key: once[1][n].get(key, 0) + replayed[1][n].get(key, 0)
+                 for key in set(once[1][n]) | set(replayed[1][n])} if n in tf32 else {}
+             for n in once[1]})
 
 
 # phase 9: SD v2.1 (SD_V2_1: the OpenCLIP text tower, head width 64, a
@@ -2965,11 +3330,12 @@ def phase_train_graphs(dev, sd, batches) -> None:
             # one replayed step under the profiler (the second of two calls)
             (g,) = cache.graphs.values()
             step = replayed[6]
-            dev_ms, rows = device_profile(lambda: step(batches[0]), None)
+            dev_ms, rows, on_device, recorded, unmapped = traced_launches(
+                "train graph adamw device launches",
+                lambda: device_profile(lambda: step(batches[0]), None),
+                lambda _traces: recorded_device_launches([(g.record, 1)]))
             read_and_zero()  # the profiled steps belong to no count
-            on_device = device_launches(rows)
             last_op = [(n, k, ms) for n, ms, k in rows if "addcmul" in n.lower()]
-            recorded, unmapped = recorded_device_launches([(g.record, 1)])
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             for _ in range(3):
@@ -3601,14 +3967,20 @@ def phase_cli(dev, tf32_defaults) -> tuple[dict, dict]:
               f"(load_stable_diffusion_dump, in process) in the order file by file, bulk: "
               + ", ".join(f"{'bulk' if b else 'file by file'} {t:.2f} s" for b, t in turns)
               + f" | {card_line()}", flush=True)
-        round_trip("convert dump -> native", [dump])
-        sample("dump", dump)
+        # `convert` writes the native file back from the tree while `sample
+        # dump` reads it, and the Burn mpk is written from the native file
+        # while `sample native` reads it: two processes at once each time
+        # (their walls overlap), to keep the script inside its time limit
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            back = pool.submit(round_trip, "convert dump -> native", [dump])
+            sample("dump", dump)
+            back.result()
         shutil.rmtree(dump)
-        sample("native", native)
-
-        # the Burn mpk
         mpk = os.path.join(tmp, "sd.mpk")
-        convert("convert --to-mpk", "--to-mpk", native, mpk)
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            to_mpk = pool.submit(convert, "convert --to-mpk", "--to-mpk", native, mpk)
+            sample("native", native)
+            to_mpk.result()
         t0 = time.perf_counter()
         tree = load_mpk(mpk)
         read_s = time.perf_counter() - t0
@@ -3787,10 +4159,15 @@ PAR_PROMPTS = ("An ancient mossy stone.", "A lighthouse at dusk.")
 # (padded to 2), an adapter's; at tp = 2 two lone requests at fewer steps
 # (each tp step costs about 0.5 s under gloo). (prompt, steps, scale, seed,
 # n_images, negative, sampler, karras, lora)
-PAR_SERVE = (("An ancient mossy stone.", 20, 7.5, 11, 1, "", "ddim", False, None),
-             ("A lighthouse at dusk.", 20, 5.0, 12, 1, "blurry", "ddim", False, None),
-             ("A red fox in the snow.", 20, 7.5, 13, 1, "", "ddim", False, None))
-PAR_LONE = ("An old map of the coast.", 20, 7.5, 14, 1, "", "ddim", False, None)
+# the mesh Batcher's requests at dp = 2 take 10 DDIM steps (cut from 20 to
+# keep the script inside its time limit: the single-process
+# Batcher's references run on rank 0 while the other rank waits)
+PAR_DP_SERVE_STEPS = 10
+PAR_SERVE = (("An ancient mossy stone.", PAR_DP_SERVE_STEPS, 7.5, 11, 1, "", "ddim", False, None),
+             ("A lighthouse at dusk.", PAR_DP_SERVE_STEPS, 5.0, 12, 1, "blurry", "ddim", False,
+              None),
+             ("A red fox in the snow.", PAR_DP_SERVE_STEPS, 7.5, 13, 1, "", "ddim", False, None))
+PAR_LONE = ("An old map of the coast.", PAR_DP_SERVE_STEPS, 7.5, 14, 1, "", "ddim", False, None)
 # the adapter's request is PAR_SERVE[0]'s with the adapter: its image
 # against that batch's first shows the adapter at work
 PAR_LORA = (*PAR_SERVE[0][:-1], "style")
@@ -4326,7 +4703,8 @@ def phase_parallel(dev) -> tuple[dict, dict]:
     want = {"tp unet": PAR_UNET_LAUNCHES, "tp generate": generate_launches(PAR_TP_GEN_STEPS),
             "dp generate": EXPECTED_LAUNCHES[512],
             "tp serve": par_serve_launches(PAR_TP_SERVE_STEPS, len(PAR_TP_SERVE)),
-            **{f"dp serve {k}": par_serve_launches(20) for k in ("batch", "lone", "lora")},
+            **{f"dp serve {k}": par_serve_launches(PAR_DP_SERVE_STEPS)
+               for k in ("batch", "lone", "lora")},
             **{label: PAR_TRAIN_LAUNCHES for label in train_labels}}
     # the padded batches each rank ran: a multiple of dp
     want_batches = {"tp serve": {1: 2}, "dp serve batch": {4: 1}, "dp serve lone": {2: 1},
@@ -4578,6 +4956,15 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     card = card_line()
     t_start = time.perf_counter()
+    if sys.argv[1:] == ["--f32-table"]:
+        from sdtpu_torch import kernels
+
+        print(f"device {torch.cuda.get_device_name(0)} | nvidia-smi: {card}", flush=True)
+        kernels.lib()
+        f32_table(dev)
+        print(f"--f32-table took {time.perf_counter() - t_start:.1f} s", flush=True)
+        print(card, flush=True)
+        return
 
     # phase 1: device and build
     print(f"device {torch.cuda.get_device_name(0)} | nvidia-smi: {card} | "
@@ -4654,7 +5041,9 @@ def main() -> None:
         t = times[name]
         kernels_json.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
-            **({"sources_by_route": KERNEL_ROUTES[name]} if name in KERNEL_ROUTES else {}),
+            **({"sources_by_route": KERNEL_ROUTES[name],
+                "launches_by_route": launches_by_route(totals.shapes[name])}
+               if name in KERNEL_ROUTES else {}),
             "launches": launches[name], "max_abs_err": max_err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],

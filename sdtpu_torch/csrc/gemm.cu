@@ -1,8 +1,10 @@
-// One tiled GEMM with a row prologue and an elementwise epilogue. It carries
-// the products inside six sdtpu Pallas kernels: K7's in both dtypes, and
-// the f32 routes of the others (their bf16 routes run on Hopper's own
-// instructions: K2's projections and K5 on csrc/gemm_sm90.cu, K4 and K6 on
-// csrc/conv_sm90.cu):
+// One tiled GEMM with a row prologue and an elementwise epilogue, on WMMA
+// (mma.sync). It is the float32 route of four sdtpu Pallas kernels, K4, K6,
+// K7 and K10's projections, whose bf16 routes run on Hopper's own
+// instructions (K4, K6 and K7 on csrc/conv_sm90.cu, K10 on csrc/gemm_sm90.cu);
+// K2's projections and K5 take it only as route "wmma", which the timings
+// hold their float32 routes (csrc/gemm_tf32_sm90.cu and
+// csrc/attention_tf32_sm90.cu) against, and at widths those have no plan for:
 //
 //   K2 sdtpu/ops/fused_transformer.py:fused_self_attention — LN(x)·[Wq|Wk|Wv]
 //      (LayerNorm prologue) and o·Wo + bo + x (bias + residual epilogue);

@@ -37,6 +37,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import os
+import weakref
 from dataclasses import dataclass
 from typing import List, Tuple
 
@@ -360,6 +361,39 @@ def fuse_qkv(params):
     return params
 
 
+# (id(wq), id(wk), id(wv)) -> (weak references to them, their versions,
+# [Wq | Wk | Wv]): K2's operand for a tree without the fused leaf (sdtpu's
+# tree handed to unet_apply as it is), made once per weights and not on
+# each call, so that K2's float32 route finds its K-major copy
+# (ops/fused_mlp.py:kmajor, keyed by this tensor) and a graph's capture
+# makes none; each entry goes with the first of its weights to go
+_QKV: dict = {}
+
+
+def self_attention_qkv(a1):
+    """K2's [Wq | Wk | Wv] of an attn1 subtree: its fused leaf (fuse_qkv),
+    or else the concatenation of its three weights, kept while they live
+    and are not changed in place (made anew, and not kept, where autograd
+    records the weights)."""
+    if "qkv" in a1:
+        return a1["qkv"]["w"]
+    ws = tuple(a1[k]["w"] for k in ("query", "key", "value"))
+    if torch.is_grad_enabled() and any(w.requires_grad for w in ws):
+        return torch.cat(ws, dim=1)
+    key = tuple(map(id, ws))
+    versions = tuple(w._version for w in ws)
+    hit = _QKV.get(key)
+    if hit is not None and all(r() is w for r, w in zip(hit[0], ws)) and hit[1] == versions:
+        return hit[2]
+    fused = torch.cat(ws, dim=1)
+
+    def drop(_ref, key=key):
+        _QKV.pop(key, None)
+
+    _QKV[key] = (tuple(weakref.ref(w, drop) for w in ws), versions, fused)
+    return fused
+
+
 def unfuse_qkv(params):
     """The UNet tree without the attn1["qkv"] leaves fuse_qkv adds: sdtpu's
     tree, the one training differentiates and saves (no training forward
@@ -399,8 +433,7 @@ def _transformer_apply(p, x, context, cfg: UNetConfig, n_head, ctx_valid=None,
         # this rank's heads inside a tp group (its [q_r | k_r | v_r]), the
         # residual and the bias on tp rank 0 only, then the ranks' sum
         a1, heads, tp = tpl.attention_weights(t["attn1"], c, n_head)
-        wqkv = (a1["qkv"]["w"] if "qkv" in a1 else
-                torch.cat([a1[k]["w"] for k in ("query", "key", "value")], dim=1))
+        wqkv = self_attention_qkv(a1)
         x = tpc.reduce_from_tp(fused_self_attention(
             x, t["norm1"]["g"], t["norm1"]["b"], wqkv, a1["out"]["w"], a1["out"]["b"], heads,
             cfg.ln_eps, residual=tp is None or tp.rank == 0), tp)

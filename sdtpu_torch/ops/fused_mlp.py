@@ -14,9 +14,13 @@ with two GEMM launches, the [B, S, 8C] projection never in HBM, only its
 The route is chosen by dtype. bf16 takes the Hopper GEMM
 (csrc/gemm_sm90.cu: wgmma fed by a TMA ring, the LayerNorm prologue and the
 epilogues in registers) after a row-statistics pre-pass; its tile plan
-(sm90_plan) is made here and checked by the kernel. f32 takes the WMMA GEMM
-(csrc/gemm.cu), because TF32 wgmma needs a K-major B and the [K, N] weights
-are N-major: an explicit dtype route, not a fallback.
+(sm90_plan) is made here and checked by the kernel. float32 takes the TF32
+Hopper GEMM (csrc/gemm_tf32_sm90.cu, its plan tf32_plan) after an f32
+row-statistics pre-pass (route "tf32"). TF32 wgmma reads B only K-major
+and the [K, N] weights are N-major, so the kernel reads a K-major TF32 copy
+of each weight, made once per weight tensor and kept while the weight
+lives (kmajor). Route "wmma" (csrc/gemm.cu, the WMMA kernel) stays for
+timing. Each float32 launch is counted under its route.
 
 What bounds it on the H100: 2·S·C·(8C + 4C) flops against a few S·C
 bytes — compute-bound; the design removes the 8C-wide intermediate.
@@ -24,6 +28,7 @@ bytes — compute-bound; the design removes the 8C-wide intermediate.
 
 from __future__ import annotations
 
+import weakref
 from typing import NamedTuple
 
 import torch
@@ -74,6 +79,107 @@ def sm90_plan(m: int, n: int, k: int, geglu: bool, ln: bool | None = None) -> Sm
     # and an empty mbarrier (8 bytes each) a stage
     stages = min(MAX_STAGES, (kernels.SMEM_LIMIT - 1024) // (stage + 16))
     return Sm90Plan(bn, w_boxes, stages, 1024 + stages * (stage + 16), (-(-n // bn), tiles_m))
+
+
+# csrc/gemm_tf32_sm90.cu: 32-deep K steps (128-byte boxes of f32), 128-row
+# activation tiles, Wᵀ in boxes of 64 rows
+TF32_BK, TF32_BM = 32, 128
+TF32_MAX_STAGES = 6
+TF32_LN_MAX_K = 2048  # the LayerNorm's γ and β staged in shared memory (f32)
+
+
+class Tf32Plan(NamedTuple):
+    """One launch of csrc/gemm_tf32_sm90.cu: bn output columns a tile, the
+    ring's stages and the dynamic shared memory it takes."""
+    bn: int
+    stages: int
+    smem: int
+    grid: tuple
+
+
+def tf32_plan(m: int, n: int, k: int, geglu: bool, ln: bool | None = None) -> Tf32Plan:
+    """The tile plan of one float32 product [m, k]·[k, n(·2 with GEGLU)]
+    with TF32 products, with the LayerNorm prologue when ln (by default:
+    the GEGLU product carries it): tiles of 128 rows by 128 columns with
+    GEGLU or where 64-column tiles would give more CTAs than the card has
+    SMs twice over, else 64 (sm90_plan's rule). The stages fill the shared
+    memory beside the LayerNorm's staged γ and β (16 KB), at most
+    TF32_MAX_STAGES. Raises on a shape the kernel does not take."""
+    ln = geglu if ln is None else ln
+    if m <= 0 or n <= 0 or k <= 0 or n % 8 or k % 4:
+        raise ValueError(f"sdk_gemm_tf32 takes positive n (a multiple of 8) and k (of 4), "
+                         f"got m={m} n={n} k={k}")
+    if ln and k > TF32_LN_MAX_K:
+        raise ValueError(f"sdk_gemm_tf32's LayerNorm prologue takes k <= {TF32_LN_MAX_K}, "
+                         f"got k={k}")
+    tiles_m = -(-m // TF32_BM)
+    bn = 128 if geglu or tiles_m * -(-n // 128) >= kernels.SM_COUNT // 2 else 64
+    stage = TF32_BM * TF32_BK * 4 + bn // 64 * (2 if geglu else 1) * 64 * TF32_BK * 4
+    static = 2 * TF32_LN_MAX_K * 4 if ln else 8  # the kernel's γ and β
+    stages = min(TF32_MAX_STAGES, (kernels.SMEM_LIMIT - static - 1024) // (stage + 16))
+    return Tf32Plan(bn, stages, 1024 + stages * (stage + 16), (-(-n // bn), tiles_m))
+
+
+def round_tf32(t: torch.Tensor) -> torch.Tensor:
+    """f32 values rounded to TF32 (10 mantissa bits, to nearest, ties away
+    from zero: cvt.rna.tf32.f32), as f32."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+# id(w) -> (a weak reference to w, w's version, its K-major TF32 copy): one
+# cache for the process, since a weight is shared by every pipeline, graph
+# and thread that reads it; each entry goes with its weight (the weak
+# reference's callback)
+_KMAJOR: dict = {}
+
+
+def kmajor(w: torch.Tensor) -> torch.Tensor:
+    """The K-major TF32 copy of a [K, N] f32 weight, Wᵀ [N, K] rounded to
+    TF32, that the float32 route reads as its B operand. Made at a weight's
+    first float32 launch (a graph's eager warm-up, before its capture), kept
+    while the weight lives and for as long as it is not changed in place: a new
+    weight (LoRA's merge, a new tensor-parallel shard, a reloaded model)
+    gets its own copy, and a dropped weight's copy goes with it. A copy
+    needed during a CUDA graph's capture and not made before raises."""
+    key = id(w)
+    hit = _KMAJOR.get(key)
+    if hit is not None and hit[0]() is w and hit[1] == w._version:
+        return hit[2]
+    if w.is_cuda and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("kmajor: a weight's K-major copy is made outside a graph capture "
+                           "(the warm-up's eager call makes it)")
+    wt = round_tf32(w.detach().t().contiguous())
+    _KMAJOR[key] = (weakref.ref(w, lambda _ref, key=key: _KMAJOR.pop(key, None)),
+                    w._version, wt)
+    return wt
+
+
+def kmajor_bytes() -> int:
+    """The bytes the live K-major copies take."""
+    return sum(e[2].numel() * e[2].element_size() for e in _KMAJOR.values())
+
+
+def gemm_tf32(a, lda: int, w, ldw: int, out, ldo: int, m: int, n: int, k: int,
+              plan: Tf32Plan, *, bias=None, gamma=None, beta=None, stats=None, res=None,
+              ldr: int = 0, geglu_off: int = 0, round_out: bool = False, vt=None,
+              vt_col: int = 0, vt_s: int = 0, vt_d: int = 0, vt_h: int = 0) -> None:
+    """One launch of csrc/gemm_tf32_sm90.cu on the current stream (f32
+    tensors; w is Wᵀ [rows][ldw], kmajor's copy). See sdk_gemm_tf32 for the
+    arguments."""
+    ptr = kernels.ptr
+    rc = kernels.lib().sdk_gemm_tf32(
+        a.data_ptr(), lda, w.data_ptr(), ldw, ptr(bias), ptr(gamma), ptr(beta), ptr(stats),
+        ptr(res), ldr, out.data_ptr(), ldo, m, n, k, geglu_off, int(round_out), ptr(vt),
+        vt_col, vt_s, vt_d, vt_h, plan.bn, plan.stages, plan.smem, kernels.stream(a))
+    kernels.check(rc, "sdk_gemm_tf32")
+
+
+def row_stats_f32(x, stats, m: int, k: int, eps: float) -> None:
+    """(μ, rstd) of the m rows of x [m, k] f32 into stats [m, 2]
+    (csrc/gemm_tf32_sm90.cu's pre-pass)."""
+    kernels.check(kernels.lib().sdk_row_stats_f32(x.data_ptr(), k, stats.data_ptr(), m, k, eps,
+                                                  kernels.stream(x)), "sdk_row_stats_f32")
 
 
 def fused_geglu_mlp_plain(x, ln_g, ln_b, w_proj, b_proj, w_lin, b_lin,
@@ -127,6 +233,30 @@ def _mlp_sm90(x, ln_g, ln_b, w_proj, b_proj, w_lin, b_lin, eps=1e-5, residual=Tr
     return out
 
 
+def _mlp_tf32(x, ln_g, ln_b, w_proj, b_proj, w_lin, b_lin, eps=1e-5, residual=True):
+    """The float32 route: csrc/gemm_tf32_sm90.cu after the f32 row
+    statistics, on the weights' K-major copies (kmajor). h is rounded to
+    TF32 as it is stored (the second product's operand)."""
+    b, s, c = x.shape
+    m, c4 = b * s, w_lin.shape[0]
+    x = x.contiguous()
+    ln_g, ln_b, b_proj, b_lin = (t.float().contiguous() for t in (ln_g, ln_b, b_proj, b_lin))
+    # kmajor keys its copies by the weight tensor itself: handed the model's
+    # own (f32) tensors, not per-call copies
+    w_proj, w_lin = w_proj.float(), w_lin.float()
+    p1, p2 = tf32_plan(m, c4, c, True), tf32_plan(m, c, c4, False)
+    w1, w2 = kmajor(w_proj), kmajor(w_lin)
+    stats = torch.empty((m, 2), dtype=torch.float32, device=x.device)
+    h = torch.empty((b, s, c4), dtype=torch.float32, device=x.device)
+    out = torch.empty_like(x)
+    row_stats_f32(x, stats, m, c, eps)
+    gemm_tf32(x, c, w1, c, h, c4, m, c4, c, p1, bias=b_proj, gamma=ln_g, beta=ln_b,
+              stats=stats, geglu_off=c4, round_out=True)
+    gemm_tf32(h, c4, w2, c4, out, c, m, c, c4, p2, bias=b_lin if residual else None,
+              res=x if residual else None, ldr=c if residual else 0)
+    return out
+
+
 def _mlp_wmma(x, ln_g, ln_b, w_proj, b_proj, w_lin, b_lin, eps=1e-5, residual=True):
     """The f32 route: two launches of the WMMA GEMM (csrc/gemm.cu), which
     takes f32 biases and LayerNorm parameters (no copies for an f32 model).
@@ -148,6 +278,23 @@ def _mlp_wmma(x, ln_g, ln_b, w_proj, b_proj, w_lin, b_lin, eps=1e-5, residual=Tr
     return out
 
 
+def route_of(dtype, c: int, h: int, route: str = "auto") -> str:
+    """The route a launch takes: "auto" is "sm90" for bf16 and "tf32" for
+    float32 (every width K5 takes, C and H multiples of 8, has a TF32 plan
+    at C <= TF32_LN_MAX_K; wider LayerNorms take "wmma"); "sm90", "tf32" and
+    "wmma" are taken as given (sm90 for bf16 only, tf32 for float32 only)."""
+    if route == "auto":
+        if dtype == torch.bfloat16:
+            return "sm90"
+        return "tf32" if dtype == torch.float32 and c <= TF32_LN_MAX_K else "wmma"
+    if route == "sm90" and dtype != torch.bfloat16 or \
+            route == "tf32" and dtype != torch.float32:
+        raise ValueError(f"route {route!r} does not take {dtype}")
+    if route not in ("sm90", "wmma", "tf32"):
+        raise ValueError(f"unknown route {route!r}")
+    return route
+
+
 def fused_geglu_mlp(x, ln_g, ln_b, w_proj, b_proj, w_lin, b_lin,
                     eps: float = 1e-5, residual: bool = True):
     """x: [B, S, C]; w_proj: [C, 2H] (val | gate), b_proj: [2H];
@@ -155,19 +302,35 @@ def fused_geglu_mlp(x, ln_g, ln_b, w_proj, b_proj, w_lin, b_lin,
     ([val_r | gate_r]); residual=False leaves x and b_lin out of the
     epilogue (every tp rank but one: the ranks' outputs are then summed).
     CPU tensors take the plain version; CUDA tensors the kernels (bf16:
-    csrc/gemm_sm90.cu, f32: csrc/gemm.cu)."""
+    csrc/gemm_sm90.cu, float32: csrc/gemm_tf32_sm90.cu; route_of)."""
+    return _fused_geglu_mlp(x, ln_g, ln_b, w_proj, b_proj, w_lin, b_lin, eps, residual)
+
+
+def _fused_geglu_mlp(x, ln_g, ln_b, w_proj, b_proj, w_lin, b_lin, eps=1e-5, residual=True,
+                     route: str = "auto"):
+    """fused_geglu_mlp on the given route (route_of): "auto", or "wmma" or
+    "tf32" for timing the float32 routes against each other.
+    bf16 launches are counted under their shape; every other launch under
+    its shape and its route."""
     if kernels.on_cpu(x, ln_g, ln_b, w_proj, b_proj, w_lin, b_lin):
         return fused_geglu_mlp_plain(x, ln_g, ln_b, w_proj, b_proj, w_lin,
                                      b_lin, eps, residual)
     kernels.refuse_autograd("fused_geglu_mlp (K5)", x, ln_g, ln_b, w_proj, b_proj, w_lin,
                             b_lin)
     _check_shapes(x, w_proj, w_lin)
-    route = _mlp_sm90 if x.dtype == torch.bfloat16 else _mlp_wmma
-    out = route(x, ln_g, ln_b, w_proj, b_proj, w_lin, b_lin, eps, residual)
     b, s, c = x.shape
     h = w_lin.shape[0]
+    route = route_of(x.dtype, c, h, route)
+    with torch.cuda.device(x.device):
+        if route == "sm90":
+            out = _mlp_sm90(x, ln_g, ln_b, w_proj, b_proj, w_lin, b_lin, eps, residual)
+        elif route == "wmma":
+            out = _mlp_wmma(x, ln_g, ln_b, w_proj, b_proj, w_lin, b_lin, eps, residual)
+        else:
+            out = _mlp_tf32(x, ln_g, ln_b, w_proj, b_proj, w_lin, b_lin, eps, residual)
     kernels.count(fused_geglu_mlp, b=b, s=s, c=c, **({"h": h} if h != 4 * c else {}),
-                  **({} if residual else {"residual": False}))
+                  **({} if residual else {"residual": False}),
+                  **({} if route == "sm90" else {"route": route}))
     return out
 
 

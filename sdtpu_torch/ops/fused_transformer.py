@@ -14,13 +14,21 @@ route, whose LayerNorm takes its row statistics from a pre-pass):
    [S, S] score matrix in HBM;
 3. a GEMM computes o·Wo + bo + x, bias and residual in the f32 epilogue.
 
-Routes, chosen by dtype and plan (sm90_plan): bf16 at the head widths the
-Hopper core has an instance for (padded to 48, 64, 80 or 160) takes
+Routes, chosen by dtype and plan: bf16 at the head widths the Hopper core
+has an instance for (padded to 48, 64, 80 or 160; sm90_plan) takes
 csrc/gemm_sm90.cu for both products (K5's TMA-ring wgmma GEMM, its
 LayerNorm prologue and its bias and residual epilogue) and
 csrc/attention_sm90.cu for the core (wgmma, the online softmax in
-registers); f32 and other widths take the WMMA kernels, csrc/gemm.cu and
-csrc/attention.cu. Each launch is counted under its route.
+registers). float32 at d = 40, 64, 80 or 160 with S a multiple of 8
+(tf32_plan) takes the TF32 kernels: csrc/gemm_tf32_sm90.cu for both
+products (K5's float32 GEMM, which reads the weights' K-major copies,
+fused_mlp.kmajor), whose QKV epilogue writes q | k as [B, S, 2C] and V
+transposed per head, [B, H, d, S] with each group of 8 keys in the order
+the core's P fragments hold them, and csrc/attention_tf32_sm90.cu for the
+core (P·V reads that V K-major, as TF32 wgmma must): route "tf32". Other
+widths, in either dtype, take the WMMA kernels,
+csrc/gemm.cu and csrc/attention.cu (route "wmma", also for timing). Each
+launch is counted under its route.
 
 What bounds it on the H100: the attention core, 4·S²·C flops per image,
 compute-bound at every UNet level; the projections, 8·S·C² flops.
@@ -64,6 +72,68 @@ def sm90_plan(b: int, s: int, c: int, n_head: int, ci: int | None = None) -> Sm9
     m = b * s
     return Sm90Plan(fused_mlp.sm90_plan(m, 3 * ci, c, False, ln=True), core,
                     fused_mlp.sm90_plan(m, c, ci, False))
+
+
+# csrc/attention_tf32_sm90.cu: the head widths it has an instance for, its
+# 128 query rows a CTA, and at most this many stages of key tiles
+TF32_CORE_WIDTHS = (40, 64, 80, 160)
+TF32_CORE_ROWS, TF32_CORE_MAX_STAGES = 128, 4
+
+
+class Tf32CorePlan(NamedTuple):
+    """One launch of csrc/attention_tf32_sm90.cu: key tiles of `tile` rows,
+    the ring's stages, the dynamic shared memory."""
+    tile: int
+    stages: int
+    smem: int
+
+
+# the key tile of each head width's instance (chosen by device time on the
+# H100, where both were built: at d = 40, S = 4096, B = 2, tiles of 32 with
+# two CTAs an SM 0.3736 ms, of 64 0.4021; at d = 64, S = 9216, 64 1.9136
+# ms, 32 1.9533; PERF.md)
+TF32_CORE_TILE = {40: 32, 64: 64, 80: 64, 160: 32}
+
+
+def tf32_core_plan(d: int) -> Tf32CorePlan | None:
+    """The float32 core's plan at head width d, or None where it has no
+    instance: Q's 128 rows resident beside `stages` stages of a K tile and a
+    Vᵀ tile of f32, TF32_CORE_TILE[d] keys a tile (64 at d = 64 and 80; 32
+    at d = 160, where three stages of 64 would not fit, and at d = 40, where
+    two CTAs then share an SM)."""
+    if d not in TF32_CORE_WIDTHS:
+        return None
+    tile = TF32_CORE_TILE[d]
+    q = TF32_CORE_ROWS * d * 4
+    stage = 2 * tile * d * 4
+    stages = min(TF32_CORE_MAX_STAGES, (kernels.SMEM_LIMIT - q) // stage)
+    return Tf32CorePlan(tile, stages, q + stages * stage) if stages >= 3 else None
+
+
+class Tf32Plan(NamedTuple):
+    """K2's float32 route: the QKV product (LayerNorm prologue, N = 3C, q | k
+    to [B, S, 2C] and V transposed), the core, and the Wo product (bias and
+    residual)."""
+    qkv: fused_mlp.Tf32Plan
+    core: Tf32CorePlan
+    out: fused_mlp.Tf32Plan
+
+
+def tf32_plan(b: int, s: int, c: int, n_head: int, ci: int | None = None) -> Tf32Plan | None:
+    """The float32 route's plans for x [b, s, c] with n_head heads over an
+    inner width ci (C, or a tensor-parallel rank's C / tp), or None where
+    the TF32 kernels have no plan (the WMMA route takes it): a head
+    width without a core instance, S not a multiple of 8 (V's transposed
+    copy keeps groups of 8 keys), or a LayerNorm wider than the GEMM's
+    prologue takes."""
+    ci = c if ci is None else ci
+    d = ci // n_head
+    core = tf32_core_plan(d) if d * n_head == ci else None
+    if core is None or s % 8 or c % 8 or ci % 8 or c > fused_mlp.TF32_LN_MAX_K:
+        return None
+    m = b * s
+    return Tf32Plan(fused_mlp.tf32_plan(m, 3 * ci, c, False, ln=True), core,
+                    fused_mlp.tf32_plan(m, c, ci, False))
 
 
 def fused_self_attention_plain(x, ln_g, ln_b, wqkv, wo, bo,
@@ -119,6 +189,47 @@ def _attend_sm90(x, ln_g, ln_b, wqkv, wo, bo, n_head, eps, plan: Sm90Plan, out, 
         out.data_ptr(), c, m, c, ci, 0, p2.bn, p2.stages, p2.smem, st), "sdk_gemm_sm90 (Wo)")
 
 
+def attention_core_tf32(qk, vt, out, n_head: int, plan: Tf32CorePlan) -> None:
+    """softmax(q kᵀ · d^-1/2) v of every head, q | k from the [B, S, 2C]
+    buffer and v from vt [B, H, d, S] (keys in the order
+    csrc/gemm_tf32_sm90.cu writes), into out [B, S, C] (heads merged), on
+    csrc/attention_tf32_sm90.cu."""
+    b, s, c2 = qk.shape
+    c = c2 // 2
+    d = c // n_head
+    rc = kernels.lib().sdk_attention_tf32(
+        qk.data_ptr(), qk[..., c:].data_ptr(), vt.data_ptr(), out.data_ptr(),
+        s * c2, d, c2, s * c2, d, c2, n_head * d * s, d * s, s * c, d, c,
+        b * n_head, n_head, s, s, d, float(d) ** -0.5, *plan, kernels.stream(qk))
+    kernels.check(rc, "sdk_attention_tf32")
+
+
+def _attend_tf32(x, ln_g, ln_b, wqkv, wo, bo, n_head, eps, plan: Tf32Plan, out, residual):
+    """The float32 route: the f32 row statistics, the QKV product (q | k
+    and V transposed, rounded to TF32), the core, the Wo product."""
+    b, s, c = x.shape
+    ci = wqkv.shape[1] // 3
+    d = ci // n_head
+    m = b * s
+    ln_g, ln_b, bo = (t.float().contiguous() for t in (ln_g, ln_b, bo))
+    # kmajor keys its copies by the weight tensor itself: handed the model's
+    # own (f32) tensors, not per-call copies
+    wqkv, wo = wqkv.float(), wo.float()
+    w1, w2 = fused_mlp.kmajor(wqkv), fused_mlp.kmajor(wo)
+    stats = torch.empty((m, 2), dtype=torch.float32, device=x.device)
+    qk = torch.empty((b, s, 2 * ci), dtype=torch.float32, device=x.device)
+    vt = torch.empty((b, n_head, d, s), dtype=torch.float32, device=x.device)
+    attn = torch.empty((b, s, ci), dtype=torch.float32, device=x.device)
+    fused_mlp.row_stats_f32(x, stats, m, c, eps)
+    fused_mlp.gemm_tf32(x, c, w1, c, qk, 2 * ci, m, 3 * ci, c, plan.qkv, gamma=ln_g,
+                        beta=ln_b, stats=stats, round_out=True, vt=vt, vt_col=2 * ci, vt_s=s,
+                        vt_d=d, vt_h=n_head)
+    attention_core_tf32(qk, vt, attn, n_head, plan.core)
+    fused_mlp.gemm_tf32(attn, ci, w2, ci, out, c, m, c, ci, plan.out,
+                        bias=bo if residual else None, res=x if residual else None,
+                        ldr=c if residual else 0)
+
+
 def _attend_wmma(x, ln_g, ln_b, wqkv, wo, bo, n_head, eps, out, residual):
     """The f32 route (and the bf16 widths without a Hopper instance): the
     WMMA GEMM (csrc/gemm.cu), which takes f32 LayerNorm parameters and
@@ -158,8 +269,9 @@ def fused_self_attention(x, ln_g, ln_b, wqkv, wo, bo,
 def _self_attention(x, ln_g, ln_b, wqkv, wo, bo, n_head, eps, route: str,
                     residual: bool = True):
     """fused_self_attention on the given route: "auto" (by dtype and plan),
-    or "wmma" (csrc/gemm.cu and csrc/attention.cu whatever the dtype, for
-    timing the two routes against each other)."""
+    "wmma" (csrc/gemm.cu and csrc/attention.cu whatever the dtype), or, in
+    float32, "tf32" (the TF32 kernels; raises where they have no plan): for
+    timing the routes against each other."""
     if kernels.on_cpu(x, ln_g, ln_b, wqkv, wo, bo):
         return fused_self_attention_plain(x, ln_g, ln_b, wqkv, wo, bo, n_head, eps, residual)
     kernels.refuse_autograd("fused_self_attention (K2)", x, ln_g, ln_b, wqkv, wo, bo)
@@ -171,19 +283,56 @@ def _self_attention(x, ln_g, ln_b, wqkv, wo, bo, n_head, eps, route: str,
                          f"d_head = Ci / n_head <= {MAX_HEAD_DIM}, a multiple of 8")
     if tuple(wqkv.shape) != (c, 3 * ci) or tuple(wo.shape) != (ci, c):
         raise ValueError(f"wqkv {tuple(wqkv.shape)} / wo {tuple(wo.shape)} do not fit C={c}")
-    plan = None
-    if x.dtype == torch.bfloat16 and route == "auto":
-        plan = sm90_plan(b, s, c, n_head, ci)
+    plan = route_plan(x.dtype, b, s, c, n_head, ci, route)
     x = x.contiguous()
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         if plan is None:
             _attend_wmma(x, ln_g, ln_b, wqkv, wo, bo, n_head, eps, out, residual)
+            taken = "wmma"
+        elif isinstance(plan, Tf32Plan):
+            _attend_tf32(x, ln_g, ln_b, wqkv, wo, bo, n_head, eps, plan, out, residual)
+            taken = "tf32"
         else:
             _attend_sm90(x, ln_g, ln_b, wqkv, wo, bo, n_head, eps, plan, out, residual)
+            taken = "sm90"
     kernels.count(fused_self_attention, b=b, s=s, c=c, **local_dims(ci, c, residual),
-                  heads=n_head, route="wmma" if plan is None else "sm90")
+                  heads=n_head, route=taken)
     return out
+
+
+def route_plan(dtype, b: int, s: int, c: int, n_head: int, ci: int | None = None,
+               route: str = "auto"):
+    """The plan a launch takes: "auto" takes sm90_plan's for bf16 and
+    tf32_plan's for float32, None (the WMMA route) where that has none;
+    "wmma" is None; "tf32" takes tf32_plan's, float32 only, and raises where
+    it has none."""
+    if route == "tf32":
+        if dtype != torch.float32:
+            raise ValueError(f"route {route!r} takes float32, got {dtype}")
+        plan = tf32_plan(b, s, c, n_head, ci)
+        if plan is None:
+            raise ValueError(f"route {route!r} has no plan for S={s} C={c} Ci={ci} "
+                             f"heads={n_head}")
+        return plan
+    if route == "wmma":
+        return None
+    if route != "auto":
+        raise ValueError(f"unknown route {route!r}")
+    if dtype == torch.bfloat16:
+        return sm90_plan(b, s, c, n_head, ci)
+    return tf32_plan(b, s, c, n_head, ci) if dtype == torch.float32 else None
+
+
+def vt_order(v: torch.Tensor, n_head: int) -> torch.Tensor:
+    """v [B, S, C] as the float32 route's QKV product writes it for the
+    core: [B, H, d, S], each group of 8 keys in the order 0, 2, 4, 6, 1, 3,
+    5, 7 (S a multiple of 8). The plain form of that epilogue's layout, for
+    the tests."""
+    b, s, c = v.shape
+    perm = torch.tensor([0, 2, 4, 6, 1, 3, 5, 7])
+    order = (torch.arange(s).view(-1, 8)[:, perm]).reshape(-1)
+    return v.view(b, s, n_head, c // n_head).permute(0, 2, 3, 1)[..., order].contiguous()
 
 
 def local_dims(ci: int, c: int, residual: bool) -> dict:

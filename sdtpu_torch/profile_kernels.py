@@ -1,6 +1,7 @@
 """Where the time of the port's Hopper kernels goes on one NVIDIA GPU.
 
-    python -m sdtpu_torch.profile_kernels [--kernels K5,K9,K6,K2,K1,K4,K10,K7,K3] [--out FILE]
+    python -m sdtpu_torch.profile_kernels [--kernels K5,K9,K6,K2,K1,K4,K10,K7,K3,K5f,K2f]
+        [--out FILE]
 
 At main-path shapes, bf16, random inputs (seeded): K5 at S=1024 C=640 B=2
 and S=256 C=1280 B=2 (csrc/gemm_sm90.cu), K9 at BH=32 S=4096 d=40
@@ -16,8 +17,10 @@ the residual, at 4096 x 320 and 16384 x 320 B=2, 4096 x 640 B=2 and
 S=4096 C=320 B=2, S=1024 C=640 B=4 and S=256 C=1280 B=8 with 77 masked keys
 (csrc/gemm_sm90.cu and csrc/attention_sm90.cu), K7 at the decoder's 128² x
 512, 256² x 256 and 512² x 256 (csrc/conv_sm90.cu at four taps), K3 at
-its main-path shapes (csrc/channel_stats_sm90.cu). --kernels
-picks some of them (all by default). Device times are CUDA-graph replays (`device_ms`,
+its main-path shapes (csrc/channel_stats_sm90.cu); and in float32 (K5f, K2f)
+K5 and K2 at the 512px generate's shapes on csrc/gemm_tf32_sm90.cu and
+csrc/attention_tf32_sm90.cu. --kernels picks some of them (all by
+default). Device times are CUDA-graph replays (`device_ms`,
 also what chip_smoke.py times the Hopper kernels by) or torch.profiler
 kernel sums:
 
@@ -52,7 +55,13 @@ kernel sums:
    cluster barrier);
 3. the depth of the rings: K5's 2, 3 or 4 stages (the plan's choice is 4),
    K6's, K4's and K7's 2 to 4 and K2's and K10's core's 3 to 5 where they
-   fit.
+   fit;
+4. float32 (K5f, K2f): each launch of the float32 route "tf32"
+   (torch.profiler); each TF32 product beside cuBLAS's matmul of the same
+   shape with TF32 on and off; K2's TF32 core beside SDPA (float32: the
+   memory-efficient backend); the whole sublayer against the WMMA route it
+   replaced, in turns (wmma, tf32, tf32, wmma); the ring depths the route
+   takes; the bytes of the K-major copies.
 
 The report starts with the card's name and power limit, and goes to
 stdout and, with --out, to FILE as well.
@@ -298,6 +307,138 @@ def profile_k2(b, s, c, n_head, log, gen):
             rings.append(f"{st} stages {ms:.4f}")
     log(f"{label}: core by ring depth: " + ", ".join(rings) +
         f" (the plan takes {plan.core.stages})")
+
+
+def _tf32_matmul_ms(a, w) -> tuple[float, float]:
+    """cuBLAS's a·w (float32) by device time, TF32 on and off."""
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        on = device_ms(lambda: torch.matmul(a, w))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return on, device_ms(lambda: torch.matmul(a, w))
+
+
+def _turns(fa, fb) -> tuple[float, float]:
+    """Device ms of fa and fb in turns (a, b, b, a), each its two turns'
+    mean."""
+    t = [device_ms(f) for f in (fa, fb, fb, fa)]
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+
+
+def profile_k5f(b, s, c, log, gen):
+    """K5's float32 route (csrc/gemm_tf32_sm90.cu), section 4."""
+    dev = torch.device("cuda")
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    m, c4 = b * s, 4 * c
+    x, h = rnd(m, c), fm.round_tf32(rnd(m, c4))
+    g, beta = rnd(c, scale=0.1) + 1.0, rnd(c, scale=0.1)
+    wp, bp = rnd(c, 8 * c, scale=c ** -0.5), rnd(8 * c, scale=0.1)
+    wl, bl = rnd(c4, c, scale=c4 ** -0.5), rnd(c, scale=0.1)
+    label = f"K5 f32 S={s} C={c} B={b}"
+    args = (x.view(b, s, c), g, beta, wp, bp, wl, bl)
+    for name, ms in kernel_ms(lambda: fm.fused_geglu_mlp(*args)).items():
+        log(f"{label}: {name[:72]}: {ms:.4f} ms a call (route tf32)")
+    stats = torch.empty(m, 2, device=dev)
+    fm.row_stats_f32(x, stats, m, c, 1e-5)
+    out1, out2 = torch.empty(m, c4, device=dev), torch.empty(m, c, device=dev)
+    w1, w2 = fm.kmajor(wp), fm.kmajor(wl)
+
+    def products(stages=None):
+        p1, p2 = fm.tf32_plan(m, c4, c, True), fm.tf32_plan(m, c, c4, False)
+        if stages is not None:
+            p1, p2 = (p._replace(stages=stages, smem=1024 + stages * ((p.smem - 1024)
+                                                                      // p.stages))
+                      for p in (p1, p2))
+        return (lambda: fm.gemm_tf32(x, c, w1, c, out1, c4, m, c4, c, p1, bias=bp, gamma=g,
+                                     beta=beta, stats=stats, geglu_off=c4, round_out=True),
+                lambda: fm.gemm_tf32(h, c4, w2, c4, out2, c, m, c, c4, p2, bias=bl, res=x,
+                                     ldr=c), p1, p2)
+
+    f1, f2, p1, p2 = products()
+    first, second = device_ms(f1), device_ms(f2)
+    on1, off1 = _tf32_matmul_ms(x, wp)
+    on2, off2 = _tf32_matmul_ms(h, wl)
+    wmma, whole = _turns(lambda: fm._fused_geglu_mlp(*args, route="wmma"),
+                         lambda: fm._fused_geglu_mlp(*args, route="tf32"))
+    flops = 2 * m * c * 12 * c
+    log(f"{label}: first product (LayerNorm, GEGLU) {first:.4f} ms, cuBLAS x·W_proj TF32 "
+        f"{on1:.4f} / f32 {off1:.4f}; second product (bias, residual) {second:.4f} ms (bn "
+        f"{p2.bn}), cuBLAS h·W_lin TF32 {on2:.4f} / f32 {off2:.4f}; the sublayer "
+        f"{whole:.4f} ms, the WMMA route {wmma:.4f} (in turns); TF32 bound "
+        f"{1e3 * flops / 495e12:.4f} ms; K-major copies {fm.kmajor_bytes()} bytes")
+    rings = []
+    for st in range(2, max(p1.stages, p2.stages) + 1):
+        g1, g2, q1, q2 = products(st)
+        if max(q1.smem, q2.smem) + 2 * fm.TF32_LN_MAX_K * 4 <= kernels.SMEM_LIMIT:
+            rings.append(f"{st} stages {device_ms(g1):.4f} / {device_ms(g2):.4f}")
+    log(f"{label}: first / second product by ring depth: " + ", ".join(rings)
+        + f" (the plans take {p1.stages} / {p2.stages})")
+
+
+def profile_k2f(b, s, c, n_head, log, gen):
+    """K2's float32 route (csrc/gemm_tf32_sm90.cu, csrc/attention_tf32_sm90.cu),
+    section 4."""
+    dev = torch.device("cuda")
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    m, d = b * s, c // n_head
+    x = rnd(b, s, c)
+    g, beta = rnd(c, scale=0.1) + 1.0, rnd(c, scale=0.1)
+    wqkv, wo, bo = rnd(c, 3 * c, scale=c ** -0.5), rnd(c, c, scale=c ** -0.5), rnd(c, scale=0.1)
+    label = f"K2 f32 S={s} C={c} B={b} d={d}"
+    args = (x, g, beta, wqkv, wo, bo, n_head)
+    for name, ms in kernel_ms(lambda: ft.fused_self_attention(*args)).items():
+        log(f"{label}: {name[:72]}: {ms:.4f} ms a call (route tf32)")
+    plan = ft.tf32_plan(b, s, c, n_head)
+    stats = torch.empty(m, 2, device=dev)
+    fm.row_stats_f32(x, stats, m, c, 1e-5)
+    qk = torch.empty(b, s, 2 * c, device=dev)
+    vt = torch.empty(b, n_head, d, s, device=dev)
+    attn = fm.round_tf32(rnd(b, s, c))
+    out = torch.empty_like(x)
+    xm = x.view(m, c)
+    w1, w2 = fm.kmajor(wqkv), fm.kmajor(wo)
+
+    def qkv():
+        fm.gemm_tf32(xm, c, w1, c, qk, 2 * c, m, 3 * c, c, plan.qkv, gamma=g, beta=beta,
+                     stats=stats, round_out=True, vt=vt, vt_col=2 * c, vt_s=s, vt_d=d,
+                     vt_h=n_head)
+
+    def wo_product():
+        fm.gemm_tf32(attn.view(m, c), c, w2, c, out, c, m, c, c, plan.out, bias=bo, res=xm,
+                     ldr=c)
+
+    qkv()
+    core = plan.core
+    q4 = qk.view(b, s, 2, n_head, d).permute(2, 0, 3, 1, 4)
+    v4 = torch.randn(b, n_head, s, d, generator=gen, device=dev)
+    t_qkv, t_wo = device_ms(qkv), device_ms(wo_product)
+    on_qkv, off_qkv = _tf32_matmul_ms(xm, wqkv)
+    on_wo, off_wo = _tf32_matmul_ms(attn.view(m, c), wo)
+    t_core = device_ms(lambda: ft.attention_core_tf32(qk, vt, attn, n_head, core))
+    sdpa = device_ms(lambda: F.scaled_dot_product_attention(q4[0], q4[1], v4))
+    wmma, whole = _turns(lambda: ft._self_attention(*args, 1e-5, "wmma"),
+                         lambda: ft._self_attention(*args, 1e-5, "tf32"))
+    flops = b * (8 * s * c * c + 4 * s * s * c)
+    log(f"{label}: QKV product (LayerNorm, V transposed) {t_qkv:.4f} ms, cuBLAS TF32 "
+        f"{on_qkv:.4f} / f32 {off_qkv:.4f}; core {t_core:.4f} ms (tile {core.tile}, "
+        f"{core.stages} stages), SDPA (float32) {sdpa:.4f}; Wo product {t_wo:.4f} ms, cuBLAS "
+        f"TF32 {on_wo:.4f} / f32 {off_wo:.4f}; the sublayer {whole:.4f} ms, the WMMA route "
+        f"{wmma:.4f} (in turns); TF32 bound {1e3 * flops / 495e12:.4f} ms")
+    rings = []
+    for st in range(3, 7):
+        cp = core._replace(stages=st, smem=core.smem + (st - core.stages) * 2 * core.tile * d * 4)
+        if cp.smem <= kernels.SMEM_LIMIT:
+            ms = device_ms(lambda: ft.attention_core_tf32(qk, vt, attn, n_head, cp))
+            rings.append(f"{st} stages {ms:.4f}")
+    log(f"{label}: core by ring depth: " + ", ".join(rings) + f" (the plan takes "
+        f"{core.stages})")
 
 
 def profile_k1(bh, n_head, s, d, bias, log, gen):
@@ -573,7 +714,7 @@ def profile_k7(b, hw, c, co, log, gen):
     log(f"{label}: by ring depth: " + ", ".join(rings) + f" (the plan takes {plan.stages})")
 
 
-PROFILES = ("K5", "K9", "K6", "K2", "K1", "K4", "K10", "K7", "K3")
+PROFILES = ("K5", "K9", "K6", "K2", "K1", "K4", "K10", "K7", "K3", "K5f", "K2f")
 
 
 def main(argv=None) -> None:
@@ -624,6 +765,13 @@ def main(argv=None) -> None:
     if "K7" in picked:
         for b, hw, c, co in ((1, 128, 512, 512), (1, 256, 256, 256), (1, 512, 256, 256)):
             profile_k7(b, hw, c, co, log, gen)
+    if "K5f" in picked:
+        for b, s, c in ((2, 1024, 640), (2, 256, 1280)):
+            profile_k5f(b, s, c, log, gen)
+    if "K2f" in picked:
+        for b, s, c, n_head in ((2, 4096, 320, 8), (2, 1024, 640, 8), (2, 256, 1280, 8),
+                                (2, 9216, 320, 5)):
+            profile_k2f(b, s, c, n_head, log, gen)
     if "K3" in picked:
         for b, rows, c in K3_SHAPES:
             profile_k3(b, rows, c, log, gen)

@@ -2,13 +2,15 @@
 GPU.
 
     python -m sdtpu_torch.profile_pipeline [--preset P] [--size 512|768|1024] [--out FILE]
-        [--repeats N]
+        [--repeats N] [--f32]
     python -m sdtpu_torch.profile_pipeline --train [--preset P] [--out FILE] [--repeats N]
+    python -m sdtpu_torch.profile_pipeline --tp N [--preset P] [--size S] [--f32] [--repeats N]
 
 Builds the preset's model (sd-v1-4 by default; sd-v2-1 is SD v2.1-768) at
-full width with random weights (seeded), bf16, at the given image size (the
-same config with image_size set; the preset's own size by default: 512 for
-sd-v1-4, 768 for sd-v2-1), and measures, after warm-up:
+full width with random weights (seeded), bf16 (with --f32 float32, the
+default dtype of `sample`, `serve` and `finetune`), at the given image size
+(the same config with image_size set; the preset's own size by default: 512
+for sd-v1-4, 768 for sd-v2-1), and measures, after warm-up:
 
 1. `generate` (20 DDIM steps, CFG 7.5 batched, batch 1) N + 1 times
    eagerly (StableDiffusion(..., graphs=False)) and N + 1 times replayed
@@ -24,8 +26,10 @@ sd-v1-4, 768 for sd-v2-1), and measures, after warm-up:
 3. the same UNet call replayed from a CUDA graph (graphs.GraphCache), and
    its largest difference from the eager output; the 20-step denoise and
    the decode replayed, each the mean wall of N calls and the device kernel
-   time of one under torch.profiler (busy share: device over wall); each
-   graph's capture seconds and the bytes it added to the shared pool.
+   time of one under torch.profiler (busy share: device over wall), the
+   denoise with its --top largest items and the hand-written kernels'
+   launches a replay by wrapper and route; each graph's capture seconds and
+   the bytes it added to the shared pool.
 
 With --train it measures instead a training step of the whole UNet at the
 image size (training.make_train_step: batch 4 of random latents and
@@ -41,6 +45,14 @@ pool included, and taken out of the eager step's, which does not use it),
 the device kernel time of one profiled step with its largest items
 (busy share: device over wall), and the graph's capture seconds, the bytes
 it added to the pool and those it took outside it.
+
+With --tp N it measures instead one UNet call (batch 2) under tensor
+parallelism, N ranks of a dp 1 x tp N mesh sharing the card (gloo): the
+mean wall ms of N calls a turn, after two warm-up calls, in the turns
+fused, unfused, unfused, fused, on the pipeline's tree (attn1's q | k | v
+fused, then sharded) and on sdtpu's unfused tree sharded as it is (K2's
+operand made from the three weights), with the bytes of float32 K-major
+weight copies held after each turn.
 
 The report starts with the card's name and power limit, and goes to
 stdout and, with --out, to FILE as well.
@@ -80,11 +92,20 @@ def _wall_ms(fn, repeats: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / repeats
 
 
+# the kernel of torch.cuda._sleep (ATen's at::cuda::sleep), which nothing
+# profiled here launches: device_profile's sentinel
+SENTINEL = "spin_kernel"
+
+
 def device_profile(fn, top: Optional[int]):
     """(device ms of one call of fn, its first `top` [(name, ms, launches)],
     largest first; all with None): fn is called twice, and the second call
     profiled. The profiler's rows with device time and no CPU time of their
-    own are the kernels."""
+    own are the kernels. A sentinel kernel runs after the call's last; a
+    trace with kernels but without it lost the end of the call (CUPTI hands
+    its records over after the work ends), and raises "trace incomplete"
+    rather than report a partial call. A trace with no kernel at all (no
+    device tracing) gives 0 ms and no rows."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -92,11 +113,100 @@ def device_profile(fn, top: Optional[int]):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+        torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        # a short wait before the profiler stops, for the last records
+        time.sleep(0.2)
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
             if e.self_device_time_total > 0 and e.self_cpu_time_total == 0]
-    rows.sort(key=lambda r: -r[1])
-    return sum(r[1] for r in rows), rows[:top]
+    return profile_rows(rows, top)
+
+
+def profile_rows(rows, top: Optional[int]):
+    """device_profile's result from the profiler's kernel rows (name, ms,
+    launches), the sentinel's among them: raises where kernels are there and
+    the sentinel is not."""
+    found = [r for r in rows if SENTINEL not in r[0]]
+    if found and len(found) == len(rows):
+        raise RuntimeError(f"trace incomplete: the profiler's trace lacks the sentinel kernel "
+                           f"({SENTINEL}) launched after the profiled call, so its "
+                           f"{len(found)} kernel rows may not cover the call")
+    found.sort(key=lambda r: -r[1])
+    return sum(r[1] for r in found), found[:top]
+
+
+def _launches(fn) -> dict:
+    """{wrapper: {shape key with its route: launches}} of one fn() call
+    (kernels.count: a graph replay adds its capture's record)."""
+    from sdtpu_torch import kernels
+
+    before = {name: dict(w.shapes) for name, w in kernels.LAUNCHED.items()}
+    fn()
+    torch.cuda.synchronize()
+    out = {}
+    for name, w in kernels.LAUNCHED.items():
+        d = {k: n - before.get(name, {}).get(k, 0) for k, n in w.shapes.items()}
+        d = {k: n for k, n in d.items() if n}
+        if d:
+            out[name] = d
+    return out
+
+
+def _tp_unet_rank(preset: str, size: int, f32: bool, repeats: int) -> dict:
+    """One rank of --tp (launch.spawn runs it): {tree: {"ms": [a turn's mean
+    wall ms, ...], "kmajor_bytes": [...]}} of a UNet call on its shards."""
+    import torch.distributed as dist
+
+    from sdtpu_torch.models.unet import unfuse_qkv
+    from sdtpu_torch.ops import fused_mlp
+    from sdtpu_torch.parallel import local_device, make_mesh
+    from sdtpu_torch.parallel import tp as tpc
+
+    dev = local_device()
+    dtype = torch.float32 if f32 else torch.bfloat16
+    cfg_sd = dataclasses.replace(PRESETS[preset], image_size=size)
+    params = init_params(cfg_sd, torch.Generator(device=dev).manual_seed(0), device=dev)
+    mesh = make_mesh(dp=1, tp=dist.get_world_size(), device=dev)
+    sd = StableDiffusion(params, cfg_sd, compute_dtype=dtype, mesh=mesh)
+    del params
+    trees = {"fused": sd.params["unet"], "unfused": unfuse_qkv(sd.params["unet"])}
+    g = torch.Generator(device=dev).manual_seed(1)
+    hw = cfg_sd.latent_size
+    x = torch.randn((2, hw, hw, 4), generator=g, device=dev).to(dtype)
+    ctx = torch.randn((2, 77, cfg_sd.unet.context_dim), generator=g, device=dev).to(dtype)
+    t = torch.tensor([481.0], device=dev)
+    out = {k: {"ms": [], "kmajor_bytes": []} for k in trees}
+    with torch.no_grad(), tpc.use(tpc.of_mesh(mesh)):
+        for label in ("fused", "unfused", "unfused", "fused"):
+            unet = trees[label]
+            for _ in range(2):
+                unet_apply(unet, x, t, ctx, cfg_sd.unet)
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            for _ in range(repeats):
+                unet_apply(unet, x, t, ctx, cfg_sd.unet)
+            torch.cuda.synchronize()
+            out[label]["ms"].append((time.perf_counter() - t0) * 1e3 / repeats)
+            out[label]["kmajor_bytes"].append(fused_mlp.kmajor_bytes())
+    return out
+
+
+def _tp(args, size: int, say) -> None:
+    """The --tp report (see the module docstring)."""
+    from sdtpu_torch.parallel import spawn
+
+    dname = "f32" if args.f32 else "bf16"
+    say(f"UNet call {args.preset} {size}x{size} {dname} batch 2, tp = {args.tp} ranks sharing "
+        f"the card (gloo), {args.repeats} calls a turn, turns fused, unfused, unfused, fused")
+    results = spawn(args.tp, _tp_unet_rank, args.preset, size, args.f32, args.repeats,
+                    backend="gloo")
+    for rank, res in enumerate(results):
+        for label, r in res.items():
+            ms = r["ms"]
+            say(f"rank {rank} {label:8s} tree: {' / '.join(f'{v:.3f}' for v in ms)} ms a call, "
+                f"mean {sum(ms) / len(ms):.3f}; K-major copies held {r['kmajor_bytes']} bytes")
 
 
 def _train(sd, dev, args, say) -> None:
@@ -171,6 +281,10 @@ def main(argv=None) -> None:
     ap.add_argument("--out", help="also write the report to this file")
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--f32", action="store_true",
+                    help="compute in float32 (the command lines' default) instead of bf16")
+    ap.add_argument("--tp", type=int, default=0,
+                    help="time a UNet call on this many tensor-parallel ranks instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("no CUDA device: this script measures the port on a GPU")
@@ -184,12 +298,18 @@ def main(argv=None) -> None:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
     say(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
+    dtype = torch.float32 if args.f32 else torch.bfloat16
+    dname = "f32" if args.f32 else "bf16"
     dev = torch.device("cuda", 0)
     preset = PRESETS[args.preset]
     size = args.size or preset.image_size
+    if args.tp:
+        _tp(args, size, say)
+        _write(args.out, lines)
+        return
     cfg_sd = dataclasses.replace(preset, image_size=size)
     params = init_params(cfg_sd, torch.Generator(device=dev).manual_seed(0), device=dev)
-    sd = StableDiffusion(params, cfg_sd, compute_dtype=torch.bfloat16)
+    sd = StableDiffusion(params, cfg_sd, compute_dtype=dtype)
     tok = SimpleTokenizer()
     hw = cfg_sd.latent_size
     if args.train:
@@ -197,11 +317,11 @@ def main(argv=None) -> None:
         _train(sd, dev, args, say)
         _write(args.out, lines)
         return
-    sd_eager = StableDiffusion(params, cfg_sd, compute_dtype=torch.bfloat16, graphs=False)
+    sd_eager = StableDiffusion(params, cfg_sd, compute_dtype=dtype, graphs=False)
     del params
 
     for label, pipe in (("eager", sd_eager), ("replayed from CUDA graphs", sd)):
-        say(f"1. generate {cfg_sd.name} {size}x{size} bf16, 20 DDIM steps, CFG 7.5, batch 1, "
+        say(f"1. generate {cfg_sd.name} {size}x{size} {dname}, 20 DDIM steps, CFG 7.5, batch 1, "
             f"{label} ({args.repeats + 1} runs, the first includes first-call costs)")
         warm = {"denoise": [], "decode": []}
         for i in range(args.repeats + 1):
@@ -220,13 +340,13 @@ def main(argv=None) -> None:
             f"{sum(warm['decode']) / args.repeats:.4f} s")
 
     g = torch.Generator(device=dev).manual_seed(1)
-    x = torch.randn((2, hw, hw, 4), generator=g, device=dev).to(torch.bfloat16)
+    x = torch.randn((2, hw, hw, 4), generator=g, device=dev).to(dtype)
     ctx, valid = sd.context(tok, PROMPT)
     unctx, unvalid = sd.context(tok, "")
     ctx2, valid2 = torch.cat([unctx, ctx]), torch.cat([unvalid, valid])
     t = torch.tensor([481.0], device=dev)  # on the device, so a graph can hold it
     unet, cfg = sd.params["unet"], cfg_sd.unet
-    z = torch.randn((1, hw, hw, 4), generator=g, device=dev).to(torch.bfloat16)
+    z = torch.randn((1, hw, hw, 4), generator=g, device=dev).to(dtype)
     vae = sd.params["autoencoder"]
 
     def unet_call():
@@ -290,10 +410,12 @@ def main(argv=None) -> None:
         wall = _wall_ms(fn, args.repeats)
         dev_ms, top = device_profile(fn, args.top)
         busy = f"{dev_ms / wall:.3f}" if dev_ms else "not measured (no device rows)"
-        say(f"3. {name} replayed: wall {wall:.3f} ms (mean of {args.repeats}); device "
-            f"kernels {dev_ms:.3f} ms in one profiled call, busy share {busy}")
-        for key, ms, n in top[:4]:
+        say(f"3. {name} replayed ({dname}): wall {wall:.3f} ms (mean of {args.repeats}); "
+            f"device kernels {dev_ms:.3f} ms in one profiled call, busy share {busy}")
+        for key, ms, n in top[:args.top if name.startswith("denoise") else 4]:
             say(f"   {ms:9.3f} ms {n:5d} launches  {key[:90]}")
+        if name.startswith("denoise"):
+            say(f"   launches a replay by wrapper and shape: {_launches(fn)}")
     for st in cache.stats()["graphs"]:
         say(f"3. graph {st['kind']} {st['inputs']}: captured in {st['capture_s']:.3f} s, "
             f"{st['pool_bytes']} bytes added to the pool, {st['replays']} replays, "

@@ -44,7 +44,11 @@ Phases, each printing its lines:
    they replaced, in turns (old, new, new, old; the kernel's device time
    the mean of its two turns); in float32 K2 and K5 their TF32 routes
    against the WMMA route they replaced, in turns, at batch 2 (512px,
-   1024px, SD v2.1), beside the library call with TF32 on. Planted faults must fail
+   1024px, SD v2.1), K6 and K7 theirs at the 512px decode's shapes and
+   the 1024px UNet's fused ResBlocks, and phase 8's float32 encoder's K3
+   and K6 against the kernels they replaced (the float32 cases that no
+   path launches are checked, not timed), beside the library call with
+   TF32 on. Planted faults must fail
    each kernel's tolerance at every case: for K6 the convolution without
    the border mask (the prologue applied to the zero-padded map) and, with a
    second input, the convolution without it; for K4 the product without its
@@ -97,10 +101,10 @@ Phases, each printing its lines:
    and the bytes it added to the shared pool; then a float32 512px DDIM
    generate (the command line's default dtype) on a float32 pipeline of
    the same seed's weights, replayed against its eager twin: the latent and
-   image bit-equal, the replay's launches per shape the eager call's, K2's
-   and K5's on their TF32 route, the device's launches of one replayed call
-   the graphs' records (the TF32 kernels and the WMMA kernel of K4, K6 and
-   K7 among them), and the K-major weight copies' bytes;
+   image bit-equal, the replay's launches per shape the eager call's, K2's,
+   K5's, K6's and K7's on their TF32 route, the device's launches of one
+   replayed call the graphs' records (the TF32 kernels and the WMMA kernel
+   of K4 among them), and the K-major weight copies' bytes;
 5. sdtpu_torch.finetune.run_finetune at SD v1.4 width and depth, 512x512,
    from a folder of synthetic PNGs: the latent cache through the port's
    VAE encoder and CLIP (their graphs replayed), then 3 AdamW steps at
@@ -225,11 +229,11 @@ launched there with no case in phase 2 is a failure. Every launched
 kernel also carries `device_ms` (the same launches by device time), and K5,
 K9, K2, K6, K1, K4, K10, K7 and K3 `replaced_device_ms` (those of the
 kernels their bf16 route replaced: the WMMA kernels, K3's partials kernel with
-its sum; for K2's and K5's float32 launches the WMMA route their TF32
-route replaced) and `sources_by_route` with `launches_by_route` ("bfloat16
-sm90", "float32 tf32", ...). The graph phase's float32 generate adds K2's
-and K5's launches under "dtype=float32" shape keys, timed by phase 2's
-float32 A/B. K3's `library_ms` is torch.var_mean over the rows,
+its sum; for the float32 launches of K2, K5, K6 and K7 the WMMA route
+their TF32 route replaced) and `sources_by_route` with `launches_by_route`
+("bfloat16 sm90", "float32 tf32", ...). The graph phase's float32 generate
+adds K2's, K5's, K6's and K7's launches under "dtype=float32" shape keys,
+timed by phase 2's float32 A/B. K3's `library_ms` is torch.var_mean over the rows,
 per channel; K8 has none (F.group_norm and F.silu are two calls). K5's
 `library_ms` is both of its
 products as two torch.matmul calls; K2's and K10's are SDPA on the core
@@ -383,8 +387,11 @@ class Case(NamedTuple):
     # yardsticks printed beside library
     old: Optional[Callable] = None
     yardsticks: tuple = ()
-    # timed in float32 too: K2's and K5's float32 A/B shapes (batch 2), the
-    # shapes of the graph phase's float32 generate among them
+    # timed in float32 too, against the route it replaced in turns: the
+    # float32 A/B shapes of K2 and K5 (batch 2) and of K6 and K7 (the 512px
+    # decode, the 1024px UNet's fused ResBlocks), the shapes of the graph
+    # phase's float32 generate among them, and K3's and K6's of phase 8's
+    # encoder
     f32: bool = False
 
 
@@ -405,6 +412,13 @@ def decoder_convs(lat: int) -> list:
     for i, (hw, ci, co) in enumerate(blocks):
         convs += [(hw, ci, co, False, True), (hw, co, co, True, i != 0)]
     return convs
+
+
+# (batch, image size) of the encoder's float32 runs: phase 8's `finetune`
+# processes load the model in f32 and build their latent cache in chunks of
+# 8 (--fast) and 4 (LoRA, textual inversion's data); every other encode runs
+# in bf16
+PHASE8_ENCODER = ((8, 512), (4, 512))
 
 
 def encoder_resnets(size: int) -> tuple:
@@ -708,7 +722,7 @@ def kernel_cases(dtype, dev):
         return fused_conv._conv3x3(x, w, cb, ps, pb, residual, silu, emit_stats, x2,
                                    prologue_scale2, prologue_bias2, "wmma")
 
-    def conv_case(label, b, hw, ci, co, c2, eps, residual=True, stats=True):
+    def conv_case(label, b, hw, ci, co, c2, eps, residual=True, stats=True, f32=False):
         x = rnd(b, hw, hw, ci)
         x2 = rnd(b, hw, hw, c2) if c2 else None
         scale, bias = gn_fold(x, eps, x2)
@@ -725,12 +739,16 @@ def kernel_cases(dtype, dev):
 
         cases.append(Case("conv3x3_fused", label, fused_conv.conv3x3_fused,
                           fused_conv.conv3x3_fused_plain, args, kw,
-                          2 * 9 * b * hw * hw * (ci + c2) * co, library=conv, old=k6_wmma))
+                          2 * 9 * b * hw * hw * (ci + c2) * co, library=conv, old=k6_wmma,
+                          f32=f32 and dtype == torch.float32))
 
-    conv_case("unet 128x128 640+320->320 B=2", 2, 128, 640, 320, 320, 1e-5, residual=False)
-    conv_case("unet 128x128 320+320->320 B=2", 2, 128, 320, 320, 320, 1e-5, residual=False)
-    conv_case("unet 128x128 320->320 B=2", 2, 128, 320, 320, 0, 1e-5, residual=False)
-    conv_case("unet 128x128 320->320 B=2 res", 2, 128, 320, 320, 0, 1e-5)
+    conv_case("unet 128x128 640+320->320 B=2", 2, 128, 640, 320, 320, 1e-5, residual=False,
+              f32=True)
+    conv_case("unet 128x128 320+320->320 B=2", 2, 128, 320, 320, 320, 1e-5, residual=False,
+              f32=True)
+    conv_case("unet 128x128 320->320 B=2", 2, 128, 320, 320, 0, 1e-5, residual=False,
+              f32=True)
+    conv_case("unet 128x128 320->320 B=2 res", 2, 128, 320, 320, 0, 1e-5, f32=True)
     # the decoder at 512px and 1024px (B=1), the serve phase's batch of 4,
     # and SD v2.1's at 768px (a 96² latent)
     seen = set()
@@ -742,7 +760,7 @@ def kernel_cases(dtype, dev):
             hw, ci, co, res, st = conv_shape
             conv_case(f"vae {hw}x{hw} {ci}->{co}{' res' if res else ''}"
                       f"{'' if st else ' no stats'} B={b}{' v2.1' if lat == 96 else ''}",
-                      b, hw, ci, co, 0, 1e-6, res, st)
+                      b, hw, ci, co, 0, 1e-6, res, st, f32=(b, lat) == (1, 64))
 
     # the VAE encoder's ResnetBlocks while the latent cache is built (512px,
     # chunks of 4 images, of 8 under --fast, textual inversion's data in
@@ -751,18 +769,20 @@ def kernel_cases(dtype, dev):
     # the statistics, conv2 with the residual and without them
     for b, size in ((8, 512), (4, 512), (1, 512), (2, 768), (1, 768)):
         tag = " v2.1" if size == 768 else ""
+        # phase 8's processes run the encoder in float32, at batch 8 and 4
+        f32 = (b, size) in PHASE8_ENCODER
         for hw, ci, co in encoder_resnets(size):
             x = rnd(b, hw, hw, ci)
             cases.append(Case("channel_partials", f"encoder {hw}x{hw}x{ci} B={b}{tag}",
                               fused_groupnorm.channel_partials,
                               fused_groupnorm.channel_partials_plain, (x,), {}, 3 * x.numel(),
                               PEAK_F32, library=lambda x: torch.var_mean(x, dim=(1, 2)),
-                              old=k3_partials))
+                              old=k3_partials, f32=f32 and dtype == torch.float32))
             conv_case(f"encoder {hw}x{hw} {ci}->{co} B={b}{tag}", b, hw, ci, co, 0, 1e-6,
-                      residual=False)
+                      residual=False, f32=f32)
         for hw, co in sorted({(hw, co) for hw, _, co in encoder_resnets(size)}, reverse=True):
             conv_case(f"encoder {hw}x{hw} {co}->{co} B={b} res{tag}", b, hw, co, co, 0, 1e-6,
-                      stats=False)
+                      stats=False, f32=f32)
 
     # K7: the decoder's upsamplers at 128² and 256² (512px), 256² x 512 and
     # 512² (1024px), the serve phase's batch of 4, and 192² and 384² (SD
@@ -801,7 +821,10 @@ def kernel_cases(dtype, dev):
                           {"emit_stats": True,
                            "phases": fused_conv.phase_weight_stack(args[1], dtype)},
                           2 * 16 * b * hw * hw * c * co, library=up_conv, old=k7_wmma,
-                          yardsticks=(("gate closed", gate_closed),)))
+                          yardsticks=(("gate closed", gate_closed),),
+                          # the 512px decode's two (the graph phase's float32 generate)
+                          f32=dtype == torch.float32 and (b, hw, c, co) in (
+                              (1, 128, 512, 512), (1, 256, 256, 256))))
     # the tensor-parallel ranks' local shapes (phase 10: SD v1.4 at 512px
     # on two ranks, tp = 2; labels ending in "tp2"): K2, K10 and K5 on half
     # the heads / inner width, with the residual and bias (tp rank 0) and
@@ -985,16 +1008,19 @@ KERNEL_INFO = {
 # the kernels with two or more routes: route -> sources (K1's main-path
 # launches take two: bf16 at d <= 160 on the Hopper core, the 1024px
 # decode's d = 512 on the wide kernel, and the WMMA kernel stays the f32
-# one; K7's and K10's bf16 launches take the Hopper route, the WMMA route
-# they replaced stays the f32 one; K3's launches take the cluster kernel,
-# the partials kernel stays for C not a multiple of 8)
+# one; K10's bf16 launches take the Hopper route, the WMMA route it
+# replaced stays the f32 one; K3's launches take the cluster kernel, the
+# partials kernel stays for C not a multiple of 8)
 KERNEL_ROUTES = {
     "flash_attention_heads": {"sm90": "sdtpu_torch/csrc/attention_sm90.cu",
                               "wide": "sdtpu_torch/csrc/attention_wide_sm90.cu",
                               "wmma": "sdtpu_torch/csrc/flash_attention.cu"},
     "channel_partials": {"sm90": "sdtpu_torch/csrc/channel_stats_sm90.cu",
                          "partials": "sdtpu_torch/csrc/channel_stats.cu"},
+    # K6's and K7's float32 launches take the TF32 kernel (route "tf32"),
+    # the affine prologue without SiLU and shapes without a plan the WMMA one
     "upsample2x_conv_fused": {"sm90": "sdtpu_torch/csrc/conv_sm90.cu",
+                              "tf32": "sdtpu_torch/csrc/conv_tf32_sm90.cu",
                               "wmma": "sdtpu_torch/csrc/gemm.cu"},
     "fused_cross_attention_kv": {
         "sm90": "sdtpu_torch/csrc/gemm_sm90.cu + sdtpu_torch/csrc/attention_sm90.cu",
@@ -1009,10 +1035,12 @@ KERNEL_ROUTES = {
     "fused_geglu_mlp": {"sm90": "sdtpu_torch/csrc/gemm_sm90.cu",
                         "tf32": "sdtpu_torch/csrc/gemm_tf32_sm90.cu",
                         "wmma": "sdtpu_torch/csrc/gemm.cu"},
-    # K4's and K6's float32 launches (the graph phase's float32 generate,
-    # phase 8's encoder) take the WMMA kernel
+    # K4's float32 launches (the graph phase's float32 generate) take the
+    # WMMA kernel
     "conv1x1_fused": {"sm90": "sdtpu_torch/csrc/conv_sm90.cu", "wmma": "sdtpu_torch/csrc/gemm.cu"},
-    "conv3x3_fused": {"sm90": "sdtpu_torch/csrc/conv_sm90.cu", "wmma": "sdtpu_torch/csrc/gemm.cu"},
+    "conv3x3_fused": {"sm90": "sdtpu_torch/csrc/conv_sm90.cu",
+                      "tf32": "sdtpu_torch/csrc/conv_tf32_sm90.cu",
+                      "wmma": "sdtpu_torch/csrc/gemm.cu"},
 }
 
 
@@ -1440,10 +1468,11 @@ def _check_k2(c, got, want, dname, failed):
 
 def f32_launched(c: "Case") -> bool:
     """The shapes the main paths launch in float32, which phase 2 times in
-    float32 as well: phase 8's VAE encoder (K3 and K6, the model loaded in
-    f32), fine-tuning's f32 steps (K1 and K9), and K2's and K5's float32
-    A/Bs (c.f32), whose shapes take in the graph phase's float32 generate's."""
-    return c.f32 or c.name.startswith("flash_attention") or c.shape.startswith("encoder")
+    float32 as well: fine-tuning's f32 steps (K1 and K9), and the float32
+    A/Bs (c.f32) of K2, K5, K6 and K7, whose shapes take in the graph
+    phase's float32 generate's, and of phase 8's VAE encoder (K3 and K6,
+    the model loaded in f32, PHASE8_ENCODER)."""
+    return c.f32 or c.name.startswith("flash_attention")
 
 
 def tf32_library_ms(fn) -> float:
@@ -1574,7 +1603,7 @@ def phase_kernels(dev, dtypes=None, f32_all: bool = False) -> tuple[dict, dict]:
                 lib += f"  {label} {cuda_ms(lambda: fn(*c.args, **c.kw)):.4f} ms"
             dev_ms = old_ms = turns = None
             # the Hopper kernel against the one it replaced: bf16, and
-            # K2's and K5's float32 routes (c.f32)
+            # the float32 routes of K2, K5, K6 and K7 (c.f32)
             if c.old is not None and (dtype == torch.bfloat16 or c.f32):
                 # the Hopper kernel against the kernel it replaced, by
                 # device time, in turns; its own device time is the mean of
@@ -1604,14 +1633,14 @@ def phase_kernels(dev, dtypes=None, f32_all: bool = False) -> tuple[dict, dict]:
                      "device_ms": dev_ms, "old_ms": old_ms, "library_tf32_ms": lib_tf32_ms}
             if dtype == torch.float32:
                 f32_ms[(c.name, c.shape)] = dev_ms if dev_ms is not None else ms
-                # a float32 launch of the main paths: the route it takes is
-                # the kernel the bf16 route replaced, so that kernel is its
-                # own "replaced" time, but for K2's and K5's TF32 routes,
-                # timed against it
+                # a float32 launch of the main paths: where the route it
+                # takes is the kernel the bf16 route replaced, that kernel is
+                # its own "replaced" time; a TF32 route's is the WMMA
+                # route's, timed against it (not measured without the A/B)
                 measured[(c.name, F32_KEY + key)] = {
                     **entry, "label": c.shape + " f32",
                     "old_ms": old_ms if turns is not None else
-                    dev_ms if c.old is not None else None}
+                    dev_ms if c.old is not None and "route=tf32" not in key else None}
             else:
                 measured[(c.name, key)] = {**entry, "f32_ms": f32_ms.get((c.name, c.shape))}
         torch.cuda.empty_cache()
@@ -2112,12 +2141,14 @@ DEVICE_KERNELS = {
     ("fused_cross_attention_kv", "sm90"): {"row_stats_kernel": 1, "gemm_sm90_kernel": 2,
                                            "attention_sm90_kernel": 1},
     ("fused_geglu_mlp", None): {"row_stats_kernel": 1, "gemm_sm90_kernel": 2},
-    # float32 (the graph phase's float32 generate): K2's and K5's TF32
-    # kernels, and the WMMA kernel (csrc/gemm.cu) of K4's, K6's and K7's
-    # float32 route
+    # float32 (the graph phase's float32 generate): K2's, K5's, K6's and
+    # K7's TF32 kernels, and the WMMA kernel (csrc/gemm.cu) of K4's float32
+    # route
     ("fused_self_attention", "tf32"): {"row_stats_f32_kernel": 1, "gemm_tf32_kernel": 2,
                                        "attention_tf32_kernel": 1},
     ("fused_geglu_mlp", "tf32"): {"row_stats_f32_kernel": 1, "gemm_tf32_kernel": 2},
+    ("conv3x3_fused", "tf32"): {"conv_tf32_kernel": 1},
+    ("upsample2x_conv_fused", "tf32"): {"conv_tf32_kernel": 1},
     ("conv1x1_fused", "wmma"): {"gemm_kernel": 1},
     ("conv3x3_fused", "wmma"): {"gemm_kernel": 1},
     ("upsample2x_conv_fused", "wmma"): {"gemm_kernel": 1},
@@ -2361,11 +2392,11 @@ def phase_graphs_f32(dev, tok) -> tuple[dict, dict]:
     sdtpu_torch.sample` runs without --bf16), 20 DDIM steps CFG 7.5 and the
     decode, replayed from CUDA graphs (the first call captures) and on the
     eager twin, the same inputs: the latent and the image bit-equal, the
-    replay's launch counts per shape equal to the eager call's, K2's and
-    K5's launches on their TF32 route, and the device's launches of the
-    hand-written kernels in one replayed call, by the profiler, equal to the
-    graphs' records (DEVICE_KERNELS). Returns K2's and K5's launches of the
-    eager call and the replay (the TF32 routes; their shape keys under
+    replay's launch counts per shape equal to the eager call's, K2's, K5's,
+    K6's and K7's launches on their TF32 route, and the device's launches of
+    the hand-written kernels in one replayed call, by the profiler, equal to
+    the graphs' records (DEVICE_KERNELS). Returns the TF32 routes' launches
+    of the eager call and the replay (K2, K5, K6, K7; their shape keys under
     F32_KEY), which join the main paths' totals; the other kernels' float32
     launches are checked here and timed by --f32-table."""
     import torch
@@ -2418,7 +2449,8 @@ def phase_graphs_f32(dev, tok) -> tuple[dict, dict]:
           f"{card_line()}", flush=True)
     if replayed != once:
         bad.append("the replay's launch counts per shape are not the eager call's")
-    for name in ("fused_self_attention", "fused_geglu_mlp"):
+    tf32 = ("fused_self_attention", "fused_geglu_mlp", "conv3x3_fused", "upsample2x_conv_fused")
+    for name in tf32:
         routes = by_route(once[1][name])
         print(f"graphs f32 {name} launches by route {routes}", flush=True)
         if set(routes) != {"tf32"}:
@@ -2443,7 +2475,6 @@ def phase_graphs_f32(dev, tok) -> tuple[dict, dict]:
     if bad:
         fail("the graph phase's float32 generate: " + "; ".join(bad))
     del sd, eager
-    tf32 = ("fused_self_attention", "fused_geglu_mlp")
     return ({n: once[0][n] + replayed[0][n] if n in tf32 else 0 for n in once[0]},
             {n: {F32_KEY + key: once[1][n].get(key, 0) + replayed[1][n].get(key, 0)
                  for key in set(once[1][n]) | set(replayed[1][n])} if n in tf32 else {}
@@ -3529,7 +3560,7 @@ def phase_finetune_cli(dev) -> tuple[dict, dict]:
     inversion of two vectors from "person": the concept loads and its rows
     have moved off that token's row; (b), (c) and (d) run as three
     processes at once after (a), whose cache (c) reads. Each run's launches must be FT_RUNS' (K1
-    on the Hopper core; the encoder's, in float32, K6 on its float32
+    on the Hopper core; the encoder's, in float32, K6 on its TF32
     kernel, its graph's warm-up apart) and its step one captured graph,
     replayed after its first step; prints each run's wall seconds, load,
     steps/sec, peak memory, launches and graphs. Returns the launch counts of the four runs, per kernel and
@@ -3592,11 +3623,11 @@ def phase_finetune_cli(dev) -> tuple[dict, dict]:
             calls = minus((run_launches, run_shapes), warmups_of(stats["warmup_launches"]))
             fired = {n: k for n, k in calls[0].items() if k}
             # the encoder's launches (K3, K6) run in float32: K6's on its
-            # float32 kernel (the WMMA route), K3's on its plan's route
+            # float32 kernel (the TF32 route), K3's on its plan's route
             encoder = {n: run_shapes.pop(n) for n in ("channel_partials", "conv3x3_fused")}
             run_shapes.update({n: {} for n in encoder})
             odd = [f"{n} [{k}]" for n, shp in encoder.items() for k in shp
-                   if n == "conv3x3_fused" and not k.endswith("route=wmma")]
+                   if n == "conv3x3_fused" and not k.endswith("route=tf32")]
             losses = [v for _, v in report["losses"]]
             ph = report["phases"]
             around = sum(v for k, v in ph.items() if k not in ("load_tokenizer", "load_model"))
@@ -3621,7 +3652,7 @@ def phase_finetune_cli(dev) -> tuple[dict, dict]:
             if fired != expected:
                 bad.append(f"finetune {label} launched {fired}")
             if odd:
-                bad.append(f"finetune {label}: float32 encoder launches off the WMMA route {odd}")
+                bad.append(f"finetune {label}: float32 encoder launches off the TF32 route {odd}")
             check_routes(f"finetune {label}", run_shapes,
                          {"sm90": expected["flash_attention_heads"]})
             if any(encoder.values()):

@@ -1,6 +1,6 @@
 // The float32 routes' Hopper building blocks (gemm_tf32_sm90.cu,
-// attention_tf32_sm90.cu): wgmma.mma_async on TF32 operands with f32
-// accumulators, the round to TF32, and f32 tensor maps.
+// attention_tf32_sm90.cu, conv_tf32_sm90.cu): wgmma.mma_async on TF32
+// operands with f32 accumulators, the round to TF32, and f32 tensor maps.
 //
 // TF32 wgmma differs from bf16 wgmma in what K2's and K5's float32 routes
 // are built around:
@@ -184,21 +184,31 @@ __device__ __forceinline__ void wgmma_tf32_ss_n64(float* d, uint64_t a, uint64_t
       : "l"(a), "l"(b), "r"(1));
 }
 
+// an f32 tensor of `rank` dimensions (dims[0] innermost and contiguous,
+// strides[i] the byte stride of dimension i + 1), read in boxes of box[]
+// with the 128-byte swizzle (box[0] = 32 floats = 128 bytes) and zeros for
+// elements outside it (sm90.cuh's make_map, for f32)
+inline cudaError_t make_map_f32(CUtensorMap* map, const void* ptr, int rank,
+                                const cuuint64_t* dims, const cuuint64_t* strides,
+                                const cuuint32_t* box) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank, const_cast<void*>(ptr), dims,
+                  strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // a [outer][pitch] f32 matrix, `inner` columns used, in boxes of box_inner
 // (32: 128 bytes) x box_outer, read with the 128-byte swizzle and zeros
 // outside it
 inline cudaError_t make_map_f32_2d(CUtensorMap* map, const void* ptr, long long inner,
                                    long long outer, long long pitch, int box_outer) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
   const cuuint64_t strides[1] = {(cuuint64_t)pitch * 4};
   const cuuint32_t box[2] = {32u, (cuuint32_t)box_outer};
-  const cuuint32_t elem[2] = {1, 1};
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(ptr), dims, strides,
-                  box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return make_map_f32(map, ptr, 2, dims, strides, box);
 }
 
 }  // namespace sm90

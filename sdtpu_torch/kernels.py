@@ -76,6 +76,8 @@ _SIGNATURES = {
     "sdk_conv3x3_sm90": [*[_P] * 6, _LL, _P, _P, _LL, _I, _P, _P, _P, *[_I] * 10, _P],
     "sdk_conv1x1_sm90": [*[_P] * 5, _LL, _I, _P, _P, _P, *[_I] * 7, _P],
     "sdk_upsample_conv_sm90": [*[_P] * 5, *[_I] * 9, _P],
+    "sdk_conv3x3_tf32": [*[_P] * 6, _LL, _P, _P, _LL, _I, _P, _P, _P, *[_I] * 10, _P],
+    "sdk_upsample_conv_tf32": [*[_P] * 5, *[_I] * 9, _P],
     "sdk_attention_sm90": [*[_P] * 4, *[_LL] * 12, _P, _LL, _P, *[_I] * 5, _F, *[_I] * 4, _P],
     "sdk_attention_wide_sm90": [*[_P] * 4, *[_LL] * 12, _P, _LL, _P, *[_I] * 5, _F,
                                 *[_I] * 4, _P],

@@ -2,17 +2,19 @@
 of sdtpu/ops/fused_conv.py): K4 conv1x1_fused, K6 conv3x3_fused, K7
 upsample2x_conv_fused, and their glue gn_scale_bias / stats_scale_bias.
 
-K4, K6 and K7 in f32 run on the shared WMMA GEMM of csrc/gemm.cu, K6 and
-K7 as an implicit GEMM over the NHWC map. In bf16 all three run the Hopper
-kernel csrc/conv_sm90.cu: an implicit GEMM whose A boxes are TMA loads of a
-tensor map over the map (zeros outside it), multiplied by wgmma; their tile
-plans are sm90_plan, conv1x1_sm90_plan and upsample_sm90_plan. The design
-applies the GroupNorm affine
-(+SiLU) to the A tile on its way to the tensor cores (in shared memory on
-the WMMA kernel, in registers on the Hopper one), and the bias, residual
-and optional per-channel output statistics to the f32 accumulator, so
-neither the normalised map nor the pre-residual output reaches HBM, and
-the next GroupNorm's statistics cost no read of the map.
+In bf16 all three run the Hopper kernel csrc/conv_sm90.cu: an implicit GEMM
+whose A boxes are TMA loads of a tensor map over the map (zeros outside
+it), multiplied by wgmma; their tile plans are sm90_plan, conv1x1_sm90_plan
+and upsample_sm90_plan. In float32 (the default dtype of `sample`, `serve`
+and `finetune`) K6 and K7 run its TF32 counterpart csrc/conv_tf32_sm90.cu
+(route "tf32", plans tf32_conv_plan and upsample_tf32_plan), which reads a
+K-major TF32 copy of each weight (fused_mlp.kmajor: TF32 wgmma reads B only
+K-major), and K4 the shared WMMA GEMM of csrc/gemm.cu. The design applies
+the GroupNorm affine (+SiLU) to the A tile on its way to the tensor cores
+(in registers on the Hopper kernels, in shared memory on the WMMA one), and
+the bias, residual and optional per-channel output statistics to the f32
+accumulator, so neither the normalised map nor the pre-residual output
+reaches HBM, and the next GroupNorm's statistics cost no read of the map.
 
 - K4 replaces the Pallas `_mm_kernel` (sdtpu/ops/fused_conv.py:406, called
   at :473). At the UNet's proj_in/proj_out (4096 rows x 320 x 320 per
@@ -25,29 +27,34 @@ the next GroupNorm's statistics cost no read of the map.
 - K6 replaces `_kernel` / `_conv_part` (sdtpu/ops/fused_conv.py:96/44,
   called at :232): the VAE decoder's ResnetBlock convs, 64x64x512 up to
   1024x1024x128, and the UNet's fused ResBlock at 128x128 latents, 2·9·C·Co
-  flops per pixel — compute-bound. No halo tensor: the WMMA kernel's A
-  vectors compute their own shifted source pixel, the Hopper kernel's TMA
-  boxes are read at the shifted coordinates, zero outside. Its second input
-  x2 (the UNet up path's skip) is a second source (pointer, or tensor map)
-  for the channels past x's, so the channel concat never reaches HBM and
-  the concat's weight is used as it is. Routes: bf16 takes csrc/conv_sm90.cu
-  where sm90_plan has a tile for the shape (C and C2 multiples of 64, W a
-  multiple or a divisor of 128 or a multiple of 32: every main-path shape,
-  SD v2.1's 96- and 192-pixel-wide maps in boxes of 32 x 4 and 64 x 2
-  pixels) and the prologue, if
-  any, ends in SiLU (as every main-path one does); f32 and the other shapes
-  the WMMA kernel; each launch is counted under its route.
+  flops per pixel — compute-bound. No halo tensor: the Hopper kernels' TMA
+  boxes are read at the shifted coordinates, zero outside, the WMMA
+  kernel's A vectors compute their own shifted source pixel. Its second
+  input x2 (the UNet up path's skip) is a second source (tensor map, or
+  pointer) for the channels past x's, so the channel concat never reaches
+  HBM and the concat's weight is used as it is. Routes (conv3x3_plan):
+  bf16 takes csrc/conv_sm90.cu where sm90_plan has a tile for the shape (C
+  and C2 multiples of 64, W a multiple or a divisor of 128 or a multiple of
+  32: every main-path shape, SD v2.1's 96- and 192-pixel-wide maps in boxes
+  of 32 x 4 and 64 x 2 pixels), float32 csrc/conv_tf32_sm90.cu where
+  tf32_conv_plan has one (C and C2 multiples of 32, the same boxes), each
+  where the prologue, if any, ends in SiLU (as every main-path one does);
+  the affine prologue without SiLU and the other shapes the WMMA kernel;
+  each launch is counted under its route.
 - K7 replaces `_up_kernel` (sdtpu/ops/fused_conv.py:276, called at :372):
   conv3x3(nearest2x(x)) as four output phases of 2x2 taps at the input's
   resolution (2.25x fewer flops than the 3x3 over the upsampled map), each
   phase writing its interleaved pixels straight into the output, 2·16·C·Co
-  flops per input pixel (compute-bound). Routes: bf16 takes
+  flops per input pixel (compute-bound). Routes (upsample_plan): bf16 takes
   csrc/conv_sm90.cu at four taps with the phase in the grid where
   upsample_sm90_plan has a tile (C a multiple of 64, W as K6's: every
-  main-path shape); f32 and the other shapes the
-  WMMA kernel; each launch is counted under its route. Both read the
-  [4, 4C, Co] stack of the phases' folded taps (phase_weight_stack), which
-  the pipeline folds once (models/vae.py:upsample_phase_stacks).
+  main-path shape), float32 csrc/conv_tf32_sm90.cu at four taps where
+  upsample_tf32_plan has one (C a multiple of 32); the other shapes the
+  WMMA kernel; each launch is counted under its route. They read the [4,
+  4C, Co] stack of the phases' folded taps (phase_weight_stack), which the
+  pipeline folds once (models/vae.py:upsample_phase_stacks); the TF32
+  route its K-major copy [4, Co, 4C] (kmajor's "stack"), made once per
+  stack.
 
 sdtpu's options that are TPU layout choices (block_h, block_r, kpack) have
 no counterpart.
@@ -61,6 +68,7 @@ from typing import NamedTuple
 import torch
 
 from sdtpu_torch import kernels
+from sdtpu_torch.ops import fused_mlp
 from sdtpu_torch.ops.conv import UPSAMPLE_PHASE_PADS, conv2d, upsample_phase_weights
 from sdtpu_torch.ops.fused_groupnorm import channel_partials
 
@@ -276,8 +284,19 @@ def sm90_plan(b: int, h: int, w: int, c1: int, c2: int, co: int, prologue: bool,
     320 and 256 channels that co divides into while the grid still has a CTA
     for every SM, else 128; bn and stages, when given, override the choice
     (for timing one plan against another)."""
-    if (b <= 0 or h <= 0 or w <= 0 or c1 <= 0 or c1 % SM90_CONV_BK or c2 < 0
-            or c2 % SM90_CONV_BK or co <= 0 or co % 8):
+    return _ring_plan(ConvPlan, SM90_CONV_BK, 2, SM90_CONV_MAX_STAGES, b, h, w, c1, c2, co,
+                      prologue, bn, stages)
+
+
+def _ring_plan(kind, bk: int, esize: int, max_stages: int, b: int, h: int, w: int, c1: int,
+               c2: int, co: int, prologue: bool, bn: int | None, stages: int | None):
+    """sm90_plan's and tf32_conv_plan's plan: a kind (ConvPlan or
+    Tf32ConvPlan) of K blocks bk channels deep of esize-byte elements,
+    or None where c1 or c2 is no multiple of bk (a block would straddle a
+    tap or the x/x2 boundary), co no multiple of 8, the box too narrow, or
+    fewer than 2 stages fit."""
+    if (b <= 0 or h <= 0 or w <= 0 or c1 <= 0 or c1 % bk or c2 < 0 or c2 % bk or co <= 0
+            or co % 8):
         return None
     bw = math.gcd(w, SM90_CONV_BM)
     if bw < SM90_CONV_MIN_BW and SM90_CONV_BM % w:
@@ -288,18 +307,92 @@ def sm90_plan(b: int, h: int, w: int, c1: int, c2: int, co: int, prologue: bool,
         bn = next((n for n in SM90_CONV_WIDE
                    if co % n == 0 and b * tiles * (co // n) >= kernels.SM_COUNT), 128)
     if bn not in (128, *SM90_CONV_WIDE):
-        raise ValueError(f"csrc/conv_sm90.cu has tiles of 128, 256 or 320 channels, not {bn}")
-    stage = (SM90_CONV_BM + bn) * SM90_CONV_BK * 2  # the A box and bn / 64 weight boxes
+        raise ValueError(f"the Hopper conv kernels have tiles of 128, 256 or 320 channels, "
+                         f"not {bn}")
+    stage = (SM90_CONV_BM + bn) * bk * esize  # the A box and bn / 64 weight boxes
     # 1024 bytes to align the ring to the 128-byte swizzle's repeat; a full
     # and an empty mbarrier (8 bytes each) a stage; an f32 (scale, shift)
     # pair per input channel with a prologue
     table = 8 * (c1 + c2) if prologue else 0
-    most = min(SM90_CONV_MAX_STAGES, (kernels.SMEM_LIMIT - 1024 - table) // (stage + 16))
+    most = min(max_stages, (kernels.SMEM_LIMIT - 1024 - table) // (stage + 16))
     stages = most if stages is None else stages
     if not 2 <= stages <= most:
         return None
-    return ConvPlan(bn, bw, bh, stages, 1024 + stages * (stage + 16) + table,
-                    (-(-co // bn), tiles, b))
+    return kind(bn, bw, bh, stages, 1024 + stages * (stage + 16) + table,
+                (-(-co // bn), tiles, b))
+
+
+# csrc/conv_tf32_sm90.cu: the same 128-pixel tiles and weight boxes of 64
+# output channels, 32 deep in K (the 128-byte swizzle spans 32 floats: one
+# tap, 32 channels of x or of x2), so a stage takes as many bytes as
+# conv_sm90.cu's at half the depth
+TF32_CONV_BK = 32
+# deeper rings than 4 stages measured no faster on the H100 (PERF.md)
+TF32_CONV_MAX_STAGES = 4
+
+
+class Tf32ConvPlan(NamedTuple):
+    """One launch of csrc/conv_tf32_sm90.cu: ConvPlan's fields (a type of
+    its own, so that a plan names its kernel)."""
+    bn: int
+    bw: int
+    bh: int
+    stages: int
+    smem: int
+    grid: tuple
+
+
+def tf32_conv_plan(b: int, h: int, w: int, c1: int, c2: int, co: int, prologue: bool,
+                   bn: int | None = None, stages: int | None = None) -> Tf32ConvPlan | None:
+    """The float32 route's plan (csrc/conv_tf32_sm90.cu) for a 3x3 conv of
+    [b, h, w, c1 (+ c2)] to co channels, or None where it has no tile for
+    the shape (the WMMA kernel takes it): sm90_plan's tile and box (its
+    rule for bn over the grid, a box no narrower than SM90_CONV_MIN_BW),
+    with c1 and c2 multiples of 32, so that a 32-deep K block never
+    straddles a tap or the x/x2 boundary, and co a multiple of 8; the ring
+    as deep as the shared memory holds beside the prologue's table, at most
+    TF32_CONV_MAX_STAGES, and no plan where fewer than 2 stages fit. bn and
+    stages, when given, override the choice (for timing one plan against
+    another)."""
+    return _ring_plan(Tf32ConvPlan, TF32_CONV_BK, 4, TF32_CONV_MAX_STAGES, b, h, w, c1, c2, co,
+                      prologue, bn, stages)
+
+
+def _plan_of(dtype, route, bf16_plan, tf32_plan, name: str):
+    """The Hopper plan a launch takes by route: "auto" the dtype's plan
+    (bf16_plan() or tf32_plan(), None elsewhere: the WMMA kernel), "wmma"
+    None, "tf32" the float32 plan (raises where there is none), or a
+    ConvPlan (bf16) or Tf32ConvPlan (float32) as given."""
+    if isinstance(route, (ConvPlan, Tf32ConvPlan)):
+        want = torch.bfloat16 if isinstance(route, ConvPlan) else torch.float32
+        if dtype != want:
+            raise ValueError(f"{name}: a {type(route).__name__} takes {want}, not {dtype}")
+        return route
+    if route == "wmma":
+        return None
+    if route == "tf32":
+        plan = tf32_plan() if dtype == torch.float32 else None
+        if plan is None:
+            raise ValueError(f"{name}: no TF32 plan for {dtype} at this shape")
+        return plan
+    if route != "auto":
+        raise ValueError(f"{name}: unknown route {route!r}")
+    if dtype == torch.bfloat16:
+        return bf16_plan()
+    return tf32_plan() if dtype == torch.float32 else None
+
+
+def conv3x3_plan(dtype, b: int, h: int, w: int, c1: int, c2: int, co: int, prologue: bool,
+                 silu: bool = True, route="auto") -> ConvPlan | Tf32ConvPlan | None:
+    """The plan a K6 launch takes (None: the WMMA kernel, csrc/gemm.cu): on
+    route "auto" bf16's sm90_plan or float32's tf32_conv_plan where the
+    prologue, if any, ends in SiLU (the Hopper kernels have no instance of
+    the affine alone); see _plan_of for the other routes."""
+    fused = not prologue or silu
+    return _plan_of(dtype, route,
+                    lambda: sm90_plan(b, h, w, c1, c2, co, prologue) if fused else None,
+                    lambda: tf32_conv_plan(b, h, w, c1, c2, co, prologue) if fused else None,
+                    "conv3x3_fused (K6)")
 
 
 def conv3x3_fused(x, w, conv_bias, prologue_scale=None, prologue_bias=None,
@@ -315,8 +408,10 @@ def conv3x3_fused(x, w, conv_bias, prologue_scale=None, prologue_bias=None,
     [x, x2] with w [3, 3, C + C2, Co], and prologue_scale2/bias2 [B, C2] are
     the x2 slice of the folded GroupNorm. Returns y, or (y, stats [B, 2, Co]
     = per-channel (sum, sum^2) of the f32 y). CPU tensors take the plain
-    version; CUDA tensors the kernel (bf16: csrc/conv_sm90.cu where its plan
-    has a tile for the shape; f32 and other shapes: csrc/gemm.cu)."""
+    version; CUDA tensors the kernel (conv3x3_plan: bf16
+    csrc/conv_sm90.cu and float32 csrc/conv_tf32_sm90.cu where the dtype's
+    plan has a tile for the shape; other shapes, and the affine prologue
+    without SiLU: csrc/gemm.cu)."""
     return _conv3x3(x, w, conv_bias, prologue_scale, prologue_bias, residual, silu,
                     emit_stats, x2, prologue_scale2, prologue_bias2, "auto")
 
@@ -332,10 +427,12 @@ def _tables(scale, shift):
 
 
 def _conv3x3(x, w, conv_bias, prologue_scale, prologue_bias, residual, silu, emit_stats,
-             x2, prologue_scale2, prologue_bias2, route: str):
-    """conv3x3_fused on the given route: "auto" (by dtype and plan), "wmma"
-    (csrc/gemm.cu whatever the dtype), or a ConvPlan for csrc/conv_sm90.cu
-    (bf16): the last two for timing kernels and plans against each other."""
+             x2, prologue_scale2, prologue_bias2, route):
+    """conv3x3_fused on the given route (conv3x3_plan): "auto" (by dtype and
+    plan), "wmma" (csrc/gemm.cu whatever the dtype), "tf32"
+    (csrc/conv_tf32_sm90.cu, float32), or a ConvPlan for csrc/conv_sm90.cu
+    (bf16) or a Tf32ConvPlan for csrc/conv_tf32_sm90.cu (float32): the last
+    four for timing kernels and plans against each other."""
     if x2 is not None and (prologue_scale is None) != (prologue_scale2 is None):
         raise ValueError("with x2, a prologue applies to both inputs or to neither")
     if kernels.on_cpu(x, w, conv_bias, prologue_scale, prologue_bias, residual, x2,
@@ -353,9 +450,7 @@ def _conv3x3(x, w, conv_bias, prologue_scale, prologue_bias, residual, silu, emi
     if x2 is not None and tuple(x2.shape[:3]) != (b, h, wd):
         raise ValueError(f"x2 {tuple(x2.shape)} does not fit x {tuple(x.shape)}")
     dt = x.dtype
-    plan = route if isinstance(route, ConvPlan) else None
-    if dt == torch.bfloat16 and route == "auto" and (prologue_scale is None or silu):
-        plan = sm90_plan(b, h, wd, c, c2, co, prologue_scale is not None)
+    plan = conv3x3_plan(dt, b, h, wd, c, c2, co, prologue_scale is not None, silu, route)
     x = x.contiguous()
     x2 = None if x2 is None else x2.to(dt).contiguous()
     res = None if residual is None else residual.to(dt).contiguous()
@@ -363,9 +458,11 @@ def _conv3x3(x, w, conv_bias, prologue_scale, prologue_bias, residual, silu, emi
     stats = None
     with torch.cuda.device(x.device):
         if plan is not None:
-            # weights, bias and the prologue's tables are read as they are
-            # (.to and .contiguous return the tensors themselves when they
-            # already are): no copy a call
+            # the bias and the prologue's tables are read as they are (.to
+            # and .contiguous return the tensors themselves when they
+            # already are): no copy a call. bf16 reads the weight as it is;
+            # float32 its K-major TF32 copy, made once per weight tensor
+            # (kmajor keys it by the model's own tensor: w.float() is w)
             tabs, lds = [None] * 4, [0, 0]
             if prologue_scale is not None:
                 tabs[0], tabs[1], lds[0] = _tables(prologue_scale, prologue_bias)
@@ -374,14 +471,17 @@ def _conv3x3(x, w, conv_bias, prologue_scale, prologue_bias, residual, silu, emi
             if emit_stats:
                 stats = torch.empty((b, plan.grid[1], 2, co), dtype=torch.float32,
                                     device=x.device)
-            rc = kernels.lib().sdk_conv3x3_sm90(
-                x.data_ptr(), kernels.ptr(x2), w.to(dt).contiguous().data_ptr(),
-                conv_bias.to(dt).contiguous().data_ptr(), kernels.ptr(tabs[0]),
-                kernels.ptr(tabs[1]), lds[0], kernels.ptr(tabs[2]), kernels.ptr(tabs[3]),
-                lds[1], int(silu), kernels.ptr(res), out.data_ptr(), kernels.ptr(stats),
-                b, h, wd, c, c2, co, plan.bn, plan.bw, plan.stages, plan.smem,
-                kernels.stream(x))
-            kernels.check(rc, "sdk_conv3x3_sm90")
+            tf32 = isinstance(plan, Tf32ConvPlan)
+            fn, name = ((kernels.lib().sdk_conv3x3_tf32, "sdk_conv3x3_tf32") if tf32 else
+                        (kernels.lib().sdk_conv3x3_sm90, "sdk_conv3x3_sm90"))
+            wk = fused_mlp.kmajor(w.float()) if tf32 else w.to(dt).contiguous()
+            rc = fn(x.data_ptr(), kernels.ptr(x2), wk.data_ptr(),
+                    conv_bias.to(dt).contiguous().data_ptr(), kernels.ptr(tabs[0]),
+                    kernels.ptr(tabs[1]), lds[0], kernels.ptr(tabs[2]), kernels.ptr(tabs[3]),
+                    lds[1], int(silu), kernels.ptr(res), out.data_ptr(), kernels.ptr(stats),
+                    b, h, wd, c, c2, co, plan.bn, plan.bw, plan.stages, plan.smem,
+                    kernels.stream(x))
+            kernels.check(rc, name)
             prologue = kernels.PRO_NONE if prologue_scale is None else (
                 kernels.PRO_AFFINE_SILU if silu else kernels.PRO_AFFINE)
         else:
@@ -397,10 +497,16 @@ def _conv3x3(x, w, conv_bias, prologue_scale, prologue_bias, residual, silu, emi
                          kw=3, nphase=1, up=1, bias=conv_bias.float().contiguous(),
                          res=res, pa=ps, pb=pb, prologue=prologue, stats=stats, x2=x2, C2=c2)
     kernels.count(conv3x3_fused, b=b, h=h, w=wd, c=c, c2=c2, co=co, prologue=prologue,
-                  residual=res is not None, stats=emit_stats,
-                  route="wmma" if plan is None else "sm90",
+                  residual=res is not None, stats=emit_stats, route=_route_name(plan),
                   also=None if x2 is None else "launches_x2")
     return (out, stats.sum(dim=1)) if emit_stats else out
+
+
+def _route_name(plan) -> str:
+    """The route a launch took, as the wrappers count it."""
+    if plan is None:
+        return "wmma"
+    return "tf32" if isinstance(plan, Tf32ConvPlan) else "sm90"
 
 
 conv3x3_fused.launches = 0
@@ -436,6 +542,25 @@ def upsample_sm90_plan(b: int, h: int, w: int, c: int, co: int, bn: int | None =
     return sm90_plan(4 * b, h, w, c, 0, co, False, bn, stages)
 
 
+def upsample_tf32_plan(b: int, h: int, w: int, c: int, co: int, bn: int | None = None,
+                       stages: int | None = None) -> Tf32ConvPlan | None:
+    """The plan of K7's float32 route, csrc/conv_tf32_sm90.cu at four taps,
+    as upsample_sm90_plan is the bf16 one's: tf32_conv_plan's tile of a map
+    with four output phases an image, no prologue, c a multiple of 32. bn
+    and stages, when given, override the choice (for timing one plan
+    against another)."""
+    return tf32_conv_plan(4 * b, h, w, c, 0, co, False, bn, stages)
+
+
+def upsample_plan(dtype, b: int, h: int, w: int, c: int, co: int,
+                  route="auto") -> ConvPlan | Tf32ConvPlan | None:
+    """The plan a K7 launch takes (None: the WMMA kernel, csrc/gemm.cu): on
+    route "auto" bf16's upsample_sm90_plan or float32's upsample_tf32_plan;
+    see _plan_of for the other routes."""
+    return _plan_of(dtype, route, lambda: upsample_sm90_plan(b, h, w, c, co),
+                    lambda: upsample_tf32_plan(b, h, w, c, co), "upsample2x_conv_fused (K7)")
+
+
 def phase_weight_stack(w, dtype):
     """HWIO [3, 3, C, Co] -> the [4, 4·C, Co] stack in dtype that K7's
     kernels read: phase p = 2·py + px's taps (dy, dx) in rows (2·dy + dx)·C
@@ -449,18 +574,21 @@ def upsample2x_conv_fused(x, w, conv_bias, emit_stats: bool = False, phases=None
     map: x [B, H, W, C]; w [3, 3, C, Co]; returns [B, 2H, 2W, Co], or (y,
     stats [B, 2, Co]). phases: optional phase_weight_stack(w, x.dtype),
     made once by the caller (the pipeline's VAE), which the kernel then
-    reads instead of folding w a call. CPU tensors take the plain
-    version; CUDA tensors the kernel (bf16: csrc/conv_sm90.cu at four taps
-    where upsample_sm90_plan has a tile for the shape; f32 and other
-    shapes: csrc/gemm.cu)."""
+    reads instead of folding w a call (the float32 route: its K-major copy,
+    made once per stack; without phases, once per weight). CPU tensors take
+    the plain version; CUDA tensors the kernel (upsample_plan: bf16
+    csrc/conv_sm90.cu and float32 csrc/conv_tf32_sm90.cu at four taps where
+    the dtype's plan has a tile for the shape; other shapes:
+    csrc/gemm.cu)."""
     return _upsample2x(x, w, conv_bias, emit_stats, "auto", phases)
 
 
 def _upsample2x(x, w, conv_bias, emit_stats, route, phases=None):
-    """upsample2x_conv_fused on the given route: "auto" (by dtype and plan),
-    "wmma" (csrc/gemm.cu whatever the dtype), or a ConvPlan for
-    csrc/conv_sm90.cu at four taps (bf16): the last two for timing kernels
-    and plans against each other."""
+    """upsample2x_conv_fused on the given route (upsample_plan): "auto" (by
+    dtype and plan), "wmma" (csrc/gemm.cu whatever the dtype), "tf32"
+    (csrc/conv_tf32_sm90.cu at four taps, float32), or a ConvPlan for
+    csrc/conv_sm90.cu at four taps (bf16) or a Tf32ConvPlan (float32): the
+    last four for timing kernels and plans against each other."""
     if kernels.on_cpu(x, w, conv_bias, phases):
         return upsample2x_conv_fused_plain(x, w, conv_bias, emit_stats)
     kernels.refuse_autograd("upsample2x_conv_fused (K7)", x, w, conv_bias)
@@ -469,15 +597,18 @@ def _upsample2x(x, w, conv_bias, emit_stats, route, phases=None):
     if tuple(w.shape[:3]) != (3, 3, c):
         raise ValueError(f"weight {tuple(w.shape)} does not fit {c} input channels")
     dt = x.dtype
-    if phases is None:
-        phases = phase_weight_stack(w, dt)
-    elif phases.shape != (4, 4 * c, co) or phases.dtype != dt:
+    if phases is not None and (phases.shape != (4, 4 * c, co) or phases.dtype != dt):
         raise ValueError(f"phases {phases.dtype} {tuple(phases.shape)}: expected {dt} "
                          f"[4, {4 * c}, {co}] (phase_weight_stack)")
-    wph = phases.contiguous()
-    plan = route if isinstance(route, ConvPlan) else None
-    if dt == torch.bfloat16 and route == "auto":
-        plan = upsample_sm90_plan(b, h, wd, c, co)
+    plan = upsample_plan(dt, b, h, wd, c, co, route)
+    tf32 = isinstance(plan, Tf32ConvPlan)
+    if tf32:
+        # the K-major copy of the stack, or of the weight folded into one:
+        # made once per tensor, not a call
+        wph = (fused_mlp.kmajor(w.float(), "upsample") if phases is None else
+               fused_mlp.kmajor(phases, "stack"))
+    else:
+        wph = (phase_weight_stack(w, dt) if phases is None else phases).contiguous()
     x = x.contiguous()
     out = torch.empty((b, 2 * h, 2 * wd, co), dtype=dt, device=x.device)
     stats = None
@@ -489,11 +620,18 @@ def _upsample2x(x, w, conv_bias, emit_stats, route, phases=None):
             if emit_stats:
                 stats = torch.empty((b, 4 * plan.grid[1], 2, co), dtype=torch.float32,
                                     device=x.device)
-            rc = kernels.lib().sdk_upsample_conv_sm90(
-                x.data_ptr(), wph.data_ptr(), cb.data_ptr(), out.data_ptr(),
-                kernels.ptr(stats), b, h, wd, c, co, plan.bn, plan.bw, plan.stages, plan.smem,
-                kernels.stream(x))
-            kernels.check(rc, "sdk_upsample_conv_sm90")
+            if tf32:
+                rc = kernels.lib().sdk_upsample_conv_tf32(
+                    x.data_ptr(), wph.data_ptr(), cb.data_ptr(), out.data_ptr(),
+                    kernels.ptr(stats), b, h, wd, c, co, plan.bn, plan.bw, plan.stages,
+                    plan.smem, kernels.stream(x))
+                kernels.check(rc, "sdk_upsample_conv_tf32")
+            else:
+                rc = kernels.lib().sdk_upsample_conv_sm90(
+                    x.data_ptr(), wph.data_ptr(), cb.data_ptr(), out.data_ptr(),
+                    kernels.ptr(stats), b, h, wd, c, co, plan.bn, plan.bw, plan.stages,
+                    plan.smem, kernels.stream(x))
+                kernels.check(rc, "sdk_upsample_conv_sm90")
         else:
             if emit_stats:
                 stats = torch.empty((b, 4 * kernels.gemm_row_tiles(h * wd), 2, co),
@@ -501,7 +639,7 @@ def _upsample2x(x, w, conv_bias, emit_stats, route, phases=None):
             kernels.conv(x, wph, out, C=c, H=h, W=wd, N=co, batch=b, kw=2, nphase=4,
                          up=2, bias=conv_bias.float().contiguous(), stats=stats)
     kernels.count(upsample2x_conv_fused, b=b, h=h, w=wd, c=c, co=co, stats=emit_stats,
-                  route="wmma" if plan is None else "sm90")
+                  route=_route_name(plan))
     return (out, stats.sum(dim=1)) if emit_stats else out
 
 

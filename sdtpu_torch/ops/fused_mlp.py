@@ -35,7 +35,7 @@ import torch
 
 from sdtpu_torch import kernels
 from sdtpu_torch.ops.activations import geglu
-from sdtpu_torch.ops.conv import linear
+from sdtpu_torch.ops.conv import linear, upsample_phase_weights
 from sdtpu_torch.ops.groupnorm import layer_norm
 
 # csrc/gemm_sm90.cu: 128-row tiles (two consumer warpgroups of 64 rows), 64
@@ -127,29 +127,53 @@ def round_tf32(t: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
-# id(w) -> (a weak reference to w, w's version, its K-major TF32 copy): one
-# cache for the process, since a weight is shared by every pipeline, graph
-# and thread that reads it; each entry goes with its weight (the weak
-# reference's callback)
+# (id(w), layout) -> (a weak reference to w, w's version, its K-major TF32
+# copy): one cache for the process, since a weight is shared by every
+# pipeline, graph and thread that reads it; each entry goes with its weight
+# (the weak reference's callback)
 _KMAJOR: dict = {}
 
+# kmajor's layouts: what the copy is of
+KMAJOR_LAYOUTS = ("matrix", "stack", "upsample")
 
-def kmajor(w: torch.Tensor) -> torch.Tensor:
-    """The K-major TF32 copy of a [K, N] f32 weight, Wᵀ [N, K] rounded to
-    TF32, that the float32 route reads as its B operand. Made at a weight's
-    first float32 launch (a graph's eager warm-up, before its capture), kept
-    while the weight lives and for as long as it is not changed in place: a new
-    weight (LoRA's merge, a new tensor-parallel shard, a reloaded model)
-    gets its own copy, and a dropped weight's copy goes with it. A copy
-    needed during a CUDA graph's capture and not made before raises."""
-    key = id(w)
+
+def _kmajor_of(w: torch.Tensor, layout: str) -> torch.Tensor:
+    n = w.shape[-1]
+    if layout == "matrix":
+        return w.reshape(-1, n).t()
+    if layout == "stack":
+        return w.transpose(-1, -2)
+    if layout == "upsample":
+        return upsample_phase_weights(w).reshape(4, -1, n).transpose(-1, -2)
+    raise ValueError(f"kmajor has the layouts {KMAJOR_LAYOUTS}, not {layout!r}")
+
+
+def kmajor(w: torch.Tensor, layout: str = "matrix") -> torch.Tensor:
+    """The K-major TF32 copy of an f32 weight that a float32 route reads as
+    its B operand, rounded to TF32, by layout:
+
+    - "matrix": w [K, N] -> Wᵀ [N, K]; an HWIO conv weight [kh, kw, C, N] is
+      the [kh·kw·C, N] matrix it is (K tap-major, then the input channels in
+      order: K6's x, then x2), -> [N, kh·kw·C];
+    - "stack": K7's phase stack [4, 4C, N] (fused_conv.phase_weight_stack)
+      -> [4, N, 4C];
+    - "upsample": a 3x3 HWIO weight [3, 3, C, N] folded into that stack
+      first, -> [4, N, 4C] (K7 handed the weight without its stack).
+
+    Made at a weight's first float32 launch (a graph's eager warm-up,
+    before its capture), kept while the weight lives and for as long as it
+    is not changed in place: a new weight (LoRA's merge, a new
+    tensor-parallel shard, a reloaded model) gets its own copy, and a
+    dropped weight's copy goes with it. A copy needed during a CUDA graph's
+    capture and not made before raises."""
+    key = (id(w), layout)
     hit = _KMAJOR.get(key)
     if hit is not None and hit[0]() is w and hit[1] == w._version:
         return hit[2]
     if w.is_cuda and torch.cuda.is_current_stream_capturing():
         raise RuntimeError("kmajor: a weight's K-major copy is made outside a graph capture "
                            "(the warm-up's eager call makes it)")
-    wt = round_tf32(w.detach().t().contiguous())
+    wt = round_tf32(_kmajor_of(w.detach(), layout).contiguous())
     _KMAJOR[key] = (weakref.ref(w, lambda _ref, key=key: _KMAJOR.pop(key, None)),
                     w._version, wt)
     return wt

@@ -1,7 +1,7 @@
 """Where the time of the port's Hopper kernels goes on one NVIDIA GPU.
 
-    python -m sdtpu_torch.profile_kernels [--kernels K5,K9,K6,K2,K1,K4,K10,K7,K3,K5f,K2f]
-        [--out FILE]
+    python -m sdtpu_torch.profile_kernels
+        [--kernels K5,K9,K6,K2,K1,K4,K10,K7,K3,K5f,K2f,K6f,K7f] [--out FILE]
 
 At main-path shapes, bf16, random inputs (seeded): K5 at S=1024 C=640 B=2
 and S=256 C=1280 B=2 (csrc/gemm_sm90.cu), K9 at BH=32 S=4096 d=40
@@ -17,9 +17,11 @@ the residual, at 4096 x 320 and 16384 x 320 B=2, 4096 x 640 B=2 and
 S=4096 C=320 B=2, S=1024 C=640 B=4 and S=256 C=1280 B=8 with 77 masked keys
 (csrc/gemm_sm90.cu and csrc/attention_sm90.cu), K7 at the decoder's 128² x
 512, 256² x 256 and 512² x 256 (csrc/conv_sm90.cu at four taps), K3 at
-its main-path shapes (csrc/channel_stats_sm90.cu); and in float32 (K5f, K2f)
-K5 and K2 at the 512px generate's shapes on csrc/gemm_tf32_sm90.cu and
-csrc/attention_tf32_sm90.cu. --kernels picks some of them (all by
+its main-path shapes (csrc/channel_stats_sm90.cu); and in float32 (K5f, K2f,
+K6f, K7f) K5 and K2 at the 512px generate's shapes on csrc/gemm_tf32_sm90.cu
+and csrc/attention_tf32_sm90.cu, K6 at the 1024px UNet's fused ResBlocks
+and the decoder's 512², 256² and 64² convs and K7 at the decoder's four
+upsamplers on csrc/conv_tf32_sm90.cu. --kernels picks some of them (all by
 default). Device times are CUDA-graph replays (`device_ms`,
 also what chip_smoke.py times the Hopper kernels by) or torch.profiler
 kernel sums:
@@ -56,12 +58,14 @@ kernel sums:
 3. the depth of the rings: K5's 2, 3 or 4 stages (the plan's choice is 4),
    K6's, K4's and K7's 2 to 4 and K2's and K10's core's 3 to 5 where they
    fit;
-4. float32 (K5f, K2f): each launch of the float32 route "tf32"
+4. float32 (K5f, K2f, K6f, K7f): each launch of the float32 route "tf32"
    (torch.profiler); each TF32 product beside cuBLAS's matmul of the same
    shape with TF32 on and off; K2's TF32 core beside SDPA (float32: the
-   memory-efficient backend); the whole sublayer against the WMMA route it
-   replaced, in turns (wmma, tf32, tf32, wmma); the ring depths the route
-   takes; the bytes of the K-major copies.
+   memory-efficient backend); K6 and K7 on each tile width (K6 with and
+   without its prologue) beside cuDNN's convolution with TF32 on and off;
+   the whole sublayer against the WMMA route it replaced, in turns (wmma,
+   tf32, tf32, wmma); the ring depths the route takes; the bytes of the
+   K-major copies.
 
 The report starts with the card's name and power limit, and goes to
 stdout and, with --out, to FILE as well.
@@ -441,6 +445,98 @@ def profile_k2f(b, s, c, n_head, log, gen):
         f"{core.stages})")
 
 
+def _cudnn_tf32_ms(fn) -> tuple[float, float]:
+    """cuDNN's fn() (float32) by device time, TF32 on and off."""
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        on = device_ms(fn)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    return on, device_ms(fn)
+
+
+def profile_k6f(b, hw, c1, c2, co, log, gen):
+    """K6's float32 route (csrc/conv_tf32_sm90.cu), section 4."""
+    dev = torch.device("cuda")
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    ct = c1 + c2
+    x, x2 = rnd(b, hw, hw, c1), (rnd(b, hw, hw, c2) if c2 else None)
+    w, cb = rnd(3, 3, ct, co, scale=(9 * ct) ** -0.5), rnd(co, scale=0.1)
+    s, o = 1.0 + rnd(b, ct, scale=0.1), rnd(b, ct, scale=0.1)
+    label = f"K6 f32 {hw}x{hw} {c1}{f'+{c2}' if c2 else ''}->{co} B={b}"
+
+    def conv(route, prologue=True):
+        pro = (s[:, :c1], o[:, :c1]) if prologue else (None, None)
+        pro2 = (s[:, c1:], o[:, c1:]) if prologue and c2 else (None, None)
+        return lambda: fc._conv3x3(x, w, cb, *pro, None, True, True, x2, *pro2, route)
+
+    for name, ms in kernel_ms(conv("auto")).items():
+        log(f"{label}: {name[:72]}: {ms:.4f} ms a call (route tf32)")
+    plan = fc.tf32_conv_plan(b, hw, hw, c1, c2, co, True)
+    widths = []
+    for bn in (128, *fc.SM90_CONV_WIDE):
+        if bn == 128 or co % bn == 0:
+            p = fc.tf32_conv_plan(b, hw, hw, c1, c2, co, True, bn=bn)
+            p0 = fc.tf32_conv_plan(b, hw, hw, c1, c2, co, False, bn=bn)
+            widths.append(f"{bn} channels {device_ms(conv(p)):.4f} ms with the prologue, "
+                          f"{device_ms(conv(p0, prologue=False)):.4f} without")
+    xin = (x if x2 is None else torch.cat([x, x2], dim=-1)).permute(0, 3, 1, 2)
+    w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    on, off = _cudnn_tf32_ms(lambda: F.conv2d(xin, w_oihw, padding=1))
+    wmma, tf32 = _turns(conv("wmma"), conv("tf32"))
+    flops = 2 * 9 * b * hw * hw * ct * co
+    log(f"{label}: " + "; ".join(widths) + f" (the plan takes {plan.bn}); the route {tf32:.4f} "
+        f"ms against the WMMA kernel {wmma:.4f} (in turns); cuDNN's conv of the concat TF32 "
+        f"{on:.4f} / f32 {off:.4f}; TF32 bound {1e3 * flops / 495e12:.4f} ms; K-major copies "
+        f"{fm.kmajor_bytes()} bytes")
+    rings = []
+    for st in range(2, fc.TF32_CONV_MAX_STAGES + 1):
+        p = fc.tf32_conv_plan(b, hw, hw, c1, c2, co, True, bn=plan.bn, stages=st)
+        if p is not None:
+            rings.append(f"{st} stages {device_ms(conv(p)):.4f}")
+    log(f"{label}: by ring depth: " + ", ".join(rings) + f" (the plan takes {plan.stages})")
+
+
+def profile_k7f(b, hw, c, co, log, gen):
+    """K7's float32 route (csrc/conv_tf32_sm90.cu at four taps), section 4."""
+    dev = torch.device("cuda")
+    x = torch.randn(b, hw, hw, c, generator=gen, device=dev)
+    w = torch.randn(3, 3, c, co, generator=gen, device=dev) * (9 * c) ** -0.5
+    cb = 0.1 * torch.randn(co, generator=gen, device=dev)
+    label = f"K7 f32 {hw}x{hw}x{c} -> {2 * hw}x{2 * hw}x{co} B={b}"
+    phases = fc.phase_weight_stack(w, torch.float32)
+
+    def up(route):
+        return lambda: fc._upsample2x(x, w, cb, True, route, phases)
+
+    for name, ms in kernel_ms(up("auto")).items():
+        log(f"{label}: {name[:72]}: {ms:.4f} ms a call (route tf32)")
+    plan = fc.upsample_tf32_plan(b, hw, hw, c, co)
+    widths = []
+    for bn in (128, *fc.SM90_CONV_WIDE):
+        if bn == 128 or co % bn == 0:
+            p = fc.upsample_tf32_plan(b, hw, hw, c, co, bn=bn)
+            widths.append(f"{bn} channels {device_ms(up(p)):.4f} ms")
+    xu = cv.nearest_upsample_2x(x).permute(0, 3, 1, 2)
+    w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    on, off = _cudnn_tf32_ms(lambda: F.conv2d(xu, w_oihw, padding=1))
+    wmma, tf32 = _turns(up("wmma"), up("tf32"))
+    flops = 2 * 16 * b * hw * hw * c * co
+    log(f"{label}: " + "; ".join(widths) + f" (the plan takes {plan.bn}); the route "
+        f"{tf32:.4f} ms against the WMMA kernel {wmma:.4f} (in turns); "
+        f"cuDNN's conv over the upsampled map TF32 {on:.4f} / f32 {off:.4f}; TF32 bound "
+        f"{1e3 * flops / 495e12:.4f} ms")
+    rings = []
+    for st in range(2, fc.TF32_CONV_MAX_STAGES + 1):
+        p = fc.upsample_tf32_plan(b, hw, hw, c, co, bn=plan.bn, stages=st)
+        if p is not None:
+            rings.append(f"{st} stages {device_ms(up(p)):.4f}")
+    log(f"{label}: by ring depth: " + ", ".join(rings) + f" (the plan takes {plan.stages})")
+
+
 def profile_k1(bh, n_head, s, d, bias, log, gen):
     dev, dt = torch.device("cuda"), torch.bfloat16
     q, k, v = (torch.randn(bh, s, d, generator=gen, device=dev).to(dt) for _ in range(3))
@@ -714,7 +810,8 @@ def profile_k7(b, hw, c, co, log, gen):
     log(f"{label}: by ring depth: " + ", ".join(rings) + f" (the plan takes {plan.stages})")
 
 
-PROFILES = ("K5", "K9", "K6", "K2", "K1", "K4", "K10", "K7", "K3", "K5f", "K2f")
+PROFILES = ("K5", "K9", "K6", "K2", "K1", "K4", "K10", "K7", "K3", "K5f", "K2f", "K6f",
+            "K7f")
 
 
 def main(argv=None) -> None:
@@ -772,6 +869,15 @@ def main(argv=None) -> None:
         for b, s, c, n_head in ((2, 4096, 320, 8), (2, 1024, 640, 8), (2, 256, 1280, 8),
                                 (2, 9216, 320, 5)):
             profile_k2f(b, s, c, n_head, log, gen)
+    if "K6f" in picked:
+        for b, hw, c1, c2, co in ((2, 128, 640, 320, 320), (2, 128, 320, 0, 320),
+                                  (1, 512, 128, 0, 128), (1, 256, 256, 0, 256),
+                                  (1, 64, 512, 0, 512)):
+            profile_k6f(b, hw, c1, c2, co, log, gen)
+    if "K7f" in picked:
+        for b, hw, c, co in ((1, 128, 512, 512), (1, 256, 256, 256), (1, 256, 512, 512),
+                             (1, 512, 256, 256)):
+            profile_k7f(b, hw, c, co, log, gen)
     if "K3" in picked:
         for b, rows, c in K3_SHAPES:
             profile_k3(b, rows, c, log, gen)

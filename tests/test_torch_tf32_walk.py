@@ -21,6 +21,26 @@ their sums is written out here:
   stored V's positions t and t + 4, o / l rounded as it is stored, then
   o·Wo + bo + x. A walk whose V keeps its keys in their natural order
   (the epilogue's permutation dropped) must fail.
+- K6 (csrc/conv_tf32_sm90.cu): for each 128-pixel tile (the plan's box) and
+  each 32-deep K block (one tap, 32 channels of x or of x2), the A box read
+  at (c0, j0 + dx − 1, i0 + dy − 1, b) with zeros outside the map (TMA's
+  fill), the prologue (the affine, then SiLU), then the border mask, then A
+  rounded to TF32, times the block's 32 columns of the weight's K-major
+  copy (tap-major, x's channels then x2's, rounded to TF32), f32 sums, the
+  bias and residual, and the statistics summed from per-tile partials. A
+  walk with the mask applied to the loaded values before the prologue
+  (where TMA's zeros already are: silu(shift) reaches the border), and one
+  whose copy holds x2's K columns before x's in each tap, must fail. (A
+  mask between the affine and SiLU would be harmless: silu(0) = 0.)
+- K7 (the same kernel at four taps): each CTA one output phase (py, px) of
+  one tile of x, tap (dy, dx) read at (i + py + dy − 1, j + px + dx − 1)
+  with TMA's zeros as the padding, A rounded to TF32, times phase p's rows
+  of the stack's
+  K-major copy [4, Co, 4C], stored at (2i + py, 2j + px). A walk that
+  stores the phases with py and px swapped must fail.
+
+SiLU is exact here; the kernel's (h + h·tanh(h), h = v / 2, with MUFU's
+tanh) differs by about 2^-11 relative, below TF32's rounding.
 """
 
 import math
@@ -30,8 +50,10 @@ import numpy as np
 import pytest
 import torch
 
+from sdtpu.ops import fused_conv as jfc
 from sdtpu.ops import fused_mlp as jfm
 from sdtpu.ops import fused_transformer as jft
+from sdtpu_torch.ops import fused_conv as tfc
 from sdtpu_torch.ops import fused_mlp as tfm
 from sdtpu_torch.ops import fused_transformer as tft
 
@@ -149,3 +171,176 @@ def test_k2_tf32_walk_matches_sdtpu(c, n_head):
     assert np.all(np.abs(got - want) <= a + 2.0 ** -10 * np.abs(want))
     wrong = _np(k2_tf32_walk(*targs, n_head, permuted=False))
     assert not np.all(np.abs(wrong - want) <= a + 2.0 ** -10 * np.abs(want))
+
+
+# ------------------------------------------------------------ K6, K7
+
+
+def k6_tf32_walk(x, w, cb, scale=None, shift=None, residual=None, x2=None, scale2=None,
+                 shift2=None, mask="after", swap_x2=False):
+    """csrc/conv_tf32_sm90.cu's walk: returns (y, per-channel (Σ, Σ²) of y
+    summed from the per-tile partials). mask: "after" the prologue (the
+    kernel's) or "before" it; swap_x2: a K-major copy whose taps hold x2's
+    channels before x's."""
+    b, h, wd, c1 = x.shape
+    c2 = 0 if x2 is None else x2.shape[-1]
+    ct, co = c1 + c2, w.shape[-1]
+    plan = tfc.tf32_conv_plan(b, h, wd, c1, c2, co, scale is not None)
+    bm, bk = tfc.SM90_CONV_BM, tfc.TF32_CONV_BK
+    tiles_w = wd // plan.bw
+    if swap_x2:
+        w = torch.cat([w[:, :, c1:], w[:, :, :c1]], dim=2)
+    wt = tfm.kmajor(w)  # [Co, 9·ct]
+    out = torch.zeros(b, h, wd, co)
+    parts = torch.zeros(b, plan.grid[1], 2, co)
+    r = torch.arange(bm)
+    for bi in range(b):
+        for tile in range(plan.grid[1]):
+            i0, j0 = tile // tiles_w * plan.bh, tile % tiles_w * plan.bw
+            pi, pj = i0 + r // plan.bw, j0 + r % plan.bw
+            acc = torch.zeros(bm, co)
+            for kb in range(9 * ct // bk):
+                tap, c0 = divmod(kb * bk, ct)
+                dy, dx = divmod(tap, 3)
+                part2 = c0 >= c1
+                src, cc = (x2, c0 - c1) if part2 else (x, c0)
+                si, sj = pi + dy - 1, pj + dx - 1
+                inside = (si >= 0) & (si < h) & (sj >= 0) & (sj < wd)
+                a = torch.zeros(bm, bk)  # TMA's zeros outside the map
+                a[inside] = src[bi, si[inside], sj[inside], cc:cc + bk]
+                if scale is not None:
+                    sc, sh = (scale2, shift2) if part2 else (scale, shift)
+                    if mask == "before":
+                        a[~inside] = 0.0
+                    a = a * sc[bi, cc:cc + bk] + sh[bi, cc:cc + bk]
+                    a = a * torch.sigmoid(a)
+                    if mask == "after":
+                        a[~inside] = 0.0
+                acc += rna(a) @ wt[:, kb * bk:(kb + 1) * bk].t()
+            v = acc + cb
+            keep = pi < h  # rows of a box taller than what is left of the map
+            if residual is not None:
+                v[keep] += residual[bi, pi[keep], pj[keep]]
+            out[bi, pi[keep], pj[keep]] = v[keep]
+            parts[bi, tile] = torch.stack([v[keep].sum(0), (v[keep] ** 2).sum(0)])
+    return out, parts.sum(dim=1)
+
+
+def k7_tf32_walk(x, w, cb, swap=False):
+    """csrc/conv_tf32_sm90.cu's walk at four taps: returns (y, per-channel
+    (Σ, Σ²) of y from the per-tile partials of every phase). swap: phase
+    (py, px) stored at (2i + px, 2j + py)."""
+    b, h, wd, c = x.shape
+    co = w.shape[-1]
+    plan = tfc.upsample_tf32_plan(b, h, wd, c, co)
+    bm, bk = tfc.SM90_CONV_BM, tfc.TF32_CONV_BK
+    tiles_w = wd // plan.bw
+    wt = tfm.kmajor(tfc.phase_weight_stack(w, torch.float32), "stack")  # [4, Co, 4C]
+    out = torch.zeros(b, 2 * h, 2 * wd, co)
+    parts = torch.zeros(b, 4 * plan.grid[1], 2, co)
+    r = torch.arange(bm)
+    for z in range(plan.grid[2]):  # blockIdx.z = 4·b + 2·py + px
+        bi, phase = divmod(z, 4)
+        py, px = divmod(phase, 2)
+        for tile in range(plan.grid[1]):
+            i0, j0 = tile // tiles_w * plan.bh, tile % tiles_w * plan.bw
+            pi, pj = i0 + r // plan.bw, j0 + r % plan.bw
+            acc = torch.zeros(bm, co)
+            for kb in range(4 * c // bk):
+                tap, c0 = divmod(kb * bk, c)
+                dy, dx = divmod(tap, 2)
+                si, sj = pi + py + dy - 1, pj + px + dx - 1
+                inside = (si >= 0) & (si < h) & (sj >= 0) & (sj < wd)
+                a = torch.zeros(bm, bk)
+                a[inside] = x[bi, si[inside], sj[inside], c0:c0 + bk]
+                acc += rna(a) @ wt[phase, :, kb * bk:(kb + 1) * bk].t()
+            v = acc + cb
+            keep = pi < h
+            oy, ox = (px, py) if swap else (py, px)
+            out[bi, 2 * pi[keep] + oy, 2 * pj[keep] + ox] = v[keep]
+            parts[bi, phase * plan.grid[1] + tile] = torch.stack([v[keep].sum(0),
+                                                                  (v[keep] ** 2).sum(0)])
+    return out, parts.sum(dim=1)
+
+
+def _close(got, want) -> bool:
+    return bool(np.all(np.abs(_np(got) - _np(want)) <= TOL + TOL * np.abs(_np(want))))
+
+
+def _check_stats(y, st):
+    """The emitted statistics are the sums of the walk's own f32 output."""
+    yr = y.reshape(y.shape[0], -1, y.shape[-1])
+    want = torch.stack([yr.sum(1), (yr * yr).sum(1)], dim=1)
+    np.testing.assert_allclose(_np(st), _np(want), rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("residual", [True, False], ids=["res", "no_res"])
+@pytest.mark.parametrize("prologue", [True, False], ids=["prologue", "no_prologue"])
+@pytest.mark.parametrize("c2", [0, 32], ids=["x", "x_x2"])
+@pytest.mark.parametrize("w_map", [16, 8])
+def test_k6_tf32_walk_matches_sdtpu(w_map, c2, prologue, residual):
+    """At H = 8 and 32 channels: W = 16 takes boxes of 16 pixels by 8 rows,
+    W = 8 one box of 8 by 16 rows (its last 8 rows past the map, dropped);
+    one or two 32-deep K blocks a tap. Held against sdtpu's conv3x3_fused
+    in interpret mode at float32 (its statistics too)."""
+    r = np.random.default_rng(110 + w_map + c2 + 2 * prologue + residual)
+    b, h, c1, co = 2, 8, 32, 40
+
+    def f(*shape, scale=1.0, loc=0.0):
+        return (loc + scale * r.standard_normal(shape)).astype(np.float32)
+
+    x, w = f(b, h, w_map, c1), f(3, 3, c1 + c2, co, scale=(9 * (c1 + c2)) ** -0.5)
+    cb, res = f(co, scale=0.1), f(b, h, w_map, co)
+    # a GroupNorm folded to (scale, shift); the shift far enough from 0 that
+    # silu(shift) would show at the border
+    s, o = f(b, c1 + c2, scale=0.1, loc=1.0), f(b, c1 + c2, scale=0.2, loc=0.5)
+    x2 = f(b, h, w_map, c2) if c2 else None
+    t = torch.from_numpy
+    args = [t(x), t(w), t(cb)] + ([t(s[:, :c1]), t(o[:, :c1])] if prologue else [None, None])
+    jargs = [jnp.asarray(x), jnp.asarray(w), jnp.asarray(cb)] + (
+        [jnp.asarray(s[:, :c1]), jnp.asarray(o[:, :c1])] if prologue else [None, None])
+    walk_kw = dict(residual=t(res) if residual else None)
+    jkw = dict(residual=jnp.asarray(res) if residual else None, emit_stats=True,
+               interpret=True)
+    if c2:
+        walk_kw.update(x2=t(x2))
+        jkw.update(x2=jnp.asarray(x2))
+        if prologue:
+            walk_kw.update(scale2=t(s[:, c1:]), shift2=t(o[:, c1:]))
+            jkw.update(prologue_scale2=jnp.asarray(s[:, c1:]),
+                       prologue_bias2=jnp.asarray(o[:, c1:]))
+    got, got_st = k6_tf32_walk(*args, **walk_kw)
+    want, want_st = jfc.conv3x3_fused(*jargs, **jkw)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=TOL, atol=TOL)
+    _check_stats(got, got_st)
+    np.testing.assert_allclose(_np(got_st), _np(want_st), rtol=TOL,
+                               atol=TOL * float(np.abs(_np(want_st)).max()))
+    if prologue:
+        leak, _ = k6_tf32_walk(*args, **walk_kw, mask="before")
+        assert not _close(leak, want)
+    if c2:
+        swapped, _ = k6_tf32_walk(*args, **walk_kw, swap_x2=True)
+        assert not _close(swapped, want)
+
+
+@pytest.mark.parametrize("hw,c,co", [((8, 8), 32, 40), ((8, 16), 64, 32), ((16, 16), 32, 64)],
+                         ids=["8x8", "8x16", "16x16"])
+def test_k7_tf32_walk_matches_sdtpu(hw, c, co):
+    """K7's phases at four taps (one box of 8 pixels by 16 rows, or 16 by
+    8), against sdtpu's upsample2x_conv_fused in interpret mode at float32;
+    the phases stored with py and px swapped fail."""
+    r = np.random.default_rng(130 + c + co + hw[1])
+    h, wd = hw
+    x = r.standard_normal((2, h, wd, c)).astype(np.float32)
+    w = (r.standard_normal((3, 3, c, co)) * (9 * c) ** -0.5).astype(np.float32)
+    cb = (0.1 * r.standard_normal(co)).astype(np.float32)
+    t = [torch.from_numpy(a) for a in (x, w, cb)]
+    got, got_st = k7_tf32_walk(*t)
+    want, want_st = jfc.upsample2x_conv_fused(*map(jnp.asarray, (x, w, cb)), emit_stats=True,
+                                              interpret=True)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=TOL, atol=TOL)
+    _check_stats(got, got_st)
+    np.testing.assert_allclose(_np(got_st), _np(want_st), rtol=TOL,
+                               atol=TOL * float(np.abs(_np(want_st)).max()))
+    bad, _ = k7_tf32_walk(*t, swap=True)
+    assert not _close(bad, want)

@@ -45,14 +45,18 @@ Phases, each printing its lines:
    the mean of its two turns); in float32 K2 and K5 their TF32 routes
    against the WMMA route they replaced, in turns, at batch 2 (512px,
    1024px, SD v2.1), K6 and K7 theirs at the 512px decode's shapes and
-   the 1024px UNet's fused ResBlocks, and phase 8's float32 encoder's K3
+   the 1024px UNet's fused ResBlocks, K4 its TF32 route at the 512px and
+   1024px generates' proj_in and proj_out (batch 2 and 1, and the tp2
+   halves), K9 its at training's batches 4, 8 and 2, SD v2.1's d = 64 and
+   tp2's 4 heads, and phase 8's float32 encoder's K3
    and K6 against the kernels they replaced (the float32 cases that no
    path launches are checked, not timed), beside the library call with
    TF32 on. Planted faults must fail
    each kernel's tolerance at every case: for K6 the convolution without
    the border mask (the prologue applied to the zero-padded map) and, with a
    second input, the convolution without it; for K4 the product without its
-   prologue (proj_in) or without its residual (proj_out); for K7 the phases
+   prologue or with the affine's shift dropped (proj_in), or without its
+   residual (proj_out); for K7 the phases
    interleaved with py and px swapped and the taps read one pixel off (the
    map shifted by one); for K2 the attention over every other key and, in
    float32, the TF32 core reading V's keys in their natural order (the QKV
@@ -64,7 +68,10 @@ Phases, each printing its lines:
    each warpgroup's softmax on its own key slice's row maximum (no
    exchange) and with the two warpgroups' P slices swapped; for K3 the sums
    with one cluster rank's rows dropped and with batch b + 1's rows read for
-   b; (K9 and K10 have their own, below);
+   b; for K9 in float32 the gradients from a K-major copy of q and dO in
+   natural query order or of k in natural key order (the fragments'
+   permutation dropped) and from dS without Δ (K9's and K10's other checks
+   are below);
 3. one SpatialTransformer at the 64x64 latent level (C=320), random
    weights, run on the card (kernels) and on the CPU (plain versions); the
    VAE decoder at SD v1.4 width on a 16x16 latent with every fused gate
@@ -102,9 +109,9 @@ Phases, each printing its lines:
    generate (the command line's default dtype) on a float32 pipeline of
    the same seed's weights, replayed against its eager twin: the latent and
    image bit-equal, the replay's launches per shape the eager call's, K2's,
-   K5's, K6's and K7's on their TF32 route, the device's launches of one
-   replayed call the graphs' records (the TF32 kernels and the WMMA kernel
-   of K4 among them), and the K-major weight copies' bytes;
+   K5's, K4's, K6's and K7's on their TF32 route, the device's launches of
+   one replayed call the graphs' records (the TF32 kernels), and the
+   K-major weight copies' bytes;
 5. sdtpu_torch.finetune.run_finetune at SD v1.4 width and depth, 512x512,
    from a folder of synthetic PNGs: the latent cache through the port's
    VAE encoder and CLIP (their graphs replayed), then 3 AdamW steps at
@@ -117,7 +124,8 @@ Phases, each printing its lines:
    remat "dots" in bf16, and f32 compute under remat "full" with cuDNN's deterministic
    algorithms, after two eager f32 runs under its defaults whose differences are
    printed), each the same seeded run eagerly and replayed, every loss, the masters,
-   the optimizer state and the EMA bit-equal, K1 on its dtype's route, each run's
+   the optimizer state and the EMA bit-equal, K1 and K9 on their dtype's routes
+   (the f32 step's K9 on its TF32 kernel), each run's
    memory over its replays, and one
    replayed step under the profiler, whose device launches of K1's and
    K9's kernels must be the graph's record (DEVICE_KERNELS);
@@ -140,9 +148,10 @@ Phases, each printing its lines:
    (the dump tree read in process file by file, then through the native
    bulk reader);
    `python -m sdtpu_torch.sample dump|native ... --seed 0 --bf16` on the
-   card (the device argument omitted; `sample dump` beside the
-   dump's conversion back to native and `sample native` beside `convert
-   --to-mpk`), each PNG byte-equal to an
+   card (the device argument omitted; `sample native` beside `convert
+   --to-dump` and `--to-mpk`, `sample dump` beside both conversions back
+   to native; five copies of the weights at most on disk, CLI_MIN_FREE),
+   each PNG byte-equal to an
    in-process generate in bf16 with the same generator, each run's load
    and sampling seconds, warm start (the kernels built while the weights
    load, then the graphs captured), graph replays and launches (its
@@ -229,10 +238,10 @@ launched there with no case in phase 2 is a failure. Every launched
 kernel also carries `device_ms` (the same launches by device time), and K5,
 K9, K2, K6, K1, K4, K10, K7 and K3 `replaced_device_ms` (those of the
 kernels their bf16 route replaced: the WMMA kernels, K3's partials kernel with
-its sum; for the float32 launches of K2, K5, K6 and K7 the WMMA route
+its sum; for the float32 launches of K2, K5, K4, K6 and K7 the WMMA route
 their TF32 route replaced) and `sources_by_route` with `launches_by_route`
 ("bfloat16 sm90", "float32 tf32", ...). The graph phase's float32 generate
-adds K2's, K5's, K6's and K7's launches under "dtype=float32" shape keys,
+adds K2's, K5's, K4's, K6's and K7's launches under "dtype=float32" shape keys,
 timed by phase 2's float32 A/B. K3's `library_ms` is torch.var_mean over the rows,
 per channel; K8 has none (F.group_norm and F.silu are two calls). K5's
 `library_ms` is both of its
@@ -517,14 +526,17 @@ def kernel_cases(dtype, dev):
             return torch.matmul(xr, w)
 
         tag = " v2.1" if rows == 9216 else ""
+        # float32: the 512px and 1024px generates' shapes (the graph
+        # phase's and --f32-table's), batch 2 and the two-pass mode's 1
+        f32 = dtype == torch.float32 and b <= 2 and rows != 9216
         cases.append(Case("conv1x1_fused", f"proj_in {rows}x{c} B={b}{tag}",
                           fused_conv.conv1x1_fused, fused_conv.conv1x1_fused_plain,
                           (xr, w, cb, scale, bias), {}, ops * b // 2, library=product,
-                          old=k4_wmma))
+                          old=k4_wmma, f32=f32))
         cases.append(Case("conv1x1_fused", f"proj_out {rows}x{c} B={b}{tag}",
                           fused_conv.conv1x1_fused, fused_conv.conv1x1_fused_plain,
                           (xr, w, cb), {"residual": rnd(b, rows, c)}, ops * b // 2,
-                          library=product, old=k4_wmma))
+                          library=product, old=k4_wmma, f32=f32))
 
     # K2 at every UNet level of both sizes (the 16x16 middle block at 1024px),
     # of the two-pass mode's batch 1 and of the serve phase's batch of 4
@@ -710,7 +722,11 @@ def kernel_cases(dtype, dev):
                           f"BH={bh} S={s} d={d}{' v2.1' if s == 9216 else ''}",
                           flash_attention.flash_attention_bwd_heads, bwd_plain,
                           (q, k, v, do, o, lse), {"n_head": n_head}, 5 * 2 * bh * s * s * d,
-                          library=sdpa_fwd_bwd, library_minus=sdpa_fwd, old=bwd_wmma))
+                          library=sdpa_fwd_bwd, library_minus=sdpa_fwd, old=bwd_wmma,
+                          # float32: training's batches 4, 8 and 2 and v2.1's
+                          # d = 64 timed against the WMMA route in turns
+                          f32=dtype == torch.float32 and (s == 4096 and d == 40
+                                                          or s == 9216)))
 
     # K6 (GN+SiLU prologue, output statistics): the UNet's fused ResBlocks
     # at 128x128 (1024px, B=2): conv_in over x or over the implicit skip
@@ -912,11 +928,11 @@ def kernel_cases(dtype, dev):
         cases.append(Case("conv1x1_fused", f"proj_in {rows}x{c}->{co} B={b} tp2",
                           fused_conv.conv1x1_fused, fused_conv.conv1x1_fused_plain,
                           (xr, w, cb, scale, bias), {}, 2 * b * rows * c * co,
-                          library=product, old=k4_wmma))
+                          library=product, old=k4_wmma, f32=dtype == torch.float32))
         cases.append(Case("conv1x1_fused", f"proj_out {rows}x{c}->{co} B={b} tp2",
                           fused_conv.conv1x1_fused, fused_conv.conv1x1_fused_plain,
                           (xr, w, cb), {"residual": rnd(b, rows, co)}, 2 * b * rows * c * co,
-                          library=product, old=k4_wmma))
+                          library=product, old=k4_wmma, f32=dtype == torch.float32))
     for hw, ci, co, res, st in sorted(set(decoder_convs(64))):
         if co >= 256:  # the sharded convs (sdtpu's rule: >= 256 output channels)
             conv_case(f"vae {hw}x{hw} {ci}->{co // 2}{' res' if res else ''}"
@@ -971,7 +987,8 @@ def kernel_cases(dtype, dev):
     cases.append(Case("flash_attention_bwd_heads", "BH=16 S=4096 d=40 heads=4 tp2",
                       flash_attention.flash_attention_bwd_heads, bwd_plain4,
                       (q, k, v, do, o, lse), {"n_head": 4}, 5 * 2 * 16 * 4096 * 4096 * 40,
-                      library=sdpa_fwd_bwd4, library_minus=sdpa_fwd4, old=bwd_wmma4))
+                      library=sdpa_fwd_bwd4, library_minus=sdpa_fwd4, old=bwd_wmma4,
+                      f32=dtype == torch.float32))
 
     for b, hw in ((1, 512), (1, 1024), (4, 512), (1, 768)) + (((2, 512),) if mesh else ()):
         x = rnd(b, hw, hw, 128)
@@ -1036,8 +1053,15 @@ KERNEL_ROUTES = {
                         "tf32": "sdtpu_torch/csrc/gemm_tf32_sm90.cu",
                         "wmma": "sdtpu_torch/csrc/gemm.cu"},
     # K4's float32 launches (the graph phase's float32 generate) take the
-    # WMMA kernel
-    "conv1x1_fused": {"sm90": "sdtpu_torch/csrc/conv_sm90.cu", "wmma": "sdtpu_torch/csrc/gemm.cu"},
+    # TF32 kernel at one tap (route "tf32")
+    "conv1x1_fused": {"sm90": "sdtpu_torch/csrc/conv_sm90.cu",
+                      "tf32": "sdtpu_torch/csrc/conv_tf32_sm90.cu",
+                      "wmma": "sdtpu_torch/csrc/gemm.cu"},
+    # K9's float32 launches (the float32 train steps) take the TF32 kernel
+    # at d = 40, 64, 80 and 160; other widths the WMMA one
+    "flash_attention_bwd_heads": {"sm90": "sdtpu_torch/csrc/flash_attention_bwd_sm90.cu",
+                                  "tf32": "sdtpu_torch/csrc/flash_attention_bwd_tf32_sm90.cu",
+                                  "wmma": "sdtpu_torch/csrc/flash_attention_bwd.cu"},
     "conv3x3_fused": {"sm90": "sdtpu_torch/csrc/conv_sm90.cu",
                       "tf32": "sdtpu_torch/csrc/conv_tf32_sm90.cu",
                       "wmma": "sdtpu_torch/csrc/gemm.cu"},
@@ -1271,14 +1295,72 @@ def _check_k9(c, got, want, dname, failed):
     passes = [within(torch.zeros_like(want[1]), want[1], atols[1], r)[1],
               within(half_dq, want[0], atols[0], r)[1],
               within(K10_SCALE_ERR * want[0].float(), want[0], atols[0], r)[1]]
+    faults = ""
+    if dname == "float32":
+        # the TF32 kernel's faults: a K-major copy in natural order (the
+        # fragments' permutation dropped) and dS without Δ; a fault passes
+        # when every gradient it changes is within the tolerance
+        for label, wrong in _k9_tf32_faults(q, k, v, do).items():
+            ok = all(within(g, want[i], atols[i], r)[1] for i, g in wrong.items())
+            faults += f", {label}: {ok}"
+            passes.append(ok)
     print(f"kernel {c.name:21s} {dname:8s} {c.shape:30s} dq/dk/dv max_abs_err "
           f"{' / '.join(f'{e:.3e}' for e, _ in results)} (tol {frac:g}·max|ref| = "
           f"{' / '.join(f'{a:.3g}' for a in atols)}, + {r:g}|ref|); the tolerance passes "
           f"a zeroed dk: {passes[0]}, the dq over every other key: {passes[1]}, a dq "
-          f"x{K10_SCALE_ERR}: {passes[2]}", flush=True)
+          f"x{K10_SCALE_ERR}: {passes[2]}{faults}", flush=True)
     if any(passes):
         failed.append(f"{c.name} {dname} {c.shape} tolerance too loose")
     return max(e for e, _ in results), all(ok for _, ok in results), atols[0], r
+
+
+# K9's float32 route reads P^T, dS^T (dS) from registers whose k = t and
+# t + 4 are the group's columns 2t and 2t + 1: a K-major copy left in
+# natural order pairs fragment column FRAG_COL[p] with the copy's row p
+FRAG_COL = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def _k9_tf32_faults(q, k, v, do) -> dict:
+    """The float32 route's planted faults, in PyTorch ops over [BH, S, d]
+    (S a multiple of 8), as {label: {gradient index (0 dq, 1 dk, 2 dv):
+    the faulty gradient}}: the copies of q and dO in natural query order
+    (dK and dV), the copy of k in natural key order (dQ), and dS without Δ
+    (dQ and dK). Query chunks of a multiple of 8 rows keep the scores
+    within the plain version's budget."""
+    import torch
+
+    from sdtpu_torch.ops.flash_attention import query_chunks
+
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    scale = float(d) ** -0.5
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+
+    def frag(n):
+        return (torch.arange(n, device=q.device).view(-1, 8) // 8 * 8
+                + torch.tensor(FRAG_COL, device=q.device)).reshape(-1)
+
+    kidx = frag(sk)
+    step = max(8, (query_chunks(bh, 1, sq, sk)[0][1]) // 8 * 8)
+    dq_key, dq_nod = torch.empty_like(qf), torch.empty_like(qf)
+    dk_q, dv_q, dk_nod = (torch.zeros_like(kf) for _ in range(3))
+    for i in range(0, sq, step):
+        j = min(i + step, sq)
+        p = torch.softmax(torch.matmul(qf[:, i:j], kf.transpose(1, 2)) * scale, dim=-1)
+        dp = torch.matmul(dof[:, i:j], vf.transpose(1, 2))
+        delta = (p * dp).sum(-1, keepdim=True)
+        ds = p * (dp - delta) * scale
+        ds_nod = p * dp * scale
+        qi = frag(j - i)
+        dq_key[:, i:j] = torch.matmul(ds[:, :, kidx], kf)
+        dq_nod[:, i:j] = torch.matmul(ds_nod, kf)
+        dv_q += torch.matmul(p[:, qi].transpose(1, 2), dof[:, i:j])
+        dk_q += torch.matmul(ds[:, qi].transpose(1, 2), qf[:, i:j])
+        dk_nod += torch.matmul(ds_nod.transpose(1, 2), qf[:, i:j])
+        del p, dp, ds, ds_nod
+    return {"a K-major copy of q and dO in natural query order": {1: dk_q, 2: dv_q},
+            "a K-major copy of k in natural key order": {0: dq_key},
+            "dS without Δ": {0: dq_nod, 1: dk_nod}}
 
 
 def _check_k10(c, got, want, dname, failed):
@@ -1344,8 +1426,10 @@ def _k6_faults(c):
 
 def _k4_faults(c):
     """The planted faults K4's tolerance must fail, in PyTorch ops: the
-    product without its prologue (proj_in) or without its residual
-    (proj_out)."""
+    product without its prologue or with the affine's shift dropped
+    (proj_in), or without its residual (proj_out)."""
+    import torch
+
     from sdtpu_torch.ops.fused_conv import conv1x1_fused_plain
 
     x, w, cb = c.args[:3]
@@ -1353,6 +1437,8 @@ def _k4_faults(c):
     if len(c.args) > 3:
         faults["without its prologue"] = conv1x1_fused_plain(
             x, w, cb, residual=c.kw.get("residual"))
+        faults["with the affine's shift dropped"] = conv1x1_fused_plain(
+            x, w, cb, c.args[3], torch.zeros_like(c.args[4]), residual=c.kw.get("residual"))
     if c.kw.get("residual") is not None:
         faults["without its residual"] = conv1x1_fused_plain(*c.args)
     return faults
@@ -2141,12 +2227,12 @@ DEVICE_KERNELS = {
     ("fused_cross_attention_kv", "sm90"): {"row_stats_kernel": 1, "gemm_sm90_kernel": 2,
                                            "attention_sm90_kernel": 1},
     ("fused_geglu_mlp", None): {"row_stats_kernel": 1, "gemm_sm90_kernel": 2},
-    # float32 (the graph phase's float32 generate): K2's, K5's, K6's and
-    # K7's TF32 kernels, and the WMMA kernel (csrc/gemm.cu) of K4's float32
-    # route
+    # float32 (the graph phase's float32 generate): K2's, K5's, K4's, K6's
+    # and K7's TF32 kernels
     ("fused_self_attention", "tf32"): {"row_stats_f32_kernel": 1, "gemm_tf32_kernel": 2,
                                        "attention_tf32_kernel": 1},
     ("fused_geglu_mlp", "tf32"): {"row_stats_f32_kernel": 1, "gemm_tf32_kernel": 2},
+    ("conv1x1_fused", "tf32"): {"conv_tf32_kernel": 1},
     ("conv3x3_fused", "tf32"): {"conv_tf32_kernel": 1},
     ("upsample2x_conv_fused", "tf32"): {"conv_tf32_kernel": 1},
     ("conv1x1_fused", "wmma"): {"gemm_kernel": 1},
@@ -2159,11 +2245,13 @@ DEVICE_KERNELS = {
     ("channel_partials", "partials"): {"channel_partials_kernel": 1},
     ("group_norm_silu", None): {"group_norm_silu_kernel": 1},
     # training: K1's Hopper core; K9's Hopper kernel (the bf16 route at d
-    # padded to 48/64/80/160, whose launches carry no route): the row
-    # terms, dK and dV, dQ
+    # padded to 48/64/80/160): the row terms, dK and dV, dQ; its float32
+    # route: the pre-pass (the K-major copies and Δ), dK and dV, dQ
     ("flash_attention_heads", "sm90"): {"attention_sm90_kernel": 1},
-    ("flash_attention_bwd_heads", None): {"sm90_delta_kernel": 1, "sm90_dkdv_kernel": 1,
-                                          "sm90_dq_kernel": 1},
+    ("flash_attention_bwd_heads", "sm90"): {"sm90_delta_kernel": 1, "sm90_dkdv_kernel": 1,
+                                            "sm90_dq_kernel": 1},
+    ("flash_attention_bwd_heads", "tf32"): {"tf32_bwd_prep_kernel": 1, "tf32_dkdv_kernel": 1,
+                                            "tf32_dq_kernel": 1},
 }
 HAND_WRITTEN = re.compile(r"(?:void )?sdk::(?:\(anonymous namespace\)::)?(\w+)")
 
@@ -2393,10 +2481,10 @@ def phase_graphs_f32(dev, tok) -> tuple[dict, dict]:
     decode, replayed from CUDA graphs (the first call captures) and on the
     eager twin, the same inputs: the latent and the image bit-equal, the
     replay's launch counts per shape equal to the eager call's, K2's, K5's,
-    K6's and K7's launches on their TF32 route, and the device's launches of
+    K4's, K6's and K7's launches on their TF32 route, and the device's launches of
     the hand-written kernels in one replayed call, by the profiler, equal to
     the graphs' records (DEVICE_KERNELS). Returns the TF32 routes' launches
-    of the eager call and the replay (K2, K5, K6, K7; their shape keys under
+    of the eager call and the replay (K2, K5, K4, K6, K7; their shape keys under
     F32_KEY), which join the main paths' totals; the other kernels' float32
     launches are checked here and timed by --f32-table."""
     import torch
@@ -2449,7 +2537,8 @@ def phase_graphs_f32(dev, tok) -> tuple[dict, dict]:
           f"{card_line()}", flush=True)
     if replayed != once:
         bad.append("the replay's launch counts per shape are not the eager call's")
-    tf32 = ("fused_self_attention", "fused_geglu_mlp", "conv3x3_fused", "upsample2x_conv_fused")
+    tf32 = ("fused_self_attention", "fused_geglu_mlp", "conv1x1_fused", "conv3x3_fused",
+            "upsample2x_conv_fused")
     for name in tf32:
         routes = by_route(once[1][name])
         print(f"graphs f32 {name} launches by route {routes}", flush=True)
@@ -2865,6 +2954,7 @@ def phase_grad(dev) -> None:
     torch.cuda.synchronize()
     fired = {k: f.launches for k, f in fns.items() if f.launches}
     k1_routes = by_route(fns["flash_attention_heads"].shapes)
+    k9_routes = by_route(fns["flash_attention_bwd_heads"].shapes)
     cpu = grads("cpu")
     frac, rtol = GRAD_TOL
     worst, bad = (0.0, ""), []
@@ -2882,14 +2972,16 @@ def phase_grad(dev) -> None:
           f"(plain) float32: {len(cpu)} gradients, all present and nonzero: "
           f"{not any('no gradient' in b for b in bad)}, worst max_abs_err / max|ref| "
           f"{worst[0]:.3e} ({worst[1]}; tol {frac:g} + {rtol:g}|ref|), launches {fired}, K1 "
-          f"by route {k1_routes} (f32 keeps the WMMA kernel) {'ok' if not bad else 'FAILED'}",
-          flush=True)
+          f"by route {k1_routes} (f32 keeps the WMMA kernel), K9 by route {k9_routes} "
+          f"{'ok' if not bad else 'FAILED'}", flush=True)
     if bad:
         fail("training gradients on the card disagree with the CPU: " + "; ".join(bad))
     if fired != {"flash_attention_heads": 1, "flash_attention_bwd_heads": 1}:
         fail(f"the transformer's training step launched {fired}, expected K1 1, K9 1")
     if k1_routes != {"wmma": 1}:
         fail(f"the f32 training step's K1 took {k1_routes}, expected the WMMA kernel")
+    if k9_routes != {"tf32": 1}:
+        fail(f"the f32 training step's K9 took {k9_routes}, expected its TF32 kernel")
 
 
 # the serve phase: SD v1.4 at 512px in bf16 behind sdtpu_torch.serve, K10's
@@ -3190,8 +3282,8 @@ EXPECTED_TRAIN = {"flash_attention_heads": 5 * TRAIN_STEPS,
 # the masters, the optimizer state and the EMA after TRAIN_AB_STEPS steps
 # must be bit-equal. K1 and K9 per step: 5 each (accum 2: 10; remat "dots"
 # saves the attention outputs: 5; remat "full" runs K1 twice: 10), K1 on
-# the Hopper core in bf16 and on the WMMA kernel in f32 (K9 on its float32
-# kernel there). cuDNN's float32 backward may take non-deterministic
+# the Hopper core in bf16 and on the WMMA kernel in f32, K9 on its bf16
+# Hopper kernel and on its TF32 one in f32. cuDNN's float32 backward may take non-deterministic
 # algorithms, under which two eager runs differ: the f32 entry first runs
 # eagerly twice under PyTorch's defaults and prints how many leaves
 # differ, then makes its A/B with torch.backends.cudnn.deterministic on
@@ -3331,6 +3423,9 @@ def phase_train_graphs(dev, sd, batches) -> None:
         replayed_counts = fired(replayed_read[0])
         k1_routes = by_route(replayed_read[1]["flash_attention_heads"])
         k1_route = "sm90" if compute == "bfloat16" else "wmma"
+        # K9: bf16's Hopper kernel, float32's TF32 one (d = 40)
+        k9_routes = by_route(replayed_read[1]["flash_attention_bwd_heads"])
+        k9_route = "sm90" if compute == "bfloat16" else "tf32"
         same = {"losses": eager[3] == replayed[3],
                 **{part: n == 0 for part, n in differ(eager, replayed).items()}}
         stats = cache.stats()
@@ -3345,14 +3440,17 @@ def phase_train_graphs(dev, sd, batches) -> None:
               f"{[round(t, 2) for t in eager[4]]} "
               f"({memory(eager[5])}), replayed {[round(t, 2) for t in replayed[4]]} "
               f"({memory(replayed[5])}); losses {replayed[3]}; bit-equal {same}; launches "
-              f"eager {eager_counts}, replayed {replayed_counts}, K1 by route {k1_routes}; "
-              f"{graph_summary(stats)} | {card_line()}", flush=True)
+              f"eager {eager_counts}, replayed {replayed_counts}, K1 by route {k1_routes}, K9 "
+              f"by route {k9_routes}; {graph_summary(stats)} | {card_line()}", flush=True)
         if not all(same.values()) or eager_counts != replayed_counts or not eager_counts:
             bad.append(f"{label}: bit-equal {same}, launches {eager_counts} and "
                        f"{replayed_counts}")
         if k1_routes != {k1_route: replayed_counts.get("flash_attention_heads")}:
             bad.append(f"{label}: K1 launched {k1_routes} by route, all expected on "
                        f"{k1_route}")
+        if k9_routes != {k9_route: replayed_counts.get("flash_attention_bwd_heads")}:
+            bad.append(f"{label}: K9 launched {k9_routes} by route, all expected on "
+                       f"{k9_route}")
         if stats["captures"] != {"train": 1} or \
                 stats["replays"] != {"train": TRAIN_AB_STEPS - 1}:
             bad.append(f"{label}: captures {stats['captures']}, replays {stats['replays']}")
@@ -3765,7 +3863,7 @@ def phase_finetune_cli(dev) -> tuple[dict, dict]:
 # the CLI phase: SD v1.4 at 512px from model files, bf16, 20 DDIM steps, CFG
 # 7.5, seed 0, through `python -m sdtpu_torch.sample` and `.convert`
 CLI_PROMPT, CLI_STEPS, CLI_SCALE = "An ancient mossy stone.", 20, 7.5
-CLI_MIN_FREE = 10 * 1024 ** 3  # two 4.3 GB copies of the weights at once, and room
+CLI_MIN_FREE = 24 * 1024 ** 3  # five 4.3 GB copies of the weights at once, and room
 # the two-pass image against the batched mode's: the mean |difference| over
 # its pixels, in gray levels (bf16 rounding at other places, batch 1 against
 # 2 and 2 or N keys against 77 masked, through 20 steps of CFG 7.5; measured
@@ -3840,10 +3938,12 @@ def phase_cli(dev, tf32_defaults) -> tuple[dict, dict]:
     """Phase 7: the command lines at SD v1.4 width and depth, random weights
     (init_params, seed 0, f32, the weights of phase 4), in a temporary
     directory deleted at the end. The weights are written once as native;
-    `python -m sdtpu_torch.convert --to-dump` and back, then `--to-mpk` and
+    `python -m sdtpu_torch.convert --to-dump` and back, and `--to-mpk` and
     `--mpk` back, must give every leaf bit-equal (the dump's and the mpk's
-    reads also timed in this process; each conversion back replaces the
-    native file, so two copies of the weights at most are on disk); `python -m sdtpu_torch.sample dump|native ... --seed 0
+    reads also timed in this process; the two conversions from native run
+    at once, beside `sample native`, then the two back to native files of
+    their own, beside `sample dump`: five copies of the weights at most are
+    on disk); `python -m sdtpu_torch.sample dump|native ... --seed 0
     --bf16` (the device argument omitted: the card) must write the PNG bytes
     of an in-process generate in bf16 with the same generator, each run's
     load and sampling seconds and launches read from its SDTPU_PROFILE=1
@@ -3923,19 +4023,19 @@ def phase_cli(dev, tf32_defaults) -> tuple[dict, dict]:
             print(f"cli {label}: {wall:.2f} s of wall, peak resident {_gib(rss)} "
                   f"| {card_line()}", flush=True)
 
-        def round_trip(label, back_args):
-            """Convert back to the native file (removed while the other
-            format holds the weights, so at most two copies are on disk)
-            and check every leaf against the weights."""
-            os.remove(native)
-            convert(label, *back_args, native[:-len(".safetensors")])
-            got, got_cfg = load_native(native, device=dev)
+        def round_trip(label, back_args, name):
+            """Convert back to a native file of its own, check every leaf
+            against the weights, and remove it."""
+            back = os.path.join(tmp, name)
+            convert(label, *back_args, back)
+            got, got_cfg = load_native(back + ".safetensors", device=dev)
             diff = leaves_differ(got)
             print(f"cli {label}: {len(flat)} leaves, config {got_cfg.name}, bit-equal to the "
                   f"weights: {not diff and got_cfg == cfg}", flush=True)
             if diff or got_cfg != cfg:
                 bad.append(f"{label}: leaves differ {diff[:5]} (config {got_cfg.name})")
             del got
+            os.remove(back + ".safetensors")
 
         def sample(fmt, model):
             prefix = os.path.join(tmp, f"img_{fmt}")
@@ -3972,10 +4072,19 @@ def phase_cli(dev, tf32_defaults) -> tuple[dict, dict]:
             with open(prefix + "0.png", "rb") as f:
                 pngs[fmt] = f.read()
 
-        # the npy dump tree; each in-process read is timed, and its leaves
-        # are checked by the round trip, whose conversion reads them alike
+        # the npy dump tree and the Burn mpk, written from the native file
+        # at once while `sample native` reads it (three processes, whose
+        # walls overlap, to keep the script inside its time limit); each
+        # in-process read is timed, and the leaves are checked by the round
+        # trips, whose conversions read them alike
         dump = os.path.join(tmp, "dump")
-        convert("convert --to-dump", "--to-dump", native, dump)
+        mpk = os.path.join(tmp, "sd.mpk")
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            outs = [pool.submit(convert, "convert --to-dump", "--to-dump", native, dump),
+                    pool.submit(convert, "convert --to-mpk", "--to-mpk", native, mpk)]
+            sample("native", native)
+            for f in outs:
+                f.result()
         n_files = sum(len(fs) for _, _, fs in os.walk(dump))
 
         def read_dump(bulk):
@@ -3998,27 +4107,21 @@ def phase_cli(dev, tf32_defaults) -> tuple[dict, dict]:
               f"(load_stable_diffusion_dump, in process) in the order file by file, bulk: "
               + ", ".join(f"{'bulk' if b else 'file by file'} {t:.2f} s" for b, t in turns)
               + f" | {card_line()}", flush=True)
-        # `convert` writes the native file back from the tree while `sample
-        # dump` reads it, and the Burn mpk is written from the native file
-        # while `sample native` reads it: two processes at once each time
-        # (their walls overlap), to keep the script inside its time limit
-        with concurrent.futures.ThreadPoolExecutor(1) as pool:
-            back = pool.submit(round_trip, "convert dump -> native", [dump])
-            sample("dump", dump)
-            back.result()
-        shutil.rmtree(dump)
-        mpk = os.path.join(tmp, "sd.mpk")
-        with concurrent.futures.ThreadPoolExecutor(1) as pool:
-            to_mpk = pool.submit(convert, "convert --to-mpk", "--to-mpk", native, mpk)
-            sample("native", native)
-            to_mpk.result()
         t0 = time.perf_counter()
         tree = load_mpk(mpk)
         read_s = time.perf_counter() - t0
         del tree
         print(f"cli mpk: {_tree_bytes(mpk) / gb:.3f} GB; read (load_mpk, in process) "
               f"{read_s:.2f} s", flush=True)
-        round_trip("convert --mpk -> native", ["--mpk", mpk])
+        # both back to native at once while `sample dump` reads the tree
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            backs = [pool.submit(round_trip, "convert dump -> native", [dump], "from_dump"),
+                     pool.submit(round_trip, "convert --mpk -> native", ["--mpk", mpk],
+                                 "from_mpk")]
+            sample("dump", dump)
+            for f in backs:
+                f.result()
+        shutil.rmtree(dump)
         os.remove(mpk)
         print(f"cli files done in {time.perf_counter() - t_phase:.1f} s", flush=True)
 

@@ -1,4 +1,4 @@
-// K6 and K7 in float32 on Hopper's TMA and warpgroup tensor-core
+// K6, K7 and K4 in float32 on Hopper's TMA and warpgroup tensor-core
 // instructions, TF32 in and f32 accumulators: the float32 routes (float32 is
 // the default dtype of `sample`, `serve` and `finetune`) of
 // - K6, the fused 3x3 convolution, sdtpu/ops/fused_conv.py:conv3x3_fused
@@ -77,10 +77,24 @@
 //   shared memory, into [B][row tiles][2][Co]: no atomics, every run the
 //   same bits.
 //
+// - K4, the fused 1x1 convolution, sdtpu/ops/fused_conv.py:conv1x1_fused
+//   (its Pallas body `_mm_kernel` :406, called at :473), is the same kernel
+//   at one tap (TAPS = 1), y = act(x·scale + shift)·W + b [+ residual], act
+//   = SiLU or none (proj_in: the GroupNorm affine alone; proj_out: no
+//   prologue and the residual), over x viewed as [B][rows][C]: its A box is
+//   a TMA box of a 3-D tensor map (32 channels, 128 rows, 1 image) at the
+//   tile's own rows, zeros past the last row, whose rows are neither stored
+//   nor counted; no border mask; B the K-major TF32 copy Wᵀ [Co][C]. At SD's
+//   shapes it is bound by its bytes (4096 rows x 320 -> 320 at batch 2: 6.3
+//   µs of HBM, 9.4 with the residual, against 3.4 µs of TF32 products), so
+//   the ring, the residual's read and the store are what its time is made
+//   of.
+//
 // The tile plan (bn, the box, the stages, the shared-memory bytes) comes
 // from Python (sdtpu_torch/ops/fused_conv.py:tf32_conv_plan, and
-// upsample_tf32_plan for K7) and is checked here. Other shapes, and K6 with
-// an affine prologue without SiLU, take the WMMA kernel (csrc/gemm.cu).
+// upsample_tf32_plan for K7, conv1x1_tf32_plan for K4) and is checked here.
+// Other shapes, and K6 with an affine prologue without SiLU (no main path
+// runs it), take the WMMA kernel (csrc/gemm.cu).
 #include "tf32_sm90.cuh"
 
 namespace sdk {
@@ -95,8 +109,8 @@ constexpr int F_CONSUMERS = 256, F_NT = F_CONSUMERS + 128;
 constexpr uint32_t F_A_BYTES = F_BM * F_BK * 4;   // 16384: the A box
 constexpr uint32_t F_W_BYTES = F_BOX * F_BK * 4;  // 8192: 64 rows of Wᵀ
 constexpr int F_MAX_SMEM = 232448;
-// prologues: none, the GroupNorm affine then SiLU
-constexpr int FPRO_NONE = 0, FPRO_SILU = 2;
+// prologues: none, the GroupNorm affine (K4's proj_in), the affine then SiLU
+constexpr int FPRO_NONE = 0, FPRO_AFFINE = 1, FPRO_SILU = 2;
 
 struct ConvTf32 {
   const float* bias;    // [Co], or null
@@ -106,7 +120,7 @@ struct ConvTf32 {
   const float* shift2;
   long long ld_s, ld_s2;
   const float* res;     // [B][H][W][Co], or null
-  float* out;           // [B][H][W][Co] (K7: [B][2H][2W][Co])
+  float* out;           // [B][H][W][Co] (K7: [B][2H][2W][Co]; K4: H = rows, W = 1)
   float* stats;         // [B][row tiles][2][Co], or null
   int H, W, C1, C2, Co, bw, stages;
 };
@@ -145,18 +159,19 @@ __device__ __forceinline__ void conv_mma(float* acc, const uint32_t* af, uint32_
   }
 }
 
-// PRO: the prologue (FPRO_NONE, FPRO_SILU); TAPS: 9 (K6) or 4 (K7: one
-// output phase's 2x2 taps, the phase in blockIdx.z = 4·b + 2·py + px)
+// PRO: the prologue (FPRO_NONE, FPRO_AFFINE, FPRO_SILU); TAPS: 9 (K6), 4
+// (K7: one output phase's 2x2 taps, the phase in blockIdx.z = 4·b + 2·py +
+// px) or 1 (K4: map_x 3-D over [B][rows][C], read with H = rows, W = 1)
 template <int BN, int PRO, int TAPS>
 __global__ void __launch_bounds__(F_NT, 1)
     conv_tf32_kernel(const __grid_constant__ CUtensorMap map_x,
                      const __grid_constant__ CUtensorMap map_x2,
                      const __grid_constant__ CUtensorMap map_w, const ConvTf32 p) {
-  static_assert(TAPS == 9 || TAPS == 4, "3x3, or K7's 2x2 phases");
+  static_assert(TAPS == 9 || TAPS == 4 || TAPS == 1, "3x3, K7's 2x2 phases, or 1x1");
   static_assert(TAPS != 4 || PRO == FPRO_NONE, "K7 has no prologue: TMA's zeros pad it");
   constexpr uint32_t STAGE = stage_bytes<BN>();
   constexpr int NB = BN / F_BOX;
-  constexpr int KW = TAPS == 9 ? 3 : 2;  // taps a row
+  constexpr int KW = TAPS == 9 ? 3 : TAPS == 4 ? 2 : 1;  // taps a row
   constexpr int PH = TAPS == 4 ? 4 : 1;  // output phases in the grid
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -200,7 +215,9 @@ __global__ void __launch_bounds__(F_NT, 1)
         unsigned char* st = smem + s * STAGE;
         const int tap = kb / kpt, c0 = (kb - tap * kpt) * F_BK;
         const int sy = i0 + tap / KW + oy, sx = j0 + tap % KW + ox;
-        if (c0 < p.C1)
+        if constexpr (TAPS == 1)
+          tma_load_3d(st, &map_x, &full[s], c0, i0, b);
+        else if (c0 < p.C1)
           tma_load_4d(st, &map_x, &full[s], c0, sx, sy, b);
         else
           tma_load_4d(st, &map_x2, &full[s], c0 - p.C1, sx, sy, b);
@@ -248,19 +265,21 @@ __global__ void __launch_bounds__(F_NT, 1)
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
 
   // K block kb: wait for its stage, load this warp's A fragments with
-  // ldmatrix, apply the prologue and then the border mask, and round to
-  // TF32, in registers
+  // ldmatrix, apply the prologue and then (3x3) the border mask, and round
+  // to TF32, in registers
   auto prepare = [&](uint32_t(&af)[4][4], int kb) {
     const int s = kb % stages;
     mbar_wait(&full[s], (kb / stages) & 1);
     const uint32_t a_base = smem_u32(smem + s * STAGE) + lrow * 128;
     const int tap = kb / kpt, c0 = (kb - tap * kpt) * F_BK;
     const int dy = tap / KW + oy, dx = tap % KW + ox;
-    bool inside[2];
+    bool inside[2] = {true, true};  // one tap: no border
+    if constexpr (TAPS != 1) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
-      inside[h] =
-          (unsigned)(pi[h] + dy) < (unsigned)p.H && (unsigned)(pj[h] + dx) < (unsigned)p.W;
+      for (int h = 0; h < 2; ++h)
+        inside[h] =
+            (unsigned)(pi[h] + dy) < (unsigned)p.H && (unsigned)(pj[h] + dx) < (unsigned)p.W;
+    }
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks) {
       ldmatrix_x4(af[ks], a_base + (((2 * ks + lchunk) ^ (lrow & 7)) << 4));
@@ -268,12 +287,14 @@ __global__ void __launch_bounds__(F_NT, 1)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         float v = __uint_as_float(af[ks][j]);
-        if constexpr (PRO == FPRO_SILU) {
+        if constexpr (PRO != FPRO_NONE) {
           const float2 a = s_aff[c0 + ks * 8 + 4 * (j >> 1) + t];
           v = fmaf(v, a.x, a.y);
-          const float hv = 0.5f * v;
-          v = fmaf(hv, tanh_approx(hv), hv);
-          v = inside[j & 1] ? v : 0.f;
+          if constexpr (PRO == FPRO_SILU) {
+            const float hv = 0.5f * v;
+            v = fmaf(hv, tanh_approx(hv), hv);
+          }
+          if constexpr (TAPS != 1) v = inside[j & 1] ? v : 0.f;
         }
         af[ks][j] = to_tf32(v);
       }
@@ -488,6 +509,46 @@ extern "C" int sdk_conv3x3_tf32(const void* x, const void* x2, const void* wt, c
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(pro ? launch_conv_tf32<FPRO_SILU, 9>(bn, mx, mx2, mw, p, B, tiles, smem_bytes, s)
                    : launch_conv_tf32<FPRO_NONE, 9>(bn, mx, mx2, mw, p, B, tiles, smem_bytes, s));
+}
+
+// K4: y [B][rows][Co] = act(x·scale + shift)·w + bias [+ res], f32 with
+// TF32 products. x [B][rows][C]; wt the K-major copy [Co][C] of the weight
+// [C][Co], rounded to TF32; bias [Co] f32 or null; scale/shift [B][ld_s]
+// f32 (C used), or both null (no prologue); act = SiLU when silu, else
+// none; res like y, or null; stats [B][row tiles][2][Co] f32 or null, row
+// tiles = ceil(rows / 128). C a multiple of 32, Co of 8. The plan from
+// Python (fused_conv.conv1x1_tf32_plan): bn output channels a tile (128,
+// 256 or 320), `stages`, smem_bytes.
+extern "C" int sdk_conv1x1_tf32(const void* x, const void* wt, const void* bias,
+                                const float* scale, const float* shift, long long ld_s, int silu,
+                                const void* res, void* out, float* stats, int B, int rows, int C,
+                                int Co, int bn, int stages, int smem_bytes, void* stream) {
+  using namespace sdk;
+  const void* ptrs[] = {x, wt, res, out};
+  for (const void* q : ptrs)
+    if (q && !sm90::aligned16(q)) return (int)cudaErrorInvalidValue;
+  const bool pro = scale != nullptr;
+  if (B <= 0 || rows <= 0 || C <= 0 || C % F_BK || Co <= 0 || Co % 8 ||
+      reinterpret_cast<uintptr_t>(bias) % 4 || stages < 2 || (shift != nullptr) != pro ||
+      (pro && ld_s < C))
+    return (int)cudaErrorInvalidValue;
+  // x as [B][rows][C], in boxes of 32 channels x 128 rows x 1 image
+  CUtensorMap mx, mw;
+  const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)rows, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)C * 4, (cuuint64_t)rows * C * 4};
+  const cuuint32_t box[3] = {(cuuint32_t)F_BK, (cuuint32_t)F_BM, 1};
+  cudaError_t err = sm90::make_map_f32(&mx, x, 3, dims, strides, box);
+  if (err == cudaSuccess) err = sm90::make_map_f32_2d(&mw, wt, C, Co, C, F_BOX);
+  if (err != cudaSuccess) return (int)err;
+  // the map's rows as a 1-pixel-wide image: tile t is rows 128t .. 128t + 127
+  ConvTf32 p{static_cast<const float*>(bias), scale, shift, nullptr, nullptr, ld_s, 0,
+             static_cast<const float*>(res), static_cast<float*>(out), stats,
+             rows, 1, C, 0, Co, 1, stages};
+  const int tiles = (rows + F_BM - 1) / F_BM;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!pro) return (int)launch_conv_tf32<FPRO_NONE, 1>(bn, mx, mx, mw, p, B, tiles, smem_bytes, s);
+  if (silu) return (int)launch_conv_tf32<FPRO_SILU, 1>(bn, mx, mx, mw, p, B, tiles, smem_bytes, s);
+  return (int)launch_conv_tf32<FPRO_AFFINE, 1>(bn, mx, mx, mw, p, B, tiles, smem_bytes, s);
 }
 
 // K7: y [B][2H][2W][Co] = conv3x3(nearest2x(x)) + bias, f32 with TF32

@@ -1,5 +1,6 @@
 // The float32 routes' Hopper building blocks (gemm_tf32_sm90.cu,
-// attention_tf32_sm90.cu, conv_tf32_sm90.cu): wgmma.mma_async on TF32
+// attention_tf32_sm90.cu, conv_tf32_sm90.cu,
+// flash_attention_bwd_tf32_sm90.cu): wgmma.mma_async on TF32
 // operands with f32 accumulators, the round to TF32, and f32 tensor maps.
 //
 // TF32 wgmma differs from bf16 wgmma in what K2's and K5's float32 routes
@@ -154,6 +155,18 @@ __device__ __forceinline__ void wgmma_tf32_rs_n256(float* d, const uint32_t* a, 
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[0..8) += A (descriptor, K-major) · B (descriptor, K-major), TF32, m64n16k8
+__device__ __forceinline__ void wgmma_tf32_ss_n16(float* d, uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "l"(a), "l"(b), "r"(1));
 }
 
 // d[0..16) += A (descriptor, K-major) · B (descriptor, K-major), TF32, m64n32k8

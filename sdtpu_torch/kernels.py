@@ -73,10 +73,12 @@ _SIGNATURES = {
                             _P],
     "sdk_flash_attention_bwd": [_I, *[_P] * 10, *[_LL] * 6, _I, _I, _I, _I, _I, _F, _P],
     "sdk_flash_attention_bwd_sm90": [*[_P] * 10, *[_LL] * 6, *[_I] * 5, _F, *[_I] * 5, _P],
+    "sdk_flash_attention_bwd_tf32": [*[_P] * 13, *[_LL] * 6, *[_I] * 5, _F, *[_I] * 6, _P],
     "sdk_conv3x3_sm90": [*[_P] * 6, _LL, _P, _P, _LL, _I, _P, _P, _P, *[_I] * 10, _P],
     "sdk_conv1x1_sm90": [*[_P] * 5, _LL, _I, _P, _P, _P, *[_I] * 7, _P],
     "sdk_upsample_conv_sm90": [*[_P] * 5, *[_I] * 9, _P],
     "sdk_conv3x3_tf32": [*[_P] * 6, _LL, _P, _P, _LL, _I, _P, _P, _P, *[_I] * 10, _P],
+    "sdk_conv1x1_tf32": [*[_P] * 5, _LL, _I, _P, _P, _P, *[_I] * 7, _P],
     "sdk_upsample_conv_tf32": [*[_P] * 5, *[_I] * 9, _P],
     "sdk_attention_sm90": [*[_P] * 4, *[_LL] * 12, _P, _LL, _P, *[_I] * 5, _F, *[_I] * 4, _P],
     "sdk_attention_wide_sm90": [*[_P] * 4, *[_LL] * 12, _P, _LL, _P, *[_I] * 5, _F,

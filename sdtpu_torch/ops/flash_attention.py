@@ -24,12 +24,16 @@ a Δ pre-pass, a dK/dV kernel over key tiles and a dQ kernel over query
 tiles, the probabilities rebuilt from K1's row statistics and never held in
 HBM. It is compute-bound (5 products of 2·Sq·Sk·d flops). In training it
 runs the five SpatialTransformers at the 64² latent level of SD v1.4 at
-512px (S = 4096, d = 40). Two routes, chosen by the plan: bf16 at the head
-widths csrc/flash_attention_bwd_sm90.cu has an instance for (padded to 48,
-64, 80 or 160: wgmma products, the softmax gradient in registers, a
-cp.async ring; its tile plan is bwd_sm90_plan) takes that kernel; f32 and
-the other widths take csrc/flash_attention_bwd.cu (WMMA), because TF32
-wgmma cannot read the N-major operands the register-sourced products need.
+512px (S = 4096, d = 40). Three routes, chosen by bwd_route: bf16 at the
+head widths csrc/flash_attention_bwd_sm90.cu has an instance for (padded to
+48, 64, 80 or 160: wgmma products, the softmax gradient in registers, a
+cp.async ring; its tile plan is bwd_sm90_plan) takes that kernel; float32
+(the default compute dtype of `finetune`) at d = 40, 64, 80 and 160 takes
+csrc/flash_attention_bwd_tf32_sm90.cu (TF32 wgmma; TF32 reads B only
+K-major, so a pre-pass writes K-major copies of q, dO and k with each group
+of 8 positions in the register fragments' order, and folds Δ into its pass;
+bwd_tf32_plan); the other widths take csrc/flash_attention_bwd.cu (WMMA).
+Each launch is counted under its route.
 
 flash_qkv_attention_diff is the differentiable attention training runs: a
 custom op (sdtpu_torch::flash_attention_diff) whose forward is K1 and whose
@@ -392,12 +396,81 @@ def bwd_sm90_plan(d: int) -> BwdPlan | None:
                    resident + stages * dq_stage)
 
 
+# csrc/flash_attention_bwd_tf32_sm90.cu, per head width (no padding: the
+# widths are multiples of TF32's K step): (the dK/dV kernel's query tiles,
+# its keys a CTA, the dQ kernel's key tiles, its queries a CTA). f32 tiles
+# are twice bf16's: the walked tiles are sized so that the ring keeps at
+# least two stages beside the resident rows, and at d = 160 both kernels hold
+# 64 rows (the dK/dV kernel's two warpgroups split dK from dV).
+TF32_BWD_TILES = {40: (64, 128, 64, 128), 64: (32, 128, 64, 128), 80: (32, 128, 64, 128),
+                  160: (16, 64, 32, 64)}
+TF32_BWD_STAGES = 3
+
+
+class BwdTf32Plan(NamedTuple):
+    """One launch of csrc/flash_attention_bwd_tf32_sm90.cu: the dK/dV
+    kernel's query tiles, ring stages and dynamic shared memory, then the dQ
+    kernel's key tiles, stages and shared memory."""
+    tile_kv: int
+    stages_kv: int
+    smem_kv: int
+    tile_q: int
+    stages_q: int
+    smem_q: int
+
+
+def bwd_tf32_plan(d: int) -> BwdTf32Plan | None:
+    """The float32 route's plan for head width d, or None where it has no
+    instance (d not 40, 64, 80 or 160: the WMMA kernel takes it). The dK/dV
+    kernel holds K and V of its keys resident and rings the query tiles'
+    q, dO, their K-major copies, lse2 and Δ; the dQ kernel holds q and dO of
+    its queries and rings the key tiles' k, v and k's K-major copy; each ring
+    as deep as the shared memory holds, at most TF32_BWD_STAGES. Raises on a
+    d no K9 kernel takes."""
+    if d <= 0 or d % 8 or d > MAX_BWD_HEAD_DIM:
+        raise ValueError(f"d={d} (K9 takes d <= {MAX_BWD_HEAD_DIM}, a multiple of 8)")
+    if d not in TF32_BWD_TILES:
+        return None
+    tile_kv, rows_kv, tile_q, rows_q = TF32_BWD_TILES[d]
+
+    def ring(resident, stage):
+        stages = min(TF32_BWD_STAGES, (kernels.SMEM_LIMIT - resident) // stage)
+        return stages, resident + stages * stage
+
+    stages_kv, smem_kv = ring(2 * rows_kv * d * 4, 4 * tile_kv * d * 4 + 2 * tile_kv * 4)
+    stages_q, smem_q = ring(2 * rows_q * d * 4, 3 * tile_q * d * 4)
+    return BwdTf32Plan(tile_kv, stages_kv, smem_kv, tile_q, stages_q, smem_q)
+
+
+def bwd_route(dtype, d: int, route="auto") -> BwdPlan | BwdTf32Plan | None:
+    """The plan a K9 launch takes (None: the WMMA kernel,
+    csrc/flash_attention_bwd.cu): on route "auto" bf16's bwd_sm90_plan or
+    float32's bwd_tf32_plan; "wmma" None whatever the dtype; "tf32" the
+    float32 plan, raising where there is none (for timing the kernels
+    against each other). Raises on a d no K9 kernel takes."""
+    bf16, f32 = bwd_sm90_plan(d), bwd_tf32_plan(d)
+    if route == "wmma":
+        return None
+    if route == "tf32":
+        if dtype != torch.float32 or f32 is None:
+            raise ValueError(f"K9: no TF32 plan for {dtype} at d={d}")
+        return f32
+    if route != "auto":
+        raise ValueError(f"K9: unknown route {route!r}")
+    return bf16 if dtype == torch.bfloat16 else f32 if dtype == torch.float32 else None
+
+
+# the route a K9 plan's launches are counted under
+BWD_ROUTE_NAMES = {BwdPlan: "sm90", BwdTf32Plan: "tf32", type(None): "wmma"}
+
+
 def _attend_bwd(q, k, v, o, do, lse, dq, dk, dv, route: str = "auto"):
     """Gradients over [B, H, S, d] views into dq, dk, dv: the plain version
     for CPU tensors, K9 for CUDA tensors (o: the forward's output, lse: its
     [B·H, Sq] row statistics from K1). q, o, do and dq must share their
-    strides, and k, v, dk and dv theirs. route "wmma" takes the WMMA kernel
-    whatever the dtype (for timing the two kernels against each other)."""
+    strides, and k, v, dk and dv theirs. route (bwd_route): "auto" by dtype
+    and plan, "wmma" the WMMA kernel whatever the dtype, "tf32" the float32
+    route (for timing the kernels against each other)."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     if kernels.on_cpu(q, k, v, o, do, lse, dq, dk, dv):
@@ -416,18 +489,32 @@ def _attend_bwd(q, k, v, o, do, lse, dq, dk, dv, route: str = "auto"):
     if bad:
         raise ValueError("flash attention backward: " + ", ".join(bad))
     delta = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
-    plan = bwd_sm90_plan(d) if q.dtype == torch.bfloat16 and route == "auto" else None
+    plan = bwd_route(q.dtype, d, route)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            *q.stride()[:3], *k.stride()[:3], b * h, h, sq, sk, d, float(d) ** -0.5)
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    dims = (*q.stride()[:3], *k.stride()[:3], b * h, h, sq, sk, d, float(d) ** -0.5)
     with torch.cuda.device(q.device):
         if plan is None:
-            rc = kernels.lib().sdk_flash_attention_bwd(kernels.dtype_code(q), *ptrs,
+            name = "sdk_flash_attention_bwd"
+            rc = kernels.lib().sdk_flash_attention_bwd(kernels.dtype_code(q), *ptrs, *dims,
                                                        kernels.stream(q))
+        elif isinstance(plan, BwdTf32Plan):
+            # the pre-pass's K-major copies of q, dO and k, each head's
+            # sequence rounded up to 8 positions
+            name = "sdk_flash_attention_bwd_tf32"
+            qt, dot = (torch.empty((b * h, d, -(-sq // 8) * 8), dtype=torch.float32,
+                                   device=q.device) for _ in range(2))
+            kt = torch.empty((b * h, d, -(-sk // 8) * 8), dtype=torch.float32, device=q.device)
+            rc = kernels.lib().sdk_flash_attention_bwd_tf32(
+                *ptrs, qt.data_ptr(), dot.data_ptr(), kt.data_ptr(), *dims, *plan,
+                kernels.stream(q))
         else:
-            rc = kernels.lib().sdk_flash_attention_bwd_sm90(*ptrs, *plan, kernels.stream(q))
-    kernels.check(rc, "sdk_flash_attention_bwd" + ("" if plan is None else "_sm90"))
-    kernels.count(flash_attention_bwd_heads, b=b, h=h, sq=sq, sk=sk, d=d)
+            name = "sdk_flash_attention_bwd_sm90"
+            rc = kernels.lib().sdk_flash_attention_bwd_sm90(*ptrs, *dims, *plan,
+                                                            kernels.stream(q))
+    kernels.check(rc, name)
+    kernels.count(flash_attention_bwd_heads, b=b, h=h, sq=sq, sk=sk, d=d,
+                  route=BWD_ROUTE_NAMES[type(plan)])
 
 
 def flash_attention_bwd_heads(q, k, v, do, o=None, lse=None, n_head: int = 1):

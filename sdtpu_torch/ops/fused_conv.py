@@ -6,10 +6,10 @@ In bf16 all three run the Hopper kernel csrc/conv_sm90.cu: an implicit GEMM
 whose A boxes are TMA loads of a tensor map over the map (zeros outside
 it), multiplied by wgmma; their tile plans are sm90_plan, conv1x1_sm90_plan
 and upsample_sm90_plan. In float32 (the default dtype of `sample`, `serve`
-and `finetune`) K6 and K7 run its TF32 counterpart csrc/conv_tf32_sm90.cu
-(route "tf32", plans tf32_conv_plan and upsample_tf32_plan), which reads a
-K-major TF32 copy of each weight (fused_mlp.kmajor: TF32 wgmma reads B only
-K-major), and K4 the shared WMMA GEMM of csrc/gemm.cu. The design applies
+and `finetune`) all three run its TF32 counterpart csrc/conv_tf32_sm90.cu
+(route "tf32", plans tf32_conv_plan, conv1x1_tf32_plan and
+upsample_tf32_plan), which reads a K-major TF32 copy of each weight
+(fused_mlp.kmajor: TF32 wgmma reads B only K-major). The design applies
 the GroupNorm affine (+SiLU) to the A tile on its way to the tensor cores
 (in registers on the Hopper kernels, in shared memory on the WMMA one), and
 the bias, residual and optional per-channel output statistics to the f32
@@ -18,12 +18,17 @@ reaches HBM, and the next GroupNorm's statistics cost no read of the map.
 
 - K4 replaces the Pallas `_mm_kernel` (sdtpu/ops/fused_conv.py:406, called
   at :473). At the UNet's proj_in/proj_out (4096 rows x 320 x 320 per
-  image) the product is small: one read and one write of the map. Routes:
-  bf16 takes csrc/conv_sm90.cu at one tap where conv1x1_sm90_plan has a
-  tile (C a multiple of 64, Co of 8: every main-path shape, any row count,
-  the last tile's rows past the end neither stored nor counted), with any
-  prologue (proj_in's GroupNorm affine without SiLU too); f32 and the other
-  shapes the WMMA kernel; each launch is counted under its route.
+  image) the product is small: one read and one write of the map. Routes
+  (conv1x1_plan): bf16 takes csrc/conv_sm90.cu at one tap where
+  conv1x1_sm90_plan has a tile (C a multiple of 64, Co of 8: every
+  main-path shape, any row count, the last tile's rows past the end
+  neither stored nor counted), float32 csrc/conv_tf32_sm90.cu at one tap
+  where conv1x1_tf32_plan has one (C a multiple of 32), each with any
+  prologue (proj_in's GroupNorm affine without SiLU too); the other shapes
+  the WMMA kernel; each launch is counted under its route. The float32
+  route reads the weight's K-major copy, made once per weight tensor: a 1x1
+  conv's [1, 1, C, Co] weight is taken as it is (ops/conv's parameter, or a
+  tensor-parallel rank's shard), not a view made a call.
 - K6 replaces `_kernel` / `_conv_part` (sdtpu/ops/fused_conv.py:96/44,
   called at :232): the VAE decoder's ResnetBlock convs, 64x64x512 up to
   1024x1024x128, and the UNet's fused ResBlock at 128x128 latents, 2·9·C·Co
@@ -88,6 +93,7 @@ def conv1x1_fused_plain(x, w, conv_bias, prologue_scale=None, prologue_bias=None
     shape = x.shape
     b, c = shape[0], shape[-1]
     co = w.shape[-1]
+    w = w.reshape(c, co)
     xr = x.reshape(b, -1, c)
     if prologue_scale is not None:
         xf = (xr.float() * prologue_scale.float()[:, None, :]
@@ -109,21 +115,42 @@ def conv1x1_fused(x, w, conv_bias, prologue_scale=None, prologue_bias=None,
     """Pointwise conv (= channel matmul) y = act(x·scale + bias)·W + b
     [+ residual], optionally with the per-channel (sum, sum^2) of the f32 y.
 
-    x: [B, ..., C]; w: [C, Co]; conv_bias: [Co]; prologue scale/bias:
-    [B, C] (GroupNorm folded to an affine, see gn_scale_bias); residual:
-    x's leading shape with Co channels. Returns y, or (y, stats [B, 2, Co]).
-    CPU tensors take the plain version; CUDA tensors the kernel (bf16:
-    csrc/conv_sm90.cu at one tap where conv1x1_sm90_plan has a tile for the
-    shape; f32 and other shapes: csrc/gemm.cu).
+    x: [B, ..., C]; w: [C, Co], or a 1x1 conv's [1, 1, C, Co]; conv_bias:
+    [Co]; prologue scale/bias: [B, C] (GroupNorm folded to an affine, see
+    gn_scale_bias); residual: x's leading shape with Co channels. Returns y,
+    or (y, stats [B, 2, Co]). CPU tensors take the plain version; CUDA
+    tensors the kernel (conv1x1_plan: bf16 csrc/conv_sm90.cu and float32
+    csrc/conv_tf32_sm90.cu at one tap where the dtype's plan has a tile for
+    the shape; other shapes: csrc/gemm.cu).
     """
     return _conv1x1(x, w, conv_bias, prologue_scale, prologue_bias, residual, silu,
                     emit_stats, "auto")
 
 
-# K4's ring: its K is 5 to 10 blocks deep, and a ring of 4 stages of the
-# 320-channel tile leaves the L1 too little room for the residual's reads
-# (measured on the H100: PERF.md)
+# K4's bf16 ring: its K is 5 to 10 blocks deep, and a ring of 4 stages of
+# the 320-channel tile leaves the L1 too little room for the residual's
+# reads (measured on the H100: PERF.md). The float32 route's K is 10 to 20
+# blocks deep, and 4 stages, where they fit, measured as fast or faster
+# (PERF.md): it takes as many as tf32_conv_plan allows.
 SM90_CONV1X1_MAX_STAGES = 3
+
+
+def _conv1x1_ring(ring_plan, b: int, rows: int, c: int, co: int, prologue: bool,
+                  bn: int | None, stages: int | None, max_stages: int | None = None):
+    """conv1x1_sm90_plan's and conv1x1_tf32_plan's plan: ring_plan's (the
+    kernel's 3x3 plan, sm90_plan or tf32_conv_plan) of a map one pixel
+    wide, with K4's rule for the tile's width, its ring at most max_stages
+    deep when given."""
+    if rows <= 0:
+        return None
+    tiles = -(-rows // SM90_CONV_BM)
+    if bn is None:
+        bn = next((n for n in SM90_CONV_WIDE
+                   if co % n == 0 and b * tiles * (co // n) >= kernels.SM_COUNT // 2), 128)
+    plan = ring_plan(b, rows, 1, c, 0, co, prologue, bn, stages)
+    if plan is not None and stages is None and max_stages and plan.stages > max_stages:
+        plan = ring_plan(b, rows, 1, c, 0, co, prologue, bn, max_stages)
+    return plan
 
 
 def conv1x1_sm90_plan(b: int, rows: int, c: int, co: int, prologue: bool,
@@ -140,24 +167,37 @@ def conv1x1_sm90_plan(b: int, rows: int, c: int, co: int, prologue: bool,
     again for each column tile), else 128; at most
     SM90_CONV1X1_MAX_STAGES stages. bn and stages, when given, override
     the choice (for timing one plan against another)."""
-    if rows <= 0:
-        return None
-    tiles = -(-rows // SM90_CONV_BM)
-    if bn is None:
-        bn = next((n for n in SM90_CONV_WIDE
-                   if co % n == 0 and b * tiles * (co // n) >= kernels.SM_COUNT // 2), 128)
-    plan = sm90_plan(b, rows, 1, c, 0, co, prologue, bn, stages)
-    if plan is not None and stages is None and plan.stages > SM90_CONV1X1_MAX_STAGES:
-        plan = sm90_plan(b, rows, 1, c, 0, co, prologue, bn, SM90_CONV1X1_MAX_STAGES)
-    return plan
+    return _conv1x1_ring(sm90_plan, b, rows, c, co, prologue, bn, stages,
+                         SM90_CONV1X1_MAX_STAGES)
+
+
+def conv1x1_tf32_plan(b: int, rows: int, c: int, co: int, prologue: bool,
+                      bn: int | None = None, stages: int | None = None) -> Tf32ConvPlan | None:
+    """The plan of K4's float32 route, csrc/conv_tf32_sm90.cu at one tap, as
+    conv1x1_sm90_plan is the bf16 one's (its rule for the tile's width),
+    with tf32_conv_plan's ring (as deep as the shared memory holds beside
+    the prologue's table, at most TF32_CONV_MAX_STAGES): c a multiple of
+    32 (a 32-deep K block), co of 8. bn and stages, when given, override
+    the choice (for timing one plan against another)."""
+    return _conv1x1_ring(tf32_conv_plan, b, rows, c, co, prologue, bn, stages)
+
+
+def conv1x1_plan(dtype, b: int, rows: int, c: int, co: int, prologue: bool,
+                 route="auto") -> ConvPlan | Tf32ConvPlan | None:
+    """The plan a K4 launch takes (None: the WMMA kernel, csrc/gemm.cu): on
+    route "auto" bf16's conv1x1_sm90_plan or float32's conv1x1_tf32_plan,
+    with any prologue; see _plan_of for the other routes."""
+    return _plan_of(dtype, route, lambda: conv1x1_sm90_plan(b, rows, c, co, prologue),
+                    lambda: conv1x1_tf32_plan(b, rows, c, co, prologue), "conv1x1_fused (K4)")
 
 
 def _conv1x1(x, w, conv_bias, prologue_scale, prologue_bias, residual, silu, emit_stats,
              route):
-    """conv1x1_fused on the given route: "auto" (by dtype and plan), "wmma"
-    (csrc/gemm.cu whatever the dtype), or a ConvPlan for csrc/conv_sm90.cu
-    at one tap (bf16): the last two for timing kernels and plans against
-    each other."""
+    """conv1x1_fused on the given route (conv1x1_plan): "auto" (by dtype and
+    plan), "wmma" (csrc/gemm.cu whatever the dtype), "tf32"
+    (csrc/conv_tf32_sm90.cu at one tap, float32), or a ConvPlan for
+    csrc/conv_sm90.cu at one tap (bf16) or a Tf32ConvPlan (float32): the
+    last four for timing kernels and plans against each other."""
     if kernels.on_cpu(x, w, conv_bias, prologue_scale, prologue_bias, residual):
         return conv1x1_fused_plain(x, w, conv_bias, prologue_scale,
                                    prologue_bias, residual, silu, emit_stats)
@@ -167,15 +207,12 @@ def _conv1x1(x, w, conv_bias, prologue_scale, prologue_bias, residual, silu, emi
     b, c = shape[0], shape[-1]
     co = w.shape[-1]
     rows = x.numel() // (b * c)
-    if tuple(w.shape) != (c, co) or conv_bias.numel() != co:
+    if tuple(w.shape[-2:]) != (c, co) or w.numel() != c * co or conv_bias.numel() != co:
         raise ValueError(f"weight {tuple(w.shape)} and bias {tuple(conv_bias.shape)} do not "
                          f"fit {c} input channels")
     dt = x.dtype
-    plan = route if isinstance(route, ConvPlan) else None
-    if dt == torch.bfloat16 and route == "auto":
-        plan = conv1x1_sm90_plan(b, rows, c, co, prologue_scale is not None)
+    plan = conv1x1_plan(dt, b, rows, c, co, prologue_scale is not None, route)
     x = x.contiguous()
-    w = w.to(dt).contiguous()
     res = None if residual is None else residual.to(dt).reshape(b, rows, co).contiguous()
     # the tables as f32 [B, C] (the tensors themselves when they already are)
     prologue, ps, pb = _prologue(prologue_scale, prologue_bias, silu, b, c)
@@ -183,28 +220,33 @@ def _conv1x1(x, w, conv_bias, prologue_scale, prologue_bias, residual, silu, emi
     stats = None
     with torch.cuda.device(x.device):
         if plan is not None:
-            # the weight and bias are read in x's dtype (.to and .contiguous
-            # return the tensors themselves when they already are)
+            # the bias is read in x's dtype (.to and .contiguous return the
+            # tensor itself when it already is); bf16 reads the weight as it
+            # is, float32 its K-major TF32 copy [Co, C], made once per weight
+            # tensor (kmajor keys it by the model's own tensor: w.float() is
+            # w, and a [1, 1, C, Co] weight is the [C, Co] matrix it holds)
             cb = conv_bias.to(dt).contiguous()
             if emit_stats:
                 stats = torch.empty((b, plan.grid[1], 2, co), dtype=torch.float32,
                                     device=x.device)
-            rc = kernels.lib().sdk_conv1x1_sm90(
-                x.data_ptr(), w.data_ptr(), cb.data_ptr(), kernels.ptr(ps), kernels.ptr(pb), c,
-                int(silu), kernels.ptr(res), out.data_ptr(), kernels.ptr(stats), b, rows, c,
-                co, plan.bn, plan.stages, plan.smem, kernels.stream(x))
-            kernels.check(rc, "sdk_conv1x1_sm90")
+            tf32 = isinstance(plan, Tf32ConvPlan)
+            fn, name = ((kernels.lib().sdk_conv1x1_tf32, "sdk_conv1x1_tf32") if tf32 else
+                        (kernels.lib().sdk_conv1x1_sm90, "sdk_conv1x1_sm90"))
+            wk = fused_mlp.kmajor(w.float()) if tf32 else w.to(dt).reshape(c, co).contiguous()
+            rc = fn(x.data_ptr(), wk.data_ptr(), cb.data_ptr(), kernels.ptr(ps), kernels.ptr(pb),
+                    c, int(silu), kernels.ptr(res), out.data_ptr(), kernels.ptr(stats), b, rows,
+                    c, co, plan.bn, plan.stages, plan.smem, kernels.stream(x))
+            kernels.check(rc, name)
         else:
             if emit_stats:
                 stats = torch.empty((b, kernels.gemm_row_tiles(rows), 2, co),
                                     dtype=torch.float32, device=x.device)
-            kernels.gemm(x, w, out, M=rows, N=co, K=c, batch=b, lda=c, a_bs=rows * c,
-                         ldw=co, ldo=co, o_bs=rows * co, bias=conv_bias.float().contiguous(),
-                         res=res, ldr=co, r_bs=rows * co, pa=ps, pb=pb, prologue=prologue,
-                         stats=stats)
+            kernels.gemm(x, w.to(dt).reshape(c, co).contiguous(), out, M=rows, N=co, K=c,
+                         batch=b, lda=c, a_bs=rows * c, ldw=co, ldo=co, o_bs=rows * co,
+                         bias=conv_bias.float().contiguous(), res=res, ldr=co, r_bs=rows * co,
+                         pa=ps, pb=pb, prologue=prologue, stats=stats)
     kernels.count(conv1x1_fused, b=b, rows=rows, c=c, co=co, prologue=prologue,
-                  residual=res is not None, stats=emit_stats,
-                  route="wmma" if plan is None else "sm90")
+                  residual=res is not None, stats=emit_stats, route=_route_name(plan))
     y = out.reshape(shape[:-1] + (co,))
     if emit_stats:
         return y, stats.sum(dim=1)

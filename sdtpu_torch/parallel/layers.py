@@ -160,9 +160,11 @@ def conv1x1(fn, x, p, prologue_scale=None, prologue_bias=None, residual=None):
     """K4, fn (ops/fused_conv.conv1x1_fused), with a 1x1 conv's {w [1, 1,
     C, Co], b} on x [B, rows, C] and the residual on its output channels as
     this rank holds them: on an out-channel shard, this rank's channels,
-    the output gathered."""
+    the output gathered. The weight is handed over as the tensor it is (the
+    float32 route keeps one K-major copy per weight tensor, which a view
+    made a call would miss)."""
     tp, lp = out_shard(p), local(p)
-    out = fn(x, lp["w"][0, 0], lp["b"], prologue_scale, prologue_bias, residual=residual)
+    out = fn(x, lp["w"], lp["b"], prologue_scale, prologue_bias, residual=residual)
     return _gathered(out, tp, False)
 
 

@@ -1,7 +1,7 @@
 """Where the time of the port's Hopper kernels goes on one NVIDIA GPU.
 
     python -m sdtpu_torch.profile_kernels
-        [--kernels K5,K9,K6,K2,K1,K4,K10,K7,K3,K5f,K2f,K6f,K7f] [--out FILE]
+        [--kernels K5,K9,K6,K2,K1,K4,K10,K7,K3,K5f,K2f,K6f,K7f,K4f,K9f] [--out FILE]
 
 At main-path shapes, bf16, random inputs (seeded): K5 at S=1024 C=640 B=2
 and S=256 C=1280 B=2 (csrc/gemm_sm90.cu), K9 at BH=32 S=4096 d=40
@@ -18,10 +18,13 @@ S=4096 C=320 B=2, S=1024 C=640 B=4 and S=256 C=1280 B=8 with 77 masked keys
 (csrc/gemm_sm90.cu and csrc/attention_sm90.cu), K7 at the decoder's 128² x
 512, 256² x 256 and 512² x 256 (csrc/conv_sm90.cu at four taps), K3 at
 its main-path shapes (csrc/channel_stats_sm90.cu); and in float32 (K5f, K2f,
-K6f, K7f) K5 and K2 at the 512px generate's shapes on csrc/gemm_tf32_sm90.cu
-and csrc/attention_tf32_sm90.cu, K6 at the 1024px UNet's fused ResBlocks
-and the decoder's 512², 256² and 64² convs and K7 at the decoder's four
-upsamplers on csrc/conv_tf32_sm90.cu. --kernels picks some of them (all by
+K6f, K7f, K4f, K9f) K5 and K2 at the 512px generate's shapes on
+csrc/gemm_tf32_sm90.cu and csrc/attention_tf32_sm90.cu, K6 at the 1024px
+UNet's fused ResBlocks and the decoder's 512², 256² and 64² convs and K7 at
+the decoder's four upsamplers on csrc/conv_tf32_sm90.cu, K4 at the 512px
+and 1024px generates' proj_in and proj_out on the same kernel at one tap,
+and K9 at training's BH=32 S=4096 d=40 and SD v2.1's BH=10 S=9216 d=64 on
+csrc/flash_attention_bwd_tf32_sm90.cu. --kernels picks some of them (all by
 default). Device times are CUDA-graph replays (`device_ms`,
 also what chip_smoke.py times the Hopper kernels by) or torch.profiler
 kernel sums:
@@ -58,14 +61,16 @@ kernel sums:
 3. the depth of the rings: K5's 2, 3 or 4 stages (the plan's choice is 4),
    K6's, K4's and K7's 2 to 4 and K2's and K10's core's 3 to 5 where they
    fit;
-4. float32 (K5f, K2f, K6f, K7f): each launch of the float32 route "tf32"
-   (torch.profiler); each TF32 product beside cuBLAS's matmul of the same
-   shape with TF32 on and off; K2's TF32 core beside SDPA (float32: the
-   memory-efficient backend); K6 and K7 on each tile width (K6 with and
-   without its prologue) beside cuDNN's convolution with TF32 on and off;
-   the whole sublayer against the WMMA route it replaced, in turns (wmma,
-   tf32, tf32, wmma); the ring depths the route takes; the bytes of the
-   K-major copies.
+4. float32 (K5f, K2f, K6f, K7f, K4f, K9f): each launch of the float32
+   route "tf32" (torch.profiler: K9's pre-pass, which writes the K-major
+   copies and Δ, apart from its dK/dV and dQ kernels); each TF32 product
+   beside cuBLAS's matmul of the same shape with TF32 on and off (K4's x·W
+   by device time); K2's TF32 core beside SDPA (float32: the
+   memory-efficient backend), K9 beside SDPA's backward; K6, K7 and K4 on
+   each tile width (K6 and K4 with and without their prologue) beside
+   cuDNN's convolution with TF32 on and off; the whole sublayer against the
+   WMMA route it replaced, in turns (wmma, tf32, tf32, wmma); the ring
+   depths the route takes; the bytes of the K-major copies.
 
 The report starts with the card's name and power limit, and goes to
 stdout and, with --out, to FILE as well.
@@ -500,6 +505,86 @@ def profile_k6f(b, hw, c1, c2, co, log, gen):
     log(f"{label}: by ring depth: " + ", ".join(rings) + f" (the plan takes {plan.stages})")
 
 
+def profile_k4f(b, rows, c, co, kind, log, gen):
+    """K4's float32 route (csrc/conv_tf32_sm90.cu at one tap), section 4."""
+    dev = torch.device("cuda")
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    x, w, cb = rnd(b, rows, c), rnd(1, 1, c, co, scale=c ** -0.5), rnd(co, scale=0.1)
+    s, o = 1.0 + rnd(b, c, scale=0.1), rnd(b, c, scale=0.1)
+    res = rnd(b, rows, co) if kind == "proj_out" else None
+    label = f"K4 f32 {kind} {rows}x{c}->{co} B={b}"
+
+    def conv(route, prologue=True):
+        pro = (s, o) if prologue and kind == "proj_in" else (None, None)
+        return lambda: fc._conv1x1(x, w, cb, *pro, res, False, False, route)
+
+    for name, ms in kernel_ms(conv("auto")).items():
+        log(f"{label}: {name[:72]}: {ms:.4f} ms a call (route tf32)")
+    plan = fc.conv1x1_tf32_plan(b, rows, c, co, kind == "proj_in")
+    widths = []
+    for bn in (128, *fc.SM90_CONV_WIDE):
+        if bn == 128 or co % bn == 0:
+            p = fc.conv1x1_tf32_plan(b, rows, c, co, kind == "proj_in", bn=bn)
+            t = f"{bn} channels {device_ms(conv(p)):.4f} ms"
+            if kind == "proj_in":
+                p0 = fc.conv1x1_tf32_plan(b, rows, c, co, False, bn=bn)
+                t += f" with the prologue, {device_ms(conv(p0, prologue=False)):.4f} without"
+            widths.append(t)
+    on, off = _tf32_matmul_ms(x, w[0, 0])
+    wmma, tf32 = _turns(conv("wmma"), conv("tf32"))
+    nbytes = 4 * (b * rows * c + (1 if res is None else 2) * b * rows * co + c * co)
+    log(f"{label}: " + "; ".join(widths) + f" (the plan takes {plan.bn}); the route {tf32:.4f} "
+        f"ms against the WMMA kernel {wmma:.4f} (in turns); cuBLAS x·W TF32 {on:.4f} / f32 "
+        f"{off:.4f}; bound (bytes) {1e3 * nbytes / 3.35e12:.4f} ms; K-major copies "
+        f"{fm.kmajor_bytes()} bytes")
+    rings = []
+    for st in range(2, fc.TF32_CONV_MAX_STAGES + 1):
+        p = fc.conv1x1_tf32_plan(b, rows, c, co, kind == "proj_in", bn=plan.bn, stages=st)
+        if p is not None:
+            rings.append(f"{st} stages {device_ms(conv(p)):.4f}")
+    log(f"{label}: by ring depth: " + ", ".join(rings) + f" (the plan takes {plan.stages})")
+
+
+def profile_k9f(bh, s, d, n_head, log, gen):
+    """K9's float32 route (csrc/flash_attention_bwd_tf32_sm90.cu), section 4:
+    the pre-pass (the K-major copies of q, dO and k, and Δ), dK/dV and dQ
+    by the profiler; the route against the WMMA kernel in turns; SDPA's
+    backward (its forward and backward less its forward) with TF32 on and
+    off."""
+    dev = torch.device("cuda")
+    q, k, v, do = (torch.randn(bh, s, d, generator=gen, device=dev) for _ in range(4))
+    o, lse = fa.flash_attention_heads(q, k, v, n_head=n_head, return_lse=True)
+    label = f"K9 f32 BH={bh} S={s} d={d}"
+    for name, ms in kernel_ms(lambda: fa._bwd_heads(q, k, v, do, o, lse, n_head,
+                                                    "tf32")).items():
+        log(f"{label}: {name[:72]}: {ms:.4f} ms a call (route tf32)")
+    wmma, tf32 = _turns(lambda: fa._bwd_heads(q, k, v, do, o, lse, n_head, "wmma"),
+                        lambda: fa._bwd_heads(q, k, v, do, o, lse, n_head, "tf32"))
+    q4, k4, v4 = (t.view(bh // n_head, n_head, s, d).detach().requires_grad_()
+                  for t in (q, k, v))
+    do4 = do.view(bh // n_head, n_head, s, d)
+
+    def fwd():
+        return F.scaled_dot_product_attention(q4, k4, v4)
+
+    def fwd_bwd():
+        return torch.autograd.grad(fwd(), (q4, k4, v4), do4)
+
+    sdpa = []
+    for tf32_on in (True, False):
+        torch.backends.cuda.matmul.allow_tf32 = tf32_on
+        try:
+            sdpa.append(events_ms(fwd_bwd) - events_ms(fwd))
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+    log(f"{label} ({fa.bwd_tf32_plan(d)}): the route {tf32:.4f} ms against the WMMA kernel "
+        f"{wmma:.4f} (in turns); SDPA's backward {sdpa[0]:.4f} (TF32 on) / {sdpa[1]:.4f} "
+        f"(off) by CUDA events; TF32 bound {1e3 * 5 * 2 * bh * s * s * d / 495e12:.4f} ms")
+
+
 def profile_k7f(b, hw, c, co, log, gen):
     """K7's float32 route (csrc/conv_tf32_sm90.cu at four taps), section 4."""
     dev = torch.device("cuda")
@@ -811,7 +896,7 @@ def profile_k7(b, hw, c, co, log, gen):
 
 
 PROFILES = ("K5", "K9", "K6", "K2", "K1", "K4", "K10", "K7", "K3", "K5f", "K2f", "K6f",
-            "K7f")
+            "K7f", "K4f", "K9f")
 
 
 def main(argv=None) -> None:
@@ -878,6 +963,13 @@ def main(argv=None) -> None:
         for b, hw, c, co in ((1, 128, 512, 512), (1, 256, 256, 256), (1, 256, 512, 512),
                              (1, 512, 256, 256)):
             profile_k7f(b, hw, c, co, log, gen)
+    if "K4f" in picked:
+        for b, rows, c, co in ((2, 4096, 320, 320), (2, 16384, 320, 320), (2, 4096, 640, 640)):
+            for kind in ("proj_in", "proj_out"):
+                profile_k4f(b, rows, c, co, kind, log, gen)
+    if "K9f" in picked:
+        for bh, s, d, n_head in ((32, 4096, 40, 8), (10, 9216, 64, 5)):
+            profile_k9f(bh, s, d, n_head, log, gen)
     if "K3" in picked:
         for b, rows, c in K3_SHAPES:
             profile_k3(b, rows, c, log, gen)

@@ -4,6 +4,7 @@ GPU.
     python -m sdtpu_torch.profile_pipeline [--preset P] [--size 512|768|1024] [--out FILE]
         [--repeats N] [--f32]
     python -m sdtpu_torch.profile_pipeline --train [--preset P] [--out FILE] [--repeats N]
+        [--f32]
     python -m sdtpu_torch.profile_pipeline --tp N [--preset P] [--size S] [--f32] [--repeats N]
 
 Builds the preset's model (sd-v1-4 by default; sd-v2-1 is SD v2.1-768) at
@@ -34,11 +35,13 @@ for sd-v1-4, 768 for sd-v2-1), and measures, after warm-up:
 With --train it measures instead a training step of the whole UNet at the
 image size (training.make_train_step: batch 4 of random latents and
 contexts with a key mask, bf16 compute, f32 masters, AdamW, the EMA in the
-step, the preset's prediction target) for remat off, "full" and "dots",
-replayed from its CUDA graph (sdtpu's step_jit) and eager, on the same
-trees, in the turns replayed, eager, eager, replayed: the mean wall ms of
-N warm steps a turn (host clock, synchronised; each turn's first call is
-not timed: the replayed first turn's is the eager step and the capture),
+step, the preset's prediction target) for remat off, "full" and "dots"
+(with --f32: float32 compute, `finetune`'s default, under remat "full"
+alone, as chip_smoke.py's float32 step A/B runs it), replayed from its
+CUDA graph (sdtpu's step_jit) and eager, on the same trees, in the turns
+replayed, eager, eager, replayed: the mean wall ms of N warm steps a
+turn (host clock, synchronised; each turn's first call is not timed: the
+replayed first turn's is the eager step and the capture),
 the peak reserved device memory over each mode's warm steps (the
 allocator's cache emptied before each turn; the replayed step's graph
 pool included, and taken out of the eager step's, which does not use it),
@@ -209,8 +212,9 @@ def _tp(args, size: int, say) -> None:
                 f"mean {sum(ms) / len(ms):.3f}; K-major copies held {r['kmajor_bytes']} bytes")
 
 
-def _train(sd, dev, args, say) -> None:
-    """The --train report (see the module docstring)."""
+def _train(sd, dev, args, say, dtype=torch.bfloat16) -> None:
+    """The --train report (see the module docstring), at compute dtype
+    dtype."""
     from sdtpu_torch.finetune import STEP_KINDS
     from sdtpu_torch.models.unet import unfuse_qkv
     from sdtpu_torch.training import make_optimizer, make_train_step, master_params, tree_map
@@ -222,14 +226,15 @@ def _train(sd, dev, args, say) -> None:
              torch.randn((b, cfg.clip.n_ctx, cfg.clip.n_state), generator=g, device=dev),
              torch.arange(cfg.clip.n_ctx, device=dev)[None, :] < torch.tensor(
                  [[2], [9], [20], [77]], device=dev))
-    for remat in (False, "full", "dots"):
+    dname = "f32" if dtype == torch.float32 else "bf16"
+    for remat in (False, "full", "dots") if dtype == torch.bfloat16 else ("full",):
         params = master_params(unfuse_qkv(sd.params["unet"]))
         ema = tree_map(lambda p: p.detach().clone(), params)
         opt = make_optimizer(lr=1e-5, warmup_steps=0, total_steps=100 * (args.repeats + 2))
         state = opt.init(params)
         cache = graphs.GraphCache(dev)
         # the same trees under both: the graph reads and writes them by address
-        steps = {mode: make_train_step(cfg, opt, compute_dtype=torch.bfloat16, remat=remat,
+        steps = {mode: make_train_step(cfg, opt, compute_dtype=dtype, remat=remat,
                                        ema_decay=0.9999, graphs=c)
                  for mode, c in (("replayed", cache), ("eager", None))}
         walls, reserved = {m: [] for m in steps}, {m: 0.0 for m in steps}
@@ -257,7 +262,7 @@ def _train(sd, dev, args, say) -> None:
                         f"{graph['launches']} kernel launches a replay"
                         if mode == "replayed" else "")
             say(f"4. train step remat={remat!r} {mode} ({cfg.name} UNet, {cfg.image_size}px, "
-                f"batch {b}, bf16, AdamW, EMA): wall {wall:.3f} ms (turns "
+                f"batch {b}, {dname}, AdamW, EMA): wall {wall:.3f} ms (turns "
                 f"{', '.join(f'{w:.3f}' for w in walls[mode])}, each the mean of "
                 f"{args.repeats}); peak reserved over its warm steps {reserved[mode]:.2f} GiB "
                 f"(the replayed step's pool included, the eager step's without it); device "
@@ -314,7 +319,7 @@ def main(argv=None) -> None:
     hw = cfg_sd.latent_size
     if args.train:
         del params
-        _train(sd, dev, args, say)
+        _train(sd, dev, args, say, dtype)
         _write(args.out, lines)
         return
     sd_eager = StableDiffusion(params, cfg_sd, compute_dtype=dtype, graphs=False)

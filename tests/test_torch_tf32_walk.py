@@ -39,6 +39,23 @@ their sums is written out here:
   K-major copy [4, Co, 4C], stored at (2i + py, 2j + px). A walk that
   stores the phases with py and px swapped must fail.
 
+- K4 (the same kernel at one tap): x read as [B][rows][C] in tiles of 128
+  rows (zeros past the last, which are neither stored nor counted), each
+  32-deep K block's A through the prologue (the GroupNorm affine, SiLU or
+  not) and rounded to TF32, times the K-major copy [Co, C], then the bias,
+  the residual and the per-tile statistics. A walk with the affine's shift
+  dropped must fail.
+- K9 (csrc/flash_attention_bwd_tf32_sm90.cu): q, k, v and dO rounded to
+  TF32 (the row tiles, in shared memory), the pre-pass's K-major copies of
+  q, dO and k (rounded, each group of 8 positions holding rows 0, 2, 4,
+  6, 1, 3, 5, 7 of the group, zeros past the sequence), Δ = rowsum(dO ∘ o)
+  in f32; the dK/dV walk over query tiles and the dQ walk over key tiles
+  of the plan's widths, P = exp2(s·d^-1/2·log2(e) − lse2) and dS = P ∘ (dP
+  − Δ)·d^-1/2 rounded to TF32 as fragments whose position p of a group is
+  column KEY_OF_POS[p], multiplied with the copies' positions. Walks whose
+  copies keep natural order (the pre-pass's permutation dropped), and one
+  whose dS leaves out Δ, must fail.
+
 SiLU is exact here; the kernel's (h + h·tanh(h), h = v / 2, with MUFU's
 tanh) differs by about 2^-11 relative, below TF32's rounding.
 """
@@ -50,9 +67,11 @@ import numpy as np
 import pytest
 import torch
 
+from sdtpu.ops import flash_attention as jfa
 from sdtpu.ops import fused_conv as jfc
 from sdtpu.ops import fused_mlp as jfm
 from sdtpu.ops import fused_transformer as jft
+from sdtpu_torch.ops import flash_attention as tfa
 from sdtpu_torch.ops import fused_conv as tfc
 from sdtpu_torch.ops import fused_mlp as tfm
 from sdtpu_torch.ops import fused_transformer as tft
@@ -344,3 +363,163 @@ def test_k7_tf32_walk_matches_sdtpu(hw, c, co):
                                atol=TOL * float(np.abs(_np(want_st)).max()))
     bad, _ = k7_tf32_walk(*t, swap=True)
     assert not _close(bad, want)
+
+
+# ------------------------------------------------------------ K4, K9
+
+
+def k4_tf32_walk(x, w, cb, scale=None, shift=None, residual=None, silu=False):
+    """csrc/conv_tf32_sm90.cu's walk at one tap: returns (y, per-channel
+    (Σ, Σ²) of y summed from the per-tile partials)."""
+    b, rows, c = x.shape
+    co = w.shape[-1]
+    plan = tfc.conv1x1_tf32_plan(b, rows, c, co, scale is not None)
+    bm, bk = tfc.SM90_CONV_BM, tfc.TF32_CONV_BK
+    wt = tfm.kmajor(w)  # [Co, C]
+    out = torch.zeros(b, rows, co)
+    parts = torch.zeros(b, plan.grid[1], 2, co)
+    for bi in range(b):
+        for tile in range(plan.grid[1]):
+            r = tile * bm + torch.arange(bm)
+            keep = r < rows  # TMA's zeros past the last row, not stored
+            acc = torch.zeros(bm, co)
+            for kb in range(c // bk):
+                cols = slice(kb * bk, (kb + 1) * bk)
+                a = torch.zeros(bm, bk)
+                a[keep] = x[bi, r[keep], cols]
+                if scale is not None:
+                    a = a * scale[bi, cols] + shift[bi, cols]
+                    if silu:
+                        a = a * torch.sigmoid(a)
+                acc += rna(a) @ wt[:, cols].t()
+            v = acc + cb
+            if residual is not None:
+                v[keep] += residual[bi, r[keep]]
+            out[bi, r[keep]] = v[keep]
+            parts[bi, tile] = torch.stack([v[keep].sum(0), (v[keep] ** 2).sum(0)])
+    return out, parts.sum(dim=1)
+
+
+@pytest.mark.parametrize("form", ["proj_in", "proj_out", "silu_res"])
+def test_k4_tf32_walk_matches_sdtpu(form):
+    """K4 at one tap over 200 rows (two tiles of 128, the second ragged)
+    and 64 channels (two 32-deep K blocks): proj_in (the GroupNorm affine
+    alone), proj_out (the residual, no prologue), and the affine with SiLU
+    and the residual; against sdtpu's conv1x1_fused in interpret mode at
+    float32, its statistics too. The affine's shift dropped fails."""
+    r = np.random.default_rng({"proj_in": 150, "proj_out": 151, "silu_res": 152}[form])
+    b, rows, c, co = 2, 200, 64, 40
+
+    def f(*shape, scale=1.0, loc=0.0):
+        return (loc + scale * r.standard_normal(shape)).astype(np.float32)
+
+    x, w, cb, res = f(b, rows, c), f(c, co, scale=c ** -0.5), f(co, scale=0.1), f(b, rows, co)
+    s, o = f(b, c, scale=0.1, loc=1.0), f(b, c, scale=0.2, loc=0.5)
+    prologue, residual, silu = form != "proj_out", form != "proj_in", form == "silu_res"
+    t = torch.from_numpy
+    pro = (t(s), t(o)) if prologue else (None, None)
+    got, got_st = k4_tf32_walk(t(x), t(w), t(cb), *pro, t(res) if residual else None, silu)
+    want, want_st = jfc.conv1x1_fused(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(cb),
+        *((jnp.asarray(s), jnp.asarray(o)) if prologue else (None, None)),
+        residual=jnp.asarray(res) if residual else None, silu=silu, emit_stats=True,
+        interpret=True)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=TOL, atol=TOL)
+    _check_stats(got, got_st)
+    np.testing.assert_allclose(_np(got_st), _np(want_st), rtol=TOL,
+                               atol=TOL * float(np.abs(_np(want_st)).max()))
+    if prologue:
+        no_shift, _ = k4_tf32_walk(t(x), t(w), t(cb), t(s), torch.zeros_like(t(o)),
+                                   t(res) if residual else None, silu)
+        assert not _close(no_shift, want)
+
+
+def _frag(n):
+    """Positions 0 .. n (n a multiple of 8) -> the columns the fragments
+    hold there: position p of a group of 8 is its column KEY_OF_POS[p] (k =
+    t is column 2t, k = t + 4 column 2t + 1), as in K2's core."""
+    return (torch.arange(n).view(-1, 8) // 8 * 8 + KEY_OF_POS).reshape(-1)
+
+
+def _pad_rows(x, n):
+    return torch.cat([x, x.new_zeros(x.shape[0], n - x.shape[1], *x.shape[2:])], dim=1)
+
+
+def k9_tf32_walk(q, k, v, do, permuted=True, delta=True):
+    """csrc/flash_attention_bwd_tf32_sm90.cu's walk over [BH, S, d] f32:
+    returns (dq, dk, dv). o and lse2 are the forward's (K1's), here in f32;
+    permuted: the pre-pass's copies in the fragments' order (the kernel's)
+    or in natural order; delta: dS with Δ (the kernel's) or without."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    plan = tfa.bwd_tf32_plan(d)
+    scale = d ** -0.5
+    sl2 = scale * LOG2E
+    s = (q @ k.transpose(1, 2)) * scale
+    lse2 = torch.logsumexp(s, dim=-1) * LOG2E
+    o = torch.softmax(s, dim=-1) @ v
+    dl = (do * o).sum(-1) if delta else torch.zeros(bh, sq)
+
+    def copy(x, n):
+        """The pre-pass's copy as rows by position: position p holds row
+        _frag(n)[p] (natural order: row p), rounded, zeros past S."""
+        xp = _pad_rows(x, n)
+        return rna(xp[:, _frag(n)] if permuted else xp)
+
+    tq, tk = plan.tile_kv, plan.tile_q
+    nq, nk = -(-sq // tq) * tq, -(-sk // tk) * tk  # whole tiles (zeros past S)
+    qt, dot = _pad_rows(copy(q, -(-sq // 8) * 8), nq), _pad_rows(copy(do, -(-sq // 8) * 8), nq)
+    kt = _pad_rows(copy(k, -(-sk // 8) * 8), nk)
+    qr, dor = _pad_rows(rna(q), nq), _pad_rows(rna(do), nq)
+    kr, vr = _pad_rows(rna(k), nk), _pad_rows(rna(v), nk)
+    lse_p, dl_p = _pad_rows(lse2, nq), _pad_rows(dl, nq)
+    # dK/dV: keys against each query tile (S^T, dP^T), the fragments' column
+    # for position p of the tile's copy tiles being query fcol[p]
+    dk, dv = torch.zeros(bh, nk, d), torch.zeros(bh, nk, d)
+    fq, fk = _frag(tq), _frag(tk)
+    for j0 in range(0, nq, tq):
+        js = slice(j0, j0 + tq)
+        st = kr @ qr[:, js].transpose(1, 2)  # [BH, keys, queries]
+        p = torch.exp2(st * sl2 - lse_p[:, None, js])
+        dpt = vr @ dor[:, js].transpose(1, 2)
+        ds = p * (dpt - dl_p[:, None, js]) * scale
+        dv += rna(p)[:, :, fq] @ dot[:, js]
+        dk += rna(ds)[:, :, fq] @ qt[:, js]
+    # dQ: queries against each key tile
+    dq = torch.zeros(bh, sq, d)
+    for j0 in range(0, nk, tk):
+        js = slice(j0, j0 + tk)
+        sc = qr[:, :sq] @ kr[:, js].transpose(1, 2)
+        p = torch.exp2(sc * sl2 - lse2[:, :, None])
+        dp = dor[:, :sq] @ vr[:, js].transpose(1, 2)
+        ds = rna(p * (dp - dl[:, :, None]) * scale)
+        dq += ds[:, :, fk] @ kt[:, js]
+    return dq, dk[:, :sk], dv[:, :sk]
+
+
+@pytest.mark.parametrize("d", [40, 64, 80, 160])
+def test_k9_tf32_walk_matches_sdtpu(d):
+    """K9's float32 walk at each head width it has an instance for, Sq =
+    256 (whole query tiles; sdtpu's blocks take multiples of 128) and Sk =
+    196 (key tiles ragged, the copies padded to 200), against sdtpu's
+    flash_attention_bwd_heads in interpret mode at float32 within
+    chip_smoke.py's FLASH_TOL (2^-8 of each gradient's largest |reference|
+    + 2^-10 relative). The copies in natural order, and dS without Δ, fail
+    it."""
+    r = np.random.default_rng(170 + d)
+    bh, sq, sk = 2, 256, 196
+    q, do = (r.standard_normal((bh, sq, d)).astype(np.float32) for _ in range(2))
+    k, v = (r.standard_normal((bh, sk, d)).astype(np.float32) for _ in range(2))
+    want = [_np(g) for g in jfa.flash_attention_bwd_heads(
+        *map(jnp.asarray, (q, k, v, do)), interpret=True)]
+    t = [torch.from_numpy(a) for a in (q, k, v, do)]
+
+    def close(grads):
+        return [bool(np.all(np.abs(_np(g) - w) <= 2.0 ** -8 * np.abs(w).max()
+                            + 2.0 ** -10 * np.abs(w))) for g, w in zip(grads, want)]
+
+    got = k9_tf32_walk(*t)
+    assert close(got) == [True] * 3, [float(np.abs(_np(g) - w).max()) for g, w in zip(got, want)]
+    # natural order: dQ off (k's copy) and dK, dV off (q's and dO's)
+    assert close(k9_tf32_walk(*t, permuted=False)) == [False] * 3
+    assert close(k9_tf32_walk(*t, delta=False))[:2] == [False, False]

@@ -8,9 +8,10 @@
   mode), and torch.autograd.gradcheck of the op in float64;
 - dispatch.training(): every forward-only gate closed, and qkv_attention
   on its differentiable branch;
-- on the card (tests marked `cuda`): K9 against its plain version, the
-  differentiable op's gradients against the CPU's, and each forward-only
-  wrapper raising on an input that requires grad.
+- on the card (tests marked `cuda`): K9 against its plain version on its
+  bf16 and float32 routes, their bit-equal repeats, the differentiable op's
+  gradients against the CPU's, and each forward-only wrapper raising on an
+  input that requires grad.
 """
 
 import jax
@@ -170,16 +171,26 @@ def _card():
 K9_TOL = {"float32": (2.0 ** -8, 2.0 ** -10), "bfloat16": (2.0 ** -6, 2.0 ** -7)}
 
 
+def _k9_routes():
+    out = {}
+    for key, n in tfa.flash_attention_bwd_heads.shapes.items():
+        route = key.rsplit("route=", 1)[-1]
+        out[route] = out.get(route, 0) + n
+    return out
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("bh,sq,sk,d", [
     (16, 300, 333, 40),   # ragged tiles, training's head
+    (4, 200, 264, 64),    # SD v2.1's head
     (4, 200, 130, 80),
     (2, 129, 257, 160),   # the widest head K9 takes
 ])
 def test_k9_matches_plain_on_card(dtype, bh, sq, sk, d):
-    """K9 against its plain version on the card; a zeroed dK and the
-    gradients over every other key fail the tolerance."""
+    """K9 against its plain version on the card, counted under its
+    dtype's route (bf16 the Hopper kernel, float32 the TF32 one); a zeroed
+    dK and the gradients over every other key fail the tolerance."""
     dev, dt = _card(), getattr(torch, dtype)
     r = np.random.default_rng(10)
     q, do = (torch.from_numpy(r.standard_normal((bh, sq, d)).astype(np.float32)).to(dev, dt)
@@ -187,9 +198,11 @@ def test_k9_matches_plain_on_card(dtype, bh, sq, sk, d):
     k, v = (torch.from_numpy(r.standard_normal((bh, sk, d)).astype(np.float32)).to(dev, dt)
             for _ in range(2))
     o, lse = tfa.flash_attention_heads(q, k, v, return_lse=True)
-    before = tfa.flash_attention_bwd_heads.launches
+    before, route = tfa.flash_attention_bwd_heads.launches, "tf32" if dtype == "float32" else "sm90"
+    routed = _k9_routes().get(route, 0)
     got = tfa.flash_attention_bwd_heads(q, k, v, do, o, lse)
     assert tfa.flash_attention_bwd_heads.launches == before + 1
+    assert _k9_routes()[route] == routed + 1
     want = tfa.flash_attention_bwd_heads_plain(q, k, v, do)
     half = tfa.flash_attention_bwd_heads_plain(q, k[:, ::2], v[:, ::2], do)
     frac, rtol = K9_TOL[dtype]
@@ -201,6 +214,23 @@ def test_k9_matches_plain_on_card(dtype, bh, sq, sk, d):
         if i == 1:
             assert not torch.allclose(torch.zeros_like(b_).float(), b_.float(), rtol=rtol,
                                       atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [40, 64, 80, 160])
+def test_k9_f32_repeats_bit_equal_on_card(d):
+    """K9's float32 route (csrc/flash_attention_bwd_tf32_sm90.cu, no
+    atomics) gives the same bits on two runs, at ragged lengths (S not a
+    multiple of the tiles or of 8)."""
+    dev = _card()
+    assert tfa.bwd_tf32_plan(d) is not None
+    r = np.random.default_rng(13)
+    q, k, v, do = (torch.from_numpy(r.standard_normal((8, 333, d)).astype(np.float32))
+                   .to(dev) for _ in range(4))
+    o, lse = tfa.flash_attention_heads(q, k, v, return_lse=True)
+    first = tfa.flash_attention_bwd_heads(q, k, v, do, o, lse)
+    second = tfa.flash_attention_bwd_heads(q, k, v, do, o, lse)
+    assert all(torch.equal(a, b_) for a, b_ in zip(first, second))
 
 
 @pytest.mark.cuda

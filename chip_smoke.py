@@ -6,7 +6,8 @@
 With --f32-table it runs phase 2 in float32 alone, every case timed by
 device time with its library call under TF32 off and on (and that call's
 kernel named), then counts the launches of the float32 paths (an f32 512px
-and 1024px generate and an f32 fine-tuning step at batch 4, eagerly) and
+and 1024px generate, the 512px one again with K10's gate open, and an f32
+fine-tuning step at batch 4, eagerly) and
 prints, per kernel and path, the device ms, bound and library ms of those
 launches as one JSON line (the float32 columns of PERF.md's kernel table).
 
@@ -48,7 +49,11 @@ Phases, each printing its lines:
    the 1024px UNet's fused ResBlocks, K4 its TF32 route at the 512px and
    1024px generates' proj_in and proj_out (batch 2 and 1, and the tp2
    halves), K9 its at training's batches 4, 8 and 2, SD v2.1's d = 64 and
-   tp2's 4 heads, and phase 8's float32 encoder's K3
+   tp2's 4 heads, K1 its TF32 core at the same forward shapes and its TF32
+   wide kernel at the 1024px and 768px decodes' d = 512, K10 its TF32 route
+   at the float32 512px generate's shapes with the gate open (batch 2;
+   its batches 4 and 8, SD v2.1's and the two-pass mode's batch 1 are
+   checked, not timed), and phase 8's float32 encoder's K3
    and K6 against the kernels they replaced (the float32 cases that no
    path launches are checked, not timed), beside the library call with
    TF32 on. Planted faults must fail
@@ -64,9 +69,13 @@ Phases, each printing its lines:
    gate halves swapped and the LayerNorm's beta dropped; for K1
    an all-zero output, the attention over every other key, with a key bias
    the attention that ignores it, with the row statistics those
-   statistics in natural log, and at d = 512 the wide kernel's walk with
-   each warpgroup's softmax on its own key slice's row maximum (no
-   exchange) and with the two warpgroups' P slices swapped; for K3 the sums
+   statistics in natural log, at d = 512 in bfloat16 the wide kernel's walk
+   with each warpgroup's softmax on its own key slice's row maximum (no
+   exchange) and with the two warpgroups' P slices swapped, and in float32
+   P·V against V's keys in their natural order (the pre-pass's permutation
+   dropped) and, at d = 512, the TF32 wide kernel's two halves of d's
+   scores unsummed; for K10 in float32 the keys past Sk in the TF32 core's
+   last key tile left unmasked; for K3 the sums
    with one cluster rank's rows dropped and with batch b + 1's rows read for
    b; for K9 in float32 the gradients from a K-major copy of q and dO in
    natural query order or of k in natural key order (the fragments'
@@ -111,7 +120,10 @@ Phases, each printing its lines:
    image bit-equal, the replay's launches per shape the eager call's, K2's,
    K5's, K4's, K6's and K7's on their TF32 route, the device's launches of
    one replayed call the graphs' records (the TF32 kernels), and the
-   K-major weight copies' bytes;
+   K-major weight copies' bytes; then the float32 1024px decode of a 128²
+   latent through the same pipeline, replayed against eager: the image
+   bit-equal, K1's one launch (d = 512) on the TF32 wide kernel, the
+   device's launches of one replayed decode the graph's record;
 5. sdtpu_torch.finetune.run_finetune at SD v1.4 width and depth, 512x512,
    from a folder of synthetic PNGs: the latent cache through the port's
    VAE encoder and CLIP (their graphs replayed), then 3 AdamW steps at
@@ -125,7 +137,7 @@ Phases, each printing its lines:
    algorithms, after two eager f32 runs under its defaults whose differences are
    printed), each the same seeded run eagerly and replayed, every loss, the masters,
    the optimizer state and the EMA bit-equal, K1 and K9 on their dtype's routes
-   (the f32 step's K9 on its TF32 kernel), each run's
+   (the f32 step's K1 and K9 on their TF32 kernels), each run's
    memory over its replays, and one
    replayed step under the profiler, whose device launches of K1's and
    K9's kernels must be the graph's record (DEVICE_KERNELS);
@@ -238,11 +250,12 @@ launched there with no case in phase 2 is a failure. Every launched
 kernel also carries `device_ms` (the same launches by device time), and K5,
 K9, K2, K6, K1, K4, K10, K7 and K3 `replaced_device_ms` (those of the
 kernels their bf16 route replaced: the WMMA kernels, K3's partials kernel with
-its sum; for the float32 launches of K2, K5, K4, K6 and K7 the WMMA route
-their TF32 route replaced) and `sources_by_route` with `launches_by_route`
-("bfloat16 sm90", "float32 tf32", ...). The graph phase's float32 generate
-adds K2's, K5's, K4's, K6's and K7's launches under "dtype=float32" shape keys,
-timed by phase 2's float32 A/B. K3's `library_ms` is torch.var_mean over the rows,
+its sum; for the float32 launches of K2, K5, K4, K6, K7 and K1 the WMMA
+route their TF32 route replaced) and `sources_by_route` with
+`launches_by_route` ("bfloat16 sm90", "float32 tf32", ...). The graph
+phase's float32 generate adds K2's, K5's, K4's, K6's and K7's launches, and
+its float32 1024px decode K1's, under "dtype=float32" shape keys, timed by
+phase 2's float32 A/B. K3's `library_ms` is torch.var_mean over the rows,
 per channel; K8 has none (F.group_norm and F.silu are two calls). K5's
 `library_ms` is both of its
 products as two torch.matmul calls; K2's and K10's are SDPA on the core
@@ -597,14 +610,16 @@ def kernel_cases(dtype, dev):
     # UNet batches: 2 (a lone request), 4, 8 (its batch of 4); and SD v2.1's
     # at 768px, the 48² level's (10 heads, a context of width 1024; 96² has
     # more than 4096 tokens, 24²'s 576 are no multiple of 128); kt/vt the
-    # transposed views the UNet hands over, key_valid the padded prompts'
+    # transposed views the UNet hands over, key_valid the padded prompts';
+    # in float32 also the two-pass mode's batch 1 (checked, not timed)
     for b, s, c, dctx, nh in ([(b, s, c, 768, 8) for b in (2, 4, 8) for s, c in (
-            (4096, 320), (1024, 640), (256, 1280))] + [(2, 2304, 640, 1024, 10)]):
+            (4096, 320), (1024, 640), (256, 1280))] + [(2, 2304, 640, 1024, 10)]
+            + ([(1, 4096, 320, 768, 8)] if dtype == torch.float32 else [])):
         x, ctx = rnd(b, s, c), rnd(b, 77, dctx)
         wk, wv = rnd(dctx, c, scale=dctx ** -0.5), rnd(dctx, c, scale=dctx ** -0.5)
         kt, vt = (torch.matmul(ctx, w).transpose(1, 2) for w in (wk, wv))
         valid = torch.arange(77, device=dev)[None] < torch.tensor(
-            [2, 9] * (b // 2), device=dev)[:, None]
+            ([2, 9] * b)[:b], device=dev)[:, None]
         args = (x, kt, vt, rnd(c, scale=0.1) + 1.0, rnd(c, scale=0.1),
                 rnd(c, c, scale=c ** -0.5), rnd(c, c, scale=c ** -0.5), rnd(c, scale=0.1))
         # the attention core alone, on the heads of the Q product and of K
@@ -640,7 +655,10 @@ def kernel_cases(dtype, dev):
                           fused_cross_attention.fused_cross_attention_kv_plain, args,
                           {"key_valid": valid, "n_head": nh},
                           2 * b * s * c * (2 * c + 2 * 77), library=xcore, old=k10_wmma,
-                          yardsticks=(("sublayer by library calls", xsublayer),)))
+                          yardsticks=(("sublayer by library calls", xsublayer),),
+                          # float32: the f32 512px generate's shapes with the
+                          # gate open, timed against the WMMA route in turns
+                          f32=dtype == torch.float32 and b == 2 and nh == 8))
         if b == 2 and nh == 8:  # the entry that projects the context itself (no path runs it)
             cases.append(Case("fused_cross_attention", f"S={s} C={c} B={b} Sk=77",
                               fused_cross_attention.fused_cross_attention,
@@ -654,26 +672,29 @@ def kernel_cases(dtype, dev):
         return [t.view(t.shape[0] // n_head, n_head, *t.shape[1:]) for t in ts]
 
     # K1: the VAE's mid-block attention at 1024px (one head, d=512), a
-    # key-padding bias case (no launch on the main path), and training's
-    # forward at the 64² level of the 512px UNet (8 heads of 40) with the
-    # row statistics K9 takes: batch 4 (phase 5, textual inversion), 8
-    # (--fast) and 2 (LoRA's micro-batch); SD v2.1 at 768px: the VAE's mid
-    # attention at 96² (S 9216, d 512; the encoder's at batch 2 in the
-    # fine-tuning cache build) and training's forward at the UNet's 96²
-    # level (batch 2, 5 heads of 64)
-    for bh, n_head, s, d, bias, lse in ((1, 1, 16384, 512, False, False),
-                                        (16, 8, 4096, 80, True, False),
-                                        (32, 8, 4096, 40, False, True),
-                                        (64, 8, 4096, 40, False, True),
-                                        (16, 8, 4096, 40, False, True),
-                                        (1, 1, 9216, 512, False, False),
-                                        (2, 1, 9216, 512, False, False),
-                                        (10, 5, 9216, 64, False, True)):
-        q, k, v = rnd(bh, s, d), rnd(bh, s, d), rnd(bh, s, d)
+    # key-padding bias case and one with ragged keys as well (no launch on
+    # the main path), and training's forward at the 64² level of the 512px
+    # UNet (8 heads of 40) with the row statistics K9 takes: batch 4 (phase
+    # 5, textual inversion), 8 (--fast) and 2 (LoRA's micro-batch); SD v2.1
+    # at 768px: the VAE's mid attention at 96² (S 9216, d 512; the encoder's
+    # at batch 2 in the fine-tuning cache build) and training's forward at
+    # the UNet's 96² level (batch 2, 5 heads of 64). In float32 (f32=True)
+    # the shapes the float32 paths launch (the decodes' d = 512, training's
+    # forward) are timed against the WMMA route in turns
+    for bh, n_head, s, sk, d, bias, lse in ((1, 1, 16384, 16384, 512, False, False),
+                                            (16, 8, 4096, 4096, 80, True, False),
+                                            (4, 2, 2000, 2100, 40, True, True),
+                                            (32, 8, 4096, 4096, 40, False, True),
+                                            (64, 8, 4096, 4096, 40, False, True),
+                                            (16, 8, 4096, 4096, 40, False, True),
+                                            (1, 1, 9216, 9216, 512, False, False),
+                                            (2, 1, 9216, 9216, 512, False, False),
+                                            (10, 5, 9216, 9216, 64, False, True)):
+        q, k, v = rnd(bh, s, d), rnd(bh, sk, d), rnd(bh, sk, d)
         kb = None
         if bias:
-            kb = torch.where(torch.arange(s, device=dev)[None] < torch.tensor(
-                [[s // 3], [s - 77]], device=dev), 0.0, -1e30).to(torch.float32)
+            kb = torch.where(torch.arange(sk, device=dev)[None] < torch.tensor(
+                [[sk // 3], [sk - 77]], device=dev), 0.0, -1e30).to(torch.float32)
 
         def sdpa(q, k, v, key_bias=None, n_head=1, return_lse=False):
             mask = None if key_bias is None else key_bias[:, None, None, :].to(q.dtype)
@@ -686,12 +707,14 @@ def kernel_cases(dtype, dev):
             return flash_attention._heads(q, k, v, key_bias, n_head, return_lse, "wmma")
 
         cases.append(Case("flash_attention_heads",
-                          f"BH={bh} S={s} d={d}{' bias' if bias else ''}{' lse' if lse else ''}"
+                          f"BH={bh} S={s}{'' if sk == s else f' Sk={sk}'} d={d}"
+                          f"{' bias' if bias else ''}{' lse' if lse else ''}"
                           f"{' v2.1' if s == 9216 else ''}",
                           flash_attention.flash_attention_heads,
                           flash_attention.flash_attention_heads_plain,
-                          (q, k, v, kb, n_head), {"return_lse": lse}, 4 * bh * s * s * d,
-                          library=sdpa, old=k1_wmma))
+                          (q, k, v, kb, n_head), {"return_lse": lse}, 4 * bh * s * sk * d,
+                          library=sdpa, old=k1_wmma,
+                          f32=dtype == torch.float32 and not bias and bh != 2))
 
     # K9: training's backward at the 64² level of the 512px UNet (batch 4,
     # 8 and 2, as K1's), the 1024px UNet's 128² and 64² levels and its 32²
@@ -967,7 +990,7 @@ def kernel_cases(dtype, dev):
                       flash_attention.flash_attention_heads,
                       flash_attention.flash_attention_heads_plain, (q, k, v, None, 4),
                       {"return_lse": True}, 4 * 16 * 4096 * 4096 * 40, library=sdpa4,
-                      old=k1_wmma4))
+                      old=k1_wmma4, f32=dtype == torch.float32))
     o, lse = flash_attention.flash_attention_heads(q, k, v, n_head=4, return_lse=True)
 
     def bwd_plain4(q, k, v, do, o, lse, n_head):
@@ -1023,14 +1046,21 @@ KERNEL_INFO = {
                                  "sdtpu/ops/fused_cross_attention.py:119"),
 }
 # the kernels with two or more routes: route -> sources (K1's main-path
-# launches take two: bf16 at d <= 160 on the Hopper core, the 1024px
-# decode's d = 512 on the wide kernel, and the WMMA kernel stays the f32
-# one; K10's bf16 launches take the Hopper route, the WMMA route it
-# replaced stays the f32 one; K3's launches take the cluster kernel, the
-# partials kernel stays for C not a multiple of 8)
+# launches take four: bf16 at d <= 160 on the Hopper core, the 1024px
+# decode's d = 512 on the wide kernel, and their float32 counterparts on
+# TF32 wgmma; K10's bf16 launches take the Hopper route, its float32 ones
+# (the gate open in float32) the TF32 route; K3's launches take the cluster
+# kernel, the partials kernel stays for C not a multiple of 8; the WMMA
+# kernels stay for the widths without a plan)
 KERNEL_ROUTES = {
+    # K1's float32 launches (the float32 train step, the float32 1024px and
+    # 768px decodes) take the TF32 kernels (routes "tf32" at d <= 160,
+    # "wide_tf32" at d = 512), each after its pre-pass
     "flash_attention_heads": {"sm90": "sdtpu_torch/csrc/attention_sm90.cu",
                               "wide": "sdtpu_torch/csrc/attention_wide_sm90.cu",
+                              "tf32": "sdtpu_torch/csrc/attention_tf32_sm90.cu",
+                              "wide_tf32": "sdtpu_torch/csrc/attention_wide_tf32_sm90.cu "
+                                           "(its pre-pass in attention_tf32_sm90.cu)",
                               "wmma": "sdtpu_torch/csrc/flash_attention.cu"},
     "channel_partials": {"sm90": "sdtpu_torch/csrc/channel_stats_sm90.cu",
                          "partials": "sdtpu_torch/csrc/channel_stats.cu"},
@@ -1041,6 +1071,7 @@ KERNEL_ROUTES = {
                               "wmma": "sdtpu_torch/csrc/gemm.cu"},
     "fused_cross_attention_kv": {
         "sm90": "sdtpu_torch/csrc/gemm_sm90.cu + sdtpu_torch/csrc/attention_sm90.cu",
+        "tf32": "sdtpu_torch/csrc/gemm_tf32_sm90.cu + sdtpu_torch/csrc/attention_tf32_sm90.cu",
         "wmma": "sdtpu_torch/csrc/gemm.cu + sdtpu_torch/csrc/cross_attention.cu"},
     # K2's and K5's float32 launches take the TF32 kernels (route "tf32");
     # their bf16 launches (K5's carry no route in their keys) the Hopper
@@ -1186,9 +1217,11 @@ def launched_key(c: "Case"):
 def _check_flash(c, got, want, dname, failed):
     """K1's check: the output within FLASH_TOL, scaled to the largest
     |reference|, and that tolerance fails an all-zero output, one over
-    every other key and, with a key bias, one that ignores it; with
-    return_lse, the row statistics within LSE_TOL, which fails them taken
-    in natural log. Returns (max abs error of the output, ok, atol, rtol)."""
+    every other key and, with a key bias, one that ignores it; in float32
+    also the TF32 routes' faults (_k1_tf32_faults), in bf16 at d = 512 the
+    wide kernel's; with return_lse, the row statistics within LSE_TOL, which
+    fails them taken in natural log. Returns (max abs error of the output,
+    ok, atol, rtol)."""
     import torch
 
     from sdtpu_torch.ops.flash_attention import flash_attention_heads_plain
@@ -1213,7 +1246,9 @@ def _check_flash(c, got, want, dname, failed):
     if kb is not None:
         wrong["one that ignores the key bias"] = flash_attention_heads_plain(q, k, v, None,
                                                                              n_head)
-    if q.shape[-1] == 512 and kb is None and n_head == 1:
+    if dname == "float32":
+        wrong.update(_k1_tf32_faults(q, k, v, kb, n_head))
+    elif q.shape[-1] == 512 and kb is None and n_head == 1:
         wrong["the wide kernel's walk without the max exchange"] = _k1_wide_walk(
             q, k, v, exchange=False)
         wrong["the wide kernel's walk with the P slices swapped"] = _k1_wide_walk(
@@ -1273,6 +1308,34 @@ def _k1_wide_walk(q, k, v, exchange=True, swap=False):
             o[w] = o[w] * alpha[w] + torch.matmul(pt, vf[:, j * bt:(j + 1) * bt,
                                                          w * cols:(w + 1) * cols])
     return (torch.cat(o, dim=-1) / (l[0] + l[1])).to(q.dtype)
+
+
+def _k1_tf32_faults(q, k, v, kb, n_head) -> dict:
+    """K1's float32 routes' planted faults, in PyTorch ops over [BH, S, d]:
+    P·V against V's keys in their natural order where the fragments expect
+    the pre-pass's order (its permutation dropped: key j of a group of 8
+    meets V's key KEY_POS[j]; the copy's zeros past Sk), and at d = 512 the
+    wide kernel's two warpgroups each taking the softmax of its own half of
+    d's partial scores (the partials not summed)."""
+    import torch
+    import torch.nn.functional as F
+
+    from sdtpu_torch.ops.flash_attention import flash_attention_heads_plain
+
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    sk8 = -(-sk // 8) * 8
+    idx = (torch.arange(sk8, device=v.device).view(-1, 8) // 8 * 8
+           + torch.tensor(KEY_POS, device=v.device)).reshape(-1)[:sk]
+    faults = {"one with V's keys in their natural order": flash_attention_heads_plain(
+        q, k, F.pad(v, (0, 0, 0, sk8 - sk))[:, idx], kb, n_head)}
+    if d > 160:
+        h = d // 2
+        faults["one with the halves of d's scores unsummed"] = torch.cat([
+            flash_attention_heads_plain(q[..., w * h:(w + 1) * h] * (h / d) ** 0.5,
+                                        k[..., w * h:(w + 1) * h], v[..., w * h:(w + 1) * h],
+                                        kb, n_head) for w in range(2)], dim=-1)
+    return faults
 
 
 K10_SCALE_ERR = 0.97  # a K10 core or a K9 dq 3 % small must fail its check
@@ -1368,9 +1431,11 @@ def _check_k10(c, got, want, dname, failed):
     attention term alone (out - x against plain - x, the same difference)
     within FLASH_TOL's fraction of its largest |reference| plus FLASH_TOL's
     rtol of |out| (the output's own rounding). That tolerance fails a term
-    K10_SCALE_ERR of the reference's, and the plain result without the key
-    mask falls outside it around the kernel's masked result. Returns (max
-    abs error, ok, atol of the term, rtol)."""
+    K10_SCALE_ERR of the reference's and, in float32, the sublayer with the
+    keys past Sk in the TF32 core's last tile left unmasked
+    (_k10_tail_unmasked); and the plain result without the key mask falls
+    outside it around the kernel's masked result. Returns (max abs error,
+    ok, atol of the term, rtol)."""
     atol, rtol = TOL[dname]
     err, ok = within(got, want, atol, rtol)
     frac, r = FLASH_TOL[dname]
@@ -1382,13 +1447,42 @@ def _check_k10(c, got, want, dname, failed):
     scaled = x + K10_SCALE_ERR * term
     unmasked = c.plain(*c.args, **{**c.kw, "key_valid": None})
     passes = [within(scaled, want, a, r)[1], within(unmasked, got, a, r)[1]]
+    tail = ""
+    if dname == "float32":
+        passes.append(within(_k10_tail_unmasked(c), want, a, r)[1])
+        tail = f", the keys past Sk in the last tile unmasked: {passes[2]}"
     print(f"kernel {c.name:21s} {dname:8s} {c.shape:30s} max |ref term| {a / frac:.4f}; the "
           f"term's tolerance passes a term x{K10_SCALE_ERR}: {passes[0]}, the unmasked plain "
-          f"result: {passes[1]}", flush=True)
+          f"result: {passes[1]}{tail}", flush=True)
     if any(passes):
         failed.append(f"{c.name} {dname} {c.shape} tolerance too loose or the key mask is "
                       f"not applied")
     return err, ok, a, r
+
+
+def _k10_tail_unmasked(c):
+    """K10's float32 planted fault, in PyTorch ops: the keys past Sk in the
+    TF32 core's last key tile (its K rows and V's copy are zeros there) left
+    unmasked: the plain sublayer over the keys padded with zeros to whole
+    tiles of the core's plan, the padding marked valid."""
+    import torch
+    import torch.nn.functional as F
+
+    from sdtpu_torch.ops.flash_attention import tf32_core_plan
+
+    n_head, valid = c.kw["n_head"], c.kw["key_valid"]
+    if c.name == "fused_cross_attention_kv":  # (x, kt, vt, ...): kt [B, Ci, Sk]
+        ci, sk = c.args[1].shape[1:]
+    else:  # (x, context, ln_g, ln_b, wq, wk, wv, ...): context [B, Sk, Dc]
+        ci, sk = c.args[5].shape[1], c.args[1].shape[1]
+    tile = tf32_core_plan(ci // n_head).tile
+    pad = -(-sk // tile) * tile - sk
+    valid = torch.cat([valid, valid.new_ones((valid.shape[0], pad))], dim=1)
+    if c.name == "fused_cross_attention_kv":
+        args = (c.args[0], F.pad(c.args[1], (0, pad)), F.pad(c.args[2], (0, pad)), *c.args[3:])
+    else:
+        args = (c.args[0], F.pad(c.args[1], (0, 0, 0, pad)), *c.args[2:])
+    return c.plain(*args, **{**c.kw, "key_valid": valid})
 
 
 def _k6_faults(c):
@@ -1740,9 +1834,13 @@ def f32_paths(dev) -> dict:
     dtype's paths at SD v1.4 width and depth, random weights (seed SEED),
     each run eagerly (a replay launches what its eager run does): one
     float32 512px generate and one at 1024px (20 DDIM steps, CFG 7.5,
-    batch 1: what `python -m sdtpu_torch.sample` runs without --bf16), and
-    one float32 fine-tuning step at 512px, batch 4, remat "full"
-    (`finetune`'s default compute dtype). {path: (launches, shapes)}."""
+    batch 1: what `python -m sdtpu_torch.sample` runs without --bf16), the
+    512px one again with K10's gate open (SDTPU_FUSED_XATTN=1, what `serve`
+    runs in float32 with it), and one float32 fine-tuning step at 512px,
+    batch 4, remat "full" (`finetune`'s default compute dtype). {path:
+    (launches, shapes)}."""
+    import os
+
     import torch
 
     from sdtpu_torch.config import SD_V1_4
@@ -1771,6 +1869,13 @@ def f32_paths(dev) -> dict:
             tok, "An ancient mossy stone.", 7.5, 20,
             generator=torch.Generator(device=dev).manual_seed(SEED + 1)))
         if size == 512:
+            os.environ["SDTPU_FUSED_XATTN"] = "1"
+            try:
+                counted("generate 512 xattn", lambda: sd.generate(
+                    tok, "An ancient mossy stone.", 7.5, 20,
+                    generator=torch.Generator(device=dev).manual_seed(SEED + 1)))
+            finally:
+                del os.environ["SDTPU_FUSED_XATTN"]
             g = torch.Generator(device=dev).manual_seed(2)
             hw, b = cfg.latent_size, 4
             batch = (torch.randn((b, hw, hw, 4), generator=g, device=dev),
@@ -2248,6 +2353,13 @@ DEVICE_KERNELS = {
     # padded to 48/64/80/160): the row terms, dK and dV, dQ; its float32
     # route: the pre-pass (the K-major copies and Δ), dK and dV, dQ
     ("flash_attention_heads", "sm90"): {"attention_sm90_kernel": 1},
+    # K1's float32 routes: the pre-pass (q's and k's rounded copies, V's
+    # K-major copy), then the core or the wide kernel; K10's float32 route
+    ("flash_attention_heads", "tf32"): {"tf32_prep_kernel": 1, "attention_tf32_kernel": 1},
+    ("flash_attention_heads", "wide_tf32"): {"tf32_prep_kernel": 1,
+                                             "attention_wide_tf32_kernel": 1},
+    ("fused_cross_attention_kv", "tf32"): {"row_stats_f32_kernel": 1, "gemm_tf32_kernel": 2,
+                                           "tf32_prep_kernel": 1, "attention_tf32_kernel": 1},
     ("flash_attention_bwd_heads", "sm90"): {"sm90_delta_kernel": 1, "sm90_dkdv_kernel": 1,
                                             "sm90_dq_kernel": 1},
     ("flash_attention_bwd_heads", "tf32"): {"tf32_bwd_prep_kernel": 1, "tf32_dkdv_kernel": 1,
@@ -2483,10 +2595,14 @@ def phase_graphs_f32(dev, tok) -> tuple[dict, dict]:
     replay's launch counts per shape equal to the eager call's, K2's, K5's,
     K4's, K6's and K7's launches on their TF32 route, and the device's launches of
     the hand-written kernels in one replayed call, by the profiler, equal to
-    the graphs' records (DEVICE_KERNELS). Returns the TF32 routes' launches
-    of the eager call and the replay (K2, K5, K4, K6, K7; their shape keys under
-    F32_KEY), which join the main paths' totals; the other kernels' float32
-    launches are checked here and timed by --f32-table."""
+    the graphs' records (DEVICE_KERNELS). Then the float32 1024px decode (a
+    128² latent) through the same pipeline, captured, replayed and eager:
+    the image bit-equal, K1's one launch (the mid attention, d = 512) on the
+    TF32 wide kernel, and the device's launches of one replayed decode the
+    graph's record. Returns the TF32 routes' launches of the eager call and
+    the replay (K2, K5, K4, K6, K7) and K1's of the decode (their shape keys
+    under F32_KEY), which join the main paths' totals; the other kernels'
+    float32 launches are checked here and timed by --f32-table."""
     import torch
 
     from sdtpu_torch.config import SD_V1_4
@@ -2559,15 +2675,56 @@ def phase_graphs_f32(dev, tok) -> tuple[dict, dict]:
     if unmapped or not recorded or recorded != on_device:
         bad.append(f"the graphs' records say {recorded} (no device map for {unmapped}), the "
                    f"device ran {on_device}")
+    # the float32 1024px decode (a 128² latent through the same pipeline: K1
+    # at d = 512 on the TF32 wide kernel), eager, captured, replayed
+    lat = torch.randn((1, 128, 128, 4), generator=torch.Generator(device=dev).manual_seed(3),
+                      device=dev)
+    sd._decode_u8(lat)  # the capture (and its warm-up)
+    read_and_zero()
+    take_warmups(cache)
+    img_e = eager._decode_u8(lat)
+    once_d = read_and_zero()
+    before = {k: g.replays for k, g in cache.graphs.items()}
+    img_r = sd._decode_u8(lat)
+    replayed_d = read_and_zero()
+    k1_routes = by_route(once_d[1]["flash_attention_heads"])
+    dev_ms, rows, on_device, recorded, unmapped = traced_launches(
+        "graphs f32 1024px decode device launches",
+        lambda: device_profile(lambda: sd._decode_u8(lat), None),
+        lambda traces: recorded_device_launches(
+            [(g.record, (g.replays - before.get(k, 0) - 1) // (2 * traces))
+             for k, g in cache.graphs.items() if g.replays > before.get(k, 0)]))
+    read_and_zero()
+    equal = bool(torch.equal(img_r, img_e))
+    print(f"graphs f32 1024px decode: replayed image bit-equal to the eager one {equal}; K1 "
+          f"by route {k1_routes} (eager), the replay's launches per shape the eager call's: "
+          f"{replayed_d == once_d}; device launches of the hand-written kernels in one "
+          f"replayed decode, by the profiler {on_device}; by the graph's record {recorded}; "
+          f"their device time {dev_ms:.2f} ms | {card_line()}", flush=True)
+    if not equal:
+        bad.append("the replayed 1024px decode is not the eager one's bits")
+    if k1_routes != {"wide_tf32": 1} or replayed_d != once_d:
+        bad.append(f"the float32 1024px decode's K1 took {k1_routes} (expected one launch on "
+                   f"wide_tf32), the replay's launches {replayed_d[0]} against {once_d[0]}")
+    if unmapped or not recorded or recorded != on_device:
+        bad.append(f"the decode graph's record says {recorded} (no device map for "
+                   f"{unmapped}), the device ran {on_device}")
     print(f"graphs f32: {graph_summary(cache.stats())}; took "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     if bad:
         fail("the graph phase's float32 generate: " + "; ".join(bad))
     del sd, eager
-    return ({n: once[0][n] + replayed[0][n] if n in tf32 else 0 for n in once[0]},
-            {n: {F32_KEY + key: once[1][n].get(key, 0) + replayed[1][n].get(key, 0)
-                 for key in set(once[1][n]) | set(replayed[1][n])} if n in tf32 else {}
-             for n in once[1]})
+    # the totals: the TF32 routes' launches of the generate's eager call and
+    # replay, and K1's of the 1024px decode's
+    runs = ((once, tf32), (replayed, tf32), (once_d, ("flash_attention_heads",)),
+            (replayed_d, ("flash_attention_heads",)))
+    launches = {n: sum(r[0][n] for r, names in runs if n in names) for n in once[0]}
+    shapes = {n: {} for n in once[1]}
+    for r, names in runs:
+        for n in names:
+            for key, k in r[1][n].items():
+                shapes[n][F32_KEY + key] = shapes[n].get(F32_KEY + key, 0) + k
+    return launches, shapes
 
 
 # phase 9: SD v2.1 (SD_V2_1: the OpenCLIP text tower, head width 64, a
@@ -2972,14 +3129,14 @@ def phase_grad(dev) -> None:
           f"(plain) float32: {len(cpu)} gradients, all present and nonzero: "
           f"{not any('no gradient' in b for b in bad)}, worst max_abs_err / max|ref| "
           f"{worst[0]:.3e} ({worst[1]}; tol {frac:g} + {rtol:g}|ref|), launches {fired}, K1 "
-          f"by route {k1_routes} (f32 keeps the WMMA kernel), K9 by route {k9_routes} "
+          f"by route {k1_routes}, K9 by route {k9_routes} "
           f"{'ok' if not bad else 'FAILED'}", flush=True)
     if bad:
         fail("training gradients on the card disagree with the CPU: " + "; ".join(bad))
     if fired != {"flash_attention_heads": 1, "flash_attention_bwd_heads": 1}:
         fail(f"the transformer's training step launched {fired}, expected K1 1, K9 1")
-    if k1_routes != {"wmma": 1}:
-        fail(f"the f32 training step's K1 took {k1_routes}, expected the WMMA kernel")
+    if k1_routes != {"tf32": 1}:
+        fail(f"the f32 training step's K1 took {k1_routes}, expected its TF32 kernel")
     if k9_routes != {"tf32": 1}:
         fail(f"the f32 training step's K9 took {k9_routes}, expected its TF32 kernel")
 
@@ -3369,7 +3526,7 @@ def phase_train_graphs(dev, sd, batches) -> None:
     loss and the masters, the optimizer state (its moments) and the EMA
     after TRAIN_AB_STEPS steps bit-equal, the two runs' K1 and K9
     launches equal, and every K1 launch on its dtype's route (bf16 the
-    Hopper core, f32 the WMMA kernel). After the AdamW A/B, one more
+    Hopper core, f32 the TF32 core). After the AdamW A/B, one more
     replayed step under the profiler: its device launches of the
     hand-written kernels must be the graph's record (DEVICE_KERNELS), its
     device time against its wall gives the busy share, and the launches
@@ -3422,7 +3579,7 @@ def phase_train_graphs(dev, sd, batches) -> None:
         replayed_read = read_and_zero()
         replayed_counts = fired(replayed_read[0])
         k1_routes = by_route(replayed_read[1]["flash_attention_heads"])
-        k1_route = "sm90" if compute == "bfloat16" else "wmma"
+        k1_route = "sm90" if compute == "bfloat16" else "tf32"
         # K9: bf16's Hopper kernel, float32's TF32 one (d = 40)
         k9_routes = by_route(replayed_read[1]["flash_attention_bwd_heads"])
         k9_route = "sm90" if compute == "bfloat16" else "tf32"

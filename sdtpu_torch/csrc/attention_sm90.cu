@@ -7,7 +7,9 @@
 // - K1, sdtpu/ops/flash_attention.py:flash_attention_heads (:220; Pallas
 //   calls :320, :332, :390, :408) at the head widths this file has an
 //   instance for, with its optional key bias and the rows' log-sum-exp that
-//   the backward (K9) takes. d = 512 and f32 stay on csrc/flash_attention.cu.
+//   the backward (K9) takes. d = 512 takes csrc/attention_wide_sm90.cu, and
+//   f32 csrc/attention_tf32_sm90.cu (csrc/attention_wide_tf32_sm90.cu at d =
+//   512).
 //
 // What bounds it on the H100: 4·Sq·Sk·d operations per head against a few
 // [S, d] tensors, compute-bound at every UNet level (0.139 ms at the bf16

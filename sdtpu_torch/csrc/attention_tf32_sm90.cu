@@ -1,9 +1,16 @@
-// K2's attention core in float32 on Hopper's warpgroup tensor-core
-// instructions, TF32 in and f32 accumulators: softmax(q kᵀ · d^-1/2) v per
-// (batch, head), the core of sdtpu/ops/fused_transformer.py:
-// fused_self_attention (its Pallas body `_kernel` :42, called at :145),
-// whose two projections run on csrc/gemm_tf32_sm90.cu. float32 is the
-// default dtype of `sample`, `serve` and `finetune`.
+// The attention core in float32 on Hopper's warpgroup tensor-core
+// instructions, TF32 in and f32 accumulators: softmax(q kᵀ · d^-1/2 +
+// key_bias) v per (batch, head). float32 is the default dtype of `sample`,
+// `serve` and `finetune`. Three kernels of sdtpu run on it:
+// - K2, the core of sdtpu/ops/fused_transformer.py:fused_self_attention
+//   (its Pallas body `_kernel` :42, called at :145), whose two projections
+//   run on csrc/gemm_tf32_sm90.cu;
+// - K1, sdtpu/ops/flash_attention.py:flash_attention_heads (:220; Pallas
+//   calls :320, :332, :390, :408) at d = 40, 64, 80 and 160, with its
+//   optional key bias and the rows' log-sum-exp that the backward (K9)
+//   takes (d = 512 runs on csrc/attention_wide_tf32_sm90.cu);
+// - K10, sdtpu/ops/fused_cross_attention.py (:154, :223), its core over the
+//   77 text keys with the key-padding bias.
 //
 // What bounds it on the H100: 4·Sq·Sk·d operations per head against a few
 // [S, d] tensors, compute-bound at every UNet level at TF32's dense peak
@@ -40,10 +47,33 @@
 //   beside Q in the 227 KB of shared memory, and at 40, where two CTAs then
 //   share an SM (chosen by device time on the H100: PERF.md).
 //
+// What K1 and K10 add:
+// - their q, k and v come unrounded (full-f32 linears in training, K4 or
+//   plain 1x1 convolutions in the decode, ctx·Wk and ctx·Wv in K10), and V
+//   as [S, d] rows, which TF32 cannot read as B. One pre-pass launch
+//   (tf32_prep_kernel, sdk_attention_prep_tf32) writes q and k rounded to
+//   TF32 (cvt.rna) into contiguous [BH][S][d] copies and each head's V as a
+//   K-major copy [d][Sk rounded up to 8], keys in the fragments' order (0,
+//   2, 4, 6, 1, 3, 5, 7 in each group of 8), rounded, zeros past Sk: what
+//   K2's QKV epilogue writes. The core then runs as K2's does. K9's float32
+//   route rounds q and k the same way (cvt.rna), so the P it rebuilds from
+//   this kernel's lse sums to 1 over its own TF32 scores. (Rounding each K
+//   tile in shared memory instead, each thread its own cp.async chunks, was
+//   built and measured slower on the H100: the rounding sat between a
+//   tile's arrival and its barrier; PERF.md.) The wide kernel reads the same
+//   copies.
+// - the key bias (an f32 row [B][Sk], 0 or −1e30, shared by the heads of a
+//   batch element) is read with the tile's scores and added in the log2
+//   domain before the row maximum, s' = fma(s, scale·log2(e),
+//   bias·log2(e)), as csrc/attention_sm90.cu adds it; keys past Sk in the
+//   last tile take no weight (ragged key counts need no padding of k).
+// - with an lse pointer each row's log2-domain log-sum-exp, m + log2(l), is
+//   written once after the final reduction of l (K9 rebuilds P from it).
+//
 // The core reads q and k through their (batch, head, row) strides (K2 hands
 // it the [B, S, 2C] q | k buffer), v from vt and writes o through its
 // strides ([B, S, C], heads merged). The (d, tile, stages, shared memory)
-// plan comes from Python (sdtpu_torch/ops/fused_transformer.py:
+// plan comes from Python (sdtpu_torch/ops/flash_attention.py:
 // tf32_core_plan) and is checked here. (The P fragments' arrays are sized
 // BT / 8 in the lambdas' parameters: a constexpr local there crashes
 // nvcc 12.9's front end.)
@@ -58,14 +88,19 @@ using namespace sm90;
 
 constexpr int F_ROWS = 128, F_NT = 256, F_MAX_SMEM = 232448;
 constexpr float F_LOG2E = 1.4426950408889634f;
+// the V pre-pass: a block copies 32 positions of 128 columns of one head
+constexpr int VT_PREP_ROWS = 32, VT_PREP_COLS = 128;
 
 struct Tf32AttnArgs {
   const float* q; const float* k; const float* vt; float* o;
-  long long q_sb, q_sh, q_ss;  // (batch, head, row) strides of q
-  long long k_sb, k_sh, k_ss;  // of k
-  long long vt_sb, vt_sh;      // vt: (batch, head) strides; element (c, key) at c·sk + pos
-  long long o_sb, o_sh, o_ss;  // of o
-  int n_head, sq, sk, stages;
+  long long q_sb, q_sh, q_ss;    // (batch, head, row) strides of q
+  long long k_sb, k_sh, k_ss;    // of k
+  long long vt_sb, vt_sh, vt_ss; // vt: (batch, head) strides; element (c, pos) at c·vt_ss + pos
+  long long o_sb, o_sh, o_ss;    // of o
+  const float* bias;             // [batch][bias_sb] additive key bias (BIAS instances)
+  long long bias_sb;
+  float* lse;                    // [BH][sq] log2-domain log-sum-exp, or null
+  int n_head, sq, sk, stages, round_o;
   float scale_log2;
 };
 
@@ -100,16 +135,18 @@ __device__ __forceinline__ void load_rows_f32(uint32_t dst, const float* src, lo
   }
 }
 
-// the [DP][BT] tile of vt at keys j0 .. j0 + BT (each row c of vt holds the
-// head's Sk keys, in groups of 8 whole: Sk % 8 == 0); keys past Sk zero
+// the [DP][BT] tile of vt at keys j0 .. j0 + BT (row c of vt holds the
+// head's keys at c·pitch, in groups of 8 whole, zeros past Sk up to the
+// pitch: pitch % 8 == 0); keys at or past the pitch zero
 template <int DP, int BT, int NT>
-__device__ __forceinline__ void load_vt_tile(uint32_t dst, const float* vt, int sk, int j0) {
+__device__ __forceinline__ void load_vt_tile(uint32_t dst, const float* vt, long long pitch,
+                                             int j0) {
   constexpr int CH = BT / 4;
   for (int i = threadIdx.x; i < DP * CH; i += NT) {
     const int c = i / CH, kc = i % CH, key = j0 + kc * 4;
-    const bool ok = key < sk;
+    const bool ok = key < pitch;
     cp_async16_s(dst + (c >> 3) * (BT * 32) + kc * 128 + (c & 7) * 16,
-                 ok ? vt + (long long)c * sk + key : vt, ok);
+                 ok ? vt + (long long)c * pitch + key : vt, ok);
   }
 }
 
@@ -127,8 +164,9 @@ __device__ __forceinline__ void values_mma(float* o, const uint32_t* pf, uint64_
 }
 
 // key tiles of 32 at d <= 64 keep two CTAs on an SM (their registers fit in
-// 128 a thread, their shared memory in half the SM's)
-template <int DP, int BT>
+// 128 a thread, their shared memory in half the SM's). BIAS: K1's and K10's
+// key bias (instances without it compile as K2's core did).
+template <int DP, int BT, bool BIAS>
 __global__ void __launch_bounds__(F_NT, (BT == 32 && DP <= 64) ? 2 : 1)
     attention_tf32_kernel(Tf32AttnArgs a) {
   constexpr int STAGE = 2 * f_tile_bytes<DP>(BT);
@@ -141,13 +179,14 @@ __global__ void __launch_bounds__(F_NT, (BT == 32 && DP <= 64) ? 2 : 1)
   const int q0 = blockIdx.x * F_ROWS;
   const float* K = a.k + bb * a.k_sb + hh * a.k_sh;
   const float* VT = a.vt + bb * a.vt_sb + hh * a.vt_sh;
+  const float* KB = BIAS ? a.bias + bb * a.bias_sb : nullptr;
   const int nk = (a.sk + BT - 1) / BT, stages = a.stages;
   const int ahead = stages - 2;
 
   auto load_stage = [&](int j) {
     const uint32_t st = s_ring + (j % stages) * STAGE;
     load_rows_f32<DP, F_NT>(st, K, a.k_ss, j * BT, BT, a.sk);
-    load_vt_tile<DP, BT, F_NT>(st + f_tile_bytes<DP>(BT), VT, a.sk, j * BT);
+    load_vt_tile<DP, BT, F_NT>(st + f_tile_bytes<DP>(BT), VT, a.vt_ss, j * BT);
   };
 
   load_rows_f32<DP, F_NT>(s_q, a.q + bb * a.q_sb + hh * a.q_sh, a.q_ss, q0, F_ROWS, a.sq);
@@ -198,7 +237,9 @@ __global__ void __launch_bounds__(F_NT, (BT == 32 && DP <= 64) ? 2 : 1)
   // the online softmax of tile j's scores: P = exp2(s·scale·log2(e) − m)
   // rounded to TF32 in place as P·V's A fragments (K step i: (g, key 2t),
   // (g + 8, 2t), (g, 2t + 1), (g + 8, 2t + 1) of keys 8i..), l the sum of the
-  // rounded values; MASK: keys past Sk take no weight
+  // rounded values; MASK: keys past Sk take no weight. BIAS: the scores are
+  // first taken to the log2 domain with the key bias added, so that the
+  // maximum is that of s·scale + bias.
   auto softmax = [&](auto mask, uint32_t(&pf)[BT / 8][4], int j, float(&alpha)[2]) {
     fence_regs<BT / 2>(s);
     if constexpr (decltype(mask)::value) {
@@ -208,7 +249,21 @@ __global__ void __launch_bounds__(F_NT, (BT == 32 && DP <= 64) ? 2 : 1)
         for (int e = 0; e < 2; ++e)
           if (j * BT + 8 * i + 2 * t + e >= a.sk) s[4 * i + e] = s[4 * i + 2 + e] = -INFINITY;
     }
-    const float sl2 = a.scale_log2;
+    // the factor that takes a score to the log2 domain in the max and exp2
+    // below: 1 once BIAS has done so here
+    float sl2 = a.scale_log2;
+    if constexpr (BIAS) {
+#pragma unroll
+      for (int i = 0; i < BT / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = j * BT + 8 * i + 2 * t + e;
+          const float bv = (key < a.sk ? __ldg(KB + key) : 0.f) * F_LOG2E;
+          s[4 * i + e] = fmaf(s[4 * i + e], sl2, bv);
+          s[4 * i + 2 + e] = fmaf(s[4 * i + 2 + e], sl2, bv);
+        }
+      sl2 = 1.f;
+    }
     float mx[2] = {-INFINITY, -INFINITY}, mneg[2];
 #pragma unroll
     for (int i = 0; i < BT / 8; ++i)
@@ -298,13 +353,18 @@ __global__ void __launch_bounds__(F_NT, (BT == 32 && DP <= 64) ? 2 : 1)
   }
   cp_async_wait<0>();
 
-  // O / l, rounded to TF32 (o feeds Wo's product); rows past Sq dropped
+  // O / l, rounded to TF32 where it feeds Wo's product (K2, K10: round_o);
+  // rows past Sq dropped; the rows' log2-domain log-sum-exp m + log2(l),
+  // once a row
   float inv[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
     inv[h] = 1.f / l[h];
+    const int row = q0 + wg * 64 + wl * 16 + g + 8 * h;
+    if (a.lse != nullptr && t == 0 && row < a.sq)
+      a.lse[(long long)bh * a.sq + row] = m[h] + log2f(l[h]);
   }
   float* O = a.o + bb * a.o_sb + hh * a.o_sh;
 #pragma unroll
@@ -313,61 +373,181 @@ __global__ void __launch_bounds__(F_NT, (BT == 32 && DP <= 64) ? 2 : 1)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = q0 + wg * 64 + wl * 16 + g + 8 * h;
-      if (row < a.sq)
-        *reinterpret_cast<float2*>(O + (long long)row * a.o_ss + c) =
-            make_float2(round_tf32(o[4 * i + 2 * h] * inv[h]),
-                        round_tf32(o[4 * i + 2 * h + 1] * inv[h]));
+      if (row < a.sq) {
+        float2 v = make_float2(o[4 * i + 2 * h] * inv[h], o[4 * i + 2 * h + 1] * inv[h]);
+        if (a.round_o) v = make_float2(round_tf32(v.x), round_tf32(v.y));
+        *reinterpret_cast<float2*>(O + (long long)row * a.o_ss + c) = v;
+      }
     }
   }
+}
+
+template <int DP, int BT, bool BIAS>
+cudaError_t launch_instance(const Tf32AttnArgs& a, int BH, int smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(attention_tf32_kernel<DP, BT, BIAS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  attention_tf32_kernel<DP, BT, BIAS>
+      <<<dim3((a.sq + F_ROWS - 1) / F_ROWS, BH), F_NT, smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 template <int DP, int BT>
 cudaError_t launch_attention_tf32(const Tf32AttnArgs& a, int BH, int smem, cudaStream_t stream) {
   if (smem != f_attn_smem<DP, BT>(a.stages) || smem > F_MAX_SMEM) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(attention_tf32_kernel<DP, BT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  attention_tf32_kernel<DP, BT>
-      <<<dim3((a.sq + F_ROWS - 1) / F_ROWS, BH), F_NT, smem, stream>>>(a);
-  return cudaGetLastError();
+  return a.bias ? launch_instance<DP, BT, true>(a, BH, smem, stream)
+                : launch_instance<DP, BT, false>(a, BH, smem, stream);
+}
+
+// the plan's instance: d in {40, 64, 80, 160}, tile = the key rows a tile
+// (32 at d = 40 and 160, 64 at 64 and 80)
+cudaError_t launch_plan(const Tf32AttnArgs& a, int BH, int d, int tile, int smem,
+                        cudaStream_t s) {
+  if (d == 40 && tile == 32) return launch_attention_tf32<40, 32>(a, BH, smem, s);
+  if (d == 64 && tile == 64) return launch_attention_tf32<64, 64>(a, BH, smem, s);
+  if (d == 80 && tile == 64) return launch_attention_tf32<80, 64>(a, BH, smem, s);
+  if (d == 160 && tile == 32) return launch_attention_tf32<160, 32>(a, BH, smem, s);
+  return cudaErrorInvalidValue;
+}
+
+// what every launch of the core takes: strides in whole 16-byte chunks,
+// aligned pointers, a head count that divides BH, at least 3 stages, and
+// vt's pitch a multiple of 8 keys that holds Sk
+bool valid_args(const Tf32AttnArgs& a, int BH) {
+  const long long strides[] = {a.q_sb, a.q_sh, a.q_ss, a.k_sb, a.k_sh, a.k_ss, a.vt_sb,
+                               a.vt_sh, a.vt_ss, a.o_sb, a.o_sh, a.o_ss};
+  for (long long s : strides)
+    if (s % 4) return false;
+  const void* ptrs[] = {a.q, a.k, a.vt, a.o};
+  for (const void* p : ptrs)
+    if (!aligned16(p)) return false;
+  return a.sq > 0 && a.sk > 0 && a.n_head > 0 && BH > 0 && BH % a.n_head == 0 &&
+         a.stages >= 3 && a.vt_ss % 8 == 0 && a.vt_ss >= a.sk && a.bias_sb >= 0 &&
+         reinterpret_cast<uintptr_t>(a.lse) % 4 == 0;
+}
+
+// the pre-pass (K1 and K10; K2's QKV product writes the same in its
+// epilogue): block (x, bh, z) takes positions 32x .. 32x + 31 of (batch,
+// head) bh. z = 0, 1: rows of q, k rounded to TF32 into the contiguous copy
+// [BH][len][d]. z >= 2: columns 128(z − 2) .. of v into the K-major copy
+// vt [BH][d][sk8], position p of each group of 8 holding row (p % 4)·2 + p
+// / 4 of the group (keys 0, 2, 4, 6, 1, 3, 5, 7), rounded, positions past
+// Sk zero. A null source skips its part.
+struct PrepArgs {
+  const float* src[3];               // q, k, v
+  long long sb[3], sh[3], ss[3];     // their (batch, head, row) strides
+  float* dst[3];                     // q's and k's copies, vt
+  int n_head, sq, sk, sk8, d;
+};
+
+__global__ void __launch_bounds__(F_NT) tf32_prep_kernel(PrepArgs a) {
+  __shared__ float tile[VT_PREP_ROWS][VT_PREP_COLS + 1];
+  const int bh = blockIdx.y, bb = bh / a.n_head, hh = bh % a.n_head;
+  const int r0 = blockIdx.x * VT_PREP_ROWS, z = min((int)blockIdx.z, 2);
+  if (a.src[z] == nullptr) return;
+  const float* src = a.src[z] + bb * a.sb[z] + hh * a.sh[z];
+  if (z < 2) {
+    const int len = z == 0 ? a.sq : a.sk, ch = a.d / 4;
+    float* dst = a.dst[z] + (long long)bh * len * a.d;
+    for (int i = threadIdx.x; i < VT_PREP_ROWS * ch; i += F_NT) {
+      const int r = i / ch, c = i % ch, row = r0 + r;
+      if (row >= len) break;
+      const float4 x = *reinterpret_cast<const float4*>(src + (long long)row * a.ss[z] + c * 4);
+      *reinterpret_cast<float4*>(dst + (long long)row * a.d + c * 4) =
+          make_float4(round_tf32(x.x), round_tf32(x.y), round_tf32(x.z), round_tf32(x.w));
+    }
+    return;
+  }
+  if (r0 >= a.sk8) return;
+  const int c0 = (blockIdx.z - 2) * VT_PREP_COLS;
+  const int nc = min(VT_PREP_COLS, a.d - c0), ch = nc / 4;
+  for (int i = threadIdx.x; i < VT_PREP_ROWS * ch; i += F_NT) {
+    const int r = i / ch, c = i % ch, row = r0 + r;
+    const float4 x = row < a.sk ? *reinterpret_cast<const float4*>(src + (long long)row * a.ss[2]
+                                                                   + c0 + c * 4)
+                                : make_float4(0.f, 0.f, 0.f, 0.f);
+    tile[r][4 * c] = x.x;
+    tile[r][4 * c + 1] = x.y;
+    tile[r][4 * c + 2] = x.z;
+    tile[r][4 * c + 3] = x.w;
+  }
+  __syncthreads();
+  float* dst = a.dst[2] + ((long long)bh * a.d + c0) * a.sk8;
+  for (int i = threadIdx.x; i < nc * VT_PREP_ROWS; i += F_NT) {
+    const int c = i / VT_PREP_ROWS, p = i % VT_PREP_ROWS, pos = r0 + p;
+    if (pos >= a.sk8) continue;
+    const int r = (p & ~7) | ((p & 3) * 2 + ((p >> 2) & 1));
+    dst[(long long)c * a.sk8 + pos] = round_tf32(tile[r][c]);
+  }
 }
 
 }  // namespace
 }  // namespace sdk
 
-// o = softmax(q kᵀ · scale) v for each of the BH (batch, head) pairs, f32
-// with TF32 products. Element (row r, column c) of head h of batch b lies at
-// q + b·q_sb + h·q_sh + r·q_ss + c, and likewise in k and o through their own
-// strides (multiples of 4 floats); v is read from vt + b·vt_sb + h·vt_sh, a
-// [d][sk] matrix whose groups of 8 keys are in the order 0, 2, 4, 6, 1, 3,
-// 5, 7 (csrc/gemm_tf32_sm90.cu writes it so). The plan from Python: d in
-// {40, 64, 80, 160}, tile = the key rows a tile (32 at d = 40 and 160, 64 at
-// 64 and 80), `stages` of the ring, smem_bytes. sk % 8 == 0.
-extern "C" int sdk_attention_tf32(const void* q, const void* k, const void* vt, void* o,
-                                  long long q_sb, long long q_sh, long long q_ss, long long k_sb,
-                                  long long k_sh, long long k_ss, long long vt_sb,
-                                  long long vt_sh, long long o_sb, long long o_sh,
-                                  long long o_ss, int BH, int n_head, int sq, int sk, int d,
-                                  float scale, int tile, int stages, int smem_bytes,
-                                  void* stream) {
-  const long long strides[] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, vt_sb, vt_sh,
-                               o_sb, o_sh, o_ss};
-  for (long long s : strides)
-    if (s % 4) return (int)cudaErrorInvalidValue;
-  const void* ptrs[] = {q, k, vt, o};
-  for (const void* p : ptrs)
-    if (!sdk::sm90::aligned16(p)) return (int)cudaErrorInvalidValue;
-  if (sq <= 0 || sk <= 0 || sk % 8 || n_head <= 0 || BH <= 0 || BH % n_head || stages < 3)
-    return (int)cudaErrorInvalidValue;
+// o = softmax(q kᵀ · scale + bias) v for each of the BH (batch, head)
+// pairs, f32 with TF32 products (K2's, K1's and K10's core), from q and k
+// rounded to TF32 (K2's QKV product's epilogue, sdk_attention_prep_tf32's
+// copies, or K10's q from its product's epilogue). Element (row r, column c)
+// of head h of batch b lies at q + b·q_sb + h·q_sh + r·q_ss + c, and
+// likewise in k and o through their own strides (multiples of 4 floats); v
+// is read from vt + b·vt_sb + h·vt_sh, a [d][vt_ss] K-major matrix whose
+// groups of 8 keys are in the order 0, 2, 4, 6, 1, 3, 5, 7
+// (csrc/gemm_tf32_sm90.cu's epilogue or sdk_attention_prep_tf32 writes it
+// so; vt_ss a multiple of 8, at least sk), any sk.
+// bias: null, or the f32 row bias + b·bias_sb of Sk values added to every
+// head of batch b. lse: null, or [BH][sq] f32 that takes each row's
+// log-sum-exp in the log2 domain. round_o: o rounded to TF32 as it is
+// stored (K2's and K10's, which feed Wo's TF32 product), else in full f32
+// (K1's). The plan from Python: d in {40, 64, 80, 160}, tile = the key
+// rows a tile (32 at d = 40 and 160, 64 at 64 and 80), `stages` of the
+// ring, smem_bytes.
+extern "C" int sdk_flash_attention_tf32(
+    const void* q, const void* k, const void* vt, void* o, long long q_sb, long long q_sh,
+    long long q_ss, long long k_sb, long long k_sh, long long k_ss, long long vt_sb,
+    long long vt_sh, long long vt_ss, long long o_sb, long long o_sh, long long o_ss,
+    const float* bias, long long bias_sb, float* lse, int BH, int n_head, int sq, int sk, int d,
+    float scale, int round_o, int tile, int stages, int smem_bytes, void* stream) {
   sdk::Tf32AttnArgs a{static_cast<const float*>(q), static_cast<const float*>(k),
                       static_cast<const float*>(vt), static_cast<float*>(o), q_sb, q_sh, q_ss,
-                      k_sb, k_sh, k_ss, vt_sb, vt_sh, o_sb, o_sh, o_ss, n_head, sq, sk, stages,
-                      scale * sdk::F_LOG2E};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 40 && tile == 32) return (int)sdk::launch_attention_tf32<40, 32>(a, BH, smem_bytes, s);
-  if (d == 64 && tile == 64) return (int)sdk::launch_attention_tf32<64, 64>(a, BH, smem_bytes, s);
-  if (d == 80 && tile == 64) return (int)sdk::launch_attention_tf32<80, 64>(a, BH, smem_bytes, s);
-  if (d == 160 && tile == 32)
-    return (int)sdk::launch_attention_tf32<160, 32>(a, BH, smem_bytes, s);
-  return (int)cudaErrorInvalidValue;
+                      k_sb, k_sh, k_ss, vt_sb, vt_sh, vt_ss, o_sb, o_sh, o_ss, bias, bias_sb,
+                      lse, n_head, sq, sk, stages, round_o != 0, scale * sdk::F_LOG2E};
+  if (!sdk::valid_args(a, BH)) return (int)cudaErrorInvalidValue;
+  return (int)sdk::launch_plan(a, BH, d, tile, smem_bytes, static_cast<cudaStream_t>(stream));
+}
+
+// the float32 cores' inputs (sdk_flash_attention_tf32,
+// sdk_attention_wide_tf32), in one launch: q and k rounded to TF32 into
+// the contiguous copies qr [BH][sq][d] and kr [BH][sk][d], and v into the
+// K-major copy vt [BH][d][sk8] (sk8 = sk rounded up to 8), each group of 8
+// keys in the order 0, 2, 4, 6, 1, 3, 5, 7, rounded, zeros past sk. Element
+// (row r, column c) of head h of batch b of q lies at q + b·q_sb + h·q_sh +
+// r·q_ss + c, and likewise in k and v (strides multiples of 4 floats). A
+// null q, k or v (with its copy) is skipped. d a multiple of 8.
+extern "C" int sdk_attention_prep_tf32(const void* q, long long q_sb, long long q_sh,
+                                       long long q_ss, const void* k, long long k_sb,
+                                       long long k_sh, long long k_ss, const void* v,
+                                       long long v_sb, long long v_sh, long long v_ss, void* qr,
+                                       void* kr, void* vt, int BH, int n_head, int sq, int sk,
+                                       int d, void* stream) {
+  const void* srcs[] = {q, k, v};
+  void* dsts[] = {qr, kr, vt};
+  const long long strides[] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss};
+  for (long long s : strides)
+    if (s % 4) return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < 3; ++i)
+    if ((srcs[i] == nullptr) != (dsts[i] == nullptr) || !sdk::sm90::aligned16(srcs[i]) ||
+        !sdk::sm90::aligned16(dsts[i]))
+      return (int)cudaErrorInvalidValue;
+  if (BH <= 0 || n_head <= 0 || BH % n_head || sq <= 0 || sk <= 0 || d <= 0 || d % 8)
+    return (int)cudaErrorInvalidValue;
+  const int sk8 = (sk + 7) / 8 * 8, rows = sq > sk8 ? sq : sk8;
+  sdk::PrepArgs a{{static_cast<const float*>(q), static_cast<const float*>(k),
+                   static_cast<const float*>(v)},
+                  {q_sb, k_sb, v_sb}, {q_sh, k_sh, v_sh}, {q_ss, k_ss, v_ss},
+                  {static_cast<float*>(qr), static_cast<float*>(kr), static_cast<float*>(vt)},
+                  n_head, sq, sk, sk8, d};
+  sdk::tf32_prep_kernel<<<dim3((rows + sdk::VT_PREP_ROWS - 1) / sdk::VT_PREP_ROWS, BH,
+                               2 + (d + sdk::VT_PREP_COLS - 1) / sdk::VT_PREP_COLS),
+                          sdk::F_NT, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
 }

@@ -4,7 +4,8 @@
 // Pallas calls :320, :332, :390, :408). o = softmax(q kᵀ · d^-1/2 +
 // key_bias) v per (batch, head), f32 statistics, the output in bf16, with
 // K1's optional key bias and the rows' log2-domain log-sum-exp. Narrower
-// heads (d <= 160) take csrc/attention_sm90.cu, f32 csrc/flash_attention.cu.
+// heads (d <= 160) take csrc/attention_sm90.cu; f32 at d = 512
+// csrc/attention_wide_tf32_sm90.cu.
 //
 // What bounds it on the H100: 4·Sq·Sk·d operations (5.5e11 at the 1024px
 // decode: one head, S = 16384), 0.556 ms at the bf16 peak. A 64-row query

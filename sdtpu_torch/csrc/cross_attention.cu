@@ -1,7 +1,9 @@
 // Attention core of K10, sdtpu/ops/fused_cross_attention.py
 // (fused_cross_attention_kv and fused_cross_attention): per head,
 // softmax(q k^T · d^-1/2 + key bias) v over a short key set, the text
-// context (77 tokens).
+// context (77 tokens). The route of the shapes neither Hopper route (bf16:
+// csrc/attention_sm90.cu, f32: csrc/attention_tf32_sm90.cu) has a plan for,
+// and the route they are timed against (route "wmma").
 //
 // Inputs: q [B, S, C] (the LN(x)·Wq product of the shared GEMM), kt and vt
 // [B, C, Sk] (sdtpu's transposed layout) read through their strides, so a

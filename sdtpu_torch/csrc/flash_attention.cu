@@ -1,10 +1,12 @@
 // K1: flash attention forward, sdtpu/ops/flash_attention.py:flash_attention_heads
 // (its four Pallas bodies: _fullk_kernel, _fullk_bias_kernel, _flash_kernel
 // and _flash_ot_kernel; the full-K and transposed-output forms are TPU layout
-// choices, so one online-softmax kernel covers them all). Its route in f32
-// and at head widths the Hopper core (csrc/attention_sm90.cu) has no
-// instance for, the VAE's d = 512 among them; bf16 at d <= 160 takes the
-// core.
+// choices, so one online-softmax kernel covers them all). Its route at the
+// head widths the Hopper kernels have no instance for (bf16:
+// csrc/attention_sm90.cu and csrc/attention_wide_sm90.cu; f32:
+// csrc/attention_tf32_sm90.cu at d = 40, 64, 80, 160 and
+// csrc/attention_wide_tf32_sm90.cu at d = 512), and the route they are
+// timed against (route "wmma").
 //
 // o = softmax(q k^T · d^-1/2 + key_bias) v per (batch, head), f32 statistics,
 // output in the input type. key_bias is an optional additive f32 row

@@ -157,6 +157,17 @@ __device__ __forceinline__ void wgmma_tf32_rs_n256(float* d, const uint32_t* a, 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d[0..4) += A (descriptor, K-major) · B (descriptor, K-major), TF32, m64n8k8
+__device__ __forceinline__ void wgmma_tf32_ss_n8(float* d, uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3}, "
+      "%4, %5, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(1));
+}
+
 // d[0..8) += A (descriptor, K-major) · B (descriptor, K-major), TF32, m64n16k8
 __device__ __forceinline__ void wgmma_tf32_ss_n16(float* d, uint64_t a, uint64_t b) {
   asm volatile(

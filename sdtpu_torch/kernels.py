@@ -63,7 +63,11 @@ _SIGNATURES = {
     "sdk_row_stats_f32": [_P, _LL, _P, _I, _I, _F, _P],
     "sdk_gemm_tf32": [_P, _LL, _P, _LL, _P, _P, _P, _P, _P, _LL, _P, _LL, *[_I] * 5, _P,
                       *[_I] * 7, _P],
-    "sdk_attention_tf32": [*[_P] * 4, *[_LL] * 11, *[_I] * 5, _F, *[_I] * 3, _P],
+    "sdk_flash_attention_tf32": [*[_P] * 4, *[_LL] * 12, _P, _LL, _P, *[_I] * 5, _F,
+                                 *[_I] * 4, _P],
+    "sdk_attention_prep_tf32": [*([_P, *[_LL] * 3] * 3), *[_P] * 3, *[_I] * 5, _P],
+    "sdk_attention_wide_tf32": [*[_P] * 4, *[_LL] * 12, _P, _LL, _P, *[_I] * 5, _F,
+                                *[_I] * 3, _P],
     "sdk_conv": [_I, _P, _I, _LL, _P, _I, _P, _P, _P, _LL, _P, _P, _P, _P,
                  _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "sdk_group_norm_silu": [_I, _P, _P, _P, _P, _I, _LL, _I, _I, _P],

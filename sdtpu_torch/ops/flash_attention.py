@@ -9,14 +9,23 @@ scaling of q and k. It replaces the Pallas `_fullk_kernel`,
 (sdtpu/ops/flash_attention.py:320, :332, :390, :408) with an online
 softmax over key tiles that never holds the [Sq, Sk] score matrix in HBM,
 compute-bound (4·Sq·Sk·d flops). For training it also writes each row's
-log-sum-exp. Three routes, chosen by fwd_route: bf16 at the head widths
-the Hopper core has an instance for (padded to 48, 64, 80 or 160:
-training's d = 40) takes csrc/attention_sm90.cu, K2's wgmma core with the
-key bias and the log-sum-exp; bf16 at d = 512 (the VAE decoder's
-mid-block attention on the 1024px main path: one head, S = 16384) takes
-csrc/attention_wide_sm90.cu, whose two warpgroups split O by columns and S
-by keys (see that source); f32 and the other widths take
-csrc/flash_attention.cu (WMMA).
+log-sum-exp. Five routes, chosen by fwd_route, each launch counted under
+its own: bf16 at the head widths the Hopper core has an instance for
+(padded to 48, 64, 80 or 160: training's d = 40) takes
+csrc/attention_sm90.cu, K2's wgmma core with the key bias and the
+log-sum-exp ("sm90"); bf16 at d = 512 (the VAE decoder's mid-block
+attention on the 1024px and 768px main paths: one head, S = 16384 and
+9216) takes csrc/attention_wide_sm90.cu, whose two warpgroups split O by
+columns and S by keys ("wide"). float32 (the default dtype of `sample`
+and `finetune`) at d = 40, 64, 80 and 160 takes csrc/attention_tf32_sm90.cu,
+K2's TF32 wgmma core with the key bias and the log-sum-exp ("tf32");
+float32 at d = 512 takes csrc/attention_wide_tf32_sm90.cu, whose two
+warpgroups split d and add their partial scores through shared memory
+("wide_tf32"). Both float32 kernels read their inputs from one pre-pass
+launch (tf32_copies): q and k rounded to TF32 (a descriptor read would
+truncate them), and V as a K-major copy (TF32 reads B only K-major: each
+head's [d][Sk rounded up to 8], keys in the register fragments' order,
+rounded). The other widths take csrc/flash_attention.cu (WMMA, "wmma").
 
 K9, the gradients (dq, dk, dv) of mask-free attention, replaces the Pallas
 `_fullk_bwd_kernel` (sdtpu/ops/flash_attention.py:531, called at :613) with
@@ -204,19 +213,158 @@ def wide_sm90_plan(d: int) -> WidePlan | None:
     return WidePlan(WIDE_DPAD, WIDE_TILE, smem)
 
 
-def fwd_route(dtype, d: int, bias: bool) -> CorePlan | WidePlan | None:
-    """K1's route for bf16: the Hopper core's plan (csrc/attention_sm90.cu)
+# csrc/attention_tf32_sm90.cu (K2's core, and K1's and K10's float32
+# route): the head widths it has an instance for, its 128 query rows a CTA,
+# and at most this many stages of key tiles
+TF32_CORE_WIDTHS = (40, 64, 80, 160)
+TF32_CORE_ROWS, TF32_CORE_MAX_STAGES = 128, 4
+
+
+class Tf32CorePlan(NamedTuple):
+    """One launch of csrc/attention_tf32_sm90.cu: key tiles of `tile` rows,
+    the ring's stages, the dynamic shared memory."""
+    tile: int
+    stages: int
+    smem: int
+
+
+# the key tile of each head width's instance (chosen by device time on the
+# H100, where both were built: at d = 40, S = 4096, B = 2, tiles of 32 with
+# two CTAs an SM 0.3736 ms, of 64 0.4021; at d = 64, S = 9216, 64 1.9136
+# ms, 32 1.9533; PERF.md)
+TF32_CORE_TILE = {40: 32, 64: 64, 80: 64, 160: 32}
+
+
+def tf32_core_plan(d: int) -> Tf32CorePlan | None:
+    """The float32 core's plan at head width d, or None where it has no
+    instance: Q's 128 rows resident beside `stages` stages of a K tile and a
+    Vᵀ tile of f32, TF32_CORE_TILE[d] keys a tile (64 at d = 64 and 80; 32
+    at d = 160, where three stages of 64 would not fit, and at d = 40, where
+    two CTAs then share an SM). A key bias takes no shared memory (each
+    thread reads its keys' values with the tile's scores), so the plan is
+    the same with and without one."""
+    if d not in TF32_CORE_WIDTHS:
+        return None
+    tile = TF32_CORE_TILE[d]
+    q = TF32_CORE_ROWS * d * 4
+    stage = 2 * tile * d * 4
+    stages = min(TF32_CORE_MAX_STAGES, (kernels.SMEM_LIMIT - q) // stage)
+    return Tf32CorePlan(tile, stages, q + stages * stage) if stages >= 3 else None
+
+
+# csrc/attention_wide_tf32_sm90.cu: 64 query rows a CTA (two warpgroups,
+# each owning half of d in Q, K and O), Q resident, key tiles of 8 in two
+# stages (a K and a Vᵀ tile each), and each warpgroup's 64 x 8 partial
+# scores to exchange
+WIDE_TF32_TILE, WIDE_TF32_STAGES = 8, 2
+
+
+class WideTf32Plan(NamedTuple):
+    """One launch of csrc/attention_wide_tf32_sm90.cu (K1's float32 route
+    at d = 512): the padded head width, the key tiles' rows and the dynamic
+    shared memory."""
+    dpad: int
+    tile: int
+    smem: int
+
+
+def wide_tf32_plan(d: int) -> WideTf32Plan | None:
+    """The float32 wide kernel's plan for head width d (those that pad to
+    512), or None: Q (64 rows of 512 f32, 128 KB), two stages of a K and a
+    Vᵀ tile of 8 keys (16 KB each) and the two warpgroups' partial scores
+    (4 KB)."""
+    if d <= 0 or d % 8 or -(-d // 16) * 16 != WIDE_DPAD:
+        return None
+    t = WIDE_TF32_TILE
+    smem = (WIDE_ROWS * WIDE_DPAD * 4 + WIDE_TF32_STAGES * 2 * t * WIDE_DPAD * 4
+            + WIDE_WARPGROUPS * 128 * (t // 2) * 4)
+    return WideTf32Plan(WIDE_DPAD, t, smem)
+
+
+def fwd_route(dtype, d: int, bias: bool
+              ) -> CorePlan | WidePlan | Tf32CorePlan | WideTf32Plan | None:
+    """K1's route: for bf16 the Hopper core's plan (csrc/attention_sm90.cu)
     at the head widths it has an instance for (d = 40, 64, 80, 160 and the
     others that pad to 48, 64, 80 or 160), the wide kernel's
     (csrc/attention_wide_sm90.cu) at d = 512 (and the widths that pad to
-    it); else None: f32 and the other widths take csrc/flash_attention.cu."""
-    if dtype != torch.bfloat16:
-        return None
-    return core_sm90_plan(d, bias) or wide_sm90_plan(d)
+    it); for float32 the TF32 core's (csrc/attention_tf32_sm90.cu) at d =
+    40, 64, 80 and 160, the TF32 wide kernel's
+    (csrc/attention_wide_tf32_sm90.cu) at the widths that pad to 512; else
+    None: the other widths take csrc/flash_attention.cu."""
+    if dtype == torch.bfloat16:
+        return core_sm90_plan(d, bias) or wide_sm90_plan(d)
+    if dtype == torch.float32:
+        return tf32_core_plan(d) or wide_tf32_plan(d)
+    return None
 
 
 # the route a plan's launches are counted under
-ROUTE_NAMES = {CorePlan: "sm90", WidePlan: "wide", type(None): "wmma"}
+ROUTE_NAMES = {CorePlan: "sm90", WidePlan: "wide", Tf32CorePlan: "tf32",
+               WideTf32Plan: "wide_tf32", type(None): "wmma"}
+
+
+def fwd_plan(dtype, d: int, bias: bool, route: str = "auto"
+             ) -> CorePlan | WidePlan | Tf32CorePlan | WideTf32Plan | None:
+    """The plan a K1 launch takes on route "auto" (fwd_route) or "wmma"
+    (None: the WMMA kernel whatever the dtype, for timing the kernels
+    against each other). Raises on any other route."""
+    if route == "auto":
+        return fwd_route(dtype, d, bias)
+    if route == "wmma":
+        return None
+    raise ValueError(f"flash attention: no route {route!r}")
+
+
+def tf32_copies(q, k, v):
+    """The float32 cores' inputs, in one pre-pass launch
+    (sdk_attention_prep_tf32), from [B, H, S, d] views (f32 on the card,
+    strides multiples of 4 floats; q or k None to skip it): q and k rounded
+    to TF32 into contiguous [B, H, S, d] copies, and v's K-major copy [B·H,
+    d, Sk rounded up to 8] that P·V reads as its B operand, each group of 8
+    keys in the order 0, 2, 4, 6, 1, 3, 5, 7, rounded, zeros past Sk.
+    Returns (q's, k's, v's); allocated here, so that under a graph's capture
+    they come from the graph's pool."""
+    b, h, sk, d = v.shape
+    sq = sk if q is None else q.shape[2]
+
+    def rows(t, n):
+        if t is None:
+            return None, (None, 0, 0, 0)
+        return (torch.empty((b, h, n, d), dtype=torch.float32, device=v.device),
+                (t.data_ptr(), *t.stride()[:3]))
+
+    qr, qa = rows(q, sq)
+    kr, ka = rows(k, sk)
+    vt = torch.empty((b * h, d, -(-sk // 8) * 8), dtype=torch.float32, device=v.device)
+    kernels.check(kernels.lib().sdk_attention_prep_tf32(
+        *qa, *ka, v.data_ptr(), *v.stride()[:3], kernels.ptr(qr), kernels.ptr(kr),
+        vt.data_ptr(), b * h, h, sq, sk, d, kernels.stream(v)), "sdk_attention_prep_tf32")
+    return qr, kr, vt
+
+
+def attend_tf32(q, k, vt, key_bias, out, lse, plan: Tf32CorePlan | WideTf32Plan,
+                round_o: bool = False) -> None:
+    """One launch of a float32 core over [B, H, S, d] views of q, k and out
+    (their own strides), v read from vt (tf32_copies' [B·H, d, Sk8]), q and k
+    rounded to TF32 (tf32_copies' copies, or a product's rounded output): the TF32
+    core (csrc/attention_tf32_sm90.cu, K1's and K10's) or, on a
+    WideTf32Plan, the wide kernel. key_bias: None or an f32 [B, Sk] row;
+    lse: None or [B·H, Sq] f32; round_o: o rounded to TF32 as it is stored
+    (K10's, which feeds Wo's TF32 product)."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    sk8 = vt.shape[-1]
+    args = (q.data_ptr(), k.data_ptr(), vt.data_ptr(), out.data_ptr(), *q.stride()[:3],
+            *k.stride()[:3], h * d * sk8, d * sk8, sk8, *out.stride()[:3],
+            kernels.ptr(key_bias), sk, kernels.ptr(lse), b * h, h, sq, sk, d, float(d) ** -0.5)
+    if isinstance(plan, WideTf32Plan):
+        name = "sdk_attention_wide_tf32"
+        rc = kernels.lib().sdk_attention_wide_tf32(*args, *plan, kernels.stream(q))
+    else:
+        name = "sdk_flash_attention_tf32"
+        rc = kernels.lib().sdk_flash_attention_tf32(*args, int(round_o), *plan,
+                                                    kernels.stream(q))
+    kernels.check(rc, name)
 
 
 def _attend(q, k, v, key_bias, out, lse=None, route: str = "auto"):
@@ -227,6 +375,7 @@ def _attend(q, k, v, key_bias, out, lse=None, route: str = "auto"):
     against each other; "auto" chooses by fwd_route."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
+    plan = fwd_plan(q.dtype, d, key_bias is not None, route)
     if kernels.on_cpu(q, k, v, key_bias, out, lse):
         return _attend_plain(q, k, v, key_bias, out,
                              None if lse is None else lse.view(b, h, sq))
@@ -243,7 +392,6 @@ def _attend(q, k, v, key_bias, out, lse=None, route: str = "auto"):
         raise ValueError("flash attention: " + ", ".join(bad))
     if key_bias is not None:
         key_bias = key_bias.float().reshape(b, sk).contiguous()
-    plan = fwd_route(q.dtype, d, key_bias is not None) if route == "auto" else None
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *q.stride()[:3],
             *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
     with torch.cuda.device(q.device):
@@ -252,6 +400,10 @@ def _attend(q, k, v, key_bias, out, lse=None, route: str = "auto"):
             rc = kernels.lib().sdk_flash_attention(
                 kernels.dtype_code(q), *ptrs, kernels.ptr(key_bias), kernels.ptr(lse), b * h,
                 h, sq, sk, d, float(d) ** -0.5, kernels.stream(q))
+        elif isinstance(plan, (Tf32CorePlan, WideTf32Plan)):
+            # its two launches check their own return codes
+            name, rc = "attend_tf32", 0
+            attend_tf32(*tf32_copies(q, k, v), key_bias, out, lse, plan)
         elif isinstance(plan, WidePlan):
             name = "sdk_attention_wide_sm90"
             rc = kernels.lib().sdk_attention_wide_sm90(

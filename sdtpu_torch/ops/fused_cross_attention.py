@@ -4,7 +4,7 @@ sdtpu/ops/fused_cross_attention.py: fused_cross_attention_kv and
 fused_cross_attention).
 
 It replaces the Pallas kernels `_kernel_kv` (called at :154) and `_kernel`
-(:223). Two routes, chosen by dtype and plan (sm90_plan):
+(:223). Three routes, chosen by dtype and plan (route_plan):
 
 - bf16 at the head widths the Hopper core has an instance for (padded to
   48, 64, 80 or 160) takes K2's bf16 route without K and V in the first
@@ -17,18 +17,31 @@ It replaces the Pallas kernels `_kernel_kv` (called at :154) and `_kernel`
   head, row) strides and K and V through those of kt/vt's untransposed
   [B, Sk, C] projections (no copy), and o·Wo + bo + x on csrc/gemm_sm90.cu.
   γ, β, the weights and bo are read in x's dtype: no cast a call.
-- f32 (and the shapes without a plan) takes the WMMA kernels: the shared
-  WMMA GEMM (csrc/gemm.cu) with a LayerNorm prologue for LN(x)·Wq,
-  csrc/cross_attention.cu (one block per (query tile, head, batch) stages
-  that head's K and V, at most 128 keys, in shared memory once; one max,
-  exp and sum over all the keys, the key-padding bias from the bool mask
-  itself; the heads merged), and the shared GEMM for o·Wo + bo + x.
+- float32 (the default dtype of `serve`) at the head widths the TF32 core
+  has an instance for (40, 64, 80, 160; tf32_plan) takes K2's float32
+  route without K and V in the first product, five launches: the f32 row
+  statistics, LN(x)·Wq on csrc/gemm_tf32_sm90.cu (the LayerNorm prologue,
+  q rounded to TF32 as it is stored; Wq's K-major copy, fused_mlp.kmajor),
+  K's rounded copy and V's K-major copy in one pre-pass
+  (flash_attention.tf32_copies: the UNet's kt and vt, transposed views of
+  ctx·Wk and ctx·Wv, read as [B, Sk, C] rows; V's 77 keys padded to 80, in
+  the fragments' order, rounded), the core on csrc/attention_tf32_sm90.cu
+  (K1's float32 instances: the key bias as K1 adds it, keys past Sk masked
+  in the last tile, o rounded as it is stored), and o·Wo + bo + x on
+  csrc/gemm_tf32_sm90.cu (route "tf32").
+- the shapes without a plan take the WMMA kernels (route "wmma", also for
+  timing): the shared WMMA GEMM (csrc/gemm.cu) with a LayerNorm prologue
+  for LN(x)·Wq, csrc/cross_attention.cu (one block per (query tile, head,
+  batch) stages that head's K and V, at most 128 keys, in shared memory
+  once; one max, exp and sum over all the keys, the key-padding bias from
+  the bool mask itself; the heads merged), and the shared GEMM for o·Wo +
+  bo + x.
 
 Each launch is counted under its route. fused_cross_attention_kv takes K
 and V already projected and transposed, kt/vt [B, C, Sk] (sdtpu's layout:
 the UNet projects them once per transformer, outside the kernel);
 fused_cross_attention projects the context itself, as the TPU body does,
-on csrc/gemm_sm90.cu in bf16 (the shared GEMM in f32).
+on csrc/gemm_sm90.cu in bf16 and on csrc/gemm_tf32_sm90.cu in float32.
 
 What bounds it on the H100 at SD's shapes: the two C x C projections, 4·S·C²
 flops against 4·S·C bytes of x and out (bf16), compute-bound at the tensor
@@ -45,7 +58,8 @@ from sdtpu_torch import kernels
 from sdtpu_torch.ops import fused_mlp
 from sdtpu_torch.ops.attention import qkv_attention_plain
 from sdtpu_torch.ops.conv import linear
-from sdtpu_torch.ops.flash_attention import NEG_INF, CorePlan, core_sm90_plan
+from sdtpu_torch.ops.flash_attention import (NEG_INF, CorePlan, Tf32CorePlan, attend_tf32,
+                                             core_sm90_plan, tf32_copies, tf32_core_plan)
 from sdtpu_torch.ops.fused_transformer import local_dims
 from sdtpu_torch.ops.groupnorm import layer_norm
 
@@ -81,11 +95,42 @@ def sm90_plan(b: int, s: int, c: int, n_head: int, sk: int, bias: bool,
                     fused_mlp.sm90_plan(m, c, ci, False))
 
 
+class Tf32Plan(NamedTuple):
+    """K10's float32 route: the Q product (LayerNorm prologue, N = Ci, q
+    rounded), the TF32 core (with the key bias when the keys are masked),
+    and the Wo product (bias and residual)."""
+    q: fused_mlp.Tf32Plan
+    core: Tf32CorePlan
+    out: fused_mlp.Tf32Plan
+
+
+def tf32_plan(b: int, s: int, c: int, n_head: int, sk: int,
+              ci: int | None = None) -> Tf32Plan | None:
+    """The float32 route's plans for x [b, s, c] with n_head heads over an
+    inner width ci (C, or a tensor-parallel rank's C / tp) and sk keys, or
+    None where the TF32 kernels have no plan for it (the WMMA route takes
+    it): a head width without a core instance, a LayerNorm wider than the
+    GEMM's prologue takes, or more keys than MAX_KEYS. The core's plan is
+    the same with and without the key bias."""
+    ci = c if ci is None else ci
+    d = ci // n_head
+    core = tf32_core_plan(d) if d * n_head == ci else None
+    if (core is None or c % 8 or ci % 8 or c > fused_mlp.TF32_LN_MAX_K
+            or not 0 < sk <= MAX_KEYS):
+        return None
+    m = b * s
+    return Tf32Plan(fused_mlp.tf32_plan(m, ci, c, False, ln=True), core,
+                    fused_mlp.tf32_plan(m, c, ci, False))
+
+
 def route_plan(dtype, b: int, s: int, c: int, n_head: int, sk: int,
-               bias: bool, ci: int | None = None) -> Sm90Plan | None:
-    """K10's route: the Hopper kernels' plans (sm90_plan) for bf16, else
-    None: f32 (and the bf16 shapes without a plan) take the WMMA kernels."""
-    return sm90_plan(b, s, c, n_head, sk, bias, ci) if dtype == torch.bfloat16 else None
+               bias: bool, ci: int | None = None) -> Sm90Plan | Tf32Plan | None:
+    """K10's route: the Hopper kernels' plans (sm90_plan) for bf16, the TF32
+    kernels' (tf32_plan) for float32, else None: the shapes without a plan
+    take the WMMA kernels."""
+    if dtype == torch.bfloat16:
+        return sm90_plan(b, s, c, n_head, sk, bias, ci)
+    return tf32_plan(b, s, c, n_head, sk, ci) if dtype == torch.float32 else None
 
 
 def fused_cross_attention_kv_plain(x, kt, vt, ln_g, ln_b, wq, wo, bo, key_valid=None,
@@ -206,6 +251,47 @@ def _launch_sm90(x, kt, vt, ln_g, ln_b, wq, wo, bo, key_valid, n_head, eps, plan
     return out
 
 
+def _heads_of(t, n_head):
+    """[B, S, C] rows (unit column stride) -> the [B, n_head, S, C / n_head]
+    view of their heads, through t's own strides."""
+    b, s, c = t.shape
+    return t.as_strided((b, n_head, s, c // n_head), (t.stride(0), c // n_head, t.stride(1), 1))
+
+
+def _launch_tf32(x, k, v, ln_g, ln_b, wq, wo, bo, key_valid, n_head, eps, plan: Tf32Plan,
+                 residual):
+    """The float32 route's five launches on x's device: row statistics,
+    LN(x)·Wq (csrc/gemm_tf32_sm90.cu, q rounded), k's rounded copy and V's
+    K-major copy (tf32_copies), the core with the key bias
+    (csrc/attention_tf32_sm90.cu), o·Wo + bo + x (csrc/gemm_tf32_sm90.cu).
+    k/v: [B, Sk, Ci] rows. The weights' K-major copies are
+    fused_mlp.kmajor's (made once per weight tensor)."""
+    b, s, c = x.shape
+    ci = wq.shape[1]
+    m = b * s
+    ln_g, ln_b, bo = (t.float().contiguous() for t in (ln_g, ln_b, bo))
+    # kmajor keys its copies by the weight tensor itself: handed the model's
+    # own (f32) tensors, not per-call copies
+    w1, w2 = fused_mlp.kmajor(wq.float()), fused_mlp.kmajor(wo.float())
+    bias = None
+    if key_valid is not None:
+        bias = torch.where(key_valid.to(torch.bool), 0.0, NEG_INF).to(torch.float32)
+    stats = torch.empty((m, 2), dtype=torch.float32, device=x.device)
+    q = torch.empty((b, s, ci), dtype=torch.float32, device=x.device)
+    attn = torch.empty((b, s, ci), dtype=torch.float32, device=x.device)
+    out = torch.empty_like(x)
+    fused_mlp.row_stats_f32(x, stats, m, c, eps)
+    fused_mlp.gemm_tf32(x, c, w1, c, q, ci, m, ci, c, plan.q, gamma=ln_g, beta=ln_b,
+                        stats=stats, round_out=True)
+    _, kr, vt = tf32_copies(None, _heads_of(k, n_head), _heads_of(v, n_head))
+    attend_tf32(_heads_of(q, n_head), kr, vt, bias, _heads_of(attn, n_head), None, plan.core,
+                round_o=True)
+    fused_mlp.gemm_tf32(attn, ci, w2, ci, out, c, m, c, ci, plan.out,
+                        bias=bo if residual else None, res=x if residual else None,
+                        ldr=c if residual else 0)
+    return out
+
+
 def _launch(x, kt, vt, ln_g, ln_b, wq, wo, bo, key_valid, n_head, eps, route, residual=True):
     """The sublayer on x's device by route ("auto": by dtype and plan;
     "wmma": the WMMA kernels whatever the dtype). Returns (out, route
@@ -224,6 +310,10 @@ def _launch(x, kt, vt, ln_g, ln_b, wq, wo, bo, key_valid, n_head, eps, route, re
         if plan is None:
             return _launch_wmma(x, kt, vt, ln_g, ln_b, wq, wo, bo, key_valid, n_head,
                                 eps, residual), "wmma"
+        if isinstance(plan, Tf32Plan):
+            return _launch_tf32(x, _rows(kt.transpose(1, 2)), _rows(vt.transpose(1, 2)), ln_g,
+                                ln_b, wq, wo, bo, key_valid, n_head, eps, plan,
+                                residual), "tf32"
         return _launch_sm90(x, kt, vt, ln_g, ln_b, wq, wo, bo, key_valid, n_head, eps,
                             plan, residual), "sm90"
 
@@ -269,9 +359,10 @@ def _cross_attention_kv(x, kt, vt, ln_g, ln_b, wq, wo, bo, key_valid, n_head, ep
 def fused_cross_attention(x, context, ln_g, ln_b, wq, wk, wv, wo, bo, key_valid=None,
                           n_head: int = 8, eps: float = 1e-5):
     """x: [B, S, C]; context: [B, Sk, Dc] -> x + out_proj(attn), K and V
-    projected from the context here (wk, wv: [Dc, C]; bf16 on
-    csrc/gemm_sm90.cu, f32 on the shared GEMM). Otherwise as
-    fused_cross_attention_kv."""
+    projected from the context here (wk, wv: [Dc, C]; on the products of
+    the sublayer's route: csrc/gemm_sm90.cu in bf16, csrc/gemm_tf32_sm90.cu
+    in float32 on the weights' K-major copies, the shared GEMM otherwise).
+    Otherwise as fused_cross_attention_kv."""
     return _cross_attention(x, context, ln_g, ln_b, wq, wk, wv, wo, bo, key_valid, n_head,
                             eps, "auto")
 
@@ -290,23 +381,27 @@ def _cross_attention(x, context, ln_g, ln_b, wq, wk, wv, wo, bo, key_valid, n_he
     x = x.contiguous()
     dt = x.dtype
     ctx = context.to(dt).contiguous()
-    # [B, Sk, 2C]: the keys and the values of every head side by side
+    # [B, Sk, 2C]: the keys and the values of every head side by side, on the
+    # products of the sublayer's route
     kv = torch.empty((b, sk, 2 * c), dtype=dt, device=x.device)
-    # the K/V product on csrc/gemm_sm90.cu in bf16
-    p = None
-    if dt == torch.bfloat16 and route == "auto":
-        p = fused_mlp.sm90_plan(b * sk, c, dc, False)
+    tf32 = route == "auto" and isinstance(
+        route_plan(dt, b, s, c, n_head, sk, key_valid is not None), Tf32Plan)
     with torch.cuda.device(x.device):
         for i, w in enumerate((wk, wv)):
-            w = w.to(dt).contiguous()
-            if p is not None:
+            out = kv[..., i * c:]
+            if tf32:
+                fused_mlp.gemm_tf32(ctx, dc, fused_mlp.kmajor(w.float()), dc, out, 2 * c,
+                                    b * sk, c, dc, fused_mlp.tf32_plan(b * sk, c, dc, False))
+            elif dt == torch.bfloat16 and route == "auto":
+                p = fused_mlp.sm90_plan(b * sk, c, dc, False)
+                w = w.to(dt).contiguous()
                 kernels.check(kernels.lib().sdk_gemm_sm90(
                     ctx.data_ptr(), dc, w.data_ptr(), c, None, None, None, None, None, 0,
-                    kv[..., i * c:].data_ptr(), 2 * c, b * sk, c, dc, 0, p.bn, p.stages,
-                    p.smem, kernels.stream(x)), "sdk_gemm_sm90 (K/V)")
+                    out.data_ptr(), 2 * c, b * sk, c, dc, 0, p.bn, p.stages, p.smem,
+                    kernels.stream(x)), "sdk_gemm_sm90 (K/V)")
             else:
-                kernels.gemm(ctx, w, kv[..., i * c:], M=b * sk, N=c, K=dc, lda=dc, ldw=c,
-                             ldo=2 * c)
+                kernels.gemm(ctx, w.to(dt).contiguous(), out, M=b * sk, N=c, K=dc, lda=dc,
+                             ldw=c, ldo=2 * c)
     kt, vt = kv[..., :c].transpose(1, 2), kv[..., c:].transpose(1, 2)
     out, taken = _launch(x, kt, vt, ln_g, ln_b, wq, wo, bo, key_valid, n_head, eps, route)
     kernels.count(fused_cross_attention, b=b, s=s, c=c, sk=sk, heads=n_head, route=taken)

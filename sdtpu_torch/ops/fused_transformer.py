@@ -44,8 +44,9 @@ from sdtpu_torch import kernels
 from sdtpu_torch.ops import fused_mlp
 from sdtpu_torch.ops.attention import qkv_attention_plain
 from sdtpu_torch.ops.conv import linear
-# the Hopper core's plan, shared with K1's bf16 route
-from sdtpu_torch.ops.flash_attention import CorePlan, core_sm90_plan
+# the Hopper cores' plans, shared with K1's routes (bf16 and float32)
+from sdtpu_torch.ops.flash_attention import (CorePlan, Tf32CorePlan, core_sm90_plan,
+                                             tf32_core_plan)
 from sdtpu_torch.ops.groupnorm import layer_norm
 
 MAX_HEAD_DIM = 160  # shared-memory bound of csrc/attention.cu
@@ -72,42 +73,6 @@ def sm90_plan(b: int, s: int, c: int, n_head: int, ci: int | None = None) -> Sm9
     m = b * s
     return Sm90Plan(fused_mlp.sm90_plan(m, 3 * ci, c, False, ln=True), core,
                     fused_mlp.sm90_plan(m, c, ci, False))
-
-
-# csrc/attention_tf32_sm90.cu: the head widths it has an instance for, its
-# 128 query rows a CTA, and at most this many stages of key tiles
-TF32_CORE_WIDTHS = (40, 64, 80, 160)
-TF32_CORE_ROWS, TF32_CORE_MAX_STAGES = 128, 4
-
-
-class Tf32CorePlan(NamedTuple):
-    """One launch of csrc/attention_tf32_sm90.cu: key tiles of `tile` rows,
-    the ring's stages, the dynamic shared memory."""
-    tile: int
-    stages: int
-    smem: int
-
-
-# the key tile of each head width's instance (chosen by device time on the
-# H100, where both were built: at d = 40, S = 4096, B = 2, tiles of 32 with
-# two CTAs an SM 0.3736 ms, of 64 0.4021; at d = 64, S = 9216, 64 1.9136
-# ms, 32 1.9533; PERF.md)
-TF32_CORE_TILE = {40: 32, 64: 64, 80: 64, 160: 32}
-
-
-def tf32_core_plan(d: int) -> Tf32CorePlan | None:
-    """The float32 core's plan at head width d, or None where it has no
-    instance: Q's 128 rows resident beside `stages` stages of a K tile and a
-    Vᵀ tile of f32, TF32_CORE_TILE[d] keys a tile (64 at d = 64 and 80; 32
-    at d = 160, where three stages of 64 would not fit, and at d = 40, where
-    two CTAs then share an SM)."""
-    if d not in TF32_CORE_WIDTHS:
-        return None
-    tile = TF32_CORE_TILE[d]
-    q = TF32_CORE_ROWS * d * 4
-    stage = 2 * tile * d * 4
-    stages = min(TF32_CORE_MAX_STAGES, (kernels.SMEM_LIMIT - q) // stage)
-    return Tf32CorePlan(tile, stages, q + stages * stage) if stages >= 3 else None
 
 
 class Tf32Plan(NamedTuple):
@@ -197,11 +162,12 @@ def attention_core_tf32(qk, vt, out, n_head: int, plan: Tf32CorePlan) -> None:
     b, s, c2 = qk.shape
     c = c2 // 2
     d = c // n_head
-    rc = kernels.lib().sdk_attention_tf32(
+    rc = kernels.lib().sdk_flash_attention_tf32(
         qk.data_ptr(), qk[..., c:].data_ptr(), vt.data_ptr(), out.data_ptr(),
-        s * c2, d, c2, s * c2, d, c2, n_head * d * s, d * s, s * c, d, c,
-        b * n_head, n_head, s, s, d, float(d) ** -0.5, *plan, kernels.stream(qk))
-    kernels.check(rc, "sdk_attention_tf32")
+        s * c2, d, c2, s * c2, d, c2, n_head * d * s, d * s, s, s * c, d, c,
+        None, 0, None, b * n_head, n_head, s, s, d, float(d) ** -0.5, 1, *plan,
+        kernels.stream(qk))
+    kernels.check(rc, "sdk_flash_attention_tf32")
 
 
 def _attend_tf32(x, ln_g, ln_b, wqkv, wo, bo, n_head, eps, plan: Tf32Plan, out, residual):

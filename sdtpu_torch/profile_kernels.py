@@ -1,7 +1,8 @@
 """Where the time of the port's Hopper kernels goes on one NVIDIA GPU.
 
     python -m sdtpu_torch.profile_kernels
-        [--kernels K5,K9,K6,K2,K1,K4,K10,K7,K3,K5f,K2f,K6f,K7f,K4f,K9f] [--out FILE]
+        [--kernels K5,K9,K6,K2,K1,K4,K10,K7,K3,K5f,K2f,K6f,K7f,K4f,K9f,K1f,K10f]
+        [--out FILE]
 
 At main-path shapes, bf16, random inputs (seeded): K5 at S=1024 C=640 B=2
 and S=256 C=1280 B=2 (csrc/gemm_sm90.cu), K9 at BH=32 S=4096 d=40
@@ -23,9 +24,13 @@ csrc/gemm_tf32_sm90.cu and csrc/attention_tf32_sm90.cu, K6 at the 1024px
 UNet's fused ResBlocks and the decoder's 512², 256² and 64² convs and K7 at
 the decoder's four upsamplers on csrc/conv_tf32_sm90.cu, K4 at the 512px
 and 1024px generates' proj_in and proj_out on the same kernel at one tap,
-and K9 at training's BH=32 S=4096 d=40 and SD v2.1's BH=10 S=9216 d=64 on
-csrc/flash_attention_bwd_tf32_sm90.cu. --kernels picks some of them (all by
-default). Device times are CUDA-graph replays (`device_ms`,
+K9 at training's BH=32 S=4096 d=40 and SD v2.1's BH=10 S=9216 d=64 on
+csrc/flash_attention_bwd_tf32_sm90.cu, K1 (K1f) at the same forward shapes
+and a key-bias case at d=80 on csrc/attention_tf32_sm90.cu and at the
+1024px and 768px decodes' d=512 on csrc/attention_wide_tf32_sm90.cu, and K10
+(K10f) at the f32 512px generate's S=4096/1024/256, B=2, on
+csrc/gemm_tf32_sm90.cu and csrc/attention_tf32_sm90.cu. --kernels picks
+some of them (all by default). Device times are CUDA-graph replays (`device_ms`,
 also what chip_smoke.py times the Hopper kernels by) or torch.profiler
 kernel sums:
 
@@ -61,12 +66,16 @@ kernel sums:
 3. the depth of the rings: K5's 2, 3 or 4 stages (the plan's choice is 4),
    K6's, K4's and K7's 2 to 4 and K2's and K10's core's 3 to 5 where they
    fit;
-4. float32 (K5f, K2f, K6f, K7f, K4f, K9f): each launch of the float32
-   route "tf32" (torch.profiler: K9's pre-pass, which writes the K-major
-   copies and Δ, apart from its dK/dV and dQ kernels); each TF32 product
+4. float32 (K5f, K2f, K6f, K7f, K4f, K9f, K1f, K10f): each launch of the
+   float32 route "tf32" (torch.profiler: K9's pre-pass, which writes the
+   K-major copies and Δ, apart from its dK/dV and dQ kernels; K1's and
+   K10's pre-pass, which rounds q and k and writes V's K-major copy, apart
+   from their core); each TF32 product
    beside cuBLAS's matmul of the same shape with TF32 on and off (K4's x·W
-   by device time); K2's TF32 core beside SDPA (float32: the
-   memory-efficient backend), K9 beside SDPA's backward; K6, K7 and K4 on
+   by device time); K2's and K1's TF32 cores beside SDPA (float32: the
+   memory-efficient backend), K9 beside SDPA's backward; K1's pre-pass and
+   core alone, with and without the lse; K10's products, pre-pass and core
+   alone and the sublayer by library calls; K6, K7 and K4 on
    each tile width (K6 and K4 with and without their prologue) beside
    cuDNN's convolution with TF32 on and off; the whole sublayer against the
    WMMA route it replaced, in turns (wmma, tf32, tf32, wmma); the ring
@@ -585,6 +594,124 @@ def profile_k9f(bh, s, d, n_head, log, gen):
         f"(off) by CUDA events; TF32 bound {1e3 * 5 * 2 * bh * s * s * d / 495e12:.4f} ms")
 
 
+def _sdpa_tf32_ms(fn) -> tuple[float, float]:
+    """fn (an SDPA call, float32) by device time, TF32 on and off."""
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        on = device_ms(fn)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return on, device_ms(fn)
+
+
+def profile_k1f(bh, n_head, s, d, bias, log, gen):
+    """K1's float32 routes (csrc/attention_tf32_sm90.cu at d <= 160,
+    csrc/attention_wide_tf32_sm90.cu at d = 512), section 4: the pre-pass
+    and the core by the profiler; the pre-pass alone, the core alone, with
+    and without the lse (and the bias); the route against the WMMA kernel
+    in turns; SDPA with TF32 on and off."""
+    dev = torch.device("cuda")
+    q, k, v = (torch.randn(bh, s, d, generator=gen, device=dev) for _ in range(3))
+    kb = None
+    if bias:  # a key-padding row a batch element: a third of the keys masked
+        kb = torch.where(torch.arange(s, device=dev)[None] < 2 * s // 3, 0.0, -1e30)
+        kb = kb.expand(bh // n_head, s).contiguous()
+    plan = fa.fwd_route(torch.float32, d, bias)
+    label = f"K1 f32 BH={bh} S={s} d={d}{' bias' if bias else ''} ({plan})"
+    for name, ms in kernel_ms(lambda: fa.flash_attention_heads(q, k, v, kb, n_head,
+                                                               True)).items():
+        log(f"{label}: {name[:72]}: {ms:.4f} ms a call (route {fa.ROUTE_NAMES[type(plan)]})")
+    q4, k4, v4 = (t.view(bh // n_head, n_head, s, d) for t in (q, k, v))
+    qr, kr, vt = fa.tf32_copies(q4, k4, v4)
+    out = torch.empty_like(q4)
+    lse = torch.empty((bh, s), device=dev)
+    parts = [f"pre-pass {device_ms(lambda: fa.tf32_copies(q4, k4, v4)):.4f} ms"]
+    variants = [("core", kb, None), ("core with the lse", kb, lse)]
+    if bias:
+        variants.append(("core without the bias", None, None))
+    for name, b_, l_ in variants:
+        ms = device_ms(lambda: fa.attend_tf32(qr, kr, vt, b_, out, l_, plan))
+        parts.append(f"{name} {ms:.4f} ms")
+    wmma, tf32 = _turns(lambda: fa._heads(q, k, v, kb, n_head, False, "wmma"),
+                        lambda: fa.flash_attention_heads(q, k, v, kb, n_head))
+    mask = None if kb is None else kb[:, None, None, :]
+    on, off = _sdpa_tf32_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask))
+    log(f"{label}: " + "; ".join(parts) + f"; the route {tf32:.4f} ms against the WMMA kernel "
+        f"{wmma:.4f} (in turns); SDPA {on:.4f} (TF32 on) / {off:.4f} (off); TF32 bound "
+        f"{1e3 * 4 * bh * s * s * d / 495e12:.4f} ms")
+
+
+def profile_k10f(b, s, c, n_head, log, gen):
+    """K10's float32 route (csrc/gemm_tf32_sm90.cu and csrc/attention_tf32_sm90.cu),
+    section 4: each launch by the profiler; the Q product, the pre-pass,
+    the core and the Wo product alone beside cuBLAS's matmuls and SDPA with
+    TF32 on; the route against the WMMA route in turns; the sublayer by
+    library calls with TF32 on and off."""
+    dev = torch.device("cuda")
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    sk, d, m = 77, c // n_head, b * s
+    x, ctx = rnd(b, s, c), rnd(b, sk, 768)
+    g, beta = rnd(c, scale=0.1) + 1.0, rnd(c, scale=0.1)
+    wq, wo, bo = rnd(c, c, scale=c ** -0.5), rnd(c, c, scale=c ** -0.5), rnd(c, scale=0.1)
+    kt, vt = (torch.matmul(ctx, rnd(768, c, scale=768 ** -0.5)).transpose(1, 2)
+              for _ in range(2))
+    valid = torch.arange(sk, device=dev)[None] < torch.tensor([2, 9] * (b // 2),
+                                                              device=dev)[:, None]
+    label = f"K10 f32 S={s} C={c} B={b} Sk={sk}"
+    args = (x, kt, vt, g, beta, wq, wo, bo)
+    for name, ms in kernel_ms(lambda: fx.fused_cross_attention_kv(
+            *args, key_valid=valid, n_head=n_head)).items():
+        log(f"{label}: {name[:72]}: {ms:.4f} ms a call (route tf32)")
+    plan = fx.route_plan(torch.float32, b, s, c, n_head, sk, True)
+    bias = torch.where(valid, 0.0, fa.NEG_INF).float()
+    stats = torch.empty(m, 2, device=dev)
+    fm.row_stats_f32(x, stats, m, c, 1e-5)
+    w1, w2 = fm.kmajor(wq), fm.kmajor(wo)
+    q, attn, out = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
+    k, v = kt.transpose(1, 2), vt.transpose(1, 2)
+    k4, v4 = fx._heads_of(k, n_head), fx._heads_of(v, n_head)
+    _, kr, vc = fa.tf32_copies(None, k4, v4)
+    q4 = fx._heads_of(q, n_head)
+    mask = valid[:, None, None, :]
+
+    def library():  # the sublayer by library calls
+        h = F.layer_norm(x, (c,), g, beta)
+        o = F.scaled_dot_product_attention(fx._heads_of(torch.matmul(h, wq), n_head), k4, v4,
+                                           attn_mask=mask)
+        return x + torch.matmul(o.transpose(1, 2).reshape(b, s, c), wo) + bo
+
+    t = {name: device_ms(fn) for name, fn in (
+        ("q", lambda: fm.gemm_tf32(x, c, w1, c, q, c, m, c, c, plan.q, gamma=g, beta=beta,
+                                   stats=stats, round_out=True)),
+        ("pre-pass", lambda: fa.tf32_copies(None, k4, v4)),
+        ("core", lambda: fa.attend_tf32(q4, kr, vc, bias, fx._heads_of(attn, n_head), None,
+                                        plan.core, round_o=True)),
+        ("wo", lambda: fm.gemm_tf32(attn, c, w2, c, out, c, m, c, c, plan.out, bias=bo,
+                                    res=x, ldr=c)))}
+    wmma, tf32 = _turns(lambda: fx._cross_attention_kv(*args, valid, n_head, 1e-5, "wmma"),
+                        lambda: fx.fused_cross_attention_kv(*args, key_valid=valid,
+                                                            n_head=n_head))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        q_cublas = device_ms(lambda: torch.matmul(x, wq))
+        core_sdpa = device_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                                     attn_mask=mask))
+        lib_on = device_ms(library)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    lib_off = device_ms(library)
+    log(f"{label} ({plan.core}): Q product (LayerNorm prologue) {t['q']:.4f} ms, cuBLAS x·Wq "
+        f"{q_cublas:.4f} (TF32 on); pre-pass (k rounded, V's copy) {t['pre-pass']:.4f} ms; "
+        f"core (key bias) {t['core']:.4f} ms, SDPA {core_sdpa:.4f} (TF32 on); Wo product "
+        f"(bias, residual) {t['wo']:.4f} ms; the route {tf32:.4f} ms against the WMMA route "
+        f"{wmma:.4f} (in turns); the sublayer by library calls {lib_on:.4f} (TF32 on) / "
+        f"{lib_off:.4f} (off); TF32 bound {1e3 * 2 * b * s * c * (2 * c + 2 * sk) / 495e12:.4f}"
+        f" ms")
+
+
 def profile_k7f(b, hw, c, co, log, gen):
     """K7's float32 route (csrc/conv_tf32_sm90.cu at four taps), section 4."""
     dev = torch.device("cuda")
@@ -896,7 +1023,7 @@ def profile_k7(b, hw, c, co, log, gen):
 
 
 PROFILES = ("K5", "K9", "K6", "K2", "K1", "K4", "K10", "K7", "K3", "K5f", "K2f", "K6f",
-            "K7f", "K4f", "K9f")
+            "K7f", "K4f", "K9f", "K1f", "K10f")
 
 
 def main(argv=None) -> None:
@@ -970,6 +1097,14 @@ def main(argv=None) -> None:
     if "K9f" in picked:
         for bh, s, d, n_head in ((32, 4096, 40, 8), (10, 9216, 64, 5)):
             profile_k9f(bh, s, d, n_head, log, gen)
+    if "K1f" in picked:
+        for bh, n_head, s, d, bias in ((32, 8, 4096, 40, False), (10, 5, 9216, 64, False),
+                                       (16, 8, 4096, 80, True), (1, 1, 16384, 512, False),
+                                       (1, 1, 9216, 512, False)):
+            profile_k1f(bh, n_head, s, d, bias, log, gen)
+    if "K10f" in picked:
+        for b, s, c in ((2, 4096, 320), (2, 1024, 640), (2, 256, 1280)):
+            profile_k10f(b, s, c, 8, log, gen)
     if "K3" in picked:
         for b, rows, c in K3_SHAPES:
             profile_k3(b, rows, c, log, gen)

@@ -308,10 +308,12 @@ CSRC = Path(tfa.__file__).resolve().parent.parent / "csrc"
 @pytest.mark.parametrize("d,dpad", K1_WIDTHS)
 def test_k1_route(d, dpad, bias):
     """bf16 takes the Hopper core at its instances and the wide kernel at
-    the widths that pad to 512; f32 keeps csrc/flash_attention.cu. The
-    core's plan fits the shared memory with the bias's 64 floats a stage,
-    and keeps the ring stages − 2 tiles ahead."""
-    assert tfa.fwd_route(torch.float32, d, bias) is None
+    the widths that pad to 512; f32 the TF32 core at its instances and the
+    TF32 wide kernel at the widths that pad to 512 (test_torch_tf32_attn.py
+    holds their plans). The core's plan fits the shared memory with the
+    bias's 64 floats a stage, and keeps the ring stages − 2 tiles ahead."""
+    assert tfa.fwd_route(torch.float32, d, bias) == (
+        tfa.tf32_core_plan(d) if d in tfa.TF32_CORE_WIDTHS else tfa.wide_tf32_plan(d))
     plan = tfa.fwd_route(torch.bfloat16, d, bias)
     if dpad is None:
         assert isinstance(plan, tfa.WidePlan) and plan == tfa.wide_sm90_plan(d)
@@ -589,7 +591,9 @@ def _check_k10_plan(b, s, c, heads):
         assert p == tfm.sm90_plan(m, c, c, False)
         assert p.smem <= SMEM_LIMIT and p.grid == (-(-c // p.bn), -(-m // tfm.SM90_BM))
     assert c <= tfm.SM90_LN_MAX_K
-    assert tfx.route_plan(torch.float32, b, s, c, heads, 77, True) is None
+    # float32: the TF32 route (test_torch_tf32_attn.py holds its plans)
+    assert tfx.route_plan(torch.float32, b, s, c, heads, 77, True) == tfx.tf32_plan(
+        b, s, c, heads, 77)
     # without a key mask the core's instance without the bias
     assert tfx.route_plan(torch.bfloat16, b, s, c, heads, 77, False).core == tfa.core_sm90_plan(d)
 

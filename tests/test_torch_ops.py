@@ -415,7 +415,7 @@ def test_kernel_library_name_tracks_sources():
     assert path.parent == kernels.BUILD_DIR and path.suffix == ".so"
     assert sorted(p.name for p in kernels.CSRC.glob("*.cu")) == [
         "attention.cu", "attention_sm90.cu", "attention_tf32_sm90.cu", "attention_wide_sm90.cu",
-        "channel_stats.cu", "channel_stats_sm90.cu", "conv_sm90.cu", "conv_tf32_sm90.cu",
+        "attention_wide_tf32_sm90.cu", "channel_stats.cu", "channel_stats_sm90.cu", "conv_sm90.cu", "conv_tf32_sm90.cu",
         "cross_attention.cu", "flash_attention.cu", "flash_attention_bwd.cu",
         "flash_attention_bwd_sm90.cu", "flash_attention_bwd_tf32_sm90.cu", "gemm.cu",
         "gemm_sm90.cu", "gemm_tf32_sm90.cu", "groupnorm.cu"]

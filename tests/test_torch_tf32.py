@@ -16,6 +16,7 @@ import torch
 from sdtpu_torch import kernels
 from sdtpu_torch.lora import apply_lora
 from sdtpu_torch.models import unet as unet_model
+from sdtpu_torch.ops import flash_attention as tfa
 from sdtpu_torch.ops import fused_mlp as tfm
 from sdtpu_torch.ops import fused_transformer as tft
 
@@ -92,12 +93,12 @@ def test_k2_tf32_core_has_no_other_width(d):
     assert tft.tf32_core_plan(d) is None
 
 
-@pytest.mark.parametrize("d", tft.TF32_CORE_WIDTHS)
+@pytest.mark.parametrize("d", tfa.TF32_CORE_WIDTHS)
 def test_k2_tf32_core_tiles(d):
     """One instance a head width, the plan's tile TF32_CORE_TILE[d]; at d =
     40 two CTAs share an SM (each takes at most half the shared memory)."""
     plan = tft.tf32_core_plan(d)
-    assert plan.tile == tft.TF32_CORE_TILE[d] and plan.smem <= kernels.SMEM_LIMIT
+    assert plan.tile == tfa.TF32_CORE_TILE[d] and plan.smem <= kernels.SMEM_LIMIT
     assert (2 * plan.smem <= kernels.SMEM_LIMIT) == (d == 40)
 
 
@@ -432,7 +433,7 @@ def test_tf32_routes_default_and_capture_on_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", tft.TF32_CORE_WIDTHS)
+@pytest.mark.parametrize("d", tfa.TF32_CORE_WIDTHS)
 def test_k2_tf32_core_on_card_at_each_width(d):
     """The float32 core alone, at each head width's instance, against the
     plain attention on the same

@@ -55,6 +55,20 @@ their sums is written out here:
   column KEY_OF_POS[p], multiplied with the copies' positions. Walks whose
   copies keep natural order (the pre-pass's permutation dropped), and one
   whose dS leaves out Δ, must fail.
+- K1 (csrc/attention_tf32_sm90.cu at d <= 160): the pre-pass rounds q and k
+  to TF32 and writes V's K-major copy (positions in the fragments' order,
+  rounded, zeros past Sk up to a multiple of 8); the core walks key tiles of
+  the plan's width, keys past Sk masked, the key bias added in the log2
+  domain before the maximum, P rounded to TF32 with l summed over the
+  rounded values, lse = m + log2(l), o / l stored unrounded. At d = 512
+  (csrc/attention_wide_tf32_sm90.cu) tiles of 8 keys, S the sum of the two
+  warpgroups' partial products over their halves of d. Walks whose copy
+  keeps V's natural key order, and (at d = 512) whose warpgroups each take
+  their own half's scores unsummed, must fail.
+- K10 (the same core over 77 keys): q = LN(x)·Wq rounded as it is stored,
+  k rounded by the pre-pass, V's copy, the key-padding bias, o rounded as
+  it is stored, o·Wo + bo + x. A walk whose copy keeps V's natural key
+  order must fail.
 
 SiLU is exact here; the kernel's (h + h·tanh(h), h = v / 2, with MUFU's
 tanh) differs by about 2^-11 relative, below TF32's rounding.
@@ -69,10 +83,12 @@ import torch
 
 from sdtpu.ops import flash_attention as jfa
 from sdtpu.ops import fused_conv as jfc
+from sdtpu.ops import fused_cross_attention as jfx
 from sdtpu.ops import fused_mlp as jfm
 from sdtpu.ops import fused_transformer as jft
 from sdtpu_torch.ops import flash_attention as tfa
 from sdtpu_torch.ops import fused_conv as tfc
+from sdtpu_torch.ops import fused_cross_attention as tfx
 from sdtpu_torch.ops import fused_mlp as tfm
 from sdtpu_torch.ops import fused_transformer as tft
 
@@ -523,3 +539,216 @@ def test_k9_tf32_walk_matches_sdtpu(d):
     # natural order: dQ off (k's copy) and dK, dV off (q's and dO's)
     assert close(k9_tf32_walk(*t, permuted=False)) == [False] * 3
     assert close(k9_tf32_walk(*t, delta=False))[:2] == [False, False]
+
+
+# ------------------------------------------------------------ K1, K10
+
+
+def tf32_v_copy(v, permuted=True):
+    """The pre-pass's K-major copy of v [B, H, S, d], as rows by position
+    [B, H, S8, d] (S8 = S rounded up to 8): position p holds key _frag(S8)[p]
+    (permuted=False: key p), rounded, zeros past S."""
+    b, h, s, d = v.shape
+    s8 = -(-s // 8) * 8
+    vp = torch.cat([v, v.new_zeros(b, h, s8 - s, d)], dim=2)
+    return rna(vp[:, :, _frag(s8)] if permuted else vp)
+
+
+def k1_tf32_core_walk(q, k, vs, tile, key_bias=None, round_o=False):
+    """csrc/attention_tf32_sm90.cu's walk over q, k [B, H, S, d] (rounded
+    already: the pre-pass's copies) and vs (tf32_v_copy's rows by position):
+    key tiles of `tile`, keys past Sk masked, the key bias [B, Sk] added in
+    the log2 domain before the maximum, P rounded to TF32 (l over the
+    rounded values), P's fragment column p of each group of 8 = key
+    KEY_OF_POS[p] against the copy's position p. Returns (o / l, rounded
+    when round_o, lse [B, H, Sq] in the log2 domain)."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    sl2 = d ** -0.5 * LOG2E
+    m = torch.full((b, h, sq, 1), -math.inf)
+    l = torch.zeros((b, h, sq, 1))
+    o = torch.zeros((b, h, sq, d))
+    for j0 in range(0, sk, tile):
+        n = min(tile, sk - j0)
+        n8 = -(-n // 8) * 8  # the copy's positions of this tile (zeros past Sk)
+        sc = q @ k[:, :, j0:j0 + n].transpose(-1, -2)
+        if key_bias is None:
+            t = sc * sl2
+        else:
+            t = sc * sl2 + key_bias[:, None, None, j0:j0 + n] * LOG2E
+        t = torch.cat([t, t.new_full((b, h, sq, n8 - n), -math.inf)], dim=-1)
+        m_new = torch.maximum(m, t.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = rna(torch.exp2(t - m_new))
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + p[..., _frag(n8)] @ vs[:, :, j0:j0 + n8]
+        m = m_new
+    o = o / l
+    return (rna(o) if round_o else o), (m + torch.log2(l))[..., 0]
+
+
+def k1_tf32_wide_walk(q, k, vs, key_bias=None, summed=True):
+    """csrc/attention_wide_tf32_sm90.cu's walk over rounded q, k [B, H, S,
+    512] and vs: tiles of 8 keys, each warpgroup's partial scores over its
+    half of d, S = S_0 + S_1 in both, the softmax and P as in the core, each
+    warpgroup's 256 columns of O. summed=False (a planted fault): each
+    warpgroup's softmax on its own half's scores alone. Returns (o, lse)."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    half = d // 2
+    sl2 = d ** -0.5 * LOG2E
+    m = [torch.full((b, h, sq, 1), -math.inf) for _ in range(2)]
+    l = [torch.zeros((b, h, sq, 1)) for _ in range(2)]
+    o = [torch.zeros((b, h, sq, half)) for _ in range(2)]
+    for j0 in range(0, sk, 8):
+        n = min(8, sk - j0)
+        part = [q[..., w * half:(w + 1) * half]
+                @ k[:, :, j0:j0 + n, w * half:(w + 1) * half].transpose(-1, -2)
+                for w in range(2)]
+        for w in range(2):
+            sc = part[0] + part[1] if summed else part[w]
+            t = sc * sl2
+            if key_bias is not None:
+                t = t + key_bias[:, None, None, j0:j0 + n] * LOG2E
+            t = torch.cat([t, t.new_full((b, h, sq, 8 - n), -math.inf)], dim=-1)
+            m_new = torch.maximum(m[w], t.amax(-1, keepdim=True))
+            alpha = torch.exp2(m[w] - m_new)
+            p = rna(torch.exp2(t - m_new))
+            l[w] = l[w] * alpha + p.sum(-1, keepdim=True)
+            o[w] = o[w] * alpha + p[..., _frag(8)] @ vs[:, :, j0:j0 + 8, w * half:(w + 1) * half]
+            m[w] = m_new
+    return torch.cat([o[w] / l[w] for w in range(2)], dim=-1), (m[0] + torch.log2(l[0]))[..., 0]
+
+
+def _flash_close(got, want):
+    """chip_smoke.py's FLASH_TOL for float32: 2^-8 of the largest
+    |reference| + 2^-10 relative."""
+    return bool(np.all(np.abs(got - want) <= 2.0 ** -8 * np.abs(want).max()
+                       + 2.0 ** -10 * np.abs(want)))
+
+
+@pytest.mark.parametrize("d", [40, 64, 160])
+@pytest.mark.parametrize("bias", [False, True], ids=["no_bias", "bias"])
+def test_k1_tf32_walk_matches_sdtpu(d, bias):
+    """K1's float32 walk at d = 40 and 160 (key tiles of 32) and 64 (of 64),
+    two batch elements of two heads, Sq = 200 (a ragged query tile), Sk =
+    200 with the bias (the last key tile ragged, sdtpu pads its keys to 256)
+    and 256 without it, against sdtpu's flash_attention_heads in interpret
+    mode at float32 within chip_smoke.py's FLASH_TOL, the lse within its
+    LSE_TOL (2^-9) of the plain version's. With the bias the padding keys'
+    scores are 30 times the real ones'. V's copy in natural key order fails."""
+    r = np.random.default_rng(180 + d + bias)
+    bh, n_head, sq = 4, 2, 200
+    sk = 200 if bias else 256
+    q, k, v = (r.standard_normal((bh, n, d)).astype(np.float32) for n in (sq, sk, sk))
+    kb = None
+    if bias:
+        kb = np.where(np.arange(sk)[None] < np.array([[70], [150]]), 0.0, -1e30).astype(
+            np.float32)
+        k[np.repeat(kb < 0, n_head, axis=0)] *= 30.0
+    want = _np(jfa.flash_attention_heads(*map(jnp.asarray, (q, k, v)),
+                                         key_bias=None if kb is None else jnp.asarray(kb),
+                                         n_head=n_head, interpret=True))
+    t = [torch.from_numpy(a).view(bh // n_head, n_head, -1, d) for a in (q, k, v)]
+    tkb = None if kb is None else torch.from_numpy(kb)
+    tile = tfa.tf32_core_plan(d).tile
+
+    def walk(permuted=True):
+        o, lse = k1_tf32_core_walk(rna(t[0]), rna(t[1]), tf32_v_copy(t[2], permuted), tile, tkb)
+        return _np(o.reshape(bh, sq, d)), lse.reshape(bh, sq)
+
+    got, lse = walk()
+    assert _flash_close(got, want), float(np.abs(got - want).max())
+    _, plain_lse = tfa.flash_attention_heads_plain(
+        *(x.reshape(bh, -1, d) for x in t), tkb, n_head, return_lse=True)
+    np.testing.assert_allclose(_np(lse), _np(plain_lse), rtol=0, atol=2.0 ** -9)
+    assert not _flash_close(walk(permuted=False)[0], want)
+
+
+@pytest.mark.parametrize("bias", [False, True], ids=["no_bias", "bias"])
+def test_k1_tf32_wide_walk_matches_sdtpu(bias):
+    """K1's float32 walk at d = 512 (the two warpgroups' halves of d), two
+    heads of 200 rows, against sdtpu in interpret mode at float32 within
+    FLASH_TOL; the halves' scores unsummed, and V's copy in natural key
+    order, fail it."""
+    r = np.random.default_rng(190 + bias)
+    bh, s, d = 2, 200, 512
+    q, k, v = (r.standard_normal((bh, s, d)).astype(np.float32) for _ in range(3))
+    kb = None
+    if bias:
+        kb = np.where(np.arange(s)[None] < np.array([[70], [150]]), 0.0, -1e30).astype(
+            np.float32)
+        k[kb < 0] *= 30.0
+    want = _np(jfa.flash_attention_heads(*map(jnp.asarray, (q, k, v)),
+                                         key_bias=None if kb is None else jnp.asarray(kb),
+                                         interpret=True))
+    t = [torch.from_numpy(a).view(bh, 1, s, d) for a in (q, k, v)]
+    tkb = None if kb is None else torch.from_numpy(kb)
+    assert tfa.wide_tf32_plan(d).tile == 8
+
+    def walk(permuted=True, summed=True):
+        o, lse = k1_tf32_wide_walk(rna(t[0]), rna(t[1]), tf32_v_copy(t[2], permuted), tkb,
+                                   summed)
+        return _np(o.reshape(bh, s, d)), lse.reshape(bh, s)
+
+    got, lse = walk()
+    assert _flash_close(got, want), float(np.abs(got - want).max())
+    _, plain_lse = tfa.flash_attention_heads_plain(
+        *(x.reshape(bh, s, d) for x in t), tkb, return_lse=True)
+    np.testing.assert_allclose(_np(lse), _np(plain_lse), rtol=0, atol=2.0 ** -9)
+    assert not _flash_close(walk(summed=False)[0], want)
+    assert not _flash_close(walk(permuted=False)[0], want)
+
+
+def k10_tf32_walk(x, kt, vt, g, b, wq, wo, bo, key_valid, n_head, permuted=True):
+    """K10's float32 route: q = LN(x)·Wq rounded as stored, k rounded and
+    V's copy by the pre-pass, the core with the key-padding bias and o
+    rounded as stored, then o·Wo + bo + x."""
+    bsz, s, c = x.shape
+    d = c // n_head
+
+    def heads(t):
+        return t.reshape(bsz, -1, n_head, d).transpose(1, 2)
+
+    q = rna(_ln_rounded(x, g, b) @ rna(wq))
+    kb = None if key_valid is None else torch.where(key_valid, 0.0, tfa.NEG_INF).float()
+    o, _ = k1_tf32_core_walk(heads(q), rna(heads(kt.transpose(1, 2))),
+                             tf32_v_copy(heads(vt.transpose(1, 2)), permuted),
+                             tfa.tf32_core_plan(d).tile, kb, round_o=True)
+    return x + o.transpose(1, 2).reshape(bsz, s, c) @ rna(wo) + bo
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+@pytest.mark.parametrize("c,n_head", [(80, 2), (128, 2)], ids=["d40", "d64"])
+def test_k10_tf32_walk_matches_sdtpu(c, n_head, masked):
+    """B = 2, S = 200 (a ragged query tile), 77 keys (three tiles of 32 at d =
+    40, two of 64 at d = 64, the last ragged; V's copy padded to 80);
+    masked: the prompts' 2 and 9 real keys, the padding keys' scores 30
+    times larger. Against sdtpu's fused_cross_attention_kv in interpret
+    mode at float32 within TOL, the attention term within FLASH_TOL; V's
+    copy in natural key order fails it."""
+    r = np.random.default_rng(200 + c + masked)
+    b, s, sk = 2, 200, 77
+    x = r.standard_normal((b, s, c)).astype(np.float32)
+    kt, vt = (r.standard_normal((b, c, sk)).astype(np.float32) for _ in range(2))
+    g = (1 + 0.1 * r.standard_normal(c)).astype(np.float32)
+    beta = (0.1 * r.standard_normal(c)).astype(np.float32)
+    wq, wo = ((c ** -0.5 * r.standard_normal((c, c))).astype(np.float32) for _ in range(2))
+    bo = (0.1 * r.standard_normal(c)).astype(np.float32)
+    valid = None
+    if masked:
+        valid = np.arange(sk)[None] < np.array([[2], [9]])
+        kt = np.where(valid[:, None, :], kt, 30.0 * kt).astype(np.float32)
+    args = (x, kt, vt, g, beta, wq, wo, bo)
+    want = _np(jfx.fused_cross_attention_kv(
+        *map(jnp.asarray, args), key_valid=None if valid is None else jnp.asarray(valid),
+        n_head=n_head, interpret=True))
+    targs = [torch.from_numpy(a) for a in args]
+    tvalid = None if valid is None else torch.from_numpy(valid)
+    assert isinstance(tfx.route_plan(torch.float32, b, s, c, n_head, sk, masked), tfx.Tf32Plan)
+    got = _np(k10_tf32_walk(*targs, tvalid, n_head))
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+    a = 2.0 ** -8 * float(np.abs(want - x).max())
+    assert np.all(np.abs(got - want) <= a + 2.0 ** -10 * np.abs(want))
+    wrong = _np(k10_tf32_walk(*targs, tvalid, n_head, permuted=False))
+    assert not np.all(np.abs(wrong - want) <= a + 2.0 ** -10 * np.abs(want))
